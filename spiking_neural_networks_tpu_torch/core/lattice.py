@@ -1,0 +1,256 @@
+"""Single-lattice simulation runtime.
+
+PyTorch counterpart of ``spiking_neural_networks_tpu/core/lattice.py``.  The
+cell grid is one flat dict of per-neuron tensors on ``Lattice.device``;
+``run_lattice(n)`` is a Python loop on the host in place of ``lax.scan``,
+over one of two routes:
+
+* the kernel route: calls of `ops.stencil_kernels.izhikevich_stencil_steps`,
+  each advancing K = `STEPS_PER_LAUNCH` steps (one hand-written CUDA kernel
+  on a GPU, its plain twin on the CPU);
+* the plain route: `lattice_step` once per step, in plain PyTorch (the
+  gather in the XLA path's association).
+
+Histories are read on the device per step and copied to the host once per
+chunk.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import stencil_kernels
+from ..ops.graph import SparseGraph, StencilGraph, radius_offsets
+from ..models.base import NEVER
+from .history import (GridVoltageHistory, history_step_bytes,
+                      resolve_history_chunk)
+from .plasticity import PLASTICITY_NOT_PORTED, STDP
+from ..errors import GraphError
+
+CHEMICAL_NOT_PORTED = (
+    "chemical synapses are not ported to the PyTorch package yet "
+    "(ROADMAP queue 1, item 5)")
+
+
+class Lattice:
+    """A 2-D grid of one neuron model plus a weighted synapse graph, on
+    ``device``.
+
+    ``use_kernel`` picks the route: None (auto) takes the kernel route when
+    the state is on a CUDA device and `stencil_kernels.supports` holds with
+    no neurotransmitter inserted; True takes it wherever that gate holds (on
+    the CPU the wrapper runs the kernel's plain twin); False always runs
+    `lattice_step`.  ``_last_run_fused`` says which route the last chunk ran:
+    ``("kernel", emit)`` or False.
+    """
+
+    def __init__(self, model, id=0, device="cpu"):
+        self.model = model
+        self.id = id
+        self.device = torch.device(device)
+        self.state = None
+        self.graph = None
+        self.rows = self.cols = 0
+        self.electrical_synapse = True
+        self.chemical_synapse = False
+        self.do_plasticity = False
+        self.plasticity = STDP()
+        self.update_grid_history = False
+        self.grid_history = GridVoltageHistory()
+        self.update_graph_history = False
+        self.graph_history = []
+        self.internal_clock = 0
+        # None = auto (history.resolve_history_chunk)
+        self.history_chunk = None
+        self.use_kernel = None
+        self._last_run_fused = False
+
+    # -- construction ---------------------------------------------------------
+    @property
+    def n(self):
+        return self.rows * self.cols
+
+    def populate(self, rows, cols, **overrides):
+        """(Re)build the cell grid from the base model on the lattice's
+        device; ``overrides`` set fields per neuron (a scalar or an (n,)
+        array).  Installs a zero-edge graph."""
+        self.rows, self.cols = rows, cols
+        self.state = self.model.init_state(rows * cols, device=self.device,
+                                           **overrides)
+        self.graph = SparseGraph.empty(self.n, device=self.device)
+
+    def connect_stencil(self, radius=None, offsets=None, weight_fn=None,
+                        keep_prob=1.0, seed=0):
+        """Translation-local connectivity as a `StencilGraph` (offsets within
+        ``radius``, or the given ``offsets``)."""
+        if offsets is None:
+            offsets = radius_offsets(radius)
+        self.graph = StencilGraph.build(self.rows, self.cols, offsets,
+                                        weight_fn=weight_fn,
+                                        keep_prob=keep_prob, seed=seed,
+                                        device=self.device)
+
+    def set_graph(self, graph):
+        if graph.n_post != self.n:
+            raise GraphError("graph does not match lattice dimensions")
+        self.graph = graph
+
+    # -- per-neuron mutation ----------------------------------------------------
+    def apply(self, fn):
+        """fn(state dict) -> state dict, on whole (N,) tensors."""
+        self.state = dict(fn(dict(self.state)))
+
+    def apply_given_position(self, fn):
+        """fn(rr, cc, state) -> state; rr/cc are (N,) position index tensors."""
+        rr, cc = torch.meshgrid(torch.arange(self.rows, device=self.device),
+                                torch.arange(self.cols, device=self.device),
+                                indexing="ij")
+        self.state = dict(fn(rr.reshape(-1), cc.reshape(-1), dict(self.state)))
+
+    def set_dt(self, dt):
+        self.state["dt"] = torch.full_like(self.state["dt"], dt)
+        self.plasticity.set_dt(dt)
+
+    def reset_timing(self):
+        self.internal_clock = 0
+        self.state["last_firing_time"] = torch.full_like(
+            self.state["last_firing_time"], NEVER)
+
+    def reset_history(self):
+        self.grid_history.reset()
+        self.graph_history.clear()
+
+    # -- simulation -------------------------------------------------------------
+    def _history_items(self):
+        if not self.update_grid_history:
+            return ()
+        return (("grid", self.grid_history),)
+
+    def run_lattice(self, iterations):
+        """Advance ``iterations`` steps, in chunks that bound the history
+        readouts kept on the device."""
+        if iterations == 0 or (not self.electrical_synapse
+                               and not self.chemical_synapse):
+            return
+        bps = 0
+        if self.update_grid_history:
+            bps += history_step_bytes(self.grid_history.kind, self.n)
+        if self.update_graph_history:
+            bps += 4 * self.graph.weights.numel()
+        hchunk = resolve_history_chunk(self.history_chunk, bps)
+        remaining = iterations
+        while remaining > 0:
+            chunk = min(remaining, hchunk) \
+                if (self.update_grid_history or self.update_graph_history) \
+                else remaining
+            self._run_chunk(chunk)
+            remaining -= chunk
+
+    def _kernel_route(self, skip_nt):
+        if not (skip_nt and stencil_kernels.supports(
+                self.model, self.graph, self.electrical_synapse,
+                self.chemical_synapse, self.do_plasticity)):
+            return False
+        if self.use_kernel is None:
+            return self.state["v"].is_cuda
+        return bool(self.use_kernel)
+
+    def _run_chunk(self, length):
+        # no neurotransmitter inserted: the NT update is a masked no-op
+        skip_nt = not bool(self.state["nt$mask"].any())
+        readouts = self._history_items()
+        if self._kernel_route(skip_nt):
+            ys = self._run_kernel(length, readouts)
+            self._last_run_fused = ("kernel", bool(readouts))
+        else:
+            ys = self._run_plain(length, readouts, skip_nt)
+            self._last_run_fused = False
+        self.internal_clock += length
+        for name, hist in readouts:
+            hist.extend(ys[name].cpu())
+        if self.update_graph_history:
+            # no plasticity: every step's weights are the current ones
+            w = self.graph.weights.cpu().numpy()
+            self.graph_history.extend(np.repeat(w[None], length, axis=0))
+
+    def _run_kernel(self, length, readouts):
+        """K steps per kernel call; with histories on, each call emits its
+        steps' pre-reset v, from which post-reset v and spikes are rebuilt
+        with the kernel's own ops (spike = v_pre >= v_th, v = c on spike)."""
+        shape = (self.rows, self.cols)
+        st = self.state
+        params = {k: st[k].reshape(shape)
+                  for k in stencil_kernels.PARAM_ORDER}
+        v = st["v"].reshape(shape)
+        w = st["w"].reshape(shape)
+        lft = st["last_firing_time"].reshape(shape)
+        g = self.graph
+        parts = {name: [] for name, _ in readouts}
+        clock, done, spikes = self.internal_clock, 0, None
+        while done < length:
+            n = min(stencil_kernels.STEPS_PER_LAUNCH, length - done)
+            v, w, lft, spikes, v_pre = stencil_kernels.izhikevich_stencil_steps(
+                v, w, lft, g.weights, g.in_deg, params, g.offsets, clock, n,
+                emit=bool(readouts))
+            if readouts:
+                spk = v_pre >= params["v_th"]
+                fields = {"v": torch.where(spk, params["c"], v_pre).reshape(n, -1),
+                          "is_spiking": spk.reshape(n, -1)}
+                for name, h in readouts:
+                    parts[name].append(h.readout(fields, shape))
+            clock += n
+            done += n
+        st = dict(st)
+        st["v"] = v.reshape(-1)
+        st["w"] = w.reshape(-1)
+        st["last_firing_time"] = lft.reshape(-1)
+        st["is_spiking"] = spikes.reshape(-1)
+        self.state = st
+        return {name: torch.cat(p) for name, p in parts.items()}
+
+    def _run_plain(self, length, readouts, skip_nt):
+        shape = (self.rows, self.cols)
+        state, graph, clock = self.state, self.graph, self.internal_clock
+        parts = {name: [] for name, _ in readouts}
+        for _ in range(length):
+            state, graph, clock = lattice_step(
+                self.model, self.electrical_synapse, self.chemical_synapse,
+                self.do_plasticity, skip_nt, self.plasticity,
+                self.plasticity.params, state, graph, clock)
+            for name, h in readouts:
+                parts[name].append(h.readout(state, shape))
+        self.state, self.graph = state, graph
+        return {name: torch.stack(p) for name, p in parts.items()}
+
+    # -- views ---------------------------------------------------------------
+    def voltages(self):
+        return self.state["v"].reshape(self.rows, self.cols).cpu().numpy()
+
+    def field(self, name):
+        arr = self.state[name].cpu().numpy()
+        if arr.ndim == 1 and arr.shape[0] == self.n:
+            return arr.reshape(self.rows, self.cols)
+        return arr
+
+
+def lattice_step(model, electrical, chemical, do_plasticity, skip_nt,
+                 plasticity, pparams, state, graph, clock):
+    """One lattice step in plain PyTorch: the electrical gather from the
+    previous state, then the model step, then ``last_firing_time = clock``
+    where the neuron spiked.  Returns ``(state, graph, clock + 1)``."""
+    if chemical:
+        raise NotImplementedError(CHEMICAL_NOT_PORTED)
+    if do_plasticity:
+        raise NotImplementedError(PLASTICITY_NOT_PORTED)
+    if electrical:
+        sub_v = torch.ones_like(state["v"])
+        elec = graph.gather_electrical(
+            state["v"], sub_v, state["v"], state["gap_conductance"])
+    else:
+        elec = torch.zeros_like(state["v"])
+
+    state, spikes = model.step(state, elec, skip_nt=skip_nt)
+    state["last_firing_time"] = state["last_firing_time"].masked_fill(
+        spikes, clock)
+    return state, graph, clock + 1

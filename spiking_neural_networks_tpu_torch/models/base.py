@@ -1,0 +1,184 @@
+"""Neuron model base: struct-of-arrays state + elementwise step functions.
+
+PyTorch counterpart of ``spiking_neural_networks_tpu/models/base.py``.  A
+model instance holds only static configuration (kinetics choices, spike
+handling); every per-neuron value, parameters included, lives in a flat
+``dict[str, torch.Tensor]`` state with one leading neuron axis N, keyed and
+typed as in the JAX package: floats are f32, ``last_firing_time`` is int32
+with ``NEVER = -1``, ``is_spiking`` and the masks are bool.
+
+``step(state, i[, t_input, t_valid])`` is a plain function of tensors
+returning ``(state, spikes)``; it allocates new tensors and never writes
+into the state it was given.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import kinetics as K
+from ..ops import receptors as R
+
+# Sentinel for "has not fired yet".
+NEVER = -1
+
+
+class NeuronModel:
+    """Base class for spiking neuron models.
+
+    Subclasses define ``FIELDS`` (per-neuron f32 fields -> default),
+    optional ``INT_FIELDS`` / ``BOOL_FIELDS``, ``deltas(state, i)`` (Euler
+    deltas from the old state, at least ``{'v': dv}``) and
+    ``handle_spiking(state)`` returning ``(state, spikes)``.
+    """
+
+    name = "base"
+    FIELDS: dict = {}
+    BOOL_FIELDS: dict = {}
+    INT_FIELDS: dict = {}
+
+    def __init__(self, nt_kinetics="approximate", rec_kinetics="approximate",
+                 receptors=None):
+        if nt_kinetics not in K.NT_KINETICS:
+            raise ValueError(f"unknown neurotransmitter kinetics {nt_kinetics!r}")
+        if rec_kinetics not in K.REC_KINETICS:
+            raise ValueError(f"unknown receptor kinetics {rec_kinetics!r}")
+        self.nt_kinetics = nt_kinetics
+        self.rec_kinetics = rec_kinetics
+        self.receptors = receptors if receptors is not None \
+            else R.IonotropicReceptors(rec_kinetics)
+
+    @property
+    def n_types(self):
+        return self.receptors.n_types
+
+    @property
+    def type_names(self):
+        return self.receptors.type_names
+
+    def config_key(self):
+        return (type(self), self.nt_kinetics, self.rec_kinetics,
+                self.receptors.config_key())
+
+    def __hash__(self):
+        return hash(self.config_key())
+
+    def __eq__(self, other):
+        return isinstance(other, NeuronModel) and self.config_key() == other.config_key()
+
+    # -- state construction ---------------------------------------------------
+    def init_state(self, n, device="cpu", **overrides):
+        """The state of ``n`` identical neurons on ``device``: built on the
+        host (`init_state_host`) and moved to the device once."""
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in self.init_state_host(n, **overrides).items()}
+
+    def init_state_host(self, n, **overrides):
+        """The state as NumPy arrays.  ``overrides`` set per-field initial
+        values (a scalar or an (n,) array)."""
+        nk = (n, self.n_types)
+        s = {}
+        for f, d in self.FIELDS.items():
+            s[f] = np.full((n,), d, np.float32)
+        for f, d in self.BOOL_FIELDS.items():
+            s[f] = np.full((n,), d, bool)
+        for f, d in self.INT_FIELDS.items():
+            s[f] = np.full((n,), d, np.int32)
+        s["is_spiking"] = np.zeros((n,), bool)
+        s["last_firing_time"] = np.full((n,), NEVER, np.int32)
+
+        # neurotransmitters: none inserted by default
+        s["nt$t"] = np.zeros(nk, np.float32)
+        s["nt$mask"] = np.zeros(nk, bool)
+        for f, d in K.NT_PARAM_DEFAULTS[self.nt_kinetics].items():
+            s[f] = np.full(nk, d, np.float32)
+
+        # receptors: none inserted by default
+        s.update(self.receptors.init_fields(n))
+
+        for key, val in overrides.items():
+            if key not in s:
+                raise KeyError(f"unknown state field {key!r} for {self.name}")
+            arr = s[key]
+            s[key] = np.broadcast_to(
+                np.asarray(val, arr.dtype), arr.shape).copy()
+        return s
+
+    # -- receptor / neurotransmitter insertion --------------------------------
+    def type_index(self, type_name):
+        if type_name not in self.type_names:
+            raise ValueError(
+                f"unknown neurotransmitter type {type_name!r}; "
+                f"available types: {self.type_names}")
+        return self.type_names.index(type_name)
+
+    def insert_receptor(self, state, type_name, **params):
+        self.type_index(type_name)  # validate the name
+        return self.receptors.insert(state, type_name, **params)
+
+    def insert_neurotransmitter(self, state, type_name, **params):
+        k = self.type_index(type_name)
+        state = dict(state)
+        state["nt$mask"] = R.set_col(state["nt$mask"], k, True)
+        for p, v in params.items():
+            key = f"nt${p}"
+            state[key] = R.set_col(state[key], k, v)
+        return state
+
+    # -- hooks ----------------------------------------------------------------
+    def pre_update(self, s):
+        """Bookkeeping before integration.  Default no-op."""
+        return s
+
+    def deltas(self, s, i):
+        raise NotImplementedError
+
+    def handle_spiking(self, s):
+        raise NotImplementedError
+
+    # -- the IterateAndSpike template -----------------------------------------
+    def step(self, s, i, t_input=None, t_valid=None, skip_nt=False):
+        """One step over all N neurons, in the reference's order:
+        pre_update -> receptors -> deltas -> v -= receptor dv -> NT release
+        (new v, previous step's spike flag) -> handle_spiking.
+        ``skip_nt=True`` skips the NT update, a masked no-op when no
+        neurotransmitter is inserted."""
+        s = dict(s)
+        s = self.pre_update(s)
+
+        if t_input is not None:
+            s.update(self.receptors.update_kinetics(s, t_input, t_valid))
+            # receptor currents use the pre-update voltage
+            s.update(self.receptors.set_currents(s, s["v"]))
+            rec_dv = self.receptors.receptor_dv(s)
+        else:
+            rec_dv = 0.0
+
+        d = self.deltas(s, i)
+        new = {k: s[k] + dv for k, dv in d.items()}
+        new["v"] = new["v"] - rec_dv
+        s.update(new)
+
+        if not skip_nt:
+            s["nt$t"] = K.apply_t_changes(
+                self.nt_kinetics, s, s["v"], s["is_spiking"])
+
+        s, spikes = self.handle_spiking(s)
+        s["is_spiking"] = spikes
+        return s, spikes
+
+    # -- spike handlers ---------------------------------------------------------
+    @staticmethod
+    def _handle_izhikevich(s):
+        """Izhikevich handler: v >= v_th -> v = c, w += d."""
+        spikes = s["v"] >= s["v_th"]
+        s = dict(s)
+        s["v"] = torch.where(spikes, s["c"], s["v"])
+        s["w"] = torch.where(spikes, s["w"] + s["d"], s["w"])
+        return s, spikes
+
+
+def get_neurotransmitter_concentrations(state):
+    """(N, K) concentrations and presence mask."""
+    return state["nt$t"], state["nt$mask"]

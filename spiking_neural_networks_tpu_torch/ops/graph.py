@@ -1,0 +1,206 @@
+"""Synaptic connectivity graphs and their input gathers.
+
+PyTorch counterpart of ``spiking_neural_networks_tpu/ops/graph.py``:
+:func:`radius_offsets`, :class:`StencilGraph` (per-destination, per-offset
+weight planes on a (rows, cols) grid) and :class:`SparseGraph` (COO edge
+list, only the zero-edge default and its gather so far).
+
+Graph construction runs in host NumPy, drawing the same random numbers in
+the same order as the JAX package, and moves the result to the device once.
+
+Electrical input to j (in-degree averaged, as in the reference):
+    g_j * sum_i w_ij * (a_i - sub_i * v_j) / max(indegree_j, 1)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _check_node(idx, n):
+    if not (0 <= idx < n):
+        from ..errors import GraphError
+        raise GraphError(f"position {idx} not in graph (n={n})")
+
+
+# ---------------------------------------------------------------------------
+# Sparse COO graph
+# ---------------------------------------------------------------------------
+
+
+class SparseGraph:
+    """COO edge list: ``src``, ``dst`` int64 (E,), ``weights`` f32 (E,),
+    with the per-destination in-degree ``in_deg`` f32 (n_post,)."""
+
+    def __init__(self, src, dst, weights, n_pre, n_post, in_deg=None):
+        self.src = src
+        self.dst = dst
+        self.weights = weights
+        self.n_pre = int(n_pre)
+        self.n_post = int(n_post)
+        if in_deg is None:
+            in_deg = torch.zeros(self.n_post, dtype=torch.float32,
+                                 device=weights.device).index_add_(
+                0, dst, torch.ones_like(weights))
+        self.in_deg = in_deg
+
+    @classmethod
+    def empty(cls, n_pre, n_post=None, device="cpu"):
+        """Zero-edge graph: the default of a freshly populated lattice."""
+        n_post = n_pre if n_post is None else n_post
+        idx = torch.zeros(0, dtype=torch.int64, device=device)
+        return cls(idx, idx.clone(),
+                   torch.zeros(0, dtype=torch.float32, device=device),
+                   n_pre, n_post,
+                   torch.zeros(n_post, dtype=torch.float32, device=device))
+
+    def in_degree(self):
+        return self.in_deg
+
+    def gather_electrical(self, a_src, sub_v, v_post, g_post):
+        contrib = self.weights * (a_src[self.src]
+                                  - sub_v[self.src] * v_post[self.dst])
+        summed = torch.zeros(self.n_post, dtype=contrib.dtype,
+                             device=contrib.device).index_add_(
+            0, self.dst, contrib)
+        cnt = torch.clamp(self.in_deg, min=1.0)
+        return g_post * summed / cnt
+
+
+# ---------------------------------------------------------------------------
+# Stencil graph (translation-local connectivity on a 2-D grid)
+# ---------------------------------------------------------------------------
+
+
+def radius_offsets(radius, include_self=False):
+    """All (dr, dc) with Euclidean distance <= radius, row-major."""
+    r = int(np.ceil(radius))
+    out = []
+    for dr in range(-r, r + 1):
+        for dc in range(-r, r + 1):
+            if not include_self and dr == 0 and dc == 0:
+                continue
+            if np.sqrt(dr * dr + dc * dc) <= radius:
+                out.append((dr, dc))
+    return tuple(out)
+
+
+class StencilGraph:
+    """Local connectivity: dst (r, c) receives from src (r + dr, c + dc).
+
+    ``weights``: (n_offsets, rows, cols) f32, per destination and offset;
+    ``mask``: the same shape, bool; ``in_deg``: (rows, cols) f32.
+    Off-grid offsets are masked (weight 0) at construction.
+    """
+
+    def __init__(self, offsets, weights, mask, in_deg=None):
+        self.offsets = tuple(tuple(int(x) for x in o) for o in offsets)
+        self.weights = weights
+        self.mask = mask
+        if in_deg is None:
+            in_deg = torch.sum(mask.to(torch.float32), dim=0)
+        self.in_deg = in_deg
+
+    @property
+    def shape(self):
+        return tuple(self.weights.shape[1:])
+
+    @property
+    def n_pre(self):
+        r, c = self.shape
+        return r * c
+
+    n_post = n_pre
+
+    @classmethod
+    def build(cls, rows, cols, offsets, weight_fn=None, keep_prob=1.0, seed=0,
+              device="cpu"):
+        """Construct local connectivity on the host and move it to
+        ``device``.
+
+        ``weight_fn(dr, dc, rr, cc)`` -> weight array over the destination
+        grids rr, cc; default 1.  ``keep_prob`` drops edges i.i.d.: one
+        ``rng.random((rows, cols))`` draw per offset, in offset order, only
+        when ``keep_prob < 1``.
+        """
+        offsets = tuple(map(tuple, offsets))
+        n_off = len(offsets)
+        w = np.zeros((n_off, rows, cols), np.float32)
+        m = np.zeros((n_off, rows, cols), bool)
+        rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+        rng = np.random.default_rng(seed)
+        for o, (dr, dc) in enumerate(offsets):
+            sr, sc = rr + dr, cc + dc
+            valid = (sr >= 0) & (sr < rows) & (sc >= 0) & (sc < cols)
+            if keep_prob < 1.0:
+                valid &= rng.random((rows, cols)) <= keep_prob
+            if weight_fn is None:
+                wo = np.ones((rows, cols), np.float32)
+            else:
+                wo = np.asarray(weight_fn(dr, dc, rr, cc), np.float32)
+            w[o] = np.where(valid, wo, 0.0)
+            m[o] = valid
+        in_deg = m.sum(axis=0).astype(np.float32)
+        return cls(offsets, torch.from_numpy(w).to(device),
+                   torch.from_numpy(m).to(device),
+                   torch.from_numpy(in_deg).to(device))
+
+    def in_degree(self):
+        return self.in_deg.reshape(-1)
+
+    @property
+    def _pad(self):
+        """Halo width covering every offset."""
+        m = 0
+        for dr, dc in self.offsets:
+            m = max(m, abs(dr), abs(dc))
+        return m
+
+    def _padded(self, x):
+        """(rows, cols) zero-padded by the halo width."""
+        p = self._pad
+        return F.pad(x, (p, p, p, p))
+
+    def _shifted(self, padded, dr, dc):
+        """View of ``padded`` with out[r, c] = x[r + dr, c + dc] (0 off-grid)."""
+        p = self._pad
+        rows, cols = self.shape
+        return padded[p + dr:p + dr + rows, p + dc:p + dc + cols]
+
+    def gather_electrical(self, a_src, sub_v, v_post, g_post):
+        """``g * acc / max(in_deg, 1)`` with
+        ``acc = sum_o w_o * (a[r+dr, c+dc] - sub[r+dr, c+dc] * v)``, summed
+        from 0 in offset order."""
+        rows, cols = self.shape
+        v = v_post.reshape(rows, cols)
+        ap = self._padded(a_src.reshape(rows, cols))
+        subp = self._padded(sub_v.reshape(rows, cols))
+        acc = torch.zeros((rows, cols), dtype=torch.float32, device=v.device)
+        for o, (dr, dc) in enumerate(self.offsets):
+            acc = acc + self.weights[o] * (self._shifted(ap, dr, dc)
+                                           - self._shifted(subp, dr, dc) * v)
+        cnt = torch.clamp(self.in_deg, min=1.0)
+        out = g_post.reshape(rows, cols) * acc / cnt
+        return out.reshape(-1)
+
+    # -- per-edge access --------------------------------------------------------
+    def _edge_slot(self, src, dst):
+        rows, cols = self.shape
+        dr = src // cols - dst // cols
+        dc = src % cols - dst % cols
+        try:
+            o = self.offsets.index((int(dr), int(dc)))
+        except ValueError:
+            return None
+        return (o, dst // cols, dst % cols)
+
+    def lookup_weight(self, src, dst):
+        """Weight of the edge src -> dst (flat indices), or None."""
+        _check_node(src, self.n_pre)
+        _check_node(dst, self.n_post)
+        slot = self._edge_slot(src, dst)
+        if slot is None or not bool(self.mask[slot]):
+            return None
+        return float(self.weights[slot])

@@ -1,0 +1,49 @@
+"""The PyTorch package stands apart from JAX: importing it loads no JAX
+module, and neither its files nor ``chip_smoke.py`` import JAX."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "spiking_neural_networks_tpu_torch")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, spiking_neural_networks_tpu_torch\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_file_imports_jax():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]"
+                         r"|(import|from)\s+spiking_neural_networks_tpu[\s.])",
+                         re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert not offenders, offenders
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Without CUDA the smoke script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
