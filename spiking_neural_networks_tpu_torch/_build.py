@@ -1,39 +1,41 @@
 """Builds the package's CUDA sources with nvcc and loads them with ctypes.
 
-The library is built at first use, from ``csrc/`` only, into ``_build/``
-beside this file: a shared library with a plain C interface for ``sm_90a``
-(NVIDIA Hopper).  Its file name carries a hash of the source and flags, so
-an edited source is rebuilt and a stale library is never loaded.  Nothing
-is built when the package is imported.
+The library is built at first use, from every ``csrc/*.cu``, into
+``_build/`` beside this file: one nvcc per source, all started together,
+then one link into a shared library with a plain C interface for
+``sm_90a`` (NVIDIA Hopper).  Its file name carries a hash of the sources
+and flags, so an edited source is rebuilt and a stale library is never
+loaded.  Nothing is built when the package is imported.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o _build/libizhikevich_stencil-<hash>.so \\
-         csrc/izhikevich_stencil.cu
+         -Xptxas -v -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu   # each
+    nvcc -shared -o _build/libsnn_kernels-<hash>.so <objs>
 
 ``-fmad=false`` keeps each multiply and add separately rounded, so the
-kernel agrees bit for bit with its plain PyTorch twin.
+kernels agree bit for bit with their plain PyTorch twins.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "izhikevich_stencil.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lib = None
 # Set by the build that `load` runs in this process (None when the library
-# was already built): wall seconds of the nvcc call and its output, which
-# holds ptxas's register and spill report.
+# was already built): wall seconds of the nvcc calls and their output,
+# which holds ptxas's register and spill report of every kernel.
 build_seconds = None
 build_log = ""
 
@@ -50,25 +52,44 @@ def _nvcc():
 
 
 def library_path():
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libizhikevich_stencil-"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libsnn_kernels-"
                                    f"{digest.hexdigest()[:16]}.so")
 
 
 def _compile(out):
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in SOURCES:
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((src, obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, cmd, proc in jobs:
+            text = proc.communicate()[0]
+            logs.append(f"== {os.path.basename(src)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{text}")
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp] + [obj for _, obj, _, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
 def load():
@@ -82,18 +103,35 @@ def load():
         _compile(path)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.izh_stencil_max_offsets.argtypes = []
-    lib.izh_stencil_max_offsets.restype = ci
+    pv, pi, pf = (ctypes.POINTER(vp), ctypes.POINTER(ci),
+                  ctypes.POINTER(ctypes.c_float))
+    for name in ("izh_stencil_max_offsets", "lp_max_offsets"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
     lib.izh_stencil_steps.argtypes = [
         vp, vp, vp,                         # v, w, lft
-        vp, vp, ctypes.POINTER(vp),         # weights, in_deg, params[9]
+        vp, vp, pv,                         # weights, in_deg, params[9]
         vp, vp, vp,                         # buffer set 0
         vp, vp, vp,                         # buffer set 1
         vp, vp,                             # spikes, v_pre (nullable)
-        ctypes.POINTER(ci), ctypes.POINTER(ci), ci,   # dr, dc, n_off
+        pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
         vp,                                 # stream
     ]
     lib.izh_stencil_steps.restype = ci
+    lib.lattice_plasticity_steps.argtypes = [
+        ci, ci, ci,                         # model, kind, with_reward
+        pv, pv,                             # state_in[4], state_buf[8]
+        vp, vp,                             # spikes, v_pre (nullable)
+        vp, pv, ci,                         # in_deg, params, n_params
+        vp, vp,                             # weights, mask
+        vp, vp, vp,                         # traces c, dw, counter
+        vp, vp,                             # dop_in, dop_steps
+        pf, pf,                             # rule[9], rewards[n_steps]
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        vp,                                 # stream
+    ]
+    lib.lattice_plasticity_steps.restype = ci
     _lib = lib
     return lib

@@ -3,11 +3,15 @@
 PyTorch counterpart of ``spiking_neural_networks_tpu/core/lattice.py``.  The
 cell grid is one flat dict of per-neuron tensors on ``Lattice.device``;
 ``run_lattice(n)`` is a Python loop on the host in place of ``lax.scan``,
-over one of two routes:
+over one of three routes:
 
-* the kernel route: calls of `ops.stencil_kernels.izhikevich_stencil_steps`,
-  each advancing K = `STEPS_PER_LAUNCH` steps (one hand-written CUDA kernel
-  on a GPU, its plain twin on the CPU);
+* the stencil kernel route (electrical Izhikevich, no plasticity): calls
+  of `ops.stencil_kernels.izhikevich_stencil_steps`, each advancing
+  K = 16 steps (one hand-written CUDA kernel on a GPU, its plain twin on
+  the CPU);
+* the STDP kernel route (Izhikevich, ALIF or LIF with ``do_plasticity``
+  and `STDP`): calls of `ops.reward_kernels.lattice_plasticity_steps` of
+  kind ``plastic``, K = 16 steps each;
 * the plain route: `lattice_step` once per step, in plain PyTorch (the
   gather in the XLA path's association).
 
@@ -20,12 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import stencil_kernels
-from ..ops.graph import SparseGraph, StencilGraph, radius_offsets
+from ..ops import reward_kernels, stencil_kernels
+from ..ops.graph import (SparseGraph, StencilGraph, connect_auto,
+                         radius_offsets)
 from ..models.base import NEVER
 from .history import (GridVoltageHistory, history_step_bytes,
                       resolve_history_chunk)
-from .plasticity import PLASTICITY_NOT_PORTED, STDP
+from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 from ..errors import GraphError
 
 CHEMICAL_NOT_PORTED = (
@@ -37,12 +42,14 @@ class Lattice:
     """A 2-D grid of one neuron model plus a weighted synapse graph, on
     ``device``.
 
-    ``use_kernel`` picks the route: None (auto) takes the kernel route when
-    the state is on a CUDA device and `stencil_kernels.supports` holds with
-    no neurotransmitter inserted; True takes it wherever that gate holds (on
-    the CPU the wrapper runs the kernel's plain twin); False always runs
-    `lattice_step`.  ``_last_run_fused`` says which route the last chunk ran:
-    ``("kernel", emit)`` or False.
+    ``use_kernel`` picks the route: None (auto) takes a kernel route when
+    the state is on a CUDA device and its gate holds with no
+    neurotransmitter inserted (`stencil_kernels.supports` without
+    plasticity; `reward_kernels.plain_stdp_lattice_spec` with STDP and no
+    graph history); True takes it wherever that gate holds (on the CPU the
+    wrapper runs the kernel's plain twin); False always runs
+    `lattice_step`.  ``_last_run_fused`` says which route the last chunk
+    ran: ``("kernel", emit)``, ``("stdp", emit)`` or False.
     """
 
     def __init__(self, model, id=0, device="cpu"):
@@ -79,6 +86,14 @@ class Lattice:
         self.state = self.model.init_state(rows * cols, device=self.device,
                                            **overrides)
         self.graph = SparseGraph.empty(self.n, device=self.device)
+
+    def connect(self, connecting_conditional, weight_logic=None):
+        """Connect every (pre, post) pair of positions for which
+        ``connecting_conditional((r1, c1), (r2, c2))`` holds, with weight
+        ``weight_logic(pre, post)`` (default 1).  O(N^2) host calls; the
+        result is decomposed into a `StencilGraph` on the host."""
+        self.graph = connect_auto(self.rows, self.cols, connecting_conditional,
+                                  weight_logic, device=self.device)
 
     def connect_stencil(self, radius=None, offsets=None, weight_fn=None,
                         keep_prob=1.0, seed=0):
@@ -148,21 +163,34 @@ class Lattice:
             remaining -= chunk
 
     def _kernel_route(self, skip_nt):
-        if not (skip_nt and stencil_kernels.supports(
+        """The kernel route of this chunk: "kernel" (the stencil kernel),
+        an STDP `reward_kernels.LatSpec`, or None for the plain route."""
+        if not skip_nt or self.use_kernel is False:
+            return None
+        if self.do_plasticity:
+            route = None if self.update_graph_history \
+                else reward_kernels.plain_stdp_lattice_spec(self)
+        elif stencil_kernels.supports(
                 self.model, self.graph, self.electrical_synapse,
-                self.chemical_synapse, self.do_plasticity)):
-            return False
-        if self.use_kernel is None:
-            return self.state["v"].is_cuda
-        return bool(self.use_kernel)
+                self.chemical_synapse, self.do_plasticity):
+            route = "kernel"
+        else:
+            route = None
+        if self.use_kernel is None and not self.state["v"].is_cuda:
+            return None
+        return route
 
     def _run_chunk(self, length):
         # no neurotransmitter inserted: the NT update is a masked no-op
         skip_nt = not bool(self.state["nt$mask"].any())
         readouts = self._history_items()
-        if self._kernel_route(skip_nt):
+        route = self._kernel_route(skip_nt)
+        if route == "kernel":
             ys = self._run_kernel(length, readouts)
             self._last_run_fused = ("kernel", bool(readouts))
+        elif route is not None:
+            ys = self._run_stdp(length, readouts, route)
+            self._last_run_fused = ("stdp", bool(readouts))
         else:
             ys = self._run_plain(length, readouts, skip_nt)
             self._last_run_fused = False
@@ -170,9 +198,39 @@ class Lattice:
         for name, hist in readouts:
             hist.extend(ys[name].cpu())
         if self.update_graph_history:
-            # no plasticity: every step's weights are the current ones
-            w = self.graph.weights.cpu().numpy()
-            self.graph_history.extend(np.repeat(w[None], length, axis=0))
+            if "__weights__" in ys:
+                self.graph_history.extend(ys["__weights__"].cpu().numpy())
+            else:
+                # no plasticity: every step's weights are the current ones
+                w = self.graph.weights.cpu().numpy()
+                self.graph_history.extend(np.repeat(w[None], length, axis=0))
+
+    def _rebuilt_readouts(self, v_pre, params, readouts):
+        """Readouts of the steps of pre-reset planes ``v_pre`` (n, rows,
+        cols), with post-reset v and spikes rebuilt by the Izhikevich
+        kernels' own ops (spike = v_pre >= v_th, v = c on a spike)."""
+        n = v_pre.shape[0]
+        spk = v_pre >= params["v_th"]
+        fields = {"v": torch.where(spk, params["c"], v_pre).reshape(n, -1),
+                  "is_spiking": spk.reshape(n, -1)}
+        return {name: h.readout(fields, (self.rows, self.cols))
+                for name, h in readouts}
+
+    def _run_stdp(self, length, readouts, spec):
+        """K steps per call of the plasticity kernel of kind ``plastic``;
+        a grid history is rebuilt from the emitted pre-reset v."""
+        shape = (self.rows, self.cols)
+        st, weights, _, _, v_pre = reward_kernels.advance(
+            spec, self.state, self.graph, None, None,
+            self.plasticity.params, None, self.internal_clock, length, shape)
+        if readouts:
+            params = {k: self.state[k].reshape(shape) for k in ("v_th", "c")}
+            ys = self._rebuilt_readouts(v_pre, params, readouts)
+        else:
+            ys = {}
+        self.state = st
+        self.graph = self.graph.replace_weights(weights)
+        return ys
 
     def _run_kernel(self, length, readouts):
         """K steps per kernel call; with histories on, each call emits its
@@ -194,11 +252,9 @@ class Lattice:
                 v, w, lft, g.weights, g.in_deg, params, g.offsets, clock, n,
                 emit=bool(readouts))
             if readouts:
-                spk = v_pre >= params["v_th"]
-                fields = {"v": torch.where(spk, params["c"], v_pre).reshape(n, -1),
-                          "is_spiking": spk.reshape(n, -1)}
-                for name, h in readouts:
-                    parts[name].append(h.readout(fields, shape))
+                for name, y in self._rebuilt_readouts(v_pre, params,
+                                                      readouts).items():
+                    parts[name].append(y)
             clock += n
             done += n
         st = dict(st)
@@ -212,14 +268,20 @@ class Lattice:
     def _run_plain(self, length, readouts, skip_nt):
         shape = (self.rows, self.cols)
         state, graph, clock = self.state, self.graph, self.internal_clock
+        pparams = rule_tensors(self.plasticity.params, self.device)
+        weights = self.do_plasticity and self.update_graph_history
         parts = {name: [] for name, _ in readouts}
+        if weights:
+            parts["__weights__"] = []
         for _ in range(length):
             state, graph, clock = lattice_step(
                 self.model, self.electrical_synapse, self.chemical_synapse,
-                self.do_plasticity, skip_nt, self.plasticity,
-                self.plasticity.params, state, graph, clock)
+                self.do_plasticity, skip_nt, self.plasticity, pparams, state,
+                graph, clock)
             for name, h in readouts:
                 parts[name].append(h.readout(state, shape))
+            if weights:
+                parts["__weights__"].append(graph.weights)
         self.state, self.graph = state, graph
         return {name: torch.stack(p) for name, p in parts.items()}
 
@@ -238,10 +300,12 @@ def lattice_step(model, electrical, chemical, do_plasticity, skip_nt,
                  plasticity, pparams, state, graph, clock):
     """One lattice step in plain PyTorch: the electrical gather from the
     previous state, then the model step, then ``last_firing_time = clock``
-    where the neuron spiked.  Returns ``(state, graph, clock + 1)``."""
+    where the neuron spiked, then the plasticity update from the post-step
+    state.  ``pparams`` are the rule's parameters as 0-dim f32 tensors.
+    Returns ``(state, graph, clock + 1)``."""
     if chemical:
         raise NotImplementedError(CHEMICAL_NOT_PORTED)
-    if do_plasticity:
+    if do_plasticity and type(plasticity) is not STDP:
         raise NotImplementedError(PLASTICITY_NOT_PORTED)
     if electrical:
         sub_v = torch.ones_like(state["v"])
@@ -253,4 +317,6 @@ def lattice_step(model, electrical, chemical, do_plasticity, skip_nt,
     state, spikes = model.step(state, elec, skip_nt=skip_nt)
     state["last_firing_time"] = state["last_firing_time"].masked_fill(
         spikes, clock)
+    if do_plasticity:
+        graph = plasticity.apply(graph, state, pparams)
     return state, graph, clock + 1

@@ -1,20 +1,84 @@
-"""Plasticity rules: the STDP parameter holder.
+"""Plasticity rules as vectorized edge updates.
 
-PyTorch counterpart of ``spiking_neural_networks_tpu/core/plasticity.py``.
-Only the parameters are ported so far; the weight updates are ROADMAP
-queue 1, item 3, and a lattice with ``do_plasticity=True`` raises
-``NotImplementedError`` until then.
+PyTorch counterpart of ``spiking_neural_networks_tpu/core/plasticity.py``:
+`STDP` and `RewardModulatedSTDP`.  An edge is updated once per spiking
+endpoint, from the post-step firing times of both endpoints:
+
+    dw_edge(i, j) = rule(i, j) * (spiking_i + spiking_j)
+
+Rule parameters are plain dicts; the runners hand the updates 0-dim f32
+tensors (`rule_tensors`), so each operation rounds as the JAX package's f32
+scalars do, with R-STDP's two decays hoisted out of the step.  `BCM` is
+not ported yet (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
 
+import functools
+
+import torch
+
+from ..models.base import NEVER
+
 PLASTICITY_NOT_PORTED = (
-    "plasticity is not ported to the PyTorch package yet "
-    "(ROADMAP queue 1, item 3)")
+    "only STDP plasticity is ported to the PyTorch package so far; BCM and "
+    "the other rules wait (ROADMAP queue 1, item 3)")
+
+
+@functools.lru_cache(maxsize=64)
+def _rule_floats(items):
+    r = {k: torch.tensor(v, dtype=torch.float32) for k, v in items}
+    if "tau_c" in r:
+        r["exp_dc"] = torch.exp(-r["dt"] / r["tau_c"])
+    if "tau_d" in r:
+        r["exp_dd"] = torch.exp(-r["dt"] / r["tau_d"])
+    return {k: float(t) for k, t in r.items()}
+
+
+def rule_floats(params):
+    """The rule's parameters rounded to float32, as Python floats, with
+    R-STDP's decays ``exp_dc = exp(-dt / tau_c)`` and ``exp_dd =
+    exp(-dt / tau_d)`` hoisted as the TPU kernel hoists them.  The exps are
+    taken once per parameter set on the host, so every device and route
+    (kernel, twin, plain) decays traces and dopamine by the same numbers."""
+    return dict(_rule_floats(tuple(sorted((k, float(v))
+                                          for k, v in params.items()))))
+
+
+def rule_tensors(params, device):
+    """`rule_floats` as 0-dim float32 tensors on ``device``."""
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in rule_floats(params).items()}
+
+
+def stdp_delta(t_pre, t_post, p):
+    """The STDP delta of one visit from int32 last firing times, 0 unless
+    both endpoints have fired.  One exp of the selected argument, as the
+    JAX package computes it."""
+    both = torch.logical_and(t_pre != NEVER, t_post != NEVER)
+    diff = torch.abs((t_pre - t_post).to(torch.float32)) * p["dt"]
+    pre_first = t_pre < t_post
+    e = torch.exp(torch.where(pre_first, -diff / p["tau_plus"],
+                              -diff / p["tau_minus"]))
+    dw = torch.where(pre_first, p["a_plus"] * e,
+                     torch.where(t_pre > t_post, -p["a_minus"] * e, 0.0))
+    return torch.where(both, dw, 0.0)
+
+
+def rstdp_visit(w, c, dw, counter, delta, dopamine, p):
+    """One visit of the R-STDP weight update; ``p`` from `rule_tensors`,
+    with ``exp_dc = exp(-dt / tau_c)`` hoisted."""
+    dw = dw + delta
+    apply_trace = counter != 0
+    c = torch.where(apply_trace, c * p["exp_dc"] + p["tau_c"] * dw, c)
+    dw = torch.where(apply_trace, 0.0, dw)
+    counter = torch.where(apply_trace, 0, 1).to(counter.dtype)
+    w = w + c * dopamine
+    return w, c, dw, counter
 
 
 class STDP:
-    """Pair-based spike-time-dependent plasticity parameters.
+    """Pair-based spike-time-dependent plasticity.
 
     t_pre < t_post:  dw = +a_plus  * exp(-|t_pre - t_post| * dt / tau_plus)
     t_pre > t_post:  dw = -a_minus * exp(-|t_post - t_pre| * dt / tau_minus)
@@ -29,3 +93,59 @@ class STDP:
 
     def set_dt(self, dt):
         self.params["dt"] = dt
+
+    @staticmethod
+    def edge_delta(w, pre, post, p):
+        """The delta of one visit, without the per-spiking-endpoint count."""
+        return stdp_delta(pre["last_firing_time"], post["last_firing_time"], p)
+
+    @staticmethod
+    def edge_dw(w, pre, post, p):
+        count = pre["is_spiking"].to(torch.float32) \
+            + post["is_spiking"].to(torch.float32)
+        return STDP.edge_delta(w, pre, post, p) * count
+
+    @staticmethod
+    def apply_visits(w, pre, post, p, count):
+        """``count`` serial visits; the delta does not read the weight, so
+        they sum exactly."""
+        return w + STDP.edge_delta(w, pre, post, p) * count
+
+    def apply(self, graph, state, params):
+        vals = {k: state[k] for k in ("last_firing_time", "is_spiking")}
+        return graph.apply_edge_update(
+            lambda w, pre, post: self.edge_dw(w, pre, post, params),
+            vals, vals)
+
+
+class RewardModulatedSTDP:
+    """R-STDP with dopamine-modulated eligibility traces.
+
+    Per-edge trace state: ``dw`` accumulator, trace ``c``, alternation
+    ``counter``.  Every visit:
+
+        dw   += stdp_delta
+        every 2nd visit: c = c * exp(-dt / tau_c) + tau_c * dw ; dw = 0
+        weight += c * dopamine
+
+    The scalar dopamine decays as
+    ``dopamine = dopamine * exp(-dt / tau_d) + tau_d * reward``.  The
+    visit itself is `rstdp_visit`, its delta `stdp_delta`.
+    """
+
+    name = "rstdp"
+
+    def __init__(self, tau_d=20.0, tau_c=0.0001, a_plus=2.0, a_minus=2.0,
+                 tau_plus=4.5, tau_minus=4.5, dt=0.1):
+        self.params = dict(tau_d=tau_d, tau_c=tau_c, a_plus=a_plus,
+                           a_minus=a_minus, tau_plus=tau_plus,
+                           tau_minus=tau_minus, dt=dt)
+        self.dopamine = 0.0
+
+    def set_dt(self, dt):
+        self.params["dt"] = dt
+
+    @staticmethod
+    def update_dopamine(dopamine, reward, p):
+        """``p`` from `rule_tensors` (``exp_dd`` hoisted)."""
+        return dopamine * p["exp_dd"] + p["tau_d"] * reward

@@ -1,0 +1,394 @@
+// K steps of one stencil lattice with STDP or R-STDP plasticity.
+//
+// Replaces the single-lattice form of the TPU kernel
+// spiking_neural_networks_tpu/ops/pallas_reward.py:_fused_chunk (body
+// _make_kernel): one lattice of Izhikevich, adaptive leaky (ALIF) or leaky
+// (LIF) integrate-and-fire neurons on a stencil graph, of kind
+//   plain   (no plasticity; dopamine still takes the rewards),
+//   plastic (STDP on every masked slot),
+//   mod     (the R-STDP double visit of weights and eligibility traces).
+// Per step k, in the TPU kernel's order and association:
+//   1. phase A from the current weights, offsets summed from 0 in order:
+//        acc = sum_o w_o * v[r+dr_o, c+dc_o], wsum = sum_o w_o,
+//        i = gap * (acc - v * wsum) / max(in_deg, 1);
+//   2. dopamine (rewards only): dop = dop * exp_dd + tau_d * reward_k;
+//   3. phase B: the model step; lft = clock0 + k on a spike;
+//   4. plastic: w_o += delta(lft_pre, lft_post) * (spk_pre + spk_post);
+//      mod: two visits of (w_o, c_o, dw_o, counter_o) with that delta,
+//   from the post-step lft and spikes of both endpoints, on masked slots.
+// Off-grid neighbours are skipped by a bounds check (lft NEVER, spike 0).
+// Build with -fmad=false and without fast math (expf, not __expf): the
+// kernels then round as their plain PyTorch twin
+// (ops/reward_kernels.lattice_plasticity_steps_reference).
+//
+// Design.  Steps 4 read the neighbours' post-step lft and spikes, and
+// phase A of step k+1 reads the neighbours' new v, so every step needs a
+// grid-wide ordering point.  The TPU kernel keeps the whole lattice in
+// VMEM for K steps; on Hopper a cooperative grid sync at 512 x 512 would
+// sit near the limit of co-resident threads.  So each step is two
+// launches on the caller's stream: a cell kernel (phases A and B, one
+// thread per cell, writing v, w, lft, refr into one of two buffer sets
+// and the spikes into a byte plane) and an edge kernel (step 4, one
+// thread per destination cell).  Weights and traces are stored per
+// destination (o, r, c), so each edge thread updates only its own slots,
+// in place, and no two threads write one slot.  Dopamine is a one-thread
+// kernel per call that writes the dopamine of every step.
+//
+// What bounds it on an H100 is memory traffic: per cell and step the cell
+// kernel reads n_off weights, up to 13 parameter planes, in_deg, v, w,
+// lft and refr and writes them back; the R-STDP edge kernel reads the
+// mask and reads and writes weights, c, dw and counter for every offset.
+// With radius 2 (12 offsets) that is about 500 bytes per cell per step
+// for R-STDP (131 MB per step at 512 x 512, beyond the 50 MB L2: 39 us
+// per step at 3.35 TB/s) and about 200 bytes for STDP.  Later work:
+// fuse the edge pass of step k into the cell kernel of step k+1, keep
+// tiles and halos in shared memory, CUDA graphs for the launch loop.
+
+#include <cuda_runtime.h>
+
+#define LP_MAX_OFFSETS 64
+#define LP_MAX_PARAMS 13
+#define LP_REWARD_CHUNK 16
+#define LP_NEVER (-1)
+
+enum { MODEL_IZHIKEVICH = 0, MODEL_ALIF = 1, MODEL_LIF = 2 };
+enum { KIND_PLAIN = 0, KIND_PLASTIC = 1, KIND_MOD = 2 };
+
+struct Stencil {
+    int n;
+    int dr[LP_MAX_OFFSETS];
+    int dc[LP_MAX_OFFSETS];
+};
+
+// Parameter planes in MODEL_PARAM_KEYS order (ops/reward_kernels.py).
+struct Params {
+    const float* p[LP_MAX_PARAMS];
+};
+
+struct Rule {
+    float a_plus, a_minus, tau_plus, tau_minus, dt;
+    float tau_c, exp_dc;
+};
+
+struct Rewards {
+    float r[LP_REWARD_CHUNK];
+};
+
+// Plane indices of each model's parameters.
+namespace izh { enum { a, b, c, d, v_th, gap, tau_m, c_m, dt }; }
+namespace alif {
+enum { v_th, v_reset, tref, alpha, beta, leak, integ, gap, e_l, g_l, tau_m,
+       c_m, dt };
+}
+namespace lif {
+enum { v_th, v_reset, tref, leak, integ, gap, e_l, g_l, tau_m, dt };
+}
+
+template <int MODEL>
+__global__ void lp_cell_kernel(
+    const float* __restrict__ v_in, const float* __restrict__ w_in,
+    const int* __restrict__ lft_in, const float* __restrict__ refr_in,
+    float* __restrict__ v_out, float* __restrict__ w_out,
+    int* __restrict__ lft_out, float* __restrict__ refr_out,
+    unsigned char* __restrict__ spk_out,
+    float* __restrict__ v_pre_out,         // null unless emitting
+    const float* __restrict__ weights, const float* __restrict__ in_deg,
+    Params P, Stencil st, int rows, int cols, int clock)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+    const float* const* p = P.p;
+
+    const float v = v_in[i];
+    const float w = w_in[i];
+    float acc = 0.0f;
+    float wsum = 0.0f;
+    for (int o = 0; o < st.n; ++o) {
+        const float wo = weights[(size_t)o * n + i];
+        const int sr = row + st.dr[o];
+        const int sc = col + st.dc[o];
+        if (sr >= 0 && sr < rows && sc >= 0 && sc < cols)
+            acc = acc + wo * v_in[(size_t)sr * cols + sc];
+        wsum = wsum + wo;
+    }
+    const float cnt = fmaxf(in_deg[i], 1.0f);
+
+    float v_pre, v_new, w_new;
+    bool spike;
+    if (MODEL == MODEL_IZHIKEVICH) {
+        const float i_syn = p[izh::gap][i] * (acc - v * wsum) / cnt;
+        const float dt = p[izh::dt][i];
+        const float dt_cm = dt / p[izh::c_m][i];
+        const float dt_tau = dt / p[izh::tau_m][i];
+        const float dv = (0.04f * v * v + 5.0f * v + 140.0f - w + i_syn)
+            * dt_cm;
+        const float dw = (p[izh::a][i] * (p[izh::b][i] * v - w)) * dt_tau;
+        v_pre = v + dv;
+        const float w_pre = w + dw;
+        spike = v_pre >= p[izh::v_th][i];
+        v_new = spike ? p[izh::c][i] : v_pre;
+        w_new = spike ? w_pre + p[izh::d][i] : w_pre;
+    } else {
+        // ALIF and LIF share the refractory handler; LIF has no w (its
+        // plane is a zero plane that passes through).
+        const bool is_alif = MODEL == MODEL_ALIF;
+        const int gap = is_alif ? alif::gap : lif::gap;
+        const int e_l = is_alif ? alif::e_l : lif::e_l;
+        const int g_l = is_alif ? alif::g_l : lif::g_l;
+        const int dt_i = is_alif ? alif::dt : lif::dt;
+        const int tau_m = is_alif ? alif::tau_m : lif::tau_m;
+        const int leak_i = is_alif ? alif::leak : lif::leak;
+        const int integ = is_alif ? alif::integ : lif::integ;
+        const float i_syn = p[gap][i] * (acc - v * wsum) / cnt;
+        const float dt = p[dt_i][i];
+        const float dt_tau = dt / p[tau_m][i];
+        const float leak = p[leak_i][i] * (v - p[e_l][i]);
+        const float drive = p[integ][i] * (i_syn / p[g_l][i]);
+        float dv;
+        if (is_alif) {
+            dv = (leak + drive - w / p[g_l][i]) * (dt / p[alif::c_m][i]);
+            w_new = w + (p[alif::alpha][i] * (v - p[e_l][i]) - w) * dt_tau;
+        } else {
+            dv = (leak + drive) * dt_tau;
+            w_new = w;
+        }
+        v_pre = v + dv;
+        const float refr = refr_in[i];
+        const bool in_ref = refr > 0.0f;
+        spike = !in_ref && v_pre >= p[alif::v_th][i];   // v_th is plane 0
+        v_new = (in_ref || spike) ? p[alif::v_reset][i] : v_pre;
+        if (is_alif && spike) w_new = w_new + p[alif::beta][i];
+        refr_out[i] = in_ref ? refr - 1.0f
+                             : (spike ? p[alif::tref][i] / dt : refr);
+    }
+    v_out[i] = v_new;
+    w_out[i] = w_new;
+    lft_out[i] = spike ? clock : lft_in[i];
+    spk_out[i] = spike ? 1 : 0;
+    if (v_pre_out) v_pre_out[i] = v_pre;
+}
+
+// The STDP delta of one visit (pallas_reward.py _stdp_delta): one expf of
+// the selected argument.
+__device__ __forceinline__ float stdp_delta(int t_pre, int t_post,
+                                            const Rule& r)
+{
+    if (t_pre == LP_NEVER || t_post == LP_NEVER) return 0.0f;
+    const float diff = fabsf((float)(t_pre - t_post)) * r.dt;
+    const bool pre_first = t_pre < t_post;
+    const float e = expf(pre_first ? -diff / r.tau_plus
+                                   : -diff / r.tau_minus);
+    if (pre_first) return r.a_plus * e;
+    if (t_pre > t_post) return -r.a_minus * e;
+    return 0.0f;
+}
+
+// One R-STDP visit (pallas_reward.py _rstdp_visit).
+__device__ __forceinline__ void rstdp_visit(float& w, float& c, float& dw,
+                                            int& ct, float delta, float dop,
+                                            const Rule& r)
+{
+    dw = dw + delta;
+    if (ct != 0) {
+        c = c * r.exp_dc + r.tau_c * dw;
+        dw = 0.0f;
+        ct = 0;
+    } else {
+        ct = 1;
+    }
+    w = w + c * dop;
+}
+
+template <int KIND>
+__global__ void lp_edge_kernel(
+    const int* __restrict__ lft, const unsigned char* __restrict__ spk,
+    float* __restrict__ weights, const unsigned char* __restrict__ mask,
+    float* __restrict__ tr_c, float* __restrict__ tr_dw,
+    int* __restrict__ tr_counter, const float* __restrict__ dop_ptr,
+    Rule r, Stencil st, int rows, int cols)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+    const int t_post = lft[i];
+    const float s_post = spk[i] ? 1.0f : 0.0f;
+    const float dop = KIND == KIND_MOD ? *dop_ptr : 0.0f;
+    for (int o = 0; o < st.n; ++o) {
+        const size_t e = (size_t)o * n + i;
+        if (!mask[e]) continue;
+        const int sr = row + st.dr[o];
+        const int sc = col + st.dc[o];
+        int t_pre = LP_NEVER;
+        float s_pre = 0.0f;
+        if (sr >= 0 && sr < rows && sc >= 0 && sc < cols) {
+            const size_t j = (size_t)sr * cols + sc;
+            t_pre = lft[j];
+            s_pre = spk[j] ? 1.0f : 0.0f;
+        }
+        const float delta = stdp_delta(t_pre, t_post, r);
+        if (KIND == KIND_PLASTIC) {
+            weights[e] = weights[e] + delta * (s_pre + s_post);
+        } else {
+            float w = weights[e];
+            float c = tr_c[e];
+            float dw = tr_dw[e];
+            int ct = tr_counter[e];
+            rstdp_visit(w, c, dw, ct, delta, dop, r);
+            rstdp_visit(w, c, dw, ct, delta, dop, r);
+            weights[e] = w;
+            tr_c[e] = c;
+            tr_dw[e] = dw;
+            tr_counter[e] = ct;
+        }
+    }
+}
+
+// dop_out[j] = dopamine after reward j of this chunk, from *dop_in.
+__global__ void lp_dopamine_kernel(const float* dop_in, Rewards rw,
+                                   int count, float exp_dd, float tau_d,
+                                   float* dop_out)
+{
+    float d = *dop_in;
+    for (int j = 0; j < count; ++j) {
+        d = d * exp_dd + tau_d * rw.r[j];
+        dop_out[j] = d;
+    }
+}
+
+template <int MODEL>
+static void launch_cell(dim3 grid, dim3 block, cudaStream_t s,
+                        const float* v, const float* w, const int* lft,
+                        const float* refr, float* vo, float* wo, int* lfto,
+                        float* refro, unsigned char* spk, float* v_pre,
+                        const float* weights, const float* in_deg,
+                        const Params& P, const Stencil& st, int rows,
+                        int cols, int clock)
+{
+    lp_cell_kernel<MODEL><<<grid, block, 0, s>>>(
+        v, w, lft, refr, vo, wo, lfto, refro, spk, v_pre, weights, in_deg,
+        P, st, rows, cols, clock);
+}
+
+extern "C" {
+
+int lp_max_offsets() { return LP_MAX_OFFSETS; }
+
+// Runs n_steps steps from state_in = {v, w, lft, refr} on `stream`.  Step
+// k writes buffer set k % 2 (state_buf[4 * (k % 2) + f] for f = v, w,
+// lft, refr), so the result is in set (n_steps - 1) % 2; the inputs are
+// only read.  refr and its buffers are null for Izhikevich.  `spikes`
+// receives each step's spike flags (the last step's at the end), `v_pre`,
+// when not null, the pre-reset voltage of step k at k * rows * cols.
+// `params` holds n_params planes in MODEL_PARAM_KEYS order.  `weights`,
+// and for kind mod `tr_c`, `tr_dw`, `tr_counter`, are updated in place.
+// `rule` = {a_plus, a_minus, tau_plus, tau_minus, dt, tau_c, exp_dc,
+// tau_d, exp_dd}; `rewards` (host, n_steps floats) feed the dopamine,
+// which starts from *dop_in and is written per step to dop_steps (with
+// rewards only; without, kind mod reads *dop_in every step).  Returns the
+// first CUDA error, 0 if none.
+int lattice_plasticity_steps(
+    int model, int kind, int with_reward,
+    const void* const* state_in, void* const* state_buf,
+    unsigned char* spikes, float* v_pre,
+    const float* in_deg, const float* const* params, int n_params,
+    float* weights, const unsigned char* mask,
+    float* tr_c, float* tr_dw, int* tr_counter,
+    const float* dop_in, float* dop_steps,
+    const float* rule, const float* rewards,
+    const int* dr, const int* dc, int n_off,
+    int rows, int cols, int clock0, int n_steps, void* stream)
+{
+    static const int n_params_of[3] = {9, 13, 10};
+    if (model < 0 || model > 2 || kind < 0 || kind > 2
+        || n_params != n_params_of[model]
+        || n_off < 0 || n_off > LP_MAX_OFFSETS || rows <= 0 || cols <= 0
+        || n_steps <= 0 || (kind != KIND_PLAIN && !mask)
+        || (kind == KIND_MOD && (!tr_c || !tr_dw || !tr_counter || !dop_in))
+        || (with_reward && (!dop_in || !dop_steps))
+        || (model != MODEL_IZHIKEVICH && !state_in[3]))
+        return (int)cudaErrorInvalidValue;
+    Stencil st;
+    st.n = n_off;
+    for (int o = 0; o < n_off; ++o) {
+        st.dr[o] = dr[o];
+        st.dc[o] = dc[o];
+    }
+    Params P;
+    for (int q = 0; q < LP_MAX_PARAMS; ++q)
+        P.p[q] = q < n_params ? params[q] : nullptr;
+    Rule r = {rule[0], rule[1], rule[2], rule[3], rule[4], rule[5], rule[6]};
+    const float tau_d = rule[7];
+    const float exp_dd = rule[8];
+    const size_t n = (size_t)rows * cols;
+    const dim3 block(32, 8);
+    const dim3 grid((cols + block.x - 1) / block.x,
+                    (rows + block.y - 1) / block.y);
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+
+    if (with_reward) {
+        for (int j0 = 0; j0 < n_steps; j0 += LP_REWARD_CHUNK) {
+            Rewards rw;
+            const int count = n_steps - j0 < LP_REWARD_CHUNK
+                ? n_steps - j0 : LP_REWARD_CHUNK;
+            for (int j = 0; j < count; ++j) rw.r[j] = rewards[j0 + j];
+            lp_dopamine_kernel<<<1, 1, 0, s>>>(
+                j0 == 0 ? dop_in : dop_steps + j0 - 1, rw, count, exp_dd,
+                tau_d, dop_steps + j0);
+            if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        }
+    }
+
+    const float* v = (const float*)state_in[0];
+    const float* w = (const float*)state_in[1];
+    const int* lft = (const int*)state_in[2];
+    const float* refr = (const float*)state_in[3];
+    for (int k = 0; k < n_steps; ++k) {
+        void* const* b = state_buf + 4 * (k & 1);
+        float* vo = (float*)b[0];
+        float* wo = (float*)b[1];
+        int* lfto = (int*)b[2];
+        float* refro = (float*)b[3];
+        float* vp = v_pre ? v_pre + (size_t)k * n : nullptr;
+        switch (model) {
+        case MODEL_IZHIKEVICH:
+            launch_cell<MODEL_IZHIKEVICH>(grid, block, s, v, w, lft, refr,
+                vo, wo, lfto, refro, spikes, vp, weights, in_deg, P, st,
+                rows, cols, clock0 + k);
+            break;
+        case MODEL_ALIF:
+            launch_cell<MODEL_ALIF>(grid, block, s, v, w, lft, refr, vo, wo,
+                lfto, refro, spikes, vp, weights, in_deg, P, st, rows, cols,
+                clock0 + k);
+            break;
+        default:
+            launch_cell<MODEL_LIF>(grid, block, s, v, w, lft, refr, vo, wo,
+                lfto, refro, spikes, vp, weights, in_deg, P, st, rows, cols,
+                clock0 + k);
+        }
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        const float* dop = with_reward ? dop_steps + k : dop_in;
+        if (kind == KIND_PLASTIC) {
+            lp_edge_kernel<KIND_PLASTIC><<<grid, block, 0, s>>>(
+                lfto, spikes, weights, mask, nullptr, nullptr, nullptr,
+                nullptr, r, st, rows, cols);
+        } else if (kind == KIND_MOD) {
+            lp_edge_kernel<KIND_MOD><<<grid, block, 0, s>>>(
+                lfto, spikes, weights, mask, tr_c, tr_dw, tr_counter, dop,
+                r, st, rows, cols);
+        }
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        v = vo;
+        w = wo;
+        lft = lfto;
+        refr = refro;
+    }
+    return 0;
+}
+
+}  // extern "C"

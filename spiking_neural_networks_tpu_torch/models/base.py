@@ -170,6 +170,37 @@ class NeuronModel:
 
     # -- spike handlers ---------------------------------------------------------
     @staticmethod
+    def _handle_refractory_reset(s):
+        """LIF-style handler with a refractory period: a neuron out of its
+        refractory period spikes at v >= v_th; v -> v_reset while
+        refractory or on a spike; the count falls by 1 per step and is set
+        to tref / dt on a spike."""
+        in_refractory = s["refractory_count"] > 0.0
+        crossed = s["v"] >= s["v_th"]
+        spikes = torch.logical_and(torch.logical_not(in_refractory), crossed)
+        s = dict(s)
+        s["v"] = torch.where(in_refractory | spikes, s["v_reset"], s["v"])
+        s["refractory_count"] = torch.where(
+            in_refractory, s["refractory_count"] - 1.0,
+            torch.where(spikes, s["tref"] / s["dt"], s["refractory_count"]))
+        return s, spikes
+
+    @staticmethod
+    def _handle_adaptive(s):
+        """Adaptive handler: the refractory reset, and w += beta on a
+        spike."""
+        in_refractory = s["refractory_count"] > 0.0
+        crossed = s["v"] >= s["v_th"]
+        spikes = torch.logical_and(torch.logical_not(in_refractory), crossed)
+        s = dict(s)
+        s["v"] = torch.where(in_refractory | spikes, s["v_reset"], s["v"])
+        s["w"] = torch.where(spikes, s["w"] + s["beta"], s["w"])
+        s["refractory_count"] = torch.where(
+            in_refractory, s["refractory_count"] - 1.0,
+            torch.where(spikes, s["tref"] / s["dt"], s["refractory_count"]))
+        return s, spikes
+
+    @staticmethod
     def _handle_izhikevich(s):
         """Izhikevich handler: v >= v_th -> v = c, w += d."""
         spikes = s["v"] >= s["v_th"]

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``spiking_neural_networks_tpu/ops/graph.py``:
 :func:`radius_offsets`, :class:`StencilGraph` (per-destination, per-offset
-weight planes on a (rows, cols) grid) and :class:`SparseGraph` (COO edge
-list, only the zero-edge default and its gather so far).
+weight planes on a (rows, cols) grid), :class:`SparseGraph` (COO edge
+list, its gather and edge updates; only the zero-edge default is built so
+far), and the host builders of ``connect(predicate)``, which decompose a
+pairwise predicate into a `StencilGraph` (`DenseGraph` is not ported).
 
 Graph construction runs in host NumPy, drawing the same random numbers in
 the same order as the JAX package, and moves the result to the device once.
@@ -67,6 +69,25 @@ class SparseGraph:
             0, self.dst, contrib)
         cnt = torch.clamp(self.in_deg, min=1.0)
         return g_post * summed / cnt
+
+    # -- per-edge updates (plasticity) ------------------------------------------
+    def edge_pre_post(self, pre_vals, post_vals):
+        pre = {k: v[self.src] for k, v in pre_vals.items()}
+        post = {k: v[self.dst] for k, v in post_vals.items()}
+        return pre, post
+
+    @property
+    def edge_mask(self):
+        return torch.ones_like(self.weights, dtype=torch.bool)
+
+    def replace_weights(self, weights):
+        return SparseGraph(self.src, self.dst, weights, self.n_pre,
+                           self.n_post, self.in_deg)
+
+    def apply_edge_update(self, edge_dw, pre_vals, post_vals):
+        pre, post = self.edge_pre_post(pre_vals, post_vals)
+        return self.replace_weights(
+            self.weights + edge_dw(self.weights, pre, post))
 
 
 # ---------------------------------------------------------------------------
@@ -204,3 +225,106 @@ class StencilGraph:
         if slot is None or not bool(self.mask[slot]):
             return None
         return float(self.weights[slot])
+
+    # -- per-edge updates (plasticity) ------------------------------------------
+    def edge_pre_post(self, pre_vals, post_vals):
+        """Views broadcastable to the (n_offsets, rows, cols) weight array:
+        ``pre[k][o, r, c] = pre_vals[k][r + dr_o, c + dc_o]`` (0 off-grid,
+        where the mask is False), ``post[k]`` is (1, rows, cols)."""
+        rows, cols = self.shape
+        post = {k: v.reshape(rows, cols)[None] for k, v in post_vals.items()}
+        pre = {}
+        for k, v in pre_vals.items():
+            p = self._padded(v.reshape(rows, cols))
+            pre[k] = torch.stack([self._shifted(p, dr, dc)
+                                  for dr, dc in self.offsets])
+        return pre, post
+
+    @property
+    def edge_mask(self):
+        return self.mask
+
+    def replace_weights(self, weights):
+        return StencilGraph(self.offsets, weights, self.mask, self.in_deg)
+
+    def apply_edge_update(self, edge_dw, pre_vals, post_vals):
+        """``w + edge_dw(w, pre, post)`` on every edge the mask holds, in
+        one (n_offsets, rows, cols) pass."""
+        pre, post = self.edge_pre_post(pre_vals, post_vals)
+        dw = edge_dw(self.weights, pre, post)
+        return self.replace_weights(
+            torch.where(self.mask, self.weights + dw, self.weights))
+
+
+# ---------------------------------------------------------------------------
+# Host builders of `connect(predicate)`
+# ---------------------------------------------------------------------------
+
+DENSE_NOT_PORTED = (
+    "a predicate whose offset support is too wide for a StencilGraph needs "
+    "DenseGraph, which is not ported to the PyTorch package yet (ROADMAP "
+    "queue 1, item 5)")
+
+
+def positions(rows, cols):
+    """All (r, c) grid positions, row-major (the graph's node order)."""
+    rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    return np.stack([rr.reshape(-1), cc.reshape(-1)], axis=-1)
+
+
+def connect_dense_host(rows, cols, connecting_conditional, weight_logic=None):
+    """The (N, N) NumPy weight and mask pair of a pairwise predicate:
+    ``mask[i, j]`` is ``connecting_conditional(pos_i, pos_j)`` for pre i
+    and post j, each position an (r, c) tuple.  O(N^2) calls."""
+    pos = positions(rows, cols)
+    n = len(pos)
+    mask = np.zeros((n, n), bool)
+    w = np.zeros((n, n), np.float32)
+    for i in range(n):
+        pi = (int(pos[i, 0]), int(pos[i, 1]))
+        for j in range(n):
+            pj = (int(pos[j, 0]), int(pos[j, 1]))
+            if connecting_conditional(pi, pj):
+                mask[i, j] = True
+                w[i, j] = 1.0 if weight_logic is None else weight_logic(pi, pj)
+    return w, mask
+
+
+def stencil_planes_host(w, mask, rows, cols, max_offsets=128):
+    """Per-offset planes of a dense (w, mask) pair: ``(offsets, weight
+    planes, mask planes)`` with the offsets in sorted (row-major) order, or
+    None when there is no edge or the offset support is too wide."""
+    if w.shape != (rows * cols, rows * cols):
+        return None
+    src, dst = np.nonzero(mask)
+    if len(src) == 0:
+        return None
+    dr = src // cols - dst // cols
+    dc = src % cols - dst % cols
+    offsets = np.unique(np.stack([dr, dc], axis=1), axis=0)
+    if len(offsets) > max_offsets or len(offsets) >= rows * cols // 2:
+        return None
+    index = {(int(a), int(b)): o for o, (a, b) in enumerate(offsets)}
+    n_off = len(offsets)
+    wp = np.zeros((n_off, rows, cols), np.float32)
+    mp = np.zeros((n_off, rows, cols), bool)
+    o_idx = np.array([index[(int(a), int(b))] for a, b in zip(dr, dc)])
+    wp[o_idx, dst // cols, dst % cols] = w[src, dst]
+    mp[o_idx, dst // cols, dst % cols] = True
+    return tuple(map(tuple, offsets)), wp, mp
+
+
+def connect_auto(rows, cols, connecting_conditional, weight_logic=None,
+                 device="cpu"):
+    """`connect(predicate)`: evaluate the predicate on the host, decompose
+    it into a `StencilGraph` and move that to ``device`` once."""
+    w, mask = connect_dense_host(rows, cols, connecting_conditional,
+                                 weight_logic)
+    st = stencil_planes_host(w, mask, rows, cols)
+    if st is None:
+        if mask.any():
+            raise NotImplementedError(DENSE_NOT_PORTED)
+        return SparseGraph.empty(rows * cols, device=device)
+    offsets, wp, mp = st
+    return StencilGraph(offsets, torch.from_numpy(wp).to(device),
+                        torch.from_numpy(mp).to(device))

@@ -1,0 +1,422 @@
+"""The single-lattice plasticity kernel: wrapper, plain twin and gates.
+
+PyTorch/CUDA counterpart of the single-lattice form of
+``spiking_neural_networks_tpu/ops/pallas_reward.py`` (`_fused_chunk`, body
+`_make_kernel`): K steps of one stencil lattice of Izhikevich, adaptive
+leaky (ALIF) or leaky (LIF) integrate-and-fire neurons, where each step
+runs, in this order,
+
+1. phase A, the electrical input from the current weights:
+   ``gap * (acc - v * wsum) / max(in_deg, 1)``;
+2. the dopamine update ``dop = dop * exp_dd + tau_d * reward`` (with a
+   reward only);
+3. phase B, the model step, and ``lft = clock0 + k`` on a spike;
+4. kind ``plastic``: STDP on every masked slot from the post-step firing
+   times and spikes, ``w += delta * (spk_pre + spk_post)``;
+   kind ``mod``: the R-STDP double visit of weights and traces.
+
+Kind ``plain`` stops after phase B.  On a GPU this is one hand-written CUDA
+kernel pair, ``csrc/lattice_plasticity.cu``; `lattice_plasticity_steps`
+launches it for CUDA tensors and runs the plain twin
+`lattice_plasticity_steps_reference` for CPU tensors (the counterpart of
+the TPU kernel's interpret mode).  A build or launch failure raises;
+nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.plasticity import (rstdp_visit, rule_floats, rule_tensors,
+                               stdp_delta)
+from ..models.base import NEVER
+
+# Per-model parameter planes, in the kernel's order (the JAX kernel's).
+MODEL_PARAM_KEYS = {
+    "izhikevich": ("a", "b", "c", "d", "v_th", "gap_conductance",
+                   "tau_m", "c_m", "dt"),
+    "alif": ("v_th", "v_reset", "tref", "alpha", "beta", "leak_constant",
+             "integration_constant", "gap_conductance", "e_l", "g_l",
+             "tau_m", "c_m", "dt"),
+    "lif": ("v_th", "v_reset", "tref", "leak_constant",
+            "integration_constant", "gap_conductance", "e_l", "g_l",
+            "tau_m", "dt"),
+}
+# models whose spike handler carries a refractory_count plane
+REFRACTORY_MODELS = ("alif", "lif")
+MODELS = tuple(MODEL_PARAM_KEYS)            # kernel model ids 0, 1, 2
+KINDS = ("plain", "plastic", "mod")         # kernel kind ids 0, 1, 2
+STDP_KEYS = ("a_plus", "a_minus", "tau_plus", "tau_minus", "dt")
+MAX_OFFSETS = 64          # LP_MAX_OFFSETS in the CUDA source
+STEPS_PER_LAUNCH = 16     # K of the runners' kernel calls
+
+# Calls of `lattice_plasticity_steps` that launched the CUDA kernels.
+LAUNCHES = 0
+
+
+class LatSpec(NamedTuple):
+    kind: str                  # 'plain' | 'plastic' | 'mod'
+    model: str                 # MODEL_PARAM_KEYS key
+    offsets: tuple             # stencil offsets ((dr, dc), ...)
+    emit: bool = False         # emit each step's pre-reset v
+    with_reward: bool = False  # dopamine takes a reward each step
+
+
+def model_kind(model):
+    """MODEL_PARAM_KEYS key of a supported neuron model, else None."""
+    from ..models.integrate_and_fire import (
+        AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
+    return {Izhikevich: "izhikevich",
+            AdaptiveLeakyIntegrateAndFire: "alif",
+            LeakyIntegrateAndFire: "lif"}.get(type(model))
+
+
+def _stencil_ok(lat):
+    from .graph import StencilGraph
+    g = lat.graph
+    return (isinstance(g, StencilGraph) and g.shape == (lat.rows, lat.cols)
+            and len(g.offsets) <= MAX_OFFSETS)
+
+
+def _single_lattice_ok(lat):
+    return (model_kind(lat.model) is not None and lat.electrical_synapse
+            and not lat.chemical_synapse and _stencil_ok(lat)
+            and not bool(lat.state["nt$mask"].any()))
+
+
+def supports_lattice(lat):
+    """Whether the kernel runs a standalone `RewardModulatedLattice`."""
+    from ..core.plasticity import RewardModulatedSTDP
+    return (_single_lattice_ok(lat)
+            and type(lat.reward_modulator) is RewardModulatedSTDP)
+
+
+def plain_stdp_lattice_spec(lat):
+    """The spec of a plain `Lattice` with STDP, or None outside the
+    kernel's class.  A grid history rides along as emitted pre-reset v,
+    for Izhikevich only, as in the JAX package."""
+    from ..core.plasticity import STDP
+    if not _single_lattice_ok(lat) or type(lat.plasticity) is not STDP:
+        return None
+    mk = model_kind(lat.model)
+    emit = bool(lat.update_grid_history)
+    if emit and mk != "izhikevich":
+        return None
+    return LatSpec("plastic", mk, lat.graph.offsets, emit)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
+           dopamine, rewards, clock0, n_steps):
+    if spec.kind not in KINDS or spec.model not in MODEL_PARAM_KEYS:
+        raise ValueError(f"no kernel for kind {spec.kind!r} and model "
+                         f"{spec.model!r}")
+    if v.dim() != 2:
+        raise ValueError(f"v must be a (rows, cols) plane, got {tuple(v.shape)}")
+    shape, dev = v.shape, v.device
+    n_off = len(spec.offsets)
+
+    def need(name, t, dtype, shp):
+        if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shp) \
+                or t.device != dev or not t.is_contiguous():
+            got = None if t is None else (t.dtype, tuple(t.shape), t.device)
+            raise ValueError(f"{name} must be a contiguous {dtype} "
+                             f"{tuple(shp)} tensor on {dev}; got {got}")
+
+    missing = [k for k in MODEL_PARAM_KEYS[spec.model] if k not in params]
+    if missing:
+        raise KeyError(f"missing parameter planes: {missing}")
+    for name, t in [("v", v), ("w", w), ("in_deg", in_deg)] + [
+            (k, params[k]) for k in MODEL_PARAM_KEYS[spec.model]]:
+        need(name, t, torch.float32, shape)
+    need("lft", lft, torch.int32, shape)
+    if spec.model in REFRACTORY_MODELS:
+        need("refr", refr, torch.float32, shape)
+    need("weights", weights, torch.float32, (n_off, *shape))
+    if spec.kind != "plain":
+        need("mask", mask, torch.bool, (n_off, *shape))
+    if spec.kind == "mod":
+        if traces is None:
+            raise ValueError("kind 'mod' needs the traces (c, dw, counter)")
+        need("c", traces[0], torch.float32, (n_off, *shape))
+        need("dw", traces[1], torch.float32, (n_off, *shape))
+        need("counter", traces[2], torch.int32, (n_off, *shape))
+    if spec.kind == "mod" or spec.with_reward:
+        need("dopamine", dopamine, torch.float32, ())
+    if spec.with_reward and spec.kind == "plastic":
+        raise ValueError("the STDP kind 'plastic' takes no reward")
+    if spec.with_reward and (rewards is None or len(rewards) != int(n_steps)):
+        raise ValueError(f"with_reward needs {n_steps} rewards")
+    if n_off > MAX_OFFSETS:
+        raise ValueError(f"the kernel takes at most {MAX_OFFSETS} offsets, "
+                         f"got {n_off}")
+    if int(n_steps) < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if not -2**31 <= int(clock0) <= 2**31 - int(n_steps):
+        raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
+
+
+def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
+                             params, traces, dopamine, rule, rewards, clock0,
+                             n_steps):
+    """Advance ``n_steps`` steps of one lattice of ``spec``.
+
+    ``v``, ``w`` (a zero plane for LIF), ``in_deg`` and the planes of
+    ``params`` (keys ``MODEL_PARAM_KEYS[spec.model]``) are (rows, cols)
+    float32; ``lft`` is int32; ``refr`` the float32 refractory count
+    (ALIF and LIF, else None).  ``weights``, ``mask`` (bool) and the
+    ``traces`` (c, dw float32, counter int32; kind ``mod``) are
+    (n_off, rows, cols).  ``dopamine`` is a 0-dim float32 tensor (kind
+    ``mod`` or ``with_reward``), ``rule`` the STDP or R-STDP parameter
+    dict, ``rewards`` a host array of ``n_steps`` floats (``with_reward``).
+
+    Returns ``(v, w, lft, refr, spikes, weights, traces, dopamine,
+    v_pre)``: spikes are the last step's (bool), ``v_pre`` the
+    (n_steps, rows, cols) pre-reset voltages when ``spec.emit``, else
+    None.  The inputs are not modified; weights and traces are copied
+    once per call and updated in place in the copy.
+    """
+    global LAUNCHES
+    _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
+           dopamine, rewards, clock0, n_steps)
+    if v.device.type == "cpu":
+        return lattice_plasticity_steps_reference(
+            spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
+            dopamine, rule, rewards, clock0, n_steps)
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    from .. import _build
+    lib = _build.load()
+    rows, cols = v.shape
+    n_steps, n_off = int(n_steps), len(spec.offsets)
+    dev = v.device
+    refractory = spec.model in REFRACTORY_MODELS
+    bufs = [torch.empty((2, rows, cols), dtype=torch.float32, device=dev),
+            torch.empty((2, rows, cols), dtype=torch.float32, device=dev),
+            torch.empty((2, rows, cols), dtype=torch.int32, device=dev),
+            torch.empty((2, rows, cols), dtype=torch.float32, device=dev)
+            if refractory else None]
+    spikes = torch.empty((rows, cols), dtype=torch.bool, device=dev)
+    v_pre = torch.empty((n_steps, rows, cols), dtype=torch.float32,
+                        device=dev) if spec.emit else None
+    if spec.kind != "plain":
+        weights = weights.clone()
+    if spec.kind == "mod":
+        traces = tuple(t.clone() for t in traces)
+    dop_steps = torch.empty(n_steps, dtype=torch.float32, device=dev) \
+        if spec.with_reward else None
+    r = rule_floats(rule)
+    rule_vec = (ctypes.c_float * 9)(*[
+        r.get(k, 0.0)
+        for k in STDP_KEYS + ("tau_c", "exp_dc", "tau_d", "exp_dd")])
+    rew = (ctypes.c_float * n_steps)(
+        *np.asarray(rewards, np.float32).tolist()) \
+        if spec.with_reward else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    state_in = (ctypes.c_void_p * 4)(ptr(v), ptr(w), ptr(lft), ptr(refr))
+    state_buf = (ctypes.c_void_p * 8)(
+        *[None if b is None else b[0].data_ptr() for b in bufs],
+        *[None if b is None else b[1].data_ptr() for b in bufs])
+    keys = MODEL_PARAM_KEYS[spec.model]
+    param_ptrs = (ctypes.c_void_p * len(keys))(
+        *[params[k].data_ptr() for k in keys])
+    dr = (ctypes.c_int * max(n_off, 1))(*[o[0] for o in spec.offsets])
+    dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in spec.offsets])
+    c_, dw_, ct_ = traces if spec.kind == "mod" else (None, None, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.lattice_plasticity_steps(
+            MODELS.index(spec.model), KINDS.index(spec.kind),
+            int(spec.with_reward), state_in, state_buf, ptr(spikes),
+            ptr(v_pre), ptr(in_deg), param_ptrs, len(keys), ptr(weights),
+            ptr(mask) if spec.kind != "plain" else None,
+            ptr(c_), ptr(dw_), ptr(ct_),
+            ptr(dopamine), ptr(dop_steps), rule_vec, rew,
+            dr, dc, n_off, rows, cols, int(clock0), n_steps, stream)
+    if rc != 0:
+        raise RuntimeError(f"lattice_plasticity_steps failed with CUDA error "
+                           f"{rc} ({torch.cuda.get_device_name(dev)})")
+    LAUNCHES += 1
+    last = (n_steps - 1) % 2
+    return (bufs[0][last], bufs[1][last], bufs[2][last],
+            bufs[3][last] if refractory else None, spikes, weights, traces,
+            dop_steps[-1] if spec.with_reward else dopamine, v_pre)
+
+
+# ---------------------------------------------------------------------------
+# Plain twin
+# ---------------------------------------------------------------------------
+
+
+def _model_step(model, p, v, w, refr, i_syn):
+    """Phase B of one model in the kernel's association: returns the new
+    (v, w, refr), the spikes and the pre-reset voltage."""
+    if model == "izhikevich":
+        dt_cm = p["dt"] / p["c_m"]
+        dt_tau = p["dt"] / p["tau_m"]
+        dv = (0.04 * v * v + 5.0 * v + 140.0 - w + i_syn) * dt_cm
+        dw = (p["a"] * (p["b"] * v - w)) * dt_tau
+        v_pre = v + dv
+        w_new = w + dw
+        spk = v_pre >= p["v_th"]
+        return (torch.where(spk, p["c"], v_pre),
+                torch.where(spk, w_new + p["d"], w_new), refr, spk, v_pre)
+    dt_tau = p["dt"] / p["tau_m"]
+    leak = p["leak_constant"] * (v - p["e_l"])
+    drive = p["integration_constant"] * (i_syn / p["g_l"])
+    if model == "alif":
+        dv = (leak + drive - w / p["g_l"]) * (p["dt"] / p["c_m"])
+        w_new = w + (p["alpha"] * (v - p["e_l"]) - w) * dt_tau
+    else:
+        dv = (leak + drive) * dt_tau
+        w_new = w
+    v_pre = v + dv
+    in_ref = refr > 0.0
+    spk = torch.logical_and(torch.logical_not(in_ref), v_pre >= p["v_th"])
+    v_new = torch.where(torch.logical_or(in_ref, spk), p["v_reset"], v_pre)
+    if model == "alif":
+        w_new = torch.where(spk, w_new + p["beta"], w_new)
+    refr = torch.where(in_ref, refr - 1.0,
+                       torch.where(spk, p["tref"] / p["dt"], refr))
+    return v_new, w_new, refr, spk, v_pre
+
+
+def lattice_plasticity_steps_reference(spec, v, w, lft, refr, weights, mask,
+                                       in_deg, params, traces, dopamine,
+                                       rule, rewards, clock0, n_steps):
+    """The plain PyTorch twin of the CUDA kernels, on any device.
+
+    Same association and offset order as the kernels (and as the TPU
+    kernel).  Shifted reads are slices of padded planes: v pads with 0
+    (an off-grid neighbour adds ``w * 0``), lft with NEVER and spikes with
+    0 (an off-grid neighbour gives a zero delta), which is what the
+    kernels' bounds checks do.
+    """
+    rows, cols = v.shape
+    offsets = spec.offsets
+    pad = max([max(abs(dr), abs(dc)) for dr, dc in offsets], default=0)
+    dev = v.device
+    r = rule_tensors(rule, dev)
+
+    def shifted(x, fill):
+        xp = F.pad(x, (pad, pad, pad, pad), value=fill)
+        return [xp[pad + dr:pad + dr + rows, pad + dc:pad + dc + cols]
+                for dr, dc in offsets]
+
+    p = {k: params[k] for k in MODEL_PARAM_KEYS[spec.model]}
+    cnt = torch.clamp(in_deg, min=1.0)
+    if spec.kind != "plain":
+        weights = list(weights.unbind(0))
+        masks = list(mask.unbind(0))
+    if spec.kind == "mod":
+        tc, tdw, tct = (list(t.unbind(0)) for t in traces)
+    dop = dopamine
+    v_pres, spk = [], None
+    for k in range(int(n_steps)):
+        acc = torch.zeros_like(v)
+        wsum = torch.zeros_like(v)
+        for o, vs in enumerate(shifted(v, 0.0)):
+            acc = acc + weights[o] * vs
+            wsum = wsum + weights[o]
+        i_syn = p["gap_conductance"] * (acc - v * wsum) / cnt
+        if spec.with_reward:
+            reward = torch.tensor(float(np.float32(rewards[k])),
+                                  dtype=torch.float32, device=dev)
+            dop = dop * r["exp_dd"] + r["tau_d"] * reward
+        v, w, refr, spk, v_pre = _model_step(spec.model, p, v, w, refr,
+                                             i_syn)
+        lft = lft.masked_fill(spk, int(clock0) + k)
+        if spec.emit:
+            v_pres.append(v_pre)
+        if spec.kind == "plain":
+            continue
+        lft_pre = shifted(lft, NEVER)
+        if spec.kind == "plastic":
+            spk_f = spk.to(torch.float32)
+            for o, sp in enumerate(shifted(spk_f, 0.0)):
+                delta = stdp_delta(lft_pre[o], lft, r)
+                weights[o] = torch.where(masks[o],
+                                         weights[o] + delta * (sp + spk_f),
+                                         weights[o])
+            continue
+        for o in range(len(offsets)):
+            delta = stdp_delta(lft_pre[o], lft, r)
+            w1, c1, d1, t1 = rstdp_visit(weights[o], tc[o], tdw[o], tct[o],
+                                         delta, dop, r)
+            w2, c2, d2, t2 = rstdp_visit(w1, c1, d1, t1, delta, dop, r)
+            m = masks[o]
+            weights[o] = torch.where(m, w2, weights[o])
+            tc[o] = torch.where(m, c2, tc[o])
+            tdw[o] = torch.where(m, d2, tdw[o])
+            tct[o] = torch.where(m, t2, tct[o])
+    if spec.kind != "plain":
+        weights = torch.stack(weights)
+    if spec.kind == "mod":
+        traces = (torch.stack(tc), torch.stack(tdw), torch.stack(tct))
+    return (v, w, lft, refr, spk, weights, traces, dop,
+            torch.stack(v_pres) if spec.emit else None)
+
+
+# ---------------------------------------------------------------------------
+# Runner: K-step calls over a lattice's state
+# ---------------------------------------------------------------------------
+
+
+def advance(spec, state, graph, trace, dopamine, rule, rewards, clock,
+            length, shape):
+    """``length`` steps of a lattice's state through K-step wrapper calls.
+
+    ``state`` is the flat per-neuron dict, ``graph`` its `StencilGraph`,
+    ``trace`` the R-STDP trace dict (kind ``mod``), ``dopamine`` a 0-dim
+    float32 tensor on the state's device, ``rewards`` a host array of
+    ``length`` floats (``spec.with_reward``).  Returns ``(state, weights,
+    trace, dopamine, v_pre)`` with ``v_pre`` the (length, rows, cols)
+    pre-reset voltages when ``spec.emit``, else None.
+    """
+    st = state
+    refractory = spec.model in REFRACTORY_MODELS
+    params = {k: st[k].reshape(shape) for k in MODEL_PARAM_KEYS[spec.model]}
+    v = st["v"].reshape(shape)
+    w = st["w"].reshape(shape) if "w" in st else \
+        torch.zeros(shape, dtype=torch.float32, device=v.device)
+    lft = st["last_firing_time"].reshape(shape)
+    refr = st["refractory_count"].reshape(shape) if refractory else None
+    traces = (trace["c"], trace["dw"], trace["counter"]) \
+        if spec.kind == "mod" else None
+    weights, emits, spikes = graph.weights, [], None
+    done = 0
+    while done < length:
+        n = min(STEPS_PER_LAUNCH, length - done)
+        (v, w, lft, refr, spikes, weights, traces, dopamine,
+         v_pre) = lattice_plasticity_steps(
+            spec, v, w, lft, refr, weights, graph.mask, graph.in_deg, params,
+            traces, dopamine, rule,
+            rewards[done:done + n] if spec.with_reward else None,
+            clock + done, n)
+        if spec.emit:
+            emits.append(v_pre)
+        done += n
+    st = dict(st)
+    st["v"] = v.reshape(-1)
+    if "w" in st:
+        st["w"] = w.reshape(-1)
+    st["last_firing_time"] = lft.reshape(-1)
+    st["is_spiking"] = spikes.reshape(-1)
+    if refractory:
+        st["refractory_count"] = refr.reshape(-1)
+    if spec.kind == "mod":
+        trace = dict(c=traces[0], dw=traces[1], counter=traces[2])
+    return st, weights, trace, dopamine, \
+        torch.cat(emits) if spec.emit else None

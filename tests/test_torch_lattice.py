@@ -196,10 +196,16 @@ def test_graph_history_appends_weights_per_step():
 
 
 def test_plasticity_and_chemical_raise_not_implemented():
+    """STDP runs; any other plasticity rule and chemical synapses are not
+    ported yet."""
     t = torch_lattice(4, 4, V0[:16])
     t.do_plasticity = True
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        t.run_lattice(5)
+    t.plasticity = snt.RewardModulatedSTDP()
+    for use_kernel in (None, True, False):
+        t.use_kernel = use_kernel
+        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+            t.run_lattice(5)
+    t.plasticity = snt.STDP()
     t.do_plasticity = False
     t.chemical_synapse = True
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
