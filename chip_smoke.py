@@ -11,7 +11,12 @@ radius-2, 80%-keep stencil graph:
   kernel ``csrc/izhikevich_stencil.cu``;
 * the plain `Lattice` with STDP (``do_plasticity = True``) and the
   `RewardModulatedLattice` (`run_lattice_with_reward`, `run_lattice`),
-  through the plasticity kernels ``csrc/lattice_plasticity.cu``.
+  through the plasticity kernels ``csrc/lattice_plasticity.cu``;
+* the plain `LatticeNetwork` (`Lattice` / `SpikeTrainLattice` ->
+  `populate` -> `connect_stencil` -> `generate_network` ->
+  `connect_vectorized` -> `run_lattices`) of BASELINE configs 2 and 5 and
+  of config 5's topology at 512^2 / 256^2, through the network kernels
+  ``csrc/network_plasticity.cu``.
 
 Phases, one line each:
 
@@ -41,7 +46,23 @@ Phases, one line each:
    against the same route on the CPU (2 mV, 2 steps) and against the plain
    route on the card (parting only at a threshold tie);
 10. steps/s and neuron-updates/s of the kernel and plain routes, STDP and
-   R-STDP, at 64^2 and 512^2, with the kernels' device time per step.
+   R-STDP, at 64^2 and 512^2, with the kernels' device time per step;
+11. the network kernels vs their plain twin on the card: config 2's and
+   config 5's topologies at 64^2 (K = 16 and 7, Poisson from shared
+   uniforms), ALIF and LIF networks with Rate trains, 130 x 100 with
+   non-uniform parameters, 512^2 / 256^2 with an emitted history:
+   integers and spikes equal, floats within rtol 1e-6, atol 1e-5;
+12. the network main paths through `run_lattices`: config 2 at 64^2 for
+   5000 steps, config 5 at 64^2 / 32^2 for 15000 steps with its EEG
+   history, the 512^2 / 256^2 network for 2048 steps (launch counters,
+   finite v, neurons fired, weights moved, the kernel route);
+13. the config-5 topology with a Rate train at 64^2 / 32^2 for 1000 steps:
+   the kernel route on the card against the same route on the CPU (2 mV,
+   2 steps) and against the plain route on the card (parting only at a
+   threshold tie);
+14. steps/s, neuron-updates/s, device time per kernel and device / wall of
+   the kernel route (`use_kernel=None`) and the plain route
+   (`use_kernel=False`), config 5's topology at 64^2 and 512^2.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -50,6 +71,7 @@ line.  Any failure raises, and the exit code is not 0.  Without a CUDA
 device the script exits with an error before it prints any result.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -96,6 +118,11 @@ RSTDP = dict(tau_d=2.0, tau_c=0.5, a_plus=0.02, a_minus=0.02)
 REWARD, CMP_REWARD = 0.5, 0.005
 PLASTIC_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 PROFILE_STEPS = 256
+# Network phases.  The network builders take (snt, rows, cols, use_kernel,
+# device, seed) and set up the network before its first step.
+NSMALL, NBIG = (64, 64), (512, 512)
+CFG2_STEPS, CFG5_STEPS, NBIG_STEPS, NCMP_STEPS = 5000, 15000, 2048, 1000
+NET_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 
 
 def say(*a):
@@ -154,17 +181,17 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profiled_us(fn, steps):
+def profiled_us(fn, steps, n_top=3):
     """Device microseconds per step of ``fn`` (which runs ``steps``
     steps) under torch.profiler: the sum of every CUDA kernel's and copy's
-    device time, and the three largest by name."""
+    device time, and the ``n_top`` largest by name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    top = sorted(dev, reverse=True)[:3]
+    top = sorted(dev, reverse=True)[:n_top]
     return (sum(t for t, _ in dev) / steps,
             [(k[:40], t / steps) for t, k in top])
 
@@ -692,6 +719,437 @@ def plasticity_phases(snt, smi):
             "stdp_device_ms": times["plastic"][2] * rk.STEPS_PER_LAUNCH}
 
 
+# ---------------------------------------------------------------------------
+# The network kernels: phases 11-14
+# ---------------------------------------------------------------------------
+
+
+def one_to_one_coo(n, w):
+    """The COO lists `connect_vectorized` gives a one-to-one predicate."""
+    idx = np.arange(n, dtype=np.int64)
+    return idx, idx.copy(), np.full(n, w, np.float32)
+
+
+def pool_coo(rows, cols, w):
+    """The COO lists of ``(pr // 2 == qr) & (pc // 2 == qc)`` from a
+    rows x cols grid to its half-size grid, in `connect_vectorized`'s
+    (pre, post) order."""
+    r, c = np.divmod(np.arange(rows * cols, dtype=np.int64), cols)
+    return (np.arange(rows * cols, dtype=np.int64),
+            (r // 2) * (cols // 2) + c // 2,
+            np.full(rows * cols, w, np.float32))
+
+
+def upsample_coo(rows, cols, w):
+    """The COO lists of ``(pr == qr // 2) & (pc == qc // 2)`` from a
+    rows x cols grid to its double-size grid, in (pre, post) order."""
+    n = rows * cols
+    r, c = np.divmod(np.arange(n, dtype=np.int64), cols)
+    dst = np.stack([(2 * r + a) * (2 * cols) + 2 * c + b
+                    for a in (0, 1) for b in (0, 1)], axis=1)
+    return (np.repeat(np.arange(n, dtype=np.int64), 4), dst.reshape(-1),
+            np.full(4 * n, w, np.float32))
+
+
+def connect_grid(net, pre, post, coo, fn):
+    """Connect ``pre`` -> ``post`` through `connect_vectorized` (an
+    O(N_pre * N_post) host evaluation) up to 64^2 grids, checking that it
+    gives ``coo``; above that, where the predicate would take hours, set
+    the host COO lists it would give (before the network's first run)."""
+    n_pre = (net.lattices.get(pre) or net.spike_train_lattices[pre]).n
+    if n_pre * net.lattices[post].n <= 4096 * 4096:
+        net.connect_vectorized(pre, post, fn)
+        got = net.connections[(pre, post)]
+        check(all(np.array_equal(a, b) for a, b in zip(got, coo)),
+              "a COO helper differs from connect_vectorized")
+    else:
+        net.connections[(pre, post)] = coo
+
+
+def poisson_train(snt, id, rows, cols, hertz, device):
+    st = snt.SpikeTrainLattice(snt.PoissonSpikeTrain(), id=id, device=device)
+    st.populate(rows, cols)
+    st.state = st.model.init_from_firing_rate(rows * cols, hertz=hertz,
+                                              dt=0.1, device=device)
+    return st
+
+
+def rate_train(snt, id, rows, cols, device):
+    st = snt.SpikeTrainLattice(snt.RateSpikeTrain(), id=id, device=device)
+    st.populate(rows, cols, rate=1.0)
+    return st
+
+
+def cfg2_net(snt, rows, cols, use_kernel=None, device="cuda", seed=0):
+    """BASELINE config 2 (`bench.py:194-230`): an ALIF lattice (gap 10,
+    radius 2, keep 0.8, graph seed 3) fed one to one, weight 5, by a
+    Poisson train at 50 Hz."""
+    lat = snt.Lattice(snt.AdaptiveLeakyIntegrateAndFire(), id=0,
+                      device=device)
+    lat.populate(rows, cols, gap_conductance=10.0)
+    lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=3)
+    st = poisson_train(snt, 1, rows, cols, 50.0, device)
+    net = snt.LatticeNetwork.generate_network([lat], [st])
+    connect_grid(net, 1, 0, one_to_one_coo(rows * cols, 5.0),
+                 lambda pr, pc, qr, qc: np.where((pr == qr) & (pc == qc),
+                                                 5.0, np.nan))
+    net.seed, net.use_kernel = seed, use_kernel
+    return net
+
+
+def cfg5_net(snt, rows, cols, use_kernel=None, device="cuda", seed=0,
+             train="poisson", eeg=True):
+    """BASELINE config 5 (`bench.py:233-291`): a plastic Izhikevich
+    excitatory grid (gap 10, radius 2, keep 0.8, graph seed 5) with an EEG
+    history, a half-size inhibitory grid (radius 1.5, graph seed 6) wired
+    to it by pooling (0.5) and upsampling (-0.8) connections, and a
+    Poisson train at 25 Hz feeding the excitatory grid one to one, weight
+    4 (``train="rate"``: a Rate train of 1 ms instead)."""
+    exc = snt.Lattice(snt.Izhikevich(), id=0, device=device)
+    exc.populate(rows, cols, gap_conductance=10.0)
+    exc.connect_stencil(radius=2.0, keep_prob=0.8, seed=5)
+    exc.do_plasticity = True
+    if eeg:
+        exc.grid_history = snt.history.EEGHistory()
+        exc.update_grid_history = True
+    inh = snt.Lattice(snt.Izhikevich(), id=1, device=device)
+    inh.populate(rows // 2, cols // 2, gap_conductance=10.0)
+    inh.connect_stencil(radius=1.5, seed=6)
+    st = poisson_train(snt, 2, rows, cols, 25.0, device) \
+        if train == "poisson" else rate_train(snt, 2, rows, cols, device)
+    net = snt.LatticeNetwork.generate_network([exc, inh], [st])
+    connect_grid(net, 2, 0, one_to_one_coo(rows * cols, 4.0),
+                 lambda pr, pc, qr, qc: np.where((pr == qr) & (pc == qc),
+                                                 4.0, np.nan))
+    connect_grid(net, 0, 1, pool_coo(rows, cols, 0.5),
+                 lambda pr, pc, qr, qc: np.where(
+                     (pr // 2 == qr) & (pc // 2 == qc), 0.5, np.nan))
+    connect_grid(net, 1, 0, upsample_coo(rows // 2, cols // 2, -0.8),
+                 lambda pr, pc, qr, qc: np.where(
+                     (pr == qr // 2) & (pc == qc // 2), -0.8, np.nan))
+    net.history_chunk = CFG5_STEPS
+    net.seed, net.use_kernel = seed, use_kernel
+    return net
+
+
+def plain_if_net(snt, rows, cols, use_kernel=None, device="cuda", seed=0,
+                 model="alif"):
+    """Two plastic ALIF or LIF lattices (radius 2 / keep 0.8 and radius
+    1.5 / keep 0.9), a Rate train feeding the first one to one (30) and
+    the first feeding the second one to one (8)."""
+    cls = {"alif": snt.AdaptiveLeakyIntegrateAndFire,
+           "lif": snt.LeakyIntegrateAndFire}[model]
+    lats = []
+    for lid, (radius, keep) in enumerate(((2.0, 0.8), (1.5, 0.9))):
+        lat = snt.Lattice(cls(), id=lid, device=device)
+        lat.populate(rows, cols, gap_conductance=10.0)
+        lat.connect_stencil(radius=radius, keep_prob=keep, seed=3 + lid)
+        lat.do_plasticity = True
+        lats.append(lat)
+    st = rate_train(snt, 2, rows, cols, device)
+    net = snt.LatticeNetwork.generate_network(lats, [st])
+    for pre, post, w in ((2, 0, 30.0), (0, 1, 8.0)):
+        connect_grid(net, pre, post, one_to_one_coo(rows * cols, w),
+                     lambda pr, pc, qr, qc, w=w: np.where(
+                         (pr == qr) & (pc == qc), w, np.nan))
+    net.seed, net.use_kernel = seed, use_kernel
+    return net
+
+
+def perturb(net, seed, uniform=True):
+    """Random v0 across the threshold and past firing times for 30% of
+    the neurons (clock 3), so that a 16-step call spikes and changes
+    weights; with ``uniform=False``, also non-uniform a, d, v_th, tref,
+    g_l by up to 10%."""
+    rng = np.random.default_rng(seed)
+    for lat in net.lattices.values():
+        n, dev = lat.n, lat.device
+        izh = "c" in lat.state
+        lo, hi = (-60.0, 50.0) if izh else (-75.0, -50.0)
+        f32 = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)
+        upd = {"v": f32(rng.uniform(lo, hi, n)),
+               "last_firing_time": torch.as_tensor(
+                   np.where(rng.random(n) < 0.3, rng.integers(0, 3, n),
+                            -1).astype(np.int32), device=dev)}
+        if not uniform:
+            for k in ("a", "d", "v_th", "tref", "g_l"):
+                if k in lat.state:
+                    upd[k] = lat.state[k] * f32(rng.uniform(0.9, 1.1, n))
+        lat.apply(lambda s, upd=upd: {**s, **upd})
+    net.internal_clock = 3
+
+
+def net_inputs(nk, net, n_steps, seed):
+    """One kernel call's inputs from a network's members, with the Poisson
+    uniforms drawn from ``seed``: (spec, lats, trains, conns, uniforms,
+    rule)."""
+    from spiking_neural_networks_tpu_torch.core.structured import (
+        nt_clean, resolve_structured_plan)
+    plan = resolve_structured_plan(net)
+    spec = nk.plain_network_spec(net, plan, nt_clean(net))
+    check(spec is not None, "the network is outside the kernels' class")
+    lats, trains, conns = nk.member_inputs(spec, net, plan)
+    dev = lats[0]["v"].device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    uniforms = [torch.rand((n_steps, *ts.shape), generator=g, device=dev)
+                if ts.kind == "poisson" else None for ts in spec.trains]
+    return spec, lats, trains, conns, uniforms, net._plasticity().params
+
+
+def compare_net_call(got, want, clock0):
+    """(max float error, integer/spike mismatches, errors by name, neurons
+    fired in the call, largest connection weight change) of a network
+    kernel call against its twin."""
+    errs, bad = {}, 0
+    for k, (g, w) in enumerate(zip(got[0], want[0])):
+        for key in ("v", "w", "lft", "refr", "spikes", "weights", "v_pre"):
+            if g[key] is None:
+                continue
+            if g[key].dtype in (torch.int32, torch.bool) or key == "refr":
+                bad += int((g[key] != w[key]).sum())
+            else:
+                check(bool(torch.isfinite(g[key]).all()),
+                      f"non-finite {key} of lattice {k}")
+                torch.testing.assert_close(g[key], w[key], rtol=RTOL,
+                                           atol=ATOL, msg=f"{key} {k}")
+                errs[f"{key}{k}"] = (g[key] - w[key]).abs().max().item()
+    for g, w in zip(got[1], want[1]):
+        bad += int((g["lft"] != w["lft"]).sum())
+        bad += int((g["spikes"] != w["spikes"]).sum())
+        if g["step"] is not None:
+            torch.testing.assert_close(g["step"], w["step"], rtol=RTOL,
+                                       atol=ATOL)
+    for c, (g, w) in enumerate(zip(got[2], want[2])):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=f"c{c}")
+        errs[f"conn{c}"] = (g - w).abs().max().item()
+    fired = sum(int((g["lft"] >= clock0).sum()) for g in got[0])
+    return max(errs.values()), bad, errs, fired
+
+
+def network_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    max_err, times = network_twin_phase(snt, nk, smi)
+    launches = network_main_phase(snt, nk)
+    network_cmp_phase(snt)
+    network_times_phase(snt, smi)
+    return {"name": "network_steps", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "network_plasticity.cu",
+            "replaces": NET_REPLACES, "launches": launches,
+            "max_abs_err": max_err,
+            "ms": times[0] * nk.STEPS_PER_LAUNCH,
+            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
+            "device_ms": times[2] * nk.STEPS_PER_LAUNCH}
+
+
+def network_twin_phase(snt, nk, smi):
+    """11. The network kernels vs their plain twin on the card: (max float
+    error, (kernel, twin, device) ms per step at 512^2)."""
+    cases = [(cfg2_net, NSMALL, 16, "config 2"),
+             (cfg2_net, NSMALL, 7, "config 2"),
+             (cfg5_net, NSMALL, 16, "config 5"),
+             (cfg5_net, NSMALL, 7, "config 5"),
+             (lambda *a, **k: plain_if_net(*a, **k, model="alif"), NSMALL,
+              16, "ALIF + Rate"),
+             (lambda *a, **k: plain_if_net(*a, **k, model="lif"), NSMALL,
+              16, "LIF + Rate"),
+             (lambda *a, **k: cfg5_net(*a, **k, train="rate"), (130, 100),
+              16, "config 5 + Rate, non-uniform"),
+             (cfg5_net, NBIG, 16, "config 5 emit")]
+    max_err, times = 0.0, None
+    for seed, (build, shape, k, label) in enumerate(cases):
+        net = build(snt, *shape, seed=seed)
+        perturb(net, seed, uniform="non-uniform" not in label)
+        spec, lats, trains, conns, uniforms, rule = net_inputs(nk, net, k,
+                                                               seed)
+        got = nk.network_steps(spec, lats, trains, conns, uniforms, rule,
+                               3, k)
+        torch.cuda.synchronize()
+        want = nk.network_steps_reference(spec, lats, trains, conns,
+                                          uniforms, rule, 3, k)
+        torch.cuda.synchronize()
+        err, bad, errs, fired = compare_net_call(got, want, 3)
+        moved = max((g - c["w"]).abs().max().item()
+                    for g, c in zip(got[2], conns))
+        say(f"[11 kernel-vs-twin] {label} {shape[0]}x{shape[1]} K={k} "
+            f"emit={any(ls.emit for ls in spec.lattices)}: integer and spike "
+            f"mismatches {bad}, max errors "
+            + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f", neurons fired {fired}, max connection weight change "
+            f"{moved:.4g}")
+        check(bad == 0, "firing times, spikes or refractory counts differ")
+        check(fired > 0, "no neuron fired in the call")
+        max_err = max(max_err, err)
+        if shape == NBIG:
+            kernel = lambda: nk.network_steps(spec, lats, trains, conns,
+                                              uniforms, rule, 3, k)
+            dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
+                                      10 * k, n_top=6)
+            times = (event_ms(kernel, 10) / k, event_ms(
+                lambda: nk.network_steps_reference(
+                    spec, lats, trains, conns, uniforms, rule, 3, k), 3) / k,
+                dev_us / 1e3)
+            # the host's share of a call: its time to return with the card
+            # idle at the start (5 calls, 560 launches, within the launch
+            # queue), and of that the input checks
+            host = []
+            for fn in (kernel, lambda: nk._check(spec, lats, trains, conns,
+                                                 uniforms, 3, k)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                host.append((time.perf_counter() - t0) / 5 * 1e6)
+            torch.cuda.synchronize()
+            say(f"[11 kernel-vs-twin] {label} {shape[0]}x{shape[1]} K={k} "
+                f"per step: kernel calls back to back {times[0] * 1e3:.3f} "
+                f"us (events), of which device time {dev_us:.3f} us "
+                f"(profiled: " + ", ".join(f"{n} {t:.3f}" for n, t in top)
+                + f"); plain twin {times[1] * 1e3:.3f} us (events); host "
+                f"time per {k}-step call {host[0]:.1f} us, of which input "
+                f"checks {host[1]:.1f} us; card {smi}")
+        del net, lats, trains, conns, uniforms, got, want
+    say(f"[11 kernel-vs-twin] max float error over all cases {max_err:.3g} "
+        f"(tolerance rtol {RTOL}, atol {ATOL}; 0 = bit-equal)")
+    return max_err, times
+
+
+def network_main_phase(snt, nk):
+    """12. The network main paths through `run_lattices`; returns the
+    kernel calls they made."""
+    launches = 0
+    for label, build, shape, steps in (
+            ("config 2", cfg2_net, NSMALL, CFG2_STEPS),
+            ("config 5", cfg5_net, NSMALL, CFG5_STEPS),
+            ("config 5 topology", cfg5_net, NBIG, NBIG_STEPS)):
+        net = build(snt, *shape)
+        ws0 = {lid: l.graph.weights.clone() for lid, l in net.lattices.items()
+               if l.do_plasticity}
+        nk.LAUNCHES = 0
+        secs = run_net_synced(net, steps)
+        calls = nk.LAUNCHES
+        launches += calls
+        exc = net.lattices[0]
+        v = exc.state["v"]
+        fired = sum(int((l.state["last_firing_time"] >= 0).sum())
+                    for l in net.lattices.values())
+        tr_fired = sum(int((s.state["last_firing_time"] >= 0).sum())
+                       for s in net.spike_train_lattices.values())
+        n_all = sum(l.n for l in net.lattices.values())
+        moved = max([(net.lattices[lid].graph.weights - w0).abs().max().item()
+                     for lid, w0 in ws0.items()], default=None)
+        eeg = exc.grid_history.history if exc.update_grid_history else None
+        say(f"[12 main path] {label} {shape[0]}x{shape[1]} run_lattices("
+            f"{steps}): route {net._last_run_fused}, kernel calls {calls}, "
+            f"{secs / steps * 1e6:.3f} us/step (first run), v finite "
+            f"{bool(torch.isfinite(v).all())}, v range [{v.min().item():.3f}"
+            f", {v.max().item():.3f}], fired {fired} of {n_all} (trains "
+            f"{tr_fired}), max weight "
+            f"change {'n/a (no plasticity)' if moved is None else f'{moved:.4g}'}"
+            + ("" if eeg is None else
+               f", EEG samples {len(eeg)}, EEG range [{min(eeg):.5g}, "
+               f"{max(eeg):.5g}]"))
+        check(net._last_run_fused == ("network", eeg is not None),
+              f"{label} missed the network kernels")
+        check(calls == math.ceil(steps / nk.STEPS_PER_LAUNCH),
+              "wrong number of kernel calls")
+        # config 2 as bench.py sets it stays below threshold (v rises from
+        # -75 mV towards -59 mV in 5000 steps): its trains fire, and its
+        # lattice must have moved
+        check(all(bool(torch.isfinite(l.state["v"]).all())
+                  for l in net.lattices.values())
+              and (fired > 0 if build is not cfg2_net
+                   else tr_fired > 0 and v.max().item() > -70.0),
+              f"bad {label} state")
+        check(moved is None or moved > 0, f"{label}: no weight moved")
+        check(eeg is None or (len(eeg) == steps
+                              and bool(np.isfinite(eeg).all())),
+              f"bad {label} EEG history")
+        del net
+    return launches
+
+
+def network_cmp_phase(snt):
+    """13. 64^2 / 32^2, Rate train, 1000 steps: the kernel route on the
+    card against the same route on the CPU and against the plain route."""
+    runs = {}
+    for key, device, uk in (("kernel", "cuda", None), ("cpu", "cpu", True),
+                            ("plain", "cuda", False)):
+        net = cfg5_net(snt, *NSMALL, use_kernel=uk, device=device,
+                       train="rate", eeg=False)
+        exc = net.lattices[0]
+        exc.grid_history = snt.history.GridVoltageHistory()
+        exc.update_grid_history = True
+        net.run_lattices(NCMP_STEPS)
+        runs[key] = (np.stack(exc.grid_history.history).reshape(
+                         NCMP_STEPS, -1),
+                     exc.field("last_firing_time").reshape(-1)
+                     .astype(np.int64),
+                     net.lattices[1].field("last_firing_time").reshape(-1)
+                     .astype(np.int64),
+                     exc.graph.weights.cpu().numpy(), net._last_run_fused)
+    check(runs["kernel"][4] == runs["cpu"][4] == ("network", True)
+          and runs["plain"][4] is False, "wrong network routes")
+    hk, lk, ik, wk, _ = runs["kernel"]
+    hc, lc, ic, wc, _ = runs["cpu"]
+    dv = float(np.abs(hk - hc).max())
+    dl = max(int(np.abs(lk - lc).max()), int(np.abs(ik - ic).max()))
+    dw = float(np.abs(wk - wc).max())
+    say(f"[13 kernel-vs-cpu] config 5 + Rate {NSMALL[0]}x{NSMALL[1]} "
+        f"{NCMP_STEPS} steps, kernel route on the card vs on the CPU: "
+        f"max|dv| {dv:.4g} mV, max|dlft| {dl} steps, max|dweight| {dw:.4g}, "
+        f"fired {int((lk >= 0).sum())}")
+    check(dv <= 2.0 and dl <= 2 and dw <= 1e-2,
+          "card vs CPU outside 2 mV / 2 steps / 1e-2")
+    hp, lp, _, _, _ = runs["plain"]
+    tie_check(f"[13 kernel-vs-plain] config 5 + Rate {NSMALL[0]}x"
+              f"{NSMALL[1]} {NCMP_STEPS} steps, fused vs plain association "
+              f"on the card", hk, lk, hp, lp, NSMALL[0] * NSMALL[1])
+
+
+def network_times_phase(snt, smi):
+    """14. Times of both routes, stated explicitly, in turns."""
+    for shape, kern_steps, plain_steps in ((NSMALL, 2048, 128),
+                                           (NBIG, 2048, 32)):
+        kern = cfg5_net(snt, *shape, use_kernel=None, eeg=False)
+        plain = cfg5_net(snt, *shape, use_kernel=False, eeg=False)
+        run_net_synced(kern, kern_steps)
+        run_net_synced(plain, plain_steps)
+        tk, tp = [], []
+        for rep in range(5):
+            tk.append(run_net_synced(kern, kern_steps))
+            if rep < 3:
+                tp.append(run_net_synced(plain, plain_steps))
+        check(kern._last_run_fused == ("network", False)
+              and plain._last_run_fused is False, "timed the wrong routes")
+        mk, mp = float(np.median(tk)), float(np.median(tp))
+        dev_us, top = profiled_us(lambda: run_net_synced(kern, PROFILE_STEPS),
+                                  PROFILE_STEPS, n_top=8)
+        n_all = sum(l.n for l in kern.lattices.values())
+        busy = dev_us * kern_steps / (mk * 1e6)
+        say(f"[14 times] config 5 topology {shape[0]}x{shape[1]}: kernel "
+            f"route (use_kernel=None) {net_rate(n_all, mk, kern_steps)}, "
+            f"median of 5 x {kern_steps} steps; device time {dev_us:.3f} "
+            f"us/step (profiled: " + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device time / wall {busy:.3f}; plain route "
+            f"(use_kernel=False) {net_rate(n_all, mp, plain_steps)}, median "
+            f"of 3 x {plain_steps} steps; card {smi}")
+        del kern, plain
+
+
+def run_net_synced(net, n):
+    t0 = time.perf_counter()
+    net.run_lattices(n)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def net_rate(n, secs, steps):
+    return (f"{n * steps / secs:.4e} neuron-updates/s, "
+            f"{steps / secs:.1f} steps/s ({secs / steps * 1e6:.3f} us/step)")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -704,7 +1162,7 @@ def main():
           f"beside this script")
     from spiking_neural_networks_tpu_torch import _build
     from spiking_neural_networks_tpu_torch.ops import (
-        reward_kernels as rk, stencil_kernels as sk)
+        network_kernels as nk, reward_kernels as rk, stencil_kernels as sk)
 
     # 1. device
     smi = card()
@@ -720,6 +1178,12 @@ def main():
     check(lib.izh_stencil_max_offsets() == sk.MAX_OFFSETS
           and lib.lp_max_offsets() == rk.MAX_OFFSETS,
           "MAX_OFFSETS differs between a CUDA source and its wrapper")
+    limits = (ctypes.c_int * 9)()
+    lib.net_limits(limits)
+    check(list(limits) == [nk.MAX_IN, rk.MAX_OFFSETS, nk.MAX_TAPS, nk.NL_I,
+                           nk.NL_P, nk.NT_I, nk.NT_P, nk.NC_I, nk.NC_P],
+          f"the network kernels' limits {list(limits)} differ from their "
+          f"wrapper's")
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     nvcc = "cached" if _build.build_seconds is None \
@@ -728,7 +1192,8 @@ def main():
         f"{load_s:.2f} s, {os.path.basename(_build.library_path())}; "
         f"ptxas: {' / '.join(ptxas)}")
 
-    kernels = [stencil_phases(snt, smi), plasticity_phases(snt, smi)]
+    kernels = [stencil_phases(snt, smi), plasticity_phases(snt, smi),
+               network_phases(snt, smi)]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

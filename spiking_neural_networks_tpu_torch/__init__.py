@@ -3,17 +3,23 @@
 A second package beside ``spiking_neural_networks_tpu`` (JAX), with the same
 module layout, public names and flat per-neuron state dict.  It holds the
 electrical lattice on a stencil graph (Izhikevich, adaptive leaky and
-leaky integrate-and-fire neurons), the plain `Lattice` with STDP, and the
-reward-modulated (R-STDP) lattice, with their history readouts, and two
+leaky integrate-and-fire neurons), the plain `Lattice` with STDP, the
+reward-modulated (R-STDP) lattice, spike trains and the plain
+`LatticeNetwork` of lattices and trains, with their history readouts, and
 hand-written CUDA kernels for NVIDIA Hopper (``csrc/``) that run those
-lattices' steps on the GPU.  It imports PyTorch and NumPy, never JAX.
+lattices' and networks' steps on the GPU.  It imports PyTorch and NumPy,
+never JAX.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .models.integrate_and_fire import (
     AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
+from .models.spike_train import (
+    BCMPoissonSpikeTrain, PoissonSpikeTrain, PresetSpikeTrain,
+    RateSpikeTrain)
 from .core.lattice import Lattice
+from .core.network import LatticeNetwork, SpikeTrainLattice
 from .core.reward import RewardModulatedLattice
 from . import errors
 from .core.plasticity import STDP, RewardModulatedSTDP

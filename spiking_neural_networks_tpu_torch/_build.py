@@ -1,10 +1,11 @@
 """Builds the package's CUDA sources with nvcc and loads them with ctypes.
 
-The library is built at first use, from every ``csrc/*.cu``, into
+The library is built at first use, from every ``csrc/*.cu`` (with the
+shared ``csrc/*.cuh`` headers), into
 ``_build/`` beside this file: one nvcc per source, all started together,
 then one link into a shared library with a plain C interface for
-``sm_90a`` (NVIDIA Hopper).  Its file name carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale library is never
+``sm_90a`` (NVIDIA Hopper).  Its file name carries a hash of the sources,
+headers and flags, so an edited source is rebuilt and a stale library is never
 loaded.  Nothing is built when the package is imported.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
@@ -28,6 +29,7 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu"))))
+HEADERS = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cuh"))))
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -53,7 +55,7 @@ def _nvcc():
 
 def library_path():
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libsnn_kernels-"
@@ -133,5 +135,15 @@ def load():
         vp,                                 # stream
     ]
     lib.lattice_plasticity_steps.restype = ci
+    lib.net_limits.argtypes = [pi]
+    lib.net_limits.restype = None
+    lib.net_steps.argtypes = [
+        ci, pi, pv,                         # lattices: count, ints, ptrs
+        ci, pi, pv,                         # trains
+        ci, pi, pv,                         # connections
+        pf, ci, ci,                         # rule[5], clock0, n_steps
+        vp,                                 # stream
+    ]
+    lib.net_steps.restype = ci
     _lib = lib
     return lib

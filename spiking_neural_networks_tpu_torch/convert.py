@@ -3,9 +3,10 @@
 The JAX package's arrays become NumPy with ``np.asarray`` on each leaf;
 these functions turn such arrays into the PyTorch package's tensors on a
 device, keeping every dtype, so that both packages start from the same
-numbers.  `lattice_from` and `reward_lattice_from` read any lattice object
-with the JAX package's attribute names (``state``, ``graph``, ``trace``,
-``dopamine``, ``internal_clock``, ...) through ``np.asarray`` alone.
+numbers.  `lattice_from`, `reward_lattice_from`, `spike_train_lattice_from`
+and `network_from` read any object with the JAX package's attribute names
+(``state``, ``graph``, ``trace``, ``dopamine``, ``internal_clock``,
+``connections``, ...) through ``np.asarray`` alone.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.graph import StencilGraph
+from .core import history
+from .ops.graph import SparseGraph, StencilGraph
 
 
 def _tensor(a, device):
@@ -34,15 +36,36 @@ def stencil_graph_from_numpy(offsets, weights, mask, in_deg, device):
                         _tensor(np.asarray(in_deg, np.float32), device))
 
 
+def graph_from(g, device):
+    """A port `StencilGraph` or `SparseGraph` with the arrays of graph
+    ``g`` (any object with the JAX package's attribute names)."""
+    if hasattr(g, "offsets"):
+        return stencil_graph_from_numpy(g.offsets, np.asarray(g.weights),
+                                        np.asarray(g.mask),
+                                        np.asarray(g.in_deg), device)
+    if hasattr(g, "src"):
+        return SparseGraph(_tensor(np.asarray(g.src, np.int64), device),
+                           _tensor(np.asarray(g.dst, np.int64), device),
+                           _tensor(np.asarray(g.weights, np.float32), device),
+                           g.n_pre, g.n_post,
+                           _tensor(np.asarray(g.in_deg, np.float32), device))
+    raise TypeError(f"no port graph for {type(g).__name__}")
+
+
+def history_from(h):
+    """A port history readout of the kind (and EEG parameters) of ``h``."""
+    cls = history.HISTORY_KINDS[h.kind]
+    if h.kind == "eeg":
+        return cls(h.reference_voltage, h.distance, h.conductivity)
+    return cls()
+
+
 def _carry(src, dst):
-    """Copy the grid, its state and stencil graph, the flags and the clock
-    of lattice ``src`` into the populated-to-be lattice ``dst``."""
+    """Copy the grid, its state and graph, the flags and the clock of
+    lattice ``src`` into the populated-to-be lattice ``dst``."""
     dst.rows, dst.cols = src.rows, src.cols
     dst.state = state_from_numpy(src.state, dst.device)
-    g = src.graph
-    dst.graph = stencil_graph_from_numpy(g.offsets, np.asarray(g.weights),
-                                         np.asarray(g.mask),
-                                         np.asarray(g.in_deg), dst.device)
+    dst.graph = graph_from(src.graph, dst.device)
     dst.electrical_synapse = bool(src.electrical_synapse)
     dst.chemical_synapse = bool(src.chemical_synapse)
     dst.internal_clock = int(src.internal_clock)
@@ -76,3 +99,53 @@ def reward_lattice_from(src, model, device="cpu"):
     lat.reward_modulator.params = {
         k: float(v) for k, v in src.reward_modulator.params.items()}
     return lat
+
+
+def spike_train_lattice_from(src, model, device="cpu"):
+    """A port `SpikeTrainLattice` of ``model`` with the state, history
+    switch and clock of spike-train lattice ``src``."""
+    from .core.network import SpikeTrainLattice
+    st = SpikeTrainLattice(model, id=src.id, device=device)
+    st.rows, st.cols = src.rows, src.cols
+    st.state = state_from_numpy(src.state, st.device)
+    st.internal_clock = int(src.internal_clock)
+    st.update_grid_history = bool(src.update_grid_history)
+    st.grid_history = history_from(src.grid_history)
+    return st
+
+
+def _port_model(model):
+    """The port's model of the class and configuration of a JAX model."""
+    from .models import integrate_and_fire, spike_train
+    name = type(model).__name__
+    if hasattr(model, "refractoriness"):
+        return getattr(spike_train, name)(model.nt_kinetics,
+                                          model.refractoriness)
+    return getattr(integrate_and_fire, name)(model.nt_kinetics,
+                                             model.rec_kinetics)
+
+
+def network_from(src_net, device="cpu"):
+    """A port `LatticeNetwork` carrying every lattice's and train's state,
+    graph, plasticity and history switches, the host COO connections, the
+    synapse flags and the clock of the JAX network ``src_net``."""
+    from .core.network import LatticeNetwork
+    net = LatticeNetwork(device)
+    for lat in src_net.lattices.values():
+        t = lattice_from(lat, _port_model(lat.model), device)
+        t.update_grid_history = bool(lat.update_grid_history)
+        t.grid_history = history_from(lat.grid_history)
+        t.update_graph_history = bool(lat.update_graph_history)
+        net.add_lattice(t)
+    for st in src_net.spike_train_lattices.values():
+        net.add_spike_train_lattice(
+            spike_train_lattice_from(st, _port_model(st.model), device))
+    net.connections = {
+        key: (np.asarray(s, np.int64), np.asarray(d, np.int64),
+              np.asarray(w, np.float32))
+        for key, (s, d, w) in src_net.connections.items()}
+    net.electrical_synapse = bool(src_net.electrical_synapse)
+    net.chemical_synapse = bool(src_net.chemical_synapse)
+    net.internal_clock = int(src_net.internal_clock)
+    net.history_chunk = src_net.history_chunk
+    return net

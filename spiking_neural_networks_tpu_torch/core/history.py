@@ -4,7 +4,8 @@ PyTorch counterpart of ``spiking_neural_networks_tpu/core/history.py``.
 Each history kind is a readout of the state.  ``readout`` takes fields of
 shape (N,) for one step or (T, N) for T steps at once, so one call reads a
 whole run of steps; the runner copies each chunk's readouts to the host in
-one transfer and hands them to ``extend``.
+one transfer and hands them to ``extend``.  `rebuilt_readouts` reads them
+from the pre-reset voltages a kernel emits.
 """
 
 from __future__ import annotations
@@ -124,3 +125,16 @@ def resolve_history_chunk(setting, bytes_per_step, budget=64 << 20):
     if bytes_per_step <= 0:
         return 65536
     return max(1024, min(65536, int(budget) // int(bytes_per_step)))
+
+
+def rebuilt_readouts(v_pre, v_th, c, readouts, shape):
+    """The readouts ``{name: history}`` of an Izhikevich lattice's steps
+    from the (n, rows, cols) pre-reset planes ``v_pre`` a kernel emitted,
+    with post-reset v and spikes rebuilt by the kernels' own ops (spike =
+    ``v_pre >= v_th``, v = ``c`` on a spike); ``v_th`` and ``c`` are
+    (rows, cols) planes."""
+    n = v_pre.shape[0]
+    spk = v_pre >= v_th
+    fields = {"v": torch.where(spk, c, v_pre).reshape(n, -1),
+              "is_spiking": spk.reshape(n, -1)}
+    return {name: h.readout(fields, shape) for name, h in readouts}

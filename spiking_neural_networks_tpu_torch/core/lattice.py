@@ -29,7 +29,7 @@ from ..ops.graph import (SparseGraph, StencilGraph, connect_auto,
                          radius_offsets)
 from ..models.base import NEVER
 from .history import (GridVoltageHistory, history_step_bytes,
-                      resolve_history_chunk)
+                      rebuilt_readouts, resolve_history_chunk)
 from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 from ..errors import GraphError
 
@@ -205,17 +205,6 @@ class Lattice:
                 w = self.graph.weights.cpu().numpy()
                 self.graph_history.extend(np.repeat(w[None], length, axis=0))
 
-    def _rebuilt_readouts(self, v_pre, params, readouts):
-        """Readouts of the steps of pre-reset planes ``v_pre`` (n, rows,
-        cols), with post-reset v and spikes rebuilt by the Izhikevich
-        kernels' own ops (spike = v_pre >= v_th, v = c on a spike)."""
-        n = v_pre.shape[0]
-        spk = v_pre >= params["v_th"]
-        fields = {"v": torch.where(spk, params["c"], v_pre).reshape(n, -1),
-                  "is_spiking": spk.reshape(n, -1)}
-        return {name: h.readout(fields, (self.rows, self.cols))
-                for name, h in readouts}
-
     def _run_stdp(self, length, readouts, spec):
         """K steps per call of the plasticity kernel of kind ``plastic``;
         a grid history is rebuilt from the emitted pre-reset v."""
@@ -224,8 +213,9 @@ class Lattice:
             spec, self.state, self.graph, None, None,
             self.plasticity.params, None, self.internal_clock, length, shape)
         if readouts:
-            params = {k: self.state[k].reshape(shape) for k in ("v_th", "c")}
-            ys = self._rebuilt_readouts(v_pre, params, readouts)
+            ys = rebuilt_readouts(v_pre, self.state["v_th"].reshape(shape),
+                                  self.state["c"].reshape(shape), readouts,
+                                  shape)
         else:
             ys = {}
         self.state = st
@@ -252,8 +242,9 @@ class Lattice:
                 v, w, lft, g.weights, g.in_deg, params, g.offsets, clock, n,
                 emit=bool(readouts))
             if readouts:
-                for name, y in self._rebuilt_readouts(v_pre, params,
-                                                      readouts).items():
+                for name, y in rebuilt_readouts(
+                        v_pre, params["v_th"], params["c"], readouts,
+                        shape).items():
                     parts[name].append(y)
             clock += n
             done += n

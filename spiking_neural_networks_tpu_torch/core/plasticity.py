@@ -51,15 +51,51 @@ def rule_tensors(params, device):
             for k, v in rule_floats(params).items()}
 
 
-def stdp_delta(t_pre, t_post, p):
+# kernel_exp: a Cephes-style float32 exp (range reduction by ln 2 in two
+# parts, a degree-5 polynomial, exact power-of-two scaling)
+_LOG2E = 1.44269504088896341
+_LN2_HI, _LN2_LO = 0.693359375, -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_EXP_MAX, _EXP_MIN = 88.72283905206835, -103.27892990343185
+
+
+def _pow2(n):
+    """2^n as float32 for int32 n in [-126, 127], built from its bits."""
+    return ((n + 127) << 23).view(torch.float32)
+
+
+def kernel_exp(x):
+    """exp of a float32 tensor by the sequence of float32 operations the
+    CUDA kernels use (``kernel_exp`` in ``csrc/plasticity_common.cuh``),
+    within about an ulp of exp.  Each operation is a correctly rounded
+    IEEE one, so the result is the same bits on every device: the kernels'
+    twins take it where the kernels take it, and a kernel route on the
+    card then equals the same route on the CPU.  Inputs are finite."""
+    z = torch.floor(x * _LOG2E + 0.5)
+    r = x - z * _LN2_HI
+    r = r - z * _LN2_LO
+    y = r * _EXP_POLY[0] + _EXP_POLY[1]
+    for c in _EXP_POLY[2:]:
+        y = y * r + c
+    y = y * (r * r) + r + 1.0
+    # z out of range only where x is, and that y is overwritten below
+    n = torch.clamp(z, -150.0, 129.0).to(torch.int32)
+    half = torch.div(n, 2, rounding_mode="trunc")
+    y = y * _pow2(n - half) * _pow2(half)
+    y = torch.where(x > _EXP_MAX, float("inf"), y)
+    return torch.where(x < _EXP_MIN, 0.0, y)
+
+
+def stdp_delta(t_pre, t_post, p, exp=torch.exp):
     """The STDP delta of one visit from int32 last firing times, 0 unless
     both endpoints have fired.  One exp of the selected argument, as the
-    JAX package computes it."""
+    JAX package computes it; the kernels' twins pass ``kernel_exp``."""
     both = torch.logical_and(t_pre != NEVER, t_post != NEVER)
     diff = torch.abs((t_pre - t_post).to(torch.float32)) * p["dt"]
     pre_first = t_pre < t_post
-    e = torch.exp(torch.where(pre_first, -diff / p["tau_plus"],
-                              -diff / p["tau_minus"]))
+    e = exp(torch.where(pre_first, -diff / p["tau_plus"],
+                        -diff / p["tau_minus"]))
     dw = torch.where(pre_first, p["a_plus"] * e,
                      torch.where(t_pre > t_post, -p["a_minus"] * e, 0.0))
     return torch.where(both, dw, 0.0)
@@ -85,6 +121,8 @@ class STDP:
     """
 
     name = "stdp"
+    # the node fields an edge update reads at both endpoints
+    NODE_KEYS = ("last_firing_time", "is_spiking")
 
     def __init__(self, a_plus=2.0, a_minus=2.0, tau_plus=4.5, tau_minus=4.5,
                  dt=0.1):

@@ -17,9 +17,10 @@
 //      mod: two visits of (w_o, c_o, dw_o, counter_o) with that delta,
 //   from the post-step lft and spikes of both endpoints, on masked slots.
 // Off-grid neighbours are skipped by a bounds check (lft NEVER, spike 0).
-// Build with -fmad=false and without fast math (expf, not __expf): the
-// kernels then round as their plain PyTorch twin
-// (ops/reward_kernels.lattice_plasticity_steps_reference).
+// Build with -fmad=false and without fast math; the STDP delta's exp is
+// kernel_exp (plasticity_common.cuh), built from correctly rounded float
+// operations: the kernels then round as their plain PyTorch twin
+// (ops/reward_kernels.lattice_plasticity_steps_reference) on any device.
 //
 // Design.  Steps 4 read the neighbours' post-step lft and spikes, and
 // phase A of step k+1 reads the neighbours' new v, so every step needs a
@@ -44,45 +45,13 @@
 // fuse the edge pass of step k into the cell kernel of step k+1, keep
 // tiles and halos in shared memory, CUDA graphs for the launch loop.
 
-#include <cuda_runtime.h>
+#include "plasticity_common.cuh"
 
-#define LP_MAX_OFFSETS 64
-#define LP_MAX_PARAMS 13
 #define LP_REWARD_CHUNK 16
-#define LP_NEVER (-1)
-
-enum { MODEL_IZHIKEVICH = 0, MODEL_ALIF = 1, MODEL_LIF = 2 };
-enum { KIND_PLAIN = 0, KIND_PLASTIC = 1, KIND_MOD = 2 };
-
-struct Stencil {
-    int n;
-    int dr[LP_MAX_OFFSETS];
-    int dc[LP_MAX_OFFSETS];
-};
-
-// Parameter planes in MODEL_PARAM_KEYS order (ops/reward_kernels.py).
-struct Params {
-    const float* p[LP_MAX_PARAMS];
-};
-
-struct Rule {
-    float a_plus, a_minus, tau_plus, tau_minus, dt;
-    float tau_c, exp_dc;
-};
 
 struct Rewards {
     float r[LP_REWARD_CHUNK];
 };
-
-// Plane indices of each model's parameters.
-namespace izh { enum { a, b, c, d, v_th, gap, tau_m, c_m, dt }; }
-namespace alif {
-enum { v_th, v_reset, tref, alpha, beta, leak, integ, gap, e_l, g_l, tau_m,
-       c_m, dt };
-}
-namespace lif {
-enum { v_th, v_reset, tref, leak, integ, gap, e_l, g_l, tau_m, dt };
-}
 
 template <int MODEL>
 __global__ void lp_cell_kernel(
@@ -100,7 +69,6 @@ __global__ void lp_cell_kernel(
     if (row >= rows || col >= cols) return;
     const size_t n = (size_t)rows * cols;
     const size_t i = (size_t)row * cols + col;
-    const float* const* p = P.p;
 
     const float v = v_in[i];
     const float w = w_in[i];
@@ -115,75 +83,18 @@ __global__ void lp_cell_kernel(
         wsum = wsum + wo;
     }
     const float cnt = fmaxf(in_deg[i], 1.0f);
-
-    float v_pre, v_new, w_new;
+    const float i_syn = P.p[gap_param<MODEL>()][i] * (acc - v * wsum) / cnt;
+    const bool refractory = MODEL != MODEL_IZHIKEVICH;
+    float v_pre, v_new, w_new, refr_new;
     bool spike;
-    if (MODEL == MODEL_IZHIKEVICH) {
-        const float i_syn = p[izh::gap][i] * (acc - v * wsum) / cnt;
-        const float dt = p[izh::dt][i];
-        const float dt_cm = dt / p[izh::c_m][i];
-        const float dt_tau = dt / p[izh::tau_m][i];
-        const float dv = (0.04f * v * v + 5.0f * v + 140.0f - w + i_syn)
-            * dt_cm;
-        const float dw = (p[izh::a][i] * (p[izh::b][i] * v - w)) * dt_tau;
-        v_pre = v + dv;
-        const float w_pre = w + dw;
-        spike = v_pre >= p[izh::v_th][i];
-        v_new = spike ? p[izh::c][i] : v_pre;
-        w_new = spike ? w_pre + p[izh::d][i] : w_pre;
-    } else {
-        // ALIF and LIF share the refractory handler; LIF has no w (its
-        // plane is a zero plane that passes through).
-        const bool is_alif = MODEL == MODEL_ALIF;
-        const int gap = is_alif ? alif::gap : lif::gap;
-        const int e_l = is_alif ? alif::e_l : lif::e_l;
-        const int g_l = is_alif ? alif::g_l : lif::g_l;
-        const int dt_i = is_alif ? alif::dt : lif::dt;
-        const int tau_m = is_alif ? alif::tau_m : lif::tau_m;
-        const int leak_i = is_alif ? alif::leak : lif::leak;
-        const int integ = is_alif ? alif::integ : lif::integ;
-        const float i_syn = p[gap][i] * (acc - v * wsum) / cnt;
-        const float dt = p[dt_i][i];
-        const float dt_tau = dt / p[tau_m][i];
-        const float leak = p[leak_i][i] * (v - p[e_l][i]);
-        const float drive = p[integ][i] * (i_syn / p[g_l][i]);
-        float dv;
-        if (is_alif) {
-            dv = (leak + drive - w / p[g_l][i]) * (dt / p[alif::c_m][i]);
-            w_new = w + (p[alif::alpha][i] * (v - p[e_l][i]) - w) * dt_tau;
-        } else {
-            dv = (leak + drive) * dt_tau;
-            w_new = w;
-        }
-        v_pre = v + dv;
-        const float refr = refr_in[i];
-        const bool in_ref = refr > 0.0f;
-        spike = !in_ref && v_pre >= p[alif::v_th][i];   // v_th is plane 0
-        v_new = (in_ref || spike) ? p[alif::v_reset][i] : v_pre;
-        if (is_alif && spike) w_new = w_new + p[alif::beta][i];
-        refr_out[i] = in_ref ? refr - 1.0f
-                             : (spike ? p[alif::tref][i] / dt : refr);
-    }
+    model_step<MODEL>(P.p, i, v, w, refractory ? refr_in[i] : 0.0f, i_syn,
+                      v_pre, v_new, w_new, refr_new, spike);
     v_out[i] = v_new;
     w_out[i] = w_new;
+    if (refractory) refr_out[i] = refr_new;
     lft_out[i] = spike ? clock : lft_in[i];
     spk_out[i] = spike ? 1 : 0;
     if (v_pre_out) v_pre_out[i] = v_pre;
-}
-
-// The STDP delta of one visit (pallas_reward.py _stdp_delta): one expf of
-// the selected argument.
-__device__ __forceinline__ float stdp_delta(int t_pre, int t_post,
-                                            const Rule& r)
-{
-    if (t_pre == LP_NEVER || t_post == LP_NEVER) return 0.0f;
-    const float diff = fabsf((float)(t_pre - t_post)) * r.dt;
-    const bool pre_first = t_pre < t_post;
-    const float e = expf(pre_first ? -diff / r.tau_plus
-                                   : -diff / r.tau_minus);
-    if (pre_first) return r.a_plus * e;
-    if (t_pre > t_post) return -r.a_minus * e;
-    return 0.0f;
 }
 
 // One R-STDP visit (pallas_reward.py _rstdp_visit).
@@ -258,6 +169,20 @@ __global__ void lp_dopamine_kernel(const float* dop_in, Rewards rw,
         d = d * exp_dd + tau_d * rw.r[j];
         dop_out[j] = d;
     }
+}
+
+cudaError_t lp_launch_stdp_edge(const int* lft, const unsigned char* spk,
+                                float* weights, const unsigned char* mask,
+                                const Rule& r, const Stencil& st, int rows,
+                                int cols, cudaStream_t s)
+{
+    const dim3 block(32, 8);
+    const dim3 grid((cols + block.x - 1) / block.x,
+                    (rows + block.y - 1) / block.y);
+    lp_edge_kernel<KIND_PLASTIC><<<grid, block, 0, s>>>(
+        lft, spk, weights, mask, nullptr, nullptr, nullptr, nullptr, r, st,
+        rows, cols);
+    return cudaGetLastError();
 }
 
 template <int MODEL>
@@ -374,15 +299,15 @@ int lattice_plasticity_steps(
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         const float* dop = with_reward ? dop_steps + k : dop_in;
         if (kind == KIND_PLASTIC) {
-            lp_edge_kernel<KIND_PLASTIC><<<grid, block, 0, s>>>(
-                lfto, spikes, weights, mask, nullptr, nullptr, nullptr,
-                nullptr, r, st, rows, cols);
+            err = lp_launch_stdp_edge(lfto, spikes, weights, mask, r, st,
+                                      rows, cols, s);
         } else if (kind == KIND_MOD) {
             lp_edge_kernel<KIND_MOD><<<grid, block, 0, s>>>(
                 lfto, spikes, weights, mask, tr_c, tr_dw, tr_counter, dop,
                 r, st, rows, cols);
+            err = cudaGetLastError();
         }
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        if (err != cudaSuccess) return (int)err;
         v = vo;
         w = wo;
         lft = lfto;

@@ -1,0 +1,504 @@
+// K steps of a plain network of stencil lattices, spike trains and
+// one-to-one or resample connections, with STDP.
+//
+// Replaces the grid-mode plain-network form of the TPU kernel
+// spiking_neural_networks_tpu/ops/pallas_reward.py:_fused_chunk (body
+// _make_kernel, built by plain_network_runner): Izhikevich, adaptive leaky
+// (ALIF) or leaky (LIF) lattices of mixed grid shapes on stencil (or
+// edgeless) graphs, Poisson or Rate trains, and connections that are
+// one-to-one or resample taps (pooling, upsampling, shifted projections:
+// post (r, c) reads pre (f(r) + dr, f(c) + dc) with f(r) = r * fr for a
+// stride, r / -fr for a repeat).  Per step k, in the TPU kernel's order and
+// association (ops/network_kernels.py holds the plain twin):
+//   1. net_cell_kernel, one launch per lattice: phase A,
+//        total = (acc - v * wsum) + each incoming connection in plan order:
+//        one-to-one (m * w) * (v_pre - v), or (m * w) * effect from a train;
+//        resample: tacc = sum over taps in order of w_t * (a_t - sub_t * v)
+//        (w_t * a_t from a train), total = total + tacc;
+//        i = gap * total / cnt, cnt = max(in_deg + sum of masks, 1);
+//      a train's effect is computed from its previous firing times as
+//        amp * exp(decay * tdiff * tdiff) + v_resting (exponential decay:
+//        decay * tdiff), v_resting where it never fired; every exp is
+//        kernel_exp (plasticity_common.cuh), bit-equal to the twin's;
+//      then phase B (model_step, plasticity_common.cuh); lft = clock0 + k;
+//   2. STDP on every plastic lattice's stencil weights (lp_launch_stdp_edge,
+//      the plasticity kernel's own edge kernel);
+//   3. net_conn_edge_kernel on every connection with a plastic endpoint:
+//        w += delta(lft_pre, lft_post) * (pre_plastic * spk_pre
+//                                         + post_plastic * spk_post);
+//   4. net_train_kernel, one launch per train: Poisson u_k <= chance, Rate
+//      step + dt >= rate; lft = clock0 + k on a spike.
+// Trains step last, so every read of a train's firing times in a step sees
+// the previous step's; trains are never plastic endpoints.
+//
+// Design.  Phase A of lattice j reads lattice i's pre-step v, so every
+// lattice's v, w, lft and refr are double-buffered by step parity (step k
+// writes set k % 2) and read from set (k - 1) % 2; the edge kernels then
+// read the post-step lft and spikes of both endpoints.  Each kernel has one
+// thread per post cell that owns its weight slots, so the STDP updates are
+// in place without atomics.  A step costs one launch per lattice, plastic
+// lattice, updating connection and train (7 for a config-5 network);
+// cnt is computed once per call by net_count_kernel.
+//
+// What bounds it on an H100: at 64 x 64 the launches (each a few us of
+// host time for a few us of device time); at 512 x 512 memory traffic,
+// about 120 bytes per cell and step for a radius-2 lattice and 16 bytes
+// per cell and tap for a connection (computed from the shapes, not
+// measured).  Later work: one fused launch or a CUDA graph per call.
+
+#include "plasticity_common.cuh"
+
+#define NET_MAX_IN 8
+#define NET_MAX_TAPS 64
+// strides of the flat per-lattice, per-train and per-connection
+// descriptions (ops/network_kernels.py NL_I, NL_P, NT_I, NT_P, NC_I, NC_P)
+#define NL_I (8 + 2 * LP_MAX_OFFSETS)
+#define NL_P 32
+#define NT_I 4
+#define NT_P 10
+#define NC_I 12
+#define NC_P 3
+
+enum { CONN_ONE2ONE = 0, CONN_RESAMPLE = 1 };
+enum { TRAIN_POISSON = 0, TRAIN_RATE = 1 };
+enum { REFR_DELTA_DIRAC = 0, REFR_EXP_DECAY = 1 };
+
+// One incoming connection as the cell kernel reads it.
+struct InConn {
+    int kind, pre_is_st, refractoriness, R1, C1, fr, fc, n_taps;
+    const int* taps;                     // device (dr, dc) pairs; resample
+    const float* w;                      // (n_taps, rows, cols) post grid
+    const unsigned char* mask;
+    const float* pre_v;                  // lattice source: pre-step v
+    const int* tr_lft;                   // train source planes
+    const float* tr_v_th;
+    const float* tr_v_rest;
+    const float* tr_k;
+    const float* tr_dt;
+};
+
+struct InConns {
+    int n;
+    InConn c[NET_MAX_IN];
+};
+
+// The pre row (or column) that post row r reads through a tap at offset d.
+__device__ __forceinline__ int resample_index(int f, int r, int d)
+{
+    return (f > 0 ? r * f : r / -f) + d;
+}
+
+// A train's effect at cell j (pallas_reward.py _make_kernel, the spike-
+// train effects): the kernel's association decay * tdiff * tdiff.
+__device__ __forceinline__ float train_effect(const InConn& c, size_t j,
+                                              int clock)
+{
+    const int lft = c.tr_lft[j];
+    const float rest = c.tr_v_rest[j];
+    if (lft == LP_NEVER) return rest;
+    const float amp = c.tr_v_th[j] - rest;
+    const float tdiff = (float)(clock - lft);
+    const float decay = -1.0f / (c.tr_k[j] / c.tr_dt[j]);
+    const float x = c.refractoriness == REFR_DELTA_DIRAC
+        ? decay * tdiff * tdiff : decay * tdiff;
+    return amp * kernel_exp(x) + rest;
+}
+
+__global__ void net_count_kernel(const float* __restrict__ in_deg,
+                                 InConns in, float* __restrict__ cnt,
+                                 int rows, int cols)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+    float c = in_deg[i];
+    for (int q = 0; q < in.n; ++q) {
+        const InConn& cn = in.c[q];
+        const int taps = cn.kind == CONN_RESAMPLE ? cn.n_taps : 1;
+        for (int t = 0; t < taps; ++t)   // integers: exact in any order
+            c = c + (cn.mask[(size_t)t * n + i] ? 1.0f : 0.0f);
+    }
+    cnt[i] = fmaxf(c, 1.0f);
+}
+
+template <int MODEL>
+__global__ void net_cell_kernel(
+    const float* __restrict__ v_in, const float* __restrict__ w_in,
+    const int* __restrict__ lft_in, const float* __restrict__ refr_in,
+    float* __restrict__ v_out, float* __restrict__ w_out,
+    int* __restrict__ lft_out, float* __restrict__ refr_out,
+    unsigned char* __restrict__ spk_out,
+    float* __restrict__ v_pre_out,         // null unless emitting
+    const float* __restrict__ weights, const float* __restrict__ cnt,
+    Params P, Stencil st, InConns in, int rows, int cols, int clock)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+
+    const float v = v_in[i];
+    const float w = w_in[i];
+    float acc = 0.0f;
+    float wsum = 0.0f;
+    for (int o = 0; o < st.n; ++o) {
+        const float wo = weights[(size_t)o * n + i];
+        const int sr = row + st.dr[o];
+        const int sc = col + st.dc[o];
+        if (sr >= 0 && sr < rows && sc >= 0 && sc < cols)
+            acc = acc + wo * v_in[(size_t)sr * cols + sc];
+        wsum = wsum + wo;
+    }
+    float total = acc - v * wsum;
+    for (int q = 0; q < in.n; ++q) {
+        const InConn& c = in.c[q];
+        if (c.kind == CONN_ONE2ONE) {
+            const float mw = (c.mask[i] ? 1.0f : 0.0f) * c.w[i];
+            total = total + mw * (c.pre_is_st ? train_effect(c, i, clock)
+                                              : c.pre_v[i] - v);
+            continue;
+        }
+        float tacc = 0.0f;
+        for (int t = 0; t < c.n_taps; ++t) {
+            const int sr = resample_index(c.fr, row, c.taps[2 * t]);
+            const int sc = resample_index(c.fc, col, c.taps[2 * t + 1]);
+            const bool inb = sr >= 0 && sr < c.R1 && sc >= 0 && sc < c.C1;
+            const size_t j = (size_t)sr * c.C1 + sc;
+            const float wt = c.w[(size_t)t * n + i];
+            if (c.pre_is_st) {
+                tacc = tacc + wt * (inb ? train_effect(c, j, clock) : 0.0f);
+            } else {
+                const float a = inb ? c.pre_v[j] : 0.0f;
+                const float sub = inb ? 1.0f : 0.0f;
+                tacc = tacc + wt * (a - sub * v);
+            }
+        }
+        total = total + tacc;
+    }
+    const float i_syn = P.p[gap_param<MODEL>()][i] * total / cnt[i];
+    const bool refractory = MODEL != MODEL_IZHIKEVICH;
+    float v_pre, v_new, w_new, refr_new;
+    bool spike;
+    model_step<MODEL>(P.p, i, v, w, refractory ? refr_in[i] : 0.0f, i_syn,
+                      v_pre, v_new, w_new, refr_new, spike);
+    v_out[i] = v_new;
+    w_out[i] = w_new;
+    if (refractory) refr_out[i] = refr_new;
+    lft_out[i] = spike ? clock : lft_in[i];
+    spk_out[i] = spike ? 1 : 0;
+    if (v_pre_out) v_pre_out[i] = v_pre;
+}
+
+// STDP on one connection's weights, one thread per post cell.  lft_pre is
+// the pre lattice's post-step lft (or a train's previous one); spk_pre is
+// read only when the pre lattice is plastic.  A resample slot whose pre
+// cell is off the grid reads lft 0 and spike 0, as the TPU kernel's zero
+// padding does; the mask holds no such slot.
+__global__ void net_conn_edge_kernel(
+    float* __restrict__ w, const unsigned char* __restrict__ mask,
+    const int* __restrict__ taps, int kind,
+    const int* __restrict__ lft_pre, const unsigned char* __restrict__ spk_pre,
+    const int* __restrict__ lft_post,
+    const unsigned char* __restrict__ spk_post,
+    int pre_plastic, int post_plastic, int R1, int C1, int fr, int fc,
+    int n_taps, Rule r, int rows, int cols)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+    const int t_post = lft_post[i];
+    const float s_post = spk_post[i] ? 1.0f : 0.0f;
+    for (int t = 0; t < n_taps; ++t) {
+        const size_t e = (size_t)t * n + i;
+        if (!mask[e]) continue;
+        int t_pre = 0;
+        float s_pre = 0.0f;
+        if (kind == CONN_ONE2ONE) {
+            t_pre = lft_pre[i];
+            if (pre_plastic) s_pre = spk_pre[i] ? 1.0f : 0.0f;
+        } else {
+            const int sr = resample_index(fr, row, taps[2 * t]);
+            const int sc = resample_index(fc, col, taps[2 * t + 1]);
+            if (sr >= 0 && sr < R1 && sc >= 0 && sc < C1) {
+                const size_t j = (size_t)sr * C1 + sc;
+                t_pre = lft_pre[j];
+                if (pre_plastic) s_pre = spk_pre[j] ? 1.0f : 0.0f;
+            }
+        }
+        float count = 0.0f;
+        if (pre_plastic) count = count + s_pre;
+        if (post_plastic) count = count + s_post;
+        w[e] = w[e] + stdp_delta(t_pre, t_post, r) * count;
+    }
+}
+
+__global__ void net_train_kernel(
+    int kind, int* __restrict__ lft, float* __restrict__ step,
+    unsigned char* __restrict__ spk, const float* __restrict__ u,
+    const float* __restrict__ chance, const float* __restrict__ rate,
+    const float* __restrict__ dt, int n, int clock)
+{
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    bool s;
+    if (kind == TRAIN_POISSON) {
+        s = u[i] <= chance[i];
+    } else {
+        const float stepped = step[i] + dt[i];
+        s = rate[i] != 0.0f && stepped >= rate[i];
+        step[i] = s ? 0.0f : stepped;
+    }
+    if (s) lft[i] = clock;
+    spk[i] = s ? 1 : 0;
+}
+
+template <int MODEL>
+static cudaError_t launch_net_cell(dim3 grid, dim3 block, cudaStream_t s,
+                                   void* const* in, void* const* out,
+                                   unsigned char* spk, float* v_pre,
+                                   const float* weights, const float* cnt,
+                                   const Params& P, const Stencil& st,
+                                   const InConns& ic, int rows, int cols,
+                                   int clock)
+{
+    net_cell_kernel<MODEL><<<grid, block, 0, s>>>(
+        (const float*)in[0], (const float*)in[1], (const int*)in[2],
+        (const float*)in[3], (float*)out[0], (float*)out[1], (int*)out[2],
+        (float*)out[3], spk, v_pre, weights, cnt, P, st, ic, rows, cols,
+        clock);
+    return cudaGetLastError();
+}
+
+static dim3 grid_of(dim3 block, int rows, int cols)
+{
+    return dim3((cols + block.x - 1) / block.x,
+                (rows + block.y - 1) / block.y);
+}
+
+extern "C" {
+
+// NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS and the six strides, in order.
+void net_limits(int* out)
+{
+    const int v[9] = {NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS, NL_I, NL_P,
+                      NT_I, NT_P, NC_I, NC_P};
+    for (int q = 0; q < 9; ++q) out[q] = v[q];
+}
+
+// Runs n_steps network steps from clock0 on `stream`.  Flat descriptions
+// (host memory), one record per member:
+//   lattice ints (NL_I): model, plastic, rows, cols, n_off, n_params, emit,
+//     0, dr[LP_MAX_OFFSETS], dc[LP_MAX_OFFSETS];
+//   lattice pointers (NL_P): v, w, lft, refr (inputs, only read); buffer
+//     set 0 v, w, lft, refr; set 1 v, w, lft, refr; spikes (bytes, the last
+//     step's at the end); v_pre (n_steps planes, or null); in_deg; cnt
+//     (scratch); weights (updated in place when plastic); mask (bytes);
+//     then n_params parameter planes in MODEL_PARAM_KEYS order.  refr and
+//     its buffers are null for Izhikevich; weights and mask for n_off 0.
+//     Step k writes set k % 2, so the result is in set (n_steps - 1) % 2.
+//   train ints (NT_I): kind, refractoriness, rows, cols;
+//   train pointers (NT_P): lft (updated in place), v_th, v_resting,
+//     refractoriness k, dt, chance, uniforms (n_steps planes), rate, step
+//     (updated in place), spikes (bytes); chance and uniforms Poisson only,
+//     rate and step Rate only.
+//   connection ints (NC_I): kind, pre_is_st, pre, post, pre_plastic,
+//     post_plastic, R1, C1, fr, fc, n_taps (1 for one-to-one), 0;
+//   connection pointers (NC_P): w (updated in place when an endpoint is
+//     plastic), mask (bytes), taps (device (dr, dc) ints; resample only).
+// rule = {a_plus, a_minus, tau_plus, tau_minus, dt}.  Returns the first
+// CUDA error, 0 if none.
+int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
+              int n_tr, const int* tr_i, void* const* tr_p,
+              int n_cn, const int* cn_i, void* const* cn_p,
+              const float* rule, int clock0, int n_steps, void* stream)
+{
+    static const int n_params_of[3] = {9, 13, 10};
+    if (n_lat <= 0 || n_tr < 0 || n_cn < 0 || n_steps <= 0)
+        return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < n_lat; ++k) {
+        const int* li = lat_i + NL_I * k;
+        void* const* lp = lat_p + NL_P * k;
+        if (li[0] < 0 || li[0] > 2 || li[2] <= 0 || li[3] <= 0
+            || li[4] < 0 || li[4] > LP_MAX_OFFSETS || li[5] != n_params_of[li[0]]
+            || (li[0] != MODEL_IZHIKEVICH && !lp[3])
+            || (li[4] > 0 && (!lp[16] || !lp[17])))
+            return (int)cudaErrorInvalidValue;
+    }
+    int n_in[256] = {0};
+    if (n_lat > 256) return (int)cudaErrorInvalidValue;
+    for (int q = 0; q < n_cn; ++q) {
+        const int* ci = cn_i + NC_I * q;
+        const int pre_max = ci[1] ? n_tr : n_lat;
+        if (ci[0] < 0 || ci[0] > 1 || ci[2] < 0 || ci[2] >= pre_max
+            || ci[3] < 0 || ci[3] >= n_lat || (ci[1] && ci[4])
+            || ++n_in[ci[3]] > NET_MAX_IN
+            || (ci[0] == CONN_RESAMPLE
+                && (ci[10] <= 0 || ci[10] > NET_MAX_TAPS || !ci[8] || !ci[9]
+                    || !cn_p[NC_P * q + 2])))
+            return (int)cudaErrorInvalidValue;
+    }
+    const float* rf = rule;
+    const Rule r = {rf[0], rf[1], rf[2], rf[3], rf[4], 0.0f, 0.0f};
+    const dim3 block(32, 8);
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+
+    // per-lattice stencils, parameters and incoming connections (the
+    // lattice sources' v pointers are set per step), then cnt
+    Stencil* st = new Stencil[n_lat];
+    Params* P = new Params[n_lat];
+    InConns* ic = new InConns[n_lat];
+    int* src_of = new int[n_lat * NET_MAX_IN];   // pre lattice, or -1
+    for (int k = 0; k < n_lat; ++k) {
+        const int* li = lat_i + NL_I * k;
+        void* const* lp = lat_p + NL_P * k;
+        st[k].n = li[4];
+        for (int o = 0; o < LP_MAX_OFFSETS; ++o) {
+            st[k].dr[o] = li[8 + o];
+            st[k].dc[o] = li[8 + LP_MAX_OFFSETS + o];
+        }
+        for (int q = 0; q < LP_MAX_PARAMS; ++q)
+            P[k].p[q] = q < li[5] ? (const float*)lp[18 + q] : nullptr;
+        ic[k].n = 0;
+    }
+    for (int q = 0; q < n_cn; ++q) {
+        const int* ci = cn_i + NC_I * q;
+        void* const* cp = cn_p + NC_P * q;
+        const int post = ci[3];
+        InConn& c = ic[post].c[ic[post].n];
+        src_of[post * NET_MAX_IN + ic[post].n] = ci[1] ? -1 : ci[2];
+        ic[post].n += 1;
+        c.kind = ci[0];
+        c.pre_is_st = ci[1];
+        c.R1 = ci[6];
+        c.C1 = ci[7];
+        c.fr = ci[8];
+        c.fc = ci[9];
+        c.n_taps = ci[10];
+        c.taps = (const int*)cp[2];
+        c.w = (const float*)cp[0];
+        c.mask = (const unsigned char*)cp[1];
+        c.pre_v = nullptr;
+        c.refractoriness = 0;
+        c.tr_lft = nullptr;
+        c.tr_v_th = c.tr_v_rest = c.tr_k = c.tr_dt = nullptr;
+        if (ci[1]) {
+            const int* ti = tr_i + NT_I * ci[2];
+            void* const* tp = tr_p + NT_P * ci[2];
+            c.refractoriness = ti[1];
+            c.tr_lft = (const int*)tp[0];
+            c.tr_v_th = (const float*)tp[1];
+            c.tr_v_rest = (const float*)tp[2];
+            c.tr_k = (const float*)tp[3];
+            c.tr_dt = (const float*)tp[4];
+        }
+    }
+    err = cudaSuccess;
+    for (int k = 0; k < n_lat && err == cudaSuccess; ++k) {
+        const int* li = lat_i + NL_I * k;
+        void* const* lp = lat_p + NL_P * k;
+        net_count_kernel<<<grid_of(block, li[2], li[3]), block, 0, s>>>(
+            (const float*)lp[14], ic[k], (float*)lp[15], li[2], li[3]);
+        err = cudaGetLastError();
+    }
+
+    for (int k = 0; k < n_steps && err == cudaSuccess; ++k) {
+        const int clock = clock0 + k;
+        // 1. phases A and B of every lattice, from the previous step's set
+        for (int l = 0; l < n_lat && err == cudaSuccess; ++l) {
+            const int* li = lat_i + NL_I * l;
+            void* const* lp = lat_p + NL_P * l;
+            void* const* in = k == 0 ? lp : lp + 4 + 4 * ((k - 1) & 1);
+            void* const* out = lp + 4 + 4 * (k & 1);
+            for (int q = 0; q < ic[l].n; ++q) {
+                const int pre = src_of[l * NET_MAX_IN + q];
+                if (pre < 0) continue;
+                void* const* pp = lat_p + NL_P * pre;
+                ic[l].c[q].pre_v = (const float*)
+                    (k == 0 ? pp[0] : pp[4 + 4 * ((k - 1) & 1)]);
+            }
+            float* v_pre = lp[13] ? (float*)lp[13]
+                + (size_t)k * li[2] * li[3] : nullptr;
+            const dim3 grid = grid_of(block, li[2], li[3]);
+            const float* weights = (const float*)lp[16];
+            const float* cnt = (const float*)lp[15];
+            unsigned char* spk = (unsigned char*)lp[12];
+            switch (li[0]) {
+            case MODEL_IZHIKEVICH:
+                err = launch_net_cell<MODEL_IZHIKEVICH>(
+                    grid, block, s, in, out, spk, v_pre, weights, cnt, P[l],
+                    st[l], ic[l], li[2], li[3], clock);
+                break;
+            case MODEL_ALIF:
+                err = launch_net_cell<MODEL_ALIF>(
+                    grid, block, s, in, out, spk, v_pre, weights, cnt, P[l],
+                    st[l], ic[l], li[2], li[3], clock);
+                break;
+            default:
+                err = launch_net_cell<MODEL_LIF>(
+                    grid, block, s, in, out, spk, v_pre, weights, cnt, P[l],
+                    st[l], ic[l], li[2], li[3], clock);
+            }
+        }
+        // 2. STDP on the plastic lattices' stencil weights
+        for (int l = 0; l < n_lat && err == cudaSuccess; ++l) {
+            const int* li = lat_i + NL_I * l;
+            void* const* lp = lat_p + NL_P * l;
+            if (!li[1] || li[4] == 0) continue;
+            err = lp_launch_stdp_edge(
+                (const int*)lp[4 + 4 * (k & 1) + 2], (const unsigned char*)
+                lp[12], (float*)lp[16], (const unsigned char*)lp[17], r,
+                st[l], li[2], li[3], s);
+        }
+        // 3. STDP on the connections with a plastic endpoint
+        for (int q = 0; q < n_cn && err == cudaSuccess; ++q) {
+            const int* ci = cn_i + NC_I * q;
+            void* const* cp = cn_p + NC_P * q;
+            if (!ci[4] && !ci[5]) continue;
+            void* const* post = lat_p + NL_P * ci[3];
+            const int* post_i = lat_i + NL_I * ci[3];
+            const int* lft_pre;
+            const unsigned char* spk_pre = nullptr;
+            if (ci[1]) {
+                lft_pre = (const int*)tr_p[NT_P * ci[2]];
+            } else {
+                void* const* pre = lat_p + NL_P * ci[2];
+                lft_pre = (const int*)pre[4 + 4 * (k & 1) + 2];
+                spk_pre = (const unsigned char*)pre[12];
+            }
+            net_conn_edge_kernel<<<grid_of(block, post_i[2], post_i[3]),
+                                   block, 0, s>>>(
+                (float*)cp[0], (const unsigned char*)cp[1],
+                (const int*)cp[2], ci[0], lft_pre, spk_pre,
+                (const int*)post[4 + 4 * (k & 1) + 2],
+                (const unsigned char*)post[12], ci[4], ci[5], ci[6], ci[7],
+                ci[8], ci[9], ci[10], r, post_i[2], post_i[3]);
+            err = cudaGetLastError();
+        }
+        // 4. the trains step last
+        for (int j = 0; j < n_tr && err == cudaSuccess; ++j) {
+            const int* ti = tr_i + NT_I * j;
+            void* const* tp = tr_p + NT_P * j;
+            const int n = ti[2] * ti[3];
+            const float* u = tp[6] ? (const float*)tp[6] + (size_t)k * n
+                                   : nullptr;
+            net_train_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+                ti[0], (int*)tp[0], (float*)tp[8], (unsigned char*)tp[9], u,
+                (const float*)tp[5], (const float*)tp[7],
+                (const float*)tp[4], n, clock);
+            err = cudaGetLastError();
+        }
+    }
+    delete[] st;
+    delete[] P;
+    delete[] ic;
+    delete[] src_of;
+    return (int)err;
+}
+
+}  // extern "C"

@@ -3,9 +3,10 @@
 PyTorch counterpart of ``spiking_neural_networks_tpu/ops/graph.py``:
 :func:`radius_offsets`, :class:`StencilGraph` (per-destination, per-offset
 weight planes on a (rows, cols) grid), :class:`SparseGraph` (COO edge
-list, its gather and edge updates; only the zero-edge default is built so
-far), and the host builders of ``connect(predicate)``, which decompose a
-pairwise predicate into a `StencilGraph` (`DenseGraph` is not ported).
+list, its gather, edge updates and per-edge edits; a lattice builds only
+the zero-edge default so far), and the host builders of
+``connect(predicate)``, which decompose a pairwise predicate into a
+`StencilGraph` (`DenseGraph` is not ported).
 
 Graph construction runs in host NumPy, drawing the same random numbers in
 the same order as the JAX package, and moves the result to the device once.
@@ -83,6 +84,49 @@ class SparseGraph:
     def replace_weights(self, weights):
         return SparseGraph(self.src, self.dst, weights, self.n_pre,
                            self.n_post, self.in_deg)
+
+    # -- per-edge access ----------------------------------------------------------
+    def _edge_index(self, src, dst):
+        hits = np.nonzero((self.src.cpu().numpy() == src)
+                          & (self.dst.cpu().numpy() == dst))[0]
+        return int(hits[0]) if len(hits) else None
+
+    def lookup_weight(self, src, dst):
+        _check_node(src, self.n_pre)
+        _check_node(dst, self.n_post)
+        e = self._edge_index(src, dst)
+        return None if e is None else float(self.weights[e])
+
+    def edit_weight(self, src, dst, w):
+        """A graph with edge src -> dst set to ``w`` (added if missing), or
+        removed when ``w`` is None."""
+        _check_node(src, self.n_pre)
+        _check_node(dst, self.n_post)
+        e = self._edge_index(src, dst)
+        s, d = self.src.cpu().numpy(), self.dst.cpu().numpy()
+        ws = self.weights.cpu().numpy()
+        if w is None:
+            if e is None:
+                return self
+            keep = np.ones(len(ws), bool)
+            keep[e] = False
+            s, d, ws = s[keep], d[keep], ws[keep]
+        elif e is not None:
+            ws = ws.copy()
+            ws[e] = w
+        else:
+            s, d = np.append(s, src), np.append(d, dst)
+            ws = np.append(ws, np.float32(w))
+        dev = self.weights.device
+        return SparseGraph(torch.from_numpy(s).to(dev),
+                           torch.from_numpy(d).to(dev),
+                           torch.from_numpy(ws.astype(np.float32)).to(dev),
+                           self.n_pre, self.n_post)
+
+    def get_incoming_connections(self, dst):
+        _check_node(dst, self.n_post)
+        sel = self.dst.cpu().numpy() == dst
+        return set(self.src.cpu().numpy()[sel].tolist())
 
     def apply_edge_update(self, edge_dw, pre_vals, post_vals):
         pre, post = self.edge_pre_post(pre_vals, post_vals)
@@ -225,6 +269,52 @@ class StencilGraph:
         if slot is None or not bool(self.mask[slot]):
             return None
         return float(self.weights[slot])
+
+    def edit_weight(self, src, dst, w):
+        """A graph with edge src -> dst set to ``w``, or removed when ``w``
+        is None; an edge at a new offset appends a plane."""
+        _check_node(src, self.n_pre)
+        _check_node(dst, self.n_post)
+        rows, cols = self.shape
+        slot = self._edge_slot(src, dst)
+        weights = self.weights.cpu().numpy()
+        mask = self.mask.cpu().numpy()
+        offsets = self.offsets
+        if slot is None:
+            if w is None:
+                return self
+            offsets = offsets + ((int(src // cols - dst // cols),
+                                  int(src % cols - dst % cols)),)
+            weights = np.concatenate(
+                [weights, np.zeros((1, rows, cols), np.float32)])
+            mask = np.concatenate([mask, np.zeros((1, rows, cols), bool)])
+            slot = (len(offsets) - 1, dst // cols, dst % cols)
+        else:
+            weights, mask = weights.copy(), mask.copy()
+        if w is None:
+            weights[slot] = 0.0
+            mask[slot] = False
+        else:
+            weights[slot] = w
+            mask[slot] = True
+        dev = self.weights.device
+        return StencilGraph(offsets, torch.from_numpy(weights).to(dev),
+                            torch.from_numpy(mask).to(dev),
+                            torch.from_numpy(mask.sum(axis=0, dtype=np.float32))
+                            .to(dev))
+
+    def get_incoming_connections(self, dst):
+        """The flat indices of the sources of ``dst``."""
+        _check_node(dst, self.n_post)
+        rows, cols = self.shape
+        r, c = dst // cols, dst % cols
+        mask = self.mask.cpu().numpy()
+        out = set()
+        for o, (dr, dc) in enumerate(self.offsets):
+            sr, sc = r + dr, c + dc
+            if 0 <= sr < rows and 0 <= sc < cols and mask[o, r, c]:
+                out.add(sr * cols + sc)
+        return out
 
     # -- per-edge updates (plasticity) ------------------------------------------
     def edge_pre_post(self, pre_vals, post_vals):

@@ -1,0 +1,707 @@
+"""The plain-network kernels: gate, spec, wrapper, plain twin and runner.
+
+PyTorch/CUDA counterpart of the grid-mode plain-network form of
+``spiking_neural_networks_tpu/ops/pallas_reward.py`` (`_fused_chunk`, body
+`_make_kernel`, built by `plain_network_runner`): K steps of a
+`LatticeNetwork` of Izhikevich, ALIF or LIF lattices on stencil (or
+edgeless) graphs, of mixed grid shapes, with Poisson or Rate spike trains
+and one-to-one or resample (pooling, upsampling, shifted) connections.
+Each step runs, in this order,
+
+1. phase A of every lattice from the previous step's state: the intra
+   stencil sum ``acc - v * wsum``, then each incoming connection in plan
+   order (one-to-one ``mask * w * (v_pre - v)``, or ``mask * w * effect``
+   from a train; resample taps ``w_t * (a_t - sub_t * v)`` summed in tap
+   order into their own accumulator), then ``gap * total / cnt`` with
+   ``cnt = max(in_deg + sum of connection masks, 1)``; train effects from
+   the trains' previous firing times, in the association
+   ``decay * tdiff * tdiff``;
+2. phase B, the model step of `reward_kernels.model_step`, and
+   ``lft = clock0 + k`` on a spike;
+3. STDP on every plastic lattice's stencil weights;
+4. STDP on the weights of every connection with a plastic endpoint,
+   ``w += delta * (pre_plastic * spk_pre + post_plastic * spk_post)``;
+5. the trains step: Poisson ``u <= chance`` from the call's uniforms,
+   Rate ``step + dt >= rate``; ``lft = clock0 + k`` on a spike.
+
+On a GPU these are hand-written CUDA kernels, ``csrc/network_plasticity.cu``
+(with the intra STDP kernel of ``csrc/lattice_plasticity.cu``);
+`network_steps` launches them for CUDA tensors and runs the plain twin
+`network_steps_reference` for CPU tensors.  A build or launch failure
+raises; nothing falls back.  The Poisson uniforms of a call are drawn on
+the device with ``torch.rand`` from the network's generator: input data,
+as the TPU kernel's per-chunk draw is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..core.history import rebuilt_readouts
+from ..core.plasticity import (STDP, kernel_exp, rule_floats, rule_tensors,
+                               stdp_delta)
+from ..core.structured import _resample_planes
+from ..models.base import NEVER
+from ..models.spike_train import PoissonSpikeTrain, RateSpikeTrain
+from .graph import SparseGraph, StencilGraph
+from .reward_kernels import (MAX_OFFSETS, MODEL_PARAM_KEYS, MODELS,
+                             REFRACTORY_MODELS, STDP_KEYS, model_kind,
+                             model_step, shifted)
+
+MAX_IN = 8                # NET_MAX_IN: incoming connections per lattice
+MAX_TAPS = 64             # NET_MAX_TAPS (= core.structured.ResampleBlock)
+STEPS_PER_LAUNCH = 16     # K of the runner's kernel calls
+TRAIN_KINDS = ("poisson", "rate")
+REFRACTORINESS = ("delta_dirac", "exponential_decay")
+# fixed strides of the flat per-lattice/train/connection descriptions the
+# C entry point reads (the NL_/NT_/NC_ defines of the CUDA source)
+NL_I, NL_P = 8 + 2 * MAX_OFFSETS, 32
+NT_I, NT_P = 4, 10
+NC_I, NC_P = 12, 3
+
+# Calls of `network_steps` that launched the CUDA kernels.
+LAUNCHES = 0
+
+
+class NetLat(NamedTuple):
+    kind: str                  # 'plain' | 'plastic'
+    model: str                 # MODEL_PARAM_KEYS key
+    shape: tuple               # (rows, cols)
+    offsets: tuple             # stencil offsets; () for an edgeless graph
+    emit: bool = False         # emit each step's pre-reset v
+
+
+class NetTrain(NamedTuple):
+    kind: str                  # 'poisson' | 'rate'
+    refractoriness: str        # 'delta_dirac' | 'exponential_decay'
+    shape: tuple
+
+
+class NetConn(NamedTuple):
+    pre_is_st: bool
+    pre: int                   # index into lattices, or trains if pre_is_st
+    post: int                  # index into lattices
+    pre_plastic: bool
+    post_plastic: bool
+    op: tuple                  # ("one2one",) or ("resample", R1, C1, R2,
+                               # C2, fr, fc, taps)
+
+    @property
+    def updates(self):
+        return self.pre_plastic or self.post_plastic
+
+
+class NetSpec(NamedTuple):
+    lattices: tuple            # NetLat, ... in plan order
+    trains: tuple              # NetTrain, ...
+    conns: tuple               # NetConn, ... (empty connections dropped)
+    keep: tuple                # plan index of each conn
+
+
+# ---------------------------------------------------------------------------
+# Gate
+# ---------------------------------------------------------------------------
+
+
+def _graph_offsets(lat):
+    """The kernel's intra-graph offsets of a lattice: its stencil's, () for
+    an edgeless graph, None outside the kernel's class."""
+    g = lat.graph
+    if isinstance(g, StencilGraph) and g.shape == (lat.rows, lat.cols) \
+            and len(g.offsets) <= MAX_OFFSETS:
+        return g.offsets
+    if isinstance(g, SparseGraph) and g.src.numel() == 0:
+        return ()
+    return None
+
+
+def _train_spec(st):
+    kind = {PoissonSpikeTrain: "poisson",
+            RateSpikeTrain: "rate"}.get(type(st.model))
+    if kind is None:
+        return None
+    return NetTrain(kind, st.model.refractoriness, (st.rows, st.cols))
+
+
+def plain_network_spec(net, plan, skip_nt):
+    """The kernel spec of a plain `LatticeNetwork` and its structured
+    ``plan``, or None outside the kernels' class: electrical synapses
+    only, no neurotransmitter inserted (``skip_nt``), Izhikevich, ALIF or
+    LIF lattices on stencil (<= 64 offsets) or edgeless graphs, Poisson or
+    Rate trains, one-to-one and resample connections (<= 64 taps, <= 8
+    into any lattice), STDP, and lattice grid histories on Izhikevich
+    lattices only (rebuilt from the emitted pre-reset v).  The TPU gate's
+    128-column and VMEM limits are Mosaic limits and are not copied."""
+    if not net.electrical_synapse or net.chemical_synapse or not skip_nt:
+        return None
+    lattices = [net.lattices[i] for i in plan["lat_ids"]]
+    sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
+    if not lattices or any(s.update_grid_history for s in sts):
+        return None
+    lats = []
+    for lat in lattices:
+        mk = model_kind(lat.model)
+        offsets = _graph_offsets(lat)
+        if mk is None or offsets is None or lat.update_graph_history:
+            return None
+        emit = bool(lat.update_grid_history)
+        if emit and mk != "izhikevich":
+            return None
+        lats.append(NetLat("plastic" if lat.do_plasticity else "plain", mk,
+                           (lat.rows, lat.cols), offsets, emit))
+    if any(ls.kind == "plastic" for ls in lats) \
+            and type(net._plasticity()) is not STDP:
+        return None
+    trains = [_train_spec(s) for s in sts]
+    if any(ts is None for ts in trains):
+        return None
+    lat_index = {i: k for k, i in enumerate(plan["lat_ids"])}
+    st_index = {i: k for k, i in enumerate(plan["st_ids"])}
+    conns, keep = [], []
+    for ci, c in enumerate(plan["conns"]):
+        kind = c["op"].kind
+        if kind == "empty":
+            continue            # zero contribution: dropped from the spec
+        pre_is_st = c["pre_is_st"]
+        pre = st_index[c["pre"]] if pre_is_st else lat_index[c["pre"]]
+        post = lat_index[c["post"]]
+        pre_shape = trains[pre].shape if pre_is_st else lats[pre].shape
+        if kind == "one2one":
+            if pre_shape != lats[post].shape:
+                return None
+            op = ("one2one",)
+        elif isinstance(kind, tuple) and len(kind[7]) <= MAX_TAPS:
+            op = kind
+        else:
+            return None         # dense and padded blocks: plain route
+        conns.append(NetConn(pre_is_st, pre, post,
+                             not pre_is_st and lats[pre].kind == "plastic",
+                             lats[post].kind == "plastic", op))
+        keep.append(ci)
+    if any(sum(c.post == k for c in conns) > MAX_IN
+           for k in range(len(lats))):
+        return None
+    return NetSpec(tuple(lats), tuple(trains), tuple(conns), tuple(keep))
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+
+def _need(name, t, dtype, shape, dev):
+    if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != dev or not t.is_contiguous():
+        got = None if t is None else (t.dtype, tuple(t.shape), t.device)
+        raise ValueError(f"{name} must be a contiguous {dtype} "
+                         f"{tuple(shape)} tensor on {dev}; got {got}")
+
+
+def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
+    if not spec.lattices:
+        raise ValueError("a network spec needs at least one lattice")
+    if not (len(lats) == len(spec.lattices) and len(trains) == len(spec.trains)
+            and len(conns) == len(spec.conns)
+            and len(uniforms) == len(spec.trains)):
+        raise ValueError("lattices, trains, connections and uniforms must "
+                         "match the spec")
+    dev = lats[0]["v"].device
+    n_steps = int(n_steps)
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if not -2**31 <= int(clock0) <= 2**31 - n_steps:
+        raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
+    f32, i32 = torch.float32, torch.int32
+    for k, (ls, d) in enumerate(zip(spec.lattices, lats)):
+        if ls.kind not in ("plain", "plastic") \
+                or ls.model not in MODEL_PARAM_KEYS:
+            raise ValueError(f"no kernel for lattice kind {ls.kind!r} and "
+                             f"model {ls.model!r}")
+        if len(ls.offsets) > MAX_OFFSETS:
+            raise ValueError(f"the kernel takes at most {MAX_OFFSETS} "
+                             f"offsets, got {len(ls.offsets)}")
+        if ls.emit and ls.model != "izhikevich":
+            raise ValueError("only Izhikevich lattices emit pre-reset v")
+        shp, n_off = ls.shape, len(ls.offsets)
+        missing = [p for p in MODEL_PARAM_KEYS[ls.model]
+                   if p not in d["params"]]
+        if missing:
+            raise KeyError(f"lattice {k}: missing parameter planes {missing}")
+        for name in ("v", "w", "in_deg"):
+            _need(f"lattice {k} {name}", d[name], f32, shp, dev)
+        for p in MODEL_PARAM_KEYS[ls.model]:
+            _need(f"lattice {k} {p}", d["params"][p], f32, shp, dev)
+        _need(f"lattice {k} lft", d["lft"], i32, shp, dev)
+        if ls.model in REFRACTORY_MODELS:
+            _need(f"lattice {k} refr", d["refr"], f32, shp, dev)
+        if n_off:
+            _need(f"lattice {k} weights", d["weights"], f32, (n_off, *shp),
+                  dev)
+            _need(f"lattice {k} mask", d["mask"], torch.bool, (n_off, *shp),
+                  dev)
+    for j, (ts, d, u) in enumerate(zip(spec.trains, trains, uniforms)):
+        if ts.kind not in TRAIN_KINDS \
+                or ts.refractoriness not in REFRACTORINESS:
+            raise ValueError(f"no kernel for train {ts.kind!r} "
+                             f"{ts.refractoriness!r}")
+        _need(f"train {j} lft", d["lft"], i32, ts.shape, dev)
+        names = ("v_th", "v_resting", "refr_k", "dt") + (
+            ("chance",) if ts.kind == "poisson" else ("rate", "step"))
+        for name in names:
+            _need(f"train {j} {name}", d[name], f32, ts.shape, dev)
+        if ts.kind == "poisson":
+            _need(f"train {j} uniforms", u, f32, (n_steps, *ts.shape), dev)
+    n_in = [0] * len(spec.lattices)
+    for ci, (cs, d) in enumerate(zip(spec.conns, conns)):
+        post = spec.lattices[cs.post].shape
+        pre = spec.trains[cs.pre].shape if cs.pre_is_st \
+            else spec.lattices[cs.pre].shape
+        n_in[cs.post] += 1
+        if cs.op[0] == "one2one":
+            if pre != post:
+                raise ValueError(f"connection {ci}: one-to-one needs equal "
+                                 f"shapes, got {pre} and {post}")
+            shp = post
+        elif cs.op[0] == "resample":
+            _, R1, C1, R2, C2, fr, fc, taps = cs.op
+            if (R1, C1) != tuple(pre) or (R2, C2) != tuple(post) \
+                    or not 0 < len(taps) <= MAX_TAPS or not fr or not fc:
+                raise ValueError(f"connection {ci}: bad resample op "
+                                 f"{cs.op[:7]} for {pre} -> {post}")
+            shp = (len(taps), *post)
+        else:
+            raise ValueError(f"connection {ci}: no kernel for {cs.op[0]!r}")
+        if cs.pre_is_st and cs.pre_plastic:
+            raise ValueError("spike trains are never plastic endpoints")
+        _need(f"connection {ci} w", d["w"], f32, shp, dev)
+        _need(f"connection {ci} mask", d["mask"], torch.bool, shp, dev)
+    if max(n_in) > MAX_IN:
+        raise ValueError(f"the kernel takes at most {MAX_IN} connections "
+                         f"into a lattice, got {max(n_in)}")
+
+
+def _outputs(spec, lats, trains, conns, n_steps, dev):
+    """Buffers of a kernel call: double-buffered lattice state, spike
+    planes, emits, and copies of what the steps update in place."""
+    outs = []
+    for ls, d in zip(spec.lattices, lats):
+        shp = ls.shape
+        refractory = ls.model in REFRACTORY_MODELS
+        outs.append(dict(
+            buf=[torch.empty((2, *shp), dtype=torch.float32, device=dev),
+                 torch.empty((2, *shp), dtype=torch.float32, device=dev),
+                 torch.empty((2, *shp), dtype=torch.int32, device=dev),
+                 torch.empty((2, *shp), dtype=torch.float32, device=dev)
+                 if refractory else None],
+            spikes=torch.empty(shp, dtype=torch.bool, device=dev),
+            cnt=torch.empty(shp, dtype=torch.float32, device=dev),
+            v_pre=torch.empty((n_steps, *shp), dtype=torch.float32,
+                              device=dev) if ls.emit else None,
+            weights=d["weights"].clone() if ls.kind == "plastic"
+            and ls.offsets else d["weights"]))
+    touts = [dict(lft=d["lft"].clone(),
+                  step=d["step"].clone() if ts.kind == "rate" else None,
+                  spikes=torch.empty(ts.shape, dtype=torch.bool, device=dev))
+             for ts, d in zip(spec.trains, trains)]
+    couts = [d["w"].clone() if cs.updates else d["w"]
+             for cs, d in zip(spec.conns, conns)]
+    return outs, touts, couts
+
+
+def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
+                  n_steps):
+    """Advance ``n_steps`` steps of the network of ``spec``.
+
+    ``lats`` holds one dict per lattice: ``v``, ``w`` (a zero plane for
+    LIF), ``in_deg`` and the ``params`` planes (keys
+    ``MODEL_PARAM_KEYS[model]``) as (rows, cols) float32, ``lft`` int32,
+    ``refr`` (ALIF and LIF) float32, and ``weights`` / ``mask`` (bool) as
+    (n_off, rows, cols) for a stencil graph.  ``trains`` holds one dict per
+    train: ``lft`` int32 and ``v_th``, ``v_resting``, ``refr_k``, ``dt``
+    and ``chance`` (Poisson) or ``rate`` and ``step`` (Rate) float32
+    planes.  ``conns`` holds ``w`` and ``mask`` (bool) per connection,
+    (rows, cols) one-to-one or (n_taps, rows, cols) resample, on the post
+    grid.  ``uniforms`` is an (n_steps, rows, cols) float32 tensor per
+    Poisson train (None for Rate), ``rule`` the STDP parameter dict.
+
+    Returns ``(lats, trains, conn_ws)``: per lattice a dict of ``v``,
+    ``w``, ``lft``, ``refr``, ``spikes`` (the last step's, bool),
+    ``weights`` and ``v_pre`` ((n_steps, rows, cols) with ``emit``, else
+    None); per train ``lft``, ``step`` and ``spikes``; the connection
+    weights.  The inputs are not modified.
+    """
+    global LAUNCHES
+    _check(spec, lats, trains, conns, uniforms, clock0, n_steps)
+    dev = lats[0]["v"].device
+    if dev.type == "cpu":
+        return network_steps_reference(spec, lats, trains, conns, uniforms,
+                                       rule, clock0, n_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    from .. import _build
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc, out = _launch(lib, spec, lats, trains, conns, uniforms, rule,
+                          clock0, n_steps,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"net_steps failed with CUDA error {rc} "
+                           f"({torch.cuda.get_device_name(dev)})")
+    LAUNCHES += 1
+    return out
+
+
+def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
+            stream):
+    """Pack the checked inputs into the flat descriptions of ``net_steps``
+    and call it on ``stream``; returns its code and the outputs."""
+    dev = lats[0]["v"].device
+    n_steps = int(n_steps)
+    outs, touts, couts = _outputs(spec, lats, trains, conns, n_steps, dev)
+    # device tap lists of the resample connections, (dr, dc) pairs
+    taps = [torch.tensor([x for t in cs.op[7] for x in t], dtype=torch.int32,
+                         device=dev) if cs.op[0] == "resample" else None
+            for cs in spec.conns]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lat_i = (ctypes.c_int * (NL_I * len(lats)))()
+    lat_p = (ctypes.c_void_p * (NL_P * len(lats)))()
+    for k, (ls, d, o) in enumerate(zip(spec.lattices, lats, outs)):
+        keys = MODEL_PARAM_KEYS[ls.model]
+        n_off = len(ls.offsets)
+        ints = [MODELS.index(ls.model), int(ls.kind == "plastic"),
+                *ls.shape, n_off, len(keys), int(ls.emit), 0]
+        ints += [o_[0] for o_ in ls.offsets] + [0] * (MAX_OFFSETS - n_off)
+        ints += [o_[1] for o_ in ls.offsets] + [0] * (MAX_OFFSETS - n_off)
+        lat_i[NL_I * k:NL_I * (k + 1)] = ints
+        b = o["buf"]
+        ptrs = [ptr(d["v"]), ptr(d["w"]), ptr(d["lft"]), ptr(d.get("refr")),
+                *[None if x is None else x[0].data_ptr() for x in b],
+                *[None if x is None else x[1].data_ptr() for x in b],
+                ptr(o["spikes"]), ptr(o["v_pre"]), ptr(d["in_deg"]),
+                ptr(o["cnt"]), ptr(o["weights"]) if n_off else None,
+                ptr(d["mask"]) if n_off else None,
+                *[d["params"][p].data_ptr() for p in keys]]
+        lat_p[NL_P * k:NL_P * k + len(ptrs)] = ptrs
+    tr_i = (ctypes.c_int * max(NT_I * len(trains), 1))()
+    tr_p = (ctypes.c_void_p * max(NT_P * len(trains), 1))()
+    for j, (ts, d, o, u) in enumerate(zip(spec.trains, trains, touts,
+                                          uniforms)):
+        tr_i[NT_I * j:NT_I * (j + 1)] = [
+            TRAIN_KINDS.index(ts.kind),
+            REFRACTORINESS.index(ts.refractoriness), *ts.shape]
+        poisson = ts.kind == "poisson"
+        tr_p[NT_P * j:NT_P * (j + 1)] = [
+            ptr(o["lft"]), ptr(d["v_th"]), ptr(d["v_resting"]),
+            ptr(d["refr_k"]), ptr(d["dt"]),
+            ptr(d["chance"]) if poisson else None,
+            ptr(u) if poisson else None,
+            None if poisson else ptr(d["rate"]), ptr(o["step"]),
+            ptr(o["spikes"])]
+    cn_i = (ctypes.c_int * max(NC_I * len(conns), 1))()
+    cn_p = (ctypes.c_void_p * max(NC_P * len(conns), 1))()
+    for ci, (cs, d, w) in enumerate(zip(spec.conns, conns, couts)):
+        if cs.op[0] == "resample":
+            _, R1, C1, _, _, fr, fc, tp = cs.op
+            geo = [R1, C1, fr, fc, len(tp)]
+        else:
+            geo = [0, 0, 0, 0, 1]
+        cn_i[NC_I * ci:NC_I * (ci + 1)] = [
+            int(cs.op[0] == "resample"), int(cs.pre_is_st), cs.pre, cs.post,
+            int(cs.pre_plastic), int(cs.post_plastic), *geo, 0]
+        cn_p[NC_P * ci:NC_P * (ci + 1)] = [ptr(w), ptr(d["mask"]),
+                                           ptr(taps[ci])]
+    r = rule_floats(rule)
+    rule_vec = (ctypes.c_float * 5)(*[r[k] for k in STDP_KEYS])
+    rc = lib.net_steps(len(lats), lat_i, lat_p, len(trains), tr_i, tr_p,
+                       len(conns), cn_i, cn_p, rule_vec, int(clock0),
+                       n_steps, stream)
+    last = (n_steps - 1) % 2
+    lat_out = [dict(v=o["buf"][0][last], w=o["buf"][1][last],
+                    lft=o["buf"][2][last],
+                    refr=o["buf"][3][last] if o["buf"][3] is not None
+                    else None,
+                    spikes=o["spikes"], weights=o["weights"],
+                    v_pre=o["v_pre"]) for o in outs]
+    tr_out = [dict(lft=o["lft"], step=o["step"], spikes=o["spikes"])
+              for o in touts]
+    return rc, (lat_out, tr_out, couts)
+
+
+# ---------------------------------------------------------------------------
+# Plain twin
+# ---------------------------------------------------------------------------
+
+
+def _taps(op, x):
+    """Per-tap post-aligned planes of pre plane ``x``, zero off the pre
+    grid (`core.structured._resample_planes`)."""
+    return _resample_planes(op[1:], x.reshape(-1)).unbind(0)
+
+
+def train_effect(ts, d, lft, clock):
+    """A train's effect from its firing times ``lft``, in the kernels'
+    association ``(decay * tdiff) * tdiff`` and with their exp."""
+    amp = d["v_th"] - d["v_resting"]
+    tdiff = (clock - lft).to(torch.float32)
+    decay = -1.0 / (d["refr_k"] / d["dt"])
+    x = decay * tdiff * tdiff if ts.refractoriness == "delta_dirac" \
+        else decay * tdiff
+    eff = amp * kernel_exp(x) + d["v_resting"]
+    return torch.where(lft == NEVER, d["v_resting"], eff)
+
+
+def connection_counts(spec, lats, conns):
+    """``max(in_deg + sum of incoming connection masks, 1)`` per lattice."""
+    cnts = []
+    for k, d in enumerate(lats):
+        cnt = d["in_deg"]
+        for cs, c in zip(spec.conns, conns):
+            if cs.post == k:
+                m = c["mask"].to(torch.float32)
+                cnt = cnt + (m.sum(dim=0) if cs.op[0] == "resample" else m)
+        cnts.append(torch.clamp(cnt, min=1.0))
+    return cnts
+
+
+def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
+                            clock0, n_steps):
+    """The plain PyTorch twin of the CUDA kernels, on any device.
+
+    The kernels' (and the TPU kernel's) association and order, and the
+    kernels' exp (`core.plasticity.kernel_exp`), so the twin and the
+    kernels agree bit for bit on any device; shifted and
+    resampled reads are slices of padded planes: v pads with 0, lft with
+    NEVER and spikes with 0 for the stencil; resample pre planes pad with
+    0 (lft too: the masks hide those slots).  That is what the kernels'
+    bounds checks do.
+    """
+    p = rule_tensors(rule, lats[0]["v"].device)
+    cnts = connection_counts(spec, lats, conns)
+    st = [dict(v=d["v"], w=d["w"], lft=d["lft"], refr=d.get("refr"),
+               weights=list(d["weights"].unbind(0)) if ls.offsets else [],
+               spikes=None, v_pre=[])
+          for ls, d in zip(spec.lattices, lats)]
+    tr = [dict(lft=d["lft"], step=d.get("step"), spikes=None)
+          for d in trains]
+    cw = [list(c["w"].unbind(0)) if cs.op[0] == "resample" else c["w"]
+          for cs, c in zip(spec.conns, conns)]
+    for k in range(int(n_steps)):
+        clock = int(clock0) + k
+        effects = [train_effect(ts, d, t["lft"], clock)
+                   for ts, d, t in zip(spec.trains, trains, tr)]
+        v_prev = [s["v"] for s in st]
+        new = []
+        for i, (ls, d, s) in enumerate(zip(spec.lattices, lats, st)):
+            v = s["v"]
+            acc = torch.zeros_like(v)
+            wsum = torch.zeros_like(v)
+            for o, vs in enumerate(shifted(v, ls.offsets, 0.0)):
+                acc = acc + s["weights"][o] * vs
+                wsum = wsum + s["weights"][o]
+            total = acc - v * wsum
+            for ci, cs in enumerate(spec.conns):
+                if cs.post != i:
+                    continue
+                a_src = effects[cs.pre] if cs.pre_is_st else v_prev[cs.pre]
+                if cs.op[0] == "one2one":
+                    m = conns[ci]["mask"].to(torch.float32)
+                    total = total + (m * cw[ci]) * (
+                        a_src if cs.pre_is_st else a_src - v)
+                    continue
+                tacc = torch.zeros_like(v)
+                subs = None if cs.pre_is_st \
+                    else _taps(cs.op, torch.ones_like(a_src))
+                for t, a_t in enumerate(_taps(cs.op, a_src)):
+                    tacc = tacc + cw[ci][t] * (
+                        a_t if cs.pre_is_st else a_t - subs[t] * v)
+                total = total + tacc
+            pp = {q: d["params"][q] for q in MODEL_PARAM_KEYS[ls.model]}
+            i_syn = pp["gap_conductance"] * total / cnts[i]
+            v_new, w_new, refr, spk, v_pre = model_step(
+                ls.model, pp, v, s["w"], s["refr"], i_syn)
+            new.append((v_new, w_new, s["lft"].masked_fill(spk, clock),
+                        refr, spk, v_pre))
+        for s, (v_new, w_new, lft, refr, spk, v_pre) in zip(st, new):
+            s.update(v=v_new, w=w_new, lft=lft, refr=refr, spikes=spk)
+            s["v_pre"].append(v_pre)
+        for ls, d, s in zip(spec.lattices, lats, st):
+            if ls.kind != "plastic" or not ls.offsets:
+                continue
+            spk_f = s["spikes"].to(torch.float32)
+            lft_pre = shifted(s["lft"], ls.offsets, NEVER)
+            for o, sp in enumerate(shifted(spk_f, ls.offsets, 0.0)):
+                delta = stdp_delta(lft_pre[o], s["lft"], p, kernel_exp)
+                s["weights"][o] = torch.where(
+                    d["mask"][o], s["weights"][o] + delta * (sp + spk_f),
+                    s["weights"][o])
+        for ci, cs in enumerate(spec.conns):
+            if not cs.updates:
+                continue
+            post = st[cs.post]
+            lft_pre = tr[cs.pre]["lft"] if cs.pre_is_st else st[cs.pre]["lft"]
+            spk_post = post["spikes"].to(torch.float32)
+            mask = conns[ci]["mask"]
+            if cs.op[0] == "one2one":
+                count = torch.zeros_like(spk_post)
+                if cs.pre_plastic:
+                    count = count + st[cs.pre]["spikes"].to(torch.float32)
+                if cs.post_plastic:
+                    count = count + spk_post
+                delta = stdp_delta(lft_pre, post["lft"], p, kernel_exp)
+                cw[ci] = torch.where(mask, cw[ci] + delta * count, cw[ci])
+                continue
+            lps = _taps(cs.op, lft_pre.to(torch.float32))
+            sps = _taps(cs.op, st[cs.pre]["spikes"].to(torch.float32)) \
+                if cs.pre_plastic else None
+            for t, lp in enumerate(lps):
+                count = torch.zeros_like(spk_post)
+                if cs.pre_plastic:
+                    count = count + sps[t]
+                if cs.post_plastic:
+                    count = count + spk_post
+                delta = stdp_delta(lp, post["lft"], p, kernel_exp)
+                cw[ci][t] = torch.where(mask[t], cw[ci][t] + delta * count,
+                                        cw[ci][t])
+        for ts, d, t, u in zip(spec.trains, trains, tr, uniforms):
+            if ts.kind == "poisson":
+                spk = u[k] <= d["chance"]
+            else:
+                stepped = t["step"] + d["dt"]
+                spk = torch.logical_and(d["rate"] != 0.0,
+                                        stepped >= d["rate"])
+                t["step"] = torch.where(spk, 0.0, stepped)
+            t["lft"] = t["lft"].masked_fill(spk, clock)
+            t["spikes"] = spk
+    lat_out = [dict(v=s["v"], w=s["w"], lft=s["lft"], refr=s["refr"],
+                    spikes=s["spikes"],
+                    weights=torch.stack(s["weights"]) if ls.offsets
+                    else d["weights"],
+                    v_pre=torch.stack(s["v_pre"]) if ls.emit else None)
+               for ls, d, s in zip(spec.lattices, lats, st)]
+    conn_out = [torch.stack(w) if cs.op[0] == "resample" else w
+                for cs, w in zip(spec.conns, cw)]
+    return lat_out, tr, conn_out
+
+
+# ---------------------------------------------------------------------------
+# Runner: K-step calls over a network's members
+# ---------------------------------------------------------------------------
+
+
+def _lattice_data(ls, lat):
+    st, shp = lat.state, ls.shape
+    zeros = torch.zeros(shp, dtype=torch.float32, device=st["v"].device)
+    return dict(v=st["v"].reshape(shp),
+                w=st["w"].reshape(shp) if "w" in st else zeros,
+                lft=st["last_firing_time"].reshape(shp),
+                refr=st["refractory_count"].reshape(shp)
+                if ls.model in REFRACTORY_MODELS else None,
+                params={p: st[p].reshape(shp)
+                        for p in MODEL_PARAM_KEYS[ls.model]},
+                in_deg=lat.graph.in_deg.reshape(shp) if ls.offsets else zeros,
+                weights=lat.graph.weights if ls.offsets else None,
+                mask=lat.graph.mask if ls.offsets else None)
+
+
+def _train_data(ts, st):
+    s, shp = st.state, ts.shape
+    names = {"lft": "last_firing_time", "v_th": "v_th",
+             "v_resting": "v_resting", "refr_k": "refractoriness$k",
+             "dt": "dt"}
+    names.update({"chance": "chance_of_firing"} if ts.kind == "poisson"
+                 else {"rate": "rate", "step": "step"})
+    return {k: s[name].reshape(shp) for k, name in names.items()}
+
+
+def member_inputs(spec, net, plan):
+    """The wrapper's ``(lats, trains, conns)`` arguments: views of the
+    network members' states, graphs and connection weights, in the
+    layouts `network_steps` documents."""
+    lats = [_lattice_data(ls, net.lattices[i])
+            for ls, i in zip(spec.lattices, plan["lat_ids"])]
+    trains = [_train_data(ts, net.spike_train_lattices[i])
+              for ts, i in zip(spec.trains, plan["st_ids"])]
+    conns = []
+    for cs, ci in zip(spec.conns, spec.keep):
+        op = plan["conns"][ci]["op"]
+        shp = spec.lattices[cs.post].shape
+        if cs.op[0] == "resample":
+            shp = (len(cs.op[7]), *shp)
+        conns.append(dict(w=op.w0.reshape(shp),
+                          mask=op.aux["mask"].reshape(shp)))
+    return lats, trains, conns
+
+
+def advance(spec, net, plan, length):
+    """``length`` steps of the network's members through K-step wrapper
+    calls.  Returns ``(states, st_states, graphs, conn_ws, ys)`` in plan
+    order, as the plain route does: ``conn_ws`` keeps each connection's
+    operator layout (dropped empty connections pass through), ``ys`` the
+    emitting lattices' history readouts keyed ("lat", id)."""
+    lattices = [net.lattices[i] for i in plan["lat_ids"]]
+    sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
+    lats, trains, conns = member_inputs(spec, net, plan)
+    ops = [plan["conns"][ci]["op"] for ci in spec.keep]
+    rule = net._plasticity().params
+    generator = net.generator()
+    dev = lats[0]["v"].device
+    emits = [[] for _ in lats]
+    tr_out, done = None, 0
+    while done < length:
+        n = min(STEPS_PER_LAUNCH, length - done)
+        uniforms = [torch.rand((n, *ts.shape), generator=generator,
+                               device=dev) if ts.kind == "poisson" else None
+                    for ts in spec.trains]
+        lat_out, tr_out, conn_ws = network_steps(
+            spec, lats, trains, conns, uniforms, rule,
+            net.internal_clock + done, n)
+        for d, o, e in zip(lats, lat_out, emits):
+            d.update(v=o["v"], w=o["w"], lft=o["lft"], refr=o["refr"],
+                     spikes=o["spikes"], weights=o["weights"])
+            if o["v_pre"] is not None:
+                e.append(o["v_pre"])
+        for d, o in zip(trains, tr_out):
+            d.update(lft=o["lft"], spikes=o["spikes"])
+            if o["step"] is not None:
+                d["step"] = o["step"]
+        for c, w in zip(conns, conn_ws):
+            c["w"] = w
+        done += n
+    states, graphs, ys = [], [], {}
+    for ls, lat, d, e, lid in zip(spec.lattices, lattices, lats, emits,
+                                  plan["lat_ids"]):
+        s = dict(lat.state)
+        s["v"] = d["v"].reshape(-1)
+        if "w" in s:
+            s["w"] = d["w"].reshape(-1)
+        s["last_firing_time"] = d["lft"].reshape(-1)
+        s["is_spiking"] = d["spikes"].reshape(-1)
+        if ls.model in REFRACTORY_MODELS:
+            s["refractory_count"] = d["refr"].reshape(-1)
+        states.append(s)
+        graphs.append(lat.graph.replace_weights(d["weights"])
+                      if ls.kind == "plastic" and ls.offsets else lat.graph)
+        if ls.emit:
+            ys.update(rebuilt_readouts(
+                torch.cat(e), d["params"]["v_th"], d["params"]["c"],
+                [(("lat", lid), lat.grid_history)], ls.shape))
+    st_states = []
+    for st, d in zip(sts, trains):
+        s = dict(st.state)
+        spk = d["spikes"].reshape(-1)
+        s["is_spiking"] = spk
+        s["v"] = torch.where(spk, s["v_th"], s["v_resting"])
+        s["last_firing_time"] = d["lft"].reshape(-1)
+        if "step" in d:
+            s["step"] = d["step"].reshape(-1)
+        st_states.append(s)
+    conn_ws = [c["op"].w0 for c in plan["conns"]]
+    for ci, op, c in zip(spec.keep, ops, conns):
+        conn_ws[ci] = c["w"].reshape(op.w0.shape)
+    return states, st_states, graphs, conn_ws, ys

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.plasticity import (rstdp_visit, rule_floats, rule_tensors,
-                               stdp_delta)
+from ..core.plasticity import (kernel_exp, rstdp_visit, rule_floats,
+                               rule_tensors, stdp_delta)
 from ..models.base import NEVER
 
 # Per-model parameter planes, in the kernel's order (the JAX kernel's).
@@ -260,9 +260,10 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
 # ---------------------------------------------------------------------------
 
 
-def _model_step(model, p, v, w, refr, i_syn):
-    """Phase B of one model in the kernel's association: returns the new
-    (v, w, refr), the spikes and the pre-reset voltage."""
+def model_step(model, p, v, w, refr, i_syn):
+    """Phase B of one model in the kernels' association (the plasticity
+    and the network twins share it): returns the new (v, w, refr), the
+    spikes and the pre-reset voltage."""
     if model == "izhikevich":
         dt_cm = p["dt"] / p["c_m"]
         dt_tau = p["dt"] / p["tau_m"]
@@ -293,28 +294,31 @@ def _model_step(model, p, v, w, refr, i_syn):
     return v_new, w_new, refr, spk, v_pre
 
 
+def shifted(x, offsets, fill):
+    """out[o][r, c] = x[r + dr_o, c + dc_o], ``fill`` off the grid: the
+    twins' shifted reads, as slices of a padded plane."""
+    rows, cols = x.shape
+    pad = max([max(abs(dr), abs(dc)) for dr, dc in offsets], default=0)
+    xp = F.pad(x, (pad, pad, pad, pad), value=fill)
+    return [xp[pad + dr:pad + dr + rows, pad + dc:pad + dc + cols]
+            for dr, dc in offsets]
+
+
 def lattice_plasticity_steps_reference(spec, v, w, lft, refr, weights, mask,
                                        in_deg, params, traces, dopamine,
                                        rule, rewards, clock0, n_steps):
     """The plain PyTorch twin of the CUDA kernels, on any device.
 
     Same association and offset order as the kernels (and as the TPU
-    kernel).  Shifted reads are slices of padded planes: v pads with 0
-    (an off-grid neighbour adds ``w * 0``), lft with NEVER and spikes with
-    0 (an off-grid neighbour gives a zero delta), which is what the
-    kernels' bounds checks do.
+    kernel), and the kernels' exp (`core.plasticity.kernel_exp`), so the
+    twin and the kernels agree bit for bit on any device.  Shifted reads
+    are slices of padded planes: v pads with 0 (an off-grid neighbour adds
+    ``w * 0``), lft with NEVER and spikes with 0 (an off-grid neighbour
+    gives a zero delta), which is what the kernels' bounds checks do.
     """
-    rows, cols = v.shape
     offsets = spec.offsets
-    pad = max([max(abs(dr), abs(dc)) for dr, dc in offsets], default=0)
     dev = v.device
     r = rule_tensors(rule, dev)
-
-    def shifted(x, fill):
-        xp = F.pad(x, (pad, pad, pad, pad), value=fill)
-        return [xp[pad + dr:pad + dr + rows, pad + dc:pad + dc + cols]
-                for dr, dc in offsets]
-
     p = {k: params[k] for k in MODEL_PARAM_KEYS[spec.model]}
     cnt = torch.clamp(in_deg, min=1.0)
     if spec.kind != "plain":
@@ -327,7 +331,7 @@ def lattice_plasticity_steps_reference(spec, v, w, lft, refr, weights, mask,
     for k in range(int(n_steps)):
         acc = torch.zeros_like(v)
         wsum = torch.zeros_like(v)
-        for o, vs in enumerate(shifted(v, 0.0)):
+        for o, vs in enumerate(shifted(v, offsets, 0.0)):
             acc = acc + weights[o] * vs
             wsum = wsum + weights[o]
         i_syn = p["gap_conductance"] * (acc - v * wsum) / cnt
@@ -335,24 +339,24 @@ def lattice_plasticity_steps_reference(spec, v, w, lft, refr, weights, mask,
             reward = torch.tensor(float(np.float32(rewards[k])),
                                   dtype=torch.float32, device=dev)
             dop = dop * r["exp_dd"] + r["tau_d"] * reward
-        v, w, refr, spk, v_pre = _model_step(spec.model, p, v, w, refr,
-                                             i_syn)
+        v, w, refr, spk, v_pre = model_step(spec.model, p, v, w, refr,
+                                            i_syn)
         lft = lft.masked_fill(spk, int(clock0) + k)
         if spec.emit:
             v_pres.append(v_pre)
         if spec.kind == "plain":
             continue
-        lft_pre = shifted(lft, NEVER)
+        lft_pre = shifted(lft, offsets, NEVER)
         if spec.kind == "plastic":
             spk_f = spk.to(torch.float32)
-            for o, sp in enumerate(shifted(spk_f, 0.0)):
-                delta = stdp_delta(lft_pre[o], lft, r)
+            for o, sp in enumerate(shifted(spk_f, offsets, 0.0)):
+                delta = stdp_delta(lft_pre[o], lft, r, kernel_exp)
                 weights[o] = torch.where(masks[o],
                                          weights[o] + delta * (sp + spk_f),
                                          weights[o])
             continue
         for o in range(len(offsets)):
-            delta = stdp_delta(lft_pre[o], lft, r)
+            delta = stdp_delta(lft_pre[o], lft, r, kernel_exp)
             w1, c1, d1, t1 = rstdp_visit(weights[o], tc[o], tdw[o], tct[o],
                                          delta, dop, r)
             w2, c2, d2, t2 = rstdp_visit(w1, c1, d1, t1, delta, dop, r)

@@ -239,6 +239,7 @@ def _needs_cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,model", [
     ("plastic", "izhikevich"), ("plastic", "alif"), ("plastic", "lif"),
     ("mod", "izhikevich"), ("mod", "alif"), ("mod", "lif"),

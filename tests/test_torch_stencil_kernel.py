@@ -185,6 +185,7 @@ def _needs_cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_steps,emit,uniform", [
     ((64, 64), 1, False, True), ((64, 64), 16, True, True),
     ((130, 100), 16, True, False), ((256, 256), 16, False, False)])

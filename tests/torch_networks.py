@@ -1,0 +1,150 @@
+"""Builders shared by the network tests of the PyTorch port: JAX networks
+with the topologies of ``tests/test_pallas_reward.py`` (`_plain_net`,
+`_mixed_net`), carried into the port with `convert.network_from`, and the
+comparison of the two after a run."""
+
+import numpy as np
+import jax.numpy as jnp
+
+import spiking_neural_networks_tpu as snn
+from spiking_neural_networks_tpu_torch.convert import network_from
+
+MODELS = {"izhikevich": snn.Izhikevich,
+          "alif": snn.AdaptiveLeakyIntegrateAndFire,
+          "lif": snn.LeakyIntegrateAndFire}
+TRAINS = {"rate": snn.RateSpikeTrain, "poisson": snn.PoissonSpikeTrain}
+
+
+def _train(kind, rows, cols, hertz, refractoriness="delta_dirac"):
+    st = snn.SpikeTrainLattice(TRAINS[kind](refractoriness=refractoriness),
+                               id=2)
+    st.populate(rows, cols)
+    n = rows * cols
+    if kind == "poisson":
+        st.state = st.model.init_from_firing_rate(n, hertz=hertz, dt=0.1)
+    else:
+        st.state = st.model.init_state(n, rate=1.0, dt=0.1)
+    return st
+
+
+def _past_firing(lat, rng):
+    """30% of the lattice's neurons fired at a step in [0, 3), so that STDP
+    has pairs from the first step on; the network clock starts at 3."""
+    n = lat.rows * lat.cols
+    lft = np.where(rng.random(n) < 0.3, rng.integers(0, 3, n),
+                   -1).astype(np.int32)
+    lat.apply(lambda s: {**s, "last_firing_time": jnp.asarray(lft)})
+
+
+def plain_net(model, train="rate", rows=8, cols=8, seed=6, plastic_a=True,
+              plastic_b=True, refractoriness="delta_dirac", w_train=30.0):
+    """Two lattices of ``model`` (radius 2 / keep 0.8 and radius 1.5 /
+    keep 0.9, both plastic by default), a train driving the first one to
+    one and the first driving the second one to one."""
+    rng = np.random.default_rng(seed)
+    n = rows * cols
+    lats = []
+    for lid, (radius, keep, gseed) in enumerate(((2.0, 0.8, 3),
+                                                 (1.5, 0.9, 4))):
+        lat = snn.Lattice(MODELS[model](), id=lid)
+        lat.populate(rows, cols, gap_conductance=10.0)
+        lat.connect_stencil(radius=radius, keep_prob=keep, seed=gseed)
+        lo, hi = (-65.0, 30.0) if model == "izhikevich" else (-75.0, -50.0)
+        v0 = rng.uniform(lo, hi, n)
+        lat.apply(lambda s, v0=v0: {**s, "v": jnp.asarray(v0, jnp.float32)})
+        _past_firing(lat, rng)
+        lats.append(lat)
+    lats[0].do_plasticity = plastic_a
+    lats[1].do_plasticity = plastic_b
+    st = _train(train, rows, cols, 80.0, refractoriness)
+    net = snn.LatticeNetwork.generate_network(lats, [st])
+    net.connect(2, 0, lambda x, y: x == y, lambda x, y: w_train)
+    net.connect(0, 1, lambda x, y: x == y, lambda x, y: 8.0)
+    net.internal_clock = 3
+    return net
+
+
+def mixed_net(train="rate", rows=8, cols=8, hist=None, w_pool=0.5,
+              w_up=-0.8, w_train=25.0, hertz=80.0, v0=(-75.0, -50.0)):
+    """A plastic Izhikevich excitatory grid, a half-size inhibitory grid
+    wired to it by pooling and upsampling resample connections, and a
+    train driving the excitatory grid one to one (the topology of
+    BASELINE config 5); initial v uniform over ``v0``."""
+    rng = np.random.default_rng(11)
+    exc = snn.Lattice(snn.Izhikevich(), id=0)
+    exc.populate(rows, cols, gap_conductance=10.0)
+    exc.connect_stencil(radius=2.0, keep_prob=0.8, seed=5)
+    exc.do_plasticity = True
+    exc.apply(lambda s: {**s, "v": jnp.asarray(
+        rng.uniform(*v0, rows * cols), jnp.float32)})
+    if hist is not None:
+        exc.grid_history = hist
+        exc.update_grid_history = True
+    inh = snn.Lattice(snn.Izhikevich(), id=1)
+    inh.populate(rows // 2, cols // 2, gap_conductance=10.0)
+    inh.connect_stencil(radius=1.5, seed=6)
+    inh.apply(lambda s: {**s, "v": jnp.asarray(
+        rng.uniform(*v0, rows * cols // 4), jnp.float32)})
+    for lat in (exc, inh):
+        _past_firing(lat, rng)
+    st = _train(train, rows, cols, hertz)
+    net = snn.LatticeNetwork.generate_network([exc, inh], [st])
+    net.connect(2, 0, lambda x, y: x == y, lambda x, y: w_train)
+    net.connect_vectorized(0, 1, lambda pr, pc, qr, qc: np.where(
+        (pr // 2 == qr) & (pc // 2 == qc), w_pool, np.nan))
+    net.connect_vectorized(1, 0, lambda pr, pc, qr, qc: np.where(
+        (pr == qr // 2) & (pc == qc // 2), w_up, np.nan))
+    net.internal_clock = 3
+    return net
+
+
+def both(build, use_pallas, use_kernel):
+    """The JAX network of ``build()`` (``use_pallas``) and the port's
+    copy of it (``use_kernel``), before any step."""
+    j = build()
+    j.use_pallas = use_pallas
+    t = network_from(j)
+    t.use_kernel = use_kernel
+    return j, t
+
+
+def assert_networks_match(t, j, rtol, atol):
+    """Every lattice's state and graph weights, every train's state and
+    every connection's host weights of port network ``t`` against JAX
+    network ``j``: integers and spikes equal, floats within
+    ``rtol``/``atol``."""
+    assert t.internal_clock == j.internal_clock
+    for lid, jl in j.lattices.items():
+        tl = t.lattices[lid]
+        assert set(tl.state) == set(jl.state)
+        for k in ("v", "w", "refractory_count"):
+            if k in jl.state:
+                np.testing.assert_allclose(
+                    tl.state[k].numpy(), np.asarray(jl.state[k]), rtol=rtol,
+                    atol=atol, err_msg=f"{k} of lattice {lid}")
+        for k in ("last_firing_time", "is_spiking"):
+            np.testing.assert_array_equal(
+                tl.state[k].numpy(), np.asarray(jl.state[k]),
+                err_msg=f"{k} of lattice {lid}")
+        np.testing.assert_allclose(tl.graph.weights.numpy(),
+                                   np.asarray(jl.graph.weights), rtol=rtol,
+                                   atol=atol, err_msg=f"weights {lid}")
+        assert tl.internal_clock == jl.internal_clock
+    for sid, js in j.spike_train_lattices.items():
+        ts = t.spike_train_lattices[sid]
+        for k in ("last_firing_time", "is_spiking"):
+            np.testing.assert_array_equal(ts.state[k].numpy(),
+                                          np.asarray(js.state[k]),
+                                          err_msg=f"{k} of train {sid}")
+        for k in ("v", "step"):
+            if k in js.state:
+                np.testing.assert_allclose(ts.state[k].numpy(),
+                                           np.asarray(js.state[k]),
+                                           rtol=rtol, atol=atol, err_msg=k)
+    assert set(t.connections) == set(j.connections)
+    for key, (s, d, w) in j.connections.items():
+        ts_, td, tw = t.connections[key]
+        np.testing.assert_array_equal(ts_, np.asarray(s))
+        np.testing.assert_array_equal(td, np.asarray(d))
+        np.testing.assert_allclose(tw, np.asarray(w), rtol=rtol, atol=atol,
+                                   err_msg=str(key))
