@@ -16,7 +16,12 @@ radius-2, 80%-keep stencil graph:
   `populate` -> `connect_stencil` -> `generate_network` ->
   `connect_vectorized` -> `run_lattices`) of BASELINE configs 2 and 5 and
   of config 5's topology at 512^2 / 256^2, through the network kernels
-  ``csrc/network_plasticity.cu``.
+  ``csrc/network_plasticity.cu``;
+* the Hodgkin-Huxley chemical lattice with STDP of BASELINE's "HH with ion
+  channels + receptor kinetics + STDP" (`Lattice(HodgkinHuxley())` ->
+  `populate` -> `insert_receptor` / `insert_neurotransmitter` ->
+  `connect_stencil` -> `run_lattice`) at 128^2 and 512^2, through the HH
+  kernel ``csrc/hh_chemical.cu``.
 
 Phases, one line each:
 
@@ -24,7 +29,7 @@ Phases, one line each:
 2. build: nvcc builds every kernel from ``csrc/`` at first use;
 3. the stencil kernel vs its plain twin on the card, at 64^2, 130 x 100,
    256^2, 512^2 and 2048^2: lft and spikes equal, v and w within rtol 1e-6,
-   atol 1e-5;
+   atol 1e-5; per-step times and bounds at 512^2 (K = 1 and 16) and 2048^2;
 4. the stencil main path: 512^2 for 2048 steps (launch counter, finite v,
    neurons fired), 64 steps with a grid history, 2048^2 for 256 steps;
 5. 128^2 for 1000 steps: the stencil kernel route on the card against the
@@ -62,12 +67,28 @@ Phases, one line each:
    threshold tie);
 14. steps/s, neuron-updates/s, device time per kernel and device / wall of
    the kernel route (`use_kernel=None`) and the plain route
-   (`use_kernel=False`), config 5's topology at 64^2 and 512^2.
+   (`use_kernel=False`), config 5's topology at 64^2 and 512^2;
+15. the HH kernel vs its plain twin on the card: 64^2 at K = 16 and 7 for
+   every kinetics pair, electrical and plasticity on and off; 130 x 100
+   with non-uniform parameters; 512^2: integers, spikes and was_increasing
+   equal, floats within rtol 1e-6, atol 1e-5;
+16. the HH main paths through `run_lattice`: 128^2 for 2000 steps in the
+   firing form and in `bench.py`'s own form (gates at 0: every neuron
+   fires once, all in one step, so no weight moves), 512^2 for 512 steps
+   in the firing form (route "hh", kernel calls, finite state, neurons
+   fired and weights moved);
+17. 64^2 for 1000 steps in the firing form: the HH kernel route on the card
+   against the same route on the CPU (2 mV, 2 steps) and against the
+   plain route on the card;
+18. steps/s and neuron-updates/s of the HH kernel and plain routes at 128^2
+   and 512^2, with the kernels' device time per step and device / wall.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
-with each kernel's launches, error and times, and last the JSON contract
-line.  Any failure raises, and the exit code is not 0.  Without a CUDA
+with each kernel's launches, error, times and bound (the least time the
+card could take for a call: the larger of its bytes, each input read and
+each output written once, over 3.35 TB/s and its operations over 67
+TFLOP/s), and last the JSON contract line.  Any failure raises, and the exit code is not 0.  Without a CUDA
 device the script exits with an error before it prints any result.
 """
 
@@ -94,7 +115,8 @@ BIG, BIG_STEPS = (2048, 2048), 256
 CMP, CMP_STEPS = (128, 128), 1000
 CASES = [((64, 64), 1, False, True), ((64, 64), 16, True, True),
          ((130, 100), 16, True, False), ((256, 256), 16, True, False),
-         (MAIN, 16, False, True), (BIG, 8, False, True)]
+         (MAIN, 1, False, True), (MAIN, 16, False, True),
+         (BIG, 8, False, True)]
 REPLACES = ("spiking_neural_networks_tpu/ops/pallas_stencil.py:251",
             "spiking_neural_networks_tpu/ops/pallas_stencil.py:94",
             "spiking_neural_networks_tpu/ops/pallas_stencil.py:482")
@@ -123,10 +145,101 @@ PROFILE_STEPS = 256
 NSMALL, NBIG = (64, 64), (512, 512)
 CFG2_STEPS, CFG5_STEPS, NBIG_STEPS, NCMP_STEPS = 5000, 15000, 2048, 1000
 NET_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
+# HH phases.  HCASES are ((rows, cols), K, nt kinetics, rec kinetics,
+# electrical, plastic, non-uniform params); a case's seed is its index.  A
+# random state far from rest can go non-finite within a call, as 512^2
+# from seed 35 did on an H100: explicit Euler on the m gate is unstable
+# below about -135 mV (4 exp(-(v + 65) / 18) dt > 2).
+HH_KINDS = [(nt, rec) for nt in ("destexhe", "approximate")
+            for rec in ("destexhe", "approximate")]
+HMAIN, HBIG = (128, 128), (512, 512)
+HMAIN_STEPS, HBIG_STEPS, HCMP_STEPS, HCMP_EVERY = 2000, 512, 1000, 8
+HCASES = ([((64, 64), k, nt, rec, el, pl, False) for k in (16, 7)
+           for nt, rec in HH_KINDS for el in (True, False)
+           for pl in (True, False)]
+          + [((130, 100), 16, "destexhe", "destexhe", True, True, True),
+             ((130, 100), 7, "approximate", "approximate", False, True,
+              True),
+             (HBIG, 16, "destexhe", "destexhe", True, True, False),
+             (HMAIN, 16, "destexhe", "destexhe", True, True, False)])
+HH_REPLACES = "spiking_neural_networks_tpu/ops/pallas_hh.py:262"
+# STDP of the firing form: the bench's amplitudes (2.0) drive weights
+# negative there and the lattice to -inf within ~430 steps (the JAX package
+# does the same); 0.02 moves the weights and keeps the lattice finite
+HH_STDP = dict(a_plus=0.02, a_minus=0.02)
+# Largest |dv| (mV) between the HH kernel and plain routes before their
+# first firing-time difference: mid-upstroke dynamics amplify the last
+# ulps of exp and of the plain route's divisions (a multiply by the
+# reciprocal on the card) to 6e-4 mV on the CPU and 9.7e-3 mV on the card
+# at 64^2 over 1000 steps
+HH_DRIFT = 5e-2
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
+PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+# float operations the card needs for one exp: a range reduction (two
+# multiply-adds), the special-function unit's ex2 and a scale; the port's
+# kernel_exp takes more, to round as the CPU does, which the bound does not
+# charge
+EXP_OPS = 4
 
 
 def say(*a):
     print(*a, flush=True)
+
+
+def tensor_bytes(*objs):
+    """Bytes of the distinct tensors in ``objs`` (nested in dicts, lists
+    and tuples; None skipped), each counted once."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            seen[(x.data_ptr(), x.numel())] = x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for y in x.values():
+                walk(y)
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+
+    for x in objs:
+        walk(x)
+    return sum(seen.values())
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``n_bytes`` and do ``n_ops`` float operations."""
+    tb, to = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def ingrid_slots(offsets, rows, cols):
+    """The (offset, cell) pairs whose neighbour lies on the grid."""
+    return sum(max(0, rows - abs(dr)) * max(0, cols - abs(dc))
+               for dr, dc in offsets)
+
+
+def stencil_ops(offsets, rows, cols, k):
+    """Float operations of ``k`` electrical Izhikevich steps: per cell
+    the weight sum and 23 of the model step, per on-grid slot a multiply
+    and an add."""
+    return k * (rows * cols * (len(offsets) + 23)
+                + 2 * ingrid_slots(offsets, rows, cols))
+
+
+def both_fired_slots(lft, mask, offsets):
+    """Masked slots whose two endpoints have fired before the call: the
+    STDP deltas that a call needs at least (one exp each)."""
+    rows, cols = lft.shape
+    fired = lft >= 0
+    n = 0
+    for o, (dr, dc) in enumerate(offsets):
+        pre = torch.zeros_like(fired)
+        r0, r1 = max(0, -dr), min(rows, rows - dr)
+        c0, c1 = max(0, -dc), min(cols, cols - dc)
+        pre[r0:r1, c0:c1] = fired[r0 + dr:r1 + dr, c0 + dc:c1 + dc]
+        n += int((pre & fired & mask[o]).sum())
+    return n
 
 
 def check(cond, msg):
@@ -331,14 +444,20 @@ def stencil_phases(snt, smi):
               "non-finite kernel output")
         max_err = max(max_err, dv, dw, dpre)
         if (rows, cols) in (MAIN, BIG):
-            times[rows, cols] = (
+            # per step: kernel and twin ms, and the bound of the call
+            bnd = bound(tensor_bytes(inp, got),
+                        stencil_ops(inp["offsets"], rows, cols, k))
+            times[rows, cols, k] = (
                 event_ms(lambda: call(sk.izhikevich_stencil_steps, inp, 100,
                                       k, False), 20) / k,
                 event_ms(lambda: call(sk.izhikevich_stencil_steps_reference,
-                                      inp, 100, k, False), 3) / k)
+                                      inp, 100, k, False), 3) / k,
+                bnd[0] / k, bnd[1])
             say(f"[3 kernel-vs-twin] {rows}x{cols} K={k} per step: kernel "
-                f"{times[rows, cols][0] * 1e3:.3f} us, plain twin "
-                f"{times[rows, cols][1] * 1e3:.3f} us; card {smi}")
+                f"{times[rows, cols, k][0] * 1e3:.3f} us, plain twin "
+                f"{times[rows, cols, k][1] * 1e3:.3f} us, bound "
+                f"{times[rows, cols, k][2] * 1e3:.3f} us ({bnd[1]}); card "
+                f"{smi}")
         del inp, got, want
 
     # 4. the main path
@@ -424,14 +543,14 @@ def stencil_phases(snt, smi):
     check(kern._last_run_fused == ("kernel", False)
           and plain._last_run_fused is False, "timed the wrong routes")
     mk, mp = float(np.median(tk)), float(np.median(tp))
-    busy = times[MAIN][0] * MAIN_STEPS / (mk * 1e3)
+    busy = times[MAIN + (16,)][0] * MAIN_STEPS / (mk * 1e3)
     say(f"[6 times] {MAIN[0]}x{MAIN[1]} {MAIN_STEPS} steps, median of 5: "
         f"kernel route {rate(MAIN, mk, MAIN_STEPS)}; kernel time / wall "
         f"{busy:.3f}; plain route {rate(MAIN, mp, MAIN_STEPS)}; card {smi}")
     del kern, plain
     big = warm(BIG, None, BIG_STEPS)
     mb = float(np.median([run_synced(big, BIG_STEPS) for _ in range(5)]))
-    busy = times[BIG][0] * BIG_STEPS / (mb * 1e3)
+    busy = times[BIG + (8,)][0] * BIG_STEPS / (mb * 1e3)
     say(f"[6 times] {BIG[0]}x{BIG[1]} {BIG_STEPS} steps, median of 5: "
         f"kernel route {rate(BIG, mb, BIG_STEPS)}; kernel time / wall "
         f"{busy:.3f}; card {smi}")
@@ -441,8 +560,10 @@ def stencil_phases(snt, smi):
                       "izhikevich_stencil.cu",
             "replaces": REPLACES[0], "also_replaces": list(REPLACES[1:]),
             "launches": launches, "max_abs_err": max_err,
-            "ms": times[MAIN][0] * sk.STEPS_PER_LAUNCH,
-            "plain_ms": times[MAIN][1] * sk.STEPS_PER_LAUNCH}
+            "ms": times[MAIN + (16,)][0] * sk.STEPS_PER_LAUNCH,
+            "plain_ms": times[MAIN + (16,)][1] * sk.STEPS_PER_LAUNCH,
+            "bound_ms": times[MAIN + (16,)][2] * sk.STEPS_PER_LAUNCH,
+            "bound_by": times[MAIN + (16,)][3], "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +645,7 @@ def plasticity_phases(snt, smi):
     from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
 
     # 7. kernel vs plain twin on the card
-    max_err, times = 0.0, {}
+    max_err, times, bounds = 0.0, {}, {}
     for seed, (shape, k, kind, model, rew, uniform, emit) in \
             enumerate(PCASES):
         args = plasticity_inputs(snt, rk, shape, kind, model, rew, uniform,
@@ -545,6 +666,16 @@ def plasticity_phases(snt, smi):
         if shape == MAIN:
             timed = dict(args, spec=args["spec"]._replace(emit=False))
             kernel = lambda: rk.lattice_plasticity_steps(**timed)
+            rows, cols = shape
+            offs = timed["spec"].offsets
+            both = both_fired_slots(timed["lft"], timed["mask"], offs)
+            # cell kernel; per masked slot the mod kind's two visits (10
+            # operations) and, where both ends fired, a delta (8 + an exp);
+            # the plastic kind the delta and its update (11 + an exp)
+            ops = stencil_ops(offs, rows, cols, k) + k * (
+                10 * int(timed["mask"].sum()) + (8 + EXP_OPS) * both
+                if kind == "mod" else (11 + EXP_OPS) * both)
+            bounds[kind] = bound(tensor_bytes(timed, kernel()), ops)
             dev_us, _ = profiled_us(lambda: [kernel() for _ in range(10)],
                                     10 * k)
             times[kind] = (event_ms(kernel, 10) / k, event_ms(
@@ -714,9 +845,12 @@ def plasticity_phases(snt, smi):
             "ms": times["mod"][0] * rk.STEPS_PER_LAUNCH,
             "plain_ms": times["mod"][1] * rk.STEPS_PER_LAUNCH,
             "device_ms": times["mod"][2] * rk.STEPS_PER_LAUNCH,
+            "bound_ms": bounds["mod"][0], "bound_by": bounds["mod"][1],
+            "library_ms": None,
             "stdp_ms": times["plastic"][0] * rk.STEPS_PER_LAUNCH,
             "stdp_plain_ms": times["plastic"][1] * rk.STEPS_PER_LAUNCH,
-            "stdp_device_ms": times["plastic"][2] * rk.STEPS_PER_LAUNCH}
+            "stdp_device_ms": times["plastic"][2] * rk.STEPS_PER_LAUNCH,
+            "stdp_bound_ms": bounds["plastic"][0]}
 
 
 # ---------------------------------------------------------------------------
@@ -929,7 +1063,7 @@ def compare_net_call(got, want, clock0):
 
 def network_phases(snt, smi):
     from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
-    max_err, times = network_twin_phase(snt, nk, smi)
+    max_err, times, bounds = network_twin_phase(snt, nk, smi)
     launches = network_main_phase(snt, nk)
     network_cmp_phase(snt)
     network_times_phase(snt, smi)
@@ -940,12 +1074,14 @@ def network_phases(snt, smi):
             "max_abs_err": max_err,
             "ms": times[0] * nk.STEPS_PER_LAUNCH,
             "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
-            "device_ms": times[2] * nk.STEPS_PER_LAUNCH}
+            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None}
 
 
 def network_twin_phase(snt, nk, smi):
     """11. The network kernels vs their plain twin on the card: (max float
-    error, (kernel, twin, device) ms per step at 512^2)."""
+    error, (kernel, twin, device) ms per step at 512^2, the bound of a
+    512^2 call)."""
     cases = [(cfg2_net, NSMALL, 16, "config 2"),
              (cfg2_net, NSMALL, 7, "config 2"),
              (cfg5_net, NSMALL, 16, "config 5"),
@@ -984,6 +1120,12 @@ def network_twin_phase(snt, nk, smi):
         if shape == NBIG:
             kernel = lambda: nk.network_steps(spec, lats, trains, conns,
                                               uniforms, rule, 3, k)
+            # a lower bound of the operations: each lattice's phase A and
+            # model step (connections, trains and STDP not counted)
+            ops = sum(stencil_ops(ls.offsets, *ls.shape, k)
+                      for ls in spec.lattices)
+            bounds = bound(tensor_bytes(lats, trains, conns, uniforms,
+                                        kernel()), ops)
             dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
                                       10 * k, n_top=6)
             times = (event_ms(kernel, 10) / k, event_ms(
@@ -1012,7 +1154,7 @@ def network_twin_phase(snt, nk, smi):
         del net, lats, trains, conns, uniforms, got, want
     say(f"[11 kernel-vs-twin] max float error over all cases {max_err:.3g} "
         f"(tolerance rtol {RTOL}, atol {ATOL}; 0 = bit-equal)")
-    return max_err, times
+    return max_err, times, bounds
 
 
 def network_main_phase(snt, nk):
@@ -1150,6 +1292,353 @@ def net_rate(n, secs, steps):
             f"{steps / secs:.1f} steps/s ({secs / steps * 1e6:.3f} us/step)")
 
 
+# ---------------------------------------------------------------------------
+# The HH chemical kernel: phases 15-18
+# ---------------------------------------------------------------------------
+
+
+def hh_lattice(snt, rows, cols, use_kernel=None, device="cuda", firing=True):
+    """`bench.py`'s HH lattice (`bench.py:158-172`): AMPA, NMDA and GABA
+    receptors and neurotransmitters, gap 10, radius 2, keep 0.8, graph seed
+    11, chemical synapses, STDP; its gates start at 0, and its uniform
+    neurons all fire once, in one step, so that STDP's delta is 0 and no
+    weight moves.  With ``firing``, the firing form of the JAX package's HH kernel tests:
+    equilibrium gates (m 0.05, h 0.6, n 0.32), v0 uniform in [-65, -20)
+    from ``default_rng(9)``, and STDP amplitudes `HH_STDP`."""
+    lat = snt.Lattice(snt.HodgkinHuxley(), device=device)
+    lat.populate(rows, cols, gap_conductance=10.0)
+    s = lat.state
+    for t in ("AMPA", "NMDA", "GABA"):
+        s = lat.model.insert_receptor(s, t)
+        s = lat.model.insert_neurotransmitter(s, t)
+    lat.state = s
+    lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=11)
+    lat.chemical_synapse = True
+    lat.do_plasticity = True
+    lat.plasticity = snt.STDP(**HH_STDP) if firing else snt.STDP()
+    if firing:
+        n = rows * cols
+        v0 = np.random.default_rng(9).uniform(-65, -20, n)
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=lat.device)
+
+        lat.apply(lambda st: {
+            **st, "v": f32(v0), "na$m_state": f32(np.full(n, 0.05)),
+            "na$h_state": f32(np.full(n, 0.6)),
+            "k$n_state": f32(np.full(n, 0.32))})
+    lat.use_kernel = use_kernel
+    return lat
+
+
+def hh_inputs(snt, hk, shape, k, nt, rec, el, pl, nonuniform, seed):
+    """The arguments of one `hh_steps` call on the card, made from
+    ``seed``: a state random across the HH range (v in [-70, 40), gates in
+    [0, 1), random flags, concentrations and past firing times), so that
+    neurons peak, fire and move weights within the call, on random
+    weights; with ``nonuniform``, parameters vary by up to 10% per neuron
+    and 20% of the receptor and neurotransmitter slots are missing."""
+    rows, cols = shape
+    n = rows * cols
+    rng = np.random.default_rng(seed)
+    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(2.0),
+                               keep_prob=0.8, seed=seed + 1,
+                               weight_fn=lambda dr, dc, rr, cc:
+                               rng.uniform(0.5, 1.5, rr.shape),
+                               device="cuda")
+    st = snt.HodgkinHuxley(nt, rec).init_state_host(n)
+
+    def f(lo, hi, shp=(n,)):
+        return rng.uniform(lo, hi, shp).astype(np.float32)
+
+    st.update({"v": f(-70, 40), "na$m_state": f(0, 1),
+               "na$h_state": f(0, 1), "k$n_state": f(0, 1),
+               "was_increasing": rng.random(n) < 0.5,
+               "is_spiking": rng.random(n) < 0.2,
+               "last_firing_time": np.where(rng.random(n) < 0.3,
+                                            rng.integers(90, 100, n),
+                                            -1).astype(np.int32),
+               "nt$t": f(0, 1, (n, 3)), "rec$r": f(0, 1, (n, 3)),
+               "nt$mask": rng.random((n, 3)) < (0.8 if nonuniform else 1.1),
+               "rec$mask": rng.random((n, 3)) < (0.8 if nonuniform else 1.1)})
+    if nonuniform:
+        for key in hk.PARAM_ORDER + hk.nt_param_keys(nt) \
+                + hk.rec_param_keys(rec):
+            st[key] = st[key] * f(0.9, 1.1, st[key].shape)
+    return dict(state={key: torch.from_numpy(x).cuda()
+                       for key, x in st.items()},
+                weights=g.weights, mask=g.mask, in_deg=g.in_deg,
+                offsets=g.offsets, clock0=100, n_steps=k, electrical=el,
+                nt_kind=nt, rec_kind=rec,
+                rule=snt.STDP().params if pl else None)
+
+
+def hh_ops(args, hk):
+    """Float operations one `hh_steps` call needs (`EXP_OPS` per exp): per
+    cell and step the gates, currents, receptors, release and the three
+    products t * m that its neighbours read; per on-grid slot the
+    electrical sum and the three chemical sums and counts; per masked slot
+    whose ends both fired before the call the STDP delta (a lower bound of
+    the slots that need one)."""
+    rows, cols = args["in_deg"].shape
+    el, nt, rec = args["electrical"], args["nt_kind"], args["rec_kind"]
+    offs = args["offsets"]
+    per_cell = (len(offs) + 5 * el                       # wsum, i_elec
+                + 3 * (6 + (7 if rec == "destexhe" else 0)) + 1
+                + 9 + EXP_OPS                            # NMDA block, i_lig
+                + 31 + 6 * EXP_OPS + 18 + 14 + 7         # gates, currents, v
+                + 3 * (5 + EXP_OPS if nt == "destexhe" else 8) + 2
+                + 3)                                     # t * m
+    per_slot = 2 * el + 12
+    stdp = 0
+    if args["rule"] is not None:
+        stdp = both_fired_slots(
+            args["state"]["last_firing_time"].reshape(rows, cols),
+            args["mask"], offs) * (11 + EXP_OPS)
+    return args["n_steps"] * (rows * cols * per_cell
+                              + ingrid_slots(offs, rows, cols) * per_slot
+                              + stdp)
+
+
+def hh_call_bytes(args, out, hk):
+    """Bytes one `hh_steps` call must move: the fields and planes the
+    kernel reads, once, and the fields it writes, once."""
+    keys = (hk.STATE_KEYS + hk.PARAM_ORDER + hk.nt_param_keys(args["nt_kind"])
+            + hk.rec_param_keys(args["rec_kind"]) + ("nt$mask", "rec$mask"))
+    ins = [args["state"][key] for key in keys]
+    outs = [out[0][key] for key in hk.STATE_KEYS + hk.CURRENT_KEYS]
+    if args["rule"] is not None:
+        outs.append(out[1])
+    return tensor_bytes(ins, args["weights"], args["mask"],
+                        args["in_deg"]) + tensor_bytes(outs)
+
+
+def compare_hh(got, want, hk):
+    """(max float error, integer/flag mismatches, errors by name) of an HH
+    kernel call against its twin."""
+    errs, bad = {}, 0
+    pairs = [(key, got[0][key], want[0][key])
+             for key in hk.STATE_KEYS + hk.CURRENT_KEYS]
+    pairs.append(("weights", got[1], want[1]))
+    for key, g, w in pairs:
+        if g.dtype in (torch.int32, torch.bool):
+            bad += int((g != w).sum())
+        else:
+            fin = torch.isfinite(g)
+            check(bool(fin.all()), f"non-finite {key}: {int((~fin).sum())} "
+                  f"values, at the twin's non-finite places "
+                  f"{bool(torch.equal(fin, torch.isfinite(w)))}")
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=key)
+            errs[key] = (g - w).abs().max().item()
+    return max(errs.values()), bad, errs
+
+
+def hh_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import hh_kernels as hk
+    max_err, times, bounds = hh_twin_phase(snt, hk, smi)
+    launches = hh_main_phase(snt, hk)
+    hh_cmp_phase(snt)
+    hh_times_phase(snt, smi)
+    return {"name": "hh_steps", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/hh_chemical.cu",
+            "replaces": HH_REPLACES, "launches": launches,
+            "max_abs_err": max_err,
+            "ms": times[0] * hk.STEPS_PER_LAUNCH,
+            "plain_ms": times[1] * hk.STEPS_PER_LAUNCH,
+            "device_ms": times[2] * hk.STEPS_PER_LAUNCH,
+            "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None}
+
+
+def hh_twin_phase(snt, hk, smi):
+    """15. The HH kernel vs its plain twin on the card: (max float error,
+    (kernel, twin, device) ms per step at 512^2, the bound of a 512^2
+    call)."""
+    max_err, times, bounds = 0.0, None, None
+    for seed, (shape, k, nt, rec, el, pl, nonuniform) in enumerate(HCASES):
+        args = hh_inputs(snt, hk, shape, k, nt, rec, el, pl, nonuniform,
+                         seed)
+        got = hk.hh_steps(**args)
+        torch.cuda.synchronize()
+        want = hk.hh_steps_reference(**args)
+        torch.cuda.synchronize()
+        err, bad, errs = compare_hh(got, want, hk)
+        fired = int((got[0]["last_firing_time"] >= 100).sum())
+        moved = (got[1] - args["weights"]).abs().max().item()
+        say(f"[15 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} {nt}/{rec} "
+            f"electrical={el} plastic={pl} non-uniform={nonuniform}: "
+            f"integer and flag mismatches {bad}, max errors "
+            + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f", neurons fired {fired}, max weight change {moved:.4g}")
+        check(bad == 0, "firing times, spikes or was_increasing differ")
+        check(fired > 0 and (moved > 0 or not pl),
+              "no neuron fired or no weight moved in the call")
+        max_err = max(max_err, err)
+        if shape == HBIG:
+            kernel = lambda: hk.hh_steps(**args)
+            bounds = bound(hh_call_bytes(args, got, hk), hh_ops(args, hk))
+            dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
+                                      10 * k)
+            times = (event_ms(kernel, 10) / k, event_ms(
+                lambda: hk.hh_steps_reference(**args), 3) / k, dev_us / 1e3)
+            say(f"[15 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} per step: "
+                f"kernel calls back to back {times[0] * 1e3:.3f} us "
+                f"(events), of which device time {dev_us:.3f} us (profiled: "
+                + ", ".join(f"{n} {t:.3f}" for n, t in top)
+                + f"); plain twin {times[1] * 1e3:.3f} us (events); bound "
+                f"{bounds[0] * 1e3 / k:.3f} us ({bounds[1]}); card {smi}")
+        del args, got, want
+    # the main path's own inputs: every call of bench.py's 128^2 run, in
+    # both forms, against the twin on the state that call received
+    for firing in (True, False):
+        lat = hh_lattice(snt, *HMAIN, firing=firing)
+        bad, err, fired, calls_fired = 0, 0.0, 0, 0
+        for _ in range(HMAIN_STEPS // hk.STEPS_PER_LAUNCH):
+            g, clock = lat.graph, lat.internal_clock
+            want = hk.hh_steps_reference(
+                lat.state, g.weights, g.mask, g.in_deg, g.offsets, clock,
+                hk.STEPS_PER_LAUNCH, lat.electrical_synapse,
+                lat.model.nt_kinetics, lat.model.rec_kinetics,
+                lat.plasticity.params)
+            lat.run_lattice(hk.STEPS_PER_LAUNCH)
+            torch.cuda.synchronize()
+            check(lat._last_run_fused == "hh", "the main path missed the kernel")
+            e, b, _ = compare_hh((lat.state, lat.graph.weights), want, hk)
+            bad, err = bad + b, max(err, e)
+            n = int((lat.state["last_firing_time"] >= clock).sum())
+            fired, calls_fired = fired + n, calls_fired + (n > 0)
+        say(f"[15 kernel-vs-twin] main path {HMAIN[0]}x{HMAIN[1]} "
+            f"{'firing' if firing else 'bench.py'} form, every call of "
+            f"run_lattice({HMAIN_STEPS}): integer and flag mismatches {bad}, "
+            f"max float error {err:.3g}, calls with spikes {calls_fired}, "
+            f"neurons fired {fired}")
+        check(bad == 0, "firing times, spikes or was_increasing differ on "
+              "the main path's inputs")
+        check(fired > 0, "the main path fired no neuron")
+        max_err = max(max_err, err)
+        del lat, want
+    say(f"[15 kernel-vs-twin] max float error over all cases {max_err:.3g} "
+        f"(tolerance rtol {RTOL}, atol {ATOL}; 0 = bit-equal)")
+    return max_err, times, bounds
+
+
+def hh_main_phase(snt, hk):
+    """16. The HH main paths through `run_lattice`; returns the kernel
+    calls they made."""
+    launches = 0
+    for label, shape, steps, firing in (
+            ("firing form", HMAIN, HMAIN_STEPS, True),
+            ("bench.py form", HMAIN, HMAIN_STEPS, False),
+            ("firing form", HBIG, HBIG_STEPS, True)):
+        lat = hh_lattice(snt, *shape, firing=firing)
+        w0 = lat.graph.weights.clone()
+        hk.LAUNCHES = 0
+        secs = run_synced(lat, steps)
+        calls = hk.LAUNCHES
+        launches += calls
+        st = lat.state
+        v = st["v"]
+        finite = all(bool(torch.isfinite(x).all()) for x in st.values()
+                     if x.is_floating_point()) \
+            and bool(torch.isfinite(lat.graph.weights).all())
+        fired = int((st["last_firing_time"] >= 0).sum())
+        moved = (lat.graph.weights - w0).abs().max().item()
+        say(f"[16 main path] HH {label} {shape[0]}x{shape[1]} run_lattice("
+            f"{steps}): route {lat._last_run_fused}, kernel calls {calls}, "
+            f"{secs / steps * 1e6:.3f} us/step (first run), state finite "
+            f"{finite}, v range [{v.min().item():.3f}, {v.max().item():.3f}]"
+            f", fired {fired} of {lat.n}, max weight change {moved:.4g}")
+        check(lat._last_run_fused == "hh", f"HH {label} missed the kernel")
+        check(calls == math.ceil(steps / hk.STEPS_PER_LAUNCH),
+              "wrong number of kernel calls")
+        check(finite, f"non-finite HH {label} state")
+        check(not firing or (fired > 0 and moved > 0),
+              f"HH {label}: no neuron fired or no weight moved")
+        del lat
+    return launches
+
+
+def hh_cmp_phase(snt):
+    """17. 64^2, 1000 steps, firing form, v and firing times read every
+    `HCMP_EVERY` steps: the HH kernel route on the card against the same
+    route on the CPU, and against the plain route on the card."""
+    runs = {}
+    for key, device, uk in (("kernel", "cuda", None), ("cpu", "cpu", True),
+                            ("plain", "cuda", False)):
+        lat = hh_lattice(snt, *SMALL, use_kernel=uk, device=device)
+        vs, lfts = [], []
+        for _ in range(HCMP_STEPS // HCMP_EVERY):
+            lat.run_lattice(HCMP_EVERY)
+            vs.append(lat.state["v"].cpu())
+            lfts.append(lat.state["last_firing_time"].cpu())
+        runs[key] = (torch.stack(vs).numpy(),
+                     torch.stack(lfts).numpy().astype(np.int64),
+                     lat.graph.weights.cpu().numpy(), lat._last_run_fused)
+    check(runs["kernel"][3] == runs["cpu"][3] == "hh"
+          and runs["plain"][3] is False, "wrong HH routes")
+    hk, lk, wk, _ = runs["kernel"]
+    hc, lc, wc, _ = runs["cpu"]
+    dv, dl = float(np.abs(hk - hc).max()), int(np.abs(lk - lc).max())
+    dw = float(np.abs(wk - wc).max())
+    say(f"[17 kernel-vs-cpu] HH {SMALL[0]}x{SMALL[1]} {HCMP_STEPS} steps, "
+        f"kernel route on the card vs on the CPU: max|dv| {dv:.4g} mV, "
+        f"max|dlft| {dl} steps, max|dweight| {dw:.4g}, fired "
+        f"{int((lk[-1] >= 0).sum())}")
+    check(dv <= 2.0 and dl <= 2 and dw <= 1e-2,
+          "HH card vs CPU outside 2 mV / 2 steps / 1e-2")
+    hp, lp, wp, _ = runs["plain"]
+    # Peak detection has no reset: the routes part where a neuron's peak
+    # falls on another step (a tie), and until then drift by the ulps of
+    # exp that mid-upstroke dynamics amplify
+    d = np.abs(hk - hp)
+    dvs = d.max(axis=1)
+    tie = np.nonzero((lk != lp).any(axis=1))[0]
+    s0 = int(tie[0]) if len(tie) else len(dvs)
+    pre = float(dvs[:s0].max()) if s0 else 0.0
+    outside = int((d > 2.0).any(axis=0).sum())
+    fk, fp = int((lk[-1] >= 0).sum()), int((lp[-1] >= 0).sum())
+    n = SMALL[0] * SMALL[1]
+    say(f"[17 kernel-vs-plain] HH {SMALL[0]}x{SMALL[1]} {HCMP_STEPS} steps, "
+        f"kernel vs plain route on the card: max|dv| {dvs.max():.4g} mV, "
+        f"before the first firing-time difference "
+        f"(step {s0 * HCMP_EVERY if len(tie) else 'none'}) {pre:.4g} mV, "
+        f"max|dlft| {int(np.abs(lk - lp).max())} steps, neurons ever "
+        f"outside 2 mV {outside} of {n}, fired {fk} vs {fp}, max|dweight| "
+        f"{float(np.abs(wk - wp).max()):.4g}")
+    check(pre <= HH_DRIFT, "the HH routes parted before a firing-time tie")
+    check(outside <= n // 100 and abs(fk - fp) <= n // 100,
+          "the HH routes' divergence spread beyond 1% of the lattice")
+
+
+def hh_times_phase(snt, smi):
+    """18. Times of the HH kernel and plain routes on `bench.py`'s own
+    lattice, in turns."""
+    for shape, kern_steps, plain_steps in ((HMAIN, HMAIN_STEPS, 64),
+                                           (HBIG, HBIG_STEPS, 16)):
+        kern = hh_lattice(snt, *shape, use_kernel=None, firing=False)
+        plain = hh_lattice(snt, *shape, use_kernel=False, firing=False)
+        run_synced(kern, kern_steps)
+        run_synced(plain, plain_steps)
+        tk, tp = [], []
+        for rep in range(5):
+            tk.append(run_synced(kern, kern_steps))
+            if rep < 3:
+                tp.append(run_synced(plain, plain_steps))
+        check(kern._last_run_fused == "hh" and plain._last_run_fused is False,
+              "timed the wrong HH routes")
+        mk, mp = float(np.median(tk)), float(np.median(tp))
+        dev_us, top = profiled_us(lambda: run_synced(kern, PROFILE_STEPS),
+                                  PROFILE_STEPS)
+        busy = dev_us * kern_steps / (mk * 1e6)
+        say(f"[18 times] HH bench.py form {shape[0]}x{shape[1]}: kernel "
+            f"route (use_kernel=None) {rate(shape, mk, kern_steps)}, median "
+            f"of 5 x {kern_steps} steps; device time {dev_us:.3f} us/step "
+            f"(profiled: " + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device time / wall {busy:.3f}; plain route "
+            f"(use_kernel=False) {rate(shape, mp, plain_steps)}, median of 3 "
+            f"x {plain_steps} steps; card {smi}")
+        del kern, plain
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1162,7 +1651,8 @@ def main():
           f"beside this script")
     from spiking_neural_networks_tpu_torch import _build
     from spiking_neural_networks_tpu_torch.ops import (
-        network_kernels as nk, reward_kernels as rk, stencil_kernels as sk)
+        hh_kernels as hk, network_kernels as nk, reward_kernels as rk,
+        stencil_kernels as sk)
 
     # 1. device
     smi = card()
@@ -1176,7 +1666,8 @@ def main():
     lib = _build.load()
     load_s = time.perf_counter() - t0
     check(lib.izh_stencil_max_offsets() == sk.MAX_OFFSETS
-          and lib.lp_max_offsets() == rk.MAX_OFFSETS,
+          and lib.lp_max_offsets() == rk.MAX_OFFSETS
+          and lib.hh_max_offsets() == hk.MAX_OFFSETS,
           "MAX_OFFSETS differs between a CUDA source and its wrapper")
     limits = (ctypes.c_int * 9)()
     lib.net_limits(limits)
@@ -1193,7 +1684,7 @@ def main():
         f"ptxas: {' / '.join(ptxas)}")
 
     kernels = [stencil_phases(snt, smi), plasticity_phases(snt, smi),
-               network_phases(snt, smi)]
+               network_phases(snt, smi), hh_phases(snt, smi)]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

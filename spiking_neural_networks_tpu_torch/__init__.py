@@ -3,18 +3,21 @@
 A second package beside ``spiking_neural_networks_tpu`` (JAX), with the same
 module layout, public names and flat per-neuron state dict.  It holds the
 electrical lattice on a stencil graph (Izhikevich, adaptive leaky and
-leaky integrate-and-fire neurons), the plain `Lattice` with STDP, the
-reward-modulated (R-STDP) lattice, spike trains and the plain
+leaky integrate-and-fire neurons), the Hodgkin-Huxley lattice with
+chemical synapses (Ionotropic receptors), the plain `Lattice` with STDP,
+the reward-modulated (R-STDP) lattice, spike trains and the plain
 `LatticeNetwork` of lattices and trains, with their history readouts, and
 hand-written CUDA kernels for NVIDIA Hopper (``csrc/``) that run those
-lattices' and networks' steps on the GPU.  It imports PyTorch and NumPy,
-never JAX.
+lattices' and networks' steps on the GPU.  Entry points put their tensors
+on the GPU (``device="cuda"``) unless the caller asks for another device.
+It imports PyTorch and NumPy, never JAX.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from .models.integrate_and_fire import (
     AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
+from .models.hodgkin_huxley import HodgkinHuxley
 from .models.spike_train import (
     BCMPoissonSpikeTrain, PoissonSpikeTrain, PresetSpikeTrain,
     RateSpikeTrain)

@@ -107,7 +107,8 @@ def load():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pv, pi, pf = (ctypes.POINTER(vp), ctypes.POINTER(ci),
                   ctypes.POINTER(ctypes.c_float))
-    for name in ("izh_stencil_max_offsets", "lp_max_offsets"):
+    for name in ("izh_stencil_max_offsets", "lp_max_offsets",
+                 "hh_max_offsets"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
     lib.izh_stencil_steps.argtypes = [
@@ -135,6 +136,19 @@ def load():
         vp,                                 # stream
     ]
     lib.lattice_plasticity_steps.restype = ci
+    lib.hh_chemical_steps.argtypes = [
+        ci, ci, ci, ci,                     # nt, rec kinetics, elec, plastic
+        pv, pv, pv,                         # state_in[9], buf[18], cur[4]
+        pv,                                 # params[10]
+        pv, ci, pv, ci,                     # nt / rec params and counts
+        vp, vp,                             # nt$mask, rec$mask
+        vp, vp, vp,                         # weights, mask, in_deg
+        pf,                                 # rule[5]
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        vp,                                 # stream
+    ]
+    lib.hh_chemical_steps.restype = ci
     lib.net_limits.argtypes = [pi]
     lib.net_limits.restype = None
     lib.net_steps.argtypes = [

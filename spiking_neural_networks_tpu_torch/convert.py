@@ -72,10 +72,13 @@ def _carry(src, dst):
     return dst
 
 
-def lattice_from(src, model, device="cpu"):
-    """A port `Lattice` of ``model`` with the state, `StencilGraph`,
-    plasticity switch and parameters, and clock of lattice ``src``."""
+def lattice_from(src, model=None, device="cuda"):
+    """A port `Lattice` of ``model`` (by default the port's model of the
+    class and kinetics of ``src.model``) with the state, graph, plasticity
+    switch and parameters, and clock of lattice ``src``."""
     from .core.lattice import Lattice
+    if model is None:
+        model = _port_model(src.model)
     lat = _carry(src, Lattice(model, id=src.id, device=device))
     lat.do_plasticity = bool(src.do_plasticity)
     lat.plasticity.params = {k: float(v)
@@ -83,7 +86,7 @@ def lattice_from(src, model, device="cpu"):
     return lat
 
 
-def reward_lattice_from(src, model, device="cpu"):
+def reward_lattice_from(src, model, device="cuda"):
     """A port `RewardModulatedLattice` of ``model`` with the state,
     `StencilGraph`, trace dict (c and dw float32, counter int32),
     dopamine, R-STDP parameters, modulation switch and clock of the
@@ -101,7 +104,7 @@ def reward_lattice_from(src, model, device="cpu"):
     return lat
 
 
-def spike_train_lattice_from(src, model, device="cpu"):
+def spike_train_lattice_from(src, model, device="cuda"):
     """A port `SpikeTrainLattice` of ``model`` with the state, history
     switch and clock of spike-train lattice ``src``."""
     from .core.network import SpikeTrainLattice
@@ -116,16 +119,17 @@ def spike_train_lattice_from(src, model, device="cpu"):
 
 def _port_model(model):
     """The port's model of the class and configuration of a JAX model."""
-    from .models import integrate_and_fire, spike_train
+    from .models import hodgkin_huxley, integrate_and_fire, spike_train
     name = type(model).__name__
     if hasattr(model, "refractoriness"):
         return getattr(spike_train, name)(model.nt_kinetics,
                                           model.refractoriness)
-    return getattr(integrate_and_fire, name)(model.nt_kinetics,
-                                             model.rec_kinetics)
+    module = hodgkin_huxley if hasattr(hodgkin_huxley, name) \
+        else integrate_and_fire
+    return getattr(module, name)(model.nt_kinetics, model.rec_kinetics)
 
 
-def network_from(src_net, device="cpu"):
+def network_from(src_net, device="cuda"):
     """A port `LatticeNetwork` carrying every lattice's and train's state,
     graph, plasticity and history switches, the host COO connections, the
     synapse flags and the clock of the JAX network ``src_net``."""

@@ -3,8 +3,11 @@
 PyTorch counterpart of ``spiking_neural_networks_tpu/core/lattice.py``.  The
 cell grid is one flat dict of per-neuron tensors on ``Lattice.device``;
 ``run_lattice(n)`` is a Python loop on the host in place of ``lax.scan``,
-over one of three routes:
+over one of four routes:
 
+* the HH kernel route (`HodgkinHuxley` with chemical synapses on a stencil
+  graph, with or without STDP): calls of `ops.hh_kernels.hh_steps`, each
+  advancing K = 16 steps;
 * the stencil kernel route (electrical Izhikevich, no plasticity): calls
   of `ops.stencil_kernels.izhikevich_stencil_steps`, each advancing
   K = 16 steps (one hand-written CUDA kernel on a GPU, its plain twin on
@@ -13,7 +16,7 @@ over one of three routes:
   and `STDP`): calls of `ops.reward_kernels.lattice_plasticity_steps` of
   kind ``plastic``, K = 16 steps each;
 * the plain route: `lattice_step` once per step, in plain PyTorch (the
-  gather in the XLA path's association).
+  gathers in the XLA path's association).
 
 Histories are read on the device per step and copied to the host once per
 chunk.
@@ -24,18 +27,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import reward_kernels, stencil_kernels
+from ..ops import hh_kernels, reward_kernels, stencil_kernels
 from ..ops.graph import (SparseGraph, StencilGraph, connect_auto,
                          radius_offsets)
-from ..models.base import NEVER
+from ..models.base import NEVER, get_neurotransmitter_concentrations
 from .history import (GridVoltageHistory, history_step_bytes,
                       rebuilt_readouts, resolve_history_chunk)
 from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 from ..errors import GraphError
 
 CHEMICAL_NOT_PORTED = (
-    "chemical synapses are not ported to the PyTorch package yet "
-    "(ROADMAP queue 1, item 5)")
+    "chemical synapses in reward lattices and networks are not ported to "
+    "the PyTorch package yet (ROADMAP queue 1, item 5)")
 
 
 class Lattice:
@@ -43,16 +46,17 @@ class Lattice:
     ``device``.
 
     ``use_kernel`` picks the route: None (auto) takes a kernel route when
-    the state is on a CUDA device and its gate holds with no
-    neurotransmitter inserted (`stencil_kernels.supports` without
-    plasticity; `reward_kernels.plain_stdp_lattice_spec` with STDP and no
-    graph history); True takes it wherever that gate holds (on the CPU the
+    the state is on a CUDA device and its gate holds: `hh_kernels.supports`
+    with no history; else, with no neurotransmitter inserted,
+    `stencil_kernels.supports` without plasticity or
+    `reward_kernels.plain_stdp_lattice_spec` with STDP and no graph
+    history.  True takes it wherever that gate holds (on the CPU the
     wrapper runs the kernel's plain twin); False always runs
     `lattice_step`.  ``_last_run_fused`` says which route the last chunk
-    ran: ``("kernel", emit)``, ``("stdp", emit)`` or False.
+    ran: ``"hh"``, ``("kernel", emit)``, ``("stdp", emit)`` or False.
     """
 
-    def __init__(self, model, id=0, device="cpu"):
+    def __init__(self, model, id=0, device="cuda"):
         self.model = model
         self.id = id
         self.device = torch.device(device)
@@ -163,11 +167,20 @@ class Lattice:
             remaining -= chunk
 
     def _kernel_route(self, skip_nt):
-        """The kernel route of this chunk: "kernel" (the stencil kernel),
-        an STDP `reward_kernels.LatSpec`, or None for the plain route."""
-        if not skip_nt or self.use_kernel is False:
+        """The kernel route of this chunk: "hh" (the HH chemical kernel),
+        "kernel" (the stencil kernel), an STDP `reward_kernels.LatSpec`, or
+        None for the plain route."""
+        if self.use_kernel is False:
             return None
-        if self.do_plasticity:
+        if hh_kernels.supports(self.model, self.graph, self.chemical_synapse,
+                               self.do_plasticity, self.plasticity):
+            # the HH gate reads no neurotransmitter mask; the kernel keeps
+            # no history
+            route = None if self._history_items() \
+                or self.update_graph_history else "hh"
+        elif not skip_nt:
+            return None
+        elif self.do_plasticity:
             route = None if self.update_graph_history \
                 else reward_kernels.plain_stdp_lattice_spec(self)
         elif stencil_kernels.supports(
@@ -185,7 +198,11 @@ class Lattice:
         skip_nt = not bool(self.state["nt$mask"].any())
         readouts = self._history_items()
         route = self._kernel_route(skip_nt)
-        if route == "kernel":
+        if route == "hh":
+            self._run_hh(length)
+            ys = {}
+            self._last_run_fused = "hh"
+        elif route == "kernel":
             ys = self._run_kernel(length, readouts)
             self._last_run_fused = ("kernel", bool(readouts))
         elif route is not None:
@@ -204,6 +221,23 @@ class Lattice:
                 # no plasticity: every step's weights are the current ones
                 w = self.graph.weights.cpu().numpy()
                 self.graph_history.extend(np.repeat(w[None], length, axis=0))
+
+    def _run_hh(self, length):
+        """K steps per call of the HH chemical kernel, from the flat
+        state; STDP updates a copy of the weights per call."""
+        g = self.graph
+        rule = self.plasticity.params if self.do_plasticity else None
+        st, weights, done = self.state, g.weights, 0
+        while done < length:
+            n = min(hh_kernels.STEPS_PER_LAUNCH, length - done)
+            st, weights = hh_kernels.hh_steps(
+                st, weights, g.mask, g.in_deg, g.offsets,
+                self.internal_clock + done, n, self.electrical_synapse,
+                self.model.nt_kinetics, self.model.rec_kinetics, rule)
+            done += n
+        self.state = st
+        if self.do_plasticity:
+            self.graph = g.replace_weights(weights)
 
     def _run_stdp(self, length, readouts, spec):
         """K steps per call of the plasticity kernel of kind ``plastic``;
@@ -289,13 +323,12 @@ class Lattice:
 
 def lattice_step(model, electrical, chemical, do_plasticity, skip_nt,
                  plasticity, pparams, state, graph, clock):
-    """One lattice step in plain PyTorch: the electrical gather from the
-    previous state, then the model step, then ``last_firing_time = clock``
-    where the neuron spiked, then the plasticity update from the post-step
-    state.  ``pparams`` are the rule's parameters as 0-dim f32 tensors.
-    Returns ``(state, graph, clock + 1)``."""
-    if chemical:
-        raise NotImplementedError(CHEMICAL_NOT_PORTED)
+    """One lattice step in plain PyTorch: the electrical and (with
+    ``chemical``) the neurotransmitter gathers from the previous state, then
+    the model step, then ``last_firing_time = clock`` where the neuron
+    spiked, then the plasticity update from the post-step state.
+    ``pparams`` are the rule's parameters as 0-dim f32 tensors.  Returns
+    ``(state, graph, clock + 1)``."""
     if do_plasticity and type(plasticity) is not STDP:
         raise NotImplementedError(PLASTICITY_NOT_PORTED)
     if electrical:
@@ -305,7 +338,13 @@ def lattice_step(model, electrical, chemical, do_plasticity, skip_nt,
     else:
         elec = torch.zeros_like(state["v"])
 
-    state, spikes = model.step(state, elec, skip_nt=skip_nt)
+    if chemical:
+        t, mask = get_neurotransmitter_concentrations(state)
+        t_in, t_valid = graph.gather_chemical(t, mask.to(torch.float32))
+        state, spikes = model.step(state, elec, t_in, t_valid,
+                                   skip_nt=skip_nt)
+    else:
+        state, spikes = model.step(state, elec, skip_nt=skip_nt)
     state["last_firing_time"] = state["last_firing_time"].masked_fill(
         spikes, clock)
     if do_plasticity:

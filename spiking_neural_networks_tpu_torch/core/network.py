@@ -52,7 +52,7 @@ class SpikeTrainLattice:
     connections allowed.  Poisson trains draw from a `torch.Generator`
     seeded by ``seed`` when they run standalone."""
 
-    def __init__(self, model, id=0, device="cpu"):
+    def __init__(self, model, id=0, device="cuda"):
         self.model = model
         self.id = id
         self.device = torch.device(device)

@@ -49,7 +49,7 @@ class RewardModulatedLattice:
     ``_last_run_fused`` is True when the last run took the kernel route.
     """
 
-    def __init__(self, model, id=0, device="cpu"):
+    def __init__(self, model, id=0, device="cuda"):
         self.model = model
         self.id = id
         self.device = torch.device(device)

@@ -209,6 +209,18 @@ class NeuronModel:
         s["w"] = torch.where(spikes, s["w"] + s["d"], s["w"])
         return s, spikes
 
+    @staticmethod
+    def _handle_peak_detection(s, last_voltage):
+        """Hodgkin-Huxley spike detection: a spike where v is above
+        threshold, was rising and has just stopped rising."""
+        increasing_now = last_voltage < s["v"]
+        crossed = s["v"] > s["v_th"]
+        spikes = crossed & s["was_increasing"] & torch.logical_not(
+            increasing_now)
+        s = dict(s)
+        s["was_increasing"] = increasing_now
+        return s, spikes
+
 
 def get_neurotransmitter_concentrations(state):
     """(N, K) concentrations and presence mask."""

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``spiking_neural_networks_tpu/ops/graph.py``:
 :func:`radius_offsets`, :class:`StencilGraph` (per-destination, per-offset
 weight planes on a (rows, cols) grid), :class:`SparseGraph` (COO edge
-list, its gather, edge updates and per-edge edits; a lattice builds only
-the zero-edge default so far), and the host builders of
+list, its electrical and chemical gathers, edge updates and per-edge
+edits; a lattice builds only the zero-edge default so far), and the host
+builders of
 ``connect(predicate)``, which decompose a pairwise predicate into a
 `StencilGraph` (`DenseGraph` is not ported).
 
@@ -70,6 +71,18 @@ class SparseGraph:
             0, self.dst, contrib)
         cnt = torch.clamp(self.in_deg, min=1.0)
         return g_post * summed / cnt
+
+    def gather_chemical(self, t_src, nt_mask_src):
+        """Per-type (n_post, K) neurotransmitter input: the weighted sum of
+        the present sources' concentrations over their count, and where
+        that count is above 0."""
+        m = nt_mask_src[self.src]
+        vals = self.weights[:, None] * t_src[self.src] * m
+        zeros = torch.zeros((self.n_post, t_src.shape[-1]),
+                            dtype=torch.float32, device=t_src.device)
+        sums = zeros.index_add(0, self.dst, vals)
+        cnts = zeros.index_add(0, self.dst, m)
+        return sums / torch.clamp(cnts, min=1.0), cnts > 0.0
 
     # -- per-edge updates (plasticity) ------------------------------------------
     def edge_pre_post(self, pre_vals, post_vals):
@@ -224,9 +237,10 @@ class StencilGraph:
         return m
 
     def _padded(self, x):
-        """(rows, cols) zero-padded by the halo width."""
+        """(rows, cols, ...) zero-padded by the halo width on its first two
+        axes."""
         p = self._pad
-        return F.pad(x, (p, p, p, p))
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (p, p, p, p))
 
     def _shifted(self, padded, dr, dc):
         """View of ``padded`` with out[r, c] = x[r + dr, c + dc] (0 off-grid)."""
@@ -249,6 +263,27 @@ class StencilGraph:
         cnt = torch.clamp(self.in_deg, min=1.0)
         out = g_post.reshape(rows, cols) * acc / cnt
         return out.reshape(-1)
+
+    def gather_chemical(self, t_src, nt_mask_src):
+        """Per-type (n, K) neurotransmitter input from the (n, K)
+        concentrations and presence mask: ``sums / max(cnts, 1)`` with
+        ``sums = sum_o w_o * t[r+dr, c+dc] * m[r+dr, c+dc]`` and ``cnts =
+        sum_o mask_o * m[r+dr, c+dc]`` in offset order, and ``cnts > 0``
+        as the input's validity."""
+        rows, cols = self.shape
+        k = t_src.shape[-1]
+        tp = self._padded(t_src.reshape(rows, cols, k))
+        mp = self._padded(nt_mask_src.reshape(rows, cols, k))
+        sums = torch.zeros((rows, cols, k), dtype=torch.float32,
+                           device=t_src.device)
+        cnts = torch.zeros_like(sums)
+        for o, (dr, dc) in enumerate(self.offsets):
+            ms = self._shifted(mp, dr, dc)
+            sums = sums + self.weights[o][:, :, None] \
+                * self._shifted(tp, dr, dc) * ms
+            cnts = cnts + self.mask[o][:, :, None] * ms
+        t_in = sums / torch.clamp(cnts, min=1.0)
+        return t_in.reshape(-1, k), (cnts > 0.0).reshape(-1, k)
 
     # -- per-edge access --------------------------------------------------------
     def _edge_slot(self, src, dst):

@@ -283,23 +283,24 @@ def test_edgeless_lattice_and_dt_and_timing_match_jax():
 
 def test_network_errors_match_jax():
     for pkg in (snn, snt):
-        a = pkg.Lattice(pkg.Izhikevich(), id=0)
+        dev = {} if pkg is snn else {"device": "cpu"}
+        a = pkg.Lattice(pkg.Izhikevich(), id=0, **dev)
         a.populate(3, 3)
         net = pkg.LatticeNetwork.generate_network([a])
-        b = pkg.Lattice(pkg.Izhikevich(), id=0)
+        b = pkg.Lattice(pkg.Izhikevich(), id=0, **dev)
         b.populate(3, 3)
         with pytest.raises(pkg.errors.LatticeNetworkError):
             net.add_lattice(b)
-        c = pkg.Lattice(pkg.LeakyIntegrateAndFire(), id=1)
+        c = pkg.Lattice(pkg.LeakyIntegrateAndFire(), id=1, **dev)
         c.populate(3, 3)
         with pytest.raises(pkg.errors.LatticeNetworkError):
             net.add_lattice(c)
-        st = pkg.SpikeTrainLattice(pkg.RateSpikeTrain(), id=2)
+        st = pkg.SpikeTrainLattice(pkg.RateSpikeTrain(), id=2, **dev)
         st.populate(3, 3)
         net.add_spike_train_lattice(st)
         with pytest.raises(pkg.errors.LatticeNetworkError):
             net.add_spike_train_lattice(pkg.SpikeTrainLattice(
-                pkg.PoissonSpikeTrain(), id=5))
+                pkg.PoissonSpikeTrain(), id=5, **dev))
         with pytest.raises(pkg.errors.LatticeNetworkError):
             net.connect(0, 2, lambda x, y: True)
         with pytest.raises(KeyError):
@@ -338,7 +339,7 @@ def test_paths_left_for_later_raise():
 def test_network_from_carries_everything():
     j = mixed_net(hist=HISTORY_KINDS["eeg"](reference_voltage=0.1))
     j.run_lattices(7)
-    t = snt.convert.network_from(j)
+    t = snt.convert.network_from(j, "cpu")
     assert list(t.lattices) == list(j.lattices)
     assert t.internal_clock == j.internal_clock == 10
     exc = t.lattices[0]

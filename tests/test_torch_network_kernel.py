@@ -173,7 +173,7 @@ def test_twin_matches_tpu_kernel_on_injected_uniforms(n_steps):
 
 def snn_to_port(j):
     from spiking_neural_networks_tpu_torch.convert import network_from
-    t = network_from(j)
+    t = network_from(j, "cpu")
     t.use_kernel = True
     return t
 

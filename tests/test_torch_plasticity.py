@@ -170,7 +170,7 @@ def test_stdp_apply_visits_matches_jax():
      lambda x, y: 0.5 + 0.1 * x[0] - 0.05 * y[1])])
 def test_connect_predicate_array_equal(pred, weight):
     j = snn.Lattice(snn.Izhikevich())
-    t = snt.Lattice(snt.Izhikevich())
+    t = snt.Lattice(snt.Izhikevich(), device="cpu")
     for lat in (j, t):
         lat.populate(6, 5)
         lat.connect(pred, weight)
@@ -181,8 +181,8 @@ def test_connect_predicate_array_equal(pred, weight):
 
 
 def test_bench_predicate_equals_connect_stencil():
-    a = snt.RewardModulatedLattice(snt.Izhikevich())
-    b = snt.RewardModulatedLattice(snt.Izhikevich())
+    a = snt.RewardModulatedLattice(snt.Izhikevich(), device="cpu")
+    b = snt.RewardModulatedLattice(snt.Izhikevich(), device="cpu")
     for lat in (a, b):
         lat.populate(7, 9)
     a.connect(bench_predicate)
@@ -195,7 +195,7 @@ def test_bench_predicate_equals_connect_stencil():
 
 
 def test_connect_wide_support_and_empty():
-    t = snt.Lattice(snt.Izhikevich())
+    t = snt.Lattice(snt.Izhikevich(), device="cpu")
     t.populate(4, 4)
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         t.connect(lambda x, y: x != y)
@@ -224,10 +224,15 @@ def test_plain_route_matches_jax_xla(kind, model):
     assert_lattices_match(t, j, RTOL, ATOL)
 
 
+def _on_cpu(pkg):
+    """The device argument of a port lattice in these tests."""
+    return {} if pkg is snn else {"device": "cpu"}
+
+
 def _bench_stdp(pkg, rows, cols):
     """`bench.py`'s STDP lattice: gap 10, radius 2, keep 0.8, graph seed
     5, v0 uniform in [-65, 25) from default_rng(9)."""
-    lat = pkg.Lattice(pkg.Izhikevich())
+    lat = pkg.Lattice(pkg.Izhikevich(), **_on_cpu(pkg))
     lat.populate(rows, cols, gap_conductance=10.0)
     lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=5)
     lat.do_plasticity = True
@@ -243,7 +248,7 @@ def _bench_rstdp(pkg, rows, cols):
     v0 uniform in [-65, 30) from default_rng(0) so that it fires.  (From
     that v0 the bench's reward of 0.5 drives the dopamine to about 2000 and
     the weights without bound; the 1000-step test uses 0.005.)"""
-    lat = pkg.RewardModulatedLattice(pkg.Izhikevich())
+    lat = pkg.RewardModulatedLattice(pkg.Izhikevich(), **_on_cpu(pkg))
     lat.populate(rows, cols, gap_conductance=10.0)
     lat.connect(bench_predicate)
     v0 = np.random.default_rng(0).uniform(-65, 30, rows * cols)
@@ -307,7 +312,7 @@ def test_reward_lattice_carried_over_runs_on_equal(use_kernel):
     sides)."""
     j = jax_lattice("izhikevich", "mod", use_pallas=use_kernel)
     j.run_lattice_with_reward(0.1, 30)
-    t = reward_lattice_from(j, snt.Izhikevich())
+    t = reward_lattice_from(j, snt.Izhikevich(), "cpu")
     t.use_kernel = use_kernel
     assert t.internal_clock == 33 and t.dopamine == j.dopamine
     assert t.trace["counter"].dtype == torch.int32
@@ -318,7 +323,8 @@ def test_reward_lattice_carried_over_runs_on_equal(use_kernel):
 
 
 def test_reward_lattice_surface():
-    t = snt.RewardModulatedLattice(snt.LeakyIntegrateAndFire())
+    t = snt.RewardModulatedLattice(snt.LeakyIntegrateAndFire(),
+                                   device="cpu")
     t.populate(4, 5, v=-60.0)
     assert t.trace["c"].shape == (0,)
     t.update()                          # unconnected: the plain route
@@ -336,7 +342,8 @@ def test_reward_lattice_surface():
     t.electrical_synapse = False
     t.run_lattice(3)
     assert t.internal_clock == 0
-    p = snt.Lattice(snt.Izhikevich())   # unconnected: STDP on no edges
+    # unconnected: STDP on no edges
+    p = snt.Lattice(snt.Izhikevich(), device="cpu")
     p.populate(3, 3, v=40.0)
     p.do_plasticity = True
     p.run_lattice(2)

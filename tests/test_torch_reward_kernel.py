@@ -162,7 +162,7 @@ def test_gates_mirror_jax():
     JAX gates accept, without the TPU's 128-column and VMEM limits."""
     for name, (jcls, tcls) in MODELS.items():
         j = snn.RewardModulatedLattice(jcls())
-        t = snt.RewardModulatedLattice(tcls())
+        t = snt.RewardModulatedLattice(tcls(), device="cpu")
         for lat in (j, t):
             lat.populate(6, 5)
         assert not rk.supports_lattice(t) and not jpr.supports_lattice(j)
@@ -171,7 +171,7 @@ def test_gates_mirror_jax():
         assert rk.supports_lattice(t) and jpr.supports_lattice(j)
         t.reward_modulator = snt.STDP()
         assert not rk.supports_lattice(t)
-        p = snt.Lattice(tcls())
+        p = snt.Lattice(tcls(), device="cpu")
         p.populate(6, 5)
         p.connect_stencil(radius=2.0)
         p.do_plasticity = True
@@ -182,7 +182,7 @@ def test_gates_mirror_jax():
             (name == "izhikevich")
         p.chemical_synapse = True
         assert rk.plain_stdp_lattice_spec(p) is None
-    wide = snt.RewardModulatedLattice(snt.Izhikevich())
+    wide = snt.RewardModulatedLattice(snt.Izhikevich(), device="cpu")
     wide.populate(4, 192)
     wide.connect_stencil(radius=2.0)
     assert rk.supports_lattice(wide)

@@ -131,7 +131,7 @@ def test_refractoriness_effects_within_one_ulp(kind):
 
 
 def test_poisson_firing_fraction_within_bound_of_chance():
-    st = snt.SpikeTrainLattice(snt.PoissonSpikeTrain())
+    st = snt.SpikeTrainLattice(snt.PoissonSpikeTrain(), device="cpu")
     st.populate(64, 64, chance_of_firing=0.05)
     st.update_grid_history = True
     st.grid_history = snt.history.SpikeHistory()
@@ -146,7 +146,7 @@ def test_poisson_firing_fraction_within_bound_of_chance():
                                   np.where(last, 30.0, 0.0))
     assert st.state["last_firing_time"].max().item() == 199
     # one seed, one stream: a second train of the same seed fires alike
-    other = snt.SpikeTrainLattice(snt.PoissonSpikeTrain())
+    other = snt.SpikeTrainLattice(snt.PoissonSpikeTrain(), device="cpu")
     other.populate(64, 64, chance_of_firing=0.05)
     other.run_lattice(200)
     np.testing.assert_array_equal(other.state["last_firing_time"].numpy(),
@@ -159,7 +159,7 @@ def test_rate_train_lattice_run_matches_jax():
     j = snn.SpikeTrainLattice(snn.RateSpikeTrain(), id=4)
     j.populate(6, 5, rate=0.7)
     j.update_grid_history = True
-    t = spike_train_lattice_from(j, snt.RateSpikeTrain())
+    t = spike_train_lattice_from(j, snt.RateSpikeTrain(), "cpu")
     for lat in (j, t):
         lat.run_lattice(45)
     assert t.internal_clock == j.internal_clock == 45
@@ -173,7 +173,7 @@ def test_set_dt_reset_timing_and_neurotransmitter_release_match_jax():
     jm, tm = snn.PoissonSpikeTrain(), snt.PoissonSpikeTrain()
     j = snn.SpikeTrainLattice(jm)
     j.populate(4, 4, chance_of_firing=0.03)
-    t = spike_train_lattice_from(j, tm)
+    t = spike_train_lattice_from(j, tm, "cpu")
     for lat in (j, t):
         lat.set_dt(0.25)
     np.testing.assert_array_equal(t.state["chance_of_firing"].numpy(),

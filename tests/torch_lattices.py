@@ -1,6 +1,6 @@
-"""Builders shared by the plasticity tests of the PyTorch port: one JAX
-lattice made from a NumPy seed, carried into the port with `convert`, and
-the comparison of the two after a run."""
+"""Builders shared by the plasticity and Hodgkin-Huxley tests of the
+PyTorch port: one JAX lattice made from a NumPy seed, carried into the port
+with `convert`, and the comparison of the two after a run."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -59,8 +59,9 @@ def jax_lattice(model, kind, rows=12, cols=10, seed=3, use_pallas=False):
 def port_of(jlat, model, use_kernel):
     """The port's lattice carrying ``jlat``'s numbers."""
     tcls = MODELS[model][1]
-    lat = lattice_from(jlat, tcls()) if isinstance(jlat, snn.Lattice) \
-        else reward_lattice_from(jlat, tcls())
+    lat = lattice_from(jlat, tcls(), "cpu") \
+        if isinstance(jlat, snn.Lattice) \
+        else reward_lattice_from(jlat, tcls(), "cpu")
     lat.use_kernel = use_kernel
     return lat
 
@@ -89,4 +90,58 @@ def assert_lattices_match(t, j, rtol, atol):
         np.testing.assert_array_equal(t.trace["counter"].numpy(),
                                       np.asarray(j.trace["counter"]))
         assert abs(t.dopamine - j.dopamine) <= rtol * max(1.0, abs(j.dopamine))
+    assert t.internal_clock == j.internal_clock
+
+
+# the fields of an HH lattice compared after a run, beside lft and
+# was_increasing
+HH_KEYS = ("v", "na$m_state", "na$h_state", "k$n_state", "nt$t", "rec$r",
+           "rec$current", "na$current", "k$current", "kleak$current")
+
+
+def jax_hh_lattice(rows=16, cols=16, plastic=True, electrical=True,
+                   nt="destexhe", rec="destexhe", seed=9, use_pallas=False):
+    """The JAX package's HH chemical lattice of its kernel tests
+    (tests/test_pallas_hh.py): AMPA, NMDA and GABA receptors and
+    neurotransmitters, gap 10, radius 2, keep 0.8, graph seed 11, STDP when
+    ``plastic``, equilibrium gates (m 0.05, h 0.6, n 0.32) and v0 uniform
+    in [-65, -20) from ``default_rng(seed)``, so that it fires within ~100
+    steps."""
+    lat = snn.Lattice(snn.HodgkinHuxley(nt_kinetics=nt, rec_kinetics=rec))
+    lat.populate(rows, cols, gap_conductance=10.0)
+    s = lat.state
+    for t in ("AMPA", "NMDA", "GABA"):
+        s = lat.model.insert_receptor(s, t)
+        s = lat.model.insert_neurotransmitter(s, t)
+    lat.state = s
+    lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=11)
+    lat.electrical_synapse = electrical
+    lat.chemical_synapse = True
+    lat.do_plasticity = plastic
+    if plastic:
+        lat.plasticity = snn.STDP()
+    n = rows * cols
+    v0 = np.random.default_rng(seed).uniform(-65, -20, n)
+    lat.apply(lambda st: {
+        **st, "v": jnp.asarray(v0, jnp.float32),
+        "na$m_state": jnp.full(n, 0.05, jnp.float32),
+        "na$h_state": jnp.full(n, 0.6, jnp.float32),
+        "k$n_state": jnp.full(n, 0.32, jnp.float32)})
+    lat.use_pallas = use_pallas
+    return lat
+
+
+def assert_hh_match(t, j, rtol, atol):
+    """HH state and weights of port lattice ``t`` against JAX lattice
+    ``j``: lft and was_increasing equal, floats within ``rtol``/``atol``."""
+    for k in HH_KEYS:
+        np.testing.assert_allclose(t.state[k].numpy(), np.asarray(j.state[k]),
+                                   rtol=rtol, atol=atol, err_msg=k)
+    for k in ("last_firing_time", "was_increasing", "is_spiking"):
+        np.testing.assert_array_equal(t.state[k].numpy(),
+                                      np.asarray(j.state[k]), err_msg=k)
+    np.testing.assert_allclose(t.graph.weights.numpy(),
+                               np.asarray(j.graph.weights), rtol=rtol,
+                               atol=atol, err_msg="weights")
+    assert set(t.state) == set(j.state)
     assert t.internal_clock == j.internal_clock

@@ -103,7 +103,7 @@ def both(build, use_pallas, use_kernel):
     copy of it (``use_kernel``), before any step."""
     j = build()
     j.use_pallas = use_pallas
-    t = network_from(j)
+    t = network_from(j, "cpu")
     t.use_kernel = use_kernel
     return j, t
 
