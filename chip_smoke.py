@@ -21,7 +21,14 @@ radius-2, 80%-keep stencil graph:
   channels + receptor kinetics + STDP" (`Lattice(HodgkinHuxley())` ->
   `populate` -> `insert_receptor` / `insert_neurotransmitter` ->
   `connect_stencil` -> `run_lattice`) at 128^2 and 512^2, through the HH
-  kernel ``csrc/hh_chemical.cu``.
+  kernel ``csrc/hh_chemical.cu``;
+* `bench.py`'s chemical `LatticeNetwork` (two Izhikevich lattices with
+  DopaGluGABA receptors and bounded kinetics, a Poisson glutamate drive:
+  `Lattice` -> `populate` -> `connect_stencil` -> `insert_receptor` /
+  `insert_neurotransmitter` -> `generate_network` -> `connect_vectorized`
+  -> `chemical_synapse = True` -> `run_lattices`) at 64^2 and 512^2, and
+  its form with a dopamine source, through the chemical arm of the network
+  kernels (``csrc/network_plasticity.cu``, ``csrc/chem_common.cuh``).
 
 Phases, one line each:
 
@@ -81,7 +88,21 @@ Phases, one line each:
    against the same route on the CPU (2 mV, 2 steps) and against the
    plain route on the card;
 18. steps/s and neuron-updates/s of the HH kernel and plain routes at 128^2
-   and 512^2, with the kernels' device time per step and device / wall.
+   and 512^2, with the kernels' device time per step and device / wall;
+19. the chemical arm vs its plain twin on the card: every receptor family x
+   receptor kinetics x NT kinetics (40 random cases: nmda_mod != 1,
+   electrical synapses on and off, STDP, Poisson and Rate trains,
+   Izhikevich, ALIF and DopaIzhikevich lattices), then the chemical main
+   paths through `run_lattices`, 64^2 for 2048 steps, the dopamine form
+   for 1024, 512^2 for 1536, every call held against the twin on the state
+   that call received: integers and spikes equal, floats within rtol 1e-6,
+   atol 1e-5 (route ("chemical", False), kernel calls, finite state,
+   neurons fired, transmitter received); per-step times and the bound at
+   512^2;
+20. the dopamine form with a Rate train at 64^2 for 1000 steps: the kernel
+   route on the card against the same route on the CPU (2 mV, 2 steps);
+21. steps/s, neuron-updates/s, device time per kernel and device / wall of
+   the chemical kernel and plain routes at 64^2 and 512^2.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -173,6 +194,14 @@ HH_STDP = dict(a_plus=0.02, a_minus=0.02)
 # reciprocal on the card) to 6e-4 mV on the CPU and 9.7e-3 mV on the card
 # at 64^2 over 1000 steps
 HH_DRIFT = 5e-2
+# Chemical network phases: bench.py's chemical network at 64^2 and 512^2
+# (its lattice 0 first fires near step 1100, lattice 1 not within 2048
+# steps), its dopamine form at 64^2, and the card-vs-CPU run at 64^2.
+CMAIN, CBIG = (64, 64), (512, 512)
+CMAIN_STEPS, CBIG_STEPS, CDOPA_STEPS, CCMP_STEPS = 2048, 1536, 1024, 1000
+# the kernel-vs-twin cases' shapes, taken in turn
+CSHAPES = [(10, 12), (64, 64), (33, 70)]
+CHEM_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # float operations the card needs for one exp: a range reduction (two
@@ -1018,9 +1047,9 @@ def net_inputs(nk, net, n_steps, seed):
     uniforms drawn from ``seed``: (spec, lats, trains, conns, uniforms,
     rule)."""
     from spiking_neural_networks_tpu_torch.core.structured import (
-        nt_clean, resolve_structured_plan)
+        nt_flags, resolve_structured_plan)
     plan = resolve_structured_plan(net)
-    spec = nk.plain_network_spec(net, plan, nt_clean(net))
+    spec = nk.plain_network_spec(net, plan, not any(nt_flags(net, plan)))
     check(spec is not None, "the network is outside the kernels' class")
     lats, trains, conns = nk.member_inputs(spec, net, plan)
     dev = lats[0]["v"].device
@@ -1639,6 +1668,494 @@ def hh_times_phase(snt, smi):
         del kern, plain
 
 
+# ---------------------------------------------------------------------------
+# The chemical arm of the network kernels: phases 19-22
+# ---------------------------------------------------------------------------
+
+
+def chem_net(snt, rows, cols, use_kernel=None, device="cuda", train="poisson",
+             dopamine=False):
+    """`bench.py`'s chemical network (`bench.py:448-513`): two Izhikevich
+    lattices with DopaGluGABA receptors and bounded kinetics (gap 10,
+    radius 2, keep 0.8, graph seeds 3 and 4), Glutamate and GABA receptors,
+    Glutamate released, v0 uniform in [-70, -40) from ``default_rng(7)``; a
+    Poisson train at 50 Hz releasing its slot 0 ("AMPA", Glutamate on the
+    receptor side) into lattice 0 one to one (3.0), lattice 0 into lattice
+    1 one to one (1.5); chemical synapses only.  ``train="rate"``: a Rate
+    train of 1 ms instead.  ``dopamine``: the form of the JAX package's
+    DopaGluGABA kernel test, a third lattice releasing dopamine into
+    lattice 1 (one to one, 1.0), whose D1 and D2 receptors (s_d1 0.5, s_d2
+    0.3) make nmda_mod and inh_mod move from 1; its v0 is uniform in [-65,
+    40) from ``default_rng(8)``, so a third of it fires at once."""
+    rng = np.random.default_rng(7)
+    n = rows * cols
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    def lattice(lid):
+        model = snt.Izhikevich(nt_kinetics="bounded", rec_kinetics="bounded",
+                               receptors=snt.DopaGluGABAReceptors("bounded"))
+        lat = snt.Lattice(model, id=lid, device=device)
+        lat.populate(rows, cols, gap_conductance=10.0)
+        return lat
+
+    lats = []
+    for lid in range(2):
+        lat = lattice(lid)
+        lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=3 + lid)
+        s = lat.model.insert_receptor(lat.state, "Glutamate")
+        s = lat.model.insert_receptor(s, "GABA")
+        s = lat.model.insert_neurotransmitter(s, "Glutamate")
+        lat.state = {**s, "v": f32(rng.uniform(-70, -40, n))}
+        lats.append(lat)
+    if dopamine:
+        dopa = lattice(3)
+        dopa.connect_stencil(radius=1.0, seed=9)
+        s = dopa.model.insert_neurotransmitter(dopa.state, "Dopamine")
+        dopa.state = {**s, "v": f32(np.random.default_rng(8).uniform(
+            -65, 40, n))}
+        lats.append(dopa)
+        lats[1].state = lats[1].model.insert_receptor(
+            lats[1].state, "Dopamine", s_d1=0.5, s_d2=0.3)
+    st = snt.SpikeTrainLattice(
+        (snt.PoissonSpikeTrain if train == "poisson" else snt.RateSpikeTrain)(
+            nt_kinetics="bounded"), id=2, device=device)
+    st.populate(rows, cols)
+    st.state = st.model.init_from_firing_rate(n, hertz=50.0, dt=0.1,
+                                              device=device) \
+        if train == "poisson" else st.model.init_state(n, rate=1.0, dt=0.1,
+                                                       device=device)
+    st.state = st.model.insert_neurotransmitter(st.state, "AMPA")
+    net = snt.LatticeNetwork.generate_network(lats, [st])
+    for pre, post, w in ((2, 0, 3.0), (0, 1, 1.5)) \
+            + (((3, 1, 1.0),) if dopamine else ()):
+        connect_grid(net, pre, post, one_to_one_coo(n, w),
+                     lambda pr, pc, qr, qc, w=w: np.where(
+                         (pr == qr) & (pc == qc), w, np.nan))
+    net.electrical_synapse = False
+    net.chemical_synapse = True
+    net.use_kernel = use_kernel
+    return net
+
+
+def chem_case(snt, fam, rec, nt, elec, plastic, train, model, shape, seed):
+    """A chemical network of three lattices of ``model`` ("izh", "alif" or
+    "dopa") with ``fam`` receptors, ``rec`` / ``nt`` kinetics, made from
+    ``seed``: random state across the threshold (v, concentrations, gating
+    values, modifiers in [0.5, 1), previous spikes and firing times at
+    clock 3), 20% of the receptor and neurotransmitter slots missing,
+    parameters varied by up to 20%, random weights; a Poisson (300 Hz) or
+    Rate train releasing into lattice 0, lattice 0 into lattice 1 (a third
+    of the cells masked off) and an edgeless lattice 2 into lattice 1;
+    with ``plastic``, STDP on lattice 1 at a+- 0.02 (the default amplitudes
+    turn weights, and so receptor inputs, negative within a call, and a
+    negative NMDA gate to a non-integer power is NaN)."""
+    rows, cols = shape
+    n = rows * cols
+    rng = np.random.default_rng(seed)
+    recs = snt.DopaGluGABAReceptors(rec) if fam == "dopaglugaba" \
+        else snt.IonotropicReceptors(rec)
+    cls = {"izh": snt.Izhikevich, "dopa": snt.DopaIzhikevich,
+           "alif": snt.AdaptiveLeakyIntegrateAndFire}[model]
+
+    def f(lo, hi, shp=(n,)):
+        return torch.as_tensor(rng.uniform(lo, hi, shp).astype(np.float32),
+                               device="cuda")
+
+    def b(p, shp=(n,)):
+        return torch.as_tensor(rng.random(shp) < p, device="cuda")
+
+    lats = []
+    for lid in range(3):
+        lat = snt.Lattice(cls(nt_kinetics=nt, rec_kinetics=rec,
+                              receptors=recs), id=lid, device="cuda")
+        lat.populate(rows, cols, gap_conductance=10.0)
+        if lid < 2:
+            lat.connect_stencil(radius=2.0 if lid == 0 else 1.5,
+                                keep_prob=0.8, seed=seed + lid,
+                                weight_fn=lambda dr, dc, rr, cc:
+                                rng.uniform(0.5, 1.5, rr.shape))
+        s = dict(lat.state)
+        for k in list(s):
+            if k.startswith(("nt$", "rec$")) and s[k].is_floating_point() \
+                    and k not in ("nt$t", "rec$r", "rec$r2", "rec$current"):
+                s[k] = s[k] * f(0.8, 1.2, tuple(s[k].shape))
+        s.update({"v": f(-70, 40), "nt$t": f(0, 1, (n, 3)),
+                  "rec$r": f(0, 1, (n, 3)), "nt$mask": b(0.8, (n, 3)),
+                  "rec$mask": b(0.8, (n, 3)), "is_spiking": b(0.3),
+                  "last_firing_time": torch.as_tensor(np.where(
+                      rng.random(n) < 0.3, rng.integers(0, 3, n),
+                      -1).astype(np.int32), device="cuda")})
+        if fam == "dopaglugaba":
+            s.update({"rec$r2": f(0, 1, (n, 3)), "rec$s_d1": f(0.05, 0.2),
+                      "rec$s_d2": f(0.05, 0.2),
+                      "rec$nmda_modifier": f(0.5, 1.0),
+                      "rec$inh_modifier": f(0.5, 1.0),
+                      "rec$g_ampa": f(4, 6), "rec$e_ampa": f(50, 70)})
+        else:
+            s["rec$g"] = s["rec$g"] * 5.0
+        lat.state = s
+        lat.do_plasticity = plastic and lid == 1
+        lat.plasticity = snt.STDP(**HH_STDP)
+        lats.append(lat)
+    tm = (snt.PoissonSpikeTrain if train == "poisson"
+          else snt.RateSpikeTrain)(nt_kinetics=nt)
+    st = snt.SpikeTrainLattice(tm, id=5, device="cuda")
+    st.populate(rows, cols)
+    st.state = tm.init_from_firing_rate(n, hertz=300.0, dt=0.1,
+                                        device="cuda") \
+        if train == "poisson" else tm.init_state(n, rate=0.5, dt=0.1,
+                                                 device="cuda")
+    st.state = {**tm.insert_neurotransmitter(st.state, "AMPA"),
+                "nt$t": f(0, 1, (n, 3))}
+    net = snt.LatticeNetwork.generate_network(lats, [st])
+    net.connect_vectorized(5, 0, lambda pr, pc, qr, qc: np.where(
+        (pr == qr) & (pc == qc), 3.0, np.nan))
+    net.connect_vectorized(0, 1, lambda pr, pc, qr, qc: np.where(
+        (pr == qr) & (pc == qc) & ((pr + pc) % 3 > 0), 1.5, np.nan))
+    net.connect_vectorized(2, 1, lambda pr, pc, qr, qc: np.where(
+        (pr == qr) & (pc == qc), 1.0, np.nan))
+    net.electrical_synapse = elec
+    net.chemical_synapse = True
+    net.internal_clock = 3
+    return net
+
+
+def chem_inputs(nk, net, n_steps, seed):
+    """One chemical kernel call's inputs from a network's members:
+    (spec, lats, trains, conns, uniforms, rule)."""
+    from spiking_neural_networks_tpu_torch.core.structured import (
+        nt_flags, resolve_structured_plan)
+    plan = resolve_structured_plan(net)
+    flags = nt_flags(net, plan)
+    spec = nk.plain_network_spec(net, plan, False,
+                                 flags[len(plan["lat_ids"]):])
+    check(spec is not None and bool(spec.chem),
+          "the network is outside the chemical arm's class")
+    lats, trains, conns = nk.member_inputs(spec, net, plan)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    uniforms = [torch.rand((n_steps, *ts.shape), generator=g, device="cuda")
+                if ts.kind == "poisson" else None for ts in spec.trains]
+    return spec, lats, trains, conns, uniforms, net._plasticity().params
+
+
+def flat_outputs(out):
+    """(name, tensor) pairs of a network call's outputs, chemical fields
+    by name."""
+    lat, tr, cn = out
+    pairs = []
+    for k, d in enumerate(lat):
+        for key, x in d.items():
+            if key == "chem" and x is not None:
+                pairs += [(f"{kk}{k}", y) for kk, y in sorted(x.items())]
+            elif x is not None:
+                pairs.append((f"{key}{k}", x))
+    for j, d in enumerate(tr):
+        pairs += [(f"train {key}{j}", x) for key, x in d.items()
+                  if x is not None]
+    return pairs + [(f"conn{c}", w) for c, w in enumerate(cn)]
+
+
+def compare_chem(got, want):
+    """(max float error, integer/spike mismatches, errors by name) of a
+    chemical call against its twin; NaN only where the twin has it."""
+    errs, bad = {}, 0
+    for (name, g), (_, w) in zip(flat_outputs(got), flat_outputs(want)):
+        if g.dtype in (torch.int32, torch.bool) or name.startswith("refr"):
+            bad += int((g != w).sum())
+            continue
+        check(bool(torch.equal(torch.isnan(g), torch.isnan(w))),
+              f"NaN where the twin has none: {name}")
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, equal_nan=True,
+                                   msg=name)
+        errs[name] = torch.nan_to_num(g - w).abs().max().item()
+    return max(errs.values()), bad, errs
+
+
+def chem_bytes(spec, lats, trains, conns, uniforms, outs):
+    """Bytes one chemical call must move: each input that the call's
+    configuration reads once, each output once.  Without electrical
+    synapses no lattice's in_deg or gap_conductance plane and no train's
+    refr_k is read, and a train's v_th and v_resting only for Destexhe
+    release (the other kinetics ignore v)."""
+    lat_in, tr_in = [], []
+    for d in lats:
+        d = {k: x for k, x in d.items() if spec.electrical or k != "in_deg"}
+        d["params"] = {p: x for p, x in d["params"].items()
+                       if spec.electrical or p != "gap_conductance"}
+        lat_in.append(d)
+    for ts, d in zip(spec.trains, trains):
+        skip = () if spec.electrical else ("refr_k",) + (
+            () if ts.nt == "destexhe" else ("v_th", "v_resting"))
+        tr_in.append({k: x for k, x in d.items() if k not in skip})
+    return tensor_bytes(lat_in, tr_in, conns, uniforms, outs)
+
+
+def chem_ops(spec, lats, conns, k):
+    """Float operations one chemical call needs (`EXP_OPS` per exp, twice
+    that per pow whose exponent is not 1 at the call's start): per cell
+    and step the three products t * m its neighbours read, the
+    re-expansion and average per type, 4 per incoming connection and type,
+    the receptors (2 per kinetics update, the currents, the block's exp),
+    rec_dv, the model step (23) and the release (6 per type); per on-grid
+    slot the three chemical sums and counts; with electrical synapses,
+    `stencil_ops` (connections and STDP not counted)."""
+    ops = 0
+    n_in = [sum(cs.post == i for cs in spec.conns)
+            for i in range(len(spec.lattices))]
+    dopa = spec.chem[0] == "dopaglugaba"
+    for i, (ls, d) in enumerate(zip(spec.lattices, lats)):
+        rows, cols = ls.shape
+        pows = int((d["chem"]["rec$nmda_modifier"] != 1.0).sum()) \
+            if dopa else 0
+        per_cell = (3 + 3 * (6 + 4 * n_in[i])
+                    + 3 * 2 * (2 if dopa else 1)
+                    + (19 if dopa else 13) + EXP_OPS + 3 + 23 + 3 * 6)
+        ops += k * (rows * cols * per_cell + pows * (2 * EXP_OPS + 1)
+                    + 12 * ingrid_slots(ls.offsets, rows, cols))
+        if spec.electrical:
+            ops += stencil_ops(ls.offsets, rows, cols, k)
+    return ops
+
+
+def chem_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    max_err, times, bounds, launches = chem_twin_phase(snt, nk, smi)
+    chem_cmp_phase(snt)
+    chem_times_phase(snt, smi)
+    return {"name": "network_steps (chemical arm)", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "network_plasticity.cu",
+            "replaces": CHEM_REPLACES, "launches": launches,
+            "max_abs_err": max_err,
+            "ms": times[0] * nk.STEPS_PER_LAUNCH,
+            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
+            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None}
+
+
+def chem_twin_phase(snt, nk, smi):
+    """19. The chemical arm vs its plain twin on the card: every family x
+    receptor kinetics x NT kinetics on random cases, then every call of
+    the 64^2 main path, its dopamine form and the 512^2 main path through
+    `run_lattices`, on the state that call received; returns (max float
+    error, (kernel, twin, device) ms per step at 512^2, the bound of a
+    512^2 call, the main paths' chemical kernel calls)."""
+    import itertools
+    max_err, n_cases = 0.0, 0
+    models = ("izh", "alif", "dopa")
+    for seed, (fam, rec, nt) in enumerate(itertools.product(
+            nk.CHEM_FAMILIES, nk.REC_KINDS, nk.NT_KINDS)):
+        elec, plastic = seed % 2 == 0, seed % 3 == 0
+        train = "poisson" if seed % 4 == 0 else "rate"
+        model = models[seed % 3]
+        if fam == "ionotropic" and model == "dopa":
+            model = "izh"
+        shape = CSHAPES[seed % len(CSHAPES)]
+        k = 16 if seed % 2 else 7
+        net = chem_case(snt, fam, rec, nt, elec, plastic, train, model, shape,
+                        seed)
+        args = chem_inputs(nk, net, k, seed)
+        got = nk.network_steps(*args, 3, k)
+        torch.cuda.synchronize()
+        want = nk.network_steps_reference(*args, 3, k)
+        err, bad, _ = compare_chem(got, want)
+        fired = sum(int((d["lft"] >= 3).sum()) for d in got[0])
+        nmda = got[0][1]["chem"].get("rec$nmda_modifier")
+        say(f"[19 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} {fam} {rec}/{nt}"
+            f" {model} electrical={elec} plastic={plastic} {train}: integer "
+            f"and spike mismatches {bad}, max float error {err:.3g}, fired "
+            f"{fired}" + ("" if nmda is None else
+                          f", nmda_mod in [{nmda.min().item():.3f}, "
+                          f"{nmda.max().item():.3f}]"))
+        check(bad == 0, "firing times, spikes or counts differ")
+        check(fired > 0, "no neuron fired in the call")
+        check(all(bool(torch.isfinite(x).all()) for _, x in flat_outputs(got)
+                  if x.is_floating_point()), "a random case went non-finite")
+        max_err, n_cases = max(max_err, err), n_cases + 1
+        del net, args, got, want
+    # every call of the main paths through `run_lattices`, each held
+    # against the twin on the state that call received
+    times = bounds = None
+    launches = 0
+    keys = ("v", "w", "lft", "spikes", "refr", "chem")
+    for label, shape, steps, dopamine in (
+            ("bench.py form", CMAIN, CMAIN_STEPS, False),
+            ("dopamine form", CMAIN, CDOPA_STEPS, True),
+            ("bench.py form", CBIG, CBIG_STEPS, False)):
+        net = chem_net(snt, *shape, dopamine=dopamine)
+        bad, err, fired, nmda_moved = 0, 0.0, 0, False
+        nk.LAUNCHES = nk.CHEM_LAUNCHES = 0
+        for call in range(steps // nk.STEPS_PER_LAUNCH):
+            clock = net.internal_clock
+            g = torch.Generator(device="cuda")
+            g.set_state(net.generator().get_state())
+            spec, lats, trains, conns, _, rule = chem_inputs(nk, net, 1, 0)
+            uniforms = [torch.rand((nk.STEPS_PER_LAUNCH, *ts.shape),
+                                   generator=g, device="cuda")
+                        if ts.kind == "poisson" else None
+                        for ts in spec.trains]
+            args = (spec, lats, trains, conns, uniforms, rule)
+            want = nk.network_steps_reference(*args, clock,
+                                              nk.STEPS_PER_LAUNCH)
+            if call == 0:
+                # timed after the run: the wrapper leaves its inputs as
+                # they were, and the run replaces the state's tensors
+                timed = (args, clock)
+            net.run_lattices(nk.STEPS_PER_LAUNCH)
+            torch.cuda.synchronize()
+            check(net._last_run_fused == ("chemical", False),
+                  "the main path missed the chemical arm")
+            got = []
+            for lat in (net.lattices[i] for i in sorted(net.lattices)):
+                s, shp = lat.state, (lat.rows, lat.cols)
+                got.append(dict(
+                    v=s["v"].reshape(shp), w=s["w"].reshape(shp),
+                    lft=s["last_firing_time"].reshape(shp),
+                    spikes=s["is_spiking"].reshape(shp),
+                    refr=s["refractory_count"].reshape(shp)
+                    if "refractory_count" in s else None,
+                    chem={k: s[k] for k in nk.chem_out_keys(spec.chem)}))
+            got = (got, [dict(lft=s.state["last_firing_time"].reshape(
+                s.rows, s.cols), ntt=s.state["nt$t"])
+                for s in net.spike_train_lattices.values()], [])
+            ref = ([{k: d[k] for k in keys} for d in want[0]],
+                   [dict(lft=d["lft"], ntt=d["ntt"]) for d in want[1]], [])
+            e, b, _ = compare_chem(got, ref)
+            bad, err = bad + b, max(err, e)
+            fired += sum(int((d["lft"] >= clock).sum()) for d in got[0])
+            nmda_moved |= any(bool((d["chem"]["rec$nmda_modifier"] != 1.0)
+                                   .any()) for d in got[0])
+        calls = nk.CHEM_LAUNCHES
+        launches += calls
+        states = [l.state for l in net.lattices.values()] \
+            + [s.state for s in net.spike_train_lattices.values()]
+        finite = all(bool(torch.isfinite(x).all()) for st in states
+                     for x in st.values() if x.is_floating_point())
+        per_lat = [int((l.state["last_firing_time"] >= 0).sum())
+                   for l in net.lattices.values()]
+        l1 = net.lattices[1].state
+        say(f"[19 main path] chemical {label} {shape[0]}x{shape[1]}, every "
+            f"call of run_lattices({steps}) against the twin: route "
+            f"{net._last_run_fused}, kernel calls {calls}, integer and spike "
+            f"mismatches {bad}, max float error {err:.3g}, state finite "
+            f"{finite}, fired per lattice {per_lat} of "
+            f"{shape[0] * shape[1]}, lattice 1 max nt$t "
+            f"{l1['nt$t'].max().item():.4g}, max rec$r "
+            f"{l1['rec$r'].max().item():.4g}, nmda_mod range "
+            f"[{l1['rec$nmda_modifier'].min().item():.4f}, "
+            f"{l1['rec$nmda_modifier'].max().item():.4f}]")
+        check(bad == 0, "firing times or spikes differ on the main path's "
+              "inputs")
+        check(calls == nk.LAUNCHES == steps // nk.STEPS_PER_LAUNCH,
+              "wrong number of chemical kernel calls")
+        check(finite and fired > 0 and l1["rec$r"].max().item() > 0,
+              f"chemical {label}: non-finite state, no neuron fired or "
+              f"lattice 1 without transmitter")
+        check(nmda_moved == dopamine, "nmda_mod moved only with dopamine")
+        max_err = max(max_err, err)
+        del net
+        if shape == CBIG:
+            args, clock = timed
+            spec, lats, trains, conns, uniforms, _ = args
+            kernel = lambda: nk.network_steps(*args, clock,
+                                              nk.STEPS_PER_LAUNCH)
+            bounds = bound(chem_bytes(spec, lats, trains, conns, uniforms,
+                                      kernel()),
+                           chem_ops(spec, lats, conns, nk.STEPS_PER_LAUNCH))
+            dev_us, top = profiled_us(
+                lambda: [kernel() for _ in range(10)],
+                10 * nk.STEPS_PER_LAUNCH, n_top=4)
+            times = (event_ms(kernel, 10) / nk.STEPS_PER_LAUNCH,
+                     event_ms(lambda: nk.network_steps_reference(
+                         *args, clock, nk.STEPS_PER_LAUNCH), 3)
+                     / nk.STEPS_PER_LAUNCH, dev_us / 1e3)
+            say(f"[19 kernel-vs-twin] main path {shape[0]}x{shape[1]} "
+                f"K={nk.STEPS_PER_LAUNCH} per step: kernel calls back to "
+                f"back {times[0] * 1e3:.3f} us (events), of which device "
+                f"time {dev_us:.3f} us (profiled: "
+                + ", ".join(f"{n} {t:.3f}" for n, t in top)
+                + f"); plain twin {times[1] * 1e3:.3f} us (events); "
+                f"bound {bounds[0] * 1e3 / nk.STEPS_PER_LAUNCH:.3f} us "
+                f"({bounds[1]}); card {smi}")
+            del timed, args
+    say(f"[19 kernel-vs-twin] max float error over {n_cases} random cases "
+        f"and the main paths {max_err:.3g} (tolerance rtol {RTOL}, atol "
+        f"{ATOL}; 0 = bit-equal)")
+    return max_err, times, bounds, launches
+
+
+def chem_cmp_phase(snt):
+    """20. The dopamine form with a Rate train at 64^2, 1000 steps with a
+    grid history on every lattice: the kernel route on the card against
+    the same route on the CPU."""
+    runs = {}
+    for key, device, uk in (("kernel", "cuda", None), ("cpu", "cpu", True)):
+        net = chem_net(snt, *CMAIN, use_kernel=uk, device=device,
+                       train="rate", dopamine=True)
+        for lat in net.lattices.values():
+            lat.update_grid_history = True
+        net.run_lattices(CCMP_STEPS)
+        runs[key] = ([np.stack(l.grid_history.history)
+                      for l in net.lattices.values()],
+                     [l.field("last_firing_time").astype(np.int64)
+                      for l in net.lattices.values()],
+                     [l.field("nt$t") for l in net.lattices.values()],
+                     net._last_run_fused)
+    check(runs["kernel"][3] == runs["cpu"][3] == ("chemical", True),
+          "wrong chemical routes")
+    dv = max(float(np.abs(a - b).max())
+             for a, b in zip(runs["kernel"][0], runs["cpu"][0]))
+    dl = max(int(np.abs(a - b).max())
+             for a, b in zip(runs["kernel"][1], runs["cpu"][1]))
+    dt = max(float(np.abs(a - b).max())
+             for a, b in zip(runs["kernel"][2], runs["cpu"][2]))
+    fired = [int((x >= 0).sum()) for x in runs["kernel"][1]]
+    say(f"[20 kernel-vs-cpu] chemical dopamine Rate form {CMAIN[0]}x"
+        f"{CMAIN[1]} "
+        f"{CCMP_STEPS} steps, kernel route on the card vs on the CPU: "
+        f"max|dv| {dv:.4g} mV, max|dlft| {dl} steps, max|dnt$t| {dt:.4g}, "
+        f"fired per lattice {fired}")
+    check(dv <= 2.0 and dl <= 2, "chemical card vs CPU outside 2 mV / 2 "
+          "steps")
+    check(sum(fired) > 0, "no neuron of the comparison fired")
+
+
+def chem_times_phase(snt, smi):
+    """21. Times of the chemical kernel and plain routes on `bench.py`'s
+    chemical network, in turns."""
+    for shape, kern_steps, plain_steps in ((CMAIN, CMAIN_STEPS, 64),
+                                           (CBIG, CBIG_STEPS, 16)):
+        kern = chem_net(snt, *shape, use_kernel=None)
+        plain = chem_net(snt, *shape, use_kernel=False)
+        run_net_synced(kern, kern_steps)
+        run_net_synced(plain, plain_steps)
+        tk, tp = [], []
+        for rep in range(5):
+            tk.append(run_net_synced(kern, kern_steps))
+            if rep < 3:
+                tp.append(run_net_synced(plain, plain_steps))
+        check(kern._last_run_fused == ("chemical", False)
+              and plain._last_run_fused is False,
+              "timed the wrong chemical routes")
+        mk, mp = float(np.median(tk)), float(np.median(tp))
+        dev_us, top = profiled_us(lambda: run_net_synced(kern, PROFILE_STEPS),
+                                  PROFILE_STEPS, n_top=5)
+        n_all = sum(l.n for l in kern.lattices.values())
+        busy = dev_us * kern_steps / (mk * 1e6)
+        say(f"[21 times] chemical bench.py form {shape[0]}x{shape[1]}: "
+            f"kernel route (use_kernel=None) "
+            f"{net_rate(n_all, mk, kern_steps)}, median of 5 x {kern_steps} "
+            f"steps; device time {dev_us:.3f} us/step (profiled: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device time / wall {busy:.3f}; plain route "
+            f"(use_kernel=False) {net_rate(n_all, mp, plain_steps)}, median "
+            f"of 3 x {plain_steps} steps; card {smi}")
+        del kern, plain
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1669,10 +2186,11 @@ def main():
           and lib.lp_max_offsets() == rk.MAX_OFFSETS
           and lib.hh_max_offsets() == hk.MAX_OFFSETS,
           "MAX_OFFSETS differs between a CUDA source and its wrapper")
-    limits = (ctypes.c_int * 9)()
+    limits = (ctypes.c_int * 11)()
     lib.net_limits(limits)
     check(list(limits) == [nk.MAX_IN, rk.MAX_OFFSETS, nk.MAX_TAPS, nk.NL_I,
-                           nk.NL_P, nk.NT_I, nk.NT_P, nk.NC_I, nk.NC_P],
+                           nk.NL_P, nk.NT_I, nk.NT_P, nk.NC_I, nk.NC_P,
+                           nk.NLC_P, nk.NTC_P],
           f"the network kernels' limits {list(limits)} differ from their "
           f"wrapper's")
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
@@ -1684,7 +2202,8 @@ def main():
         f"ptxas: {' / '.join(ptxas)}")
 
     kernels = [stencil_phases(snt, smi), plasticity_phases(snt, smi),
-               network_phases(snt, smi), hh_phases(snt, smi)]
+               network_phases(snt, smi), hh_phases(snt, smi),
+               chem_phases(snt, smi)]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -17,6 +17,7 @@ __version__ = "0.4.0"
 
 from .models.integrate_and_fire import (
     AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
+from .models.dopa import DopaIzhikevich
 from .models.hodgkin_huxley import HodgkinHuxley
 from .models.spike_train import (
     BCMPoissonSpikeTrain, PoissonSpikeTrain, PresetSpikeTrain,
@@ -28,3 +29,4 @@ from . import errors
 from .core.plasticity import STDP, RewardModulatedSTDP
 from .core import history
 from .ops.graph import SparseGraph, StencilGraph, radius_offsets
+from .ops.receptors import DopaGluGABAReceptors, IonotropicReceptors

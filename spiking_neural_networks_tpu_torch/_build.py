@@ -156,6 +156,7 @@ def load():
         ci, pi, pv,                         # trains
         ci, pi, pv,                         # connections
         pf, ci, ci,                         # rule[5], clock0, n_steps
+        pi, pv, pv,                         # chemical: ints[4], lat, train
         vp,                                 # stream
     ]
     lib.net_steps.restype = ci

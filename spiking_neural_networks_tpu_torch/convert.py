@@ -118,15 +118,20 @@ def spike_train_lattice_from(src, model, device="cuda"):
 
 
 def _port_model(model):
-    """The port's model of the class and configuration of a JAX model."""
-    from .models import hodgkin_huxley, integrate_and_fire, spike_train
+    """The port's model of the class and configuration of a JAX model: its
+    kinetics and its receptor system (family and kinetics)."""
+    from .models import dopa, hodgkin_huxley, integrate_and_fire, spike_train
+    from .ops import receptors
     name = type(model).__name__
     if hasattr(model, "refractoriness"):
         return getattr(spike_train, name)(model.nt_kinetics,
                                           model.refractoriness)
-    module = hodgkin_huxley if hasattr(hodgkin_huxley, name) \
-        else integrate_and_fire
-    return getattr(module, name)(model.nt_kinetics, model.rec_kinetics)
+    module = next(m for m in (hodgkin_huxley, dopa, integrate_and_fire)
+                  if hasattr(m, name))
+    rec = model.receptors
+    return getattr(module, name)(
+        model.nt_kinetics, model.rec_kinetics,
+        receptors=getattr(receptors, type(rec).__name__)(rec.kinetics))
 
 
 def network_from(src_net, device="cuda"):

@@ -37,8 +37,9 @@ from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 from ..errors import GraphError
 
 CHEMICAL_NOT_PORTED = (
-    "chemical synapses in reward lattices and networks are not ported to "
-    "the PyTorch package yet (ROADMAP queue 1, item 5)")
+    "chemical synapses in reward-modulated lattices are not ported to the "
+    "PyTorch package yet: they come with the reward slice (ROADMAP queue 1, "
+    "item 7; queue 2, item 7c)")
 
 
 class Lattice:

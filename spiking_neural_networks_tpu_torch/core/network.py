@@ -9,8 +9,11 @@ each connection's operator apart.  A step, as in the JAX package:
 1. phase A: every lattice's electrical input from the previous state;
    spike-train sources contribute ``w * refractoriness_effect`` (no
    ``v_post`` subtraction), neuron sources ``w * (v_pre - v_post)``, all
-   averaged over the total in-degree;
-2. phase B: every lattice advances; firing times take the network clock;
+   averaged over the total in-degree; with ``chemical_synapse``, per
+   neurotransmitter type, the weighted concentrations of the present
+   sources over their count;
+2. phase B: every lattice advances (receptors, then the model step, then
+   neurotransmitter release); firing times take the network clock;
 3. deferred STDP within and across lattices: an edge is updated once per
    spiking endpoint whose lattice has plasticity on;
 4. the clock increments and the member clocks sync;
@@ -34,9 +37,9 @@ from ..models.base import NEVER
 from ..ops.graph import positions
 from .history import (GridVoltageHistory, history_step_bytes,
                       resolve_history_chunk)
-from .lattice import CHEMICAL_NOT_PORTED
 from .plasticity import STDP
-from .structured import nt_clean, run_structured, write_back_connections
+from .structured import (nt_flags, resolve_structured_plan, run_structured,
+                         write_back_connections)
 
 FLAT_RUNNER_NOT_PORTED = (
     "the flat COO network runner (taken for update_connecting_graph_history "
@@ -156,7 +159,8 @@ class LatticeNetwork:
     plain_network_spec` holds; True takes it wherever the gate holds (on
     the CPU the wrapper runs the kernels' plain twin); False always runs
     the plain step loop.  ``_last_run_fused`` is ``("network", emit)``
-    after a kernel-route chunk, else False.
+    after a kernel-route chunk of an electrical network, ``("chemical",
+    emit)`` after one of a chemical network, else False.
     """
 
     # the structure-preserving runner; False asks for the flat COO runner
@@ -417,8 +421,6 @@ class LatticeNetwork:
             return
         if not self.electrical_synapse and not self.chemical_synapse:
             return
-        if self.chemical_synapse:
-            raise NotImplementedError(CHEMICAL_NOT_PORTED)
         if not (self.structured and type(self) is LatticeNetwork
                 and not self.update_connecting_graph_history
                 and self.lattices):
@@ -427,12 +429,12 @@ class LatticeNetwork:
                           for l in self.lattices.values()) \
             or any(s.update_grid_history
                    for s in self.spike_train_lattices.values())
-        skip_nt = nt_clean(self)
+        flags = nt_flags(self, resolve_structured_plan(self))
         hchunk = self._history_chunk()
         remaining = iterations
         while remaining > 0:
             chunk = min(remaining, hchunk) if any_history else remaining
-            run_structured(self, chunk, skip_nt)
+            run_structured(self, chunk, flags)
             remaining -= chunk
         write_back_connections(self)
 

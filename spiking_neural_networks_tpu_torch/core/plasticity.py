@@ -87,6 +87,55 @@ def kernel_exp(x):
     return torch.where(x < _EXP_MIN, 0.0, y)
 
 
+# kernel_log: a Cephes-style float32 log (the mantissa in [sqrt(1/2),
+# sqrt(2)) from the bits, a degree-9 polynomial, ln 2 in two parts)
+_LOG_POLY = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+             -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+             2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_FLT_MIN = 1.17549435e-38
+
+
+def kernel_log(x):
+    """log of a positive finite float32 tensor by the float32 operations
+    of ``kernel_log`` in ``csrc/chem_common.cuh``, within about an ulp:
+    the same bits on every device, as `kernel_exp`."""
+    tiny = x < _FLT_MIN
+    x = torch.where(tiny, x * 8388608.0, x)          # 2^23: exact
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) & 0xff) - 126 - torch.where(tiny, 23, 0).to(
+        torch.int32)
+    m = ((bits & 0x007fffff) | 0x3f000000).view(torch.float32)  # [0.5, 1)
+    low = m < 0.70710678118654752
+    e = e - low.to(torch.int32)
+    m = torch.where(low, m + m - 1.0, m - 1.0)
+    z = m * m
+    y = m * _LOG_POLY[0] + _LOG_POLY[1]
+    for c in _LOG_POLY[2:]:
+        y = y * m + c
+    y = y * m * z
+    fe = e.to(torch.float32)
+    y = y + fe * _LN2_LO
+    y = y + -0.5 * z
+    return m + y + fe * _LN2_HI
+
+
+def kernel_pow(x, y):
+    """``x ** y`` of float32 tensors as ``kernel_exp(y * kernel_log(|x|))``,
+    with pow's exact cases: ``y == 1 -> x``, ``y == 0 -> 1``, ``x == 0 ->
+    0`` for y > 0 and inf for y < 0, and for x < 0 the sign of an odd
+    integer y or NaN for a y that is not an integer.  Float operations
+    only, as `kernel_exp`; x and y are finite."""
+    ax = torch.abs(x)
+    p = kernel_exp(y * kernel_log(torch.where(ax > 0.0, ax, 1.0)))
+    whole = torch.floor(y) == y
+    odd = torch.floor(y * 0.5) * 2.0 != y
+    p = torch.where(x < 0.0, torch.where(whole, torch.where(odd, -p, p),
+                                         float("nan")), p)
+    p = torch.where(x == 0.0, torch.where(y > 0.0, 0.0, float("inf")), p)
+    p = torch.where(y == 0.0, 1.0, p)
+    return torch.where(y == 1.0, x, p)
+
+
 def stdp_delta(t_pre, t_post, p, exp=torch.exp):
     """The STDP delta of one visit from int32 last firing times, 0 unless
     both endpoints have fired.  One exp of the selected argument, as the

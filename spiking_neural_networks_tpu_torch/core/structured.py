@@ -13,12 +13,11 @@ A network step is a sum of structured operators:
 * every lattice steps on its own state dict.
 
 Semantics as in the JAX package: the two-phase step, in-degree averaging
-across every incoming component, deferred STDP with per-spiking-plastic-
-endpoint counts, clock sync, spike trains last.  `run_structured` runs
-either the network kernel route (`ops.network_kernels`, K = 16 steps per
-call) or `_plain_steps`, the plain PyTorch step loop in the XLA path's
-association.  `LatticeNetwork.run_lattices` raises `NotImplementedError`
-for chemical synapses before either route runs.
+across every incoming component (per neurotransmitter type for chemical
+synapses), deferred STDP with per-spiking-plastic-endpoint counts, clock
+sync, spike trains last.  `run_structured` runs either the network kernel
+route (`ops.network_kernels`, K = 16 steps per call) or `_plain_steps`,
+the plain PyTorch step loop in the XLA path's association.
 """
 
 from __future__ import annotations
@@ -26,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.base import get_neurotransmitter_concentrations
 from ..models.spike_train import refractoriness_effect
+from ..ops.graph import SparseGraph
 from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 
 
@@ -276,6 +277,54 @@ def _conn_gather(kind, aux, w, a_src, sub_src, v_post):
     return a_src @ w - v_post * (sub_src @ w)
 
 
+def _conn_gather_chemical(kind, aux, w, t_src, m_src):
+    """The per-type (n_post, K) sums ``w * t * m`` and counts ``m`` of one
+    connection's present sources, in the XLA path's association."""
+    if kind == "empty":
+        z = t_src.new_zeros((aux["in_deg"].shape[0], t_src.shape[-1]))
+        return z, z
+    if kind == "one2one":
+        gate = aux["mask"][:, None]
+        return (torch.where(gate, w[:, None] * t_src * m_src, 0.0),
+                torch.where(gate, m_src, 0.0))
+    if isinstance(kind, tuple):  # ("resample", *static)
+        T = t_src.shape[-1]
+        both = _resample_planes(kind[1:], torch.cat([t_src * m_src, m_src],
+                                                    dim=-1))
+        gate = aux["mask"][..., None]
+        tm = torch.where(gate, w[..., None] * both[..., :T], 0.0)
+        mm = torch.where(gate, both[..., T:], 0.0)
+        sums, cnts = torch.zeros_like(tm[0]), torch.zeros_like(mm[0])
+        for t in range(tm.shape[0]):
+            sums = sums + tm[t]
+            cnts = cnts + mm[t]
+        return sums.reshape(-1, T), cnts.reshape(-1, T)
+    if kind == "padded":
+        T = t_src.shape[-1]
+        both = torch.cat([t_src * m_src, m_src], dim=-1)[aux["idx"]]
+        gate = aux["mask"][:, :, None]
+        return (torch.sum(torch.where(gate, w[:, :, None] * both[..., :T],
+                                      0.0), dim=1),
+                torch.sum(torch.where(gate, both[..., T:], 0.0), dim=1))
+    return (w.T @ (t_src * m_src),
+            aux["mask"].to(torch.float32).T @ m_src)
+
+
+def _chem_counts(graph, m_src):
+    """Per-type (n_post, K) counts of a lattice graph's present sources,
+    which turn its averaged chemical gather back into sums."""
+    if isinstance(graph, SparseGraph):
+        return m_src.new_zeros((graph.n_post, m_src.shape[-1])).index_add(
+            0, graph.dst, m_src[graph.src])
+    rows, cols = graph.shape
+    k = m_src.shape[-1]
+    mp = graph._padded(m_src.reshape(rows, cols, k))
+    cnts = m_src.new_zeros((rows, cols, k))
+    for o, (dr, dc) in enumerate(graph.offsets):
+        cnts = cnts + graph.mask[o][:, :, None] * graph._shifted(mp, dr, dc)
+    return cnts.reshape(-1, k)
+
+
 def _edge_layout(kind, aux, pre_vals, post_vals):
     """Per-node value dicts broadcast into the connection's edge layout;
     resampled and gathered pre fields are cast to float32 (exact for
@@ -353,22 +402,26 @@ def resolve_structured_plan(net):
     return plan
 
 
-def nt_clean(net):
-    """Whether no lattice and no train of the network has a
-    neurotransmitter inserted (the NT update is then a masked no-op)."""
-    return not any(bool(x.state["nt$mask"].any()) for x in
-                   list(net.lattices.values())
-                   + list(net.spike_train_lattices.values()))
+def nt_flags(net, plan):
+    """Whether each lattice, then each train, in plan order, has a
+    neurotransmitter inserted (the step never writes the masks, so a run
+    reads them once)."""
+    return tuple(bool(x.state["nt$mask"].any()) for x in
+                 [net.lattices[i] for i in plan["lat_ids"]]
+                 + [net.spike_train_lattices[i] for i in plan["st_ids"]])
 
 
-def run_structured(net, iterations, skip_nt):
+def run_structured(net, iterations, flags):
     """Advance the network ``iterations`` steps over the kernel route or
     the plain route, write the states, graphs and connection weights back,
-    and extend the histories."""
+    and extend the histories.  ``flags`` are `nt_flags`: the lattices skip
+    the neurotransmitter update when none of them has one inserted."""
     from ..ops import network_kernels as nk
     plan = resolve_structured_plan(net)
     lattices = [net.lattices[i] for i in plan["lat_ids"]]
     sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
+    skip_nt = not any(flags[:len(lattices)])
+    st_nt = flags[len(lattices):]
     hist = [(i, l) for i, l in zip(plan["lat_ids"], lattices)
             if l.update_grid_history]
     st_hist = [(i, s) for i, s in zip(plan["st_ids"], sts)
@@ -377,15 +430,16 @@ def run_structured(net, iterations, skip_nt):
              if l.update_graph_history]
     spec = None
     if net.use_kernel is not False:
-        spec = nk.plain_network_spec(net, plan, skip_nt)
+        spec = nk.plain_network_spec(net, plan, skip_nt and not any(st_nt),
+                                     st_nt)
         if spec is not None and net.use_kernel is None \
                 and not lattices[0].state["v"].is_cuda:
             spec = None
     if spec is not None:
         states, st_states, graphs, conn_ws, ys = nk.advance(
             spec, net, plan, int(iterations))
-        net._last_run_fused = ("network", any(ls.emit
-                                              for ls in spec.lattices))
+        net._last_run_fused = ("chemical" if spec.chem else "network",
+                               any(ls.emit for ls in spec.lattices))
     else:
         states, st_states, graphs, conn_ws, ys = _plain_steps(
             net, plan, int(iterations), skip_nt, hist, st_hist, ghist)
@@ -425,42 +479,71 @@ def write_back_connections(net):
 # ---------------------------------------------------------------------------
 
 
-def _phase_a(lat_ids, lat_index, st_index, states, graphs, conns, effects):
-    """Per-lattice electrical input (phase A): the intra gather re-expanded
-    to sums plus every connection targeting the lattice, averaged over the
-    total in-degree.  ``conns`` is a sequence of ((pre_id, post_id, kind,
-    pre_is_st), aux, w) triples."""
-    inputs = []
+def _phase_a(lat_ids, lat_index, st_index, states, st_states, graphs, conns,
+             effects, electrical, chemical):
+    """Per-lattice inputs (phase A), each the intra gather re-expanded to
+    sums plus every connection targeting the lattice: the electrical input
+    averaged over the total in-degree (zeros without electrical synapses),
+    and with ``chemical`` the per-type neurotransmitter sums and counts.
+    ``conns`` is a sequence of ((pre_id, post_id, kind, pre_is_st), aux, w)
+    triples.  Returns (inputs, chem_sums, chem_cnts)."""
+    inputs, chem_sums, chem_cnts = [], [], []
     for k, i in enumerate(lat_ids):
         s = states[k]
         v = s["v"]
         g = graphs[k]
-        ones = torch.ones_like(v)
-        total = g.gather_electrical(v, ones, v, ones) \
-            * torch.clamp(g.in_degree(), min=1.0)
-        cnt = g.in_degree()
+        if electrical:
+            ones = torch.ones_like(v)
+            total = g.gather_electrical(v, ones, v, ones) \
+                * torch.clamp(g.in_degree(), min=1.0)
+            cnt = g.in_degree()
+        if chemical:
+            t, m = get_neurotransmitter_concentrations(s)
+            m = m.to(torch.float32)
+            t_in, _ = g.gather_chemical(t, m)
+            gc = _chem_counts(g, m)
+            csum = t_in * torch.clamp(gc, min=1.0) * (gc > 0.0)
+            ccnt = gc
         for (pre_id, post_id, kind, pre_is_st), aux, w in conns:
             if post_id != i:
                 continue
             if pre_is_st:
+                src = st_states[st_index[pre_id]]
                 a_src = effects[st_index[pre_id]]
                 sub = torch.zeros_like(a_src)
             else:
-                a_src = states[lat_index[pre_id]]["v"]
+                src = states[lat_index[pre_id]]
+                a_src = src["v"]
                 sub = torch.ones_like(a_src)
-            total = total + _conn_gather(kind, aux, w, a_src, sub, v)
-            cnt = cnt + aux["in_deg"]
-        inputs.append(s["gap_conductance"] * total
-                      / torch.clamp(cnt, min=1.0))
-    return inputs
+            if electrical:
+                total = total + _conn_gather(kind, aux, w, a_src, sub, v)
+                cnt = cnt + aux["in_deg"]
+            if chemical:
+                t, m = get_neurotransmitter_concentrations(src)
+                sums, cnts = _conn_gather_chemical(kind, aux, w, t,
+                                                   m.to(torch.float32))
+                csum = csum + sums
+                ccnt = ccnt + cnts
+        inputs.append(s["gap_conductance"] * total / torch.clamp(cnt, min=1.0)
+                      if electrical else torch.zeros_like(v))
+        if chemical:
+            chem_sums.append(csum)
+            chem_cnts.append(ccnt)
+    return inputs, chem_sums, chem_cnts
 
 
-def _phase_b(model, states, inputs, skip_nt, clock):
-    """Step every lattice with ``model`` (phase B) and stamp the firing
-    times."""
+def _phase_b(model, states, inputs, chem_sums, chem_cnts, skip_nt, clock):
+    """Step every lattice with ``model`` (phase B; the chemical input is
+    ``sums / max(cnts, 1)``, valid where ``cnts > 0``) and stamp the
+    firing times."""
     out_states, spikes = [], []
     for k in range(len(states)):
-        s, spk = model.step(states[k], inputs[k], skip_nt=skip_nt)
+        if chem_sums:
+            t_in = chem_sums[k] / torch.clamp(chem_cnts[k], min=1.0)
+            s, spk = model.step(states[k], inputs[k], t_in,
+                                chem_cnts[k] > 0.0, skip_nt=skip_nt)
+        else:
+            s, spk = model.step(states[k], inputs[k], skip_nt=skip_nt)
         s["last_firing_time"] = s["last_firing_time"].masked_fill(spk, clock)
         out_states.append(s)
         spikes.append(spk)
@@ -499,9 +582,12 @@ def _plain_steps(net, plan, length, skip_nt, hist, st_hist, ghist):
     for _ in range(length):
         effects = [refractoriness_effect(st_model.refractoriness, s, clock)
                    for s in st_states]
-        inputs = _phase_a(lat_ids, lat_index, st_index, states, graphs,
-                          list(zip(meta, aux, conn_ws)), effects)
-        states, _ = _phase_b(model, states, inputs, skip_nt, clock)
+        inputs, chem_sums, chem_cnts = _phase_a(
+            lat_ids, lat_index, st_index, states, st_states, graphs,
+            list(zip(meta, aux, conn_ws)), effects, net.electrical_synapse,
+            net.chemical_synapse)
+        states, _ = _phase_b(model, states, inputs, chem_sums, chem_cnts,
+                             skip_nt, clock)
         if any(do_plast):
             for k in range(len(lattices)):
                 if not do_plast[k]:

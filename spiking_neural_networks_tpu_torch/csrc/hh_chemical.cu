@@ -25,7 +25,9 @@
 //   6. spike = v' > v_th && was_increasing && !(v < v'); lft = clock0 + k;
 //   7. STDP (plastic): w_o += delta(lft_pre, lft_post) (spk_pre + spk_post)
 //      on masked slots, from the post-step lft and spikes.
-// Off-grid neighbours are skipped by a bounds check.  Every exp is
+// Off-grid neighbours are skipped by a bounds check.  The receptor
+// kinetics and the release are chem_common.cuh's, shared with the network
+// kernels' chemical arm.  Every exp is
 // kernel_exp (plasticity_common.cuh); built with -fmad=false and without
 // fast math, the kernels round as their plain PyTorch twin
 // (ops/hh_kernels.hh_steps_reference) on any device.
@@ -49,7 +51,7 @@
 // blocking (K steps on a tile plus a K * pad halo in shared memory), so
 // that parameters and weights are read once per K steps.
 
-#include "plasticity_common.cuh"
+#include "chem_common.cuh"
 
 #define HH_TYPES 3
 #define HH_STATE_FIELDS 9
@@ -136,14 +138,11 @@ __global__ void hh_cell_kernel(
     for (int q = 0; q < HH_TYPES; ++q) {
         const size_t iq = HH_TYPES * i + q;
         r[q] = in.recr[iq];
-        const float t_in = sums[q] / fmaxf(cnts[q], 1.0f);
-        float new_r;
-        if (REC == KIN_DESTEXHE)
-            new_r = r[q] + (P.rec[0][iq] * t_in * (1.0f - r[q])
-                            - P.rec[1][iq] * r[q]) * dt;
-        else
-            new_r = t_in;
-        if (cnts[q] > 0.0f && rec_mask[iq]) r[q] = new_r;
+        if (cnts[q] > 0.0f && rec_mask[iq])
+            r[q] = rec_kinetics(
+                REC == KIN_DESTEXHE ? REC_DESTEXHE : REC_APPROXIMATE, r[q],
+                sums[q] / fmaxf(cnts[q], 1.0f), P.rec[0][iq], P.rec[1][iq],
+                dt);
         float c = P.rec[rg][iq] * r[q] * (v - P.rec[rg + 1][iq]);
         if (q == 1) c = c * block;
         reccur[q] = rec_mask[iq] ? c : 0.0f;
@@ -179,16 +178,9 @@ __global__ void hh_cell_kernel(
     const float spk_prev = in.spk[i] ? 1.0f : 0.0f;
     for (int q = 0; q < HH_TYPES; ++q) {
         const size_t iq = HH_TYPES * i + q;
-        const float t_max = P.nt[0][iq];
-        float t;
-        if (NT == KIN_DESTEXHE) {
-            t = t_max / (1.0f + kernel_exp(-(v_new - P.nt[1][iq])
-                                           / P.nt[2][iq]));
-        } else {
-            const float t0 = in.ntt[iq];
-            t = t0 + dt * -P.nt[1][iq] * t0 + spk_prev * t_max;
-            t = fminf(fmaxf(t, 0.0f), t_max);
-        }
+        const float t = nt_release(
+            NT == KIN_DESTEXHE ? NT_DESTEXHE : NT_APPROXIMATE, in.ntt[iq],
+            v_new, spk_prev, P.nt[0][iq], P.nt[1][iq], opt(P.nt[2], iq), dt);
         out.ntt[iq] = nt_mask[iq] ? t : 0.0f;
         out.recr[iq] = r[q];
         if (last) cur.rec[iq] = reccur[q];

@@ -45,8 +45,29 @@
 // about 120 bytes per cell and step for a radius-2 lattice and 16 bytes
 // per cell and tap for a connection (computed from the shapes, not
 // measured).  Later work: one fused launch or a CUDA graph per call.
+//
+// The chemical arm (the chemical form of _make_kernel, pallas_reward.py
+// :653-832 and :1012-1019): net_chem_cell_kernel takes step 1's place for
+// a chemical network.  Per cell and neurotransmitter type q it gathers
+// sums_q = sum_o w_o * (t_q * m_q)[r+dr, c+dc] and cnt_q = sum_o emask_o *
+// m_q[r+dr, c+dc] from the previous step's concentrations t and presence
+// masks m, re-expanded as (sums / max(cnt, 1)) * max(cnt, 1) * (cnt > 0),
+// adds each incoming one-to-one connection's (w * t) * m and m where its
+// mask holds, and takes t_in = sums / max(cnts, 1), valid = cnts > 0;
+// then the receptor kinetics on valid, inserted slots, the Ionotropic or
+// DopaGluGABA currents at the pre-update v (chem_common.cuh), v_pre = v +
+// dv - sum(I) * (dt / c_m), and the release from v_pre and the previous
+// step's spike flag.  Families and kinetics are ids uniform over a launch
+// (one instantiation per model); the electrical input is an argument too.
+// Concentrations are double-buffered like v (neighbours read them); the
+// gating values and modifiers, which only their own cell reads, and the
+// spike flags are updated in place.  net_train_kernel releases a train's
+// neurotransmitter after its new spike.  Per cell and step a radius-2
+// DopaGluGABA lattice moves about 300 bytes (the (N, 3) state and
+// parameter fields, 9 parameter planes, the weights and masks), so at
+// 512 x 512 it is memory-bound like the plain form.
 
-#include "plasticity_common.cuh"
+#include "chem_common.cuh"
 
 #define NET_MAX_IN 8
 #define NET_MAX_TAPS 64
@@ -54,10 +75,12 @@
 // descriptions (ops/network_kernels.py NL_I, NL_P, NT_I, NT_P, NC_I, NC_P)
 #define NL_I (8 + 2 * LP_MAX_OFFSETS)
 #define NL_P 32
-#define NT_I 4
+#define NT_I 5
 #define NT_P 10
 #define NC_I 12
 #define NC_P 3
+#define NLC_P 32
+#define NTC_P 8
 
 enum { CONN_ONE2ONE = 0, CONN_RESAMPLE = 1 };
 enum { TRAIN_POISSON = 0, TRAIN_RATE = 1 };
@@ -75,6 +98,8 @@ struct InConn {
     const float* tr_v_rest;
     const float* tr_k;
     const float* tr_dt;
+    const float* pre_ntt;                // chemical source: (N, 3) t, m;
+    const unsigned char* pre_ntm;        // null for a train without NT
 };
 
 struct InConns {
@@ -123,25 +148,15 @@ __global__ void net_count_kernel(const float* __restrict__ in_deg,
     cnt[i] = fmaxf(c, 1.0f);
 }
 
+// Phase A's electrical input of cell (row, col): gap * total / cnt.
 template <int MODEL>
-__global__ void net_cell_kernel(
-    const float* __restrict__ v_in, const float* __restrict__ w_in,
-    const int* __restrict__ lft_in, const float* __restrict__ refr_in,
-    float* __restrict__ v_out, float* __restrict__ w_out,
-    int* __restrict__ lft_out, float* __restrict__ refr_out,
-    unsigned char* __restrict__ spk_out,
-    float* __restrict__ v_pre_out,         // null unless emitting
+__device__ __forceinline__ float electrical_input(
+    const float* __restrict__ v_in, float v,
     const float* __restrict__ weights, const float* __restrict__ cnt,
-    Params P, Stencil st, InConns in, int rows, int cols, int clock)
+    const Params& P, const Stencil& st, const InConns& in, int row, int col,
+    int rows, int cols, size_t i, int clock)
 {
-    const int col = blockIdx.x * blockDim.x + threadIdx.x;
-    const int row = blockIdx.y * blockDim.y + threadIdx.y;
-    if (row >= rows || col >= cols) return;
     const size_t n = (size_t)rows * cols;
-    const size_t i = (size_t)row * cols + col;
-
-    const float v = v_in[i];
-    const float w = w_in[i];
     float acc = 0.0f;
     float wsum = 0.0f;
     for (int o = 0; o < st.n; ++o) {
@@ -178,7 +193,30 @@ __global__ void net_cell_kernel(
         }
         total = total + tacc;
     }
-    const float i_syn = P.p[gap_param<MODEL>()][i] * total / cnt[i];
+    return P.p[gap_param<MODEL>()][i] * total / cnt[i];
+}
+
+template <int MODEL>
+__global__ void net_cell_kernel(
+    const float* __restrict__ v_in, const float* __restrict__ w_in,
+    const int* __restrict__ lft_in, const float* __restrict__ refr_in,
+    float* __restrict__ v_out, float* __restrict__ w_out,
+    int* __restrict__ lft_out, float* __restrict__ refr_out,
+    unsigned char* __restrict__ spk_out,
+    float* __restrict__ v_pre_out,         // null unless emitting
+    const float* __restrict__ weights, const float* __restrict__ cnt,
+    Params P, Stencil st, InConns in, int rows, int cols, int clock)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t i = (size_t)row * cols + col;
+
+    const float v = v_in[i];
+    const float w = w_in[i];
+    const float i_syn = electrical_input<MODEL>(v_in, v, weights, cnt, P, st,
+                                                in, row, col, rows, cols, i,
+                                                clock);
     const bool refractory = MODEL != MODEL_IZHIKEVICH;
     float v_pre, v_new, w_new, refr_new;
     bool spike;
@@ -189,6 +227,167 @@ __global__ void net_cell_kernel(
     if (refractory) refr_out[i] = refr_new;
     lft_out[i] = spike ? clock : lft_in[i];
     spk_out[i] = spike ? 1 : 0;
+    if (v_pre_out) v_pre_out[i] = v_pre;
+}
+
+// One lattice's chemical fields for a step, (N, 3) unless noted
+// (ops/network_kernels.py _chem_pointers).
+struct ChemLat {
+    const float* ntt_in;                 // the previous step's t
+    float* ntt_out;                      // this step's
+    float* recr;                         // gating values, in place
+    float* recr2;                        // DopaGluGABA's second slot
+    float* cur;                          // currents, written on the last step
+    float* inh;                          // (N,) DopaGluGABA modifiers,
+    float* nmda;                         // in place
+    const unsigned char* ntm;
+    const unsigned char* recm;
+    const float* ntp[3];                 // NT_PARAM_KEYS order
+    const float* kin[2];                 // REC_KIN_KEYS order
+    const float* kin2[2];                // of recr2
+    const float* rp[9];                  // DOPA_PLANES (N,), or g, e, mg
+};
+
+struct ChemKinds {
+    int fam, rec, nt, elec;
+};
+
+// Phases A, A', B' and B of one cell of a chemical network (the chemical
+// form of pallas_reward.py _make_kernel, :653-832); Izhikevich and ALIF.
+template <int MODEL>
+__global__ void net_chem_cell_kernel(
+    const float* __restrict__ v_in, const float* __restrict__ w_in,
+    const int* __restrict__ lft_in, const float* __restrict__ refr_in,
+    float* __restrict__ v_out, float* __restrict__ w_out,
+    int* __restrict__ lft_out, float* __restrict__ refr_out,
+    unsigned char* __restrict__ spk,       // the previous step's, then this
+    float* __restrict__ v_pre_out,         // null unless emitting
+    const float* __restrict__ weights, const unsigned char* __restrict__ emask,
+    const float* __restrict__ cnt, Params P, Stencil st, InConns in,
+    ChemLat C, ChemKinds K, int rows, int cols, int clock, int last)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+    const size_t i3 = (size_t)CHEM_TYPES * i;
+
+    const float v = v_in[i];
+    const float w = w_in[i];
+    const float i_syn = K.elec
+        ? electrical_input<MODEL>(v_in, v, weights, cnt, P, st, in, row, col,
+                                  rows, cols, i, clock)
+        : 0.0f;
+
+    // A'. the chemical input per type: the intra sums and counts,
+    // re-expanded, then the incoming connections in plan order
+    float sums[CHEM_TYPES] = {0.0f, 0.0f, 0.0f};
+    float gcnt[CHEM_TYPES] = {0.0f, 0.0f, 0.0f};
+    for (int o = 0; o < st.n; ++o) {
+        const int sr = row + st.dr[o];
+        const int sc = col + st.dc[o];
+        if (sr < 0 || sr >= rows || sc < 0 || sc >= cols) continue;
+        const size_t e = (size_t)o * n + i;
+        const float wo = weights[e];
+        const float em = emask[e] ? 1.0f : 0.0f;
+        const size_t j3 = (size_t)CHEM_TYPES * ((size_t)sr * cols + sc);
+        for (int q = 0; q < CHEM_TYPES; ++q) {
+            const float mq = C.ntm[j3 + q] ? 1.0f : 0.0f;
+            sums[q] = sums[q] + wo * (C.ntt_in[j3 + q] * mq);
+            gcnt[q] = gcnt[q] + em * mq;
+        }
+    }
+    float t_in[CHEM_TYPES];
+    bool upd[CHEM_TYPES];
+    for (int q = 0; q < CHEM_TYPES; ++q) {
+        const float g1 = fmaxf(gcnt[q], 1.0f);
+        float csum = sums[q] / g1 * g1 * (gcnt[q] > 0.0f ? 1.0f : 0.0f);
+        float ccnt = gcnt[q];
+        for (int c = 0; c < in.n; ++c) {
+            const InConn& cn = in.c[c];
+            if (!cn.pre_ntm || !cn.mask[i]) continue;
+            const float m = cn.pre_ntm[i3 + q] ? 1.0f : 0.0f;
+            csum = csum + cn.w[i] * cn.pre_ntt[i3 + q] * m;
+            ccnt = ccnt + m;
+        }
+        t_in[q] = csum / fmaxf(ccnt, 1.0f);
+        upd[q] = ccnt > 0.0f && C.recm[i3 + q];
+    }
+
+    // B'. receptor kinetics, then the currents at the pre-update v
+    const bool izh = MODEL == MODEL_IZHIKEVICH;
+    const float dt = P.p[izh ? izh::dt : alif::dt][i];
+    const float dt_cm = dt / P.p[izh ? izh::c_m : alif::c_m][i];
+    const float ex = kernel_exp(-0.062f * v);
+    float r[CHEM_TYPES], cur[CHEM_TYPES], rec_dv;
+    for (int q = 0; q < CHEM_TYPES; ++q) {
+        r[q] = C.recr[i3 + q];
+        if (upd[q])
+            r[q] = rec_kinetics(K.rec, r[q], t_in[q], opt(C.kin[0], i3 + q),
+                                opt(C.kin[1], i3 + q), dt);
+        C.recr[i3 + q] = r[q];
+    }
+    if (K.fam == FAM_DOPAGLUGABA) {
+        float r2[CHEM_TYPES];
+        for (int q = 0; q < CHEM_TYPES; ++q) {
+            r2[q] = C.recr2[i3 + q];
+            if (upd[q])
+                r2[q] = rec_kinetics(K.rec, r2[q], t_in[q],
+                                     opt(C.kin2[0], i3 + q),
+                                     opt(C.kin2[1], i3 + q), dt);
+            C.recr2[i3 + q] = r2[q];
+        }
+        // DOPA_PLANES: g_ampa, g_nmda, e_ampa, e_nmda, mg, g_gaba, e_gaba,
+        // s_d1, s_d2; the modifiers are the previous step's
+        const float* const* rp = C.rp;
+        const float inh = C.inh[i];
+        const float block = 1.0f / (1.0f + ex * rp[4][i] / 3.57f);
+        float glu = inh * rp[0][i] * r[0] * (v - rp[2][i])
+            + block * inh * rp[1][i] * kernel_pow(r2[0], C.nmda[i])
+            * (v - rp[3][i]);
+        if (!C.recm[i3]) glu = 0.0f;
+        float gaba = rp[5][i] * r[1] * (v - rp[6][i]);
+        if (!C.recm[i3 + 1]) gaba = 0.0f;
+        if (C.recm[i3 + 2]) {
+            C.inh[i] = 1.0f - r2[2] * rp[8][i];
+            C.nmda[i] = 1.0f - r[2] * rp[7][i];
+        }
+        cur[0] = glu;
+        cur[1] = gaba;
+        cur[2] = 0.0f;
+        rec_dv = (glu + gaba) * dt_cm;
+    } else {
+        // g, e, mg per type; the NMDA block at 3.75
+        const float block = 1.0f / (1.0f + ex * C.rp[2][i3 + 1] / 3.75f);
+        for (int q = 0; q < CHEM_TYPES; ++q) {
+            float c = C.rp[0][i3 + q] * r[q] * (v - C.rp[1][i3 + q]);
+            if (q == 1) c = c * block;
+            cur[q] = C.recm[i3 + q] ? c : 0.0f;
+        }
+        rec_dv = (cur[0] + cur[1] + cur[2]) * dt_cm;
+    }
+
+    // B. the model step less rec_dv, then the release from the pre-reset
+    // v and the previous step's spike flag
+    const bool refractory = MODEL != MODEL_IZHIKEVICH;
+    float v_pre, v_new, w_new, refr_new;
+    bool spike;
+    model_step<MODEL>(P.p, i, v, w, refractory ? refr_in[i] : 0.0f, i_syn,
+                      v_pre, v_new, w_new, refr_new, spike, rec_dv);
+    const float spk_prev = spk[i] ? 1.0f : 0.0f;
+    for (int q = 0; q < CHEM_TYPES; ++q) {
+        const float t = nt_release(K.nt, C.ntt_in[i3 + q], v_pre, spk_prev,
+                                   C.ntp[0][i3 + q], opt(C.ntp[1], i3 + q),
+                                   opt(C.ntp[2], i3 + q), dt);
+        C.ntt_out[i3 + q] = C.ntm[i3 + q] ? t : 0.0f;
+        if (last) C.cur[i3 + q] = cur[q];
+    }
+    v_out[i] = v_new;
+    w_out[i] = w_new;
+    if (refractory) refr_out[i] = refr_new;
+    lft_out[i] = spike ? clock : lft_in[i];
+    spk[i] = spike ? 1 : 0;
     if (v_pre_out) v_pre_out[i] = v_pre;
 }
 
@@ -237,11 +436,22 @@ __global__ void net_conn_edge_kernel(
     }
 }
 
+// A train's neurotransmitter release (kind -1: none): (N, 3) t updated in
+// place, its mask and NT_PARAM_KEYS parameters.
+struct TrainNT {
+    int kind;
+    const float* v_th;
+    const float* v_rest;
+    float* ntt;
+    const unsigned char* ntm;
+    const float* p[3];
+};
+
 __global__ void net_train_kernel(
     int kind, int* __restrict__ lft, float* __restrict__ step,
     unsigned char* __restrict__ spk, const float* __restrict__ u,
     const float* __restrict__ chance, const float* __restrict__ rate,
-    const float* __restrict__ dt, int n, int clock)
+    const float* __restrict__ dt, int n, int clock, TrainNT nt)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -255,6 +465,17 @@ __global__ void net_train_kernel(
     }
     if (s) lft[i] = clock;
     spk[i] = s ? 1 : 0;
+    if (nt.kind < 0) return;
+    // released after the new spike, from v_th or v_resting
+    const float v = s ? nt.v_th[i] : nt.v_rest[i];
+    const float sf = s ? 1.0f : 0.0f;
+    for (int q = 0; q < CHEM_TYPES; ++q) {
+        const size_t iq = (size_t)CHEM_TYPES * i + q;
+        const float t = nt_release(nt.kind, nt.ntt[iq], v, sf, nt.p[0][iq],
+                                   opt(nt.p[1], iq), opt(nt.p[2], iq),
+                                   dt[i]);
+        nt.ntt[iq] = nt.ntm[iq] ? t : 0.0f;
+    }
 }
 
 template <int MODEL>
@@ -274,6 +495,49 @@ static cudaError_t launch_net_cell(dim3 grid, dim3 block, cudaStream_t s,
     return cudaGetLastError();
 }
 
+template <int MODEL>
+static cudaError_t launch_net_chem_cell(dim3 grid, dim3 block,
+                                        cudaStream_t s, void* const* in,
+                                        void* const* out, unsigned char* spk,
+                                        float* v_pre, const float* weights,
+                                        const unsigned char* emask,
+                                        const float* cnt, const Params& P,
+                                        const Stencil& st, const InConns& ic,
+                                        const ChemLat& C, const ChemKinds& K,
+                                        int rows, int cols, int clock,
+                                        int last)
+{
+    net_chem_cell_kernel<MODEL><<<grid, block, 0, s>>>(
+        (const float*)in[0], (const float*)in[1], (const int*)in[2],
+        (const float*)in[3], (float*)out[0], (float*)out[1], (int*)out[2],
+        (float*)out[3], spk, v_pre, weights, emask, cnt, P, st, ic, C, K,
+        rows, cols, clock, last);
+    return cudaGetLastError();
+}
+
+// One lattice's chemical fields from its NLC_P pointers (the concentration
+// sets are chosen per step).
+static ChemLat chem_lat(void* const* c)
+{
+    ChemLat C;
+    C.ntt_in = (const float*)c[0];
+    C.ntt_out = (float*)c[1];
+    C.recr = (float*)c[3];
+    C.recr2 = (float*)c[4];
+    C.cur = (float*)c[5];
+    C.inh = (float*)c[6];
+    C.nmda = (float*)c[7];
+    C.ntm = (const unsigned char*)c[8];
+    C.recm = (const unsigned char*)c[9];
+    for (int q = 0; q < 3; ++q) C.ntp[q] = (const float*)c[10 + q];
+    for (int q = 0; q < 2; ++q) {
+        C.kin[q] = (const float*)c[13 + q];
+        C.kin2[q] = (const float*)c[15 + q];
+    }
+    for (int q = 0; q < 9; ++q) C.rp[q] = (const float*)c[17 + q];
+    return C;
+}
+
 static dim3 grid_of(dim3 block, int rows, int cols)
 {
     return dim3((cols + block.x - 1) / block.x,
@@ -282,12 +546,13 @@ static dim3 grid_of(dim3 block, int rows, int cols)
 
 extern "C" {
 
-// NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS and the six strides, in order.
+// NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS and the eight strides, in
+// order.
 void net_limits(int* out)
 {
-    const int v[9] = {NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS, NL_I, NL_P,
-                      NT_I, NT_P, NC_I, NC_P};
-    for (int q = 0; q < 9; ++q) out[q] = v[q];
+    const int v[11] = {NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS, NL_I, NL_P,
+                       NT_I, NT_P, NC_I, NC_P, NLC_P, NTC_P};
+    for (int q = 0; q < 11; ++q) out[q] = v[q];
 }
 
 // Runs n_steps network steps from clock0 on `stream`.  Flat descriptions
@@ -301,7 +566,8 @@ void net_limits(int* out)
 //     then n_params parameter planes in MODEL_PARAM_KEYS order.  refr and
 //     its buffers are null for Izhikevich; weights and mask for n_off 0.
 //     Step k writes set k % 2, so the result is in set (n_steps - 1) % 2.
-//   train ints (NT_I): kind, refractoriness, rows, cols;
+//   train ints (NT_I): kind, refractoriness, rows, cols, NT kinetics
+//     (-1: the train releases no neurotransmitter);
 //   train pointers (NT_P): lft (updated in place), v_th, v_resting,
 //     refractoriness k, dt, chance, uniforms (n_steps planes), rate, step
 //     (updated in place), spikes (bytes); chance and uniforms Poisson only,
@@ -310,13 +576,24 @@ void net_limits(int* out)
 //     post_plastic, R1, C1, fr, fc, n_taps (1 for one-to-one), 0;
 //   connection pointers (NC_P): w (updated in place when an endpoint is
 //     plastic), mask (bytes), taps (device (dr, dc) ints; resample only).
-// rule = {a_plus, a_minus, tau_plus, tau_minus, dt}.  Returns the first
-// CUDA error, 0 if none.
+// rule = {a_plus, a_minus, tau_plus, tau_minus, dt}.  The chemical arm:
+//   chem_i = {family (-1: none), receptor kinetics, NT kinetics,
+//     electrical}; the spikes start as the previous step's;
+//   lattice chemical pointers (NLC_P, ops/network_kernels.py
+//     _chem_pointers): t in, t sets 0 and 1, r, r2, currents, inh and
+//     nmda modifiers, nt$mask, rec$mask, NT parameters [3], kinetics
+//     parameters [2], r2 kinetics parameters [2], current parameters [9];
+//   train chemical pointers (NTC_P): t (updated in place), nt$mask, NT
+//     parameters [3].
+// Returns the first CUDA error, 0 if none.
 int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
               int n_tr, const int* tr_i, void* const* tr_p,
               int n_cn, const int* cn_i, void* const* cn_p,
-              const float* rule, int clock0, int n_steps, void* stream)
+              const float* rule, int clock0, int n_steps, const int* chem_i,
+              void* const* lat_c, void* const* tr_c, void* stream)
 {
+    const ChemKinds K = {chem_i[0], chem_i[1], chem_i[2], chem_i[3]};
+    const bool chem = K.fam >= 0;
     static const int n_params_of[3] = {9, 13, 10};
     if (n_lat <= 0 || n_tr < 0 || n_cn < 0 || n_steps <= 0)
         return (int)cudaErrorInvalidValue;
@@ -328,6 +605,22 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
             || (li[0] != MODEL_IZHIKEVICH && !lp[3])
             || (li[4] > 0 && (!lp[16] || !lp[17])))
             return (int)cudaErrorInvalidValue;
+        void* const* lc = lat_c + NLC_P * k;
+        if (chem && (li[0] == MODEL_LIF || !lc[0] || !lc[1] || !lc[2]
+                     || !lc[3] || !lc[5] || !lc[8] || !lc[9] || !lc[10]
+                     || (K.fam == FAM_DOPAGLUGABA
+                         && (!lc[4] || !lc[6] || !lc[7]))))
+            return (int)cudaErrorInvalidValue;
+    }
+    if (chem && (K.fam > FAM_DOPAGLUGABA || K.rec < 0
+                 || K.rec > REC_EXP_DECAY || K.nt < 0
+                 || K.nt > NT_DESTEXHE))
+        return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < n_tr; ++j) {
+        const int nt = tr_i[NT_I * j + 4];
+        if (nt >= 0 && (!chem || nt > NT_DESTEXHE || !tr_c[NTC_P * j]
+                        || !tr_c[NTC_P * j + 1] || !tr_c[NTC_P * j + 2]))
+            return (int)cudaErrorInvalidValue;
     }
     int n_in[256] = {0};
     if (n_lat > 256) return (int)cudaErrorInvalidValue;
@@ -338,8 +631,8 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
             || ci[3] < 0 || ci[3] >= n_lat || (ci[1] && ci[4])
             || ++n_in[ci[3]] > NET_MAX_IN
             || (ci[0] == CONN_RESAMPLE
-                && (ci[10] <= 0 || ci[10] > NET_MAX_TAPS || !ci[8] || !ci[9]
-                    || !cn_p[NC_P * q + 2])))
+                && (chem || ci[10] <= 0 || ci[10] > NET_MAX_TAPS || !ci[8]
+                    || !ci[9] || !cn_p[NC_P * q + 2])))
             return (int)cudaErrorInvalidValue;
     }
     const float* rf = rule;
@@ -387,6 +680,14 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
         c.refractoriness = 0;
         c.tr_lft = nullptr;
         c.tr_v_th = c.tr_v_rest = c.tr_k = c.tr_dt = nullptr;
+        c.pre_ntt = nullptr;
+        c.pre_ntm = nullptr;
+        if (chem && ci[1] && tr_i[NT_I * ci[2] + 4] >= 0) {
+            c.pre_ntt = (const float*)tr_c[NTC_P * ci[2]];
+            c.pre_ntm = (const unsigned char*)tr_c[NTC_P * ci[2] + 1];
+        } else if (chem && !ci[1]) {
+            c.pre_ntm = (const unsigned char*)lat_c[NLC_P * ci[2] + 8];
+        }
         if (ci[1]) {
             const int* ti = tr_i + NT_I * ci[2];
             void* const* tp = tr_p + NT_P * ci[2];
@@ -421,6 +722,11 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
                 void* const* pp = lat_p + NL_P * pre;
                 ic[l].c[q].pre_v = (const float*)
                     (k == 0 ? pp[0] : pp[4 + 4 * ((k - 1) & 1)]);
+                if (chem) {
+                    void* const* pc = lat_c + NLC_P * pre;
+                    ic[l].c[q].pre_ntt = (const float*)
+                        (k == 0 ? pc[0] : pc[1 + ((k - 1) & 1)]);
+                }
             }
             float* v_pre = lp[13] ? (float*)lp[13]
                 + (size_t)k * li[2] * li[3] : nullptr;
@@ -428,6 +734,25 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
             const float* weights = (const float*)lp[16];
             const float* cnt = (const float*)lp[15];
             unsigned char* spk = (unsigned char*)lp[12];
+            if (chem) {
+                void* const* lc = lat_c + NLC_P * l;
+                ChemLat C = chem_lat(lc);
+                C.ntt_in = (const float*)(k == 0 ? lc[0]
+                                                 : lc[1 + ((k - 1) & 1)]);
+                C.ntt_out = (float*)lc[1 + (k & 1)];
+                const unsigned char* emask = (const unsigned char*)lp[17];
+                const int last = k == n_steps - 1;
+                err = li[0] == MODEL_IZHIKEVICH
+                    ? launch_net_chem_cell<MODEL_IZHIKEVICH>(
+                          grid, block, s, in, out, spk, v_pre, weights,
+                          emask, cnt, P[l], st[l], ic[l], C, K, li[2], li[3],
+                          clock, last)
+                    : launch_net_chem_cell<MODEL_ALIF>(
+                          grid, block, s, in, out, spk, v_pre, weights,
+                          emask, cnt, P[l], st[l], ic[l], C, K, li[2], li[3],
+                          clock, last);
+                continue;
+            }
             switch (li[0]) {
             case MODEL_IZHIKEVICH:
                 err = launch_net_cell<MODEL_IZHIKEVICH>(
@@ -487,10 +812,18 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
             const int n = ti[2] * ti[3];
             const float* u = tp[6] ? (const float*)tp[6] + (size_t)k * n
                                    : nullptr;
+            TrainNT nt = {ti[4], (const float*)tp[1], (const float*)tp[2],
+                          nullptr, nullptr, {nullptr, nullptr, nullptr}};
+            if (ti[4] >= 0) {
+                void* const* tc = tr_c + NTC_P * j;
+                nt.ntt = (float*)tc[0];
+                nt.ntm = (const unsigned char*)tc[1];
+                for (int q = 0; q < 3; ++q) nt.p[q] = (const float*)tc[2 + q];
+            }
             net_train_kernel<<<(n + 255) / 256, 256, 0, s>>>(
                 ti[0], (int*)tp[0], (float*)tp[8], (unsigned char*)tp[9], u,
                 (const float*)tp[5], (const float*)tp[7],
-                (const float*)tp[4], n, clock);
+                (const float*)tp[4], n, clock, nt);
             err = cudaGetLastError();
         }
     }

@@ -51,13 +51,14 @@ __device__ __forceinline__ int gap_param()
 }
 
 // Phase B of cell i (pallas_reward.py _make_kernel): the Euler step of v
-// (and w) from the synaptic input i_syn, then the spike handler.  `refr`
-// is the refractory count (ALIF, LIF; ignored for Izhikevich).
+// (and w) from the synaptic input i_syn, less the receptors' rec_dv
+// (chemical networks; v + dv - 0 is v + dv), then the spike handler.
+// `refr` is the refractory count (ALIF, LIF; ignored for Izhikevich).
 template <int MODEL>
 __device__ __forceinline__ void model_step(
     const float* const* p, size_t i, float v, float w, float refr,
     float i_syn, float& v_pre, float& v_new, float& w_new, float& refr_new,
-    bool& spike)
+    bool& spike, float rec_dv = 0.0f)
 {
     if (MODEL == MODEL_IZHIKEVICH) {
         const float dt = p[izh::dt][i];
@@ -66,7 +67,7 @@ __device__ __forceinline__ void model_step(
         const float dv = (0.04f * v * v + 5.0f * v + 140.0f - w + i_syn)
             * dt_cm;
         const float dw = (p[izh::a][i] * (p[izh::b][i] * v - w)) * dt_tau;
-        v_pre = v + dv;
+        v_pre = v + dv - rec_dv;
         const float w_pre = w + dw;
         spike = v_pre >= p[izh::v_th][i];
         v_new = spike ? p[izh::c][i] : v_pre;
@@ -94,7 +95,7 @@ __device__ __forceinline__ void model_step(
             dv = (leak + drive) * dt_tau;
             w_new = w;
         }
-        v_pre = v + dv;
+        v_pre = v + dv - rec_dv;
         const bool in_ref = refr > 0.0f;
         spike = !in_ref && v_pre >= p[alif::v_th][i];   // v_th is plane 0
         v_new = (in_ref || spike) ? p[alif::v_reset][i] : v_pre;

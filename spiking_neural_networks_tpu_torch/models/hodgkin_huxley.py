@@ -28,8 +28,10 @@ class HodgkinHuxley(NeuronModel):
     )
     BOOL_FIELDS = dict(was_increasing=False)
 
-    def __init__(self, nt_kinetics="destexhe", rec_kinetics="destexhe"):
-        super().__init__(nt_kinetics=nt_kinetics, rec_kinetics=rec_kinetics)
+    def __init__(self, nt_kinetics="destexhe", rec_kinetics="destexhe",
+                 receptors=None):
+        super().__init__(nt_kinetics=nt_kinetics, rec_kinetics=rec_kinetics,
+                         receptors=receptors)
 
     def step(self, s, i, t_input=None, t_valid=None, skip_nt=False):
         s = dict(s)

@@ -39,6 +39,7 @@ import torch
 
 from ..core.plasticity import kernel_exp, rule_floats, rule_tensors, stdp_delta
 from ..models.base import NEVER
+from .kinetics import nt_release, rec_kinetics
 from .reward_kernels import shifted
 
 # per-neuron parameter planes, in the kernel's order (the TPU kernel's)
@@ -250,6 +251,7 @@ def hh_steps_reference(state, weights, mask, in_deg, offsets, clock0,
         plane(k) for k in PARAM_ORDER)
     ntp = {k: types(k) for k in nt_param_keys(nt_kind)}
     recp = {k: types(k) for k in rec_param_keys(rec_kind)}
+    kin_keys = rec_param_keys(rec_kind)[:-3]      # the gating kinetics
     ntm = types("nt$mask")
     ntm_f = [m.to(f32) for m in ntm]
     recm = types("rec$mask")
@@ -287,12 +289,8 @@ def hh_steps_reference(state, weights, mask, in_deg, offsets, clock0,
             valid.append(cnts > 0.0)
         # 3. receptor kinetics and currents at the pre-update v
         for q in range(N_TYPES):
-            if rec_kind == "destexhe":
-                new_r = recr[q] + (recp["rec$alpha"][q] * t_in[q]
-                                   * (1.0 - recr[q])
-                                   - recp["rec$beta"][q] * recr[q]) * dt
-            else:
-                new_r = t_in[q]
+            new_r = rec_kinetics(rec_kind, recr[q], t_in[q],
+                                 [recp[k][q] for k in kin_keys], dt)
             recr[q] = torch.where(valid[q] & recm[q], new_r, recr[q])
         block = 1.0 / (1.0 + kernel_exp(-0.062 * v) * recp["rec$mg"][1]
                        / c375)
@@ -322,19 +320,11 @@ def hh_steps_reference(state, weights, mask, in_deg, offsets, clock0,
         i_kl = kl_g * (v - kl_e)
         v_new = v + dt * (i_elec - (i_na + i_k + i_kl)) / c_m - i_ligand
         # 5. neurotransmitter release, from the previous step's spikes
-        if nt_kind == "destexhe":
-            new_t = [ntp["nt$t_max"][q] / (1.0 + kernel_exp(
-                -(v_new - ntp["nt$v_p"][q]) / ntp["nt$k_p"][q]))
-                for q in range(N_TYPES)]
-        else:
-            spk_f = spk.to(f32)
-            new_t = []
-            for q in range(N_TYPES):
-                t_max = ntp["nt$t_max"][q]
-                t = ntt[q] + dt * -ntp["nt$clearance_constant"][q] * ntt[q] \
-                    + spk_f * t_max
-                new_t.append(torch.minimum(torch.clamp(t, min=0.0), t_max))
-        ntt = [torch.where(ntm[q], new_t[q], 0.0) for q in range(N_TYPES)]
+        spk_f = spk.to(f32)
+        ntt = [torch.where(ntm[q], nt_release(
+            nt_kind, ntt[q], v_new, spk_f,
+            [ntp[k][q] for k in nt_param_keys(nt_kind)], dt), 0.0)
+            for q in range(N_TYPES)]
         # 6. peak-detection spikes
         inc = v < v_new
         spk = (v_new > v_th) & wasinc & torch.logical_not(inc)

@@ -147,3 +147,50 @@ def update_receptor_kinetics(kind, state, t_input, t_valid):
     new_r = REC_KINETICS[kind](r, t_input, state["dt"], state)
     update = torch.logical_and(t_valid, state["rec$mask"])
     return torch.where(update, new_r, r)
+
+
+# ---------------------------------------------------------------------------
+# The kernel routes' kinetics (the plain twins of csrc/chem_common.cuh's
+# rec_kinetics and nt_release): per-type planes, every exp `kernel_exp`
+# ---------------------------------------------------------------------------
+
+# per-(neuron, type) kinetics parameters, in the kernels' order
+NT_PARAM_KEYS = {"approximate": ("nt$t_max", "nt$clearance_constant"),
+                 "bounded": ("nt$t_max", "nt$clearance_constant"),
+                 "discrete": ("nt$t_max",),
+                 "exponential_decay": ("nt$t_max", "nt$decay_constant"),
+                 "destexhe": ("nt$t_max", "nt$v_p", "nt$k_p")}
+REC_KIN_KEYS = {"approximate": (), "bounded": ("r_max",),
+                "destexhe": ("alpha", "beta"),
+                "exponential_decay": ("r_max", "decay_constant")}
+
+
+def rec_kinetics(kind, r, t, p, dt):
+    """A receptor slot's gating value after input ``t`` (the kernels'
+    ``rec_kinetics``), ``p`` the kinetics' parameters in `REC_KIN_KEYS`
+    order."""
+    # imported here: core.plasticity imports models.base, which imports
+    # this module
+    from ..core.plasticity import kernel_exp
+    if kind == "approximate":
+        return t
+    if kind == "bounded":
+        return _clip(t, 0.0, p[0])
+    if kind == "destexhe":
+        return r + (p[0] * t * (1.0 - r) - p[1] * r) * dt
+    return _clip(r + -r * kernel_exp(dt / -p[1]) + t, 0.0, p[0])
+
+
+def nt_release(kind, t0, v, spk, p, dt):
+    """A neurotransmitter slot's concentration after a step (the kernels'
+    ``nt_release``) from the voltage ``v`` and the spike flag ``spk``
+    (float), ``p`` the kinetics' parameters in `NT_PARAM_KEYS` order."""
+    from ..core.plasticity import kernel_exp
+    if kind in ("approximate", "bounded"):
+        return _clip(t0 + dt * -p[1] * t0 + spk * p[0], 0.0, p[0])
+    if kind == "discrete":
+        return p[0] * spk
+    if kind == "exponential_decay":
+        return _clip(t0 + -t0 * kernel_exp(dt / -p[1]) + spk * p[0], 0.0,
+                     p[0])
+    return p[0] / (1.0 + kernel_exp(-(v - p[1]) / p[2]))

@@ -24,8 +24,32 @@ Each step runs, in this order,
 5. the trains step: Poisson ``u <= chance`` from the call's uniforms,
    Rate ``step + dt >= rate``; ``lft = clock0 + k`` on a spike.
 
+The chemical arm (``NetSpec.chem``: a chemical network of Izhikevich or
+ALIF lattices, all of one model, with Ionotropic or DopaGluGABA receptors,
+any of the JAX kernel's receptor and neurotransmitter kinetics, one-to-one
+connections; electrical synapses on or off) adds, per step and lattice,
+
+A'. per neurotransmitter type q, from the previous step's concentrations
+    ``t`` and presence masks ``m``: the intra sums ``sum_o w_o (t m)_q``
+    and counts ``sum_o mask_o m_q`` at the neighbours, re-expanded as
+    ``(sums / max(cnt, 1)) * max(cnt, 1) * (cnt > 0)``, plus each incoming
+    connection's ``(w t) m`` and ``m`` where its mask holds (trains with
+    neurotransmitters only); ``t_in = sums / max(cnts, 1)``, valid where
+    ``cnts > 0``;
+B'. the receptor kinetics on valid, inserted slots and the currents at
+    the pre-update v (Ionotropic: ``g r (v - e)``, the NMDA block at 3.75;
+    DopaGluGABA: the glutamate and GABA currents with the block at 3.57,
+    ``nmda_r ** nmda_mod`` by `kernel_pow`, from the previous step's
+    modifiers, which the dopamine slot then rewrites), ``v_pre = v + dv -
+    sum(I) * (dt / c_m)``, and the neurotransmitter release from
+    ``v_pre`` and the previous step's spike flag;
+
+and each train with a neurotransmitter inserted releases after its new
+spike, from ``v_th`` or ``v_resting``.
+
 On a GPU these are hand-written CUDA kernels, ``csrc/network_plasticity.cu``
-(with the intra STDP kernel of ``csrc/lattice_plasticity.cu``);
+(with the intra STDP kernel of ``csrc/lattice_plasticity.cu`` and the
+chemical device code of ``csrc/chem_common.cuh``);
 `network_steps` launches them for CUDA tensors and runs the plain twin
 `network_steps_reference` for CPU tensors.  A build or launch failure
 raises; nothing falls back.  The Poisson uniforms of a call are drawn on
@@ -41,12 +65,14 @@ from typing import NamedTuple
 import torch
 
 from ..core.history import rebuilt_readouts
-from ..core.plasticity import (STDP, kernel_exp, rule_floats, rule_tensors,
-                               stdp_delta)
+from ..core.plasticity import (STDP, kernel_exp, kernel_pow, rule_floats,
+                               rule_tensors, stdp_delta)
 from ..core.structured import _resample_planes
 from ..models.base import NEVER
 from ..models.spike_train import PoissonSpikeTrain, RateSpikeTrain
 from .graph import SparseGraph, StencilGraph
+from .kinetics import NT_PARAM_KEYS, REC_KIN_KEYS, nt_release, rec_kinetics
+from .receptors import DopaGluGABAReceptors, IonotropicReceptors
 from .reward_kernels import (MAX_OFFSETS, MODEL_PARAM_KEYS, MODELS,
                              REFRACTORY_MODELS, STDP_KEYS, model_kind,
                              model_step, shifted)
@@ -56,14 +82,27 @@ MAX_TAPS = 64             # NET_MAX_TAPS (= core.structured.ResampleBlock)
 STEPS_PER_LAUNCH = 16     # K of the runner's kernel calls
 TRAIN_KINDS = ("poisson", "rate")
 REFRACTORINESS = ("delta_dirac", "exponential_decay")
+# the chemical arm's families and kinetics, in the CUDA source's id order
+CHEM_FAMILIES = ("ionotropic", "dopaglugaba")
+NT_KINDS = ("approximate", "bounded", "discrete", "exponential_decay",
+            "destexhe")
+REC_KINDS = ("approximate", "bounded", "destexhe", "exponential_decay")
+# DopaGluGABA's per-neuron (N,) current and modulation planes
+DOPA_PLANES = ("rec$g_ampa", "rec$g_nmda", "rec$e_ampa", "rec$e_nmda",
+               "rec$mg", "rec$g_gaba", "rec$e_gaba", "rec$s_d1", "rec$s_d2")
+N_TYPES = 3
 # fixed strides of the flat per-lattice/train/connection descriptions the
-# C entry point reads (the NL_/NT_/NC_ defines of the CUDA source)
+# C entry point reads (the NL_/NT_/NC_/NLC_/NTC_ defines of the CUDA
+# source)
 NL_I, NL_P = 8 + 2 * MAX_OFFSETS, 32
-NT_I, NT_P = 4, 10
+NT_I, NT_P = 5, 10
 NC_I, NC_P = 12, 3
+NLC_P, NTC_P = 32, 8
 
-# Calls of `network_steps` that launched the CUDA kernels.
+# Calls of `network_steps` that launched the CUDA kernels, and of those
+# the calls of a chemical network.
 LAUNCHES = 0
+CHEM_LAUNCHES = 0
 
 
 class NetLat(NamedTuple):
@@ -78,6 +117,8 @@ class NetTrain(NamedTuple):
     kind: str                  # 'poisson' | 'rate'
     refractoriness: str        # 'delta_dirac' | 'exponential_decay'
     shape: tuple
+    nt: str = ""               # '' or the NT kinetics the train releases
+                               # with (chemical networks)
 
 
 class NetConn(NamedTuple):
@@ -99,6 +140,36 @@ class NetSpec(NamedTuple):
     trains: tuple              # NetTrain, ...
     conns: tuple               # NetConn, ... (empty connections dropped)
     keep: tuple                # plan index of each conn
+    chem: tuple = ()           # () or (family, rec kinetics, nt kinetics)
+    electrical: bool = True    # electrical synapses (always, without chem)
+
+
+def chem_keys(chem):
+    """The state keys a lattice's chemical arm reads, in the kernel's
+    order."""
+    fam, rec, nt = chem
+    keys = ("nt$t", "nt$mask") + NT_PARAM_KEYS[nt] + ("rec$r", "rec$mask") \
+        + tuple("rec$" + k for k in REC_KIN_KEYS[rec])
+    if fam == "dopaglugaba":
+        return keys + ("rec$r2",) \
+            + tuple("rec$r2$" + k for k in REC_KIN_KEYS[rec]) \
+            + ("rec$inh_modifier", "rec$nmda_modifier") + DOPA_PLANES
+    return keys + ("rec$g", "rec$e", "rec$mg")
+
+
+def chem_out_keys(chem):
+    """The state keys a lattice's chemical arm writes."""
+    if chem[0] == "dopaglugaba":
+        return ("nt$t", "rec$r", "rec$current", "rec$r2",
+                "rec$inh_modifier", "rec$nmda_modifier")
+    return ("nt$t", "rec$r", "rec$current")
+
+
+def _chem_shape(chem, key, n):
+    """An (N,) plane or an (N, 3) per-type array."""
+    planes = DOPA_PLANES + ("rec$inh_modifier", "rec$nmda_modifier")
+    return (n,) if chem[0] == "dopaglugaba" and key in planes \
+        else (n, N_TYPES)
 
 
 # ---------------------------------------------------------------------------
@@ -126,26 +197,50 @@ def _train_spec(st):
     return NetTrain(kind, st.model.refractoriness, (st.rows, st.cols))
 
 
-def plain_network_spec(net, plan, skip_nt):
+def _chem_spec(model):
+    """(family, receptor kinetics, NT kinetics) of a model whose receptor
+    system and kinetics the chemical arm computes, else None."""
+    fam = {IonotropicReceptors: "ionotropic",
+           DopaGluGABAReceptors: "dopaglugaba"}.get(type(model.receptors))
+    rec, nt = model.receptors.kinetics, model.nt_kinetics
+    if fam is None or rec not in REC_KINDS or nt not in NT_KINDS:
+        return None
+    return (fam, rec, nt)
+
+
+def plain_network_spec(net, plan, skip_nt, st_nt=()):
     """The kernel spec of a plain `LatticeNetwork` and its structured
-    ``plan``, or None outside the kernels' class: electrical synapses
-    only, no neurotransmitter inserted (``skip_nt``), Izhikevich, ALIF or
-    LIF lattices on stencil (<= 64 offsets) or edgeless graphs, Poisson or
+    ``plan``, or None outside the kernels' class: Izhikevich, ALIF or LIF
+    lattices on stencil (<= 64 offsets) or edgeless graphs, Poisson or
     Rate trains, one-to-one and resample connections (<= 64 taps, <= 8
     into any lattice), STDP, and lattice grid histories on Izhikevich
-    lattices only (rebuilt from the emitted pre-reset v).  The TPU gate's
-    128-column and VMEM limits are Mosaic limits and are not copied."""
-    if not net.electrical_synapse or net.chemical_synapse or not skip_nt:
-        return None
+    lattices only (rebuilt from the emitted pre-reset v); with electrical
+    synapses only, no neurotransmitter may be inserted (``skip_nt``).  A
+    chemical network takes the chemical arm when every lattice has one
+    model with a `_chem_spec` and a c_m (so no LIF), and its connections
+    are one-to-one (resampled chemical gathers and dense blocks stay on
+    the plain route, as in the JAX gate); the trains flagged in ``st_nt``
+    release neurotransmitter with the first train's kinetics.  The TPU
+    gate's 128-column and VMEM limits are Mosaic limits and are not
+    copied."""
     lattices = [net.lattices[i] for i in plan["lat_ids"]]
     sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
     if not lattices or any(s.update_grid_history for s in sts):
+        return None
+    chem = ()
+    if net.chemical_synapse:
+        model0 = lattices[0].model
+        chem = _chem_spec(model0)
+        if chem is None or any(l.model != model0 for l in lattices):
+            return None
+    elif not (net.electrical_synapse and skip_nt):
         return None
     lats = []
     for lat in lattices:
         mk = model_kind(lat.model)
         offsets = _graph_offsets(lat)
-        if mk is None or offsets is None or lat.update_graph_history:
+        if mk is None or offsets is None or lat.update_graph_history \
+                or (chem and "c_m" not in MODEL_PARAM_KEYS[mk]):
             return None
         emit = bool(lat.update_grid_history)
         if emit and mk != "izhikevich":
@@ -158,6 +253,12 @@ def plain_network_spec(net, plan, skip_nt):
     trains = [_train_spec(s) for s in sts]
     if any(ts is None for ts in trains):
         return None
+    if chem:
+        nt = sts[0].model.nt_kinetics if sts else ""
+        if any(st_nt) and nt not in NT_KINDS:
+            return None
+        trains = [ts._replace(nt=nt) if j < len(st_nt) and st_nt[j] else ts
+                  for j, ts in enumerate(trains)]
     lat_index = {i: k for k, i in enumerate(plan["lat_ids"])}
     st_index = {i: k for k, i in enumerate(plan["st_ids"])}
     conns, keep = [], []
@@ -173,7 +274,8 @@ def plain_network_spec(net, plan, skip_nt):
             if pre_shape != lats[post].shape:
                 return None
             op = ("one2one",)
-        elif isinstance(kind, tuple) and len(kind[7]) <= MAX_TAPS:
+        elif isinstance(kind, tuple) and len(kind[7]) <= MAX_TAPS \
+                and not chem:
             op = kind
         else:
             return None         # dense and padded blocks: plain route
@@ -184,7 +286,8 @@ def plain_network_spec(net, plan, skip_nt):
     if any(sum(c.post == k for c in conns) > MAX_IN
            for k in range(len(lats))):
         return None
-    return NetSpec(tuple(lats), tuple(trains), tuple(conns), tuple(keep))
+    return NetSpec(tuple(lats), tuple(trains), tuple(conns), tuple(keep),
+                   chem, bool(net.electrical_synapse))
 
 
 # ---------------------------------------------------------------------------
@@ -281,11 +384,61 @@ def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
     if max(n_in) > MAX_IN:
         raise ValueError(f"the kernel takes at most {MAX_IN} connections "
                          f"into a lattice, got {max(n_in)}")
+    if spec.chem:
+        _check_chem(spec, lats, trains, dev)
+    elif any(ts.nt for ts in spec.trains) or not spec.electrical:
+        raise ValueError("trains release neurotransmitter, and electrical "
+                         "synapses are off, only in a chemical spec")
+
+
+def _check_chem(spec, lats, trains, dev):
+    fam, rec, nt = spec.chem
+    if fam not in CHEM_FAMILIES or rec not in REC_KINDS \
+            or nt not in NT_KINDS:
+        raise ValueError(f"no chemical arm for {spec.chem}")
+    for k, (ls, d) in enumerate(zip(spec.lattices, lats)):
+        if "c_m" not in MODEL_PARAM_KEYS[ls.model]:
+            raise ValueError(f"the chemical arm needs c_m, which model "
+                             f"{ls.model!r} has not")
+        n = ls.shape[0] * ls.shape[1]
+        _need(f"lattice {k} spikes", d["spikes"], torch.bool, ls.shape, dev)
+        for key in chem_keys(spec.chem):
+            _need(f"lattice {k} {key}", d["chem"].get(key),
+                  torch.bool if key.endswith("mask") else torch.float32,
+                  _chem_shape(spec.chem, key, n), dev)
+    for j, (ts, d) in enumerate(zip(spec.trains, trains)):
+        if not ts.nt:
+            continue
+        if ts.nt not in NT_KINDS:
+            raise ValueError(f"no release for NT kinetics {ts.nt!r}")
+        n = ts.shape[0] * ts.shape[1]
+        for key in ("nt$t", "nt$mask") + NT_PARAM_KEYS[ts.nt]:
+            _need(f"train {j} {key}", d["chem"].get(key),
+                  torch.bool if key == "nt$mask" else torch.float32,
+                  (n, N_TYPES), dev)
+    for ci, cs in enumerate(spec.conns):
+        if cs.op[0] != "one2one":
+            raise ValueError(f"connection {ci}: the chemical arm takes "
+                             f"one-to-one connections only")
+
+
+def _chem_outputs(spec, d, dev):
+    """A lattice's chemical buffers: double-buffered concentrations, the
+    last step's currents, and copies of the fields the steps update in
+    place (each cell only its own)."""
+    ntt = d["chem"]["nt$t"]
+    out = dict(ntt=torch.empty((2, *ntt.shape), dtype=torch.float32,
+                               device=dev),
+               cur=torch.empty_like(ntt))
+    out.update((k, d["chem"][k].clone()) for k in chem_out_keys(spec.chem)
+               if k not in ("nt$t", "rec$current"))
+    return out
 
 
 def _outputs(spec, lats, trains, conns, n_steps, dev):
     """Buffers of a kernel call: double-buffered lattice state, spike
-    planes, emits, and copies of what the steps update in place."""
+    planes, emits, and copies of what the steps update in place.  A
+    chemical spec's spike planes start as the previous step's."""
     outs = []
     for ls, d in zip(spec.lattices, lats):
         shp = ls.shape
@@ -296,15 +449,18 @@ def _outputs(spec, lats, trains, conns, n_steps, dev):
                  torch.empty((2, *shp), dtype=torch.int32, device=dev),
                  torch.empty((2, *shp), dtype=torch.float32, device=dev)
                  if refractory else None],
-            spikes=torch.empty(shp, dtype=torch.bool, device=dev),
+            spikes=d["spikes"].clone() if spec.chem
+            else torch.empty(shp, dtype=torch.bool, device=dev),
             cnt=torch.empty(shp, dtype=torch.float32, device=dev),
             v_pre=torch.empty((n_steps, *shp), dtype=torch.float32,
                               device=dev) if ls.emit else None,
             weights=d["weights"].clone() if ls.kind == "plastic"
-            and ls.offsets else d["weights"]))
+            and ls.offsets else d["weights"],
+            chem=_chem_outputs(spec, d, dev) if spec.chem else None))
     touts = [dict(lft=d["lft"].clone(),
                   step=d["step"].clone() if ts.kind == "rate" else None,
-                  spikes=torch.empty(ts.shape, dtype=torch.bool, device=dev))
+                  spikes=torch.empty(ts.shape, dtype=torch.bool, device=dev),
+                  ntt=d["chem"]["nt$t"].clone() if ts.nt else None)
              for ts, d in zip(spec.trains, trains)]
     couts = [d["w"].clone() if cs.updates else d["w"]
              for cs, d in zip(spec.conns, conns)]
@@ -319,21 +475,27 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     LIF), ``in_deg`` and the ``params`` planes (keys
     ``MODEL_PARAM_KEYS[model]``) as (rows, cols) float32, ``lft`` int32,
     ``refr`` (ALIF and LIF) float32, and ``weights`` / ``mask`` (bool) as
-    (n_off, rows, cols) for a stencil graph.  ``trains`` holds one dict per
+    (n_off, rows, cols) for a stencil graph; a chemical spec adds
+    ``spikes`` (the previous step's, bool (rows, cols)) and ``chem``, the
+    state fields of `chem_keys` in the state's (N,) and (N, 3) layouts.
+    ``trains`` holds one dict per
     train: ``lft`` int32 and ``v_th``, ``v_resting``, ``refr_k``, ``dt``
     and ``chance`` (Poisson) or ``rate`` and ``step`` (Rate) float32
-    planes.  ``conns`` holds ``w`` and ``mask`` (bool) per connection,
+    planes, and with ``nt`` a ``chem`` dict of ``nt$t``, ``nt$mask`` and
+    the NT parameters as (N, 3).
+    ``conns`` holds ``w`` and ``mask`` (bool) per connection,
     (rows, cols) one-to-one or (n_taps, rows, cols) resample, on the post
     grid.  ``uniforms`` is an (n_steps, rows, cols) float32 tensor per
     Poisson train (None for Rate), ``rule`` the STDP parameter dict.
 
     Returns ``(lats, trains, conn_ws)``: per lattice a dict of ``v``,
     ``w``, ``lft``, ``refr``, ``spikes`` (the last step's, bool),
-    ``weights`` and ``v_pre`` ((n_steps, rows, cols) with ``emit``, else
-    None); per train ``lft``, ``step`` and ``spikes``; the connection
-    weights.  The inputs are not modified.
+    ``weights``, ``v_pre`` ((n_steps, rows, cols) with ``emit``, else
+    None) and ``chem`` (the `chem_out_keys` fields, else None); per train
+    ``lft``, ``step``, ``spikes`` and ``ntt`` (its ``nt$t`` with ``nt``,
+    else None); the connection weights.  The inputs are not modified.
     """
-    global LAUNCHES
+    global LAUNCHES, CHEM_LAUNCHES
     _check(spec, lats, trains, conns, uniforms, clock0, n_steps)
     dev = lats[0]["v"].device
     if dev.type == "cpu":
@@ -351,6 +513,7 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
         raise RuntimeError(f"net_steps failed with CUDA error {rc} "
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES += 1
+    CHEM_LAUNCHES += bool(spec.chem)
     return out
 
 
@@ -394,7 +557,8 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                                           uniforms)):
         tr_i[NT_I * j:NT_I * (j + 1)] = [
             TRAIN_KINDS.index(ts.kind),
-            REFRACTORINESS.index(ts.refractoriness), *ts.shape]
+            REFRACTORINESS.index(ts.refractoriness), *ts.shape,
+            NT_KINDS.index(ts.nt) if ts.nt else -1]
         poisson = ts.kind == "poisson"
         tr_p[NT_P * j:NT_P * (j + 1)] = [
             ptr(o["lft"]), ptr(d["v_th"]), ptr(d["v_resting"]),
@@ -416,21 +580,73 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
             int(cs.pre_plastic), int(cs.post_plastic), *geo, 0]
         cn_p[NC_P * ci:NC_P * (ci + 1)] = [ptr(w), ptr(d["mask"]),
                                            ptr(taps[ci])]
+    chem_i, lat_c, tr_c = _chem_pointers(spec, lats, trains, outs, touts,
+                                         ptr)
     r = rule_floats(rule)
     rule_vec = (ctypes.c_float * 5)(*[r[k] for k in STDP_KEYS])
     rc = lib.net_steps(len(lats), lat_i, lat_p, len(trains), tr_i, tr_p,
                        len(conns), cn_i, cn_p, rule_vec, int(clock0),
-                       n_steps, stream)
+                       n_steps, chem_i, lat_c, tr_c, stream)
     last = (n_steps - 1) % 2
     lat_out = [dict(v=o["buf"][0][last], w=o["buf"][1][last],
                     lft=o["buf"][2][last],
                     refr=o["buf"][3][last] if o["buf"][3] is not None
                     else None,
                     spikes=o["spikes"], weights=o["weights"],
-                    v_pre=o["v_pre"]) for o in outs]
-    tr_out = [dict(lft=o["lft"], step=o["step"], spikes=o["spikes"])
-              for o in touts]
+                    v_pre=o["v_pre"],
+                    chem=None if o["chem"] is None else {
+                        **{k: v for k, v in o["chem"].items()
+                           if k.startswith("rec$")},
+                        "nt$t": o["chem"]["ntt"][last],
+                        "rec$current": o["chem"]["cur"]})
+               for o in outs]
+    tr_out = [dict(lft=o["lft"], step=o["step"], spikes=o["spikes"],
+                   ntt=o["ntt"]) for o in touts]
     return rc, (lat_out, tr_out, couts)
+
+
+def _chem_pointers(spec, lats, trains, outs, touts, ptr):
+    """The chemical arm's descriptions for ``net_steps``: ints {family,
+    receptor kinetics, NT kinetics, electrical} (family -1 without chem),
+    per lattice NLC_P pointers {nt$t in, concentration buffer sets 0 and
+    1, rec$r, rec$r2, rec$current, inh and nmda modifiers (the last five
+    updated in place), nt$mask, rec$mask, NT parameters [3], kinetics
+    parameters [2], rec$r2 kinetics parameters [2], the current parameters
+    [9] (DOPA_PLANES, or g, e, mg)}, per train NTC_P pointers {nt$t
+    (updated in place), nt$mask, NT parameters [3]}."""
+    chem_i = (ctypes.c_int * 4)(-1, 0, 0, 1)
+    lat_c = (ctypes.c_void_p * max(NLC_P * len(lats), 1))()
+    tr_c = (ctypes.c_void_p * max(NTC_P * len(trains), 1))()
+    if not spec.chem:
+        return chem_i, lat_c, tr_c
+    fam, rec, nt = spec.chem
+    chem_i[:] = [CHEM_FAMILIES.index(fam), REC_KINDS.index(rec),
+                 NT_KINDS.index(nt), int(spec.electrical)]
+
+    def padded(keys, c, n):
+        return [ptr(c[k]) for k in keys] + [None] * (n - len(keys))
+
+    kin = ["rec$" + k for k in REC_KIN_KEYS[rec]]
+    for k, (d, o) in enumerate(zip(lats, outs)):
+        c, oc = d["chem"], o["chem"]
+        ptrs = [ptr(c["nt$t"]), ptr(oc["ntt"][0]), ptr(oc["ntt"][1]),
+                ptr(oc["rec$r"]), ptr(oc.get("rec$r2")), ptr(oc["cur"]),
+                ptr(oc.get("rec$inh_modifier")),
+                ptr(oc.get("rec$nmda_modifier")), ptr(c["nt$mask"]),
+                ptr(c["rec$mask"]), *padded(NT_PARAM_KEYS[nt], c, 3),
+                *padded(kin, c, 2)]
+        if fam == "dopaglugaba":
+            ptrs += padded([x.replace("rec$", "rec$r2$", 1) for x in kin],
+                           c, 2) + padded(DOPA_PLANES, c, 9)
+        else:
+            ptrs += [None, None] + padded(("rec$g", "rec$e", "rec$mg"), c, 9)
+        lat_c[NLC_P * k:NLC_P * k + len(ptrs)] = ptrs
+    for j, (ts, d, o) in enumerate(zip(spec.trains, trains, touts)):
+        if ts.nt:
+            ptrs = [ptr(o["ntt"]), ptr(d["chem"]["nt$mask"]),
+                    *padded(NT_PARAM_KEYS[ts.nt], d["chem"], 3)]
+            tr_c[NTC_P * j:NTC_P * j + len(ptrs)] = ptrs
+    return chem_i, lat_c, tr_c
 
 
 # ---------------------------------------------------------------------------
@@ -469,26 +685,184 @@ def connection_counts(spec, lats, conns):
     return cnts
 
 
+def _types(x, shape):
+    """The three (rows, cols) type planes of an (N, 3) field."""
+    return list(x.reshape(*shape, N_TYPES).unbind(-1))
+
+
+def _stack_types(planes):
+    return torch.stack(planes, -1).reshape(-1, N_TYPES)
+
+
+def _chem_static(spec, d, shape):
+    """A lattice's fixed chemical planes, per type where (N, 3)."""
+    fam, rec, nt = spec.chem
+    c = d["chem"]
+    tp = lambda k: _types(c[k], shape)
+    out = dict(ntm=tp("nt$mask"), recm=tp("rec$mask"),
+               ntp=[tp(k) for k in NT_PARAM_KEYS[nt]],
+               kin=[tp("rec$" + k) for k in REC_KIN_KEYS[rec]])
+    out["ntm_f"] = [m.to(torch.float32) for m in out["ntm"]]
+    if fam == "dopaglugaba":
+        out["kin2"] = [tp("rec$r2$" + k) for k in REC_KIN_KEYS[rec]]
+        out["rp"] = {k: c[k].reshape(shape) for k in DOPA_PLANES}
+    else:
+        out["rp"] = {k: tp(k) for k in ("rec$g", "rec$e", "rec$mg")}
+    return out
+
+
+def _chem_state(spec, d, shape):
+    """A lattice's carried chemical fields, per type where (N, 3)."""
+    c = d["chem"]
+    out = dict(ntt=_types(c["nt$t"], shape), r=_types(c["rec$r"], shape),
+               cur=None)
+    if spec.chem[0] == "dopaglugaba":
+        out.update(r2=_types(c["rec$r2"], shape),
+                   inh=c["rec$inh_modifier"].reshape(shape),
+                   nmda=c["rec$nmda_modifier"].reshape(shape))
+    return out
+
+
+def _electrical_total(spec, i, ls, s, v_prev, effects, conns, cw):
+    """Phase A of lattice ``i`` before its gap and count: the intra sum
+    ``acc - v * wsum``, then each incoming connection in plan order."""
+    v = s["v"]
+    acc = torch.zeros_like(v)
+    wsum = torch.zeros_like(v)
+    for o, vs in enumerate(shifted(v, ls.offsets, 0.0)):
+        acc = acc + s["weights"][o] * vs
+        wsum = wsum + s["weights"][o]
+    total = acc - v * wsum
+    for ci, cs in enumerate(spec.conns):
+        if cs.post != i:
+            continue
+        a_src = effects[cs.pre] if cs.pre_is_st else v_prev[cs.pre]
+        if cs.op[0] == "one2one":
+            m = conns[ci]["mask"].to(torch.float32)
+            total = total + (m * cw[ci]) * (
+                a_src if cs.pre_is_st else a_src - v)
+            continue
+        tacc = torch.zeros_like(v)
+        subs = None if cs.pre_is_st \
+            else _taps(cs.op, torch.ones_like(a_src))
+        for t, a_t in enumerate(_taps(cs.op, a_src)):
+            tacc = tacc + cw[ci][t] * (
+                a_t if cs.pre_is_st else a_t - subs[t] * v)
+        total = total + tacc
+    return total
+
+
+def _chem_input(spec, i, ls, s, cs_i, ntt_prev, statics, tr, tr_static,
+                conns, cw):
+    """Phase A' of lattice ``i``: per type, ``t_in`` and its validity."""
+    zeros = torch.zeros_like(s["v"])
+    emask = [m.to(torch.float32) for m in s["mask"]]
+    t_in, valid = [], []
+    for q in range(N_TYPES):
+        sums, gcnt = zeros, zeros
+        for o, (ts, ms) in enumerate(zip(
+                shifted(ntt_prev[i][q] * cs_i["ntm_f"][q], ls.offsets, 0.0),
+                shifted(cs_i["ntm_f"][q], ls.offsets, 0.0))):
+            sums = sums + s["weights"][o] * ts
+            gcnt = gcnt + emask[o] * ms
+        g1 = torch.clamp(gcnt, min=1.0)
+        csum = sums / g1 * g1 * (gcnt > 0.0).to(torch.float32)
+        ccnt = gcnt
+        for ci, cs in enumerate(spec.conns):
+            if cs.post != i or (cs.pre_is_st
+                                and not spec.trains[cs.pre].nt):
+                continue
+            if cs.pre_is_st:
+                t_src = tr[cs.pre]["ntt"][q]
+                m_src = tr_static[cs.pre]["ntm_f"][q]
+            else:
+                t_src = ntt_prev[cs.pre][q]
+                m_src = statics[cs.pre]["ntm_f"][q]
+            mask = conns[ci]["mask"]
+            csum = csum + torch.where(mask, cw[ci] * t_src * m_src, 0.0)
+            ccnt = ccnt + torch.where(mask, m_src, 0.0)
+        t_in.append(csum / torch.clamp(ccnt, min=1.0))
+        valid.append(ccnt > 0.0)
+    return t_in, valid
+
+
+def _receptors(spec, cs_i, c_i, v, t_in, valid, pp, consts):
+    """Phase B' of one lattice: the receptor kinetics on valid, inserted
+    slots, the currents at the pre-update ``v`` and the modifiers, in
+    place on ``c_i``; returns ``rec_dv``."""
+    fam, rec, _ = spec.chem
+    dt = pp["dt"]
+    recm, rp = cs_i["recm"], cs_i["rp"]
+    upd = [valid[q] & recm[q] for q in range(N_TYPES)]
+    c_i["r"] = [torch.where(upd[q], rec_kinetics(
+        rec, c_i["r"][q], t_in[q], [k[q] for k in cs_i["kin"]], dt),
+        c_i["r"][q]) for q in range(N_TYPES)]
+    r = c_i["r"]
+    if fam == "dopaglugaba":
+        c_i["r2"] = [torch.where(upd[q], rec_kinetics(
+            rec, c_i["r2"][q], t_in[q], [k[q] for k in cs_i["kin2"]], dt),
+            c_i["r2"][q]) for q in range(N_TYPES)]
+        r2, inh, nmda = c_i["r2"], c_i["inh"], c_i["nmda"]
+        block = 1.0 / (1.0 + kernel_exp(-0.062 * v) * rp["rec$mg"]
+                       / consts["3.57"])
+        glu = inh * rp["rec$g_ampa"] * r[0] * (v - rp["rec$e_ampa"]) \
+            + block * inh * rp["rec$g_nmda"] * kernel_pow(r2[0], nmda) \
+            * (v - rp["rec$e_nmda"])
+        glu = torch.where(recm[0], glu, 0.0)
+        gaba = torch.where(recm[1], rp["rec$g_gaba"] * r[1]
+                           * (v - rp["rec$e_gaba"]), 0.0)
+        c_i["inh"] = torch.where(recm[2], 1.0 - r2[2] * rp["rec$s_d2"], inh)
+        c_i["nmda"] = torch.where(recm[2], 1.0 - r[2] * rp["rec$s_d1"],
+                                  nmda)
+        c_i["cur"] = [glu, gaba, torch.zeros_like(glu)]
+        return (glu + gaba) * (dt / pp["c_m"])
+    block = 1.0 / (1.0 + kernel_exp(-0.062 * v) * rp["rec$mg"][1]
+                   / consts["3.75"])
+    cur = [rp["rec$g"][q] * r[q] * (v - rp["rec$e"][q])
+           for q in range(N_TYPES)]
+    cur[1] = cur[1] * block
+    c_i["cur"] = [torch.where(recm[q], cur[q], 0.0) for q in range(N_TYPES)]
+    return (c_i["cur"][0] + c_i["cur"][1] + c_i["cur"][2]) \
+        * (dt / pp["c_m"])
+
+
 def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
                             clock0, n_steps):
     """The plain PyTorch twin of the CUDA kernels, on any device.
 
     The kernels' (and the TPU kernel's) association and order, and the
-    kernels' exp (`core.plasticity.kernel_exp`), so the twin and the
-    kernels agree bit for bit on any device; shifted and
-    resampled reads are slices of padded planes: v pads with 0, lft with
-    NEVER and spikes with 0 for the stencil; resample pre planes pad with
-    0 (lft too: the masks hide those slots).  That is what the kernels'
-    bounds checks do.
+    kernels' exp and pow (`core.plasticity.kernel_exp`, `kernel_pow`), so
+    the twin and the kernels agree bit for bit on any device; shifted and
+    resampled reads are slices of padded planes: v, concentrations and
+    masks pad with 0, lft with NEVER and spikes with 0 for the stencil;
+    resample pre planes pad with 0 (lft too: the masks hide those slots).
+    That is what the kernels' bounds checks do.  Divisions by constants
+    divide by 0-dim tensors: CUDA PyTorch turns a Python-scalar divisor
+    into a multiply by its reciprocal.
     """
-    p = rule_tensors(rule, lats[0]["v"].device)
+    dev = lats[0]["v"].device
+    p = rule_tensors(rule, dev)
+    consts = {k: torch.tensor(float(k), dtype=torch.float32, device=dev)
+              for k in ("3.57", "3.75")}
     cnts = connection_counts(spec, lats, conns)
     st = [dict(v=d["v"], w=d["w"], lft=d["lft"], refr=d.get("refr"),
                weights=list(d["weights"].unbind(0)) if ls.offsets else [],
-               spikes=None, v_pre=[])
+               mask=list(d["mask"].unbind(0)) if ls.offsets else [],
+               spikes=d["spikes"] if spec.chem else None, v_pre=[])
           for ls, d in zip(spec.lattices, lats)]
-    tr = [dict(lft=d["lft"], step=d.get("step"), spikes=None)
-          for d in trains]
+    statics = [_chem_static(spec, d, ls.shape) if spec.chem else None
+               for ls, d in zip(spec.lattices, lats)]
+    chem = [_chem_state(spec, d, ls.shape) if spec.chem else None
+            for ls, d in zip(spec.lattices, lats)]
+    tr = [dict(lft=d["lft"], step=d.get("step"), spikes=None,
+               ntt=_types(d["chem"]["nt$t"], ts.shape) if ts.nt else None)
+          for ts, d in zip(spec.trains, trains)]
+    tr_static = [dict(
+        ntm=_types(d["chem"]["nt$mask"], ts.shape),
+        ntm_f=[m.to(torch.float32)
+               for m in _types(d["chem"]["nt$mask"], ts.shape)],
+        ntp=[_types(d["chem"][k], ts.shape) for k in NT_PARAM_KEYS[ts.nt]])
+        if ts.nt else None for ts, d in zip(spec.trains, trains)]
     cw = [list(c["w"].unbind(0)) if cs.op[0] == "resample" else c["w"]
           for cs, c in zip(spec.conns, conns)]
     for k in range(int(n_steps)):
@@ -496,35 +870,31 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
         effects = [train_effect(ts, d, t["lft"], clock)
                    for ts, d, t in zip(spec.trains, trains, tr)]
         v_prev = [s["v"] for s in st]
+        ntt_prev = [c["ntt"] if c else None for c in chem]
         new = []
         for i, (ls, d, s) in enumerate(zip(spec.lattices, lats, st)):
             v = s["v"]
-            acc = torch.zeros_like(v)
-            wsum = torch.zeros_like(v)
-            for o, vs in enumerate(shifted(v, ls.offsets, 0.0)):
-                acc = acc + s["weights"][o] * vs
-                wsum = wsum + s["weights"][o]
-            total = acc - v * wsum
-            for ci, cs in enumerate(spec.conns):
-                if cs.post != i:
-                    continue
-                a_src = effects[cs.pre] if cs.pre_is_st else v_prev[cs.pre]
-                if cs.op[0] == "one2one":
-                    m = conns[ci]["mask"].to(torch.float32)
-                    total = total + (m * cw[ci]) * (
-                        a_src if cs.pre_is_st else a_src - v)
-                    continue
-                tacc = torch.zeros_like(v)
-                subs = None if cs.pre_is_st \
-                    else _taps(cs.op, torch.ones_like(a_src))
-                for t, a_t in enumerate(_taps(cs.op, a_src)):
-                    tacc = tacc + cw[ci][t] * (
-                        a_t if cs.pre_is_st else a_t - subs[t] * v)
-                total = total + tacc
             pp = {q: d["params"][q] for q in MODEL_PARAM_KEYS[ls.model]}
-            i_syn = pp["gap_conductance"] * total / cnts[i]
+            i_syn = torch.zeros_like(v)
+            if spec.electrical:
+                i_syn = pp["gap_conductance"] * _electrical_total(
+                    spec, i, ls, s, v_prev, effects, conns, cw) / cnts[i]
+            rec_dv = None
+            if spec.chem:
+                t_in, valid = _chem_input(spec, i, ls, s, statics[i],
+                                          ntt_prev, statics, tr, tr_static,
+                                          conns, cw)
+                rec_dv = _receptors(spec, statics[i], chem[i], v, t_in,
+                                    valid, pp, consts)
             v_new, w_new, refr, spk, v_pre = model_step(
-                ls.model, pp, v, s["w"], s["refr"], i_syn)
+                ls.model, pp, v, s["w"], s["refr"], i_syn, rec_dv)
+            if spec.chem:
+                spk_prev = s["spikes"].to(torch.float32)
+                cs_i = statics[i]
+                chem[i]["ntt"] = [torch.where(cs_i["ntm"][q], nt_release(
+                    spec.chem[2], ntt_prev[i][q], v_pre, spk_prev,
+                    [x[q] for x in cs_i["ntp"]], pp["dt"]), 0.0)
+                    for q in range(N_TYPES)]
             new.append((v_new, w_new, s["lft"].masked_fill(spk, clock),
                         refr, spk, v_pre))
         for s, (v_new, w_new, lft, refr, spk, v_pre) in zip(st, new):
@@ -568,7 +938,8 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
                 delta = stdp_delta(lp, post["lft"], p, kernel_exp)
                 cw[ci][t] = torch.where(mask[t], cw[ci][t] + delta * count,
                                         cw[ci][t])
-        for ts, d, t, u in zip(spec.trains, trains, tr, uniforms):
+        for ts, d, t, u, ss in zip(spec.trains, trains, tr, uniforms,
+                                   tr_static):
             if ts.kind == "poisson":
                 spk = u[k] <= d["chance"]
             else:
@@ -578,15 +949,40 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
                 t["step"] = torch.where(spk, 0.0, stepped)
             t["lft"] = t["lft"].masked_fill(spk, clock)
             t["spikes"] = spk
+            if ts.nt:
+                # trains release after their new spike, from v_th or
+                # v_resting
+                v_t = torch.where(spk, d["v_th"], d["v_resting"])
+                sf = spk.to(torch.float32)
+                t["ntt"] = [torch.where(ss["ntm"][q], nt_release(
+                    ts.nt, t["ntt"][q], v_t, sf, [x[q] for x in ss["ntp"]],
+                    d["dt"]), 0.0) for q in range(N_TYPES)]
     lat_out = [dict(v=s["v"], w=s["w"], lft=s["lft"], refr=s["refr"],
                     spikes=s["spikes"],
                     weights=torch.stack(s["weights"]) if ls.offsets
                     else d["weights"],
-                    v_pre=torch.stack(s["v_pre"]) if ls.emit else None)
-               for ls, d, s in zip(spec.lattices, lats, st)]
+                    v_pre=torch.stack(s["v_pre"]) if ls.emit else None,
+                    chem=_chem_out(spec, c))
+               for ls, d, s, c in zip(spec.lattices, lats, st, chem)]
+    tr_out = [dict(lft=t["lft"], step=t["step"], spikes=t["spikes"],
+                   ntt=_stack_types(t["ntt"]) if ts.nt else None)
+              for ts, t in zip(spec.trains, tr)]
     conn_out = [torch.stack(w) if cs.op[0] == "resample" else w
                 for cs, w in zip(spec.conns, cw)]
-    return lat_out, tr, conn_out
+    return lat_out, tr_out, conn_out
+
+
+def _chem_out(spec, c):
+    """A lattice's chemical output fields in the state's layouts."""
+    if c is None:
+        return None
+    out = {"nt$t": _stack_types(c["ntt"]), "rec$r": _stack_types(c["r"]),
+           "rec$current": _stack_types(c["cur"])}
+    if spec.chem[0] == "dopaglugaba":
+        out.update({"rec$r2": _stack_types(c["r2"]),
+                    "rec$inh_modifier": c["inh"].reshape(-1),
+                    "rec$nmda_modifier": c["nmda"].reshape(-1)})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -594,7 +990,7 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
 # ---------------------------------------------------------------------------
 
 
-def _lattice_data(ls, lat):
+def _lattice_data(spec, ls, lat):
     st, shp = lat.state, ls.shape
     zeros = torch.zeros(shp, dtype=torch.float32, device=st["v"].device)
     return dict(v=st["v"].reshape(shp),
@@ -606,7 +1002,10 @@ def _lattice_data(ls, lat):
                         for p in MODEL_PARAM_KEYS[ls.model]},
                 in_deg=lat.graph.in_deg.reshape(shp) if ls.offsets else zeros,
                 weights=lat.graph.weights if ls.offsets else None,
-                mask=lat.graph.mask if ls.offsets else None)
+                mask=lat.graph.mask if ls.offsets else None,
+                spikes=st["is_spiking"].reshape(shp),
+                chem={k: st[k] for k in chem_keys(spec.chem)}
+                if spec.chem else None)
 
 
 def _train_data(ts, st):
@@ -616,14 +1015,18 @@ def _train_data(ts, st):
              "dt": "dt"}
     names.update({"chance": "chance_of_firing"} if ts.kind == "poisson"
                  else {"rate": "rate", "step": "step"})
-    return {k: s[name].reshape(shp) for k, name in names.items()}
+    d = {k: s[name].reshape(shp) for k, name in names.items()}
+    if ts.nt:
+        d["chem"] = {k: s[k] for k in ("nt$t", "nt$mask")
+                     + NT_PARAM_KEYS[ts.nt]}
+    return d
 
 
 def member_inputs(spec, net, plan):
     """The wrapper's ``(lats, trains, conns)`` arguments: views of the
     network members' states, graphs and connection weights, in the
     layouts `network_steps` documents."""
-    lats = [_lattice_data(ls, net.lattices[i])
+    lats = [_lattice_data(spec, ls, net.lattices[i])
             for ls, i in zip(spec.lattices, plan["lat_ids"])]
     trains = [_train_data(ts, net.spike_train_lattices[i])
               for ts, i in zip(spec.trains, plan["st_ids"])]
@@ -666,10 +1069,14 @@ def advance(spec, net, plan, length):
                      spikes=o["spikes"], weights=o["weights"])
             if o["v_pre"] is not None:
                 e.append(o["v_pre"])
+            if o["chem"] is not None:
+                d["chem"].update(o["chem"])
         for d, o in zip(trains, tr_out):
             d.update(lft=o["lft"], spikes=o["spikes"])
             if o["step"] is not None:
                 d["step"] = o["step"]
+            if o["ntt"] is not None:
+                d["chem"]["nt$t"] = o["ntt"]
         for c, w in zip(conns, conn_ws):
             c["w"] = w
         done += n
@@ -684,6 +1091,8 @@ def advance(spec, net, plan, length):
         s["is_spiking"] = d["spikes"].reshape(-1)
         if ls.model in REFRACTORY_MODELS:
             s["refractory_count"] = d["refr"].reshape(-1)
+        if spec.chem:
+            s.update((k, d["chem"][k]) for k in chem_out_keys(spec.chem))
         states.append(s)
         graphs.append(lat.graph.replace_weights(d["weights"])
                       if ls.kind == "plastic" and ls.offsets else lat.graph)
@@ -700,6 +1109,8 @@ def advance(spec, net, plan, length):
         s["last_firing_time"] = d["lft"].reshape(-1)
         if "step" in d:
             s["step"] = d["step"].reshape(-1)
+        if "chem" in d:
+            s["nt$t"] = d["chem"]["nt$t"]
         st_states.append(s)
     conn_ws = [c["op"].w0 for c in plan["conns"]]
     for ci, op, c in zip(spec.keep, ops, conns):

@@ -68,10 +68,14 @@ class LatSpec(NamedTuple):
 
 
 def model_kind(model):
-    """MODEL_PARAM_KEYS key of a supported neuron model, else None."""
+    """MODEL_PARAM_KEYS key of a supported neuron model, else None.
+    `DopaIzhikevich` steps as `Izhikevich` does (only its receptors and
+    defaults differ), so it is an Izhikevich kind."""
+    from ..models.dopa import DopaIzhikevich
     from ..models.integrate_and_fire import (
         AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
     return {Izhikevich: "izhikevich",
+            DopaIzhikevich: "izhikevich",
             AdaptiveLeakyIntegrateAndFire: "alif",
             LeakyIntegrateAndFire: "lif"}.get(type(model))
 
@@ -260,16 +264,17 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
 # ---------------------------------------------------------------------------
 
 
-def model_step(model, p, v, w, refr, i_syn):
+def model_step(model, p, v, w, refr, i_syn, rec_dv=None):
     """Phase B of one model in the kernels' association (the plasticity
     and the network twins share it): returns the new (v, w, refr), the
-    spikes and the pre-reset voltage."""
+    spikes and the pre-reset voltage ``v + dv`` (``v + dv - rec_dv`` with
+    the receptors' ``rec_dv``)."""
     if model == "izhikevich":
         dt_cm = p["dt"] / p["c_m"]
         dt_tau = p["dt"] / p["tau_m"]
         dv = (0.04 * v * v + 5.0 * v + 140.0 - w + i_syn) * dt_cm
         dw = (p["a"] * (p["b"] * v - w)) * dt_tau
-        v_pre = v + dv
+        v_pre = v + dv if rec_dv is None else v + dv - rec_dv
         w_new = w + dw
         spk = v_pre >= p["v_th"]
         return (torch.where(spk, p["c"], v_pre),
@@ -283,7 +288,7 @@ def model_step(model, p, v, w, refr, i_syn):
     else:
         dv = (leak + drive) * dt_tau
         w_new = w
-    v_pre = v + dv
+    v_pre = v + dv if rec_dv is None else v + dv - rec_dv
     in_ref = refr > 0.0
     spk = torch.logical_and(torch.logical_not(in_ref), v_pre >= p["v_th"])
     v_new = torch.where(torch.logical_or(in_ref, spk), p["v_reset"], v_pre)

@@ -311,3 +311,42 @@ def test_rate_singularities_take_their_limits():
                                tna["na$m_state"][:4].numpy(), rtol=1e-6)
     np.testing.assert_allclose(out["k$n_state"].numpy(),
                                tk["k$n_state"][:4].numpy(), rtol=1e-6)
+
+
+def test_jax_rate_expressions_are_nan_at_the_singularities():
+    """The port's intended semantics at the HH rates' 0 / 0 points: the JAX
+    package's own m and n rate expressions (`na_channel_update`,
+    `k_channel_update`, read as the gate after one step of dt 1 from 0,
+    which is the rate alpha) are NaN at v = -40 and -55 mV; the port's
+    are their limits, 1.0 and 0.1, and equal the JAX package's at every
+    other v of a sweep around the two points."""
+    v = np.array([-40.0, -55.0], np.float32)
+    sweep = np.concatenate([np.linspace(-41, -39, 41), np.linspace(-56, -54,
+                                                                  41)])
+    sweep = sweep[(sweep != -40.0) & (sweep != -55.0)].astype(np.float32)
+    for volts, singular in ((v, True), (sweep, False)):
+        n = len(volts)
+        s = {"na$m_state": np.zeros(n, np.float32),
+             "na$h_state": np.zeros(n, np.float32),
+             "k$n_state": np.zeros(n, np.float32),
+             "dt": np.ones(n, np.float32)}
+        s.update({k: np.full(n, x, np.float32) for k, x in
+                  {**jch.NA_DEFAULTS, **jch.K_DEFAULTS}.items()
+                  if k not in s})
+        js = {k: jnp.asarray(x) for k, x in s.items()}
+        ts = state_from_numpy(s, "cpu")
+        j_m = np.asarray(jch.na_channel_update(js, jnp.asarray(volts),
+                                               js["dt"])["na$m_state"])
+        j_n = np.asarray(jch.k_channel_update(js, jnp.asarray(volts),
+                                              js["dt"])["k$n_state"])
+        t_m = tch.na_channel_update(ts, torch.from_numpy(volts),
+                                    ts["dt"])["na$m_state"].numpy()
+        t_n = tch.k_channel_update(ts, torch.from_numpy(volts),
+                                   ts["dt"])["k$n_state"].numpy()
+        if singular:
+            assert np.isnan(j_m[0]) and np.isnan(j_n[1])
+            assert t_m[0] == np.float32(1.0) and t_n[1] == np.float32(0.1)
+        else:
+            assert np.isfinite(j_m).all() and np.isfinite(j_n).all()
+            np.testing.assert_allclose(t_m, j_m, rtol=1e-5)
+            np.testing.assert_allclose(t_n, j_n, rtol=1e-5)

@@ -215,7 +215,7 @@ def test_plasticity_and_chemical_raise_not_implemented():
     r = snt.RewardModulatedLattice(snt.Izhikevich(), device="cpu")
     r.populate(4, 4)
     r.chemical_synapse = True
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="the reward slice"):
         r.run_lattice(5)
     assert r.internal_clock == 0
 

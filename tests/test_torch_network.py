@@ -318,9 +318,9 @@ def test_network_errors_match_jax():
 
 def test_paths_left_for_later_raise():
     _, t = both(mixed_net, False, False)
-    t.chemical_synapse = True
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t.run_lattices(1)
+    t.chemical_synapse = True      # chemical networks run (no NT inserted)
+    t.run_lattices(1)
+    assert t.internal_clock == 4 and t._last_run_fused is False
     t.chemical_synapse = False
     t.update_connecting_graph_history = True
     with pytest.raises(NotImplementedError, match="item 6"):
@@ -333,7 +333,7 @@ def test_paths_left_for_later_raise():
             call()
     t.electrical_synapse = False
     t.run_lattices(5)              # neither synapse: no step, as in JAX
-    assert t.internal_clock == 3
+    assert t.internal_clock == 4
 
 
 def test_network_from_carries_everything():

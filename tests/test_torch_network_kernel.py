@@ -129,7 +129,7 @@ def _jax_call(jnet, n_steps, uniforms):
 
 def _port_inputs(t):
     plan = tsr.resolve_structured_plan(t)
-    spec = nk.plain_network_spec(t, plan, tsr.nt_clean(t))
+    spec = nk.plain_network_spec(t, plan, not any(tsr.nt_flags(t, plan)))
     return (spec, *nk.member_inputs(spec, t, plan))
 
 

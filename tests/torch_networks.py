@@ -148,3 +148,49 @@ def assert_networks_match(t, j, rtol, atol):
         np.testing.assert_array_equal(td, np.asarray(d))
         np.testing.assert_allclose(tw, np.asarray(w), rtol=rtol, atol=atol,
                                    err_msg=str(key))
+
+
+def chem_net(family="ionotropic", rec="approximate", nt="approximate",
+             dopamine=False, resample=False, history=False, **kw):
+    """The chemical network of ``tests/test_pallas_chem.py`` (`_chem_net`:
+    two 8x8 lattices, lattice 0 driving lattice 1 one to one, a train
+    driving lattice 0; ``kw`` passes ``electrical``, ``plastic``, ``train``,
+    ``rows``, ``cols``), with options: ``dopamine``, a third lattice
+    releasing dopamine into lattice 1 (one to one), whose D1 and D2
+    receptors (s_d1 0.5, s_d2 0.3) move nmda_mod and inh_mod from 1 once
+    it fires (v0 up to 40 mV: a third fires at once); ``resample``, a 4x4
+    lattice pooled from lattice 0 (a resample connection, which the
+    chemical arm leaves to the plain route); ``history``, a grid history
+    on lattice 0."""
+    from test_pallas_chem import _chem_net, _mk_model
+    net = _chem_net(family=family, rec_kinetics=rec, nt_kinetics=nt, **kw)
+    rows, cols = net.lattices[0].rows, net.lattices[0].cols
+    n = rows * cols
+    if dopamine:
+        dopa = snn.Lattice(_mk_model(family, rec, nt), id=3)
+        dopa.populate(rows, cols, gap_conductance=10.0)
+        dopa.connect_stencil(radius=1.0, seed=9)
+        s = dict(dopa.model.insert_neurotransmitter(dopa.state, "Dopamine"))
+        s["v"] = jnp.asarray(np.random.default_rng(8).uniform(-65, 40, n),
+                             jnp.float32)
+        dopa.state = s
+        net.add_lattice(dopa)
+        l1 = net.lattices[1]
+        l1.state = l1.model.insert_receptor(l1.state, "Dopamine", s_d1=0.5,
+                                            s_d2=0.3)
+        net.connect(3, 1, lambda x, y: x == y, lambda x, y: 1.0)
+    if resample:
+        pool = snn.Lattice(_mk_model(family, rec, nt), id=4)
+        pool.populate(rows // 2, cols // 2, gap_conductance=10.0)
+        pool.connect_stencil(radius=1.0, seed=10)
+        name = "Glutamate" if family == "dopaglugaba" else "AMPA"
+        pool.state = pool.model.insert_receptor(pool.state, name, g=25.0,
+                                                e=60.0) \
+            if family != "dopaglugaba" else pool.model.insert_receptor(
+                pool.state, name, g_ampa=25.0, e_ampa=60.0)
+        net.add_lattice(pool)
+        net.connect_vectorized(0, 4, lambda pr, pc, qr, qc: np.where(
+            (pr // 2 == qr) & (pc // 2 == qc), 0.5, np.nan))
+    if history:
+        net.lattices[0].update_grid_history = True
+    return net
