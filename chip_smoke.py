@@ -28,7 +28,16 @@ radius-2, 80%-keep stencil graph:
   `insert_neurotransmitter` -> `generate_network` -> `connect_vectorized`
   -> `chemical_synapse = True` -> `run_lattices`) at 64^2 and 512^2, and
   its form with a dopamine source, through the chemical arm of the network
-  kernels (``csrc/network_plasticity.cu``, ``csrc/chem_common.cuh``).
+  kernels (``csrc/network_plasticity.cu``, ``csrc/chem_common.cuh``);
+* the upstream Bayesian-inference network (`Lattice(DopaIzhikevich())` ->
+  `populate` -> `insert_receptor` / `insert_neurotransmitter` ->
+  `connect` (a Hopfield weight matrix: a `DenseGraph`) ->
+  `generate_network` -> `LatticeNetwork.connect` (dense blocks both ways,
+  two Poisson cue lattices one to one) -> `chemical_synapse = True` ->
+  `run_lattices`) at its own size, 7 x 7 + 3 x 3, and at flat mode's full
+  width, 512 + 512 neurons with (512, 512) blocks, and an electrical dense
+  network of 2 x 512 neurons, through the flat-mode arm of the network
+  kernels (`net_dense_gather_kernel` in ``csrc/network_plasticity.cu``).
 
 Phases, one line each:
 
@@ -77,8 +86,10 @@ Phases, one line each:
    (`use_kernel=False`), config 5's topology at 64^2 and 512^2;
 15. the HH kernel vs its plain twin on the card: 64^2 at K = 16 and 7 for
    every kinetics pair, electrical and plasticity on and off; 130 x 100
-   with non-uniform parameters; 512^2: integers, spikes and was_increasing
-   equal, floats within rtol 1e-6, atol 1e-5;
+   with non-uniform parameters; 512^2; and call by call the first 1024
+   steps of the 128^2 main paths (both forms fire within them), each call
+   on the state it received: integers, spikes and was_increasing equal,
+   floats within rtol 1e-6, atol 1e-5;
 16. the HH main paths through `run_lattice`: 128^2 for 2000 steps in the
    firing form and in `bench.py`'s own form (gates at 0: every neuron
    fires once, all in one step, so no weight moves), 512^2 for 512 steps
@@ -94,15 +105,36 @@ Phases, one line each:
    electrical synapses on and off, STDP, Poisson and Rate trains,
    Izhikevich, ALIF and DopaIzhikevich lattices), then the chemical main
    paths through `run_lattices`, 64^2 for 2048 steps, the dopamine form
-   for 1024, 512^2 for 1536, every call held against the twin on the state
-   that call received: integers and spikes equal, floats within rtol 1e-6,
+   for 1024, 512^2 for 1536, every call of the first 1280 steps held
+   against the twin on the state that call received, the rest of the run
+   in one call: integers and spikes equal, floats within rtol 1e-6,
    atol 1e-5 (route ("chemical", False), kernel calls, finite state,
    neurons fired, transmitter received); per-step times and the bound at
    512^2;
 20. the dopamine form with a Rate train at 64^2 for 1000 steps: the kernel
    route on the card against the same route on the CPU (2 mV, 2 steps);
 21. steps/s, neuron-updates/s, device time per kernel and device / wall of
-   the chemical kernel and plain routes at 64^2 and 512^2.
+   the chemical kernel and plain routes at 64^2 and 512^2;
+22. the flat-mode arm vs its plain twin on the card: 30 random cases over
+   electrical and chemical networks, both receptor families, the receptor
+   and NT kinetics, dense graphs, dense blocks and both, Poisson and Rate
+   trains (also into a dense block), Izhikevich, ALIF, LIF and
+   DopaIzhikevich, N = 9, 49, 60, 200 and 512; then the three flat
+   main paths through `run_lattices` (the Bayesian network for
+   2500 steps at 7 x 7 + 3 x 3 and for 1024 at 512 + 512, with the cues
+   firing and a grid history; the electrical dense network at 2 x 512 for
+   1024), every call of the first 1024 steps held against the twin on the
+   state that call received, the rest of the run in one call: everything
+   bit-equal (route ("flat-chemical", True) or ("flat", False),
+   kernel calls, finite state, neurons fired, transmitter received, the
+   grid history equal to the twin's emitted rows); per-step times and the
+   bound of the 512 + 512 call; `torch.mv` on a (512, 512) matrix as the
+   library call of one dense gather;
+23. the Bayesian network at 7 x 7 + 3 x 3 with its cues at rate 0 for 1000
+   steps: the kernel route on the card against the same route on the CPU
+   (2 mV, 2 steps; bit-equal expected);
+24. steps/s, neuron-updates/s, device time per kernel and device / wall of
+   the flat kernel route and the plain route on the three main paths.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -175,6 +207,9 @@ HH_KINDS = [(nt, rec) for nt in ("destexhe", "approximate")
             for rec in ("destexhe", "approximate")]
 HMAIN, HBIG = (128, 128), (512, 512)
 HMAIN_STEPS, HBIG_STEPS, HCMP_STEPS, HCMP_EVERY = 2000, 512, 1000, 8
+# the steps of a 128^2 main path held call by call against the twin: both
+# forms fire within them (near steps 50-100 and 580)
+HTWIN_STEPS = 1024
 HCASES = ([((64, 64), k, nt, rec, el, pl, False) for k in (16, 7)
            for nt, rec in HH_KINDS for el in (True, False)
            for pl in (True, False)]
@@ -199,9 +234,25 @@ HH_DRIFT = 5e-2
 # steps), its dopamine form at 64^2, and the card-vs-CPU run at 64^2.
 CMAIN, CBIG = (64, 64), (512, 512)
 CMAIN_STEPS, CBIG_STEPS, CDOPA_STEPS, CCMP_STEPS = 2048, 1536, 1024, 1000
+# of each chemical main path, held call by call to the twin: past lattice
+# 0's first firing
+CTWIN_STEPS = 1280
 # the kernel-vs-twin cases' shapes, taken in turn
 CSHAPES = [(10, 12), (64, 64), (33, 70)]
 CHEM_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
+# Flat-mode phases: the Bayesian-inference network (an excitatory
+# Hopfield-dense DopaIzhikevich lattice, an inhibitory pool, dense blocks
+# both ways, two Poisson cue lattices) at the upstream size and at the flat
+# mode's full width, N = 512 per lattice and block side, and the electrical
+# dense network at N = 512.  (exc shape, inh shape) pairs.
+BAYES, BAYES_BIG = ((7, 7), (3, 3)), ((16, 32), (16, 32))
+BAYES_STEPS, BAYES_BIG_STEPS, FCMP_STEPS = 2500, 1024, 1000
+FTWIN_STEPS = 1024     # of each flat main path, held call by call to the twin
+DENSE_N, DENSE_STEPS = 512, 1024
+CUE_HERTZ = (20.0, 10.0)
+FLAT_NS = (9, 49, 60, 200, 512)
+FLAT_MODES = ("intra", "block", "both")
+FLAT_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # float operations the card needs for one exp: a range reduction (two
@@ -1516,12 +1567,13 @@ def hh_twin_phase(snt, hk, smi):
                 + f"); plain twin {times[1] * 1e3:.3f} us (events); bound "
                 f"{bounds[0] * 1e3 / k:.3f} us ({bounds[1]}); card {smi}")
         del args, got, want
-    # the main path's own inputs: every call of bench.py's 128^2 run, in
-    # both forms, against the twin on the state that call received
+    # the main path's own inputs: the calls of the first `HTWIN_STEPS`
+    # steps of bench.py's 128^2 run, in both forms, each against the twin
+    # on the state that call received
     for firing in (True, False):
         lat = hh_lattice(snt, *HMAIN, firing=firing)
         bad, err, fired, calls_fired = 0, 0.0, 0, 0
-        for _ in range(HMAIN_STEPS // hk.STEPS_PER_LAUNCH):
+        for _ in range(HTWIN_STEPS // hk.STEPS_PER_LAUNCH):
             g, clock = lat.graph, lat.internal_clock
             want = hk.hh_steps_reference(
                 lat.state, g.weights, g.mask, g.in_deg, g.offsets, clock,
@@ -1536,8 +1588,8 @@ def hh_twin_phase(snt, hk, smi):
             n = int((lat.state["last_firing_time"] >= clock).sum())
             fired, calls_fired = fired + n, calls_fired + (n > 0)
         say(f"[15 kernel-vs-twin] main path {HMAIN[0]}x{HMAIN[1]} "
-            f"{'firing' if firing else 'bench.py'} form, every call of "
-            f"run_lattice({HMAIN_STEPS}): integer and flag mismatches {bad}, "
+            f"{'firing' if firing else 'bench.py'} form, every call of the "
+            f"first {HTWIN_STEPS} steps: integer and flag mismatches {bad}, "
             f"max float error {err:.3g}, calls with spikes {calls_fired}, "
             f"neurons fired {fired}")
         check(bad == 0, "firing times, spikes or was_increasing differ on "
@@ -1739,6 +1791,31 @@ def chem_net(snt, rows, cols, use_kernel=None, device="cuda", train="poisson",
     return net
 
 
+def random_chem_state(state, fam, n, rng, f, b):
+    """A lattice's random chemical state across the threshold: ``f(lo, hi,
+    shape)`` and ``b(p, shape)`` draw float and bool tensors on the card."""
+    s = dict(state)
+    for k in list(s):
+        if k.startswith(("nt$", "rec$")) and s[k].is_floating_point() \
+                and k not in ("nt$t", "rec$r", "rec$r2", "rec$current"):
+            s[k] = s[k] * f(0.8, 1.2, tuple(s[k].shape))
+    s.update({"v": f(-70, 40, (n,)), "nt$t": f(0, 1, (n, 3)),
+              "rec$r": f(0, 1, (n, 3)), "nt$mask": b(0.8, (n, 3)),
+              "rec$mask": b(0.8, (n, 3)), "is_spiking": b(0.3, (n,)),
+              "last_firing_time": torch.as_tensor(np.where(
+                  rng.random(n) < 0.3, rng.integers(0, 3, n),
+                  -1).astype(np.int32), device="cuda")})
+    if fam == "dopaglugaba":
+        s.update({"rec$r2": f(0, 1, (n, 3)), "rec$s_d1": f(0.05, 0.2, (n,)),
+                  "rec$s_d2": f(0.05, 0.2, (n,)),
+                  "rec$nmda_modifier": f(0.5, 1.0, (n,)),
+                  "rec$inh_modifier": f(0.5, 1.0, (n,)),
+                  "rec$g_ampa": f(4, 6, (n,)), "rec$e_ampa": f(50, 70, (n,))})
+    else:
+        s["rec$g"] = s["rec$g"] * 5.0
+    return s
+
+
 def chem_case(snt, fam, rec, nt, elec, plastic, train, model, shape, seed):
     """A chemical network of three lattices of ``model`` ("izh", "alif" or
     "dopa") with ``fam`` receptors, ``rec`` / ``nt`` kinetics, made from
@@ -1776,26 +1853,7 @@ def chem_case(snt, fam, rec, nt, elec, plastic, train, model, shape, seed):
                                 keep_prob=0.8, seed=seed + lid,
                                 weight_fn=lambda dr, dc, rr, cc:
                                 rng.uniform(0.5, 1.5, rr.shape))
-        s = dict(lat.state)
-        for k in list(s):
-            if k.startswith(("nt$", "rec$")) and s[k].is_floating_point() \
-                    and k not in ("nt$t", "rec$r", "rec$r2", "rec$current"):
-                s[k] = s[k] * f(0.8, 1.2, tuple(s[k].shape))
-        s.update({"v": f(-70, 40), "nt$t": f(0, 1, (n, 3)),
-                  "rec$r": f(0, 1, (n, 3)), "nt$mask": b(0.8, (n, 3)),
-                  "rec$mask": b(0.8, (n, 3)), "is_spiking": b(0.3),
-                  "last_firing_time": torch.as_tensor(np.where(
-                      rng.random(n) < 0.3, rng.integers(0, 3, n),
-                      -1).astype(np.int32), device="cuda")})
-        if fam == "dopaglugaba":
-            s.update({"rec$r2": f(0, 1, (n, 3)), "rec$s_d1": f(0.05, 0.2),
-                      "rec$s_d2": f(0.05, 0.2),
-                      "rec$nmda_modifier": f(0.5, 1.0),
-                      "rec$inh_modifier": f(0.5, 1.0),
-                      "rec$g_ampa": f(4, 6), "rec$e_ampa": f(50, 70)})
-        else:
-            s["rec$g"] = s["rec$g"] * 5.0
-        lat.state = s
+        lat.state = random_chem_state(lat.state, fam, n, rng, f, b)
         lat.do_plasticity = plastic and lid == 1
         lat.plasticity = snt.STDP(**HH_STDP)
         lats.append(lat)
@@ -1822,17 +1880,18 @@ def chem_case(snt, fam, rec, nt, elec, plastic, train, model, shape, seed):
     return net
 
 
-def chem_inputs(nk, net, n_steps, seed):
-    """One chemical kernel call's inputs from a network's members:
-    (spec, lats, trains, conns, uniforms, rule)."""
+def chem_inputs(nk, net, n_steps, seed, chem=True):
+    """One kernel call's inputs from a network's members: (spec, lats,
+    trains, conns, uniforms, rule); with ``chem`` the network must be a
+    chemical one."""
     from spiking_neural_networks_tpu_torch.core.structured import (
         nt_flags, resolve_structured_plan)
     plan = resolve_structured_plan(net)
     flags = nt_flags(net, plan)
-    spec = nk.plain_network_spec(net, plan, False,
+    spec = nk.plain_network_spec(net, plan, not any(flags),
                                  flags[len(plan["lat_ids"]):])
-    check(spec is not None and bool(spec.chem),
-          "the network is outside the chemical arm's class")
+    check(spec is not None and bool(spec.chem) == chem,
+          "the network is outside the kernels' class")
     lats, trains, conns = nk.member_inputs(spec, net, plan)
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -1938,9 +1997,10 @@ def chem_phases(snt, smi):
 
 def chem_twin_phase(snt, nk, smi):
     """19. The chemical arm vs its plain twin on the card: every family x
-    receptor kinetics x NT kinetics on random cases, then every call of
-    the 64^2 main path, its dopamine form and the 512^2 main path through
-    `run_lattices`, on the state that call received; returns (max float
+    receptor kinetics x NT kinetics on random cases, then the 64^2 main
+    path, its dopamine form and the 512^2 main path through `run_lattices`,
+    every call of their first `CTWIN_STEPS` steps on the state that call
+    received; returns (max float
     error, (kernel, twin, device) ms per step at 512^2, the bound of a
     512^2 call, the main paths' chemical kernel calls)."""
     import itertools
@@ -1976,8 +2036,9 @@ def chem_twin_phase(snt, nk, smi):
                   if x.is_floating_point()), "a random case went non-finite")
         max_err, n_cases = max(max_err, err), n_cases + 1
         del net, args, got, want
-    # every call of the main paths through `run_lattices`, each held
-    # against the twin on the state that call received
+    # the main paths through `run_lattices`: every call of the first
+    # `CTWIN_STEPS` steps held against the twin on the state that call
+    # received, then the rest of the run in one call
     times = bounds = None
     launches = 0
     keys = ("v", "w", "lft", "spikes", "refr", "chem")
@@ -1990,6 +2051,18 @@ def chem_twin_phase(snt, nk, smi):
         nk.LAUNCHES = nk.CHEM_LAUNCHES = 0
         for call in range(steps // nk.STEPS_PER_LAUNCH):
             clock = net.internal_clock
+            if call * nk.STEPS_PER_LAUNCH >= CTWIN_STEPS:
+                # the rest of the run in one call, not held against the twin
+                net.run_lattices(steps - call * nk.STEPS_PER_LAUNCH)
+                torch.cuda.synchronize()
+                check(net._last_run_fused == ("chemical", False),
+                      "the main path missed the chemical arm")
+                fired += sum(int((l.state["last_firing_time"] >= clock).sum())
+                             for l in net.lattices.values())
+                nmda_moved |= any(
+                    bool((l.state["rec$nmda_modifier"] != 1.0).any())
+                    for l in net.lattices.values())
+                break
             g = torch.Generator(device="cuda")
             g.set_state(net.generator().get_state())
             spec, lats, trains, conns, _, rule = chem_inputs(nk, net, 1, 0)
@@ -2037,8 +2110,9 @@ def chem_twin_phase(snt, nk, smi):
         per_lat = [int((l.state["last_firing_time"] >= 0).sum())
                    for l in net.lattices.values()]
         l1 = net.lattices[1].state
-        say(f"[19 main path] chemical {label} {shape[0]}x{shape[1]}, every "
-            f"call of run_lattices({steps}) against the twin: route "
+        say(f"[19 main path] chemical {label} {shape[0]}x{shape[1]}, "
+            f"run_lattices over {steps} steps, every call of the first "
+            f"{min(steps, CTWIN_STEPS)} against the twin: route "
             f"{net._last_run_fused}, kernel calls {calls}, integer and spike "
             f"mismatches {bad}, max float error {err:.3g}, state finite "
             f"{finite}, fired per lattice {per_lat} of "
@@ -2156,6 +2230,535 @@ def chem_times_phase(snt, smi):
         del kern, plain
 
 
+# ---------------------------------------------------------------------------
+# Flat mode (dense graphs and dense blocks): phases 22-24
+# ---------------------------------------------------------------------------
+
+
+def bayes_net(snt, exc, inh, use_kernel=None, device="cuda", seed=5,
+              hertz=CUE_HERTZ, history=True):
+    """The Bayesian-inference network of the upstream science pipeline
+    (`bench.py:553-589`; the JAX package's kernel test builds it through
+    its lixirnet surface): lattice 1, ``exc`` `DopaIzhikevich` neurons
+    (c_m 25) with Hopfield-dense intra weights (normal, |w| < 0.8 and the
+    diagonal dropped) through `Lattice.connect`, releasing glutamate, a
+    grid history, v0 uniform in [-65, -45) with a third at 40 mV; lattice
+    0, the ``inh`` pool (v0 0) releasing GABA; both with Glutamate (r_max
+    10), GABA and Dopamine (s_d1 0, s_d2 0.5) receptors and bounded
+    kinetics; inh -> exc all to all (0.5), exc -> inh where (row_pre +
+    col_post) is even (1.0), both through `LatticeNetwork.connect`; two
+    Poisson cue lattices of the exc shape, one releasing glutamate (one to
+    one, 5.0) and one dopamine (2.0), at ``hertz``; dt 1 ms; chemical
+    synapses only."""
+    rng = np.random.default_rng(seed)
+    rows, cols = exc
+    num = rows * cols
+    w = rng.normal(0.0, 1.0, (num, num))
+    w[np.abs(w) < 0.8] = 0.0
+    np.fill_diagonal(w, 0.0)
+    v0 = rng.uniform(-65.0, -45.0, num)
+    v0[rng.permutation(num)[:num // 3]] = 40.0
+
+    def lattice(lid, shape, releases, **fields):
+        model = snt.DopaIzhikevich(
+            nt_kinetics="bounded", rec_kinetics="bounded",
+            receptors=snt.DopaGluGABAReceptors("bounded"))
+        lat = snt.Lattice(model, id=lid, device=device)
+        lat.populate(*shape, **fields)
+        s = model.insert_receptor(lat.state, "Glutamate",
+                                  **{"r_max": 10.0, "r2$r_max": 10.0})
+        s = model.insert_receptor(s, "GABA")
+        s = model.insert_receptor(s, "Dopamine", s_d1=0.0, s_d2=0.5)
+        lat.state = model.insert_neurotransmitter(s, releases,
+                                                  clearance_constant=0.001)
+        return lat
+
+    inh_lat = lattice(0, inh, "GABA", v=0.0)
+    exc_lat = lattice(1, exc, "Glutamate", c_m=25.0,
+                      v=v0.astype(np.float32))
+
+    def index(pos):
+        return pos[0] * cols + pos[1]
+
+    exc_lat.connect(lambda x, y: bool(w[index(x)][index(y)] != 0),
+                    lambda x, y: float(w[index(x)][index(y)]))
+    exc_lat.update_grid_history = history
+    cues = []
+    for sid, slot in ((2, 0), (3, 2)):
+        st = snt.SpikeTrainLattice(snt.PoissonSpikeTrain(
+            nt_kinetics="bounded"), id=sid, device=device)
+        st.populate(rows, cols)
+        st.state = st.model.insert_neurotransmitter(
+            st.state, st.model.type_names[slot], clearance_constant=0.001)
+        cues.append(st)
+    net = snt.LatticeNetwork.generate_network([inh_lat, exc_lat], cues)
+    net.connect(0, 1, lambda x, y: True, lambda x, y: 0.5)
+    net.connect(1, 0, lambda x, y: (x[0] + y[1]) % 2 == 0, lambda x, y: 1.0)
+    net.connect(2, 1, lambda x, y: x == y, lambda x, y: 5.0)
+    net.connect(3, 1, lambda x, y: x == y, lambda x, y: 2.0)
+    net.set_dt(1.0)
+    for st, hz in zip(cues, hertz):
+        st.state["chance_of_firing"] = torch.full_like(
+            st.state["chance_of_firing"],
+            st.model.rate_to_chance(hz, 1.0) if hz else 0.0)
+    net.electrical_synapse = False
+    net.chemical_synapse = True
+    net.use_kernel = use_kernel
+    return net
+
+
+def dense_net(snt, n, use_kernel=None, device="cuda", seed=5):
+    """The electrical dense network of the JAX package's flat-mode kernel
+    test at width ``n``, in a form that fires: two (1, n) Izhikevich
+    lattices (gap 10) with random dense intra graphs (30% of the pairs,
+    weights in [0.2, 1)), v0 uniform in [-70, -40) with a third at 40 mV, a
+    Rate train of 1 ms into lattice 0 one to one (100) and a random dense
+    block (10% of the pairs, 20) from lattice 0 into lattice 1."""
+    rng = np.random.default_rng(seed)
+    lats = []
+    for lid in range(2):
+        lat = snt.Lattice(snt.Izhikevich(), id=lid, device=device)
+        lat.populate(1, n, gap_conductance=10.0)
+        mask = rng.random((n, n)) < 0.3
+        np.fill_diagonal(mask, False)
+        w = rng.uniform(0.2, 1.0, (n, n)).astype(np.float32)
+        lat.set_graph(snt.DenseGraph(
+            torch.as_tensor(np.where(mask, w, 0.0).astype(np.float32),
+                            device=device),
+            torch.as_tensor(mask, device=device)))
+        v = rng.uniform(-70, -40, n).astype(np.float32)
+        v[rng.permutation(n)[:n // 3]] = 40.0
+        lat.state = {**lat.state, "v": torch.as_tensor(v, device=device)}
+        lats.append(lat)
+    st = rate_train(snt, 2, 1, n, device)
+    net = snt.LatticeNetwork.generate_network(lats, [st])
+    net.connections[(2, 0)] = one_to_one_coo(n, 100.0)
+    src, dst = np.nonzero(rng.random((n, n)) < 0.1)
+    net.connections[(0, 1)] = (src.astype(np.int64), dst.astype(np.int64),
+                               np.full(len(src), 20.0, np.float32))
+    net.use_kernel = use_kernel
+    return net
+
+
+def flat_case(snt, chem, fam, rec, nt, elec, mode, train, model, n, seed):
+    """A random flat-mode network of three (1, N) lattices of ``model``
+    ("izh", "alif", "dopa", and without chemistry "lif"), widths n, n1, n1
+    (n1 = n in mode "intra", else 3n/4, so that the blocks are not
+    square), made from ``seed``: v across the threshold, 30% with a past
+    firing time at clock 3, and with ``chem`` the random chemical state of
+    the chemical cases; lattices 0 and 1 on random dense graphs (30% of
+    the pairs, weights everywhere, so the mask matters) in modes "intra"
+    and "both", edgeless otherwise; random dense blocks (20% of the pairs)
+    0 -> 1 and 1 -> 0 in modes "block" and "both", and in "both" one from
+    the train into lattice 1; else 0 -> 1 one to one; the edgeless
+    lattice 2 into lattice 1 and the Poisson (300 Hz) or Rate train into
+    lattice 0 one to one.  Chemical weights are positive (a negative
+    receptor input turns the NMDA gate's power into NaN)."""
+    rng = np.random.default_rng(seed)
+    n1 = n if mode == "intra" else max(3 * n // 4, 4)
+    recs = snt.DopaGluGABAReceptors(rec) if fam == "dopaglugaba" \
+        else snt.IonotropicReceptors(rec)
+    cls = {"izh": snt.Izhikevich, "dopa": snt.DopaIzhikevich,
+           "alif": snt.AdaptiveLeakyIntegrateAndFire,
+           "lif": snt.LeakyIntegrateAndFire}[model]
+
+    def f(lo, hi, shp):
+        return torch.as_tensor(rng.uniform(lo, hi, shp).astype(np.float32),
+                               device="cuda")
+
+    def b(p, shp):
+        return torch.as_tensor(rng.random(shp) < p, device="cuda")
+
+    def lft(m):
+        return torch.as_tensor(np.where(
+            rng.random(m) < 0.3, rng.integers(0, 3, m),
+            -1).astype(np.int32), device="cuda")
+
+    lats = []
+    for lid, m in enumerate((n, n1, n1)):
+        lat = snt.Lattice(cls(nt_kinetics=nt, rec_kinetics=rec,
+                              receptors=recs) if chem else cls(),
+                          id=lid, device="cuda")
+        lat.populate(1, m, gap_conductance=10.0)
+        if lid < 2 and mode != "block":
+            mask = rng.random((m, m)) < 0.3
+            w = rng.uniform(0.5, 1.5, (m, m)) if chem \
+                else rng.normal(0.0, 1.0, (m, m))
+            lat.set_graph(snt.DenseGraph(
+                torch.as_tensor(w.astype(np.float32), device="cuda"),
+                torch.as_tensor(mask, device="cuda")))
+        if chem:
+            lat.state = random_chem_state(lat.state, fam, m, rng, f, b)
+        else:
+            lo, hi = (-70, 40) if model == "izh" else (-75, -48)
+            lat.state = {**lat.state, "v": f(lo, hi, (m,)),
+                         "last_firing_time": lft(m)}
+        lats.append(lat)
+    tm = (snt.PoissonSpikeTrain if train == "poisson"
+          else snt.RateSpikeTrain)(nt_kinetics=nt)
+    st = snt.SpikeTrainLattice(tm, id=5, device="cuda")
+    st.populate(1, n)
+    st.state = tm.init_from_firing_rate(n, hertz=300.0, dt=0.1,
+                                        device="cuda") \
+        if train == "poisson" else tm.init_state(n, rate=0.5, dt=0.1,
+                                                 device="cuda")
+    st.state = {**st.state, "last_firing_time": lft(n)}
+    if chem:
+        st.state = {**tm.insert_neurotransmitter(st.state, "AMPA"),
+                    "nt$t": f(0, 1, (n, 3))}
+    net = snt.LatticeNetwork.generate_network(lats, [st])
+
+    def block(n_pre, n_post, lo, hi):
+        src, dst = np.nonzero(rng.random((n_pre, n_post)) < 0.2)
+        return (src.astype(np.int64), dst.astype(np.int64),
+                rng.uniform(lo, hi, len(src)).astype(np.float32))
+
+    net.connections[(5, 0)] = one_to_one_coo(n, 3.0)
+    net.connections[(2, 1)] = one_to_one_coo(n1, 1.0)
+    if mode == "intra":
+        net.connections[(0, 1)] = one_to_one_coo(n, 1.5)
+    else:
+        net.connections[(0, 1)] = block(n, n1, 0.5, 1.5)
+        net.connections[(1, 0)] = block(n1, n, 0.5, 1.5)
+        if mode == "both":
+            net.connections[(5, 1)] = block(n, n1, 1.0, 3.0)
+    net.electrical_synapse = elec or not chem
+    net.chemical_synapse = chem
+    net.internal_clock = 3
+    return net
+
+
+def net_state_as_outputs(net, spec, chem_keys):
+    """The members' states after a run, in the layout of a kernel call's
+    outputs (the spec's shapes), for `compare_chem`."""
+    lats = []
+    for ls, lat in zip(spec.lattices,
+                       (net.lattices[i] for i in sorted(net.lattices))):
+        s, shp = lat.state, ls.shape
+        lats.append(dict(
+            v=s["v"].reshape(shp), w=s["w"].reshape(shp),
+            lft=s["last_firing_time"].reshape(shp),
+            spikes=s["is_spiking"].reshape(shp),
+            chem={k: s[k] for k in chem_keys} if chem_keys else None))
+    trains = [dict(lft=st.state["last_firing_time"].reshape(ts.shape),
+                   ntt=st.state["nt$t"] if ts.nt else None)
+              for ts, st in zip(spec.trains, (
+                  net.spike_train_lattices[i]
+                  for i in sorted(net.spike_train_lattices)))]
+    return lats, trains, []
+
+
+def flat_ops(spec, lats, conns, k):
+    """Float operations one flat-mode call of ``k`` steps needs (`EXP_OPS`
+    per exp).  Per entry of a dense graph or block and step, a multiply
+    and an add for each sum that changes with the state: 2 for the
+    electrical sum and 6 for the three chemical sums.  What the state does
+    not change is taken once per call: the column sum of the weights that
+    the electrical term subtracts (1 per entry; a train subtracts nothing)
+    and the three chemical counts (6 per entry).  Per cell and step the
+    model step (23), with electrical synapses the re-expansion, gap and
+    count (6), with chemistry what `chem_ops` counts per cell."""
+    def per_entry(train, nt):
+        return (((2 * k + (0 if train else 1)) if spec.electrical else 0)
+                + ((6 * k + 6) if spec.chem and nt else 0))
+
+    ops = 0
+    dopa = bool(spec.chem) and spec.chem[0] == "dopaglugaba"
+    for i, (ls, d) in enumerate(zip(spec.lattices, lats)):
+        n = ls.shape[1]
+        n_in = sum(cs.post == i for cs in spec.conns)
+        per_cell = 23 + (6 + 2 * n_in if spec.electrical else 0)
+        if spec.chem:
+            per_cell += (3 + 3 * (6 + 4 * n_in) + 3 * 2 * (2 if dopa else 1)
+                         + (19 if dopa else 13) + EXP_OPS + 3 + 3 * 6)
+        entries = n * n if ls.graph == "dense" else 0
+        ops += k * n * per_cell + entries * per_entry(False, True)
+    for cs, c in zip(spec.conns, conns):
+        if cs.op[0] != "dense":
+            continue
+        nt = not cs.pre_is_st or bool(spec.trains[cs.pre].nt)
+        ops += c["w"].numel() * per_entry(cs.pre_is_st, nt)
+    return ops
+
+
+def flat_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    max_err, times, bounds, launches, lib_ms = flat_twin_phase(snt, nk, smi)
+    flat_cmp_phase(snt)
+    flat_times_phase(snt, smi)
+    return {"name": "network_steps (flat-mode arm)", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "network_plasticity.cu",
+            "replaces": FLAT_REPLACES, "launches": launches,
+            "max_abs_err": max_err,
+            "ms": times[0] * nk.STEPS_PER_LAUNCH,
+            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
+            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "bound_ms": bounds[0], "bound_by": bounds[1],
+            "library_ms": lib_ms,
+            "library_call": f"torch.mv on one ({DENSE_N}, {DENSE_N}) float32 "
+                            f"matrix: one dense gather of one step"}
+
+
+def flat_twin_phase(snt, nk, smi):
+    """22. The flat-mode arm vs its plain twin on the card: random cases
+    over electrical and chemical networks, both receptor families, the
+    kinetics, dense graphs, dense blocks and both, Poisson and Rate trains,
+    N in `FLAT_NS`; then the three main paths through `run_lattices`, every
+    call of their first `FTWIN_STEPS` steps on the state that call
+    received.  Returns (max float error, (kernel, twin, device) ms per
+    step of the N = 512 Bayesian
+    network, that call's bound, the main paths' flat-mode kernel calls,
+    the ms of one `torch.mv` on a (512, 512) matrix)."""
+    import itertools
+    max_err, n_cases = 0.0, 0
+    kinetics = list(itertools.product(nk.REC_KINDS, nk.NT_KINDS))
+    for seed, (n, mode, chem) in enumerate(itertools.product(
+            FLAT_NS, FLAT_MODES, (False, True))):
+        fam = nk.CHEM_FAMILIES[(seed // 2) % 2]
+        rec, nt = kinetics[(seed * 7) % len(kinetics)]
+        train = "poisson" if seed % 4 < 2 else "rate"
+        elec = seed % 3 > 0
+        model = (("izh", "dopa", "alif") if chem
+                 else ("izh", "lif", "alif"))[seed % 3]
+        if fam == "ionotropic" and model == "dopa":
+            model = "izh"
+        k = 16 if seed % 2 else 7
+        net = flat_case(snt, chem, fam, rec, nt, elec, mode, train, model, n,
+                        seed)
+        args = chem_inputs(nk, net, k, seed, chem)
+        check(nk.is_flat(args[0]), "a random case is not in flat mode")
+        got = nk.network_steps(*args, 3, k)
+        torch.cuda.synchronize()
+        want = nk.network_steps_reference(*args, 3, k)
+        err, bad, _ = compare_chem(got, want)
+        fired = sum(int((d["lft"] >= 3).sum()) for d in got[0])
+        what = f"{fam} {rec}/{nt} electrical={elec}" if chem \
+            else "electrical only"
+        say(f"[22 kernel-vs-twin] N={n} mode={mode} K={k} {model} {what} "
+            f"{train}: integer and spike mismatches {bad}, max float error "
+            f"{err:.3g}, fired {fired}")
+        check(bad == 0, "firing times, spikes or counts differ")
+        check(err == 0.0, "the flat arm is not bit-equal to its twin")
+        check(fired > 0, "no neuron fired in the call")
+        check(all(bool(torch.isfinite(x).all()) for _, x in flat_outputs(got)
+                  if x.is_floating_point()), "a random case went non-finite")
+        max_err, n_cases = max(max_err, err), n_cases + 1
+        del net, args, got, want
+    # the main paths through `run_lattices`: every call of the first
+    # `FTWIN_STEPS` steps held against the twin on the state that call
+    # received, then the rest of the run in one call
+    times = bounds = None
+    launches = 0
+    K = nk.STEPS_PER_LAUNCH
+    paths = (
+        (f"Bayesian network {BAYES[0][0]}x{BAYES[0][1]} + "
+         f"{BAYES[1][0]}x{BAYES[1][1]}", lambda: bayes_net(snt, *BAYES),
+         BAYES_STEPS, ("flat-chemical", True)),
+        (f"Bayesian network {BAYES_BIG[0][0]}x{BAYES_BIG[0][1]} + "
+         f"{BAYES_BIG[1][0]}x{BAYES_BIG[1][1]}",
+         lambda: bayes_net(snt, *BAYES_BIG), BAYES_BIG_STEPS,
+         ("flat-chemical", True)),
+        (f"electrical dense network N={DENSE_N}",
+         lambda: dense_net(snt, DENSE_N), DENSE_STEPS, ("flat", False)))
+    for label, build, steps, route in paths:
+        t0 = time.perf_counter()
+        net = build()
+        built = time.perf_counter() - t0
+        chem = route[0] == "flat-chemical"
+        bad, err, fired, herr, timed = 0, 0.0, 0, 0.0, None
+        nk.LAUNCHES = nk.CHEM_LAUNCHES = nk.FLAT_LAUNCHES = 0
+        done = 0
+        while done < steps:
+            n = min(K, steps - done)
+            clock = net.internal_clock
+            if done >= FTWIN_STEPS:
+                # the rest of the run in one call, not held against the twin
+                net.run_lattices(steps - done)
+                torch.cuda.synchronize()
+                check(net._last_run_fused == route,
+                      f"the main path took {net._last_run_fused}, not {route}")
+                fired += sum(int((l.state["last_firing_time"] >= clock).sum())
+                             for l in net.lattices.values())
+                break
+            g = torch.Generator(device="cuda")
+            g.set_state(net.generator().get_state())
+            spec, lats, trains, conns, _, rule = chem_inputs(nk, net, 1, 0,
+                                                             chem)
+            uniforms = [torch.rand((n, *ts.shape), generator=g, device="cuda")
+                        if ts.kind == "poisson" else None
+                        for ts in spec.trains]
+            args = (spec, lats, trains, conns, uniforms, rule)
+            want = nk.network_steps_reference(*args, clock, n)
+            if done == 0:
+                timed = (args, clock)
+            net.run_lattices(n)
+            torch.cuda.synchronize()
+            check(net._last_run_fused == route,
+                  f"the main path took {net._last_run_fused}, not {route}")
+            keys = nk.chem_out_keys(spec.chem) if chem else ()
+            got = net_state_as_outputs(net, spec, keys)
+            ref = ([dict(v=d["v"], w=d["w"], lft=d["lft"], spikes=d["spikes"],
+                         chem=d["chem"]) for d in want[0]],
+                   [dict(lft=d["lft"], ntt=d["ntt"]) for d in want[1]], [])
+            e, b, _ = compare_chem(got, ref)
+            bad, err = bad + b, max(err, e)
+            fired += sum(int((d["lft"] >= clock).sum()) for d in got[0])
+            for ls, d, lat in zip(spec.lattices, want[0], (
+                    net.lattices[i] for i in sorted(net.lattices))):
+                if not ls.emit:
+                    continue
+                # the grid history, rebuilt from the emitted (1, N) rows in
+                # the lattice's own (rows, cols)
+                st = lat.state
+                v_pre = d["v_pre"].reshape(n, -1)
+                hist = torch.where(v_pre >= st["v_th"], st["c"], v_pre)
+                rec = torch.from_numpy(np.stack(
+                    lat.grid_history.history[-n:])).cuda()
+                herr = max(herr, (rec.reshape(n, -1) - hist).abs().max()
+                           .item())
+            done += n
+        calls = nk.FLAT_LAUNCHES
+        launches += calls
+        members = list(net.lattices.values()) \
+            + list(net.spike_train_lattices.values())
+        finite = all(bool(torch.isfinite(x).all()) for m in members
+                     for x in m.state.values() if x.is_floating_point())
+        per_lat = {i: int((l.state["last_firing_time"] >= 0).sum())
+                   for i, l in net.lattices.items()}
+        cue = {i: int((s.state["last_firing_time"] >= 0).sum())
+               for i, s in net.spike_train_lattices.items()}
+        extra = ""
+        if chem:
+            inh, exc = net.lattices[0].state, net.lattices[1].state
+            extra = (f", exc max nt$t {exc['nt$t'].max().item():.4g}, inh "
+                     f"max rec$r {inh['rec$r'].max().item():.4g}, exc "
+                     f"inh_mod range [{exc['rec$inh_modifier'].min().item():.4f}"
+                     f", {exc['rec$inh_modifier'].max().item():.4f}], history "
+                     f"{len(net.lattices[1].grid_history.history)} steps, max "
+                     f"history error {herr:.3g}")
+            check(exc["nt$t"].max().item() > 0
+                  and inh["rec$r"].max().item() > 0,
+                  f"{label}: no transmitter released or received")
+            check(len(net.lattices[1].grid_history.history) == steps
+                  and herr == 0.0, f"{label}: the grid history differs")
+        say(f"[22 main path] {label} (built in {built:.1f} s), "
+            f"run_lattices over {steps} steps, every call of the first "
+            f"{min(steps, FTWIN_STEPS)} against the twin: route "
+            f"{net._last_run_fused}, kernel calls {calls}, integer and spike "
+            f"mismatches {bad}, max float error {err:.3g}, state finite "
+            f"{finite}, fired per lattice {per_lat}, per train {cue}, spikes "
+            f"{fired}{extra}")
+        check(bad == 0 and err == 0.0, "the main path differs from the twin")
+        check(calls == nk.LAUNCHES == -(-steps // K)
+              and nk.CHEM_LAUNCHES == (calls if chem else 0),
+              "wrong number of flat-mode kernel calls")
+        check(finite and fired > 0, f"{label}: non-finite state or no spike")
+        # one 16-step call on the state the run started from: events,
+        # profiled device time, the twin and the bound
+        args, clock = timed
+        spec, lats, trains, conns, uniforms, _ = args
+        kernel = lambda: nk.network_steps(*args, clock, K)
+        call_bound = bound(chem_bytes(spec, lats, trains, conns, uniforms,
+                                      kernel()),
+                           flat_ops(spec, lats, conns, K))
+        dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
+                                  10 * K, n_top=4)
+        call_times = (event_ms(kernel, 10) / K,
+                      event_ms(lambda: nk.network_steps_reference(
+                          *args, clock, K), 2) / K, dev_us / 1e3)
+        say(f"[22 kernel-vs-twin] main path {label} K={K} per step: kernel "
+            f"calls back to back {call_times[0] * 1e3:.3f} us (events), of "
+            f"which device time {dev_us:.3f} us (profiled: "
+            + ", ".join(f"{n} {t:.3f}" for n, t in top)
+            + f"); plain twin {call_times[1] * 1e3:.3f} us (events); bound "
+            f"{call_bound[0] * 1e3 / K:.4f} us ({call_bound[1]}); card {smi}")
+        if chem and net.lattices[1].n == DENSE_N:
+            times, bounds = call_times, call_bound    # the full-width call
+        del net, timed
+    wm = torch.randn((DENSE_N, DENSE_N), device="cuda")
+    vec = torch.randn(DENSE_N, device="cuda")
+    lib_ms = event_ms(lambda: torch.mv(wm, vec), 200)
+    say(f"[22 library] torch.mv on a ({DENSE_N}, {DENSE_N}) float32 matrix "
+        f"(one dense gather of one step): {lib_ms * 1e3:.3f} us per call "
+        f"(events, 200 calls back to back); card {smi}")
+    say(f"[22 kernel-vs-twin] max float error over {n_cases} random cases "
+        f"and the main paths {max_err:.3g} (0 = bit-equal)")
+    return max_err, times, bounds, launches, lib_ms
+
+
+def flat_cmp_phase(snt):
+    """23. The upstream-size Bayesian network with its cues at rate 0 for
+    1000 steps: the kernel route on the card against the same route (the
+    twin) on the CPU."""
+    runs = {}
+    for key, device, uk in (("kernel", "cuda", None), ("cpu", "cpu", True)):
+        net = bayes_net(snt, *BAYES, use_kernel=uk, device=device,
+                        hertz=(0.0, 0.0))
+        net.run_lattices(FCMP_STEPS)
+        lats = [net.lattices[i] for i in sorted(net.lattices)]
+        runs[key] = (np.stack(net.lattices[1].grid_history.history),
+                     [l.field("last_firing_time").astype(np.int64)
+                      for l in lats],
+                     [l.field(k) for l in lats
+                      for k in ("nt$t", "rec$r", "rec$r2", "rec$current")],
+                     net._last_run_fused)
+    check(runs["kernel"][3] == runs["cpu"][3] == ("flat-chemical", True),
+          "wrong flat-mode routes")
+    dv = float(np.abs(runs["kernel"][0] - runs["cpu"][0]).max())
+    dl = max(int(np.abs(a - b).max())
+             for a, b in zip(runs["kernel"][1], runs["cpu"][1]))
+    dc = max(float(np.abs(a - b).max())
+             for a, b in zip(runs["kernel"][2], runs["cpu"][2]))
+    fired = [int((x >= 0).sum()) for x in runs["kernel"][1]]
+    say(f"[23 kernel-vs-cpu] Bayesian network {BAYES[0][0]}x{BAYES[0][1]} + "
+        f"{BAYES[1][0]}x{BAYES[1][1]}, cues at rate 0, {FCMP_STEPS} steps, "
+        f"kernel route on the card vs on the CPU: max|dv| {dv:.4g} mV over "
+        f"the exc history, max|dlft| {dl} steps, max chemical field "
+        f"difference {dc:.4g}, fired per lattice {fired}")
+    check(dv <= 2.0 and dl <= 2, "flat card vs CPU outside 2 mV / 2 steps")
+    check(sum(fired) > 0, "no neuron of the comparison fired")
+
+
+def flat_times_phase(snt, smi):
+    """24. Times of the flat kernel route and the plain route on the three
+    main paths, in turns: wall per step (median of 5 after a warm-up) and
+    the kernels' device time per step."""
+    for label, build, kern_steps, plain_steps, route in (
+            ("Bayesian 7x7 + 3x3", lambda uk: bayes_net(
+                snt, *BAYES, use_kernel=uk), 1024, 128,
+             ("flat-chemical", True)),
+            (f"Bayesian N={DENSE_N} + N={DENSE_N}", lambda uk: bayes_net(
+                snt, *BAYES_BIG, use_kernel=uk), 1024, 64,
+             ("flat-chemical", True)),
+            (f"electrical dense N={DENSE_N}", lambda uk: dense_net(
+                snt, DENSE_N, use_kernel=uk), 1024, 128, ("flat", False))):
+        kern, plain = build(None), build(False)
+        run_net_synced(kern, kern_steps)
+        run_net_synced(plain, plain_steps)
+        tk, tp = [], []
+        for rep in range(5):
+            tk.append(run_net_synced(kern, kern_steps))
+            if rep < 3:
+                tp.append(run_net_synced(plain, plain_steps))
+        check(kern._last_run_fused == route
+              and plain._last_run_fused is False,
+              "timed the wrong flat-mode routes")
+        mk, mp = float(np.median(tk)), float(np.median(tp))
+        dev_us, top = profiled_us(lambda: run_net_synced(kern, PROFILE_STEPS),
+                                  PROFILE_STEPS, n_top=5)
+        n_all = sum(l.n for l in kern.lattices.values())
+        busy = dev_us * kern_steps / (mk * 1e6)
+        say(f"[24 times] {label}: kernel route (use_kernel=None) "
+            f"{net_rate(n_all, mk, kern_steps)}, median of 5 x {kern_steps} "
+            f"steps; device time {dev_us:.3f} us/step (profiled: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device time / wall {busy:.3f}; plain route "
+            f"(use_kernel=False) {net_rate(n_all, mp, plain_steps)}, median "
+            f"of 3 x {plain_steps} steps; card {smi}")
+        del kern, plain
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2186,11 +2789,11 @@ def main():
           and lib.lp_max_offsets() == rk.MAX_OFFSETS
           and lib.hh_max_offsets() == hk.MAX_OFFSETS,
           "MAX_OFFSETS differs between a CUDA source and its wrapper")
-    limits = (ctypes.c_int * 11)()
+    limits = (ctypes.c_int * 13)()
     lib.net_limits(limits)
     check(list(limits) == [nk.MAX_IN, rk.MAX_OFFSETS, nk.MAX_TAPS, nk.NL_I,
                            nk.NL_P, nk.NT_I, nk.NT_P, nk.NC_I, nk.NC_P,
-                           nk.NLC_P, nk.NTC_P],
+                           nk.NLC_P, nk.NTC_P, nk.DENSE_N_MAX, nk.DENSE_SEG],
           f"the network kernels' limits {list(limits)} differ from their "
           f"wrapper's")
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
@@ -2201,9 +2804,12 @@ def main():
         f"{load_s:.2f} s, {os.path.basename(_build.library_path())}; "
         f"ptxas: {' / '.join(ptxas)}")
 
-    kernels = [stencil_phases(snt, smi), plasticity_phases(snt, smi),
-               network_phases(snt, smi), hh_phases(snt, smi),
-               chem_phases(snt, smi)]
+    kernels = []
+    for phases in (stencil_phases, plasticity_phases, network_phases,
+                   hh_phases, chem_phases, flat_phases):
+        t0 = time.perf_counter()
+        kernels.append(phases(snt, smi))
+        say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -6,14 +6,16 @@ electrical lattice on a stencil graph (Izhikevich, adaptive leaky and
 leaky integrate-and-fire neurons), the Hodgkin-Huxley lattice with
 chemical synapses (Ionotropic receptors), the plain `Lattice` with STDP,
 the reward-modulated (R-STDP) lattice, spike trains and the plain
-`LatticeNetwork` of lattices and trains, with their history readouts, and
+`LatticeNetwork` of lattices and trains (electrical and chemical, on
+stencil, dense and sparse graphs with one-to-one, resample and dense
+connections), with their history readouts, and
 hand-written CUDA kernels for NVIDIA Hopper (``csrc/``) that run those
 lattices' and networks' steps on the GPU.  Entry points put their tensors
 on the GPU (``device="cuda"``) unless the caller asks for another device.
 It imports PyTorch and NumPy, never JAX.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from .models.integrate_and_fire import (
     AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
@@ -28,5 +30,6 @@ from .core.reward import RewardModulatedLattice
 from . import errors
 from .core.plasticity import STDP, RewardModulatedSTDP
 from .core import history
-from .ops.graph import SparseGraph, StencilGraph, radius_offsets
+from .ops.graph import (DenseGraph, SparseGraph, StencilGraph,
+                        radius_offsets)
 from .ops.receptors import DopaGluGABAReceptors, IonotropicReceptors

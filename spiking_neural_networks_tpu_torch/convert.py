@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .core import history
-from .ops.graph import SparseGraph, StencilGraph
+from .ops.graph import DenseGraph, SparseGraph, StencilGraph
 
 
 def _tensor(a, device):
@@ -37,8 +37,10 @@ def stencil_graph_from_numpy(offsets, weights, mask, in_deg, device):
 
 
 def graph_from(g, device):
-    """A port `StencilGraph` or `SparseGraph` with the arrays of graph
-    ``g`` (any object with the JAX package's attribute names)."""
+    """A port `StencilGraph`, `SparseGraph` or `DenseGraph` with the arrays
+    of graph ``g`` (any object with the JAX package's attribute names; a
+    dense graph has ``weights`` and ``mask`` of shape (n_pre, n_post) and
+    neither ``offsets`` nor ``src``)."""
     if hasattr(g, "offsets"):
         return stencil_graph_from_numpy(g.offsets, np.asarray(g.weights),
                                         np.asarray(g.mask),
@@ -49,6 +51,11 @@ def graph_from(g, device):
                            _tensor(np.asarray(g.weights, np.float32), device),
                            g.n_pre, g.n_post,
                            _tensor(np.asarray(g.in_deg, np.float32), device))
+    if hasattr(g, "weights") and hasattr(g, "mask") \
+            and np.ndim(g.weights) == 2 \
+            and np.shape(g.weights) == np.shape(g.mask):
+        return DenseGraph(_tensor(np.asarray(g.weights, np.float32), device),
+                          _tensor(np.asarray(g.mask, bool), device))
     raise TypeError(f"no port graph for {type(g).__name__}")
 
 

@@ -39,7 +39,7 @@ from ..errors import GraphError
 CHEMICAL_NOT_PORTED = (
     "chemical synapses in reward-modulated lattices are not ported to the "
     "PyTorch package yet: they come with the reward slice (ROADMAP queue 1, "
-    "item 7; queue 2, item 7c)")
+    "item 3; queue 2, kernel 6c)")
 
 
 class Lattice:
@@ -96,9 +96,16 @@ class Lattice:
         """Connect every (pre, post) pair of positions for which
         ``connecting_conditional((r1, c1), (r2, c2))`` holds, with weight
         ``weight_logic(pre, post)`` (default 1).  O(N^2) host calls; the
-        result is decomposed into a `StencilGraph` on the host."""
+        result is decomposed into a `StencilGraph` on the host where its
+        offset support is narrow, and stays a `DenseGraph` where it is
+        wide (or there is no edge)."""
         self.graph = connect_auto(self.rows, self.cols, connecting_conditional,
                                   weight_logic, device=self.device)
+
+    def falliable_connect(self, connecting_conditional, weight_logic=None):
+        """`connect`; a callable signals failure by raising, which
+        propagates."""
+        self.connect(connecting_conditional, weight_logic)
 
     def connect_stencil(self, radius=None, offsets=None, weight_fn=None,
                         keep_prob=1.0, seed=0):
@@ -115,6 +122,34 @@ class Lattice:
         if graph.n_post != self.n:
             raise GraphError("graph does not match lattice dimensions")
         self.graph = graph
+
+    # -- per-edge graph access ---------------------------------------------------
+    def _flat(self, pos):
+        r, c = pos
+        if not (0 <= r < self.rows and 0 <= c < self.cols):
+            raise GraphError(f"position {pos} not in lattice")
+        return r * self.cols + c
+
+    def lookup_weight(self, presynaptic, postsynaptic):
+        """Weight of the synapse pre -> post, or None if unconnected;
+        positions are (row, col) tuples."""
+        return self.graph.lookup_weight(self._flat(presynaptic),
+                                        self._flat(postsynaptic))
+
+    def edit_weight(self, presynaptic, postsynaptic, weight):
+        """Set, or with None remove, one synapse."""
+        self.graph = self.graph.edit_weight(self._flat(presynaptic),
+                                            self._flat(postsynaptic), weight)
+
+    def get_incoming_connections(self, pos):
+        """The presynaptic (row, col) positions of ``pos``."""
+        flat = self.graph.get_incoming_connections(self._flat(pos))
+        return {(i // self.cols, i % self.cols) for i in flat}
+
+    def get_outgoing_connections(self, pos):
+        """The postsynaptic (row, col) positions of ``pos``."""
+        flat = self.graph.get_outgoing_connections(self._flat(pos))
+        return {(i // self.cols, i % self.cols) for i in flat}
 
     # -- per-neuron mutation ----------------------------------------------------
     def apply(self, fn):
@@ -146,6 +181,10 @@ class Lattice:
         if not self.update_grid_history:
             return ()
         return (("grid", self.grid_history),)
+
+    def update(self):
+        """One lattice step."""
+        self.run_lattice(1)
 
     def run_lattice(self, iterations):
         """Advance ``iterations`` steps, in chunks that bound the history

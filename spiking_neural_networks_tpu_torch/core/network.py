@@ -34,7 +34,7 @@ import torch
 
 from ..errors import LatticeNetworkError
 from ..models.base import NEVER
-from ..ops.graph import positions
+from ..ops.graph import DenseGraph, SparseGraph, StencilGraph, positions
 from .history import (GridVoltageHistory, history_step_bytes,
                       resolve_history_chunk)
 from .plasticity import STDP
@@ -48,6 +48,37 @@ FLAT_RUNNER_NOT_PORTED = (
 MULTI_GPU_NOT_PORTED = (
     "{} is not ported to the PyTorch package yet (ROADMAP queue 1, "
     "item 14: multi-GPU)")
+
+
+def _graph_to_coo(graph):
+    """Host ``(src, dst, w, provenance)`` arrays of any lattice graph: the
+    edges of a `DenseGraph` in row-major order, of a `SparseGraph` as
+    stored, of a `StencilGraph` offset by offset (its provenance holds each
+    edge's (offset, row, col) slot)."""
+    if isinstance(graph, DenseGraph):
+        mask = graph.mask.cpu().numpy()
+        w = graph.weights.cpu().numpy()
+        src, dst = np.nonzero(mask)
+        return src, dst, w[src, dst], ("dense", None)
+    if isinstance(graph, SparseGraph):
+        return (graph.src.cpu().numpy(), graph.dst.cpu().numpy(),
+                graph.weights.cpu().numpy(), ("sparse", None))
+    if isinstance(graph, StencilGraph):
+        rows, cols = graph.shape
+        mask = graph.mask.cpu().numpy()
+        w = graph.weights.cpu().numpy()
+        srcs, dsts, ws, prov = [], [], [], []
+        rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+        for o, (dr, dc) in enumerate(graph.offsets):
+            m = mask[o]
+            r, c = rr[m], cc[m]
+            srcs.append((r + dr) * cols + (c + dc))
+            dsts.append(r * cols + c)
+            ws.append(w[o][m])
+            prov.append(np.stack([np.full(r.shape, o), r, c], axis=-1))
+        return (np.concatenate(srcs), np.concatenate(dsts),
+                np.concatenate(ws), ("stencil", np.concatenate(prov)))
+    raise TypeError(f"unsupported graph type {type(graph)}")
 
 
 class SpikeTrainLattice:
@@ -160,7 +191,9 @@ class LatticeNetwork:
     the CPU the wrapper runs the kernels' plain twin); False always runs
     the plain step loop.  ``_last_run_fused`` is ``("network", emit)``
     after a kernel-route chunk of an electrical network, ``("chemical",
-    emit)`` after one of a chemical network, else False.
+    emit)`` after one of a chemical network, ``("flat", emit)`` and
+    ``("flat-chemical", emit)`` after one in the (1, N) row layout of dense
+    graphs and dense blocks, else False.
     """
 
     # the structure-preserving runner; False asks for the flat COO runner

@@ -95,7 +95,8 @@ class RewardModulatedLattice:
 
     def connect(self, connecting_conditional, weight_logic=None):
         """`Lattice.connect`: a pairwise predicate, decomposed into a
-        `StencilGraph` on the host; resets the traces."""
+        `StencilGraph` on the host where its offset support is narrow (a
+        `DenseGraph` otherwise); resets the traces."""
         self.graph = connect_auto(self.rows, self.cols, connecting_conditional,
                                   weight_logic, device=self.device)
         self._reset_trace()
@@ -112,6 +113,61 @@ class RewardModulatedLattice:
 
     def apply(self, fn):
         self.state = dict(fn(dict(self.state)))
+
+    # -- per-edge graph access ---------------------------------------------------
+    def _flat(self, pos):
+        from ..errors import GraphError
+        r, c = pos
+        if not (0 <= r < self.rows and 0 <= c < self.cols):
+            raise GraphError(f"position {pos} not in lattice")
+        return r * self.cols + c
+
+    def lookup_weight(self, presynaptic, postsynaptic):
+        return self.graph.lookup_weight(self._flat(presynaptic),
+                                        self._flat(postsynaptic))
+
+    def edit_weight(self, presynaptic, postsynaptic, weight):
+        """Set, or with None remove, one synapse, carrying the eligibility
+        traces with it.  Stencil and dense layouts are positional: a new
+        stencil offset plane is zero-padded at the end.  A `SparseGraph`
+        re-sorts its edge list on an edit, so its traces are remapped by
+        (src, dst) pair: a removed edge drops its trace, an added edge
+        starts at zero."""
+        old_graph = self.graph
+        self.graph = self.graph.edit_weight(self._flat(presynaptic),
+                                            self._flat(postsynaptic), weight)
+        if self.trace is None:
+            return
+        if isinstance(self.graph, SparseGraph):
+            old_pos = {}
+            if isinstance(old_graph, SparseGraph):
+                old_pos = {(int(a), int(b)): k for k, (a, b) in enumerate(
+                    zip(old_graph.src.tolist(), old_graph.dst.tolist()))}
+            pairs = list(zip(self.graph.src.tolist(),
+                             self.graph.dst.tolist()))
+            for key, v in self.trace.items():
+                host = v.cpu().numpy()
+                out = np.zeros(len(pairs), host.dtype)
+                for k, pair in enumerate(pairs):
+                    idx = old_pos.get(pair)
+                    if idx is not None and idx < len(host):
+                        out[k] = host[idx]
+                self.trace[key] = torch.from_numpy(out).to(self.device)
+            return
+        shape = self.graph.weights.shape
+        if self.trace["c"].shape != shape:
+            for k, v in self.trace.items():
+                grown = torch.zeros(shape, dtype=v.dtype, device=v.device)
+                grown[tuple(slice(0, n) for n in v.shape)] = v
+                self.trace[k] = grown
+
+    def get_incoming_connections(self, pos):
+        flat = self.graph.get_incoming_connections(self._flat(pos))
+        return {(i // self.cols, i % self.cols) for i in flat}
+
+    def get_outgoing_connections(self, pos):
+        flat = self.graph.get_outgoing_connections(self._flat(pos))
+        return {(i // self.cols, i % self.cols) for i in flat}
 
     def set_dt(self, dt):
         self.state["dt"] = torch.full_like(self.state["dt"], dt)

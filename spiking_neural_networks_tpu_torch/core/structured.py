@@ -4,7 +4,7 @@ PyTorch counterpart of ``spiking_neural_networks_tpu/core/structured.py``.
 A network step is a sum of structured operators:
 
 * intra-lattice synapses keep their graph backend (a `StencilGraph` stays
-  a shifted-add stencil);
+  a shifted-add stencil, a `DenseGraph` a float32 matrix product);
 * inter-lattice connections are classified on the host: one-to-one ->
   elementwise ops; strided grid-to-grid (pooling, upsampling, shifted
   projections) -> `ResampleBlock` tap planes read by strided slices;
@@ -27,7 +27,7 @@ import torch
 
 from ..models.base import get_neurotransmitter_concentrations
 from ..models.spike_train import refractoriness_effect
-from ..ops.graph import SparseGraph
+from ..ops.graph import DenseGraph, SparseGraph, exact_matmul
 from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 
 
@@ -274,7 +274,7 @@ def _conn_gather(kind, aux, w, a_src, sub_src, v_post):
                               w * (pair[..., 0] - pair[..., 1]
                                    * v_post[:, None]), 0.0)
         return torch.sum(contrib, dim=1)
-    return a_src @ w - v_post * (sub_src @ w)
+    return exact_matmul(a_src, w) - v_post * exact_matmul(sub_src, w)
 
 
 def _conn_gather_chemical(kind, aux, w, t_src, m_src):
@@ -306,13 +306,15 @@ def _conn_gather_chemical(kind, aux, w, t_src, m_src):
         return (torch.sum(torch.where(gate, w[:, :, None] * both[..., :T],
                                       0.0), dim=1),
                 torch.sum(torch.where(gate, both[..., T:], 0.0), dim=1))
-    return (w.T @ (t_src * m_src),
-            aux["mask"].to(torch.float32).T @ m_src)
+    return (exact_matmul(w.T, t_src * m_src),
+            exact_matmul(aux["mask"].to(torch.float32).T, m_src))
 
 
 def _chem_counts(graph, m_src):
     """Per-type (n_post, K) counts of a lattice graph's present sources,
     which turn its averaged chemical gather back into sums."""
+    if isinstance(graph, DenseGraph):
+        return exact_matmul(graph.mask.to(torch.float32).T, m_src)
     if isinstance(graph, SparseGraph):
         return m_src.new_zeros((graph.n_post, m_src.shape[-1])).index_add(
             0, graph.dst, m_src[graph.src])
@@ -438,8 +440,9 @@ def run_structured(net, iterations, flags):
     if spec is not None:
         states, st_states, graphs, conn_ws, ys = nk.advance(
             spec, net, plan, int(iterations))
-        net._last_run_fused = ("chemical" if spec.chem else "network",
-                               any(ls.emit for ls in spec.lattices))
+        tag = ("flat-chemical" if spec.chem else "flat") if nk.is_flat(spec) \
+            else ("chemical" if spec.chem else "network")
+        net._last_run_fused = (tag, any(ls.emit for ls in spec.lattices))
     else:
         states, st_states, graphs, conn_ws, ys = _plain_steps(
             net, plan, int(iterations), skip_nt, hist, st_hist, ghist)

@@ -66,23 +66,63 @@
 // DopaGluGABA lattice moves about 300 bytes (the (N, 3) state and
 // parameter fields, 9 parameter planes, the weights and masks), so at
 // 512 x 512 it is memory-bound like the plain form.
+//
+// Flat mode (the flat form of _make_kernel, pallas_reward.py :600-608,
+// :623-630, :678-690, :704-709, built by plain_network_runner :2097-2166):
+// a lattice whose intra graph is a dense (N, N) weight matrix with a mask,
+// or a connection that is a dense (n_pre, n_post) block, N <= NET_DENSE_MAX.
+// Every lattice and train is then a (1, N) row.  The dense sums go to a
+// kernel of their own, net_dense_gather_kernel, once per step for all the
+// network's matrices (one "job" each, blockIdx.y); the cell kernels read its
+// results.  A block is 32 destinations j by NET_DENSE_SEG = 32 segments k:
+// thread (j, k) sums the sources i = k, k + 32, k + 64, ... in that order,
+// a multiply then an add per term (no FMA: -fmad=false), and the 32 partial
+// sums of a destination are then added from 0 in segment order.  That order
+// is the contract with the twin's _seg_dot (ops/network_kernels.py); the
+// TPU kernel takes the same sums as MXU products.  Per job and step:
+//   the electrical sum of a_i * W_ij over the sources' previous v or, from a
+//     train, its effects of this step (net_effect_kernel writes them);
+//   per type q the chemical sum of (t * m)_iq * W_ij;
+// with W = mask ? W : 0 for an intra graph (a block's weights are 0 off its
+// edges).  Once per call the same kernel takes what no step changes (flat
+// mode has no plasticity): the column sums of W (0 from a train) and per
+// type the counts sum_i m_iq * mask_ij.  The cell kernels then form
+//   electrical intra: d = max(in_deg_j, 1), total = (wa - v_j * wsub) / d * d;
+//   electrical block: total += dot - v_j * sdot;
+//   chemical intra: sums_q and cnt_q, re-expanded as for a stencil;
+//   chemical block: csum_q += ds_q, ccnt_q += dc_q;
+// and cnt adds a block's mask column sums (net_count_kernel).
+// Adjacent threads read adjacent j of one matrix row, so the loads
+// coalesce; 32 warps per block hide each other's latency.  At N = 512 the
+// (512, 512) matrices and masks (1.3 MB each) sit in L2.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 24), the Bayesian
+// network of 512 + 512 neurons with three such matrices: the gather launch
+// 8.7 us of 27 us of device time per step, the two chemical cell launches
+// 12; the step is bound by the host's 5 launches (95-98 us of wall time).
+// One thread per destination walking its 512 sources in index order, the
+// first design, took 438 us of device time per step: a full L2 latency per
+// source on one warp per SM.
 
 #include "chem_common.cuh"
 
 #define NET_MAX_IN 8
 #define NET_MAX_TAPS 64
+#define NET_DENSE_MAX 512
+#define NET_DENSE_SEG 32
+// jobs per launch of net_dense_gather_kernel (its argument's size)
+#define NET_DENSE_JOBS 32
 // strides of the flat per-lattice, per-train and per-connection
 // descriptions (ops/network_kernels.py NL_I, NL_P, NT_I, NT_P, NC_I, NC_P)
 #define NL_I (8 + 2 * LP_MAX_OFFSETS)
-#define NL_P 32
+#define NL_P 36
 #define NT_I 5
 #define NT_P 10
 #define NC_I 12
-#define NC_P 3
+#define NC_P 4
 #define NLC_P 32
 #define NTC_P 8
 
-enum { CONN_ONE2ONE = 0, CONN_RESAMPLE = 1 };
+enum { CONN_ONE2ONE = 0, CONN_RESAMPLE = 1, CONN_DENSE = 2 };
 enum { TRAIN_POISSON = 0, TRAIN_RATE = 1 };
 enum { REFR_DELTA_DIRAC = 0, REFR_EXP_DECAY = 1 };
 
@@ -90,8 +130,12 @@ enum { REFR_DELTA_DIRAC = 0, REFR_EXP_DECAY = 1 };
 struct InConn {
     int kind, pre_is_st, refractoriness, R1, C1, fr, fc, n_taps;
     const int* taps;                     // device (dr, dc) pairs; resample
-    const float* w;                      // (n_taps, rows, cols) post grid
-    const unsigned char* mask;
+    const float* w;                      // (n_taps, rows, cols) post grid;
+    const unsigned char* mask;           // dense: (n_taps = n_pre, n_post)
+    const float* eff;                    // dense block from a train: its
+                                         // effects of this step (scratch)
+    const float* gather;                 // dense block: (8, n_post) sums of
+                                         // net_dense_gather_kernel
     const float* pre_v;                  // lattice source: pre-step v
     const int* tr_lft;                   // train source planes
     const float* tr_v_th;
@@ -141,35 +185,138 @@ __global__ void net_count_kernel(const float* __restrict__ in_deg,
     float c = in_deg[i];
     for (int q = 0; q < in.n; ++q) {
         const InConn& cn = in.c[q];
-        const int taps = cn.kind == CONN_RESAMPLE ? cn.n_taps : 1;
+        // a resample's taps, a dense block's source rows
+        const int taps = cn.kind == CONN_ONE2ONE ? 1 : cn.n_taps;
         for (int t = 0; t < taps; ++t)   // integers: exact in any order
             c = c + (cn.mask[(size_t)t * n + i] ? 1.0f : 0.0f);
     }
     cnt[i] = fmaxf(c, 1.0f);
 }
 
+// The effects of a train that a dense block reads, once per step.
+__global__ void net_effect_kernel(InConn c, float* __restrict__ eff, int n,
+                                  int clock)
+{
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) eff[i] = train_effect(c, i, clock);
+}
+
+// One dense matrix of a flat-mode network: a lattice's intra graph or a
+// connection block.  `gather` is (8, n_post): rows 0-3 are a step's sums
+// (electrical, then the three chemical types), rows 4-7 the call's
+// constants (the weights' column sums, then the three types' counts).
+struct DenseJob {
+    const float* w;                      // (n_src, n_post)
+    const unsigned char* mask;           // (n_src, n_post)
+    const float* a;                      // (n_src) electrical sources; null
+    const float* t;                      // (n_src, 3) concentrations; null
+    const unsigned char* m;              // (n_src, 3) presence; null
+    float* gather;
+    int n_src, n_post;
+    int masked_w;                        // intra graph: W = mask ? W : 0
+    int sub;                             // the sources' v is subtracted
+};
+
+struct DenseJobs {
+    DenseJob j[NET_DENSE_JOBS];
+};
+
+enum { GATHER_WA = 0, GATHER_CHEM = 1, GATHER_WSUB = 4, GATHER_CNT = 5 };
+
+// The dense sums of every job: per step (constants 0) the electrical and
+// chemical sums, once per call (constants 1) the column sums and counts.
+__global__ void __launch_bounds__(32 * NET_DENSE_SEG)
+net_dense_gather_kernel(DenseJobs jobs, int constants)
+{
+    __shared__ float part[4][NET_DENSE_SEG][32];
+    const DenseJob& J = jobs.j[blockIdx.y];
+    if ((int)blockIdx.x * 32 >= J.n_post) return;      // the whole block
+    const int tx = threadIdx.x;
+    const int k = threadIdx.y;
+    const int j = blockIdx.x * 32 + tx;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (j < J.n_post) {
+        for (int i = k; i < J.n_src; i += NET_DENSE_SEG) {
+            const size_t e = (size_t)i * J.n_post + j;
+            const float wv = J.w[e];
+            const bool mk = J.mask[e] != 0;
+            const float w = J.masked_w && !mk ? 0.0f : wv;
+            if (constants) {
+                if (J.sub) acc[0] = acc[0] + w;
+                if (J.m) {
+                    const float cm = mk ? 1.0f : 0.0f;
+                    for (int q = 0; q < CHEM_TYPES; ++q)
+                        acc[1 + q] = acc[1 + q]
+                            + (J.m[CHEM_TYPES * i + q] ? 1.0f : 0.0f) * cm;
+                }
+            } else {
+                if (J.a) acc[0] = acc[0] + J.a[i] * w;
+                if (J.t) {
+                    for (int q = 0; q < CHEM_TYPES; ++q) {
+                        const float mq = J.m[CHEM_TYPES * i + q] ? 1.0f : 0.0f;
+                        acc[1 + q] = acc[1 + q]
+                            + (J.t[CHEM_TYPES * i + q] * mq) * w;
+                    }
+                }
+            }
+        }
+    }
+    for (int q = 0; q < 4; ++q) part[q][k][tx] = acc[q];
+    __syncthreads();
+    if (k < 4 && j < J.n_post) {
+        float total = 0.0f;
+        for (int seg = 0; seg < NET_DENSE_SEG; ++seg)
+            total = total + part[k][seg][tx];
+        J.gather[(size_t)((constants ? GATHER_WSUB : GATHER_WA) + k)
+                 * J.n_post + j] = total;
+    }
+}
+
+// A lattice's dense intra graph (flat mode; null gather: none): the sums of
+// net_dense_gather_kernel, (8, cols), and the in-degree that re-expands
+// the electrical sum.
+struct DenseIntra {
+    const float* gather;
+    const float* in_deg;
+};
+
 // Phase A's electrical input of cell (row, col): gap * total / cnt.
 template <int MODEL>
 __device__ __forceinline__ float electrical_input(
     const float* __restrict__ v_in, float v,
     const float* __restrict__ weights, const float* __restrict__ cnt,
-    const Params& P, const Stencil& st, const InConns& in, int row, int col,
-    int rows, int cols, size_t i, int clock)
+    const Params& P, const Stencil& st, const DenseIntra& dn,
+    const InConns& in, int row, int col, int rows, int cols, size_t i,
+    int clock)
 {
     const size_t n = (size_t)rows * cols;
-    float acc = 0.0f;
-    float wsum = 0.0f;
-    for (int o = 0; o < st.n; ++o) {
-        const float wo = weights[(size_t)o * n + i];
-        const int sr = row + st.dr[o];
-        const int sc = col + st.dc[o];
-        if (sr >= 0 && sr < rows && sc >= 0 && sc < cols)
-            acc = acc + wo * v_in[(size_t)sr * cols + sc];
-        wsum = wsum + wo;
+    float total;
+    if (dn.gather) {
+        const float wa = dn.gather[(size_t)GATHER_WA * n + i];
+        const float wsub = dn.gather[(size_t)GATHER_WSUB * n + i];
+        const float d = fmaxf(dn.in_deg[i], 1.0f);
+        total = (wa - v * wsub) / d * d;
+    } else {
+        float acc = 0.0f;
+        float wsum = 0.0f;
+        for (int o = 0; o < st.n; ++o) {
+            const float wo = weights[(size_t)o * n + i];
+            const int sr = row + st.dr[o];
+            const int sc = col + st.dc[o];
+            if (sr >= 0 && sr < rows && sc >= 0 && sc < cols)
+                acc = acc + wo * v_in[(size_t)sr * cols + sc];
+            wsum = wsum + wo;
+        }
+        total = acc - v * wsum;
     }
-    float total = acc - v * wsum;
     for (int q = 0; q < in.n; ++q) {
         const InConn& c = in.c[q];
+        if (c.kind == CONN_DENSE) {
+            // the v term's weight sum is 0 from a train
+            total = total + (c.gather[(size_t)GATHER_WA * n + i]
+                             - v * c.gather[(size_t)GATHER_WSUB * n + i]);
+            continue;
+        }
         if (c.kind == CONN_ONE2ONE) {
             const float mw = (c.mask[i] ? 1.0f : 0.0f) * c.w[i];
             total = total + mw * (c.pre_is_st ? train_effect(c, i, clock)
@@ -205,7 +352,8 @@ __global__ void net_cell_kernel(
     unsigned char* __restrict__ spk_out,
     float* __restrict__ v_pre_out,         // null unless emitting
     const float* __restrict__ weights, const float* __restrict__ cnt,
-    Params P, Stencil st, InConns in, int rows, int cols, int clock)
+    Params P, Stencil st, DenseIntra dn, InConns in, int rows, int cols,
+    int clock)
 {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -215,8 +363,8 @@ __global__ void net_cell_kernel(
     const float v = v_in[i];
     const float w = w_in[i];
     const float i_syn = electrical_input<MODEL>(v_in, v, weights, cnt, P, st,
-                                                in, row, col, rows, cols, i,
-                                                clock);
+                                                dn, in, row, col, rows, cols,
+                                                i, clock);
     const bool refractory = MODEL != MODEL_IZHIKEVICH;
     float v_pre, v_new, w_new, refr_new;
     bool spike;
@@ -263,8 +411,9 @@ __global__ void net_chem_cell_kernel(
     unsigned char* __restrict__ spk,       // the previous step's, then this
     float* __restrict__ v_pre_out,         // null unless emitting
     const float* __restrict__ weights, const unsigned char* __restrict__ emask,
-    const float* __restrict__ cnt, Params P, Stencil st, InConns in,
-    ChemLat C, ChemKinds K, int rows, int cols, int clock, int last)
+    const float* __restrict__ cnt, Params P, Stencil st, DenseIntra dn,
+    InConns in, ChemLat C, ChemKinds K, int rows, int cols, int clock,
+    int last)
 {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -276,8 +425,8 @@ __global__ void net_chem_cell_kernel(
     const float v = v_in[i];
     const float w = w_in[i];
     const float i_syn = K.elec
-        ? electrical_input<MODEL>(v_in, v, weights, cnt, P, st, in, row, col,
-                                  rows, cols, i, clock)
+        ? electrical_input<MODEL>(v_in, v, weights, cnt, P, st, dn, in, row,
+                                  col, rows, cols, i, clock)
         : 0.0f;
 
     // A'. the chemical input per type: the intra sums and counts,
@@ -298,21 +447,42 @@ __global__ void net_chem_cell_kernel(
             gcnt[q] = gcnt[q] + em * mq;
         }
     }
+    if (dn.gather) {
+        for (int q = 0; q < CHEM_TYPES; ++q) {
+            sums[q] = dn.gather[(size_t)(GATHER_CHEM + q) * n + i];
+            gcnt[q] = dn.gather[(size_t)(GATHER_CNT + q) * n + i];
+        }
+    }
+    float csum[CHEM_TYPES], ccnt[CHEM_TYPES];
+    for (int q = 0; q < CHEM_TYPES; ++q) {
+        const float g1 = fmaxf(gcnt[q], 1.0f);
+        csum[q] = sums[q] / g1 * g1 * (gcnt[q] > 0.0f ? 1.0f : 0.0f);
+        ccnt[q] = gcnt[q];
+    }
+    for (int c = 0; c < in.n; ++c) {
+        const InConn& cn = in.c[c];
+        if (!cn.pre_ntm) continue;         // a train without NT
+        if (cn.kind == CONN_DENSE) {
+            for (int q = 0; q < CHEM_TYPES; ++q) {
+                csum[q] = csum[q]
+                    + cn.gather[(size_t)(GATHER_CHEM + q) * n + i];
+                ccnt[q] = ccnt[q]
+                    + cn.gather[(size_t)(GATHER_CNT + q) * n + i];
+            }
+            continue;
+        }
+        if (!cn.mask[i]) continue;
+        for (int q = 0; q < CHEM_TYPES; ++q) {
+            const float m = cn.pre_ntm[i3 + q] ? 1.0f : 0.0f;
+            csum[q] = csum[q] + cn.w[i] * cn.pre_ntt[i3 + q] * m;
+            ccnt[q] = ccnt[q] + m;
+        }
+    }
     float t_in[CHEM_TYPES];
     bool upd[CHEM_TYPES];
     for (int q = 0; q < CHEM_TYPES; ++q) {
-        const float g1 = fmaxf(gcnt[q], 1.0f);
-        float csum = sums[q] / g1 * g1 * (gcnt[q] > 0.0f ? 1.0f : 0.0f);
-        float ccnt = gcnt[q];
-        for (int c = 0; c < in.n; ++c) {
-            const InConn& cn = in.c[c];
-            if (!cn.pre_ntm || !cn.mask[i]) continue;
-            const float m = cn.pre_ntm[i3 + q] ? 1.0f : 0.0f;
-            csum = csum + cn.w[i] * cn.pre_ntt[i3 + q] * m;
-            ccnt = ccnt + m;
-        }
-        t_in[q] = csum / fmaxf(ccnt, 1.0f);
-        upd[q] = ccnt > 0.0f && C.recm[i3 + q];
+        t_in[q] = csum[q] / fmaxf(ccnt[q], 1.0f);
+        upd[q] = ccnt[q] > 0.0f && C.recm[i3 + q];
     }
 
     // B'. receptor kinetics, then the currents at the pre-update v
@@ -484,13 +654,13 @@ static cudaError_t launch_net_cell(dim3 grid, dim3 block, cudaStream_t s,
                                    unsigned char* spk, float* v_pre,
                                    const float* weights, const float* cnt,
                                    const Params& P, const Stencil& st,
-                                   const InConns& ic, int rows, int cols,
-                                   int clock)
+                                   const DenseIntra& dn, const InConns& ic,
+                                   int rows, int cols, int clock)
 {
     net_cell_kernel<MODEL><<<grid, block, 0, s>>>(
         (const float*)in[0], (const float*)in[1], (const int*)in[2],
         (const float*)in[3], (float*)out[0], (float*)out[1], (int*)out[2],
-        (float*)out[3], spk, v_pre, weights, cnt, P, st, ic, rows, cols,
+        (float*)out[3], spk, v_pre, weights, cnt, P, st, dn, ic, rows, cols,
         clock);
     return cudaGetLastError();
 }
@@ -502,7 +672,9 @@ static cudaError_t launch_net_chem_cell(dim3 grid, dim3 block,
                                         float* v_pre, const float* weights,
                                         const unsigned char* emask,
                                         const float* cnt, const Params& P,
-                                        const Stencil& st, const InConns& ic,
+                                        const Stencil& st,
+                                        const DenseIntra& dn,
+                                        const InConns& ic,
                                         const ChemLat& C, const ChemKinds& K,
                                         int rows, int cols, int clock,
                                         int last)
@@ -510,7 +682,7 @@ static cudaError_t launch_net_chem_cell(dim3 grid, dim3 block,
     net_chem_cell_kernel<MODEL><<<grid, block, 0, s>>>(
         (const float*)in[0], (const float*)in[1], (const int*)in[2],
         (const float*)in[3], (float*)out[0], (float*)out[1], (int*)out[2],
-        (float*)out[3], spk, v_pre, weights, emask, cnt, P, st, ic, C, K,
+        (float*)out[3], spk, v_pre, weights, emask, cnt, P, st, dn, ic, C, K,
         rows, cols, clock, last);
     return cudaGetLastError();
 }
@@ -538,6 +710,29 @@ static ChemLat chem_lat(void* const* c)
     return C;
 }
 
+// One launch of net_dense_gather_kernel per NET_DENSE_JOBS jobs.
+static cudaError_t launch_dense_gather(const DenseJob* jobs, int n_jobs,
+                                       int constants, cudaStream_t s)
+{
+    cudaError_t err = cudaSuccess;
+    for (int j0 = 0; j0 < n_jobs && err == cudaSuccess;
+         j0 += NET_DENSE_JOBS) {
+        DenseJobs batch = {};
+        const int nb = n_jobs - j0 < NET_DENSE_JOBS ? n_jobs - j0
+                                                     : NET_DENSE_JOBS;
+        int widest = 0;
+        for (int b = 0; b < nb; ++b) {
+            batch.j[b] = jobs[j0 + b];
+            if (batch.j[b].n_post > widest) widest = batch.j[b].n_post;
+        }
+        net_dense_gather_kernel<<<dim3((widest + 31) / 32, nb),
+                                  dim3(32, NET_DENSE_SEG), 0, s>>>(
+            batch, constants);
+        err = cudaGetLastError();
+    }
+    return err;
+}
+
 static dim3 grid_of(dim3 block, int rows, int cols)
 {
     return dim3((cols + block.x - 1) / block.x,
@@ -546,25 +741,29 @@ static dim3 grid_of(dim3 block, int rows, int cols)
 
 extern "C" {
 
-// NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS and the eight strides, in
-// order.
+// NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS, the eight strides,
+// NET_DENSE_MAX and NET_DENSE_SEG, in order.
 void net_limits(int* out)
 {
-    const int v[11] = {NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS, NL_I, NL_P,
-                       NT_I, NT_P, NC_I, NC_P, NLC_P, NTC_P};
-    for (int q = 0; q < 11; ++q) out[q] = v[q];
+    const int v[13] = {NET_MAX_IN, LP_MAX_OFFSETS, NET_MAX_TAPS, NL_I, NL_P,
+                       NT_I, NT_P, NC_I, NC_P, NLC_P, NTC_P, NET_DENSE_MAX,
+                       NET_DENSE_SEG};
+    for (int q = 0; q < 13; ++q) out[q] = v[q];
 }
 
 // Runs n_steps network steps from clock0 on `stream`.  Flat descriptions
 // (host memory), one record per member:
 //   lattice ints (NL_I): model, plastic, rows, cols, n_off, n_params, emit,
-//     0, dr[LP_MAX_OFFSETS], dc[LP_MAX_OFFSETS];
+//     dense (1: rows is 1, n_off 0, weights and mask are (cols, cols)),
+//     dr[LP_MAX_OFFSETS], dc[LP_MAX_OFFSETS];
 //   lattice pointers (NL_P): v, w, lft, refr (inputs, only read); buffer
 //     set 0 v, w, lft, refr; set 1 v, w, lft, refr; spikes (bytes, the last
 //     step's at the end); v_pre (n_steps planes, or null); in_deg; cnt
 //     (scratch); weights (updated in place when plastic); mask (bytes);
 //     then n_params parameter planes in MODEL_PARAM_KEYS order.  refr and
-//     its buffers are null for Izhikevich; weights and mask for n_off 0.
+//     its buffers are null for Izhikevich; weights and mask for n_off 0
+//     without a dense graph.  Pointer 32: a dense graph's (8, cols) floats
+//     of scratch for net_dense_gather_kernel.
 //     Step k writes set k % 2, so the result is in set (n_steps - 1) % 2.
 //   train ints (NT_I): kind, refractoriness, rows, cols, NT kinetics
 //     (-1: the train releases no neurotransmitter);
@@ -573,9 +772,13 @@ void net_limits(int* out)
 //     (updated in place), spikes (bytes); chance and uniforms Poisson only,
 //     rate and step Rate only.
 //   connection ints (NC_I): kind, pre_is_st, pre, post, pre_plastic,
-//     post_plastic, R1, C1, fr, fc, n_taps (1 for one-to-one), 0;
+//     post_plastic, R1, C1, fr, fc, n_taps (1 for one-to-one, n_pre for a
+//     dense block), 0;
 //   connection pointers (NC_P): w (updated in place when an endpoint is
-//     plastic), mask (bytes), taps (device (dr, dc) ints; resample only).
+//     plastic), mask (bytes), then a resample's taps (device (dr, dc)
+//     ints) or, for a dense block that reads a train, n_pre floats of
+//     scratch for the train's effects, then a dense block's (8, n_post)
+//     floats of scratch for net_dense_gather_kernel.
 // rule = {a_plus, a_minus, tau_plus, tau_minus, dt}.  The chemical arm:
 //   chem_i = {family (-1: none), receptor kinetics, NT kinetics,
 //     electrical}; the spikes start as the previous step's;
@@ -603,7 +806,10 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
         if (li[0] < 0 || li[0] > 2 || li[2] <= 0 || li[3] <= 0
             || li[4] < 0 || li[4] > LP_MAX_OFFSETS || li[5] != n_params_of[li[0]]
             || (li[0] != MODEL_IZHIKEVICH && !lp[3])
-            || (li[4] > 0 && (!lp[16] || !lp[17])))
+            || ((li[4] > 0 || li[7]) && (!lp[16] || !lp[17]))
+            || (li[7] && !lp[32])
+            || (li[7] && (li[1] || li[2] != 1 || li[3] > NET_DENSE_MAX
+                          || li[4] != 0)))
             return (int)cudaErrorInvalidValue;
         void* const* lc = lat_c + NLC_P * k;
         if (chem && (li[0] == MODEL_LIF || !lc[0] || !lc[1] || !lc[2]
@@ -627,17 +833,24 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
     for (int q = 0; q < n_cn; ++q) {
         const int* ci = cn_i + NC_I * q;
         const int pre_max = ci[1] ? n_tr : n_lat;
-        if (ci[0] < 0 || ci[0] > 1 || ci[2] < 0 || ci[2] >= pre_max
+        if (ci[0] < 0 || ci[0] > CONN_DENSE || ci[2] < 0 || ci[2] >= pre_max
             || ci[3] < 0 || ci[3] >= n_lat || (ci[1] && ci[4])
             || ++n_in[ci[3]] > NET_MAX_IN
             || (ci[0] == CONN_RESAMPLE
                 && (chem || ci[10] <= 0 || ci[10] > NET_MAX_TAPS || !ci[8]
-                    || !ci[9] || !cn_p[NC_P * q + 2])))
+                    || !ci[9] || !cn_p[NC_P * q + 2]))
+            || (ci[0] == CONN_DENSE
+                && (ci[4] || ci[5] || ci[10] <= 0 || ci[10] > NET_DENSE_MAX
+                    || lat_i[NL_I * ci[3] + 2] != 1
+                    || !cn_p[NC_P * q + 1] || !cn_p[NC_P * q + 3]
+                    || (ci[1] && !cn_p[NC_P * q + 2]))))
             return (int)cudaErrorInvalidValue;
     }
     const float* rf = rule;
     const Rule r = {rf[0], rf[1], rf[2], rf[3], rf[4], 0.0f, 0.0f};
     const dim3 block(32, 8);
+    // a (1, N) row: one warp per block, spread over the SMs
+    const dim3 row_block(32, 1);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
 
@@ -646,6 +859,13 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
     Stencil* st = new Stencil[n_lat];
     Params* P = new Params[n_lat];
     InConns* ic = new InConns[n_lat];
+    DenseIntra* dn = new DenseIntra[n_lat];
+    // the dense jobs, lattices' intra graphs first, and each one's source:
+    // a lattice, or (negative) train -1 - index
+    DenseJob* jobs = new DenseJob[n_lat + n_cn];
+    int* job_src = new int[n_lat + n_cn];
+    int n_jobs = 0;
+    const bool elec = !chem || K.elec;
     int* src_of = new int[n_lat * NET_MAX_IN];   // pre lattice, or -1
     for (int k = 0; k < n_lat; ++k) {
         const int* li = lat_i + NL_I * k;
@@ -658,6 +878,19 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
         for (int q = 0; q < LP_MAX_PARAMS; ++q)
             P[k].p[q] = q < li[5] ? (const float*)lp[18 + q] : nullptr;
         ic[k].n = 0;
+        dn[k].gather = li[7] ? (const float*)lp[32] : nullptr;
+        dn[k].in_deg = (const float*)lp[14];
+        if (li[7]) {
+            DenseJob& J = jobs[n_jobs];
+            J = DenseJob{};
+            J.w = (const float*)lp[16];
+            J.mask = (const unsigned char*)lp[17];
+            J.m = chem ? (const unsigned char*)lat_c[NLC_P * k + 8] : nullptr;
+            J.gather = (float*)lp[32];
+            J.n_src = J.n_post = li[3];
+            J.masked_w = J.sub = 1;
+            job_src[n_jobs++] = k;
+        }
     }
     for (int q = 0; q < n_cn; ++q) {
         const int* ci = cn_i + NC_I * q;
@@ -673,7 +906,9 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
         c.fr = ci[8];
         c.fc = ci[9];
         c.n_taps = ci[10];
-        c.taps = (const int*)cp[2];
+        c.taps = ci[0] == CONN_RESAMPLE ? (const int*)cp[2] : nullptr;
+        c.eff = ci[0] == CONN_DENSE ? (const float*)cp[2] : nullptr;
+        c.gather = ci[0] == CONN_DENSE ? (const float*)cp[3] : nullptr;
         c.w = (const float*)cp[0];
         c.mask = (const unsigned char*)cp[1];
         c.pre_v = nullptr;
@@ -687,6 +922,19 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
             c.pre_ntm = (const unsigned char*)tr_c[NTC_P * ci[2] + 1];
         } else if (chem && !ci[1]) {
             c.pre_ntm = (const unsigned char*)lat_c[NLC_P * ci[2] + 8];
+        }
+        if (ci[0] == CONN_DENSE) {
+            DenseJob& J = jobs[n_jobs];
+            J = DenseJob{};
+            J.w = c.w;
+            J.mask = c.mask;
+            J.m = c.pre_ntm;
+            J.gather = (float*)cp[3];
+            J.n_src = ci[10];
+            J.n_post = lat_i[NL_I * post + 3];
+            J.sub = !ci[1];
+            J.a = ci[1] && elec ? c.eff : nullptr;   // a train's effects
+            job_src[n_jobs++] = ci[1] ? -1 - ci[2] : ci[2];
         }
         if (ci[1]) {
             const int* ti = tr_i + NT_I * ci[2];
@@ -703,13 +951,43 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
     for (int k = 0; k < n_lat && err == cudaSuccess; ++k) {
         const int* li = lat_i + NL_I * k;
         void* const* lp = lat_p + NL_P * k;
-        net_count_kernel<<<grid_of(block, li[2], li[3]), block, 0, s>>>(
+        const dim3 b = li[2] == 1 ? row_block : block;
+        net_count_kernel<<<grid_of(b, li[2], li[3]), b, 0, s>>>(
             (const float*)lp[14], ic[k], (float*)lp[15], li[2], li[3]);
         err = cudaGetLastError();
     }
+    // the dense jobs' constants: weight column sums and per-type counts
+    if (err == cudaSuccess) err = launch_dense_gather(jobs, n_jobs, 1, s);
 
     for (int k = 0; k < n_steps && err == cudaSuccess; ++k) {
         const int clock = clock0 + k;
+        // 0. the effects of the trains that dense blocks read
+        for (int l = 0; l < n_lat && err == cudaSuccess; ++l) {
+            for (int q = 0; q < ic[l].n && err == cudaSuccess; ++q) {
+                const InConn& c = ic[l].c[q];
+                if (c.kind != CONN_DENSE || !c.pre_is_st) continue;
+                net_effect_kernel<<<(c.n_taps + 127) / 128, 128, 0, s>>>(
+                    c, (float*)c.eff, c.n_taps, clock);
+                err = cudaGetLastError();
+            }
+        }
+        // then the dense sums of the step, from the previous step's set
+        for (int b = 0; b < n_jobs; ++b) {
+            DenseJob& J = jobs[b];
+            const int src = job_src[b];
+            if (src < 0) {
+                J.t = J.m ? (const float*)tr_c[NTC_P * (-1 - src)] : nullptr;
+            } else {
+                void* const* pp = lat_p + NL_P * src;
+                J.a = !elec ? nullptr : (const float*)
+                    (k == 0 ? pp[0] : pp[4 + 4 * ((k - 1) & 1)]);
+                void* const* pc = lat_c + NLC_P * src;
+                J.t = !J.m ? nullptr : (const float*)
+                    (k == 0 ? pc[0] : pc[1 + ((k - 1) & 1)]);
+            }
+        }
+        if (err == cudaSuccess && n_jobs > 0)
+            err = launch_dense_gather(jobs, n_jobs, 0, s);
         // 1. phases A and B of every lattice, from the previous step's set
         for (int l = 0; l < n_lat && err == cudaSuccess; ++l) {
             const int* li = lat_i + NL_I * l;
@@ -730,7 +1008,8 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
             }
             float* v_pre = lp[13] ? (float*)lp[13]
                 + (size_t)k * li[2] * li[3] : nullptr;
-            const dim3 grid = grid_of(block, li[2], li[3]);
+            const dim3 blk = li[2] == 1 ? row_block : block;
+            const dim3 grid = grid_of(blk, li[2], li[3]);
             const float* weights = (const float*)lp[16];
             const float* cnt = (const float*)lp[15];
             unsigned char* spk = (unsigned char*)lp[12];
@@ -744,30 +1023,30 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
                 const int last = k == n_steps - 1;
                 err = li[0] == MODEL_IZHIKEVICH
                     ? launch_net_chem_cell<MODEL_IZHIKEVICH>(
-                          grid, block, s, in, out, spk, v_pre, weights,
-                          emask, cnt, P[l], st[l], ic[l], C, K, li[2], li[3],
-                          clock, last)
+                          grid, blk, s, in, out, spk, v_pre, weights,
+                          emask, cnt, P[l], st[l], dn[l], ic[l], C, K, li[2],
+                          li[3], clock, last)
                     : launch_net_chem_cell<MODEL_ALIF>(
-                          grid, block, s, in, out, spk, v_pre, weights,
-                          emask, cnt, P[l], st[l], ic[l], C, K, li[2], li[3],
-                          clock, last);
+                          grid, blk, s, in, out, spk, v_pre, weights,
+                          emask, cnt, P[l], st[l], dn[l], ic[l], C, K, li[2],
+                          li[3], clock, last);
                 continue;
             }
             switch (li[0]) {
             case MODEL_IZHIKEVICH:
                 err = launch_net_cell<MODEL_IZHIKEVICH>(
-                    grid, block, s, in, out, spk, v_pre, weights, cnt, P[l],
-                    st[l], ic[l], li[2], li[3], clock);
+                    grid, blk, s, in, out, spk, v_pre, weights, cnt, P[l],
+                    st[l], dn[l], ic[l], li[2], li[3], clock);
                 break;
             case MODEL_ALIF:
                 err = launch_net_cell<MODEL_ALIF>(
-                    grid, block, s, in, out, spk, v_pre, weights, cnt, P[l],
-                    st[l], ic[l], li[2], li[3], clock);
+                    grid, blk, s, in, out, spk, v_pre, weights, cnt, P[l],
+                    st[l], dn[l], ic[l], li[2], li[3], clock);
                 break;
             default:
                 err = launch_net_cell<MODEL_LIF>(
-                    grid, block, s, in, out, spk, v_pre, weights, cnt, P[l],
-                    st[l], ic[l], li[2], li[3], clock);
+                    grid, blk, s, in, out, spk, v_pre, weights, cnt, P[l],
+                    st[l], dn[l], ic[l], li[2], li[3], clock);
             }
         }
         // 2. STDP on the plastic lattices' stencil weights
@@ -830,6 +1109,9 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
     delete[] st;
     delete[] P;
     delete[] ic;
+    delete[] dn;
+    delete[] jobs;
+    delete[] job_src;
     delete[] src_of;
     return (int)err;
 }

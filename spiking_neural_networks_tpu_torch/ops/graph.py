@@ -1,13 +1,14 @@
 """Synaptic connectivity graphs and their input gathers.
 
 PyTorch counterpart of ``spiking_neural_networks_tpu/ops/graph.py``:
+:class:`DenseGraph` ((n_pre, n_post) weight and mask matrices; the gathers
+are float32 matrix products), :class:`SparseGraph` (COO edge list, its
+electrical and chemical gathers, edge updates and per-edge edits),
 :func:`radius_offsets`, :class:`StencilGraph` (per-destination, per-offset
-weight planes on a (rows, cols) grid), :class:`SparseGraph` (COO edge
-list, its electrical and chemical gathers, edge updates and per-edge
-edits; a lattice builds only the zero-edge default so far), and the host
-builders of
+weight planes on a (rows, cols) grid), the host constructors of
 ``connect(predicate)``, which decompose a pairwise predicate into a
-`StencilGraph` (`DenseGraph` is not ported).
+`StencilGraph` where its offset support is narrow and keep a `DenseGraph`
+where it is wide, and the converters between the three layouts.
 
 Graph construction runs in host NumPy, drawing the same random numbers in
 the same order as the JAX package, and moves the result to the device once.
@@ -27,6 +28,126 @@ def _check_node(idx, n):
     if not (0 <= idx < n):
         from ..errors import GraphError
         raise GraphError(f"position {idx} not in graph (n={n})")
+
+
+def exact_matmul(a, b):
+    """``a @ b`` in full float32, as the JAX package's gathers take their
+    products.  On a GPU it raises where the process allows TF32 for
+    float32 products (PyTorch's default does not); it changes no global
+    setting."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the dense gathers need full float32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+    return a @ b
+
+
+# ---------------------------------------------------------------------------
+# Dense graph
+# ---------------------------------------------------------------------------
+
+
+class DenseGraph:
+    """Dense (n_pre, n_post) float32 weight matrix; ``mask[i, j]`` (bool)
+    marks the edge i -> j."""
+
+    def __init__(self, weights, mask):
+        self.weights = weights
+        self.mask = mask
+
+    @classmethod
+    def empty(cls, n_pre, n_post=None, device="cpu"):
+        n_post = n_pre if n_post is None else n_post
+        return cls(torch.zeros((n_pre, n_post), dtype=torch.float32,
+                               device=device),
+                   torch.zeros((n_pre, n_post), dtype=torch.bool,
+                               device=device))
+
+    @property
+    def n_pre(self):
+        return self.weights.shape[0]
+
+    @property
+    def n_post(self):
+        return self.weights.shape[1]
+
+    @property
+    def has_edges(self):
+        """Whether the mask holds any edge (one read from the device; not
+        cached, since ``mask`` may be edited in place)."""
+        return bool(self.mask.any())
+
+    def in_degree(self):
+        return torch.sum(self.mask.to(torch.float32), dim=0)
+
+    def _masked(self):
+        return torch.where(self.mask, self.weights, 0.0)
+
+    # -- gathers ------------------------------------------------------------
+    def gather_electrical(self, a_src, sub_v, v_post, g_post):
+        """``g * (a @ w - v * (sub @ w)) / max(in_deg, 1)`` over the masked
+        weights."""
+        w = self._masked()
+        wa = exact_matmul(a_src, w)
+        wsub = exact_matmul(sub_v, w)
+        cnt = torch.clamp(self.in_degree(), min=1.0)
+        return g_post * (wa - v_post * wsub) / cnt
+
+    def gather_chemical(self, t_src, nt_mask_src):
+        """Per-type (n_post, K) neurotransmitter input ``sums / max(cnts,
+        1)`` with ``sums = w.T @ (t * m)`` and ``cnts = mask.T @ m``, and
+        ``cnts > 0`` as its validity."""
+        sums = exact_matmul(self._masked().T, t_src * nt_mask_src)
+        cnts = exact_matmul(self.mask.to(torch.float32).T, nt_mask_src)
+        return sums / torch.clamp(cnts, min=1.0), cnts > 0.0
+
+    # -- per-edge updates (plasticity) --------------------------------------
+    def edge_pre_post(self, pre_vals, post_vals):
+        """Per-node value dicts broadcast to the (n_pre, n_post) edge
+        plane."""
+        pre = {k: v[:, None] for k, v in pre_vals.items()}
+        post = {k: v[None, :] for k, v in post_vals.items()}
+        return pre, post
+
+    @property
+    def edge_mask(self):
+        return self.mask
+
+    def replace_weights(self, weights):
+        return DenseGraph(weights, self.mask)
+
+    def apply_edge_update(self, edge_dw, pre_vals, post_vals):
+        """``w + edge_dw(w, pre, post)`` on every edge the mask holds."""
+        pre, post = self.edge_pre_post(pre_vals, post_vals)
+        dw = edge_dw(self.weights, pre, post)
+        return self.replace_weights(
+            torch.where(self.mask, self.weights + dw, self.weights))
+
+    # -- per-edge access ----------------------------------------------------
+    def lookup_weight(self, src, dst):
+        _check_node(src, self.n_pre)
+        _check_node(dst, self.n_post)
+        if not bool(self.mask[src, dst]):
+            return None
+        return float(self.weights[src, dst])
+
+    def edit_weight(self, src, dst, w):
+        """A graph with edge src -> dst set to ``w``, or removed when ``w``
+        is None."""
+        _check_node(src, self.n_pre)
+        _check_node(dst, self.n_post)
+        weights, mask = self.weights.clone(), self.mask.clone()
+        weights[src, dst] = 0.0 if w is None else w
+        mask[src, dst] = w is not None
+        return DenseGraph(weights, mask)
+
+    def get_incoming_connections(self, dst):
+        _check_node(dst, self.n_post)
+        return set(torch.nonzero(self.mask[:, dst]).reshape(-1).tolist())
+
+    def get_outgoing_connections(self, src):
+        _check_node(src, self.n_pre)
+        return set(torch.nonzero(self.mask[src, :]).reshape(-1).tolist())
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +170,18 @@ class SparseGraph:
                                  device=weights.device).index_add_(
                 0, dst, torch.ones_like(weights))
         self.in_deg = in_deg
+
+    @classmethod
+    def from_arrays(cls, src, dst, weights, n_pre, n_post=None, device="cpu"):
+        """A graph from host edge arrays, stably sorted by destination."""
+        n_post = n_pre if n_post is None else n_post
+        order = np.argsort(np.asarray(dst), kind="stable")
+        return cls(
+            torch.from_numpy(np.asarray(src)[order].astype(np.int64)).to(device),
+            torch.from_numpy(np.asarray(dst)[order].astype(np.int64)).to(device),
+            torch.from_numpy(
+                np.asarray(weights)[order].astype(np.float32)).to(device),
+            n_pre, n_post)
 
     @classmethod
     def empty(cls, n_pre, n_post=None, device="cpu"):
@@ -112,34 +245,38 @@ class SparseGraph:
 
     def edit_weight(self, src, dst, w):
         """A graph with edge src -> dst set to ``w`` (added if missing), or
-        removed when ``w`` is None."""
+        removed when ``w`` is None; an added or removed edge re-sorts the
+        list by destination."""
         _check_node(src, self.n_pre)
         _check_node(dst, self.n_post)
         e = self._edge_index(src, dst)
         s, d = self.src.cpu().numpy(), self.dst.cpu().numpy()
         ws = self.weights.cpu().numpy()
+        dev = self.weights.device
         if w is None:
             if e is None:
                 return self
             keep = np.ones(len(ws), bool)
             keep[e] = False
-            s, d, ws = s[keep], d[keep], ws[keep]
-        elif e is not None:
+            return SparseGraph.from_arrays(s[keep], d[keep], ws[keep],
+                                           self.n_pre, self.n_post, dev)
+        if e is not None:
             ws = ws.copy()
             ws[e] = w
-        else:
-            s, d = np.append(s, src), np.append(d, dst)
-            ws = np.append(ws, np.float32(w))
-        dev = self.weights.device
-        return SparseGraph(torch.from_numpy(s).to(dev),
-                           torch.from_numpy(d).to(dev),
-                           torch.from_numpy(ws.astype(np.float32)).to(dev),
-                           self.n_pre, self.n_post)
+            return self.replace_weights(torch.from_numpy(ws).to(dev))
+        return SparseGraph.from_arrays(
+            np.append(s, src), np.append(d, dst),
+            np.append(ws, np.float32(w)), self.n_pre, self.n_post, dev)
 
     def get_incoming_connections(self, dst):
         _check_node(dst, self.n_post)
         sel = self.dst.cpu().numpy() == dst
         return set(self.src.cpu().numpy()[sel].tolist())
+
+    def get_outgoing_connections(self, src):
+        _check_node(src, self.n_pre)
+        sel = self.src.cpu().numpy() == src
+        return set(self.dst.cpu().numpy()[sel].tolist())
 
     def apply_edge_update(self, edge_dw, pre_vals, post_vals):
         pre, post = self.edge_pre_post(pre_vals, post_vals)
@@ -338,18 +475,32 @@ class StencilGraph:
                             torch.from_numpy(mask.sum(axis=0, dtype=np.float32))
                             .to(dev))
 
-    def get_incoming_connections(self, dst):
-        """The flat indices of the sources of ``dst``."""
-        _check_node(dst, self.n_post)
+    def _connections_of(self, idx, incoming):
         rows, cols = self.shape
-        r, c = dst // cols, dst % cols
+        r, c = idx // cols, idx % cols
         mask = self.mask.cpu().numpy()
         out = set()
         for o, (dr, dc) in enumerate(self.offsets):
-            sr, sc = r + dr, c + dc
-            if 0 <= sr < rows and 0 <= sc < cols and mask[o, r, c]:
-                out.add(sr * cols + sc)
+            if incoming:
+                sr, sc = r + dr, c + dc
+                if 0 <= sr < rows and 0 <= sc < cols and mask[o, r, c]:
+                    out.add(sr * cols + sc)
+            else:
+                # idx is the source of destination (r - dr, c - dc)
+                tr, tc = r - dr, c - dc
+                if 0 <= tr < rows and 0 <= tc < cols and mask[o, tr, tc]:
+                    out.add(tr * cols + tc)
         return out
+
+    def get_incoming_connections(self, dst):
+        """The flat indices of the sources of ``dst``."""
+        _check_node(dst, self.n_post)
+        return self._connections_of(dst, incoming=True)
+
+    def get_outgoing_connections(self, src):
+        """The flat indices of the destinations of ``src``."""
+        _check_node(src, self.n_pre)
+        return self._connections_of(src, incoming=False)
 
     # -- per-edge updates (plasticity) ------------------------------------------
     def edge_pre_post(self, pre_vals, post_vals):
@@ -384,11 +535,6 @@ class StencilGraph:
 # ---------------------------------------------------------------------------
 # Host builders of `connect(predicate)`
 # ---------------------------------------------------------------------------
-
-DENSE_NOT_PORTED = (
-    "a predicate whose offset support is too wide for a StencilGraph needs "
-    "DenseGraph, which is not ported to the PyTorch package yet (ROADMAP "
-    "queue 1, item 5)")
 
 
 def positions(rows, cols):
@@ -439,17 +585,92 @@ def stencil_planes_host(w, mask, rows, cols, max_offsets=128):
     return tuple(map(tuple, offsets)), wp, mp
 
 
+def connect_dense(rows, cols, connecting_conditional, weight_logic=None,
+                  device="cpu"):
+    """A pairwise predicate over all position pairs as a `DenseGraph`; the
+    predicate and the weight function take ((r1, c1), (r2, c2)).  O(N^2)
+    host calls."""
+    w, mask = connect_dense_host(rows, cols, connecting_conditional,
+                                 weight_logic)
+    return DenseGraph(torch.from_numpy(w).to(device),
+                      torch.from_numpy(mask).to(device))
+
+
 def connect_auto(rows, cols, connecting_conditional, weight_logic=None,
                  device="cpu"):
     """`connect(predicate)`: evaluate the predicate on the host, decompose
-    it into a `StencilGraph` and move that to ``device`` once."""
+    it into a `StencilGraph` where the offset support is narrow, keep the
+    `DenseGraph` where it is wide or there is no edge, and move the result
+    to ``device`` once."""
     w, mask = connect_dense_host(rows, cols, connecting_conditional,
                                  weight_logic)
     st = stencil_planes_host(w, mask, rows, cols)
     if st is None:
-        if mask.any():
-            raise NotImplementedError(DENSE_NOT_PORTED)
-        return SparseGraph.empty(rows * cols, device=device)
+        return DenseGraph(torch.from_numpy(w).to(device),
+                          torch.from_numpy(mask).to(device))
     offsets, wp, mp = st
     return StencilGraph(offsets, torch.from_numpy(wp).to(device),
                         torch.from_numpy(mp).to(device))
+
+
+def dense_to_sparse(graph):
+    """The edges of a `DenseGraph` as a `SparseGraph` on its device."""
+    mask = graph.mask.cpu().numpy()
+    w = graph.weights.cpu().numpy()
+    src, dst = np.nonzero(mask)
+    return SparseGraph.from_arrays(src, dst, w[src, dst], graph.n_pre,
+                                   graph.n_post, graph.weights.device)
+
+
+def dense_to_stencil(graph, rows, cols, max_offsets=128):
+    """A square `DenseGraph` whose edge set has narrow offset support as a
+    `StencilGraph`, or None when the support is too wide."""
+    if graph.n_pre != rows * cols or graph.n_post != rows * cols:
+        return None
+    st = stencil_planes_host(graph.weights.cpu().numpy(),
+                             graph.mask.cpu().numpy(), rows, cols,
+                             max_offsets)
+    if st is None:
+        return None
+    offsets, wp, mp = st
+    dev = graph.weights.device
+    return StencilGraph(offsets, torch.from_numpy(wp).to(dev),
+                        torch.from_numpy(mp).to(dev))
+
+
+def sparse_radius_graph(rows, cols, radius, keep_prob=1.0, seed=0,
+                        weight_mode="constant", wparam0=1.0, wparam1=0.0,
+                        device="cpu"):
+    """Radius-limited lattice connectivity as a `SparseGraph`, built in
+    NumPy: a `StencilGraph.build` of the radius's offsets converted to
+    COO.  ``weight_mode`` is constant (``wparam0``), distance, inv_distance,
+    gaussian (sigma ``wparam0``, amplitude ``wparam1``) or uniform_random
+    (between the two parameters, drawn from ``seed + 1``)."""
+    rng = np.random.default_rng(seed + 1)
+
+    def weight_fn(dr, dc, rr, cc):
+        dist = float(np.hypot(dr, dc))
+        if weight_mode == "distance":
+            v = dist * wparam0
+        elif weight_mode == "inv_distance":
+            v = wparam0 / dist if dist > 0 else wparam0
+        elif weight_mode == "gaussian":
+            v = wparam1 * np.exp(-dist * dist / (2.0 * wparam0 * wparam0))
+        elif weight_mode == "uniform_random":
+            return rng.uniform(wparam0, wparam1, rr.shape).astype(np.float32)
+        else:
+            v = wparam0
+        return np.full(rr.shape, v, np.float32)
+
+    g = StencilGraph.build(rows, cols, radius_offsets(radius),
+                           weight_fn=weight_fn, keep_prob=keep_prob,
+                           seed=seed, device=device)
+    return dense_to_sparse_from_stencil(g)
+
+
+def dense_to_sparse_from_stencil(graph):
+    """The edges of a `StencilGraph` as a `SparseGraph` on its device."""
+    from ..core.network import _graph_to_coo
+    src, dst, w, _ = _graph_to_coo(graph)
+    return SparseGraph.from_arrays(src, dst, w, graph.n_pre, graph.n_post,
+                                   graph.weights.device)

@@ -1,11 +1,14 @@
 """The plain-network kernels: gate, spec, wrapper, plain twin and runner.
 
-PyTorch/CUDA counterpart of the grid-mode plain-network form of
+PyTorch/CUDA counterpart of the plain-network forms of
 ``spiking_neural_networks_tpu/ops/pallas_reward.py`` (`_fused_chunk`, body
-`_make_kernel`, built by `plain_network_runner`): K steps of a
-`LatticeNetwork` of Izhikevich, ALIF or LIF lattices on stencil (or
-edgeless) graphs, of mixed grid shapes, with Poisson or Rate spike trains
-and one-to-one or resample (pooling, upsampling, shifted) connections.
+`_make_kernel`, built by `plain_network_runner`), grid mode and flat mode:
+K steps of a `LatticeNetwork` of Izhikevich, ALIF or LIF lattices with
+Poisson or Rate spike trains, either on stencil (or edgeless) graphs, of
+mixed grid shapes, with one-to-one or resample (pooling, upsampling,
+shifted) connections (grid mode), or on dense (or edgeless) graphs with
+one-to-one connections and dense blocks, every member a (1, N) row (flat
+mode, below).
 Each step runs, in this order,
 
 1. phase A of every lattice from the previous step's state: the intra
@@ -47,6 +50,36 @@ B'. the receptor kinetics on valid, inserted slots and the currents at
 and each train with a neurotransmitter inserted releases after its new
 spike, from ``v_th`` or ``v_resting``.
 
+Flat mode (the JAX kernel's (1, N) row layout): a network with a
+`DenseGraph` intra graph (Hopfield-style ``connect``) or a dense
+connection block, every lattice, train and block side of N <=
+`DENSE_N_MAX`, no stencil graph, no resample connection and no plastic
+lattice.  Every lattice and train is a (1, N) row; one-to-one connections
+stay elementwise.  Per destination j a dense gather is a sum over the
+sources i in a fixed order (`_seg_dot`): `DENSE_SEG` = 32 partial sums, the
+k-th over the sources i = k, k + 32, k + 64, ... in that order, each term a
+multiply then an add, and then the partial sums added from 0 in the order
+of k:
+
+* electrical intra: ``Wm = where(mask, W, 0)``, ``wa = sum_i v_i Wm_ij``,
+  ``wsub = sum_i Wm_ij``, ``d = max(in_deg_j, 1)``, ``total = (wa - v_j
+  wsub) / d * d``;
+* electrical dense block: ``total += sum_i a_i cw_ij - v_j sum_i sub_i
+  cw_ij`` with ``a`` the source lattice's previous v (``sub`` ones) or the
+  train's effect (``sub`` zeros);
+* the count adds a dense block's mask column sums;
+* chemical intra, per type q: ``sums_q = sum_i (t m)_iq Wm_ij``, ``gcnt_q =
+  sum_i m_iq mask_ij``, re-expanded as for a stencil;
+* chemical dense block: ``csum_q += sum_i (t m)_iq cw_ij``, ``ccnt_q +=
+  sum_i m_iq cmask_ij``.
+
+The JAX kernel takes these sums as matrix products on the MXU; the order
+above is this port's contract between the CUDA kernels
+(`net_dense_gather_kernel`: one thread per destination and partial sum)
+and the twin, which therefore loops over the sources and never calls a
+matrix product.  What no step changes (flat mode has no plasticity: the
+weights' column sums and the counts) is taken once per call.
+
 On a GPU these are hand-written CUDA kernels, ``csrc/network_plasticity.cu``
 (with the intra STDP kernel of ``csrc/lattice_plasticity.cu`` and the
 chemical device code of ``csrc/chem_common.cuh``);
@@ -63,6 +96,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.history import rebuilt_readouts
 from ..core.plasticity import (STDP, kernel_exp, kernel_pow, rule_floats,
@@ -70,7 +104,7 @@ from ..core.plasticity import (STDP, kernel_exp, kernel_pow, rule_floats,
 from ..core.structured import _resample_planes
 from ..models.base import NEVER
 from ..models.spike_train import PoissonSpikeTrain, RateSpikeTrain
-from .graph import SparseGraph, StencilGraph
+from .graph import DenseGraph, SparseGraph, StencilGraph
 from .kinetics import NT_PARAM_KEYS, REC_KIN_KEYS, nt_release, rec_kinetics
 from .receptors import DopaGluGABAReceptors, IonotropicReceptors
 from .reward_kernels import (MAX_OFFSETS, MODEL_PARAM_KEYS, MODELS,
@@ -79,6 +113,10 @@ from .reward_kernels import (MAX_OFFSETS, MODEL_PARAM_KEYS, MODELS,
 
 MAX_IN = 8                # NET_MAX_IN: incoming connections per lattice
 MAX_TAPS = 64             # NET_MAX_TAPS (= core.structured.ResampleBlock)
+DENSE_N_MAX = 512         # NET_DENSE_MAX: a flat-mode lattice, train or
+                          # dense block side (the JAX kernel's coverage)
+DENSE_SEG = 32            # NET_DENSE_SEG: partial sums of a dense gather
+CONN_KINDS = ("one2one", "resample", "dense")   # the CUDA source's ids
 STEPS_PER_LAUNCH = 16     # K of the runner's kernel calls
 TRAIN_KINDS = ("poisson", "rate")
 REFRACTORINESS = ("delta_dirac", "exponential_decay")
@@ -94,15 +132,22 @@ N_TYPES = 3
 # fixed strides of the flat per-lattice/train/connection descriptions the
 # C entry point reads (the NL_/NT_/NC_/NLC_/NTC_ defines of the CUDA
 # source)
-NL_I, NL_P = 8 + 2 * MAX_OFFSETS, 32
+NL_I, NL_P = 8 + 2 * MAX_OFFSETS, 36
 NT_I, NT_P = 5, 10
-NC_I, NC_P = 12, 3
+NC_I, NC_P = 12, 4
 NLC_P, NTC_P = 32, 8
 
-# Calls of `network_steps` that launched the CUDA kernels, and of those
-# the calls of a chemical network.
+# Calls of `network_steps` that launched the CUDA kernels, of those the
+# calls of a chemical network, and the calls in flat mode.
 LAUNCHES = 0
 CHEM_LAUNCHES = 0
+FLAT_LAUNCHES = 0
+
+
+def is_flat(spec):
+    """Whether ``spec`` holds a dense graph or a dense block: flat mode."""
+    return any(ls.graph == "dense" for ls in spec.lattices) \
+        or any(cs.op[0] == "dense" for cs in spec.conns)
 
 
 class NetLat(NamedTuple):
@@ -111,6 +156,8 @@ class NetLat(NamedTuple):
     shape: tuple               # (rows, cols)
     offsets: tuple             # stencil offsets; () for an edgeless graph
     emit: bool = False         # emit each step's pre-reset v
+    graph: str = "stencil"     # 'stencil' | 'dense' | 'none'; 'dense': a
+                               # (1, N) row with (N, N) weights and mask
 
 
 class NetTrain(NamedTuple):
@@ -127,8 +174,8 @@ class NetConn(NamedTuple):
     post: int                  # index into lattices
     pre_plastic: bool
     post_plastic: bool
-    op: tuple                  # ("one2one",) or ("resample", R1, C1, R2,
-                               # C2, fr, fc, taps)
+    op: tuple                  # ("one2one",), ("dense",) or ("resample",
+                               # R1, C1, R2, C2, fr, fc, taps)
 
     @property
     def updates(self):
@@ -177,15 +224,22 @@ def _chem_shape(chem, key, n):
 # ---------------------------------------------------------------------------
 
 
-def _graph_offsets(lat):
-    """The kernel's intra-graph offsets of a lattice: its stencil's, () for
-    an edgeless graph, None outside the kernel's class."""
+def _graph_kind(lat):
+    """The kernels' intra-graph class of a lattice: "stencil", "dense" (a
+    square `DenseGraph` of at most `DENSE_N_MAX` nodes), "none" (a graph of
+    either class without an edge, which both layouts accept), or None
+    outside the kernels' class."""
     g = lat.graph
     if isinstance(g, StencilGraph) and g.shape == (lat.rows, lat.cols) \
             and len(g.offsets) <= MAX_OFFSETS:
-        return g.offsets
+        return "stencil"
     if isinstance(g, SparseGraph) and g.src.numel() == 0:
-        return ()
+        return "none"
+    if isinstance(g, DenseGraph) and g.n_pre == g.n_post == lat.n:
+        if not g.has_edges:
+            return "none"
+        if lat.n <= DENSE_N_MAX:
+            return "dense"
     return None
 
 
@@ -218,11 +272,14 @@ def plain_network_spec(net, plan, skip_nt, st_nt=()):
     synapses only, no neurotransmitter may be inserted (``skip_nt``).  A
     chemical network takes the chemical arm when every lattice has one
     model with a `_chem_spec` and a c_m (so no LIF), and its connections
-    are one-to-one (resampled chemical gathers and dense blocks stay on
-    the plain route, as in the JAX gate); the trains flagged in ``st_nt``
-    release neurotransmitter with the first train's kinetics.  The TPU
-    gate's 128-column and VMEM limits are Mosaic limits and are not
-    copied."""
+    are one-to-one or dense (resampled chemical gathers stay on the plain
+    route, as in the JAX gate); the trains flagged in ``st_nt`` release
+    neurotransmitter with the first train's kinetics.  A `DenseGraph` with
+    an edge or a dense connection block puts the network in flat mode,
+    every lattice and train a (1, N) row with N <= `DENSE_N_MAX`; a stencil
+    graph, a resample connection or a plastic lattice beside one sends the
+    network to the plain route.  The TPU gate's 128-column and VMEM
+    limits are Mosaic limits and are not copied."""
     lattices = [net.lattices[i] for i in plan["lat_ids"]]
     sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
     if not lattices or any(s.update_grid_history for s in sts):
@@ -235,24 +292,36 @@ def plain_network_spec(net, plan, skip_nt, st_nt=()):
             return None
     elif not (net.electrical_synapse and skip_nt):
         return None
+    graphs = [_graph_kind(lat) for lat in lattices]
+    conn_kinds = [c["op"].kind[0] if isinstance(c["op"].kind, tuple)
+                  else c["op"].kind for c in plan["conns"]]
+    flat = "dense" in graphs or "dense" in conn_kinds
+    if None in graphs or (flat and (
+            "stencil" in graphs or "resample" in conn_kinds
+            or any(x.n > DENSE_N_MAX for x in lattices + sts)
+            or any(lat.do_plasticity for lat in lattices))):
+        return None             # mixed layouts, dense-edge STDP: plain route
     lats = []
-    for lat in lattices:
+    for lat, graph in zip(lattices, graphs):
         mk = model_kind(lat.model)
-        offsets = _graph_offsets(lat)
-        if mk is None or offsets is None or lat.update_graph_history \
+        if mk is None or lat.update_graph_history \
                 or (chem and "c_m" not in MODEL_PARAM_KEYS[mk]):
             return None
         emit = bool(lat.update_grid_history)
         if emit and mk != "izhikevich":
             return None
         lats.append(NetLat("plastic" if lat.do_plasticity else "plain", mk,
-                           (lat.rows, lat.cols), offsets, emit))
+                           (1, lat.n) if flat else (lat.rows, lat.cols),
+                           lat.graph.offsets if graph == "stencil" else (),
+                           emit, graph))
     if any(ls.kind == "plastic" for ls in lats) \
             and type(net._plasticity()) is not STDP:
         return None
     trains = [_train_spec(s) for s in sts]
     if any(ts is None for ts in trains):
         return None
+    if flat:
+        trains = [ts._replace(shape=(1, s.n)) for ts, s in zip(trains, sts)]
     if chem:
         nt = sts[0].model.nt_kinetics if sts else ""
         if any(st_nt) and nt not in NT_KINDS:
@@ -274,11 +343,15 @@ def plain_network_spec(net, plan, skip_nt, st_nt=()):
             if pre_shape != lats[post].shape:
                 return None
             op = ("one2one",)
+        elif kind == "dense":
+            if c["op"].w0.shape[0] > DENSE_N_MAX:
+                return None
+            op = ("dense",)
         elif isinstance(kind, tuple) and len(kind[7]) <= MAX_TAPS \
                 and not chem:
             op = kind
         else:
-            return None         # dense and padded blocks: plain route
+            return None         # padded blocks: plain route
         conns.append(NetConn(pre_is_st, pre, post,
                              not pre_is_st and lats[pre].kind == "plastic",
                              lats[post].kind == "plastic", op))
@@ -329,6 +402,15 @@ def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
         if ls.emit and ls.model != "izhikevich":
             raise ValueError("only Izhikevich lattices emit pre-reset v")
         shp, n_off = ls.shape, len(ls.offsets)
+        if ls.graph == "dense":
+            n = shp[1]
+            if shp[0] != 1 or n > DENSE_N_MAX or n_off \
+                    or ls.kind != "plain":
+                raise ValueError(
+                    f"lattice {k}: a dense graph needs a plain (1, N) row "
+                    f"with N <= {DENSE_N_MAX} and no offsets, got {ls}")
+            _need(f"lattice {k} weights", d["weights"], f32, (n, n), dev)
+            _need(f"lattice {k} mask", d["mask"], torch.bool, (n, n), dev)
         missing = [p for p in MODEL_PARAM_KEYS[ls.model]
                    if p not in d["params"]]
         if missing:
@@ -375,6 +457,14 @@ def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
                 raise ValueError(f"connection {ci}: bad resample op "
                                  f"{cs.op[:7]} for {pre} -> {post}")
             shp = (len(taps), *post)
+        elif cs.op[0] == "dense":
+            if pre[0] != 1 or post[0] != 1 or pre[1] > DENSE_N_MAX \
+                    or cs.updates:
+                raise ValueError(
+                    f"connection {ci}: a dense block joins (1, N) rows of "
+                    f"plain lattices, N_pre <= {DENSE_N_MAX}, got {pre} -> "
+                    f"{post}")
+            shp = (pre[1], post[1])
         else:
             raise ValueError(f"connection {ci}: no kernel for {cs.op[0]!r}")
         if cs.pre_is_st and cs.pre_plastic:
@@ -417,9 +507,9 @@ def _check_chem(spec, lats, trains, dev):
                   torch.bool if key == "nt$mask" else torch.float32,
                   (n, N_TYPES), dev)
     for ci, cs in enumerate(spec.conns):
-        if cs.op[0] != "one2one":
+        if cs.op[0] == "resample":
             raise ValueError(f"connection {ci}: the chemical arm takes "
-                             f"one-to-one connections only")
+                             f"one-to-one and dense connections only")
 
 
 def _chem_outputs(spec, d, dev):
@@ -467,6 +557,24 @@ def _outputs(spec, lats, trains, conns, n_steps, dev):
     return outs, touts, couts
 
 
+def _dense_scratch(spec, lats, conns, dev):
+    """Scratch of the dense sums: per lattice and per connection the
+    (8, n_post) buffer of a dense graph's or block's sums (rows 0-3 a
+    step's, rows 4-7 the call's constants), and per connection the buffer
+    a step writes a train's effects into before a dense block reads them;
+    None where there is none."""
+    def buf(n):
+        return torch.empty((8, n), dtype=torch.float32, device=dev)
+    return ([buf(ls.shape[1]) if ls.graph == "dense" else None
+             for ls in spec.lattices],
+            [buf(c["w"].shape[1]) if cs.op[0] == "dense" else None
+             for cs, c in zip(spec.conns, conns)],
+            [torch.empty(spec.trains[cs.pre].shape, dtype=torch.float32,
+                         device=dev)
+             if cs.op[0] == "dense" and cs.pre_is_st else None
+             for cs in spec.conns])
+
+
 def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
                   n_steps):
     """Advance ``n_steps`` steps of the network of ``spec``.
@@ -475,7 +583,8 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     LIF), ``in_deg`` and the ``params`` planes (keys
     ``MODEL_PARAM_KEYS[model]``) as (rows, cols) float32, ``lft`` int32,
     ``refr`` (ALIF and LIF) float32, and ``weights`` / ``mask`` (bool) as
-    (n_off, rows, cols) for a stencil graph; a chemical spec adds
+    (n_off, rows, cols) for a stencil graph or (N, N) for a dense graph
+    (whose lattice is a (1, N) row); a chemical spec adds
     ``spikes`` (the previous step's, bool (rows, cols)) and ``chem``, the
     state fields of `chem_keys` in the state's (N,) and (N, 3) layouts.
     ``trains`` holds one dict per
@@ -485,8 +594,9 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     the NT parameters as (N, 3).
     ``conns`` holds ``w`` and ``mask`` (bool) per connection,
     (rows, cols) one-to-one or (n_taps, rows, cols) resample, on the post
-    grid.  ``uniforms`` is an (n_steps, rows, cols) float32 tensor per
-    Poisson train (None for Rate), ``rule`` the STDP parameter dict.
+    grid, or (n_pre, n_post) for a dense block.  ``uniforms`` is an
+    (n_steps, rows, cols) float32 tensor per Poisson train (None for Rate),
+    ``rule`` the STDP parameter dict.
 
     Returns ``(lats, trains, conn_ws)``: per lattice a dict of ``v``,
     ``w``, ``lft``, ``refr``, ``spikes`` (the last step's, bool),
@@ -495,7 +605,7 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     ``lft``, ``step``, ``spikes`` and ``ntt`` (its ``nt$t`` with ``nt``,
     else None); the connection weights.  The inputs are not modified.
     """
-    global LAUNCHES, CHEM_LAUNCHES
+    global LAUNCHES, CHEM_LAUNCHES, FLAT_LAUNCHES
     _check(spec, lats, trains, conns, uniforms, clock0, n_steps)
     dev = lats[0]["v"].device
     if dev.type == "cpu":
@@ -514,6 +624,7 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES += 1
     CHEM_LAUNCHES += bool(spec.chem)
+    FLAT_LAUNCHES += is_flat(spec)
     return out
 
 
@@ -528,6 +639,7 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
     taps = [torch.tensor([x for t in cs.op[7] for x in t], dtype=torch.int32,
                          device=dev) if cs.op[0] == "resample" else None
             for cs in spec.conns]
+    lat_sums, conn_sums, effects = _dense_scratch(spec, lats, conns, dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -537,8 +649,9 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
     for k, (ls, d, o) in enumerate(zip(spec.lattices, lats, outs)):
         keys = MODEL_PARAM_KEYS[ls.model]
         n_off = len(ls.offsets)
+        dense = ls.graph == "dense"
         ints = [MODELS.index(ls.model), int(ls.kind == "plastic"),
-                *ls.shape, n_off, len(keys), int(ls.emit), 0]
+                *ls.shape, n_off, len(keys), int(ls.emit), int(dense)]
         ints += [o_[0] for o_ in ls.offsets] + [0] * (MAX_OFFSETS - n_off)
         ints += [o_[1] for o_ in ls.offsets] + [0] * (MAX_OFFSETS - n_off)
         lat_i[NL_I * k:NL_I * (k + 1)] = ints
@@ -547,10 +660,11 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                 *[None if x is None else x[0].data_ptr() for x in b],
                 *[None if x is None else x[1].data_ptr() for x in b],
                 ptr(o["spikes"]), ptr(o["v_pre"]), ptr(d["in_deg"]),
-                ptr(o["cnt"]), ptr(o["weights"]) if n_off else None,
-                ptr(d["mask"]) if n_off else None,
+                ptr(o["cnt"]), ptr(o["weights"]) if n_off or dense else None,
+                ptr(d["mask"]) if n_off or dense else None,
                 *[d["params"][p].data_ptr() for p in keys]]
         lat_p[NL_P * k:NL_P * k + len(ptrs)] = ptrs
+        lat_p[NL_P * k + 32] = ptr(lat_sums[k])
     tr_i = (ctypes.c_int * max(NT_I * len(trains), 1))()
     tr_p = (ctypes.c_void_p * max(NT_P * len(trains), 1))()
     for j, (ts, d, o, u) in enumerate(zip(spec.trains, trains, touts,
@@ -573,13 +687,19 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
         if cs.op[0] == "resample":
             _, R1, C1, _, _, fr, fc, tp = cs.op
             geo = [R1, C1, fr, fc, len(tp)]
+        elif cs.op[0] == "dense":
+            geo = [1, w.shape[0], 0, 0, w.shape[0]]   # n_pre source rows
         else:
             geo = [0, 0, 0, 0, 1]
         cn_i[NC_I * ci:NC_I * (ci + 1)] = [
-            int(cs.op[0] == "resample"), int(cs.pre_is_st), cs.pre, cs.post,
+            CONN_KINDS.index(cs.op[0]), int(cs.pre_is_st), cs.pre, cs.post,
             int(cs.pre_plastic), int(cs.post_plastic), *geo, 0]
-        cn_p[NC_P * ci:NC_P * (ci + 1)] = [ptr(w), ptr(d["mask"]),
-                                           ptr(taps[ci])]
+        # the third pointer: a resample's taps, or the effect scratch of a
+        # dense block that reads a train; the fourth: a dense block's sums
+        cn_p[NC_P * ci:NC_P * (ci + 1)] = [
+            ptr(w), ptr(d["mask"]),
+            ptr(taps[ci]) if taps[ci] is not None else ptr(effects[ci]),
+            ptr(conn_sums[ci])]
     chem_i, lat_c, tr_c = _chem_pointers(spec, lats, trains, outs, touts,
                                          ptr)
     r = rule_floats(rule)
@@ -680,7 +800,7 @@ def connection_counts(spec, lats, conns):
         for cs, c in zip(spec.conns, conns):
             if cs.post == k:
                 m = c["mask"].to(torch.float32)
-                cnt = cnt + (m.sum(dim=0) if cs.op[0] == "resample" else m)
+                cnt = cnt + (m if cs.op[0] == "one2one" else m.sum(dim=0))
         cnts.append(torch.clamp(cnt, min=1.0))
     return cnts
 
@@ -723,18 +843,119 @@ def _chem_state(spec, d, shape):
     return out
 
 
-def _electrical_total(spec, i, ls, s, v_prev, effects, conns, cw):
+def _seg_dot(xs, w):
+    """The dense gathers' sum ``sum_i xs[..., i, None] * w[i]`` in the CUDA
+    kernels' order: `DENSE_SEG` partial sums, the k-th over the sources i =
+    k, k + DENSE_SEG, ... accumulated from 0 in that order (a multiply,
+    then an add), then the partial sums added from 0 in the order of k.
+    ``xs`` is (Q, n_src), ``w`` (n_src, n_post); returns (Q, n_post)."""
+    n_src, n_post = w.shape
+    turns = -(-n_src // DENSE_SEG)
+    pad = turns * DENSE_SEG - n_src
+    wp = F.pad(w, (0, 0, 0, pad)).reshape(turns, DENSE_SEG, n_post)
+    xp = F.pad(xs, (0, pad)).reshape(-1, turns, DENSE_SEG)
+    acc = xs.new_zeros((xp.shape[0], DENSE_SEG, n_post))
+    for t in range(turns):
+        new = acc + xp[:, t, :, None] * wp[t]
+        if pad and t == turns - 1:
+            # the last turn's segments past n_src have no term
+            live = torch.arange(DENSE_SEG, device=w.device) < DENSE_SEG - pad
+            new = torch.where(live[None, :, None], new, acc)
+        acc = new
+    total = xs.new_zeros((xp.shape[0], n_post))
+    for k in range(DENSE_SEG):
+        total = total + acc[:, k]
+    return total
+
+
+def _dense_static(spec, lats, conns, statics, tr_static):
+    """What the dense gathers of a call keep fixed: per dense lattice
+    (key ("lat", i)) and dense block (key ("conn", ci)) the matrix ``w``
+    (an intra graph's masked), the column sums ``sub`` that multiply v (in
+    `_seg_dot`'s order; zeros for a train), and with chemistry the per-type
+    source counts (small integers, exact in any order)."""
+    out = {}
+    for i, (ls, d) in enumerate(zip(spec.lattices, lats)):
+        if ls.graph != "dense":
+            continue
+        w = torch.where(d["mask"], d["weights"], 0.0)
+        e = dict(w=w, sub=_seg_dot(w.new_ones((1, w.shape[0])), w))
+        if spec.chem:
+            mf = d["mask"].to(torch.float32)
+            e["cnt"] = [(m.reshape(-1, 1) * mf).sum(dim=0).reshape(ls.shape)
+                        for m in statics[i]["ntm_f"]]
+        out["lat", i] = e
+    for ci, (cs, c) in enumerate(zip(spec.conns, conns)):
+        if cs.op[0] != "dense":
+            continue
+        w = c["w"]
+        shape = spec.lattices[cs.post].shape
+        e = dict(w=w, sub=w.new_zeros(shape) if cs.pre_is_st else _seg_dot(
+            w.new_ones((1, w.shape[0])), w))
+        src = tr_static[cs.pre] if cs.pre_is_st else statics[cs.pre]
+        if spec.chem and src is not None:
+            mf = c["mask"].to(torch.float32)
+            e["cnt"] = [(m.reshape(-1, 1) * mf).sum(dim=0).reshape(shape)
+                        for m in src["ntm_f"]]
+        out["conn", ci] = e
+    return out
+
+
+def _dense_sums(spec, dense, v_prev, effects, ntt_prev, statics, tr,
+                tr_static):
+    """One step's dense gathers, one pass over each matrix: per key of
+    ``dense`` a dict of ``elec`` (the electrical sum over the sources'
+    previous v or effects) and ``chem`` (the three per-type sums of the
+    sources' ``t * m``), each a (1, n_post) row or None."""
+    out = {}
+    for key, e in dense.items():
+        if key[0] == "lat":
+            a = v_prev[key[1]]
+            t, m = ntt_prev[key[1]], statics[key[1]]
+        else:
+            cs = spec.conns[key[1]]
+            a = effects[cs.pre] if cs.pre_is_st else v_prev[cs.pre]
+            t = tr[cs.pre]["ntt"] if cs.pre_is_st else ntt_prev[cs.pre]
+            m = tr_static[cs.pre] if cs.pre_is_st else statics[cs.pre]
+        chem = spec.chem and m is not None
+        xs = ([a.reshape(-1)] if spec.electrical else []) + (
+            [(t[q] * m["ntm_f"][q]).reshape(-1) for q in range(N_TYPES)]
+            if chem else [])
+        if not xs:
+            out[key] = dict(elec=None, chem=None)
+            continue
+        sums = _seg_dot(torch.stack(xs), e["w"])
+        shape = (1, sums.shape[-1])
+        out[key] = dict(
+            elec=sums[0].reshape(shape) if spec.electrical else None,
+            chem=[x.reshape(shape) for x in sums[len(xs) - N_TYPES:]]
+            if chem else None)
+    return out
+
+
+def _electrical_total(spec, i, ls, s, d, v_prev, effects, conns, cw, dense,
+                      sums):
     """Phase A of lattice ``i`` before its gap and count: the intra sum
-    ``acc - v * wsum``, then each incoming connection in plan order."""
+    ``acc - v * wsum`` (a dense graph's re-expanded by its in-degree), then
+    each incoming connection in plan order."""
     v = s["v"]
-    acc = torch.zeros_like(v)
-    wsum = torch.zeros_like(v)
-    for o, vs in enumerate(shifted(v, ls.offsets, 0.0)):
-        acc = acc + s["weights"][o] * vs
-        wsum = wsum + s["weights"][o]
-    total = acc - v * wsum
+    if ls.graph == "dense":
+        ind = torch.clamp(d["in_deg"], min=1.0)
+        total = (sums["lat", i]["elec"] - v * dense["lat", i]["sub"]) \
+            / ind * ind
+    else:
+        acc = torch.zeros_like(v)
+        wsum = torch.zeros_like(v)
+        for o, vs in enumerate(shifted(v, ls.offsets, 0.0)):
+            acc = acc + s["weights"][o] * vs
+            wsum = wsum + s["weights"][o]
+        total = acc - v * wsum
     for ci, cs in enumerate(spec.conns):
         if cs.post != i:
+            continue
+        if cs.op[0] == "dense":
+            total = total + (sums["conn", ci]["elec"]
+                             - v * dense["conn", ci]["sub"])
             continue
         a_src = effects[cs.pre] if cs.pre_is_st else v_prev[cs.pre]
         if cs.op[0] == "one2one":
@@ -753,13 +974,15 @@ def _electrical_total(spec, i, ls, s, v_prev, effects, conns, cw):
 
 
 def _chem_input(spec, i, ls, s, cs_i, ntt_prev, statics, tr, tr_static,
-                conns, cw):
+                conns, cw, dense, dsums):
     """Phase A' of lattice ``i``: per type, ``t_in`` and its validity."""
     zeros = torch.zeros_like(s["v"])
     emask = [m.to(torch.float32) for m in s["mask"]]
     t_in, valid = [], []
     for q in range(N_TYPES):
         sums, gcnt = zeros, zeros
+        if ls.graph == "dense":
+            sums, gcnt = dsums["lat", i]["chem"][q], dense["lat", i]["cnt"][q]
         for o, (ts, ms) in enumerate(zip(
                 shifted(ntt_prev[i][q] * cs_i["ntm_f"][q], ls.offsets, 0.0),
                 shifted(cs_i["ntm_f"][q], ls.offsets, 0.0))):
@@ -771,6 +994,10 @@ def _chem_input(spec, i, ls, s, cs_i, ntt_prev, statics, tr, tr_static,
         for ci, cs in enumerate(spec.conns):
             if cs.post != i or (cs.pre_is_st
                                 and not spec.trains[cs.pre].nt):
+                continue
+            if cs.op[0] == "dense":
+                csum = csum + dsums["conn", ci]["chem"][q]
+                ccnt = ccnt + dense["conn", ci]["cnt"][q]
                 continue
             if cs.pre_is_st:
                 t_src = tr[cs.pre]["ntt"][q]
@@ -836,7 +1063,9 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
     resampled reads are slices of padded planes: v, concentrations and
     masks pad with 0, lft with NEVER and spikes with 0 for the stencil;
     resample pre planes pad with 0 (lft too: the masks hide those slots).
-    That is what the kernels' bounds checks do.  Divisions by constants
+    That is what the kernels' bounds checks do.  A dense graph's or
+    block's gather is `_seg_dot`, the sum over the sources in the kernels'
+    order; no matrix product is called.  Divisions by constants
     divide by 0-dim tensors: CUDA PyTorch turns a Python-scalar divisor
     into a multiply by its reciprocal.
     """
@@ -865,12 +1094,15 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
         if ts.nt else None for ts, d in zip(spec.trains, trains)]
     cw = [list(c["w"].unbind(0)) if cs.op[0] == "resample" else c["w"]
           for cs, c in zip(spec.conns, conns)]
+    dense = _dense_static(spec, lats, conns, statics, tr_static)
     for k in range(int(n_steps)):
         clock = int(clock0) + k
         effects = [train_effect(ts, d, t["lft"], clock)
                    for ts, d, t in zip(spec.trains, trains, tr)]
         v_prev = [s["v"] for s in st]
         ntt_prev = [c["ntt"] if c else None for c in chem]
+        dsums = _dense_sums(spec, dense, v_prev, effects, ntt_prev, statics,
+                            tr, tr_static)
         new = []
         for i, (ls, d, s) in enumerate(zip(spec.lattices, lats, st)):
             v = s["v"]
@@ -878,12 +1110,13 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
             i_syn = torch.zeros_like(v)
             if spec.electrical:
                 i_syn = pp["gap_conductance"] * _electrical_total(
-                    spec, i, ls, s, v_prev, effects, conns, cw) / cnts[i]
+                    spec, i, ls, s, d, v_prev, effects, conns, cw, dense,
+                    dsums) / cnts[i]
             rec_dv = None
             if spec.chem:
                 t_in, valid = _chem_input(spec, i, ls, s, statics[i],
                                           ntt_prev, statics, tr, tr_static,
-                                          conns, cw)
+                                          conns, cw, dense, dsums)
                 rec_dv = _receptors(spec, statics[i], chem[i], v, t_in,
                                     valid, pp, consts)
             v_new, w_new, refr, spk, v_pre = model_step(
@@ -1000,9 +1233,12 @@ def _lattice_data(spec, ls, lat):
                 if ls.model in REFRACTORY_MODELS else None,
                 params={p: st[p].reshape(shp)
                         for p in MODEL_PARAM_KEYS[ls.model]},
-                in_deg=lat.graph.in_deg.reshape(shp) if ls.offsets else zeros,
-                weights=lat.graph.weights if ls.offsets else None,
-                mask=lat.graph.mask if ls.offsets else None,
+                in_deg=lat.graph.in_degree().reshape(shp)
+                if ls.offsets or ls.graph == "dense" else zeros,
+                weights=lat.graph.weights
+                if ls.offsets or ls.graph == "dense" else None,
+                mask=lat.graph.mask
+                if ls.offsets or ls.graph == "dense" else None,
                 spikes=st["is_spiking"].reshape(shp),
                 chem={k: st[k] for k in chem_keys(spec.chem)}
                 if spec.chem else None)
@@ -1036,6 +1272,8 @@ def member_inputs(spec, net, plan):
         shp = spec.lattices[cs.post].shape
         if cs.op[0] == "resample":
             shp = (len(cs.op[7]), *shp)
+        elif cs.op[0] == "dense":
+            shp = tuple(op.w0.shape)
         conns.append(dict(w=op.w0.reshape(shp),
                           mask=op.aux["mask"].reshape(shp)))
     return lats, trains, conns
@@ -1099,7 +1337,7 @@ def advance(spec, net, plan, length):
         if ls.emit:
             ys.update(rebuilt_readouts(
                 torch.cat(e), d["params"]["v_th"], d["params"]["c"],
-                [(("lat", lid), lat.grid_history)], ls.shape))
+                [(("lat", lid), lat.grid_history)], (lat.rows, lat.cols)))
     st_states = []
     for st, d in zip(sts, trains):
         s = dict(st.state)

@@ -36,6 +36,7 @@ def supports(model, graph, electrical, chemical, do_plasticity):
     from ..models.integrate_and_fire import Izhikevich
     from .graph import StencilGraph
     return (type(model) is Izhikevich and isinstance(graph, StencilGraph)
+            and len(graph.offsets) <= MAX_OFFSETS
             and electrical and not chemical and not do_plasticity)
 
 

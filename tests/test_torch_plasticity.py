@@ -197,10 +197,15 @@ def test_bench_predicate_equals_connect_stencil():
 def test_connect_wide_support_and_empty():
     t = snt.Lattice(snt.Izhikevich(), device="cpu")
     t.populate(4, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        t.connect(lambda x, y: x != y)
+    # offset support too wide for a stencil: a `DenseGraph`, as in the JAX
+    # package; so is a predicate that holds nowhere
+    t.connect(lambda x, y: x != y)
+    assert isinstance(t.graph, tg.DenseGraph)
+    assert int(t.graph.mask.sum()) == 16 * 15
+    assert torch.equal(t.graph.weights, t.graph.mask.to(torch.float32))
     t.connect(lambda x, y: False)
-    assert isinstance(t.graph, tg.SparseGraph) and t.graph.weights.numel() == 0
+    assert isinstance(t.graph, tg.DenseGraph) and not t.graph.has_edges
+    assert t.graph.weights.shape == (16, 16)
 
 
 # -- the plain routes against the JAX XLA path -------------------------------
