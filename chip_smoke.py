@@ -37,7 +37,13 @@ radius-2, 80%-keep stencil graph:
   `run_lattices`) at its own size, 7 x 7 + 3 x 3, and at flat mode's full
   width, 512 + 512 neurons with (512, 512) blocks, and an electrical dense
   network of 2 x 512 neurons, through the flat-mode arm of the network
-  kernels (`net_dense_gather_kernel` in ``csrc/network_plasticity.cu``).
+  kernels (`net_dense_gather_kernel` in ``csrc/network_plasticity.cu``);
+* `bench.py`'s reward network (`RewardModulatedLattice` -> `populate` ->
+  `connect` (radius 2), a plastic `Lattice`, a Poisson train ->
+  `generate_network` -> `connect` / `connect_with_reward_modulation` ->
+  `run_lattices_with_reward(0.5, n)`) at 32^2 and 128^2 over 3000 steps
+  and at 512^2 over 1024, through the reward arm of the network kernels
+  (``csrc/network_plasticity.cu`` with 6a's R-STDP edge kernel).
 
 Phases, one line each:
 
@@ -134,7 +140,26 @@ Phases, one line each:
    steps: the kernel route on the card against the same route on the CPU
    (2 mV, 2 steps; bit-equal expected);
 24. steps/s, neuron-updates/s, device time per kernel and device / wall of
-   the flat kernel route and the plain route on the three main paths.
+   the flat kernel route and the plain route on the three main paths;
+25. the reward arm vs its plain twin on the card: 24 random networks over
+   Izhikevich, ALIF and LIF, with and without rewards, static visit
+   counts 0, 1 and 2, trains into plastic and reward lattices, plastic ->
+   reward and reward -> reward connections, non-uniform states; and every
+   call of the first 1024 steps of the 32^2 and 128^2 main paths on the
+   state it received, traces and dopamine included: bit-equal;
+26. the reward main paths through `run_lattices_with_reward`: route
+   ("reward", False), reward-arm calls, weights, traces and dopamine
+   finite and moving (the reward lattice first fires after ~1500 steps,
+   so its traces move in the 3000-step runs); per-step times, the bound
+   and the twin of the 512^2 call;
+27. 32^2 with a Rate train and the reward lattice firing from the start,
+   1000 steps at reward 0.005: the kernel route on the card against the
+   same route on the CPU (bit-equal), then against the plain route on the
+   card (the tie rule); the flat COO runner (a `LatticeNetwork` subclass
+   with a connecting-graph history) on the card against the CPU (the tie
+   rule: ``index_add_`` sums in another order);
+28. per main-path size: wall and CUDA-event time per step, the kernels'
+   device time under torch.profiler and device / wall.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -253,6 +278,18 @@ CUE_HERTZ = (20.0, 10.0)
 FLAT_NS = (9, 49, 60, 200, 512)
 FLAT_MODES = ("intra", "block", "both")
 FLAT_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
+# Reward-network phases: bench.py's reward network (`bench.py:330-366`) at
+# its two sizes over 3000 steps and at 512^2 over 1024; every call of the
+# first RTWIN_STEPS of a main path held against the twin (up to
+# RTWIN_MAX neurons per lattice); the random cases' shapes, taken in turn.
+RMAINS = (((32, 32), 3000), ((128, 128), 3000), ((512, 512), 1024))
+RTWIN_STEPS, RTWIN_MAX = 1024, 128 * 128
+# at most this many steps past a main path for its reward lattice to fire
+RFIRE_MAX = 4096
+RSHAPES = ((8, 9), (64, 64), (33, 70), (130, 100))
+RCMP, RCMP_STEPS, RFLAT_STEPS = (32, 32), 1000, 500
+RTIMES = (((32, 32), 1024), ((128, 128), 1024), ((512, 512), 512))
+REWARD_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1183"
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # float operations the card needs for one exp: a range reduction (two
@@ -1903,7 +1940,7 @@ def chem_inputs(nk, net, n_steps, seed, chem=True):
 def flat_outputs(out):
     """(name, tensor) pairs of a network call's outputs, chemical fields
     by name."""
-    lat, tr, cn = out
+    lat, tr, cn = out[:3]
     pairs = []
     for k, d in enumerate(lat):
         for key, x in d.items():
@@ -2759,6 +2796,597 @@ def flat_times_phase(snt, smi):
         del kern, plain
 
 
+# ---------------------------------------------------------------------------
+# Reward networks (the reward arm): phases 25-28
+# ---------------------------------------------------------------------------
+
+
+def reward_main_net(snt, rows, cols, use_kernel=None, device="cuda",
+                    train="poisson", seed=0, fire=False):
+    """`bench.py:330-366`'s reward network: a `RewardModulatedLattice`
+    (gap 10) on ``connect(hypot <= 2 and x != y)`` (a 12-offset stencil),
+    a plastic `Lattice` (gap 10, radius 2, keep 0.8, graph seed 4, v0
+    uniform in [-65, 25) from ``default_rng(seed)``), a Poisson train at
+    40 Hz (``train="rate"``: a Rate train of 1 ms), ``connect(2, 1, a ==
+    b, 5.0)`` and ``connect_with_reward_modulation(1, 0, a == b, 1.0)``.
+    Up to 32^2 the predicates run on the host as a user calls them; above,
+    where they would take hours, `connect_stencil(radius=2.0)` (equal to
+    the predicate, checked at 32^2) and the host lists they give are set
+    before the first run.  With ``fire``, the reward lattice's v0 is
+    uniform in [-65, 30) too, so that it fires from the start (its default
+    rest state first fires after ~1500 steps)."""
+    rng = np.random.default_rng(seed)
+    n = rows * cols
+    rlat = snt.RewardModulatedLattice(snt.Izhikevich(), id=0, device=device)
+    rlat.populate(rows, cols, gap_conductance=10.0)
+    if n <= 32 * 32:
+        rlat.connect(lambda x, y: np.hypot(x[0] - y[0], x[1] - y[1]) <= 2
+                     and x != y)
+        g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(2.0),
+                                   device=device)
+        check(rlat.graph.offsets == g.offsets
+              and torch.equal(rlat.graph.weights, g.weights),
+              "the radius-2 predicate is not connect_stencil(radius=2)")
+    else:
+        rlat.connect_stencil(radius=2.0)
+    plain = snt.Lattice(snt.Izhikevich(), id=1, device=device)
+    plain.populate(rows, cols, gap_conductance=10.0)
+    plain.connect_stencil(radius=2.0, keep_prob=0.8, seed=4)
+    plain.do_plasticity = True
+    v0 = rng.uniform(-65.0, 25.0, n)
+    plain.apply(lambda s: {**s, "v": torch.as_tensor(
+        v0, dtype=torch.float32, device=plain.device)})
+    if fire:
+        v1 = rng.uniform(-65.0, 30.0, n)
+        rlat.apply(lambda s: {**s, "v": torch.as_tensor(
+            v1, dtype=torch.float32, device=rlat.device)})
+    st = poisson_train(snt, 2, rows, cols, 40.0, device) \
+        if train == "poisson" else rate_train(snt, 2, rows, cols, device)
+    net = snt.RewardModulatedLatticeNetwork.generate_network([rlat, plain],
+                                                             [st])
+    one = lambda a, b: a == b
+    if n <= 32 * 32:
+        net.connect(2, 1, one, lambda a, b: 5.0)
+        net.connect_with_reward_modulation(1, 0, one, lambda a, b: 1.0)
+        check(all(np.array_equal(a, b) for a, b in zip(
+            net.connections[(2, 1)], one_to_one_coo(n, 5.0))),
+              "a COO helper differs from connect")
+    else:
+        net.connections[(2, 1)] = one_to_one_coo(n, 5.0)
+        src, dst, w = one_to_one_coo(n, 1.0)
+        net.reward_connections[(1, 0)] = (
+            src, dst, w, np.zeros(n, np.float32), np.zeros(n, np.float32),
+            np.zeros(n, np.int32))
+        net._conn_version += 1
+    net.seed, net.use_kernel = seed, use_kernel
+    return net
+
+
+def reward_case(snt, model, shape, seed, train, statics):
+    """A random network of the reward arm's class on the card: reward
+    lattices 0 and 3, a plastic lattice 1, a plain lattice 2, a train 4;
+    plain connections train -> 1 and 1 -> 2, and with ``statics`` 2 -> 0
+    and 0 -> 2 (one static visit each); reward connections 1 -> 0
+    (plastic -> reward), 0 -> 3 (reward -> reward, two static visits),
+    train -> 3 and 2 -> 1; random weights, v across the threshold, past
+    firing times for 30% of the neurons (clock 3), random traces, the
+    bounded R-STDP of `RSTDP`."""
+    rng = np.random.default_rng(seed)
+    rows, cols = shape
+    n = rows * cols
+    cls = getattr(snt, model)
+    lats = []
+    for lid, kind, radius, keep in ((0, "reward", 2.0, 0.8),
+                                    (1, "plastic", 1.5, 0.9),
+                                    (2, "plain", 1.0, 1.0),
+                                    (3, "reward", 1.5, 0.7)):
+        lat = (snt.RewardModulatedLattice if kind == "reward"
+               else snt.Lattice)(cls(), id=lid, device="cuda")
+        lat.populate(rows, cols, gap_conductance=10.0)
+        lat.connect_stencil(radius=radius, keep_prob=keep, seed=seed + lid)
+        lat.do_plasticity = kind == "plastic"
+        lats.append(lat)
+    st = poisson_train(snt, 4, rows, cols, 200.0, "cuda") \
+        if train == "poisson" else rate_train(snt, 4, rows, cols, "cuda")
+    net = snt.RewardModulatedLatticeNetwork.generate_network(lats, [st])
+    idx = np.arange(n, dtype=np.int64)
+    w = lambda lo, hi: rng.uniform(lo, hi, n).astype(np.float32)
+    net.connections = {(4, 1): (idx, idx, w(10, 30)),
+                       (1, 2): (idx, idx, w(1, 8))}
+    if statics:
+        net.connections.update({(2, 0): (idx, idx, w(0.5, 2)),
+                                (0, 2): (idx, idx, w(0.5, 2))})
+    rc = lambda lo, hi: (idx, idx, w(lo, hi),
+                         rng.normal(0, 0.5, n).astype(np.float32),
+                         rng.normal(0, 0.5, n).astype(np.float32),
+                         rng.integers(0, 2, n).astype(np.int32))
+    net.reward_connections = {(1, 0): rc(0.5, 2), (0, 3): rc(0.5, 2),
+                              (4, 3): rc(1, 5), (2, 1): rc(0.5, 2)}
+    izh = model == "Izhikevich"
+    for lat in net._neuron_lattices().values():
+        f32 = lambda x: torch.as_tensor(x.astype(np.float32), device="cuda")
+        lft = np.where(rng.random(n) < 0.3, rng.integers(0, 3, n), -1)
+        lat.apply(lambda s, lft=lft: {
+            **s, "v": f32(rng.uniform(-70, 35, n) if izh
+                          else rng.uniform(-75, -45, n)),
+            "last_firing_time": torch.as_tensor(lft.astype(np.int32),
+                                                device="cuda")})
+        if isinstance(lat, snt.RewardModulatedLattice):
+            sh = tuple(lat.graph.weights.shape)
+            lat.trace = dict(
+                c=f32(rng.normal(0, 0.5, sh)), dw=f32(rng.normal(0, 0.5, sh)),
+                counter=torch.as_tensor(rng.integers(0, 2, sh).astype(
+                    np.int32), device="cuda"))
+    net.reward_modulator.params.update(RSTDP)
+    net.dopamine = float(rng.uniform(0.1, 0.5))
+    net.internal_clock = 3
+    net._conn_version += 1
+    return net
+
+
+def reward_inputs(nk, net, with_reward, n_steps, uniforms_from=None):
+    """One call's inputs from a reward network's members: (spec, lats,
+    trains, conns, uniforms, rule, reward); the Poisson uniforms drawn
+    as `network_kernels.advance` draws them, from a copy of
+    ``uniforms_from`` (a generator) or from a fresh seed."""
+    from spiking_neural_networks_tpu_torch.core.reward_structured import (
+        resolve_reward_plan)
+    plan = resolve_reward_plan(net)
+    lattices = net._neuron_lattices()
+    kinds = tuple("mod" if i in net.reward_modulated_lattices
+                  else "plastic" if lattices[i].do_plasticity else "plain"
+                  for i in plan["lat_ids"])
+    spec = nk.reward_network_spec(net, plan, kinds, True, with_reward)
+    check(spec is not None, "the network is outside the reward arm's class")
+    lats, trains, conns = nk.member_inputs(spec, net, plan)
+    g = torch.Generator(device="cuda")
+    if uniforms_from is None:
+        g.manual_seed(net.seed)
+    else:
+        g.set_state(uniforms_from.get_state())
+    uniforms = [torch.rand((n_steps, *ts.shape), generator=g, device="cuda")
+                if ts.kind == "poisson" else None for ts in spec.trains]
+    rng = np.random.default_rng(net.seed)
+    reward = dict(rule=net.reward_modulator.params,
+                  dopamine=torch.tensor(net.dopamine, dtype=torch.float32,
+                                        device="cuda"),
+                  rewards=rng.uniform(-0.5, 1.0, n_steps).astype(np.float32))
+    return (spec, lats, trains, conns, uniforms,
+            net._plasticity().params, reward)
+
+
+def reward_outputs(out):
+    """(name, tensor) pairs of a reward-arm call's outputs."""
+    lat, tr, cn, extra = out
+    pairs = []
+    for k, d in enumerate(lat):
+        for key in ("v", "w", "lft", "refr", "spikes", "weights"):
+            if d.get(key) is not None:
+                pairs.append((f"{key}{k}", d[key]))
+        if d.get("traces") is not None:
+            pairs += [(f"{key}{k}", d["traces"][key])
+                      for key in ("c", "dw", "counter")]
+    for j, d in enumerate(tr):
+        pairs += [(f"train {key}{j}", d[key]) for key in ("lft", "spikes",
+                                                          "step")
+                  if d.get(key) is not None]
+    pairs += [(f"conn{c}", w) for c, w in enumerate(cn)]
+    for c, t in enumerate(extra["traces"]):
+        if t is not None:
+            pairs += [(f"conn{c} {key}", t[key])
+                      for key in ("c", "dw", "counter")]
+    return pairs + [("dopamine", torch.as_tensor(extra["dopamine"]))]
+
+
+def compare_reward(got, want):
+    """(max float error, integer/spike mismatches) of a reward-arm call
+    against its twin, name by name."""
+    gp, wp = reward_outputs(got), reward_outputs(want)
+    check([n for n, _ in gp] == [n for n, _ in wp],
+          "the outputs of the kernel and the twin differ in kind")
+    err, bad = 0.0, 0
+    for (name, g), (_, w) in zip(gp, wp):
+        w = w.to(g.device)
+        if g.dtype in (torch.int32, torch.bool) or name.startswith("refr"):
+            bad += int((g != w).sum())
+            continue
+        check(bool(torch.isfinite(g).all()), f"non-finite {name}")
+        err = max(err, (g - w).abs().max().item() if g.numel() else 0.0)
+    return err, bad
+
+
+def reward_state(net, spec):
+    """A reward network's members after a run, in the layout of a
+    reward-arm call's outputs (plan order; connection weights and traces
+    from the plan's device copies, the dopamine as a tensor)."""
+    from spiking_neural_networks_tpu_torch.core.reward_structured import (
+        resolve_reward_plan)
+    plan = resolve_reward_plan(net)
+    lattices = net._neuron_lattices()
+    lat = []
+    for ls, i in zip(spec.lattices, plan["lat_ids"]):
+        s, shp = lattices[i].state, ls.shape
+        lat.append(dict(
+            v=s["v"].reshape(shp), w=s["w"].reshape(shp),
+            lft=s["last_firing_time"].reshape(shp),
+            spikes=s["is_spiking"].reshape(shp),
+            refr=s["refractory_count"].reshape(shp)
+            if "refractory_count" in s else None,
+            weights=lattices[i].graph.weights,
+            traces=lattices[i].trace if ls.kind == "mod" else None))
+    trains = []
+    for ts, i in zip(spec.trains, plan["st_ids"]):
+        s = net.spike_train_lattices[i].state
+        trains.append({k: s[key].reshape(ts.shape) for k, key in (
+            ("lft", "last_firing_time"), ("spikes", "is_spiking"),
+            ("step", "step")) if key in s})
+    entries = plan["conns"] + plan["rconns"]
+    shp = spec.lattices[0].shape
+    conns = [entries[ci]["op"].w0.reshape(shp) for ci in spec.keep]
+    traces = [{k: v.reshape(shp) for k, v in entries[ci]["trace0"].items()}
+              if cs.reward else None for cs, ci in zip(spec.conns, spec.keep)]
+    return lat, trains, conns, dict(traces=traces, dopamine=torch.tensor(
+        net.dopamine, dtype=torch.float32))
+
+
+def reward_bytes(args, out):
+    """Bytes one reward-arm call must move: each input once (the rewards
+    as the call's n_steps floats), each output once."""
+    spec, lats, trains, conns, uniforms, _, reward = args
+    return tensor_bytes(lats, trains, conns, uniforms, reward["dopamine"],
+                        out) + 4 * len(reward["rewards"])
+
+
+def reward_ops(spec, lats, k):
+    """A lower bound of the float operations of one call: each lattice's
+    phase A and model step (`stencil_ops`), and per masked slot of a mod
+    lattice the two R-STDP visits (7 operations each); connections,
+    trains, STDP and the deltas' exps not counted."""
+    ops = 0
+    for ls, d in zip(spec.lattices, lats):
+        ops += stencil_ops(ls.offsets, *ls.shape, k)
+        if ls.kind == "mod" and ls.offsets:
+            ops += k * 14 * int(d["mask"].sum())
+    return ops
+
+
+def reward_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    max_err, n_cases = reward_twin_phase(snt, nk)
+    err, launches, times, bounds = reward_main_phase(snt, nk, smi)
+    reward_cmp_phase(snt)
+    reward_times_phase(snt, smi)
+    return {"name": "network_steps (reward arm)", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "network_plasticity.cu",
+            "replaces": REWARD_REPLACES, "launches": launches,
+            "max_abs_err": max(max_err, err),
+            "ms": times[0] * nk.STEPS_PER_LAUNCH,
+            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
+            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "bound_ms": bounds[0], "bound_by": bounds[1],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes a network step"}
+
+
+def reward_twin_phase(snt, nk):
+    """25. The reward arm vs its plain twin on the card: `RCASES` random
+    networks over Izhikevich, ALIF and LIF, with and without rewards,
+    static visit counts 0, 1 and 2, trains into plastic and reward
+    lattices, plastic -> reward and reward -> reward connections, at
+    non-uniform states.  Returns (max float error, cases)."""
+    import itertools
+    max_err, n_cases = 0.0, 0
+    models = ("Izhikevich", "AdaptiveLeakyIntegrateAndFire",
+              "LeakyIntegrateAndFire")
+    for seed, (shape, model, with_reward) in enumerate(itertools.product(
+            RSHAPES, models, (True, False))):
+        train = "poisson" if seed % 3 else "rate"
+        statics = seed % 4 != 3
+        k = 16 if seed % 2 else 7
+        net = reward_case(snt, model, shape, seed, train, statics)
+        args = reward_inputs(nk, net, with_reward, k)
+        spec = args[0]
+        got = nk.network_steps(*args[:6], 3, k, args[6])
+        torch.cuda.synchronize()
+        want = nk.network_steps_reference(*args[:6], 3, k, args[6])
+        err, bad = compare_reward(got, want)
+        fired = sum(int((d["lft"] >= 3).sum()) for d in got[0])
+        moved = max((g - c["w"]).abs().max().item()
+                    for g, c in zip(got[2], args[3]))
+        say(f"[25 kernel-vs-twin] {model} {shape[0]}x{shape[1]} K={k} "
+            f"{train} rewards={with_reward} static counts "
+            f"{[cs.static for cs in spec.conns]}: integer and spike "
+            f"mismatches {bad}, max float error {err:.3g}, fired {fired}, "
+            f"max connection weight change {moved:.4g}, dopamine "
+            f"{float(got[3]['dopamine']):.5g}")
+        check(bad == 0, "firing times, spikes or counters differ")
+        check(err == 0.0, "the reward arm is not bit-equal to its twin")
+        check(fired > 0 and moved > 0, "no spike or no weight change")
+        max_err, n_cases = max(max_err, err), n_cases + 1
+        del net, args, got, want
+    say(f"[25 kernel-vs-twin] max float error over {n_cases} random cases "
+        f"{max_err:.3g} (0 = bit-equal)")
+    return max_err, n_cases
+
+
+def reward_main_phase(snt, nk, smi):
+    """25-26. The main path, `bench.py`'s reward network through
+    `run_lattices_with_reward`, at `RMAINS`: every call of the first
+    `RTWIN_STEPS` steps held against the twin on the state that call
+    received (traces and dopamine included), then the rest of the run in
+    one call; route, call counts, weights, traces and dopamine; then one
+    call from a firing state held against the twin, and timed at full
+    width.  Returns (max float error, kernel calls, (kernel, twin, device)
+    ms per step of the full-width call, its bound)."""
+    K = nk.STEPS_PER_LAUNCH
+    max_err, launches, times, bounds = 0.0, 0, None, None
+    for shape, steps in RMAINS:
+        t0 = time.perf_counter()
+        net = reward_main_net(snt, *shape)
+        built = time.perf_counter() - t0
+        w1 = net.lattices[1].graph.weights.clone()
+        bad, err, held = 0, 0.0, 0
+        nk.LAUNCHES = nk.REWARD_LAUNCHES = 0
+        done = 0
+        while done < steps:
+            clock = net.internal_clock
+            if done >= RTWIN_STEPS or shape[0] * shape[1] > RTWIN_MAX:
+                net.run_lattices_with_reward(REWARD, steps - done)
+                torch.cuda.synchronize()
+                break
+            args = reward_inputs(nk, net, True, K, net.generator())
+            reward = dict(args[6], rewards=np.full(K, REWARD, np.float32))
+            args = args[:6] + (reward,)
+            want = nk.network_steps_reference(*args[:6], clock, K, reward)
+            net.run_lattices_with_reward(REWARD, K)
+            torch.cuda.synchronize()
+            e, b = compare_reward(reward_state(net, args[0]), want)
+            bad, err, held = bad + b, max(err, e), held + 1
+            done += K
+        route = net._last_run_fused
+        calls = nk.REWARD_LAUNCHES
+        launches += calls
+        lat0, lat1 = net.reward_modulated_lattices[0], net.lattices[1]
+        members = [lat0, lat1] + list(net.spike_train_lattices.values())
+        finite = all(bool(torch.isfinite(x).all()) for m in members
+                     for x in m.state.values() if x.is_floating_point()) \
+            and all(bool(torch.isfinite(x).all()) for x in
+                    (lat0.graph.weights, lat1.graph.weights,
+                     lat0.trace["c"], lat0.trace["dw"]))
+        fired = [int((l.state["last_firing_time"] >= 0).sum())
+                 for l in (lat0, lat1)]
+        rc = net.reward_connections[(1, 0)]
+        dw1 = (lat1.graph.weights - w1).abs().max().item()
+        c0 = lat0.trace["c"].abs().max().item()
+        say(f"[26 main path] reward network {shape[0]}x{shape[1]} (built in "
+            f"{built:.1f} s), run_lattices_with_reward({REWARD}) over {steps} "
+            f"steps: route {route}, reward-arm calls {calls}, every call of "
+            f"the first {held * K} held against the twin: integer and spike "
+            f"mismatches {bad}, max float error {err:.3g}; state finite "
+            f"{finite}, dopamine {net.dopamine:.6g}, fired per lattice "
+            f"{fired} of {shape[0] * shape[1]}, plastic weight change "
+            f"{dw1:.4g}, reward lattice weights "
+            f"[{lat0.graph.weights.min().item():.4g}, "
+            f"{lat0.graph.weights.max().item():.4g}], max |c| {c0:.4g}, "
+            f"reward connection w [{rc[2].min():.4g}, {rc[2].max():.4g}], "
+            f"max |c| {np.abs(rc[3]).max():.4g}; card {smi}")
+        check(route == ("reward", False), f"the main path took {route}")
+        check(calls == nk.LAUNCHES == -(-steps // K),
+              "wrong number of reward-arm calls")
+        check(bad == 0 and err == 0.0, "the main path differs from the twin")
+        check(finite and math.isfinite(net.dopamine),
+              "the main path went non-finite")
+        check(dw1 > 0 and fired[1] > 0, "the plastic lattice did not learn")
+        # the reward lattice first fires after ~1500 steps from its rest
+        # state: its traces move only in the 3000-step runs
+        check(fired[0] == 0 or c0 > 0, "the reward lattice fired, but its "
+              "traces did not move")
+        check(steps < 3000 or (fired[0] > 0 and np.abs(rc[3]).max() > 0),
+              "the reward lattice or connection never learned")
+        max_err = max(max_err, err)
+        # one call from a state where the reward lattice has fired, so that
+        # the R-STDP edge kernel and the gated reward-connection visits are
+        # held to the twin with deltas that are not 0: the state a 3000-step
+        # run left; a shorter run (512^2 over 1024 steps) goes on until the
+        # traces of the reward lattice and connection have moved
+        more = 0
+        while more < RFIRE_MAX and not (
+                lat0.trace["c"].abs().max().item() > 0
+                and np.abs(net.reward_connections[(1, 0)][3]).max() > 0):
+            net.run_lattices_with_reward(REWARD, 16 * K)
+            more += 16 * K
+        args = reward_inputs(nk, net, True, K, net.generator())
+        args = args[:6] + (dict(args[6], rewards=np.full(K, REWARD,
+                                                         np.float32)),)
+        clock = net.internal_clock
+        kernel = lambda: nk.network_steps(*args[:6], clock, K, args[6])
+        twin = lambda: nk.network_steps_reference(*args[:6], clock, K,
+                                                  args[6])
+        got = kernel()
+        torch.cuda.synchronize()
+        e, b = compare_reward(got, twin())
+        spec = args[0]
+        dmod = max((g["weights"] - d["weights"]).abs().max().item()
+                   for ls, g, d in zip(spec.lattices, got[0], args[1])
+                   if ls.kind == "mod")
+        drc = max((g - d["w"]).abs().max().item()
+                  for cs, g, d in zip(spec.conns, got[2], args[3])
+                  if cs.reward)
+        say(f"[26 kernel-vs-twin] main path {shape[0]}x{shape[1]} K={K}, one "
+            f"call from a firing state (run on {more} steps past the main "
+            f"path, clock {clock}, dopamine "
+            f"{float(args[6]['dopamine']):.6g}): integer and spike "
+            f"mismatches {b}, max float error {e:.3g}, max weight change of "
+            f"the reward lattice {dmod:.4g} and of the reward connection "
+            f"{drc:.4g}")
+        check(b == 0 and e == 0.0, "the firing-state call differs from the "
+              "twin")
+        check(dmod > 0 and drc > 0, "the firing-state call moved no R-STDP "
+              "weight")
+        max_err = max(max_err, e)
+        if shape == RMAINS[-1][0]:
+            bounds = bound(reward_bytes(args, got),
+                           reward_ops(args[0], args[1], K))
+            dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
+                                      10 * K, n_top=6)
+            times = (event_ms(kernel, 10) / K, event_ms(twin, 2) / K,
+                     dev_us / 1e3)
+            say(f"[26 kernel-vs-twin] main path {shape[0]}x{shape[1]} K={K} "
+                f"per step, the call above: kernel calls back to back "
+                f"{times[0] * 1e3:.3f} us (events), of which device time "
+                f"{dev_us:.3f} us (profiled: "
+                + ", ".join(f"{n} {t:.3f}" for n, t in top)
+                + f"); plain twin {times[1] * 1e3:.3f} us (events); bound "
+                f"{bounds[0] * 1e3 / K:.4f} us ({bounds[1]}); library call: "
+                f"none; card {smi}")
+        del net, args, got
+    return max_err, launches, times, bounds
+
+
+def reward_cmp_phase(snt):
+    """27. 32^2, a Rate train, the reward lattice firing from the start
+    (v0 uniform), 1000 steps at `CMP_REWARD`: the kernel route on the card
+    against the same route on the CPU (bit-equal expected), then against
+    the plain route on the card, step by step (the tie rule); then the
+    flat COO runner (a `LatticeNetwork` subclass with a connecting-graph
+    history) on the card against the CPU."""
+    runs = {}
+    for key, device, uk in (("kernel", "cuda", None), ("cpu", "cpu", True)):
+        net = reward_main_net(snt, *RCMP, use_kernel=uk, device=device,
+                              train="rate", fire=True)
+        net.run_lattices_with_reward(CMP_REWARD, RCMP_STEPS)
+        lat0, lat1 = net.reward_modulated_lattices[0], net.lattices[1]
+        runs[key] = ([x.cpu() for x in (
+            lat0.state["v"], lat1.state["v"], lat0.graph.weights,
+            lat1.graph.weights, lat0.trace["c"], lat0.trace["dw"])],
+            [x.cpu() for x in (lat0.state["last_firing_time"],
+                               lat1.state["last_firing_time"],
+                               lat0.trace["counter"])],
+            net.dopamine, net.reward_connections[(1, 0)],
+            net._last_run_fused)
+    check(runs["kernel"][4] == runs["cpu"][4] == ("reward", False),
+          "wrong reward routes")
+    dv = max((a - b).abs().max().item()
+             for a, b in zip(runs["kernel"][0], runs["cpu"][0]))
+    di = sum(int((a != b).sum())
+             for a, b in zip(runs["kernel"][1], runs["cpu"][1]))
+    dr = max(float(np.abs(a - b).max())
+             for a, b in zip(runs["kernel"][3][2:5], runs["cpu"][3][2:5]))
+    fired = [int((x >= 0).sum()) for x in runs["kernel"][1][:2]]
+    say(f"[27 kernel-vs-cpu] reward network + Rate {RCMP[0]}x{RCMP[1]} "
+        f"{RCMP_STEPS} steps at reward {CMP_REWARD}, kernel route on the "
+        f"card vs on the CPU: max|dv| (and weights, traces) {dv:.4g}, "
+        f"integer mismatches {di}, max reward-connection difference "
+        f"{dr:.4g}, dopamine {runs['kernel'][2]:.6g} vs "
+        f"{runs['cpu'][2]:.6g}, fired per lattice {fired}")
+    check(dv == 0.0 and di == 0 and dr == 0.0
+          and runs["kernel"][2] == runs["cpu"][2],
+          "the reward arm on the card differs from the CPU")
+    check(min(fired) > 0, "a lattice of the comparison never fired")
+    hist = {}
+    for key, uk in (("kernel", None), ("plain", False)):
+        net = reward_main_net(snt, *RCMP, use_kernel=uk, train="rate",
+                              fire=True)
+        vs = []
+        for _ in range(RCMP_STEPS):
+            net.update_and_apply_reward(CMP_REWARD)
+            vs.append(torch.cat([net.reward_modulated_lattices[0].state["v"],
+                                 net.lattices[1].state["v"]]))
+        check(net._last_run_fused == (("reward", False) if uk is not False
+                                      else False), "wrong reward routes")
+        hist[key] = (torch.stack(vs).cpu().numpy(), torch.cat([
+            net.reward_modulated_lattices[0].state["last_firing_time"],
+            net.lattices[1].state["last_firing_time"]]).cpu().numpy()
+            .astype(np.int64))
+    tie_check(f"[27 kernel-vs-plain] reward network + Rate {RCMP[0]}x"
+              f"{RCMP[1]} {RCMP_STEPS} steps, one step per call, fused vs "
+              f"plain association on the card", *hist["kernel"],
+              *hist["plain"], 2 * RCMP[0] * RCMP[1])
+    flat = {}
+
+    class FlatNet(snt.LatticeNetwork):
+        """A subclass: the flat COO runner."""
+
+    for key, device in (("card", "cuda"), ("host", "cpu")):
+        net = reward_flat_net(snt, FlatNet, *RCMP, device)
+        net.run_lattices(RFLAT_STEPS)
+        exc = net.lattices[0]
+        flat[key] = (np.stack(exc.grid_history.history).reshape(
+            RFLAT_STEPS, -1), exc.field("last_firing_time").reshape(-1)
+            .astype(np.int64), np.stack(net.connecting_graph_history))
+    dh = float(np.abs(flat["card"][2] - flat["host"][2]).max())
+    say(f"[27 flat runner] LatticeNetwork subclass, {RCMP[0]}x{RCMP[1]}, "
+        f"{RFLAT_STEPS} steps with a connecting-graph history of "
+        f"{flat['card'][2].shape[1]} edges: max weight-history difference "
+        f"card vs CPU {dh:.4g}")
+    tie_check(f"[27 flat runner] card vs CPU (index_add_ and products in "
+              f"another order)", flat["card"][0], flat["card"][1],
+              flat["host"][0], flat["host"][1], RCMP[0] * RCMP[1])
+    check(dh <= 1e-3, "the flat runner's weights part beyond 1e-3")
+
+
+def reward_flat_net(snt, cls, rows, cols, device):
+    """A plastic Izhikevich lattice (radius 2, keep 0.8, v0 uniform in
+    [-65, 30), STDP a+- 0.02) with a grid history, a quiet lattice it
+    drives one to one, and a Rate train driving it one to one, as
+    subclass ``cls`` with a connecting-graph history: the flat COO runner
+    with ``index_add_`` gathers."""
+    rng = np.random.default_rng(3)
+    exc = snt.Lattice(snt.Izhikevich(), id=0, device=device)
+    exc.populate(rows, cols, gap_conductance=10.0)
+    exc.connect_stencil(radius=2.0, keep_prob=0.8, seed=5)
+    exc.do_plasticity = True
+    exc.plasticity = snt.STDP(a_plus=0.02, a_minus=0.02)
+    v0 = rng.uniform(-65.0, 30.0, rows * cols)
+    exc.apply(lambda s: {**s, "v": torch.as_tensor(
+        v0, dtype=torch.float32, device=exc.device)})
+    exc.grid_history = snt.history.GridVoltageHistory()
+    exc.update_grid_history = True
+    quiet = snt.Lattice(snt.Izhikevich(), id=1, device=device)
+    quiet.populate(rows, cols, gap_conductance=10.0)
+    quiet.connect_stencil(radius=1.0, seed=6)
+    st = rate_train(snt, 2, rows, cols, device)
+    net = cls.generate_network([exc, quiet], [st])
+    net.connections[(2, 0)] = one_to_one_coo(rows * cols, 5.0)
+    net.connections[(0, 1)] = one_to_one_coo(rows * cols, 2.0)
+    net.update_connecting_graph_history = True
+    net.dense_gather = False       # index_add_: float atomics on the card
+    return net
+
+
+def reward_times_phase(snt, smi):
+    """28. Per main-path size: wall time per step (median of 3 runs after
+    a warm-up), CUDA-event time per step over one run, the kernels'
+    device time under torch.profiler and device / wall."""
+    for shape, steps in RTIMES:
+        net = reward_main_net(snt, *shape)
+        run = lambda n: net.run_lattices_with_reward(REWARD, n)
+        run(steps)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        check(net._last_run_fused == ("reward", False),
+              "timed the wrong reward route")
+        ev = event_ms(lambda: run(steps), 1) / steps
+        dev_us, top = profiled_us(lambda: run(PROFILE_STEPS), PROFILE_STEPS,
+                                  n_top=6)
+        wall = float(np.median(walls))
+        n_all = 2 * shape[0] * shape[1]
+        say(f"[28 times] reward network {shape[0]}x{shape[1]}, kernel route "
+            f"(use_kernel=None): {net_rate(n_all, wall, steps)}, median of 3 "
+            f"x {steps} steps; CUDA events {ev * 1e3:.3f} us/step; device "
+            f"time {dev_us:.3f} us/step (profiled: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device time / wall {dev_us * steps / (wall * 1e6):.3f}; "
+            f"card {smi}")
+        del net
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2806,7 +3434,7 @@ def main():
 
     kernels = []
     for phases in (stencil_phases, plasticity_phases, network_phases,
-                   hh_phases, chem_phases, flat_phases):
+                   hh_phases, chem_phases, flat_phases, reward_phases):
         t0 = time.perf_counter()
         kernels.append(phases(snt, smi))
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")

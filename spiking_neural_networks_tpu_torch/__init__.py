@@ -5,10 +5,11 @@ module layout, public names and flat per-neuron state dict.  It holds the
 electrical lattice on a stencil graph (Izhikevich, adaptive leaky and
 leaky integrate-and-fire neurons), the Hodgkin-Huxley lattice with
 chemical synapses (Ionotropic receptors), the plain `Lattice` with STDP,
-the reward-modulated (R-STDP) lattice, spike trains and the plain
+the reward-modulated (R-STDP) lattice, spike trains, the plain
 `LatticeNetwork` of lattices and trains (electrical and chemical, on
 stencil, dense and sparse graphs with one-to-one, resample and dense
-connections), with their history readouts, and
+connections; structured or flat COO runner) and the
+`RewardModulatedLatticeNetwork`, with their history readouts, and
 hand-written CUDA kernels for NVIDIA Hopper (``csrc/``) that run those
 lattices' and networks' steps on the GPU.  Entry points put their tensors
 on the GPU (``device="cuda"``) unless the caller asks for another device.
@@ -27,6 +28,7 @@ from .models.spike_train import (
 from .core.lattice import Lattice
 from .core.network import LatticeNetwork, SpikeTrainLattice
 from .core.reward import RewardModulatedLattice
+from .core.reward_network import RewardModulatedLatticeNetwork
 from . import errors
 from .core.plasticity import STDP, RewardModulatedSTDP
 from .core import history

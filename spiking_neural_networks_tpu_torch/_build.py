@@ -157,6 +157,8 @@ def load():
         ci, pi, pv,                         # connections
         pf, ci, ci,                         # rule[5], clock0, n_steps
         pi, pv, pv,                         # chemical: ints[4], lat, train
+        pf, ci, pf,                         # rrule[9], with_reward, rewards
+        vp, vp,                             # dop_in, dop_steps
         vp,                                 # stream
     ]
     lib.net_steps.restype = ci

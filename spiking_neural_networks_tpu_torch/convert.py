@@ -3,10 +3,11 @@
 The JAX package's arrays become NumPy with ``np.asarray`` on each leaf;
 these functions turn such arrays into the PyTorch package's tensors on a
 device, keeping every dtype, so that both packages start from the same
-numbers.  `lattice_from`, `reward_lattice_from`, `spike_train_lattice_from`
-and `network_from` read any object with the JAX package's attribute names
-(``state``, ``graph``, ``trace``, ``dopamine``, ``internal_clock``,
-``connections``, ...) through ``np.asarray`` alone.
+numbers.  `lattice_from`, `reward_lattice_from`, `spike_train_lattice_from`,
+`network_from` and `reward_network_from` read any object with the JAX
+package's attribute names (``state``, ``graph``, ``trace``, ``dopamine``,
+``internal_clock``, ``connections``, ``reward_connections``, ...) through
+``np.asarray`` alone.
 """
 
 from __future__ import annotations
@@ -141,18 +142,24 @@ def _port_model(model):
         receptors=getattr(receptors, type(rec).__name__)(rec.kinetics))
 
 
-def network_from(src_net, device="cuda"):
-    """A port `LatticeNetwork` carrying every lattice's and train's state,
-    graph, plasticity and history switches, the host COO connections, the
-    synapse flags and the clock of the JAX network ``src_net``."""
+def _histories(src, dst):
+    dst.update_grid_history = bool(src.update_grid_history)
+    dst.grid_history = history_from(src.grid_history)
+    dst.update_graph_history = bool(src.update_graph_history)
+    return dst
+
+
+def network_from(src_net, device="cuda", net=None):
+    """A port `LatticeNetwork` (or the empty network ``net``) carrying
+    every lattice's and train's state, graph, plasticity and history
+    switches, the host COO connections, the synapse flags, the runner
+    choice and the clock of the JAX network ``src_net``."""
     from .core.network import LatticeNetwork
-    net = LatticeNetwork(device)
+    if net is None:
+        net = LatticeNetwork(device)
     for lat in src_net.lattices.values():
-        t = lattice_from(lat, _port_model(lat.model), device)
-        t.update_grid_history = bool(lat.update_grid_history)
-        t.grid_history = history_from(lat.grid_history)
-        t.update_graph_history = bool(lat.update_graph_history)
-        net.add_lattice(t)
+        net.add_lattice(_histories(
+            lat, lattice_from(lat, _port_model(lat.model), device)))
     for st in src_net.spike_train_lattices.values():
         net.add_spike_train_lattice(
             spike_train_lattice_from(st, _port_model(st.model), device))
@@ -162,6 +169,32 @@ def network_from(src_net, device="cuda"):
         for key, (s, d, w) in src_net.connections.items()}
     net.electrical_synapse = bool(src_net.electrical_synapse)
     net.chemical_synapse = bool(src_net.chemical_synapse)
+    net.update_connecting_graph_history = bool(
+        src_net.update_connecting_graph_history)
+    net.structured = bool(src_net.structured)
     net.internal_clock = int(src_net.internal_clock)
     net.history_chunk = src_net.history_chunk
+    return net
+
+
+def reward_network_from(src_net, device="cuda"):
+    """A port `RewardModulatedLatticeNetwork` carrying, beside what
+    `network_from` carries, every reward lattice (graph, traces,
+    ``do_modulation``, dopamine, R-STDP parameters, histories), the host
+    (src, dst, w, c, dw, counter) reward connections, the network's
+    dopamine and its modulator's parameters."""
+    from .core.reward_network import RewardModulatedLatticeNetwork
+    net = RewardModulatedLatticeNetwork(device)
+    for lat in src_net.reward_modulated_lattices.values():
+        net.add_reward_modulated_lattice(_histories(
+            lat, reward_lattice_from(lat, _port_model(lat.model), device)))
+    network_from(src_net, device, net)
+    net.reward_connections = {
+        key: (np.asarray(s, np.int64), np.asarray(d, np.int64),
+              np.asarray(w, np.float32), np.asarray(c, np.float32),
+              np.asarray(dw, np.float32), np.asarray(ct, np.int32))
+        for key, (s, d, w, c, dw, ct) in src_net.reward_connections.items()}
+    net.dopamine = float(src_net.dopamine)
+    net.reward_modulator.params = {
+        k: float(v) for k, v in src_net.reward_modulator.params.items()}
     return net

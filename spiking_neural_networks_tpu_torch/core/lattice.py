@@ -36,12 +36,6 @@ from .history import (GridVoltageHistory, history_step_bytes,
 from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
 from ..errors import GraphError
 
-CHEMICAL_NOT_PORTED = (
-    "chemical synapses in reward-modulated lattices are not ported to the "
-    "PyTorch package yet: they come with the reward slice (ROADMAP queue 1, "
-    "item 3; queue 2, kernel 6c)")
-
-
 class Lattice:
     """A 2-D grid of one neuron model plus a weighted synapse graph, on
     ``device``.

@@ -9,7 +9,7 @@ endpoint, from the post-step firing times of both endpoints:
 Rule parameters are plain dicts; the runners hand the updates 0-dim f32
 tensors (`rule_tensors`), so each operation rounds as the JAX package's f32
 scalars do, with R-STDP's two decays hoisted out of the step.  `BCM` is
-not ported yet (ROADMAP queue 1, item 3).
+not ported yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..models.base import NEVER
 
 PLASTICITY_NOT_PORTED = (
     "only STDP plasticity is ported to the PyTorch package so far; BCM and "
-    "the other rules wait (ROADMAP queue 1, item 3)")
+    "the other rules wait (ROADMAP queue 1, item 7)")
 
 
 @functools.lru_cache(maxsize=64)

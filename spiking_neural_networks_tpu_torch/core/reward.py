@@ -27,12 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.base import NEVER
+from ..models.base import NEVER, get_neurotransmitter_concentrations
 from ..ops import reward_kernels
 from ..ops.graph import SparseGraph, StencilGraph, connect_auto, radius_offsets
 from .history import (GridVoltageHistory, history_step_bytes,
                       resolve_history_chunk)
-from .lattice import CHEMICAL_NOT_PORTED
 from .plasticity import RewardModulatedSTDP, rstdp_visit, rule_tensors
 from .plasticity import stdp_delta as stdp_delta_arrays
 
@@ -277,12 +276,11 @@ def reward_lattice_step(model, electrical, chemical, do_modulation,
                         with_reward, skip_nt, pparams, state, graph, trace,
                         dopamine, clock, reward):
     """One reward-modulated lattice step in plain PyTorch: the electrical
-    gather, the dopamine update (with a reward), the model step, then the
-    R-STDP double visit of every edge from the post-step firing times.
+    gather, the dopamine update (with a reward), the chemical gather and
+    the model step, then the R-STDP double visit of every edge from the
+    post-step firing times.
     ``pparams``, ``dopamine`` and ``reward`` are 0-dim f32 tensors.
     Returns ``(state, graph, trace, dopamine, clock + 1)``."""
-    if chemical:
-        raise NotImplementedError(CHEMICAL_NOT_PORTED)
     if electrical:
         sub_v = torch.ones_like(state["v"])
         elec = graph.gather_electrical(
@@ -294,7 +292,13 @@ def reward_lattice_step(model, electrical, chemical, do_modulation,
         dopamine = RewardModulatedSTDP.update_dopamine(dopamine, reward,
                                                        pparams)
 
-    state, spikes = model.step(state, elec, skip_nt=skip_nt)
+    if chemical:
+        t, mask = get_neurotransmitter_concentrations(state)
+        t_in, t_valid = graph.gather_chemical(t, mask.to(torch.float32))
+        state, spikes = model.step(state, elec, t_in, t_valid,
+                                   skip_nt=skip_nt)
+    else:
+        state, spikes = model.step(state, elec, skip_nt=skip_nt)
     state["last_firing_time"] = state["last_firing_time"].masked_fill(
         spikes, clock)
 

@@ -58,6 +58,13 @@ class OneToOne:
     def extract(self, w):
         return w.cpu().numpy()[self.dst_host]
 
+    def place(self, vals, dtype=np.float32):
+        """Flat per-edge values (a reward connection's traces) in this
+        operator's layout, on its device."""
+        out = np.zeros(tuple(self.w0.shape), dtype)
+        out[self.dst_host] = vals
+        return _dev(out, self.w0.device)
+
 
 class EmptyBlock:
     """A connection with no edges: zero contribution, O(n_post) state."""
@@ -71,6 +78,9 @@ class EmptyBlock:
 
     def extract(self, w):
         return np.zeros(0, np.float32)
+
+    def place(self, vals, dtype=np.float32):
+        return _dev(np.zeros(0, dtype), self.w0.device)
 
 
 class DenseBlock:
@@ -91,6 +101,11 @@ class DenseBlock:
 
     def extract(self, w):
         return w.cpu().numpy()[self.src_host, self.dst_host]
+
+    def place(self, vals, dtype=np.float32):
+        out = np.zeros(tuple(self.w0.shape), dtype)
+        out[self.src_host, self.dst_host] = vals
+        return _dev(out, self.w0.device)
 
 
 class PaddedBlock:
@@ -122,6 +137,11 @@ class PaddedBlock:
 
     def extract(self, w):
         return w.cpu().numpy().reshape(-1)[self.edge_slots]
+
+    def place(self, vals, dtype=np.float32):
+        out = np.zeros(tuple(self.w0.shape), dtype).reshape(-1)
+        out[self.edge_slots] = vals
+        return _dev(out.reshape(tuple(self.w0.shape)), self.w0.device)
 
 
 class ResampleBlock:
@@ -158,6 +178,11 @@ class ResampleBlock:
     def extract(self, w):
         ti, tr, tc = self._edge_idx
         return w.cpu().numpy()[ti, tr, tc]
+
+    def place(self, vals, dtype=np.float32):
+        out = np.zeros(tuple(self.w0.shape), dtype)
+        out[self._edge_idx] = vals
+        return _dev(out, self.w0.device)
 
 
 def _detect_resample(src, dst, n_pre, n_post, pre_shape, post_shape,
@@ -438,7 +463,7 @@ def run_structured(net, iterations, flags):
                 and not lattices[0].state["v"].is_cuda:
             spec = None
     if spec is not None:
-        states, st_states, graphs, conn_ws, ys = nk.advance(
+        states, st_states, graphs, conn_ws, ys, _ = nk.advance(
             spec, net, plan, int(iterations))
         tag = ("flat-chemical" if spec.chem else "flat") if nk.is_flat(spec) \
             else ("chemical" if spec.chem else "network")

@@ -97,22 +97,6 @@ __global__ void lp_cell_kernel(
     if (v_pre_out) v_pre_out[i] = v_pre;
 }
 
-// One R-STDP visit (pallas_reward.py _rstdp_visit).
-__device__ __forceinline__ void rstdp_visit(float& w, float& c, float& dw,
-                                            int& ct, float delta, float dop,
-                                            const Rule& r)
-{
-    dw = dw + delta;
-    if (ct != 0) {
-        c = c * r.exp_dc + r.tau_c * dw;
-        dw = 0.0f;
-        ct = 0;
-    } else {
-        ct = 1;
-    }
-    w = w + c * dop;
-}
-
 template <int KIND>
 __global__ void lp_edge_kernel(
     const int* __restrict__ lft, const unsigned char* __restrict__ spk,
@@ -183,6 +167,40 @@ cudaError_t lp_launch_stdp_edge(const int* lft, const unsigned char* spk,
         lft, spk, weights, mask, nullptr, nullptr, nullptr, nullptr, r, st,
         rows, cols);
     return cudaGetLastError();
+}
+
+cudaError_t lp_launch_rstdp_edge(const int* lft, const unsigned char* spk,
+                                 float* weights, const unsigned char* mask,
+                                 float* tr_c, float* tr_dw, int* tr_counter,
+                                 const float* dop, const Rule& r,
+                                 const Stencil& st, int rows, int cols,
+                                 cudaStream_t s)
+{
+    const dim3 block(32, 8);
+    const dim3 grid((cols + block.x - 1) / block.x,
+                    (rows + block.y - 1) / block.y);
+    lp_edge_kernel<KIND_MOD><<<grid, block, 0, s>>>(
+        lft, spk, weights, mask, tr_c, tr_dw, tr_counter, dop, r, st, rows,
+        cols);
+    return cudaGetLastError();
+}
+
+cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
+                               int n_steps, float exp_dd, float tau_d,
+                               float* dop_steps, cudaStream_t s)
+{
+    for (int j0 = 0; j0 < n_steps; j0 += LP_REWARD_CHUNK) {
+        Rewards rw;
+        const int count = n_steps - j0 < LP_REWARD_CHUNK
+            ? n_steps - j0 : LP_REWARD_CHUNK;
+        for (int j = 0; j < count; ++j) rw.r[j] = rewards[j0 + j];
+        lp_dopamine_kernel<<<1, 1, 0, s>>>(
+            j0 == 0 ? dop_in : dop_steps + j0 - 1, rw, count, exp_dd, tau_d,
+            dop_steps + j0);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
 }
 
 template <int MODEL>
@@ -256,18 +274,10 @@ int lattice_plasticity_steps(
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
 
-    if (with_reward) {
-        for (int j0 = 0; j0 < n_steps; j0 += LP_REWARD_CHUNK) {
-            Rewards rw;
-            const int count = n_steps - j0 < LP_REWARD_CHUNK
-                ? n_steps - j0 : LP_REWARD_CHUNK;
-            for (int j = 0; j < count; ++j) rw.r[j] = rewards[j0 + j];
-            lp_dopamine_kernel<<<1, 1, 0, s>>>(
-                j0 == 0 ? dop_in : dop_steps + j0 - 1, rw, count, exp_dd,
-                tau_d, dop_steps + j0);
-            if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        }
-    }
+    if (with_reward
+        && (err = lp_launch_dopamine(dop_in, rewards, n_steps, exp_dd, tau_d,
+                                     dop_steps, s)) != cudaSuccess)
+        return (int)err;
 
     const float* v = (const float*)state_in[0];
     const float* w = (const float*)state_in[1];
@@ -302,10 +312,9 @@ int lattice_plasticity_steps(
             err = lp_launch_stdp_edge(lfto, spikes, weights, mask, r, st,
                                       rows, cols, s);
         } else if (kind == KIND_MOD) {
-            lp_edge_kernel<KIND_MOD><<<grid, block, 0, s>>>(
-                lfto, spikes, weights, mask, tr_c, tr_dw, tr_counter, dop,
-                r, st, rows, cols);
-            err = cudaGetLastError();
+            err = lp_launch_rstdp_edge(lfto, spikes, weights, mask, tr_c,
+                                       tr_dw, tr_counter, dop, r, st, rows,
+                                       cols, s);
         }
         if (err != cudaSuccess) return (int)err;
         v = vo;

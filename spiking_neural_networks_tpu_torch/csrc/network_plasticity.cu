@@ -1,5 +1,6 @@
-// K steps of a plain network of stencil lattices, spike trains and
-// one-to-one or resample connections, with STDP.
+// K steps of a network of stencil lattices, spike trains and one-to-one
+// or resample connections, with STDP, and of a reward network with
+// R-STDP.
 //
 // Replaces the grid-mode plain-network form of the TPU kernel
 // spiking_neural_networks_tpu/ops/pallas_reward.py:_fused_chunk (body
@@ -103,6 +104,24 @@
 // first design, took 438 us of device time per step: a full L2 latency per
 // source on one warp per SM.
 
+// The reward arm (the reward-network form of _make_kernel, built by
+// pallas_reward.py network_runner, :1863-1929; the step :863-987): a
+// RewardModulatedLatticeNetwork of one grid shape with one-to-one
+// connections.  Lattice kind mod takes the R-STDP double visit of its
+// stencil weights and (c, dw, counter) traces after the STDP, through the
+// single-lattice kernels' lp_edge_kernel<KIND_MOD> (lp_launch_rstdp_edge);
+// the dopamine of every step of a call is one launch before the steps
+// (lp_launch_dopamine, the rewards by value), and step k's visits read
+// entry k.  net_conn_edge_kernel counts `static` visits (the endpoints that
+// are modulated lattices, visiting every step) and, on a reward
+// connection, takes up to two gated R-STDP visits of (w, c, dw, counter)
+// per slot with the reward rule's delta.  Per step the bench's network
+// (a reward lattice, a plastic lattice, a train, a plain and a reward
+// connection) runs 7 launches: 2 cell kernels, the STDP and the R-STDP
+// edge kernels, 2 connection edge kernels and the train.  At 512 x 512 it
+// is memory-bound like 6a's R-STDP lattice: the R-STDP edge kernel reads
+// and writes weights and three traces for each of 12 slots per cell.
+
 #include "chem_common.cuh"
 
 #define NET_MAX_IN 8
@@ -117,8 +136,8 @@
 #define NL_P 36
 #define NT_I 5
 #define NT_P 10
-#define NC_I 12
-#define NC_P 4
+#define NC_I 13
+#define NC_P 7
 #define NLC_P 32
 #define NTC_P 8
 
@@ -565,7 +584,20 @@ __global__ void net_chem_cell_kernel(
 // the pre lattice's post-step lft (or a train's previous one); spk_pre is
 // read only when the pre lattice is plastic.  A resample slot whose pre
 // cell is off the grid reads lft 0 and spike 0, as the TPU kernel's zero
-// padding does; the mask holds no such slot.
+// padding does; the mask holds no such slot.  The visit count is
+//   count = static + pre_plastic * spk_pre + post_plastic * spk_post,
+// where `static` (reward networks) counts the endpoints that visit every
+// step.  A reward connection (`tr` not null) takes, per masked slot, up to
+// two R-STDP visits of (w, c, dw, counter) with the delta of the reward
+// rule `rr` and the step's dopamine *dop: the first where count >= 1, the
+// second where count >= 2.
+struct ConnTraces {
+    float* c;
+    float* dw;
+    int* counter;
+    const float* dop;
+};
+
 __global__ void net_conn_edge_kernel(
     float* __restrict__ w, const unsigned char* __restrict__ mask,
     const int* __restrict__ taps, int kind,
@@ -573,7 +605,8 @@ __global__ void net_conn_edge_kernel(
     const int* __restrict__ lft_post,
     const unsigned char* __restrict__ spk_post,
     int pre_plastic, int post_plastic, int R1, int C1, int fr, int fc,
-    int n_taps, Rule r, int rows, int cols)
+    int n_taps, Rule r, int rows, int cols, int static_count,
+    ConnTraces tr, Rule rr)
 {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -582,6 +615,7 @@ __global__ void net_conn_edge_kernel(
     const size_t i = (size_t)row * cols + col;
     const int t_post = lft_post[i];
     const float s_post = spk_post[i] ? 1.0f : 0.0f;
+    const float dop = tr.c ? *tr.dop : 0.0f;
     for (int t = 0; t < n_taps; ++t) {
         const size_t e = (size_t)t * n + i;
         if (!mask[e]) continue;
@@ -599,10 +633,24 @@ __global__ void net_conn_edge_kernel(
                 if (pre_plastic) s_pre = spk_pre[j] ? 1.0f : 0.0f;
             }
         }
-        float count = 0.0f;
+        float count = (float)static_count;
         if (pre_plastic) count = count + s_pre;
         if (post_plastic) count = count + s_post;
-        w[e] = w[e] + stdp_delta(t_pre, t_post, r) * count;
+        if (!tr.c) {
+            w[e] = w[e] + stdp_delta(t_pre, t_post, r) * count;
+            continue;
+        }
+        const float delta = stdp_delta(t_pre, t_post, rr);
+        float wv = w[e];
+        float c = tr.c[e];
+        float dw = tr.dw[e];
+        int ct = tr.counter[e];
+        if (count >= 1.0f) rstdp_visit(wv, c, dw, ct, delta, dop, rr);
+        if (count >= 2.0f) rstdp_visit(wv, c, dw, ct, delta, dop, rr);
+        w[e] = wv;
+        tr.c[e] = c;
+        tr.dw[e] = dw;
+        tr.counter[e] = ct;
     }
 }
 
@@ -753,7 +801,8 @@ void net_limits(int* out)
 
 // Runs n_steps network steps from clock0 on `stream`.  Flat descriptions
 // (host memory), one record per member:
-//   lattice ints (NL_I): model, plastic, rows, cols, n_off, n_params, emit,
+//   lattice ints (NL_I): model, kind (0 plain, 1 plastic: STDP, 2 mod:
+//     R-STDP), rows, cols, n_off, n_params, emit,
 //     dense (1: rows is 1, n_off 0, weights and mask are (cols, cols)),
 //     dr[LP_MAX_OFFSETS], dc[LP_MAX_OFFSETS];
 //   lattice pointers (NL_P): v, w, lft, refr (inputs, only read); buffer
@@ -763,7 +812,9 @@ void net_limits(int* out)
 //     then n_params parameter planes in MODEL_PARAM_KEYS order.  refr and
 //     its buffers are null for Izhikevich; weights and mask for n_off 0
 //     without a dense graph.  Pointer 32: a dense graph's (8, cols) floats
-//     of scratch for net_dense_gather_kernel.
+//     of scratch for net_dense_gather_kernel; 33-35: a mod lattice's
+//     traces c, dw (floats) and counter (ints) shaped like its weights,
+//     updated in place.
 //     Step k writes set k % 2, so the result is in set (n_steps - 1) % 2.
 //   train ints (NT_I): kind, refractoriness, rows, cols, NT kinetics
 //     (-1: the train releases no neurotransmitter);
@@ -773,13 +824,21 @@ void net_limits(int* out)
 //     rate and step Rate only.
 //   connection ints (NC_I): kind, pre_is_st, pre, post, pre_plastic,
 //     post_plastic, R1, C1, fr, fc, n_taps (1 for one-to-one, n_pre for a
-//     dense block), 0;
+//     dense block), static (the endpoints that visit every step), reward
+//     (1: an R-STDP connection);
 //   connection pointers (NC_P): w (updated in place when an endpoint is
 //     plastic), mask (bytes), then a resample's taps (device (dr, dc)
 //     ints) or, for a dense block that reads a train, n_pre floats of
 //     scratch for the train's effects, then a dense block's (8, n_post)
-//     floats of scratch for net_dense_gather_kernel.
-// rule = {a_plus, a_minus, tau_plus, tau_minus, dt}.  The chemical arm:
+//     floats of scratch for net_dense_gather_kernel, then a reward
+//     connection's traces c, dw and counter, updated in place.
+// rule = {a_plus, a_minus, tau_plus, tau_minus, dt}: STDP.  The reward arm:
+//   rrule = {a_plus, a_minus, tau_plus, tau_minus, dt, tau_c, exp_dc,
+//     tau_d, exp_dd} (the R-STDP rule, null without mod lattices and
+//     reward connections); dop_in (device, one float) the dopamine before
+//   the call; with_reward: `rewards` (host, n_steps floats) move it, and
+//   dop_steps (device, n_steps floats) receives each step's, which step k's
+//   visits read (without: *dop_in).  The chemical arm:
 //   chem_i = {family (-1: none), receptor kinetics, NT kinetics,
 //     electrical}; the spikes start as the previous step's;
 //   lattice chemical pointers (NLC_P, ops/network_kernels.py
@@ -793,7 +852,9 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
               int n_tr, const int* tr_i, void* const* tr_p,
               int n_cn, const int* cn_i, void* const* cn_p,
               const float* rule, int clock0, int n_steps, const int* chem_i,
-              void* const* lat_c, void* const* tr_c, void* stream)
+              void* const* lat_c, void* const* tr_c, const float* rrule,
+              int with_reward, const float* rewards, const float* dop_in,
+              float* dop_steps, void* stream)
 {
     const ChemKinds K = {chem_i[0], chem_i[1], chem_i[2], chem_i[3]};
     const bool chem = K.fam >= 0;
@@ -803,13 +864,17 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
     for (int k = 0; k < n_lat; ++k) {
         const int* li = lat_i + NL_I * k;
         void* const* lp = lat_p + NL_P * k;
-        if (li[0] < 0 || li[0] > 2 || li[2] <= 0 || li[3] <= 0
+        if (li[0] < 0 || li[0] > 2 || li[1] < KIND_PLAIN || li[1] > KIND_MOD
+            || li[2] <= 0 || li[3] <= 0
             || li[4] < 0 || li[4] > LP_MAX_OFFSETS || li[5] != n_params_of[li[0]]
             || (li[0] != MODEL_IZHIKEVICH && !lp[3])
             || ((li[4] > 0 || li[7]) && (!lp[16] || !lp[17]))
             || (li[7] && !lp[32])
             || (li[7] && (li[1] || li[2] != 1 || li[3] > NET_DENSE_MAX
-                          || li[4] != 0)))
+                          || li[4] != 0))
+            || (li[1] == KIND_MOD
+                && (chem || li[7] || !rrule || !dop_in
+                    || (li[4] > 0 && (!lp[33] || !lp[34] || !lp[35])))))
             return (int)cudaErrorInvalidValue;
         void* const* lc = lat_c + NLC_P * k;
         if (chem && (li[0] == MODEL_LIF || !lc[0] || !lc[1] || !lc[2]
@@ -835,19 +900,28 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
         const int pre_max = ci[1] ? n_tr : n_lat;
         if (ci[0] < 0 || ci[0] > CONN_DENSE || ci[2] < 0 || ci[2] >= pre_max
             || ci[3] < 0 || ci[3] >= n_lat || (ci[1] && ci[4])
-            || ++n_in[ci[3]] > NET_MAX_IN
+            || ++n_in[ci[3]] > NET_MAX_IN || ci[11] < 0
+            || (ci[12] && (chem || ci[0] == CONN_DENSE || !rrule || !dop_in
+                           || !cn_p[NC_P * q + 4] || !cn_p[NC_P * q + 5]
+                           || !cn_p[NC_P * q + 6]))
             || (ci[0] == CONN_RESAMPLE
                 && (chem || ci[10] <= 0 || ci[10] > NET_MAX_TAPS || !ci[8]
                     || !ci[9] || !cn_p[NC_P * q + 2]))
             || (ci[0] == CONN_DENSE
-                && (ci[4] || ci[5] || ci[10] <= 0 || ci[10] > NET_DENSE_MAX
+                && (ci[4] || ci[5] || ci[11] || ci[10] <= 0
+                    || ci[10] > NET_DENSE_MAX
                     || lat_i[NL_I * ci[3] + 2] != 1
                     || !cn_p[NC_P * q + 1] || !cn_p[NC_P * q + 3]
                     || (ci[1] && !cn_p[NC_P * q + 2]))))
             return (int)cudaErrorInvalidValue;
     }
+    if (with_reward && (!rrule || !rewards || !dop_in || !dop_steps))
+        return (int)cudaErrorInvalidValue;
     const float* rf = rule;
     const Rule r = {rf[0], rf[1], rf[2], rf[3], rf[4], 0.0f, 0.0f};
+    const Rule rr = rrule ? Rule{rrule[0], rrule[1], rrule[2], rrule[3],
+                                 rrule[4], rrule[5], rrule[6]}
+                          : Rule{};
     const dim3 block(32, 8);
     // a (1, N) row: one warp per block, spread over the SMs
     const dim3 row_block(32, 1);
@@ -958,6 +1032,10 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
     }
     // the dense jobs' constants: weight column sums and per-type counts
     if (err == cudaSuccess) err = launch_dense_gather(jobs, n_jobs, 1, s);
+    // the dopamine of every step of the call, before the steps
+    if (err == cudaSuccess && with_reward)
+        err = lp_launch_dopamine(dop_in, rewards, n_steps, rrule[8], rrule[7],
+                                 dop_steps, s);
 
     for (int k = 0; k < n_steps && err == cudaSuccess; ++k) {
         const int clock = clock0 + k;
@@ -1049,21 +1127,34 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
                     st[l], dn[l], ic[l], li[2], li[3], clock);
             }
         }
-        // 2. STDP on the plastic lattices' stencil weights
+        // 2. STDP on the plastic lattices' stencil weights, then the
+        // R-STDP double visit on the mod lattices' weights and traces
+        const float* dop = with_reward ? dop_steps + k : dop_in;
         for (int l = 0; l < n_lat && err == cudaSuccess; ++l) {
             const int* li = lat_i + NL_I * l;
             void* const* lp = lat_p + NL_P * l;
-            if (!li[1] || li[4] == 0) continue;
-            err = lp_launch_stdp_edge(
-                (const int*)lp[4 + 4 * (k & 1) + 2], (const unsigned char*)
-                lp[12], (float*)lp[16], (const unsigned char*)lp[17], r,
-                st[l], li[2], li[3], s);
+            if (li[1] == KIND_PLAIN || li[4] == 0) continue;
+            const int* lft = (const int*)lp[4 + 4 * (k & 1) + 2];
+            const unsigned char* spk = (const unsigned char*)lp[12];
+            err = li[1] == KIND_PLASTIC
+                ? lp_launch_stdp_edge(lft, spk, (float*)lp[16],
+                                      (const unsigned char*)lp[17], r, st[l],
+                                      li[2], li[3], s)
+                : lp_launch_rstdp_edge(lft, spk, (float*)lp[16],
+                                       (const unsigned char*)lp[17],
+                                       (float*)lp[33], (float*)lp[34],
+                                       (int*)lp[35], dop, rr, st[l], li[2],
+                                       li[3], s);
         }
-        // 3. STDP on the connections with a plastic endpoint
+        // 3. STDP on the connections with a plastic endpoint or static
+        // visits, and the reward connections' R-STDP visits
         for (int q = 0; q < n_cn && err == cudaSuccess; ++q) {
             const int* ci = cn_i + NC_I * q;
             void* const* cp = cn_p + NC_P * q;
-            if (!ci[4] && !ci[5]) continue;
+            if (!ci[4] && !ci[5] && !ci[11] && !ci[12]) continue;
+            const ConnTraces tr = ci[12]
+                ? ConnTraces{(float*)cp[4], (float*)cp[5], (int*)cp[6], dop}
+                : ConnTraces{nullptr, nullptr, nullptr, nullptr};
             void* const* post = lat_p + NL_P * ci[3];
             const int* post_i = lat_i + NL_I * ci[3];
             const int* lft_pre;
@@ -1081,7 +1172,8 @@ int net_steps(int n_lat, const int* lat_i, void* const* lat_p,
                 (const int*)cp[2], ci[0], lft_pre, spk_pre,
                 (const int*)post[4 + 4 * (k & 1) + 2],
                 (const unsigned char*)post[12], ci[4], ci[5], ci[6], ci[7],
-                ci[8], ci[9], ci[10], r, post_i[2], post_i[3]);
+                ci[8], ci[9], ci[10], r, post_i[2], post_i[3], ci[11], tr,
+                rr);
             err = cudaGetLastError();
         }
         // 4. the trains step last

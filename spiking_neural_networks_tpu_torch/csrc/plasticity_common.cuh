@@ -1,9 +1,10 @@
 // Device code shared by the plasticity kernels (lattice_plasticity.cu) and
 // the network kernels (network_plasticity.cu): the parameter-plane layout
 // of each neuron model, phase B (the model step), kernel_exp, the STDP
-// delta, and the launcher of the STDP edge kernel, which lives in
-// lattice_plasticity.cu.  Built with -fmad=false and without fast math, so
-// the kernels round as their plain PyTorch twins.
+// delta, the R-STDP visit, and the launchers of the STDP and R-STDP edge
+// kernels and of the dopamine kernel, which live in lattice_plasticity.cu.
+// Built with -fmad=false and without fast math, so the kernels round as
+// their plain PyTorch twins.
 
 #pragma once
 
@@ -149,6 +150,24 @@ __device__ __forceinline__ float stdp_delta(int t_pre, int t_post,
     return 0.0f;
 }
 
+// One R-STDP visit (pallas_reward.py _rstdp_visit): the delta joins the
+// accumulator; every second visit folds it into the trace c; the weight
+// takes c * dopamine.
+__device__ __forceinline__ void rstdp_visit(float& w, float& c, float& dw,
+                                            int& ct, float delta, float dop,
+                                            const Rule& r)
+{
+    dw = dw + delta;
+    if (ct != 0) {
+        c = c * r.exp_dc + r.tau_c * dw;
+        dw = 0.0f;
+        ct = 0;
+    } else {
+        ct = 1;
+    }
+    w = w + c * dop;
+}
+
 // Launches STDP on a stencil lattice's weights, in place on `s`: for every
 // masked slot (o, r, c), w += delta(lft[pre], lft[post]) * (spk[pre] +
 // spk[post]) from the post-step firing times and spikes (the edge kernel of
@@ -157,3 +176,22 @@ cudaError_t lp_launch_stdp_edge(const int* lft, const unsigned char* spk,
                                 float* weights, const unsigned char* mask,
                                 const Rule& r, const Stencil& st, int rows,
                                 int cols, cudaStream_t s);
+
+// Launches the R-STDP double visit on a stencil lattice's weights and
+// traces (c, dw, counter: (n_off, rows, cols)), in place on `s`, from the
+// post-step firing times, with the dopamine at *dop (the edge kernel of
+// kind mod, lattice_plasticity.cu).  Returns the launch error.
+cudaError_t lp_launch_rstdp_edge(const int* lft, const unsigned char* spk,
+                                 float* weights, const unsigned char* mask,
+                                 float* tr_c, float* tr_dw, int* tr_counter,
+                                 const float* dop, const Rule& r,
+                                 const Stencil& st, int rows, int cols,
+                                 cudaStream_t s);
+
+// Launches the dopamine of n_steps steps from *dop_in and the host
+// `rewards`: dop_steps[k] = dop_steps[k - 1] * exp_dd + tau_d * rewards[k]
+// (lp_dopamine_kernel, one thread, 16 rewards by value per launch).
+// Returns the first launch error.
+cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
+                               int n_steps, float exp_dd, float tau_d,
+                               float* dop_steps, cudaStream_t s);

@@ -1,8 +1,9 @@
-"""The plain-network kernels: gate, spec, wrapper, plain twin and runner.
+"""The network kernels: gates, spec, wrapper, plain twin and runner.
 
-PyTorch/CUDA counterpart of the plain-network forms of
+PyTorch/CUDA counterpart of the network forms of
 ``spiking_neural_networks_tpu/ops/pallas_reward.py`` (`_fused_chunk`, body
-`_make_kernel`, built by `plain_network_runner`), grid mode and flat mode:
+`_make_kernel`, built by `plain_network_runner` and, for reward networks,
+`network_runner`), grid mode and flat mode:
 K steps of a `LatticeNetwork` of Izhikevich, ALIF or LIF lattices with
 Poisson or Rate spike trains, either on stencil (or edgeless) graphs, of
 mixed grid shapes, with one-to-one or resample (pooling, upsampling,
@@ -80,6 +81,17 @@ and the twin, which therefore loops over the sources and never calls a
 matrix product.  What no step changes (flat mode has no plasticity: the
 weights' column sums and the counts) is taken once per call.
 
+The reward arm (`reward_network_spec`: a `RewardModulatedLatticeNetwork`
+of one grid shape, electrical, one-to-one connections) adds, per step:
+the dopamine ``dop * exp_dd + tau_d * reward_k`` before the visits (with
+rewards); to the connections' STDP count a ``static`` term, the endpoints
+that are modulated lattices against plain ones; after the STDP, the
+R-STDP double visit of every ``mod`` lattice's masked stencil slots, and
+on each reward connection's masked slots one R-STDP visit where its count
+``static + pre_plastic * spk_pre + post_plastic * spk_post`` is >= 1 and a
+second where it is >= 2; the trains last.  The R-STDP deltas take the
+reward rule's parameters, the STDP ones the lattices' rule.
+
 On a GPU these are hand-written CUDA kernels, ``csrc/network_plasticity.cu``
 (with the intra STDP kernel of ``csrc/lattice_plasticity.cu`` and the
 chemical device code of ``csrc/chem_common.cuh``);
@@ -95,19 +107,20 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.history import rebuilt_readouts
-from ..core.plasticity import (STDP, kernel_exp, kernel_pow, rule_floats,
-                               rule_tensors, stdp_delta)
+from ..core.plasticity import (STDP, kernel_exp, kernel_pow, rstdp_visit,
+                               rule_floats, rule_tensors, stdp_delta)
 from ..core.structured import _resample_planes
 from ..models.base import NEVER
 from ..models.spike_train import PoissonSpikeTrain, RateSpikeTrain
 from .graph import DenseGraph, SparseGraph, StencilGraph
 from .kinetics import NT_PARAM_KEYS, REC_KIN_KEYS, nt_release, rec_kinetics
 from .receptors import DopaGluGABAReceptors, IonotropicReceptors
-from .reward_kernels import (MAX_OFFSETS, MODEL_PARAM_KEYS, MODELS,
+from .reward_kernels import (KINDS, MAX_OFFSETS, MODEL_PARAM_KEYS, MODELS,
                              REFRACTORY_MODELS, STDP_KEYS, model_kind,
                              model_step, shifted)
 
@@ -134,14 +147,17 @@ N_TYPES = 3
 # source)
 NL_I, NL_P = 8 + 2 * MAX_OFFSETS, 36
 NT_I, NT_P = 5, 10
-NC_I, NC_P = 12, 4
+NC_I, NC_P = 13, 7
 NLC_P, NTC_P = 32, 8
+RSTDP_KEYS = STDP_KEYS + ("tau_c", "exp_dc", "tau_d", "exp_dd")
 
 # Calls of `network_steps` that launched the CUDA kernels, of those the
-# calls of a chemical network, and the calls in flat mode.
+# calls of a chemical network, the calls in flat mode and the calls of
+# the reward arm.
 LAUNCHES = 0
 CHEM_LAUNCHES = 0
 FLAT_LAUNCHES = 0
+REWARD_LAUNCHES = 0
 
 
 def is_flat(spec):
@@ -151,7 +167,7 @@ def is_flat(spec):
 
 
 class NetLat(NamedTuple):
-    kind: str                  # 'plain' | 'plastic'
+    kind: str                  # 'plain' | 'plastic' (STDP) | 'mod' (R-STDP)
     model: str                 # MODEL_PARAM_KEYS key
     shape: tuple               # (rows, cols)
     offsets: tuple             # stencil offsets; () for an edgeless graph
@@ -176,10 +192,14 @@ class NetConn(NamedTuple):
     post_plastic: bool
     op: tuple                  # ("one2one",), ("dense",) or ("resample",
                                # R1, C1, R2, C2, fr, fc, taps)
+    reward: bool = False       # R-STDP weights and traces (reward arm)
+    static: int = 0            # endpoints that visit every step (a
+                               # modulated lattice; reward networks)
 
     @property
     def updates(self):
-        return self.pre_plastic or self.post_plastic
+        return bool(self.pre_plastic or self.post_plastic or self.static
+                    or self.reward)
 
 
 class NetSpec(NamedTuple):
@@ -189,6 +209,7 @@ class NetSpec(NamedTuple):
     keep: tuple                # plan index of each conn
     chem: tuple = ()           # () or (family, rec kinetics, nt kinetics)
     electrical: bool = True    # electrical synapses (always, without chem)
+    with_reward: bool = False  # the dopamine takes a reward each step
 
 
 def chem_keys(chem):
@@ -363,6 +384,59 @@ def plain_network_spec(net, plan, skip_nt, st_nt=()):
                    chem, bool(net.electrical_synapse))
 
 
+def reward_network_spec(net, plan, lat_kind, skip_nt, with_reward):
+    """The kernel spec of a `RewardModulatedLatticeNetwork` and its
+    structured reward ``plan`` (`core.reward_structured`), or None outside
+    the reward arm's class, which is the JAX kernel's: electrical synapses
+    only with no neurotransmitter inserted (``skip_nt``); every lattice of
+    one shape on a stencil (<= 64 offsets) or edgeless graph, of
+    Izhikevich, ALIF or LIF; Poisson or Rate trains of one model and that
+    shape; one-to-one plain and reward connections only; `STDP` with
+    `RewardModulatedSTDP`.  A reward lattice with ``do_modulation = False``
+    (``lat_kind`` "reward") sends the network to the plain route.  The JAX
+    gate's 128-column cap is a Mosaic limit and is not copied.  Connection
+    ``keep`` indices run over ``plan["conns"] + plan["rconns"]``."""
+    from ..core.plasticity import RewardModulatedSTDP
+    all_lats = net._neuron_lattices()
+    lattices = [all_lats[i] for i in plan["lat_ids"]]
+    sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
+    if not lattices or net.chemical_synapse or not net.electrical_synapse \
+            or not skip_nt or "reward" in lat_kind \
+            or type(net._plasticity()) is not STDP \
+            or type(net.reward_modulator) is not RewardModulatedSTDP:
+        return None
+    shape = (lattices[0].rows, lattices[0].cols)
+    lats = []
+    for lat, kind in zip(lattices, lat_kind):
+        mk, graph = model_kind(lat.model), _graph_kind(lat)
+        if mk is None or (lat.rows, lat.cols) != shape \
+                or graph not in ("stencil", "none"):
+            return None
+        lats.append(NetLat(kind, mk, shape, lat.graph.offsets
+                           if graph == "stencil" else (), False, graph))
+    trains = [_train_spec(s) for s in sts]
+    if any(ts is None or ts.shape != shape or s.model != sts[0].model
+           for ts, s in zip(trains, sts)):
+        return None
+    lat_index = {i: k for k, i in enumerate(plan["lat_ids"])}
+    st_index = {i: k for k, i in enumerate(plan["st_ids"])}
+    conns = []
+    for c in plan["conns"] + plan["rconns"]:
+        if c["op"].kind != "one2one":
+            return None
+        pre_is_st = c["pre_is_st"]
+        conns.append(NetConn(
+            pre_is_st, st_index[c["pre"]] if pre_is_st
+            else lat_index[c["pre"]], lat_index[c["post"]],
+            c["pre_plastic"], c["post_plastic"], ("one2one",),
+            c["reward"], c["static"]))
+    if any(sum(c.post == k for c in conns) > MAX_IN
+           for k in range(len(lats))):
+        return None
+    return NetSpec(tuple(lats), tuple(trains), tuple(conns),
+                   tuple(range(len(conns))), (), True, bool(with_reward))
+
+
 # ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
@@ -376,7 +450,15 @@ def _need(name, t, dtype, shape, dev):
                          f"{tuple(shape)} tensor on {dev}; got {got}")
 
 
-def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
+def is_reward(spec):
+    """Whether ``spec`` needs the reward arm: an R-STDP lattice, a reward
+    connection or rewards."""
+    return spec.with_reward or any(ls.kind == "mod" for ls in spec.lattices) \
+        or any(cs.reward for cs in spec.conns)
+
+
+def _check(spec, lats, trains, conns, uniforms, clock0, n_steps,
+           reward=None):
     if not spec.lattices:
         raise ValueError("a network spec needs at least one lattice")
     if not (len(lats) == len(spec.lattices) and len(trains) == len(spec.trains)
@@ -392,7 +474,7 @@ def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
         raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
     f32, i32 = torch.float32, torch.int32
     for k, (ls, d) in enumerate(zip(spec.lattices, lats)):
-        if ls.kind not in ("plain", "plastic") \
+        if ls.kind not in ("plain", "plastic", "mod") \
                 or ls.model not in MODEL_PARAM_KEYS:
             raise ValueError(f"no kernel for lattice kind {ls.kind!r} and "
                              f"model {ls.model!r}")
@@ -427,6 +509,13 @@ def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
                   dev)
             _need(f"lattice {k} mask", d["mask"], torch.bool, (n_off, *shp),
                   dev)
+        if ls.kind == "mod":
+            if spec.chem or ls.graph == "dense":
+                raise ValueError(f"lattice {k}: R-STDP lattices are "
+                                 f"electrical, on stencil or edgeless graphs")
+            if n_off:
+                _need_traces(f"lattice {k}", d.get("traces") or {},
+                             (n_off, *shp), dev)
     for j, (ts, d, u) in enumerate(zip(spec.trains, trains, uniforms)):
         if ts.kind not in TRAIN_KINDS \
                 or ts.refractoriness not in REFRACTORINESS:
@@ -471,14 +560,37 @@ def _check(spec, lats, trains, conns, uniforms, clock0, n_steps):
             raise ValueError("spike trains are never plastic endpoints")
         _need(f"connection {ci} w", d["w"], f32, shp, dev)
         _need(f"connection {ci} mask", d["mask"], torch.bool, shp, dev)
+        if cs.reward:
+            if cs.op[0] == "dense" or spec.chem:
+                raise ValueError(f"connection {ci}: a reward connection is "
+                                 f"one-to-one or resample, electrical")
+            _need_traces(f"connection {ci}", d, shp, dev)
     if max(n_in) > MAX_IN:
         raise ValueError(f"the kernel takes at most {MAX_IN} connections "
                          f"into a lattice, got {max(n_in)}")
+    if is_reward(spec) and reward is None:
+        raise ValueError("a spec with R-STDP lattices, reward connections or "
+                         "rewards needs the reward arguments")
+    if reward is not None:
+        _need("dopamine", reward["dopamine"], f32, (), dev)
+        missing = [k for k in RSTDP_KEYS[:6] + ("tau_d",)
+                   if k not in reward["rule"]]
+        if missing:
+            raise KeyError(f"the reward rule lacks {missing}")
+        if spec.with_reward and len(reward["rewards"]) != n_steps:
+            raise ValueError(f"{len(reward['rewards'])} rewards for "
+                             f"{n_steps} steps")
     if spec.chem:
         _check_chem(spec, lats, trains, dev)
     elif any(ts.nt for ts in spec.trains) or not spec.electrical:
         raise ValueError("trains release neurotransmitter, and electrical "
                          "synapses are off, only in a chemical spec")
+
+
+def _need_traces(name, d, shape, dev):
+    for key, dtype in (("c", torch.float32), ("dw", torch.float32),
+                       ("counter", torch.int32)):
+        _need(f"{name} trace {key}", d.get(key), dtype, shape, dev)
 
 
 def _check_chem(spec, lats, trains, dev):
@@ -544,8 +656,10 @@ def _outputs(spec, lats, trains, conns, n_steps, dev):
             cnt=torch.empty(shp, dtype=torch.float32, device=dev),
             v_pre=torch.empty((n_steps, *shp), dtype=torch.float32,
                               device=dev) if ls.emit else None,
-            weights=d["weights"].clone() if ls.kind == "plastic"
+            weights=d["weights"].clone() if ls.kind != "plain"
             and ls.offsets else d["weights"],
+            traces={k: v.clone() for k, v in d["traces"].items()}
+            if ls.kind == "mod" and ls.offsets else None,
             chem=_chem_outputs(spec, d, dev) if spec.chem else None))
     touts = [dict(lft=d["lft"].clone(),
                   step=d["step"].clone() if ts.kind == "rate" else None,
@@ -554,7 +668,9 @@ def _outputs(spec, lats, trains, conns, n_steps, dev):
              for ts, d in zip(spec.trains, trains)]
     couts = [d["w"].clone() if cs.updates else d["w"]
              for cs, d in zip(spec.conns, conns)]
-    return outs, touts, couts
+    ctraces = [{k: d[k].clone() for k in ("c", "dw", "counter")}
+               if cs.reward else None for cs, d in zip(spec.conns, conns)]
+    return outs, touts, couts, ctraces
 
 
 def _dense_scratch(spec, lats, conns, dev):
@@ -576,7 +692,7 @@ def _dense_scratch(spec, lats, conns, dev):
 
 
 def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
-                  n_steps):
+                  n_steps, reward=None):
     """Advance ``n_steps`` steps of the network of ``spec``.
 
     ``lats`` holds one dict per lattice: ``v``, ``w`` (a zero plane for
@@ -598,19 +714,36 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     (n_steps, rows, cols) float32 tensor per Poisson train (None for Rate),
     ``rule`` the STDP parameter dict.
 
-    Returns ``(lats, trains, conn_ws)``: per lattice a dict of ``v``,
-    ``w``, ``lft``, ``refr``, ``spikes`` (the last step's, bool),
+    The reward arm (`is_reward`: a ``mod`` lattice, a reward connection
+    or ``spec.with_reward``) takes ``reward``, a dict of ``rule`` (the
+    R-STDP parameter dict), ``dopamine`` (a 0-dim float32 tensor) and
+    ``rewards`` (a host array of ``n_steps`` floats, read with
+    ``spec.with_reward``); a ``mod`` lattice's dict adds ``traces`` ({c,
+    dw float32, counter int32} shaped like its weights), a reward
+    connection's dict ``c``, ``dw`` and ``counter`` shaped like its
+    ``w``.  Per step it moves the dopamine (``dop * exp_dd + tau_d *
+    reward_k``, with rewards), runs the R-STDP double visit on every
+    ``mod`` lattice's masked slots, counts ``static`` visits on a
+    connection, and takes up to two gated R-STDP visits on a reward
+    connection's masked slots.
+
+    Returns ``(lats, trains, conn_ws, extra)``: per lattice a dict of
+    ``v``, ``w``, ``lft``, ``refr``, ``spikes`` (the last step's, bool),
     ``weights``, ``v_pre`` ((n_steps, rows, cols) with ``emit``, else
-    None) and ``chem`` (the `chem_out_keys` fields, else None); per train
-    ``lft``, ``step``, ``spikes`` and ``ntt`` (its ``nt$t`` with ``nt``,
-    else None); the connection weights.  The inputs are not modified.
+    None), ``traces`` (a ``mod`` lattice's, else None) and ``chem`` (the
+    `chem_out_keys` fields, else None); per train ``lft``, ``step``,
+    ``spikes`` and ``ntt`` (its ``nt$t`` with ``nt``, else None); the
+    connection weights; and ``extra``, None without ``reward``, else a
+    dict of ``traces`` (per connection its {c, dw, counter}, None but for
+    a reward connection) and ``dopamine`` (after the last step).  The
+    inputs are not modified.
     """
-    global LAUNCHES, CHEM_LAUNCHES, FLAT_LAUNCHES
-    _check(spec, lats, trains, conns, uniforms, clock0, n_steps)
+    global LAUNCHES, CHEM_LAUNCHES, FLAT_LAUNCHES, REWARD_LAUNCHES
+    _check(spec, lats, trains, conns, uniforms, clock0, n_steps, reward)
     dev = lats[0]["v"].device
     if dev.type == "cpu":
         return network_steps_reference(spec, lats, trains, conns, uniforms,
-                                       rule, clock0, n_steps)
+                                       rule, clock0, n_steps, reward)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     from .. import _build
@@ -618,23 +751,25 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     with torch.cuda.device(dev):
         rc, out = _launch(lib, spec, lats, trains, conns, uniforms, rule,
                           clock0, n_steps,
-                          torch.cuda.current_stream(dev).cuda_stream)
+                          torch.cuda.current_stream(dev).cuda_stream, reward)
     if rc != 0:
         raise RuntimeError(f"net_steps failed with CUDA error {rc} "
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES += 1
     CHEM_LAUNCHES += bool(spec.chem)
     FLAT_LAUNCHES += is_flat(spec)
+    REWARD_LAUNCHES += reward is not None
     return out
 
 
 def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
-            stream):
+            stream, reward=None):
     """Pack the checked inputs into the flat descriptions of ``net_steps``
     and call it on ``stream``; returns its code and the outputs."""
     dev = lats[0]["v"].device
     n_steps = int(n_steps)
-    outs, touts, couts = _outputs(spec, lats, trains, conns, n_steps, dev)
+    outs, touts, couts, ctraces = _outputs(spec, lats, trains, conns,
+                                           n_steps, dev)
     # device tap lists of the resample connections, (dr, dc) pairs
     taps = [torch.tensor([x for t in cs.op[7] for x in t], dtype=torch.int32,
                          device=dev) if cs.op[0] == "resample" else None
@@ -650,7 +785,7 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
         keys = MODEL_PARAM_KEYS[ls.model]
         n_off = len(ls.offsets)
         dense = ls.graph == "dense"
-        ints = [MODELS.index(ls.model), int(ls.kind == "plastic"),
+        ints = [MODELS.index(ls.model), KINDS.index(ls.kind),
                 *ls.shape, n_off, len(keys), int(ls.emit), int(dense)]
         ints += [o_[0] for o_ in ls.offsets] + [0] * (MAX_OFFSETS - n_off)
         ints += [o_[1] for o_ in ls.offsets] + [0] * (MAX_OFFSETS - n_off)
@@ -665,6 +800,9 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                 *[d["params"][p].data_ptr() for p in keys]]
         lat_p[NL_P * k:NL_P * k + len(ptrs)] = ptrs
         lat_p[NL_P * k + 32] = ptr(lat_sums[k])
+        if o["traces"] is not None:
+            lat_p[NL_P * k + 33:NL_P * k + 36] = [
+                ptr(o["traces"][key]) for key in ("c", "dw", "counter")]
     tr_i = (ctypes.c_int * max(NT_I * len(trains), 1))()
     tr_p = (ctypes.c_void_p * max(NT_P * len(trains), 1))()
     for j, (ts, d, o, u) in enumerate(zip(spec.trains, trains, touts,
@@ -683,7 +821,8 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
             ptr(o["spikes"])]
     cn_i = (ctypes.c_int * max(NC_I * len(conns), 1))()
     cn_p = (ctypes.c_void_p * max(NC_P * len(conns), 1))()
-    for ci, (cs, d, w) in enumerate(zip(spec.conns, conns, couts)):
+    for ci, (cs, d, w, tr) in enumerate(zip(spec.conns, conns, couts,
+                                            ctraces)):
         if cs.op[0] == "resample":
             _, R1, C1, _, _, fr, fc, tp = cs.op
             geo = [R1, C1, fr, fc, len(tp)]
@@ -693,27 +832,44 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
             geo = [0, 0, 0, 0, 1]
         cn_i[NC_I * ci:NC_I * (ci + 1)] = [
             CONN_KINDS.index(cs.op[0]), int(cs.pre_is_st), cs.pre, cs.post,
-            int(cs.pre_plastic), int(cs.post_plastic), *geo, 0]
+            int(cs.pre_plastic), int(cs.post_plastic), *geo, cs.static,
+            int(cs.reward)]
         # the third pointer: a resample's taps, or the effect scratch of a
         # dense block that reads a train; the fourth: a dense block's sums
+        # then a reward connection's traces
         cn_p[NC_P * ci:NC_P * (ci + 1)] = [
             ptr(w), ptr(d["mask"]),
             ptr(taps[ci]) if taps[ci] is not None else ptr(effects[ci]),
-            ptr(conn_sums[ci])]
+            ptr(conn_sums[ci]),
+            *[None if tr is None else ptr(tr[key])
+              for key in ("c", "dw", "counter")]]
     chem_i, lat_c, tr_c = _chem_pointers(spec, lats, trains, outs, touts,
                                          ptr)
     r = rule_floats(rule)
     rule_vec = (ctypes.c_float * 5)(*[r[k] for k in STDP_KEYS])
+    rrule = rew = dop_steps = None
+    if reward is not None:
+        rr = rule_floats(reward["rule"])
+        rrule = (ctypes.c_float * len(RSTDP_KEYS))(
+            *[rr[k] for k in RSTDP_KEYS])
+        if spec.with_reward:
+            rew = (ctypes.c_float * n_steps)(
+                *np.asarray(reward["rewards"], np.float32).tolist())
+            dop_steps = torch.empty(n_steps, dtype=torch.float32,
+                                    device=dev)
     rc = lib.net_steps(len(lats), lat_i, lat_p, len(trains), tr_i, tr_p,
                        len(conns), cn_i, cn_p, rule_vec, int(clock0),
-                       n_steps, chem_i, lat_c, tr_c, stream)
+                       n_steps, chem_i, lat_c, tr_c, rrule,
+                       int(spec.with_reward), rew,
+                       ptr(None if reward is None else reward["dopamine"]),
+                       ptr(dop_steps), stream)
     last = (n_steps - 1) % 2
     lat_out = [dict(v=o["buf"][0][last], w=o["buf"][1][last],
                     lft=o["buf"][2][last],
                     refr=o["buf"][3][last] if o["buf"][3] is not None
                     else None,
                     spikes=o["spikes"], weights=o["weights"],
-                    v_pre=o["v_pre"],
+                    traces=o["traces"], v_pre=o["v_pre"],
                     chem=None if o["chem"] is None else {
                         **{k: v for k, v in o["chem"].items()
                            if k.startswith("rec$")},
@@ -722,7 +878,10 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                for o in outs]
     tr_out = [dict(lft=o["lft"], step=o["step"], spikes=o["spikes"],
                    ntt=o["ntt"]) for o in touts]
-    return rc, (lat_out, tr_out, couts)
+    extra = None if reward is None else dict(
+        traces=ctraces,
+        dopamine=dop_steps[-1] if spec.with_reward else reward["dopamine"])
+    return rc, (lat_out, tr_out, couts, extra)
 
 
 def _chem_pointers(spec, lats, trains, outs, touts, ptr):
@@ -1054,7 +1213,7 @@ def _receptors(spec, cs_i, c_i, v, t_in, valid, pp, consts):
 
 
 def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
-                            clock0, n_steps):
+                            clock0, n_steps, reward=None):
     """The plain PyTorch twin of the CUDA kernels, on any device.
 
     The kernels' (and the TPU kernel's) association and order, and the
@@ -1067,10 +1226,24 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
     block's gather is `_seg_dot`, the sum over the sources in the kernels'
     order; no matrix product is called.  Divisions by constants
     divide by 0-dim tensors: CUDA PyTorch turns a Python-scalar divisor
-    into a multiply by its reciprocal.
+    into a multiply by its reciprocal.  The reward arm, per step: the
+    dopamine before the visits, STDP (plastic lattices, then connections
+    with ``count = static + pre_plastic * spk_pre + post_plastic *
+    spk_post``), the R-STDP double visit of every ``mod`` lattice, the
+    gated visits of the reward connections, then the trains.
     """
     dev = lats[0]["v"].device
     p = rule_tensors(rule, dev)
+    rp = dop = None
+    if reward is not None:
+        rp = rule_tensors(reward["rule"], dev)
+        dop = reward["dopamine"]
+    traces = [{k: list(v.unbind(0)) for k, v in d["traces"].items()}
+              if ls.kind == "mod" and ls.offsets else None
+              for ls, d in zip(spec.lattices, lats)]
+    ctr = [{k: list(c[k].unbind(0)) if cs.op[0] == "resample" else c[k]
+            for k in ("c", "dw", "counter")} if cs.reward else None
+           for cs, c in zip(spec.conns, conns)]
     consts = {k: torch.tensor(float(k), dtype=torch.float32, device=dev)
               for k in ("3.57", "3.75")}
     cnts = connection_counts(spec, lats, conns)
@@ -1097,6 +1270,10 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
     dense = _dense_static(spec, lats, conns, statics, tr_static)
     for k in range(int(n_steps)):
         clock = int(clock0) + k
+        if spec.with_reward:
+            r_k = torch.tensor(float(np.float32(reward["rewards"][k])),
+                               dtype=torch.float32, device=dev)
+            dop = dop * rp["exp_dd"] + rp["tau_d"] * r_k
         effects = [train_effect(ts, d, t["lft"], clock)
                    for ts, d, t in zip(spec.trains, trains, tr)]
         v_prev = [s["v"] for s in st]
@@ -1144,33 +1321,27 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
                     d["mask"][o], s["weights"][o] + delta * (sp + spk_f),
                     s["weights"][o])
         for ci, cs in enumerate(spec.conns):
-            if not cs.updates:
+            if cs.updates and not cs.reward:
+                _conn_visits(cs, conns[ci]["mask"], cw, ci, st, tr, p, None,
+                             None)
+        for ls, d, s, trc in zip(spec.lattices, lats, st, traces):
+            if trc is None:
                 continue
-            post = st[cs.post]
-            lft_pre = tr[cs.pre]["lft"] if cs.pre_is_st else st[cs.pre]["lft"]
-            spk_post = post["spikes"].to(torch.float32)
-            mask = conns[ci]["mask"]
-            if cs.op[0] == "one2one":
-                count = torch.zeros_like(spk_post)
-                if cs.pre_plastic:
-                    count = count + st[cs.pre]["spikes"].to(torch.float32)
-                if cs.post_plastic:
-                    count = count + spk_post
-                delta = stdp_delta(lft_pre, post["lft"], p, kernel_exp)
-                cw[ci] = torch.where(mask, cw[ci] + delta * count, cw[ci])
-                continue
-            lps = _taps(cs.op, lft_pre.to(torch.float32))
-            sps = _taps(cs.op, st[cs.pre]["spikes"].to(torch.float32)) \
-                if cs.pre_plastic else None
-            for t, lp in enumerate(lps):
-                count = torch.zeros_like(spk_post)
-                if cs.pre_plastic:
-                    count = count + sps[t]
-                if cs.post_plastic:
-                    count = count + spk_post
-                delta = stdp_delta(lp, post["lft"], p, kernel_exp)
-                cw[ci][t] = torch.where(mask[t], cw[ci][t] + delta * count,
-                                        cw[ci][t])
+            lft_pre = shifted(s["lft"], ls.offsets, NEVER)
+            for o in range(len(ls.offsets)):
+                delta = stdp_delta(lft_pre[o], s["lft"], rp, kernel_exp)
+                w1, c1, d1, t1 = rstdp_visit(
+                    s["weights"][o], trc["c"][o], trc["dw"][o],
+                    trc["counter"][o], delta, dop, rp)
+                w2, c2, d2, t2 = rstdp_visit(w1, c1, d1, t1, delta, dop, rp)
+                m = d["mask"][o]
+                s["weights"][o] = torch.where(m, w2, s["weights"][o])
+                for key, new_v in (("c", c2), ("dw", d2), ("counter", t2)):
+                    trc[key][o] = torch.where(m, new_v, trc[key][o])
+        for ci, cs in enumerate(spec.conns):
+            if cs.reward:
+                _conn_visits(cs, conns[ci]["mask"], cw, ci, st, tr, rp, ctr,
+                             dop)
         for ts, d, t, u, ss in zip(spec.trains, trains, tr, uniforms,
                                    tr_static):
             if ts.kind == "poisson":
@@ -1195,14 +1366,74 @@ def network_steps_reference(spec, lats, trains, conns, uniforms, rule,
                     weights=torch.stack(s["weights"]) if ls.offsets
                     else d["weights"],
                     v_pre=torch.stack(s["v_pre"]) if ls.emit else None,
+                    traces=None if trc is None else {
+                        k: torch.stack(v) for k, v in trc.items()},
                     chem=_chem_out(spec, c))
-               for ls, d, s, c in zip(spec.lattices, lats, st, chem)]
+               for ls, d, s, c, trc in zip(spec.lattices, lats, st, chem,
+                                           traces)]
     tr_out = [dict(lft=t["lft"], step=t["step"], spikes=t["spikes"],
                    ntt=_stack_types(t["ntt"]) if ts.nt else None)
               for ts, t in zip(spec.trains, tr)]
     conn_out = [torch.stack(w) if cs.op[0] == "resample" else w
                 for cs, w in zip(spec.conns, cw)]
-    return lat_out, tr_out, conn_out
+    if reward is None:
+        return lat_out, tr_out, conn_out, None
+    return lat_out, tr_out, conn_out, dict(
+        traces=[None if t is None else {
+            k: torch.stack(v) if cs.op[0] == "resample" else v
+            for k, v in t.items()} for cs, t in zip(spec.conns, ctr)],
+        dopamine=dop)
+
+
+def _conn_visits(cs, mask, cw, ci, st, tr, p, ctr, dop):
+    """One step's visits of connection ``ci``, tap by tap (a one-to-one
+    connection is one tap), in place on ``cw`` (and ``ctr``): STDP ``w +=
+    delta * count`` with ``count = static + pre_plastic * spk_pre +
+    post_plastic * spk_post``, or for a reward connection (``ctr``) up to
+    two R-STDP visits, the first where ``count >= 1``, the second where
+    ``count >= 2``, on masked slots.  The pre lattice's post-step firing
+    times, or a train's previous ones; resampled pre fields are cast to
+    float32 (exact)."""
+    post = st[cs.post]
+    lft_pre = tr[cs.pre]["lft"] if cs.pre_is_st else st[cs.pre]["lft"]
+    spk_post = post["spikes"].to(torch.float32)
+    spk_pre = None if cs.pre_is_st else st[cs.pre]["spikes"].to(
+        torch.float32)
+    if cs.op[0] == "one2one":
+        taps = [(lft_pre, spk_pre, mask)]
+    else:
+        taps = list(zip(_taps(cs.op, lft_pre.to(torch.float32)),
+                        _taps(cs.op, spk_pre) if cs.pre_plastic
+                        else [None] * len(cs.op[7]), mask.unbind(0)))
+    for t, (lp, sp, m) in enumerate(taps):
+        count = torch.full_like(spk_post, float(cs.static))
+        if cs.pre_plastic:
+            count = count + sp
+        if cs.post_plastic:
+            count = count + spk_post
+        delta = stdp_delta(lp, post["lft"], p, kernel_exp)
+        one = cs.op[0] == "one2one"
+        w = cw[ci] if one else cw[ci][t]
+        if ctr is None:
+            w = torch.where(m, w + delta * count, w)
+        else:
+            tc = ctr[ci]
+            c, dw, ct = ((tc[k] if one else tc[k][t])
+                         for k in ("c", "dw", "counter"))
+            for n_visit in (1.0, 2.0):
+                w1, c1, d1, t1 = rstdp_visit(w, c, dw, ct, delta, dop, p)
+                g = torch.logical_and(m, count >= n_visit)
+                w, c = torch.where(g, w1, w), torch.where(g, c1, c)
+                dw, ct = torch.where(g, d1, dw), torch.where(g, t1, ct)
+            for k, v in (("c", c), ("dw", dw), ("counter", ct)):
+                if one:
+                    tc[k] = v
+                else:
+                    tc[k][t] = v
+        if one:
+            cw[ci] = w
+        else:
+            cw[ci][t] = w
 
 
 def _chem_out(spec, c):
@@ -1260,38 +1491,62 @@ def _train_data(ts, st):
 
 def member_inputs(spec, net, plan):
     """The wrapper's ``(lats, trains, conns)`` arguments: views of the
-    network members' states, graphs and connection weights, in the
-    layouts `network_steps` documents."""
-    lats = [_lattice_data(spec, ls, net.lattices[i])
-            for ls, i in zip(spec.lattices, plan["lat_ids"])]
+    network members' states, graphs, traces and connection weights (and a
+    reward connection's traces), in the layouts `network_steps`
+    documents.  ``spec.keep`` indexes ``plan["conns"]`` followed by
+    ``plan["rconns"]`` (a reward network's)."""
+    members = net._neuron_lattices()
+    lats = []
+    for ls, i in zip(spec.lattices, plan["lat_ids"]):
+        d = _lattice_data(spec, ls, members[i])
+        if ls.kind == "mod" and ls.offsets:
+            d["traces"] = dict(members[i].trace)
+        lats.append(d)
     trains = [_train_data(ts, net.spike_train_lattices[i])
               for ts, i in zip(spec.trains, plan["st_ids"])]
+    entries = plan["conns"] + plan.get("rconns", [])
     conns = []
     for cs, ci in zip(spec.conns, spec.keep):
-        op = plan["conns"][ci]["op"]
+        op = entries[ci]["op"]
         shp = spec.lattices[cs.post].shape
         if cs.op[0] == "resample":
             shp = (len(cs.op[7]), *shp)
         elif cs.op[0] == "dense":
             shp = tuple(op.w0.shape)
-        conns.append(dict(w=op.w0.reshape(shp),
-                          mask=op.aux["mask"].reshape(shp)))
+        d = dict(w=op.w0.reshape(shp), mask=op.aux["mask"].reshape(shp))
+        if cs.reward:
+            d.update((k, v.reshape(shp))
+                     for k, v in entries[ci]["trace0"].items())
+        conns.append(d)
     return lats, trains, conns
 
 
-def advance(spec, net, plan, length):
+def advance(spec, net, plan, length, rewards=None):
     """``length`` steps of the network's members through K-step wrapper
-    calls.  Returns ``(states, st_states, graphs, conn_ws, ys)`` in plan
-    order, as the plain route does: ``conn_ws`` keeps each connection's
+    calls.  Returns ``(states, st_states, graphs, conn_ws, ys, extra)`` in
+    plan order, as the plain route does: ``conn_ws`` keeps each connection's
     operator layout (dropped empty connections pass through), ``ys`` the
-    emitting lattices' history readouts keyed ("lat", id)."""
-    lattices = [net.lattices[i] for i in plan["lat_ids"]]
+    emitting lattices' history readouts keyed ("lat", id).  A reward
+    network (``rewards``: a host array of ``length`` floats, read with
+    ``spec.with_reward``) takes the reward arm from ``net.dopamine`` and
+    ``net.reward_modulator``, and ``extra`` (None without ``rewards``) is
+    a dict of ``traces`` (per lattice its trace dict, None but for a ``mod``
+    lattice), ``rconns`` (per reward connection of the plan its (w,
+    traces) in its operator layout) and ``dopamine`` (a float)."""
+    members = net._neuron_lattices()
+    lattices = [members[i] for i in plan["lat_ids"]]
     sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
     lats, trains, conns = member_inputs(spec, net, plan)
-    ops = [plan["conns"][ci]["op"] for ci in spec.keep]
+    entries = plan["conns"] + plan.get("rconns", [])
+    ops = [entries[ci]["op"] for ci in spec.keep]
     rule = net._plasticity().params
     generator = net.generator()
     dev = lats[0]["v"].device
+    reward = None
+    if rewards is not None:
+        reward = dict(rule=net.reward_modulator.params,
+                      dopamine=torch.tensor(float(net.dopamine),
+                                            dtype=torch.float32, device=dev))
     emits = [[] for _ in lats]
     tr_out, done = None, 0
     while done < length:
@@ -1299,12 +1554,21 @@ def advance(spec, net, plan, length):
         uniforms = [torch.rand((n, *ts.shape), generator=generator,
                                device=dev) if ts.kind == "poisson" else None
                     for ts in spec.trains]
-        lat_out, tr_out, conn_ws = network_steps(
+        if reward is not None:
+            reward["rewards"] = rewards[done:done + n]
+        lat_out, tr_out, conn_ws, extra = network_steps(
             spec, lats, trains, conns, uniforms, rule,
-            net.internal_clock + done, n)
+            net.internal_clock + done, n, reward)
+        if extra is not None:
+            reward["dopamine"] = extra["dopamine"]
+            for c, trc in zip(conns, extra["traces"]):
+                if trc is not None:
+                    c.update(trc)
         for d, o, e in zip(lats, lat_out, emits):
             d.update(v=o["v"], w=o["w"], lft=o["lft"], refr=o["refr"],
                      spikes=o["spikes"], weights=o["weights"])
+            if o["traces"] is not None:
+                d["traces"] = o["traces"]
             if o["v_pre"] is not None:
                 e.append(o["v_pre"])
             if o["chem"] is not None:
@@ -1333,7 +1597,7 @@ def advance(spec, net, plan, length):
             s.update((k, d["chem"][k]) for k in chem_out_keys(spec.chem))
         states.append(s)
         graphs.append(lat.graph.replace_weights(d["weights"])
-                      if ls.kind == "plastic" and ls.offsets else lat.graph)
+                      if ls.kind != "plain" and ls.offsets else lat.graph)
         if ls.emit:
             ys.update(rebuilt_readouts(
                 torch.cat(e), d["params"]["v_th"], d["params"]["c"],
@@ -1350,7 +1614,17 @@ def advance(spec, net, plan, length):
         if "chem" in d:
             s["nt$t"] = d["chem"]["nt$t"]
         st_states.append(s)
-    conn_ws = [c["op"].w0 for c in plan["conns"]]
+    conn_ws = [c["op"].w0 for c in entries]
     for ci, op, c in zip(spec.keep, ops, conns):
         conn_ws[ci] = c["w"].reshape(op.w0.shape)
-    return states, st_states, graphs, conn_ws, ys
+    n_plain = len(plan["conns"])
+    if reward is None:
+        return states, st_states, graphs, conn_ws[:n_plain], ys, None
+    ctr = {ci: {k: c[k].reshape(op.w0.shape) for k in ("c", "dw", "counter")}
+           for ci, op, c, cs in zip(spec.keep, ops, conns, spec.conns)
+           if cs.reward}
+    return states, st_states, graphs, conn_ws[:n_plain], ys, dict(
+        traces=[d.get("traces") for d in lats],
+        rconns=[(conn_ws[ci], ctr.get(ci, entries[ci].get("trace0")))
+                for ci in range(n_plain, len(entries))],
+        dopamine=float(reward["dopamine"]))

@@ -183,7 +183,7 @@ def test_twin_matches_tpu_kernel_on_injected_uniforms(n_steps):
     spec, lats, trains, conns = _port_inputs(t)
     assert spec.chem == ("dopaglugaba", "destexhe", "bounded")
     assert spec.trains[0].nt == "bounded" and spec.electrical
-    tl, tt, tc = nk.network_steps(spec, lats, trains, conns,
+    tl, tt, tc, _ = nk.network_steps(spec, lats, trains, conns,
                                   [torch.from_numpy(u)],
                                   t._plasticity().params, t.internal_clock,
                                   n_steps)
@@ -240,7 +240,8 @@ def _call_args(n_steps=5):
 
 
 def _flat(out):
-    lat, tr, cn = out
+    lat, tr, cn, extra = out
+    assert extra is None
     xs = []
     for d in lat:
         for key, x in d.items():

@@ -227,7 +227,8 @@ def _call_args(n_steps=5, chemical=True, n=48):
 
 
 def _flat(out):
-    lat, tr, cn = out
+    lat, tr, cn, extra = out
+    assert extra is None
     xs = []
     for d in lat:
         for key, x in d.items():

@@ -197,14 +197,14 @@ def test_graph_history_appends_weights_per_step():
 
 def test_plasticity_and_chemical_raise_not_implemented():
     """STDP runs; any other plasticity rule is not ported yet.  Chemical
-    synapses run on a `Lattice` (the plain route here) and are not ported
-    yet on a `RewardModulatedLattice`."""
+    synapses run on a `Lattice` and on a `RewardModulatedLattice` (the
+    plain route here)."""
     t = torch_lattice(4, 4, V0[:16])
     t.do_plasticity = True
     t.plasticity = snt.RewardModulatedSTDP()
     for use_kernel in (None, True, False):
         t.use_kernel = use_kernel
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
             t.run_lattice(5)
     t.plasticity = snt.STDP()
     t.do_plasticity = False
@@ -215,9 +215,9 @@ def test_plasticity_and_chemical_raise_not_implemented():
     r = snt.RewardModulatedLattice(snt.Izhikevich(), device="cpu")
     r.populate(4, 4)
     r.chemical_synapse = True
-    with pytest.raises(NotImplementedError, match="the reward slice"):
-        r.run_lattice(5)
-    assert r.internal_clock == 0
+    r.use_kernel = True
+    r.run_lattice(5)
+    assert r._last_run_fused is False and r.internal_clock == 5
 
 
 def test_routing():

@@ -322,18 +322,18 @@ def test_paths_left_for_later_raise():
     t.run_lattices(1)
     assert t.internal_clock == 4 and t._last_run_fused is False
     t.chemical_synapse = False
-    t.update_connecting_graph_history = True
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t.run_lattices(1)
+    t.update_connecting_graph_history = True   # the flat COO runner
+    t.run_lattices(1)
+    assert t.internal_clock == 5 and len(t.connecting_graph_history) == 1
     t.update_connecting_graph_history = False
     for call in (lambda: t.run_lattices_pipelined(3),
                  lambda: t.shard(None),
                  lambda: t.spike_train_lattices[2].shard(None)):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             call()
     t.electrical_synapse = False
     t.run_lattices(5)              # neither synapse: no step, as in JAX
-    assert t.internal_clock == 4
+    assert t.internal_clock == 5
 
 
 def test_network_from_carries_everything():

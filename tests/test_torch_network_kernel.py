@@ -145,7 +145,7 @@ def test_twin_matches_tpu_kernel_on_injected_uniforms(n_steps):
     jl, jt, jc, _, jspk, jtspk, _ = _jax_call(j, n_steps,
                                                [u.reshape(n_steps * 8, 8)])
     spec, lats, trains, conns = _port_inputs(t)
-    tl, tt, tc = nk.network_steps(spec, lats, trains, conns,
+    tl, tt, tc, _ = nk.network_steps(spec, lats, trains, conns,
                                   [torch.from_numpy(u)],
                                   t._plasticity().params, t.internal_clock,
                                   n_steps)
@@ -282,7 +282,8 @@ def _call_args(n_steps=5):
 
 
 def _flat(out):
-    lat, tr, cn = out
+    lat, tr, cn, extra = out
+    assert extra is None
     return ([x for d in lat for x in d.values() if x is not None]
             + [x for d in tr for x in d.values() if x is not None]
             + list(cn))

@@ -1,13 +1,15 @@
 """Builders shared by the network tests of the PyTorch port: JAX networks
 with the topologies of ``tests/test_pallas_reward.py`` (`_plain_net`,
-`_mixed_net`), carried into the port with `convert.network_from`, and the
+`_mixed_net`, `_network`), carried into the port with
+`convert.network_from` / `convert.reward_network_from`, and the
 comparison of the two after a run."""
 
 import numpy as np
 import jax.numpy as jnp
 
 import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu_torch.convert import network_from
+from spiking_neural_networks_tpu_torch.convert import (network_from,
+                                                       reward_network_from)
 
 MODELS = {"izhikevich": snn.Izhikevich,
           "alif": snn.AdaptiveLeakyIntegrateAndFire,
@@ -194,3 +196,88 @@ def chem_net(family="ionotropic", rec="approximate", nt="approximate",
     if history:
         net.lattices[0].update_grid_history = True
     return net
+
+
+def reward_net(train="rate", model="izhikevich", seed=2, n_side=8):
+    """The reward network of ``tests/test_pallas_reward.py`` (`_network`:
+    a `RewardModulatedLattice` on the radius-2 predicate, a plastic
+    lattice (radius 2, keep 0.8) driven one to one by a train (5.0 or,
+    for ALIF, 30.0), and a reward connection from the plastic lattice to
+    the reward lattice one to one); ``model="alif"`` is the all-ALIF form
+    of ``test_fused_reward_network_alif`` (v0 in [-75, -50) in both
+    lattices, a Rate train)."""
+    from test_pallas_reward import _network
+    if model == "izhikevich":
+        return _network(TRAINS[train](), seed=seed, n_side=n_side)
+    rng = np.random.default_rng(seed)
+    n = n_side * n_side
+    rlat = snn.RewardModulatedLattice(MODELS[model](), id=0)
+    rlat.populate(n_side, n_side, gap_conductance=10.0)
+    rlat.connect(lambda x, y: np.hypot(x[0] - y[0], x[1] - y[1]) <= 2
+                 and x != y)
+    rlat.apply(lambda s: {**s, "v": jnp.asarray(
+        rng.uniform(-75, -50, n), jnp.float32)})
+    plain = snn.Lattice(MODELS[model](), id=1)
+    plain.populate(n_side, n_side, gap_conductance=10.0)
+    plain.connect_stencil(radius=2.0, keep_prob=0.8, seed=4)
+    plain.do_plasticity = True
+    plain.apply(lambda s: {**s, "v": jnp.asarray(
+        rng.uniform(-75, -50, n), jnp.float32)})
+    st = _train(train, n_side, n_side, 40.0)
+    net = snn.RewardModulatedLatticeNetwork()
+    net.add_lattice(rlat)
+    net.add_lattice(plain)
+    net.add_spike_train_lattice(st)
+    net.connect(2, 1, lambda a, b: a == b, lambda a, b: 30.0)
+    net.connect_with_reward_modulation(1, 0, lambda a, b: a == b,
+                                       lambda a, b: 1.0)
+    return net
+
+
+def both_reward(build, use_pallas, use_kernel):
+    """The JAX reward network of ``build()`` and the port's copy."""
+    j = build()
+    j.use_pallas = use_pallas
+    t = reward_network_from(j, "cpu")
+    t.use_kernel = use_kernel
+    return j, t
+
+
+def assert_reward_networks_match(t, j, rtol, atol):
+    """`assert_networks_match` over the plain lattices, then every reward
+    lattice's state, weights and traces, the reward connections' host
+    6-tuples and the dopamine; counters equal."""
+    assert_networks_match(t, j, rtol, atol)
+    for lid, jl in j.reward_modulated_lattices.items():
+        tl = t.reward_modulated_lattices[lid]
+        for k in ("v", "w", "refractory_count"):
+            if k in jl.state:
+                np.testing.assert_allclose(
+                    tl.state[k].numpy(), np.asarray(jl.state[k]), rtol=rtol,
+                    atol=atol, err_msg=f"{k} of reward lattice {lid}")
+        for k in ("last_firing_time", "is_spiking"):
+            np.testing.assert_array_equal(
+                tl.state[k].numpy(), np.asarray(jl.state[k]),
+                err_msg=f"{k} of reward lattice {lid}")
+        np.testing.assert_allclose(tl.graph.weights.numpy(),
+                                   np.asarray(jl.graph.weights), rtol=rtol,
+                                   atol=atol, err_msg=f"weights {lid}")
+        for k in ("c", "dw"):
+            np.testing.assert_allclose(tl.trace[k].numpy(),
+                                       np.asarray(jl.trace[k]), rtol=rtol,
+                                       atol=atol, err_msg=f"trace {k} {lid}")
+        np.testing.assert_array_equal(tl.trace["counter"].numpy(),
+                                      np.asarray(jl.trace["counter"]))
+        assert tl.internal_clock == jl.internal_clock
+        np.testing.assert_allclose(tl.dopamine, jl.dopamine, rtol=rtol,
+                                   atol=atol)
+    assert set(t.reward_connections) == set(j.reward_connections)
+    for key, jc in j.reward_connections.items():
+        tc = t.reward_connections[key]
+        for a, b in zip(tc[:2], jc[:2]):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        for a, b, name in zip(tc[2:5], jc[2:5], ("w", "c", "dw")):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=rtol,
+                                       atol=atol, err_msg=f"{key} {name}")
+        np.testing.assert_array_equal(tc[5], np.asarray(jc[5]))
+    np.testing.assert_allclose(t.dopamine, j.dopamine, rtol=rtol, atol=atol)
