@@ -44,6 +44,16 @@ radius-2, 80%-keep stencil graph:
   `run_lattices_with_reward(0.5, n)`) at 32^2 and 128^2 over 3000 steps
   and at 512^2 over 1024, through the reward arm of the network kernels
   (``csrc/network_plasticity.cu`` with 6a's R-STDP edge kernel).
+* `bench.py`'s closed loop (`RewardModulatedLattice` -> `populate` ->
+  `connect_stencil` -> `apply` -> `JitEnvironment(agent, env, encoder,
+  reward, update)` -> `run_with_reward(n)`: a 6-neuron cue, the reward
+  ``clip(0.08 - rate, -0.05, 0.05)``, the rate of the mean spike) at its
+  own size, 10 x 10 over 6400 steps, and at 512^2 over 1024, and the
+  unsupervised loop (`JitEnvironment.run` on the STDP `Lattice`) at 512^2
+  over 1024, through CUDA graphs of 16 closed-loop steps, each the
+  callbacks and the env entry of the plasticity kernels
+  (`lattice_plasticity_env_step`: reward and clock read from device
+  memory, ``csrc/lattice_plasticity.cu``).
 
 Phases, one line each:
 
@@ -160,6 +170,31 @@ Phases, one line each:
    rule: ``index_add_`` sums in another order);
 28. per main-path size: wall and CUDA-event time per step, the kernels'
    device time under torch.profiler and device / wall.
+29. the env entry vs its plain twin on the card: kinds mod and plain with
+   a reward, plain and plastic without, x Izhikevich, ALIF and LIF x 64^2
+   and 130 x 100, 16 chained steps with the reward computed on the
+   device, non-uniform states: bit-equal; per kind 6a's
+   `lattice_plasticity_steps` given the run's rewards by value, bit-equal;
+   the entry's time on the bench loop's agent at 512^2 against the twin
+   and its bound, each timed call held against the twin's from one start;
+30. the closed-loop main paths through `JitEnvironment` on tier (a) (a CUDA
+   graph of 16 steps replayed), each one call with PyTorch's host syncs
+   turned into errors around its steps: flags, launch counts, clock,
+   finite state, weights, traces and dopamine moved, rewards varying at
+   10 x 10; one more replay of each held against the twin on the state it
+   received; two calls against one; every replay of the first 256 steps at
+   64^2 held against the twin; a grid history
+   (tier (b)) and a callback that reads a value on the host (tier (b))
+   against tier (a): bit-equal;
+31. the loop at 64^2 over 1000 steps: tier (a) on the card against the
+   kernel tier on the CPU (bit-equal), and the kernel tier against the
+   plain route on the card, at a tenth of the reward and at the bench's,
+   under the tie rule while the weights stay within W_TIE, then max |dv|
+   every 16 steps up to the first step over DRIFT;
+32. per size (10 x 10, 128^2, 512^2): wall and CUDA-event time per step
+   of tiers (a), (b) and the plain route, the kernel tiers' device time
+   under torch.profiler and device / wall; the host-loop `Environment`'s
+   steps/s at 10 x 10.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -290,6 +325,30 @@ RSHAPES = ((8, 9), (64, 64), (33, 70), (130, 100))
 RCMP, RCMP_STEPS, RFLAT_STEPS = (32, 32), 1000, 500
 RTIMES = (((32, 32), 1024), ((128, 128), 1024), ((512, 512), 512))
 REWARD_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1183"
+# Closed-loop phases: bench.py's closed loop (`bench.py:387-444`) at its own
+# size and at 512^2, the unsupervised loop at 512^2, one graph replay of
+# each held against the twin; every replay of the first ETWIN_STEPS of the
+# loop at ETWIN held against the twin, and a grid history there; the env
+# entry's random cases over ENV_KINDS x models x ESHAPES, and its time at
+# EBIG on the bench loop's agent over ETIME_REPS calls, each held against
+# the twin.
+EMAINS = (("bench", (10, 10), 6400), ("bench", (512, 512), 1024),
+          ("unsup", (512, 512), 1024))
+ETWIN, ETWIN_STEPS, EHIST_STEPS = (64, 64), 256, 512
+ENV_KINDS = (("mod", True), ("plain", True), ("plain", False),
+             ("plastic", False))
+# EPROF calls under torch.profiler: a single profiled call can lose its
+# first kernels' records
+ESHAPES, EBIG, ETIME_REPS, EPROF = ((64, 64), (130, 100)), (512, 512), 8, 10
+# phase 31 runs in calls of ECMP_CHUNK steps and holds the kernel and plain
+# routes to the tie rule over the steps before either route's weights pass
+# W_TIE: R-STDP at the bench's reward grows them by ~0.12 a step, and the
+# gap input, scaled by the weights, carries the two associations' rounding
+# apart by more than DRIFT without a tie once they pass ~50
+ECMP, ECMP_STEPS, ECMP_CHUNK, W_TIE = (64, 64), 1000, 8, 32.0
+ETIMES = (((10, 10), 1024), ((128, 128), 1024), ((512, 512), 1024))
+EPLAIN_STEPS, EHOST_STEPS, ERNG_STEPS = 256, 256, 320
+ENV_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:338"
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # float operations the card needs for one exp: a range reduction (two
@@ -3387,6 +3446,707 @@ def reward_times_phase(snt, smi):
         del net
 
 
+# ---------------------------------------------------------------------------
+# The closed loop: phases 29-32
+# ---------------------------------------------------------------------------
+
+
+def bench_env(snt, rows, cols, use_kernel=None, device="cuda",
+              reward=None, encoder=None):
+    """`bench.py`'s closed loop (`bench_closed_loop`): a
+    `RewardModulatedLattice(Izhikevich())`, gap 10, radius 2, keep 1.0,
+    graph seed 5, v uniform in [-65, 30) from ``default_rng(0)``, a cue
+    holding the first 6 neurons (row-major) at 31 mV (or the callback
+    ``encoder``), the reward ``clip(0.08 - rate, -0.05, 0.05)`` (or the
+    callback ``reward``) and the rate update 0.9 / 0.1 of the mean
+    spike."""
+    from spiking_neural_networks_tpu_torch.convert import env_from
+    from spiking_neural_networks_tpu_torch.interactable import JitEnvironment
+    lat = snt.RewardModulatedLattice(snt.Izhikevich(), device=device)
+    lat.populate(rows, cols, gap_conductance=10.0)
+    lat.connect_stencil(radius=2.0, keep_prob=1.0, seed=5)
+    v0 = np.random.default_rng(0).uniform(-65, 30, rows * cols)
+    lat.apply(lambda s: {**s, "v": torch.as_tensor(
+        v0, dtype=torch.float32, device=lat.device)})
+    lat.use_kernel = use_kernel
+    env = JitEnvironment(lat, env_from({"rate": np.float32(0.0)}, device),
+                         encoder or env_encoder, reward or env_reward,
+                         env_update)
+    return lat, env
+
+
+def env_encoder(e, s):
+    v = s["v"]
+    cue = torch.arange(v.shape[0], device=v.device) < 6
+    return {**s, "v": torch.where(cue, 31.0, v)}
+
+
+def env_reward(e, s):
+    return torch.clamp(0.08 - e["rate"], -0.05, 0.05)
+
+
+def env_reward_cmp(e, s):
+    """The bench loop's reward at a tenth (within +-0.005), as the other
+    R-STDP comparisons take 0.005: the weights stay within ~12 at 64^2
+    over 1000 steps, where the bench's reward grows them to ~58 by step
+    600."""
+    return 0.1 * env_reward(e, s)
+
+
+def env_update(e, s):
+    return {"rate": 0.9 * e["rate"]
+            + 0.1 * s["is_spiking"].to(torch.float32).mean()}
+
+
+def unsup_env(snt, rows, cols, use_kernel=None, device="cuda"):
+    """The unsupervised loop: the main STDP `Lattice` (radius 2, keep 0.8)
+    with the bench loop's cue and rate update, no reward."""
+    from spiking_neural_networks_tpu_torch.convert import env_from
+    from spiking_neural_networks_tpu_torch.interactable import JitEnvironment
+    lat = stdp_lattice(snt, rows, cols, use_kernel, device)
+    env = JitEnvironment(lat, env_from({"rate": np.float32(0.0)}, device),
+                         env_encoder, None, env_update)
+    return lat, env
+
+
+def env_buffers(a):
+    """Fresh buffers of one closed loop from `plasticity_inputs`'
+    arguments: two plane sets, spikes, weights, traces, dopamine, clock."""
+    src = tuple(None if x is None else x.clone()
+                for x in (a["v"], a["w"], a["lft"], a["refr"]))
+    return dict(src=src, dst=tuple(None if x is None else torch.zeros_like(x)
+                                   for x in src),
+                spikes=torch.zeros_like(a["v"], dtype=torch.bool),
+                weights=a["weights"].clone(),
+                traces=None if a["traces"] is None
+                else tuple(t.clone() for t in a["traces"]),
+                dopamine=a["dopamine"].clone(),
+                clock=torch.tensor([a["clock0"]], dtype=torch.int32,
+                                   device=a["v"].device))
+
+
+def env_launchers(make, a, b):
+    """The launches of ``make`` (`env_step_launcher` or its twin) on the
+    buffers ``b`` from each plane set into the other."""
+    return [make(a["spec"], b[s], b[d], b["spikes"], b["weights"], a["mask"],
+                 a["in_deg"], a["params"], b["traces"], b["dopamine"],
+                 a["rule"], b["clock"])
+            for s, d in (("src", "dst"), ("dst", "src"))]
+
+
+def env_chain(launch, b, n):
+    """``n`` steps of the two ``launch``es on buffers ``b``, each reward
+    computed on the device from the state the step receives; returns the
+    final planes and the rewards."""
+    planes, rewards = [b["src"], b["dst"]], []
+    for k in range(n):
+        p = k % 2
+        reward = (0.05 - 0.001 * planes[p][0].mean()
+                  + 0.1 * b["spikes"].to(torch.float32).mean()).reshape(())
+        rewards.append(reward)
+        launch[p](reward)
+    return planes[n % 2], torch.stack(rewards)
+
+
+def env_tensors(b):
+    """Every tensor of the buffers ``b``."""
+    return ([x for k in ("src", "dst") for x in b[k] if x is not None]
+            + [b["spikes"], b["weights"], b["dopamine"], b["clock"]]
+            + list(b["traces"] or ()))
+
+
+def bench_inputs(snt, rk, shape):
+    """`plasticity_inputs`' arguments from the agent of `bench_env` at
+    ``shape``: its state, graph, traces, dopamine, rule and clock."""
+    lat, _ = bench_env(snt, *shape)
+    st, g = lat.state, lat.graph
+    plane = lambda k: st[k].reshape(shape)
+    return dict(
+        spec=rk.LatSpec("mod", "izhikevich", g.offsets, with_reward=True),
+        v=plane("v"), w=plane("w"), lft=plane("last_firing_time"),
+        refr=None, weights=g.weights, mask=g.mask, in_deg=g.in_deg,
+        params={k: plane(k) for k in rk.MODEL_PARAM_KEYS["izhikevich"]},
+        traces=tuple(lat.trace[k] for k in ("c", "dw", "counter")),
+        dopamine=torch.tensor(float(lat.dopamine), device="cuda"),
+        rule=lat.reward_modulator.params, clock0=lat.internal_clock)
+
+
+def env_outputs(planes, b, rewards):
+    """The named outputs of an env chain (None where the kind has none)."""
+    v, w, lft, refr = planes
+    c, dw, counter = b["traces"] or (None, None, None)
+    return dict(v=v, w=w, lft=lft, refr=refr, spikes=b["spikes"],
+                weights=b["weights"], c=c, dw=dw, counter=counter,
+                dopamine=b["dopamine"], clock=b["clock"], rewards=rewards)
+
+
+def compare_exact(got, want):
+    """(max float error, integer/spike mismatches) over the names of
+    ``want`` that are not None in both dicts."""
+    err, bad = 0.0, 0
+    for k, w in want.items():
+        g = got.get(k)
+        if g is None or w is None:
+            continue
+        if g.is_floating_point() and k != "refr":
+            check(bool(torch.isfinite(g).all()), f"non-finite {k}")
+            err = max(err, (g - w).abs().max().item())
+        else:
+            bad += int((g != w).sum())
+    return err, bad
+
+
+def env_step_bytes(spec, a, k):
+    """Bytes of ``k`` closed-loop steps, each input read and each output
+    written once per step (v, w, lft, refr, spikes in and out; weights and
+    traces in and out with plasticity; reward, dopamine and clock), the
+    per-call constants (parameter planes, in-degree, mask) once."""
+    n = a["v"].numel()
+    state = 4 * n * (3 + (a["refr"] is not None)) + n
+    plastic = tensor_bytes(a["weights"]) if spec.kind != "plain" else 0
+    if spec.kind == "mod":
+        plastic += tensor_bytes(*a["traces"])
+    per_step = 2 * (state + plastic) + 3 * 4
+    consts = tensor_bytes(a["params"], a["in_deg"]) + (
+        a["mask"].numel() if spec.kind != "plain" else 0)
+    return k * per_step + consts
+
+
+def env_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
+    max_err, times, bounds = env_twin_phase(snt, rk, smi)
+    err, launches = env_main_phase(snt, rk, smi)
+    env_cmp_phase(snt)
+    env_times_phase(snt, rk, smi)
+    return {"name": "lattice_plasticity_env_step (closed loop)",
+            "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "lattice_plasticity.cu",
+            "replaces": ENV_REPLACES, "launches": launches,
+            "max_abs_err": max(max_err, err),
+            "ms": times[0], "plain_ms": times[1],
+            "bound_ms": bounds[0], "bound_by": bounds[1],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes a lattice step"}
+
+
+def env_twin_phase(snt, rk, smi):
+    """29. The env entry vs its twin on the card: `ENV_KINDS` x models x
+    `ESHAPES`, 16 chained steps each with the reward computed on the
+    device, non-uniform states: bit-equal; per kind one case where 6a's
+    `lattice_plasticity_steps`, given the env run's rewards by value,
+    equals the env entry; then the time of 16 steps of the entry on the
+    bench loop's agent at 512^2 against the twin and the bound, each timed
+    call held against the twin's from the same start.  Returns (max float
+    error, (ms, twin ms) per 16 steps, bound)."""
+    import itertools
+    K = rk.STEPS_PER_LAUNCH
+    max_err, n_cases, by_value = 0.0, 0, set()
+    for seed, (shape, (kind, rew), model) in enumerate(itertools.product(
+            ESHAPES, ENV_KINDS, rk.MODELS)):
+        a = plasticity_inputs(snt, rk, shape, kind, model, rew, False, False,
+                              K, 700 + seed)
+        spec = a["spec"]
+        outs = []
+        for make in (rk.env_step_launcher, rk.env_step_launcher_reference):
+            b = env_buffers(a)
+            planes, rewards = env_chain(env_launchers(make, a, b), b, K)
+            torch.cuda.synchronize()
+            outs.append(env_outputs(planes, b, rewards))
+        err, bad = compare_exact(*outs)
+        got = outs[0]
+        fired = int((got["lft"] >= a["clock0"]).sum())
+        line = (f"[29 kernel-vs-twin] {shape[0]}x{shape[1]} {kind} {model} "
+                f"reward={rew}, {K} chained steps, rewards from the device: "
+                f"integer and spike mismatches {bad}, max float error "
+                f"{err:.3g}, fired {fired}, clock {int(got['clock'])}")
+        check(bad == 0 and err == 0.0, "the env entry is not bit-equal to "
+              "its twin")
+        check(fired > 0 and int(got["clock"]) == a["clock0"] + K,
+              "no neuron fired, or the clock did not advance")
+        if (kind, rew) not in by_value:
+            # 6a's by-value entry from the same start, given these rewards
+            by_value.add((kind, rew))
+            six = rk.lattice_plasticity_steps(**dict(
+                a, rewards=got["rewards"].cpu().numpy() if rew else None))
+            torch.cuda.synchronize()
+            names = ("v", "w", "lft", "refr", "spikes", "weights")
+            want = dict(zip(names, six[:6]), dopamine=six[7])
+            if six[6] is not None:
+                want.update(zip(("c", "dw", "counter"), six[6]))
+            e6, b6 = compare_exact(got, want)
+            line += (f"; 6a's lattice_plasticity_steps given these rewards "
+                     f"by value: mismatches {b6}, max float error {e6:.3g}")
+            check(b6 == 0 and e6 == 0.0, "the env entry differs from 6a by "
+                  "value")
+        say(line)
+        max_err, n_cases = max(max_err, err), n_cases + 1
+    # the time of the entry on the bench loop's agent at 512^2, whose
+    # reward sits at its clip of 0.05: each timed call of K steps, and then
+    # the EPROF profiled calls, and the twin's steps from one start (the
+    # kernel's state after the call before), held against each other
+    a = bench_inputs(snt, rk, EBIG)
+    spec = a["spec"]
+    bk, bt = env_buffers(a), env_buffers(a)
+    kernel = env_launchers(rk.env_step_launcher, a, bk)
+    twin = env_launchers(rk.env_step_launcher_reference, a, bt)
+    reward = torch.tensor(0.05, device="cuda")
+
+    def steps(fns):
+        for k in range(K):
+            fns[k % 2](reward)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    tk, tt, terr, tbad = [], [], 0.0, 0
+    for rep in range(ETIME_REPS + 1):
+        for x, y in zip(env_tensors(bt), env_tensors(bk)):
+            x.copy_(y)
+        if rep < ETIME_REPS:
+            tk.append(timed(lambda: steps(kernel)))
+            tt.append(timed(lambda: steps(twin)))
+        else:
+            dev_us, top = profiled_us(
+                lambda: [steps(kernel) for _ in range(EPROF)], EPROF * K,
+                n_top=4)
+            for _ in range(EPROF):
+                steps(twin)
+        e, bb = compare_exact(env_outputs(bk["src"], bk, None),
+                              env_outputs(bt["src"], bt, None))
+        terr, tbad = max(terr, e), tbad + bb
+    fired = int((bk["src"][2] >= 0).sum())
+    # the first call of each warms up
+    times = (float(np.median(tk[1:])), float(np.median(tt[1:])))
+    bounds = bound(env_step_bytes(spec, a, K), stencil_ops(
+        spec.offsets, *EBIG, K) + K * 14 * int(a["mask"].sum()))
+    say(f"[29 kernel-vs-twin] max float error over {n_cases} random cases "
+        f"{max_err:.3g} (0 = bit-equal); bench loop agent {EBIG[0]}x"
+        f"{EBIG[1]}, reward 0.05, {ETIME_REPS} timed calls of {K} steps and "
+        f"a block of {EPROF} profiled, each held against the twin's steps "
+        f"from the same start: integer and spike mismatches "
+        f"{tbad}, max float error {terr:.3g}, fired {fired}, clock "
+        f"{int(bk['clock'])}; per step: env entry {times[0] * 1e3 / K:.3f} us "
+        f"(events, median of {ETIME_REPS - 1}), device time {dev_us:.3f} us "
+        f"(profiled: " + ", ".join(f"{n} {t:.3f}" for n, t in top)
+        + f"), 3 launches per step; plain twin {times[1] * 1e3 / K:.3f} us; "
+        f"bound {bounds[0] * 1e3 / K:.4f} us ({bounds[1]}); library call: "
+        f"none; card {smi}")
+    check(tbad == 0 and terr == 0.0 and fired > 0, "the timed env entry is "
+          "not bit-equal to its twin, or nothing fired")
+    return max(max_err, terr), times, bounds
+
+
+def env_call(env, n, with_reward=True):
+    """One call of ``n`` steps as `JitEnvironment.run_with_reward` /
+    `run` makes it without a history (one chunk), with PyTorch's host
+    syncs turned into errors around the steps: the prologue (gate, probe,
+    capture) may wait for the card, the steps may not; the final pull
+    does."""
+    plan = env._begin(n, with_reward, None)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env._advance(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    return env._finish(plan)
+
+
+def agent_snapshot(lat, env):
+    """Host copies of an agent's state, weights, traces, dopamine and clock
+    and the env's rate."""
+    host = lambda x: x.to("cpu", copy=True)
+    snap = {f"state.{k}": host(x) for k, x in lat.state.items()}
+    snap["weights"] = host(lat.graph.weights)
+    for k, x in (getattr(lat, "trace", None) or {}).items():
+        snap[f"trace.{k}"] = host(x)
+    snap["dopamine"] = torch.tensor(getattr(lat, "dopamine", 0.0))
+    snap["clock"] = torch.tensor(lat.internal_clock)
+    snap["rate"] = host(env.state["rate"])
+    return snap
+
+
+def hold_replays(rk, env, n, with_reward):
+    """One call of ``n`` steps (a multiple of K) of ``env`` on tier (a),
+    each graph replay held against the twin (the callbacks and
+    `env_step_launcher_reference`) run from the state the replay received.
+    Returns (max float error, integer and spike mismatches)."""
+    K = rk.STEPS_PER_LAUNCH
+    plan = env._begin(n, with_reward, None)
+    loop = plan.loop
+    check(plan.graph, f"no graph to hold: {env.last_capture_error}")
+    params = {k: loop.other[k].view(loop.shape)
+              for k in rk.MODEL_PARAM_KEYS[loop.spec.model]}
+    twin = [rk.env_step_launcher_reference(
+        loop.spec, loop.planes[p], loop.planes[1 - p], loop.spikes,
+        loop.weights, loop.mask, loop.in_deg, params, loop.traces,
+        loop.dopamine, loop.rule, loop.clock)
+        for p in (0, 1)]
+    kernel = loop.launch
+    plan.rewards = torch.empty(n, device="cuda")
+    err, bad = 0.0, 0
+    for j in range(n // K):
+        start = [b.clone() for b in loop.buffers()]
+        loop.graph.replay()
+        plan.rewards[j * K:(j + 1) * K].copy_(loop.rew)
+        got = [b.clone() for b in loop.buffers()]
+        for b, x in zip(loop.buffers(), start):
+            b.copy_(x)
+        loop.launch = twin
+        try:
+            for k in range(K):
+                loop.step(loop.rew[k])
+        finally:
+            loop.launch = kernel
+        e, bb = compare_exact(dict(enumerate(got)),
+                              dict(enumerate(loop.buffers())))
+        err, bad = max(err, e), bad + bb
+        for b, x in zip(loop.buffers(), got):
+            b.copy_(x)
+    env._finish(plan)
+    return err, bad
+
+
+def env_main_phase(snt, rk, smi):
+    """30. The main paths through `JitEnvironment` on tier (a): `bench.py`'s
+    closed loop at 10 x 10 over 6400 steps and at 512^2 over 1024, the
+    unsupervised loop at 512^2 over 1024, each one call with host syncs
+    turned into errors around its steps (route flags, launch counters,
+    finite state, rewards varying, dopamine, weights and traces moved,
+    the clock), then one graph replay more of each held against the twin
+    on the state it received; two calls against one at 10 x 10; every
+    replay of the first `ETWIN_STEPS` steps at 64^2 held against the
+    twin; a grid history at 64^2 (tier (b)) against tier (a).
+    Returns (max float error, env-entry launches)."""
+    K = rk.STEPS_PER_LAUNCH
+    launches, max_err, first = 0, 0.0, None
+    for label, shape, steps in EMAINS:
+        sup = label == "bench"
+        lat, env = (bench_env if sup else unsup_env)(snt, *shape)
+        w0 = lat.graph.weights.clone()
+        rk.ENV_LAUNCHES = rk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rewards = env_call(env, steps, sup)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        calls, six = rk.ENV_LAUNCHES, rk.LAUNCHES
+        launches += calls
+        floats = [x for x in lat.state.values() if x.is_floating_point()]
+        floats += [lat.graph.weights] + ([lat.trace["c"], lat.trace["dw"]]
+                                         if sup else [])
+        finite = all(bool(torch.isfinite(x).all()) for x in floats)
+        fired = int((lat.state["last_firing_time"] >= 0).sum())
+        dw = (lat.graph.weights - w0).abs().max().item()
+        c = lat.trace["c"].abs().max().item() if sup else 0.0
+        spread = float(np.ptp(rewards)) if sup else 0.0
+        say(f"[30 main path] {label} loop {shape[0]}x{shape[1]} "
+            f"{'run_with_reward' if sup else 'run'}({steps}), one call with "
+            f"host syncs as errors around its steps: env-fused "
+            f"{env.last_build_env_fused}, fused {env.last_build_fused}, "
+            f"env-entry steps launched {calls} (with the probe's warm-up "
+            f"step), 6a calls {six}, clock "
+            f"{lat.internal_clock}, {secs:.3f} s; state finite {finite}, "
+            f"fired {fired} of {shape[0] * shape[1]}, max weight change "
+            f"{dw:.4g}"
+            + (f", max |c| {c:.4g}, dopamine {lat.dopamine:.6g}, rewards in "
+               f"[{rewards.min():.4g}, {rewards.max():.4g}]" if sup else "")
+            + f", rate {float(env.state['rate']):.4g}; card {smi}")
+        check(env.last_build_env_fused and env.last_build_fused,
+              "the main path did not take tier (a)")
+        # one step more: the probe's warm-up before the capture, on a
+        # snapshot of the buffers
+        check(calls == steps + 1 and six == 0, "wrong launch counts")
+        check(lat.internal_clock == steps, "the clock did not advance")
+        check(finite and math.isfinite(lat.dopamine if sup else 0.0),
+              "the main path went non-finite")
+        check(fired > 0 and dw > 0, "no neuron fired or no weight moved")
+        check(not sup or (c > 0 and lat.dopamine != 0.0),
+              "traces or dopamine did not move")
+        # the rate is the mean spike: the 6-neuron cue moves it (and the
+        # reward off its clip at 0.05) only at the bench's own size
+        check(shape != EMAINS[0][1] or spread > 0, "the rewards never moved")
+        if first is None:
+            first = (agent_snapshot(lat, env), rewards)
+        err, bad = hold_replays(rk, env, K, sup)
+        say(f"[30 main path] {label} loop {shape[0]}x{shape[1]}, the graph "
+            f"replay of steps {steps}-{steps + K - 1} held against the twin "
+            f"(callbacks and env entry) on the state it received: integer "
+            f"and spike mismatches {bad}, max float error {err:.3g}")
+        check(bad == 0 and err == 0.0, "a replay differs from the twin")
+        max_err = max(max_err, err)
+        del lat, env
+    # two calls equal one call
+    lat, env = bench_env(snt, *EMAINS[0][1])
+    half = EMAINS[0][2] // 2
+    rewards = np.concatenate([env.run_with_reward(half),
+                              env.run_with_reward(half)])
+    snap = agent_snapshot(lat, env)
+    diff = sum(int((snap[k] != first[0][k]).sum()) for k in snap)
+    say(f"[30 main path] bench loop {EMAINS[0][1][0]}x{EMAINS[0][1][1]} in "
+        f"two calls of {half}: {diff} values differ from one call of "
+        f"{2 * half}, rewards equal {np.array_equal(rewards, first[1])}")
+    check(diff == 0 and np.array_equal(rewards, first[1]),
+          "two calls differ from one")
+    # every replay of the first steps, held against the twin
+    lat, env = bench_env(snt, *ETWIN)
+    err, bad = hold_replays(rk, env, ETWIN_STEPS, True)
+    fired = int((lat.state["last_firing_time"] >= 0).sum())
+    say(f"[30 main path] bench loop {ETWIN[0]}x{ETWIN[1]}, each of the "
+        f"{ETWIN_STEPS // K} graph replays of the first {ETWIN_STEPS} steps "
+        f"held against the twin (callbacks and env entry) on the state it "
+        f"received: integer and spike mismatches {bad}, max float error "
+        f"{err:.3g}; fired {fired}, dopamine {lat.dopamine:.6g}")
+    check(bad == 0 and err == 0.0, "a replay differs from the twin")
+    max_err = max(max_err, err)
+    # a grid history: tier (b), one kernel step per callback round
+    runs = {}
+    for hist in (True, False):
+        lat, env = bench_env(snt, *ETWIN)
+        lat.update_grid_history = hist
+        rk.ENV_LAUNCHES = 0
+        rewards = env.run_with_reward(EHIST_STEPS)
+        runs[hist] = (agent_snapshot(lat, env), rewards, env, lat,
+                      rk.ENV_LAUNCHES)
+    snap, rewards, env, lat, calls = runs[True]
+    launches += calls
+    hist = np.stack(lat.grid_history.history)
+    diff = sum(int((snap[k] != runs[False][0][k]).sum()) for k in snap)
+    last = np.array_equal(hist[-1].reshape(-1),
+                          lat.state["v"].cpu().numpy())
+    say(f"[30 main path] bench loop {ETWIN[0]}x{ETWIN[1]} with a grid "
+        f"history over {EHIST_STEPS} steps: fused {env.last_build_fused}, "
+        f"env-fused {env.last_build_env_fused}, env-entry steps {calls}, "
+        f"history {hist.shape}, last row = final v {last}; against tier (a) "
+        f"without the history: {diff} values differ, rewards equal "
+        f"{np.array_equal(rewards, runs[False][1])}")
+    check(env.last_build_fused and not env.last_build_env_fused,
+          "the history run did not take tier (b)")
+    check(runs[False][2].last_build_env_fused, "no tier (a) at 64^2")
+    check(calls == EHIST_STEPS and hist.shape == (EHIST_STEPS, *ETWIN)
+          and last, "wrong history")
+    check(diff == 0 and np.array_equal(rewards, runs[False][1]),
+          "tiers (a) and (b) differ")
+    # a callback that waits for the card fails the probe: tier (b)
+    def syncing(e, s):
+        return env_reward(e, s) if bool(e["rate"] >= 0.0) else e["rate"]
+
+    lat, env = bench_env(snt, *ETWIN, reward=syncing)
+    rewards = env.run_with_reward(EHIST_STEPS)
+    snap = agent_snapshot(lat, env)
+    diff = sum(int((snap[k] != runs[False][0][k]).sum()) for k in snap)
+    say(f"[30 main path] bench loop {ETWIN[0]}x{ETWIN[1]} with a reward "
+        f"callback that reads a value on the host: fused "
+        f"{env.last_build_fused}, env-fused {env.last_build_env_fused}; "
+        f"{diff} values differ from tier (a) with the bench's callback")
+    check(env.last_build_fused and not env.last_build_env_fused
+          and diff == 0 and np.array_equal(rewards, runs[False][1]),
+          "a syncing callback did not take tier (b), or differs")
+    # a random cue (the upstream example's encoder draws one): from the
+    # default generator, which a CUDA graph registers, the same draws on
+    # tiers (a) and (b); from a generator of the callback's own, which it
+    # does not, tier (b)
+    gen = torch.Generator(device="cuda")
+
+    def cue(u, s):
+        return {**s, "v": torch.where(u < 0.06, 31.0, s["v"])}
+
+    encoders = (("default", lambda e, s: cue(torch.rand(
+        s["v"].shape[0], device=s["v"].device), s)),
+        ("own", lambda e, s: cue(torch.rand(
+            s["v"].shape[0], device=s["v"].device, generator=gen), s)))
+    for name, encoder in encoders:
+        out = {}
+        for graph in (True, False):
+            torch.manual_seed(5)
+            gen.manual_seed(7)
+            lat, env = bench_env(snt, *EMAINS[0][1], encoder=encoder)
+            if not graph:              # tier (b): an EEG history
+                lat.grid_history = snt.history.EEGHistory()
+                lat.update_grid_history = True
+            rewards = env.run_with_reward(ERNG_STEPS)
+            out[graph] = (agent_snapshot(lat, env), rewards,
+                          env.last_build_env_fused, env.last_capture_error)
+        diff = sum(int((out[True][0][k] != out[False][0][k]).sum())
+                   for k in out[True][0])
+        say(f"[30 main path] bench loop {EMAINS[0][1][0]}x"
+            f"{EMAINS[0][1][1]}, {ERNG_STEPS} steps, a random cue from the "
+            f"{name} generator: env-fused {out[True][2]} (capture error "
+            f"{out[True][3]}), {diff} values differ from tier (b) (an EEG "
+            f"history)")
+        if name == "default":
+            check(out[True][2] and diff == 0
+                  and np.array_equal(out[True][1], out[False][1]),
+                  "the default generator's cue differs between the tiers")
+        else:
+            check(not out[True][2], "a generator the graph does not know "
+                  "was captured")
+    return max_err, launches
+
+
+def env_cmp_phase(snt):
+    """31. The bench loop at 64^2 over 1000 steps: tier (a) on the card
+    against the kernel tier on the CPU (the twin; bit-equal expected),
+    then the kernel route (tier (b), a grid history for per-step v)
+    against the plain route on the card, in calls of ECMP_CHUNK steps, at
+    a tenth of the reward and at the bench's own: under the tie rule over
+    the steps before either route's weights pass W_TIE, and past them the
+    max |dv| every 16 steps up to the first step over DRIFT."""
+    runs = {}
+    for key, device, uk in (("card", "cuda", None), ("cpu", "cpu", True)):
+        lat, env = bench_env(snt, *ECMP, use_kernel=uk, device=device)
+        rewards = env.run_with_reward(ECMP_STEPS)
+        check(env.last_build_fused
+              and env.last_build_env_fused is (device == "cuda"),
+              f"wrong tier on the {key}")
+        runs[key] = (agent_snapshot(lat, env), rewards)
+    a, b = runs["card"][0], runs["cpu"][0]
+    dv = max((a[k] - b[k]).abs().max().item() for k in a
+             if a[k].is_floating_point())
+    di = sum(int((a[k] != b[k]).sum()) for k in a
+             if not a[k].is_floating_point())
+    dlft = int((a["state.last_firing_time"]
+                - b["state.last_firing_time"]).abs().max())
+    dr = float(np.abs(runs["card"][1] - runs["cpu"][1]).max())
+    say(f"[31 kernel-vs-cpu] bench loop {ECMP[0]}x{ECMP[1]} {ECMP_STEPS} "
+        f"steps, tier (a) on the card vs on the CPU: max float difference "
+        f"(v, w, weights, traces, dopamine, rate) {dv:.4g}, integer and "
+        f"spike mismatches {di}, max|dlft| {dlft}, max reward difference "
+        f"{dr:.4g}, fired {int((a['state.last_firing_time'] >= 0).sum())}")
+    check(dv == 0.0 and di == 0 or (dv <= 2.0 and dlft <= 2),
+          "the card parts from the CPU beyond 2 mV / 2 steps")
+    n = ECMP[0] * ECMP[1]
+    for label, reward in (("a tenth of the reward", env_reward_cmp),
+                          ("the bench's reward", env_reward)):
+        runs = {}
+        for key, uk in (("kernel", None), ("plain", False)):
+            lat, env = bench_env(snt, *ECMP, use_kernel=uk, reward=reward)
+            lat.update_grid_history = True
+            wmax, lft = [], []
+            for _ in range(ECMP_STEPS // ECMP_CHUNK):
+                env.run_with_reward(ECMP_CHUNK)
+                wmax.append(lat.graph.weights.abs().max().item())
+                lft.append(lat.state["last_firing_time"].cpu().numpy()
+                           .astype(np.int64))
+            check(env.last_build_fused is (uk is not False), "wrong routes")
+            runs[key] = (np.stack(lat.grid_history.history).reshape(
+                ECMP_STEPS, -1), np.array(wmax), lft)
+        (hk, wk, lk), (hp, wp, lp) = runs["kernel"], runs["plain"]
+        w = np.maximum(wk, wp)
+        m = int(np.argmax(w > W_TIE)) if (w > W_TIE).any() else len(w)
+        check(m > 0, f"the weights passed {W_TIE} in the first call")
+        cut = m * ECMP_CHUNK
+        tie_check(f"[31 kernel-vs-plain] bench loop {ECMP[0]}x{ECMP[1]} at "
+                  f"{label}, steps 0-{cut - 1} of {ECMP_STEPS} (max |w| "
+                  f"{w[m - 1]:.4g} <= {W_TIE}), kernel tier vs plain route "
+                  f"on the card", hk[:cut], lk[m - 1], hp[:cut], lp[m - 1], n)
+        if cut < ECMP_STEPS:
+            dvs = np.abs(hk - hp).max(axis=1)
+            over = np.nonzero(dvs[cut:] > DRIFT)[0]
+            end = cut + int(over[0]) if len(over) else ECMP_STEPS - 1
+            outside = int((np.abs(hk - hp) > 2.0).any(axis=0).sum())
+            say(f"[31 kernel-vs-plain] bench loop {ECMP[0]}x{ECMP[1]} at "
+                f"{label}, from step {cut} (max |w| {w[m]:.4g} at step "
+                f"{cut + ECMP_CHUNK - 1}, {w[-1]:.4g} at the end): max |dv| "
+                f"every 16 steps up to "
+                + (f"the first step over DRIFT ({end})" if len(over)
+                   else f"the last step ({end}; none over DRIFT)") + ": "
+                + ", ".join(f"{k} {dvs[k]:.3g}"
+                            for k in list(range(cut, end, 16)) + [end])
+                + f"; neurons ever outside 2 mV over all {ECMP_STEPS} "
+                f"steps {outside} of {n}")
+
+
+def env_times_phase(snt, rk, smi):
+    """32. Per size: wall (median of 3) and CUDA-event time per step of
+    tier (a), tier (b) (an EEG history: one scalar readout per step) and
+    the plain route, the kernel tiers' device time
+    under torch.profiler and device / wall; the same of tier (a) for the
+    unsupervised loop at 512^2; the host-loop `Environment`'s steps/s at
+    10 x 10."""
+    from spiking_neural_networks_tpu_torch.interactable import Environment
+    rows = [("bench", shape, steps, (("tier (a)", None, True),
+                                     ("tier (b) (EEG history)", None,
+                                      False),
+                                     ("plain route", False, True)))
+            for shape, steps in ETIMES]
+    rows.append(("unsup", EMAINS[2][1], EMAINS[2][2],
+                 (("tier (a)", None, True),)))
+    for loop, shape, steps, modes in rows:
+        parts = []
+        for label, uk, graph in modes:
+            n = steps if uk is not False else min(steps, EPLAIN_STEPS)
+            lat, env = (bench_env if loop == "bench" else unsup_env)(
+                snt, *shape, use_kernel=uk)
+            if not graph:              # tier (b): an EEG history
+                lat.grid_history = snt.history.EEGHistory()
+                lat.update_grid_history = True
+            run = (lambda: env.run_with_reward(n)) if loop == "bench" \
+                else (lambda: env.run(n))
+            run()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            kernel = uk is not False
+            check(env.last_build_fused is kernel
+                  and env.last_build_env_fused is (kernel and graph),
+                  f"timed the wrong tier for {label}")
+            wall = float(np.median(walls)) / n
+            ev = event_ms(run, 1) / n
+            part = (f"{label} wall {wall * 1e6:.3f} us/step, events "
+                    f"{ev * 1e3:.3f}")
+            if kernel:
+                dev_us, top = profiled_us(run, n, n_top=6)
+                part += (f", device {dev_us:.3f} ("
+                         + ", ".join(f"{k} {t:.3f}" for k, t in top)
+                         + f"), device / wall {dev_us / (wall * 1e6):.3f}")
+            parts.append(part)
+            del lat, env
+        say(f"[32 times] {loop} loop {shape[0]}x{shape[1]} over "
+            f"{steps} steps (plain route {min(steps, EPLAIN_STEPS)}): "
+            + "; ".join(parts) + f"; card {smi}")
+
+    class HostState:
+        def __init__(self):
+            self.rate = 0.0
+
+        def update_state(self, agent):
+            spiking = float(agent.state["is_spiking"].to(torch.float32)
+                            .mean())
+            self.rate = 0.9 * self.rate + 0.1 * spiking
+
+    def encoder(state, agent):
+        agent.apply(lambda s: env_encoder(None, s))
+
+    def reward(state, agent):
+        return float(np.clip(0.08 - state.rate, -0.05, 0.05))
+
+    lat, _ = bench_env(snt, *EMAINS[0][1])
+    host = Environment(lat, HostState(), encoder, reward)
+    host.run_with_reward(16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host.run_with_reward(EHOST_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    say(f"[32 times] host-loop Environment, bench loop "
+        f"{EMAINS[0][1][0]}x{EMAINS[0][1][1]}, {EHOST_STEPS} steps "
+        f"(a 6a call and a host pull per step): {EHOST_STEPS / secs:.1f} "
+        f"steps/s ({secs / EHOST_STEPS * 1e6:.3f} us/step), route "
+        f"{lat._last_run_fused}; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -3434,7 +4194,8 @@ def main():
 
     kernels = []
     for phases in (stencil_phases, plasticity_phases, network_phases,
-                   hh_phases, chem_phases, flat_phases, reward_phases):
+                   hh_phases, chem_phases, flat_phases, reward_phases,
+                   env_phases):
         t0 = time.perf_counter()
         kernels.append(phases(snt, smi))
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -9,14 +9,16 @@ the reward-modulated (R-STDP) lattice, spike trains, the plain
 `LatticeNetwork` of lattices and trains (electrical and chemical, on
 stencil, dense and sparse graphs with one-to-one, resample and dense
 connections; structured or flat COO runner) and the
-`RewardModulatedLatticeNetwork`, with their history readouts, and
-hand-written CUDA kernels for NVIDIA Hopper (``csrc/``) that run those
-lattices' and networks' steps on the GPU.  Entry points put their tensors
+`RewardModulatedLatticeNetwork`, with their history readouts, the
+closed agent-environment loops (`Environment`, `UnsupervisedEnvironment`,
+`interactable.JitEnvironment`), and hand-written CUDA kernels for NVIDIA
+Hopper (``csrc/``) that run those lattices' and networks' steps on the
+GPU.  Entry points put their tensors
 on the GPU (``device="cuda"``) unless the caller asks for another device.
 It imports PyTorch and NumPy, never JAX.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from .models.integrate_and_fire import (
     AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
@@ -35,3 +37,4 @@ from .core import history
 from .ops.graph import (DenseGraph, SparseGraph, StencilGraph,
                         radius_offsets)
 from .ops.receptors import DopaGluGABAReceptors, IonotropicReceptors
+from .interactable import Environment, UnsupervisedEnvironment

@@ -136,6 +136,19 @@ def load():
         vp,                                 # stream
     ]
     lib.lattice_plasticity_steps.restype = ci
+    lib.lattice_plasticity_env_step.argtypes = [
+        ci, ci, ci,                         # model, kind, with_reward
+        pv, pv, vp,                         # state_in[4], state_out[4], spikes
+        vp, pv, ci,                         # in_deg, params, n_params
+        vp, vp,                             # weights, mask
+        vp, vp, vp,                         # traces c, dw, counter
+        vp, vp, vp,                         # dopamine, reward, clock
+        pf,                                 # rule[9]
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci,                             # rows, cols
+        vp,                                 # stream
+    ]
+    lib.lattice_plasticity_env_step.restype = ci
     lib.hh_chemical_steps.argtypes = [
         ci, ci, ci, ci,                     # nt, rec kinetics, elec, plastic
         pv, pv, pv,                         # state_in[9], buf[18], cur[4]

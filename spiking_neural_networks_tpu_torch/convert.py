@@ -7,7 +7,8 @@ numbers.  `lattice_from`, `reward_lattice_from`, `spike_train_lattice_from`,
 `network_from` and `reward_network_from` read any object with the JAX
 package's attribute names (``state``, ``graph``, ``trace``, ``dopamine``,
 ``internal_clock``, ``connections``, ``reward_connections``, ...) through
-``np.asarray`` alone.
+``np.asarray`` alone; `env_from` carries a closed loop's environment
+tree.
 """
 
 from __future__ import annotations
@@ -58,6 +59,18 @@ def graph_from(g, device):
         return DenseGraph(_tensor(np.asarray(g.weights, np.float32), device),
                           _tensor(np.asarray(g.mask, bool), device))
     raise TypeError(f"no port graph for {type(g).__name__}")
+
+
+def env_from(tree, device="cuda"):
+    """A `JitEnvironment` environment tree on ``device`` from the JAX
+    package's (dicts, lists and tuples kept): every leaf, a NumPy or JAX
+    scalar or array, becomes a float32 tensor of its shape (0-dim for a
+    scalar)."""
+    if isinstance(tree, dict):
+        return {k: env_from(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(env_from(v, device) for v in tree)
+    return _tensor(np.asarray(tree, np.float32), device)
 
 
 def history_from(h):

@@ -43,7 +43,17 @@
 // for R-STDP (131 MB per step at 512 x 512, beyond the 50 MB L2: 39 us
 // per step at 3.35 TB/s) and about 200 bytes for STDP.  Later work:
 // fuse the edge pass of step k into the cell kernel of step k+1, keep
-// tiles and halos in shared memory, CUDA graphs for the launch loop.
+// tiles and halos in shared memory.
+//
+// The closed loop (lattice_plasticity_env_step; replaces the env form of
+// the TPU kernel, _make_kernel(spec, n, env) driven by _env_advance) runs
+// one step per call between the environment's callbacks, which stay
+// PyTorch operations on the device.  Its reward and clock are device
+// memory, not arguments, so that a CUDA graph of K such steps reads the
+// values of each replay: the cell kernel reads the clock through a
+// pointer (DEV_CLOCK), and lp_env_scalar_kernel updates the dopamine from
+// the reward in device memory, in lp_dopamine_kernel's float order, and
+// advances the clock.  Three launches per step (cell, scalars, edge).
 
 #include "plasticity_common.cuh"
 
@@ -53,7 +63,7 @@ struct Rewards {
     float r[LP_REWARD_CHUNK];
 };
 
-template <int MODEL>
+template <int MODEL, bool DEV_CLOCK>
 __global__ void lp_cell_kernel(
     const float* __restrict__ v_in, const float* __restrict__ w_in,
     const int* __restrict__ lft_in, const float* __restrict__ refr_in,
@@ -62,7 +72,8 @@ __global__ void lp_cell_kernel(
     unsigned char* __restrict__ spk_out,
     float* __restrict__ v_pre_out,         // null unless emitting
     const float* __restrict__ weights, const float* __restrict__ in_deg,
-    Params P, Stencil st, int rows, int cols, int clock)
+    Params P, Stencil st, int rows, int cols, int clock,
+    const int* __restrict__ clock_ptr)    // read instead with DEV_CLOCK
 {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -92,7 +103,7 @@ __global__ void lp_cell_kernel(
     v_out[i] = v_new;
     w_out[i] = w_new;
     if (refractory) refr_out[i] = refr_new;
-    lft_out[i] = spike ? clock : lft_in[i];
+    lft_out[i] = spike ? (DEV_CLOCK ? *clock_ptr : clock) : lft_in[i];
     spk_out[i] = spike ? 1 : 0;
     if (v_pre_out) v_pre_out[i] = v_pre;
 }
@@ -155,6 +166,16 @@ __global__ void lp_dopamine_kernel(const float* dop_in, Rewards rw,
     }
 }
 
+// The closed loop's scalars after step k's cell kernel: the dopamine from
+// the reward in device memory (null: no reward), in lp_dopamine_kernel's
+// float order, then clock + 1.
+__global__ void lp_env_scalar_kernel(float* dop, const float* reward,
+                                     float exp_dd, float tau_d, int* clock)
+{
+    if (reward) *dop = *dop * exp_dd + tau_d * *reward;
+    *clock = *clock + 1;
+}
+
 cudaError_t lp_launch_stdp_edge(const int* lft, const unsigned char* spk,
                                 float* weights, const unsigned char* mask,
                                 const Rule& r, const Stencil& st, int rows,
@@ -203,18 +224,41 @@ cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
     return cudaSuccess;
 }
 
-template <int MODEL>
+template <int MODEL, bool DEV_CLOCK = false>
 static void launch_cell(dim3 grid, dim3 block, cudaStream_t s,
                         const float* v, const float* w, const int* lft,
                         const float* refr, float* vo, float* wo, int* lfto,
                         float* refro, unsigned char* spk, float* v_pre,
                         const float* weights, const float* in_deg,
                         const Params& P, const Stencil& st, int rows,
-                        int cols, int clock)
+                        int cols, int clock, const int* clock_ptr = nullptr)
 {
-    lp_cell_kernel<MODEL><<<grid, block, 0, s>>>(
+    lp_cell_kernel<MODEL, DEV_CLOCK><<<grid, block, 0, s>>>(
         v, w, lft, refr, vo, wo, lfto, refro, spk, v_pre, weights, in_deg,
-        P, st, rows, cols, clock);
+        P, st, rows, cols, clock, clock_ptr);
+}
+
+// The host structs of one call from its C arguments; false if the
+// arguments are out of range.
+static bool lp_setup(int model, int kind, int n_params, int n_off,
+                     int rows, int cols, const float* const* params,
+                     const int* dr, const int* dc, const float* rule,
+                     Stencil& st, Params& P, Rule& r)
+{
+    static const int n_params_of[3] = {9, 13, 10};
+    if (model < 0 || model > 2 || kind < 0 || kind > 2
+        || n_params != n_params_of[model]
+        || n_off < 0 || n_off > LP_MAX_OFFSETS || rows <= 0 || cols <= 0)
+        return false;
+    st.n = n_off;
+    for (int o = 0; o < n_off; ++o) {
+        st.dr[o] = dr[o];
+        st.dc[o] = dc[o];
+    }
+    for (int q = 0; q < LP_MAX_PARAMS; ++q)
+        P.p[q] = q < n_params ? params[q] : nullptr;
+    r = {rule[0], rule[1], rule[2], rule[3], rule[4], rule[5], rule[6]};
+    return true;
 }
 
 extern "C" {
@@ -246,25 +290,16 @@ int lattice_plasticity_steps(
     const int* dr, const int* dc, int n_off,
     int rows, int cols, int clock0, int n_steps, void* stream)
 {
-    static const int n_params_of[3] = {9, 13, 10};
-    if (model < 0 || model > 2 || kind < 0 || kind > 2
-        || n_params != n_params_of[model]
-        || n_off < 0 || n_off > LP_MAX_OFFSETS || rows <= 0 || cols <= 0
+    Stencil st;
+    Params P;
+    Rule r;
+    if (!lp_setup(model, kind, n_params, n_off, rows, cols, params, dr, dc,
+                  rule, st, P, r)
         || n_steps <= 0 || (kind != KIND_PLAIN && !mask)
         || (kind == KIND_MOD && (!tr_c || !tr_dw || !tr_counter || !dop_in))
         || (with_reward && (!dop_in || !dop_steps))
         || (model != MODEL_IZHIKEVICH && !state_in[3]))
         return (int)cudaErrorInvalidValue;
-    Stencil st;
-    st.n = n_off;
-    for (int o = 0; o < n_off; ++o) {
-        st.dr[o] = dr[o];
-        st.dc[o] = dc[o];
-    }
-    Params P;
-    for (int q = 0; q < LP_MAX_PARAMS; ++q)
-        P.p[q] = q < n_params ? params[q] : nullptr;
-    Rule r = {rule[0], rule[1], rule[2], rule[3], rule[4], rule[5], rule[6]};
     const float tau_d = rule[7];
     const float exp_dd = rule[8];
     const size_t n = (size_t)rows * cols;
@@ -323,6 +358,81 @@ int lattice_plasticity_steps(
         refr = refro;
     }
     return 0;
+}
+
+// One closed-loop step from state_in = {v, w, lft, refr} into state_out
+// (distinct planes; refr null for Izhikevich) on `stream`: the cell
+// kernel at clock *clock, then lp_env_scalar_kernel (with_reward: dopamine
+// from *reward, in place; then *clock + 1), then the edge kernel of kind
+// plastic or mod (weights and traces in place; mod reads *dopamine).
+// `spikes` receives the step's spike flags.  Every pointer is device
+// memory that the caller owns, so a CUDA graph of such calls replays on
+// the values the buffers hold.  The other arguments are as for
+// lattice_plasticity_steps.  Returns the first CUDA error, 0 if none.
+int lattice_plasticity_env_step(
+    int model, int kind, int with_reward,
+    const void* const* state_in, void* const* state_out,
+    unsigned char* spikes,
+    const float* in_deg, const float* const* params, int n_params,
+    float* weights, const unsigned char* mask,
+    float* tr_c, float* tr_dw, int* tr_counter,
+    float* dopamine, const float* reward, int* clock,
+    const float* rule, const int* dr, const int* dc, int n_off,
+    int rows, int cols, void* stream)
+{
+    Stencil st;
+    Params P;
+    Rule r;
+    if (!lp_setup(model, kind, n_params, n_off, rows, cols, params, dr, dc,
+                  rule, st, P, r)
+        || !clock || (kind != KIND_PLAIN && !mask)
+        || (kind == KIND_MOD && (!tr_c || !tr_dw || !tr_counter || !dopamine))
+        || (with_reward && (!dopamine || !reward))
+        || (model != MODEL_IZHIKEVICH && (!state_in[3] || !state_out[3])))
+        return (int)cudaErrorInvalidValue;
+    const float tau_d = rule[7];
+    const float exp_dd = rule[8];
+    const dim3 block(32, 8);
+    const dim3 grid((cols + block.x - 1) / block.x,
+                    (rows + block.y - 1) / block.y);
+    cudaStream_t s = (cudaStream_t)stream;
+    const float* v = (const float*)state_in[0];
+    const float* w = (const float*)state_in[1];
+    const int* lft = (const int*)state_in[2];
+    const float* refr = (const float*)state_in[3];
+    float* vo = (float*)state_out[0];
+    float* wo = (float*)state_out[1];
+    int* lfto = (int*)state_out[2];
+    float* refro = (float*)state_out[3];
+    switch (model) {
+    case MODEL_IZHIKEVICH:
+        launch_cell<MODEL_IZHIKEVICH, true>(grid, block, s, v, w, lft, refr,
+            vo, wo, lfto, refro, spikes, nullptr, weights, in_deg, P, st,
+            rows, cols, 0, clock);
+        break;
+    case MODEL_ALIF:
+        launch_cell<MODEL_ALIF, true>(grid, block, s, v, w, lft, refr, vo,
+            wo, lfto, refro, spikes, nullptr, weights, in_deg, P, st, rows,
+            cols, 0, clock);
+        break;
+    default:
+        launch_cell<MODEL_LIF, true>(grid, block, s, v, w, lft, refr, vo,
+            wo, lfto, refro, spikes, nullptr, weights, in_deg, P, st, rows,
+            cols, 0, clock);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    lp_env_scalar_kernel<<<1, 1, 0, s>>>(
+        dopamine, with_reward ? reward : nullptr, exp_dd, tau_d, clock);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (kind == KIND_PLASTIC)
+        err = lp_launch_stdp_edge(lfto, spikes, weights, mask, r, st, rows,
+                                  cols, s);
+    else if (kind == KIND_MOD)
+        err = lp_launch_rstdp_edge(lfto, spikes, weights, mask, tr_c, tr_dw,
+                                   tr_counter, dopamine, r, st, rows, cols,
+                                   s);
+    return (int)err;
 }
 
 }  // extern "C"

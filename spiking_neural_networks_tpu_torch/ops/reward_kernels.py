@@ -21,6 +21,17 @@ launches it for CUDA tensors and runs the plain twin
 `lattice_plasticity_steps_reference` for CPU tensors (the counterpart of
 the TPU kernel's interpret mode).  A build or launch failure raises;
 nothing falls back.
+
+The closed loop (`interactable.JitEnvironment`; the TPU kernel's env form,
+``_make_kernel(spec, n, env)`` driven by ``_env_advance``) takes one step
+per launch of an `env_step_launcher` step, between callbacks that stay
+PyTorch operations: its reward is a 0-dim device tensor and its clock a
+1-element device tensor that the launch advances, and it writes into
+buffers the caller owns, so that a CUDA graph of such steps replays on
+the values the buffers hold.  `env_step_launcher` checks the buffers once
+and returns the launch of one step (the C entry
+``lattice_plasticity_env_step``); `env_step_launcher_reference` is its
+plain twin.
 """
 
 from __future__ import annotations
@@ -57,6 +68,14 @@ STEPS_PER_LAUNCH = 16     # K of the runners' kernel calls
 
 # Calls of `lattice_plasticity_steps` that launched the CUDA kernels.
 LAUNCHES = 0
+# Closed-loop steps whose CUDA kernels were launched: one per launch of an
+# `env_step_launcher` step outside a graph capture, and K per replay of a
+# graph of K captured steps (added by the replaying runner).
+ENV_LAUNCHES = 0
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel of this module failed to launch or to run."""
 
 
 class LatSpec(NamedTuple):
@@ -100,6 +119,15 @@ def supports_lattice(lat):
             and type(lat.reward_modulator) is RewardModulatedSTDP)
 
 
+def supports_plain_lattice(lat):
+    """Whether the kernel runs a standalone plain `Lattice` (kind
+    ``plain``, or ``plastic`` with `STDP`): the closed loop's
+    unsupervised form."""
+    from ..core.plasticity import STDP
+    return (_single_lattice_ok(lat)
+            and (not lat.do_plasticity or type(lat.plasticity) is STDP))
+
+
 def plain_stdp_lattice_spec(lat):
     """The spec of a plain `Lattice` with STDP, or None outside the
     kernel's class.  A grid history rides along as emitted pre-reset v,
@@ -119,6 +147,14 @@ def plain_stdp_lattice_spec(lat):
 # ---------------------------------------------------------------------------
 
 
+def _need(name, t, dtype, shp, dev):
+    if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shp) \
+            or t.device != dev or not t.is_contiguous():
+        got = None if t is None else (t.dtype, tuple(t.shape), t.device)
+        raise ValueError(f"{name} must be a contiguous {dtype} "
+                         f"{tuple(shp)} tensor on {dev}; got {got}")
+
+
 def _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
            dopamine, rewards, clock0, n_steps):
     if spec.kind not in KINDS or spec.model not in MODEL_PARAM_KEYS:
@@ -130,11 +166,7 @@ def _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
     n_off = len(spec.offsets)
 
     def need(name, t, dtype, shp):
-        if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shp) \
-                or t.device != dev or not t.is_contiguous():
-            got = None if t is None else (t.dtype, tuple(t.shape), t.device)
-            raise ValueError(f"{name} must be a contiguous {dtype} "
-                             f"{tuple(shp)} tensor on {dev}; got {got}")
+        _need(name, t, dtype, shp, dev)
 
     missing = [k for k in MODEL_PARAM_KEYS[spec.model] if k not in params]
     if missing:
@@ -309,6 +341,51 @@ def shifted(x, offsets, fill):
             for dr, dc in offsets]
 
 
+def _twin_step(spec, p, cnt, r, v, w, lft, refr, weights, masks, tr, dop,
+               reward, clock):
+    """One step of the twin: phase A, the dopamine (``reward`` a 0-dim
+    float32 tensor, or None), phase B with ``lft = clock`` on a spike
+    (``clock`` an int or a 0-dim int32 tensor), then the plasticity of
+    ``spec.kind``.  ``weights``, ``masks`` and the trace lists ``tr`` hold
+    one plane per offset; the updated planes replace theirs in the lists.
+    Returns ``(v, w, lft, refr, spikes, v_pre, dop)``."""
+    offsets = spec.offsets
+    acc = torch.zeros_like(v)
+    wsum = torch.zeros_like(v)
+    for o, vs in enumerate(shifted(v, offsets, 0.0)):
+        acc = acc + weights[o] * vs
+        wsum = wsum + weights[o]
+    i_syn = p["gap_conductance"] * (acc - v * wsum) / cnt
+    if reward is not None:
+        dop = dop * r["exp_dd"] + r["tau_d"] * reward
+    v, w, refr, spk, v_pre = model_step(spec.model, p, v, w, refr, i_syn)
+    lft = lft.masked_fill(spk, clock) if isinstance(clock, int) \
+        else torch.where(spk, clock, lft)
+    if spec.kind == "plain":
+        return v, w, lft, refr, spk, v_pre, dop
+    lft_pre = shifted(lft, offsets, NEVER)
+    if spec.kind == "plastic":
+        spk_f = spk.to(torch.float32)
+        for o, sp in enumerate(shifted(spk_f, offsets, 0.0)):
+            delta = stdp_delta(lft_pre[o], lft, r, kernel_exp)
+            weights[o] = torch.where(masks[o],
+                                     weights[o] + delta * (sp + spk_f),
+                                     weights[o])
+        return v, w, lft, refr, spk, v_pre, dop
+    tc, tdw, tct = tr
+    for o in range(len(offsets)):
+        delta = stdp_delta(lft_pre[o], lft, r, kernel_exp)
+        w1, c1, d1, t1 = rstdp_visit(weights[o], tc[o], tdw[o], tct[o],
+                                     delta, dop, r)
+        w2, c2, d2, t2 = rstdp_visit(w1, c1, d1, t1, delta, dop, r)
+        m = masks[o]
+        weights[o] = torch.where(m, w2, weights[o])
+        tc[o] = torch.where(m, c2, tc[o])
+        tdw[o] = torch.where(m, d2, tdw[o])
+        tct[o] = torch.where(m, t2, tct[o])
+    return v, w, lft, refr, spk, v_pre, dop
+
+
 def lattice_plasticity_steps_reference(spec, v, w, lft, refr, weights, mask,
                                        in_deg, params, traces, dopamine,
                                        rule, rewards, clock0, n_steps):
@@ -321,61 +398,178 @@ def lattice_plasticity_steps_reference(spec, v, w, lft, refr, weights, mask,
     ``w * 0``), lft with NEVER and spikes with 0 (an off-grid neighbour
     gives a zero delta), which is what the kernels' bounds checks do.
     """
-    offsets = spec.offsets
     dev = v.device
     r = rule_tensors(rule, dev)
     p = {k: params[k] for k in MODEL_PARAM_KEYS[spec.model]}
     cnt = torch.clamp(in_deg, min=1.0)
-    if spec.kind != "plain":
-        weights = list(weights.unbind(0))
-        masks = list(mask.unbind(0))
-    if spec.kind == "mod":
-        tc, tdw, tct = (list(t.unbind(0)) for t in traces)
+    ws = list(weights.unbind(0))
+    masks = list(mask.unbind(0)) if spec.kind != "plain" else None
+    tr = tuple(list(t.unbind(0)) for t in traces) \
+        if spec.kind == "mod" else None
     dop = dopamine
     v_pres, spk = [], None
     for k in range(int(n_steps)):
-        acc = torch.zeros_like(v)
-        wsum = torch.zeros_like(v)
-        for o, vs in enumerate(shifted(v, offsets, 0.0)):
-            acc = acc + weights[o] * vs
-            wsum = wsum + weights[o]
-        i_syn = p["gap_conductance"] * (acc - v * wsum) / cnt
-        if spec.with_reward:
-            reward = torch.tensor(float(np.float32(rewards[k])),
-                                  dtype=torch.float32, device=dev)
-            dop = dop * r["exp_dd"] + r["tau_d"] * reward
-        v, w, refr, spk, v_pre = model_step(spec.model, p, v, w, refr,
-                                            i_syn)
-        lft = lft.masked_fill(spk, int(clock0) + k)
+        reward = torch.tensor(float(np.float32(rewards[k])),
+                              dtype=torch.float32, device=dev) \
+            if spec.with_reward else None
+        v, w, lft, refr, spk, v_pre, dop = _twin_step(
+            spec, p, cnt, r, v, w, lft, refr, ws, masks, tr, dop, reward,
+            int(clock0) + k)
         if spec.emit:
             v_pres.append(v_pre)
-        if spec.kind == "plain":
-            continue
-        lft_pre = shifted(lft, offsets, NEVER)
-        if spec.kind == "plastic":
-            spk_f = spk.to(torch.float32)
-            for o, sp in enumerate(shifted(spk_f, offsets, 0.0)):
-                delta = stdp_delta(lft_pre[o], lft, r, kernel_exp)
-                weights[o] = torch.where(masks[o],
-                                         weights[o] + delta * (sp + spk_f),
-                                         weights[o])
-            continue
-        for o in range(len(offsets)):
-            delta = stdp_delta(lft_pre[o], lft, r, kernel_exp)
-            w1, c1, d1, t1 = rstdp_visit(weights[o], tc[o], tdw[o], tct[o],
-                                         delta, dop, r)
-            w2, c2, d2, t2 = rstdp_visit(w1, c1, d1, t1, delta, dop, r)
-            m = masks[o]
-            weights[o] = torch.where(m, w2, weights[o])
-            tc[o] = torch.where(m, c2, tc[o])
-            tdw[o] = torch.where(m, d2, tdw[o])
-            tct[o] = torch.where(m, t2, tct[o])
     if spec.kind != "plain":
-        weights = torch.stack(weights)
+        weights = torch.stack(ws)
     if spec.kind == "mod":
-        traces = (torch.stack(tc), torch.stack(tdw), torch.stack(tct))
+        traces = tuple(torch.stack(t) for t in tr)
     return (v, w, lft, refr, spk, weights, traces, dop,
             torch.stack(v_pres) if spec.emit else None)
+
+
+# ---------------------------------------------------------------------------
+# The closed loop's one-step entry
+# ---------------------------------------------------------------------------
+
+
+def _check_env(spec, src, dst, spikes, weights, mask, in_deg, params, traces,
+               dopamine, clock):
+    v = src[0]
+    _check(spec._replace(with_reward=False), *src, weights, mask, in_deg,
+           params, traces, dopamine, None, 0, 1)
+    shape, dev = tuple(v.shape), v.device
+
+    def need(name, t, dtype, shp):
+        _need(name, t, dtype, shp, dev)
+
+    for name, t, dtype in (("v out", dst[0], torch.float32),
+                           ("w out", dst[1], torch.float32),
+                           ("lft out", dst[2], torch.int32)):
+        need(name, t, dtype, shape)
+    if spec.model in REFRACTORY_MODELS:
+        need("refr out", dst[3], torch.float32, shape)
+    for a, b in zip(src, dst):
+        if a is not None and b is not None and a.data_ptr() == b.data_ptr():
+            raise ValueError("the step's input and output planes must be "
+                             "distinct tensors")
+    need("spikes", spikes, torch.bool, shape)
+    need("clock", clock, torch.int32, (1,))
+    if spec.with_reward:
+        if spec.kind == "plastic":
+            raise ValueError("the STDP kind 'plastic' takes no reward")
+        need("dopamine", dopamine, torch.float32, ())
+
+
+def _check_reward(spec, reward, dev):
+    """A launch's reward: a 0-dim float32 tensor on the buffers' device
+    (with a reward only; the CUDA kernels read it through its pointer)."""
+    if spec.with_reward:
+        _need("reward", reward, torch.float32, (), dev)
+
+
+def env_step_launcher(spec, src, dst, spikes, weights, mask, in_deg, params,
+                      traces, dopamine, rule, clock):
+    """Check the buffers of one closed-loop step once, and return
+    ``launch(reward)``, which advances one step from the planes ``src`` =
+    (v, w, lft, refr) into ``dst`` (refr None for Izhikevich; w a zero
+    plane for LIF) and ``spikes`` (bool), updates ``weights`` and the
+    ``traces`` (c, dw, counter; kind ``mod``) in place, with a reward
+    (``spec.with_reward``) the 0-dim ``dopamine`` in place from the 0-dim
+    float32 device tensor ``reward``, and advances the 1-element int32
+    ``clock``.  Shapes and types are those of `lattice_plasticity_steps`.
+    On CUDA tensors each launch runs the CUDA kernels on the current
+    stream (and is counted in `ENV_LAUNCHES` unless the stream is being
+    captured); on CPU tensors the plain twin,
+    `env_step_launcher_reference`.  A launch failure raises
+    `KernelError`."""
+    dev = src[0].device
+    if dev.type == "cpu":
+        return env_step_launcher_reference(spec, src, dst, spikes, weights,
+                                           mask, in_deg, params, traces,
+                                           dopamine, rule, clock)
+    _check_env(spec, src, dst, spikes, weights, mask, in_deg, params, traces,
+               dopamine, clock)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    from .. import _build
+    lib = _build.load()
+    rows, cols = src[0].shape
+    n_off = len(spec.offsets)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    r = rule_floats(rule)
+    keys = MODEL_PARAM_KEYS[spec.model]
+    c_, dw_, ct_ = traces if spec.kind == "mod" else (None, None, None)
+    # built once: the ctypes arrays and every pointer but the reward's
+    head = (MODELS.index(spec.model), KINDS.index(spec.kind),
+            int(spec.with_reward), (ctypes.c_void_p * 4)(*map(ptr, src)),
+            (ctypes.c_void_p * 4)(*map(ptr, dst)), ptr(spikes), ptr(in_deg),
+            (ctypes.c_void_p * len(keys))(*[params[k].data_ptr()
+                                            for k in keys]),
+            len(keys), ptr(weights),
+            ptr(mask) if spec.kind != "plain" else None,
+            ptr(c_), ptr(dw_), ptr(ct_), ptr(dopamine))
+    tail = (ptr(clock), (ctypes.c_float * 9)(*[
+        r.get(k, 0.0)
+        for k in STDP_KEYS + ("tau_c", "exp_dc", "tau_d", "exp_dd")]),
+        (ctypes.c_int * max(n_off, 1))(*[o[0] for o in spec.offsets]),
+        (ctypes.c_int * max(n_off, 1))(*[o[1] for o in spec.offsets]),
+        n_off, rows, cols)
+
+    def launch(reward=None):
+        global ENV_LAUNCHES
+        _check_reward(spec, reward, dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            rc = lib.lattice_plasticity_env_step(
+                *head, reward.data_ptr() if spec.with_reward else None,
+                *tail, stream.cuda_stream)
+            if rc != 0:
+                raise KernelError(
+                    f"lattice_plasticity_env_step failed with CUDA error "
+                    f"{rc} ({torch.cuda.get_device_name(dev)})")
+            if not torch.cuda.is_current_stream_capturing():
+                ENV_LAUNCHES += 1
+
+    return launch
+
+
+def env_step_launcher_reference(spec, src, dst, spikes, weights, mask,
+                                in_deg, params, traces, dopamine, rule,
+                                clock):
+    """The plain twin of `env_step_launcher`, on any device: the same
+    checks, and a launch that runs the twin's step."""
+    _check_env(spec, src, dst, spikes, weights, mask, in_deg, params, traces,
+               dopamine, clock)
+    dev = src[0].device
+    r = rule_tensors(rule, dev)
+    p = {k: params[k] for k in MODEL_PARAM_KEYS[spec.model]}
+    masks = list(mask.unbind(0)) if spec.kind != "plain" else None
+
+    def launch(reward=None):
+        _check_reward(spec, reward, dev)
+        # read from the buffers at each launch, as the kernels read them
+        cnt = torch.clamp(in_deg, min=1.0)
+        ws = list(weights.unbind(0))
+        tr = tuple(list(t.unbind(0)) for t in traces) \
+            if spec.kind == "mod" else None
+        dop = dopamine if spec.kind == "mod" or spec.with_reward else None
+        out = _twin_step(spec, p, cnt, r, *src, ws, masks, tr, dop,
+                         reward if spec.with_reward else None, clock[0])
+        for t, x in zip(dst, out[:4]):
+            if t is not None:
+                t.copy_(x)
+        spikes.copy_(out[4])
+        if spec.with_reward:
+            dopamine.copy_(out[6])
+        if spec.kind != "plain":
+            weights.copy_(torch.stack(ws))
+        if spec.kind == "mod":
+            for t, x in zip(traces, tr):
+                t.copy_(torch.stack(x))
+        clock.add_(1)
+
+    return launch
 
 
 # ---------------------------------------------------------------------------
