@@ -54,6 +54,12 @@ radius-2, 80%-keep stencil graph:
   callbacks and the env entry of the plasticity kernels
   (`lattice_plasticity_env_step`: reward and clock read from device
   memory, ``csrc/lattice_plasticity.cu``).
+* every other elementwise model (the integrate-and-fire family,
+  `DopaIzhikevich`, `MorrisLecar`: `Lattice(model)` -> `populate` ->
+  `connect_stencil` -> `apply` -> `run_lattice`) at 512^2, Morris-Lecar
+  over 2048 steps and the others over 512, through the model kernel
+  ``csrc/model_stencil.cu``; and the upstream BCM network
+  (``examples/bcm.py``) on its plain route.
 
 Phases, one line each:
 
@@ -102,7 +108,7 @@ Phases, one line each:
    (`use_kernel=False`), config 5's topology at 64^2 and 512^2;
 15. the HH kernel vs its plain twin on the card: 64^2 at K = 16 and 7 for
    every kinetics pair, electrical and plasticity on and off; 130 x 100
-   with non-uniform parameters; 512^2; and call by call the first 1024
+   with non-uniform parameters; 512^2; and call by call the first 768
    steps of the 128^2 main paths (both forms fire within them), each call
    on the state it received: integers, spikes and was_increasing equal,
    floats within rtol 1e-6, atol 1e-5;
@@ -121,7 +127,8 @@ Phases, one line each:
    electrical synapses on and off, STDP, Poisson and Rate trains,
    Izhikevich, ALIF and DopaIzhikevich lattices), then the chemical main
    paths through `run_lattices`, 64^2 for 2048 steps, the dopamine form
-   for 1024, 512^2 for 1536, every call of the first 1280 steps held
+   for 1024, 512^2 for 1536, every call of the first 1280 steps (64^2;
+   256 of the dopamine form and of 512^2) held
    against the twin on the state that call received, the rest of the run
    in one call: integers and spikes equal, floats within rtol 1e-6,
    atol 1e-5 (route ("chemical", False), kernel calls, finite state,
@@ -155,7 +162,7 @@ Phases, one line each:
    Izhikevich, ALIF and LIF, with and without rewards, static visit
    counts 0, 1 and 2, trains into plastic and reward lattices, plastic ->
    reward and reward -> reward connections, non-uniform states; and every
-   call of the first 1024 steps of the 32^2 and 128^2 main paths on the
+   call of the first 256 steps of the 32^2 and 128^2 main paths on the
    state it received, traces and dopamine included: bit-equal;
 26. the reward main paths through `run_lattices_with_reward`: route
    ("reward", False), reward-arm calls, weights, traces and dopamine
@@ -194,7 +201,24 @@ Phases, one line each:
 32. per size (10 x 10, 128^2, 512^2): wall and CUDA-event time per step
    of tiers (a), (b) and the plain route, the kernel tiers' device time
    under torch.profiler and device / wall; the host-loop `Environment`'s
-   steps/s at 10 x 10.
+   steps/s at 10 x 10;
+33. the model kernel vs its plain twin on the card: every model of the
+   table (11 kinds) x 64^2, 130 x 100 with non-uniform parameter planes
+   and 512^2 x K = 16 and 7, and Morris-Lecar at 2048^2 for one call:
+   integers, bools, spikes and firing times equal, floats within rtol
+   1e-6, atol 1e-5;
+34. the model main paths through `run_lattice`: Morris-Lecar at 512^2 for
+   2048 steps, the other models for 512, the first 4 calls of each held
+   against the twin (route "model", kernel calls, finite state, neurons
+   fired); ``examples/bcm.py``'s network over 2000 steps on its plain
+   route (the flat COO runner with BCM), card vs CPU;
+35. Morris-Lecar, DopaIzhikevich and AdEx at 128^2 for 1000 steps: the
+   kernel route on the card against the same route on the CPU (2 mV, 2
+   steps) and against the plain route on the card (a threshold tie, or
+   for Morris-Lecar a peak on another step);
+36. Morris-Lecar and LIF at 512^2 and 2048^2: neuron-updates/s of the
+   kernel and plain routes, the kernel's device time under torch.profiler
+   over 10 calls, device / wall, the bound and the twin's time.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -269,7 +293,7 @@ HMAIN, HBIG = (128, 128), (512, 512)
 HMAIN_STEPS, HBIG_STEPS, HCMP_STEPS, HCMP_EVERY = 2000, 512, 1000, 8
 # the steps of a 128^2 main path held call by call against the twin: both
 # forms fire within them (near steps 50-100 and 580)
-HTWIN_STEPS = 1024
+HTWIN_STEPS = 768
 HCASES = ([((64, 64), k, nt, rec, el, pl, False) for k in (16, 7)
            for nt, rec in HH_KINDS for el in (True, False)
            for pl in (True, False)]
@@ -294,9 +318,10 @@ HH_DRIFT = 5e-2
 # steps), its dopamine form at 64^2, and the card-vs-CPU run at 64^2.
 CMAIN, CBIG = (64, 64), (512, 512)
 CMAIN_STEPS, CBIG_STEPS, CDOPA_STEPS, CCMP_STEPS = 2048, 1536, 1024, 1000
-# of each chemical main path, held call by call to the twin: past lattice
-# 0's first firing
-CTWIN_STEPS = 1280
+# of each chemical main path, held call by call to the twin: the 64^2
+# bench.py form past lattice 0's first firing; the dopamine form (which
+# fires from the start) and the 512^2 form over their first 256 steps
+CTWIN_STEPS, CTWIN_SHORT = 1280, 256
 # the kernel-vs-twin cases' shapes, taken in turn
 CSHAPES = [(10, 12), (64, 64), (33, 70)]
 CHEM_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
@@ -307,7 +332,7 @@ CHEM_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 # dense network at N = 512.  (exc shape, inh shape) pairs.
 BAYES, BAYES_BIG = ((7, 7), (3, 3)), ((16, 32), (16, 32))
 BAYES_STEPS, BAYES_BIG_STEPS, FCMP_STEPS = 2500, 1024, 1000
-FTWIN_STEPS = 1024     # of each flat main path, held call by call to the twin
+FTWIN_STEPS = 256      # of each flat main path, held call by call to the twin
 DENSE_N, DENSE_STEPS = 512, 1024
 CUE_HERTZ = (20.0, 10.0)
 FLAT_NS = (9, 49, 60, 200, 512)
@@ -318,7 +343,7 @@ FLAT_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 # first RTWIN_STEPS of a main path held against the twin (up to
 # RTWIN_MAX neurons per lattice); the random cases' shapes, taken in turn.
 RMAINS = (((32, 32), 3000), ((128, 128), 3000), ((512, 512), 1024))
-RTWIN_STEPS, RTWIN_MAX = 1024, 128 * 128
+RTWIN_STEPS, RTWIN_MAX = 256, 128 * 128
 # at most this many steps past a main path for its reward lattice to fire
 RFIRE_MAX = 4096
 RSHAPES = ((8, 9), (64, 64), (33, 70), (130, 100))
@@ -351,14 +376,64 @@ EPLAIN_STEPS, EHOST_STEPS, ERNG_STEPS = 256, 256, 320
 ENV_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:338"
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+# its L2 cache: a step that moves more than this reads from HBM, so its
+# device time must not beat PEAK_BYTES
+L2_BYTES = 50e6
+# profiles taken for a count of kernel records before profiled_us fails
+PROF_TRIES = 5
 # float operations the card needs for one exp: a range reduction (two
 # multiply-adds), the special-function unit's ex2 and a scale; the port's
 # kernel_exp takes more, to round as the CPU does, which the bound does not
 # charge
 EXP_OPS = 4
+# Model-kernel phases (kernel 4, `ops/model_kernels.py`): the models of its
+# table by port class name ("-chemical": with chemical_normalization), and
+# the float operations of one step of each, counted from its source (a
+# transcendental as EXP_OPS and its few operations around exp), for the
+# bound
+MODELS = ("LeakyIntegrateAndFire", "QuadraticIntegrateAndFire",
+          "AdaptiveLeakyIntegrateAndFire", "AdaptiveExpLeakyIntegrateAndFire",
+          "DopaIzhikevich", "LeakyIzhikevich", "BCMIzhikevich",
+          "BCMIzhikevich-chemical", "SimpleLeakyIntegrateAndFire",
+          "MorrisLecar")
+MODEL_OPS = {"LeakyIntegrateAndFire": 15, "QuadraticIntegrateAndFire": 16,
+             "AdaptiveLeakyIntegrateAndFire": 25,
+             "AdaptiveExpLeakyIntegrateAndFire": 29 + EXP_OPS,
+             "DopaIzhikevich": 20, "LeakyIzhikevich": 22,
+             "BCMIzhikevich": 33, "BCMIzhikevich-chemical": 32,
+             "SimpleLeakyIntegrateAndFire": 7, "MorrisLecar": 48 + 3 * EXP_OPS}
+# The firing forms of the models that sit still at their defaults: LIF,
+# ALIF and AdEx leak towards an e_l above v_th, so they fire tonically
+# through their refractory windows; QIF's reset is a root of its dv, so
+# with v_reset above v_th it fires as each refractory window ends;
+# LeakyIzhikevich's leak term w (v - e_l) holds it below threshold at its
+# default w of 30, so its firing form starts at w 0
+MODEL_OVERRIDES = {"LeakyIntegrateAndFire": {"e_l": -40.0},
+                   "QuadraticIntegrateAndFire": {"v_reset": -50.0},
+                   "AdaptiveLeakyIntegrateAndFire": {"e_l": -20.0},
+                   "AdaptiveExpLeakyIntegrateAndFire": {"e_l": -20.0},
+                   "LeakyIzhikevich": {"w": 0.0}}
+# phase 33's shapes (130 x 100 with non-uniform parameters) and its large
+# Morris-Lecar call; the main paths (the first MHELD calls of each held
+# against the twin); the card-vs-CPU and kernel-vs-plain runs; the timed
+# models at (shape, kernel-route steps, plain-route steps)
+MSHAPES, MBIG = ((64, 64), (130, 100), (512, 512)), (2048, 2048)
+MMAIN, MMAIN_STEPS, MIF_STEPS, MHELD = (512, 512), 2048, 512, 4
+MCMP, MCMP_STEPS = (128, 128), 1000
+MCMP_MODELS = ("MorrisLecar", "DopaIzhikevich",
+               "AdaptiveExpLeakyIntegrateAndFire")
+MTIME_MODELS = ("MorrisLecar", "LeakyIntegrateAndFire")
+MTIMES = (((512, 512), 512, 32), ((2048, 2048), 128, 8))
+BCM_STEPS = 2000
+MODEL_REPLACES = "spiking_neural_networks_tpu/ops/pallas_stencil.py:792"
+T0 = time.perf_counter()
 
 
 def say(*a):
+    """Print a line; a phase's line (one that starts with "[") ends with
+    the seconds since the script started."""
+    if a and str(a[0]).startswith("["):
+        a = a + (f"(+{time.perf_counter() - T0:.1f} s)",)
     print(*a, flush=True)
 
 
@@ -470,19 +545,32 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profiled_us(fn, steps, n_top=3):
+def profiled_us(fn, steps, n_top=3, launches=None):
     """Device microseconds per step of ``fn`` (which runs ``steps``
     steps) under torch.profiler: the sum of every CUDA kernel's and copy's
-    device time, and the ``n_top`` largest by name."""
+    device time, and the ``n_top`` largest by name.  With ``launches``
+    (the kernels ``fn`` launches), a profile that holds another number of
+    kernel records is taken again, up to PROF_TRIES times, and then
+    fails: a lost record would make the sum short."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROF_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [(e.self_device_time_total, e.key, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        records = sum(c for _, k, c in dev
+                      if not k.startswith(("Memcpy", "Memset")))
+        if launches is None or records == launches:
+            break
+        say(f"[profiler] {records} kernel records of {launches} launches; "
+            f"profiling again")
+    check(launches is None or records == launches,
+          f"the profiler kept {records} kernel records of {launches}")
     top = sorted(dev, reverse=True)[:n_top]
-    return (sum(t for t, _ in dev) / steps,
-            [(k[:40], t / steps) for t, k in top])
+    return (sum(t for t, _, _ in dev) / steps,
+            [(k[:40], t / steps) for t, k, _ in top])
 
 
 def main_lattice(snt, rows, cols, use_kernel=None, device="cuda",
@@ -553,25 +641,27 @@ def rate(shape, secs, steps):
             f"{steps / secs:.1f} steps/s ({secs / steps * 1e6:.3f} us/step)")
 
 
-def tie_check(label, hk, lk, hp, lp, n):
+def tie_check(label, hk, lk, hp, lp, n, reset=None, v_th=None):
     """Across associations two routes drift apart by rounding until a
     neuron sitting at threshold fires in one route and not in the other;
     spiking dynamics then spread the one-step shift.  Require that the
     routes agree within DRIFT until that first tie, that every neuron
-    leaving DRIFT there is such a tie (one route reset to c, the other
-    within DRIFT of v_th), and that the divergence stays local (fewer than
-    1% of the neurons ever outside 2 mV, fired counts within 1%)."""
+    leaving DRIFT there is such a tie (one route reset to ``reset``, the
+    other within DRIFT of ``v_th``; Izhikevich's c and v_th by default),
+    and that the divergence stays local (fewer than 1% of the neurons ever
+    outside 2 mV, fired counts within 1%)."""
     from spiking_neural_networks_tpu_torch import Izhikevich
+    if reset is None:
+        reset, v_th = (Izhikevich.FIELDS[k] for k in ("c", "v_th"))
     d = np.abs(hk - hp)
     dvs = d.max(axis=1)
     over = np.nonzero(dvs > 1e-4)[0]
     s0 = int(np.argmax(dvs > DRIFT)) if (dvs > DRIFT).any() else None
     gaps = []                 # |v - v_th| of the route that did not fire
     if s0 is not None:
-        c, v_th = (Izhikevich.FIELDS[k] for k in ("c", "v_th"))
         for j in np.nonzero(d[s0] > DRIFT)[0]:
             a, b = hk[s0, j], hp[s0, j]
-            other = b if a == c else a if b == c else None
+            other = b if a == reset else a if b == reset else None
             gaps.append(np.inf if other is None else abs(float(other) - v_th))
     ties_ok = max(gaps, default=0.0) <= DRIFT
     outside = int((d > 2.0).any(axis=0).sum())
@@ -2095,8 +2185,8 @@ def chem_twin_phase(snt, nk, smi):
     """19. The chemical arm vs its plain twin on the card: every family x
     receptor kinetics x NT kinetics on random cases, then the 64^2 main
     path, its dopamine form and the 512^2 main path through `run_lattices`,
-    every call of their first `CTWIN_STEPS` steps on the state that call
-    received; returns (max float
+    every call of their first `CTWIN_STEPS` (64^2 bench.py form) or
+    `CTWIN_SHORT` steps on the state that call received; returns (max float
     error, (kernel, twin, device) ms per step at 512^2, the bound of a
     512^2 call, the main paths' chemical kernel calls)."""
     import itertools
@@ -2133,21 +2223,21 @@ def chem_twin_phase(snt, nk, smi):
         max_err, n_cases = max(max_err, err), n_cases + 1
         del net, args, got, want
     # the main paths through `run_lattices`: every call of the first
-    # `CTWIN_STEPS` steps held against the twin on the state that call
-    # received, then the rest of the run in one call
+    # `held` steps held against the twin on the state that call received,
+    # then the rest of the run in one call
     times = bounds = None
     launches = 0
     keys = ("v", "w", "lft", "spikes", "refr", "chem")
-    for label, shape, steps, dopamine in (
-            ("bench.py form", CMAIN, CMAIN_STEPS, False),
-            ("dopamine form", CMAIN, CDOPA_STEPS, True),
-            ("bench.py form", CBIG, CBIG_STEPS, False)):
+    for label, shape, steps, dopamine, held in (
+            ("bench.py form", CMAIN, CMAIN_STEPS, False, CTWIN_STEPS),
+            ("dopamine form", CMAIN, CDOPA_STEPS, True, CTWIN_SHORT),
+            ("bench.py form", CBIG, CBIG_STEPS, False, CTWIN_SHORT)):
         net = chem_net(snt, *shape, dopamine=dopamine)
         bad, err, fired, nmda_moved = 0, 0.0, 0, False
         nk.LAUNCHES = nk.CHEM_LAUNCHES = 0
         for call in range(steps // nk.STEPS_PER_LAUNCH):
             clock = net.internal_clock
-            if call * nk.STEPS_PER_LAUNCH >= CTWIN_STEPS:
+            if call * nk.STEPS_PER_LAUNCH >= held:
                 # the rest of the run in one call, not held against the twin
                 net.run_lattices(steps - call * nk.STEPS_PER_LAUNCH)
                 torch.cuda.synchronize()
@@ -2208,7 +2298,7 @@ def chem_twin_phase(snt, nk, smi):
         l1 = net.lattices[1].state
         say(f"[19 main path] chemical {label} {shape[0]}x{shape[1]}, "
             f"run_lattices over {steps} steps, every call of the first "
-            f"{min(steps, CTWIN_STEPS)} against the twin: route "
+            f"{min(steps, held)} against the twin: route "
             f"{net._last_run_fused}, kernel calls {calls}, integer and spike "
             f"mismatches {bad}, max float error {err:.3g}, state finite "
             f"{finite}, fired per lattice {per_lat} of "
@@ -4147,6 +4237,437 @@ def env_times_phase(snt, rk, smi):
         f"{lat._last_run_fused}; card {smi}")
 
 
+# ---------------------------------------------------------------------------
+# The model kernel (kernel 4): phases 33-36
+# ---------------------------------------------------------------------------
+
+
+def model_of(snt, name):
+    """A fresh model of ``MODELS``' label ``name``."""
+    if name == "BCMIzhikevich-chemical":
+        return snt.BCMIzhikevich(chemical_normalization=True)
+    return getattr(snt, name)()
+
+
+def model_lattice(snt, name, rows, cols, use_kernel=None, device="cuda"):
+    """The JAX package's model-kernel test lattice at a size
+    (``tests/test_pallas_model.py:60-70``): gap 10, radius 2, keep 0.8,
+    graph seed 7, v0 uniform in [-65, 30) from ``default_rng(1)``;
+    `MODEL_OVERRIDES` give a model its firing form."""
+    lat = snt.Lattice(model_of(snt, name), device=device)
+    lat.populate(rows, cols, gap_conductance=10.0,
+                 **MODEL_OVERRIDES.get(name, {}))
+    lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=7)
+    v0 = np.random.default_rng(1).uniform(-65.0, 30.0, rows * cols)
+    lat.apply(lambda s: {**s, "v": torch.as_tensor(v0, dtype=torch.float32,
+                                                   device=lat.device)})
+    lat.use_kernel = use_kernel
+    return lat
+
+
+def model_inputs(snt, mk, model, shape, seed, uniform):
+    """The planes of one `model_steps` call on the card, made from
+    ``seed``: the model's defaults, v uniform in [-80, 40), random spikes,
+    refractory counts, BCM counts and windows of 5 steps; with ``uniform``
+    False every float parameter plane within 20% of its default."""
+    rows, cols = shape
+    rng = np.random.default_rng(seed)
+    fields, carry = mk.model_kernel_fields(model)
+    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(2.0),
+                               keep_prob=0.8, seed=seed + 1,
+                               weight_fn=lambda dr, dc, rr, cc:
+                               rng.uniform(0.5, 1.5, rr.shape),
+                               device="cuda")
+    st = model.init_state_host(rows * cols)
+    planes = {k: st[k].reshape(shape) for k, _ in fields}
+    if not uniform:
+        for k, dt in fields:
+            if dt == torch.float32 and k not in carry and k != "v_init":
+                planes[k] = (planes[k] * rng.uniform(0.8, 1.2, shape)
+                             ).astype(np.float32)
+    planes["v"] = rng.uniform(-80.0, 40.0, shape).astype(np.float32)
+    planes["is_spiking"] = rng.random(shape) < 0.3
+    if "was_increasing" in planes:
+        planes["was_increasing"] = rng.random(shape) < 0.5
+    if "refractory_count" in planes:
+        planes["refractory_count"] = np.where(
+            rng.random(shape) < 0.3, rng.integers(1, 5, shape), 0
+        ).astype(np.float32)
+    if "num_spikes" in planes:
+        planes["num_spikes"] = rng.integers(0, 40, shape).astype(np.int32)
+        planes["firing_rate_window"] = np.full(shape, 0.5, np.float32)
+    lft = np.where(rng.random(shape) < 0.2, 5, -1).astype(np.int32)
+    cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    return dict(model=model, planes={k: cuda(p) for k, p in planes.items()},
+                lft=cuda(lft), weights=g.weights, in_deg=g.in_deg,
+                offsets=g.offsets)
+
+
+def model_call(fn, inp, clock0, n_steps):
+    return fn(inp["model"], inp["planes"], inp["lft"], inp["weights"],
+              inp["in_deg"], inp["offsets"], clock0, n_steps)
+
+
+def compare_model(got, want):
+    """(max float error, integer / bool / spike / lft mismatches) of two
+    `model_steps` results."""
+    err, bad = 0.0, 0
+    for k, w in want[0].items():
+        g = got[0][k]
+        if w.dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+            err = max(err, (g - w).abs().max().item())
+        else:
+            bad += int((g != w).sum())
+    bad += int((got[1] != want[1]).sum()) + int((got[2] != want[2]).sum())
+    return err, bad
+
+
+def model_bytes(mk, inp, out):
+    """Bytes a call must move: each plane the step reads
+    (`model_read_fields`), lft, the weights and in_deg read once, each
+    output written once."""
+    reads = mk.model_read_fields(inp["model"])
+    return tensor_bytes([inp["planes"][k] for k in reads], inp["lft"],
+                        inp["weights"], inp["in_deg"], out)
+
+
+def model_ops(name, offsets, rows, cols, k):
+    """Float operations of ``k`` steps: per cell the weight sum, the input
+    current (5) and the model's step (`MODEL_OPS`), per on-grid slot a
+    multiply and an add."""
+    return k * (rows * cols * (len(offsets) + 5 + MODEL_OPS[name])
+                + 2 * ingrid_slots(offsets, rows, cols))
+
+
+def model_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import model_kernels as mk
+    max_err = model_twin_phase(snt, mk)
+    err, launches = model_main_phase(snt, mk)
+    model_cmp_phase(snt)
+    times = model_times_phase(snt, mk, smi)
+    t = times["MorrisLecar", MMAIN]
+    return {"name": "model_steps", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "model_stencil.cu",
+            "replaces": MODEL_REPLACES, "launches": launches,
+            "max_abs_err": max(max_err, err),
+            "ms": t["kernel_ms"], "plain_ms": t["twin_ms"],
+            "device_ms": t["device_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes a lattice step"}
+
+
+def model_twin_phase(snt, mk):
+    """33. The model kernel vs its plain twin on the card: every model of
+    the table x `MSHAPES` (130 x 100 with non-uniform parameter planes) x
+    K = 16 and 7, and Morris-Lecar at `MBIG` for one 16-step call.
+    Returns the max float error."""
+    import itertools
+    import re
+    from spiking_neural_networks_tpu_torch import _build
+    # ptxas's report of each instantiation (when this process built them)
+    log = _build.build_log.split("== model_stencil.cu")[-1].split("\n== ")[0]
+    kernels = re.findall(r"model_stencil_kernelI(\w+?)Ev.*?\n\s*(\d+) bytes "
+                         r"stack frame, (\d+) bytes spill stores.*?Used (\d+) "
+                         r"registers", log, re.S)
+    if _build.build_log:
+        say("[33 build] model_stencil_kernel<M>: " + ", ".join(
+            f"{m.lstrip('0123456789')} {r} registers, stack {st} B, spills "
+            f"{sp} B" for m, st, sp, r in kernels))
+        check(len(kernels) == len(MODELS) and all(sp == "0" for _, _, sp, _
+                                                  in kernels),
+              "a model kernel is missing from ptxas's report or spills")
+    max_err = 0.0
+    cases = list(itertools.product(MSHAPES, (16, 7)))
+    for m, name in enumerate(MODELS):
+        err, bad, fired = 0.0, 0, 0
+        for c, (shape, k) in enumerate(cases + ([(MBIG, 16)]
+                                                if name == "MorrisLecar"
+                                                else [])):
+            inp = model_inputs(snt, mk, model_of(snt, name), shape,
+                               m * 10 + c, shape != (130, 100))
+            got = model_call(mk.model_steps, inp, 100, k)
+            torch.cuda.synchronize()
+            want = model_call(mk.model_steps_reference, inp, 100, k)
+            torch.cuda.synchronize()
+            e, b = compare_model(got, want)
+            check(all(bool(torch.isfinite(x).all()) for x in got[0].values()
+                      if x.is_floating_point()), f"{name}: non-finite output")
+            err, bad = max(err, e), bad + b
+            fired += int((got[1] >= 100).sum())
+            del inp, got, want
+        n = len(cases) + (name == "MorrisLecar")
+        say(f"[33 kernel-vs-twin] {name}: {n} calls ("
+            + ", ".join(f"{r}x{c}" for r, c in MSHAPES)
+            + (f", {MBIG[0]}x{MBIG[1]}" if name == "MorrisLecar" else "")
+            + f"; K 16 and 7; 130x100 with non-uniform parameters): integer,"
+            f" bool, spike and lft mismatches {bad}, max float error "
+            f"{err:.3g}, neurons fired in the calls {fired}")
+        check(bad == 0, f"{name}: integers, bools, spikes or lft differ")
+        check(fired > 0, f"{name}: no neuron fired in its calls")
+        max_err = max(max_err, err)
+    say(f"[33 kernel-vs-twin] max float error over {len(MODELS)} models "
+        f"{max_err:.3g} (tolerance rtol {RTOL}, atol {ATOL}; 0 = "
+        f"bit-equal)")
+    return max_err
+
+
+def model_main_phase(snt, mk):
+    """34. The main paths through `run_lattice`: Morris-Lecar at `MMAIN`
+    for `MMAIN_STEPS` steps, every other model of the table (the
+    integrate-and-fire family and `DopaIzhikevich`) at `MMAIN` for
+    `MIF_STEPS`; the first `MHELD` calls of each held against the twin on
+    the state that call received, then the rest in one call (route, kernel
+    calls, finite state, neurons fired); then ``examples/bcm.py``'s
+    network over `BCM_STEPS` steps on its plain route, card vs CPU.
+    Returns (max float error, kernel calls)."""
+    K = mk.STEPS_PER_LAUNCH
+    max_err, launches = 0.0, 0
+    runs = [("MorrisLecar", MMAIN_STEPS)] + [
+        (n, MIF_STEPS) for n in MODELS
+        if n not in ("MorrisLecar", "BCMIzhikevich-chemical")]
+    for name, steps in runs:
+        lat = model_lattice(snt, name, *MMAIN)
+        shape = (lat.rows, lat.cols)
+        fields, _ = mk.model_kernel_fields(lat.model)
+        g = lat.graph
+        err, bad = 0.0, 0
+        mk.LAUNCHES = 0
+        for _ in range(MHELD):
+            st = lat.state
+            want = mk.model_steps_reference(
+                lat.model, {k: st[k].reshape(shape) for k, _ in fields},
+                st["last_firing_time"].reshape(shape), g.weights, g.in_deg,
+                g.offsets, lat.internal_clock, K)
+            lat.run_lattice(K)
+            torch.cuda.synchronize()
+            got = ({k: lat.state[k].reshape(shape) for k in want[0]},
+                   lat.state["last_firing_time"].reshape(shape),
+                   lat.state["is_spiking"].reshape(shape))
+            e, b = compare_model(got, want)
+            err, bad = max(err, e), bad + b
+        lat.run_lattice(steps - MHELD * K)
+        torch.cuda.synchronize()
+        calls = mk.LAUNCHES
+        launches += calls
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in lat.state.values() if x.is_floating_point())
+        lft = lat.state["last_firing_time"]
+        fired = int((lft >= 0).sum())
+        late = int((lft >= steps // 2).sum())
+        v = lat.state["v"]
+        form = MODEL_OVERRIDES.get(name)
+        say(f"[34 main path] {name} {shape[0]}x{shape[1]} run_lattice("
+            f"{steps}){f' {form}' if form else ''}: route "
+            f"{lat._last_run_fused}, kernel calls {calls}, "
+            f"the first {MHELD} held against the twin: mismatches {bad}, max "
+            f"float error {err:.3g}; state finite {finite}, v range "
+            f"[{v.min().item():.3f}, {v.max().item():.3f}], fired {fired} of "
+            f"{lat.n}, fired in the second half {late}, last firing step "
+            f"{int(lft.max())}")
+        check(lat._last_run_fused == "model", f"{name}: the main path took "
+              f"{lat._last_run_fused}")
+        check(calls == -(-steps // K), f"{name}: wrong number of kernel calls")
+        check(bad == 0, f"{name}: the main path differs from the twin")
+        check(finite and fired > 0, f"{name}: bad main-path state")
+        check(late > 0, f"{name}: no neuron fired in the second half")
+        max_err = max(max_err, err)
+        del lat
+    # examples/bcm.py's network: the BCM rule has no kernel in either
+    # package; its plain route (the flat COO runner) on the card and on
+    # the CPU
+    hist = {}
+    for device in ("cuda", "cpu"):
+        net = bcm_net(snt, device)
+        net.run_lattices(BCM_STEPS)
+        post = net.lattices[1].state
+        hist[device] = (np.asarray(net.connecting_graph_history),
+                        int(post["num_spikes"][0]),
+                        int((net.spike_train_lattices[0].state["num_spikes"]
+                             ).sum()), net._last_run_fused)
+    hc, hcpu = hist["cuda"], hist["cpu"]
+    w = hc[0].reshape(len(hc[0]), -1)
+    dw = float((np.abs(w - hcpu[0].reshape(w.shape))
+                / np.maximum(np.abs(w), 1.0)).max())
+    # the steps whose change exceeds two visits' decay: the activity term
+    # of the rule acted there
+    decay = 2 * 0.1 * 0.1 * np.abs(w[:-1]) * (1 + 1e-3) + 1e-6
+    full = np.nonzero((np.abs(np.diff(w, axis=0)) > decay).any(axis=1))[0]
+    say(f"[34 main path] examples/bcm.py network (activity windows of 5 "
+        f"steps), {BCM_STEPS} steps, plain route (flat COO runner, BCM): "
+        f"route {hc[3]}, weight history {hc[0].shape}, weights "
+        f"{[f'{x:.6g}' for x in w[0]]} -> {[f'{x:.6g}' for x in w[-1]]}, "
+        f"steps where the activity term acted {len(full)} (first "
+        f"{full[0] + 1 if len(full) else None}), card vs CPU max|dw|/"
+        f"max(|w|, 1) {dw:.3g}, post spikes {hc[1]} vs {hcpu[1]}, train "
+        f"spikes {hc[2]}")
+    check(hc[3] is False and np.isfinite(hc[0]).all(), "bad BCM run")
+    check(dw <= 1e-5 and hc[1] == hcpu[1] and hc[2] == hcpu[2],
+          "the BCM network differs between the card and the CPU")
+    check(len(full) > 0 and hc[1] > 0,
+          "the BCM rule's activity term never acted")
+    return max_err, launches
+
+
+def bcm_net(snt, device):
+    """``examples/bcm.py``'s network in the port: two BCM Poisson trains
+    into one `BCMIzhikevich` neuron (c_m 50, gap 5) with BCM plasticity and
+    Gaussian weights (mean 1.5, std 0.1, clipped to [1, 2]), the
+    connecting-graph history on; the trains' chances at 1 and 0 (certain
+    draws, so that the card and the CPU agree), and every activity window
+    5 steps (0.5, as ``tests/test_torch_bcm.py`` sets it), so that the
+    windows close and the whole rule runs."""
+    rng = np.random.default_rng(0)
+    st = snt.SpikeTrainLattice(snt.BCMPoissonSpikeTrain(), id=0,
+                               device=device)
+    st.populate(2, 1)
+    st.apply(lambda s: {**s, "chance_of_firing": torch.tensor(
+        [1.0, 0.0], device=st.device), "firing_rate_window": torch.full(
+            (2,), 0.5, device=st.device)})
+    post = snt.Lattice(snt.BCMIzhikevich(), id=1, device=device)
+    post.populate(1, 1, c_m=50.0, gap_conductance=5.0,
+                  firing_rate_window=0.5)
+    post.plasticity = snt.BCM()
+    post.do_plasticity = True
+    net = snt.LatticeNetwork.generate_network([post], [st], device=device)
+    w0 = np.clip(rng.normal(1.5, 0.1, (2, 1)), 1.0, 2.0)
+    net.connect(0, 1, lambda x, y: True, lambda x, y: float(w0[x[0], 0]))
+    net.update_connecting_graph_history = True
+    return net
+
+
+def model_tie_check(snt, label, name, hk, lk, hp, lp, n):
+    """The tie rule between the kernel and the plain route: Morris-Lecar's
+    peak detection has no reset, so the routes may part where a peak falls
+    on another step, within DRIFT until then; a model with a reset parts
+    at a threshold tie (`tie_check`)."""
+    if name != "MorrisLecar":
+        fields = model_of(snt, name).FIELDS
+        reset = fields["c"] if "c" in fields else fields["v_reset"]
+        tie_check(label, hk, lk, hp, lp, n, reset, fields["v_th"])
+        return
+    d = np.abs(hk - hp)
+    dvs = d.max(axis=1)
+    tie = np.nonzero((lk != lp).any(axis=1))[0]
+    s0 = int(tie[0]) if len(tie) else len(dvs)
+    pre = float(dvs[:s0].max()) if s0 else 0.0
+    outside = int((d > 2.0).any(axis=0).sum())
+    fk, fp = int((lk[-1] >= 0).sum()), int((lp[-1] >= 0).sum())
+    say(f"{label}: max|dv| {dvs.max():.4g} mV, before the first "
+        f"firing-time difference (step {s0 if len(tie) else 'none'}) "
+        f"{pre:.4g} mV, max|dlft| {int(np.abs(lk - lp).max())} steps, "
+        f"neurons ever outside 2 mV {outside} of {n}, fired {fk} vs {fp}")
+    check(pre <= DRIFT, "the routes parted before a peak on another step")
+    check(outside <= n // 100 and abs(fk - fp) <= n // 100,
+          "the routes' divergence spread beyond 1% of the lattice")
+
+
+def model_cmp_phase(snt):
+    """35. `MCMP` for `MCMP_STEPS` steps, v and firing times read every
+    step, for `MCMP_MODELS`: the kernel route on the card against the same
+    route on the CPU (2 mV, 2 steps; bit-equal expected), and against the
+    plain route on the card, which gathers in another association and
+    takes torch's exp / tanh / cosh (the tie rule)."""
+    for name in MCMP_MODELS:
+        runs = {}
+        for key, device, uk in (("kernel", "cuda", None),
+                                ("cpu", "cpu", True),
+                                ("plain", "cuda", False)):
+            lat = model_lattice(snt, name, *MCMP, use_kernel=uk,
+                                device=device)
+            vs, lfts = [], []
+            for _ in range(MCMP_STEPS):
+                lat.run_lattice(1)
+                vs.append(lat.state["v"])
+                lfts.append(lat.state["last_firing_time"])
+            runs[key] = (torch.stack(vs).cpu().numpy(),
+                         torch.stack(lfts).cpu().numpy().astype(np.int64),
+                         lat._last_run_fused)
+        check(runs["kernel"][2] == runs["cpu"][2] == "model"
+              and runs["plain"][2] is False, f"{name}: wrong routes")
+        hk, lk, _ = runs["kernel"]
+        hc, lc, _ = runs["cpu"]
+        dv, dl = float(np.abs(hk - hc).max()), int(np.abs(lk - lc).max())
+        say(f"[35 kernel-vs-cpu] {name} {MCMP[0]}x{MCMP[1]} {MCMP_STEPS} "
+            f"steps, kernel route on the card vs on the CPU: max|dv| "
+            f"{dv:.4g} mV, max|dlft| {dl} steps, fired "
+            f"{int((lk[-1] >= 0).sum())}")
+        check(dv <= 2.0 and dl <= 2, f"{name}: card vs CPU outside 2 mV / "
+              f"2 steps")
+        hp, lp, _ = runs["plain"]
+        model_tie_check(snt, f"[35 kernel-vs-plain] {name} {MCMP[0]}x"
+                        f"{MCMP[1]} {MCMP_STEPS} steps, kernel vs plain "
+                        f"route on the card", name, hk, lk, hp, lp,
+                        MCMP[0] * MCMP[1])
+
+
+def model_times_phase(snt, mk, smi):
+    """36. For `MTIME_MODELS` at `MTIMES`: wall time per step of the
+    kernel route (median of 5 after a warm-up) and of the plain route
+    (median of 3); the kernel's device time under torch.profiler over
+    `EPROF` calls, device / wall; a kernel call's and the twin's time
+    under CUDA events and the call's bound.  Returns them by (model,
+    shape), per 16-step call."""
+    K = mk.STEPS_PER_LAUNCH
+    out = {}
+    for name in MTIME_MODELS:
+        for shape, steps, plain_steps in MTIMES:
+            kern = model_lattice(snt, name, *shape)
+            plain = model_lattice(snt, name, *shape, use_kernel=False)
+            run_synced(kern, steps)
+            run_synced(plain, plain_steps)
+            tk, tp = [], []
+            for rep in range(5):
+                tk.append(run_synced(kern, steps))
+                if rep < 3:
+                    tp.append(run_synced(plain, plain_steps))
+            check(kern._last_run_fused == "model"
+                  and plain._last_run_fused is False,
+                  "timed the wrong model routes")
+            fields, _ = mk.model_kernel_fields(kern.model)
+            g, st = kern.graph, kern.state
+            inp = dict(model=kern.model, planes={
+                k: st[k].reshape(shape) for k, _ in fields},
+                lft=st["last_firing_time"].reshape(shape), weights=g.weights,
+                in_deg=g.in_deg, offsets=g.offsets)
+            kernel = lambda: model_call(mk.model_steps, inp, 0, K)
+            n_bytes = model_bytes(mk, inp, kernel())
+            bnd = bound(n_bytes, model_ops(name, g.offsets, *shape, K))
+            kernel_ms = event_ms(kernel, 20)
+            twin_ms = event_ms(lambda: model_call(
+                mk.model_steps_reference, inp, 0, K), 3)
+            dev_us, top = profiled_us(lambda: [kernel()
+                                               for _ in range(EPROF)],
+                                      EPROF * K, launches=EPROF * K)
+            # each step moves what the call must move (nothing stays on
+            # chip between steps)
+            dev_rate = n_bytes / (dev_us * 1e-6)
+            check(n_bytes <= L2_BYTES or dev_rate <= PEAK_BYTES,
+                  f"{name} {shape}: the profiled device time moves "
+                  f"{dev_rate:.4g} B/s, more than HBM's peak")
+            mkw, mpw = float(np.median(tk)), float(np.median(tp))
+            wall_us = mkw / steps * 1e6
+            out[name, shape] = dict(kernel_ms=kernel_ms, twin_ms=twin_ms,
+                                    device_ms=dev_us * K / 1e3, bound=bnd)
+            say(f"[36 times] {name} {shape[0]}x{shape[1]}: kernel route "
+                f"(use_kernel=None) {rate(shape, mkw, steps)}, median of 5 x "
+                f"{steps} steps; device time {dev_us:.3f} us/step (profiled, "
+                f"{EPROF} calls, {EPROF * K} kernel records: "
+                + ", ".join(f"{k} {t:.3f}" for k, t in top)
+                + f"), {dev_rate / 1e12:.3f} TB/s at {n_bytes / 1e6:.2f} MB a "
+                f"step; device time / wall {dev_us / wall_us:.3f}; kernel "
+                f"calls back to back {kernel_ms * 1e3 / K:.3f} us/step "
+                f"(events); bound {bnd[0] * 1e3 / K:.4f} us/step ({bnd[1]}); "
+                f"plain twin {twin_ms * 1e3 / K:.3f} us/step (events); plain "
+                f"route (use_kernel=False) {rate(shape, mpw, plain_steps)}, "
+                f"median of 3 x {plain_steps} steps; library call: none; "
+                f"card {smi}")
+            del kern, plain, inp
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -4159,8 +4680,8 @@ def main():
           f"beside this script")
     from spiking_neural_networks_tpu_torch import _build
     from spiking_neural_networks_tpu_torch.ops import (
-        hh_kernels as hk, network_kernels as nk, reward_kernels as rk,
-        stencil_kernels as sk)
+        hh_kernels as hk, model_kernels as mk, network_kernels as nk,
+        reward_kernels as rk, stencil_kernels as sk)
 
     # 1. device
     smi = card()
@@ -4175,7 +4696,8 @@ def main():
     load_s = time.perf_counter() - t0
     check(lib.izh_stencil_max_offsets() == sk.MAX_OFFSETS
           and lib.lp_max_offsets() == rk.MAX_OFFSETS
-          and lib.hh_max_offsets() == hk.MAX_OFFSETS,
+          and lib.hh_max_offsets() == hk.MAX_OFFSETS
+          and lib.model_stencil_max_offsets() == mk.MAX_OFFSETS,
           "MAX_OFFSETS differs between a CUDA source and its wrapper")
     limits = (ctypes.c_int * 13)()
     lib.net_limits(limits)
@@ -4195,7 +4717,7 @@ def main():
     kernels = []
     for phases in (stencil_phases, plasticity_phases, network_phases,
                    hh_phases, chem_phases, flat_phases, reward_phases,
-                   env_phases):
+                   env_phases, model_phases):
         t0 = time.perf_counter()
         kernels.append(phases(snt, smi))
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -2,9 +2,11 @@
 
 A second package beside ``spiking_neural_networks_tpu`` (JAX), with the same
 module layout, public names and flat per-neuron state dict.  It holds the
-electrical lattice on a stencil graph (Izhikevich, adaptive leaky and
-leaky integrate-and-fire neurons), the Hodgkin-Huxley lattice with
-chemical synapses (Ionotropic receptors), the plain `Lattice` with STDP,
+electrical lattice on a stencil graph (the integrate-and-fire family:
+leaky, quadratic, adaptive leaky, adaptive exponential, simple leaky,
+Izhikevich, leaky and BCM Izhikevich; `DopaIzhikevich`; Morris-Lecar),
+the Hodgkin-Huxley lattice with chemical synapses (Ionotropic receptors),
+the plain `Lattice` with STDP or BCM,
 the reward-modulated (R-STDP) lattice, spike trains, the plain
 `LatticeNetwork` of lattices and trains (electrical and chemical, on
 stencil, dense and sparse graphs with one-to-one, resample and dense
@@ -18,12 +20,15 @@ on the GPU (``device="cuda"``) unless the caller asks for another device.
 It imports PyTorch and NumPy, never JAX.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from .models.integrate_and_fire import (
-    AdaptiveLeakyIntegrateAndFire, Izhikevich, LeakyIntegrateAndFire)
+    AdaptiveExpLeakyIntegrateAndFire, AdaptiveLeakyIntegrateAndFire,
+    BCMIzhikevich, Izhikevich, LeakyIntegrateAndFire, LeakyIzhikevich,
+    QuadraticIntegrateAndFire, SimpleLeakyIntegrateAndFire)
 from .models.dopa import DopaIzhikevich
 from .models.hodgkin_huxley import HodgkinHuxley
+from .models.morris_lecar import MorrisLecar
 from .models.spike_train import (
     BCMPoissonSpikeTrain, PoissonSpikeTrain, PresetSpikeTrain,
     RateSpikeTrain)
@@ -32,7 +37,7 @@ from .core.network import LatticeNetwork, SpikeTrainLattice
 from .core.reward import RewardModulatedLattice
 from .core.reward_network import RewardModulatedLatticeNetwork
 from . import errors
-from .core.plasticity import STDP, RewardModulatedSTDP
+from .core.plasticity import BCM, STDP, RewardModulatedSTDP
 from .core import history
 from .ops.graph import (DenseGraph, SparseGraph, StencilGraph,
                         radius_offsets)

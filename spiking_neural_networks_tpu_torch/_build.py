@@ -108,7 +108,7 @@ def load():
     pv, pi, pf = (ctypes.POINTER(vp), ctypes.POINTER(ci),
                   ctypes.POINTER(ctypes.c_float))
     for name in ("izh_stencil_max_offsets", "lp_max_offsets",
-                 "hh_max_offsets"):
+                 "hh_max_offsets", "model_stencil_max_offsets"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
     lib.izh_stencil_steps.argtypes = [
@@ -162,6 +162,18 @@ def load():
         vp,                                 # stream
     ]
     lib.hh_chemical_steps.restype = ci
+    lib.model_stencil_layout.argtypes = [ci, pi]   # kind, codes
+    lib.model_stencil_layout.restype = ci
+    lib.model_stencil_steps.argtypes = [
+        ci, pv, ci,                         # kind, fields, n_fields
+        pv, pv,                             # buffer sets 0 and 1
+        vp, vp, vp,                         # lft, lft buffers 0 and 1
+        vp, vp,                             # weights, in_deg
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        vp,                                 # stream
+    ]
+    lib.model_stencil_steps.restype = ci
     lib.net_limits.argtypes = [pi]
     lib.net_limits.restype = None
     lib.net_steps.argtypes = [

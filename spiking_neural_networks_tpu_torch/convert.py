@@ -102,9 +102,17 @@ def lattice_from(src, model=None, device="cuda"):
         model = _port_model(src.model)
     lat = _carry(src, Lattice(model, id=src.id, device=device))
     lat.do_plasticity = bool(src.do_plasticity)
-    lat.plasticity.params = {k: float(v)
-                             for k, v in src.plasticity.params.items()}
+    lat.plasticity = _port_rule(src.plasticity)
     return lat
+
+
+def _port_rule(rule):
+    """The port's plasticity rule (`STDP` or `BCM`) of the class and
+    parameters of a JAX rule."""
+    from .core import plasticity
+    out = getattr(plasticity, type(rule).__name__)()
+    out.params = {k: float(v) for k, v in rule.params.items()}
+    return out
 
 
 def reward_lattice_from(src, model, device="cuda"):
@@ -141,18 +149,21 @@ def spike_train_lattice_from(src, model, device="cuda"):
 def _port_model(model):
     """The port's model of the class and configuration of a JAX model: its
     kinetics and its receptor system (family and kinetics)."""
-    from .models import dopa, hodgkin_huxley, integrate_and_fire, spike_train
+    from .models import (dopa, hodgkin_huxley, integrate_and_fire,
+                         morris_lecar, spike_train)
     from .ops import receptors
     name = type(model).__name__
     if hasattr(model, "refractoriness"):
         return getattr(spike_train, name)(model.nt_kinetics,
                                           model.refractoriness)
-    module = next(m for m in (hodgkin_huxley, dopa, integrate_and_fire)
-                  if hasattr(m, name))
+    module = next(m for m in (hodgkin_huxley, dopa, integrate_and_fire,
+                              morris_lecar) if hasattr(m, name))
     rec = model.receptors
-    return getattr(module, name)(
-        model.nt_kinetics, model.rec_kinetics,
-        receptors=getattr(receptors, type(rec).__name__)(rec.kinetics))
+    kw = dict(nt_kinetics=model.nt_kinetics, rec_kinetics=model.rec_kinetics,
+              receptors=getattr(receptors, type(rec).__name__)(rec.kinetics))
+    if hasattr(model, "chemical_normalization"):
+        kw["chemical_normalization"] = bool(model.chemical_normalization)
+    return getattr(module, name)(**kw)
 
 
 def _histories(src, dst):

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``spiking_neural_networks_tpu/core/lattice.py``.  The
 cell grid is one flat dict of per-neuron tensors on ``Lattice.device``;
 ``run_lattice(n)`` is a Python loop on the host in place of ``lax.scan``,
-over one of four routes:
+over one of five routes:
 
 * the HH kernel route (`HodgkinHuxley` with chemical synapses on a stencil
   graph, with or without STDP): calls of `ops.hh_kernels.hh_steps`, each
@@ -12,6 +12,10 @@ over one of four routes:
   of `ops.stencil_kernels.izhikevich_stencil_steps`, each advancing
   K = 16 steps (one hand-written CUDA kernel on a GPU, its plain twin on
   the CPU);
+* the model kernel route (any other model of `ops.model_kernels`' table:
+  the integrate-and-fire family, `DopaIzhikevich`, `MorrisLecar`;
+  electrical, no plasticity, no history): calls of
+  `ops.model_kernels.model_steps`, K = 16 steps each;
 * the STDP kernel route (Izhikevich, ALIF or LIF with ``do_plasticity``
   and `STDP`): calls of `ops.reward_kernels.lattice_plasticity_steps` of
   kind ``plastic``, K = 16 steps each;
@@ -27,13 +31,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import hh_kernels, reward_kernels, stencil_kernels
+from ..ops import hh_kernels, model_kernels, reward_kernels, stencil_kernels
 from ..ops.graph import (SparseGraph, StencilGraph, connect_auto,
                          radius_offsets)
 from ..models.base import NEVER, get_neurotransmitter_concentrations
 from .history import (GridVoltageHistory, history_step_bytes,
                       rebuilt_readouts, resolve_history_chunk)
-from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
+from .plasticity import STDP, rule_tensors
 from ..errors import GraphError
 
 class Lattice:
@@ -43,12 +47,14 @@ class Lattice:
     ``use_kernel`` picks the route: None (auto) takes a kernel route when
     the state is on a CUDA device and its gate holds: `hh_kernels.supports`
     with no history; else, with no neurotransmitter inserted,
-    `stencil_kernels.supports` without plasticity or
+    `stencil_kernels.supports` without plasticity,
+    `model_kernels.supports_model` with no history, or
     `reward_kernels.plain_stdp_lattice_spec` with STDP and no graph
     history.  True takes it wherever that gate holds (on the CPU the
     wrapper runs the kernel's plain twin); False always runs
     `lattice_step`.  ``_last_run_fused`` says which route the last chunk
-    ran: ``"hh"``, ``("kernel", emit)``, ``("stdp", emit)`` or False.
+    ran: ``"hh"``, ``("kernel", emit)``, ``"model"``, ``("stdp", emit)``
+    or False.
     """
 
     def __init__(self, model, id=0, device="cuda"):
@@ -202,8 +208,8 @@ class Lattice:
 
     def _kernel_route(self, skip_nt):
         """The kernel route of this chunk: "hh" (the HH chemical kernel),
-        "kernel" (the stencil kernel), an STDP `reward_kernels.LatSpec`, or
-        None for the plain route."""
+        "kernel" (the stencil kernel), "model" (the model kernel), an STDP
+        `reward_kernels.LatSpec`, or None for the plain route."""
         if self.use_kernel is False:
             return None
         if hh_kernels.supports(self.model, self.graph, self.chemical_synapse,
@@ -221,6 +227,11 @@ class Lattice:
                 self.model, self.graph, self.electrical_synapse,
                 self.chemical_synapse, self.do_plasticity):
             route = "kernel"
+        elif not self._history_items() and not self.update_graph_history \
+                and model_kernels.supports_model(
+                    self.model, self.graph, self.electrical_synapse,
+                    self.chemical_synapse, self.do_plasticity):
+            route = "model"
         else:
             route = None
         if self.use_kernel is None and not self.state["v"].is_cuda:
@@ -239,6 +250,10 @@ class Lattice:
         elif route == "kernel":
             ys = self._run_kernel(length, readouts)
             self._last_run_fused = ("kernel", bool(readouts))
+        elif route == "model":
+            self._run_model(length)
+            ys = {}
+            self._last_run_fused = "model"
         elif route is not None:
             ys = self._run_stdp(length, readouts, route)
             self._last_run_fused = ("stdp", bool(readouts))
@@ -324,6 +339,29 @@ class Lattice:
         self.state = st
         return {name: torch.cat(p) for name, p in parts.items()}
 
+    def _run_model(self, length):
+        """K steps per call of the model kernel, from the flat state: its
+        fields as (rows, cols) planes, the carried ones written back."""
+        shape = (self.rows, self.cols)
+        fields, _ = model_kernels.model_kernel_fields(self.model)
+        st = self.state
+        planes = {k: st[k].reshape(shape) for k, _ in fields}
+        lft = st["last_firing_time"].reshape(shape)
+        g = self.graph
+        clock, done = self.internal_clock, 0
+        while done < length:
+            n = min(model_kernels.STEPS_PER_LAUNCH, length - done)
+            carried, lft, _ = model_kernels.model_steps(
+                self.model, planes, lft, g.weights, g.in_deg, g.offsets,
+                clock, n)
+            planes.update(carried)
+            clock += n
+            done += n
+        st = dict(st)
+        st.update((k, planes[k].reshape(-1)) for k in carried)
+        st["last_firing_time"] = lft.reshape(-1)
+        self.state = st
+
     def _run_plain(self, length, readouts, skip_nt):
         shape = (self.rows, self.cols)
         state, graph, clock = self.state, self.graph, self.internal_clock
@@ -363,8 +401,11 @@ def lattice_step(model, electrical, chemical, do_plasticity, skip_nt,
     spiked, then the plasticity update from the post-step state.
     ``pparams`` are the rule's parameters as 0-dim f32 tensors.  Returns
     ``(state, graph, clock + 1)``."""
-    if do_plasticity and type(plasticity) is not STDP:
-        raise NotImplementedError(PLASTICITY_NOT_PORTED)
+    if do_plasticity and not hasattr(plasticity, "apply"):
+        raise NotImplementedError(
+            f"a Lattice's plasticity is STDP or BCM, not "
+            f"{type(plasticity).__name__} (R-STDP runs on a "
+            f"RewardModulatedLattice)")
     if electrical:
         sub_v = torch.ones_like(state["v"])
         elec = graph.gather_electrical(

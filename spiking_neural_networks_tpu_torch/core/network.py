@@ -14,8 +14,8 @@ each connection's operator apart.  A step, as in the JAX package:
    sources over their count;
 2. phase B: every lattice advances (receptors, then the model step, then
    neurotransmitter release); firing times take the network clock;
-3. deferred STDP within and across lattices: an edge is updated once per
-   spiking endpoint whose lattice has plasticity on;
+3. deferred plasticity (STDP or BCM) within and across lattices: an edge
+   is updated once per spiking endpoint whose lattice has plasticity on;
 4. the clock increments and the member clocks sync;
 5. spike-train lattices step last, with the pre-increment clock as their
    firing time.
@@ -759,10 +759,10 @@ def flat_steps(net, plan, length, hist=(), w_history=False, rewards=None,
     3. the chemical gathers (per type, the weighted concentrations of the
        present sources over their count), then the model step, and the
        firing times;
-    4. STDP on the plastic edges, one visit per spiking endpoint in a
-       plastic lattice (a reward plan: on its plain edges, plus a visit
-       every step where one end is a modulated lattice and the other a
-       plain one);
+    4. the rule (STDP, or BCM without a reward plan) on the plastic
+       edges, one visit per spiking endpoint in a plastic lattice (a
+       reward plan: on its plain edges, plus a visit every step where one
+       end is a modulated lattice and the other a plain one);
     5. a reward plan's R-STDP: per modulated edge one visit per modulated
        endpoint and per spiking plastic endpoint, at most two, gated;
     6. the clock increments and the trains step last.
@@ -778,7 +778,8 @@ def flat_steps(net, plan, length, hist=(), w_history=False, rewards=None,
     plasticity = net._plasticity()
     do_plasticity = any(l.do_plasticity for l in net.lattices.values()) \
         or plan.get("stdp_cross_any", False)
-    if do_plasticity and type(plasticity) is not STDP:
+    rule = type(plasticity)
+    if reward and do_plasticity and rule is not STDP:
         raise NotImplementedError(PLASTICITY_NOT_PORTED)
     dev = plan["w"].device
     p = rule_tensors(plasticity.params, dev)
@@ -857,21 +858,19 @@ def flat_steps(net, plan, length, hist=(), w_history=False, rewards=None,
         trig = torch.cat([spikes.to(torch.float32) * node_plastic, pad])
         lft = node_vals("last_firing_time", spikes)
         if do_plasticity:
-            spk = node_vals("is_spiking", spikes)
+            vals = {key: node_vals(key, spikes) for key in rule.NODE_KEYS}
             if dense:
-                pre = {"last_firing_time": lft[:, None],
-                       "is_spiking": spk[:, None]}
-                post = {"last_firing_time": lft[None, :n_neurons],
-                        "is_spiking": spk[None, :n_neurons]}
+                pre = {key: x[:, None] for key, x in vals.items()}
+                post = {key: x[None, :n_neurons] for key, x in vals.items()}
                 count = trig[:, None] + trig[None, :n_neurons]
             else:
-                pre = {"last_firing_time": lft[src], "is_spiking": spk[src]}
-                post = {"last_firing_time": lft[dst], "is_spiking": spk[dst]}
+                pre = {key: x[src] for key, x in vals.items()}
+                post = {key: x[dst] for key, x in vals.items()}
                 count = trig[src] + trig[dst]
             if reward:
                 mod, plain = plan["node_mod"], plan["node_plain"]
                 count = count + mod[src] * plain[dst] + mod[dst] * plain[src]
-            w = torch.where(gate, STDP.apply_visits(w, pre, post, p, count),
+            w = torch.where(gate, rule.apply_visits(w, pre, post, p, count),
                             w)
         if reward:
             mod = plan["node_mod"]

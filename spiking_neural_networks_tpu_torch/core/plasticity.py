@@ -1,15 +1,19 @@
 """Plasticity rules as vectorized edge updates.
 
 PyTorch counterpart of ``spiking_neural_networks_tpu/core/plasticity.py``:
-`STDP` and `RewardModulatedSTDP`.  An edge is updated once per spiking
-endpoint, from the post-step firing times of both endpoints:
+`STDP`, `BCM` and `RewardModulatedSTDP`.  An edge is updated once per
+spiking endpoint, from the post-step state of both endpoints:
 
     dw_edge(i, j) = rule(i, j) * (spiking_i + spiking_j)
 
-Rule parameters are plain dicts; the runners hand the updates 0-dim f32
-tensors (`rule_tensors`), so each operation rounds as the JAX package's f32
-scalars do, with R-STDP's two decays hoisted out of the step.  `BCM` is
-not ported yet (ROADMAP queue 1, item 7).
+(BCM's two visits are serial: its delta reads the weight).  A runner
+reads the rule's ``NODE_KEYS`` at both endpoints and applies
+``apply_visits``.  Rule parameters are plain dicts; the runners hand the
+updates 0-dim f32 tensors (`rule_tensors`), so each operation rounds as
+the JAX package's f32 scalars do, with R-STDP's two decays hoisted out of
+the step.  The float-op transcendental functions of the CUDA kernels
+(`kernel_exp`, `kernel_log`, `kernel_pow`, `kernel_tanh`, `kernel_cosh`)
+live here too.
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch
 from ..models.base import NEVER
 
 PLASTICITY_NOT_PORTED = (
-    "only STDP plasticity is ported to the PyTorch package so far; BCM and "
-    "the other rules wait (ROADMAP queue 1, item 7)")
+    "the reward-network runners of the PyTorch package take STDP only; "
+    "BCM on a reward network's plain lattices is not ported yet")
 
 
 @functools.lru_cache(maxsize=64)
@@ -136,6 +140,26 @@ def kernel_pow(x, y):
     return torch.where(y == 1.0, x, p)
 
 
+def kernel_tanh(x):
+    """tanh of a float32 tensor as ``sign(x) (1 - 2 / (kernel_exp(2|x|) +
+    1))``, by the float32 operations of ``kernel_tanh`` in
+    ``csrc/model_stencil.cu``: the same bits on every device, within 2e-7
+    of tanh.  ``2 / y`` is ``reciprocal(y) * 2``, which rounds as the
+    division does (the scaling by 2 is exact)."""
+    e = kernel_exp(2.0 * torch.abs(x))
+    t = 1.0 - 2.0 / (e + 1.0)
+    return torch.where(x < 0.0, -t, t)
+
+
+def kernel_cosh(x):
+    """cosh of a float32 tensor as ``(e + 1 / e) / 2`` with ``e =
+    kernel_exp(|x|)``, by the float32 operations of ``kernel_cosh`` in
+    ``csrc/model_stencil.cu``: the same bits on every device, within 4
+    ulps of cosh where it is finite."""
+    e = kernel_exp(torch.abs(x))
+    return 0.5 * (e + 1.0 / e)
+
+
 def stdp_delta(t_pre, t_post, p, exp=torch.exp):
     """The STDP delta of one visit from int32 last firing times, 0 unless
     both endpoints have fired.  One exp of the selected argument, as the
@@ -200,6 +224,55 @@ class STDP:
 
     def apply(self, graph, state, params):
         vals = {k: state[k] for k in ("last_firing_time", "is_spiking")}
+        return graph.apply_edge_update(
+            lambda w, pre, post: self.edge_dw(w, pre, post, params),
+            vals, vals)
+
+
+class BCM:
+    """Bienenstock-Cooper-Munro rule.
+
+    dw = (act_post (act_post - avg_post / average_scalar) act_pre
+          - decay w) * dt
+
+    from the endpoints' ``current_activity`` and ``average_activity``
+    (the BCM neurons' and trains' bookkeeping), once per spiking endpoint.
+    """
+
+    name = "bcm"
+    NODE_KEYS = ("current_activity", "average_activity", "is_spiking")
+
+    def __init__(self, decay=0.1, average_scalar=0.1, dt=0.1):
+        self.params = dict(decay=decay, average_scalar=average_scalar, dt=dt)
+
+    def set_dt(self, dt):
+        self.params["dt"] = dt
+
+    @staticmethod
+    def edge_delta(w, pre, post, p):
+        """The delta of one visit, which reads the weight."""
+        threshold = post["average_activity"] / p["average_scalar"]
+        act = post["current_activity"]
+        term = act * (act - threshold) * pre["current_activity"]
+        return (term - p["decay"] * w) * p["dt"]
+
+    @staticmethod
+    def apply_visits(w, pre, post, p, count):
+        """``count`` serial visits: the second visit (both endpoints
+        spiking) decays the once-updated weight, so two visits are ``d1 +
+        d2(w + d1)``, not ``2 d1``."""
+        d1 = BCM.edge_delta(w, pre, post, p)
+        d2 = BCM.edge_delta(w + d1, pre, post, p)
+        return w + torch.where(count >= 2.0, d1 + d2, d1 * count)
+
+    @staticmethod
+    def edge_dw(w, pre, post, p):
+        count = pre["is_spiking"].to(torch.float32) \
+            + post["is_spiking"].to(torch.float32)
+        return BCM.apply_visits(w, pre, post, p, count) - w
+
+    def apply(self, graph, state, params):
+        vals = {k: state[k] for k in self.NODE_KEYS}
         return graph.apply_edge_update(
             lambda w, pre, post: self.edge_dw(w, pre, post, params),
             vals, vals)

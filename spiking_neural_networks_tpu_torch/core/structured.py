@@ -14,8 +14,8 @@ A network step is a sum of structured operators:
 
 Semantics as in the JAX package: the two-phase step, in-degree averaging
 across every incoming component (per neurotransmitter type for chemical
-synapses), deferred STDP with per-spiking-plastic-endpoint counts, clock
-sync, spike trains last.  `run_structured` runs either the network kernel
+synapses), deferred plasticity (the rule's ``apply_visits``, STDP or BCM)
+with per-spiking-plastic-endpoint counts, clock sync, spike trains last.  `run_structured` runs either the network kernel
 route (`ops.network_kernels`, K = 16 steps per call) or `_plain_steps`,
 the plain PyTorch step loop in the XLA path's association.
 """
@@ -28,7 +28,7 @@ import torch
 from ..models.base import get_neurotransmitter_concentrations
 from ..models.spike_train import refractoriness_effect
 from ..ops.graph import DenseGraph, SparseGraph, exact_matmul
-from .plasticity import PLASTICITY_NOT_PORTED, STDP, rule_tensors
+from .plasticity import rule_tensors
 
 
 # ---------------------------------------------------------------------------
@@ -591,8 +591,7 @@ def _plain_steps(net, plan, length, skip_nt, hist, st_hist, ghist):
     st_model = sts[0].model if sts else None
     do_plast = [bool(l.do_plasticity) for l in lattices]
     plasticity = net._plasticity()
-    if any(do_plast) and type(plasticity) is not STDP:
-        raise NotImplementedError(PLASTICITY_NOT_PORTED)
+    rule = type(plasticity)
     pparams = rule_tensors(plasticity.params, lattices[0].device)
     meta = [(c["pre"], c["post"], c["op"].kind, c["pre_is_st"])
             for c in conns]
@@ -602,7 +601,7 @@ def _plain_steps(net, plan, length, skip_nt, hist, st_hist, ghist):
     graphs = [l.graph for l in lattices]
     conn_ws = [c["op"].w0 for c in conns]
     generator = net.generator()
-    keys = STDP.NODE_KEYS
+    keys = rule.NODE_KEYS
     parts = {("lat", i): [] for i, _ in hist}
     parts.update({("st", i): [] for i, _ in st_hist})
     parts.update({("gw", i): [] for i in ghist})
@@ -622,7 +621,7 @@ def _plain_steps(net, plan, length, skip_nt, hist, st_hist, ghist):
                     continue
                 vals = {key: states[k][key] for key in keys}
                 graphs[k] = graphs[k].apply_edge_update(
-                    lambda w, pre, post: STDP.apply_visits(
+                    lambda w, pre, post: rule.apply_visits(
                         w, pre, post, pparams,
                         pre["is_spiking"].to(torch.float32)
                         + post["is_spiking"].to(torch.float32)) - w,
@@ -635,7 +634,10 @@ def _plain_steps(net, plan, length, skip_nt, hist, st_hist, ghist):
                     continue
                 src_state = st_states[st_index[pre_id]] if pre_is_st \
                     else states[lat_index[pre_id]]
-                pre_vals = {key: src_state[key] for key in keys}
+                # a train may lack a rule's node field (BCM's activities
+                # on a Poisson train): zeros, as the flat runner pads
+                zero = torch.zeros_like(src_state["v"])
+                pre_vals = {key: src_state.get(key, zero) for key in keys}
                 post_vals = {key: states[post_k][key] for key in keys}
 
                 def gated_delta(w, pre, post, pre_plastic=pre_plastic,
@@ -644,7 +646,7 @@ def _plain_steps(net, plan, length, skip_nt, hist, st_hist, ghist):
                              * (1.0 if pre_plastic else 0.0)
                              + post["is_spiking"].to(torch.float32)
                              * (1.0 if post_plastic else 0.0))
-                    return STDP.apply_visits(w, pre, post, pparams,
+                    return rule.apply_visits(w, pre, post, pparams,
                                              count) - w
 
                 conn_ws[ci] = _conn_edge_update(kind, aux[ci], conn_ws[ci],

@@ -1,0 +1,498 @@
+// K steps of an elementwise neuron model on a stencil-coupled (rows, cols)
+// lattice, one device functor per model.
+//
+// Replaces the TPU kernel fused_model_multistep of
+// spiking_neural_networks_tpu/ops/pallas_stencil.py, which traces a model's
+// step(s, i, skip_nt=True) into a K-step kernel body.  Here each model of
+// the table of ops/model_kernels.py has a functor that repeats its PyTorch
+// step operation for operation (the models' own associations, which differ
+// between models on purpose), with exp, tanh and cosh as kernel_exp,
+// kernel_tanh and kernel_cosh (correctly rounded float operations only).
+// Built with -fmad=false, the kernel then rounds exactly as its plain twin
+// (ops/model_kernels.model_steps_reference, which runs the model's step on
+// (rows, cols) planes with the same three functions).
+//
+// Per step and cell, in the fused association of the TPU kernel:
+//   wsum = sum_o w_o                       (offset order, from 0)
+//   acc  = sum_o w_o * v[r+dr_o, c+dc_o]   (offset order, from 0)
+//   i    = gap * (acc - v * wsum) / max(in_deg, 1)
+//   the model's step from its fields and i, then lft = clock0 + k where
+//   it spiked.
+// Off-grid neighbours are skipped by a bounds check, never read.
+//
+// The fields travel as a by-value struct of plane pointers in the order
+// of ops/model_kernels.model_kernel_fields: float fields (f32), then bool
+// fields (uint8 0/1), then int fields (int32), then is_spiking (uint8).
+// A step reads the fields its layout marks READ and writes only the
+// carried ones (those the step changes, is_spiking always) and lft, into
+// one of two buffer sets.
+//
+// Design: one thread per cell, 2-D blocks of 32 x 8, one launch per step;
+// model_stencil_steps loops the K launches on the caller's stream and
+// swaps the two buffer sets.  What bounds it on an H100 is memory
+// traffic: each step reads the field planes its model reads, the n_off
+// weight planes, in_deg and lft, and writes the carried planes and lft.
+// Morris-Lecar on a radius-2 stencil reads 17 float planes, a bool plane,
+// 12 weight planes, in_deg and lft, and writes 8 float planes, 2 bool
+// planes and lft: 163 bytes a cell, 43 MB a step at 512 x 512, near the
+// 50 MB L2.  Later work: temporal blocking (K steps on a tile plus a
+// K * pad halo in shared memory, the TPU kernel's scheme, with only the
+// carried planes in the loop), so that the parameter and weight planes are
+// read once per call as the TPU kernel reads them.
+
+#include <cuda_runtime.h>
+
+#include "plasticity_common.cuh"   // kernel_exp
+
+#define MS_MAX_OFFSETS 64
+#define MS_MAX_FIELDS 32
+
+// ops/model_kernels.py KINDS, in order
+enum {
+    MS_LIF = 0, MS_QIF, MS_ALIF, MS_ADEX, MS_DOPA,
+    MS_LEAKY_IZH, MS_BCM, MS_BCM_CHEM, MS_SIMPLE_LIF, MS_MORRIS_LECAR,
+    MS_KINDS
+};
+// field codes of model_stencil_layout: the type, + CARRIED where the step
+// writes the field, + READ where it reads it
+enum {
+    F32 = 0, BOOL = 1, I32 = 2, CARRIED = 4, READ = 8,
+    IN = F32 | READ,              // a float plane the step only reads
+    ST = F32 | READ | CARRIED,    // a float plane it reads and writes
+    OUT = F32 | CARRIED,          // a float plane it only writes
+    SPK = BOOL | CARRIED,         // is_spiking, written and not read
+};
+
+struct MsStencil {
+    int n;
+    int dr[MS_MAX_OFFSETS];
+    int dc[MS_MAX_OFFSETS];
+};
+
+struct Planes {
+    const void* p[MS_MAX_FIELDS];
+};
+
+struct Outs {
+    void* p[MS_MAX_FIELDS];
+};
+
+// tanh(x) = sign(x) (1 - 2 / (exp(2|x|) + 1)): within 2e-7 of tanh; the
+// same bits as its twin core.plasticity.kernel_tanh on any device.
+__device__ __forceinline__ float kernel_tanh(float x)
+{
+    const float e = kernel_exp(2.0f * fabsf(x));
+    const float t = 1.0f - 2.0f / (e + 1.0f);
+    return x < 0.0f ? -t : t;
+}
+
+// cosh(x) = (exp(|x|) + 1 / exp(|x|)) / 2: within 4 ulps of cosh; the
+// same bits as its twin core.plasticity.kernel_cosh on any device.
+__device__ __forceinline__ float kernel_cosh(float x)
+{
+    const float e = kernel_exp(fabsf(x));
+    return 0.5f * (e + 1.0f / e);
+}
+
+// A field's value at cell i, and a carried field's store.
+struct Cell {
+    const Planes& in;
+    const Outs& out;
+    size_t i;
+    __device__ float f(int k) const { return ((const float*)in.p[k])[i]; }
+    __device__ bool b(int k) const
+    {
+        return ((const unsigned char*)in.p[k])[i] != 0;
+    }
+    __device__ int n(int k) const { return ((const int*)in.p[k])[i]; }
+    __device__ void set(int k, float x) const { ((float*)out.p[k])[i] = x; }
+    __device__ void set_b(int k, bool x) const
+    {
+        ((unsigned char*)out.p[k])[i] = x ? 1 : 0;
+    }
+    __device__ void set_n(int k, int x) const { ((int*)out.p[k])[i] = x; }
+};
+
+// ---------------------------------------------------------------------------
+// Field layouts (indices in model_kernel_fields order) and functors.  Each
+// functor's step(c, i_syn) writes the carried fields but is_spiking and
+// returns the spike; `codes` is its layout for model_stencil_layout.
+// ---------------------------------------------------------------------------
+
+// The refractory handler of LIF, QIF, ALIF and AdEx (base.py
+// _handle_refractory_reset / _handle_adaptive): v1 is the integrated v.
+template <class L>
+__device__ __forceinline__ bool refractory_reset(const Cell& c, float v1)
+{
+    const float rc = c.f(L::refractory_count);
+    const bool in_ref = rc > 0.0f;
+    const bool spike = !in_ref && v1 >= c.f(L::v_th);
+    c.set(L::v, (in_ref || spike) ? c.f(L::v_reset) : v1);
+    c.set(L::refractory_count,
+          in_ref ? rc - 1.0f
+                 : (spike ? c.f(L::tref) / c.f(L::dt) : rc));
+    return spike;
+}
+
+struct Lif {
+    enum { v, v_th, v_reset, v_init, refractory_count, tref, leak, integ,
+           gap, e_l, g_l, tau_m, c_m, dt, is_spiking, n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, IN, F32, ST, IN, IN, IN, IN, IN, IN, IN, F32, IN, SPK};
+    __device__ static bool step(const Cell& c, float i_syn)
+    {
+        const float v0 = c.f(v);
+        const float dv = ((c.f(leak) * (v0 - c.f(e_l)))
+                          + (c.f(integ) * (i_syn / c.f(g_l))))
+            * (c.f(dt) / c.f(tau_m));
+        return refractory_reset<Lif>(c, v0 + dv);
+    }
+};
+
+struct Qif {
+    enum { v, v_th, v_reset, v_init, refractory_count, tref, alpha, v_c,
+           integ, gap, tau_m, c_m, dt, is_spiking, n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, IN, F32, ST, IN, IN, IN, IN, IN, IN, F32, IN, SPK};
+    __device__ static bool step(const Cell& c, float i_syn)
+    {
+        const float v0 = c.f(v);
+        const float dv = ((c.f(alpha) * (v0 - c.f(v_reset))
+                           * (v0 - c.f(v_c)))
+                          + c.f(integ) * i_syn)
+            * (c.f(dt) / c.f(tau_m));
+        return refractory_reset<Qif>(c, v0 + dv);
+    }
+};
+
+// ALIF and AdEx: w integrates, and w += beta on a spike.
+template <class L, bool EXP>
+__device__ __forceinline__ bool adaptive_step(const Cell& c, float i_syn)
+{
+    const float v = c.f(L::v);
+    const float w = c.f(L::w);
+    const float leak = c.f(L::leak) * (v - c.f(L::e_l));
+    float sum = leak;
+    if constexpr (EXP) {
+        const float sf = c.f(L::slope_factor);
+        sum = sum + (sf * kernel_exp((v - c.f(L::v_th)) / sf));
+    }
+    sum = sum + (c.f(L::integ) * (i_syn / c.f(L::g_l)));
+    const float dv = (sum - (w / c.f(L::g_l))) * (c.f(L::dt) / c.f(L::c_m));
+    const float dw = (c.f(L::alpha) * (v - c.f(L::e_l)) - w)
+        * (c.f(L::dt) / c.f(L::tau_m));
+    const float w1 = w + dw;
+    const bool spike = refractory_reset<L>(c, v + dv);
+    c.set(L::w, spike ? w1 + c.f(L::beta) : w1);
+    return spike;
+}
+
+struct Alif {
+    enum { v, v_th, v_reset, v_init, refractory_count, tref, alpha, beta, w,
+           w_init, leak, integ, gap, e_l, g_l, tau_m, c_m, dt, is_spiking,
+           n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, IN, F32, ST, IN, IN, IN, ST, F32, IN, IN, IN, IN, IN, IN,
+        IN, IN, SPK};
+    __device__ static bool step(const Cell& c, float i_syn)
+    {
+        return adaptive_step<Alif, false>(c, i_syn);
+    }
+};
+
+struct AdEx {
+    enum { v, v_th, v_reset, v_init, refractory_count, tref, alpha, beta,
+           slope_factor, w, w_init, leak, integ, gap, e_l, g_l, tau_m, c_m,
+           dt, is_spiking, n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, IN, F32, ST, IN, IN, IN, IN, ST, F32, IN, IN, IN, IN, IN,
+        IN, IN, IN, SPK};
+    __device__ static bool step(const Cell& c, float i_syn)
+    {
+        return adaptive_step<AdEx, true>(c, i_syn);
+    }
+};
+
+// The Izhikevich-shaped step (DopaIzhikevich, BCMIzhikevich;
+// with LEAKY, LeakyIzhikevich's w (v - e_l) term), then v -> c, w += d on
+// a spike.
+template <class L, bool LEAKY>
+__device__ __forceinline__ bool izhikevich_step(const Cell& c, float i_syn)
+{
+    const float v = c.f(L::v);
+    const float w = c.f(L::w);
+    float q = 0.04f * v * v + 5.0f * v + 140.0f;
+    if constexpr (LEAKY)
+        q = q - w * (v - c.f(L::e_l));
+    else
+        q = q - w;
+    const float dv = (q + i_syn) * (c.f(L::dt) / c.f(L::c_m));
+    const float dw = (c.f(L::a) * (c.f(L::b) * v - w))
+        * (c.f(L::dt) / c.f(L::tau_m));
+    const float v1 = v + dv;
+    const float w1 = w + dw;
+    const bool spike = v1 >= c.f(L::v_th);
+    c.set(L::v, spike ? c.f(L::c) : v1);
+    c.set(L::w, spike ? w1 + c.f(L::d) : w1);
+    return spike;
+}
+
+struct Dopa {
+    enum { v, w, a, b, c, d, v_th, tau_m, c_m, gap, dt, is_spiking,
+           n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, ST, IN, IN, IN, IN, IN, IN, IN, IN, IN, SPK};
+    __device__ static bool step(const Cell& cl, float i_syn)
+    {
+        return izhikevich_step<Dopa, false>(cl, i_syn);
+    }
+};
+
+struct LeakyIzh {
+    enum { v, v_th, v_init, a, b, c, d, w, w_init, e_l, gap, tau_m, c_m, dt,
+           is_spiking, n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, F32, IN, IN, IN, IN, ST, F32, IN, IN, IN, IN, IN, SPK};
+    __device__ static bool step(const Cell& cl, float i_syn)
+    {
+        return izhikevich_step<LeakyIzh, true>(cl, i_syn);
+    }
+};
+
+// BCMIzhikevich: the firing-rate bookkeeping (pre_update, from the
+// previous step's spike flag), then the Izhikevich step.  CHEM: the
+// activity over the window (chemical_normalization), else over
+// window * dt.
+template <bool CHEM>
+struct Bcm {
+    enum { v, v_th, v_init, a, b, c, d, w, w_init, gap, tau_m, c_m, dt,
+           average_activity, current_activity, firing_rate_clock,
+           firing_rate_window, period, num_spikes, is_spiking, n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, F32, IN, IN, IN, IN, ST, F32, IN, IN, IN, IN, ST, ST, ST,
+        IN, IN, I32 | READ | CARRIED, BOOL | READ | CARRIED};
+    __device__ static bool step(const Cell& cl, float i_syn)
+    {
+        const int ns = cl.n(num_spikes) + (cl.b(is_spiking) ? 1 : 0);
+        const float window = cl.f(firing_rate_window);
+        const float clock = cl.f(firing_rate_clock) + cl.f(dt);
+        const bool hit = clock >= window;
+        const float denom = CHEM ? window : window * cl.f(dt);
+        const float activity = (float)ns / denom;
+        const float avg = cl.f(average_activity);
+        const float per = cl.f(period);
+        cl.set_n(num_spikes, ns);
+        cl.set(firing_rate_clock, hit ? 0.0f : clock);
+        cl.set(current_activity, hit ? activity : cl.f(current_activity));
+        cl.set(average_activity,
+               hit ? avg - avg / per + activity / per : avg);
+        return izhikevich_step<Bcm, false>(cl, i_syn);
+    }
+};
+
+struct SimpleLif {
+    enum { v, g, e, v_th, v_reset, v_init, gap, c_m, dt, is_spiking,
+           n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, IN, IN, IN, IN, F32, IN, F32, IN, SPK};
+    __device__ static bool step(const Cell& c, float i_syn)
+    {
+        const float v0 = c.f(v);
+        const float v1 = v0 + (c.f(g) * (v0 - c.f(e)) + i_syn) * c.f(dt);
+        const bool spike = v1 >= c.f(v_th);
+        c.set(v, spike ? c.f(v_reset) : v1);
+        return spike;
+    }
+};
+
+// MorrisLecar (morris_lecar.py): the channels from the old v, then
+// v += (i - i_leak - i_ca - i_k) * (dt / c_m), then peak detection.
+struct MorrisLecar {
+    enum { v, v_init, v_th, gap, c_m, dt, ca_g, ca_v, ca_m_ss, ca_v_1,
+           ca_v_2, ca_current, kss_g, kss_v, kss_n, kss_n_ss, kss_t_n,
+           kss_phi, kss_v_3, kss_v_4, kss_current, leak_g, leak_v,
+           leak_current, was_increasing, is_spiking, n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, F32, IN, IN, IN, IN, IN, IN, OUT, IN, IN, OUT, IN, IN, ST,
+        OUT, OUT, IN, IN, IN, OUT, IN, IN, OUT, BOOL | READ | CARRIED, SPK};
+    __device__ static bool step(const Cell& c, float i_syn)
+    {
+        const float v0 = c.f(v);
+        const float dt_ = c.f(dt);
+        const float m_ss = 0.5f
+            * (1.0f + kernel_tanh((v0 - c.f(ca_v_1)) / c.f(ca_v_2)));
+        const float i_ca = c.f(ca_g) * m_ss * (v0 - c.f(ca_v));
+        const float v3 = c.f(kss_v_3);
+        const float v4 = c.f(kss_v_4);
+        const float n_ss = 0.5f * (1.0f + kernel_tanh((v0 - v3) / v4));
+        const float t_n = 1.0f
+            / (c.f(kss_phi) * kernel_cosh((v0 - v3) / (2.0f * v4)));
+        const float n0 = c.f(kss_n);
+        const float n = n0 + ((n_ss - n0) / t_n) * dt_;
+        const float i_k = c.f(kss_g) * n * (v0 - c.f(kss_v));
+        const float i_leak = c.f(leak_g) * (v0 - c.f(leak_v));
+        const float dv = (i_syn - i_leak - i_ca - i_k) * (dt_ / c.f(c_m));
+        const float v1 = v0 + dv;
+        const bool increasing = v0 < v1;
+        const bool spike = v1 > c.f(v_th) && c.b(was_increasing)
+            && !increasing;
+        c.set(v, v1);
+        c.set(ca_m_ss, m_ss);
+        c.set(ca_current, i_ca);
+        c.set(kss_n, n);
+        c.set(kss_n_ss, n_ss);
+        c.set(kss_t_n, t_n);
+        c.set(kss_current, i_k);
+        c.set(leak_current, i_leak);
+        c.set_b(was_increasing, increasing);
+        return spike;
+    }
+};
+
+// ---------------------------------------------------------------------------
+// The step kernel
+// ---------------------------------------------------------------------------
+
+template <class M>
+__global__ void model_stencil_kernel(
+    Planes in, Outs out, const int* __restrict__ lft_in,
+    int* __restrict__ lft_out, const float* __restrict__ weights, const float* __restrict__ in_deg,
+    MsStencil st, int rows, int cols, int clock)
+{
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= rows || col >= cols) return;
+    const size_t n = (size_t)rows * cols;
+    const size_t i = (size_t)row * cols + col;
+    const float* vp = (const float*)in.p[M::v];
+
+    const float v = vp[i];
+    float acc = 0.0f;
+    float wsum = 0.0f;
+    for (int o = 0; o < st.n; ++o) {
+        const float wo = weights[(size_t)o * n + i];
+        wsum = wsum + wo;
+        const int sr = row + st.dr[o];
+        const int sc = col + st.dc[o];
+        if (sr >= 0 && sr < rows && sc >= 0 && sc < cols)
+            acc = acc + wo * vp[(size_t)sr * cols + sc];
+    }
+    const Cell c{in, out, i};
+    const float cnt = fmaxf(in_deg[i], 1.0f);
+    const float i_syn = c.f(M::gap) * (acc - v * wsum) / cnt;
+    const bool spike = M::step(c, i_syn);
+    c.set_b(M::is_spiking, spike);
+    lft_out[i] = spike ? clock : lft_in[i];
+}
+
+template <class M>
+static cudaError_t run_steps(
+    const void* const* fields, void* const* buf0, void* const* buf1,
+    const int* lft, int* lft0, int* lft1, const float* weights,
+    const float* in_deg, const MsStencil& st,
+    int rows, int cols, int clock0, int n_steps, cudaStream_t s)
+{
+    Planes in;
+    Outs out[2];
+    for (int f = 0; f < MS_MAX_FIELDS; ++f) {
+        in.p[f] = f < M::n_fields ? fields[f] : nullptr;
+        out[0].p[f] = f < M::n_fields ? buf0[f] : nullptr;
+        out[1].p[f] = f < M::n_fields ? buf1[f] : nullptr;
+    }
+    int* lft_buf[2] = {lft0, lft1};
+    const dim3 block(32, 8);
+    const dim3 grid((cols + block.x - 1) / block.x,
+                    (rows + block.y - 1) / block.y);
+    const int* lft_src = lft;
+    for (int k = 0; k < n_steps; ++k) {
+        const int b = k & 1;
+        model_stencil_kernel<M><<<grid, block, 0, s>>>(
+            in, out[b], lft_src, lft_buf[b], weights, in_deg, st, rows, cols,
+            clock0 + k);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        // the carried fields of step k + 1 are step k's outputs
+        for (int f = 0; f < M::n_fields; ++f)
+            if (M::codes[f] & CARRIED) in.p[f] = out[b].p[f];
+        lft_src = lft_buf[b];
+    }
+    return cudaSuccess;
+}
+
+// The layout of `kind`: its field count, and codes[f] (type + CARRIED)
+// for each field when `codes` is not null; -1 for an unknown kind.
+template <class M>
+static int layout(int* codes)
+{
+    if (codes)
+        for (int f = 0; f < M::n_fields; ++f) codes[f] = M::codes[f];
+    return M::n_fields;
+}
+
+extern "C" {
+
+int model_stencil_max_offsets() { return MS_MAX_OFFSETS; }
+
+int model_stencil_layout(int kind, int* codes)
+{
+    switch (kind) {
+    case MS_LIF: return layout<Lif>(codes);
+    case MS_QIF: return layout<Qif>(codes);
+    case MS_ALIF: return layout<Alif>(codes);
+    case MS_ADEX: return layout<AdEx>(codes);
+    case MS_DOPA: return layout<Dopa>(codes);
+    case MS_LEAKY_IZH: return layout<LeakyIzh>(codes);
+    case MS_BCM: return layout<Bcm<false>>(codes);
+    case MS_BCM_CHEM: return layout<Bcm<true>>(codes);
+    case MS_SIMPLE_LIF: return layout<SimpleLif>(codes);
+    case MS_MORRIS_LECAR: return layout<MorrisLecar>(codes);
+    default: return -1;
+    }
+}
+
+// Runs n_steps steps of model `kind` from the planes `fields` (its
+// layout's n_fields pointers) and `lft` on `stream`.  Step k writes the
+// carried fields into buffer set k % 2 (buf0 / buf1: a pointer per field,
+// null for a field that is not carried) and lft into lft0 / lft1, so the
+// result is in set (n_steps - 1) % 2, the last step's spikes in its
+// is_spiking plane; the inputs are only read.  Returns the first CUDA
+// error, 0 if none.
+int model_stencil_steps(
+    int kind, const void* const* fields, int n_fields, void* const* buf0,
+    void* const* buf1, const int* lft, int* lft0, int* lft1,
+    const float* weights, const float* in_deg,
+    const int* dr, const int* dc, int n_off, int rows, int cols, int clock0,
+    int n_steps, void* stream)
+{
+    if (n_off < 0 || n_off > MS_MAX_OFFSETS || rows <= 0 || cols <= 0
+        || n_steps <= 0 || n_fields != model_stencil_layout(kind, nullptr))
+        return (int)cudaErrorInvalidValue;
+    MsStencil st;
+    st.n = n_off;
+    for (int o = 0; o < n_off; ++o) {
+        st.dr[o] = dr[o];
+        st.dc[o] = dc[o];
+    }
+    cudaStream_t s = (cudaStream_t)stream;
+#define MS_RUN(M) run_steps<M>(fields, buf0, buf1, lft, lft0, lft1,       \
+                               weights, in_deg, st, rows, cols, clock0,    \
+                               n_steps, s)
+    cudaError_t err;
+    switch (kind) {
+    case MS_LIF: err = MS_RUN(Lif); break;
+    case MS_QIF: err = MS_RUN(Qif); break;
+    case MS_ALIF: err = MS_RUN(Alif); break;
+    case MS_ADEX: err = MS_RUN(AdEx); break;
+    case MS_DOPA: err = MS_RUN(Dopa); break;
+    case MS_LEAKY_IZH: err = MS_RUN(LeakyIzh); break;
+    case MS_BCM: err = MS_RUN(Bcm<false>); break;
+    case MS_BCM_CHEM: err = MS_RUN(Bcm<true>); break;
+    case MS_SIMPLE_LIF: err = MS_RUN(SimpleLif); break;
+    case MS_MORRIS_LECAR: err = MS_RUN(MorrisLecar); break;
+    default: err = cudaErrorInvalidValue;
+    }
+#undef MS_RUN
+    return (int)err;
+}
+
+}  // extern "C"

@@ -1,1 +1,1 @@
-"""PyTorch counterpart of spiking_neural_networks_tpu.models."""
+"""PyTorch counterpart of ``spiking_neural_networks_tpu/models/``."""

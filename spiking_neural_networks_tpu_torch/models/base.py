@@ -9,10 +9,14 @@ with ``NEVER = -1``, ``is_spiking`` and the masks are bool.
 
 ``step(state, i[, t_input, t_valid])`` is a plain function of tensors
 returning ``(state, spikes)``; it allocates new tensors and never writes
-into the state it was given.
+into the state it was given.  Its transcendental functions come from
+``fns`` (`TORCH_FNS` by default): the kernel twins pass the float-op forms
+that the CUDA kernels compute (`ops.model_kernels.KERNEL_FNS`).
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +26,16 @@ from ..ops import receptors as R
 
 # Sentinel for "has not fired yet".
 NEVER = -1
+
+
+class Fns(NamedTuple):
+    """The transcendental functions a model step takes."""
+    exp: Callable
+    tanh: Callable
+    cosh: Callable
+
+
+TORCH_FNS = Fns(torch.exp, torch.tanh, torch.cosh)
 
 
 class NeuronModel:
@@ -37,6 +51,11 @@ class NeuronModel:
     FIELDS: dict = {}
     BOOL_FIELDS: dict = {}
     INT_FIELDS: dict = {}
+    # ``step(s, i, skip_nt=True)`` is elementwise over the neurons, so it
+    # runs on (rows, cols) planes as well as on (N,) vectors
+    # (`ops.model_kernels`).  A subclass whose step depends on the flat
+    # (N,) layout sets this False.
+    ELEMENTWISE_STEP = True
 
     def __init__(self, nt_kinetics="approximate", rec_kinetics="approximate",
                  receptors=None):
@@ -131,14 +150,15 @@ class NeuronModel:
         """Bookkeeping before integration.  Default no-op."""
         return s
 
-    def deltas(self, s, i):
+    def deltas(self, s, i, fns=TORCH_FNS):
         raise NotImplementedError
 
     def handle_spiking(self, s):
         raise NotImplementedError
 
     # -- the IterateAndSpike template -----------------------------------------
-    def step(self, s, i, t_input=None, t_valid=None, skip_nt=False):
+    def step(self, s, i, t_input=None, t_valid=None, skip_nt=False,
+             fns=TORCH_FNS):
         """One step over all N neurons, in the reference's order:
         pre_update -> receptors -> deltas -> v -= receptor dv -> NT release
         (new v, previous step's spike flag) -> handle_spiking.
@@ -155,7 +175,7 @@ class NeuronModel:
         else:
             rec_dv = 0.0
 
-        d = self.deltas(s, i)
+        d = self.deltas(s, i, fns)
         new = {k: s[k] + dv for k, dv in d.items()}
         new["v"] = new["v"] - rec_dv
         s.update(new)
@@ -210,9 +230,18 @@ class NeuronModel:
         return s, spikes
 
     @staticmethod
+    def _handle_simple_reset(s):
+        """Simple leaky handler: v >= v_th -> v = v_reset, no refractory
+        period."""
+        spikes = s["v"] >= s["v_th"]
+        s = dict(s)
+        s["v"] = torch.where(spikes, s["v_reset"], s["v"])
+        return s, spikes
+
+    @staticmethod
     def _handle_peak_detection(s, last_voltage):
-        """Hodgkin-Huxley spike detection: a spike where v is above
-        threshold, was rising and has just stopped rising."""
+        """Hodgkin-Huxley and Morris-Lecar spike detection: a spike where
+        v is above threshold, was rising and has just stopped rising."""
         increasing_now = last_voltage < s["v"]
         crossed = s["v"] > s["v_th"]
         spikes = crossed & s["was_increasing"] & torch.logical_not(

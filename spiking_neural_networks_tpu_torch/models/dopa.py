@@ -7,7 +7,7 @@ and receptor kinetics and the `DopaGluGABAReceptors` set by default.
 
 from __future__ import annotations
 
-from .base import NeuronModel
+from .base import TORCH_FNS, NeuronModel
 from ..ops.receptors import DopaGluGABAReceptors
 
 
@@ -33,7 +33,7 @@ class DopaIzhikevich(NeuronModel):
         super().__init__(nt_kinetics=nt_kinetics, rec_kinetics=rec_kinetics,
                          receptors=receptors)
 
-    def deltas(self, s, i):
+    def deltas(self, s, i, fns=TORCH_FNS):
         dw = (s["a"] * (s["b"] * s["v"] - s["w"])) * (s["dt"] / s["tau_m"])
         dv = (0.04 * s["v"] * s["v"] + 5.0 * s["v"] + 140.0 - s["w"] + i) \
             * (s["dt"] / s["c_m"])

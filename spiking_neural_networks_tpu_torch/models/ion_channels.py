@@ -1,11 +1,13 @@
-"""Hodgkin-Huxley ion channels, elementwise over the neuron axis.
+"""Ion channels, elementwise over the neuron axis.
 
-PyTorch counterpart of the Hodgkin-Huxley part of
-``spiking_neural_networks_tpu/models/ion_channels.py``.  Channels are pure
-functions over (N,) state tensors stored under a per-channel key prefix
-(``na$m_state``, ``k$n_state``, ...), with the gating-variable Euler update
+PyTorch counterpart of ``spiking_neural_networks_tpu/models/
+ion_channels.py``: the Hodgkin-Huxley, Morris-Lecar and high-voltage
+calcium channels.  Channels are pure functions over (N,) state tensors
+stored under a per-channel key prefix (``na$m_state``, ``kss$n``, ...),
+with the gating-variable Euler update
 ``state += dt * (alpha * (1 - state) - beta * state)``.  The Morris-Lecar
-and calcium channels are not ported yet (ROADMAP queue 1, item 2).
+channels take their ``tanh`` and ``cosh`` as arguments, so that a kernel
+twin can pass the CUDA kernels' float-op forms.
 
 ``m ** 3`` and ``n ** 4`` are written as the products ``m * (m * m)`` and
 ``(n * n) * (n * n)``, the repeated squaring that JAX's integer power
@@ -68,3 +70,59 @@ def k_channel_update(s, v, dt):
 def k_leak_channel_update(s, v):
     """The potassium leak ``g (v - e)``, independent of the time step."""
     return {"kleak$current": s["kleak$g"] * (v - s["kleak$e"])}
+
+
+# -- Morris-Lecar channels -----------------------------------------------------
+
+CA_REDUCED_DEFAULTS = {"ca$g": 4.0, "ca$v": 120.0, "ca$m_ss": 0.0,
+                       "ca$v_1": -1.2, "ca$v_2": 18.0, "ca$current": 0.0}
+K_SS_DEFAULTS = {"kss$g": 8.0, "kss$v": -84.0, "kss$n": 0.0, "kss$n_ss": 0.0,
+                 "kss$t_n": 0.0, "kss$phi": 0.067, "kss$v_3": 12.0,
+                 "kss$v_4": 17.4, "kss$current": 0.0}
+LEAK_DEFAULTS = {"leak$g": 2.0, "leak$v": -60.0, "leak$current": 0.0}
+
+
+def reduced_calcium_update(s, v, tanh=torch.tanh):
+    """The reduced calcium channel: ``m_ss = (1 + tanh((v - v_1) / v_2))
+    / 2`` from v, then ``g m_ss (v - v_ca)``."""
+    m_ss = 0.5 * (1.0 + tanh((v - s["ca$v_1"]) / s["ca$v_2"]))
+    current = s["ca$g"] * m_ss * (v - s["ca$v"])
+    return {"ca$m_ss": m_ss, "ca$current": current}
+
+
+def k_steady_state_update(s, v, dt, tanh=torch.tanh, cosh=torch.cosh):
+    """The steady-state potassium channel: n relaxes to ``n_ss`` with the
+    time constant ``t_n = 1 / (phi cosh((v - v_3) / (2 v_4)))``, then
+    ``g n (v - v_k)``."""
+    n_ss = 0.5 * (1.0 + tanh((v - s["kss$v_3"]) / s["kss$v_4"]))
+    t_n = 1.0 / (s["kss$phi"]
+                 * cosh((v - s["kss$v_3"]) / (2.0 * s["kss$v_4"])))
+    n = s["kss$n"] + ((n_ss - s["kss$n"]) / t_n) * dt
+    current = s["kss$g"] * n * (v - s["kss$v"])
+    return {"kss$n_ss": n_ss, "kss$t_n": t_n, "kss$n": n,
+            "kss$current": current}
+
+
+def leak_channel_update(s, v):
+    """The leak ``g (v - v_leak)``, independent of the time step."""
+    return {"leak$current": s["leak$g"] * (v - s["leak$v"])}
+
+
+# -- Additional library channels -------------------------------------------------
+
+CA_DEFAULTS = {"hva_ca$g": 0.025, "hva_ca$e": 80.0, "hva_ca$s_state": 0.0,
+               "hva_ca$current": 0.0}
+
+
+def calcium_channel_update(s, v, dt, exp=torch.exp):
+    """The high-voltage activated calcium channel: the s gate from v, then
+    ``-s^2 g (v - e)``.  ``1.6 / x`` and ``/ 5`` divide by tensors, as the
+    JAX package divides (torch's ``scalar / x`` is ``reciprocal(x) *
+    scalar``, and a CUDA tensor divided by a Python scalar is multiplied
+    by its reciprocal)."""
+    s_alpha = torch.div(v.new_tensor(1.6),
+                        1.0 + exp(-0.072 * (v - 5.0)))
+    s_beta = (0.02 * (v + 8.9)) / (exp(v + 8.9) / v.new_tensor(5.0) - 1.0)
+    gate = gate_update(s_alpha, s_beta, s["hva_ca$s_state"], dt)
+    current = -(gate * gate) * s["hva_ca$g"] * (v - s["hva_ca$e"])
+    return {"hva_ca$s_state": gate, "hva_ca$current": current}

@@ -1,1 +1,1 @@
-"""PyTorch counterpart of spiking_neural_networks_tpu.ops."""
+"""PyTorch counterpart of ``spiking_neural_networks_tpu/ops/``."""

@@ -196,15 +196,16 @@ def test_graph_history_appends_weights_per_step():
 
 
 def test_plasticity_and_chemical_raise_not_implemented():
-    """STDP runs; any other plasticity rule is not ported yet.  Chemical
-    synapses run on a `Lattice` and on a `RewardModulatedLattice` (the
-    plain route here)."""
+    """STDP and BCM run; a rule without an edge update of its own (R-STDP,
+    which a `RewardModulatedLattice` runs) raises.  Chemical synapses run
+    on a `Lattice` and on a `RewardModulatedLattice` (the plain route
+    here)."""
     t = torch_lattice(4, 4, V0[:16])
     t.do_plasticity = True
     t.plasticity = snt.RewardModulatedSTDP()
     for use_kernel in (None, True, False):
         t.use_kernel = use_kernel
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        with pytest.raises(NotImplementedError, match="STDP or BCM"):
             t.run_lattice(5)
     t.plasticity = snt.STDP()
     t.do_plasticity = False
