@@ -15,8 +15,10 @@ radius-2, 80%-keep stencil graph:
 * the plain `LatticeNetwork` (`Lattice` / `SpikeTrainLattice` ->
   `populate` -> `connect_stencil` -> `generate_network` ->
   `connect_vectorized` -> `run_lattices`) of BASELINE configs 2 and 5 and
-  of config 5's topology at 512^2 / 256^2, through the network kernels
-  ``csrc/network_plasticity.cu``;
+  of config 5's topology at 512^2 / 256^2, through the persistent network
+  kernel ``csrc/network_persistent.cu`` (one cooperative launch per
+  16-step call; the per-step launches of ``csrc/network_plasticity.cu``
+  are held and timed beside it);
 * the Hodgkin-Huxley chemical lattice with STDP of BASELINE's "HH with ion
   channels + receptor kinetics + STDP" (`Lattice(HodgkinHuxley())` ->
   `populate` -> `insert_receptor` / `insert_neurotransmitter` ->
@@ -42,8 +44,10 @@ radius-2, 80%-keep stencil graph:
   `connect` (radius 2), a plastic `Lattice`, a Poisson train ->
   `generate_network` -> `connect` / `connect_with_reward_modulation` ->
   `run_lattices_with_reward(0.5, n)`) at 32^2 and 128^2 over 3000 steps
-  and at 512^2 over 1024, through the reward arm of the network kernels
-  (``csrc/network_plasticity.cu`` with 6a's R-STDP edge kernel).
+  and at 512^2 over 1024, through the persistent network kernel
+  (``csrc/network_persistent.cu``; the per-step reward arm of
+  ``csrc/network_plasticity.cu`` with 6a's R-STDP edge kernel held and
+  timed beside it).
 * `bench.py`'s closed loop (`RewardModulatedLattice` -> `populate` ->
   `connect_stencil` -> `apply` -> `JitEnvironment(agent, env, encoder,
   reward, update)` -> `run_with_reward(n)`: a 6-neuron cue, the reward
@@ -90,22 +94,32 @@ Phases, one line each:
    route on the card (parting only at a threshold tie);
 10. steps/s and neuron-updates/s of the kernel and plain routes, STDP and
    R-STDP, at 64^2 and 512^2, with the kernels' device time per step;
-11. the network kernels vs their plain twin on the card: config 2's and
+11. the network kernels vs their plain twin on the card, the persistent
+   kernel and the per-step design each bit for bit: config 2's and
    config 5's topologies at 64^2 (K = 16 and 7, Poisson from shared
    uniforms), ALIF and LIF networks with Rate trains, 130 x 100 with
-   non-uniform parameters, 512^2 / 256^2 with an emitted history:
-   integers and spikes equal, floats within rtol 1e-6, atol 1e-5;
+   non-uniform parameters, 512^2 / 256^2 with an emitted history (every
+   member resident in shared memory), and the streamed form, config 5's
+   topology at 1024^2 / 512^2 (its excitatory stencil streamed), over 3
+   calls along a run; the persistent kernel's registers, spills, shared
+   memory, grid and the cost of one grid.sync(); at 512^2 both designs
+   timed in turns (wall, CUDA events, profiled device time with every
+   kernel record counted) and the host time of a persistent call split
+   into checks, buffers and the rest;
 12. the network main paths through `run_lattices`: config 2 at 64^2 for
    5000 steps, config 5 at 64^2 / 32^2 for 15000 steps with its EEG
    history, the 512^2 / 256^2 network for 2048 steps (launch counters,
-   finite v, neurons fired, weights moved, the kernel route);
+   every call through the persistent kernel, finite v, neurons fired,
+   weights moved, the kernel route);
 13. the config-5 topology with a Rate train at 64^2 / 32^2 for 1000 steps:
    the kernel route on the card against the same route on the CPU (2 mV,
    2 steps) and against the plain route on the card (parting only at a
    threshold tie);
 14. steps/s, neuron-updates/s, device time per kernel and device / wall of
    the kernel route (`use_kernel=None`) and the plain route
-   (`use_kernel=False`), config 5's topology at 64^2 and 512^2;
+   (`use_kernel=False`), config 5's topology at 64^2 and 512^2; then the
+   persistent and the per-step design on the same 16-step calls, in turns
+   (wall, events, profiled device time, kernel records per call);
 15. the HH kernel vs its plain twin on the card: 64^2 at K = 16 and 7 for
    every kinetics pair, electrical and plasticity on and off; 130 x 100
    with non-uniform parameters; 512^2; and call by call the first 768
@@ -161,14 +175,17 @@ Phases, one line each:
 25. the reward arm vs its plain twin on the card: 24 random networks over
    Izhikevich, ALIF and LIF, with and without rewards, static visit
    counts 0, 1 and 2, trains into plastic and reward lattices, plastic ->
-   reward and reward -> reward connections, non-uniform states; and every
-   call of the first 256 steps of the 32^2 and 128^2 main paths on the
-   state it received, traces and dopamine included: bit-equal;
+   reward and reward -> reward connections, non-uniform states, the
+   persistent kernel and the per-step design each; and every call of the
+   first 256 steps of the 32^2 and 128^2 main paths on the state it
+   received, traces and dopamine included: bit-equal;
 26. the reward main paths through `run_lattices_with_reward`: route
-   ("reward", False), reward-arm calls, weights, traces and dopamine
-   finite and moving (the reward lattice first fires after ~1500 steps,
-   so its traces move in the 3000-step runs); per-step times, the bound
-   and the twin of the 512^2 call;
+   ("reward", False), reward-arm calls, every one through the persistent
+   kernel, weights, traces and dopamine finite and moving (the reward
+   lattice first fires after ~1500 steps, so its traces move in the
+   3000-step runs); a call from a firing state held bit for bit; at 512^2
+   (its mod lattice streamed, the other members resident) both designs
+   timed in turns, the bound and the twin;
 27. 32^2 with a Rate train and the reward lattice firing from the start,
    1000 steps at reward 0.005: the kernel route on the card against the
    same route on the CPU (bit-equal), then against the plain route on the
@@ -176,7 +193,8 @@ Phases, one line each:
    with a connecting-graph history) on the card against the CPU (the tie
    rule: ``index_add_`` sums in another order);
 28. per main-path size: wall and CUDA-event time per step, the kernels'
-   device time under torch.profiler and device / wall.
+   device time under torch.profiler and device / wall; then both designs
+   on the same 16-step calls, in turns.
 29. the env entry vs its plain twin on the card: kinds mod and plain with
    a reward, plain and plastic without, x Izhikevich, ALIF and LIF x 64^2
    and 130 x 100, 16 chained steps with the reward computed on the
@@ -281,6 +299,10 @@ PROFILE_STEPS = 256
 # device, seed) and set up the network before its first step.
 NSMALL, NBIG = (64, 64), (512, 512)
 CFG2_STEPS, CFG5_STEPS, NBIG_STEPS, NCMP_STEPS = 5000, 15000, 2048, 1000
+# the persistent kernel's streamed form: config 5's topology at 1024^2 /
+# 512^2 (its excitatory stencil, 63 MB, does not fit the blocks' shared
+# memory), a few calls along a run
+NHUGE, NHUGE_CALLS = (1024, 1024), 3
 NET_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 # HH phases.  HCASES are ((rows, cols), K, nt kinetics, rec kinetics,
 # electrical, plastic, non-uniform params); a case's seed is its index.  A
@@ -380,7 +402,7 @@ PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # device time must not beat PEAK_BYTES
 L2_BYTES = 50e6
 # profiles taken for a count of kernel records before profiled_us fails
-PROF_TRIES = 5
+PROF_TRIES = 8
 # float operations the card needs for one exp: a range reduction (two
 # multiply-adds), the special-function unit's ex2 and a scale; the port's
 # kernel_exp takes more, to round as the CPU does, which the bound does not
@@ -549,16 +571,27 @@ def profiled_us(fn, steps, n_top=3, launches=None):
     """Device microseconds per step of ``fn`` (which runs ``steps``
     steps) under torch.profiler: the sum of every CUDA kernel's and copy's
     device time, and the ``n_top`` largest by name.  With ``launches``
-    (the kernels ``fn`` launches), a profile that holds another number of
-    kernel records is taken again, up to PROF_TRIES times, and then
-    fails: a lost record would make the sum short."""
-    from torch.profiler import ProfilerActivity, profile
+    (the kernels ``fn`` launches), ``fn`` runs once in a warm-up cycle of
+    the profiler before the cycle that is kept (the first records of a
+    profile can be lost), and a profile that holds another number of
+    kernel records is taken again, up to PROF_TRIES times, and then fails:
+    a lost record would make the sum short."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    warm = launches is not None
     for _ in range(PROF_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        kept = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)
+                     if warm else None,
+                     on_trace_ready=(lambda p: kept.append(p.key_averages()))
+                     if warm else None) as prof:
+            for _ in range(2 if warm else 1):
+                fn()
+                torch.cuda.synchronize()
+                if warm:
+                    prof.step()
         dev = [(e.self_device_time_total, e.key, e.count)
-               for e in prof.key_averages()
+               for e in (kept[-1] if warm else prof.key_averages())
                if e.device_type == torch.autograd.DeviceType.CUDA]
         records = sum(c for _, k, c in dev
                       if not k.startswith(("Memcpy", "Memset")))
@@ -1332,22 +1365,199 @@ def network_phases(snt, smi):
     max_err, times, bounds = network_twin_phase(snt, nk, smi)
     launches = network_main_phase(snt, nk)
     network_cmp_phase(snt)
-    network_times_phase(snt, smi)
-    return {"name": "network_steps", "route": "cuda",
+    network_times_phase(snt, nk, smi)
+    return {"name": "network_persistent", "route": "cuda",
             "source": "spiking_neural_networks_tpu_torch/csrc/"
-                      "network_plasticity.cu",
+                      "network_persistent.cu",
             "replaces": NET_REPLACES, "launches": launches,
             "max_abs_err": max_err,
-            "ms": times[0] * nk.STEPS_PER_LAUNCH,
-            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
-            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "ms": times["persistent"][0] * nk.STEPS_PER_LAUNCH,
+            "plain_ms": times["twin"] * nk.STEPS_PER_LAUNCH,
+            "device_ms": times["persistent"][1] * nk.STEPS_PER_LAUNCH,
+            "per_step_ms": times["per_step"][0] * nk.STEPS_PER_LAUNCH,
+            "per_step_device_ms": times["per_step"][1]
+            * nk.STEPS_PER_LAUNCH,
             "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None}
 
 
+def net_outputs(out):
+    """(name, tensor) pairs of a network kernel call's outputs."""
+    lat, tr, cn, extra = out
+    pairs = []
+    for k, d in enumerate(lat):
+        for key in ("v", "w", "lft", "refr", "spikes", "weights", "v_pre"):
+            if d.get(key) is not None:
+                pairs.append((f"{key}{k}", d[key]))
+        if d.get("traces") is not None:
+            pairs += [(f"{key}{k}", d["traces"][key])
+                      for key in ("c", "dw", "counter")]
+    for j, d in enumerate(tr):
+        pairs += [(f"train {key}{j}", d[key])
+                  for key in ("lft", "spikes", "step") if d.get(key) is not None]
+    pairs += [(f"conn{c}", w) for c, w in enumerate(cn)]
+    if extra is not None:
+        for c, t in enumerate(extra["traces"]):
+            if t is not None:
+                pairs += [(f"conn{c} {key}", t[key])
+                          for key in ("c", "dw", "counter")]
+        pairs.append(("dopamine", torch.as_tensor(extra["dopamine"])))
+    return pairs
+
+
+def bit_mismatches(got, want):
+    """The outputs of a network call that differ from the twin's in any
+    bit (floats as their int32 bits, so +0 and -0 apart); an output that
+    one side lacks is a mismatch too."""
+    gots, wants = net_outputs(got), net_outputs(want)
+    names = [n for n, _ in gots]
+    if names != [n for n, _ in wants]:
+        return sorted(set(names) ^ {n for n, _ in wants}) or ["output order"]
+    bad = []
+    for (name, g), (_, w) in zip(gots, wants):
+        w = w.to(g.device)
+        if g.dtype == torch.float32 and w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if g.shape != w.shape or not torch.equal(g, w):
+            bad.append(name)
+    return bad
+
+
+def per_step_launches(spec, n_steps):
+    """Kernel launches of one call of the per-step design (`net_steps`) on
+    a grid-mode spec: cnt per lattice, the dopamine per 16 rewards, then
+    per step a cell kernel per lattice, an edge kernel per plastic or mod
+    lattice with offsets and per updating connection, a train kernel per
+    train."""
+    per = (len(spec.lattices)
+           + sum(ls.kind != "plain" and bool(ls.offsets)
+                 for ls in spec.lattices)
+           + sum(cs.updates for cs in spec.conns) + len(spec.trains))
+    return len(spec.lattices) + (-(-n_steps // 16) if spec.with_reward
+                                 else 0) + n_steps * per
+
+
+def persistent_info(nk, spec):
+    """The persistent kernel's residency plan for ``spec`` on this card and
+    its launch: (members, shared bytes a block, {regs, local, static smem,
+    blocks, sms})."""
+    from spiking_neural_networks_tpu_torch import _build
+    members, smem = nk.persistent_plan(spec, nk._sm_count(
+        torch.device("cuda")))
+    out = (ctypes.c_int * 6)()
+    rc = _build.load().net_persistent_info(smem, out)
+    check(rc == 0, f"net_persistent_info failed with CUDA error {rc}")
+    return members, smem, dict(regs=out[0], local=out[1], static=out[2],
+                               blocks=out[4], sms=out[5])
+
+
+def plan_line(members, smem):
+    return (", ".join(f"{m.key[0]} {m.key[1]} "
+                      f"{'resident' if m.resident else 'streamed'} "
+                      f"{m.cell_bytes * m.cells / 1e6:.2f} MB"
+                      for m in members)
+            + f"; {smem} B of shared memory a block")
+
+
+def ptxas_lines(name):
+    """ptxas's register and spill lines of kernel ``name`` from the build
+    log (empty when the library was cached)."""
+    from spiking_neural_networks_tpu_torch import _build
+    lines = _build.build_log.splitlines()
+    out = []
+    for k, ln in enumerate(lines):
+        if "Compiling entry function" in ln and name in ln:
+            out = [x.strip().replace("ptxas info    : ", "")
+                   for x in lines[k + 1:k + 4]
+                   if "spill" in x or "registers" in x]
+    return out
+
+
+def sync_us(blocks, n_syncs=1000):
+    """Microseconds of one grid.sync() of a cooperative launch of
+    ``blocks`` blocks at the persistent kernel's block size."""
+    from spiking_neural_networks_tpu_torch import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fn():
+        rc = lib.net_persistent_sync_probe(blocks, n_syncs, stream)
+        check(rc == 0, f"the grid.sync probe failed with CUDA error {rc}")
+
+    return event_ms(fn, 5) * 1e3 / n_syncs
+
+
+def design_times(nk, args, clock, k, reward=None, reps=10, count=True):
+    """Both designs of one K-step call on the same inputs, in turns
+    (persistent, per-step, per-step, persistent): per design (wall us per
+    step of back-to-back calls to a synchronise, CUDA-event us per step,
+    profiled device us per step, kernel launches per call).  With
+    ``count``, the profile of ``reps`` calls must hold every launch's
+    record; without, its device time sums the records that came back."""
+    spec = args[0]
+    calls = {"persistent": lambda: nk.network_steps(*args, clock, k,
+                                                    reward),
+             "per_step": lambda: nk.network_steps(*args, clock, k, reward,
+                                                  per_step=True)}
+    launches = {"persistent": -(-k // nk.STEPS_PER_LAUNCH),
+                "per_step": per_step_launches(spec, k)}
+    walls = {key: [] for key in calls}
+    events = {key: [] for key in calls}
+    for key in ("persistent", "per_step", "per_step", "persistent"):
+        fn = calls[key]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        walls[key].append((time.perf_counter() - t0) / reps / k * 1e6)
+        events[key].append(event_ms(fn, reps) * 1e3 / k)
+    out = {}
+    for key, fn in calls.items():
+        dev, top = profiled_us(lambda fn=fn: [fn() for _ in range(reps)],
+                               reps * k, n_top=4,
+                               launches=reps * launches[key] if count
+                               else None)
+        out[key] = (min(walls[key]), min(events[key]), dev,
+                    launches[key], top)
+    return out
+
+
+def design_line(out, counted=True):
+    return "; ".join(
+        f"{key}: wall {w:.3f} us/step, events {e:.3f}, device {d:.3f} "
+        f"({n} kernel {'records' if counted else 'launches'} a call; "
+        + ", ".join(f"{name} {t:.3f}" for name, t in top) + ")"
+        for key, (w, e, d, n, top) in out.items())
+
+
+def host_split(nk, args, clock, k, reward=None, reps=20):
+    """Host microseconds of one persistent wrapper call with the card idle
+    at its start, and of that the input checks and the output
+    allocations; the rest is the ctypes packing, the C entry and the
+    launch."""
+    spec, lats, trains, conns, uniforms, rule = args
+    dev = lats[0]["v"].device
+    fns = (lambda: nk.network_steps(*args, clock, k, reward),
+           lambda: nk._check(spec, lats, trains, conns, uniforms, clock, k,
+                             reward),
+           lambda: nk._persistent_outputs(spec, lats, trains, conns, k, dev))
+    out = []
+    for fn in fns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return out
+
+
 def network_twin_phase(snt, nk, smi):
-    """11. The network kernels vs their plain twin on the card: (max float
-    error, (kernel, twin, device) ms per step at 512^2, the bound of a
-    512^2 call)."""
+    """11. The network kernels vs their plain twin on the card, the
+    persistent kernel and the per-step design both bit for bit: (max float
+    error, {design: (kernel us, device us) per step, "twin": us per step}
+    at 512^2, the bound of a 512^2 call)."""
     cases = [(cfg2_net, NSMALL, 16, "config 2"),
              (cfg2_net, NSMALL, 7, "config 2"),
              (cfg5_net, NSMALL, 16, "config 5"),
@@ -1365,59 +1575,121 @@ def network_twin_phase(snt, nk, smi):
         perturb(net, seed, uniform="non-uniform" not in label)
         spec, lats, trains, conns, uniforms, rule = net_inputs(nk, net, k,
                                                                seed)
-        got = nk.network_steps(spec, lats, trains, conns, uniforms, rule,
-                               3, k)
+        args = (spec, lats, trains, conns, uniforms, rule)
+        before = nk.PERSISTENT_LAUNCHES
+        got = nk.network_steps(*args, 3, k)
         torch.cuda.synchronize()
-        want = nk.network_steps_reference(spec, lats, trains, conns,
-                                          uniforms, rule, 3, k)
+        check(nk.PERSISTENT_LAUNCHES == before + 1,
+              "the call missed the persistent kernel")
+        want = nk.network_steps_reference(*args, 3, k)
+        torch.cuda.synchronize()
+        ps = nk.network_steps(*args, 3, k, per_step=True)
         torch.cuda.synchronize()
         err, bad, errs, fired = compare_net_call(got, want, 3)
+        bits = (bit_mismatches(got, want), bit_mismatches(ps, want))
         moved = max((g - c["w"]).abs().max().item()
                     for g, c in zip(got[2], conns))
         say(f"[11 kernel-vs-twin] {label} {shape[0]}x{shape[1]} K={k} "
-            f"emit={any(ls.emit for ls in spec.lattices)}: integer and spike "
-            f"mismatches {bad}, max errors "
+            f"emit={any(ls.emit for ls in spec.lattices)}: persistent "
+            f"kernel: integer and spike mismatches {bad}, max errors "
             + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
-            + f", neurons fired {fired}, max connection weight change "
-            f"{moved:.4g}")
+            + f", outputs not bit-equal {bits[0]}; per-step design: outputs "
+            f"not bit-equal {bits[1]}; neurons fired {fired}, max "
+            f"connection weight change {moved:.4g}")
         check(bad == 0, "firing times, spikes or refractory counts differ")
+        check(bits == ([], []), "a design is not bit-equal to the twin")
         check(fired > 0, "no neuron fired in the call")
         max_err = max(max_err, err)
         if shape == NBIG:
-            kernel = lambda: nk.network_steps(spec, lats, trains, conns,
-                                              uniforms, rule, 3, k)
+            members, smem, info = persistent_info(nk, spec)
+            check(all(m.resident for m in members),
+                  "config 5 at 512^2 is not all resident")
             # a lower bound of the operations: each lattice's phase A and
             # model step (connections, trains and STDP not counted)
             ops = sum(stencil_ops(ls.offsets, *ls.shape, k)
                       for ls in spec.lattices)
-            bounds = bound(tensor_bytes(lats, trains, conns, uniforms,
-                                        kernel()), ops)
-            dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
-                                      10 * k, n_top=6)
-            times = (event_ms(kernel, 10) / k, event_ms(
-                lambda: nk.network_steps_reference(
-                    spec, lats, trains, conns, uniforms, rule, 3, k), 3) / k,
-                dev_us / 1e3)
-            # the host's share of a call: its time to return with the card
-            # idle at the start (5 calls, 560 launches, within the launch
-            # queue), and of that the input checks
-            host = []
-            for fn in (kernel, lambda: nk._check(spec, lats, trains, conns,
-                                                 uniforms, 3, k)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    fn()
-                host.append((time.perf_counter() - t0) / 5 * 1e6)
-            torch.cuda.synchronize()
+            bounds = bound(tensor_bytes(lats, trains, conns, uniforms, got),
+                           ops)
+            ptx = " / ".join(ptxas_lines("net_persistent_kernel")) \
+                or "ptxas: cached build"
+            say(f"[11 persistent kernel] {ptx}; {info['regs']} registers, "
+                f"{info['local']} local bytes a thread, {info['static']} "
+                f"static shared bytes; grid {info['blocks']} blocks of "
+                f"{nk.NP_THREADS} threads on {info['sms']} SMs; one "
+                f"grid.sync() {sync_us(info['blocks']):.3f} us; config 5 "
+                f"512^2 plan: {plan_line(members, smem)}; card {smi}")
+            d = design_times(nk, args, 3, k)
+            twin = event_ms(lambda: nk.network_steps_reference(*args, 3, k),
+                            3) / k * 1e3
+            times = {key: (v[1] / 1e3, v[2] / 1e3) for key, v in d.items()}
+            times["twin"] = twin / 1e3
+            host = host_split(nk, args, 3, k)
             say(f"[11 kernel-vs-twin] {label} {shape[0]}x{shape[1]} K={k} "
-                f"per step: kernel calls back to back {times[0] * 1e3:.3f} "
-                f"us (events), of which device time {dev_us:.3f} us "
-                f"(profiled: " + ", ".join(f"{n} {t:.3f}" for n, t in top)
-                + f"); plain twin {times[1] * 1e3:.3f} us (events); host "
-                f"time per {k}-step call {host[0]:.1f} us, of which input "
-                f"checks {host[1]:.1f} us; card {smi}")
-        del net, lats, trains, conns, uniforms, got, want
+                f"per step, the designs in turns: {design_line(d)}; plain "
+                f"twin {twin:.3f} us (events); bound "
+                f"{bounds[0] * 1e3 / k:.4f} us ({bounds[1]}); host time of "
+                f"a persistent call {host[0]:.1f} us, of which input checks "
+                f"{host[1]:.1f} us, output buffers {host[2]:.1f} us, the "
+                f"rest (ctypes packing, C entry, launch) "
+                f"{host[0] - host[1] - host[2]:.1f} us; card {smi}")
+        del net, lats, trains, conns, uniforms, got, want, ps, args
+    # a grid-mode spec of more members than the persistent kernel's
+    # description holds takes the per-step launches, chosen from the spec
+    net = cfg5_net(snt, *NSMALL, seed=12)
+    perturb(net, 12)
+    spec, lats, trains, conns, uniforms, rule = net_inputs(nk, net, 16, 12)
+    n = nk.NP_MAX_TR + 1
+    args = (spec._replace(trains=spec.trains * n), lats, trains * n, conns,
+            uniforms * n, rule)
+    before = (nk.LAUNCHES, nk.PERSISTENT_LAUNCHES)
+    got = nk.network_steps(*args, 3, 16)
+    torch.cuda.synchronize()
+    bad = bit_mismatches(got, nk.network_steps_reference(*args, 3, 16))
+    say(f"[11 kernel-vs-twin] config 5 {NSMALL[0]}x{NSMALL[1]} with {n} "
+        f"trains: kernel calls {nk.LAUNCHES - before[0]}, persistent "
+        f"{nk.PERSISTENT_LAUNCHES - before[1]}; outputs not bit-equal {bad}")
+    check(not nk.uses_persistent(args[0])
+          and (nk.LAUNCHES, nk.PERSISTENT_LAUNCHES) == (before[0] + 1,
+                                                        before[1])
+          and not bad,
+          "a spec beyond the persistent kernel's members missed the "
+          "per-step kernels or differs from the twin")
+    del net, lats, trains, conns, uniforms, got, args
+    # the streamed form: config 5's topology at 1024^2 / 512^2, whose
+    # excitatory stencil (63 MB) does not fit; a few calls along a run,
+    # each held against the twin
+    net = cfg5_net(snt, *NHUGE, seed=11, eeg=False)
+    perturb(net, 11)
+    for call_no in range(NHUGE_CALLS):
+        args = net_inputs(nk, net, 16, call_no)
+        clock = net.internal_clock
+        if call_no == 0:
+            members, smem, info = persistent_info(nk, args[0])
+            check(not members[0].resident
+                  and all(m.resident for m in members[1:]),
+                  "the 1024^2 plan should stream the excitatory stencil only")
+        got = nk.network_steps(*args, clock, 16)
+        torch.cuda.synchronize()
+        want = nk.network_steps_reference(*args, clock, 16)
+        bad = bit_mismatches(got, want)
+        fired = sum(int((g["lft"] >= clock).sum()) for g in got[0])
+        say(f"[11 kernel-vs-twin] config 5 {NHUGE[0]}x{NHUGE[1]} / "
+            f"{NHUGE[0] // 2}^2 streamed, call {call_no} at clock {clock}: "
+            f"outputs not bit-equal {bad}, neurons fired {fired}"
+            + (f"; plan: {plan_line(members, smem)}" if call_no == 0
+               else ""))
+        check(not bad and fired > 0,
+              "the streamed form differs from the twin or did not fire")
+        if call_no == NHUGE_CALLS - 1:
+            # the profiler has kept 2 of 3 records of these long calls:
+            # their device time sums what came back, uncounted
+            d = design_times(nk, args, clock, 16, reps=5, count=False)
+            say(f"[11 kernel-vs-twin] config 5 {NHUGE[0]}x{NHUGE[1]} "
+                f"streamed per step, the designs in turns: "
+                f"{design_line(d, counted=False)}; card {smi}")
+        del got, want, args
+        net.run_lattices(16)
+    del net
     say(f"[11 kernel-vs-twin] max float error over all cases {max_err:.3g} "
         f"(tolerance rtol {RTOL}, atol {ATOL}; 0 = bit-equal)")
     return max_err, times, bounds
@@ -1425,7 +1697,7 @@ def network_twin_phase(snt, nk, smi):
 
 def network_main_phase(snt, nk):
     """12. The network main paths through `run_lattices`; returns the
-    kernel calls they made."""
+    persistent kernel's launches in them."""
     launches = 0
     for label, build, shape, steps in (
             ("config 2", cfg2_net, NSMALL, CFG2_STEPS),
@@ -1434,10 +1706,12 @@ def network_main_phase(snt, nk):
         net = build(snt, *shape)
         ws0 = {lid: l.graph.weights.clone() for lid, l in net.lattices.items()
                if l.do_plasticity}
-        nk.LAUNCHES = 0
+        nk.LAUNCHES = nk.PERSISTENT_LAUNCHES = 0
         secs = run_net_synced(net, steps)
         calls = nk.LAUNCHES
-        launches += calls
+        launches += nk.PERSISTENT_LAUNCHES
+        check(nk.PERSISTENT_LAUNCHES == calls,
+              f"{label}: a call missed the persistent kernel")
         exc = net.lattices[0]
         v = exc.state["v"]
         fired = sum(int((l.state["last_firing_time"] >= 0).sum())
@@ -1449,7 +1723,8 @@ def network_main_phase(snt, nk):
                      for lid, w0 in ws0.items()], default=None)
         eeg = exc.grid_history.history if exc.update_grid_history else None
         say(f"[12 main path] {label} {shape[0]}x{shape[1]} run_lattices("
-            f"{steps}): route {net._last_run_fused}, kernel calls {calls}, "
+            f"{steps}): route {net._last_run_fused}, kernel calls {calls} "
+            f"(persistent {nk.PERSISTENT_LAUNCHES}), "
             f"{secs / steps * 1e6:.3f} us/step (first run), v finite "
             f"{bool(torch.isfinite(v).all())}, v range [{v.min().item():.3f}"
             f", {v.max().item():.3f}], fired {fired} of {n_all} (trains "
@@ -1516,8 +1791,11 @@ def network_cmp_phase(snt):
               f"on the card", hk, lk, hp, lp, NSMALL[0] * NSMALL[1])
 
 
-def network_times_phase(snt, smi):
-    """14. Times of both routes, stated explicitly, in turns."""
+def network_times_phase(snt, nk, smi):
+    """14. Times, stated explicitly, in turns: the main path's route
+    (`use_kernel=None`: the persistent kernel) and the plain route
+    (`use_kernel=False`) through `run_lattices`; then the persistent and
+    the per-step design on the same 16-step calls."""
     for shape, kern_steps, plain_steps in ((NSMALL, 2048, 128),
                                            (NBIG, 2048, 32)):
         kern = cfg5_net(snt, *shape, use_kernel=None, eeg=False)
@@ -1537,13 +1815,22 @@ def network_times_phase(snt, smi):
         n_all = sum(l.n for l in kern.lattices.values())
         busy = dev_us * kern_steps / (mk * 1e6)
         say(f"[14 times] config 5 topology {shape[0]}x{shape[1]}: kernel "
-            f"route (use_kernel=None) {net_rate(n_all, mk, kern_steps)}, "
-            f"median of 5 x {kern_steps} steps; device time {dev_us:.3f} "
-            f"us/step (profiled: " + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            f"route (use_kernel=None, the persistent kernel) "
+            f"{net_rate(n_all, mk, kern_steps)}, median of 5 x {kern_steps} "
+            f"steps; device time {dev_us:.3f} us/step (profiled: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
             + f"), device time / wall {busy:.3f}; plain route "
             f"(use_kernel=False) {net_rate(n_all, mp, plain_steps)}, median "
             f"of 3 x {plain_steps} steps; card {smi}")
-        del kern, plain
+        args = net_inputs(nk, kern, nk.STEPS_PER_LAUNCH, 1)
+        clock = kern.internal_clock
+        d = design_times(nk, args, clock, nk.STEPS_PER_LAUNCH)
+        host = host_split(nk, args, clock, nk.STEPS_PER_LAUNCH)
+        say(f"[14 times] config 5 topology {shape[0]}x{shape[1]}, 16-step "
+            f"calls, the designs in turns: {design_line(d)}; host time of a "
+            f"persistent call {host[0]:.1f} us, of which input checks "
+            f"{host[1]:.1f} us, output buffers {host[2]:.1f} us; card {smi}")
+        del kern, plain, args
 
 
 def run_net_synced(net, n):
@@ -3204,15 +3491,18 @@ def reward_phases(snt, smi):
     max_err, n_cases = reward_twin_phase(snt, nk)
     err, launches, times, bounds = reward_main_phase(snt, nk, smi)
     reward_cmp_phase(snt)
-    reward_times_phase(snt, smi)
-    return {"name": "network_steps (reward arm)", "route": "cuda",
+    reward_times_phase(snt, nk, smi)
+    K = nk.STEPS_PER_LAUNCH
+    return {"name": "network_persistent (reward arm)", "route": "cuda",
             "source": "spiking_neural_networks_tpu_torch/csrc/"
-                      "network_plasticity.cu",
+                      "network_persistent.cu",
             "replaces": REWARD_REPLACES, "launches": launches,
             "max_abs_err": max(max_err, err),
-            "ms": times[0] * nk.STEPS_PER_LAUNCH,
-            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
-            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "ms": times["persistent"][0] * K,
+            "plain_ms": times["twin"] * K,
+            "device_ms": times["persistent"][1] * K,
+            "per_step_ms": times["per_step"][0] * K,
+            "per_step_device_ms": times["per_step"][1] * K,
             "bound_ms": bounds[0], "bound_by": bounds[1],
             "library_ms": None,
             "library_call": "none: no PyTorch call computes a network step"}
@@ -3239,21 +3529,25 @@ def reward_twin_phase(snt, nk):
         got = nk.network_steps(*args[:6], 3, k, args[6])
         torch.cuda.synchronize()
         want = nk.network_steps_reference(*args[:6], 3, k, args[6])
+        ps = nk.network_steps(*args[:6], 3, k, args[6], per_step=True)
         err, bad = compare_reward(got, want)
+        bits = (bit_mismatches(got, want), bit_mismatches(ps, want))
         fired = sum(int((d["lft"] >= 3).sum()) for d in got[0])
         moved = max((g - c["w"]).abs().max().item()
                     for g, c in zip(got[2], args[3]))
         say(f"[25 kernel-vs-twin] {model} {shape[0]}x{shape[1]} K={k} "
             f"{train} rewards={with_reward} static counts "
             f"{[cs.static for cs in spec.conns]}: integer and spike "
-            f"mismatches {bad}, max float error {err:.3g}, fired {fired}, "
-            f"max connection weight change {moved:.4g}, dopamine "
+            f"mismatches {bad}, max float error {err:.3g}, outputs not "
+            f"bit-equal: persistent {bits[0]}, per-step {bits[1]}; fired "
+            f"{fired}, max connection weight change {moved:.4g}, dopamine "
             f"{float(got[3]['dopamine']):.5g}")
         check(bad == 0, "firing times, spikes or counters differ")
-        check(err == 0.0, "the reward arm is not bit-equal to its twin")
+        check(err == 0.0 and bits == ([], []),
+              "the reward arm is not bit-equal to its twin")
         check(fired > 0 and moved > 0, "no spike or no weight change")
         max_err, n_cases = max(max_err, err), n_cases + 1
-        del net, args, got, want
+        del net, args, got, want, ps
     say(f"[25 kernel-vs-twin] max float error over {n_cases} random cases "
         f"{max_err:.3g} (0 = bit-equal)")
     return max_err, n_cases
@@ -3276,7 +3570,7 @@ def reward_main_phase(snt, nk, smi):
         built = time.perf_counter() - t0
         w1 = net.lattices[1].graph.weights.clone()
         bad, err, held = 0, 0.0, 0
-        nk.LAUNCHES = nk.REWARD_LAUNCHES = 0
+        nk.LAUNCHES = nk.REWARD_LAUNCHES = nk.PERSISTENT_LAUNCHES = 0
         done = 0
         while done < steps:
             clock = net.internal_clock
@@ -3295,7 +3589,9 @@ def reward_main_phase(snt, nk, smi):
             done += K
         route = net._last_run_fused
         calls = nk.REWARD_LAUNCHES
-        launches += calls
+        launches += nk.PERSISTENT_LAUNCHES
+        check(nk.PERSISTENT_LAUNCHES == calls,
+              "a reward-arm call missed the persistent kernel")
         lat0, lat1 = net.reward_modulated_lattices[0], net.lattices[1]
         members = [lat0, lat1] + list(net.spike_train_lattices.values())
         finite = all(bool(torch.isfinite(x).all()) for m in members
@@ -3354,7 +3650,9 @@ def reward_main_phase(snt, nk, smi):
                                                   args[6])
         got = kernel()
         torch.cuda.synchronize()
-        e, b = compare_reward(got, twin())
+        want = twin()
+        e, b = compare_reward(got, want)
+        bits = bit_mismatches(got, want)
         spec = args[0]
         dmod = max((g["weights"] - d["weights"]).abs().max().item()
                    for ls, g, d in zip(spec.lattices, got[0], args[1])
@@ -3366,30 +3664,33 @@ def reward_main_phase(snt, nk, smi):
             f"call from a firing state (run on {more} steps past the main "
             f"path, clock {clock}, dopamine "
             f"{float(args[6]['dopamine']):.6g}): integer and spike "
-            f"mismatches {b}, max float error {e:.3g}, max weight change of "
-            f"the reward lattice {dmod:.4g} and of the reward connection "
-            f"{drc:.4g}")
-        check(b == 0 and e == 0.0, "the firing-state call differs from the "
-              "twin")
+            f"mismatches {b}, max float error {e:.3g}, outputs not bit-equal "
+            f"{bits}, max weight change of the reward lattice {dmod:.4g} and "
+            f"of the reward connection {drc:.4g}")
+        check(b == 0 and e == 0.0 and not bits,
+              "the firing-state call differs from the twin")
         check(dmod > 0 and drc > 0, "the firing-state call moved no R-STDP "
               "weight")
         max_err = max(max_err, e)
         if shape == RMAINS[-1][0]:
+            members, smem, info = persistent_info(nk, spec)
+            check([m.resident for m in members]
+                  == [ls.kind != "mod" for ls in spec.lattices]
+                  + [True] * len(spec.conns),
+                  "the 512^2 reward plan should stream the mod lattice only")
             bounds = bound(reward_bytes(args, got),
                            reward_ops(args[0], args[1], K))
-            dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
-                                      10 * K, n_top=6)
-            times = (event_ms(kernel, 10) / K, event_ms(twin, 2) / K,
-                     dev_us / 1e3)
+            d = design_times(nk, args[:6], clock, K, args[6])
+            twin_us = event_ms(twin, 2) / K * 1e3
+            times = {key: (v[1] / 1e3, v[2] / 1e3) for key, v in d.items()}
+            times["twin"] = twin_us / 1e3
             say(f"[26 kernel-vs-twin] main path {shape[0]}x{shape[1]} K={K} "
-                f"per step, the call above: kernel calls back to back "
-                f"{times[0] * 1e3:.3f} us (events), of which device time "
-                f"{dev_us:.3f} us (profiled: "
-                + ", ".join(f"{n} {t:.3f}" for n, t in top)
-                + f"); plain twin {times[1] * 1e3:.3f} us (events); bound "
-                f"{bounds[0] * 1e3 / K:.4f} us ({bounds[1]}); library call: "
-                f"none; card {smi}")
-        del net, args, got
+                f"per step, the call above, the designs in turns: "
+                f"{design_line(d)}; plain twin {twin_us:.3f} us (events); "
+                f"bound {bounds[0] * 1e3 / K:.4f} us ({bounds[1]}); library "
+                f"call: none; plan: {plan_line(members, smem)}; grid "
+                f"{info['blocks']} blocks; card {smi}")
+        del net, args, got, want
     return max_err, launches, times, bounds
 
 
@@ -3504,10 +3805,13 @@ def reward_flat_net(snt, cls, rows, cols, device):
     return net
 
 
-def reward_times_phase(snt, smi):
+def reward_times_phase(snt, nk, smi):
     """28. Per main-path size: wall time per step (median of 3 runs after
     a warm-up), CUDA-event time per step over one run, the kernels'
-    device time under torch.profiler and device / wall."""
+    device time under torch.profiler and device / wall; then the
+    persistent and the per-step design on the same 16-step calls, in
+    turns."""
+    K = nk.STEPS_PER_LAUNCH
     for shape, steps in RTIMES:
         net = reward_main_net(snt, *shape)
         run = lambda n: net.run_lattices_with_reward(REWARD, n)
@@ -3527,13 +3831,23 @@ def reward_times_phase(snt, smi):
         wall = float(np.median(walls))
         n_all = 2 * shape[0] * shape[1]
         say(f"[28 times] reward network {shape[0]}x{shape[1]}, kernel route "
-            f"(use_kernel=None): {net_rate(n_all, wall, steps)}, median of 3 "
-            f"x {steps} steps; CUDA events {ev * 1e3:.3f} us/step; device "
-            f"time {dev_us:.3f} us/step (profiled: "
+            f"(use_kernel=None, the persistent kernel): "
+            f"{net_rate(n_all, wall, steps)}, median of 3 x {steps} steps; "
+            f"CUDA events {ev * 1e3:.3f} us/step; device time {dev_us:.3f} "
+            f"us/step (profiled: "
             + ", ".join(f"{k} {t:.3f}" for k, t in top)
             + f"), device time / wall {dev_us * steps / (wall * 1e6):.3f}; "
             f"card {smi}")
-        del net
+        args = reward_inputs(nk, net, True, K, net.generator())
+        reward = dict(args[6], rewards=np.full(K, REWARD, np.float32))
+        clock = net.internal_clock
+        d = design_times(nk, args[:6], clock, K, reward)
+        host = host_split(nk, args[:6], clock, K, reward)
+        say(f"[28 times] reward network {shape[0]}x{shape[1]}, 16-step "
+            f"calls, the designs in turns: {design_line(d)}; host time of a "
+            f"persistent call {host[0]:.1f} us, of which input checks "
+            f"{host[1]:.1f} us, output buffers {host[2]:.1f} us; card {smi}")
+        del net, args
 
 
 # ---------------------------------------------------------------------------
@@ -4705,6 +5019,13 @@ def main():
                            nk.NL_P, nk.NT_I, nk.NT_P, nk.NC_I, nk.NC_P,
                            nk.NLC_P, nk.NTC_P, nk.DENSE_N_MAX, nk.DENSE_SEG],
           f"the network kernels' limits {list(limits)} differ from their "
+          f"wrapper's")
+    plimits = (ctypes.c_int * 11)()
+    lib.net_persistent_limits(plimits)
+    check(list(plimits) == [nk.NP_MAX_LAT, nk.NP_MAX_TR, nk.NP_MAX_CN,
+                            nk.PL_I, nk.PL_P, nk.PT_I, nk.PT_P, nk.PC_I,
+                            nk.PC_P, nk.NP_THREADS, nk.STEPS_PER_LAUNCH],
+          f"the persistent kernel's limits {list(plimits)} differ from its "
           f"wrapper's")
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]

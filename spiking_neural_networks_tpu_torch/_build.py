@@ -187,5 +187,22 @@ def load():
         vp,                                 # stream
     ]
     lib.net_steps.restype = ci
+    lib.net_persistent_limits.argtypes = [pi]
+    lib.net_persistent_limits.restype = None
+    lib.net_persistent_info.argtypes = [ci, pi]     # smem, out[6]
+    lib.net_persistent_info.restype = ci
+    lib.net_persistent_sync_probe.argtypes = [ci, ci, vp]
+    lib.net_persistent_sync_probe.restype = ci
+    lib.net_persistent_steps.argtypes = [
+        ci, pi, pv,                         # lattices: count, ints, ptrs
+        ci, pi, pv,                         # trains
+        ci, pi, pv,                         # connections
+        pf, pf,                             # rule[5], rrule[9] (nullable)
+        ci, ci, ci,                         # clock0, n_steps, with_reward
+        pf, vp, vp,                         # rewards, dop_in, dop_steps
+        ci,                                 # smem
+        vp,                                 # stream
+    ]
+    lib.net_persistent_steps.restype = ci
     _lib = lib
     return lib

@@ -25,12 +25,14 @@
 // Design.  Steps 4 read the neighbours' post-step lft and spikes, and
 // phase A of step k+1 reads the neighbours' new v, so every step needs a
 // grid-wide ordering point.  The TPU kernel keeps the whole lattice in
-// VMEM for K steps; on Hopper a cooperative grid sync at 512 x 512 would
-// sit near the limit of co-resident threads.  So each step is two
-// launches on the caller's stream: a cell kernel (phases A and B, one
-// thread per cell, writing v, w, lft, refr into one of two buffer sets
-// and the spikes into a byte plane) and an edge kernel (step 4, one
-// thread per destination cell).  Weights and traces are stored per
+// VMEM for K steps; on Hopper a cooperative grid sync with one thread per
+// cell would sit near the limit of co-resident threads at 512 x 512 (a
+// grid of a few blocks per SM whose threads walk the cells does not:
+// network_persistent.cu, one grid.sync() of ~1.1 us a step on an H100).
+// Here each step is two launches on the caller's stream: a cell kernel
+// (phases A and B, one thread per cell, writing v, w, lft, refr into one
+// of two buffer sets and the spikes into a byte plane) and an edge kernel
+// (step 4, one thread per destination cell).  Weights and traces are stored per
 // destination (o, r, c), so each edge thread updates only its own slots,
 // in place, and no two threads write one slot.  Dopamine is a one-thread
 // kernel per call that writes the dopamine of every step.

@@ -41,11 +41,19 @@
 // lattice, updating connection and train (7 for a config-5 network);
 // cnt is computed once per call by net_count_kernel.
 //
-// What bounds it on an H100: at 64 x 64 the launches (each a few us of
-// host time for a few us of device time); at 512 x 512 memory traffic,
-// about 120 bytes per cell and step for a radius-2 lattice and 16 bytes
-// per cell and tap for a connection (computed from the shapes, not
-// measured).  Later work: one fused launch or a CUDA graph per call.
+// What bounds it on an H100: at 64 x 64 the launches (7 a step for a
+// config-5 network, each a few us of host time for a few us of device
+// time); at 512 x 512 memory traffic, about 120 bytes per cell and step
+// for a radius-2 lattice and 16 bytes per cell and tap for a connection
+// (computed from the shapes), the weights read by the cell kernel and
+// again by the edge kernels.  So grid-mode electrical networks and reward
+// networks take the persistent kernel of network_persistent.cu (one
+// cooperative launch per call, step k-1's edge passes fused into step k's
+// cell phase, the owned weights in shared memory); these per-step
+// launches serve the chemical arm, flat mode and grid-mode specs of more
+// members than the persistent kernel's description holds (8 lattices, 8
+// trains, 16 connections), and the other specs only through
+// network_steps(..., per_step=True), to compare the designs.
 //
 // The chemical arm (the chemical form of _make_kernel, pallas_reward.py
 // :653-832 and :1012-1019): net_chem_cell_kernel takes step 1's place for
@@ -120,12 +128,15 @@
 // connection) runs 7 launches: 2 cell kernels, the STDP and the R-STDP
 // edge kernels, 2 connection edge kernels and the train.  At 512 x 512 it
 // is memory-bound like 6a's R-STDP lattice: the R-STDP edge kernel reads
-// and writes weights and three traces for each of 12 slots per cell.
+// and writes weights and three traces for each of 12 slots per cell.  The
+// main path takes the persistent kernel instead (network_persistent.cu:
+// one launch per call, the R-STDP visits of step k-1 fused into step k's
+// phase A); this arm stays for network_steps(..., per_step=True) and
+// for reward networks of more members than that kernel holds.
 
 #include "chem_common.cuh"
+#include "network_common.cuh"
 
-#define NET_MAX_IN 8
-#define NET_MAX_TAPS 64
 #define NET_DENSE_MAX 512
 #define NET_DENSE_SEG 32
 // jobs per launch of net_dense_gather_kernel (its argument's size)
@@ -140,10 +151,6 @@
 #define NC_P 7
 #define NLC_P 32
 #define NTC_P 8
-
-enum { CONN_ONE2ONE = 0, CONN_RESAMPLE = 1, CONN_DENSE = 2 };
-enum { TRAIN_POISSON = 0, TRAIN_RATE = 1 };
-enum { REFR_DELTA_DIRAC = 0, REFR_EXP_DECAY = 1 };
 
 // One incoming connection as the cell kernel reads it.
 struct InConn {
@@ -170,26 +177,12 @@ struct InConns {
     InConn c[NET_MAX_IN];
 };
 
-// The pre row (or column) that post row r reads through a tap at offset d.
-__device__ __forceinline__ int resample_index(int f, int r, int d)
-{
-    return (f > 0 ? r * f : r / -f) + d;
-}
-
-// A train's effect at cell j (pallas_reward.py _make_kernel, the spike-
-// train effects): the kernel's association decay * tdiff * tdiff.
+// A train's effect at cell j (network_common.cuh).
 __device__ __forceinline__ float train_effect(const InConn& c, size_t j,
                                               int clock)
 {
-    const int lft = c.tr_lft[j];
-    const float rest = c.tr_v_rest[j];
-    if (lft == LP_NEVER) return rest;
-    const float amp = c.tr_v_th[j] - rest;
-    const float tdiff = (float)(clock - lft);
-    const float decay = -1.0f / (c.tr_k[j] / c.tr_dt[j]);
-    const float x = c.refractoriness == REFR_DELTA_DIRAC
-        ? decay * tdiff * tdiff : decay * tdiff;
-    return amp * kernel_exp(x) + rest;
+    return train_effect(c.tr_lft, c.tr_v_th, c.tr_v_rest, c.tr_k, c.tr_dt,
+                        c.refractoriness, j, clock);
 }
 
 __global__ void net_count_kernel(const float* __restrict__ in_deg,

@@ -92,19 +92,28 @@ on each reward connection's masked slots one R-STDP visit where its count
 second where it is >= 2; the trains last.  The R-STDP deltas take the
 reward rule's parameters, the STDP ones the lattices' rule.
 
-On a GPU these are hand-written CUDA kernels, ``csrc/network_plasticity.cu``
-(with the intra STDP kernel of ``csrc/lattice_plasticity.cu`` and the
-chemical device code of ``csrc/chem_common.cuh``);
-`network_steps` launches them for CUDA tensors and runs the plain twin
-`network_steps_reference` for CPU tensors.  A build or launch failure
-raises; nothing falls back.  The Poisson uniforms of a call are drawn on
-the device with ``torch.rand`` from the network's generator: input data,
-as the TPU kernel's per-chunk draw is.
+On a GPU these are hand-written CUDA kernels.  Grid-mode electrical
+networks and reward networks (`uses_persistent`) take the persistent
+kernel, ``csrc/network_persistent.cu``: one cooperative launch per call of
+up to 16 steps, step k-1's edge passes fused into step k's cell phase, and
+what only a cell's owner reads held in shared memory where
+`persistent_plan` fits it.  The chemical arm and flat mode take the
+per-step launches of ``csrc/network_plasticity.cu`` (with the intra STDP
+kernel of ``csrc/lattice_plasticity.cu`` and the chemical device code of
+``csrc/chem_common.cuh``), and so do grid-mode specs of more members than
+the persistent kernel's description holds; the other specs reach them only
+through ``network_steps(..., per_step=True)``.  `network_steps` launches
+them for CUDA tensors and runs the plain twin `network_steps_reference`
+for CPU tensors.  A build or launch failure raises; nothing falls back.  The
+Poisson uniforms of a call are drawn on the device with ``torch.rand``
+from the network's generator: input data, as the TPU kernel's per-chunk
+draw is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -150,20 +159,98 @@ NT_I, NT_P = 5, 10
 NC_I, NC_P = 13, 7
 NLC_P, NTC_P = 32, 8
 RSTDP_KEYS = STDP_KEYS + ("tau_c", "exp_dc", "tau_d", "exp_dd")
+# the persistent kernel (csrc/network_persistent.cu): members it takes,
+# the strides of its flat descriptions, its block size, and the shared
+# memory of a block on an H100 (227 KB) for resident members, less 16 KB
+# for the copy of the kernel's description (12.7 KB) and its static use
+NP_MAX_LAT, NP_MAX_TR, NP_MAX_CN = 8, 8, 16
+PL_I, PL_P = 9 + 2 * MAX_OFFSETS, 39
+PT_I, PT_P = 4, 14
+PC_I, PC_P = 16 + 2 * MAX_TAPS, 9
+NP_THREADS = 640
+SMEM_BUDGET = 232448 - 16384
 
 # Calls of `network_steps` that launched the CUDA kernels, of those the
-# calls of a chemical network, the calls in flat mode and the calls of
-# the reward arm.
+# calls of a chemical network, the calls in flat mode, the calls of the
+# reward arm and the calls that took the persistent kernel.
 LAUNCHES = 0
 CHEM_LAUNCHES = 0
 FLAT_LAUNCHES = 0
 REWARD_LAUNCHES = 0
+PERSISTENT_LAUNCHES = 0
 
 
 def is_flat(spec):
     """Whether ``spec`` holds a dense graph or a dense block: flat mode."""
     return any(ls.graph == "dense" for ls in spec.lattices) \
         or any(cs.op[0] == "dense" for cs in spec.conns)
+
+
+def uses_persistent(spec):
+    """Whether `network_steps` takes the persistent kernel for ``spec`` on
+    a card: a grid-mode electrical network or a reward network, neither
+    chemical nor flat, of at most `NP_MAX_LAT` lattices, `NP_MAX_TR`
+    trains and `NP_MAX_CN` connections (the kernel's description is a
+    kernel parameter of fixed size).  Other specs take the per-step
+    launches of ``net_steps``."""
+    return not spec.chem and not is_flat(spec) \
+        and len(spec.lattices) <= NP_MAX_LAT \
+        and len(spec.trains) <= NP_MAX_TR and len(spec.conns) <= NP_MAX_CN
+
+
+class Resident(NamedTuple):
+    """One member of a persistent call's residency plan."""
+    key: tuple                 # ("lat", index) or ("conn", index)
+    resident: bool             # held in shared memory for the whole call
+    offset: int                # its bytes' offset in a block's shared
+                               # memory (resident members)
+    cap: int                   # 32-cell tiles a block owns at most
+    cell_bytes: int            # bytes per cell: weights, traces, masks
+    cells: int
+
+
+def _member_layout(spec):
+    """(key, slots, traces, mask, cells) of every member whose slots only
+    its destination cell reads, in spec order: each lattice's stencil
+    graph (traces for kind mod; the mask where the steps update it), then
+    each connection (traces for a reward connection; the mask where the
+    cell phase or the visits read it)."""
+    out = []
+    for k, ls in enumerate(spec.lattices):
+        if ls.offsets:
+            out.append((("lat", k), len(ls.offsets), ls.kind == "mod",
+                        ls.kind != "plain", ls.shape[0] * ls.shape[1]))
+    for ci, cs in enumerate(spec.conns):
+        one = cs.op[0] == "one2one"
+        shp = spec.lattices[cs.post].shape
+        out.append((("conn", ci), 1 if one else len(cs.op[7]), cs.reward,
+                    one or cs.updates, shp[0] * shp[1]))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def persistent_plan(spec, n_blocks=132, budget=SMEM_BUDGET):
+    """The persistent kernel's residency plan for ``spec`` on ``n_blocks``
+    blocks (one per SM: the most cells a block can own) with ``budget``
+    bytes of shared memory a block: going through the members of
+    `_member_layout` in order, each is resident if its block share, cap =
+    ceil(ceil(cells / 32) / n_blocks) tiles of 32 cells at its bytes per
+    cell (4 a weight, 12 more with traces, 1 a mask byte, rounded up to
+    16), still fits the budget; the others stream from global memory.
+    Returns ``(members, smem)``: a `Resident` per member and the bytes of
+    shared memory a block takes.  The CUDA source only checks that each
+    resident member lies within that memory and holds the tiles a block of
+    its grid owns (``member_bytes``)."""
+    members, used = [], 0
+    for key, slots, traces, mask, cells in _member_layout(spec):
+        cap = -(-(-(-cells // 32)) // n_blocks)
+        per_cell = slots * (4 + (12 if traces else 0) + (1 if mask else 0))
+        share = -(-cap * 32 * per_cell // 16) * 16
+        fits = used + share <= budget
+        members.append(Resident(key, fits, used if fits else 0, cap,
+                                per_cell, cells))
+        used += share if fits else 0
+    return tuple(members), used
 
 
 class NetLat(NamedTuple):
@@ -299,8 +386,8 @@ def plain_network_spec(net, plan, skip_nt, st_nt=()):
     an edge or a dense connection block puts the network in flat mode,
     every lattice and train a (1, N) row with N <= `DENSE_N_MAX`; a stencil
     graph, a resample connection or a plastic lattice beside one sends the
-    network to the plain route.  The TPU gate's 128-column and VMEM
-    limits are Mosaic limits and are not copied."""
+    network to the plain route.  The TPU gate's 128-column and VMEM limits
+    are Mosaic limits and are not copied."""
     lattices = [net.lattices[i] for i in plan["lat_ids"]]
     sts = [net.spike_train_lattices[i] for i in plan["st_ids"]]
     if not lattices or any(s.update_grid_history for s in sts):
@@ -692,7 +779,7 @@ def _dense_scratch(spec, lats, conns, dev):
 
 
 def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
-                  n_steps, reward=None):
+                  n_steps, reward=None, per_step=False):
     """Advance ``n_steps`` steps of the network of ``spec``.
 
     ``lats`` holds one dict per lattice: ``v``, ``w`` (a zero plane for
@@ -727,6 +814,12 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     connection, and takes up to two gated R-STDP visits on a reward
     connection's masked slots.
 
+    On a card, a spec of `uses_persistent` takes the persistent kernel
+    (counted in `PERSISTENT_LAUNCHES`) with the residency plan of
+    `persistent_plan` at `SMEM_BUDGET` bytes of shared memory a block;
+    ``per_step=True`` takes the per-step launches instead, to compare the
+    two designs.  The results are the same bit for bit.
+
     Returns ``(lats, trains, conn_ws, extra)``: per lattice a dict of
     ``v``, ``w``, ``lft``, ``refr``, ``spikes`` (the last step's, bool),
     ``weights``, ``v_pre`` ((n_steps, rows, cols) with ``emit``, else
@@ -738,8 +831,10 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     a reward connection) and ``dopamine`` (after the last step).  The
     inputs are not modified.
     """
-    global LAUNCHES, CHEM_LAUNCHES, FLAT_LAUNCHES, REWARD_LAUNCHES
+    global LAUNCHES, CHEM_LAUNCHES, FLAT_LAUNCHES, REWARD_LAUNCHES, \
+        PERSISTENT_LAUNCHES
     _check(spec, lats, trains, conns, uniforms, clock0, n_steps, reward)
+    persistent = uses_persistent(spec) and not per_step
     dev = lats[0]["v"].device
     if dev.type == "cpu":
         return network_steps_reference(spec, lats, trains, conns, uniforms,
@@ -749,16 +844,23 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     from .. import _build
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc, out = _launch(lib, spec, lats, trains, conns, uniforms, rule,
-                          clock0, n_steps,
-                          torch.cuda.current_stream(dev).cuda_stream, reward)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if persistent:
+            rc, out = _launch_persistent(
+                lib, spec, lats, trains, conns, uniforms, rule, clock0,
+                n_steps, stream, reward, SMEM_BUDGET)
+        else:
+            rc, out = _launch(lib, spec, lats, trains, conns, uniforms, rule,
+                              clock0, n_steps, stream, reward)
     if rc != 0:
-        raise RuntimeError(f"net_steps failed with CUDA error {rc} "
+        entry = "net_persistent_steps" if persistent else "net_steps"
+        raise RuntimeError(f"{entry} failed with CUDA error {rc} "
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES += 1
     CHEM_LAUNCHES += bool(spec.chem)
     FLAT_LAUNCHES += is_flat(spec)
     REWARD_LAUNCHES += reward is not None
+    PERSISTENT_LAUNCHES += persistent
     return out
 
 
@@ -878,6 +980,173 @@ def _launch(lib, spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                for o in outs]
     tr_out = [dict(lft=o["lft"], step=o["step"], spikes=o["spikes"],
                    ntt=o["ntt"]) for o in touts]
+    extra = None if reward is None else dict(
+        traces=ctraces,
+        dopamine=dop_steps[-1] if spec.with_reward else reward["dopamine"])
+    return rc, (lat_out, tr_out, couts, extra)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _persistent_ints(spec, n_blocks, budget):
+    """The integer descriptions of ``net_persistent_steps`` for ``spec``
+    and its residency plan (they depend on nothing else): per lattice
+    PL_I ints, per train PT_I, per connection PC_I; and the plan's shared
+    memory a block."""
+    members, smem = persistent_plan(spec, n_blocks, budget)
+    plan = {m.key: m for m in members}
+    lat_i = (ctypes.c_int * (PL_I * len(spec.lattices)))()
+    for k, ls in enumerate(spec.lattices):
+        m = plan.get(("lat", k))
+        n_off = len(ls.offsets)
+        pad = [0] * (MAX_OFFSETS - n_off)
+        lat_i[PL_I * k:PL_I * (k + 1)] = [
+            MODELS.index(ls.model), KINDS.index(ls.kind), *ls.shape, n_off,
+            int(ls.emit), int(bool(m and m.resident)), m.offset if m else 0,
+            m.cap if m else 0, *[o[0] for o in ls.offsets], *pad,
+            *[o[1] for o in ls.offsets], *pad]
+    tr_i = (ctypes.c_int * max(PT_I * len(spec.trains), 1))()
+    for j, ts in enumerate(spec.trains):
+        tr_i[PT_I * j:PT_I * (j + 1)] = [
+            TRAIN_KINDS.index(ts.kind),
+            REFRACTORINESS.index(ts.refractoriness), *ts.shape]
+    cn_i = (ctypes.c_int * max(PC_I * len(spec.conns), 1))()
+    for ci, cs in enumerate(spec.conns):
+        m = plan["conn", ci]
+        if cs.op[0] == "resample":
+            _, R1, C1, _, _, fr, fc, taps = cs.op
+        else:
+            R1 = C1 = fr = fc = 0
+            taps = ((0, 0),)
+        pad = [0] * (MAX_TAPS - len(taps))
+        cn_i[PC_I * ci:PC_I * (ci + 1)] = [
+            CONN_KINDS.index(cs.op[0]), int(cs.pre_is_st), cs.pre, cs.post,
+            int(cs.pre_plastic), int(cs.post_plastic), R1, C1, fr, fc,
+            len(taps), cs.static, int(cs.reward), int(m.resident), m.offset,
+            m.cap, *[t[0] for t in taps], *pad, *[t[1] for t in taps], *pad]
+    return lat_i, tr_i, cn_i, smem
+
+
+def _persistent_outputs(spec, lats, trains, conns, n_steps, dev):
+    """Buffers of a persistent call: double-buffered lattice state and
+    spike flags, emits, the trains' firing times in three sets, and empty
+    planes for what the steps update (the kernel copies the inputs in)."""
+    outs = []
+    for ls, d in zip(spec.lattices, lats):
+        shp = ls.shape
+
+        def pair(dtype):
+            return torch.empty((2, *shp), dtype=dtype, device=dev)
+
+        upd = ls.kind != "plain" and bool(ls.offsets)
+        outs.append(dict(
+            buf=[pair(torch.float32), pair(torch.float32), pair(torch.int32),
+                 pair(torch.float32) if ls.model in REFRACTORY_MODELS
+                 else None],
+            spikes=pair(torch.bool),
+            cnt=torch.empty(shp, dtype=torch.float32, device=dev),
+            v_pre=torch.empty((n_steps, *shp), dtype=torch.float32,
+                              device=dev) if ls.emit else None,
+            weights=torch.empty_like(d["weights"]) if upd else d["weights"],
+            traces={k: torch.empty_like(v) for k, v in d["traces"].items()}
+            if ls.kind == "mod" and ls.offsets else None))
+    touts = [dict(lft=torch.empty((3, *ts.shape), dtype=torch.int32,
+                                  device=dev),
+                  step=torch.empty_like(d["step"]) if ts.kind == "rate"
+                  else None,
+                  spikes=torch.empty(ts.shape, dtype=torch.bool, device=dev))
+             for ts, d in zip(spec.trains, trains)]
+    couts = [torch.empty_like(d["w"]) if cs.updates else d["w"]
+             for cs, d in zip(spec.conns, conns)]
+    ctraces = [{k: torch.empty_like(d[k]) for k in ("c", "dw", "counter")}
+               if cs.reward else None for cs, d in zip(spec.conns, conns)]
+    return outs, touts, couts, ctraces
+
+
+def _launch_persistent(lib, spec, lats, trains, conns, uniforms, rule,
+                       clock0, n_steps, stream, reward, budget):
+    """Pack the checked inputs into the descriptions of
+    ``net_persistent_steps`` and call it on ``stream``; returns its code
+    and the outputs, laid out as `_launch`'s."""
+    dev = lats[0]["v"].device
+    n_steps = int(n_steps)
+    n_blocks = _sm_count(dev)
+    lat_i, tr_i, cn_i, smem = _persistent_ints(spec, n_blocks, budget)
+    outs, touts, couts, ctraces = _persistent_outputs(
+        spec, lats, trains, conns, n_steps, dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def part(t, s):     # the address of t[s], without making the view
+        return None if t is None \
+            else t.data_ptr() + s * t.stride(0) * t.element_size()
+
+    lat_p = (ctypes.c_void_p * (PL_P * len(lats)))()
+    for k, (ls, d, o) in enumerate(zip(spec.lattices, lats, outs)):
+        b, tr_in, tr_out = o["buf"], d.get("traces"), o["traces"]
+        lat_p[PL_P * k:PL_P * (k + 1)] = [
+            ptr(d["v"]), ptr(d["w"]), ptr(d["lft"]), ptr(d.get("refr")),
+            *[part(x, s) for s in (0, 1) for x in b],
+            part(o["spikes"], 0), part(o["spikes"], 1),
+            ptr(o["v_pre"]), ptr(d["in_deg"]), ptr(o["cnt"]),
+            ptr(d["weights"]), ptr(o["weights"]), ptr(d["mask"]),
+            *[None if tr_out is None else ptr(tr_in[key])
+              for key in ("c", "dw", "counter")],
+            *[None if tr_out is None else ptr(tr_out[key])
+              for key in ("c", "dw", "counter")],
+            *[d["params"][p].data_ptr() for p in MODEL_PARAM_KEYS[ls.model]],
+            *[None] * (13 - len(MODEL_PARAM_KEYS[ls.model]))]
+    tr_p = (ctypes.c_void_p * max(PT_P * len(trains), 1))()
+    for j, (ts, d, o, u) in enumerate(zip(spec.trains, trains, touts,
+                                          uniforms)):
+        poisson = ts.kind == "poisson"
+        tr_p[PT_P * j:PT_P * (j + 1)] = [
+            ptr(d["lft"]), *[part(o["lft"], s) for s in (0, 1, 2)],
+            ptr(d["v_th"]), ptr(d["v_resting"]), ptr(d["refr_k"]),
+            ptr(d["dt"]), ptr(d["chance"]) if poisson else None,
+            ptr(u) if poisson else None,
+            None if poisson else ptr(d["rate"]),
+            None if poisson else ptr(d["step"]), ptr(o["step"]),
+            ptr(o["spikes"])]
+    cn_p = (ctypes.c_void_p * max(PC_P * len(conns), 1))()
+    for ci, (d, w, tr) in enumerate(zip(conns, couts, ctraces)):
+        cn_p[PC_P * ci:PC_P * (ci + 1)] = [
+            ptr(d["w"]), ptr(w), ptr(d["mask"]),
+            *[None if tr is None else ptr(d[key])
+              for key in ("c", "dw", "counter")],
+            *[None if tr is None else ptr(tr[key])
+              for key in ("c", "dw", "counter")]]
+    r = rule_floats(rule)
+    rule_vec = (ctypes.c_float * 5)(*[r[k] for k in STDP_KEYS])
+    rrule = rew = dop_steps = None
+    if reward is not None:
+        rr = rule_floats(reward["rule"])
+        rrule = (ctypes.c_float * len(RSTDP_KEYS))(
+            *[rr[k] for k in RSTDP_KEYS])
+        if spec.with_reward:
+            rew = (ctypes.c_float * n_steps)(
+                *np.asarray(reward["rewards"], np.float32).tolist())
+            dop_steps = torch.empty(n_steps, dtype=torch.float32,
+                                    device=dev)
+    rc = lib.net_persistent_steps(
+        len(lats), lat_i, lat_p, len(trains), tr_i, tr_p, len(conns), cn_i,
+        cn_p, rule_vec, rrule, int(clock0), n_steps, int(spec.with_reward),
+        rew, ptr(None if reward is None else reward["dopamine"]),
+        ptr(dop_steps), smem, stream)
+    last = (n_steps - 1) % 2
+    lat_out = [dict(v=o["buf"][0][last], w=o["buf"][1][last],
+                    lft=o["buf"][2][last],
+                    refr=None if o["buf"][3] is None else o["buf"][3][last],
+                    spikes=o["spikes"][last], weights=o["weights"],
+                    traces=o["traces"], v_pre=o["v_pre"], chem=None)
+               for o in outs]
+    tr_out = [dict(lft=o["lft"][(n_steps - 1) % 3], step=o["step"],
+                   spikes=o["spikes"], ntt=None) for o in touts]
     extra = None if reward is None else dict(
         traces=ctraces,
         dopamine=dop_steps[-1] if spec.with_reward else reward["dopamine"])

@@ -355,8 +355,11 @@ def _needs_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_steps", [16, 7])
-def test_cuda_kernels_match_twin(n_steps):
-    """Built with -fmad=false, the kernels round as the twin does."""
+def test_cuda_kernels_match_twin(n_steps, monkeypatch):
+    """Built with -fmad=false, the kernels round as the twin does: the
+    persistent kernel with every member resident in shared memory and
+    with every member streamed, and the per-step design, each bit for
+    bit."""
     _needs_cuda()
     args = _call_args(n_steps)
     cuda = lambda d: {k: (v.cuda() if isinstance(v, torch.Tensor) else
@@ -367,12 +370,16 @@ def test_cuda_kernels_match_twin(n_steps):
                 trains=[cuda(d) for d in args["trains"]],
                 conns=[cuda(d) for d in args["conns"]],
                 uniforms=[u.cuda() for u in args["uniforms"]])
-    before = nk.LAUNCHES
-    got = nk.network_steps(**args)
-    torch.cuda.synchronize()
-    assert nk.LAUNCHES == before + 1
+    assert nk.uses_persistent(args["spec"])
     want = nk.network_steps_reference(**args)
-    for g, w in zip(_flat(got), _flat(want)):
-        exact = g.dtype in (torch.int32, torch.bool)
-        torch.testing.assert_close(g, w, rtol=0 if exact else RTOL,
-                                   atol=0 if exact else ATOL)
+    budget = nk.SMEM_BUDGET
+    for smem, per_step in ((budget, False), (0, False), (budget, True)):
+        monkeypatch.setattr(nk, "SMEM_BUDGET", smem)   # 0: all streamed
+        before = (nk.LAUNCHES, nk.PERSISTENT_LAUNCHES)
+        got = nk.network_steps(**args, per_step=per_step)
+        torch.cuda.synchronize()
+        assert (nk.LAUNCHES, nk.PERSISTENT_LAUNCHES) == (
+            before[0] + 1, before[1] + (not per_step))
+        assert len(_flat(got)) == len(_flat(want))
+        for g, w in zip(_flat(got), _flat(want)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -216,11 +216,14 @@ def _needs_cuda():
 
 
 @pytest.mark.cuda
-def test_kernels_equal_twin_on_card():
-    """On a GPU: the reward arm's CUDA kernels against the twin, bit for
-    bit."""
+@pytest.mark.parametrize("n_steps", [16, 7])
+def test_kernels_equal_twin_on_card(n_steps, monkeypatch):
+    """On a GPU: the reward arm against the twin, bit for bit, through the
+    persistent kernel with every member resident in shared memory and
+    with every member streamed, and through the per-step design."""
     _needs_cuda()
     args = _call_args()
+    rewards = np.linspace(-0.2, 0.6, n_steps).astype(np.float32)
 
     def cuda(d):
         return {k: (v.cuda() if isinstance(v, torch.Tensor) else
@@ -229,19 +232,30 @@ def test_kernels_equal_twin_on_card():
 
     args.update(lats=[cuda(d) for d in args["lats"]],
                 trains=[cuda(d) for d in args["trains"]],
-                conns=[cuda(d) for d in args["conns"]],
-                reward={**args["reward"],
+                conns=[cuda(d) for d in args["conns"]], n_steps=n_steps,
+                reward={**args["reward"], "rewards": rewards,
                         "dopamine": args["reward"]["dopamine"].cuda()})
-    got = nk.network_steps(**args)
-    torch.cuda.synchronize()
+    assert nk.uses_persistent(args["spec"])
     want = nk.network_steps_reference(**args)
-    for g, w in zip(got[0], want[0]):
-        for k in ("v", "w", "lft", "spikes", "weights"):
-            torch.testing.assert_close(g[k], w[k], rtol=0, atol=0)
-        if w["traces"] is not None:
-            for k, v in w["traces"].items():
-                torch.testing.assert_close(g["traces"][k], v, rtol=0, atol=0)
-    for g, w in zip(got[2], want[2]):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    torch.testing.assert_close(got[3]["dopamine"], want[3]["dopamine"],
-                               rtol=0, atol=0)
+    budget = nk.SMEM_BUDGET
+    for smem, per_step in ((budget, False), (0, False), (budget, True)):
+        monkeypatch.setattr(nk, "SMEM_BUDGET", smem)   # 0: all streamed
+        before = nk.PERSISTENT_LAUNCHES
+        got = nk.network_steps(**args, per_step=per_step)
+        torch.cuda.synchronize()
+        assert nk.PERSISTENT_LAUNCHES == before + (not per_step)
+        for g, w in zip(got[0], want[0]):
+            for k in ("v", "w", "lft", "spikes", "weights"):
+                torch.testing.assert_close(g[k], w[k], rtol=0, atol=0)
+            if w["traces"] is not None:
+                for k, v in w["traces"].items():
+                    torch.testing.assert_close(g["traces"][k], v, rtol=0,
+                                               atol=0)
+        for g, w in zip(got[2], want[2]):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        for g, w in zip(got[3]["traces"], want[3]["traces"]):
+            if w is not None:
+                for k, v in w.items():
+                    torch.testing.assert_close(g[k], v, rtol=0, atol=0)
+        torch.testing.assert_close(got[3]["dopamine"], want[3]["dopamine"],
+                                   rtol=0, atol=0)
