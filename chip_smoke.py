@@ -1391,9 +1391,12 @@ def net_outputs(out):
         if d.get("traces") is not None:
             pairs += [(f"{key}{k}", d["traces"][key])
                       for key in ("c", "dw", "counter")]
+        if d.get("chem") is not None:
+            pairs += [(f"{key}{k}", x) for key, x in sorted(d["chem"].items())]
     for j, d in enumerate(tr):
         pairs += [(f"train {key}{j}", d[key])
-                  for key in ("lft", "spikes", "step") if d.get(key) is not None]
+                  for key in ("lft", "spikes", "step", "ntt")
+                  if d.get(key) is not None]
     pairs += [(f"conn{c}", w) for c, w in enumerate(cn)]
     if extra is not None:
         for c, t in enumerate(extra["traces"]):
@@ -1423,17 +1426,43 @@ def bit_mismatches(got, want):
 
 
 def per_step_launches(spec, n_steps):
-    """Kernel launches of one call of the per-step design (`net_steps`) on
-    a grid-mode spec: cnt per lattice, the dopamine per 16 rewards, then
-    per step a cell kernel per lattice, an edge kernel per plastic or mod
-    lattice with offsets and per updating connection, a train kernel per
-    train."""
+    """Kernel launches of one call of the per-step design (`net_steps`):
+    cnt per lattice, the dense jobs' constants (one launch per 32 dense
+    graphs and blocks), the dopamine per 16 rewards, then per step the
+    effects of each train that feeds a dense block, the dense gathers, a
+    cell kernel per lattice, an edge kernel per plastic or mod lattice
+    with offsets and per updating connection, a train kernel per train."""
+    jobs = sum(ls.graph == "dense" for ls in spec.lattices) \
+        + sum(cs.op[0] == "dense" for cs in spec.conns)
+    gathers = -(-jobs // 32)
     per = (len(spec.lattices)
            + sum(ls.kind != "plain" and bool(ls.offsets)
                  for ls in spec.lattices)
-           + sum(cs.updates for cs in spec.conns) + len(spec.trains))
-    return len(spec.lattices) + (-(-n_steps // 16) if spec.with_reward
-                                 else 0) + n_steps * per
+           + sum(cs.updates for cs in spec.conns) + len(spec.trains)
+           + sum(cs.op[0] == "dense" and cs.pre_is_st for cs in spec.conns)
+           + gathers)
+    return len(spec.lattices) + gathers + (
+        -(-n_steps // 16) if spec.with_reward else 0) + n_steps * per
+
+
+def persistent_call(nk, args, clock, k, reward=None):
+    """One call of the persistent kernel on ``args`` whatever route
+    `uses_persistent` gives its spec (its launcher, at `SMEM_BUDGET`),
+    checked, not counted: the comparison of the designs."""
+    from spiking_neural_networks_tpu_torch import _build
+    rc, out = nk._launch_persistent(
+        _build.load(), *args, clock, k,
+        torch.cuda.current_stream().cuda_stream, reward, nk.SMEM_BUDGET)
+    check(rc == 0, f"net_persistent_steps failed with CUDA error {rc}")
+    return out
+
+
+# the persistent kernel's instantiations (`net_persistent_info`'s variant:
+# chemical + 2 flat) and their template arguments in ptxas's entry names
+NP_VARIANTS = (("electrical", "ILi640ELb0ELb0E"),
+               ("chemical", "ILi512ELb1ELb0E"),
+               ("flat", "ILi512ELb0ELb1E"),
+               ("flat-chemical", "ILi512ELb1ELb1E"))
 
 
 def persistent_info(nk, spec):
@@ -1444,10 +1473,33 @@ def persistent_info(nk, spec):
     members, smem = nk.persistent_plan(spec, nk._sm_count(
         torch.device("cuda")))
     out = (ctypes.c_int * 6)()
-    rc = _build.load().net_persistent_info(smem, out)
+    variant = bool(spec.chem) + 2 * nk.is_flat(spec)
+    rc = _build.load().net_persistent_info(variant, smem, out)
     check(rc == 0, f"net_persistent_info failed with CUDA error {rc}")
     return members, smem, dict(regs=out[0], local=out[1], static=out[2],
                                blocks=out[4], sms=out[5])
+
+
+def variant_lines(nk, variants):
+    """Per instantiation in ``variants`` (indices of `NP_VARIANTS`): its
+    ptxas lines, registers, local (spill and stack) bytes a thread and
+    grid at no resident member; fails on spills.  Returns the lines and
+    the registers of each."""
+    from spiking_neural_networks_tpu_torch import _build
+    lines, regs = [], []
+    for v in variants:
+        name, tag = NP_VARIANTS[v]
+        out = (ctypes.c_int * 6)()
+        rc = _build.load().net_persistent_info(v, 0, out)
+        check(rc == 0, f"net_persistent_info failed with CUDA error {rc}")
+        ptx = " / ".join(ptxas_lines("net_persistent_kernel" + tag)) \
+            or "ptxas: cached build"
+        check(out[1] == 0, f"the {name} instantiation spills")
+        lines.append(f"{name} instantiation: {ptx}; {out[0]} registers, "
+                     f"{out[1]} local bytes a thread, blocks of {out[3]} "
+                     f"threads")
+        regs.append(out[0])
+    return lines, regs
 
 
 def plan_line(members, smem):
@@ -1488,14 +1540,18 @@ def sync_us(blocks, n_syncs=1000):
 
 def design_times(nk, args, clock, k, reward=None, reps=10, count=True):
     """Both designs of one K-step call on the same inputs, in turns
-    (persistent, per-step, per-step, persistent): per design (wall us per
+    (persistent, per-step, per-step, persistent; the persistent kernel
+    through `network_steps` where the spec's route takes it, else through
+    `persistent_call`): per design (wall us per
     step of back-to-back calls to a synchronise, CUDA-event us per step,
     profiled device us per step, kernel launches per call).  With
     ``count``, the profile of ``reps`` calls must hold every launch's
     record; without, its device time sums the records that came back."""
     spec = args[0]
-    calls = {"persistent": lambda: nk.network_steps(*args, clock, k,
-                                                    reward),
+    routed = nk.uses_persistent(spec, nk._sm_count(torch.device("cuda")))
+    calls = {"persistent": (lambda: nk.network_steps(*args, clock, k,
+                                                     reward)) if routed
+             else (lambda: persistent_call(nk, args, clock, k, reward)),
              "per_step": lambda: nk.network_steps(*args, clock, k, reward,
                                                   per_step=True)}
     launches = {"persistent": -(-k // nk.STEPS_PER_LAUNCH),
@@ -1610,7 +1666,8 @@ def network_twin_phase(snt, nk, smi):
                       for ls in spec.lattices)
             bounds = bound(tensor_bytes(lats, trains, conns, uniforms, got),
                            ops)
-            ptx = " / ".join(ptxas_lines("net_persistent_kernel")) \
+            ptx = " / ".join(ptxas_lines("net_persistent_kernel"
+                                         + NP_VARIANTS[0][1])) \
                 or "ptxas: cached build"
             say(f"[11 persistent kernel] {ptx}; {info['regs']} registers, "
                 f"{info['local']} local bytes a thread, {info['static']} "
@@ -2454,29 +2511,48 @@ def chem_ops(spec, lats, conns, k):
 
 def chem_phases(snt, smi):
     from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
-    max_err, times, bounds, launches = chem_twin_phase(snt, nk, smi)
+    res = chem_twin_phase(snt, nk, smi)
     chem_cmp_phase(snt)
     chem_times_phase(snt, smi)
-    return {"name": "network_steps (chemical arm)", "route": "cuda",
-            "source": "spiking_neural_networks_tpu_torch/csrc/"
-                      "network_plasticity.cu",
-            "replaces": CHEM_REPLACES, "launches": launches,
-            "max_abs_err": max_err,
-            "ms": times[0] * nk.STEPS_PER_LAUNCH,
-            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
-            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
-            "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None}
+    out = []
+    for key, name, source in (
+            ("persistent", "network_persistent (chemical arm)",
+             "network_persistent.cu"),
+            ("per_step", "network_steps (chemical arm, per step)",
+             "network_plasticity.cu")):
+        r = res[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/" + source,
+            "replaces": CHEM_REPLACES, "launches": res["launches"][key],
+            "max_abs_err": res["max_err"], "shape": r["shape"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "device_ms": r["device_ms"],
+            "other_design_ms": r["other_ms"],
+            "other_design_device_ms": r["other_device_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None})
+    return out
 
 
 def chem_twin_phase(snt, nk, smi):
     """19. The chemical arm vs its plain twin on the card: every family x
-    receptor kinetics x NT kinetics on random cases, then the 64^2 main
-    path, its dopamine form and the 512^2 main path through `run_lattices`,
-    every call of their first `CTWIN_STEPS` (64^2 bench.py form) or
-    `CTWIN_SHORT` steps on the state that call received; returns (max float
-    error, (kernel, twin, device) ms per step at 512^2, the bound of a
-    512^2 call, the main paths' chemical kernel calls)."""
+    receptor kinetics x NT kinetics on random cases, the persistent kernel
+    and the per-step design each bit for bit; then the 64^2 main path, its
+    dopamine form and the 512^2 main path through `run_lattices`, every
+    call of their first `CTWIN_STEPS` (64^2 bench.py form) or
+    `CTWIN_SHORT` steps on the state that call received, and both designs
+    timed in turns on each one's first call.  Returns {"max_err",
+    "launches": {design: main-path calls}, design: {"shape", "ms",
+    "plain_ms", "device_ms", "other_ms", "other_device_ms", "bound"} of a
+    16-step call where the route takes that design (64^2 persistent,
+    512^2 per step)}."""
     import itertools
+    sms = nk._sm_count(torch.device("cuda"))
+    lines, regs = variant_lines(nk, (0, 1))
+    for line in lines:
+        say(f"[19 persistent kernel] {line}; card {smi}")
+    check(regs[0] == 96, "the electrical instantiation left 96 registers")
     max_err, n_cases = 0.0, 0
     models = ("izh", "alif", "dopa")
     for seed, (fam, rec, nt) in enumerate(itertools.product(
@@ -2494,16 +2570,21 @@ def chem_twin_phase(snt, nk, smi):
         got = nk.network_steps(*args, 3, k)
         torch.cuda.synchronize()
         want = nk.network_steps_reference(*args, 3, k)
+        bits = (bit_mismatches(persistent_call(nk, args, 3, k), want),
+                bit_mismatches(nk.network_steps(*args, 3, k, per_step=True),
+                               want))
         err, bad, _ = compare_chem(got, want)
         fired = sum(int((d["lft"] >= 3).sum()) for d in got[0])
         nmda = got[0][1]["chem"].get("rec$nmda_modifier")
         say(f"[19 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} {fam} {rec}/{nt}"
             f" {model} electrical={elec} plastic={plastic} {train}: integer "
-            f"and spike mismatches {bad}, max float error {err:.3g}, fired "
+            f"and spike mismatches {bad}, max float error {err:.3g}, outputs "
+            f"not bit-equal: persistent {bits[0]}, per step {bits[1]}, fired "
             f"{fired}" + ("" if nmda is None else
                           f", nmda_mod in [{nmda.min().item():.3f}, "
                           f"{nmda.max().item():.3f}]"))
         check(bad == 0, "firing times, spikes or counts differ")
+        check(bits == ([], []), "a design is not bit-equal to the twin")
         check(fired > 0, "no neuron fired in the call")
         check(all(bool(torch.isfinite(x).all()) for _, x in flat_outputs(got)
                   if x.is_floating_point()), "a random case went non-finite")
@@ -2512,8 +2593,8 @@ def chem_twin_phase(snt, nk, smi):
     # the main paths through `run_lattices`: every call of the first
     # `held` steps held against the twin on the state that call received,
     # then the rest of the run in one call
-    times = bounds = None
-    launches = 0
+    out = {"launches": {"persistent": 0, "per_step": 0}}
+    K = nk.STEPS_PER_LAUNCH
     keys = ("v", "w", "lft", "spikes", "refr", "chem")
     for label, shape, steps, dopamine, held in (
             ("bench.py form", CMAIN, CMAIN_STEPS, False, CTWIN_STEPS),
@@ -2521,12 +2602,12 @@ def chem_twin_phase(snt, nk, smi):
             ("bench.py form", CBIG, CBIG_STEPS, False, CTWIN_SHORT)):
         net = chem_net(snt, *shape, dopamine=dopamine)
         bad, err, fired, nmda_moved = 0, 0.0, 0, False
-        nk.LAUNCHES = nk.CHEM_LAUNCHES = 0
-        for call in range(steps // nk.STEPS_PER_LAUNCH):
+        nk.LAUNCHES = nk.CHEM_LAUNCHES = nk.PERSISTENT_LAUNCHES = 0
+        for call in range(steps // K):
             clock = net.internal_clock
-            if call * nk.STEPS_PER_LAUNCH >= held:
+            if call * K >= held:
                 # the rest of the run in one call, not held against the twin
-                net.run_lattices(steps - call * nk.STEPS_PER_LAUNCH)
+                net.run_lattices(steps - call * K)
                 torch.cuda.synchronize()
                 check(net._last_run_fused == ("chemical", False),
                       "the main path missed the chemical arm")
@@ -2539,18 +2620,17 @@ def chem_twin_phase(snt, nk, smi):
             g = torch.Generator(device="cuda")
             g.set_state(net.generator().get_state())
             spec, lats, trains, conns, _, rule = chem_inputs(nk, net, 1, 0)
-            uniforms = [torch.rand((nk.STEPS_PER_LAUNCH, *ts.shape),
-                                   generator=g, device="cuda")
+            uniforms = [torch.rand((K, *ts.shape), generator=g,
+                                   device="cuda")
                         if ts.kind == "poisson" else None
                         for ts in spec.trains]
             args = (spec, lats, trains, conns, uniforms, rule)
-            want = nk.network_steps_reference(*args, clock,
-                                              nk.STEPS_PER_LAUNCH)
+            want = nk.network_steps_reference(*args, clock, K)
             if call == 0:
                 # timed after the run: the wrapper leaves its inputs as
                 # they were, and the run replaces the state's tensors
                 timed = (args, clock)
-            net.run_lattices(nk.STEPS_PER_LAUNCH)
+            net.run_lattices(K)
             torch.cuda.synchronize()
             check(net._last_run_fused == ("chemical", False),
                   "the main path missed the chemical arm")
@@ -2574,8 +2654,10 @@ def chem_twin_phase(snt, nk, smi):
             fired += sum(int((d["lft"] >= clock).sum()) for d in got[0])
             nmda_moved |= any(bool((d["chem"]["rec$nmda_modifier"] != 1.0)
                                    .any()) for d in got[0])
-        calls = nk.CHEM_LAUNCHES
-        launches += calls
+        calls, pers = nk.CHEM_LAUNCHES, nk.PERSISTENT_LAUNCHES
+        routed = nk.uses_persistent(spec, sms)
+        out["launches"]["persistent"] += pers
+        out["launches"]["per_step"] += calls - pers
         states = [l.state for l in net.lattices.values()] \
             + [s.state for s in net.spike_train_lattices.values()]
         finite = all(bool(torch.isfinite(x).all()) for st in states
@@ -2583,55 +2665,63 @@ def chem_twin_phase(snt, nk, smi):
         per_lat = [int((l.state["last_firing_time"] >= 0).sum())
                    for l in net.lattices.values()]
         l1 = net.lattices[1].state
+        members, smem = nk.persistent_plan(spec, sms, nk.SMEM_BUDGET)
         say(f"[19 main path] chemical {label} {shape[0]}x{shape[1]}, "
             f"run_lattices over {steps} steps, every call of the first "
             f"{min(steps, held)} against the twin: route "
-            f"{net._last_run_fused}, kernel calls {calls}, integer and spike "
-            f"mismatches {bad}, max float error {err:.3g}, state finite "
-            f"{finite}, fired per lattice {per_lat} of "
-            f"{shape[0] * shape[1]}, lattice 1 max nt$t "
+            f"{net._last_run_fused}, kernel calls {calls} (persistent "
+            f"{pers}), integer and spike mismatches {bad}, max float error "
+            f"{err:.3g}, state finite {finite}, fired per lattice {per_lat} "
+            f"of {shape[0] * shape[1]}, lattice 1 max nt$t "
             f"{l1['nt$t'].max().item():.4g}, max rec$r "
             f"{l1['rec$r'].max().item():.4g}, nmda_mod range "
             f"[{l1['rec$nmda_modifier'].min().item():.4f}, "
-            f"{l1['rec$nmda_modifier'].max().item():.4f}]")
+            f"{l1['rec$nmda_modifier'].max().item():.4f}]; plan "
+            f"{plan_line(members, smem)}")
         check(bad == 0, "firing times or spikes differ on the main path's "
               "inputs")
-        check(calls == nk.LAUNCHES == steps // nk.STEPS_PER_LAUNCH,
-              "wrong number of chemical kernel calls")
+        check(calls == nk.LAUNCHES == steps // K
+              and pers == (calls if routed else 0),
+              "wrong number of chemical kernel calls or persistent launches")
         check(finite and fired > 0 and l1["rec$r"].max().item() > 0,
               f"chemical {label}: non-finite state, no neuron fired or "
               f"lattice 1 without transmitter")
         check(nmda_moved == dopamine, "nmda_mod moved only with dopamine")
         max_err = max(max_err, err)
         del net
-        if shape == CBIG:
-            args, clock = timed
-            spec, lats, trains, conns, uniforms, _ = args
-            kernel = lambda: nk.network_steps(*args, clock,
-                                              nk.STEPS_PER_LAUNCH)
-            bounds = bound(chem_bytes(spec, lats, trains, conns, uniforms,
-                                      kernel()),
-                           chem_ops(spec, lats, conns, nk.STEPS_PER_LAUNCH))
-            dev_us, top = profiled_us(
-                lambda: [kernel() for _ in range(10)],
-                10 * nk.STEPS_PER_LAUNCH, n_top=4)
-            times = (event_ms(kernel, 10) / nk.STEPS_PER_LAUNCH,
-                     event_ms(lambda: nk.network_steps_reference(
-                         *args, clock, nk.STEPS_PER_LAUNCH), 3)
-                     / nk.STEPS_PER_LAUNCH, dev_us / 1e3)
-            say(f"[19 kernel-vs-twin] main path {shape[0]}x{shape[1]} "
-                f"K={nk.STEPS_PER_LAUNCH} per step: kernel calls back to "
-                f"back {times[0] * 1e3:.3f} us (events), of which device "
-                f"time {dev_us:.3f} us (profiled: "
-                + ", ".join(f"{n} {t:.3f}" for n, t in top)
-                + f"); plain twin {times[1] * 1e3:.3f} us (events); "
-                f"bound {bounds[0] * 1e3 / nk.STEPS_PER_LAUNCH:.3f} us "
-                f"({bounds[1]}); card {smi}")
-            del timed, args
+        # both designs on the run's first call, in turns; the bound and
+        # the twin
+        args, clock = timed
+        spec, lats, trains, conns, uniforms, _ = args
+        got = persistent_call(nk, args, clock, K)
+        call_bound = bound(chem_bytes(spec, lats, trains, conns, uniforms,
+                                      got),
+                           chem_ops(spec, lats, conns, K))
+        d = design_times(nk, args, clock, K)
+        twin = event_ms(lambda: nk.network_steps_reference(*args, clock, K),
+                        3) / K * 1e3
+        say(f"[19 times] chemical {label} {shape[0]}x{shape[1]}, 16-step "
+            f"calls, the designs in turns "
+            f"({'persistent' if routed else 'per-step'} on the route): "
+            f"{design_line(d)}; plain twin {twin:.3f} us "
+            f"(events); bound {call_bound[0] * 1e3 / K:.4f} us "
+            f"({call_bound[1]}); card {smi}")
+        key = "persistent" if routed else "per_step"
+        other = "per_step" if routed else "persistent"
+        if not dopamine and key not in out:
+            out[key] = dict(
+                shape=f"2 x {shape[0]}x{shape[1]}", ms=d[key][1] * K / 1e3,
+                plain_ms=twin * K / 1e3, device_ms=d[key][2] * K / 1e3,
+                other_ms=d[other][1] * K / 1e3,
+                other_device_ms=d[other][2] * K / 1e3, bound=call_bound)
+        del timed, args, got
+    check("persistent" in out and "per_step" in out,
+          "the chemical main paths did not take both designs")
     say(f"[19 kernel-vs-twin] max float error over {n_cases} random cases "
         f"and the main paths {max_err:.3g} (tolerance rtol {RTOL}, atol "
         f"{ATOL}; 0 = bit-equal)")
-    return max_err, times, bounds, launches
+    out["max_err"] = max_err
+    return out
 
 
 def chem_cmp_phase(snt):
@@ -2959,14 +3049,17 @@ def flat_phases(snt, smi):
     max_err, times, bounds, launches, lib_ms = flat_twin_phase(snt, nk, smi)
     flat_cmp_phase(snt)
     flat_times_phase(snt, smi)
-    return {"name": "network_steps (flat-mode arm)", "route": "cuda",
+    K = nk.STEPS_PER_LAUNCH
+    return {"name": "network_persistent (flat-mode arm)", "route": "cuda",
             "source": "spiking_neural_networks_tpu_torch/csrc/"
-                      "network_plasticity.cu",
+                      "network_persistent.cu",
             "replaces": FLAT_REPLACES, "launches": launches,
             "max_abs_err": max_err,
-            "ms": times[0] * nk.STEPS_PER_LAUNCH,
-            "plain_ms": times[1] * nk.STEPS_PER_LAUNCH,
-            "device_ms": times[2] * nk.STEPS_PER_LAUNCH,
+            "ms": times["persistent"][1] * K / 1e3,
+            "plain_ms": times["twin"] * K / 1e3,
+            "device_ms": times["persistent"][2] * K / 1e3,
+            "other_design_ms": times["per_step"][1] * K / 1e3,
+            "other_design_device_ms": times["per_step"][2] * K / 1e3,
             "bound_ms": bounds[0], "bound_by": bounds[1],
             "library_ms": lib_ms,
             "library_call": f"torch.mv on one ({DENSE_N}, {DENSE_N}) float32 "
@@ -2979,11 +3072,16 @@ def flat_twin_phase(snt, nk, smi):
     kinetics, dense graphs, dense blocks and both, Poisson and Rate trains,
     N in `FLAT_NS`; then the three main paths through `run_lattices`, every
     call of their first `FTWIN_STEPS` steps on the state that call
-    received.  Returns (max float error, (kernel, twin, device) ms per
-    step of the N = 512 Bayesian
-    network, that call's bound, the main paths' flat-mode kernel calls,
-    the ms of one `torch.mv` on a (512, 512) matrix)."""
+    received, and both designs timed in turns on each one's first call.
+    Returns (max float error, {design: design_times' tuple, "twin": us per
+    step} of the N = 512 Bayesian network, that call's bound, the main
+    paths' flat-mode kernel calls, the ms of one `torch.mv` on a (512,
+    512) matrix)."""
     import itertools
+    sms = nk._sm_count(torch.device("cuda"))
+    lines, _ = variant_lines(nk, (2, 3))
+    for line in lines:
+        say(f"[22 persistent kernel] {line}; card {smi}")
     max_err, n_cases = 0.0, 0
     kinetics = list(itertools.product(nk.REC_KINDS, nk.NT_KINDS))
     for seed, (n, mode, chem) in enumerate(itertools.product(
@@ -3001,17 +3099,27 @@ def flat_twin_phase(snt, nk, smi):
                         seed)
         args = chem_inputs(nk, net, k, seed, chem)
         check(nk.is_flat(args[0]), "a random case is not in flat mode")
+        check(nk.uses_persistent(args[0], sms),
+              "a flat case missed the persistent kernel's route")
+        before = nk.PERSISTENT_LAUNCHES
         got = nk.network_steps(*args, 3, k)
         torch.cuda.synchronize()
         want = nk.network_steps_reference(*args, 3, k)
+        per_step = bit_mismatches(
+            nk.network_steps(*args, 3, k, per_step=True), want)
         err, bad, _ = compare_chem(got, want)
+        bits = (bit_mismatches(got, want), per_step)
         fired = sum(int((d["lft"] >= 3).sum()) for d in got[0])
         what = f"{fam} {rec}/{nt} electrical={elec}" if chem \
             else "electrical only"
         say(f"[22 kernel-vs-twin] N={n} mode={mode} K={k} {model} {what} "
             f"{train}: integer and spike mismatches {bad}, max float error "
-            f"{err:.3g}, fired {fired}")
+            f"{err:.3g}, outputs not bit-equal: persistent {bits[0]}, per "
+            f"step {bits[1]}, fired {fired}")
         check(bad == 0, "firing times, spikes or counts differ")
+        check(bits == ([], []) and nk.PERSISTENT_LAUNCHES == before + 1,
+              "a design is not bit-equal to the twin, or the call missed "
+              "the persistent kernel")
         check(err == 0.0, "the flat arm is not bit-equal to its twin")
         check(fired > 0, "no neuron fired in the call")
         check(all(bool(torch.isfinite(x).all()) for _, x in flat_outputs(got)
@@ -3041,6 +3149,7 @@ def flat_twin_phase(snt, nk, smi):
         chem = route[0] == "flat-chemical"
         bad, err, fired, herr, timed = 0, 0.0, 0, 0.0, None
         nk.LAUNCHES = nk.CHEM_LAUNCHES = nk.FLAT_LAUNCHES = 0
+        nk.PERSISTENT_LAUNCHES = 0
         done = 0
         while done < steps:
             n = min(K, steps - done)
@@ -3124,30 +3233,31 @@ def flat_twin_phase(snt, nk, smi):
             f"{fired}{extra}")
         check(bad == 0 and err == 0.0, "the main path differs from the twin")
         check(calls == nk.LAUNCHES == -(-steps // K)
-              and nk.CHEM_LAUNCHES == (calls if chem else 0),
-              "wrong number of flat-mode kernel calls")
+              and nk.CHEM_LAUNCHES == (calls if chem else 0)
+              and nk.PERSISTENT_LAUNCHES == calls,
+              "wrong number of flat-mode kernel calls or persistent "
+              "launches")
         check(finite and fired > 0, f"{label}: non-finite state or no spike")
-        # one 16-step call on the state the run started from: events,
-        # profiled device time, the twin and the bound
+        # one 16-step call on the state the run started from: both designs
+        # in turns, the twin and the bound
         args, clock = timed
         spec, lats, trains, conns, uniforms, _ = args
-        kernel = lambda: nk.network_steps(*args, clock, K)
+        members, smem = nk.persistent_plan(spec, sms, nk.SMEM_BUDGET)
         call_bound = bound(chem_bytes(spec, lats, trains, conns, uniforms,
-                                      kernel()),
+                                      nk.network_steps(*args, clock, K)),
                            flat_ops(spec, lats, conns, K))
-        dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
-                                  10 * K, n_top=4)
-        call_times = (event_ms(kernel, 10) / K,
-                      event_ms(lambda: nk.network_steps_reference(
-                          *args, clock, K), 2) / K, dev_us / 1e3)
-        say(f"[22 kernel-vs-twin] main path {label} K={K} per step: kernel "
-            f"calls back to back {call_times[0] * 1e3:.3f} us (events), of "
-            f"which device time {dev_us:.3f} us (profiled: "
-            + ", ".join(f"{n} {t:.3f}" for n, t in top)
-            + f"); plain twin {call_times[1] * 1e3:.3f} us (events); bound "
-            f"{call_bound[0] * 1e3 / K:.4f} us ({call_bound[1]}); card {smi}")
+        d = design_times(nk, args, clock, K)
+        twin = event_ms(lambda: nk.network_steps_reference(
+            *args, clock, K), 2) / K * 1e3
+        say(f"[22 times] main path {label}, 16-step calls, the designs in "
+            f"turns: {design_line(d)}; plain twin {twin:.3f} us (events); "
+            f"bound {call_bound[0] * 1e3 / K:.4f} us ({call_bound[1]}); "
+            f"plan {plan_line(members, smem)}; card {smi}")
         if chem and net.lattices[1].n == DENSE_N:
-            times, bounds = call_times, call_bound    # the full-width call
+            # the full-width call
+            times = {key: v for key, v in d.items()}
+            times["twin"] = twin
+            bounds = call_bound
         del net, timed
     wm = torch.randn((DENSE_N, DENSE_N), device="cuda")
     vec = torch.randn(DENSE_N, device="cuda")
@@ -5020,11 +5130,13 @@ def main():
                            nk.NLC_P, nk.NTC_P, nk.DENSE_N_MAX, nk.DENSE_SEG],
           f"the network kernels' limits {list(limits)} differ from their "
           f"wrapper's")
-    plimits = (ctypes.c_int * 11)()
+    plimits = (ctypes.c_int * 14)()
     lib.net_persistent_limits(plimits)
-    check(list(plimits) == [nk.NP_MAX_LAT, nk.NP_MAX_TR, nk.NP_MAX_CN,
-                            nk.PL_I, nk.PL_P, nk.PT_I, nk.PT_P, nk.PC_I,
-                            nk.PC_P, nk.NP_THREADS, nk.STEPS_PER_LAUNCH],
+    check(list(plimits[:13]) == [nk.NP_MAX_LAT, nk.NP_MAX_TR, nk.NP_MAX_CN,
+                                 nk.PL_I, nk.PL_P, nk.PT_I, nk.PT_P, nk.PC_I,
+                                 nk.PC_P, nk.NP_THREADS, nk.STEPS_PER_LAUNCH,
+                                 nk.NP_THREADS_CHEM, nk.NP_FLAT_SCRATCH]
+          and plimits[13] <= 232448 - nk.SMEM_BUDGET,
           f"the persistent kernel's limits {list(plimits)} differ from its "
           f"wrapper's")
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
@@ -5040,7 +5152,8 @@ def main():
                    hh_phases, chem_phases, flat_phases, reward_phases,
                    env_phases, model_phases):
         t0 = time.perf_counter()
-        kernels.append(phases(snt, smi))
+        out = phases(snt, smi)
+        kernels += out if isinstance(out, list) else [out]
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)

@@ -189,7 +189,7 @@ def load():
     lib.net_steps.restype = ci
     lib.net_persistent_limits.argtypes = [pi]
     lib.net_persistent_limits.restype = None
-    lib.net_persistent_info.argtypes = [ci, pi]     # smem, out[6]
+    lib.net_persistent_info.argtypes = [ci, ci, pi]  # variant, smem, out
     lib.net_persistent_info.restype = ci
     lib.net_persistent_sync_probe.argtypes = [ci, ci, vp]
     lib.net_persistent_sync_probe.restype = ci
@@ -198,6 +198,7 @@ def load():
         ci, pi, pv,                         # trains
         ci, pi, pv,                         # connections
         pf, pf,                             # rule[5], rrule[9] (nullable)
+        pi,                                 # chemical ints[4]
         ci, ci, ci,                         # clock0, n_steps, with_reward
         pf, vp, vp,                         # rewards, dop_in, dop_steps
         ci,                                 # smem

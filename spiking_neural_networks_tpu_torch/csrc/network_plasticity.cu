@@ -46,13 +46,15 @@
 // time); at 512 x 512 memory traffic, about 120 bytes per cell and step
 // for a radius-2 lattice and 16 bytes per cell and tap for a connection
 // (computed from the shapes), the weights read by the cell kernel and
-// again by the edge kernels.  So grid-mode electrical networks and reward
-// networks take the persistent kernel of network_persistent.cu (one
+// again by the edge kernels.  So grid-mode electrical networks, reward
+// networks, flat mode and chemical networks whose residency plan holds
+// every member take the persistent kernel of network_persistent.cu (one
 // cooperative launch per call, step k-1's edge passes fused into step k's
-// cell phase, the owned weights in shared memory); these per-step
-// launches serve the chemical arm, flat mode and grid-mode specs of more
-// members than the persistent kernel's description holds (8 lattices, 8
-// trains, 16 connections), and the other specs only through
+// cell phase, what only a cell's owner reads in shared memory); these
+// per-step launches serve chemical networks with streamed members (2 x
+// 512^2: 98 against 159 us a step of device time on an H100), specs of
+// more members than the persistent kernel's description holds (8
+// lattices, 8 trains, 16 connections), and the other specs only through
 // network_steps(..., per_step=True), to compare the designs.
 //
 // The chemical arm (the chemical form of _make_kernel, pallas_reward.py
@@ -110,7 +112,9 @@
 // 12; the step is bound by the host's 5 launches (95-98 us of wall time).
 // One thread per destination walking its 512 sources in index order, the
 // first design, took 438 us of device time per step: a full L2 latency per
-// source on one warp per SM.
+// source on one warp per SM.  Flat mode's main path now takes the
+// persistent kernel's flat instantiation (network_persistent.cu); these
+// launches serve network_steps(..., per_step=True).
 
 // The reward arm (the reward-network form of _make_kernel, built by
 // pallas_reward.py network_runner, :1863-1929; the step :863-987): a

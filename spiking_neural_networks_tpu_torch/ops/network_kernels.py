@@ -92,19 +92,22 @@ on each reward connection's masked slots one R-STDP visit where its count
 second where it is >= 2; the trains last.  The R-STDP deltas take the
 reward rule's parameters, the STDP ones the lattices' rule.
 
-On a GPU these are hand-written CUDA kernels.  Grid-mode electrical
-networks and reward networks (`uses_persistent`) take the persistent
-kernel, ``csrc/network_persistent.cu``: one cooperative launch per call of
-up to 16 steps, step k-1's edge passes fused into step k's cell phase, and
-what only a cell's owner reads held in shared memory where
-`persistent_plan` fits it.  The chemical arm and flat mode take the
-per-step launches of ``csrc/network_plasticity.cu`` (with the intra STDP
-kernel of ``csrc/lattice_plasticity.cu`` and the chemical device code of
-``csrc/chem_common.cuh``), and so do grid-mode specs of more members than
-the persistent kernel's description holds; the other specs reach them only
-through ``network_steps(..., per_step=True)``.  `network_steps` launches
-them for CUDA tensors and runs the plain twin `network_steps_reference`
-for CPU tensors.  A build or launch failure raises; nothing falls back.  The
+On a GPU these are hand-written CUDA kernels.  Specs of `uses_persistent`
+take the persistent kernel, ``csrc/network_persistent.cu``: one cooperative
+launch per call of up to 16 steps, step k-1's edge passes fused into step
+k's cell phase, and what only a cell's owner reads (weights, masks,
+traces, a chemical cell's parameters and gating state, a flat tile's dense
+weight columns) held in shared memory where `persistent_plan` fits it; an
+instantiation for grid-mode electrical and reward networks, one for the
+chemical arm, and two for flat mode.  A chemical spec whose plan streams a
+member, and specs of more members than the persistent kernel's
+description holds, take the per-step launches of
+``csrc/network_plasticity.cu`` (with the intra STDP kernel of
+``csrc/lattice_plasticity.cu`` and the chemical device code of
+``csrc/chem_common.cuh``); the other specs reach them only through
+``network_steps(..., per_step=True)``.  `network_steps` launches them for
+CUDA tensors and runs the plain twin `network_steps_reference` for CPU
+tensors.  A build or launch failure raises; nothing falls back.  The
 Poisson uniforms of a call are drawn on the device with ``torch.rand``
 from the network's generator: input data, as the TPU kernel's per-chunk
 draw is.
@@ -160,14 +163,18 @@ NC_I, NC_P = 13, 7
 NLC_P, NTC_P = 32, 8
 RSTDP_KEYS = STDP_KEYS + ("tau_c", "exp_dc", "tau_d", "exp_dd")
 # the persistent kernel (csrc/network_persistent.cu): members it takes,
-# the strides of its flat descriptions, its block size, and the shared
-# memory of a block on an H100 (227 KB) for resident members, less 16 KB
-# for the copy of the kernel's description (12.7 KB) and its static use
+# the strides of its flat descriptions, its block sizes (the electrical
+# grid instantiation; the chemical and flat ones), flat mode's scratch in
+# a block's shared memory, and the shared memory of a block on an H100
+# (227 KB) for resident members, less 16 KB for the copy of the kernel's
+# description (15.2 KB) and its static use
 NP_MAX_LAT, NP_MAX_TR, NP_MAX_CN = 8, 8, 16
-PL_I, PL_P = 9 + 2 * MAX_OFFSETS, 39
-PT_I, PT_P = 4, 14
+PL_I, PL_P = 17 + 2 * MAX_OFFSETS, 70
+PT_I, PT_P = 5, 21
 PC_I, PC_P = 16 + 2 * MAX_TAPS, 9
-NP_THREADS = 640
+NP_THREADS, NP_THREADS_CHEM = 640, 512
+NP_FLAT_SCRATCH = 4 * (4 * DENSE_N_MAX + 4 * DENSE_SEG * 32
+                       + 2 * (1 + MAX_IN) * 4 * 32)
 SMEM_BUDGET = 232448 - 16384
 
 # Calls of `network_steps` that launched the CUDA kernels, of those the
@@ -186,45 +193,118 @@ def is_flat(spec):
         or any(cs.op[0] == "dense" for cs in spec.conns)
 
 
-def uses_persistent(spec):
+def uses_persistent(spec, n_blocks=132):
     """Whether `network_steps` takes the persistent kernel for ``spec`` on
-    a card: a grid-mode electrical network or a reward network, neither
-    chemical nor flat, of at most `NP_MAX_LAT` lattices, `NP_MAX_TR`
-    trains and `NP_MAX_CN` connections (the kernel's description is a
-    kernel parameter of fixed size).  Other specs take the per-step
-    launches of ``net_steps``."""
-    return not spec.chem and not is_flat(spec) \
-        and len(spec.lattices) <= NP_MAX_LAT \
-        and len(spec.trains) <= NP_MAX_TR and len(spec.conns) <= NP_MAX_CN
+    a card of ``n_blocks`` persistent blocks (one per SM): a network of at
+    most `NP_MAX_LAT` lattices, `NP_MAX_TR` trains and `NP_MAX_CN`
+    connections (the kernel's description is a kernel parameter of fixed
+    size); in flat mode with no more lattice tiles of 32 than blocks (each
+    block holds one tile's dense weight columns); a grid-mode chemical
+    network only where its residency plan (`persistent_plan` at
+    `SMEM_BUDGET`) holds every member in shared memory.  That last rule is
+    measured (PERF.md section 6): where a chemical member streams,
+    each thread walks its cells' chains of global loads on 16 warps an SM
+    and the persistent kernel lost to the per-step design's full
+    occupancy (2 x 512^2: 157.6 against 98.1 us a step of device time on
+    an H100, the designs in turns), and where all is resident it won (2 x
+    64^2: 11.4 against 20.6).  Other specs take the per-step launches of
+    ``net_steps``."""
+    if len(spec.lattices) > NP_MAX_LAT or len(spec.trains) > NP_MAX_TR \
+            or len(spec.conns) > NP_MAX_CN:
+        return False
+    if is_flat(spec):
+        return sum(-(-(ls.shape[0] * ls.shape[1]) // 32)
+                   for ls in spec.lattices) <= n_blocks
+    if spec.chem:
+        members, _ = persistent_plan(spec, n_blocks, SMEM_BUDGET)
+        return all(m.resident for m in members)
+    return True
 
 
 class Resident(NamedTuple):
     """One member of a persistent call's residency plan."""
-    key: tuple                 # ("lat", index) or ("conn", index)
+    key: tuple                 # ("lat", i): lattice i's stencil or dense
+                               # graph; ("chemp", i), ("chems", i): its
+                               # chemical parameters, state; ("conn", ci)
     resident: bool             # held in shared memory for the whole call
     offset: int                # its bytes' offset in a block's shared
                                # memory (resident members)
     cap: int                   # 32-cell tiles a block owns at most
-    cell_bytes: int            # bytes per cell: weights, traces, masks
+    cell_bytes: int            # bytes per cell: weights, traces, masks,
+                               # chemical fields, dense weight columns
     cells: int
 
 
+def chem_param_planes(chem):
+    """Float planes per cell of the chemical parameters only a cell's
+    owner reads: the NT parameters, the receptor kinetics (DopaGluGABA:
+    twice) and the current parameters, (N, 3) each but DopaGluGABA's (N,)
+    `DOPA_PLANES`; the receptor mask adds 3 bytes."""
+    fam, rec, nt = chem
+    planes = 3 * len(NT_PARAM_KEYS[nt]) + 3 * len(REC_KIN_KEYS[rec])
+    if fam == "dopaglugaba":
+        return planes + 3 * len(REC_KIN_KEYS[rec]) + len(DOPA_PLANES)
+    return planes + 3 * 3
+
+
+def chem_state_planes(chem):
+    """Float planes per cell of the gating state the steps update in
+    place: r (3), and for DopaGluGABA r2 (3) and the two modifiers."""
+    return 8 if chem[0] == "dopaglugaba" else 3
+
+
 def _member_layout(spec):
-    """(key, slots, traces, mask, cells) of every member whose slots only
-    its destination cell reads, in spec order: each lattice's stencil
-    graph (traces for kind mod; the mask where the steps update it), then
-    each connection (traces for a reward connection; the mask where the
-    cell phase or the visits read it)."""
+    """(key, bytes per cell, cells, group) of every member whose data only
+    its destination cell reads.  Grid mode (group None): each lattice's
+    stencil graph (traces for kind mod; the mask where the steps update it
+    or the chemical gather reads it), then each chemical lattice's
+    parameters, then each connection (traces for a reward connection; the
+    mask where the cell phase or the visits read it), then each chemical
+    lattice's state.  Flat mode (group: the lattice whose tile the block
+    owns): per lattice its dense graph's weight columns (4 bytes per
+    source), its chemical parameters, each incoming connection (a dense
+    block's columns, a one-to-one weight and mask), its chemical state."""
+    chem = spec.chem
+    cp = 4 * chem_param_planes(chem) + 3 if chem else 0
+    cs = 4 * chem_state_planes(chem) if chem else 0
+
+    def conn(ci, cs_):
+        if cs_.op[0] == "dense":
+            pre = spec.trains[cs_.pre] if cs_.pre_is_st \
+                else spec.lattices[cs_.pre]
+            return 4 * pre.shape[1]
+        one = cs_.op[0] == "one2one"
+        slots = 1 if one else len(cs_.op[7])
+        return slots * (4 + (12 if cs_.reward else 0)
+                        + (1 if one or cs_.updates else 0))
+
     out = []
+    if is_flat(spec):
+        for k, ls in enumerate(spec.lattices):
+            n = ls.shape[1]
+            if ls.graph == "dense":
+                out.append((("lat", k), 4 * n, n, k))
+            if chem:
+                out.append((("chemp", k), cp, n, k))
+            out += [(("conn", ci), conn(ci, c), n, k)
+                    for ci, c in enumerate(spec.conns) if c.post == k]
+            if chem:
+                out.append((("chems", k), cs, n, k))
+        return out
+    cells = [ls.shape[0] * ls.shape[1] for ls in spec.lattices]
     for k, ls in enumerate(spec.lattices):
         if ls.offsets:
-            out.append((("lat", k), len(ls.offsets), ls.kind == "mod",
-                        ls.kind != "plain", ls.shape[0] * ls.shape[1]))
-    for ci, cs in enumerate(spec.conns):
-        one = cs.op[0] == "one2one"
-        shp = spec.lattices[cs.post].shape
-        out.append((("conn", ci), 1 if one else len(cs.op[7]), cs.reward,
-                    one or cs.updates, shp[0] * shp[1]))
+            out.append((("lat", k), len(ls.offsets) * (
+                4 + (12 if ls.kind == "mod" else 0)
+                + (1 if ls.kind != "plain" or chem else 0)), cells[k], None))
+    if chem:
+        out += [(("chemp", k), cp, cells[k], None)
+                for k in range(len(spec.lattices))]
+    out += [(("conn", ci), conn(ci, c), cells[c.post], None)
+            for ci, c in enumerate(spec.conns)]
+    if chem:
+        out += [(("chems", k), cs, cells[k], None)
+                for k in range(len(spec.lattices))]
     return out
 
 
@@ -234,23 +314,27 @@ def persistent_plan(spec, n_blocks=132, budget=SMEM_BUDGET):
     blocks (one per SM: the most cells a block can own) with ``budget``
     bytes of shared memory a block: going through the members of
     `_member_layout` in order, each is resident if its block share, cap =
-    ceil(ceil(cells / 32) / n_blocks) tiles of 32 cells at its bytes per
-    cell (4 a weight, 12 more with traces, 1 a mask byte, rounded up to
-    16), still fits the budget; the others stream from global memory.
-    Returns ``(members, smem)``: a `Resident` per member and the bytes of
-    shared memory a block takes.  The CUDA source only checks that each
-    resident member lies within that memory and holds the tiles a block of
-    its grid owns (``member_bytes``)."""
-    members, used = [], 0
-    for key, slots, traces, mask, cells in _member_layout(spec):
-        cap = -(-(-(-cells // 32)) // n_blocks)
-        per_cell = slots * (4 + (12 if traces else 0) + (1 if mask else 0))
+    ceil(ceil(cells / 32) / n_blocks) tiles of 32 cells (1 in flat mode,
+    where a block owns one lattice tile) at its bytes per cell, rounded up
+    to 16, still fits the budget (in flat mode less `NP_FLAT_SCRATCH`, per
+    lattice tile); the others stream from global memory.  Returns
+    ``(members, smem)``: a `Resident` per member and the bytes of shared
+    memory a block takes.  The CUDA source checks that each resident
+    member lies within that memory, apart from the others, and holds the
+    tiles a block of its grid owns."""
+    flat = is_flat(spec)
+    if flat:
+        budget = max(budget - NP_FLAT_SCRATCH, 0)
+    members, used = [], {}
+    for key, per_cell, cells, group in _member_layout(spec):
+        cap = 1 if flat else -(-(-(-cells // 32)) // n_blocks)
         share = -(-cap * 32 * per_cell // 16) * 16
-        fits = used + share <= budget
-        members.append(Resident(key, fits, used if fits else 0, cap,
-                                per_cell, cells))
-        used += share if fits else 0
-    return tuple(members), used
+        at = used.get(group, 0)
+        fits = at + share <= budget
+        members.append(Resident(key, fits, at if fits else 0, cap, per_cell,
+                                cells))
+        used[group] = at + (share if fits else 0)
+    return tuple(members), max(used.values(), default=0)
 
 
 class NetLat(NamedTuple):
@@ -834,7 +918,6 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
     global LAUNCHES, CHEM_LAUNCHES, FLAT_LAUNCHES, REWARD_LAUNCHES, \
         PERSISTENT_LAUNCHES
     _check(spec, lats, trains, conns, uniforms, clock0, n_steps, reward)
-    persistent = uses_persistent(spec) and not per_step
     dev = lats[0]["v"].device
     if dev.type == "cpu":
         return network_steps_reference(spec, lats, trains, conns, uniforms,
@@ -843,6 +926,7 @@ def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
         raise ValueError(f"no kernel for device {dev}")
     from .. import _build
     lib = _build.load()
+    persistent = not per_step and uses_persistent(spec, _sm_count(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if persistent:
@@ -995,54 +1079,84 @@ def _sm_count(dev):
 def _persistent_ints(spec, n_blocks, budget):
     """The integer descriptions of ``net_persistent_steps`` for ``spec``
     and its residency plan (they depend on nothing else): per lattice
-    PL_I ints, per train PT_I, per connection PC_I; and the plan's shared
-    memory a block."""
+    PL_I ints, per train PT_I, per connection PC_I, the chemical ints; and
+    the plan's shared memory a block."""
     members, smem = persistent_plan(spec, n_blocks, budget)
     plan = {m.key: m for m in members}
+    flat = is_flat(spec)
+
+    def res(key):
+        m = plan.get(key)
+        return [int(bool(m and m.resident)), m.offset if m else 0,
+                m.cap if m else 0]
+
     lat_i = (ctypes.c_int * (PL_I * len(spec.lattices)))()
     for k, ls in enumerate(spec.lattices):
-        m = plan.get(("lat", k))
         n_off = len(ls.offsets)
         pad = [0] * (MAX_OFFSETS - n_off)
+        graph = res(("lat", k))
+        chem_p, chem_s = res(("chemp", k)), res(("chems", k))
         lat_i[PL_I * k:PL_I * (k + 1)] = [
             MODELS.index(ls.model), KINDS.index(ls.kind), *ls.shape, n_off,
-            int(ls.emit), int(bool(m and m.resident)), m.offset if m else 0,
-            m.cap if m else 0, *[o[0] for o in ls.offsets], *pad,
-            *[o[1] for o in ls.offsets], *pad]
+            int(ls.emit), *([0, 0, 0] if flat else graph),
+            *[o[0] for o in ls.offsets], *pad,
+            *[o[1] for o in ls.offsets], *pad,
+            int(ls.graph == "dense"), *(graph[:2] if flat else [0, 0]),
+            *chem_p[:2], *chem_s[:2], max(chem_p[2], chem_s[2])]
     tr_i = (ctypes.c_int * max(PT_I * len(spec.trains), 1))()
     for j, ts in enumerate(spec.trains):
         tr_i[PT_I * j:PT_I * (j + 1)] = [
             TRAIN_KINDS.index(ts.kind),
-            REFRACTORINESS.index(ts.refractoriness), *ts.shape]
+            REFRACTORINESS.index(ts.refractoriness), *ts.shape,
+            NT_KINDS.index(ts.nt) if ts.nt else -1]
     cn_i = (ctypes.c_int * max(PC_I * len(spec.conns), 1))()
     for ci, cs in enumerate(spec.conns):
         m = plan["conn", ci]
         if cs.op[0] == "resample":
             _, R1, C1, _, _, fr, fc, taps = cs.op
+        elif cs.op[0] == "dense":
+            pre = spec.trains[cs.pre] if cs.pre_is_st \
+                else spec.lattices[cs.pre]
+            R1, C1, fr, fc = 1, pre.shape[1], 0, 0
+            taps = ((0, 0),) * pre.shape[1]    # n_taps: the source rows
         else:
             R1 = C1 = fr = fc = 0
             taps = ((0, 0),)
-        pad = [0] * (MAX_TAPS - len(taps))
+        pad = [0] * max(MAX_TAPS - len(taps), 0)
         cn_i[PC_I * ci:PC_I * (ci + 1)] = [
             CONN_KINDS.index(cs.op[0]), int(cs.pre_is_st), cs.pre, cs.post,
             int(cs.pre_plastic), int(cs.post_plastic), R1, C1, fr, fc,
             len(taps), cs.static, int(cs.reward), int(m.resident), m.offset,
-            m.cap, *[t[0] for t in taps], *pad, *[t[1] for t in taps], *pad]
-    return lat_i, tr_i, cn_i, smem
+            m.cap, *[t[0] for t in taps[:MAX_TAPS]], *pad,
+            *[t[1] for t in taps[:MAX_TAPS]], *pad]
+    chem_i = (ctypes.c_int * 4)(-1, 0, 0, 1)
+    if spec.chem:
+        fam, rec, nt = spec.chem
+        chem_i[:] = [CHEM_FAMILIES.index(fam), REC_KINDS.index(rec),
+                     NT_KINDS.index(nt), int(spec.electrical)]
+    return lat_i, tr_i, cn_i, chem_i, smem
 
 
 def _persistent_outputs(spec, lats, trains, conns, n_steps, dev):
-    """Buffers of a persistent call: double-buffered lattice state and
-    spike flags, emits, the trains' firing times in three sets, and empty
-    planes for what the steps update (the kernel copies the inputs in)."""
+    """Buffers of a persistent call: double-buffered lattice state, spike
+    flags and concentrations, emits, the trains' firing times in three
+    sets and concentrations in two, and empty planes for what the steps
+    update (the kernel copies the inputs in)."""
     outs = []
     for ls, d in zip(spec.lattices, lats):
         shp = ls.shape
 
-        def pair(dtype):
-            return torch.empty((2, *shp), dtype=dtype, device=dev)
+        def pair(dtype, shape=shp):
+            return torch.empty((2, *shape), dtype=dtype, device=dev)
 
         upd = ls.kind != "plain" and bool(ls.offsets)
+        chem = None
+        if spec.chem:
+            c = d["chem"]
+            chem = {k: torch.empty_like(c[k]) for k in chem_out_keys(
+                spec.chem) if k not in ("nt$t", "rec$current")}
+            chem.update(ntt=pair(torch.float32, c["nt$t"].shape),
+                        cur=torch.empty_like(c["nt$t"]))
         outs.append(dict(
             buf=[pair(torch.float32), pair(torch.float32), pair(torch.int32),
                  pair(torch.float32) if ls.model in REFRACTORY_MODELS
@@ -1053,18 +1167,50 @@ def _persistent_outputs(spec, lats, trains, conns, n_steps, dev):
                               device=dev) if ls.emit else None,
             weights=torch.empty_like(d["weights"]) if upd else d["weights"],
             traces={k: torch.empty_like(v) for k, v in d["traces"].items()}
-            if ls.kind == "mod" and ls.offsets else None))
+            if ls.kind == "mod" and ls.offsets else None,
+            chem=chem))
     touts = [dict(lft=torch.empty((3, *ts.shape), dtype=torch.int32,
                                   device=dev),
                   step=torch.empty_like(d["step"]) if ts.kind == "rate"
                   else None,
-                  spikes=torch.empty(ts.shape, dtype=torch.bool, device=dev))
+                  spikes=torch.empty(ts.shape, dtype=torch.bool, device=dev),
+                  ntt=torch.empty((2, *d["chem"]["nt$t"].shape),
+                                  dtype=torch.float32, device=dev)
+                  if ts.nt else None)
              for ts, d in zip(spec.trains, trains)]
     couts = [torch.empty_like(d["w"]) if cs.updates else d["w"]
              for cs, d in zip(spec.conns, conns)]
     ctraces = [{k: torch.empty_like(d[k]) for k in ("c", "dw", "counter")}
                if cs.reward else None for cs, d in zip(spec.conns, conns)]
     return outs, touts, couts, ctraces
+
+
+def _persistent_chem_pointers(spec, d, o, ptr, part):
+    """A chemical lattice's 31 pointers after its PL_P electrical ones
+    (none without chemistry): nt$t in, concentration sets 0 and 1, the
+    previous step's spikes, rec$r, rec$r2, inh and nmda modifiers in, then
+    out, rec$current, nt$mask, rec$mask, NT parameters [3], kinetics
+    parameters [2], rec$r2 kinetics parameters [2], current parameters [9]
+    (DOPA_PLANES, or g, e, mg)."""
+    if not spec.chem:
+        return [None] * 31
+    fam, rec, nt = spec.chem
+    c, oc = d["chem"], o["chem"]
+    state = ("rec$r", "rec$r2", "rec$inh_modifier", "rec$nmda_modifier")
+
+    def padded(keys, n):
+        return [ptr(c[k]) for k in keys] + [None] * (n - len(keys))
+
+    kin = ["rec$" + k for k in REC_KIN_KEYS[rec]]
+    out = [ptr(c["nt$t"]), part(oc["ntt"], 0), part(oc["ntt"], 1),
+           ptr(d["spikes"]), *[ptr(c.get(k)) for k in state],
+           *[ptr(oc.get(k)) for k in state], ptr(oc["cur"]),
+           ptr(c["nt$mask"]), ptr(c["rec$mask"]),
+           *padded(NT_PARAM_KEYS[nt], 3), *padded(kin, 2)]
+    if fam == "dopaglugaba":
+        return out + padded([x.replace("rec$", "rec$r2$", 1) for x in kin],
+                            2) + padded(DOPA_PLANES, 9)
+    return out + [None, None] + padded(("rec$g", "rec$e", "rec$mg"), 9)
 
 
 def _launch_persistent(lib, spec, lats, trains, conns, uniforms, rule,
@@ -1075,7 +1221,8 @@ def _launch_persistent(lib, spec, lats, trains, conns, uniforms, rule,
     dev = lats[0]["v"].device
     n_steps = int(n_steps)
     n_blocks = _sm_count(dev)
-    lat_i, tr_i, cn_i, smem = _persistent_ints(spec, n_blocks, budget)
+    lat_i, tr_i, cn_i, chem_i, smem = _persistent_ints(spec, n_blocks,
+                                                       budget)
     outs, touts, couts, ctraces = _persistent_outputs(
         spec, lats, trains, conns, n_steps, dev)
 
@@ -1100,11 +1247,13 @@ def _launch_persistent(lib, spec, lats, trains, conns, uniforms, rule,
             *[None if tr_out is None else ptr(tr_out[key])
               for key in ("c", "dw", "counter")],
             *[d["params"][p].data_ptr() for p in MODEL_PARAM_KEYS[ls.model]],
-            *[None] * (13 - len(MODEL_PARAM_KEYS[ls.model]))]
+            *[None] * (13 - len(MODEL_PARAM_KEYS[ls.model])),
+            *_persistent_chem_pointers(spec, d, o, ptr, part)]
     tr_p = (ctypes.c_void_p * max(PT_P * len(trains), 1))()
     for j, (ts, d, o, u) in enumerate(zip(spec.trains, trains, touts,
                                           uniforms)):
         poisson = ts.kind == "poisson"
+        c = d["chem"] if ts.nt else {}
         tr_p[PT_P * j:PT_P * (j + 1)] = [
             ptr(d["lft"]), *[part(o["lft"], s) for s in (0, 1, 2)],
             ptr(d["v_th"]), ptr(d["v_resting"]), ptr(d["refr_k"]),
@@ -1112,7 +1261,10 @@ def _launch_persistent(lib, spec, lats, trains, conns, uniforms, rule,
             ptr(u) if poisson else None,
             None if poisson else ptr(d["rate"]),
             None if poisson else ptr(d["step"]), ptr(o["step"]),
-            ptr(o["spikes"])]
+            ptr(o["spikes"]), ptr(c.get("nt$t")), part(o["ntt"], 0),
+            part(o["ntt"], 1), ptr(c.get("nt$mask")),
+            *[ptr(c[k]) for k in NT_PARAM_KEYS.get(ts.nt, ())],
+            *[None] * (3 - len(NT_PARAM_KEYS.get(ts.nt, ())))]
     cn_p = (ctypes.c_void_p * max(PC_P * len(conns), 1))()
     for ci, (d, w, tr) in enumerate(zip(conns, couts, ctraces)):
         cn_p[PC_P * ci:PC_P * (ci + 1)] = [
@@ -1135,18 +1287,26 @@ def _launch_persistent(lib, spec, lats, trains, conns, uniforms, rule,
                                     device=dev)
     rc = lib.net_persistent_steps(
         len(lats), lat_i, lat_p, len(trains), tr_i, tr_p, len(conns), cn_i,
-        cn_p, rule_vec, rrule, int(clock0), n_steps, int(spec.with_reward),
-        rew, ptr(None if reward is None else reward["dopamine"]),
-        ptr(dop_steps), smem, stream)
+        cn_p, rule_vec, rrule, chem_i, int(clock0), n_steps,
+        int(spec.with_reward), rew,
+        ptr(None if reward is None else reward["dopamine"]), ptr(dop_steps),
+        smem, stream)
     last = (n_steps - 1) % 2
     lat_out = [dict(v=o["buf"][0][last], w=o["buf"][1][last],
                     lft=o["buf"][2][last],
                     refr=None if o["buf"][3] is None else o["buf"][3][last],
                     spikes=o["spikes"][last], weights=o["weights"],
-                    traces=o["traces"], v_pre=o["v_pre"], chem=None)
+                    traces=o["traces"], v_pre=o["v_pre"],
+                    chem=None if o["chem"] is None else {
+                        **{k: v for k, v in o["chem"].items()
+                           if k.startswith("rec$")},
+                        "nt$t": o["chem"]["ntt"][last],
+                        "rec$current": o["chem"]["cur"]})
                for o in outs]
     tr_out = [dict(lft=o["lft"][(n_steps - 1) % 3], step=o["step"],
-                   spikes=o["spikes"], ntt=None) for o in touts]
+                   spikes=o["spikes"],
+                   ntt=None if o["ntt"] is None else o["ntt"][last])
+              for o in touts]
     extra = None if reward is None else dict(
         traces=ctraces,
         dopamine=dop_steps[-1] if spec.with_reward else reward["dopamine"])

@@ -328,3 +328,48 @@ def test_cuda_chemical_arm_matches_twin(n_steps):
     want = nk.network_steps_reference(**args)
     for g, w in zip(_flat(got), _flat(want)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [16, 7, 37])
+def test_cuda_persistent_and_per_step_designs_match_twin(n_steps):
+    """The chemical arm through the persistent kernel with every member
+    resident in shared memory (the route `uses_persistent` gives it) and
+    with every member streamed (its launcher at a budget of 0), and
+    through the per-step design, each bit for bit; 37 steps take three
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from spiking_neural_networks_tpu_torch import _build
+    args = _call_args(n_steps)
+
+    def cuda(x):
+        if isinstance(x, torch.Tensor):
+            return x.cuda()
+        if isinstance(x, dict):
+            return {k: cuda(v) for k, v in x.items()}
+        return x
+
+    args.update(lats=[cuda(d) for d in args["lats"]],
+                trains=[cuda(d) for d in args["trains"]],
+                conns=[cuda(d) for d in args["conns"]],
+                uniforms=[u.cuda() for u in args["uniforms"]])
+    assert nk.uses_persistent(args["spec"])
+    want = nk.network_steps_reference(**args)
+    outs = []
+    for per_step in (False, True):
+        before = (nk.CHEM_LAUNCHES, nk.PERSISTENT_LAUNCHES)
+        outs.append(nk.network_steps(**args, per_step=per_step))
+        torch.cuda.synchronize()
+        assert (nk.CHEM_LAUNCHES, nk.PERSISTENT_LAUNCHES) == (
+            before[0] + 1, before[1] + (not per_step))
+    rc, streamed = nk._launch_persistent(
+        _build.load(), *(args[k] for k in (
+            "spec", "lats", "trains", "conns", "uniforms", "rule", "clock0",
+            "n_steps")), torch.cuda.current_stream().cuda_stream, None, 0)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for got in outs + [streamed]:
+        assert len(_flat(got)) == len(_flat(want))
+        for g, w in zip(_flat(got), _flat(want)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

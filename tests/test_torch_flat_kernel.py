@@ -364,3 +364,42 @@ def test_cuda_flat_arm_matches_twin(n_steps, chemical):
     want = nk.network_steps_reference(**args)
     for g, w in zip(_flat(got), _flat(want)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chemical", [False, True])
+@pytest.mark.parametrize("n_steps", [16, 7, 37])
+def test_cuda_persistent_and_per_step_designs_match_twin(monkeypatch,
+                                                          n_steps,
+                                                          chemical):
+    """The flat arm through the persistent kernel with every member
+    resident in shared memory and with every member streamed, and through
+    the per-step design, each bit for bit; 37 steps take three
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _call_args(n_steps, chemical, n=60)
+
+    def cuda(x):
+        if isinstance(x, torch.Tensor):
+            return x.cuda()
+        if isinstance(x, dict):
+            return {k: cuda(v) for k, v in x.items()}
+        return x
+
+    args.update(lats=[cuda(d) for d in args["lats"]],
+                trains=[cuda(d) for d in args["trains"]],
+                conns=[cuda(d) for d in args["conns"]])
+    assert nk.uses_persistent(args["spec"])
+    want = nk.network_steps_reference(**args)
+    budget = nk.SMEM_BUDGET
+    for smem, per_step in ((budget, False), (0, False), (budget, True)):
+        monkeypatch.setattr(nk, "SMEM_BUDGET", smem)   # 0: all streamed
+        before = (nk.FLAT_LAUNCHES, nk.PERSISTENT_LAUNCHES)
+        got = nk.network_steps(**args, per_step=per_step)
+        torch.cuda.synchronize()
+        assert (nk.FLAT_LAUNCHES, nk.PERSISTENT_LAUNCHES) == (
+            before[0] + 1, before[1] + (not per_step))
+        assert len(_flat(got)) == len(_flat(want))
+        for g, w in zip(_flat(got), _flat(want)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

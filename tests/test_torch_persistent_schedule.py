@@ -32,6 +32,7 @@ from spiking_neural_networks_tpu_torch.core.reward_structured import (
     resolve_reward_plan)
 from spiking_neural_networks_tpu_torch.models.base import NEVER
 from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+from spiking_neural_networks_tpu_torch.ops.kinetics import nt_release
 from spiking_neural_networks_tpu_torch.ops.reward_kernels import (
     model_step, shifted)
 from torch_networks import (assert_networks_match,
@@ -52,8 +53,16 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
     their step k-1 (the set of step k-2), then step k's cell phase from
     the weights those passes left and the trains' firing times after their
     step k-1, then the trains' step k into set k % 3; phase n is edge-only.
-    The dopamine of every step is taken first.  Returns the twin's
-    layout."""
+    The dopamine of every step is taken first.  The chemical order: the
+    cells of step k gather the concentrations of step k-1 (two parity
+    sets, the lattices' and the trains'), update their gating state and
+    modifiers in place (only their owner reads them), release from their
+    own step k-1 spike flag into set k % 2, and a train releases after its
+    step k spike into its set k % 2.  Flat mode: a dense graph's or
+    block's sums of step k, from the sources' step k-1 v, effects and
+    concentrations, are taken in the cell phase of step k (a tile's jobs,
+    then its cells), and the column sums and counts once before the
+    first phase.  Returns the twin's layout."""
     p = rule_tensors(rule, "cpu")
     rp = rule_tensors(reward["rule"], "cpu") if reward is not None else None
     dops = []
@@ -66,6 +75,8 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
     cnts = nk.connection_counts(spec, lats, conns)
     weights = [list(d["weights"].unbind(0)) if ls.offsets else []
                for ls, d in zip(spec.lattices, lats)]
+    masks = [list(d["mask"].unbind(0)) if ls.offsets else []
+             for ls, d in zip(spec.lattices, lats)]
     traces = [{k: list(v.unbind(0)) for k, v in d["traces"].items()}
               if ls.kind == "mod" and ls.offsets else None
               for ls, d in zip(spec.lattices, lats)]
@@ -74,9 +85,27 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
     ctr = [{k: list(c[k].unbind(0)) if cs.op[0] == "resample" else c[k]
             for k in ("c", "dw", "counter")} if cs.reward else None
            for cs, c in zip(spec.conns, conns)]
+    chem = bool(spec.chem)
+    statics = [nk._chem_static(spec, d, ls.shape) if chem else None
+               for ls, d in zip(spec.lattices, lats)]
+    # what only a cell's owner reads, updated in place: r, r2, modifiers
+    own = [nk._chem_state(spec, d, ls.shape) if chem else None
+           for ls, d in zip(spec.lattices, lats)]
+    tr_static = [dict(
+        ntm=nk._types(d["chem"]["nt$mask"], ts.shape),
+        ntm_f=[m.to(torch.float32)
+               for m in nk._types(d["chem"]["nt$mask"], ts.shape)],
+        ntp=[nk._types(d["chem"][k], ts.shape)
+             for k in nk.NT_PARAM_KEYS[ts.nt]])
+        if ts.nt else None for ts, d in zip(spec.trains, trains)]
+    consts = {k: torch.tensor(float(k)) for k in ("3.57", "3.75")}
+    # the call's constants: column sums and per-type counts
+    dense = nk._dense_static(spec, lats, conns, statics, tr_static)
     n_lat = len(spec.lattices)
     sets = [[None] * n_lat, [None] * n_lat]     # lattice state by parity
     spk = [[None] * n_lat, [None] * n_lat]      # spike flags by parity
+    ntt = [[None] * n_lat, [None] * n_lat]      # concentrations by parity
+    tr_ntt = [[None] * len(spec.trains), [None] * len(spec.trains)]
     lft_sets = [[None] * len(spec.trains) for _ in range(3)]
     steps = [d.get("step") for d in trains]
     v_pre = [[] for _ in spec.lattices]
@@ -89,6 +118,18 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
 
     def train_lft(s, j):
         return trains[j]["lft"] if s < 0 else lft_sets[s % 3][j]
+
+    def lat_ntt(s, i):
+        return own[i]["ntt"] if s < 0 else ntt[s % 2][i]
+
+    def train_ntt(s, j):
+        if not spec.trains[j].nt:
+            return None
+        return nk._types(trains[j]["chem"]["nt$t"], spec.trains[j].shape) \
+            if s < 0 else tr_ntt[s % 2][j]
+
+    def spikes(s, i):
+        return lats[i]["spikes"] if s < 0 else spk[s % 2][i]
 
     for k in range(n_steps + 1):
         if k > 0:
@@ -136,15 +177,40 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
         effects = [nk.train_effect(ts, d, train_lft(k - 1, j), clock)
                    for j, (ts, d) in enumerate(zip(spec.trains, trains))]
         v_prev = [lat_state(k - 1, i)["v"] for i in range(n_lat)]
+        ntt_prev = [lat_ntt(k - 1, i) if chem else None
+                    for i in range(n_lat)]
+        tr_view = [dict(ntt=train_ntt(k - 1, j))
+                   for j in range(len(spec.trains))]
+        # flat mode: each tile's dense jobs of step k, then its cells
+        dsums = nk._dense_sums(spec, dense, v_prev, effects, ntt_prev,
+                               statics, tr_view, tr_static)
         for i, (ls, d) in enumerate(zip(spec.lattices, lats)):
             s = lat_state(k - 1, i)
             pp = {q: d["params"][q] for q in nk.MODEL_PARAM_KEYS[ls.model]}
-            total = nk._electrical_total(
-                spec, i, ls, dict(v=s["v"], weights=weights[i]), d, v_prev,
-                effects, conns, cw, {}, {})
-            i_syn = pp["gap_conductance"] * total / cnts[i]
+            cell = dict(v=s["v"], weights=weights[i], mask=masks[i])
+            i_syn = torch.zeros_like(s["v"])
+            if spec.electrical:
+                total = nk._electrical_total(spec, i, ls, cell, d, v_prev,
+                                             effects, conns, cw, dense, dsums)
+                i_syn = pp["gap_conductance"] * total / cnts[i]
+            rec_dv = None
+            if chem:
+                t_in, valid = nk._chem_input(spec, i, ls, cell, statics[i],
+                                             ntt_prev, statics, tr_view,
+                                             tr_static, conns, cw, dense,
+                                             dsums)
+                rec_dv = nk._receptors(spec, statics[i], own[i], s["v"],
+                                       t_in, valid, pp, consts)
             v_new, w_new, refr, fired, vp = model_step(
-                ls.model, pp, s["v"], s["w"], s["refr"], i_syn)
+                ls.model, pp, s["v"], s["w"], s["refr"], i_syn, rec_dv)
+            if chem:
+                # the release from v_pre and the cell's own step k-1 flag
+                prev = spikes(k - 1, i).to(torch.float32)
+                ntt[k % 2][i] = [torch.where(
+                    statics[i]["ntm"][q], nt_release(
+                        spec.chem[2], ntt_prev[i][q], vp, prev,
+                        [x[q] for x in statics[i]["ntp"]], pp["dt"]), 0.0)
+                    for q in range(nk.N_TYPES)]
             sets[k % 2][i] = dict(v=v_new, w=w_new,
                                   lft=s["lft"].masked_fill(fired, clock),
                                   refr=refr)
@@ -160,6 +226,13 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                 steps[j] = torch.where(fired, 0.0, stepped)
             lft_sets[k % 3][j] = train_lft(k - 1, j).masked_fill(fired,
                                                                   clock)
+            if ts.nt:
+                v_t = torch.where(fired, d["v_th"], d["v_resting"])
+                ss = tr_static[j]
+                tr_ntt[k % 2][j] = [torch.where(ss["ntm"][q], nt_release(
+                    ts.nt, train_ntt(k - 1, j)[q], v_t,
+                    fired.to(torch.float32), [x[q] for x in ss["ntp"]],
+                    d["dt"]), 0.0) for q in range(nk.N_TYPES)]
             if k == n_steps - 1:
                 trains[j] = dict(trains[j], last_spikes=fired)
     last = n_steps - 1
@@ -171,11 +244,14 @@ def fused_replay(spec, lats, trains, conns, uniforms, rule, clock0, n_steps,
                     v_pre=torch.stack(v_pre[i]) if ls.emit else None,
                     traces=None if traces[i] is None else {
                         k: torch.stack(v) for k, v in traces[i].items()},
-                    chem=None)
+                    chem=nk._chem_out(spec, None if not chem else dict(
+                        own[i], ntt=ntt[last % 2][i])))
                for i, ls in enumerate(spec.lattices)]
     tr_out = [dict(lft=lft_sets[last % 3][j], step=steps[j],
-                   spikes=trains[j].pop("last_spikes"), ntt=None)
-              for j in range(len(spec.trains))]
+                   spikes=trains[j].pop("last_spikes"),
+                   ntt=nk._stack_types(tr_ntt[last % 2][j]) if ts.nt
+                   else None)
+              for j, ts in enumerate(spec.trains)]
     conn_out = [torch.stack(w) if cs.op[0] == "resample" else w
                 for cs, w in zip(spec.conns, cw)]
     if reward is None:
@@ -196,9 +272,12 @@ def _pairs(out):
                 pairs.append((f"{key}{k}", d[key]))
         if d["traces"] is not None:
             pairs += [(f"{key}{k}", v) for key, v in d["traces"].items()]
+        if d["chem"] is not None:
+            pairs += [(f"{key}{k}", v) for key, v in sorted(d["chem"].items())]
     for j, d in enumerate(tr):
         pairs += [(f"train {key}{j}", d[key])
-                  for key in ("lft", "step", "spikes") if d[key] is not None]
+                  for key in ("lft", "step", "spikes", "ntt")
+                  if d[key] is not None]
     pairs += [(f"conn{c}", w) for c, w in enumerate(cn)]
     if extra is not None:
         for c, t in enumerate(extra["traces"]):
@@ -222,11 +301,16 @@ def _advance(out, lats, trains, conns, reward):
     """The next call's inputs from a call's outputs."""
     lat, tr, cn, extra = out
     lats = [dict(d, v=o["v"], w=o["w"], lft=o["lft"], refr=o["refr"],
-                 weights=o["weights"], **({"traces": o["traces"]}
-                                          if o["traces"] is not None else {}))
+                 weights=o["weights"], spikes=o["spikes"],
+                 **({"traces": o["traces"]} if o["traces"] is not None
+                    else {}),
+                 **({"chem": {**d["chem"], **o["chem"]}}
+                    if o["chem"] is not None else {}))
             for d, o in zip(lats, lat)]
     trains = [dict(d, lft=o["lft"], **({"step": o["step"]}
-                                       if o["step"] is not None else {}))
+                                       if o["step"] is not None else {}),
+                   **({"chem": {**d["chem"], "nt$t": o["ntt"]}}
+                      if o["ntt"] is not None else {}))
               for d, o in zip(trains, tr)]
     conns = [dict(d, w=w, **(t or {}))
              for d, w, t in zip(conns, cn, extra["traces"] if extra
@@ -336,6 +420,11 @@ def test_replay_equals_twin_on_the_reward_network():
 
 
 def test_chemical_and_flat_specs_keep_the_per_step_path():
+    """Past the persistent kernel's limits a chemical or a flat spec keeps
+    the per-step launches: a chemical spec of more lattices than the
+    kernel's description holds, and a flat spec of more 32-neuron lattice
+    tiles than the card has blocks (a block holds one tile's dense
+    columns).  Within them both take the persistent kernel."""
     spec = _grid_inputs("rate")[0]
     assert nk.uses_persistent(spec)
     assert nk.uses_persistent(_reward_inputs(4)[0])
@@ -344,10 +433,14 @@ def test_chemical_and_flat_specs_keep_the_per_step_path():
     chem = nk.plain_network_spec(t, plan, not any(tsr.nt_flags(t, plan)),
                                  tsr.nt_flags(t, plan))
     assert chem is not None and chem.chem
-    assert not nk.uses_persistent(chem)
-    flat = spec._replace(lattices=(spec.lattices[0]._replace(
-        graph="dense", offsets=()),) + spec.lattices[1:])
-    assert nk.is_flat(flat) and not nk.uses_persistent(flat)
+    assert nk.uses_persistent(chem)
+    assert not nk.uses_persistent(chem._replace(
+        lattices=chem.lattices * 5))
+    flat = spec._replace(lattices=tuple(
+        ls._replace(graph="dense", offsets=(), shape=(1, 512))
+        for ls in spec.lattices))
+    assert nk.is_flat(flat) and nk.uses_persistent(flat, 132)
+    assert not nk.uses_persistent(flat, 31)
 
 
 def test_a_spec_beyond_the_kernels_members_takes_the_per_step_path():
