@@ -81,14 +81,20 @@ Phases, one line each:
    threshold tie;
 6. neuron-updates/s of both routes at 512^2 and of the kernel route at
    2048^2;
-7. the plasticity kernels vs their plain twin on the card, every kind x
-   model at 64^2 (K = 16 and 7), 130 x 100 with non-uniform parameters,
-   512^2 STDP and R-STDP Izhikevich with emit: integers and spikes equal,
-   floats within rtol 1e-6, atol 1e-5;
+7. the plasticity kernels vs their plain twin on the card, the fused
+   schedule and the per-step design each: every kind x model at 64^2
+   (K = 16 and 7) and on 33 x 70 (K = 1, 2 and 17), 130 x 100 with
+   non-uniform parameters, two stencils past the shared-memory halo,
+   512^2 STDP and R-STDP of every model, STDP ALIF and LIF at 128^2 and
+   256^2: integers and spikes equal, floats bit-equal, the launches the C
+   entry counted as each schedule has them; at 512^2, 256^2 and 128^2
+   both designs timed in turns (wall, events, profiled device time with
+   every kernel record counted);
 8. the plasticity main paths: STDP `Lattice` 512^2 for 2048 steps and 64
    steps with a grid history; `RewardModulatedLattice` 512^2 for 2048
-   steps with reward 0.5 and 256 without; both `bench.py` configurations
-   at 64^2;
+   steps with reward 0.5 and 256 without (17 launches a call, counted by
+   the C entry and in the profiler's records); STDP on ALIF at 512^2 (the
+   per-step design, 32 a call); both `bench.py` configurations at 64^2;
 9. 64^2 for 1000 steps, STDP and R-STDP: the kernel route on the card
    against the same route on the CPU (2 mV, 2 steps) and against the plain
    route on the card (parting only at a threshold tie);
@@ -287,6 +293,30 @@ PCASES = ([((64, 64), k, kind, model, rew and kind != "plastic", True, False)
              ((130, 100), 16, "plain", "lif", True, False, False),
              (MAIN, 16, "plastic", "izhikevich", False, True, True),
              (MAIN, 16, "mod", "izhikevich", True, True, True)])
+# the fused schedule's extra cases: K of 1, 2 and 16 + 1 on a grid whose
+# width is not a multiple of the 32-column tile and whose last tile row is
+# partial, every model x kind x reward
+SCHED_CASES = [((33, 70), k, kind, model, rew, False, False)
+               for k in (1, 2, 17)
+               for kind, rew in (("plastic", False), ("mod", True),
+                                 ("mod", False), ("plain", True),
+                                 ("plain", False))
+               for model in ("izhikevich", "alif", "lif")]
+# the other models at the main size, both designs timed in turns; STDP
+# at 128^2 and 256^2 too
+TURN_CASES = ([(MAIN, 16, kind, model, kind == "mod", True, False)
+               for kind in ("plastic", "mod") for model in ("alif", "lif")]
+              + [((n, n), 16, "plastic", model, False, True, False)
+                 for n in (128, 256) for model in ("alif", "lif")])
+TURN_SHAPES = (MAIN, (128, 128), (256, 256))
+# a stencil wider than the kernel's shared-memory halo (LP_HALO_MAX 8):
+# its edge pass and phase A read global memory
+WIDE_OFFSETS = ((0, 1), (1, 0), (0, -10), (-9, 3), (2, 2), (12, -12))
+WIDE_CASES = [((33, 70), 17, kind, "izhikevich", rew, False, True,
+               WIDE_OFFSETS)
+              for kind, rew in (("plastic", False), ("mod", True))]
+# steps of a main path profiled for its kernel records
+RECORD_STEPS = 64
 # R-STDP parameters of the kernel-vs-twin cases: bounded weights, traces
 # and dopamine over a call, with the trace decay exp(-dt / tau_c) = 0.82
 RSTDP = dict(tau_d=2.0, tau_c=0.5, a_plus=0.02, a_minus=0.02)
@@ -323,7 +353,10 @@ HCASES = ([((64, 64), k, nt, rec, el, pl, False) for k in (16, 7)
              ((130, 100), 7, "approximate", "approximate", False, True,
               True),
              (HBIG, 16, "destexhe", "destexhe", True, True, False),
-             (HMAIN, 16, "destexhe", "destexhe", True, True, False)])
+             (HMAIN, 16, "destexhe", "destexhe", True, True, False)]
+          # the fused schedule at K of 1, 2 and 16 + 1
+          + [((33, 70), k, nt, rec, True, True, True) for k in (1, 2, 17)
+             for nt, rec in HH_KINDS[::3]])
 HH_REPLACES = "spiking_neural_networks_tpu/ops/pallas_hh.py:262"
 # STDP of the firing form: the bench's amplitudes (2.0) drive weights
 # negative there and the lattice to -inf within ~430 steps (the JAX package
@@ -567,15 +600,16 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profiled_us(fn, steps, n_top=3, launches=None):
+def profiled_us(fn, steps, n_top=3, launches=None, mine=None):
     """Device microseconds per step of ``fn`` (which runs ``steps``
     steps) under torch.profiler: the sum of every CUDA kernel's and copy's
     device time, and the ``n_top`` largest by name.  With ``launches``
-    (the kernels ``fn`` launches), ``fn`` runs once in a warm-up cycle of
-    the profiler before the cycle that is kept (the first records of a
-    profile can be lost), and a profile that holds another number of
-    kernel records is taken again, up to PROF_TRIES times, and then fails:
-    a lost record would make the sum short."""
+    (the kernels ``fn`` launches; with ``mine``, those whose names hold
+    one of ``mine``), ``fn`` runs once in a warm-up cycle of the profiler
+    before the cycle that is kept (the first records of a profile can be
+    lost), and a profile that holds another number of such kernel records
+    is taken again, up to PROF_TRIES times, and then fails: a lost record
+    would make the sum short."""
     from torch.profiler import ProfilerActivity, profile, schedule
     warm = launches is not None
     for _ in range(PROF_TRIES):
@@ -594,7 +628,8 @@ def profiled_us(fn, steps, n_top=3, launches=None):
                for e in (kept[-1] if warm else prof.key_averages())
                if e.device_type == torch.autograd.DeviceType.CUDA]
         records = sum(c for _, k, c in dev
-                      if not k.startswith(("Memcpy", "Memset")))
+                      if not k.startswith(("Memcpy", "Memset"))
+                      and (mine is None or any(m in k for m in mine)))
         if launches is None or records == launches:
             break
         say(f"[profiler] {records} kernel records of {launches} launches; "
@@ -871,11 +906,12 @@ def stencil_phases(snt, smi):
 
 
 def plasticity_inputs(snt, rk, shape, kind, model, with_reward, uniform,
-                      emit, n_steps, seed):
-    """The arguments of one wrapper call, on the card, made from ``seed``."""
+                      emit, n_steps, seed, offsets=None):
+    """The arguments of one wrapper call, on the card, made from ``seed``
+    (a radius-2 stencil unless ``offsets`` are given)."""
     rows, cols = shape
     rng = np.random.default_rng(seed)
-    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(2.0),
+    g = snt.StencilGraph.build(rows, cols, offsets or snt.radius_offsets(2.0),
                                keep_prob=0.8, seed=seed + 1,
                                weight_fn=lambda dr, dc, rr, cc:
                                rng.uniform(0.5, 1.5, rr.shape),
@@ -893,6 +929,17 @@ def plasticity_inputs(snt, rk, shape, kind, model, with_reward, uniform,
     f32 = lambda lo, hi, shp=shape: torch.from_numpy(
         rng.uniform(lo, hi, shp).astype(np.float32)).cuda()
     n_off = len(g.offsets)
+
+    def some(frac, shp=(n_off, *shape)):
+        return torch.from_numpy(rng.random(shp) < frac).cuda()
+
+    # a tenth of the weights -0.0 (w + delta * 0 turns them +0.0), dw
+    # exactly +0.0 or -0.0 in places, counters of 0, 1 and 2
+    weights = g.weights.clone()
+    weights[some(0.1)] = -0.0
+    dw = f32(-0.1, 0.1, (n_off, *shape))
+    dw[some(0.2)] = 0.0
+    dw[some(0.1)] = -0.0
     return dict(
         spec=rk.LatSpec(kind, model, g.offsets, emit, with_reward),
         v=f32(-60, 50) if izh else f32(-75, -50),
@@ -903,11 +950,10 @@ def plasticity_inputs(snt, rk, shape, kind, model, with_reward, uniform,
                                       -1).astype(np.int32)).cuda(),
         refr=None if izh else torch.from_numpy(
             rng.integers(0, 4, shape).astype(np.float32)).cuda(),
-        weights=g.weights, mask=g.mask, in_deg=g.in_deg,
+        weights=weights, mask=g.mask, in_deg=g.in_deg,
         params={k: torch.from_numpy(p).cuda() for k, p in params.items()},
-        traces=(f32(-0.5, 0.5, (n_off, *shape)),
-                f32(-0.1, 0.1, (n_off, *shape)),
-                torch.from_numpy(rng.integers(0, 2, (n_off, *shape))
+        traces=(f32(-0.5, 0.5, (n_off, *shape)), dw,
+                torch.from_numpy(rng.integers(0, 3, (n_off, *shape))
                                  .astype(np.int32)).cuda())
         if kind == "mod" else None,
         dopamine=torch.tensor(0.3, device="cuda"),
@@ -940,31 +986,175 @@ def compare_call(got, want):
     return max(errs.values()), bad, errs
 
 
+def lp_bits(got, want):
+    """The outputs of a plasticity call that differ from the twin's in any
+    bit (floats as their int32 bits, so +0 and -0 apart)."""
+    names = ("v", "w", "lft", "refr", "spikes", "weights", "traces",
+             "dopamine", "v_pre")
+    bad = []
+    for name, g, w in zip(names, got, want):
+        if (g is None) != (w is None):
+            bad.append(name)
+            continue
+        for x, y in zip(g if isinstance(g, tuple) else (g,),
+                        w if isinstance(w, tuple) else (w,)):
+            if x is None:
+                continue
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if x.shape != y.shape or not torch.equal(x, y):
+                bad.append(name)
+                break
+    return bad
+
+
+def kernel_records(fn, expect, mine=("lp_", "hh_")):
+    """Records by name of the port's kernels (names holding one of
+    ``mine``) in one run of ``fn`` under torch.profiler, after a warm-up
+    cycle; a profile that lost records (fewer than ``expect``) is taken
+    again, up to PROF_TRIES times.  Other kernels of the run (the runners'
+    reductions) are left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(PROF_TRIES):
+        kept = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        recs = {e.key: e.count for e in kept[-1]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(m in e.key for m in mine)}
+        if sum(recs.values()) >= expect:
+            return recs
+        say(f"[profiler] {sum(recs.values())} kernel records of {expect}; "
+            f"profiling again")
+    return recs
+
+
+def records_line(recs):
+    return ", ".join(f"{k[:48]} x{n}" for k, n in sorted(recs.items()))
+
+
+def designs_in_turns(calls, launches, k, reps=10, count=True):
+    """Two designs of one K-step call, ``calls`` = {name: fn}, in turns
+    (a, b, b, a): per design (wall us per step of back-to-back calls to a
+    synchronise, CUDA-event us per step, profiled device us per step,
+    kernel launches per call, the largest kernels); with ``count``, the
+    profile of ``reps`` calls must hold ``reps * launches[name]`` kernel
+    records."""
+    a, b = calls
+    walls = {key: [] for key in calls}
+    events = {key: [] for key in calls}
+    for key in (a, b, b, a):
+        fn = calls[key]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        walls[key].append((time.perf_counter() - t0) / reps / k * 1e6)
+        events[key].append(event_ms(fn, reps) * 1e3 / k)
+    out = {}
+    for key, fn in calls.items():
+        dev, top = profiled_us(lambda fn=fn: [fn() for _ in range(reps)],
+                               reps * k, n_top=4,
+                               launches=reps * launches[key] if count
+                               else None)
+        out[key] = (min(walls[key]), min(events[key]), dev, launches[key],
+                    top)
+    return out
+
+
+def lp_changed(rk, args):
+    """Values of the weights and the traces (c, dw, counter) whose bits a
+    step changes, summed over the call's steps: the twin one step at a
+    time."""
+    a, kind, tot = dict(args), args["spec"].kind, [0, 0, 0, 0]
+    for k in range(args["n_steps"]):
+        out = rk.lattice_plasticity_steps_reference(**dict(
+            a, n_steps=1, clock0=args["clock0"] + k,
+            rewards=None if args["rewards"] is None
+            else args["rewards"][k:k + 1]))
+        pairs = [(a["weights"], out[5])] + (
+            list(zip(a["traces"], out[6])) if kind == "mod" else [])
+        for j, (x, y) in enumerate(pairs):
+            tot[j] += int((x.view(torch.int32) != y.view(torch.int32)).sum())
+        a.update(v=out[0], w=out[1], lft=out[2], refr=out[3],
+                 weights=out[5], traces=out[6], dopamine=out[7])
+    return tot
+
+
+def lp_step_bytes(rk, args, changed, per_step):
+    """Bytes a step of a plasticity call moves, modelled from its shapes
+    (not measured): per cell the state, in_deg and parameter planes read,
+    the state and spike flag written; per slot the weight, mask and traces
+    read once (twice the weight in the per-step design, whose cell kernel
+    reads it again), the lft and spike flags of the edge pass; the stores
+    of the values ``changed`` (`lp_changed`), 4 bytes each."""
+    spec = args["spec"]
+    rows, cols = args["v"].shape
+    cells, n_off, k = rows * cols, len(spec.offsets), args["n_steps"]
+    fields = 4 if spec.model in rk.REFRACTORY_MODELS else 3
+    n_par = len(rk.MODEL_PARAM_KEYS[spec.model])
+    cell = cells * (4 * (fields + 1 + n_par) + 4 * fields + 1)
+    edge = 0
+    if spec.kind != "plain":
+        edge = cells * n_off * (1 + (12 if spec.kind == "mod" else 0)) \
+            + cells * 5
+    weights = cells * n_off * 4 * (2 if per_step else 1)
+    return cell + edge + weights + 4 * sum(changed) / k
+
+
 def plasticity_phases(snt, smi):
     from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
 
-    # 7. kernel vs plain twin on the card
+    for entry, rep in instantiation_lines("lp_step_kernel"):
+        say(f"[7 build] {entry}: {rep}")
+    # 7. kernel vs plain twin on the card: the fused schedule (the main
+    # path's) and the per-step design, each bit for bit, with the launches
+    # the C entry counted
     max_err, times, bounds = 0.0, {}, {}
-    for seed, (shape, k, kind, model, rew, uniform, emit) in \
-            enumerate(PCASES):
+    for seed, (shape, k, kind, model, rew, uniform, emit, *offs) in \
+            enumerate(PCASES + SCHED_CASES + WIDE_CASES + TURN_CASES):
         args = plasticity_inputs(snt, rk, shape, kind, model, rew, uniform,
-                                 emit, k, seed)
+                                 emit, k, seed, *offs)
+        before = rk.STEP_LAUNCHES
         got = rk.lattice_plasticity_steps(**args)
         torch.cuda.synchronize()
+        launched = rk.STEP_LAUNCHES - before
+        before = rk.STEP_LAUNCHES
+        per_step = rk.lattice_plasticity_steps(**args, _per_step=True)
+        torch.cuda.synchronize()
+        launched_ps = rk.STEP_LAUNCHES - before
         want = rk.lattice_plasticity_steps_reference(**args)
         torch.cuda.synchronize()
         err, bad, errs = compare_call(got, want)
+        diff, diff_ps = lp_bits(got, want), lp_bits(per_step, want)
         say(f"[7 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} {kind} {model} "
-            f"reward={rew} uniform={uniform} emit={emit}: integer and spike "
+            f"reward={rew} uniform={uniform} emit={emit}"
+            + (f" offsets {offs[0]}" if offs else "") + ": integer and spike "
             f"mismatches {bad}, max errors "
             + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
-            + f", neurons fired {int((got[2] >= 100).sum())}")
+            + f", outputs not bit-equal: fused {diff}, per step {diff_ps}; "
+            f"launches counted {launched} fused, {launched_ps} per step; "
+            f"neurons fired {int((got[2] >= 100).sum())}")
         check(bad == 0, "firing times, spikes, refractory counts or counters "
               "differ")
+        check(not diff and not diff_ps, "a design is not bit-equal to the "
+              "twin")
+        spec = args["spec"]
+        check(launched == rk.step_launches(spec, k)
+              and launched_ps == rk.step_launches(spec, k, per_step=True),
+              "the C entry launched another number of kernels than its "
+              "schedule has")
         max_err = max(max_err, err)
-        if shape == MAIN:
+        if shape in TURN_SHAPES and k == 16:
             timed = dict(args, spec=args["spec"]._replace(emit=False))
-            kernel = lambda: rk.lattice_plasticity_steps(**timed)
             rows, cols = shape
             offs = timed["spec"].offsets
             both = both_fired_slots(timed["lft"], timed["mask"], offs)
@@ -974,42 +1164,72 @@ def plasticity_phases(snt, smi):
             ops = stencil_ops(offs, rows, cols, k) + k * (
                 10 * int(timed["mask"].sum()) + (8 + EXP_OPS) * both
                 if kind == "mod" else (11 + EXP_OPS) * both)
-            bounds[kind] = bound(tensor_bytes(timed, kernel()), ops)
-            dev_us, _ = profiled_us(lambda: [kernel() for _ in range(10)],
-                                    10 * k)
-            times[kind] = (event_ms(kernel, 10) / k, event_ms(
+            case = (kind, model, shape)
+            bounds[case] = bound(tensor_bytes(
+                timed, rk.lattice_plasticity_steps(**timed)), ops)
+            # the profile must hold the launches the C entry counted
+            out = designs_in_turns(
+                {"fused": lambda: rk.lattice_plasticity_steps(**timed),
+                 "per_step": lambda: rk.lattice_plasticity_steps(
+                     **timed, _per_step=True)},
+                {"fused": launched, "per_step": launched_ps}, k)
+            changed = lp_changed(rk, timed)
+            rates = {key: lp_step_bytes(rk, timed, changed,
+                                        key == "per_step") / (d * 1e-6)
+                     for key, (_, _, d, _, _) in out.items()}
+            times[case] = (out["fused"][1] / 1e3, event_ms(
                 lambda: rk.lattice_plasticity_steps_reference(**timed), 3) / k,
-                dev_us / 1e3)
-            say(f"[7 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} {kind} per "
-                f"step: kernel calls back to back {times[kind][0] * 1e3:.3f} "
-                f"us (events), of which device time {dev_us:.3f} us "
-                f"(profiled); plain twin {times[kind][1] * 1e3:.3f} us "
-                f"(events); card {smi}")
-            del timed, kernel
-        del args, got, want
+                out["fused"][2] / 1e3, out["per_step"][1] / 1e3,
+                out["per_step"][2] / 1e3)
+            say(f"[7 times] {shape[0]}x{shape[1]} K={k} {kind} {model}, the "
+                f"designs in turns: {design_line(out)}; modelled bytes a step "
+                + ", ".join(f"{key} {lp_step_bytes(rk, timed, changed, key == 'per_step') / 1e6:.2f} MB"
+                            f" ({rates[key] / 1e12:.3f} TB/s)"
+                            for key in out)
+                + f"; values changed per step: weights "
+                f"{changed[0] / k:.0f}" + (
+                    f", c {changed[1] / k:.0f}, dw {changed[2] / k:.0f}, "
+                    f"counter {changed[3] / k:.0f}" if kind == "mod" else "")
+                + f" of {int(timed['mask'].sum())} masked slots; plain twin "
+                f"{times[case][1] * 1e3:.3f} us/step (events); bound "
+                f"{bounds[case][0] * 1e3 / k:.3f} us ({bounds[case][1]}); "
+                f"card {smi}")
+            del timed
+        del args, got, want, per_step
     say(f"[7 kernel-vs-twin] max float error over all cases {max_err:.3g} "
         f"(tolerance rtol {RTOL}, atol {ATOL}; 0 = bit-equal)")
 
-    # 8. the main paths
-    launches = 0
+    # 8. the main paths; per_call sums (calls, launches counted by the C
+    # entry, profiled calls, the profiler's kernel records)
+    launches, per_call = 0, [0, 0, 0, 0]
     lat = stdp_lattice(snt, *MAIN)
     w0 = lat.graph.weights.clone()
-    rk.LAUNCHES = 0
+    rk.LAUNCHES = rk.STEP_LAUNCHES = 0
     lat.run_lattice(MAIN_STEPS)
     torch.cuda.synchronize()
-    calls = rk.LAUNCHES
+    calls, steps_launched = rk.LAUNCHES, rk.STEP_LAUNCHES
     launches += calls
     v, w = lat.state["v"], lat.graph.weights
     fired = int((lat.state["last_firing_time"] >= 0).sum())
     moved = (w - w0).abs().max().item()
+    recs = kernel_records(lambda: lat.run_lattice(RECORD_STEPS),
+                          RECORD_STEPS // 16 * 17)
+    per_call = [a + b for a, b in zip(per_call, (
+        calls, steps_launched, RECORD_STEPS // 16, sum(recs.values())))]
     say(f"[8 main path] STDP {MAIN[0]}x{MAIN[1]} run_lattice({MAIN_STEPS}): "
-        f"route {lat._last_run_fused}, kernel calls {calls}, v finite "
+        f"route {lat._last_run_fused}, kernel calls {calls}, kernel launches "
+        f"{steps_launched} ({steps_launched / calls:.2f} a call; profiled "
+        f"{RECORD_STEPS} steps: {records_line(recs)}), v finite "
         f"{bool(torch.isfinite(v).all())}, weights finite "
         f"{bool(torch.isfinite(w).all())}, max weight change {moved:.4g}, "
         f"fired {fired} of {lat.n}")
     check(lat._last_run_fused == ("stdp", False), "STDP missed the kernel")
     check(calls == math.ceil(MAIN_STEPS / rk.STEPS_PER_LAUNCH),
           "wrong number of kernel calls")
+    check(steps_launched == 17 * calls
+          and sum(recs.values()) == RECORD_STEPS // 16 * 17
+          and all("lp_step_kernel" in key for key in recs),
+          "the STDP main path did not take the fused schedule")
     check(bool(torch.isfinite(v).all()) and bool(torch.isfinite(w).all())
           and moved > 0 and fired > 0, "bad STDP main-path state")
     lat.update_grid_history = True
@@ -1026,12 +1246,12 @@ def plasticity_phases(snt, smi):
     del lat, hist
     lat = main_lattice(snt, *MAIN, cls="RewardModulatedLattice")
     w0 = lat.graph.weights.clone()
-    rk.LAUNCHES = 0
+    rk.LAUNCHES = rk.STEP_LAUNCHES = 0
     lat.run_lattice_with_reward(REWARD, MAIN_STEPS)
     dop = lat.dopamine
     lat.run_lattice(HIST_STEPS * 4)
     torch.cuda.synchronize()
-    calls = rk.LAUNCHES
+    calls, steps_launched = rk.LAUNCHES, rk.STEP_LAUNCHES
     launches += calls
     v, w = lat.state["v"], lat.graph.weights
     moved = (w - w0).abs().max().item()
@@ -1049,6 +1269,40 @@ def plasticity_phases(snt, smi):
     check(math.isfinite(dop) and dop == lat.dopamine
           and bool(torch.isfinite(v).all()) and bool(torch.isfinite(w).all())
           and moved > 0, "bad R-STDP main-path state")
+    recs = kernel_records(
+        lambda: lat.run_lattice_with_reward(REWARD, RECORD_STEPS),
+        RECORD_STEPS // 16 * 17)
+    per_call = [a + b for a, b in zip(per_call, (
+        calls, steps_launched, RECORD_STEPS // 16, sum(recs.values())))]
+    say(f"[8 main path] R-STDP kernel launches {steps_launched} "
+        f"({steps_launched / calls:.2f} a call; profiled "
+        f"run_lattice_with_reward({REWARD}, {RECORD_STEPS}): "
+        f"{records_line(recs)})")
+    check(steps_launched == 17 * calls
+          and sum(recs.values()) == RECORD_STEPS // 16 * 17
+          and all("lp_step_kernel" in key for key in recs),
+          "the R-STDP main path did not take the fused schedule")
+    del lat
+    # the routed spec: STDP on ALIF at the main size takes the per-step
+    # design (`rk.per_step_route`), 32 launches a call
+    lat = snt.Lattice(snt.AdaptiveLeakyIntegrateAndFire())
+    lat.populate(*MAIN, gap_conductance=10.0)
+    lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=7)
+    lat.do_plasticity = True
+    rk.LAUNCHES = rk.STEP_LAUNCHES = 0
+    lat.run_lattice(RECORD_STEPS)
+    torch.cuda.synchronize()
+    calls, steps_launched = rk.LAUNCHES, rk.STEP_LAUNCHES
+    launches += calls
+    finite = bool(torch.isfinite(lat.state["v"]).all()) \
+        and bool(torch.isfinite(lat.graph.weights).all())
+    say(f"[8 main path] STDP ALIF {MAIN[0]}x{MAIN[1]} run_lattice("
+        f"{RECORD_STEPS}): route {lat._last_run_fused}, kernel calls {calls}"
+        f", kernel launches {steps_launched} ({steps_launched / calls:.2f} a "
+        f"call, the per-step design), state finite {finite}")
+    check(lat._last_run_fused == ("stdp", False)
+          and calls == RECORD_STEPS // 16 and steps_launched == 32 * calls
+          and finite, "STDP on ALIF did not take its routed design")
     del lat
     for label, build, reward in (("STDP", bench_stdp, None),
                                  ("R-STDP", bench_rstdp, REWARD)):
@@ -1126,7 +1380,8 @@ def plasticity_phases(snt, smi):
                   and plain._last_run_fused is False, "timed the wrong routes")
             mk, mp = float(np.median(tk)), float(np.median(tp))
             dev_us, top = profiled_us(
-                lambda: run_synced(kern, PROFILE_STEPS, reward), PROFILE_STEPS)
+                lambda: run_synced(kern, PROFILE_STEPS, reward), PROFILE_STEPS,
+                launches=PROFILE_STEPS // 16 * 17, mine=("lp_",))
             busy = dev_us * MAIN_STEPS / (mk * 1e6)
             say(f"[10 times] {label} {shape[0]}x{shape[1]}: kernel route "
                 f"{rate(shape, mk, MAIN_STEPS)}, median of 5 x {MAIN_STEPS} "
@@ -1136,20 +1391,28 @@ def plasticity_phases(snt, smi):
                 f"{rate(shape, mp, plain_steps)}, median of 3 x "
                 f"{plain_steps} steps; card {smi}")
             del kern, plain
+    rmain, smain = ("mod", "izhikevich", MAIN), ("plastic", "izhikevich", MAIN)
+    rstdp, stdp = times[rmain], times[smain]
     return {"name": "lattice_plasticity_steps", "route": "cuda",
             "source": "spiking_neural_networks_tpu_torch/csrc/"
                       "lattice_plasticity.cu",
             "replaces": PLASTIC_REPLACES, "launches": launches,
             "max_abs_err": max_err,
-            "ms": times["mod"][0] * rk.STEPS_PER_LAUNCH,
-            "plain_ms": times["mod"][1] * rk.STEPS_PER_LAUNCH,
-            "device_ms": times["mod"][2] * rk.STEPS_PER_LAUNCH,
-            "bound_ms": bounds["mod"][0], "bound_by": bounds["mod"][1],
+            "ms": rstdp[0] * rk.STEPS_PER_LAUNCH,
+            "plain_ms": rstdp[1] * rk.STEPS_PER_LAUNCH,
+            "device_ms": rstdp[2] * rk.STEPS_PER_LAUNCH,
+            "per_step_ms": rstdp[3] * rk.STEPS_PER_LAUNCH,
+            "per_step_device_ms": rstdp[4] * rk.STEPS_PER_LAUNCH,
+            # phase 8's main paths: launches the C entry counted, and the
+            # profiler's kernel records, per 16-step call
+            "kernel_launches_per_call": per_call[1] / per_call[0],
+            "kernel_records_per_call": per_call[3] / per_call[2],
+            "bound_ms": bounds[rmain][0], "bound_by": bounds[rmain][1],
             "library_ms": None,
-            "stdp_ms": times["plastic"][0] * rk.STEPS_PER_LAUNCH,
-            "stdp_plain_ms": times["plastic"][1] * rk.STEPS_PER_LAUNCH,
-            "stdp_device_ms": times["plastic"][2] * rk.STEPS_PER_LAUNCH,
-            "stdp_bound_ms": bounds["plastic"][0]}
+            "stdp_ms": stdp[0] * rk.STEPS_PER_LAUNCH,
+            "stdp_plain_ms": stdp[1] * rk.STEPS_PER_LAUNCH,
+            "stdp_device_ms": stdp[2] * rk.STEPS_PER_LAUNCH,
+            "stdp_bound_ms": bounds[smain][0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1511,16 +1774,28 @@ def plan_line(members, smem):
 
 
 def ptxas_lines(name):
-    """ptxas's register and spill lines of kernel ``name`` from the build
-    log (empty when the library was cached)."""
+    """ptxas's register and spill lines of the last instantiation of
+    kernel ``name`` in the build log (empty when the library was cached)."""
+    found = instantiation_lines(name)
+    return found[-1][1].split("; ") if found else []
+
+
+def instantiation_lines(name):
+    """ptxas's registers and spills of every instantiation of kernel
+    ``name`` in the build log, as (mangled entry, report); fails on a
+    spill.  Empty when the library was cached."""
     from spiking_neural_networks_tpu_torch import _build
     lines = _build.build_log.splitlines()
     out = []
     for k, ln in enumerate(lines):
         if "Compiling entry function" in ln and name in ln:
-            out = [x.strip().replace("ptxas info    : ", "")
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            rep = [x.strip().replace("ptxas info    : ", "")
                    for x in lines[k + 1:k + 4]
                    if "spill" in x or "registers" in x]
+            out.append((entry, "; ".join(rep)))
+            check(all("0 bytes spill stores, 0 bytes spill loads" in x
+                      for x in rep if "spill" in x), f"{entry} spills: {rep}")
     return out
 
 
@@ -1539,14 +1814,12 @@ def sync_us(blocks, n_syncs=1000):
 
 
 def design_times(nk, args, clock, k, reward=None, reps=10, count=True):
-    """Both designs of one K-step call on the same inputs, in turns
-    (persistent, per-step, per-step, persistent; the persistent kernel
-    through `network_steps` where the spec's route takes it, else through
-    `persistent_call`): per design (wall us per
-    step of back-to-back calls to a synchronise, CUDA-event us per step,
-    profiled device us per step, kernel launches per call).  With
-    ``count``, the profile of ``reps`` calls must hold every launch's
-    record; without, its device time sums the records that came back."""
+    """Both designs of one K-step network call on the same inputs, in
+    turns (`designs_in_turns`): the persistent kernel through
+    `network_steps` where the spec's route takes it, else through
+    `persistent_call`, and the per-step launches.  With ``count``, the
+    profile of ``reps`` calls must hold every launch's record; without,
+    its device time sums the records that came back."""
     spec = args[0]
     routed = nk.uses_persistent(spec, nk._sm_count(torch.device("cuda")))
     calls = {"persistent": (lambda: nk.network_steps(*args, clock, k,
@@ -1556,27 +1829,7 @@ def design_times(nk, args, clock, k, reward=None, reps=10, count=True):
                                                   per_step=True)}
     launches = {"persistent": -(-k // nk.STEPS_PER_LAUNCH),
                 "per_step": per_step_launches(spec, k)}
-    walls = {key: [] for key in calls}
-    events = {key: [] for key in calls}
-    for key in ("persistent", "per_step", "per_step", "persistent"):
-        fn = calls[key]
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        walls[key].append((time.perf_counter() - t0) / reps / k * 1e6)
-        events[key].append(event_ms(fn, reps) * 1e3 / k)
-    out = {}
-    for key, fn in calls.items():
-        dev, top = profiled_us(lambda fn=fn: [fn() for _ in range(reps)],
-                               reps * k, n_top=4,
-                               launches=reps * launches[key] if count
-                               else None)
-        out[key] = (min(walls[key]), min(events[key]), dev,
-                    launches[key], top)
-    return out
+    return designs_in_turns(calls, launches, k, reps, count)
 
 
 def design_line(out, counted=True):
@@ -2043,10 +2296,24 @@ def compare_hh(got, want, hk):
     return max(errs.values()), bad, errs
 
 
+def hh_bits(got, want, hk):
+    """The outputs of an HH call that differ from the twin's in any bit."""
+    pairs = [(key, got[0][key], want[0][key])
+             for key in hk.STATE_KEYS + hk.CURRENT_KEYS]
+    pairs.append(("weights", got[1], want[1]))
+    bad = []
+    for key, g, w in pairs:
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            bad.append(key)
+    return bad
+
+
 def hh_phases(snt, smi):
     from spiking_neural_networks_tpu_torch.ops import hh_kernels as hk
     max_err, times, bounds = hh_twin_phase(snt, hk, smi)
-    launches = hh_main_phase(snt, hk)
+    launches, per_call = hh_main_phase(snt, hk)
     hh_cmp_phase(snt)
     hh_times_phase(snt, smi)
     return {"name": "hh_steps", "route": "cuda",
@@ -2056,6 +2323,12 @@ def hh_phases(snt, smi):
             "ms": times[0] * hk.STEPS_PER_LAUNCH,
             "plain_ms": times[1] * hk.STEPS_PER_LAUNCH,
             "device_ms": times[2] * hk.STEPS_PER_LAUNCH,
+            "per_step_ms": times[3] * hk.STEPS_PER_LAUNCH,
+            "per_step_device_ms": times[4] * hk.STEPS_PER_LAUNCH,
+            # phase 16's main paths: launches the C entry counted, and the
+            # profiler's kernel records, per 16-step call
+            "kernel_launches_per_call": per_call[1] / per_call[0],
+            "kernel_records_per_call": per_call[3] / per_call[2],
             "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None}
 
 
@@ -2063,40 +2336,59 @@ def hh_twin_phase(snt, hk, smi):
     """15. The HH kernel vs its plain twin on the card: (max float error,
     (kernel, twin, device) ms per step at 512^2, the bound of a 512^2
     call)."""
+    for entry, rep in instantiation_lines("hh_cell_kernel"):
+        say(f"[15 build] {entry}: {rep}")
     max_err, times, bounds = 0.0, None, None
     for seed, (shape, k, nt, rec, el, pl, nonuniform) in enumerate(HCASES):
         args = hh_inputs(snt, hk, shape, k, nt, rec, el, pl, nonuniform,
                          seed)
+        before = hk.STEP_LAUNCHES
         got = hk.hh_steps(**args)
         torch.cuda.synchronize()
+        launched = hk.STEP_LAUNCHES - before
+        before = hk.STEP_LAUNCHES
+        per_step = hk.hh_steps(**args, _per_step=True)
+        torch.cuda.synchronize()
+        launched_ps = hk.STEP_LAUNCHES - before
         want = hk.hh_steps_reference(**args)
         torch.cuda.synchronize()
         err, bad, errs = compare_hh(got, want, hk)
+        diff, diff_ps = hh_bits(got, want, hk), hh_bits(per_step, want, hk)
         fired = int((got[0]["last_firing_time"] >= 100).sum())
         moved = (got[1] - args["weights"]).abs().max().item()
         say(f"[15 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} {nt}/{rec} "
             f"electrical={el} plastic={pl} non-uniform={nonuniform}: "
             f"integer and flag mismatches {bad}, max errors "
             + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
-            + f", neurons fired {fired}, max weight change {moved:.4g}")
+            + f", outputs not bit-equal: fused {diff}, per step {diff_ps}; "
+            f"launches counted {launched} fused, {launched_ps} per step; "
+            f"neurons fired {fired}, max weight change {moved:.4g}")
         check(bad == 0, "firing times, spikes or was_increasing differ")
+        check(not diff and not diff_ps, "an HH design is not bit-equal to "
+              "the twin")
+        check(launched == hk.step_launches(k, pl)
+              and launched_ps == hk.step_launches(k, pl, per_step=True),
+              "the HH entry launched another number of kernels than its "
+              "schedule has")
         check(fired > 0 and (moved > 0 or not pl),
               "no neuron fired or no weight moved in the call")
         max_err = max(max_err, err)
-        if shape == HBIG:
-            kernel = lambda: hk.hh_steps(**args)
-            bounds = bound(hh_call_bytes(args, got, hk), hh_ops(args, hk))
-            dev_us, top = profiled_us(lambda: [kernel() for _ in range(10)],
-                                      10 * k)
-            times = (event_ms(kernel, 10) / k, event_ms(
-                lambda: hk.hh_steps_reference(**args), 3) / k, dev_us / 1e3)
-            say(f"[15 kernel-vs-twin] {shape[0]}x{shape[1]} K={k} per step: "
-                f"kernel calls back to back {times[0] * 1e3:.3f} us "
-                f"(events), of which device time {dev_us:.3f} us (profiled: "
-                + ", ".join(f"{n} {t:.3f}" for n, t in top)
-                + f"); plain twin {times[1] * 1e3:.3f} us (events); bound "
-                f"{bounds[0] * 1e3 / k:.3f} us ({bounds[1]}); card {smi}")
-        del args, got, want
+        if shape in (HBIG, HMAIN) and pl:
+            out = designs_in_turns(
+                {"fused": lambda: hk.hh_steps(**args),
+                 "per_step": lambda: hk.hh_steps(**args, _per_step=True)},
+                {"fused": launched, "per_step": launched_ps}, k)
+            b = bound(hh_call_bytes(args, got, hk), hh_ops(args, hk))
+            if shape == HBIG:
+                bounds = b
+                times = (out["fused"][1] / 1e3, event_ms(
+                    lambda: hk.hh_steps_reference(**args), 3) / k,
+                    out["fused"][2] / 1e3, out["per_step"][1] / 1e3,
+                    out["per_step"][2] / 1e3)
+            say(f"[15 times] {shape[0]}x{shape[1]} K={k} {nt}/{rec}, the "
+                f"designs in turns: {design_line(out)}; bound "
+                f"{b[0] * 1e3 / k:.3f} us ({b[1]}); card {smi}")
+        del args, got, want, per_step
     # the main path's own inputs: the calls of the first `HTWIN_STEPS`
     # steps of bench.py's 128^2 run, in both forms, each against the twin
     # on the state that call received
@@ -2134,17 +2426,18 @@ def hh_twin_phase(snt, hk, smi):
 
 def hh_main_phase(snt, hk):
     """16. The HH main paths through `run_lattice`; returns the kernel
-    calls they made."""
-    launches = 0
+    calls they made, and the sums (calls, launches counted by the C entry,
+    profiled calls, the profiler's kernel records)."""
+    launches, per_call = 0, [0, 0, 0, 0]
     for label, shape, steps, firing in (
             ("firing form", HMAIN, HMAIN_STEPS, True),
             ("bench.py form", HMAIN, HMAIN_STEPS, False),
             ("firing form", HBIG, HBIG_STEPS, True)):
         lat = hh_lattice(snt, *shape, firing=firing)
         w0 = lat.graph.weights.clone()
-        hk.LAUNCHES = 0
+        hk.LAUNCHES = hk.STEP_LAUNCHES = 0
         secs = run_synced(lat, steps)
-        calls = hk.LAUNCHES
+        calls, steps_launched = hk.LAUNCHES, hk.STEP_LAUNCHES
         launches += calls
         st = lat.state
         v = st["v"]
@@ -2158,14 +2451,26 @@ def hh_main_phase(snt, hk):
             f"{secs / steps * 1e6:.3f} us/step (first run), state finite "
             f"{finite}, v range [{v.min().item():.3f}, {v.max().item():.3f}]"
             f", fired {fired} of {lat.n}, max weight change {moved:.4g}")
+        recs = kernel_records(lambda: lat.run_lattice(RECORD_STEPS),
+                              RECORD_STEPS // 16 * 17)
+        per_call = [a + b for a, b in zip(per_call, (
+            calls, steps_launched, RECORD_STEPS // 16, sum(recs.values())))]
+        say(f"[16 main path] HH {label} {shape[0]}x{shape[1]}: kernel "
+            f"launches {steps_launched} ({steps_launched / calls:.2f} a "
+            f"call; profiled {RECORD_STEPS} steps: {records_line(recs)})")
         check(lat._last_run_fused == "hh", f"HH {label} missed the kernel")
         check(calls == math.ceil(steps / hk.STEPS_PER_LAUNCH),
               "wrong number of kernel calls")
+        check(steps_launched == 17 * calls
+              and sum(recs.values()) == RECORD_STEPS // 16 * 17
+              and sum(n for key, n in recs.items() if "lp_step_kernel" in key)
+              == RECORD_STEPS // 16, f"HH {label} did not take the fused "
+              "schedule")
         check(finite, f"non-finite HH {label} state")
         check(not firing or (fired > 0 and moved > 0),
               f"HH {label}: no neuron fired or no weight moved")
         del lat
-    return launches
+    return launches, per_call
 
 
 def hh_cmp_phase(snt):
@@ -2238,7 +2543,9 @@ def hh_times_phase(snt, smi):
               "timed the wrong HH routes")
         mk, mp = float(np.median(tk)), float(np.median(tp))
         dev_us, top = profiled_us(lambda: run_synced(kern, PROFILE_STEPS),
-                                  PROFILE_STEPS)
+                                  PROFILE_STEPS,
+                                  launches=PROFILE_STEPS // 16 * 17,
+                                  mine=("hh_", "lp_"))
         busy = dev_us * kern_steps / (mk * 1e6)
         say(f"[18 times] HH bench.py form {shape[0]}x{shape[1]}: kernel "
             f"route (use_kernel=None) {rate(shape, mk, kern_steps)}, median "
@@ -4255,6 +4562,18 @@ def env_twin_phase(snt, rk, smi):
         f"none; card {smi}")
     check(tbad == 0 and terr == 0.0 and fired > 0, "the timed env entry is "
           "not bit-equal to its twin, or nothing fired")
+    # the entry alone at the bench loop's own size, 10 x 10
+    a = bench_inputs(snt, rk, (10, 10))
+    bs = env_buffers(a)
+    small = env_launchers(rk.env_step_launcher, a, bs)
+    ms = event_ms(lambda: steps(small), ETIME_REPS)
+    dev_small, _ = profiled_us(
+        lambda: [steps(small) for _ in range(EPROF)], EPROF * K,
+        launches=EPROF * K * 3)
+    say(f"[29 times] env entry, bench loop agent 10x10, reward 0.05: "
+        f"{ms * 1e3 / K:.3f} us/step (events, {ETIME_REPS} calls of {K} "
+        f"steps back to back), device time {dev_small:.3f} us/step "
+        f"(profiled), 3 launches per step; card {smi}")
     return max(max_err, terr), times, bounds
 
 

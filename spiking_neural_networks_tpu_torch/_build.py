@@ -133,7 +133,7 @@ def load():
         pf, pf,                             # rule[9], rewards[n_steps]
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        vp,                                 # stream
+        ci, pi, vp,                         # per_step, launched, stream
     ]
     lib.lattice_plasticity_steps.restype = ci
     lib.lattice_plasticity_env_step.argtypes = [
@@ -159,7 +159,7 @@ def load():
         pf,                                 # rule[5]
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        vp,                                 # stream
+        ci, pi, vp,                         # per_step, launched, stream
     ]
     lib.hh_chemical_steps.restype = ci
     lib.model_stencil_layout.argtypes = [ci, pi]   # kind, codes

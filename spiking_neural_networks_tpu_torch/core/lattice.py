@@ -273,16 +273,18 @@ class Lattice:
 
     def _run_hh(self, length):
         """K steps per call of the HH chemical kernel, from the flat
-        state; STDP updates a copy of the weights per call."""
+        state; STDP updates one copy of the weights per run, in place."""
         g = self.graph
         rule = self.plasticity.params if self.do_plasticity else None
-        st, weights, done = self.state, g.weights, 0
+        weights = g.weights.clone() if self.do_plasticity else g.weights
+        st, done = self.state, 0
         while done < length:
             n = min(hh_kernels.STEPS_PER_LAUNCH, length - done)
             st, weights = hh_kernels.hh_steps(
                 st, weights, g.mask, g.in_deg, g.offsets,
                 self.internal_clock + done, n, self.electrical_synapse,
-                self.model.nt_kinetics, self.model.rec_kinetics, rule)
+                self.model.nt_kinetics, self.model.rec_kinetics, rule,
+                _own=True)
             done += n
         self.state = st
         if self.do_plasticity:

@@ -24,7 +24,8 @@
 //      0, t_max); 0 where no neurotransmitter is inserted;
 //   6. spike = v' > v_th && was_increasing && !(v < v'); lft = clock0 + k;
 //   7. STDP (plastic): w_o += delta(lft_pre, lft_post) (spk_pre + spk_post)
-//      on masked slots, from the post-step lft and spikes.
+//      on masked slots, from the post-step lft and spikes (run by the next
+//      step's launch, below).
 // Off-grid neighbours are skipped by a bounds check.  The receptor
 // kinetics and the release are chem_common.cuh's, shared with the network
 // kernels' chemical arm.  Every exp is
@@ -34,22 +35,33 @@
 //
 // Design.  The TPU kernel keeps the whole lattice in VMEM for K steps; a
 // step reads its neighbours' previous v and concentrations, and STDP reads
-// their post-step lft and spikes, so on Hopper each step is a launch of
-// hh_cell_kernel (one thread per cell, templated on the two kinetics; the
-// electrical switch is an argument, uniform over the launch) that reads buffer set k % 2's predecessor and
-// writes set k % 2, then, when plastic, the STDP edge kernel of
-// lattice_plasticity.cu (one thread per destination, updating its own
-// slots in place).  Per-type fields keep the state's (N, 3) layout; masks
-// and flags are bytes (PyTorch's bool).
+// their post-step lft and spikes, so on Hopper every step ends at a launch
+// boundary.  Step k is a launch of hh_cell_kernel (one thread per cell,
+// templated on the two kinetics; the electrical switch is an argument,
+// uniform over the launch) that reads buffer set (k-1) % 2 and writes set
+// k % 2.  With STDP, launch k (k >= 1) first runs step k-1's STDP pass on
+// the cell's own slots (EDGE): weights are stored per destination, and the
+// pass reads step k-1's lft and spike flags, which set (k-1) % 2 already
+// holds and nobody writes in launch k; the updated weights stay in
+// registers for the electrical and chemical sums.  A weight is stored only
+// where its bits changed (exact: the store of an unchanged value writes
+// the bits already there; w + 0 on a -0.0 weight gives +0.0, which is a
+// change and is stored).  After the last step one launch of the edge
+// kernel of lattice_plasticity.cu runs step K-1's pass: K + 1 launches per
+// K-step call.  The per-step design (a cell launch, then the edge kernel,
+// each step: 2 K launches) stays reachable with per_step = 1, for the
+// comparison in turns only: it was slower at 128 x 128 and 512 x 512.
+// Every launch is counted (lp_counted).  Per-type fields keep the state's
+// (N, 3) layout; masks and flags are bytes (PyTorch's bool).
 //
 // What bounds it on an H100 is memory traffic: per cell and step the cell
 // kernel reads 10 parameter planes, 9 or 15 receptor and 6 or 9
 // neurotransmitter parameters, both (N, 3) masks, 12 weights and 12 mask
 // bytes (radius 2), in_deg and the state, and writes the state: about
-// 330-400 bytes; the STDP edge kernel about 110 more.  At 512 x 512 that
-// is over 100 MB per step, beyond the 50 MB L2.  Later work: temporal
-// blocking (K steps on a tile plus a K * pad halo in shared memory), so
-// that parameters and weights are read once per K steps.
+// 330-400 bytes, the STDP pass riding on the weight and mask loads.  At
+// 512 x 512 that is over 100 MB per step, beyond the 50 MB L2.  Later
+// work: temporal blocking (K steps on a tile plus a K * pad halo in shared
+// memory), so that parameters and weights are read once per K steps.
 
 #include "chem_common.cuh"
 
@@ -87,14 +99,17 @@ struct HHParams {
     const float* rec[5];   // (N, 3) each, in rec_param_keys order
 };
 
-template <int NT, int REC>
+// Step k of one cell; with EDGE, first step k-1's STDP pass on the
+// cell's own slots (from `in`'s lft and spike flags, step k-1's), whose
+// weights the electrical and chemical sums then take from registers.
+template <int NT, int REC, bool EDGE>
 __global__ void hh_cell_kernel(
     HHState in, HHState out, HHCurrents cur, HHParams P, int elec,
     const unsigned char* __restrict__ nt_mask,
     const unsigned char* __restrict__ rec_mask,
-    const float* __restrict__ weights, const unsigned char* __restrict__ emask,
-    const float* __restrict__ in_deg, Stencil st, int rows, int cols,
-    int clock, int last)
+    float* __restrict__ weights, const unsigned char* __restrict__ emask,
+    const float* __restrict__ in_deg, Stencil st, Rule rule, int rows,
+    int cols, int clock, int last)
 {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -111,16 +126,29 @@ __global__ void hh_cell_kernel(
     float acc = 0.0f, wsum = 0.0f;
     float sums[HH_TYPES] = {0.0f, 0.0f, 0.0f};
     float cnts[HH_TYPES] = {0.0f, 0.0f, 0.0f};
+    const int t_post = EDGE ? in.lft[i] : LP_NEVER;
+    const float s_post = EDGE && in.spk[i] ? 1.0f : 0.0f;
     for (int o = 0; o < st.n; ++o) {
         const size_t e = (size_t)o * n + i;
-        const float wo = weights[e];
-        wsum = wsum + wo;
+        float wo = weights[e];
+        const bool me = emask[e];
         const int sr = row + st.dr[o];
         const int sc = col + st.dc[o];
-        if (sr < 0 || sr >= rows || sc < 0 || sc >= cols) continue;
+        const bool on = sr >= 0 && sr < rows && sc >= 0 && sc < cols;
         const size_t j = (size_t)sr * cols + sc;
+        if (EDGE && me) {
+            // the edge kernel's update, stored only where its bits change
+            const int t_pre = on ? in.lft[j] : LP_NEVER;
+            const float s_pre = on && in.spk[j] ? 1.0f : 0.0f;
+            const float nw = wo + stdp_delta(t_pre, t_post, rule)
+                * (s_pre + s_post);
+            if (__float_as_int(nw) != __float_as_int(wo)) weights[e] = nw;
+            wo = nw;
+        }
+        wsum = wsum + wo;
+        if (!on) continue;
         if (elec) acc = acc + wo * in.v[j];
-        const float em = emask[e] ? 1.0f : 0.0f;
+        const float em = me ? 1.0f : 0.0f;
         for (int q = 0; q < HH_TYPES; ++q) {
             const float mq = nt_mask[HH_TYPES * j + q] ? 1.0f : 0.0f;
             sums[q] = sums[q] + wo * (in.ntt[HH_TYPES * j + q] * mq);
@@ -223,8 +251,11 @@ int hh_max_offsets() { return LP_MAX_OFFSETS; }
 // the 10 planes of PARAM_ORDER, `nt_params` / `rec_params` the kinetics'
 // (N, 3) parameters in nt_param_keys / rec_param_keys order.  With
 // `plastic`, `weights` are updated in place by STDP with `rule` = {a_plus,
-// a_minus, tau_plus, tau_minus, dt}.  Kinetics ids: 0 Destexhe, 1
-// approximate.  Returns the first CUDA error, 0 if none.
+// a_minus, tau_plus, tau_minus, dt}: per_step = 0 runs step k-1's STDP
+// pass inside step k's launch and one edge launch after the last step
+// (n_steps + 1 launches), 1 an edge launch after every step (2 n_steps).
+// *launched (when not null) gains one for each kernel launched.  Kinetics
+// ids: 0 Destexhe, 1 approximate.  Returns the first CUDA error, 0 if none.
 int hh_chemical_steps(
     int nt_kind, int rec_kind, int electrical, int plastic,
     const void* const* state_in, void* const* state_buf,
@@ -234,7 +265,8 @@ int hh_chemical_steps(
     const unsigned char* nt_mask, const unsigned char* rec_mask,
     float* weights, const unsigned char* emask, const float* in_deg,
     const float* rule, const int* dr, const int* dc, int n_off,
-    int rows, int cols, int clock0, int n_steps, void* stream)
+    int rows, int cols, int clock0, int n_steps, int per_step, int* launched,
+    void* stream)
 {
     if (nt_kind < 0 || nt_kind > 1 || rec_kind < 0 || rec_kind > 1
         || n_nt_params != (nt_kind == KIN_DESTEXHE ? 3 : 2)
@@ -262,13 +294,26 @@ int hh_chemical_steps(
                     (rows + block.y - 1) / block.y);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+    // the fused schedule: launch k (k >= 1) runs step k-1's STDP pass
+    // before step k; a trailing edge launch ends the call
+    const bool fused = plastic && !per_step;
     for (int k = 0; k < n_steps; ++k) {
         const HHState out = state_of(state_buf + HH_STATE_FIELDS * (k & 1));
         const int last = k == n_steps - 1;
+        const bool edge = fused && k > 0;
 #define HH_LAUNCH(NT, REC)                                                  \
-        hh_cell_kernel<NT, REC><<<grid, block, 0, s>>>(                     \
-            in, out, cur, P, electrical, nt_mask, rec_mask, weights, emask, \
-            in_deg, st, rows, cols, clock0 + k, last)
+        do {                                                                \
+            if (edge)                                                       \
+                hh_cell_kernel<NT, REC, true><<<grid, block, 0, s>>>(       \
+                    in, out, cur, P, electrical, nt_mask, rec_mask,         \
+                    weights, emask, in_deg, st, r, rows, cols, clock0 + k,  \
+                    last);                                                  \
+            else                                                            \
+                hh_cell_kernel<NT, REC, false><<<grid, block, 0, s>>>(      \
+                    in, out, cur, P, electrical, nt_mask, rec_mask,         \
+                    weights, emask, in_deg, st, r, rows, cols, clock0 + k,  \
+                    last);                                                  \
+        } while (0)
         if (nt_kind == KIN_DESTEXHE && rec_kind == KIN_DESTEXHE)
             HH_LAUNCH(KIN_DESTEXHE, KIN_DESTEXHE);
         else if (nt_kind == KIN_DESTEXHE)
@@ -278,10 +323,10 @@ int hh_chemical_steps(
         else
             HH_LAUNCH(KIN_APPROXIMATE, KIN_APPROXIMATE);
 #undef HH_LAUNCH
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        if (plastic) {
+        if ((err = lp_counted(launched)) != cudaSuccess) return (int)err;
+        if (plastic && (per_step || last)) {
             err = lp_launch_stdp_edge(out.lft, out.spk, weights, emask, r,
-                                      st, rows, cols, s);
+                                      st, rows, cols, s, launched);
             if (err != cudaSuccess) return (int)err;
         }
         in = out;

@@ -22,30 +22,58 @@
 // operations: the kernels then round as their plain PyTorch twin
 // (ops/reward_kernels.lattice_plasticity_steps_reference) on any device.
 //
-// Design.  Steps 4 read the neighbours' post-step lft and spikes, and
-// phase A of step k+1 reads the neighbours' new v, so every step needs a
-// grid-wide ordering point.  The TPU kernel keeps the whole lattice in
-// VMEM for K steps; on Hopper a cooperative grid sync with one thread per
-// cell would sit near the limit of co-resident threads at 512 x 512 (a
-// grid of a few blocks per SM whose threads walk the cells does not:
-// network_persistent.cu, one grid.sync() of ~1.1 us a step on an H100).
-// Here each step is two launches on the caller's stream: a cell kernel
-// (phases A and B, one thread per cell, writing v, w, lft, refr into one
-// of two buffer sets and the spikes into a byte plane) and an edge kernel
-// (step 4, one thread per destination cell).  Weights and traces are stored per
-// destination (o, r, c), so each edge thread updates only its own slots,
-// in place, and no two threads write one slot.  Dopamine is a one-thread
-// kernel per call that writes the dopamine of every step.
+// Schedule (the main path).  Step 4 reads the neighbours' post-step lft
+// and spikes, and phase A of step k+1 the neighbours' new v, so every
+// step needs a grid-wide ordering point: a launch boundary.  A call of K
+// steps is K + 1 launches of lp_step_kernel (K for kind plain):
+//   launch 0      step 0's phases A and B;
+//   launch k      step k-1's edge pass (step 4) on the thread's own slots,
+//                 then step k's phase A from the weights that pass left,
+//                 still in registers, and phase B;
+//   launch K      step K-1's edge pass alone (the edge kernel, below).
+// Weights and traces are stored per destination (o, r, c), so a thread
+// reads and writes only its own slots and no two threads touch one slot.
+// Launch k reads step k-1's state (v, w, lft, refr in buffer set
+// (k-1) % 2, spike flags in parity plane (k-1) % 2) and writes step k's
+// into set k % 2 and plane k % 2, while other blocks still read k-1's.
+// The dopamine kernel is gone from this path: each thread folds the
+// rewards of its step into the dopamine (at most 16, passed by value, from
+// *dop_in or the dopamine written at the end of the previous 16), in
+// lp_dopamine_kernel's float order, and block 0 writes it to dop_steps.
+// The per-step design (cell kernel, then the edge kernel, each step, and
+// the dopamine kernel per call) stays reachable with per_step = 1: STDP on
+// ALIF at 512 x 512 took less device time so on an H100 (the runner's
+// route, ops/reward_kernels.per_step_route), and the two designs are timed
+// against each other.  Every launch is counted (lp_counted).
 //
-// What bounds it on an H100 is memory traffic: per cell and step the cell
-// kernel reads n_off weights, up to 13 parameter planes, in_deg, v, w,
-// lft and refr and writes them back; the R-STDP edge kernel reads the
-// mask and reads and writes weights, c, dw and counter for every offset.
-// With radius 2 (12 offsets) that is about 500 bytes per cell per step
-// for R-STDP (131 MB per step at 512 x 512, beyond the 50 MB L2: 39 us
-// per step at 3.35 TB/s) and about 200 bytes for STDP.  Later work:
-// fuse the edge pass of step k into the cell kernel of step k+1, keep
-// tiles and halos in shared memory.
+// The edge pass.  A block of 32 x 8 threads owns a tile of 8 rows x 32
+// columns, one cell a thread.  The block stages its tile plus a halo of
+// the stencil's radius (lft and spike flags for the edge pass, v for phase
+// A) in shared memory, off-grid cells as lft NEVER, spike 0 and v 0 (and
+// skipped by the bounds check, as before); a halo wider than LP_HALO_MAX
+// reads global memory instead.  Four consecutive columns a thread with
+// 16-byte loads, and two with 8-byte loads, ran slower on an H100 in trial
+// builds at nearly every size from 64 x 64 to 512 x 512 (PERF.md): they
+// took 71-84 and 47-72 registers against 40-48, so 3 blocks an SM instead
+// of 5 and fewer loads in flight, and below 512 x 512 they launch fewer
+// blocks than the card has SMs.  A value
+// is stored only where its bits changed, which is exact by construction:
+// an unchanged value's store would write the bits already there.  It
+// keeps the sign rule of w + delta * 0 on a -0.0 weight (+0.0: the bits
+// change, so it is stored).  For R-STDP two visits per step toggle the
+// counter twice, so counters of 0 and 1 end the step as they began and
+// are not stored (a counter of 2 becomes 1 and is), and after a step that
+// began with counter 0, dw is +0.0 and stored only if it was not.
+//
+// What bounds it on an H100: the latency of each thread's chain of loads.
+// Per cell and step phase A/B read up to 13 parameter planes, in_deg, v,
+// w, lft and refr and write them back; the R-STDP pass reads the mask, w,
+// c, dw and counter of every offset and writes w, c and (where changed)
+// dw, the weights read once for both the pass and phase A.  With radius 2
+// (12 offsets) that is about 350 bytes per cell per step for R-STDP (93 MB
+// per step at 512 x 512, beyond the 50 MB L2) and 130 for STDP (34 MB),
+// moved at 1.7 and 1.25 TB/s of the card's 3.35 (PERF.md); below
+// 256 x 256 the launches' latency.
 //
 // The closed loop (lattice_plasticity_env_step; replaces the env form of
 // the TPU kernel, _make_kernel(spec, n, env) driven by _env_advance) runs
@@ -60,9 +88,45 @@
 #include "plasticity_common.cuh"
 
 #define LP_REWARD_CHUNK 16
+#define LP_TILE_ROWS 8       // block of 32 x LP_TILE_ROWS threads, a cell each
+#define LP_HALO_MAX 8        // wider halos read global memory
 
 struct Rewards {
     float r[LP_REWARD_CHUNK];
+};
+
+// One launch of lp_step_kernel.
+struct LpStep {
+    // step k-1's state (the call's input for step 0); spk its spike flags
+    const float* v;
+    const float* w;
+    const int* lft;
+    const float* refr;
+    const unsigned char* spk;
+    // step k's state
+    float* v_out;
+    float* w_out;
+    int* lft_out;
+    float* refr_out;
+    unsigned char* spk_out;
+    float* v_pre;             // null unless emitting
+    float* weights;
+    const unsigned char* mask;
+    float* tr_c;
+    float* tr_dw;
+    int* tr_counter;
+    const float* in_deg;
+    // the dopamine: *dop_base with n_rew rewards folded in; block 0 writes
+    // it to dop_write (when not null)
+    const float* dop_base;
+    float* dop_write;
+    Rewards rw;
+    int n_rew;
+    float exp_dd, tau_d;
+    Params P;
+    Stencil st;
+    Rule r;
+    int rows, cols, clock, halo, tiled;
 };
 
 template <int MODEL, bool DEV_CLOCK>
@@ -110,50 +174,146 @@ __global__ void lp_cell_kernel(
     if (v_pre_out) v_pre_out[i] = v_pre;
 }
 
-template <int KIND>
-__global__ void lp_edge_kernel(
-    const int* __restrict__ lft, const unsigned char* __restrict__ spk,
-    float* __restrict__ weights, const unsigned char* __restrict__ mask,
-    float* __restrict__ tr_c, float* __restrict__ tr_dw,
-    int* __restrict__ tr_counter, const float* __restrict__ dop_ptr,
-    Rule r, Stencil st, int rows, int cols)
+// Stores x at p[i] where its bits differ from old's (a store of the
+// same bits would change nothing).
+template <typename T>
+__device__ __forceinline__ void store_changed(T* p, size_t i, T x, T old)
 {
-    const int col = blockIdx.x * blockDim.x + threadIdx.x;
-    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    int a, b;
+    memcpy(&a, &x, 4);
+    memcpy(&b, &old, 4);
+    if (a != b) p[i] = x;
+}
+
+// Step k-1's edge pass (EDGE, kind KIND) and step k's phases A and B
+// (CELL) of one tile of LP_TILE_ROWS x 32 cells, one thread a cell; see
+// the head of the file.  Edge-only (CELL false) is the edge kernel of the
+// per-step design, the networks' per-step path and the closed loop.
+template <int MODEL, int KIND, bool EDGE, bool CELL>
+__global__ void __launch_bounds__(32 * LP_TILE_ROWS)
+lp_step_kernel(const LpStep a)
+{
+    extern __shared__ __align__(16) unsigned char lp_smem[];
+    const int rows = a.rows, cols = a.cols, halo = a.halo;
+    const int tw = 32 + 2 * halo;
+    const int tn = tw * (LP_TILE_ROWS + 2 * halo);
+    int* s_lft = reinterpret_cast<int*>(lp_smem);
+    float* s_v = reinterpret_cast<float*>(s_lft + (EDGE ? tn : 0));
+    unsigned char* s_spk =
+        reinterpret_cast<unsigned char*>(s_v + (CELL ? tn : 0));
+    const int row0 = blockIdx.y * LP_TILE_ROWS;
+    const int col0 = blockIdx.x * 32;
+    const bool edge = EDGE && KIND != KIND_PLAIN;
+
+    // the dopamine of the edge pass's step (and, for block 0, of the step
+    // whose dopamine this launch writes)
+    float dop = 0.0f;
+    if ((edge && KIND == KIND_MOD) || a.dop_write) {
+        float d = *a.dop_base;
+        for (int j = 0; j < a.n_rew; ++j)
+            d = d * a.exp_dd + a.tau_d * a.rw.r[j];
+        dop = d;
+        if (a.dop_write && blockIdx.x == 0 && blockIdx.y == 0
+            && threadIdx.x == 0 && threadIdx.y == 0)
+            *a.dop_write = d;
+    }
+    if (a.tiled) {
+        for (int q = threadIdx.y * 32 + threadIdx.x; q < tn;
+             q += 32 * LP_TILE_ROWS) {
+            const int sr = row0 - halo + q / tw;
+            const int sc = col0 - halo + q % tw;
+            const bool on = sr >= 0 && sr < rows && sc >= 0 && sc < cols;
+            const size_t j = (size_t)sr * cols + sc;
+            if (EDGE) {
+                s_lft[q] = on ? a.lft[j] : LP_NEVER;
+                s_spk[q] = on ? a.spk[j] : 0;
+            }
+            if (CELL) s_v[q] = on ? a.v[j] : 0.0f;
+        }
+        __syncthreads();
+    }
+    const int row = row0 + threadIdx.y;
+    const int col = col0 + threadIdx.x;
     if (row >= rows || col >= cols) return;
     const size_t n = (size_t)rows * cols;
     const size_t i = (size_t)row * cols + col;
-    const int t_post = lft[i];
-    const float s_post = spk[i] ? 1.0f : 0.0f;
-    const float dop = KIND == KIND_MOD ? *dop_ptr : 0.0f;
-    for (int o = 0; o < st.n; ++o) {
+    // a cell of the tile and halo, in shared memory
+    auto tile = [&](int sr, int sc) {
+        return (sr - row0 + halo) * tw + (sc - col0 + halo);
+    };
+
+    const int t_post = !edge ? LP_NEVER
+        : a.tiled ? s_lft[tile(row, col)] : a.lft[i];
+    const float s_post = edge && (a.tiled ? s_spk[tile(row, col)]
+                                          : a.spk[i]) ? 1.0f : 0.0f;
+    float acc = 0.0f;
+    float wsum = 0.0f;
+    for (int o = 0; o < a.st.n; ++o) {
+        const int sr = row + a.st.dr[o];
+        const int sc = col + a.st.dc[o];
+        const bool on = sr >= 0 && sr < rows && sc >= 0 && sc < cols;
         const size_t e = (size_t)o * n + i;
-        if (!mask[e]) continue;
-        const int sr = row + st.dr[o];
-        const int sc = col + st.dc[o];
-        int t_pre = LP_NEVER;
-        float s_pre = 0.0f;
-        if (sr >= 0 && sr < rows && sc >= 0 && sc < cols) {
-            const size_t j = (size_t)sr * cols + sc;
-            t_pre = lft[j];
-            s_pre = spk[j] ? 1.0f : 0.0f;
+        float w = a.weights[e];
+        // the slot's loads issue together, before the mask is known
+        const bool masked = edge && a.mask[e];
+        float c = 0.0f, dw = 0.0f;
+        int ct = 0;
+        if (edge && KIND == KIND_MOD) {
+            c = a.tr_c[e];
+            dw = a.tr_dw[e];
+            ct = a.tr_counter[e];
         }
-        const float delta = stdp_delta(t_pre, t_post, r);
-        if (KIND == KIND_PLASTIC) {
-            weights[e] = weights[e] + delta * (s_pre + s_post);
-        } else {
-            float w = weights[e];
-            float c = tr_c[e];
-            float dw = tr_dw[e];
-            int ct = tr_counter[e];
-            rstdp_visit(w, c, dw, ct, delta, dop, r);
-            rstdp_visit(w, c, dw, ct, delta, dop, r);
-            weights[e] = w;
-            tr_c[e] = c;
-            tr_dw[e] = dw;
-            tr_counter[e] = ct;
+        if (masked) {
+            int t_pre = LP_NEVER;
+            float s_pre = 0.0f;
+            if (on) {
+                if (a.tiled) {
+                    t_pre = s_lft[tile(sr, sc)];
+                    s_pre = s_spk[tile(sr, sc)] ? 1.0f : 0.0f;
+                } else {
+                    const size_t j = (size_t)sr * cols + sc;
+                    t_pre = a.lft[j];
+                    s_pre = a.spk[j] ? 1.0f : 0.0f;
+                }
+            }
+            const float delta = stdp_delta(t_pre, t_post, a.r);
+            const float w0 = w;
+            if (KIND == KIND_PLASTIC) {
+                w = w + delta * (s_pre + s_post);
+            } else {
+                const float c0 = c, dw0 = dw;
+                const int ct0 = ct;
+                rstdp_visit(w, c, dw, ct, delta, dop, a.r);
+                rstdp_visit(w, c, dw, ct, delta, dop, a.r);
+                store_changed(a.tr_c, e, c, c0);
+                store_changed(a.tr_dw, e, dw, dw0);
+                store_changed(a.tr_counter, e, ct, ct0);
+            }
+            store_changed(a.weights, e, w, w0);
+        }
+        if (CELL) {
+            if (on)
+                acc = acc + w * (a.tiled ? s_v[tile(sr, sc)]
+                                         : a.v[(size_t)sr * cols + sc]);
+            wsum = wsum + w;
         }
     }
+    if (!CELL) return;
+    const bool refractory = MODEL != MODEL_IZHIKEVICH;
+    const float v = a.tiled ? s_v[tile(row, col)] : a.v[i];
+    const float cnt = fmaxf(a.in_deg[i], 1.0f);
+    const float i_syn =
+        a.P.p[gap_param<MODEL>()][i] * (acc - v * wsum) / cnt;
+    float v_pre, v_new, w_new, refr_new;
+    bool spike;
+    model_step<MODEL>(a.P.p, i, v, a.w[i], refractory ? a.refr[i] : 0.0f,
+                      i_syn, v_pre, v_new, w_new, refr_new, spike);
+    a.v_out[i] = v_new;
+    a.w_out[i] = w_new;
+    if (refractory) a.refr_out[i] = refr_new;
+    a.lft_out[i] = spike ? a.clock : a.lft[i];
+    a.spk_out[i] = spike ? 1 : 0;
+    if (a.v_pre) a.v_pre[i] = v_pre;
 }
 
 // dop_out[j] = dopamine after reward j of this chunk, from *dop_in.
@@ -178,18 +338,69 @@ __global__ void lp_env_scalar_kernel(float* dop, const float* reward,
     *clock = *clock + 1;
 }
 
+// The staged halo (the stencil's radius) and whether it fits shared
+// memory, for a launch over `a`'s stencil.
+static void lp_geometry(LpStep& a)
+{
+    int halo = 0;
+    for (int o = 0; o < a.st.n; ++o) {
+        const int dr = a.st.dr[o] < 0 ? -a.st.dr[o] : a.st.dr[o];
+        const int dc = a.st.dc[o] < 0 ? -a.st.dc[o] : a.st.dc[o];
+        halo = dr > halo ? dr : halo;
+        halo = dc > halo ? dc : halo;
+    }
+    a.tiled = halo <= LP_HALO_MAX;
+    a.halo = a.tiled ? halo : 0;
+}
+
+template <int MODEL, int KIND, bool EDGE, bool CELL>
+static cudaError_t lp_launch_step(const LpStep& a, cudaStream_t s,
+                                  int* launched)
+{
+    const dim3 block(32, LP_TILE_ROWS);
+    const dim3 grid((a.cols + 31) / 32,
+                    (a.rows + LP_TILE_ROWS - 1) / LP_TILE_ROWS);
+    const size_t tn = a.tiled ? (size_t)(32 + 2 * a.halo)
+        * (LP_TILE_ROWS + 2 * a.halo) : 0;
+    const size_t smem = tn * ((EDGE ? 5 : 0) + (CELL ? 4 : 0));
+    lp_step_kernel<MODEL, KIND, EDGE, CELL><<<grid, block, smem, s>>>(a);
+    return lp_counted(launched);
+}
+
+// The edge pass alone on a's planes (lft, spk: the post-step state).
+template <int KIND>
+static cudaError_t lp_launch_edge(LpStep a, cudaStream_t s, int* launched)
+{
+    lp_geometry(a);
+    return lp_launch_step<MODEL_IZHIKEVICH, KIND, true, false>(a, s,
+                                                              launched);
+}
+
+static LpStep lp_edge_args(const int* lft, const unsigned char* spk,
+                           float* weights, const unsigned char* mask,
+                           const Rule& r, const Stencil& st, int rows,
+                           int cols)
+{
+    LpStep a = {};
+    a.lft = lft;
+    a.spk = spk;
+    a.weights = weights;
+    a.mask = mask;
+    a.r = r;
+    a.st = st;
+    a.rows = rows;
+    a.cols = cols;
+    return a;
+}
+
 cudaError_t lp_launch_stdp_edge(const int* lft, const unsigned char* spk,
                                 float* weights, const unsigned char* mask,
                                 const Rule& r, const Stencil& st, int rows,
-                                int cols, cudaStream_t s)
+                                int cols, cudaStream_t s, int* launched)
 {
-    const dim3 block(32, 8);
-    const dim3 grid((cols + block.x - 1) / block.x,
-                    (rows + block.y - 1) / block.y);
-    lp_edge_kernel<KIND_PLASTIC><<<grid, block, 0, s>>>(
-        lft, spk, weights, mask, nullptr, nullptr, nullptr, nullptr, r, st,
-        rows, cols);
-    return cudaGetLastError();
+    return lp_launch_edge<KIND_PLASTIC>(
+        lp_edge_args(lft, spk, weights, mask, r, st, rows, cols), s,
+        launched);
 }
 
 cudaError_t lp_launch_rstdp_edge(const int* lft, const unsigned char* spk,
@@ -197,20 +408,20 @@ cudaError_t lp_launch_rstdp_edge(const int* lft, const unsigned char* spk,
                                  float* tr_c, float* tr_dw, int* tr_counter,
                                  const float* dop, const Rule& r,
                                  const Stencil& st, int rows, int cols,
-                                 cudaStream_t s)
+                                 cudaStream_t s, int* launched)
 {
-    const dim3 block(32, 8);
-    const dim3 grid((cols + block.x - 1) / block.x,
-                    (rows + block.y - 1) / block.y);
-    lp_edge_kernel<KIND_MOD><<<grid, block, 0, s>>>(
-        lft, spk, weights, mask, tr_c, tr_dw, tr_counter, dop, r, st, rows,
-        cols);
-    return cudaGetLastError();
+    LpStep a = lp_edge_args(lft, spk, weights, mask, r, st, rows, cols);
+    a.tr_c = tr_c;
+    a.tr_dw = tr_dw;
+    a.tr_counter = tr_counter;
+    a.dop_base = dop;
+    return lp_launch_edge<KIND_MOD>(a, s, launched);
 }
 
 cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
                                int n_steps, float exp_dd, float tau_d,
-                               float* dop_steps, cudaStream_t s)
+                               float* dop_steps, cudaStream_t s,
+                               int* launched)
 {
     for (int j0 = 0; j0 < n_steps; j0 += LP_REWARD_CHUNK) {
         Rewards rw;
@@ -220,24 +431,47 @@ cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
         lp_dopamine_kernel<<<1, 1, 0, s>>>(
             j0 == 0 ? dop_in : dop_steps + j0 - 1, rw, count, exp_dd, tau_d,
             dop_steps + j0);
-        const cudaError_t err = cudaGetLastError();
+        const cudaError_t err = lp_counted(launched);
         if (err != cudaSuccess) return err;
     }
     return cudaSuccess;
 }
 
 template <int MODEL, bool DEV_CLOCK = false>
-static void launch_cell(dim3 grid, dim3 block, cudaStream_t s,
-                        const float* v, const float* w, const int* lft,
-                        const float* refr, float* vo, float* wo, int* lfto,
-                        float* refro, unsigned char* spk, float* v_pre,
-                        const float* weights, const float* in_deg,
-                        const Params& P, const Stencil& st, int rows,
-                        int cols, int clock, const int* clock_ptr = nullptr)
+static cudaError_t launch_cell(int* launched, dim3 grid, dim3 block,
+                               cudaStream_t s, const float* v, const float* w,
+                               const int* lft, const float* refr, float* vo,
+                               float* wo, int* lfto, float* refro,
+                               unsigned char* spk, float* v_pre,
+                               const float* weights, const float* in_deg,
+                               const Params& P, const Stencil& st, int rows,
+                               int cols, int clock,
+                               const int* clock_ptr = nullptr)
 {
     lp_cell_kernel<MODEL, DEV_CLOCK><<<grid, block, 0, s>>>(
         v, w, lft, refr, vo, wo, lfto, refro, spk, v_pre, weights, in_deg,
         P, st, rows, cols, clock, clock_ptr);
+    return lp_counted(launched);
+}
+
+// One launch of the fused schedule for MODEL: edge-only, cell-only or
+// both (see the head of the file).
+template <int MODEL>
+static cudaError_t lp_launch_fused(int kind, bool edge, bool cell,
+                                   const LpStep& a, cudaStream_t s,
+                                   int* launched)
+{
+    if (!edge)
+        return lp_launch_step<MODEL, KIND_PLAIN, false, true>(a, s, launched);
+    if (!cell)
+        return kind == KIND_PLASTIC
+            ? lp_launch_step<MODEL_IZHIKEVICH, KIND_PLASTIC, true, false>(
+                a, s, launched)
+            : lp_launch_step<MODEL_IZHIKEVICH, KIND_MOD, true, false>(
+                a, s, launched);
+    return kind == KIND_PLASTIC
+        ? lp_launch_step<MODEL, KIND_PLASTIC, true, true>(a, s, launched)
+        : lp_launch_step<MODEL, KIND_MOD, true, true>(a, s, launched);
 }
 
 // The host structs of one call from its C arguments; false if the
@@ -271,15 +505,19 @@ int lp_max_offsets() { return LP_MAX_OFFSETS; }
 // k writes buffer set k % 2 (state_buf[4 * (k % 2) + f] for f = v, w,
 // lft, refr), so the result is in set (n_steps - 1) % 2; the inputs are
 // only read.  refr and its buffers are null for Izhikevich.  `spikes`
-// receives each step's spike flags (the last step's at the end), `v_pre`,
-// when not null, the pre-reset voltage of step k at k * rows * cols.
-// `params` holds n_params planes in MODEL_PARAM_KEYS order.  `weights`,
-// and for kind mod `tr_c`, `tr_dw`, `tr_counter`, are updated in place.
-// `rule` = {a_plus, a_minus, tau_plus, tau_minus, dt, tau_c, exp_dc,
-// tau_d, exp_dd}; `rewards` (host, n_steps floats) feed the dopamine,
-// which starts from *dop_in and is written per step to dop_steps (with
-// rewards only; without, kind mod reads *dop_in every step).  Returns the
-// first CUDA error, 0 if none.
+// (2 * rows * cols bytes) receives step k's spike flags in plane k % 2,
+// `v_pre`, when not null, the pre-reset voltage of step k at
+// k * rows * cols.  `params` holds n_params planes in MODEL_PARAM_KEYS
+// order.  `weights`, and for kind mod `tr_c`, `tr_dw`, `tr_counter`, are
+// updated in place.  `rule` = {a_plus, a_minus, tau_plus, tau_minus, dt,
+// tau_c, exp_dc, tau_d, exp_dd}; `rewards` (host, n_steps floats) feed the
+// dopamine, which starts from *dop_in and is written per step to
+// dop_steps (with rewards only; without, kind mod reads *dop_in every
+// step).  per_step = 0 takes the fused schedule (n_steps + 1 launches, or
+// n_steps for kind plain), 1 the per-step design (a cell and an edge
+// launch per step, and the dopamine kernel).  *launched (when not null)
+// gains one for each kernel launched.  Returns the first CUDA error, 0 if
+// none.
 int lattice_plasticity_steps(
     int model, int kind, int with_reward,
     const void* const* state_in, void* const* state_buf,
@@ -290,7 +528,8 @@ int lattice_plasticity_steps(
     const float* dop_in, float* dop_steps,
     const float* rule, const float* rewards,
     const int* dr, const int* dc, int n_off,
-    int rows, int cols, int clock0, int n_steps, void* stream)
+    int rows, int cols, int clock0, int n_steps, int per_step, int* launched,
+    void* stream)
 {
     Stencil st;
     Params P;
@@ -299,21 +538,85 @@ int lattice_plasticity_steps(
                   rule, st, P, r)
         || n_steps <= 0 || (kind != KIND_PLAIN && !mask)
         || (kind == KIND_MOD && (!tr_c || !tr_dw || !tr_counter || !dop_in))
-        || (with_reward && (!dop_in || !dop_steps))
+        || (with_reward && (!dop_in || !dop_steps || !rewards))
         || (model != MODEL_IZHIKEVICH && !state_in[3]))
         return (int)cudaErrorInvalidValue;
     const float tau_d = rule[7];
     const float exp_dd = rule[8];
     const size_t n = (size_t)rows * cols;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaSuccess;
+
+    if (!per_step) {
+        LpStep a = {};
+        a.weights = weights;
+        a.mask = mask;
+        a.tr_c = tr_c;
+        a.tr_dw = tr_dw;
+        a.tr_counter = tr_counter;
+        a.in_deg = in_deg;
+        a.exp_dd = exp_dd;
+        a.tau_d = tau_d;
+        a.P = P;
+        a.st = st;
+        a.r = r;
+        a.rows = rows;
+        a.cols = cols;
+        lp_geometry(a);
+        for (int k = 0; k <= n_steps && err == cudaSuccess; ++k) {
+            const bool edge = k > 0 && kind != KIND_PLAIN;
+            const bool cell = k < n_steps;
+            if (!edge && !cell) break;
+            void* const* in = state_buf + 4 * ((k - 1) & 1);
+            void* const* out = state_buf + 4 * (k & 1);
+            a.v = k ? (const float*)in[0] : (const float*)state_in[0];
+            a.w = k ? (const float*)in[1] : (const float*)state_in[1];
+            a.lft = k ? (const int*)in[2] : (const int*)state_in[2];
+            a.refr = k ? (const float*)in[3] : (const float*)state_in[3];
+            a.spk = k ? spikes + n * ((k - 1) & 1) : nullptr;
+            a.v_out = (float*)out[0];
+            a.w_out = (float*)out[1];
+            a.lft_out = (int*)out[2];
+            a.refr_out = (float*)out[3];
+            a.spk_out = spikes + n * (k & 1);
+            a.v_pre = v_pre && cell ? v_pre + (size_t)k * n : nullptr;
+            a.clock = clock0 + k;
+            // the step whose dopamine this launch takes: the edge pass's
+            // (kind mod), else the cell phase's (kind plain, written only)
+            const int ds = kind == KIND_MOD ? k - 1 : k;
+            a.dop_base = dop_in;
+            a.dop_write = nullptr;
+            a.n_rew = 0;
+            if (with_reward && (kind == KIND_MOD ? edge : cell)) {
+                const int j0 = ds - ds % LP_REWARD_CHUNK;
+                a.dop_base = j0 ? dop_steps + j0 - 1 : dop_in;
+                a.dop_write = dop_steps + ds;
+                a.n_rew = ds - j0 + 1;
+                for (int j = 0; j < a.n_rew; ++j) a.rw.r[j] = rewards[j0 + j];
+            }
+            switch (model) {
+            case MODEL_IZHIKEVICH:
+                err = lp_launch_fused<MODEL_IZHIKEVICH>(kind, edge, cell, a, s,
+                                                        launched);
+                break;
+            case MODEL_ALIF:
+                err = lp_launch_fused<MODEL_ALIF>(kind, edge, cell, a, s,
+                                                  launched);
+                break;
+            default:
+                err = lp_launch_fused<MODEL_LIF>(kind, edge, cell, a, s,
+                                                 launched);
+            }
+        }
+        return (int)err;
+    }
+
     const dim3 block(32, 8);
     const dim3 grid((cols + block.x - 1) / block.x,
                     (rows + block.y - 1) / block.y);
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err;
-
     if (with_reward
         && (err = lp_launch_dopamine(dop_in, rewards, n_steps, exp_dd, tau_d,
-                                     dop_steps, s)) != cudaSuccess)
+                                     dop_steps, s, launched)) != cudaSuccess)
         return (int)err;
 
     const float* v = (const float*)state_in[0];
@@ -326,32 +629,33 @@ int lattice_plasticity_steps(
         float* wo = (float*)b[1];
         int* lfto = (int*)b[2];
         float* refro = (float*)b[3];
+        unsigned char* spk = spikes + n * (k & 1);
         float* vp = v_pre ? v_pre + (size_t)k * n : nullptr;
         switch (model) {
         case MODEL_IZHIKEVICH:
-            launch_cell<MODEL_IZHIKEVICH>(grid, block, s, v, w, lft, refr,
-                vo, wo, lfto, refro, spikes, vp, weights, in_deg, P, st,
-                rows, cols, clock0 + k);
+            err = launch_cell<MODEL_IZHIKEVICH>(launched, grid, block, s, v,
+                w, lft, refr, vo, wo, lfto, refro, spk, vp, weights, in_deg,
+                P, st, rows, cols, clock0 + k);
             break;
         case MODEL_ALIF:
-            launch_cell<MODEL_ALIF>(grid, block, s, v, w, lft, refr, vo, wo,
-                lfto, refro, spikes, vp, weights, in_deg, P, st, rows, cols,
-                clock0 + k);
+            err = launch_cell<MODEL_ALIF>(launched, grid, block, s, v, w,
+                lft, refr, vo, wo, lfto, refro, spk, vp, weights, in_deg, P,
+                st, rows, cols, clock0 + k);
             break;
         default:
-            launch_cell<MODEL_LIF>(grid, block, s, v, w, lft, refr, vo, wo,
-                lfto, refro, spikes, vp, weights, in_deg, P, st, rows, cols,
-                clock0 + k);
+            err = launch_cell<MODEL_LIF>(launched, grid, block, s, v, w,
+                lft, refr, vo, wo, lfto, refro, spk, vp, weights, in_deg, P,
+                st, rows, cols, clock0 + k);
         }
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        if (err != cudaSuccess) return (int)err;
         const float* dop = with_reward ? dop_steps + k : dop_in;
         if (kind == KIND_PLASTIC) {
-            err = lp_launch_stdp_edge(lfto, spikes, weights, mask, r, st,
-                                      rows, cols, s);
+            err = lp_launch_stdp_edge(lfto, spk, weights, mask, r, st,
+                                      rows, cols, s, launched);
         } else if (kind == KIND_MOD) {
-            err = lp_launch_rstdp_edge(lfto, spikes, weights, mask, tr_c,
+            err = lp_launch_rstdp_edge(lfto, spk, weights, mask, tr_c,
                                        tr_dw, tr_counter, dop, r, st, rows,
-                                       cols, s);
+                                       cols, s, launched);
         }
         if (err != cudaSuccess) return (int)err;
         v = vo;
@@ -406,23 +710,23 @@ int lattice_plasticity_env_step(
     float* wo = (float*)state_out[1];
     int* lfto = (int*)state_out[2];
     float* refro = (float*)state_out[3];
+    cudaError_t err;
     switch (model) {
     case MODEL_IZHIKEVICH:
-        launch_cell<MODEL_IZHIKEVICH, true>(grid, block, s, v, w, lft, refr,
-            vo, wo, lfto, refro, spikes, nullptr, weights, in_deg, P, st,
-            rows, cols, 0, clock);
+        err = launch_cell<MODEL_IZHIKEVICH, true>(nullptr, grid, block, s, v,
+            w, lft, refr, vo, wo, lfto, refro, spikes, nullptr, weights,
+            in_deg, P, st, rows, cols, 0, clock);
         break;
     case MODEL_ALIF:
-        launch_cell<MODEL_ALIF, true>(grid, block, s, v, w, lft, refr, vo,
-            wo, lfto, refro, spikes, nullptr, weights, in_deg, P, st, rows,
-            cols, 0, clock);
+        err = launch_cell<MODEL_ALIF, true>(nullptr, grid, block, s, v, w,
+            lft, refr, vo, wo, lfto, refro, spikes, nullptr, weights, in_deg,
+            P, st, rows, cols, 0, clock);
         break;
     default:
-        launch_cell<MODEL_LIF, true>(grid, block, s, v, w, lft, refr, vo,
-            wo, lfto, refro, spikes, nullptr, weights, in_deg, P, st, rows,
-            cols, 0, clock);
+        err = launch_cell<MODEL_LIF, true>(nullptr, grid, block, s, v, w,
+            lft, refr, vo, wo, lfto, refro, spikes, nullptr, weights, in_deg,
+            P, st, rows, cols, 0, clock);
     }
-    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     lp_env_scalar_kernel<<<1, 1, 0, s>>>(
         dopamine, with_reward ? reward : nullptr, exp_dd, tau_d, clock);

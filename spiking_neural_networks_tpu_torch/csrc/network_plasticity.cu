@@ -121,7 +121,7 @@
 // RewardModulatedLatticeNetwork of one grid shape with one-to-one
 // connections.  Lattice kind mod takes the R-STDP double visit of its
 // stencil weights and (c, dw, counter) traces after the STDP, through the
-// single-lattice kernels' lp_edge_kernel<KIND_MOD> (lp_launch_rstdp_edge);
+// single-lattice kernels' edge kernel of kind mod (lp_launch_rstdp_edge);
 // the dopamine of every step of a call is one launch before the steps
 // (lp_launch_dopamine, the rewards by value), and step k's visits read
 // entry k.  net_conn_edge_kernel counts `static` visits (the endpoints that

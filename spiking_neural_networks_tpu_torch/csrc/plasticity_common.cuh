@@ -168,30 +168,44 @@ __device__ __forceinline__ void rstdp_visit(float& w, float& c, float& dw,
     w = w + c * dop;
 }
 
+// The error of the launch just made; adds one to *launched (when not null)
+// if it succeeded.  Every launch of the single-lattice and HH entries goes
+// through it, so that their callers count the kernels each call launched.
+static inline cudaError_t lp_counted(int* launched)
+{
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess && launched) ++*launched;
+    return err;
+}
+
 // Launches STDP on a stencil lattice's weights, in place on `s`: for every
 // masked slot (o, r, c), w += delta(lft[pre], lft[post]) * (spk[pre] +
 // spk[post]) from the post-step firing times and spikes (the edge kernel of
-// kind plastic, lattice_plasticity.cu).  Returns the launch error.
+// kind plastic, lattice_plasticity.cu).  Returns the launch error and
+// counts the launch in *launched (`lp_counted`).
 cudaError_t lp_launch_stdp_edge(const int* lft, const unsigned char* spk,
                                 float* weights, const unsigned char* mask,
                                 const Rule& r, const Stencil& st, int rows,
-                                int cols, cudaStream_t s);
+                                int cols, cudaStream_t s,
+                                int* launched = nullptr);
 
 // Launches the R-STDP double visit on a stencil lattice's weights and
 // traces (c, dw, counter: (n_off, rows, cols)), in place on `s`, from the
 // post-step firing times, with the dopamine at *dop (the edge kernel of
-// kind mod, lattice_plasticity.cu).  Returns the launch error.
+// kind mod, lattice_plasticity.cu).  Returns the launch error and counts
+// the launch in *launched.
 cudaError_t lp_launch_rstdp_edge(const int* lft, const unsigned char* spk,
                                  float* weights, const unsigned char* mask,
                                  float* tr_c, float* tr_dw, int* tr_counter,
                                  const float* dop, const Rule& r,
                                  const Stencil& st, int rows, int cols,
-                                 cudaStream_t s);
+                                 cudaStream_t s, int* launched = nullptr);
 
 // Launches the dopamine of n_steps steps from *dop_in and the host
 // `rewards`: dop_steps[k] = dop_steps[k - 1] * exp_dd + tau_d * rewards[k]
 // (lp_dopamine_kernel, one thread, 16 rewards by value per launch).
-// Returns the first launch error.
+// Returns the first launch error and counts the launches in *launched.
 cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
                                int n_steps, float exp_dd, float tau_d,
-                               float* dop_steps, cudaStream_t s);
+                               float* dop_steps, cudaStream_t s,
+                               int* launched = nullptr);

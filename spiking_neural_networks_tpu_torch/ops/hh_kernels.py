@@ -22,7 +22,11 @@ runs, in this order,
    every masked slot, from the post-step firing times and spikes.
 
 On a GPU this is one hand-written CUDA kernel, ``csrc/hh_chemical.cu``
-(plus the STDP edge kernel of ``csrc/lattice_plasticity.cu``);
+(plus the STDP edge kernel of ``csrc/lattice_plasticity.cu``): with STDP,
+launch k runs step k-1's STDP pass and then step k, and an edge launch
+follows the last step (K + 1 launches per K-step call; the internal
+``_per_step=True`` takes the earlier design, an edge launch after every
+step, for comparison);
 `hh_steps` launches it for CUDA tensors and runs the plain twin
 `hh_steps_reference` for CPU tensors (the counterpart of the TPU kernel's
 interpret mode).  A build or launch failure raises; nothing falls back.
@@ -58,6 +62,16 @@ N_TYPES = 3               # AMPA, NMDA, GABA
 
 # Calls of `hh_steps` that launched the CUDA kernels.
 LAUNCHES = 0
+# The CUDA kernel launches those calls made, as the C entry counts them at
+# each launch (`step_launches` per call when the schedule is as designed).
+STEP_LAUNCHES = 0
+
+
+def step_launches(n_steps, plastic, per_step=False):
+    """The CUDA kernel launches of one call of ``n_steps`` steps: K, and
+    with STDP K + 1 (``per_step``: 2 K)."""
+    n = int(n_steps)
+    return n + (0 if not plastic else n if per_step else 1)
 
 
 def nt_param_keys(kind):
@@ -140,7 +154,8 @@ def _check(state, weights, mask, in_deg, offsets, clock0, n_steps, nt_kind,
 
 
 def hh_steps(state, weights, mask, in_deg, offsets, clock0, n_steps,
-             electrical, nt_kind, rec_kind, rule=None):
+             electrical, nt_kind, rec_kind, rule=None, _per_step=False,
+             _own=False):
     """Advance ``n_steps`` Hodgkin-Huxley chemical steps of a (rows, cols)
     lattice.
 
@@ -155,9 +170,11 @@ def hh_steps(state, weights, mask, in_deg, offsets, clock0, n_steps,
     Returns ``(state, weights)``: a new dict with the `STATE_KEYS` after the
     last step and the `CURRENT_KEYS` of the last step, and the weights (a
     copy updated by STDP, or ``weights`` itself).  The inputs are not
-    modified.
+    modified (``_own``: the weights are a runner's own copy, updated in
+    place on CUDA).  ``_per_step`` takes the per-step design on CUDA (the
+    same bits), so that the two can be timed against each other.
     """
-    global LAUNCHES
+    global LAUNCHES, STEP_LAUNCHES
     _check(state, weights, mask, in_deg, offsets, clock0, n_steps, nt_kind,
            rec_kind)
     if in_deg.device.type == "cpu":
@@ -180,7 +197,8 @@ def hh_steps(state, weights, mask, in_deg, offsets, clock0, n_steps,
         torch.empty(n, dtype=f32, device=dev) for _ in range(3)]
     plastic = rule is not None
     if plastic:
-        weights = weights.clone()
+        if not _own:
+            weights = weights.clone()
         r = rule_floats(rule)
         rule_vec = (ctypes.c_float * 5)(*[r[k] for k in STDP_KEYS])
     else:
@@ -194,6 +212,7 @@ def hh_steps(state, weights, mask, in_deg, offsets, clock0, n_steps,
     dr = (ctypes.c_int * max(n_off, 1))(*[o[0] for o in offsets])
     dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in offsets])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.hh_chemical_steps(
             KINETICS.index(nt_kind), KINETICS.index(rec_kind),
@@ -206,11 +225,12 @@ def hh_steps(state, weights, mask, in_deg, offsets, clock0, n_steps,
             state["nt$mask"].data_ptr(), state["rec$mask"].data_ptr(),
             weights.data_ptr(), mask.data_ptr(), in_deg.data_ptr(),
             rule_vec, dr, dc, n_off, rows, cols, int(clock0), n_steps,
-            stream)
+            int(bool(_per_step)), ctypes.byref(launched), stream)
     if rc != 0:
         raise RuntimeError(f"hh_chemical_steps failed with CUDA error {rc} "
                            f"({torch.cuda.get_device_name(dev)})")
     LAUNCHES += 1
+    STEP_LAUNCHES += launched.value
     last = (n_steps - 1) % 2
     out = dict(state)
     out.update((k, b[last]) for k, b in zip(STATE_KEYS, bufs))

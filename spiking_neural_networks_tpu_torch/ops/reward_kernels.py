@@ -15,11 +15,15 @@ runs, in this order,
    times and spikes, ``w += delta * (spk_pre + spk_post)``;
    kind ``mod``: the R-STDP double visit of weights and traces.
 
-Kind ``plain`` stops after phase B.  On a GPU this is one hand-written CUDA
-kernel pair, ``csrc/lattice_plasticity.cu``; `lattice_plasticity_steps`
-launches it for CUDA tensors and runs the plain twin
-`lattice_plasticity_steps_reference` for CPU tensors (the counterpart of
-the TPU kernel's interpret mode).  A build or launch failure raises;
+Kind ``plain`` stops after phase B.  On a GPU this is the hand-written
+CUDA kernel ``csrc/lattice_plasticity.cu``: K + 1 launches per K-step call,
+launch k running step k-1's edge pass and then step k's phases (K for kind
+``plain``); ``_per_step=True`` takes the earlier design, a cell and an
+edge launch per step, which the runner takes where it measured faster
+(`per_step_route`: STDP on ALIF from 512 x 512).
+`lattice_plasticity_steps` launches it for CUDA tensors and runs the plain
+twin `lattice_plasticity_steps_reference` for CPU tensors (the counterpart
+of the TPU kernel's interpret mode).  A build or launch failure raises;
 nothing falls back.
 
 The closed loop (`interactable.JitEnvironment`; the TPU kernel's env form,
@@ -68,6 +72,9 @@ STEPS_PER_LAUNCH = 16     # K of the runners' kernel calls
 
 # Calls of `lattice_plasticity_steps` that launched the CUDA kernels.
 LAUNCHES = 0
+# The CUDA kernel launches those calls made, as the C entry counts them at
+# each launch (`step_launches` per call when the schedule is as designed).
+STEP_LAUNCHES = 0
 # Closed-loop steps whose CUDA kernels were launched: one per launch of an
 # `env_step_launcher` step outside a graph capture, and K per replay of a
 # graph of K captured steps (added by the replaying runner).
@@ -201,9 +208,34 @@ def _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
         raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
 
 
+def step_launches(spec, n_steps, per_step=False):
+    """The CUDA kernel launches of one call of ``n_steps`` steps: K + 1
+    (K for kind ``plain``); ``per_step``, a cell and an edge launch per
+    step and a dopamine launch per 16 rewards."""
+    n, plastic = int(n_steps), spec.kind != "plain"
+    if not per_step:
+        return n + plastic
+    return n * (1 + plastic) + (-(-n // STEPS_PER_LAUNCH)
+                                if spec.with_reward else 0)
+
+
+# (model, kind) whose per-step design took less device time than the fused
+# schedule, timed in turns by chip_smoke.py on an H100, and the least cells
+# from which it did: STDP on ALIF at 512 x 512 (the fused schedule won at
+# 128 x 128 and 256 x 256, and for every other model and kind at 512 x 512).
+PER_STEP_FROM = {("alif", "plastic"): 512 * 512}
+
+
+def per_step_route(spec, rows, cols):
+    """Whether the runner takes the per-step design for ``spec`` on a
+    ``rows`` x ``cols`` lattice (`PER_STEP_FROM`)."""
+    least = PER_STEP_FROM.get((spec.model, spec.kind))
+    return least is not None and rows * cols >= least
+
+
 def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
                              params, traces, dopamine, rule, rewards, clock0,
-                             n_steps):
+                             n_steps, _per_step=False, _own=False):
     """Advance ``n_steps`` steps of one lattice of ``spec``.
 
     ``v``, ``w`` (a zero plane for LIF), ``in_deg`` and the planes of
@@ -218,10 +250,13 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
     Returns ``(v, w, lft, refr, spikes, weights, traces, dopamine,
     v_pre)``: spikes are the last step's (bool), ``v_pre`` the
     (n_steps, rows, cols) pre-reset voltages when ``spec.emit``, else
-    None.  The inputs are not modified; weights and traces are copied
-    once per call and updated in place in the copy.
+    None.  The inputs are not modified: weights and traces are copied once
+    per call and updated in place in the copy (``_own``: a runner's own
+    copy, updated in place on CUDA).  ``_per_step`` takes the per-step
+    design on CUDA (the same bits): the runner's route where
+    `per_step_route` says so, and the smoke's comparison.
     """
-    global LAUNCHES
+    global LAUNCHES, STEP_LAUNCHES
     _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
            dopamine, rewards, clock0, n_steps)
     if v.device.type == "cpu":
@@ -241,12 +276,12 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
             torch.empty((2, rows, cols), dtype=torch.int32, device=dev),
             torch.empty((2, rows, cols), dtype=torch.float32, device=dev)
             if refractory else None]
-    spikes = torch.empty((rows, cols), dtype=torch.bool, device=dev)
+    spikes = torch.empty((2, rows, cols), dtype=torch.bool, device=dev)
     v_pre = torch.empty((n_steps, rows, cols), dtype=torch.float32,
                         device=dev) if spec.emit else None
-    if spec.kind != "plain":
+    if spec.kind != "plain" and not _own:
         weights = weights.clone()
-    if spec.kind == "mod":
+    if spec.kind == "mod" and not _own:
         traces = tuple(t.clone() for t in traces)
     dop_steps = torch.empty(n_steps, dtype=torch.float32, device=dev) \
         if spec.with_reward else None
@@ -272,6 +307,7 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
     dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in spec.offsets])
     c_, dw_, ct_ = traces if spec.kind == "mod" else (None, None, None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.lattice_plasticity_steps(
             MODELS.index(spec.model), KINDS.index(spec.kind),
@@ -280,14 +316,17 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
             ptr(mask) if spec.kind != "plain" else None,
             ptr(c_), ptr(dw_), ptr(ct_),
             ptr(dopamine), ptr(dop_steps), rule_vec, rew,
-            dr, dc, n_off, rows, cols, int(clock0), n_steps, stream)
+            dr, dc, n_off, rows, cols, int(clock0), n_steps,
+            int(bool(_per_step)), ctypes.byref(launched), stream)
     if rc != 0:
         raise RuntimeError(f"lattice_plasticity_steps failed with CUDA error "
                            f"{rc} ({torch.cuda.get_device_name(dev)})")
     LAUNCHES += 1
+    STEP_LAUNCHES += launched.value
     last = (n_steps - 1) % 2
     return (bufs[0][last], bufs[1][last], bufs[2][last],
-            bufs[3][last] if refractory else None, spikes, weights, traces,
+            bufs[3][last] if refractory else None, spikes[last], weights,
+            traces,
             dop_steps[-1] if spec.with_reward else dopamine, v_pre)
 
 
@@ -586,7 +625,9 @@ def advance(spec, state, graph, trace, dopamine, rule, rewards, clock,
     float32 tensor on the state's device, ``rewards`` a host array of
     ``length`` floats (``spec.with_reward``).  Returns ``(state, weights,
     trace, dopamine, v_pre)`` with ``v_pre`` the (length, rows, cols)
-    pre-reset voltages when ``spec.emit``, else None.
+    pre-reset voltages when ``spec.emit``, else None.  The weights and
+    traces are copied once per run; the calls update the copy in place.
+    The design is `per_step_route`'s.
     """
     st = state
     refractory = spec.model in REFRACTORY_MODELS
@@ -596,10 +637,12 @@ def advance(spec, state, graph, trace, dopamine, rule, rewards, clock,
         torch.zeros(shape, dtype=torch.float32, device=v.device)
     lft = st["last_firing_time"].reshape(shape)
     refr = st["refractory_count"].reshape(shape) if refractory else None
-    traces = (trace["c"], trace["dw"], trace["counter"]) \
+    traces = tuple(trace[k].clone() for k in ("c", "dw", "counter")) \
         if spec.kind == "mod" else None
-    weights, emits, spikes = graph.weights, [], None
-    done = 0
+    weights = graph.weights.clone() if spec.kind != "plain" \
+        else graph.weights
+    emits, spikes = [], None
+    done, per_step = 0, per_step_route(spec, *shape)
     while done < length:
         n = min(STEPS_PER_LAUNCH, length - done)
         (v, w, lft, refr, spikes, weights, traces, dopamine,
@@ -607,7 +650,7 @@ def advance(spec, state, graph, trace, dopamine, rule, rewards, clock,
             spec, v, w, lft, refr, weights, graph.mask, graph.in_deg, params,
             traces, dopamine, rule,
             rewards[done:done + n] if spec.with_reward else None,
-            clock + done, n)
+            clock + done, n, _per_step=per_step, _own=True)
         if spec.emit:
             emits.append(v_pre)
         done += n

@@ -24,7 +24,7 @@ import spiking_neural_networks_tpu as snn
 import spiking_neural_networks_tpu_torch as snt
 from spiking_neural_networks_tpu.ops import pallas_reward as jpr
 from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
-from torch_lattices import MODELS, jax_lattice, port_of
+from torch_lattices import MODELS, bits_equal, jax_lattice, port_of
 
 torch.set_num_threads(1)
 
@@ -304,3 +304,33 @@ def test_cuda_env_kernel_matches_twin(kind, with_reward, model):
             rewards] + list(inp["traces"] or ()) if x is not None])
     for g, w in zip(*outs):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,with_reward,model", [
+    (k, r, m) for (k, r), m in itertools.product(ENV_KINDS, MODELS)])
+def test_cuda_env_kernel_schedule_cases(kind, with_reward, model):
+    """The env entry's edge kernel (the fused schedule's edge pass) on a
+    33 x 70 grid (a width that is not a multiple of the 32-column tile,
+    and a partial last tile row), a tenth of the weights -0.0 and counters
+    of 2: 16 chained steps bit-equal to the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    outs = []
+    for make in (rk.env_step_launcher, rk.env_step_launcher_reference):
+        inp = step_inputs(kind, model, 33, 70, device="cuda")
+        rng = np.random.default_rng(8)
+        some = torch.from_numpy(rng.random(tuple(inp["weights"].shape))
+                                < 0.1).cuda()
+        inp["weights"][some] = -0.0
+        if inp["traces"] is not None:
+            inp["traces"][2][some] = 2
+        spec = rk.LatSpec(kind, model, inp["offsets"],
+                          with_reward=with_reward)
+        planes, rewards = chain(make, spec, inp)
+        torch.cuda.synchronize()
+        outs.append([x for x in list(planes) + [
+            inp["spikes"], inp["weights"], inp["dopamine"], inp["clock"],
+            rewards] + list(inp["traces"] or ()) if x is not None])
+    for g, w in zip(*outs):
+        assert bits_equal(g, w)

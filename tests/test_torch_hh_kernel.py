@@ -29,7 +29,8 @@ from spiking_neural_networks_tpu.ops import graph as jg
 from spiking_neural_networks_tpu.ops import pallas_hh
 from spiking_neural_networks_tpu_torch.convert import lattice_from
 from spiking_neural_networks_tpu_torch.ops import hh_kernels as hk
-from torch_lattices import assert_hh_match, jax_hh_lattice
+from torch_lattices import (assert_hh_match, bits_equal, hh_schedule_inputs,
+                            jax_hh_lattice)
 
 torch.set_num_threads(1)
 
@@ -313,3 +314,34 @@ def test_cuda_kernel_matches_twin(shape, k, el, pl, nt, rec):
         torch.testing.assert_close(got[0][key], want[0][key], rtol=1e-6,
                                    atol=1e-5, msg=key)
     torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-5)
+    # the per-step design too (with STDP the fused schedule is the default)
+    per_step = hk.hh_steps(*args, _per_step=True)
+    for key in hk.STATE_KEYS + hk.CURRENT_KEYS:
+        torch.testing.assert_close(per_step[0][key], want[0][key], rtol=1e-6,
+                                   atol=1e-5, msg=key)
+    torch.testing.assert_close(per_step[1], want[1], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt,rec", KINDS)
+@pytest.mark.parametrize("n_steps", [1, 2, 16, 17])
+def test_cuda_fused_stdp_schedule_matches_twin(n_steps, nt, rec):
+    """The firing form with STDP: the fused schedule (K + 1 launches) and
+    the per-step design (2 K launches) on a 33 x 70 grid with -0.0
+    weights, bit-equal to the twin, with the launches the C entry
+    counted."""
+    _needs_cuda()
+    args = dict(hh_schedule_inputs(33, 70, seed=n_steps, nt=nt, rec=rec,
+                                   device="cuda"), n_steps=n_steps)
+    before = hk.STEP_LAUNCHES
+    got = hk.hh_steps(**args)
+    torch.cuda.synchronize()
+    assert hk.STEP_LAUNCHES - before == n_steps + 1
+    before = hk.STEP_LAUNCHES
+    per_step = hk.hh_steps(**args, _per_step=True)
+    assert hk.STEP_LAUNCHES - before == 2 * n_steps
+    want = hk.hh_steps_reference(**args)
+    for out in (got, per_step):
+        assert bits_equal(out[1], want[1])
+        for key in hk.STATE_KEYS + hk.CURRENT_KEYS:
+            assert bits_equal(out[0][key], want[0][key]), key

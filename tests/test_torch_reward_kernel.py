@@ -21,8 +21,8 @@ from spiking_neural_networks_tpu.ops import pallas_reward as jpr
 from spiking_neural_networks_tpu.core.history import EEGHistory
 from spiking_neural_networks_tpu_torch.core import history as th
 from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
-from torch_lattices import (MODELS, assert_lattices_match, jax_lattice,
-                            port_of)
+from torch_lattices import (MODELS, assert_lattices_match, bits_equal,
+                            jax_lattice, port_of, schedule_inputs)
 
 torch.set_num_threads(1)
 
@@ -266,3 +266,55 @@ def test_cuda_kernel_matches_twin(kind, model):
             exact = gx.dtype in (torch.int32, torch.bool) or name == "refr"
             torch.testing.assert_close(gx, wx, rtol=0 if exact else RTOL,
                                        atol=0 if exact else ATOL, msg=name)
+    # the fused schedule (the default) and the per-step design: bit-equal
+    per_step = rk.lattice_plasticity_steps(**cuda, _per_step=True)
+    for name, g, p, w in zip(names, got[:8], per_step[:8], want[:8]):
+        assert bits_equal(g, w) and bits_equal(p, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 2, 16, 17])
+@pytest.mark.parametrize("kind,model,with_reward", [
+    (kind, model, rew) for model in ("izhikevich", "alif", "lif")
+    for kind, rew in (("plastic", False), ("mod", True), ("mod", False),
+                      ("plain", True))])
+def test_cuda_fused_schedule_matches_twin(kind, model, with_reward, n_steps):
+    """The fused schedule (K + 1 launches) and the per-step design at K of
+    1, 2, 16 and 16 + 1 on a 33 x 70 grid (a width that is not a multiple
+    of the 32-column tile, and a partial last tile row), with -0.0
+    weights, counters of 2 and emitted voltages: every output bit-equal
+    to the twin's, and the launches the C entry counted as designed."""
+    _needs_cuda()
+    args = schedule_inputs(kind, model, with_reward, 33, 70, seed=n_steps,
+                           n_rewards=n_steps, device="cuda")
+    args["n_steps"] = n_steps
+    before = rk.STEP_LAUNCHES
+    got = rk.lattice_plasticity_steps(**args)
+    torch.cuda.synchronize()
+    assert rk.STEP_LAUNCHES - before == n_steps + (kind != "plain")
+    before = rk.STEP_LAUNCHES
+    per_step = rk.lattice_plasticity_steps(**args, _per_step=True)
+    assert rk.STEP_LAUNCHES - before == rk.step_launches(
+        args["spec"], n_steps, per_step=True)
+    want = rk.lattice_plasticity_steps_reference(**args)
+    for g, p, w in zip(got, per_step, want):
+        assert bits_equal(g, w) and bits_equal(p, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,with_reward", [("plastic", False),
+                                              ("mod", True)])
+def test_cuda_wide_stencil_matches_twin(kind, with_reward):
+    """A stencil wider than the kernel's shared-memory halo (offsets up to
+    12 apart): its edge pass and phase A read global memory, bit-equal to
+    the twin in both designs."""
+    _needs_cuda()
+    offsets = ((0, 1), (1, 0), (0, -10), (-9, 3), (2, 2), (12, -12))
+    args = schedule_inputs(kind, "izhikevich", with_reward, 33, 70, seed=4,
+                           n_rewards=17, device="cuda", offsets=offsets)
+    args["n_steps"] = 17
+    got = rk.lattice_plasticity_steps(**args)
+    per_step = rk.lattice_plasticity_steps(**args, _per_step=True)
+    want = rk.lattice_plasticity_steps_reference(**args)
+    for g, p, w in zip(got, per_step, want):
+        assert bits_equal(g, w) and bits_equal(p, w)

@@ -4,11 +4,13 @@ with `convert`, and the comparison of the two after a run."""
 
 import numpy as np
 import jax.numpy as jnp
+import torch
 
 import spiking_neural_networks_tpu as snn
 import spiking_neural_networks_tpu_torch as snt
 from spiking_neural_networks_tpu_torch.convert import (
     lattice_from, reward_lattice_from)
+from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
 
 MODELS = {"izhikevich": (snn.Izhikevich, snt.Izhikevich),
           "alif": (snn.AdaptiveLeakyIntegrateAndFire,
@@ -145,3 +147,110 @@ def assert_hh_match(t, j, rtol, atol):
                                atol=atol, err_msg="weights")
     assert set(t.state) == set(j.state)
     assert t.internal_clock == j.internal_clock
+
+
+# -- the fused schedule's inputs (tests/test_torch_plasticity_schedule.py and
+# the cuda tests) --------------------------------------------------------------
+
+
+def bits_equal(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(bits_equal, a, b))
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def schedule_inputs(kind, model, with_reward, rows=10, cols=13, seed=0,
+                    n_rewards=37, device="cpu", offsets=None):
+    """One call's tensors: random state, weights and traces from
+    ``seed`` on a radius-2, 80%-keep stencil; a tenth of the weights
+    -0.0, counters of 0, 1 and 2, dw +0.0 and -0.0 in places, masked
+    slots whose neighbour is off the grid; ``cols`` not a multiple of 4;
+    ``n_rewards`` rewards (with a reward); on ``device``; radius 2 unless
+    ``offsets`` are given."""
+    rng = np.random.default_rng(seed)
+    shape = (rows, cols)
+    g = snt.StencilGraph.build(rows, cols,
+                               offsets or snt.radius_offsets(2.0),
+                               keep_prob=0.8, seed=seed + 1,
+                               weight_fn=lambda dr, dc, rr, cc:
+                               rng.uniform(0.5, 1.5, rr.shape),
+                               device=device)
+    cls = {"izhikevich": snt.Izhikevich,
+           "alif": snt.AdaptiveLeakyIntegrateAndFire,
+           "lif": snt.LeakyIntegrateAndFire}[model]
+    n_off = len(g.offsets)
+
+    def f32(lo, hi, shp=shape):
+        return torch.from_numpy(
+            rng.uniform(lo, hi, shp).astype(np.float32)).to(device)
+
+    def some(frac):
+        return torch.from_numpy(rng.random((n_off, *shape)) < frac).to(device)
+
+    weights = g.weights.clone()
+    weights[some(0.1)] = -0.0
+    dw = f32(-0.1, 0.1, (n_off, *shape))
+    dw[some(0.2)] = 0.0
+    dw[some(0.1)] = -0.0
+    izh = model == "izhikevich"
+    return dict(
+        spec=rk.LatSpec(kind, model, g.offsets, True, with_reward),
+        v=f32(-60, 50) if izh else f32(-75, -50),
+        w=f32(20, 40) if izh else f32(-5, 5) if model == "alif"
+        else torch.zeros(shape, device=device),
+        lft=torch.from_numpy(np.where(rng.random(shape) < 0.3,
+                                      rng.integers(90, 100, shape),
+                                      -1).astype(np.int32)).to(device),
+        refr=None if izh else torch.from_numpy(
+            rng.integers(0, 4, shape).astype(np.float32)).to(device),
+        weights=weights, mask=g.mask | some(0.05), in_deg=g.in_deg,
+        params={k: torch.full(shape, float(cls.FIELDS[k]), device=device)
+                for k in rk.MODEL_PARAM_KEYS[model]},
+        traces=(f32(-0.5, 0.5, (n_off, *shape)), dw, torch.from_numpy(
+            rng.integers(0, 3, (n_off, *shape)).astype(np.int32)).to(device))
+        if kind == "mod" else None,
+        dopamine=torch.tensor(0.3, device=device),
+        rule=snt.STDP().params if kind == "plastic"
+        else snt.RewardModulatedSTDP(**RSTDP).params,
+        rewards=np.linspace(-0.1, 0.2, n_rewards).astype(np.float32)
+        if with_reward else None,
+        clock0=100)
+
+
+def hh_schedule_inputs(rows=10, cols=13, seed=0, nt="destexhe",
+                       rec="destexhe", device="cpu"):
+    """An HH call's tensors in the firing form of random state (v
+    across the range, random gates, flags, concentrations and past firing
+    times), a tenth of the weights -0.0; on ``device``."""
+    n = rows * cols
+    rng = np.random.default_rng(seed)
+    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(2.0),
+                               keep_prob=0.8, seed=seed + 1,
+                               weight_fn=lambda dr, dc, rr, cc:
+                               rng.uniform(0.5, 1.5, rr.shape),
+                               device=device)
+    st = snt.HodgkinHuxley(nt, rec).init_state_host(n)
+
+    def f(lo, hi, shp=(n,)):
+        return rng.uniform(lo, hi, shp).astype(np.float32)
+
+    st.update({"v": f(-70, 40), "na$m_state": f(0, 1),
+               "na$h_state": f(0, 1), "k$n_state": f(0, 1),
+               "was_increasing": rng.random(n) < 0.5,
+               "is_spiking": rng.random(n) < 0.2,
+               "last_firing_time": np.where(rng.random(n) < 0.3,
+                                            rng.integers(90, 100, n),
+                                            -1).astype(np.int32),
+               "nt$t": f(0, 1, (n, 3)), "rec$r": f(0, 1, (n, 3))})
+    weights = g.weights.clone()
+    weights[torch.from_numpy(rng.random(tuple(weights.shape)) < 0.1)
+            .to(device)] = -0.0
+    return dict(state={k: torch.from_numpy(np.ascontiguousarray(x))
+                       .to(device) for k, x in st.items()},
+                weights=weights, mask=g.mask, in_deg=g.in_deg,
+                offsets=g.offsets, clock0=100, electrical=True, nt_kind=nt,
+                rec_kind=rec, rule=snt.STDP().params)
