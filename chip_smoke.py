@@ -54,16 +54,20 @@ radius-2, 80%-keep stencil graph:
   ``clip(0.08 - rate, -0.05, 0.05)``, the rate of the mean spike) at its
   own size, 10 x 10 over 6400 steps, and at 512^2 over 1024, and the
   unsupervised loop (`JitEnvironment.run` on the STDP `Lattice`) at 512^2
-  over 1024, through CUDA graphs of 16 closed-loop steps, each the
-  callbacks and the env entry of the plasticity kernels
-  (`lattice_plasticity_env_step`: reward and clock read from device
-  memory, ``csrc/lattice_plasticity.cu``).
+  over 1024, through CUDA graphs of 16 closed-loop steps and a flush,
+  each step the callbacks and one launch of the env entry of the
+  plasticity kernels (`lattice_plasticity_env_step`: the previous step's
+  edge pass, then this step; reward, dopamine and clock in device memory,
+  ``csrc/lattice_plasticity.cu``): 17 launches per 16 steps.
 * every other elementwise model (the integrate-and-fire family,
   `DopaIzhikevich`, `MorrisLecar`: `Lattice(model)` -> `populate` ->
   `connect_stencil` -> `apply` -> `run_lattice`) at 512^2, Morris-Lecar
-  over 2048 steps and the others over 512, through the model kernel
-  ``csrc/model_stencil.cu``; and the upstream BCM network
-  (``examples/bcm.py``) on its plain route.
+  over 2048 steps and the others over 512, through the model kernel's
+  persistent design (``csrc/model_stencil.cu``, one cooperative launch
+  per 16-step call), and Morris-Lecar at 2048^2 over 1024 steps through
+  its per-step design (the route where the plan cannot hold the weights);
+  and the upstream BCM network (``examples/bcm.py``) on its plain
+  route.
 
 Phases, one line each:
 
@@ -201,20 +205,26 @@ Phases, one line each:
 28. per main-path size: wall and CUDA-event time per step, the kernels'
    device time under torch.profiler and device / wall; then both designs
    on the same 16-step calls, in turns.
-29. the env entry vs its plain twin on the card: kinds mod and plain with
-   a reward, plain and plastic without, x Izhikevich, ALIF and LIF x 64^2
-   and 130 x 100, 16 chained steps with the reward computed on the
-   device, non-uniform states: bit-equal; per kind 6a's
+29. the env entry vs its plain twin on the card, in both designs (the
+   fused launches of an `EnvChain`, and its per-step form): kinds mod and
+   plain with a reward, plain and plastic without, x Izhikevich, ALIF and
+   LIF x 64^2 and 130 x 100, 16 chained steps with the reward computed on
+   the device and a flush, non-uniform states: bit-equal, the launches
+   the C entry counted 17 (16 without plasticity) and 32; per kind 6a's
    `lattice_plasticity_steps` given the run's rewards by value, bit-equal;
-   the entry's time on the bench loop's agent at 512^2 against the twin
-   and its bound, each timed call held against the twin's from one start;
+   on the bench loop's agent at 512^2 and 10 x 10 both designs timed in
+   turns (wall, events, profiled device time with every kernel record
+   counted) against the twin and the bound, each design's final state
+   held against the twin's steps from the same start;
 30. the closed-loop main paths through `JitEnvironment` on tier (a) (a CUDA
-   graph of 16 steps replayed), each one call with PyTorch's host syncs
-   turned into errors around its steps: flags, launch counts, clock,
-   finite state, weights, traces and dopamine moved, rewards varying at
-   10 x 10; one more replay of each held against the twin on the state it
-   received; two calls against one; every replay of the first 256 steps at
-   64^2 held against the twin; a grid history
+   graph of 16 steps and a flush replayed), each one call with PyTorch's
+   host syncs turned into errors around its steps: flags, launch counts
+   (17 a replay, counted by the C entry), clock, finite state, weights,
+   traces and dopamine moved, rewards varying at 10 x 10; one more replay
+   of each held against the twin on the state it received, and one under
+   the profiler with its 17 kernel records; two calls against one; every
+   replay of the first 256 steps at 64^2 held against the twin; a grid
+   history
    (tier (b)) and a callback that reads a value on the host (tier (b))
    against tier (a): bit-equal;
 31. the loop at 64^2 over 1000 steps: tier (a) on the card against the
@@ -226,23 +236,29 @@ Phases, one line each:
    of tiers (a), (b) and the plain route, the kernel tiers' device time
    under torch.profiler and device / wall; the host-loop `Environment`'s
    steps/s at 10 x 10;
-33. the model kernel vs its plain twin on the card: every model of the
-   table (11 kinds) x 64^2, 130 x 100 with non-uniform parameter planes
-   and 512^2 x K = 16 and 7, and Morris-Lecar at 2048^2 for one call:
-   integers, bools, spikes and firing times equal, floats within rtol
-   1e-6, atol 1e-5;
+33. the model kernel vs its plain twin on the card, each call in the
+   routed design and the per-step one: every model of the table (10
+   kinds) x 64^2, 130 x 100 with non-uniform parameter planes and 512^2 x
+   K = 16 and 7, and Morris-Lecar at 2048^2 for one call: integers,
+   bools, spikes and firing times equal, floats within rtol 1e-6, atol
+   1e-5; the registers and spills of every instantiation, and each
+   model's plan at 512^2;
 34. the model main paths through `run_lattice`: Morris-Lecar at 512^2 for
-   2048 steps, the other models for 512, the first 4 calls of each held
-   against the twin (route "model", kernel calls, finite state, neurons
+   2048 steps, the other models for 512 (the persistent design, one
+   launch a call), Morris-Lecar at 2048^2 for 1024 (the per-step design,
+   16), the first 4 calls of each held against the twin (route "model",
+   kernel calls, the launches the C entry counted, finite state, neurons
    fired); ``examples/bcm.py``'s network over 2000 steps on its plain
    route (the flat COO runner with BCM), card vs CPU;
 35. Morris-Lecar, DopaIzhikevich and AdEx at 128^2 for 1000 steps: the
    kernel route on the card against the same route on the CPU (2 mV, 2
    steps) and against the plain route on the card (a threshold tie, or
    for Morris-Lecar a peak on another step);
-36. Morris-Lecar and LIF at 512^2 and 2048^2: neuron-updates/s of the
-   kernel and plain routes, the kernel's device time under torch.profiler
-   over 10 calls, device / wall, the bound and the twin's time.
+36. Morris-Lecar and LIF at 512^2, 700^2 and 2048^2: neuron-updates/s of
+   the kernel and plain routes, the routed design's device time under
+   torch.profiler over 10 calls of one `ModelRun`, device / wall, the
+   bound and the twin's time; at 512^2 and 700^2 both designs in turns
+   (at 2048^2 the persistent design does not apply).
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -478,7 +494,10 @@ MCMP, MCMP_STEPS = (128, 128), 1000
 MCMP_MODELS = ("MorrisLecar", "DopaIzhikevich",
                "AdaptiveExpLeakyIntegrateAndFire")
 MTIME_MODELS = ("MorrisLecar", "LeakyIntegrateAndFire")
-MTIMES = (((512, 512), 512, 32), ((2048, 2048), 128, 8))
+MTIMES = (((512, 512), 512, 32), ((700, 700), 256, 16),
+          ((2048, 2048), 128, 8))
+# the main path at MBIG (the per-step design's route)
+MBIG_STEPS = 1024
 BCM_STEPS = 2000
 MODEL_REPLACES = "spiking_neural_networks_tpu/ops/pallas_stencil.py:792"
 T0 = time.perf_counter()
@@ -4330,35 +4349,43 @@ def unsup_env(snt, rows, cols, use_kernel=None, device="cuda"):
     return lat, env
 
 
-def env_buffers(a):
+def env_buffers(a, rk=None, per_step=False):
     """Fresh buffers of one closed loop from `plasticity_inputs`'
-    arguments: two plane sets, spikes, weights, traces, dopamine, clock."""
+    arguments: two plane sets, spikes, weights, traces, dopamine, clock;
+    with ``rk``, the `EnvChain` of the kernel's launches (``per_step``:
+    the design that flushes after every step)."""
     src = tuple(None if x is None else x.clone()
                 for x in (a["v"], a["w"], a["lft"], a["refr"]))
-    return dict(src=src, dst=tuple(None if x is None else torch.zeros_like(x)
-                                   for x in src),
-                spikes=torch.zeros_like(a["v"], dtype=torch.bool),
-                weights=a["weights"].clone(),
-                traces=None if a["traces"] is None
-                else tuple(t.clone() for t in a["traces"]),
-                dopamine=a["dopamine"].clone(),
-                clock=torch.tensor([a["clock0"]], dtype=torch.int32,
-                                   device=a["v"].device))
+    b = dict(src=src, dst=tuple(None if x is None else torch.zeros_like(x)
+                                for x in src),
+             spikes=torch.zeros_like(a["v"], dtype=torch.bool),
+             weights=a["weights"].clone(),
+             traces=None if a["traces"] is None
+             else tuple(t.clone() for t in a["traces"]),
+             dopamine=a["dopamine"].clone(),
+             clock=torch.tensor([a["clock0"]], dtype=torch.int32,
+                                device=a["v"].device), chain=None)
+    if rk is not None:
+        b["chain"] = rk.EnvChain(b["dopamine"], b["clock"],
+                                 tuple(a["v"].shape), per_step)
+    return b
 
 
 def env_launchers(make, a, b):
     """The launches of ``make`` (`env_step_launcher` or its twin) on the
-    buffers ``b`` from each plane set into the other."""
+    buffers ``b`` from each plane set into the other (the kernel's sharing
+    ``b``'s chain)."""
+    kw = {} if b["chain"] is None else dict(chain=b["chain"])
     return [make(a["spec"], b[s], b[d], b["spikes"], b["weights"], a["mask"],
                  a["in_deg"], a["params"], b["traces"], b["dopamine"],
-                 a["rule"], b["clock"])
+                 a["rule"], b["clock"], **kw)
             for s, d in (("src", "dst"), ("dst", "src"))]
 
 
 def env_chain(launch, b, n):
     """``n`` steps of the two ``launch``es on buffers ``b``, each reward
-    computed on the device from the state the step receives; returns the
-    final planes and the rewards."""
+    computed on the device from the state the step receives, then a flush
+    of the kernel's chain; returns the final planes and the rewards."""
     planes, rewards = [b["src"], b["dst"]], []
     for k in range(n):
         p = k % 2
@@ -4366,11 +4393,13 @@ def env_chain(launch, b, n):
                   + 0.1 * b["spikes"].to(torch.float32).mean()).reshape(())
         rewards.append(reward)
         launch[p](reward)
+    if b["chain"] is not None:
+        b["chain"].flush()
     return planes[n % 2], torch.stack(rewards)
 
 
 def env_tensors(b):
-    """Every tensor of the buffers ``b``."""
+    """Every tensor of the buffers ``b`` but the chain's."""
     return ([x for k in ("src", "dst") for x in b[k] if x is not None]
             + [b["spikes"], b["weights"], b["dopamine"], b["clock"]]
             + list(b["traces"] or ()))
@@ -4452,14 +4481,18 @@ def env_phases(snt, smi):
 
 
 def env_twin_phase(snt, rk, smi):
-    """29. The env entry vs its twin on the card: `ENV_KINDS` x models x
-    `ESHAPES`, 16 chained steps each with the reward computed on the
-    device, non-uniform states: bit-equal; per kind one case where 6a's
-    `lattice_plasticity_steps`, given the env run's rewards by value,
-    equals the env entry; then the time of 16 steps of the entry on the
-    bench loop's agent at 512^2 against the twin and the bound, each timed
-    call held against the twin's from the same start.  Returns (max float
-    error, (ms, twin ms) per 16 steps, bound)."""
+    """29. The env entry vs its twin on the card, in both designs (the
+    fused launches of an `EnvChain` and its per-step form): `ENV_KINDS` x
+    models x `ESHAPES`, 16 chained steps each with the reward computed on
+    the device, non-uniform states, then a flush: bit-equal, and the
+    launches the C entry counted as each design has them; per kind one
+    case where 6a's `lattice_plasticity_steps`, given the env run's
+    rewards by value, equals the env entry; then at 512^2 and 10 x 10 on
+    the bench loop's agent both designs timed in turns (wall, events,
+    profiled device time with every kernel record counted), each design's
+    final state held against the twin's steps from the same start over
+    the same steps.  Returns (max float error, (ms, twin ms) per 16 steps
+    at 512^2, bound)."""
     import itertools
     K = rk.STEPS_PER_LAUNCH
     max_err, n_cases, by_value = 0.0, 0, set()
@@ -4467,22 +4500,33 @@ def env_twin_phase(snt, rk, smi):
             ESHAPES, ENV_KINDS, rk.MODELS)):
         a = plasticity_inputs(snt, rk, shape, kind, model, rew, False, False,
                               K, 700 + seed)
-        spec = a["spec"]
-        outs = []
-        for make in (rk.env_step_launcher, rk.env_step_launcher_reference):
-            b = env_buffers(a)
+        plastic = kind != "plain"
+        outs, counted = [], []
+        for make, per_step in ((rk.env_step_launcher, False),
+                               (rk.env_step_launcher, True),
+                               (rk.env_step_launcher_reference, None)):
+            b = env_buffers(a, rk if per_step is not None else None,
+                            bool(per_step))
             planes, rewards = env_chain(env_launchers(make, a, b), b, K)
             torch.cuda.synchronize()
             outs.append(env_outputs(planes, b, rewards))
-        err, bad = compare_exact(*outs)
+            if b["chain"] is not None:
+                counted.append(b["chain"].launched)
         got = outs[0]
+        errs = [compare_exact(o, outs[2]) for o in outs[:2]]
+        err = max(e for e, _ in errs)
+        bad = sum(x for _, x in errs)
         fired = int((got["lft"] >= a["clock0"]).sum())
+        want_launches = [K + plastic, 2 * K]
         line = (f"[29 kernel-vs-twin] {shape[0]}x{shape[1]} {kind} {model} "
-                f"reward={rew}, {K} chained steps, rewards from the device: "
-                f"integer and spike mismatches {bad}, max float error "
-                f"{err:.3g}, fired {fired}, clock {int(got['clock'])}")
+                f"reward={rew}, {K} chained steps and a flush, rewards from "
+                f"the device, fused and per-step designs: integer and spike "
+                f"mismatches {bad}, max float error {err:.3g}, launches "
+                f"{counted} (want {want_launches}), fired {fired}, clock "
+                f"{int(got['clock'])}")
         check(bad == 0 and err == 0.0, "the env entry is not bit-equal to "
               "its twin")
+        check(counted == want_launches, "wrong env launch counts")
         check(fired > 0 and int(got["clock"]) == a["clock0"] + K,
               "no neuron fired, or the clock did not advance")
         if (kind, rew) not in by_value:
@@ -4502,79 +4546,80 @@ def env_twin_phase(snt, rk, smi):
                   "value")
         say(line)
         max_err, n_cases = max(max_err, err), n_cases + 1
-    # the time of the entry on the bench loop's agent at 512^2, whose
-    # reward sits at its clip of 0.05: each timed call of K steps, and then
-    # the EPROF profiled calls, and the twin's steps from one start (the
-    # kernel's state after the call before), held against each other
-    a = bench_inputs(snt, rk, EBIG)
-    spec = a["spec"]
-    bk, bt = env_buffers(a), env_buffers(a)
-    kernel = env_launchers(rk.env_step_launcher, a, bk)
-    twin = env_launchers(rk.env_step_launcher_reference, a, bt)
-    reward = torch.tensor(0.05, device="cuda")
-
-    def steps(fns):
-        for k in range(K):
-            fns[k % 2](reward)
-
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
-    tk, tt, terr, tbad = [], [], 0.0, 0
-    for rep in range(ETIME_REPS + 1):
-        for x, y in zip(env_tensors(bt), env_tensors(bk)):
-            x.copy_(y)
-        if rep < ETIME_REPS:
-            tk.append(timed(lambda: steps(kernel)))
-            tt.append(timed(lambda: steps(twin)))
-        else:
-            dev_us, top = profiled_us(
-                lambda: [steps(kernel) for _ in range(EPROF)], EPROF * K,
-                n_top=4)
-            for _ in range(EPROF):
-                steps(twin)
-        e, bb = compare_exact(env_outputs(bk["src"], bk, None),
-                              env_outputs(bt["src"], bt, None))
-        terr, tbad = max(terr, e), tbad + bb
-    fired = int((bk["src"][2] >= 0).sum())
-    # the first call of each warms up
-    times = (float(np.median(tk[1:])), float(np.median(tt[1:])))
-    bounds = bound(env_step_bytes(spec, a, K), stencil_ops(
-        spec.offsets, *EBIG, K) + K * 14 * int(a["mask"].sum()))
+    times, bounds, terr = {}, None, 0.0
+    for shape in (EBIG, (10, 10)):
+        res, err = env_designs(snt, rk, shape, smi)
+        terr = max(terr, err)
+        if shape == EBIG:
+            times, bounds = res
     say(f"[29 kernel-vs-twin] max float error over {n_cases} random cases "
-        f"{max_err:.3g} (0 = bit-equal); bench loop agent {EBIG[0]}x"
-        f"{EBIG[1]}, reward 0.05, {ETIME_REPS} timed calls of {K} steps and "
-        f"a block of {EPROF} profiled, each held against the twin's steps "
-        f"from the same start: integer and spike mismatches "
-        f"{tbad}, max float error {terr:.3g}, fired {fired}, clock "
-        f"{int(bk['clock'])}; per step: env entry {times[0] * 1e3 / K:.3f} us "
-        f"(events, median of {ETIME_REPS - 1}), device time {dev_us:.3f} us "
-        f"(profiled: " + ", ".join(f"{n} {t:.3f}" for n, t in top)
-        + f"), 3 launches per step; plain twin {times[1] * 1e3 / K:.3f} us; "
-        f"bound {bounds[0] * 1e3 / K:.4f} us ({bounds[1]}); library call: "
-        f"none; card {smi}")
-    check(tbad == 0 and terr == 0.0 and fired > 0, "the timed env entry is "
-          "not bit-equal to its twin, or nothing fired")
-    # the entry alone at the bench loop's own size, 10 x 10
-    a = bench_inputs(snt, rk, (10, 10))
-    bs = env_buffers(a)
-    small = env_launchers(rk.env_step_launcher, a, bs)
-    ms = event_ms(lambda: steps(small), ETIME_REPS)
-    dev_small, _ = profiled_us(
-        lambda: [steps(small) for _ in range(EPROF)], EPROF * K,
-        launches=EPROF * K * 3)
-    say(f"[29 times] env entry, bench loop agent 10x10, reward 0.05: "
-        f"{ms * 1e3 / K:.3f} us/step (events, {ETIME_REPS} calls of {K} "
-        f"steps back to back), device time {dev_small:.3f} us/step "
-        f"(profiled), 3 launches per step; card {smi}")
+        f"x 2 designs {max_err:.3g}, over the timed calls {terr:.3g} (0 = "
+        f"bit-equal)")
     return max(max_err, terr), times, bounds
+
+
+def env_designs(snt, rk, shape, smi):
+    """Both designs of the env entry on the bench loop's agent at
+    ``shape`` (reward 0.05, at its clip), 16 steps and a flush a call, in
+    turns (`designs_in_turns`: wall, events, profiled device time with
+    every kernel record counted: 17 and 32 a call); the launches the C
+    entry counted; then each design's state after its calls held against
+    the twin's steps over as many calls from the same start.  Returns
+    (((ms, twin ms) per call, bound), max float error)."""
+    K = rk.STEPS_PER_LAUNCH
+    a = bench_inputs(snt, rk, shape)
+    reward = torch.tensor(0.05, device="cuda")
+    bufs = {d: env_buffers(a, rk, d == "per_step")
+            for d in ("fused", "per_step")}
+    calls = {}
+    n_calls = {d: 0 for d in bufs}
+
+    def call_of(d):
+        b = bufs[d]
+        fns = env_launchers(rk.env_step_launcher, a, b)
+
+        def fn():
+            n_calls[d] += 1
+            for k in range(K):
+                fns[k % 2](reward)
+            b["chain"].flush()
+        return fn
+
+    for d in bufs:
+        calls[d] = call_of(d)
+    launches = {"fused": K + 1, "per_step": 2 * K}
+    out = designs_in_turns(calls, launches, K, reps=ETIME_REPS // 2)
+    counted = {d: bufs[d]["chain"].launched for d in bufs}
+    err, bad = 0.0, 0
+    for d in bufs:
+        bt = env_buffers(a)
+        twin = env_launchers(rk.env_step_launcher_reference, a, bt)
+        for _ in range(n_calls[d]):
+            for k in range(K):
+                twin[k % 2](reward)
+        e, bb = compare_exact(env_outputs(bufs[d]["src"], bufs[d], None),
+                              env_outputs(bt["src"], bt, None))
+        err, bad = max(err, e), bad + bb
+    fired = int((bufs["fused"]["src"][2] >= 0).sum())
+    twin_ms = event_ms(lambda: [twin[k % 2](reward) for k in range(K)], 2)
+    spec = a["spec"]
+    bnd = bound(env_step_bytes(spec, a, K), stencil_ops(
+        spec.offsets, *shape, K) + K * 14 * int(a["mask"].sum()))
+    say(f"[29 times] env entry, bench loop agent {shape[0]}x{shape[1]}, "
+        f"reward 0.05, calls of {K} steps and a flush, the designs in "
+        f"turns: {design_line(out)}; launches counted by the C entry "
+        + ", ".join(f"{d} {counted[d]} in {n_calls[d]} calls "
+                    f"({counted[d] / n_calls[d]:.2f} a call)" for d in bufs)
+        + f"; each design's state after its calls against the twin's steps "
+        f"from the same start: integer and spike mismatches {bad}, max "
+        f"float error {err:.3g}, fired {fired}; plain twin "
+        f"{twin_ms * 1e3 / K:.3f} us/step; bound {bnd[0] * 1e3 / K:.4f} "
+        f"us/step ({bnd[1]}); library call: none; card {smi}")
+    check(bad == 0 and err == 0.0 and fired > 0, "a timed design is not "
+          "bit-equal to the twin, or nothing fired")
+    check(all(counted[d] == n_calls[d] * launches[d] for d in bufs),
+          "the C entry counted other launches than the design has")
+    return ((out["fused"][1] * K / 1e3, twin_ms), bnd), err
 
 
 def env_call(env, n, with_reward=True):
@@ -4627,11 +4672,11 @@ def hold_replays(rk, env, n, with_reward):
     plan.rewards = torch.empty(n, device="cuda")
     err, bad = 0.0, 0
     for j in range(n // K):
-        start = [b.clone() for b in loop.buffers()]
+        start = [b.clone() for b in loop.state_buffers()]
         loop.graph.replay()
         plan.rewards[j * K:(j + 1) * K].copy_(loop.rew)
-        got = [b.clone() for b in loop.buffers()]
-        for b, x in zip(loop.buffers(), start):
+        got = [b.clone() for b in loop.state_buffers()]
+        for b, x in zip(loop.state_buffers(), start):
             b.copy_(x)
         loop.launch = twin
         try:
@@ -4640,9 +4685,9 @@ def hold_replays(rk, env, n, with_reward):
         finally:
             loop.launch = kernel
         e, bb = compare_exact(dict(enumerate(got)),
-                              dict(enumerate(loop.buffers())))
+                              dict(enumerate(loop.state_buffers())))
         err, bad = max(err, e), bad + bb
-        for b, x in zip(loop.buffers(), got):
+        for b, x in zip(loop.state_buffers(), got):
             b.copy_(x)
     env._finish(plan)
     return err, bad
@@ -4684,8 +4729,9 @@ def env_main_phase(snt, rk, smi):
             f"{'run_with_reward' if sup else 'run'}({steps}), one call with "
             f"host syncs as errors around its steps: env-fused "
             f"{env.last_build_env_fused}, fused {env.last_build_fused}, "
-            f"env-entry steps launched {calls} (with the probe's warm-up "
-            f"step), 6a calls {six}, clock "
+            f"env-entry kernel launches {calls} (17 a replay of 16 steps, "
+            f"and the probe's warm-up step and flush), 6a calls {six}, "
+            f"clock "
             f"{lat.internal_clock}, {secs:.3f} s; state finite {finite}, "
             f"fired {fired} of {shape[0] * shape[1]}, max weight change "
             f"{dw:.4g}"
@@ -4694,9 +4740,10 @@ def env_main_phase(snt, rk, smi):
             + f", rate {float(env.state['rate']):.4g}; card {smi}")
         check(env.last_build_env_fused and env.last_build_fused,
               "the main path did not take tier (a)")
-        # one step more: the probe's warm-up before the capture, on a
-        # snapshot of the buffers
-        check(calls == steps + 1 and six == 0, "wrong launch counts")
+        # 16 fused launches and a flush a replay, and the probe's warm-up
+        # step and flush before the capture, on a snapshot of the buffers
+        check(calls == steps // K * (K + 1) + 2 and six == 0,
+              "wrong launch counts")
         check(lat.internal_clock == steps, "the clock did not advance")
         check(finite and math.isfinite(lat.dopamine if sup else 0.0),
               "the main path went non-finite")
@@ -4715,6 +4762,22 @@ def env_main_phase(snt, rk, smi):
             f"and spike mismatches {bad}, max float error {err:.3g}")
         check(bad == 0 and err == 0.0, "a replay differs from the twin")
         max_err = max(max_err, err)
+        # a call of one replay, counted by the C entry at the capture and
+        # in the profiler's records of the replay
+        rk.ENV_LAUNCHES, n_calls = 0, [0]
+
+        def one_replay():
+            n_calls[0] += 1
+            env_call(env, K, sup)
+
+        recs = kernel_records(one_replay, K + 1, mine=("lp_",))
+        say(f"[30 main path] {label} loop {shape[0]}x{shape[1]}, a call of "
+            f"one replay under the profiler: {sum(recs.values())} kernel "
+            f"records ({records_line(recs)}), the C entry's count "
+            f"{rk.ENV_LAUNCHES / n_calls[0]:.2f} a replay")
+        check(sum(recs.values()) == K + 1
+              and rk.ENV_LAUNCHES == n_calls[0] * (K + 1),
+              "the replay's kernel records differ from the counted launches")
         del lat, env
     # two calls equal one call
     lat, env = bench_env(snt, *EMAINS[0][1])
@@ -4756,14 +4819,14 @@ def env_main_phase(snt, rk, smi):
                           lat.state["v"].cpu().numpy())
     say(f"[30 main path] bench loop {ETWIN[0]}x{ETWIN[1]} with a grid "
         f"history over {EHIST_STEPS} steps: fused {env.last_build_fused}, "
-        f"env-fused {env.last_build_env_fused}, env-entry steps {calls}, "
+        f"env-fused {env.last_build_env_fused}, env-entry launches {calls}, "
         f"history {hist.shape}, last row = final v {last}; against tier (a) "
         f"without the history: {diff} values differ, rewards equal "
         f"{np.array_equal(rewards, runs[False][1])}")
     check(env.last_build_fused and not env.last_build_env_fused,
           "the history run did not take tier (b)")
     check(runs[False][2].last_build_env_fused, "no tier (a) at 64^2")
-    check(calls == EHIST_STEPS and hist.shape == (EHIST_STEPS, *ETWIN)
+    check(calls == EHIST_STEPS + 1 and hist.shape == (EHIST_STEPS, *ETWIN)
           and last, "wrong history")
     check(diff == 0 and np.array_equal(rewards, runs[False][1]),
           "tiers (a) and (b) differ")
@@ -5089,17 +5152,24 @@ def model_phases(snt, smi):
     err, launches = model_main_phase(snt, mk)
     model_cmp_phase(snt)
     times = model_times_phase(snt, mk, smi)
-    t = times["MorrisLecar", MMAIN]
-    return {"name": "model_steps", "route": "cuda",
+    out = []
+    for design, shape, kernel in (
+            ("persistent", MMAIN, "model_persistent_kernel<M, CPT>"),
+            ("per_step", MBIG, "model_stencil_kernel<M> (per step)")):
+        t = times["MorrisLecar", shape]
+        out.append({
+            "name": f"model_steps: {kernel}", "route": "cuda",
             "source": "spiking_neural_networks_tpu_torch/csrc/"
                       "model_stencil.cu",
-            "replaces": MODEL_REPLACES, "launches": launches,
+            "replaces": MODEL_REPLACES, "launches": launches[design],
             "max_abs_err": max(max_err, err),
             "ms": t["kernel_ms"], "plain_ms": t["twin_ms"],
             "device_ms": t["device_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None,
-            "library_call": "none: no PyTorch call computes a lattice step"}
+            "library_call": "none: no PyTorch call computes a lattice "
+                            "step"})
+    return out
 
 
 def model_twin_phase(snt, mk):
@@ -5122,6 +5192,24 @@ def model_twin_phase(snt, mk):
         check(len(kernels) == len(MODELS) and all(sp == "0" for _, _, sp, _
                                                   in kernels),
               "a model kernel is missing from ptxas's report or spills")
+        found = instantiation_lines("model_persistent_kernel")
+        say("[33 build] model_persistent_kernel<M, cells a thread>: "
+            + "; ".join(f"{e[28:].split('EEv')[0]} {rep}"
+                        for e, rep in found))
+        check(len(found) == 3 * len(MODELS) - 2,
+              "a persistent instantiation is missing from ptxas's report")
+    sms = mk._sm_count(torch.device("cuda"))
+    for name in MODELS:
+        model = model_of(snt, name)
+        plan = mk.persistent_plan(model, MMAIN, 12, sms)
+        say(f"[33 plan] {name} {MMAIN[0]}x{MMAIN[1]}, radius 2, {sms} SMs: "
+            + ("no plan: the per-step design" if plan is None else
+               f"{plan.blocks} blocks of {plan.cap} cells "
+               f"({-(-plan.cap // mk.THREADS)} a thread), "
+               f"{plan.smem} B of shared memory a block: the 12 weight "
+               f"planes, wsum, max(in_deg, 1) and "
+               f"{len(plan.resident)} parameter planes "
+               f"{list(plan.resident)}; streamed {list(plan.streamed)}"))
     max_err = 0.0
     cases = list(itertools.product(MSHAPES, (16, 7)))
     for m, name in enumerate(MODELS):
@@ -5131,23 +5219,28 @@ def model_twin_phase(snt, mk):
                                                 else [])):
             inp = model_inputs(snt, mk, model_of(snt, name), shape,
                                m * 10 + c, shape != (130, 100))
-            got = model_call(mk.model_steps, inp, 100, k)
-            torch.cuda.synchronize()
             want = model_call(mk.model_steps_reference, inp, 100, k)
             torch.cuda.synchronize()
-            e, b = compare_model(got, want)
-            check(all(bool(torch.isfinite(x).all()) for x in got[0].values()
-                      if x.is_floating_point()), f"{name}: non-finite output")
-            err, bad = max(err, e), bad + b
+            for per_step in (False, True):
+                got = mk.model_steps(inp["model"], inp["planes"], inp["lft"],
+                                     inp["weights"], inp["in_deg"],
+                                     inp["offsets"], 100, k, per_step)
+                torch.cuda.synchronize()
+                e, b = compare_model(got, want)
+                check(all(bool(torch.isfinite(x).all())
+                          for x in got[0].values() if x.is_floating_point()),
+                      f"{name}: non-finite output")
+                err, bad = max(err, e), bad + b
             fired += int((got[1] >= 100).sum())
             del inp, got, want
         n = len(cases) + (name == "MorrisLecar")
         say(f"[33 kernel-vs-twin] {name}: {n} calls ("
             + ", ".join(f"{r}x{c}" for r, c in MSHAPES)
             + (f", {MBIG[0]}x{MBIG[1]}" if name == "MorrisLecar" else "")
-            + f"; K 16 and 7; 130x100 with non-uniform parameters): integer,"
-            f" bool, spike and lft mismatches {bad}, max float error "
-            f"{err:.3g}, neurons fired in the calls {fired}")
+            + f"; K 16 and 7; 130x100 with non-uniform parameters), each in "
+            f"the routed design and the per-step one: integer, bool, spike "
+            f"and lft mismatches {bad}, max float error {err:.3g}, neurons "
+            f"fired in the calls {fired}")
         check(bad == 0, f"{name}: integers, bools, spikes or lft differ")
         check(fired > 0, f"{name}: no neuron fired in its calls")
         max_err = max(max_err, err)
@@ -5167,17 +5260,21 @@ def model_main_phase(snt, mk):
     network over `BCM_STEPS` steps on its plain route, card vs CPU.
     Returns (max float error, kernel calls)."""
     K = mk.STEPS_PER_LAUNCH
-    max_err, launches = 0.0, 0
-    runs = [("MorrisLecar", MMAIN_STEPS)] + [
-        (n, MIF_STEPS) for n in MODELS
-        if n not in ("MorrisLecar", "BCMIzhikevich-chemical")]
-    for name, steps in runs:
-        lat = model_lattice(snt, name, *MMAIN)
+    max_err, launches = 0.0, {"persistent": 0, "per_step": 0}
+    runs = [("MorrisLecar", MMAIN_STEPS, MMAIN)] + [
+        (n, MIF_STEPS, MMAIN) for n in MODELS
+        if n not in ("MorrisLecar", "BCMIzhikevich-chemical")] + [
+        ("MorrisLecar", MBIG_STEPS, MBIG)]
+    sms = mk._sm_count(torch.device("cuda"))
+    for name, steps, size in runs:
+        lat = model_lattice(snt, name, *size)
         shape = (lat.rows, lat.cols)
         fields, _ = mk.model_kernel_fields(lat.model)
         g = lat.graph
         err, bad = 0.0, 0
-        mk.LAUNCHES = 0
+        persistent = mk.uses_persistent(lat.model, shape, len(g.offsets),
+                                        sms)
+        mk.LAUNCHES = mk.STEP_LAUNCHES = 0
         for _ in range(MHELD):
             st = lat.state
             want = mk.model_steps_reference(
@@ -5193,8 +5290,9 @@ def model_main_phase(snt, mk):
             err, bad = max(err, e), bad + b
         lat.run_lattice(steps - MHELD * K)
         torch.cuda.synchronize()
-        calls = mk.LAUNCHES
-        launches += calls
+        calls, kernel_launches = mk.LAUNCHES, mk.STEP_LAUNCHES
+        launches["persistent" if persistent else "per_step"] += \
+            kernel_launches
         finite = all(bool(torch.isfinite(x).all())
                      for x in lat.state.values() if x.is_floating_point())
         lft = lat.state["last_firing_time"]
@@ -5204,7 +5302,10 @@ def model_main_phase(snt, mk):
         form = MODEL_OVERRIDES.get(name)
         say(f"[34 main path] {name} {shape[0]}x{shape[1]} run_lattice("
             f"{steps}){f' {form}' if form else ''}: route "
-            f"{lat._last_run_fused}, kernel calls {calls}, "
+            f"{lat._last_run_fused}, "
+            f"{'persistent' if persistent else 'per-step'} design, kernel "
+            f"calls {calls}, kernel launches {kernel_launches} (counted by "
+            f"the C entry), "
             f"the first {MHELD} held against the twin: mismatches {bad}, max "
             f"float error {err:.3g}; state finite {finite}, v range "
             f"[{v.min().item():.3f}, {v.max().item():.3f}], fired {fired} of "
@@ -5213,6 +5314,9 @@ def model_main_phase(snt, mk):
         check(lat._last_run_fused == "model", f"{name}: the main path took "
               f"{lat._last_run_fused}")
         check(calls == -(-steps // K), f"{name}: wrong number of kernel calls")
+        check(kernel_launches == calls * mk.call_launches(K, persistent),
+              f"{name}: the C entry counted other launches than the design "
+              f"has")
         check(bad == 0, f"{name}: the main path differs from the twin")
         check(finite and fired > 0, f"{name}: bad main-path state")
         check(late > 0, f"{name}: no neuron fired in the second half")
@@ -5349,11 +5453,15 @@ def model_cmp_phase(snt):
 def model_times_phase(snt, mk, smi):
     """36. For `MTIME_MODELS` at `MTIMES`: wall time per step of the
     kernel route (median of 5 after a warm-up) and of the plain route
-    (median of 3); the kernel's device time under torch.profiler over
-    `EPROF` calls, device / wall; a kernel call's and the twin's time
-    under CUDA events and the call's bound.  Returns them by (model,
+    (median of 3); the routed design's calls on one `ModelRun` (the
+    runner's lean path): CUDA-event time, device time under torch.profiler
+    over `EPROF` calls with every kernel record counted, device / wall,
+    the bound and the twin's time; where the persistent design is routed,
+    both designs in turns (`designs_in_turns`), else the per-step design
+    alone (the plan cannot hold the weights).  Returns them by (model,
     shape), per 16-step call."""
     K = mk.STEPS_PER_LAUNCH
+    sms = mk._sm_count(torch.device("cuda"))
     out = {}
     for name in MTIME_MODELS:
         for shape, steps, plain_steps in MTIMES:
@@ -5375,19 +5483,29 @@ def model_times_phase(snt, mk, smi):
                 k: st[k].reshape(shape) for k, _ in fields},
                 lft=st["last_firing_time"].reshape(shape), weights=g.weights,
                 in_deg=g.in_deg, offsets=g.offsets)
-            kernel = lambda: model_call(mk.model_steps, inp, 0, K)
+            persistent = mk.uses_persistent(kern.model, shape,
+                                            len(g.offsets), sms)
+            runs = {d: mk.ModelRun(kern.model, inp["planes"], inp["lft"],
+                                   g.weights, g.in_deg, g.offsets,
+                                   per_step=d == "per_step")
+                    for d in (("persistent", "per_step") if persistent
+                              else ("per_step",))}
+            routed = "persistent" if persistent else "per_step"
+            kernel = lambda: runs[routed].steps(0, K)
             n_bytes = model_bytes(mk, inp, kernel())
             bnd = bound(n_bytes, model_ops(name, g.offsets, *shape, K))
             kernel_ms = event_ms(kernel, 20)
             twin_ms = event_ms(lambda: model_call(
                 mk.model_steps_reference, inp, 0, K), 3)
+            n_launch = mk.call_launches(K, persistent)
             dev_us, top = profiled_us(lambda: [kernel()
                                                for _ in range(EPROF)],
-                                      EPROF * K, launches=EPROF * K)
+                                      EPROF * K, launches=EPROF * n_launch)
             # each step moves what the call must move (nothing stays on
             # chip between steps)
             dev_rate = n_bytes / (dev_us * 1e-6)
-            check(n_bytes <= L2_BYTES or dev_rate <= PEAK_BYTES,
+            check(n_bytes <= L2_BYTES or persistent
+                  or dev_rate <= PEAK_BYTES,
                   f"{name} {shape}: the profiled device time moves "
                   f"{dev_rate:.4g} B/s, more than HBM's peak")
             mkw, mpw = float(np.median(tk)), float(np.median(tp))
@@ -5395,19 +5513,32 @@ def model_times_phase(snt, mk, smi):
             out[name, shape] = dict(kernel_ms=kernel_ms, twin_ms=twin_ms,
                                     device_ms=dev_us * K / 1e3, bound=bnd)
             say(f"[36 times] {name} {shape[0]}x{shape[1]}: kernel route "
-                f"(use_kernel=None) {rate(shape, mkw, steps)}, median of 5 x "
-                f"{steps} steps; device time {dev_us:.3f} us/step (profiled, "
-                f"{EPROF} calls, {EPROF * K} kernel records: "
+                f"(use_kernel=None, the {routed} design) "
+                f"{rate(shape, mkw, steps)}, median of 5 x {steps} steps; "
+                f"device time {dev_us:.3f} us/step (profiled, {EPROF} calls, "
+                f"{EPROF * n_launch} kernel records: "
                 + ", ".join(f"{k} {t:.3f}" for k, t in top)
                 + f"), {dev_rate / 1e12:.3f} TB/s at {n_bytes / 1e6:.2f} MB a "
-                f"step; device time / wall {dev_us / wall_us:.3f}; kernel "
+                f"call; device time / wall {dev_us / wall_us:.3f}; kernel "
                 f"calls back to back {kernel_ms * 1e3 / K:.3f} us/step "
                 f"(events); bound {bnd[0] * 1e3 / K:.4f} us/step ({bnd[1]}); "
                 f"plain twin {twin_ms * 1e3 / K:.3f} us/step (events); plain "
                 f"route (use_kernel=False) {rate(shape, mpw, plain_steps)}, "
                 f"median of 3 x {plain_steps} steps; library call: none; "
                 f"card {smi}")
-            del kern, plain, inp
+            if persistent:
+                turns = designs_in_turns(
+                    {d: (lambda d=d: runs[d].steps(0, K)) for d in runs},
+                    {d: mk.call_launches(K, d == "persistent")
+                     for d in runs}, K)
+                say(f"[36 times] {name} {shape[0]}x{shape[1]}, the designs "
+                    f"in turns on one ModelRun each: {design_line(turns)}; "
+                    f"card {smi}")
+            else:
+                say(f"[36 times] {name} {shape[0]}x{shape[1]}: the "
+                    f"persistent design does not apply (its plan cannot hold "
+                    f"a block's weights); the per-step design alone")
+            del kern, plain, inp, runs
     return out
 
 

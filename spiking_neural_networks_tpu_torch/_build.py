@@ -137,16 +137,18 @@ def load():
     ]
     lib.lattice_plasticity_steps.restype = ci
     lib.lattice_plasticity_env_step.argtypes = [
-        ci, ci, ci,                         # model, kind, with_reward
+        ci, ci, ci, ci,                     # model, kind, edge, cell
         pv, pv, vp,                         # state_in[4], state_out[4], spikes
+        vp, vp, vp, vp,                     # kept lft / spikes, edge's
         vp, pv, ci,                         # in_deg, params, n_params
         vp, vp,                             # weights, mask
         vp, vp, vp,                         # traces c, dw, counter
-        vp, vp, vp,                         # dopamine, reward, clock
+        vp, vp, vp,                         # dopamine read / write, reward
+        vp, vp,                             # clock read / write
         pf,                                 # rule[9]
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci,                             # rows, cols
-        vp,                                 # stream
+        pi, vp,                             # launched, stream
     ]
     lib.lattice_plasticity_env_step.restype = ci
     lib.hh_chemical_steps.argtypes = [
@@ -164,6 +166,8 @@ def load():
     lib.hh_chemical_steps.restype = ci
     lib.model_stencil_layout.argtypes = [ci, pi]   # kind, codes
     lib.model_stencil_layout.restype = ci
+    lib.model_stencil_limits.argtypes = [pi]
+    lib.model_stencil_limits.restype = None
     lib.model_stencil_steps.argtypes = [
         ci, pv, ci,                         # kind, fields, n_fields
         pv, pv,                             # buffer sets 0 and 1
@@ -171,8 +175,20 @@ def load():
         vp, vp,                             # weights, in_deg
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        vp,                                 # stream
+        pi, vp,                             # launched, stream
     ]
+    lib.model_stencil_persistent.argtypes = [
+        ci, pv, ci,                         # kind, fields, n_fields
+        pv, pv,                             # buffer sets 0 and 1
+        vp, vp, vp,                         # lft, lft buffers 0 and 1
+        vp, vp,                             # v scratch planes 0 and 1
+        vp, vp,                             # weights, in_deg
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        pi, ci, ci,                         # slots, blocks, cap
+        pi, vp,                             # launched, stream
+    ]
+    lib.model_stencil_persistent.restype = ci
     lib.model_stencil_steps.restype = ci
     lib.net_limits.argtypes = [pi]
     lib.net_limits.restype = None

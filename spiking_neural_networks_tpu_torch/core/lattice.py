@@ -14,8 +14,8 @@ over one of five routes:
   the CPU);
 * the model kernel route (any other model of `ops.model_kernels`' table:
   the integrate-and-fire family, `DopaIzhikevich`, `MorrisLecar`;
-  electrical, no plasticity, no history): calls of
-  `ops.model_kernels.model_steps`, K = 16 steps each;
+  electrical, no plasticity, no history): calls of one
+  `ops.model_kernels.ModelRun` per run, K = 16 steps each;
 * the STDP kernel route (Izhikevich, ALIF or LIF with ``do_plasticity``
   and `STDP`): calls of `ops.reward_kernels.lattice_plasticity_steps` of
   kind ``plastic``, K = 16 steps each;
@@ -343,24 +343,25 @@ class Lattice:
 
     def _run_model(self, length):
         """K steps per call of the model kernel, from the flat state: its
-        fields as (rows, cols) planes, the carried ones written back."""
+        fields as (rows, cols) planes, the carried ones written back.  One
+        `model_kernels.ModelRun` makes the checks, the plan and the
+        buffers once for the run's calls."""
         shape = (self.rows, self.cols)
         fields, _ = model_kernels.model_kernel_fields(self.model)
         st = self.state
-        planes = {k: st[k].reshape(shape) for k, _ in fields}
-        lft = st["last_firing_time"].reshape(shape)
         g = self.graph
+        run = model_kernels.ModelRun(
+            self.model, {k: st[k].reshape(shape) for k, _ in fields},
+            st["last_firing_time"].reshape(shape), g.weights, g.in_deg,
+            g.offsets)
         clock, done = self.internal_clock, 0
         while done < length:
             n = min(model_kernels.STEPS_PER_LAUNCH, length - done)
-            carried, lft, _ = model_kernels.model_steps(
-                self.model, planes, lft, g.weights, g.in_deg, g.offsets,
-                clock, n)
-            planes.update(carried)
+            carried, lft, _ = run.steps(clock, n)
             clock += n
             done += n
         st = dict(st)
-        st.update((k, planes[k].reshape(-1)) for k in carried)
+        st.update((k, x.reshape(-1)) for k, x in carried.items())
         st["last_firing_time"] = lft.reshape(-1)
         self.state = st
 

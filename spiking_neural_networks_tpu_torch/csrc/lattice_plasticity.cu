@@ -77,13 +77,21 @@
 //
 // The closed loop (lattice_plasticity_env_step; replaces the env form of
 // the TPU kernel, _make_kernel(spec, n, env) driven by _env_advance) runs
-// one step per call between the environment's callbacks, which stay
-// PyTorch operations on the device.  Its reward and clock are device
-// memory, not arguments, so that a CUDA graph of K such steps reads the
-// values of each replay: the cell kernel reads the clock through a
-// pointer (DEV_CLOCK), and lp_env_scalar_kernel updates the dopamine from
-// the reward in device memory, in lp_dopamine_kernel's float order, and
-// advances the clock.  Three launches per step (cell, scalars, edge).
+// one step per launch between the environment's callbacks, which stay
+// PyTorch operations on the device and may write the state planes.  The
+// reward, the dopamine and the clock are device memory, not arguments, so
+// that a CUDA graph of K such launches reads the values of each replay.
+// Launch k is lp_step_kernel as above: step k-1's edge pass, deferred
+// across the callbacks, then step k's phases A and B; block 0 folds step
+// k's reward into the dopamine, in lp_dopamine_kernel's float order, and
+// advances the clock.  The deferred pass must not see what the callbacks
+// wrote, so step k also writes its firing times and spike flags into
+// kernel-private planes of parity k % 2, which launch k + 1 reads, and the
+// dopamine and the clock live in two slots each: launch k reads one, and
+// block 0 writes the other, which no block of the launch reads.  A flush
+// (step K-1's edge pass alone, and the scalars back into slot 0) settles
+// the weights, traces and scalars after K steps: K + 1 launches with
+// plasticity, K without (ops/reward_kernels.EnvChain keeps the parity).
 
 #include "plasticity_common.cuh"
 
@@ -103,6 +111,9 @@ struct LpStep {
     const int* lft;
     const float* refr;
     const unsigned char* spk;
+    // step k-1's post-step firing times for its edge pass (lft, but for the
+    // closed loop's kept plane)
+    const int* lft_edge;
     // step k's state
     float* v_out;
     float* w_out;
@@ -110,6 +121,10 @@ struct LpStep {
     float* refr_out;
     unsigned char* spk_out;
     float* v_pre;             // null unless emitting
+    // the closed loop: step k's firing times and spike flags kept for its
+    // deferred edge pass (else null)
+    int* lft_keep;
+    unsigned char* spk_keep;
     float* weights;
     const unsigned char* mask;
     float* tr_c;
@@ -120,6 +135,12 @@ struct LpStep {
     // it to dop_write (when not null)
     const float* dop_base;
     float* dop_write;
+    // the closed loop (clock_ptr not null): the clock read from *clock_ptr,
+    // block 0 writes the next to clock_write and step k's dopamine, from
+    // *dop_base and *reward (when not null), to dop_write
+    const float* reward;
+    const int* clock_ptr;
+    int* clock_write;
     Rewards rw;
     int n_rew;
     float exp_dd, tau_d;
@@ -129,7 +150,7 @@ struct LpStep {
     int rows, cols, clock, halo, tiled;
 };
 
-template <int MODEL, bool DEV_CLOCK>
+template <int MODEL>
 __global__ void lp_cell_kernel(
     const float* __restrict__ v_in, const float* __restrict__ w_in,
     const int* __restrict__ lft_in, const float* __restrict__ refr_in,
@@ -138,8 +159,7 @@ __global__ void lp_cell_kernel(
     unsigned char* __restrict__ spk_out,
     float* __restrict__ v_pre_out,         // null unless emitting
     const float* __restrict__ weights, const float* __restrict__ in_deg,
-    Params P, Stencil st, int rows, int cols, int clock,
-    const int* __restrict__ clock_ptr)    // read instead with DEV_CLOCK
+    Params P, Stencil st, int rows, int cols, int clock)
 {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -169,7 +189,7 @@ __global__ void lp_cell_kernel(
     v_out[i] = v_new;
     w_out[i] = w_new;
     if (refractory) refr_out[i] = refr_new;
-    lft_out[i] = spike ? (DEV_CLOCK ? *clock_ptr : clock) : lft_in[i];
+    lft_out[i] = spike ? clock : lft_in[i];
     spk_out[i] = spike ? 1 : 0;
     if (v_pre_out) v_pre_out[i] = v_pre;
 }
@@ -188,7 +208,8 @@ __device__ __forceinline__ void store_changed(T* p, size_t i, T x, T old)
 // Step k-1's edge pass (EDGE, kind KIND) and step k's phases A and B
 // (CELL) of one tile of LP_TILE_ROWS x 32 cells, one thread a cell; see
 // the head of the file.  Edge-only (CELL false) is the edge kernel of the
-// per-step design, the networks' per-step path and the closed loop.
+// per-step design, the networks' per-step path and the closed loop's
+// flush; neither, the closed loop's scalars alone.
 template <int MODEL, int KIND, bool EDGE, bool CELL>
 __global__ void __launch_bounds__(32 * LP_TILE_ROWS)
 lp_step_kernel(const LpStep a)
@@ -207,15 +228,24 @@ lp_step_kernel(const LpStep a)
 
     // the dopamine of the edge pass's step (and, for block 0, of the step
     // whose dopamine this launch writes)
+    const bool lead = blockIdx.x == 0 && blockIdx.y == 0
+        && threadIdx.x == 0 && threadIdx.y == 0;
     float dop = 0.0f;
-    if ((edge && KIND == KIND_MOD) || a.dop_write) {
+    if (a.clock_ptr) {
+        // the closed loop: the slots this launch reads are not the ones
+        // block 0 writes
+        if (a.dop_base) dop = *a.dop_base;
+        if (lead && a.dop_write)
+            *a.dop_write = a.reward ? dop * a.exp_dd + a.tau_d * *a.reward
+                                    : dop;
+        if (lead && a.clock_write)
+            *a.clock_write = *a.clock_ptr + (CELL ? 1 : 0);
+    } else if ((edge && KIND == KIND_MOD) || a.dop_write) {
         float d = *a.dop_base;
         for (int j = 0; j < a.n_rew; ++j)
             d = d * a.exp_dd + a.tau_d * a.rw.r[j];
         dop = d;
-        if (a.dop_write && blockIdx.x == 0 && blockIdx.y == 0
-            && threadIdx.x == 0 && threadIdx.y == 0)
-            *a.dop_write = d;
+        if (a.dop_write && lead) *a.dop_write = d;
     }
     if (a.tiled) {
         for (int q = threadIdx.y * 32 + threadIdx.x; q < tn;
@@ -225,7 +255,7 @@ lp_step_kernel(const LpStep a)
             const bool on = sr >= 0 && sr < rows && sc >= 0 && sc < cols;
             const size_t j = (size_t)sr * cols + sc;
             if (EDGE) {
-                s_lft[q] = on ? a.lft[j] : LP_NEVER;
+                s_lft[q] = on ? a.lft_edge[j] : LP_NEVER;
                 s_spk[q] = on ? a.spk[j] : 0;
             }
             if (CELL) s_v[q] = on ? a.v[j] : 0.0f;
@@ -243,26 +273,42 @@ lp_step_kernel(const LpStep a)
     };
 
     const int t_post = !edge ? LP_NEVER
-        : a.tiled ? s_lft[tile(row, col)] : a.lft[i];
+        : a.tiled ? s_lft[tile(row, col)] : a.lft_edge[i];
     const float s_post = edge && (a.tiled ? s_spk[tile(row, col)]
                                           : a.spk[i]) ? 1.0f : 0.0f;
     float acc = 0.0f;
     float wsum = 0.0f;
+    // a slot's loads, issued together before its mask is known.  For
+    // R-STDP slot o + 1's are issued before slot o's stores (other
+    // addresses), so that a slot does not wait behind the stores of the
+    // one before it: faster on an H100 for R-STDP at 512 x 512 and 64 x 64
+    // and for the closed loop at 10 x 10, slower for STDP (PERF.md)
+    constexpr bool ahead = EDGE && KIND == KIND_MOD;
+    float w_n = 0.0f, c_n = 0.0f, dw_n = 0.0f;
+    int ct_n = 0;
+    bool m_n = false;
+    auto fetch = [&](int o) {
+        const size_t e = (size_t)o * n + i;
+        w_n = a.weights[e];
+        m_n = edge && a.mask[e];
+        if (edge && KIND == KIND_MOD) {
+            c_n = a.tr_c[e];
+            dw_n = a.tr_dw[e];
+            ct_n = a.tr_counter[e];
+        }
+    };
+    if (ahead && a.st.n > 0) fetch(0);
     for (int o = 0; o < a.st.n; ++o) {
         const int sr = row + a.st.dr[o];
         const int sc = col + a.st.dc[o];
         const bool on = sr >= 0 && sr < rows && sc >= 0 && sc < cols;
         const size_t e = (size_t)o * n + i;
-        float w = a.weights[e];
-        // the slot's loads issue together, before the mask is known
-        const bool masked = edge && a.mask[e];
-        float c = 0.0f, dw = 0.0f;
-        int ct = 0;
-        if (edge && KIND == KIND_MOD) {
-            c = a.tr_c[e];
-            dw = a.tr_dw[e];
-            ct = a.tr_counter[e];
-        }
+        if (!ahead) fetch(o);
+        float w = w_n;
+        const bool masked = m_n;
+        float c = c_n, dw = dw_n;
+        int ct = ct_n;
+        if (ahead && o + 1 < a.st.n) fetch(o + 1);
         if (masked) {
             int t_pre = LP_NEVER;
             float s_pre = 0.0f;
@@ -272,7 +318,7 @@ lp_step_kernel(const LpStep a)
                     s_pre = s_spk[tile(sr, sc)] ? 1.0f : 0.0f;
                 } else {
                     const size_t j = (size_t)sr * cols + sc;
-                    t_pre = a.lft[j];
+                    t_pre = a.lft_edge[j];
                     s_pre = a.spk[j] ? 1.0f : 0.0f;
                 }
             }
@@ -311,8 +357,14 @@ lp_step_kernel(const LpStep a)
     a.v_out[i] = v_new;
     a.w_out[i] = w_new;
     if (refractory) a.refr_out[i] = refr_new;
-    a.lft_out[i] = spike ? a.clock : a.lft[i];
+    const int clock = a.clock_ptr ? *a.clock_ptr : a.clock;
+    const int lft = spike ? clock : a.lft[i];
+    a.lft_out[i] = lft;
     a.spk_out[i] = spike ? 1 : 0;
+    if (a.lft_keep) {
+        a.lft_keep[i] = lft;
+        a.spk_keep[i] = spike ? 1 : 0;
+    }
     if (a.v_pre) a.v_pre[i] = v_pre;
 }
 
@@ -326,16 +378,6 @@ __global__ void lp_dopamine_kernel(const float* dop_in, Rewards rw,
         d = d * exp_dd + tau_d * rw.r[j];
         dop_out[j] = d;
     }
-}
-
-// The closed loop's scalars after step k's cell kernel: the dopamine from
-// the reward in device memory (null: no reward), in lp_dopamine_kernel's
-// float order, then clock + 1.
-__global__ void lp_env_scalar_kernel(float* dop, const float* reward,
-                                     float exp_dd, float tau_d, int* clock)
-{
-    if (reward) *dop = *dop * exp_dd + tau_d * *reward;
-    *clock = *clock + 1;
 }
 
 // The staged halo (the stencil's radius) and whether it fits shared
@@ -383,6 +425,7 @@ static LpStep lp_edge_args(const int* lft, const unsigned char* spk,
 {
     LpStep a = {};
     a.lft = lft;
+    a.lft_edge = lft;
     a.spk = spk;
     a.weights = weights;
     a.mask = mask;
@@ -437,7 +480,7 @@ cudaError_t lp_launch_dopamine(const float* dop_in, const float* rewards,
     return cudaSuccess;
 }
 
-template <int MODEL, bool DEV_CLOCK = false>
+template <int MODEL>
 static cudaError_t launch_cell(int* launched, dim3 grid, dim3 block,
                                cudaStream_t s, const float* v, const float* w,
                                const int* lft, const float* refr, float* vo,
@@ -445,22 +488,24 @@ static cudaError_t launch_cell(int* launched, dim3 grid, dim3 block,
                                unsigned char* spk, float* v_pre,
                                const float* weights, const float* in_deg,
                                const Params& P, const Stencil& st, int rows,
-                               int cols, int clock,
-                               const int* clock_ptr = nullptr)
+                               int cols, int clock)
 {
-    lp_cell_kernel<MODEL, DEV_CLOCK><<<grid, block, 0, s>>>(
+    lp_cell_kernel<MODEL><<<grid, block, 0, s>>>(
         v, w, lft, refr, vo, wo, lfto, refro, spk, v_pre, weights, in_deg,
-        P, st, rows, cols, clock, clock_ptr);
+        P, st, rows, cols, clock);
     return lp_counted(launched);
 }
 
-// One launch of the fused schedule for MODEL: edge-only, cell-only or
-// both (see the head of the file).
+// One launch of the fused schedule for MODEL: edge-only, cell-only, both
+// or (the closed loop's scalars) neither (see the head of the file).
 template <int MODEL>
 static cudaError_t lp_launch_fused(int kind, bool edge, bool cell,
                                    const LpStep& a, cudaStream_t s,
                                    int* launched)
 {
+    if (!edge && !cell)
+        return lp_launch_step<MODEL_IZHIKEVICH, KIND_PLAIN, false, false>(
+            a, s, launched);
     if (!edge)
         return lp_launch_step<MODEL, KIND_PLAIN, false, true>(a, s, launched);
     if (!cell)
@@ -572,6 +617,7 @@ int lattice_plasticity_steps(
             a.v = k ? (const float*)in[0] : (const float*)state_in[0];
             a.w = k ? (const float*)in[1] : (const float*)state_in[1];
             a.lft = k ? (const int*)in[2] : (const int*)state_in[2];
+            a.lft_edge = a.lft;
             a.refr = k ? (const float*)in[3] : (const float*)state_in[3];
             a.spk = k ? spikes + n * ((k - 1) & 1) : nullptr;
             a.v_out = (float*)out[0];
@@ -666,79 +712,102 @@ int lattice_plasticity_steps(
     return 0;
 }
 
-// One closed-loop step from state_in = {v, w, lft, refr} into state_out
-// (distinct planes; refr null for Izhikevich) on `stream`: the cell
-// kernel at clock *clock, then lp_env_scalar_kernel (with_reward: dopamine
-// from *reward, in place; then *clock + 1), then the edge kernel of kind
-// plastic or mod (weights and traces in place; mod reads *dopamine).
-// `spikes` receives the step's spike flags.  Every pointer is device
-// memory that the caller owns, so a CUDA graph of such calls replays on
-// the values the buffers hold.  The other arguments are as for
-// lattice_plasticity_steps.  Returns the first CUDA error, 0 if none.
+// One launch of the closed loop on `stream` (see the head of the file):
+// with `edge`, step k-1's edge pass of kind plastic or mod (weights and
+// traces in place) from its kept firing times and spike flags lft_edge
+// and spk_edge and the dopamine *dop_read; with `cell`, step k from
+// state_in = {v, w, lft, refr} into state_out (distinct planes; refr null
+// for Izhikevich) at the clock *clock_read, its spike flags into `spikes`
+// and both into the kept planes lft_keep and spk_keep.  Block 0 writes
+// *dop_read, with *reward folded in (a step with a reward), to *dop_write
+// and *clock_read + cell to *clock_write, each where not null.  The slots
+// read and written must differ.  A launch with neither edge nor cell
+// writes the scalars alone.  Every pointer is device memory that the
+// caller owns, so a CUDA graph of such launches replays on the values the
+// buffers hold.  The other arguments are as for lattice_plasticity_steps;
+// *launched (when not null) gains one for each kernel launched.  Returns
+// the first CUDA error, 0 if none.
 int lattice_plasticity_env_step(
-    int model, int kind, int with_reward,
+    int model, int kind, int edge, int cell,
     const void* const* state_in, void* const* state_out,
-    unsigned char* spikes,
+    unsigned char* spikes, int* lft_keep, unsigned char* spk_keep,
+    const int* lft_edge, const unsigned char* spk_edge,
     const float* in_deg, const float* const* params, int n_params,
     float* weights, const unsigned char* mask,
     float* tr_c, float* tr_dw, int* tr_counter,
-    float* dopamine, const float* reward, int* clock,
+    const float* dop_read, float* dop_write, const float* reward,
+    const int* clock_read, int* clock_write,
     const float* rule, const int* dr, const int* dc, int n_off,
-    int rows, int cols, void* stream)
+    int rows, int cols, int* launched, void* stream)
 {
     Stencil st;
     Params P;
     Rule r;
     if (!lp_setup(model, kind, n_params, n_off, rows, cols, params, dr, dc,
                   rule, st, P, r)
-        || !clock || (kind != KIND_PLAIN && !mask)
-        || (kind == KIND_MOD && (!tr_c || !tr_dw || !tr_counter || !dopamine))
-        || (with_reward && (!dopamine || !reward))
-        || (model != MODEL_IZHIKEVICH && (!state_in[3] || !state_out[3])))
+        || !clock_read || clock_read == clock_write
+        || (dop_write && (!dop_read || dop_read == dop_write))
+        || (reward && (!cell || !dop_write))
+        || (edge && (kind == KIND_PLAIN || !mask || !lft_edge || !spk_edge))
+        || (edge && kind == KIND_MOD
+            && (!tr_c || !tr_dw || !tr_counter || !dop_read))
+        || (cell && (!spikes || !lft_keep || !spk_keep || !in_deg
+                     || !state_in[0] || !state_in[1] || !state_in[2]
+                     || !state_out[0] || !state_out[1] || !state_out[2]))
+        || (cell && model != MODEL_IZHIKEVICH
+            && (!state_in[3] || !state_out[3])))
         return (int)cudaErrorInvalidValue;
-    const float tau_d = rule[7];
-    const float exp_dd = rule[8];
-    const dim3 block(32, 8);
-    const dim3 grid((cols + block.x - 1) / block.x,
-                    (rows + block.y - 1) / block.y);
+    LpStep a = {};
+    a.lft_edge = lft_edge;
+    a.spk = spk_edge;
+    a.weights = weights;
+    a.mask = mask;
+    a.tr_c = tr_c;
+    a.tr_dw = tr_dw;
+    a.tr_counter = tr_counter;
+    a.in_deg = in_deg;
+    a.dop_base = dop_read;
+    a.dop_write = dop_write;
+    a.reward = reward;
+    a.clock_ptr = clock_read;
+    a.clock_write = clock_write;
+    a.exp_dd = rule[8];
+    a.tau_d = rule[7];
+    a.P = P;
+    a.st = st;
+    a.r = r;
+    a.rows = rows;
+    a.cols = cols;
+    lp_geometry(a);
+    if (cell) {
+        a.v = (const float*)state_in[0];
+        a.w = (const float*)state_in[1];
+        a.lft = (const int*)state_in[2];
+        a.refr = (const float*)state_in[3];
+        a.v_out = (float*)state_out[0];
+        a.w_out = (float*)state_out[1];
+        a.lft_out = (int*)state_out[2];
+        a.refr_out = (float*)state_out[3];
+        a.spk_out = spikes;
+        a.lft_keep = lft_keep;
+        a.spk_keep = spk_keep;
+    } else if (!edge) {
+        // the scalars alone: no slot and no staged tile
+        a.st.n = 0;
+        a.tiled = 0;
+    }
     cudaStream_t s = (cudaStream_t)stream;
-    const float* v = (const float*)state_in[0];
-    const float* w = (const float*)state_in[1];
-    const int* lft = (const int*)state_in[2];
-    const float* refr = (const float*)state_in[3];
-    float* vo = (float*)state_out[0];
-    float* wo = (float*)state_out[1];
-    int* lfto = (int*)state_out[2];
-    float* refro = (float*)state_out[3];
-    cudaError_t err;
     switch (model) {
     case MODEL_IZHIKEVICH:
-        err = launch_cell<MODEL_IZHIKEVICH, true>(nullptr, grid, block, s, v,
-            w, lft, refr, vo, wo, lfto, refro, spikes, nullptr, weights,
-            in_deg, P, st, rows, cols, 0, clock);
-        break;
+        return (int)lp_launch_fused<MODEL_IZHIKEVICH>(kind, edge, cell, a, s,
+                                                      launched);
     case MODEL_ALIF:
-        err = launch_cell<MODEL_ALIF, true>(nullptr, grid, block, s, v, w,
-            lft, refr, vo, wo, lfto, refro, spikes, nullptr, weights, in_deg,
-            P, st, rows, cols, 0, clock);
-        break;
+        return (int)lp_launch_fused<MODEL_ALIF>(kind, edge, cell, a, s,
+                                                launched);
     default:
-        err = launch_cell<MODEL_LIF, true>(nullptr, grid, block, s, v, w,
-            lft, refr, vo, wo, lfto, refro, spikes, nullptr, weights, in_deg,
-            P, st, rows, cols, 0, clock);
+        return (int)lp_launch_fused<MODEL_LIF>(kind, edge, cell, a, s,
+                                               launched);
     }
-    if (err != cudaSuccess) return (int)err;
-    lp_env_scalar_kernel<<<1, 1, 0, s>>>(
-        dopamine, with_reward ? reward : nullptr, exp_dd, tau_d, clock);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (kind == KIND_PLASTIC)
-        err = lp_launch_stdp_edge(lfto, spikes, weights, mask, r, st, rows,
-                                  cols, s);
-    else if (kind == KIND_MOD)
-        err = lp_launch_rstdp_edge(lfto, spikes, weights, mask, tr_c, tr_dw,
-                                   tr_counter, dopamine, r, st, rows, cols,
-                                   s);
-    return (int)err;
 }
 
 }  // extern "C"

@@ -8,9 +8,9 @@
 // step operation for operation (the models' own associations, which differ
 // between models on purpose), with exp, tanh and cosh as kernel_exp,
 // kernel_tanh and kernel_cosh (correctly rounded float operations only).
-// Built with -fmad=false, the kernel then rounds exactly as its plain twin
-// (ops/model_kernels.model_steps_reference, which runs the model's step on
-// (rows, cols) planes with the same three functions).
+// Built with -fmad=false, the kernels then round exactly as their plain
+// twin (ops/model_kernels.model_steps_reference, which runs the model's
+// step on (rows, cols) planes with the same three functions).
 //
 // Per step and cell, in the fused association of the TPU kernel:
 //   wsum = sum_o w_o                       (offset order, from 0)
@@ -23,29 +23,58 @@
 // The fields travel as a by-value struct of plane pointers in the order
 // of ops/model_kernels.model_kernel_fields: float fields (f32), then bool
 // fields (uint8 0/1), then int fields (int32), then is_spiking (uint8).
-// A step reads the fields its layout marks READ and writes only the
-// carried ones (those the step changes, is_spiking always) and lft, into
-// one of two buffer sets.
+// A field is IN (the step only reads it: a parameter), ST (read and
+// written: v, w, refractory_count, kss_n, ...), OUT (written only: the
+// Morris-Lecar channels' gates and currents) or is_spiking.  A functor
+// reads and writes them through its Cell accessor (c.f, c.set, c.b,
+// c.set_b, c.n, c.set_n), which each design implements.
 //
-// Design: one thread per cell, 2-D blocks of 32 x 8, one launch per step;
-// model_stencil_steps loops the K launches on the caller's stream and
-// swaps the two buffer sets.  What bounds it on an H100 is memory
-// traffic: each step reads the field planes its model reads, the n_off
-// weight planes, in_deg and lft, and writes the carried planes and lft.
-// Morris-Lecar on a radius-2 stencil reads 17 float planes, a bool plane,
-// 12 weight planes, in_deg and lft, and writes 8 float planes, 2 bool
-// planes and lft: 163 bytes a cell, 43 MB a step at 512 x 512, near the
-// 50 MB L2.  Later work: temporal blocking (K steps on a tile plus a
-// K * pad halo in shared memory, the TPU kernel's scheme, with only the
-// carried planes in the loop), so that the parameter and weight planes are
-// read once per call as the TPU kernel reads them.
+// Two designs, routed by ops/model_kernels.uses_persistent:
+//
+// The persistent design (model_persistent_kernel<M, CPT>; where
+// ops/model_kernels.persistent_plan holds a block's weights in shared
+// memory): one cooperative launch per MS_CHUNK steps, MS_THREADS threads a
+// block, one block an SM at most.  Block b owns the row-major cells
+// [b cap, (b + 1) cap), CPT of them a thread (at most 4; 2 for a model
+// that keeps more than 4 fields in registers).  Before the first step the
+// block copies its cells' n_off weight planes into shared memory, with
+// wsum and max(in_deg, 1) taken once (the same sums, so the same bits),
+// and as many IN planes as the plan holds; the others are read from
+// global memory every step.  The ST fields and lft stay in registers
+// across the steps (RegCell); each step but the last writes v into one of
+// two global planes for the neighbours' reads, then a grid.sync(); the
+// carried fields, lft and is_spiking are written once, in the last step.
+// What bounds it: a step reads from outside the SM only the neighbours' v
+// (from L2) and the streamed IN planes, so it costs the shared-memory
+// reads of the weights and parameters, the arithmetic and the barrier
+// (~1.1 us on an H100).
+//
+// The per-step design (model_stencil_kernel<M>; where the plan cannot hold
+// the weights, as at 2048 x 2048): one thread per cell, 2-D blocks of
+// 32 x 8, one launch per step, the carried fields through two global
+// buffer sets.  What bounds it on an H100 is memory traffic: each step
+// reads the field planes its model reads, the n_off weight planes, in_deg
+// and lft, and writes the carried planes and lft.  Morris-Lecar on a
+// radius-2 stencil reads 17 float planes, a bool plane, 12 weight planes,
+// in_deg and lft, and writes 8 float planes, 2 bool planes and lft: 163
+// bytes a cell, 683 MB a step at 2048 x 2048, at ~2.86 TB/s.  Later work:
+// temporal blocking (K steps on a tile plus a K * pad halo in shared
+// memory, the TPU kernel's scheme).
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 #include "plasticity_common.cuh"   // kernel_exp
 
+namespace cg = cooperative_groups;
+
 #define MS_MAX_OFFSETS 64
 #define MS_MAX_FIELDS 32
+#ifndef MS_THREADS
+#define MS_THREADS 1024     // a persistent block's threads
+#endif
+#define MS_MAX_CPT 4        // cells a thread of the persistent design
+#define MS_CHUNK 16         // steps a persistent launch
 
 // ops/model_kernels.py KINDS, in order
 enum {
@@ -94,7 +123,8 @@ __device__ __forceinline__ float kernel_cosh(float x)
     return 0.5f * (e + 1.0f / e);
 }
 
-// A field's value at cell i, and a carried field's store.
+// The per-step design's accessor: a field's value at cell i, and a carried
+// field's store, in global planes.
 struct Cell {
     const Planes& in;
     const Outs& out;
@@ -121,7 +151,7 @@ struct Cell {
 
 // The refractory handler of LIF, QIF, ALIF and AdEx (base.py
 // _handle_refractory_reset / _handle_adaptive): v1 is the integrated v.
-template <class L>
+template <class L, class Cell>
 __device__ __forceinline__ bool refractory_reset(const Cell& c, float v1)
 {
     const float rc = c.f(L::refractory_count);
@@ -139,6 +169,7 @@ struct Lif {
            gap, e_l, g_l, tau_m, c_m, dt, is_spiking, n_fields };
     static constexpr int codes[n_fields] = {
         ST, IN, IN, F32, ST, IN, IN, IN, IN, IN, IN, IN, F32, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& c, float i_syn)
     {
         const float v0 = c.f(v);
@@ -154,6 +185,7 @@ struct Qif {
            integ, gap, tau_m, c_m, dt, is_spiking, n_fields };
     static constexpr int codes[n_fields] = {
         ST, IN, IN, F32, ST, IN, IN, IN, IN, IN, IN, F32, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& c, float i_syn)
     {
         const float v0 = c.f(v);
@@ -166,7 +198,7 @@ struct Qif {
 };
 
 // ALIF and AdEx: w integrates, and w += beta on a spike.
-template <class L, bool EXP>
+template <class L, bool EXP, class Cell>
 __device__ __forceinline__ bool adaptive_step(const Cell& c, float i_syn)
 {
     const float v = c.f(L::v);
@@ -194,6 +226,7 @@ struct Alif {
     static constexpr int codes[n_fields] = {
         ST, IN, IN, F32, ST, IN, IN, IN, ST, F32, IN, IN, IN, IN, IN, IN,
         IN, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& c, float i_syn)
     {
         return adaptive_step<Alif, false>(c, i_syn);
@@ -207,6 +240,7 @@ struct AdEx {
     static constexpr int codes[n_fields] = {
         ST, IN, IN, F32, ST, IN, IN, IN, IN, ST, F32, IN, IN, IN, IN, IN,
         IN, IN, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& c, float i_syn)
     {
         return adaptive_step<AdEx, true>(c, i_syn);
@@ -216,7 +250,7 @@ struct AdEx {
 // The Izhikevich-shaped step (DopaIzhikevich, BCMIzhikevich;
 // with LEAKY, LeakyIzhikevich's w (v - e_l) term), then v -> c, w += d on
 // a spike.
-template <class L, bool LEAKY>
+template <class L, bool LEAKY, class Cell>
 __device__ __forceinline__ bool izhikevich_step(const Cell& c, float i_syn)
 {
     const float v = c.f(L::v);
@@ -242,6 +276,7 @@ struct Dopa {
            n_fields };
     static constexpr int codes[n_fields] = {
         ST, ST, IN, IN, IN, IN, IN, IN, IN, IN, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& cl, float i_syn)
     {
         return izhikevich_step<Dopa, false>(cl, i_syn);
@@ -253,6 +288,7 @@ struct LeakyIzh {
            is_spiking, n_fields };
     static constexpr int codes[n_fields] = {
         ST, IN, F32, IN, IN, IN, IN, ST, F32, IN, IN, IN, IN, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& cl, float i_syn)
     {
         return izhikevich_step<LeakyIzh, true>(cl, i_syn);
@@ -271,6 +307,7 @@ struct Bcm {
     static constexpr int codes[n_fields] = {
         ST, IN, F32, IN, IN, IN, IN, ST, F32, IN, IN, IN, IN, ST, ST, ST,
         IN, IN, I32 | READ | CARRIED, BOOL | READ | CARRIED};
+    template <class Cell>
     __device__ static bool step(const Cell& cl, float i_syn)
     {
         const int ns = cl.n(num_spikes) + (cl.b(is_spiking) ? 1 : 0);
@@ -295,6 +332,7 @@ struct SimpleLif {
            n_fields };
     static constexpr int codes[n_fields] = {
         ST, IN, IN, IN, IN, F32, IN, F32, IN, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& c, float i_syn)
     {
         const float v0 = c.f(v);
@@ -315,6 +353,7 @@ struct MorrisLecar {
     static constexpr int codes[n_fields] = {
         ST, F32, IN, IN, IN, IN, IN, IN, OUT, IN, IN, OUT, IN, IN, ST,
         OUT, OUT, IN, IN, IN, OUT, IN, IN, OUT, BOOL | READ | CARRIED, SPK};
+    template <class Cell>
     __device__ static bool step(const Cell& c, float i_syn)
     {
         const float v0 = c.f(v);
@@ -350,7 +389,7 @@ struct MorrisLecar {
 };
 
 // ---------------------------------------------------------------------------
-// The step kernel
+// The per-step design
 // ---------------------------------------------------------------------------
 
 template <class M>
@@ -390,7 +429,8 @@ static cudaError_t run_steps(
     const void* const* fields, void* const* buf0, void* const* buf1,
     const int* lft, int* lft0, int* lft1, const float* weights,
     const float* in_deg, const MsStencil& st,
-    int rows, int cols, int clock0, int n_steps, cudaStream_t s)
+    int rows, int cols, int clock0, int n_steps, int* launched,
+    cudaStream_t s)
 {
     Planes in;
     Outs out[2];
@@ -409,12 +449,308 @@ static cudaError_t run_steps(
         model_stencil_kernel<M><<<grid, block, 0, s>>>(
             in, out[b], lft_src, lft_buf[b], weights, in_deg, st, rows, cols,
             clock0 + k);
-        const cudaError_t err = cudaGetLastError();
+        const cudaError_t err = lp_counted(launched);
         if (err != cudaSuccess) return err;
         // the carried fields of step k + 1 are step k's outputs
         for (int f = 0; f < M::n_fields; ++f)
             if (M::codes[f] & CARRIED) in.p[f] = out[b].p[f];
         lft_src = lft_buf[b];
+    }
+    return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent design
+// ---------------------------------------------------------------------------
+
+// The fields of M whose codes hold all of `bits`, as a bit mask (a
+// compile-time constant that device code may read).
+template <class M>
+__host__ __device__ constexpr unsigned ms_mask(int bits)
+{
+    unsigned m = 0;
+    for (int f = 0; f < M::n_fields; ++f)
+        if ((M::codes[f] & bits) == bits) m |= 1u << f;
+    return m;
+}
+
+template <class M>
+struct MsMasks {
+    // read from registers: the fields a step reads and writes
+    static constexpr unsigned reg = ms_mask<M>(CARRIED | READ);
+    static constexpr unsigned carried = ms_mask<M>(CARRIED);
+    static constexpr unsigned bools = ms_mask<M>(BOOL);
+    static constexpr unsigned ints = ms_mask<M>(I32);
+};
+
+// The most cells a persistent thread of M takes: MS_MAX_CPT where it
+// keeps at most 4 fields in registers, else 2 (BCMIzhikevich's 7 spilled
+// at 4 cells in 64 registers).
+template <class M>
+constexpr int ms_max_cpt()
+{
+    int n = 0;
+    for (unsigned m = MsMasks<M>::reg; m; m &= m - 1) ++n;
+    return n <= 4 ? MS_MAX_CPT : 2;
+}
+
+// One persistent launch: up to MS_CHUNK steps from `in` (the call's
+// planes; a later chunk's carried fields from the chunk before) into
+// `out`, the blocks' cells [b cap, (b + 1) cap).  slot[f] is the shared
+// plane of IN field f, or -1 where it streams from global memory.
+struct MsP {
+    Planes in;
+    Outs out;
+    const int* lft_in;
+    int* lft_out;
+    float* vbuf[2];
+    const float* weights;
+    const float* in_deg;
+    int slot[MS_MAX_FIELDS];
+    long long lin[MS_MAX_OFFSETS];    // dr * cols + dc of each offset
+    MsStencil st;
+    int rows, cols, clock0, n_steps, cap;
+};
+
+// The persistent design's accessor for one cell: the fields a step reads
+// and writes from the thread's registers (fc, bc, ic: the step's start;
+// fn, bn, in_: what it writes), the IN fields from the block's shared
+// planes or global memory.  A functor's field indices are constants, so
+// the register arrays resolve at compile time.
+template <class M>
+struct RegCell {
+    const MsP& P;
+    const float* sp;      // the shared IN planes
+    int loc;
+    size_t i;
+    const float* fc;
+    float* fn;
+    const bool* bc;
+    bool* bn;
+    const int* ic;
+    int* in_;
+    __device__ bool reg(int k) const { return (MsMasks<M>::reg >> k) & 1u; }
+    __device__ float f(int k) const
+    {
+        if (reg(k)) return fc[k];
+        const int s = P.slot[k];
+        return s >= 0 ? sp[(size_t)s * P.cap + loc]
+                      : ((const float*)P.in.p[k])[i];
+    }
+    __device__ bool b(int k) const
+    {
+        return reg(k) ? bc[k] : ((const unsigned char*)P.in.p[k])[i] != 0;
+    }
+    __device__ int n(int k) const
+    {
+        return reg(k) ? ic[k] : ((const int*)P.in.p[k])[i];
+    }
+    __device__ void set(int k, float x) const { fn[k] = x; }
+    __device__ void set_b(int k, bool x) const { bn[k] = x; }
+    __device__ void set_n(int k, int x) const { in_[k] = x; }
+};
+
+template <class M, int CPT>
+__global__ void __launch_bounds__(MS_THREADS, 1)
+model_persistent_kernel(const __grid_constant__ MsP P)
+{
+    extern __shared__ __align__(16) unsigned char ms_smem[];
+    constexpr int NF = M::n_fields;
+    constexpr unsigned REG = MsMasks<M>::reg;
+    constexpr unsigned CARRY = MsMasks<M>::carried;
+    constexpr unsigned BOOLS = MsMasks<M>::bools;
+    constexpr unsigned INTS = MsMasks<M>::ints;
+    const int cap = P.cap;
+    const size_t n = (size_t)P.rows * P.cols;
+    const size_t lo = (size_t)blockIdx.x * cap;
+    const int cells = n - lo < (size_t)cap ? (int)(n - lo) : cap;
+    float* sw = (float*)ms_smem;                      // [n_off][cap]
+    float* s_wsum = sw + (size_t)P.st.n * cap;        // [cap]
+    float* s_cnt = s_wsum + cap;                      // [cap]
+    float* sp = s_cnt + cap;                          // [slots][cap]
+    for (int loc = threadIdx.x; loc < cells; loc += MS_THREADS) {
+        const size_t i = lo + loc;
+        float wsum = 0.0f;
+        for (int o = 0; o < P.st.n; ++o) {
+            const float w = P.weights[(size_t)o * n + i];
+            sw[(size_t)o * cap + loc] = w;
+            wsum = wsum + w;
+        }
+        s_wsum[loc] = wsum;
+        s_cnt[loc] = fmaxf(P.in_deg[i], 1.0f);
+        for (int f = 0; f < NF; ++f)
+            if (P.slot[f] >= 0)
+                sp[(size_t)P.slot[f] * cap + loc] =
+                    ((const float*)P.in.p[f])[i];
+    }
+    __syncthreads();
+
+    // the thread's cells: their places, and the fields a step reads and
+    // writes, in registers
+    float fc[CPT][NF], fn[CPT][NF];
+    bool bc[CPT][NF], bn[CPT][NF];
+    int ic[CPT][NF], in_[CPT][NF];
+    int lft[CPT];
+    unsigned long long on[CPT];    // the offsets of on-grid neighbours
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+        const int loc = threadIdx.x + c * MS_THREADS;
+        if (loc >= cells) continue;
+        const size_t i = lo + loc;
+        const int row = (int)(i / P.cols);
+        const int col = (int)(i % P.cols);
+        on[c] = 0;
+        for (int o = 0; o < P.st.n; ++o) {
+            const int sr = row + P.st.dr[o];
+            const int sc = col + P.st.dc[o];
+            if (sr >= 0 && sr < P.rows && sc >= 0 && sc < P.cols)
+                on[c] |= 1ull << o;
+        }
+        lft[c] = P.lft_in[i];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+            if (!((REG >> f) & 1u)) continue;
+            if ((BOOLS >> f) & 1u)
+                bc[c][f] = ((const unsigned char*)P.in.p[f])[i] != 0;
+            else if ((INTS >> f) & 1u)
+                ic[c][f] = ((const int*)P.in.p[f])[i];
+            else
+                fc[c][f] = ((const float*)P.in.p[f])[i];
+        }
+    }
+    cg::grid_group grid = cg::this_grid();
+    for (int k = 0; k < P.n_steps; ++k) {
+        const bool last = k + 1 == P.n_steps;
+        const float* vsrc = k == 0 ? (const float*)P.in.p[M::v]
+                                   : P.vbuf[(k - 1) & 1];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+            const int loc = threadIdx.x + c * MS_THREADS;
+            if (loc >= cells) continue;
+            const size_t i = lo + loc;
+            // the on-grid neighbours' v, in offset order
+            const float* vi = vsrc + i;
+            const float* wo = sw + loc;
+            float acc = 0.0f;
+            for (int o = 0; o < P.st.n; ++o, wo += cap)
+                if ((on[c] >> o) & 1ull) acc = acc + *wo * vi[P.lin[o]];
+            const RegCell<M> cl{P, sp, loc, i, fc[c], fn[c], bc[c], bn[c],
+                                ic[c], in_[c]};
+            const float v = fc[c][M::v];
+            const float i_syn = cl.f(M::gap) * (acc - v * s_wsum[loc])
+                / s_cnt[loc];
+            const bool spike = M::step(cl, i_syn);
+            bn[c][M::is_spiking] = spike;
+            if (spike) lft[c] = P.clock0 + k;
+            if (!last) {
+                P.vbuf[k & 1][i] = fn[c][M::v];
+            } else {
+                // the call's outputs, written once
+#pragma unroll
+                for (int f = 0; f < NF; ++f) {
+                    if (!((CARRY >> f) & 1u)) continue;
+                    if ((BOOLS >> f) & 1u)
+                        ((unsigned char*)P.out.p[f])[i] = bn[c][f] ? 1 : 0;
+                    else if ((INTS >> f) & 1u)
+                        ((int*)P.out.p[f])[i] = in_[c][f];
+                    else
+                        ((float*)P.out.p[f])[i] = fn[c][f];
+                }
+                P.lft_out[i] = lft[c];
+            }
+#pragma unroll
+            for (int f = 0; f < NF; ++f) {
+                if (!((REG >> f) & 1u)) continue;
+                if ((BOOLS >> f) & 1u)
+                    bc[c][f] = bn[c][f];
+                else if ((INTS >> f) & 1u)
+                    ic[c][f] = in_[c][f];
+                else
+                    fc[c][f] = fn[c][f];
+            }
+        }
+        if (!last) grid.sync();
+    }
+}
+
+// The shared bytes a persistent block takes: the weights, wsum, cnt and
+// n_slots IN planes of `cap` cells.
+static size_t ms_smem_bytes(int n_off, int n_slots, int cap)
+{
+    return (size_t)4 * cap * (n_off + 2 + n_slots);
+}
+
+// The chunks of a persistent call: chunk j writes buffer set j % 2 from
+// the call's planes (j = 0) or set (j - 1) % 2, so the result is in set
+// (chunks - 1) % 2.
+template <class M, int CPT>
+static cudaError_t run_persistent(
+    const void* const* fields, void* const* buf0, void* const* buf1,
+    const int* lft, int* lft0, int* lft1, float* vbuf0, float* vbuf1,
+    const float* weights, const float* in_deg, const MsStencil& st,
+    const int* slots, int rows, int cols, int clock0, int n_steps,
+    int blocks, int cap, int* launched, cudaStream_t s)
+{
+    auto fn = model_persistent_kernel<M, CPT>;
+    int n_slots = 0;
+    for (int f = 0; f < M::n_fields; ++f) {
+        if (slots[f] < -1 || slots[f] >= M::n_fields
+            || (slots[f] >= 0 && M::codes[f] != IN))
+            return cudaErrorInvalidValue;
+        n_slots += slots[f] >= 0;
+    }
+    const size_t smem = ms_smem_bytes(st.n, n_slots, cap);
+    // the blocks must fit on the card at once
+    int dev, n_sm, optin, occ;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(
+                &n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+            != cudaSuccess)
+        return err;
+    if (smem > (size_t)optin) return cudaErrorInvalidValue;
+    if ((err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+            != cudaSuccess
+        || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &occ, fn, MS_THREADS, smem)) != cudaSuccess)
+        return err;
+    if (blocks > occ * n_sm) return cudaErrorCooperativeLaunchTooLarge;
+    MsP P = {};
+    for (int f = 0; f < MS_MAX_FIELDS; ++f) {
+        P.in.p[f] = f < M::n_fields ? fields[f] : nullptr;
+        P.slot[f] = f < M::n_fields ? slots[f] : -1;
+    }
+    P.lft_in = lft;
+    P.vbuf[0] = vbuf0;
+    P.vbuf[1] = vbuf1;
+    P.weights = weights;
+    P.in_deg = in_deg;
+    P.st = st;
+    for (int o = 0; o < st.n; ++o)
+        P.lin[o] = (long long)st.dr[o] * cols + st.dc[o];
+    P.rows = rows;
+    P.cols = cols;
+    P.cap = cap;
+    void* const* bufs[2] = {buf0, buf1};
+    int* lft_buf[2] = {lft0, lft1};
+    for (int k0 = 0, j = 0; k0 < n_steps; k0 += MS_CHUNK, ++j) {
+        for (int f = 0; f < MS_MAX_FIELDS; ++f)
+            P.out.p[f] = f < M::n_fields ? bufs[j & 1][f] : nullptr;
+        P.lft_out = lft_buf[j & 1];
+        P.clock0 = clock0 + k0;
+        P.n_steps = n_steps - k0 < MS_CHUNK ? n_steps - k0 : MS_CHUNK;
+        void* args[] = {&P};
+        err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(MS_THREADS),
+                                          args, smem, s);
+        if (err != cudaSuccess || (err = lp_counted(launched)) != cudaSuccess)
+            return err;
+        // the carried fields of the next chunk are this chunk's outputs
+        for (int f = 0; f < M::n_fields; ++f)
+            if (M::codes[f] & CARRIED) P.in.p[f] = P.out.p[f];
+        P.lft_in = P.lft_out;
     }
     return cudaSuccess;
 }
@@ -429,9 +765,38 @@ static int layout(int* codes)
     return M::n_fields;
 }
 
+template <class M>
+static cudaError_t run_persistent_cpt(
+    int cpt, const void* const* fields, void* const* buf0, void* const* buf1,
+    const int* lft, int* lft0, int* lft1, float* vbuf0, float* vbuf1,
+    const float* weights, const float* in_deg, const MsStencil& st,
+    const int* slots, int rows, int cols, int clock0, int n_steps,
+    int blocks, int cap, int* launched, cudaStream_t s)
+{
+#define MS_CPT(C) run_persistent<M, C>(fields, buf0, buf1, lft, lft0, lft1, \
+                                       vbuf0, vbuf1, weights, in_deg, st,  \
+                                       slots, rows, cols, clock0, n_steps, \
+                                       blocks, cap, launched, s)
+    if (cpt > ms_max_cpt<M>()) return cudaErrorInvalidValue;
+    if (cpt == 1) return MS_CPT(1);
+    if (cpt == 2) return MS_CPT(2);
+    if constexpr (ms_max_cpt<M>() >= 4) return MS_CPT(4);
+    return cudaErrorInvalidValue;
+#undef MS_CPT
+}
+
 extern "C" {
 
 int model_stencil_max_offsets() { return MS_MAX_OFFSETS; }
+
+// MS_MAX_OFFSETS, MS_MAX_FIELDS, MS_THREADS, MS_MAX_CPT and MS_CHUNK, in
+// order.
+void model_stencil_limits(int* out)
+{
+    const int v[5] = {MS_MAX_OFFSETS, MS_MAX_FIELDS, MS_THREADS, MS_MAX_CPT,
+                      MS_CHUNK};
+    for (int q = 0; q < 5; ++q) out[q] = v[q];
+}
 
 int model_stencil_layout(int kind, int* codes)
 {
@@ -450,33 +815,91 @@ int model_stencil_layout(int kind, int* codes)
     }
 }
 
-// Runs n_steps steps of model `kind` from the planes `fields` (its
-// layout's n_fields pointers) and `lft` on `stream`.  Step k writes the
-// carried fields into buffer set k % 2 (buf0 / buf1: a pointer per field,
-// null for a field that is not carried) and lft into lft0 / lft1, so the
-// result is in set (n_steps - 1) % 2, the last step's spikes in its
-// is_spiking plane; the inputs are only read.  Returns the first CUDA
-// error, 0 if none.
-int model_stencil_steps(
-    int kind, const void* const* fields, int n_fields, void* const* buf0,
-    void* const* buf1, const int* lft, int* lft0, int* lft1,
-    const float* weights, const float* in_deg,
-    const int* dr, const int* dc, int n_off, int rows, int cols, int clock0,
-    int n_steps, void* stream)
+static bool ms_stencil(int kind, int n_fields, const int* dr, const int* dc,
+                       int n_off, int rows, int cols, int n_steps,
+                       MsStencil& st)
 {
     if (n_off < 0 || n_off > MS_MAX_OFFSETS || rows <= 0 || cols <= 0
         || n_steps <= 0 || n_fields != model_stencil_layout(kind, nullptr))
-        return (int)cudaErrorInvalidValue;
-    MsStencil st;
+        return false;
     st.n = n_off;
     for (int o = 0; o < n_off; ++o) {
         st.dr[o] = dr[o];
         st.dc[o] = dc[o];
     }
+    return true;
+}
+
+// Runs n_steps steps of model `kind` from the planes `fields` (its
+// layout's n_fields pointers) and `lft` on `stream`, one launch of the
+// per-step design a step.  Step k writes the carried fields into buffer
+// set k % 2 (buf0 / buf1: a pointer per field, null for a field that is
+// not carried) and lft into lft0 / lft1, so the result is in set
+// (n_steps - 1) % 2, the last step's spikes in its is_spiking plane; the
+// inputs are only read and must not be set 0.  *launched (when not null)
+// gains one for each kernel launched.  Returns the first CUDA error, 0 if
+// none.
+int model_stencil_steps(
+    int kind, const void* const* fields, int n_fields, void* const* buf0,
+    void* const* buf1, const int* lft, int* lft0, int* lft1,
+    const float* weights, const float* in_deg,
+    const int* dr, const int* dc, int n_off, int rows, int cols, int clock0,
+    int n_steps, int* launched, void* stream)
+{
+    MsStencil st;
+    if (!ms_stencil(kind, n_fields, dr, dc, n_off, rows, cols, n_steps, st))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
 #define MS_RUN(M) run_steps<M>(fields, buf0, buf1, lft, lft0, lft1,       \
                                weights, in_deg, st, rows, cols, clock0,    \
-                               n_steps, s)
+                               n_steps, launched, s)
+    cudaError_t err;
+    switch (kind) {
+    case MS_LIF: err = MS_RUN(Lif); break;
+    case MS_QIF: err = MS_RUN(Qif); break;
+    case MS_ALIF: err = MS_RUN(Alif); break;
+    case MS_ADEX: err = MS_RUN(AdEx); break;
+    case MS_DOPA: err = MS_RUN(Dopa); break;
+    case MS_LEAKY_IZH: err = MS_RUN(LeakyIzh); break;
+    case MS_BCM: err = MS_RUN(Bcm<false>); break;
+    case MS_BCM_CHEM: err = MS_RUN(Bcm<true>); break;
+    case MS_SIMPLE_LIF: err = MS_RUN(SimpleLif); break;
+    case MS_MORRIS_LECAR: err = MS_RUN(MorrisLecar); break;
+    default: err = cudaErrorInvalidValue;
+    }
+#undef MS_RUN
+    return (int)err;
+}
+
+// Runs n_steps steps as model_stencil_steps does, in the persistent
+// design: one cooperative launch of `blocks` blocks per MS_CHUNK steps,
+// block b owning the cells [b cap, (b + 1) cap) (cap a multiple of 32, at
+// most MS_MAX_CPT * MS_THREADS, blocks * cap >= rows * cols); slots[f] the
+// shared plane of IN field f, -1 for one read from global memory (the
+// plan of ops/model_kernels.persistent_plan).  Chunk j writes set j % 2,
+// so the result is in set (chunks - 1) % 2; vbuf0 and vbuf1 are two
+// (rows, cols) planes of scratch.  Returns the first CUDA error, 0 if
+// none.
+int model_stencil_persistent(
+    int kind, const void* const* fields, int n_fields, void* const* buf0,
+    void* const* buf1, const int* lft, int* lft0, int* lft1, float* vbuf0,
+    float* vbuf1, const float* weights, const float* in_deg,
+    const int* dr, const int* dc, int n_off, int rows, int cols, int clock0,
+    int n_steps, const int* slots, int blocks, int cap, int* launched,
+    void* stream)
+{
+    MsStencil st;
+    const int cpt = (cap + MS_THREADS - 1) / MS_THREADS;
+    if (!ms_stencil(kind, n_fields, dr, dc, n_off, rows, cols, n_steps, st)
+        || cap <= 0 || cap % 32 != 0 || cpt > MS_MAX_CPT || blocks <= 0
+        || (long long)blocks * cap < (long long)rows * cols
+        || (long long)(blocks - 1) * cap >= (long long)rows * cols)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+#define MS_RUN(M) run_persistent_cpt<M>(cpt, fields, buf0, buf1, lft, lft0,   \
+                                        lft1, vbuf0, vbuf1, weights, in_deg, \
+                                        st, slots, rows, cols, clock0,       \
+                                        n_steps, blocks, cap, launched, s)
     cudaError_t err;
     switch (kind) {
     case MS_LIF: err = MS_RUN(Lif); break;

@@ -137,8 +137,10 @@ def _put(dst, src):
 class _KernelLoop:
     """The kernel tiers of one closed loop: buffers that are the agent's
     state between calls, the launches of `reward_kernels.
-    env_step_launcher` from each of two plane sets into the other, and on
-    a GPU the CUDA graph of `STEPS_PER_LAUNCH` steps."""
+    env_step_launcher` from each of two plane sets into the other, their
+    `reward_kernels.EnvChain` (on a GPU a step's edge pass runs in the
+    next step's launch, and `flush` runs the last one), and on a GPU the
+    CUDA graph of `STEPS_PER_LAUNCH` steps and a flush."""
 
     def __init__(self, env, spec, rule, treedef, leaves):
         agent = env.agent
@@ -177,10 +179,11 @@ class _KernelLoop:
                                    device=dev) for x in leaves]
         params = {k: self.other[k].view(self.shape)
                   for k in rk.MODEL_PARAM_KEYS[spec.model]}
+        self.chain = rk.EnvChain(self.dopamine, self.clock, self.shape)
         self.launch = [rk.env_step_launcher(
             spec, self.planes[p], self.planes[1 - p], self.spikes,
             self.weights, self.mask, self.in_deg, params, self.traces,
-            self.dopamine, rule, self.clock) for p in (0, 1)]
+            self.dopamine, rule, self.clock, self.chain) for p in (0, 1)]
         has = set(st)
         self.views = []
         for v, w, lft, refr in self.planes:
@@ -193,15 +196,21 @@ class _KernelLoop:
             self.views.append({k: x for k, x in d.items() if k in has})
         self.parity = 0
         self.graph = None
+        self.graph_launches = 0    # the kernel launches of one replay
         # the probe's verdict (the callbacks can be captured), None before
         # the first probe
         self.capture_ok = None
 
-    def buffers(self):
+    def state_buffers(self):
+        """The buffers that hold the loop's state between calls."""
         return ([x for pl in self.planes for x in pl if x is not None]
                 + [self.spikes, self.weights, self.dopamine, self.clock,
                    self.rew] + list(self.traces or ()) + self.leaves
                 + list(self.other.values()))
+
+    def buffers(self):
+        """Every buffer a step may write: the state's and the chain's."""
+        return self.state_buffers() + self.chain.buffers()
 
     def load(self, agent, leaves):
         """Copy the agent's state, graph, traces, dopamine and clock and the
@@ -230,6 +239,7 @@ class _KernelLoop:
         for buf, x in zip(self.leaves, leaves):
             _put(buf, x)
         self.parity = 0
+        self.chain.reset()
 
     def store(self, agent):
         """Hand the buffers to the agent as its state, weights and
@@ -269,9 +279,14 @@ class _KernelLoop:
             _put(buf, x)
         self.parity = 1 - p
 
+    def flush(self):
+        """Settle the last step's edge pass and the scalars."""
+        self.chain.flush()
+
     def probe(self):
-        """Run one step on a snapshot of the buffers and of the default
-        random generators, restored after, on a GPU on a side stream with
+        """Run one step and a flush on a snapshot of the buffers and of the
+        default random generators, restored after, on a GPU on a side
+        stream with
         PyTorch's host syncs turned into errors: the warm-up before a
         capture, and False if a callback synchronizes with the host (the
         loop then runs without a graph).  A callback's own generator is
@@ -284,6 +299,7 @@ class _KernelLoop:
             try:
                 if not self.cuda:
                     self.step(self.rew[0])
+                    self.flush()
                     return True
                 main = torch.cuda.current_stream()
                 side = torch.cuda.Stream()
@@ -293,6 +309,7 @@ class _KernelLoop:
                     with torch.cuda.stream(side):
                         torch.cuda.set_sync_debug_mode("error")
                         self.step(self.rew[0])
+                        self.flush()
                 except RuntimeError as e:
                     if isinstance(e, rk.KernelError) \
                             or "synchroniz" not in str(e):
@@ -306,19 +323,24 @@ class _KernelLoop:
                 for b, x in zip(self.buffers(), saved):
                     b.copy_(x)
                 self.parity = parity
+                self.chain.reset()
 
     def capture(self):
         """Capture `STEPS_PER_LAUNCH` steps (an even count, so a replay
-        starts and ends on plane set 0) into a CUDA graph."""
+        starts and ends on plane set 0 and slot 0) and a flush into a CUDA
+        graph, and count its kernel launches."""
         graph = torch.cuda.CUDAGraph()
-        parity = self.parity
+        parity, launched = self.parity, self.chain.launched
         try:
             with torch.cuda.graph(graph):
                 for k in range(rk.STEPS_PER_LAUNCH):
                     self.step(self.rew[k])
+                self.flush()
         finally:
             self.parity = parity
+            self.chain.reset()
         self.graph = graph
+        self.graph_launches = self.chain.launched - launched
 
 
 class _Plan:
@@ -344,13 +366,17 @@ class JitEnvironment:
         (`supports_plain_lattice` for `run`), no history is on, and the
         callbacks pass a probe (no host sync): on a GPU a call of n steps
         replays a CUDA graph of K = `STEPS_PER_LAUNCH` closed-loop steps
-        n // K times and runs the rest step by step; each step runs the
-        reward callback, the hand-written kernels of an
-        `reward_kernels.env_step_launcher` step (reward and clock read
-        from device memory) and the update and encoder callbacks;
+        and a flush n // K times and runs the rest step by step, then a
+        flush; each step runs the reward callback, one launch of the
+        hand-written kernel of an `reward_kernels.env_step_launcher` step
+        (the previous step's edge pass, then this step; reward, dopamine
+        and clock in device memory) and the update and encoder callbacks;
+        a flush runs the last step's edge pass: K + 1 launches per K steps
+        with plasticity;
     (b) per-step kernel: the same steps without a graph, for a grid
         history (read out per step), callbacks that cannot be captured,
-        a call of fewer than K steps, or the CPU;
+        a call of fewer than K steps, or the CPU (the twin, which runs
+        each step whole);
     (c) plain route: `reward_lattice_step` / `lattice_step` per step, for
         ``use_kernel=False`` or an agent outside the kernel's class.
 
@@ -512,7 +538,7 @@ class JitEnvironment:
             K = rk.STEPS_PER_LAUNCH
             while n - done >= K:
                 loop.graph.replay()
-                rk.ENV_LAUNCHES += K
+                rk.ENV_LAUNCHES += loop.graph_launches
                 if plan.with_reward:
                     rewards[done:done + K].copy_(loop.rew)
                 done += K
@@ -521,6 +547,7 @@ class JitEnvironment:
             if plan.readout is not None:
                 plan.ys.append(plan.readout.readout(
                     loop.views[loop.parity], loop.shape).clone())
+        loop.flush()
         plan.rewards = rewards
 
     def _advance_plain(self, plan):

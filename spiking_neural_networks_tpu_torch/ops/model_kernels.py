@@ -8,17 +8,25 @@ table names each model's kernel fields and the fields its step writes,
 and ``csrc/model_stencil.cu`` holds one device functor per model that
 repeats the model's own PyTorch step.
 
-`model_steps` launches the CUDA kernel for CUDA tensors and runs the plain
-twin `model_steps_reference` for CPU tensors.  The twin runs the port
-model's own ``step`` on (rows, cols) planes with `KERNEL_FNS`, the
-float-op exp, tanh and cosh the kernel computes, so the kernel route on
-the card equals the same route on the CPU bit for bit.  A build or launch
-failure raises; nothing falls back.
+Two designs of the CUDA kernel: the persistent one (one cooperative launch
+per 16-step call, a block's weights and as many parameter planes as fit
+in its shared memory, the state in registers) where `persistent_plan`
+holds the weights, and the per-step one (a launch a step) elsewhere
+(`uses_persistent`).  `ModelRun` makes the checks, the plan, the output
+buffers and the launch arguments once for a run of calls on one lattice
+(`core.lattice.Lattice._run_model`); `model_steps` is one call of a fresh
+`ModelRun`.  On CPU tensors both run the plain twin
+`model_steps_reference`, which runs the port model's own ``step`` on
+(rows, cols) planes with `KERNEL_FNS`, the float-op exp, tanh and cosh
+the kernel computes, so the kernel route on the card equals the same
+route on the CPU bit for bit.  A build or launch failure raises; nothing
+falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,12 +39,19 @@ from ..models.morris_lecar import MorrisLecar
 
 MAX_OFFSETS = 64          # MS_MAX_OFFSETS in the CUDA source
 MAX_FIELDS = 32           # MS_MAX_FIELDS
-STEPS_PER_LAUNCH = 16     # K of the lattice runner's kernel calls
+THREADS = 1024            # MS_THREADS: a persistent block's threads
+MAX_CPT = 4               # MS_MAX_CPT: cells a persistent thread
+STEPS_PER_LAUNCH = 16     # K of the lattice runner's kernel calls (MS_CHUNK)
+# shared memory a persistent block may take (an H100's opt-in maximum)
+SMEM_BUDGET = 232448
 KERNEL_FNS = Fns(kernel_exp, kernel_tanh, kernel_cosh)
 
-# Calls of `model_steps` that launched the CUDA kernel (each call runs its
-# n_steps launches on the stream).
+# Calls of the model kernel (`model_steps`, `ModelRun.steps`) that launched
+# CUDA kernels.
 LAUNCHES = 0
+# The CUDA kernel launches those calls made, as the C entries count them at
+# each launch (`call_launches` per call).
+STEP_LAUNCHES = 0
 
 # The models the kernel computes: their kind in the CUDA source (MS_* in
 # ``csrc/model_stencil.cu``; BCMIzhikevich with chemical_normalization is
@@ -76,6 +91,7 @@ _TABLE = {
 _CODES = {torch.float32: 0, torch.bool: 1, torch.int32: 2}
 _CARRIED, _READ = 4, 8
 _layouts_checked = set()
+_limits_checked = False
 
 
 def model_kernel_fields(model):
@@ -156,8 +172,18 @@ def _check(model, planes, lft, weights, in_deg, offsets, clock0, n_steps):
 
 
 def _check_layout(lib, model, fields, carry):
-    """Raise unless the CUDA source's layout of this kind (field count,
-    types, carried and read fields) is the table's."""
+    """Raise unless the CUDA source's limits are this module's and its
+    layout of this kind (field count, types, carried and read fields) is
+    the table's."""
+    global _limits_checked
+    if not _limits_checked:
+        got = (ctypes.c_int * 5)()
+        lib.model_stencil_limits(got)
+        want = [MAX_OFFSETS, MAX_FIELDS, THREADS, MAX_CPT, STEPS_PER_LAUNCH]
+        if list(got) != want:
+            raise RuntimeError(f"the CUDA source's limits {list(got)} differ "
+                               f"from the wrapper's {want}")
+        _limits_checked = True
     k = kind(model)
     if k in _layouts_checked:
         return
@@ -173,8 +199,206 @@ def _check_layout(lib, model, fields, carry):
     _layouts_checked.add(k)
 
 
+def in_fields(model):
+    """The fields the step only reads (its parameters), in field order:
+    what the persistent design holds in shared memory where it can."""
+    fields, carry = model_kernel_fields(model)
+    reads = model_read_fields(model)
+    return tuple(k for k, dt in fields
+                 if dt == torch.float32 and k in reads and k not in carry)
+
+
+def max_cpt(model):
+    """The most cells a persistent thread takes for ``model``: `MAX_CPT`
+    where its step keeps at most 4 fields in registers (those it reads and
+    writes), else 2 (``ms_max_cpt`` in the CUDA source: BCMIzhikevich's 7
+    spilled at 4 cells a thread)."""
+    _, carry = model_kernel_fields(model)
+    reads = model_read_fields(model)
+    return MAX_CPT if sum(k in reads for k in carry) <= 4 else 2
+
+
+class MsPlan(NamedTuple):
+    """Where the persistent design keeps a lattice's values: ``blocks``
+    blocks of ``cap`` cells each (a multiple of 32, at most `max_cpt` x
+    `THREADS`), ``resident`` the IN fields each block holds in shared
+    memory (after the weights, wsum and max(in_deg, 1): ``smem`` bytes a
+    block), ``streamed`` the IN fields read from global memory each
+    step."""
+    blocks: int
+    cap: int
+    resident: tuple
+    streamed: tuple
+    smem: int
+
+
+def persistent_plan(model, shape, n_off, n_blocks, budget=SMEM_BUDGET):
+    """The persistent design's plan for ``model`` on a ``shape`` lattice
+    of ``n_off`` stencil offsets on a card of ``n_blocks`` SMs (a block
+    each), with ``budget`` bytes of shared memory a block: each block
+    owns ``cap`` consecutive cells; the shared memory takes the n_off
+    weight planes, wsum and max(in_deg, 1) first, then as many IN planes
+    as fit, in field order.  None where a block's cells outnumber its
+    threads' `max_cpt` or the weights do not fit."""
+    n = int(shape[0]) * int(shape[1])
+    cap = 32 * -(-(-(-n // int(n_blocks))) // 32)
+    base = 4 * cap * (int(n_off) + 2)
+    if cap > max_cpt(model) * THREADS or base > budget:
+        return None
+    ins = in_fields(model)
+    fit = min(len(ins), (budget - base) // (4 * cap))
+    return MsPlan(-(-n // cap), cap, ins[:fit], ins[fit:],
+                  base + 4 * cap * fit)
+
+
+def uses_persistent(model, shape, n_off, n_blocks):
+    """Whether the runners take the persistent design for ``model`` on a
+    ``shape`` lattice of ``n_off`` offsets (`persistent_plan` holds the
+    weights; else the per-step design)."""
+    return persistent_plan(model, shape, n_off, n_blocks) is not None
+
+
+def call_launches(n_steps, persistent):
+    """The CUDA kernel launches of one call of ``n_steps`` steps: one per
+    `STEPS_PER_LAUNCH` steps in the persistent design, one a step in the
+    per-step design."""
+    n = int(n_steps)
+    return -(-n // STEPS_PER_LAUNCH) if persistent else n
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+class ModelRun:
+    """The calls of one run of the model kernel on one lattice: the
+    checks, the layout check, the route and its plan, the output buffer
+    sets and the launch arguments are made once, at construction; each
+    `steps` call then advances the state.
+
+    ``planes``, ``lft``, ``weights``, ``in_deg`` and ``offsets`` are as for
+    `model_steps`; the planes are only read.  The state lives in two buffer
+    sets of the carried fields and lft; a call writes first the set that
+    does not hold its inputs, and its outputs (views into the sets) are
+    valid until the next call.  On CUDA tensors the persistent design
+    runs where `persistent_plan` says so (``per_step`` forces the per-step
+    one); on CPU tensors each call runs `model_steps_reference`."""
+
+    def __init__(self, model, planes, lft, weights, in_deg, offsets,
+                 per_step=False):
+        fields, carry = _check(model, planes, lft, weights, in_deg, offsets,
+                               0, 1)
+        dev = lft.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"no kernel for device {dev}")
+        self.model, self.fields, self.carry = model, fields, carry
+        self.planes, self.lft = planes, lft
+        self.weights, self.in_deg, self.offsets = weights, in_deg, offsets
+        self.cur = None           # the set holding the state; None: inputs
+        rows, cols = lft.shape
+        self.plan, self.lib = None, None
+        if dev.type == "cuda":
+            from .. import _build
+            self.lib = _build.load()
+            _check_layout(self.lib, model, fields, carry)
+            if not per_step:
+                self.plan = persistent_plan(model, (rows, cols), len(offsets),
+                                            _sm_count(dev))
+        new = lambda dtype: torch.empty((2, rows, cols), dtype=dtype,
+                                        device=dev)
+        self.bufs = {k: new(planes[k].dtype) for k in carry}
+        self.lft_buf = new(torch.int32)
+        self.vbuf = new(torch.float32) if self.plan is not None else None
+        if self.lib is None:
+            return
+        ptrs = ctypes.c_void_p * len(fields)
+        # the inputs of a call from the caller's planes (None) or a set
+        self.in_ptrs = {
+            cur: ptrs(*[(planes[k] if cur is None or k not in carry
+                         else self.bufs[k][cur]).data_ptr()
+                        for k, _ in fields]) for cur in (None, 0, 1)}
+        self.out_ptrs = [ptrs(*[self.bufs[k][b].data_ptr()
+                                if k in carry else None for k, _ in fields])
+                         for b in (0, 1)]
+        self.lft_ptrs = {None: lft.data_ptr(), 0: self.lft_buf[0].data_ptr(),
+                         1: self.lft_buf[1].data_ptr()}
+        n_off = len(offsets)
+        self.dr = (ctypes.c_int * max(n_off, 1))(*[o[0] for o in offsets])
+        self.dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in offsets])
+        if self.plan is not None:
+            slot = {k: j for j, k in enumerate(self.plan.resident)}
+            self.slots = (ctypes.c_int * len(fields))(
+                *[slot.get(k, -1) for k, _ in fields])
+
+    def steps(self, clock0, n_steps):
+        """Advance ``n_steps`` steps from ``clock0``; returns ``(carried,
+        lft, spikes)`` as `model_steps` does, views into the buffer
+        sets."""
+        global LAUNCHES, STEP_LAUNCHES
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        if not -2**31 <= int(clock0) <= 2**31 - n_steps:
+            raise ValueError(f"clock {clock0} + {n_steps} steps overflows "
+                             f"int32")
+        # the first write goes to the set that does not hold the inputs;
+        # the writes alternate from there
+        a = 1 if self.cur == 0 else 0
+        writes = call_launches(n_steps, self.plan is not None)
+        out = a if writes % 2 else 1 - a
+        if self.lib is None:
+            src = {k: self.planes[k] if self.cur is None or k not in
+                   self.carry else self.bufs[k][self.cur]
+                   for k, _ in self.fields}
+            lft = self.lft if self.cur is None else self.lft_buf[self.cur]
+            carried, lft, _ = model_steps_reference(
+                self.model, src, lft, self.weights, self.in_deg,
+                self.offsets, clock0, n_steps)
+            for k, x in carried.items():
+                self.bufs[k][out].copy_(x)
+            self.lft_buf[out].copy_(lft)
+        else:
+            rc, launched = self._launch(a, clock0, n_steps)
+            dev = self.lft.device
+            if rc != 0:
+                raise RuntimeError(
+                    f"the model kernel failed with CUDA error {rc} "
+                    f"({torch.cuda.get_device_name(dev)})")
+            LAUNCHES += 1
+            STEP_LAUNCHES += launched
+        self.cur = out
+        carried = {k: b[out] for k, b in self.bufs.items()}
+        return carried, self.lft_buf[out], carried["is_spiking"]
+
+    def _launch(self, a, clock0, n_steps):
+        """One call of the C entry of the route, writing set ``a`` first.
+        Returns (CUDA error code, kernel launches)."""
+        rows, cols = self.lft.shape
+        launched = ctypes.c_int(0)
+        lib, n_off = self.lib, len(self.offsets)
+        head = (kind(self.model), self.in_ptrs[self.cur], len(self.fields),
+                self.out_ptrs[a], self.out_ptrs[1 - a],
+                self.lft_ptrs[self.cur], self.lft_buf[a].data_ptr(),
+                self.lft_buf[1 - a].data_ptr())
+        tail = (self.dr, self.dc, n_off, rows, cols, int(clock0), n_steps)
+        dev = self.lft.device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if self.plan is None:
+                rc = lib.model_stencil_steps(
+                    *head, self.weights.data_ptr(), self.in_deg.data_ptr(),
+                    *tail, ctypes.byref(launched), stream)
+            else:
+                rc = lib.model_stencil_persistent(
+                    *head, self.vbuf[0].data_ptr(), self.vbuf[1].data_ptr(),
+                    self.weights.data_ptr(), self.in_deg.data_ptr(), *tail,
+                    self.slots, self.plan.blocks, self.plan.cap,
+                    ctypes.byref(launched), stream)
+        return rc, launched.value
+
+
 def model_steps(model, planes, lft, weights, in_deg, offsets, clock0,
-                n_steps):
+                n_steps, per_step=False):
     """Advance ``n_steps`` electrical steps of ``model`` on a stencil
     lattice.
 
@@ -183,58 +407,17 @@ def model_steps(model, planes, lft, weights, in_deg, offsets, clock0,
     cols) int32, ``weights`` (len(offsets), rows, cols) float32, ``in_deg``
     (rows, cols) float32.  Returns ``(carried, lft, spikes)``: the planes of
     the fields the step writes, by name, the last firing times, and the
-    last step's spikes (bool).  The inputs are not modified.
+    last step's spikes (bool).  The inputs are not modified and the
+    outputs are fresh tensors.  One call of a new `ModelRun`: on CUDA
+    tensors the kernel of `uses_persistent`'s design (``per_step``: the
+    per-step one, to compare the two), on CPU tensors the twin.
     """
-    global LAUNCHES
-    fields, carry = _check(model, planes, lft, weights, in_deg, offsets,
-                           clock0, n_steps)
+    _check(model, planes, lft, weights, in_deg, offsets, clock0, n_steps)
     if lft.device.type == "cpu":
         return model_steps_reference(model, planes, lft, weights, in_deg,
                                      offsets, clock0, n_steps)
-    if lft.device.type != "cuda":
-        raise ValueError(f"no kernel for device {lft.device}")
-    from .. import _build
-    lib = _build.load()
-    _check_layout(lib, model, fields, carry)
-    dev = lft.device
-    with torch.cuda.device(dev):
-        rc, out = _launch(lib, model, fields, carry, planes, lft, weights,
-                          in_deg, offsets, clock0, n_steps,
-                          torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"model_stencil_steps failed with CUDA error {rc} "
-                           f"({torch.cuda.get_device_name(dev)})")
-    LAUNCHES += 1
-    return out
-
-
-def _launch(lib, model, fields, carry, planes, lft, weights, in_deg,
-            offsets, clock0, n_steps, stream):
-    """One call of the C entry on ``stream``, its outputs allocated beside
-    ``lft``: two buffers a carried plane, one of which (the last step's)
-    the caller keeps.  Returns (CUDA error code, (carried, lft,
-    spikes))."""
-    rows, cols = lft.shape
-    n_steps, n_off = int(n_steps), len(offsets)
-    dev = lft.device
-    new = lambda dtype: [torch.empty((rows, cols), dtype=dtype, device=dev)
-                         for _ in (0, 1)]
-    bufs = {k: new(planes[k].dtype) for k in carry}
-    lft_buf = new(torch.int32)
-    ptrs = ctypes.c_void_p * len(fields)
-    field_ptrs = ptrs(*[planes[k].data_ptr() for k, _ in fields])
-    buf_ptrs = [ptrs(*[bufs[k][b].data_ptr() if k in bufs else None
-                       for k, _ in fields]) for b in (0, 1)]
-    dr = (ctypes.c_int * max(n_off, 1))(*[o[0] for o in offsets])
-    dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in offsets])
-    rc = lib.model_stencil_steps(
-        kind(model), field_ptrs, len(fields), buf_ptrs[0], buf_ptrs[1],
-        lft.data_ptr(), lft_buf[0].data_ptr(), lft_buf[1].data_ptr(),
-        weights.data_ptr(), in_deg.data_ptr(), dr, dc, n_off, rows, cols,
-        int(clock0), n_steps, stream)
-    last = (n_steps - 1) % 2
-    carried = {k: b[last] for k, b in bufs.items()}
-    return rc, (carried, lft_buf[last], carried["is_spiking"])
+    return ModelRun(model, planes, lft, weights, in_deg, offsets,
+                    per_step).steps(clock0, n_steps)
 
 
 def model_steps_reference(model, planes, lft, weights, in_deg, offsets,

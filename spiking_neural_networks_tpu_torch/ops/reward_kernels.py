@@ -32,10 +32,14 @@ per launch of an `env_step_launcher` step, between callbacks that stay
 PyTorch operations: its reward is a 0-dim device tensor and its clock a
 1-element device tensor that the launch advances, and it writes into
 buffers the caller owns, so that a CUDA graph of such steps replays on
-the values the buffers hold.  `env_step_launcher` checks the buffers once
-and returns the launch of one step (the C entry
-``lattice_plasticity_env_step``); `env_step_launcher_reference` is its
-plain twin.
+the values the buffers hold.  On a GPU, launch k runs step k-1's edge pass
+(deferred across the callbacks, from kernel-private copies of step k-1's
+firing times and spike flags) and then step k; the launchers of one loop
+share an `EnvChain`, whose `flush` runs the last step's edge pass.
+`env_step_launcher` checks the buffers once and returns the launch of one
+step (the C entry ``lattice_plasticity_env_step``);
+`env_step_launcher_reference` is its plain twin, which runs each step
+whole.
 """
 
 from __future__ import annotations
@@ -75,9 +79,9 @@ LAUNCHES = 0
 # The CUDA kernel launches those calls made, as the C entry counts them at
 # each launch (`step_launches` per call when the schedule is as designed).
 STEP_LAUNCHES = 0
-# Closed-loop steps whose CUDA kernels were launched: one per launch of an
-# `env_step_launcher` step outside a graph capture, and K per replay of a
-# graph of K captured steps (added by the replaying runner).
+# The closed loop's CUDA kernel launches, as the C entry counts them: at
+# each launch outside a graph capture, and per replay of a captured graph
+# the launches counted at its capture (added by the replaying runner).
 ENV_LAUNCHES = 0
 
 
@@ -504,8 +508,100 @@ def _check_reward(spec, reward, dev):
         _need("reward", reward, torch.float32, (), dev)
 
 
+class EnvLaunch(NamedTuple):
+    """The buffers one closed-loop launch reads and writes (`EnvChain.
+    launch`): ``edge``, step k-1's edge pass from the kept planes
+    ``lft_edge``, ``spk_edge`` and the dopamine ``dop_read``; ``cell``,
+    step k at the clock ``clock_read``, its firing times and spike flags
+    kept in ``lft_keep``, ``spk_keep``.  Block 0 writes the dopamine (step
+    k's reward folded in, with a reward) to ``dop_write`` and the clock
+    (+ 1 with ``cell``) to ``clock_write``, where not None."""
+    edge: bool
+    cell: bool
+    lft_keep: object
+    spk_keep: object
+    lft_edge: object
+    spk_edge: object
+    dop_read: object
+    dop_write: object
+    clock_read: object
+    clock_write: object
+
+
+class EnvChain:
+    """What the CUDA launches of one closed loop share from step to step
+    (`env_step_launcher`'s ``chain``): the step whose edge pass is still
+    due, the parity p of the steps since the last flush, the kernel-private
+    planes of the firing times and spike flags that step k keeps in plane
+    k % 2 for its deferred edge pass (a callback may write the state
+    planes in between), and a second slot of the dopamine and of the
+    clock.  Slot 0 is the caller's ``dopamine`` (0-dim float32; None
+    without one) and ``clock`` (1-element int32); launch k reads slot p
+    and writes slot 1 - p.  `flush` runs the last step's edge pass and
+    moves the scalars back into slot 0, so that after it the caller's
+    buffers hold the whole state: K + 1 launches per K steps with
+    plasticity, K without (K even).  ``per_step`` flushes after every
+    step instead (the design without the deferral: two launches a step),
+    to compare the two."""
+
+    def __init__(self, dopamine, clock, shape, per_step=False):
+        dev = clock.device
+        self.dop = (dopamine, None if dopamine is None
+                    else torch.zeros((), dtype=torch.float32, device=dev))
+        self.clock = (clock, torch.zeros(1, dtype=torch.int32, device=dev))
+        self.lft = torch.full((2, *shape), NEVER, dtype=torch.int32,
+                              device=dev)
+        self.spk = torch.zeros((2, *shape), dtype=torch.bool, device=dev)
+        self.due = None          # (run, plastic) of the step launched last
+        self.parity = 0
+        self.per_step = per_step
+        self.launched = 0        # kernel launches, as the C entry counted
+
+    def buffers(self):
+        """The private buffers (for a snapshot that must restore them)."""
+        return [x for x in (self.dop[1], self.clock[1], self.lft, self.spk)
+                if x is not None]
+
+    def launch(self, cell, plastic):
+        """The `EnvLaunch` of the next step (``cell``) or of a flush."""
+        p = self.parity
+        to = 1 - p if cell else 0
+        write = cell or p == 1
+        return EnvLaunch(
+            edge=self.due is not None and plastic, cell=cell,
+            lft_keep=self.lft[p] if cell else None,
+            spk_keep=self.spk[p] if cell else None,
+            lft_edge=self.lft[1 - p], spk_edge=self.spk[1 - p],
+            dop_read=self.dop[p],
+            dop_write=self.dop[to] if write else None,
+            clock_read=self.clock[p],
+            clock_write=self.clock[to] if write else None)
+
+    def step(self, run, plastic, reward):
+        """Launch the next step through ``run(EnvLaunch, reward)``."""
+        run(self.launch(True, plastic), reward)
+        self.due = (run, plastic)
+        self.parity ^= 1
+        if self.per_step:
+            self.flush()
+
+    def flush(self):
+        """Run the due edge pass and settle the scalars in slot 0 (nothing
+        when no step is due)."""
+        if self.due is not None:
+            run, plastic = self.due
+            if plastic or self.parity:
+                run(self.launch(False, plastic), None)
+        self.reset()
+
+    def reset(self):
+        """Forget the due step (after its buffers were restored)."""
+        self.due = None
+        self.parity = 0
+
+
 def env_step_launcher(spec, src, dst, spikes, weights, mask, in_deg, params,
-                      traces, dopamine, rule, clock):
+                      traces, dopamine, rule, clock, chain=None):
     """Check the buffers of one closed-loop step once, and return
     ``launch(reward)``, which advances one step from the planes ``src`` =
     (v, w, lft, refr) into ``dst`` (refr None for Izhikevich; w a zero
@@ -514,11 +610,14 @@ def env_step_launcher(spec, src, dst, spikes, weights, mask, in_deg, params,
     (``spec.with_reward``) the 0-dim ``dopamine`` in place from the 0-dim
     float32 device tensor ``reward``, and advances the 1-element int32
     ``clock``.  Shapes and types are those of `lattice_plasticity_steps`.
-    On CUDA tensors each launch runs the CUDA kernels on the current
-    stream (and is counted in `ENV_LAUNCHES` unless the stream is being
-    captured); on CPU tensors the plain twin,
-    `env_step_launcher_reference`.  A launch failure raises
-    `KernelError`."""
+    On CUDA tensors each launch runs the CUDA kernel on the current
+    stream, after the edge pass of the step ``chain`` (the `EnvChain` of
+    ``dopamine``, ``clock`` and the planes' shape that the launchers of one
+    loop share) launched before: the weights, traces, dopamine and clock
+    are the whole step's after ``chain.flush()``.  Its launches are
+    counted in `ENV_LAUNCHES` unless the stream is being captured.  On CPU tensors the launch is the plain
+    twin's, `env_step_launcher_reference`, which runs each step whole.  A
+    launch failure raises `KernelError`."""
     dev = src[0].device
     if dev.type == "cpu":
         return env_step_launcher_reference(spec, src, dst, spikes, weights,
@@ -528,10 +627,20 @@ def env_step_launcher(spec, src, dst, spikes, weights, mask, in_deg, params,
                dopamine, clock)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    dop = dopamine if spec.kind == "mod" or spec.with_reward else None
+    if chain is None:
+        raise ValueError("the CUDA launcher needs the EnvChain that the "
+                         "launchers of its loop share")
+    if chain.clock[0] is not clock \
+            or (dop is not None and chain.dop[0] is not dop) \
+            or tuple(chain.lft.shape[1:]) != tuple(src[0].shape):
+        raise ValueError("the chain must hold this launcher's clock, its "
+                         "dopamine (kinds with one) and its planes' shape")
     from .. import _build
     lib = _build.load()
     rows, cols = src[0].shape
     n_off = len(spec.offsets)
+    plastic = spec.kind != "plain"
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -539,36 +648,44 @@ def env_step_launcher(spec, src, dst, spikes, weights, mask, in_deg, params,
     r = rule_floats(rule)
     keys = MODEL_PARAM_KEYS[spec.model]
     c_, dw_, ct_ = traces if spec.kind == "mod" else (None, None, None)
-    # built once: the ctypes arrays and every pointer but the reward's
-    head = (MODELS.index(spec.model), KINDS.index(spec.kind),
-            int(spec.with_reward), (ctypes.c_void_p * 4)(*map(ptr, src)),
-            (ctypes.c_void_p * 4)(*map(ptr, dst)), ptr(spikes), ptr(in_deg),
-            (ctypes.c_void_p * len(keys))(*[params[k].data_ptr()
-                                            for k in keys]),
-            len(keys), ptr(weights),
-            ptr(mask) if spec.kind != "plain" else None,
-            ptr(c_), ptr(dw_), ptr(ct_), ptr(dopamine))
-    tail = (ptr(clock), (ctypes.c_float * 9)(*[
+    # built once: the ctypes arrays and the pointers of the state
+    model, kind = MODELS.index(spec.model), KINDS.index(spec.kind)
+    planes = ((ctypes.c_void_p * 4)(*map(ptr, src)),
+              (ctypes.c_void_p * 4)(*map(ptr, dst)), ptr(spikes))
+    consts = (ptr(in_deg), (ctypes.c_void_p * len(keys))(
+        *[params[k].data_ptr() for k in keys]), len(keys), ptr(weights),
+        ptr(mask) if plastic else None, ptr(c_), ptr(dw_), ptr(ct_))
+    tail = ((ctypes.c_float * 9)(*[
         r.get(k, 0.0)
         for k in STDP_KEYS + ("tau_c", "exp_dc", "tau_d", "exp_dd")]),
         (ctypes.c_int * max(n_off, 1))(*[o[0] for o in spec.offsets]),
         (ctypes.c_int * max(n_off, 1))(*[o[1] for o in spec.offsets]),
         n_off, rows, cols)
 
-    def launch(reward=None):
+    def run(how, reward):
         global ENV_LAUNCHES
-        _check_reward(spec, reward, dev)
+        launched = ctypes.c_int(0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev)
             rc = lib.lattice_plasticity_env_step(
-                *head, reward.data_ptr() if spec.with_reward else None,
-                *tail, stream.cuda_stream)
+                model, kind, int(how.edge), int(how.cell),
+                *(planes if how.cell else (None, None, None)),
+                ptr(how.lft_keep), ptr(how.spk_keep), ptr(how.lft_edge),
+                ptr(how.spk_edge), *consts, ptr(how.dop_read),
+                ptr(how.dop_write), ptr(reward), ptr(how.clock_read),
+                ptr(how.clock_write), *tail, ctypes.byref(launched),
+                stream.cuda_stream)
             if rc != 0:
                 raise KernelError(
                     f"lattice_plasticity_env_step failed with CUDA error "
                     f"{rc} ({torch.cuda.get_device_name(dev)})")
+            chain.launched += launched.value
             if not torch.cuda.is_current_stream_capturing():
-                ENV_LAUNCHES += 1
+                ENV_LAUNCHES += launched.value
+
+    def launch(reward=None):
+        _check_reward(spec, reward, dev)
+        chain.step(run, plastic, reward if spec.with_reward else None)
 
     return launch
 

@@ -3,8 +3,9 @@
 and its plain twin (`env_step_launcher_reference`): the twin against the by-value twin of the
 plasticity kernels given the same rewards (bit-equal), against the TPU
 kernel's env form (``pallas_reward._env_advance``, interpret mode), the
-wrapper's checks and gate; on a CUDA card only, the CUDA kernels against
-the twin.
+wrapper's checks and gate; on a CUDA card only, the CUDA kernel (its
+launches sharing an `reward_kernels.EnvChain`, flushed after the last
+step) against the twin.
 
 Tolerance against the TPU kernel: rtol 1e-6, atol 1e-5 on v, w, weights,
 traces and dopamine, firing times and spikes equal (as
@@ -65,22 +66,29 @@ def step_inputs(kind, model, rows=9, cols=11, seed=4, device="cpu"):
         offsets=g.offsets)
 
 
-def launchers(make, spec, inp):
+def launchers(make, spec, inp, links=None):
     """The launches of ``make`` (`env_step_launcher` or its twin) from
-    each of the two plane sets into the other."""
+    each of the two plane sets into the other (the kernel's sharing the
+    `EnvChain` ``links``)."""
     planes = [inp["src"], inp["dst"]]
+    kw = {} if links is None else dict(chain=links)
     return [make(spec, planes[p], planes[1 - p], inp["spikes"],
                  inp["weights"], inp["mask"], inp["in_deg"], inp["params"],
-                 inp["traces"], inp["dopamine"], inp["rule"], inp["clock"])
+                 inp["traces"], inp["dopamine"], inp["rule"], inp["clock"],
+                 **kw)
             for p in (0, 1)]
 
 
 def chain(make, spec, inp, n=K):
     """``n`` steps of ``make``'s launches between two plane sets, each
-    reward computed on the device from the state the step receives.
-    Returns the final planes and the rewards."""
+    reward computed on the device from the state the step receives, and
+    for the kernel a flush of its `EnvChain`.  Returns the final planes
+    and the rewards."""
     planes = [inp["src"], inp["dst"]]
-    launch = launchers(make, spec, inp)
+    links = rk.EnvChain(inp["dopamine"], inp["clock"],
+                        tuple(inp["src"][0].shape)) \
+        if make is rk.env_step_launcher else None
+    launch = launchers(make, spec, inp, links)
     rewards = []
     for k in range(n):
         p = k % 2
@@ -89,6 +97,8 @@ def chain(make, spec, inp, n=K):
                   + 0.1 * inp["spikes"].to(torch.float32).mean()).reshape(())
         rewards.append(reward.clone())
         launch[p](reward)
+    if links is not None:
+        links.flush()
     return planes[n % 2], torch.stack(rewards)
 
 
@@ -298,7 +308,7 @@ def test_cuda_env_kernel_matches_twin(kind, with_reward, model):
         planes, rewards = chain(make, spec, inp)
         torch.cuda.synchronize()
         if make is rk.env_step_launcher:
-            assert rk.ENV_LAUNCHES == before + K
+            assert rk.ENV_LAUNCHES == before + K + (kind != "plain")
         outs.append([x for x in list(planes) + [
             inp["spikes"], inp["weights"], inp["dopamine"], inp["clock"],
             rewards] + list(inp["traces"] or ()) if x is not None])
@@ -310,10 +320,11 @@ def test_cuda_env_kernel_matches_twin(kind, with_reward, model):
 @pytest.mark.parametrize("kind,with_reward,model", [
     (k, r, m) for (k, r), m in itertools.product(ENV_KINDS, MODELS)])
 def test_cuda_env_kernel_schedule_cases(kind, with_reward, model):
-    """The env entry's edge kernel (the fused schedule's edge pass) on a
-    33 x 70 grid (a width that is not a multiple of the 32-column tile,
-    and a partial last tile row), a tenth of the weights -0.0 and counters
-    of 2: 16 chained steps bit-equal to the twin."""
+    """The env entry's fused launches (step k-1's edge pass in step k's
+    launch, then a flush) on a 33 x 70 grid (a width that is not a
+    multiple of the 32-column tile, and a partial last tile row), a tenth
+    of the weights -0.0 and counters of 2: 16 chained steps bit-equal to
+    the twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     outs = []
