@@ -7,8 +7,12 @@ The main paths, through the entry points a user calls, at 512 x 512 on a
 radius-2, 80%-keep stencil graph:
 
 * the electrical Izhikevich lattice (`Lattice` -> `populate` ->
-  `connect_stencil` -> `apply` -> `run_lattice`), through the stencil
-  kernel ``csrc/izhikevich_stencil.cu``;
+  `connect_stencil` -> `apply` -> `run_lattice`) through the stencil
+  kernel's three designs: at 512^2 the persistent one
+  (``csrc/model_stencil.cu``, kind Izh: one cooperative launch per
+  16-step call), at 1024^2, 2048^2 and 4096^2 the tiled one
+  (``csrc/izhikevich_stencil.cu``, temporal blocking: K_b steps a launch),
+  and at 2048^2 with per-neuron parameters the per-step one;
 * the plain `Lattice` with STDP (``do_plasticity = True``) and the
   `RewardModulatedLattice` (`run_lattice_with_reward`, `run_lattice`),
   through the plasticity kernels ``csrc/lattice_plasticity.cu``;
@@ -74,17 +78,35 @@ Phases, one line each:
 1. device: the card's name and power limit (nvidia-smi) and PyTorch's name;
 2. build: nvcc builds every kernel from ``csrc/`` at first use;
 3. the stencil kernel vs its plain twin on the card, at 64^2, 130 x 100,
-   256^2, 512^2 and 2048^2: lft and spikes equal, v and w within rtol 1e-6,
-   atol 1e-5; per-step times and bounds at 512^2 (K = 1 and 16) and 2048^2;
-4. the stencil main path: 512^2 for 2048 steps (launch counter, finite v,
-   neurons fired), 64 steps with a grid history, 2048^2 for 256 steps;
+   256^2, 512^2 (with emission too), 700^2, 1024^2, 2048^2 (uniform and
+   per-neuron parameters) and 4096^2 in the routed design, so at every
+   main path's shape in its design: lft and spikes equal, v, w and v_pre
+   within rtol 1e-6, atol 1e-5 (in fact bit-equal);
+   per-step times and bounds at 512^2 (K = 1 and 16) and 2048^2 (K = 8
+   and 16); then each design (persistent, tiled, per step) on 33 x 70,
+   130 x 100 and 256^2 x radius 1, 2 and 3 x emit off and on, a chain of
+   calls of K = 1, 2, 7, 16 and 17 on one `StencilRun`, and the tiled
+   design in every tile of `TILE_TRIALS` and one of K_b = 3: bit-equal, the
+   launches the C entry counted equal to `call_launches`; the registers
+   and spills of every new instantiation;
+4. the stencil main paths: 512^2 for 2048 steps (128 calls of one launch
+   of the persistent design, counted by the C entry and in the profiler's
+   records), 64 steps with a grid history, 1024^2, 2048^2 and 4096^2 for
+   256 steps (the tiled design, ceil(16 / K_b) launches a call), 2048^2
+   with per-neuron parameters for 64 steps (the per-step design, held bit
+   for bit against the twin from the same state): routes, finite v,
+   neurons fired;
 5. 128^2 for 1000 steps: the stencil kernel route on the card against the
    same fused route on the CPU, within the reference's CPU-vs-GPU
    criterion (2 mV, 2 steps), and against the plain route on the card,
    which sums in another association: the two may part only at a
    threshold tie;
 6. neuron-updates/s of both routes at 512^2 and of the kernel route at
-   2048^2;
+   1024^2, 2048^2 and 4096^2; the designs in turns at 512^2, 700^2,
+   1024^2, 2048^2 and 4096^2 (wall, events, device time, kernel records
+   against the launches the C entry counted, modelled bytes), the
+   persistent design with and without emission at 512^2, and each tile
+   of `TILE_TRIALS` at 2048^2;
 7. the plasticity kernels vs their plain twin on the card, the fused
    schedule and the per-step design each: every kind x model at 64^2
    (K = 16 and 7) and on 33 x 70 (K = 1, 2 and 17), 130 x 100 with
@@ -289,14 +311,40 @@ UNIFORM = dict(a=0.02, b=0.2, c=-55.0, d=8.0, v_th=30.0,
 # Shapes of the phases; CASES are ((rows, cols), K, emit, uniform params).
 MAIN, MAIN_STEPS, HIST_STEPS = (512, 512), 2048, 64
 BIG, BIG_STEPS = (2048, 2048), 256
+# the tiled design's main paths (BIG_STEPS each), and the per-step one's:
+# BIG with per-neuron a, d and v_th
+TILED_MAINS = ((1024, 1024), BIG, (4096, 4096))
+HETERO_STEPS = 64
 CMP, CMP_STEPS = (128, 128), 1000
 CASES = [((64, 64), 1, False, True), ((64, 64), 16, True, True),
          ((130, 100), 16, True, False), ((256, 256), 16, True, False),
          (MAIN, 1, False, True), (MAIN, 16, False, True),
-         (BIG, 8, False, True)]
-REPLACES = ("spiking_neural_networks_tpu/ops/pallas_stencil.py:251",
-            "spiking_neural_networks_tpu/ops/pallas_stencil.py:94",
-            "spiking_neural_networks_tpu/ops/pallas_stencil.py:482")
+         (MAIN, 16, True, True), ((700, 700), 16, True, True),
+         ((1024, 1024), 16, False, True), (BIG, 8, False, True),
+         (BIG, 16, False, True), (BIG, 16, False, False),
+         ((4096, 4096), 16, False, True)]
+# the design each main path's shape takes (phase 4), which CASES must hold
+# against the twin at that shape
+MAIN_DESIGNS = ({("persistent", MAIN), ("per_step", BIG)}
+                | {("tiled", shape) for shape in TILED_MAINS})
+# each design on these shapes and stencil radii, emit off and on, a chain
+# of calls of DESIGN_KS steps on one StencilRun
+DESIGN_SHAPES = ((33, 70), (130, 100), (256, 256))
+DESIGN_RADII = (1.0, 2.0, 3.0)
+DESIGN_KS = (1, 2, 7, 16, 17)
+TURN_SHAPES_STENCIL = (MAIN, (700, 700), (1024, 1024), BIG, (4096, 4096))
+# the tiled design's tiles (interior rows, interior columns, K_b) timed
+# against each other at 2048^2; `sk.TILES` routes the fastest
+TILE_TRIALS = ((48, 48, 4), (28, 28, 4), (56, 56, 2), (32, 32, 4),
+               (40, 40, 3), (24, 24, 4), (32, 32, 2), (16, 16, 2),
+               (16, 16, 1))
+# the TPU kernel each design replaces: the whole-lattice multistep kernel
+# (persistent), the row-tiled one (tiled), the per-step one (per step)
+REPLACES = {"persistent": "spiking_neural_networks_tpu/ops/"
+                          "pallas_stencil.py:251",
+            "tiled": "spiking_neural_networks_tpu/ops/pallas_stencil.py:482",
+            "per_step": "spiking_neural_networks_tpu/ops/"
+                        "pallas_stencil.py:94"}
 # Plasticity phases.  PCASES are ((rows, cols), K, kind, model,
 # with_reward, uniform params, emit).
 SMALL, PCMP_STEPS = (64, 64), 1000
@@ -579,10 +627,10 @@ def card():
     return out.strip().splitlines()[0].strip()
 
 
-def kernel_inputs(snt, rows, cols, seed, uniform):
+def kernel_inputs(snt, rows, cols, seed, uniform, radius=2.0):
     """Planes on the card for one kernel call, made from ``seed``."""
     rng = np.random.default_rng(seed)
-    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(2.0),
+    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(radius),
                                keep_prob=0.8, seed=seed + 1, device="cuda")
     params = {k: np.full((rows, cols), v, np.float32)
               for k, v in UNIFORM.items()}
@@ -771,11 +819,96 @@ def tie_check(label, hk, lk, hp, lp, n, reset=None, v_th=None):
 
 def stencil_phases(snt, smi):
     from spiking_neural_networks_tpu_torch.ops import stencil_kernels as sk
+    max_err, times = stencil_twin_phase(snt, sk, smi)
+    launches = stencil_main_phase(snt, sk)
+    stencil_cmp_phase(snt)
+    turns = stencil_times_phase(snt, sk, smi)
+    out = []
+    for design, shape, kernel, source in (
+            ("persistent", MAIN, "model_persistent_kernel<Izh, CPT>",
+             "model_stencil.cu"),
+            ("tiled", BIG, "izh_tiled_kernel<CPT>", "izhikevich_stencil.cu"),
+            ("per_step", BIG, "izh_stencil_step_kernel (per step)",
+             "izhikevich_stencil.cu")):
+        t = turns[shape][design]
+        out.append({
+            "name": f"izhikevich_stencil_steps: {kernel}", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/" + source,
+            "replaces": REPLACES[design], "launches": launches[design],
+            "max_abs_err": max_err,
+            "ms": t["events_us"] * sk.STEPS_PER_LAUNCH / 1e3,
+            "plain_ms": times[shape + (16,)][1] * sk.STEPS_PER_LAUNCH,
+            "device_ms": t["device_us"] * sk.STEPS_PER_LAUNCH / 1e3,
+            "bound_ms": times[shape + (16,)][2] * sk.STEPS_PER_LAUNCH,
+            "bound_by": times[shape + (16,)][3], "library_ms": None,
+            "library_call": "none: no PyTorch call computes a lattice "
+                            "step"})
+    return out
 
-    # 3. kernel vs plain twin on the card
+
+def bits_differ(a, b):
+    """Elements of ``a`` and ``b`` whose bits differ (floats by their
+    int32 view, so -0.0 differs from 0.0)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def stencil_design_chain(sk, inp, design, emit, ks=DESIGN_KS, tiles=None):
+    """A chain of calls of ``ks`` steps on one `StencilRun` of ``design``
+    against the twin on the state each call received.  Returns (max float
+    error, bits that differ, calls whose counted launches differ from
+    `call_launches`, neurons fired, the run)."""
+    run = sk.StencilRun(inp["v"], inp["w"], inp["lft"], inp["weights"],
+                        inp["in_deg"], inp["params"], inp["offsets"],
+                        design=design, tiles=tiles or sk.TILES)
+    check(run.design == design, f"forced {design}, got {run.design}")
+    v, w, lft = inp["v"], inp["w"], inp["lft"]
+    err, bad, miscount, fired, clock = 0.0, 0, 0, 0, 100
+    for k in ks:
+        before = sk.STEP_LAUNCHES
+        got = run.steps(clock, k, emit)
+        torch.cuda.synchronize()
+        miscount += sk.STEP_LAUNCHES - before != run.launches(k)
+        want = sk.izhikevich_stencil_steps_reference(
+            v, w, lft, inp["weights"], inp["in_deg"], inp["params"],
+            inp["offsets"], clock, k, emit)
+        for g, w_ in zip(got[:2] + ((got[4],) if emit else ()),
+                         want[:2] + ((want[4],) if emit else ())):
+            torch.testing.assert_close(g, w_, rtol=RTOL, atol=ATOL)
+            err = max(err, (g - w_).abs().max().item())
+        check(all(bool(torch.isfinite(x).all()) for x in got[:2]),
+              f"{design}: non-finite kernel output")
+        bad += sum(bits_differ(g, w_) for g, w_ in zip(
+            got[:4] + ((got[4],) if emit else ()),
+            want[:4] + ((want[4],) if emit else ())))
+        fired += int(got[3].sum())
+        v, w, lft = want[0], want[1], want[2]
+        clock += k
+    return err, bad, miscount, fired, run
+
+
+def stencil_twin_phase(snt, sk, smi):
+    """3. The routed design of each of `CASES` against the twin (and its
+    times at 512^2 and 2048^2); each design on `DESIGN_SHAPES` x
+    `DESIGN_RADII` x emit, chains of `DESIGN_KS`; the tiled design in
+    every tile of `TILE_TRIALS` and one of K_b = 3; the new
+    instantiations' registers.  Returns (max float error, {(rows, cols,
+    K): (kernel ms, twin ms, bound ms per step, bound_by)})."""
+    for name in ("izh_tiled_kernel", "model_persistent_kernelI3Izh",
+                 "izh_stencil_step_kernel"):
+        found = instantiation_lines(name)
+        if found:
+            say(f"[3 build] {name}: " + "; ".join(
+                f"{e.split(name)[-1].split('EEv')[0] or e} {rep}"
+                for e, rep in found))
     max_err, times = 0.0, {}
+    sms = sk.model_kernels.sm_count(torch.device("cuda"))
+    covered = set()
     for seed, ((rows, cols), k, emit, uniform) in enumerate(CASES):
         inp = kernel_inputs(snt, rows, cols, seed, uniform)
+        run = sk.StencilRun(inp["v"], inp["w"], inp["lft"], inp["weights"],
+                            inp["in_deg"], inp["params"], inp["offsets"])
         got = call(sk.izhikevich_stencil_steps, inp, 100, k, emit)
         torch.cuda.synchronize()
         want = call(sk.izhikevich_stencil_steps_reference, inp, 100, k, emit)
@@ -785,10 +918,12 @@ def stencil_phases(snt, smi):
         dpre = (got[4] - want[4]).abs().max().item() if emit else 0.0
         lft_bad = int((got[2] != want[2]).sum())
         spk_bad = int((got[3] != want[3]).sum())
+        nbits = sum(bits_differ(g, w_) for g, w_ in zip(got[:2], want[:2]))
         say(f"[3 kernel-vs-twin] {rows}x{cols} K={k} emit={emit} "
-            f"uniform={uniform}: max|dv| {dv:.3g} max|dw| {dw:.3g} "
-            f"max|dv_pre| {dpre:.3g} lft mismatches {lft_bad} "
-            f"spike mismatches {spk_bad} fired {int(got[3].sum())}")
+            f"uniform={uniform}, the {run.design} design: max|dv| {dv:.3g} "
+            f"max|dw| {dw:.3g} max|dv_pre| {dpre:.3g} lft mismatches "
+            f"{lft_bad} spike mismatches {spk_bad} float bits differing "
+            f"{nbits} fired {int(got[3].sum())}")
         check(lft_bad == 0 and spk_bad == 0, "lft or spikes differ")
         for g, w_ in zip(got[:2] + ((got[4],) if emit else ()),
                          want[:2] + ((want[4],) if emit else ())):
@@ -796,63 +931,209 @@ def stencil_phases(snt, smi):
         check(all(bool(torch.isfinite(x).all()) for x in got[:2]),
               "non-finite kernel output")
         max_err = max(max_err, dv, dw, dpre)
-        if (rows, cols) in (MAIN, BIG):
-            # per step: kernel and twin ms, and the bound of the call
+        covered.add((run.design, (rows, cols)))
+        if (rows, cols) in (MAIN, BIG) and uniform and not emit:
+            # per step: the routed design's and the twin's ms, and the
+            # bound of the call
             bnd = bound(tensor_bytes(inp, got),
                         stencil_ops(inp["offsets"], rows, cols, k))
             times[rows, cols, k] = (
-                event_ms(lambda: call(sk.izhikevich_stencil_steps, inp, 100,
-                                      k, False), 20) / k,
+                event_ms(lambda: run.steps(100, k), 20) / k,
                 event_ms(lambda: call(sk.izhikevich_stencil_steps_reference,
                                       inp, 100, k, False), 3) / k,
                 bnd[0] / k, bnd[1])
-            say(f"[3 kernel-vs-twin] {rows}x{cols} K={k} per step: kernel "
-                f"{times[rows, cols, k][0] * 1e3:.3f} us, plain twin "
+            say(f"[3 kernel-vs-twin] {rows}x{cols} K={k} per step: "
+                f"{run.design} design {times[rows, cols, k][0] * 1e3:.3f} "
+                f"us (events, calls of one StencilRun), plain twin "
                 f"{times[rows, cols, k][1] * 1e3:.3f} us, bound "
                 f"{times[rows, cols, k][2] * 1e3:.3f} us ({bnd[1]}); card "
                 f"{smi}")
-        del inp, got, want
+        del inp, got, want, run
+    check(MAIN_DESIGNS <= covered, f"no case held "
+          f"{sorted(MAIN_DESIGNS - covered)} against the twin")
+    # each design on small shapes, radii 1-3, chains of calls
+    for design in ("persistent", "tiled", "per_step"):
+        for shape in DESIGN_SHAPES:
+            err, bad, miscount, fired, n = 0.0, 0, 0, 0, 0
+            for r, radius in enumerate(DESIGN_RADII):
+                for emit in (False, True):
+                    inp = kernel_inputs(snt, *shape, 40 + 2 * r + emit,
+                                        design == "tiled", radius)
+                    e, b, m, f, run = stencil_design_chain(sk, inp, design,
+                                                           emit)
+                    err, bad, miscount = max(err, e), bad + b, miscount + m
+                    fired, n = fired + f, n + 1
+            plan = run.plan
+            say(f"[3 designs] {design} {shape[0]}x{shape[1]}: radius 1, 2, "
+                f"3 x emit off, on ({n} runs), calls of K = "
+                f"{', '.join(map(str, DESIGN_KS))} chained: bits differing "
+                f"{bad}, max float error {err:.3g}, calls whose counted "
+                f"launches differ from call_launches {miscount}, spikes "
+                f"{fired}; plan at radius 3: {plan}")
+            check(bad == 0 and miscount == 0,
+                  f"{design} {shape}: bits or launch counts differ")
+            max_err = max(max_err, err)
+    tiles = TILE_TRIALS + ((24, 40, 3),)
+    inp = kernel_inputs(snt, 130, 100, 50, True)
+    for tile in tiles:
+        e, b, m, f, run = stencil_design_chain(sk, inp, "tiled", True,
+                                               tiles=(tile,))
+        say(f"[3 tiles] tiled 130x100 radius 2, emit, tile {tile}: "
+            f"{run.plan}; bits differing {b}, max float error {e:.3g}, "
+            f"launch miscounts {m}")
+        check(b == 0 and m == 0, f"tile {tile}: bits or launches differ")
+        check(run.plan.th == tile[0] and run.plan.kb == tile[2],
+              f"tile {tile} was not taken")
+        max_err = max(max_err, e)
+    say(f"[3 plan] {sms} SMs, radius 2: 512^2 "
+        f"{sk.persistent_plan(MAIN, 12, sms)}; 700^2 "
+        f"{sk.persistent_plan((700, 700), 12, sms)}; 1024^2 "
+        f"{sk.persistent_plan((1024, 1024), 12, sms)}; tile "
+        f"{sk.tile_plan(snt.radius_offsets(2.0))}")
+    return max_err, times
 
-    # 4. the main path
-    lat = main_lattice(snt, *MAIN)
+
+def hetero_lattice(snt, rows, cols):
+    """The main lattice with per-neuron a, d and v_th (drawn from
+    ``default_rng(3)``, written with `apply` after `populate`): the
+    parameter planes are not uniform."""
+    lat = main_lattice(snt, rows, cols)
+    rng = np.random.default_rng(3)
+    n = rows * cols
+    draw = {"a": rng.uniform(0.01, 0.03, n), "d": rng.uniform(6, 10, n),
+            "v_th": rng.uniform(25, 35, n)}
+    lat.apply(lambda s: {**s, **{k: torch.as_tensor(
+        x, dtype=torch.float32, device=lat.device) for k, x in draw.items()}})
+    return lat
+
+
+def reset_stencil_counts(sk):
     sk.LAUNCHES = 0
+    sk.STEP_LAUNCHES = 0
+    for k in sk.DESIGN_CALLS:
+        sk.DESIGN_CALLS[k] = 0
+
+
+def stencil_main_phase(snt, sk):
+    """4. The main paths through `run_lattice`, each with the counts set
+    to 0 just before and read just after.  Returns the kernel launches
+    the C entries counted on them, by design."""
+    launches = {"persistent": 0, "tiled": 0, "per_step": 0}
+    lat = main_lattice(snt, *MAIN)
+    reset_stencil_counts(sk)
     lat.run_lattice(MAIN_STEPS)
     torch.cuda.synchronize()
-    launches = sk.LAUNCHES
+    calls, steps = sk.LAUNCHES, sk.STEP_LAUNCHES
+    designs = dict(sk.DESIGN_CALLS)
+    launches["persistent"] += steps
     v = lat.state["v"]
     fired = int((lat.state["last_firing_time"] >= 0).sum())
     say(f"[4 main path] {MAIN[0]}x{MAIN[1]} run_lattice({MAIN_STEPS}): route "
-        f"{lat._last_run_fused}, kernel calls {launches}, v finite "
+        f"{lat._last_run_fused}, calls by design {designs}, kernel calls "
+        f"{calls}, kernel launches counted by the C entry {steps}, v finite "
         f"{bool(torch.isfinite(v).all())}, v range [{v.min().item():.3f}, "
         f"{v.max().item():.3f}], fired {fired} of {lat.n}")
     check(lat._last_run_fused == ("kernel", False), "main path missed the kernel")
     want_calls = math.ceil(MAIN_STEPS / sk.STEPS_PER_LAUNCH)
-    check(launches == want_calls, f"expected {want_calls} kernel calls")
+    check(calls == want_calls and steps == want_calls
+          and designs["persistent"] == want_calls,
+          f"expected {want_calls} calls of one persistent launch each")
     check(bool(torch.isfinite(v).all()) and fired > 0, "bad main-path state")
+    # the profiler's records of the C entry's launches
+    reset_stencil_counts(sk)
+    recs = kernel_records(lambda: lat.run_lattice(RECORD_STEPS),
+                          RECORD_STEPS // sk.STEPS_PER_LAUNCH,
+                          mine=("model_persistent_kernel", "izh_"))
+    counted = sk.STEP_LAUNCHES // 2          # a warm-up and a kept run
+    say(f"[4 main path] {MAIN[0]}x{MAIN[1]} run_lattice({RECORD_STEPS}) "
+        f"under the profiler: {records_line(recs)}; counted by the C entry "
+        f"{counted} a run")
+    check(sum(recs.values()) == counted
+          == RECORD_STEPS // sk.STEPS_PER_LAUNCH,
+          "the profiler's records differ from the C entry's count")
     lat.update_grid_history = True
+    reset_stencil_counts(sk)
     lat.run_lattice(HIST_STEPS)
+    torch.cuda.synchronize()
+    launches["persistent"] += sk.STEP_LAUNCHES
     hist = np.stack(lat.grid_history.history)
     say(f"[4 main path] grid history {HIST_STEPS} steps: shape {hist.shape}, "
-        f"route {lat._last_run_fused}, finite {bool(np.isfinite(hist).all())}")
+        f"route {lat._last_run_fused}, calls by design "
+        f"{dict(sk.DESIGN_CALLS)}, finite {bool(np.isfinite(hist).all())}")
     check(hist.shape == (HIST_STEPS, *MAIN) and np.isfinite(hist).all(),
           "bad grid history")
-    check(lat._last_run_fused == ("kernel", True), "history run missed the kernel")
-    big = main_lattice(snt, *BIG)
-    big.run_lattice(BIG_STEPS)
+    check(lat._last_run_fused == ("kernel", True)
+          and sk.DESIGN_CALLS["persistent"] == HIST_STEPS // 16,
+          "history run missed the persistent design")
+    del lat
+    for shape in TILED_MAINS:
+        big = main_lattice(snt, *shape)
+        reset_stencil_counts(sk)
+        big.run_lattice(BIG_STEPS)
+        torch.cuda.synchronize()
+        calls, steps = sk.LAUNCHES, sk.STEP_LAUNCHES
+        designs = dict(sk.DESIGN_CALLS)
+        launches["tiled"] += steps
+        plan = sk.tile_plan(big.graph.offsets)
+        bv = big.state["v"]
+        bfired = int((big.state["last_firing_time"] >= 0).sum())
+        say(f"[4 main path] {shape[0]}x{shape[1]} run_lattice({BIG_STEPS}): "
+            f"route {big._last_run_fused}, calls by design {designs}, "
+            f"kernel launches counted by the C entry {steps} "
+            f"({steps / max(calls, 1):.2f} a call; tile {plan}), v finite "
+            f"{bool(torch.isfinite(bv).all())}, v range "
+            f"[{bv.min().item():.3f}, {bv.max().item():.3f}], fired "
+            f"{bfired} of {big.n}")
+        n_calls = math.ceil(BIG_STEPS / sk.STEPS_PER_LAUNCH)
+        check(big._last_run_fused == ("kernel", False)
+              and designs["tiled"] == calls == n_calls
+              and steps == n_calls * sk.call_launches(16, "tiled", plan)
+              and bool(torch.isfinite(bv).all()) and bfired > 0,
+              f"bad {shape} run of the tiled design")
+        del big
+    het = hetero_lattice(snt, *BIG)
+    st0, clock = dict(het.state), het.internal_clock
+    reset_stencil_counts(sk)
+    het.run_lattice(HETERO_STEPS)
     torch.cuda.synchronize()
-    bv = big.state["v"]
-    bfired = int((big.state["last_firing_time"] >= 0).sum())
-    say(f"[4 main path] {BIG[0]}x{BIG[1]} run_lattice({BIG_STEPS}): route "
-        f"{big._last_run_fused}, v finite {bool(torch.isfinite(bv).all())}, "
-        f"fired {bfired} of {big.n}")
-    check(big._last_run_fused == ("kernel", False)
-          and bool(torch.isfinite(bv).all()) and bfired > 0,
-          "bad large-lattice run")
-    del lat, big
+    launches["per_step"] += sk.STEP_LAUNCHES
+    calls, steps = sk.LAUNCHES, sk.STEP_LAUNCHES
+    designs = dict(sk.DESIGN_CALLS)
+    # the twin from the same state, in the runner's calls of 16 steps
+    plane = lambda k: st0[k].reshape(BIG)
+    params = {k: plane(k) for k in sk.PARAM_ORDER}
+    v, w, lft = plane("v"), plane("w"), plane("last_firing_time")
+    g = het.graph
+    for _ in range(HETERO_STEPS // sk.STEPS_PER_LAUNCH):
+        v, w, lft, spk, _ = sk.izhikevich_stencil_steps_reference(
+            v, w, lft, g.weights, g.in_deg, params, g.offsets, clock,
+            sk.STEPS_PER_LAUNCH)
+        clock += sk.STEPS_PER_LAUNCH
+    got = [het.state[k].reshape(BIG)
+           for k in ("v", "w", "last_firing_time", "is_spiking")]
+    nbits = sum(bits_differ(a, b) for a, b in zip(got, (v, w, lft, spk)))
+    hv = het.state["v"]
+    hfired = int((het.state["last_firing_time"] >= 0).sum())
+    say(f"[4 main path] {BIG[0]}x{BIG[1]} with per-neuron a, d, v_th, "
+        f"run_lattice({HETERO_STEPS}): route {het._last_run_fused}, calls by "
+        f"design {designs}, kernel launches counted by the C entry {steps}, "
+        f"v finite {bool(torch.isfinite(hv).all())}, fired {hfired} of "
+        f"{het.n}; against the twin from the same state: bits differing in "
+        f"v, w, lft, spikes {nbits}")
+    check(het._last_run_fused == ("kernel", False)
+          and designs["per_step"] == calls == HETERO_STEPS // 16
+          and steps == HETERO_STEPS
+          and bool(torch.isfinite(hv).all()) and hfired > 0,
+          "bad run of the per-step design")
+    check(nbits == 0, "the per-neuron main path differs from the twin")
+    del het, st0, params, v, w, lft, spk, got
+    return launches
 
-    # 5. the kernel route on the card against (a) the same fused route on
-    # the CPU, under the reference's CPU-vs-GPU criterion, and (b) the plain
-    # route on the card, whose gather sums in another association
+
+def stencil_cmp_phase(snt):
+    """5. The kernel route on the card against (a) the same fused route on
+    the CPU, under the reference's CPU-vs-GPU criterion, and (b) the plain
+    route on the card, whose gather sums in another association."""
     runs = {}
     for key, device, use_kernel in (("kernel", "cuda", None),
                                     ("cpu", "cpu", True),
@@ -878,14 +1159,52 @@ def stencil_phases(snt, smi):
               f"fused vs plain association on the card", hk, lk, hp, lp,
               CMP[0] * CMP[1])
 
-    # 6. times: wall clock to a synchronise, median of 5 after a warm-up;
-    # the kernel's event time per step from phase 3 over the wall time per
-    # step is the share of the run the card spent in the kernel
+
+def stencil_bytes(sk, design, plan, shape, n_off, k):
+    """Bytes one K-step call of ``design`` moves by its design's own
+    traffic model (not the bound): per step, the per-step design reads 25
+    planes at radius 2 and writes 3; the persistent one reads its inputs
+    once and sends v through a scratch plane each step (written, and read
+    by the neighbours); the tiled one reads each launch's loaded tiles (v
+    everywhere, w, in_deg and the weights where a cell is computed, lft in
+    the interior) and writes the interiors."""
+    rows, cols = shape
+    n = rows * cols
+    if design == "per_step":
+        return k * n * 4 * (n_off + len(sk.PARAM_ORDER) + 1 + 3 + 3) + n
+    if design == "persistent":
+        return (n * 4 * (n_off + len(sk.PARAM_ORDER) + 1 + 3)
+                + 2 * (k - 1) * n * 4 + n * 4 * 3 + n)
+
+    def span(length, tile, grow):
+        # cells of each tile's range grown by `grow` on both sides,
+        # clipped to [0, length), summed over the tiles
+        return sum(min(length, t + tile + grow) - max(0, t - grow)
+                   for t in range(0, length, tile))
+
+    pad = plan.halo // plan.kb if plan.kb else 0
+    loaded = span(rows, plan.th, plan.halo) * span(cols, plan.tw, plan.halo)
+    computed = (span(rows, plan.th, plan.halo - pad)
+                * span(cols, plan.tw, plan.halo - pad))
+    launches = -(-k // plan.kb)
+    return launches * (loaded * 4 + computed * 4 * (n_off + 2)
+                       + n * 4 * (1 + 3)) + n
+
+
+def stencil_times_phase(snt, sk, smi):
+    """6. Wall time per step of the main paths (median of 5 after a
+    warm-up; the plain route at 512^2); the designs in turns on one
+    `StencilRun` each at `TURN_SHAPES_STENCIL` (uniform parameters, radius
+    2: wall, events, device time under torch.profiler with every kernel
+    record counted, the launches the C entry counted, modelled bytes);
+    the persistent design with and without emission at 512^2; every tile
+    of `TILE_TRIALS` at 2048^2.  Returns {shape: {design: times}}."""
     def warm(shape, use_kernel, steps):
         lat = main_lattice(snt, *shape, use_kernel=use_kernel)
         run_synced(lat, steps)
         return lat
 
+    K = sk.STEPS_PER_LAUNCH
     kern, plain = warm(MAIN, None, MAIN_STEPS), warm(MAIN, False, MAIN_STEPS)
     tk, tp = [], []
     for rep in range(5):                             # in turns
@@ -895,28 +1214,94 @@ def stencil_phases(snt, smi):
             out.append(run_synced(lat, MAIN_STEPS))
     check(kern._last_run_fused == ("kernel", False)
           and plain._last_run_fused is False, "timed the wrong routes")
-    mk, mp = float(np.median(tk)), float(np.median(tp))
-    busy = times[MAIN + (16,)][0] * MAIN_STEPS / (mk * 1e3)
+    walls = {MAIN: float(np.median(tk)) / MAIN_STEPS * 1e6}
     say(f"[6 times] {MAIN[0]}x{MAIN[1]} {MAIN_STEPS} steps, median of 5: "
-        f"kernel route {rate(MAIN, mk, MAIN_STEPS)}; kernel time / wall "
-        f"{busy:.3f}; plain route {rate(MAIN, mp, MAIN_STEPS)}; card {smi}")
+        f"kernel route {rate(MAIN, float(np.median(tk)), MAIN_STEPS)}; "
+        f"plain route {rate(MAIN, float(np.median(tp)), MAIN_STEPS)}; card "
+        f"{smi}")
     del kern, plain
-    big = warm(BIG, None, BIG_STEPS)
-    mb = float(np.median([run_synced(big, BIG_STEPS) for _ in range(5)]))
-    busy = times[BIG + (8,)][0] * BIG_STEPS / (mb * 1e3)
-    say(f"[6 times] {BIG[0]}x{BIG[1]} {BIG_STEPS} steps, median of 5: "
-        f"kernel route {rate(BIG, mb, BIG_STEPS)}; kernel time / wall "
-        f"{busy:.3f}; card {smi}")
-    del big
-    return {"name": "izhikevich_stencil_steps", "route": "cuda",
-            "source": "spiking_neural_networks_tpu_torch/csrc/"
-                      "izhikevich_stencil.cu",
-            "replaces": REPLACES[0], "also_replaces": list(REPLACES[1:]),
-            "launches": launches, "max_abs_err": max_err,
-            "ms": times[MAIN + (16,)][0] * sk.STEPS_PER_LAUNCH,
-            "plain_ms": times[MAIN + (16,)][1] * sk.STEPS_PER_LAUNCH,
-            "bound_ms": times[MAIN + (16,)][2] * sk.STEPS_PER_LAUNCH,
-            "bound_by": times[MAIN + (16,)][3], "library_ms": None}
+    for shape in TILED_MAINS:
+        big = warm(shape, None, BIG_STEPS)
+        mb = float(np.median([run_synced(big, BIG_STEPS) for _ in range(5)]))
+        walls[shape] = mb / BIG_STEPS * 1e6
+        say(f"[6 times] {shape[0]}x{shape[1]} {BIG_STEPS} steps, median of "
+            f"5: kernel route {rate(shape, mb, BIG_STEPS)}; card {smi}")
+        del big
+    out = {}
+    sms = sk.model_kernels.sm_count(torch.device("cuda"))
+    for shape in TURN_SHAPES_STENCIL:
+        inp = kernel_inputs(snt, *shape, 60, True)
+        runs = {}
+        for design in ("persistent", "tiled", "per_step"):
+            try:
+                runs[design] = sk.StencilRun(
+                    inp["v"], inp["w"], inp["lft"], inp["weights"],
+                    inp["in_deg"], inp["params"], inp["offsets"],
+                    design=design)
+            except ValueError:
+                pass        # the persistent plan cannot hold the weights
+        routed = sk.route(shape, inp["offsets"], sms,
+                          lambda: sk.uniform_scalars(inp["params"]))[0]
+        counted = {}
+        for d, run in runs.items():
+            before = sk.STEP_LAUNCHES
+            run.steps(0, K)
+            counted[d] = sk.STEP_LAUNCHES - before
+            check(counted[d] == run.launches(K),
+                  f"{d}: the C entry counted {counted[d]} launches")
+        res = designs_in_turns({d: (lambda r=r: r.steps(0, K))
+                                for d, r in runs.items()},
+                               {d: r.launches(K) for d, r in runs.items()},
+                               K)
+        out[shape] = {}
+        for d, (wall, ev, dev, n, top) in res.items():
+            nb = stencil_bytes(sk, d, runs[d].plan, shape,
+                               len(inp["offsets"]), K)
+            out[shape][d] = dict(events_us=ev, device_us=dev, wall_us=wall,
+                                 bytes=nb)
+        say(f"[6 designs] {shape[0]}x{shape[1]}, radius 2, in turns (the "
+            f"route takes {routed}; kernel records counted in the profile "
+            f"= the C entry's {counted}): {design_line(res)}; modelled "
+            + ", ".join(f"{d} {o['bytes'] / K / 1e6:.2f} MB/step ("
+                        f"{o['bytes'] / K / o['device_us'] / 1e6:.3f} TB/s "
+                        f"at the device time)"
+                        for d, o in out[shape].items())
+            + f"; card {smi}")
+        fastest = min(out[shape], key=lambda d: out[shape][d]["device_us"])
+        say(f"[6 designs] {shape[0]}x{shape[1]}: fastest by device time "
+            f"{fastest}, routed {routed}"
+            + (f", main-path wall {walls[shape]:.3f} us/step, device / "
+               f"wall {out[shape][routed]['device_us'] / walls[shape]:.3f}"
+               if shape in walls else ""))
+        del inp, runs
+    # emission on the persistent design
+    inp = kernel_inputs(snt, *MAIN, 61, True)
+    run = sk.StencilRun(inp["v"], inp["w"], inp["lft"], inp["weights"],
+                        inp["in_deg"], inp["params"], inp["offsets"])
+    res = designs_in_turns({"no emit": lambda: run.steps(0, K),
+                            "emit": lambda: run.steps(0, K, True)},
+                           {"no emit": 1, "emit": 1}, K)
+    say(f"[6 designs] {MAIN[0]}x{MAIN[1]} {run.design} design, emission "
+        f"off and on, in turns: {design_line(res)}; card {smi}")
+    del inp, run
+    # the tiles at 2048^2
+    mb = lambda plan: stencil_bytes(sk, "tiled", plan, BIG, 12, K) / K / 1e6
+    inp = kernel_inputs(snt, *BIG, 62, True)
+    runs = {t: sk.StencilRun(inp["v"], inp["w"], inp["lft"], inp["weights"],
+                             inp["in_deg"], inp["params"], inp["offsets"],
+                             design="tiled", tiles=(t,))
+            for t in TILE_TRIALS}
+    res = designs_in_turns({str(t): (lambda r=r: r.steps(0, K))
+                            for t, r in runs.items()},
+                           {str(t): r.launches(K) for t, r in runs.items()},
+                           K, reps=5)
+    say(f"[6 tiles] {BIG[0]}x{BIG[1]} tiled design, each tile of TILE_TRIALS "
+        f"(rows, cols, K_b) in turns: {design_line(res)}; modelled "
+        + ", ".join(f"{t} {mb(r.plan):.1f} MB/step"
+                    for t, r in runs.items())
+        + f"; card {smi}")
+    del inp, runs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1059,16 +1444,16 @@ def records_line(recs):
 
 
 def designs_in_turns(calls, launches, k, reps=10, count=True):
-    """Two designs of one K-step call, ``calls`` = {name: fn}, in turns
-    (a, b, b, a): per design (wall us per step of back-to-back calls to a
-    synchronise, CUDA-event us per step, profiled device us per step,
-    kernel launches per call, the largest kernels); with ``count``, the
+    """Designs of one K-step call, ``calls`` = {name: fn}, in turns (a, b,
+    b, a; a, b, c, c, b, a): per design (wall us per step of back-to-back
+    calls to a synchronise, CUDA-event us per step, profiled device us per
+    step, kernel launches per call, the largest kernels); with ``count``, the
     profile of ``reps`` calls must hold ``reps * launches[name]`` kernel
     records."""
-    a, b = calls
+    keys = list(calls)
     walls = {key: [] for key in calls}
     events = {key: [] for key in calls}
-    for key in (a, b, b, a):
+    for key in keys + keys[::-1]:
         fn = calls[key]
         fn()
         torch.cuda.synchronize()
@@ -5192,13 +5577,16 @@ def model_twin_phase(snt, mk):
         check(len(kernels) == len(MODELS) and all(sp == "0" for _, _, sp, _
                                                   in kernels),
               "a model kernel is missing from ptxas's report or spills")
-        found = instantiation_lines("model_persistent_kernel")
+        # the stencil kernel's kind (I3Izh) is listed in phase 3
+        found = [(e, rep) for e, rep in
+                 instantiation_lines("model_persistent_kernel")
+                 if "I3Izh" not in e]
         say("[33 build] model_persistent_kernel<M, cells a thread>: "
             + "; ".join(f"{e[28:].split('EEv')[0]} {rep}"
                         for e, rep in found))
         check(len(found) == 3 * len(MODELS) - 2,
               "a persistent instantiation is missing from ptxas's report")
-    sms = mk._sm_count(torch.device("cuda"))
+    sms = mk.sm_count(torch.device("cuda"))
     for name in MODELS:
         model = model_of(snt, name)
         plan = mk.persistent_plan(model, MMAIN, 12, sms)
@@ -5265,7 +5653,7 @@ def model_main_phase(snt, mk):
         (n, MIF_STEPS, MMAIN) for n in MODELS
         if n not in ("MorrisLecar", "BCMIzhikevich-chemical")] + [
         ("MorrisLecar", MBIG_STEPS, MBIG)]
-    sms = mk._sm_count(torch.device("cuda"))
+    sms = mk.sm_count(torch.device("cuda"))
     for name, steps, size in runs:
         lat = model_lattice(snt, name, *size)
         shape = (lat.rows, lat.cols)
@@ -5461,7 +5849,7 @@ def model_times_phase(snt, mk, smi):
     alone (the plan cannot hold the weights).  Returns them by (model,
     shape), per 16-step call."""
     K = mk.STEPS_PER_LAUNCH
-    sms = mk._sm_count(torch.device("cuda"))
+    sms = mk.sm_count(torch.device("cuda"))
     out = {}
     for name in MTIME_MODELS:
         for shape, steps, plain_steps in MTIMES:
@@ -5568,7 +5956,9 @@ def main():
     t0 = time.perf_counter()
     lib = _build.load()
     load_s = time.perf_counter() - t0
-    check(lib.izh_stencil_max_offsets() == sk.MAX_OFFSETS
+    izh = (ctypes.c_int * 3)()
+    lib.izh_stencil_limits(izh)
+    check(list(izh) == [sk.MAX_OFFSETS, sk.TILE_THREADS, sk.TILE_MAX_CPT]
           and lib.lp_max_offsets() == rk.MAX_OFFSETS
           and lib.hh_max_offsets() == hk.MAX_OFFSETS
           and lib.model_stencil_max_offsets() == mk.MAX_OFFSETS,

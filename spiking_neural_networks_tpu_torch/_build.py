@@ -107,8 +107,8 @@ def load():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pv, pi, pf = (ctypes.POINTER(vp), ctypes.POINTER(ci),
                   ctypes.POINTER(ctypes.c_float))
-    for name in ("izh_stencil_max_offsets", "lp_max_offsets",
-                 "hh_max_offsets", "model_stencil_max_offsets"):
+    for name in ("lp_max_offsets", "hh_max_offsets",
+                 "model_stencil_max_offsets"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
     lib.izh_stencil_steps.argtypes = [
@@ -119,9 +119,23 @@ def load():
         vp, vp,                             # spikes, v_pre (nullable)
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        vp,                                 # stream
+        pi, vp,                             # launched, stream
     ]
     lib.izh_stencil_steps.restype = ci
+    lib.izh_stencil_limits.argtypes = [pi]
+    lib.izh_stencil_limits.restype = None
+    lib.izh_stencil_tiled.argtypes = [
+        vp, vp, vp,                         # v, w, lft
+        vp, vp, pf,                         # weights, in_deg, scalars[9]
+        vp, vp, vp,                         # buffer set 0
+        vp, vp, vp,                         # buffer set 1
+        vp, vp,                             # spikes, v_pre (nullable)
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        ci, ci, ci, ci, ci,                 # th, tw, kb, threads, cpt
+        pi, vp,                             # launched, stream
+    ]
+    lib.izh_stencil_tiled.restype = ci
     lib.lattice_plasticity_steps.argtypes = [
         ci, ci, ci,                         # model, kind, with_reward
         pv, pv,                             # state_in[4], state_buf[8]
@@ -182,6 +196,7 @@ def load():
         pv, pv,                             # buffer sets 0 and 1
         vp, vp, vp,                         # lft, lft buffers 0 and 1
         vp, vp,                             # v scratch planes 0 and 1
+        vp,                                 # v_pre (nullable; MS_IZH)
         vp, vp,                             # weights, in_deg
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps

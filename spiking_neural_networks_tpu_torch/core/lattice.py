@@ -9,9 +9,9 @@ over one of five routes:
   graph, with or without STDP): calls of `ops.hh_kernels.hh_steps`, each
   advancing K = 16 steps;
 * the stencil kernel route (electrical Izhikevich, no plasticity): calls
-  of `ops.stencil_kernels.izhikevich_stencil_steps`, each advancing
-  K = 16 steps (one hand-written CUDA kernel on a GPU, its plain twin on
-  the CPU);
+  of one `ops.stencil_kernels.StencilRun` per chunk, each advancing
+  K = 16 steps (the CUDA design its route takes on a GPU, the plain twin
+  on the CPU);
 * the model kernel route (any other model of `ops.model_kernels`' table:
   the integrate-and-fire family, `DopaIzhikevich`, `MorrisLecar`;
   electrical, no plasticity, no history): calls of one
@@ -310,22 +310,24 @@ class Lattice:
     def _run_kernel(self, length, readouts):
         """K steps per kernel call; with histories on, each call emits its
         steps' pre-reset v, from which post-reset v and spikes are rebuilt
-        with the kernel's own ops (spike = v_pre >= v_th, v = c on spike)."""
+        with the kernel's own ops (spike = v_pre >= v_th, v = c on spike).
+        One `stencil_kernels.StencilRun` makes the checks, the uniform
+        check, the route and the buffers once for the chunk's calls."""
         shape = (self.rows, self.cols)
         st = self.state
         params = {k: st[k].reshape(shape)
                   for k in stencil_kernels.PARAM_ORDER}
-        v = st["v"].reshape(shape)
-        w = st["w"].reshape(shape)
-        lft = st["last_firing_time"].reshape(shape)
         g = self.graph
+        run = stencil_kernels.StencilRun(
+            st["v"].reshape(shape), st["w"].reshape(shape),
+            st["last_firing_time"].reshape(shape), g.weights, g.in_deg,
+            params, g.offsets)
         parts = {name: [] for name, _ in readouts}
-        clock, done, spikes = self.internal_clock, 0, None
+        clock, done = self.internal_clock, 0
         while done < length:
             n = min(stencil_kernels.STEPS_PER_LAUNCH, length - done)
-            v, w, lft, spikes, v_pre = stencil_kernels.izhikevich_stencil_steps(
-                v, w, lft, g.weights, g.in_deg, params, g.offsets, clock, n,
-                emit=bool(readouts))
+            v, w, lft, spikes, v_pre = run.steps(clock, n,
+                                                 emit=bool(readouts))
             if readouts:
                 for name, y in rebuilt_readouts(
                         v_pre, params["v_th"], params["c"], readouts,

@@ -31,7 +31,7 @@
 //
 // Two designs, routed by ops/model_kernels.uses_persistent:
 //
-// The persistent design (model_persistent_kernel<M, CPT>; where
+// The persistent design (model_persistent_kernel<M, CPT, EMIT>; where
 // ops/model_kernels.persistent_plan holds a block's weights in shared
 // memory): one cooperative launch per MS_CHUNK steps, MS_THREADS threads a
 // block, one block an SM at most.  Block b owns the row-major cells
@@ -49,6 +49,16 @@
 // reads of the weights and parameters, the arithmetic and the barrier
 // (~1.1 us on an H100).
 //
+// The persistent design also carries the plain Izhikevich of the stencil
+// kernel (kind MS_IZH, functor Izh over the field order v, w, the 9
+// parameter planes of ops/stencil_kernels.PARAM_ORDER, is_spiking; not in
+// the model table, so the model gate is unchanged): the stencil kernel's
+// persistent design (ops/stencil_kernels.StencilRun, where its
+// persistent_plan holds the weights: the 512 x 512 main path), which
+// replaces fused_izhikevich_multistep.  Its instantiations with EMIT write
+// each step's pre-reset v (izhikevich_step's pre() hook, a no-op in every
+// other instantiation) at k * rows * cols for the grid histories.
+//
 // The per-step design (model_stencil_kernel<M>; where the plan cannot hold
 // the weights, as at 2048 x 2048): one thread per cell, 2-D blocks of
 // 32 x 8, one launch per step, the carried fields through two global
@@ -63,6 +73,7 @@
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "plasticity_common.cuh"   // kernel_exp
 
@@ -80,6 +91,9 @@ namespace cg = cooperative_groups;
 enum {
     MS_LIF = 0, MS_QIF, MS_ALIF, MS_ADEX, MS_DOPA,
     MS_LEAKY_IZH, MS_BCM, MS_BCM_CHEM, MS_SIMPLE_LIF, MS_MORRIS_LECAR,
+    // the plain Izhikevich of the stencil kernel's persistent design
+    // (ops/stencil_kernels.py, IZH_KIND); not in the model table
+    MS_IZH,
     MS_KINDS
 };
 // field codes of model_stencil_layout: the type, + CARRIED where the step
@@ -141,6 +155,8 @@ struct Cell {
         ((unsigned char*)out.p[k])[i] = x ? 1 : 0;
     }
     __device__ void set_n(int k, int x) const { ((int*)out.p[k])[i] = x; }
+    // the pre-reset v of izhikevich_step: not kept by this design
+    __device__ void pre(float) const {}
 };
 
 // ---------------------------------------------------------------------------
@@ -265,6 +281,7 @@ __device__ __forceinline__ bool izhikevich_step(const Cell& c, float i_syn)
         * (c.f(L::dt) / c.f(L::tau_m));
     const float v1 = v + dv;
     const float w1 = w + dw;
+    c.pre(v1);
     const bool spike = v1 >= c.f(L::v_th);
     c.set(L::v, spike ? c.f(L::c) : v1);
     c.set(L::w, spike ? w1 + c.f(L::d) : w1);
@@ -280,6 +297,23 @@ struct Dopa {
     __device__ static bool step(const Cell& cl, float i_syn)
     {
         return izhikevich_step<Dopa, false>(cl, i_syn);
+    }
+};
+
+// The plain Izhikevich of the stencil kernel's persistent design, over its
+// own field order (v, w, the 9 planes of stencil_kernels.PARAM_ORDER,
+// is_spiking): izhikevich_step is the arithmetic of izhikevich_stencil.cu
+// op for op, so this design, the tiled one and the per-step one give the
+// same bits.
+struct Izh {
+    enum { v, w, a, b, c, d, v_th, gap, tau_m, c_m, dt, is_spiking,
+           n_fields };
+    static constexpr int codes[n_fields] = {
+        ST, ST, IN, IN, IN, IN, IN, IN, IN, IN, IN, SPK};
+    template <class Cell>
+    __device__ static bool step(const Cell& cl, float i_syn)
+    {
+        return izhikevich_step<Izh, false>(cl, i_syn);
     }
 };
 
@@ -504,6 +538,7 @@ struct MsP {
     const int* lft_in;
     int* lft_out;
     float* vbuf[2];
+    float* v_pre;       // step k's pre-reset v at k * rows * cols (EMIT)
     const float* weights;
     const float* in_deg;
     int slot[MS_MAX_FIELDS];
@@ -516,8 +551,9 @@ struct MsP {
 // and writes from the thread's registers (fc, bc, ic: the step's start;
 // fn, bn, in_: what it writes), the IN fields from the block's shared
 // planes or global memory.  A functor's field indices are constants, so
-// the register arrays resolve at compile time.
-template <class M>
+// the register arrays resolve at compile time.  With EMIT, pre() keeps the
+// step's pre-reset v in *vp (izhikevich_step's hook; a no-op otherwise).
+template <class M, bool EMIT = false>
 struct RegCell {
     const MsP& P;
     const float* sp;      // the shared IN planes
@@ -529,6 +565,7 @@ struct RegCell {
     bool* bn;
     const int* ic;
     int* in_;
+    float* vp;
     __device__ bool reg(int k) const { return (MsMasks<M>::reg >> k) & 1u; }
     __device__ float f(int k) const
     {
@@ -548,9 +585,13 @@ struct RegCell {
     __device__ void set(int k, float x) const { fn[k] = x; }
     __device__ void set_b(int k, bool x) const { bn[k] = x; }
     __device__ void set_n(int k, int x) const { in_[k] = x; }
+    __device__ void pre(float x) const
+    {
+        if constexpr (EMIT) *vp = x;
+    }
 };
 
-template <class M, int CPT>
+template <class M, int CPT, bool EMIT = false>
 __global__ void __launch_bounds__(MS_THREADS, 1)
 model_persistent_kernel(const __grid_constant__ MsP P)
 {
@@ -634,12 +675,14 @@ model_persistent_kernel(const __grid_constant__ MsP P)
             float acc = 0.0f;
             for (int o = 0; o < P.st.n; ++o, wo += cap)
                 if ((on[c] >> o) & 1ull) acc = acc + *wo * vi[P.lin[o]];
-            const RegCell<M> cl{P, sp, loc, i, fc[c], fn[c], bc[c], bn[c],
-                                ic[c], in_[c]};
+            float v_pre = 0.0f;
+            const RegCell<M, EMIT> cl{P, sp, loc, i, fc[c], fn[c], bc[c],
+                                      bn[c], ic[c], in_[c], &v_pre};
             const float v = fc[c][M::v];
             const float i_syn = cl.f(M::gap) * (acc - v * s_wsum[loc])
                 / s_cnt[loc];
             const bool spike = M::step(cl, i_syn);
+            if constexpr (EMIT) P.v_pre[(size_t)k * n + i] = v_pre;
             bn[c][M::is_spiking] = spike;
             if (spike) lft[c] = P.clock0 + k;
             if (!last) {
@@ -683,15 +726,15 @@ static size_t ms_smem_bytes(int n_off, int n_slots, int cap)
 // The chunks of a persistent call: chunk j writes buffer set j % 2 from
 // the call's planes (j = 0) or set (j - 1) % 2, so the result is in set
 // (chunks - 1) % 2.
-template <class M, int CPT>
+template <class M, int CPT, bool EMIT>
 static cudaError_t run_persistent(
     const void* const* fields, void* const* buf0, void* const* buf1,
     const int* lft, int* lft0, int* lft1, float* vbuf0, float* vbuf1,
-    const float* weights, const float* in_deg, const MsStencil& st,
-    const int* slots, int rows, int cols, int clock0, int n_steps,
-    int blocks, int cap, int* launched, cudaStream_t s)
+    float* v_pre, const float* weights, const float* in_deg,
+    const MsStencil& st, const int* slots, int rows, int cols, int clock0,
+    int n_steps, int blocks, int cap, int* launched, cudaStream_t s)
 {
-    auto fn = model_persistent_kernel<M, CPT>;
+    auto fn = model_persistent_kernel<M, CPT, EMIT>;
     int n_slots = 0;
     for (int f = 0; f < M::n_fields; ++f) {
         if (slots[f] < -1 || slots[f] >= M::n_fields
@@ -742,6 +785,7 @@ static cudaError_t run_persistent(
         P.lft_out = lft_buf[j & 1];
         P.clock0 = clock0 + k0;
         P.n_steps = n_steps - k0 < MS_CHUNK ? n_steps - k0 : MS_CHUNK;
+        P.v_pre = EMIT ? v_pre + (size_t)k0 * rows * cols : nullptr;
         void* args[] = {&P};
         err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(MS_THREADS),
                                           args, smem, s);
@@ -765,18 +809,28 @@ static int layout(int* codes)
     return M::n_fields;
 }
 
-template <class M>
+// The persistent launches of M at `cpt` cells a thread; with v_pre (the
+// plain Izhikevich only), the instantiation that emits.
+template <class M, bool EMIT = false>
 static cudaError_t run_persistent_cpt(
     int cpt, const void* const* fields, void* const* buf0, void* const* buf1,
     const int* lft, int* lft0, int* lft1, float* vbuf0, float* vbuf1,
-    const float* weights, const float* in_deg, const MsStencil& st,
-    const int* slots, int rows, int cols, int clock0, int n_steps,
-    int blocks, int cap, int* launched, cudaStream_t s)
+    float* v_pre, const float* weights, const float* in_deg,
+    const MsStencil& st, const int* slots, int rows, int cols, int clock0,
+    int n_steps, int blocks, int cap, int* launched, cudaStream_t s)
 {
-#define MS_CPT(C) run_persistent<M, C>(fields, buf0, buf1, lft, lft0, lft1, \
-                                       vbuf0, vbuf1, weights, in_deg, st,  \
-                                       slots, rows, cols, clock0, n_steps, \
-                                       blocks, cap, launched, s)
+    if constexpr (!EMIT && std::is_same<M, Izh>::value) {
+        if (v_pre)
+            return run_persistent_cpt<M, true>(
+                cpt, fields, buf0, buf1, lft, lft0, lft1, vbuf0, vbuf1,
+                v_pre, weights, in_deg, st, slots, rows, cols, clock0,
+                n_steps, blocks, cap, launched, s);
+    }
+    if (!EMIT && v_pre) return cudaErrorInvalidValue;
+#define MS_CPT(C) run_persistent<M, C, EMIT>(                                \
+        fields, buf0, buf1, lft, lft0, lft1, vbuf0, vbuf1, v_pre, weights,  \
+        in_deg, st, slots, rows, cols, clock0, n_steps, blocks, cap,        \
+        launched, s)
     if (cpt > ms_max_cpt<M>()) return cudaErrorInvalidValue;
     if (cpt == 1) return MS_CPT(1);
     if (cpt == 2) return MS_CPT(2);
@@ -811,6 +865,7 @@ int model_stencil_layout(int kind, int* codes)
     case MS_BCM_CHEM: return layout<Bcm<true>>(codes);
     case MS_SIMPLE_LIF: return layout<SimpleLif>(codes);
     case MS_MORRIS_LECAR: return layout<MorrisLecar>(codes);
+    case MS_IZH: return layout<Izh>(codes);
     default: return -1;
     }
 }
@@ -878,12 +933,13 @@ int model_stencil_steps(
 // shared plane of IN field f, -1 for one read from global memory (the
 // plan of ops/model_kernels.persistent_plan).  Chunk j writes set j % 2,
 // so the result is in set (chunks - 1) % 2; vbuf0 and vbuf1 are two
-// (rows, cols) planes of scratch.  Returns the first CUDA error, 0 if
-// none.
+// (rows, cols) planes of scratch.  v_pre, when not null (kind MS_IZH
+// only), receives step k's pre-reset v at k * rows * cols.  Returns the
+// first CUDA error, 0 if none.
 int model_stencil_persistent(
     int kind, const void* const* fields, int n_fields, void* const* buf0,
     void* const* buf1, const int* lft, int* lft0, int* lft1, float* vbuf0,
-    float* vbuf1, const float* weights, const float* in_deg,
+    float* vbuf1, float* v_pre, const float* weights, const float* in_deg,
     const int* dr, const int* dc, int n_off, int rows, int cols, int clock0,
     int n_steps, const int* slots, int blocks, int cap, int* launched,
     void* stream)
@@ -897,9 +953,10 @@ int model_stencil_persistent(
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
 #define MS_RUN(M) run_persistent_cpt<M>(cpt, fields, buf0, buf1, lft, lft0,   \
-                                        lft1, vbuf0, vbuf1, weights, in_deg, \
-                                        st, slots, rows, cols, clock0,       \
-                                        n_steps, blocks, cap, launched, s)
+                                        lft1, vbuf0, vbuf1, v_pre, weights,  \
+                                        in_deg, st, slots, rows, cols,       \
+                                        clock0, n_steps, blocks, cap,        \
+                                        launched, s)
     cudaError_t err;
     switch (kind) {
     case MS_LIF: err = MS_RUN(Lif); break;
@@ -912,6 +969,7 @@ int model_stencil_persistent(
     case MS_BCM_CHEM: err = MS_RUN(Bcm<true>); break;
     case MS_SIMPLE_LIF: err = MS_RUN(SimpleLif); break;
     case MS_MORRIS_LECAR: err = MS_RUN(MorrisLecar); break;
+    case MS_IZH: err = MS_RUN(Izh); break;
     default: err = cudaErrorInvalidValue;
     }
 #undef MS_RUN

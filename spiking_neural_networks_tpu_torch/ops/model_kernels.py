@@ -164,17 +164,15 @@ def _check(model, planes, lft, weights, in_deg, offsets, clock0, n_steps):
     if n_off > MAX_OFFSETS:
         raise ValueError(f"the kernel takes at most {MAX_OFFSETS} offsets, "
                          f"got {n_off}")
-    if int(n_steps) < 1:
-        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    if not -2**31 <= int(clock0) <= 2**31 - int(n_steps):
-        raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
+    check_clock(clock0, n_steps)
     return fk
 
 
-def _check_layout(lib, model, fields, carry):
+def check_layout(lib, k, fields, carry, reads, what):
     """Raise unless the CUDA source's limits are this module's and its
-    layout of this kind (field count, types, carried and read fields) is
-    the table's."""
+    layout of kind ``k`` is that of ``fields`` ((name, dtype), ...): the
+    field count, their types, those the step writes (``carry``) and those
+    it reads (``reads``); ``what`` names the kind."""
     global _limits_checked
     if not _limits_checked:
         got = (ctypes.c_int * 5)()
@@ -184,17 +182,15 @@ def _check_layout(lib, model, fields, carry):
             raise RuntimeError(f"the CUDA source's limits {list(got)} differ "
                                f"from the wrapper's {want}")
         _limits_checked = True
-    k = kind(model)
     if k in _layouts_checked:
         return
     codes = (ctypes.c_int * MAX_FIELDS)()
     n = lib.model_stencil_layout(k, codes)
-    reads = model_read_fields(model)
     want = [_CODES[dt] + (_CARRIED if name in carry else 0)
             + (_READ if name in reads else 0) for name, dt in fields]
     if n != len(fields) or list(codes[:n]) != want:
         raise RuntimeError(
-            f"the CUDA layout of {type(model).__name__} (kind {k}: "
+            f"the CUDA layout of {what} (kind {k}: "
             f"{list(codes[:max(n, 0)])}) differs from the table's {want}")
     _layouts_checked.add(k)
 
@@ -240,14 +236,22 @@ def persistent_plan(model, shape, n_off, n_blocks, budget=SMEM_BUDGET):
     weight planes, wsum and max(in_deg, 1) first, then as many IN planes
     as fit, in field order.  None where a block's cells outnumber its
     threads' `max_cpt` or the weights do not fit."""
+    return plan_cells(shape, n_off, n_blocks, in_fields(model),
+                      max_cpt(model), budget)
+
+
+def plan_cells(shape, n_off, n_blocks, ins, cpt_max, budget=SMEM_BUDGET):
+    """`persistent_plan` for a kind whose IN fields are ``ins`` (in field
+    order) and whose threads take at most ``cpt_max`` cells; also the plan
+    of the stencil kernel's persistent design
+    (`stencil_kernels.persistent_plan`)."""
     n = int(shape[0]) * int(shape[1])
     cap = 32 * -(-(-(-n // int(n_blocks))) // 32)
     base = 4 * cap * (int(n_off) + 2)
-    if cap > max_cpt(model) * THREADS or base > budget:
+    if cap > cpt_max * THREADS or base > budget:
         return None
-    ins = in_fields(model)
     fit = min(len(ins), (budget - base) // (4 * cap))
-    return MsPlan(-(-n // cap), cap, ins[:fit], ins[fit:],
+    return MsPlan(-(-n // cap), cap, tuple(ins[:fit]), tuple(ins[fit:]),
                   base + 4 * cap * fit)
 
 
@@ -266,57 +270,71 @@ def call_launches(n_steps, persistent):
     return -(-n // STEPS_PER_LAUNCH) if persistent else n
 
 
-def _sm_count(dev):
+def sm_count(dev):
+    """The SMs of CUDA device ``dev``: the persistent designs' blocks."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-class ModelRun:
-    """The calls of one run of the model kernel on one lattice: the
-    checks, the layout check, the route and its plan, the output buffer
-    sets and the launch arguments are made once, at construction; each
-    `steps` call then advances the state.
+def next_sets(cur, writes):
+    """``(a, out)`` of a call that writes the buffer sets ``writes`` times
+    (a launch each) when set ``cur`` holds its inputs (None: the caller's
+    planes): ``a`` the set it writes first, the one that does not hold
+    the inputs, and ``out`` the set it ends on, the writes alternating from
+    ``a``."""
+    a = 1 if cur == 0 else 0
+    return a, (a if writes % 2 else 1 - a)
 
-    ``planes``, ``lft``, ``weights``, ``in_deg`` and ``offsets`` are as for
-    `model_steps`; the planes are only read.  The state lives in two buffer
-    sets of the carried fields and lft; a call writes first the set that
-    does not hold its inputs, and its outputs (views into the sets) are
-    valid until the next call.  On CUDA tensors the persistent design
-    runs where `persistent_plan` says so (``per_step`` forces the per-step
-    one); on CPU tensors each call runs `model_steps_reference`."""
 
-    def __init__(self, model, planes, lft, weights, in_deg, offsets,
-                 per_step=False):
-        fields, carry = _check(model, planes, lft, weights, in_deg, offsets,
-                               0, 1)
-        dev = lft.device
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"no kernel for device {dev}")
-        self.model, self.fields, self.carry = model, fields, carry
-        self.planes, self.lft = planes, lft
-        self.weights, self.in_deg, self.offsets = weights, in_deg, offsets
+def check_clock(clock0, n_steps):
+    """Raise unless a call of ``n_steps`` steps from ``clock0`` is one the
+    kernels take (at least one step, the clock within int32)."""
+    if int(n_steps) < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if not -2**31 <= int(clock0) <= 2**31 - int(n_steps):
+        raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
+
+
+class RunSets:
+    """The state of one run of a stencil-family kernel between its calls
+    (`ModelRun`, `stencil_kernels.StencilRun`), and the launch of its C
+    entries.
+
+    On CUDA tensors the state lives in two buffer sets of the ``carry``
+    fields and lft: a call writes first the set that does not hold its
+    inputs (`next_sets`), and its outputs, views into the set it ends on,
+    are valid until the next call.  The launch arguments of kind ``kind``
+    over ``fields`` ((name, dtype), ...; a field missing from ``planes``,
+    which the kind never reads, is passed as NULL) are made once, with the
+    persistent design's where ``plan`` (an `MsPlan`) is given.  On CPU
+    tensors it holds the last call's outputs (`keep`), the twin's own
+    tensors."""
+
+    def __init__(self, kind, fields, carry, planes, lft, weights, in_deg,
+                 offsets, plan=None):
+        self.kind, self.fields, self.carry, self.plan = (kind, fields, carry,
+                                                         plan)
+        self.lft, self.weights, self.in_deg = lft, weights, in_deg
+        self.offsets = offsets
         self.cur = None           # the set holding the state; None: inputs
+        self.state = (planes, lft)        # on CPU tensors
+        self.lib = None
+        dev = lft.device
+        if dev.type != "cuda":
+            return
+        from .. import _build
+        self.lib = _build.load()
         rows, cols = lft.shape
-        self.plan, self.lib = None, None
-        if dev.type == "cuda":
-            from .. import _build
-            self.lib = _build.load()
-            _check_layout(self.lib, model, fields, carry)
-            if not per_step:
-                self.plan = persistent_plan(model, (rows, cols), len(offsets),
-                                            _sm_count(dev))
         new = lambda dtype: torch.empty((2, rows, cols), dtype=dtype,
                                         device=dev)
-        self.bufs = {k: new(planes[k].dtype) for k in carry}
+        self.bufs = {k: new(dt) for k, dt in fields if k in carry}
         self.lft_buf = new(torch.int32)
-        self.vbuf = new(torch.float32) if self.plan is not None else None
-        if self.lib is None:
-            return
+        ptr = lambda t: None if t is None else t.data_ptr()
         ptrs = ctypes.c_void_p * len(fields)
         # the inputs of a call from the caller's planes (None) or a set
         self.in_ptrs = {
-            cur: ptrs(*[(planes[k] if cur is None or k not in carry
-                         else self.bufs[k][cur]).data_ptr()
-                        for k, _ in fields]) for cur in (None, 0, 1)}
+            cur: ptrs(*[ptr(planes.get(k) if cur is None or k not in carry
+                            else self.bufs[k][cur]) for k, _ in fields])
+            for cur in (None, 0, 1)}
         self.out_ptrs = [ptrs(*[self.bufs[k][b].data_ptr()
                                 if k in carry else None for k, _ in fields])
                          for b in (0, 1)]
@@ -325,76 +343,122 @@ class ModelRun:
         n_off = len(offsets)
         self.dr = (ctypes.c_int * max(n_off, 1))(*[o[0] for o in offsets])
         self.dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in offsets])
-        if self.plan is not None:
-            slot = {k: j for j, k in enumerate(self.plan.resident)}
+        if plan is not None:
+            # the two planes of v the neighbours read
+            self.vbuf = new(torch.float32)
+            slot = {k: j for j, k in enumerate(plan.resident)}
             self.slots = (ctypes.c_int * len(fields))(
                 *[slot.get(k, -1) for k, _ in fields])
 
-    def steps(self, clock0, n_steps):
-        """Advance ``n_steps`` steps from ``clock0``; returns ``(carried,
-        lft, spikes)`` as `model_steps` does, views into the buffer
-        sets."""
-        global LAUNCHES, STEP_LAUNCHES
-        n_steps = int(n_steps)
-        if n_steps < 1:
-            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        if not -2**31 <= int(clock0) <= 2**31 - n_steps:
-            raise ValueError(f"clock {clock0} + {n_steps} steps overflows "
-                             f"int32")
-        # the first write goes to the set that does not hold the inputs;
-        # the writes alternate from there
-        a = 1 if self.cur == 0 else 0
-        writes = call_launches(n_steps, self.plan is not None)
-        out = a if writes % 2 else 1 - a
-        if self.lib is None:
-            src = {k: self.planes[k] if self.cur is None or k not in
-                   self.carry else self.bufs[k][self.cur]
-                   for k, _ in self.fields}
-            lft = self.lft if self.cur is None else self.lft_buf[self.cur]
-            carried, lft, _ = model_steps_reference(
-                self.model, src, lft, self.weights, self.in_deg,
-                self.offsets, clock0, n_steps)
-            for k, x in carried.items():
-                self.bufs[k][out].copy_(x)
-            self.lft_buf[out].copy_(lft)
-        else:
-            rc, launched = self._launch(a, clock0, n_steps)
-            dev = self.lft.device
-            if rc != 0:
-                raise RuntimeError(
-                    f"the model kernel failed with CUDA error {rc} "
-                    f"({torch.cuda.get_device_name(dev)})")
-            LAUNCHES += 1
-            STEP_LAUNCHES += launched
-        self.cur = out
-        carried = {k: b[out] for k, b in self.bufs.items()}
-        return carried, self.lft_buf[out], carried["is_spiking"]
+    def keep(self, carried, lft):
+        """On CPU tensors: hold a call's outputs as the next call's
+        inputs."""
+        self.state = (dict(self.state[0], **carried), lft)
 
-    def _launch(self, a, clock0, n_steps):
-        """One call of the C entry of the route, writing set ``a`` first.
-        Returns (CUDA error code, kernel launches)."""
-        rows, cols = self.lft.shape
-        launched = ctypes.c_int(0)
-        lib, n_off = self.lib, len(self.offsets)
-        head = (kind(self.model), self.in_ptrs[self.cur], len(self.fields),
+    def head(self, a):
+        """The arguments both model-kernel entries start with, for a call
+        that writes set ``a`` first."""
+        return (self.kind, self.in_ptrs[self.cur], len(self.fields),
                 self.out_ptrs[a], self.out_ptrs[1 - a],
-                self.lft_ptrs[self.cur], self.lft_buf[a].data_ptr(),
-                self.lft_buf[1 - a].data_ptr())
-        tail = (self.dr, self.dc, n_off, rows, cols, int(clock0), n_steps)
+                self.lft_ptrs[self.cur], self.lft_ptrs[a],
+                self.lft_ptrs[1 - a])
+
+    def tail(self, clock0, n_steps):
+        """The stencil and grid arguments every entry takes."""
+        rows, cols = self.lft.shape
+        return (self.dr, self.dc, len(self.offsets), rows, cols, int(clock0),
+                int(n_steps))
+
+    def persistent_args(self, a, clock0, n_steps, v_pre=None):
+        """The arguments of ``model_stencil_persistent`` (``v_pre``: the
+        emission plane, kind Izh only)."""
+        return (*self.head(a), self.vbuf[0].data_ptr(),
+                self.vbuf[1].data_ptr(),
+                None if v_pre is None else v_pre.data_ptr(),
+                self.weights.data_ptr(), self.in_deg.data_ptr(),
+                *self.tail(clock0, n_steps), self.slots, self.plan.blocks,
+                self.plan.cap)
+
+    def launch(self, entry, args, out, what):
+        """Call the C entry ``entry`` with ``args`` and then its launch
+        counter and the current stream; raise on a CUDA error (``what``
+        names the kernel), else make set ``out`` the state's.  Returns the
+        kernel launches the entry counted."""
+        launched = ctypes.c_int(0)
         dev = self.lft.device
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if self.plan is None:
-                rc = lib.model_stencil_steps(
-                    *head, self.weights.data_ptr(), self.in_deg.data_ptr(),
-                    *tail, ctypes.byref(launched), stream)
-            else:
-                rc = lib.model_stencil_persistent(
-                    *head, self.vbuf[0].data_ptr(), self.vbuf[1].data_ptr(),
-                    self.weights.data_ptr(), self.in_deg.data_ptr(), *tail,
-                    self.slots, self.plan.blocks, self.plan.cap,
-                    ctypes.byref(launched), stream)
-        return rc, launched.value
+            rc = getattr(self.lib, entry)(*args, ctypes.byref(launched),
+                                          stream)
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUDA error {rc} "
+                               f"({torch.cuda.get_device_name(dev)})")
+        self.cur = out
+        return launched.value
+
+    def outputs(self, out):
+        """The carried planes, by name, and lft of set ``out``."""
+        return {k: b[out] for k, b in self.bufs.items()}, self.lft_buf[out]
+
+
+class ModelRun:
+    """The calls of one run of the model kernel on one lattice: the
+    checks, the layout check, the route and its plan, the output buffer
+    sets and the launch arguments are made once, at construction
+    (`RunSets`); each `steps` call then advances the state.
+
+    ``planes``, ``lft``, ``weights``, ``in_deg`` and ``offsets`` are as for
+    `model_steps`; the planes are only read.  A call's outputs are valid
+    until the next call.  On CUDA tensors the persistent design runs where
+    `persistent_plan` says so (``per_step`` forces the per-step one); on
+    CPU tensors each call runs `model_steps_reference`."""
+
+    def __init__(self, model, planes, lft, weights, in_deg, offsets,
+                 per_step=False):
+        fields, carry = _check(model, planes, lft, weights, in_deg, offsets,
+                               0, 1)
+        dev = lft.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"no kernel for device {dev}")
+        self.model = model
+        self.plan = None
+        if dev.type == "cuda":
+            from .. import _build
+            check_layout(_build.load(), kind(model), fields, carry,
+                         model_read_fields(model), type(model).__name__)
+            if not per_step:
+                self.plan = persistent_plan(model, lft.shape, len(offsets),
+                                            sm_count(dev))
+        self.sets = RunSets(kind(model), fields, carry, planes, lft, weights,
+                            in_deg, offsets, self.plan)
+
+    def steps(self, clock0, n_steps):
+        """Advance ``n_steps`` steps from ``clock0``; returns ``(carried,
+        lft, spikes)`` as `model_steps` does (on CUDA tensors, views into
+        the buffer sets)."""
+        global LAUNCHES, STEP_LAUNCHES
+        check_clock(clock0, n_steps)
+        s = self.sets
+        if s.lib is None:
+            planes, lft = s.state
+            carried, lft, _ = model_steps_reference(
+                self.model, planes, lft, s.weights, s.in_deg, s.offsets,
+                clock0, n_steps)
+            s.keep(carried, lft)
+            return carried, lft, carried["is_spiking"]
+        persistent = self.plan is not None
+        a, out = next_sets(s.cur, call_launches(n_steps, persistent))
+        if persistent:
+            entry, args = ("model_stencil_persistent",
+                           s.persistent_args(a, clock0, n_steps))
+        else:
+            entry, args = ("model_stencil_steps",
+                           (*s.head(a), s.weights.data_ptr(),
+                            s.in_deg.data_ptr(), *s.tail(clock0, n_steps)))
+        STEP_LAUNCHES += s.launch(entry, args, out, "the model kernel")
+        LAUNCHES += 1
+        carried, lft = s.outputs(out)
+        return carried, lft, carried["is_spiking"]
 
 
 def model_steps(model, planes, lft, weights, in_deg, offsets, clock0,

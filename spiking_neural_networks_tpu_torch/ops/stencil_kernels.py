@@ -1,34 +1,81 @@
-"""The electrical Izhikevich stencil kernel: wrapper, plain twin and gate.
+"""The electrical Izhikevich stencil kernel: wrapper, plan, plain twin and
+gate.
 
 PyTorch/CUDA counterpart of ``spiking_neural_networks_tpu/ops/
 pallas_stencil.py``.  The three TPU kernels that carry the electrical
 Izhikevich lattice there (the per-step kernel, the whole-lattice multi-step
 kernel and the row-tiled multi-step kernel) compute one function:
-(v, w, lft, spikes[, v_pre]) after K steps from ``clock0``.  Here that is one
-hand-written CUDA kernel, ``csrc/izhikevich_stencil.cu``, with per-neuron
-parameter planes.
+(v, w, lft, spikes[, v_pre]) after K steps from ``clock0``.  Here that
+function has three hand-written CUDA designs, routed by `route`:
 
-`izhikevich_stencil_steps` launches it for CUDA tensors and runs the plain
-twin `izhikevich_stencil_steps_reference` for CPU tensors (the counterpart
-of the TPU kernels' interpret mode).  A build or launch failure raises;
-nothing falls back.
+* persistent (``csrc/model_stencil.cu``, kind `IZH_KIND`): one cooperative
+  launch per 16 steps, a block's weights and parameter planes in shared
+  memory, the state in registers, where `persistent_plan` holds the
+  weights (512^2 at radius 2);
+* tiled (``csrc/izhikevich_stencil.cu``, `izh_tiled_kernel`): temporal
+  blocking, K_b steps a launch on a 2-D tile plus a K_b * pad halo in
+  shared memory, the parameters as 9 scalars, where every parameter plane
+  is uniform and `tile_plan` fits the halo (1024^2 and up);
+* per step (``csrc/izhikevich_stencil.cu``, `izh_stencil_step_kernel`):
+  one launch a step with per-neuron planes, for the rest and for the
+  comparison (``design="per_step"``).
+
+`StencilRun` makes the checks, the uniform check, the route and its plan,
+the buffer sets and the launch arguments once for a run of calls
+(`core.lattice.Lattice._run_kernel`), its state between calls in
+`model_kernels.RunSets`, the run skeleton it shares with the model
+kernel; `izhikevich_stencil_steps` is one call of a fresh `StencilRun`.
+Every design is bit-equal to the plain twin
+`izhikevich_stencil_steps_reference`, which CPU tensors run (the
+counterpart of the TPU kernels' interpret mode).  A build or launch
+failure raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from . import model_kernels
+from .model_kernels import SMEM_BUDGET
 
 PARAM_ORDER = ("a", "b", "c", "d", "v_th", "gap_conductance", "tau_m",
                "c_m", "dt")
 MAX_OFFSETS = 64          # IZH_MAX_OFFSETS in the CUDA source
 STEPS_PER_LAUNCH = 16     # K of the lattice runner's kernel calls
+TILE_THREADS = 1024       # IZH_TILE_THREADS: a tiled block's threads, at most
+TILE_MAX_CPT = 4          # IZH_TILE_MAX_CPT: loaded cells a tiled thread
+TILE_MAX_PAD = 4          # the widest stencil the tiled design takes (as the
+                          # JAX package's multistep_tiled_config)
+# The tiled design's tiles, (interior rows, interior columns, steps a
+# launch), in the order `tile_plan` tries them: (48, 48, 4) at a stencil
+# reach of 1-2 (the fastest of the tiles timed at 2048^2, radius 2, on an
+# H100: chip_smoke.py phase 6, PERF.md section 6 row 3), (32, 32, 2) at 3,
+# (16, 16, 2) at 4.
+TILES = ((48, 48, 4), (32, 32, 2), (16, 16, 2))
+# The persistent design's kind in csrc/model_stencil.cu (MS_IZH), its
+# fields in order (v, w, the parameter planes, is_spiking), those its step
+# writes and those it reads.
+IZH_KIND = 10
+IZH_FIELDS = tuple((k, torch.float32) for k in ("v", "w") + PARAM_ORDER) \
+    + (("is_spiking", torch.bool),)
+IZH_CARRY = ("v", "w", "is_spiking")
+IZH_READS = ("v", "w") + PARAM_ORDER
+# The SMs a run on CPU tensors plans for (an H100's): the route it reports.
+CPU_SM_COUNT = 132
 
-# Calls of `izhikevich_stencil_steps` that launched the CUDA kernel (each
-# call runs its n_steps launches on the stream).
+# Calls of the kernel (`izhikevich_stencil_steps`, `StencilRun.steps`) that
+# launched CUDA kernels.
 LAUNCHES = 0
+# The CUDA kernel launches those calls made, as the C entries count them at
+# each launch (`call_launches` per call).
+STEP_LAUNCHES = 0
+# Those calls by design.
+DESIGN_CALLS = {"persistent": 0, "tiled": 0, "per_step": 0}
+_checked = set()
 
 
 def supports(model, graph, electrical, chemical, do_plasticity):
@@ -67,10 +114,239 @@ def _check(v, w, lft, weights, in_deg, params, offsets, clock0, n_steps):
     if n_off > MAX_OFFSETS:
         raise ValueError(f"the kernel takes at most {MAX_OFFSETS} offsets, "
                          f"got {n_off}")
-    if int(n_steps) < 1:
-        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    if not -2**31 <= int(clock0) <= 2**31 - int(n_steps):
-        raise ValueError(f"clock {clock0} + {n_steps} steps overflows int32")
+    model_kernels.check_clock(clock0, n_steps)
+
+
+class TilePlan(NamedTuple):
+    """The tiled design's tile: interior ``th`` x ``tw`` cells, ``kb``
+    steps a launch, a halo of ``halo`` = kb * pad cells on each side, so a
+    loaded tile of ``lh`` x ``lw`` cells, held by ``threads`` threads of
+    ``cpt`` cells each, in ``smem`` bytes (the weights and two v
+    buffers)."""
+    th: int
+    tw: int
+    kb: int
+    halo: int
+    lh: int
+    lw: int
+    cpt: int
+    threads: int
+    smem: int
+
+
+def stencil_pad(offsets):
+    """The stencil's reach: its largest |dr| or |dc| (0 without
+    offsets)."""
+    return max([max(abs(dr), abs(dc)) for dr, dc in offsets], default=0)
+
+
+def tile_config(th, tw, kb, offsets, budget=SMEM_BUDGET):
+    """The `TilePlan` of a (th, tw) interior at kb steps a launch for
+    ``offsets``: the fewest cells a thread that `TILE_THREADS` threads
+    hold, or None where that exceeds `TILE_MAX_CPT` or the shared memory
+    exceeds ``budget``."""
+    halo = int(kb) * stencil_pad(offsets)
+    lh, lw = int(th) + 2 * halo, int(tw) + 2 * halo
+    cells = lh * lw
+    smem = 4 * cells * (len(offsets) + 2)
+    cpt = -(-cells // TILE_THREADS)
+    if cpt > TILE_MAX_CPT or smem > budget:
+        return None
+    threads = 32 * -(-(-(-cells // cpt)) // 32)
+    return TilePlan(int(th), int(tw), int(kb), halo, lh, lw, cpt, threads,
+                    smem)
+
+
+def tile_plan(offsets, budget=SMEM_BUDGET, tiles=TILES):
+    """The tiled design's plan for ``offsets``: the first of ``tiles``
+    that fits, or None where the stencil reaches farther than
+    `TILE_MAX_PAD` or no tile fits."""
+    if stencil_pad(offsets) > TILE_MAX_PAD:
+        return None
+    for th, tw, kb in tiles:
+        plan = tile_config(th, tw, kb, offsets, budget)
+        if plan is not None:
+            return plan
+    return None
+
+
+def persistent_plan(shape, n_off, n_blocks, budget=SMEM_BUDGET):
+    """The persistent design's plan (`model_kernels.MsPlan`) on a
+    ``shape`` lattice of ``n_off`` offsets on a card of ``n_blocks`` SMs,
+    or None where a block's weights do not fit: the model kernel's plan
+    for the plain Izhikevich, whose IN fields are the 9 parameter
+    planes."""
+    return model_kernels.plan_cells(shape, n_off, n_blocks, PARAM_ORDER,
+                                    model_kernels.MAX_CPT, budget)
+
+
+def uniform_scalars(params):
+    """The 9 parameters as floats where every plane holds one value, bit
+    for bit (float equality that also tells -0.0 from 0.0, so that the
+    scalars give the planes' bits), else None.  One read from the
+    device."""
+    rows = []
+    for k in PARAM_ORDER:
+        flat = params[k].reshape(-1)
+        bits = flat.view(torch.int32)
+        rows.append(torch.stack([(bits == bits[0]).all().to(flat.dtype),
+                                 flat[0]]))
+    got = torch.stack(rows).cpu().tolist()
+    if not all(flag == 1.0 for flag, _ in got):
+        return None
+    return tuple(x for _, x in got)
+
+
+def route(shape, offsets, n_blocks, scalars, design=None, tiles=TILES):
+    """``(design, plan)`` of a run: "persistent" and its `MsPlan` where
+    `persistent_plan` holds the weights; else "tiled" and its `TilePlan`
+    (`tile_plan` over ``tiles``) where the parameters are uniform
+    (``scalars``: a callable giving `uniform_scalars`' result, called only
+    here) and a tile fits; else "per_step" and None.  ``design`` forces
+    one (ValueError where it does not apply)."""
+    if design not in (None, "persistent", "tiled", "per_step"):
+        raise ValueError(f"no design {design!r}")
+    if design == "per_step":
+        return "per_step", None
+    if design in (None, "persistent"):
+        plan = persistent_plan(shape, len(offsets), n_blocks)
+        if plan is not None:
+            return "persistent", plan
+        if design == "persistent":
+            raise ValueError(f"the persistent design cannot hold a "
+                             f"{tuple(shape)} lattice's weights")
+    plan = tile_plan(offsets, tiles=tiles)
+    if plan is not None and scalars() is not None:
+        return "tiled", plan
+    if design == "tiled":
+        raise ValueError("the tiled design needs uniform parameter planes "
+                         f"and a stencil of reach <= {TILE_MAX_PAD}")
+    return "per_step", None
+
+
+def call_launches(n_steps, design, plan=None):
+    """The CUDA kernel launches of one call of ``n_steps`` steps: one per
+    `STEPS_PER_LAUNCH` steps in the persistent design, one per ``plan.kb``
+    steps in the tiled one, one a step in the per-step one."""
+    n = int(n_steps)
+    if design == "persistent":
+        return model_kernels.call_launches(n, True)
+    if design == "tiled":
+        return -(-n // plan.kb)
+    return n
+
+
+def _check_library(lib):
+    """Raise unless the CUDA sources' limits and the persistent kind's
+    layout are this module's."""
+    if "izh" in _checked:
+        return
+    got = (ctypes.c_int * 3)()
+    lib.izh_stencil_limits(got)
+    want = [MAX_OFFSETS, TILE_THREADS, TILE_MAX_CPT]
+    if list(got) != want:
+        raise RuntimeError(f"the stencil kernel's limits {list(got)} differ "
+                           f"from the wrapper's {want}")
+    model_kernels.check_layout(lib, IZH_KIND, IZH_FIELDS, IZH_CARRY,
+                               IZH_READS, "Izhikevich")
+    _checked.add("izh")
+
+
+class StencilRun:
+    """The calls of one run of the stencil kernel on one lattice: the
+    checks, the uniform check, the route and its plan, the output buffer
+    sets and the launch arguments are made once, at construction
+    (`model_kernels.RunSets` holds the state between calls); each `steps`
+    call then advances the state.
+
+    The arguments are as for `izhikevich_stencil_steps`; the planes are
+    only read, and a call's outputs are valid until the next call.
+    ``design`` forces a design (`route`); ``tiles`` replaces `TILES`.  On
+    CUDA tensors the route's kernel runs.  On CPU tensors each call runs
+    `izhikevich_stencil_steps_reference`; the route, which they do not
+    take, is the one an H100 (`CPU_SM_COUNT`) would, so that the route
+    rule can be checked through the runner without a card."""
+
+    def __init__(self, v, w, lft, weights, in_deg, params, offsets,
+                 design=None, tiles=TILES):
+        _check(v, w, lft, weights, in_deg, params, offsets, 0, 1)
+        dev = v.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"no kernel for device {dev}")
+        cuda = dev.type == "cuda"
+        self.params = {k: params[k] for k in PARAM_ORDER}
+        self.scalars = None
+
+        def scalars():
+            self.scalars = uniform_scalars(self.params)
+            return self.scalars
+
+        n_blocks = model_kernels.sm_count(dev) if cuda else CPU_SM_COUNT
+        self.design, self.plan = route(v.shape, offsets, n_blocks, scalars,
+                                       design, tiles)
+        if cuda:
+            from .. import _build
+            _check_library(_build.load())
+        self.sets = model_kernels.RunSets(
+            IZH_KIND, IZH_FIELDS, IZH_CARRY, dict(self.params, v=v, w=w),
+            lft, weights, in_deg, offsets,
+            self.plan if self.design == "persistent" else None)
+        # the parameters of the per-step entry (planes) or the tiled one
+        # (scalars)
+        if cuda and self.design == "per_step":
+            self.param_arg = (ctypes.c_void_p * len(PARAM_ORDER))(
+                *[self.params[k].data_ptr() for k in PARAM_ORDER])
+        elif cuda and self.design == "tiled":
+            self.param_arg = (ctypes.c_float * len(PARAM_ORDER))(
+                *self.scalars)
+
+    def launches(self, n_steps):
+        """The kernel launches of a call of ``n_steps`` steps."""
+        return call_launches(n_steps, self.design, self.plan)
+
+    def steps(self, clock0, n_steps, emit=False):
+        """Advance ``n_steps`` steps from ``clock0``; returns ``(v, w, lft,
+        spikes, v_pre)`` as `izhikevich_stencil_steps` does (on CUDA
+        tensors, views into the run's buffer sets; ``v_pre`` a fresh
+        (n_steps, rows, cols) plane)."""
+        global LAUNCHES, STEP_LAUNCHES
+        model_kernels.check_clock(clock0, n_steps)
+        n_steps = int(n_steps)
+        s = self.sets
+        if s.lib is None:
+            planes, lft = s.state
+            out = izhikevich_stencil_steps_reference(
+                planes["v"], planes["w"], lft, s.weights, s.in_deg,
+                self.params, s.offsets, clock0, n_steps, emit)
+            s.keep({"v": out[0], "w": out[1]}, out[2])
+            return out
+        a, out = model_kernels.next_sets(s.cur, self.launches(n_steps))
+        rows, cols = s.lft.shape
+        v_pre = torch.empty((n_steps, rows, cols), dtype=torch.float32,
+                            device=s.lft.device) if emit else None
+        if self.design == "persistent":
+            entry = "model_stencil_persistent"
+            args = s.persistent_args(a, clock0, n_steps, v_pre)
+        else:
+            # (v, w, lft) of the inputs, then of set a and set 1 - a
+            state = lambda b: (s.in_ptrs[b][0], s.in_ptrs[b][1],
+                               s.lft_ptrs[b])
+            args = (*state(s.cur), s.weights.data_ptr(), s.in_deg.data_ptr(),
+                    self.param_arg, *state(a), *state(1 - a),
+                    s.bufs["is_spiking"][out].data_ptr(),
+                    None if v_pre is None else v_pre.data_ptr(),
+                    *s.tail(clock0, n_steps))
+            entry = "izh_stencil_steps"
+            if self.design == "tiled":
+                p = self.plan
+                entry = "izh_stencil_tiled"
+                args += (p.th, p.tw, p.kb, p.threads, p.cpt)
+        STEP_LAUNCHES += s.launch(entry, args, out,
+                                  f"the stencil kernel ({self.design})")
+        LAUNCHES += 1
+        DESIGN_CALLS[self.design] += 1
+        carried, lft = s.outputs(out)
+        return carried["v"], carried["w"], lft, carried["is_spiking"], v_pre
 
 
 def izhikevich_stencil_steps(v, w, lft, weights, in_deg, params, offsets,
@@ -82,45 +358,12 @@ def izhikevich_stencil_steps(v, w, lft, weights, in_deg, params, offsets,
     ``weights`` is (len(offsets), rows, cols) float32.  Returns
     ``(v, w, lft, spikes, v_pre)``: spikes are the last step's (bool), and
     ``v_pre`` is the (n_steps, rows, cols) pre-reset voltage of each step
-    when ``emit`` is true, else None.  The inputs are not modified.
+    when ``emit`` is true, else None.  The inputs are not modified and the
+    outputs are fresh tensors.  One call of a new `StencilRun`: the
+    routed design on CUDA tensors, the twin on CPU tensors.
     """
-    global LAUNCHES
-    _check(v, w, lft, weights, in_deg, params, offsets, clock0, n_steps)
-    if v.device.type == "cpu":
-        return izhikevich_stencil_steps_reference(
-            v, w, lft, weights, in_deg, params, offsets, clock0, n_steps,
-            emit)
-    if v.device.type != "cuda":
-        raise ValueError(f"no kernel for device {v.device}")
-    from .. import _build
-    lib = _build.load()
-    rows, cols = v.shape
-    n_steps, n_off = int(n_steps), len(offsets)
-    v_buf = torch.empty((2, rows, cols), dtype=torch.float32, device=v.device)
-    w_buf = torch.empty_like(v_buf)
-    lft_buf = torch.empty((2, rows, cols), dtype=torch.int32, device=v.device)
-    spikes = torch.empty((rows, cols), dtype=torch.bool, device=v.device)
-    v_pre = torch.empty((n_steps, rows, cols), dtype=torch.float32,
-                        device=v.device) if emit else None
-    param_ptrs = (ctypes.c_void_p * len(PARAM_ORDER))(
-        *[params[k].data_ptr() for k in PARAM_ORDER])
-    dr = (ctypes.c_int * max(n_off, 1))(*[o[0] for o in offsets])
-    dc = (ctypes.c_int * max(n_off, 1))(*[o[1] for o in offsets])
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    with torch.cuda.device(v.device):
-        rc = lib.izh_stencil_steps(
-            v.data_ptr(), w.data_ptr(), lft.data_ptr(),
-            weights.data_ptr(), in_deg.data_ptr(), param_ptrs,
-            v_buf[0].data_ptr(), w_buf[0].data_ptr(), lft_buf[0].data_ptr(),
-            v_buf[1].data_ptr(), w_buf[1].data_ptr(), lft_buf[1].data_ptr(),
-            spikes.data_ptr(), v_pre.data_ptr() if emit else None,
-            dr, dc, n_off, rows, cols, int(clock0), n_steps, stream)
-    if rc != 0:
-        raise RuntimeError(f"izh_stencil_steps failed with CUDA error {rc} "
-                           f"({torch.cuda.get_device_name(v.device)})")
-    LAUNCHES += 1
-    last = (n_steps - 1) % 2
-    return v_buf[last], w_buf[last], lft_buf[last], spikes, v_pre
+    return StencilRun(v, w, lft, weights, in_deg, params, offsets).steps(
+        clock0, n_steps, emit)
 
 
 def izhikevich_stencil_steps_reference(v, w, lft, weights, in_deg, params,
