@@ -71,7 +71,15 @@ radius-2, 80%-keep stencil graph:
   per 16-step call), and Morris-Lecar at 2048^2 over 1024 steps through
   its per-step design (the route where the plan cannot hold the weights);
   and the upstream BCM network (``examples/bcm.py``) on its plain
-  route.
+  route;
+* three neurons of the DSL (`dsl.neuron_builder(source)[name]()` ->
+  `Lattice` -> `populate` -> `connect_stencil` -> `apply` -> `run_lattice`:
+  the DSL Izhikevich over 2048 steps, the DSL Hodgkin-Huxley over 1024,
+  `DSL_BRANCHY` over 512) at 512^2 through kernel 4's DSL arm (a functor
+  generated from each neuron's step by ``ops/dsl_kernels.py`` over
+  ``csrc/model_stencil.cuh``, built by nvcc at first use; the persistent
+  design), and the DSL Izhikevich at 2048^2 over 256 through its per-step
+  design.
 
 Phases, one line each:
 
@@ -280,7 +288,30 @@ Phases, one line each:
    the kernel and plain routes, the routed design's device time under
    torch.profiler over 10 calls of one `ModelRun`, device / wall, the
    bound and the twin's time; at 512^2 and 700^2 both designs in turns
-   (at 2048^2 the persistent design does not apply).
+   (at 2048^2 the persistent design does not apply);
+37. the DSL arm's build: the three generated sources in one round of nvcc
+   runs, each instantiation's registers and spills;
+38. each generated kernel, each design, against its twin on the card:
+   33 x 70, 130 x 100 and 256^2 x radius 1, 2, 3, and 512^2 at radius 2
+   (the main path's instantiation), chained calls of K = 1, 2, 16, 17 on
+   one `ModelRun` from random states: bit-equal, the launches the C entry
+   counted;
+39. the DSL main paths: 1 launch a 16-step call at 512^2 (counted by the
+   C entry, equal to the profiler's records), 16 at 2048^2; the twin run
+   from the same start first, call by call: the state after its last
+   call with v finite bit-equal with v finite and neurons fired (the DSL
+   HH's v turns NaN within its run, in the twin alike: its rates are
+   0 / 0 at -40 and -55 mV exactly), the final state bit-equal;
+40. the DSL Izhikevich against the hand-written `Izhikevich` at 128^2 over
+   1000 steps (another association: spike counts within 2%, mean v within
+   1 mV);
+41. times of the DSL arm at 512^2 (both designs in turns) and 2048^2,
+   each timed call from the applied state.
+
+The DSL family (phases 37-41) runs first: late in a long run the profiler
+keeps fewer kernel records of every family, and a counted profile of the
+DSL main path once lost all in eight tries (a library loaded late is not
+the cause: ``tools/profiler_records.py``).
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -548,6 +579,122 @@ MTIMES = (((512, 512), 512, 32), ((700, 700), 256, 16),
 MBIG_STEPS = 1024
 BCM_STEPS = 2000
 MODEL_REPLACES = "spiking_neural_networks_tpu/ops/pallas_stencil.py:792"
+# DSL phases (kernel 4's DSL arm, `ops/dsl_kernels.py`): three neurons of
+# the DSL, by type name, from the JAX package's tests (the DSL Izhikevich
+# of `tests/test_dsl.py:12-25`, the DSL Hodgkin-Huxley of
+# `tests/test_dsl_reference_suite.py:57-101`: three ion channels, gating
+# variables, `^`, `continuous()`, and `DSL_BRANCHY` of
+# `tests/test_pallas_model.py:38-56`: [if] / [else], a user function)
+DSL_SOURCES = {
+    "DSLIzhikevich": """
+[neuron]
+    type: DSLIzhikevich
+    vars: w = 30, a = 0.02, b = 0.2, c = -55, d = 8, v_th = 30, tau_m = 1, c_m = 100
+    on_spike:
+        v = c
+        w += d
+    spike_detection: v >= v_th
+    on_iteration:
+        dw/dt = (a * (b * v - w)) / tau_m
+        dv/dt = (0.04 * v * v + 5 * v + 140 - w + i) / c_m
+[end]
+""",
+    "DSLHodgkinHuxley": """
+[ion_channel]
+    type: DSLNa
+    vars: e = 50, g = 120
+    gating_vars: m, h
+    on_iteration:
+        m.alpha = 0.1 * ((v + 40.) / (1. - exp(-(v + 40.) / 10.)))
+        m.beta = 4. * exp(-(v + 65.) / 18.)
+        h.alpha = 0.07 * exp(-(v + 65.) / 20.)
+        h.beta = 1. / (exp(-(v + 35.) / 10.) + 1.)
+        m.update(dt)
+        h.update(dt)
+        current = m.state ^ 3 * h.state * g * (v - e)
+[end]
+
+[ion_channel]
+    type: DSLK
+    vars: e = -77, g = 36
+    gating_vars: n
+    on_iteration:
+        n.alpha = 0.01 * (v + 55.) / (1. - exp(-(v + 55.) / 10.))
+        n.beta = 0.125 * exp(-(v + 65.) / 80.)
+        n.update(dt)
+        current = n.state ^ 4 * g * (v - e)
+[end]
+
+[ion_channel]
+    type: DSLKLeak
+    vars: e = -55, g = 0.3
+    on_iteration:
+        current = g * (v - e)
+[end]
+
+[neuron]
+    type: DSLHodgkinHuxley
+    ion_channels: na = DSLNa, k = DSLK, kleak = DSLKLeak
+    vars: v_th = 0, c_m = 1
+    spike_detection: continuous()
+    on_iteration:
+        na.update_current(v)
+        k.update_current(v)
+        kleak.update_current(v)
+        dv/dt = (i - (na.current + k.current + kleak.current)) / c_m
+[end]
+""",
+    "KernelBranchy": """
+[neuron]
+    type: KernelBranchy
+    vars: w = 30, a = 0.02, b = 0.2, c = -55, d = 8, v_th = 30, tau_m = 1, c_m = 100, boost = 1.5
+    on_spike:
+        v = c
+        w += d
+    spike_detection: v >= v_th
+    on_iteration:
+        gain(x) = max(x, 0.5)
+        [if] v < -60 [then]
+            dv/dt = (0.04 * v * v + 5 * v + 140 - w + i * boost) / c_m
+        [else]
+            dv/dt = (0.04 * v * v + 5 * v + 140 - w + i * gain(boost - 1)) / c_m
+        [end]
+        dw/dt = (a * (b * v - w)) / tau_m
+[end]
+""",
+}
+# the kernel-vs-twin cases: shapes x stencil radii, chained calls of DSL_KS
+# steps on one ModelRun, each design
+DSL_SHAPES = ((33, 70), (130, 100), (256, 256))
+DSL_RADII = (1.0, 2.0, 3.0)
+DSL_KS = (1, 2, 16, 17)
+# the main paths at DMAIN (the persistent design): steps per model; the
+# DSL Izhikevich at DBIG (the per-step design) over DBIG_STEPS; the
+# comparison with the hand-written Izhikevich at DCMP over DCMP_STEPS
+DMAIN = (512, 512)
+DMAIN_STEPS = {"DSLIzhikevich": 2048, "DSLHodgkinHuxley": 1024,
+               "KernelBranchy": 512}
+DBIG, DBIG_STEPS = (2048, 2048), 256
+DCMP, DCMP_STEPS = (128, 128), 1000
+# the parameters of each model drawn within 20% of their defaults in the
+# kernel-vs-twin cases (HH keeps its defaults: its rates are stiff)
+DSL_RANDOM_PARAMS = {"DSLIzhikevich": ("a", "b", "c", "d", "v_th", "c_m"),
+                     "KernelBranchy": ("a", "b", "c", "d", "v_th", "c_m",
+                                       "boost"),
+                     "DSLHodgkinHuxley": ()}
+# float operations of a generated step's kernel functions for the bound (a
+# transcendental as EXP_OPS and its few operations around exp); every
+# other operation of the emitted step counts 1
+# the DSL HH's firing form: dt 0.01 (the DSL's default of 0.1 drives HH to
+# -inf within a few steps; the JAX package's DSL HH test takes 0.01) and
+# the equilibrium gates of its HH kernel tests (with the gates at 0 no
+# neuron of a lattice fires)
+DSL_HH_FORM = {"dt": 0.01, "na$m$state": 0.05, "na$h$state": 0.6,
+               "k$n$state": 0.32}
+DSL_CALL_OPS = {"kernel_exp": EXP_OPS, "kernel_tanh": EXP_OPS + 4,
+                "kernel_cosh": EXP_OPS + 3, "kernel_sinh": EXP_OPS + 4,
+                "kernel_ln": EXP_OPS + 1, "kernel_log10": EXP_OPS + 2,
+                "ms_pow": 2 * EXP_OPS + 3}
 T0 = time.perf_counter()
 
 
@@ -5930,6 +6077,474 @@ def model_times_phase(snt, mk, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernel 4's DSL arm: phases 37-41
+# ---------------------------------------------------------------------------
+
+
+def dsl_model(snt, name):
+    """A fresh port model of `DSL_SOURCES`' neuron ``name``, through the
+    user's entry point."""
+    return snt.dsl.neuron_builder(DSL_SOURCES[name])[name]()
+
+
+def dsl_lattice(snt, name, rows, cols, use_kernel=None, device="cuda",
+                seed=1):
+    """The main path's lattice: `Lattice` -> `populate` (gap 10; the DSL
+    HH in `DSL_HH_FORM`) -> `connect_stencil` (radius 2, keep
+    0.8, graph seed 7) -> `apply` (v0 uniform in [-65, 30) from
+    ``default_rng(seed)``)."""
+    lat = snt.Lattice(dsl_model(snt, name), device=device)
+    lat.populate(rows, cols, gap_conductance=10.0,
+                 **(DSL_HH_FORM if name == "DSLHodgkinHuxley" else {}))
+    lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=7)
+    v0 = np.random.default_rng(seed).uniform(-65.0, 30.0, rows * cols)
+    lat.apply(lambda s: {**s, "v": torch.as_tensor(v0, dtype=torch.float32,
+                                                   device=lat.device)})
+    lat.use_kernel = use_kernel
+    return lat
+
+
+def dsl_inputs(snt, mk, model, name, shape, radius, seed):
+    """The planes of one chain of calls on the card, made from ``seed``: v
+    uniform in [-65, 30), the parameters of `DSL_RANDOM_PARAMS` within 20%
+    of their defaults, HH in `DSL_HH_FORM`, random spikes,
+    was_increasing and firing times, weights uniform in [0.5, 1.5)."""
+    rows, cols = shape
+    rng = np.random.default_rng(seed)
+    fields, _ = mk.model_kernel_fields(model)
+    g = snt.StencilGraph.build(rows, cols, snt.radius_offsets(radius),
+                               keep_prob=0.8, seed=seed + 1,
+                               weight_fn=lambda dr, dc, rr, cc:
+                               rng.uniform(0.5, 1.5, rr.shape),
+                               device="cuda")
+    st = model.init_state_host(
+        rows * cols, **(DSL_HH_FORM if name == "DSLHodgkinHuxley" else {}))
+    planes = {k: st[k].reshape(shape) for k, _ in fields}
+    for k in DSL_RANDOM_PARAMS[name]:
+        planes[k] = (planes[k] * rng.uniform(0.8, 1.2, shape)
+                     ).astype(np.float32)
+    planes["v"] = rng.uniform(-65.0, 30.0, shape).astype(np.float32)
+    planes["is_spiking"] = rng.random(shape) < 0.3
+    if "was_increasing" in planes:
+        planes["was_increasing"] = rng.random(shape) < 0.5
+    lft = np.where(rng.random(shape) < 0.2, 5, -1).astype(np.int32)
+    cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    return dict(model=model, planes={k: cuda(p) for k, p in planes.items()},
+                lft=cuda(lft), weights=g.weights, in_deg=g.in_deg,
+                offsets=g.offsets)
+
+
+def bit_diff(got, want):
+    """(float elements whose bits differ, other mismatches, max float
+    error) of two `model_steps` results; a NaN on both sides counts as
+    equal."""
+    fl, other, err = 0, 0, 0.0
+    for k, w in want[0].items():
+        g = got[0][k]
+        if w.dtype == torch.float32:
+            both_nan = torch.isnan(g) & torch.isnan(w)
+            fl += int(((g.view(torch.int32) != w.view(torch.int32))
+                       & ~both_nan).sum())
+            d = torch.where(both_nan, 0.0, (g - w).abs())
+            err = max(err, float(torch.nan_to_num(d, nan=np.inf).max()))
+        else:
+            other += int((g != w).sum())
+    other += int((got[1] != want[1]).sum()) + int((got[2] != want[2]).sum())
+    return fl, other, err
+
+
+def dsl_ops(dk, model, offsets, rows, cols, k):
+    """Float operations of ``k`` steps: per cell the weight sum, the input
+    current (5) and the emitted step's operations (`DSL_CALL_OPS` for its
+    functions), per on-grid slot a multiply and an add."""
+    ops = sum(n * DSL_CALL_OPS.get(op, 1)
+              for op, n in dk.layout(model).ops.items())
+    return k * (rows * cols * (len(offsets) + 5 + ops)
+                + 2 * ingrid_slots(offsets, rows, cols))
+
+
+def dsl_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import (dsl_kernels as dk,
+                                                       model_kernels as mk)
+    dsl_build_phase(snt, dk, mk)
+    twin_err, twin_calls = dsl_twin_phase(snt, mk)
+    launches, finite_steps = dsl_main_phase(snt, mk)
+    dsl_cmp_phase(snt)
+    times = dsl_times_phase(snt, dk, mk, smi, finite_steps)
+    out = []
+    for design, name, shape in (("persistent", "DSLIzhikevich", DMAIN),
+                                ("per_step", "DSLIzhikevich", DBIG)):
+        t = times[name, shape]
+        kernel = ("model_persistent_kernel<Dsl, CPT>" if design ==
+                  "persistent" else "model_stencil_kernel<Dsl> (per step)")
+        out.append({
+            "name": f"model_steps, DSL arm: {kernel}", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/_build/dsl/"
+                      + os.path.basename(t["library"])[:-3] + ".cu "
+                      "(generated by ops/dsl_kernels.py, over "
+                      "csrc/model_stencil.cuh)",
+            "replaces": MODEL_REPLACES, "launches": launches[design],
+            "max_abs_err": twin_err, "ms": t["kernel_ms"],
+            "plain_ms": t["twin_ms"], "device_ms": t["device_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes a lattice "
+                            "step"})
+    return out
+
+
+def dsl_build_phase(snt, dk, mk):
+    """37. The three generated sources in one round of nvcc runs started
+    together: the seconds, each library, and every instantiation's
+    registers and spills (none expected)."""
+    from spiking_neural_networks_tpu_torch import _build
+    models = {n: dsl_model(snt, n) for n in DSL_SOURCES}
+    t0 = time.perf_counter()
+    paths = dk.build(list(models.values()))
+    wall = time.perf_counter() - t0
+    say(f"[37 build] {len(paths)} generated sources, nvcc started together: "
+        f"{wall:.2f} s ({'built' if _build.generated_seconds else 'cached'})"
+        f"; " + ", ".join(f"{n} -> {os.path.basename(p)}"
+                          for n, p in zip(models, paths)))
+    for (name, model), path in zip(models.items(), paths):
+        log = _build.generated_logs.get(os.path.basename(path), "")
+        lines = log.splitlines()
+        found = []
+        for k, ln in enumerate(lines):
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln.strip()
+                rep = [x.strip().replace("ptxas info    : ", "")
+                       for x in lines[k + 1:k + 4]
+                       if "spill" in x or "registers" in x]
+                found.append((entry, "; ".join(rep)))
+        lay = dk.layout(model)
+        reg = sum(1 for c in lay.codes
+                  if c & dk.READ and c & dk.CARRIED)
+        say(f"[37 build] {name}: {len(lay.fields)} fields ({reg} in "
+            f"registers, max {mk.max_cpt(model)} cells a thread), carried "
+            f"{list(lay.carry)}; " + "; ".join(
+                f"{e.split('EE')[0][-40:]}: {r}" for e, r in found))
+        if log:
+            cpts = 3 if mk.max_cpt(model) == 4 else 2
+            check(len(found) == 1 + cpts,
+                  f"{name}: {len(found)} instantiations in ptxas's report")
+            check(all("0 bytes spill stores, 0 bytes spill loads" in r
+                      for _, r in found), f"{name}: an instantiation spills")
+
+
+def dsl_twin_phase(snt, mk):
+    """38. For each model, each design: `DSL_SHAPES` x `DSL_RADII` and the
+    main path's `DMAIN` at radius 2 (the persistent design's
+    instantiation the main path takes), a chain of calls of `DSL_KS` steps
+    on one ModelRun from a random state, held against the twin on the
+    card call by call: floats bit-equal, ints, bools and lft equal, the C
+    entry's launches `call_launches`.  Returns (max float error, calls)."""
+    calls, max_err = 0, 0.0
+    cases = [(sh, r) for sh in DSL_SHAPES for r in DSL_RADII] + [(DMAIN, 2.0)]
+    for m, name in enumerate(DSL_SOURCES):
+        bad_f, bad_o, fired, n_calls, main_cpt = 0, 0, 0, 0, None
+        nonfinite = 0
+        for c, (shape, radius) in enumerate(cases):
+            inp = dsl_inputs(snt, mk, dsl_model(snt, name), name, shape,
+                             radius, 100 * m + c)
+            wants, tp, tl, clock = [], dict(inp["planes"]), inp["lft"], 10
+            for k in DSL_KS:
+                want = mk.model_steps_reference(
+                    inp["model"], tp, tl, inp["weights"], inp["in_deg"],
+                    inp["offsets"], clock, k)
+                wants.append((clock, k, want))
+                tp = dict(tp, **want[0])
+                tl, clock = want[1], clock + k
+                fired += int((want[1] >= clock - k).sum())
+            nonfinite += int((~torch.isfinite(tp["v"])).sum())
+            for per_step in (False, True):
+                run = mk.ModelRun(inp["model"], inp["planes"], inp["lft"],
+                                  inp["weights"], inp["in_deg"],
+                                  inp["offsets"], per_step=per_step)
+                if shape == DMAIN and not per_step:
+                    check(run.plan is not None, f"{name}: the main path's "
+                          f"shape is not on the persistent design")
+                    main_cpt = -(-run.plan.cap // mk.THREADS)
+                for clock, k, want in wants:
+                    before = mk.STEP_LAUNCHES
+                    got = run.steps(clock, k)
+                    torch.cuda.synchronize()
+                    check(mk.STEP_LAUNCHES - before == mk.call_launches(
+                        k, run.plan is not None),
+                          f"{name}: the C entry counted other launches")
+                    f, o, e = bit_diff(got, want)
+                    bad_f, bad_o, n_calls = bad_f + f, bad_o + o, n_calls + 1
+                    max_err = max(max_err, e)
+            del inp, wants
+        calls += n_calls
+        say(f"[38 kernel-vs-twin] {name}: {n_calls} calls (("
+            + ", ".join(f"{r}x{c}" for r, c in DSL_SHAPES)
+            + f" x radius {', '.join(f'{r:g}' for r in DSL_RADII)}) and "
+            f"{DMAIN[0]}x{DMAIN[1]} radius 2 (persistent: {main_cpt} cells a "
+            f"thread, as the main path) x K "
+            f"{', '.join(map(str, DSL_KS))} chained on one ModelRun, each "
+            f"design): float elements not bit-equal {bad_f}, integer / bool "
+            f"/ spike / lft mismatches {bad_o}, neurons fired in the calls "
+            f"{fired}, non-finite v at the chains' ends {nonfinite}")
+        check(bad_f == 0 and bad_o == 0, f"{name}: the kernel differs from "
+              f"its twin")
+        check(fired > 0, f"{name}: no neuron fired in its calls")
+    return max_err, calls
+
+
+def twin_until_nonfinite(mk, model, planes, lft, g, steps):
+    """The twin run of ``steps`` steps from ``planes`` / ``lft`` on the
+    card in calls of `STEPS_PER_LAUNCH`: ``(final, n1, at_n1)``, ``final``
+    its ``(carried, lft, spikes)`` after the last call, ``n1`` the steps
+    after which v was last finite at a call's end (``steps`` where it
+    stays finite), ``at_n1`` the state then (None where ``n1`` is 0)."""
+    K = mk.STEPS_PER_LAUNCH
+    tp, tl, clock = dict(planes), lft, 0
+    n1, at_n1, out = 0, None, None
+    while clock < steps:
+        n = min(K, steps - clock)
+        out = mk.model_steps_reference(model, tp, tl, g.weights, g.in_deg,
+                                       g.offsets, clock, n)
+        tp, tl = dict(tp, **out[0]), out[1]
+        clock += n
+        if n1 == clock - n and bool(torch.isfinite(out[0]["v"]).all()):
+            n1, at_n1 = clock, out
+    return out, n1, at_n1
+
+
+def dsl_main_phase(snt, mk):
+    """39. The main paths through the user's entry points: each model at
+    `DMAIN` for `DMAIN_STEPS` (the persistent design, one launch a 16-step
+    call, counted by the C entry and in the profiler's records), the DSL
+    Izhikevich at `DBIG` for `DBIG_STEPS` (the per-step design).  The twin
+    runs first from the same start, call by call, and gives ``n1``, the
+    steps after which its v was last finite at a call's end.  The DSL HH
+    source's m and n rates are 0 / 0 at v = -40 and -55 mV exactly (the
+    JAX package's too): at 512^2 a cell lands there within the run and its
+    NaN spreads through the gap junctions.  So where ``n1`` falls short of
+    the run, the main path runs as ``run_lattice(n1)`` then
+    ``run_lattice(steps - n1)`` (the same 16-step calls), and the state
+    after ``n1`` steps is held bit for bit against the twin's with v
+    finite and neurons fired; the final state is held bit for bit too (a
+    NaN on both sides counts as equal).  Returns the kernel launches per
+    design and ``n1`` per run."""
+    K = mk.STEPS_PER_LAUNCH
+    sms = mk.sm_count(torch.device("cuda"))
+    launches = {"persistent": 0, "per_step": 0}
+    finite_steps = {}
+    runs = [(n, DMAIN, s) for n, s in DMAIN_STEPS.items()] \
+        + [("DSLIzhikevich", DBIG, DBIG_STEPS)]
+    for name, size, steps in runs:
+        lat = dsl_lattice(snt, name, *size)
+        shape = (lat.rows, lat.cols)
+        fields, _ = mk.model_kernel_fields(lat.model)
+        st, g = lat.state, lat.graph
+        planes = {k: st[k].reshape(shape).clone() for k, _ in fields}
+        lft0 = st["last_firing_time"].reshape(shape).clone()
+        want, n1, want1 = twin_until_nonfinite(mk, lat.model, planes, lft0,
+                                               g, steps)
+        finite_steps[name, size] = n1
+        check(n1 > 0, f"{name}: the twin's v is not finite after its first "
+              f"call")
+        plan = mk.persistent_plan(lat.model, shape, len(g.offsets), sms)
+        persistent = mk.uses_persistent(lat.model, shape, len(g.offsets),
+                                        sms)
+        state = lambda: ({k: lat.state[k].reshape(shape) for k in want[0]},
+                         lat.state["last_firing_time"].reshape(shape),
+                         lat.state["is_spiking"].reshape(shape))
+        mk.LAUNCHES = mk.STEP_LAUNCHES = 0
+        t0 = time.perf_counter()
+        lat.run_lattice(n1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got1 = state()
+        bad1_f, bad1_o, _ = bit_diff(got1, want1)
+        v1, lft1 = got1[0]["v"], got1[1]
+        finite1 = bool(torch.isfinite(v1).all())
+        fired1, late1 = int((lft1 >= 0).sum()), int((lft1 >= n1 // 2).sum())
+        if n1 < steps:
+            t0 = time.perf_counter()
+            lat.run_lattice(steps - n1)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        calls, kernel_launches = mk.LAUNCHES, mk.STEP_LAUNCHES
+        launches["persistent" if persistent else "per_step"] += \
+            kernel_launches
+        bad_f, bad_o, _ = bit_diff(state(), want)
+        v, lft = lat.state["v"], lat.state["last_firing_time"]
+        nonfinite = int((~torch.isfinite(v)).sum())
+        fired, late = int((lft >= 0).sum()), int((lft >= steps // 2).sum())
+        recs = kernel_records(lambda: lat.run_lattice(4 * K), 4 * (
+            1 if persistent else K), mine=("model_",))
+        cpt = -(-plan.cap // mk.THREADS) if persistent else None
+        split = (f" as run_lattice({n1}) + run_lattice({steps - n1})"
+                 if n1 < steps else "")
+        design = (f"persistent design ({cpt} cells a thread)" if persistent
+                  else "per-step design")
+        say(f"[39 main path] {name} {shape[0]}x{shape[1]} run_lattice("
+            f"{steps}){split}: route {lat._last_run_fused}, {design}, "
+            f"kernel calls {calls}, kernel launches {kernel_launches} "
+            f"(counted by the C entry; {kernel_launches / calls:.2f} a "
+            f"call), profiler records of 4 more calls {records_line(recs)}; "
+            f"the twin's v finite at a call's end through step {n1} of "
+            f"{steps}; the state after step {n1} against the twin's: float "
+            f"elements not bit-equal {bad1_f}, other mismatches {bad1_o}, v "
+            f"finite {finite1}, range [{v1.min().item():.3f}, "
+            f"{v1.max().item():.3f}], fired {fired1} of {lat.n}, from step "
+            f"{n1 // 2} {late1}; the final state against the twin's: float "
+            f"elements not bit-equal {bad_f}, other mismatches {bad_o}, "
+            f"non-finite v {nonfinite} (the twin's "
+            f"{int((~torch.isfinite(want[0]['v'])).sum())}), fired {fired}, "
+            f"from step {steps // 2} {late}; wall {wall:.3f} s")
+        check(lat._last_run_fused == "model", f"{name}: the main path took "
+              f"{lat._last_run_fused}")
+        check(calls == -(-steps // K), f"{name}: wrong number of kernel calls")
+        check(kernel_launches == calls * mk.call_launches(K, persistent),
+              f"{name}: the C entry counted other launches than the design "
+              f"has")
+        check(sum(recs.values()) == 4 * mk.call_launches(K, persistent),
+              f"{name}: the profiler's records differ from the launches")
+        check(bad1_f == 0 and bad1_o == 0 and bad_f == 0 and bad_o == 0,
+              f"{name}: the main path differs from the twin")
+        check(finite1 and fired1 > 0, f"{name}: v not finite or no neuron "
+              f"fired in the finite part of the main path")
+        del lat, want, want1, got1, planes
+    return launches, finite_steps
+
+
+def dsl_cmp_phase(snt):
+    """40. The DSL Izhikevich against the hand-written `Izhikevich` at
+    `DCMP` over `DCMP_STEPS`, both on their kernel routes on the card (the
+    model kernel's DSL arm and the stencil kernel): another association,
+    so held statistically (ROADMAP queue 3 item 4): the tie report, the
+    spike counts within 2%, the mean v at the end within 1 mV."""
+    runs = {}
+    for key, make in (("dsl", lambda: dsl_lattice(snt, "DSLIzhikevich",
+                                                  *DCMP)),
+                      ("hand", lambda: main_lattice(snt, *DCMP))):
+        lat = make()
+        vs, lfts, spikes = [], [], 0
+        for _ in range(DCMP_STEPS):
+            lat.run_lattice(1)
+            vs.append(lat.state["v"])
+            lfts.append(lat.state["last_firing_time"])
+            spikes += int(lat.state["is_spiking"].sum())
+        runs[key] = (torch.stack(vs).cpu().numpy(),
+                     torch.stack(lfts).cpu().numpy().astype(np.int64),
+                     lat._last_run_fused, spikes)
+    hk, lk, rk, sk_ = runs["dsl"]
+    hp, lp, rp, sp = runs["hand"]
+    d = np.abs(hk - hp)
+    dvs = d.max(axis=1)
+    s0 = int(np.argmax(dvs > DRIFT)) if (dvs > DRIFT).any() else None
+    outside = int((d > 2.0).any(axis=0).sum())
+    n = DCMP[0] * DCMP[1]
+    dmean = abs(float(hk[-1].mean()) - float(hp[-1].mean()))
+    say(f"[40 dsl-vs-hand-written] DSLIzhikevich (route {rk}) vs Izhikevich "
+        f"(route {rp}) {DCMP[0]}x{DCMP[1]} {DCMP_STEPS} steps on the card: "
+        f"first step with |dv| > {DRIFT}: {s0}, max|dv| before it "
+        f"{float(dvs[:s0].max()) if s0 else float(dvs.max()):.4g} mV, "
+        f"neurons ever outside 2 mV {outside} of {n}, spikes {sk_} vs {sp}, "
+        f"fired {int((lk[-1] >= 0).sum())} vs {int((lp[-1] >= 0).sum())}, "
+        f"final mean v {hk[-1].mean():.4f} vs {hp[-1].mean():.4f} mV")
+    check(rk == "model" and rp == ("kernel", False), "wrong routes")
+    check(abs(sk_ - sp) <= 0.02 * max(sp, 1), "the spike counts differ by "
+          "more than 2%")
+    check(dmean <= 1.0, "the mean v differs by more than 1 mV")
+
+
+def from_start(run, k):
+    """A `ModelRun`'s call of ``k`` steps as ``fn()``, for timing: each
+    call runs the first ``k`` steps from the planes the run was built on
+    (its state set back to them first), so a timed call never reaches a
+    step past the main path's last finite v."""
+    def fn():
+        run.sets.cur = None
+        return run.steps(0, k)
+    return fn
+
+
+def dsl_times_phase(snt, dk, mk, smi, finite_steps):
+    """41. Each model at `DMAIN` (512 steps a timed run) and the DSL
+    Izhikevich at `DBIG` (64), every timed run from the state `apply` made:
+    the run's wall time per step (at most the ``finite_steps`` the main
+    path's twin kept v finite, the state set back before each run), and
+    the routed design's calls on one `ModelRun` (`from_start`; CUDA
+    events; device time under torch.profiler over `EPROF` calls with every
+    kernel record counted), device / wall, bytes, the bound and the twin's
+    time; at `DMAIN` both designs in turns.  Returns them by (model,
+    shape), per 16-step call."""
+    K = mk.STEPS_PER_LAUNCH
+    sms = mk.sm_count(torch.device("cuda"))
+    out = {}
+    for name, shape in [(n, DMAIN) for n in DSL_SOURCES] \
+            + [("DSLIzhikevich", DBIG)]:
+        lat = dsl_lattice(snt, name, *shape)
+        steps = min(512 if shape == DMAIN else 64, finite_steps[name, shape])
+        fresh = dict(lat.state)
+
+        def from_fresh():
+            lat.reset_timing()
+            lat.apply(lambda s: dict(fresh))
+            return run_synced(lat, steps)
+        from_fresh()
+        wall = min(from_fresh() for _ in range(3))
+        check(lat._last_run_fused == "model", "timed the wrong route")
+        check(bool(torch.isfinite(lat.state["v"]).all()),
+              f"{name}: timed a run whose v is not finite")
+        fields, _ = mk.model_kernel_fields(lat.model)
+        g, st = lat.graph, fresh
+        inp = dict(model=lat.model, planes={
+            k: st[k].reshape(shape) for k, _ in fields},
+            lft=st["last_firing_time"].reshape(shape), weights=g.weights,
+            in_deg=g.in_deg, offsets=g.offsets)
+        persistent = mk.uses_persistent(lat.model, shape, len(g.offsets),
+                                        sms)
+        runs = {d: mk.ModelRun(lat.model, inp["planes"], inp["lft"],
+                               g.weights, g.in_deg, g.offsets,
+                               per_step=d == "per_step")
+                for d in (("persistent", "per_step") if persistent
+                          else ("per_step",))}
+        routed = "persistent" if persistent else "per_step"
+        kernel = from_start(runs[routed], K)
+        n_bytes = tensor_bytes([inp["planes"][k] for k in
+                                mk.model_read_fields(lat.model)],
+                               inp["lft"], g.weights, g.in_deg, kernel())
+        bnd = bound(n_bytes, dsl_ops(dk, lat.model, g.offsets, *shape, K))
+        kernel_ms = event_ms(kernel, 20)
+        twin_ms = event_ms(lambda: mk.model_steps_reference(
+            lat.model, inp["planes"], inp["lft"], g.weights, g.in_deg,
+            g.offsets, 0, K), 2)
+        n_launch = mk.call_launches(K, persistent)
+        dev_us, top = profiled_us(lambda: [kernel() for _ in range(EPROF)],
+                                  EPROF * K, launches=EPROF * n_launch)
+        wall_us = wall / steps * 1e6
+        out[name, shape] = dict(kernel_ms=kernel_ms, twin_ms=twin_ms,
+                                device_ms=dev_us * K / 1e3, bound=bnd,
+                                library=dk.build([lat.model])[0])
+        say(f"[41 times] {name} {shape[0]}x{shape[1]}: kernel route "
+            f"(the {routed} design) {rate(shape, wall, steps)}, best of 3 x "
+            f"{steps} steps from the applied state; kernel calls back to back "
+            f"{kernel_ms * 1e3 / K:.3f} us/step (events); device time "
+            f"{dev_us:.3f} us/step (profiled, {EPROF} calls, "
+            f"{EPROF * n_launch} kernel records: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"); device time / wall {dev_us / wall_us:.3f}; "
+            f"{n_bytes / 1e6:.2f} MB a call; bound {bnd[0] * 1e3 / K:.4f} "
+            f"us/step ({bnd[1]}); plain twin {twin_ms * 1e3 / K:.3f} us/step "
+            f"(events); library call: none; card {smi}")
+        if persistent:
+            turns = designs_in_turns(
+                {d: from_start(runs[d], K) for d in runs},
+                {d: mk.call_launches(K, d == "persistent") for d in runs}, K)
+            say(f"[41 times] {name} {shape[0]}x{shape[1]}, the designs in "
+                f"turns on one ModelRun each: {design_line(turns)}; card "
+                f"{smi}")
+        del lat, inp, runs
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -5988,9 +6603,12 @@ def main():
         f"ptxas: {' / '.join(ptxas)}")
 
     kernels = []
-    for phases in (stencil_phases, plasticity_phases, network_phases,
-                   hh_phases, chem_phases, flat_phases, reward_phases,
-                   env_phases, model_phases):
+    # the DSL family first: late in a long run the profiler keeps fewer
+    # kernel records of every family (it once kept none of the DSL main
+    # path's in eight tries)
+    for phases in (dsl_phases, stencil_phases, plasticity_phases,
+                   network_phases, hh_phases, chem_phases, flat_phases,
+                   reward_phases, env_phases, model_phases):
         t0 = time.perf_counter()
         out = phases(snt, smi)
         kernels += out if isinstance(out, list) else [out]

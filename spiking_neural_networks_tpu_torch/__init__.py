@@ -13,9 +13,14 @@ stencil, dense and sparse graphs with one-to-one, resample and dense
 connections; structured or flat COO runner) and the
 `RewardModulatedLatticeNetwork`, with their history readouts, the
 closed agent-environment loops (`Environment`, `UnsupervisedEnvironment`,
-`interactable.JitEnvironment`), and hand-written CUDA kernels for NVIDIA
-Hopper (``csrc/``) that run those lattices' and networks' steps on the
-GPU.  Entry points put their tensors
+`interactable.JitEnvironment`), the `.nb` model-definition language
+(`dsl`: `dsl.neuron_builder` compiles neurons, spike trains, ion channels,
+receptors and kinetics into the package's classes), and hand-written CUDA
+kernels for NVIDIA Hopper (``csrc/``) that run those lattices' and
+networks' steps on the GPU.  A DSL neuron on an electrical stencil lattice
+runs on the model kernel, through a CUDA functor generated from its step
+and built by nvcc at first use (``ops/dsl_kernels.py``).  Entry points put
+their tensors
 on the GPU (``device="cuda"``) unless the caller asks for another device.
 It imports PyTorch and NumPy, never JAX.
 """
@@ -36,7 +41,7 @@ from .core.lattice import Lattice
 from .core.network import LatticeNetwork, SpikeTrainLattice
 from .core.reward import RewardModulatedLattice
 from .core.reward_network import RewardModulatedLatticeNetwork
-from . import errors
+from . import dsl, errors
 from .core.plasticity import BCM, STDP, RewardModulatedSTDP
 from .core import history
 from .ops.graph import (DenseGraph, SparseGraph, StencilGraph,

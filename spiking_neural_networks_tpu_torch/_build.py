@@ -14,6 +14,15 @@ loaded.  Nothing is built when the package is imported.
 
 ``-fmad=false`` keeps each multiply and add separately rounded, so the
 kernels agree bit for bit with their plain PyTorch twins.
+
+A generated source (``ops/dsl_kernels.py``: one functor from a DSL neuron
+and the model kernel's C entries for it, including
+``csrc/model_stencil.cuh``) builds the same way into a library of its own
+under ``_build/dsl/``, named by a hash of its text, the headers and the
+flags, so one DSL source builds once per machine (`load_generated`);
+`build_generated` starts the nvcc runs of several sources together.
+
+    nvcc <flags> -I csrc -shared -o _build/dsl/libsnn_dsl-<hash>.so <source>
 """
 
 from __future__ import annotations
@@ -34,12 +43,20 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
+GENERATED_DIR = os.path.join(BUILD_DIR, "dsl")
+CSRC = os.path.join(_HERE, "csrc")
+
 _lib = None
+_generated = {}
 # Set by the build that `load` runs in this process (None when the library
 # was already built): wall seconds of the nvcc calls and their output,
 # which holds ptxas's register and spill report of every kernel.
 build_seconds = None
 build_log = ""
+# The same for the last `build_generated` round that compiled something:
+# its wall seconds and nvcc's output, by library file name.
+generated_seconds = None
+generated_logs = {}
 
 
 def _nvcc():
@@ -178,33 +195,7 @@ def load():
         ci, pi, vp,                         # per_step, launched, stream
     ]
     lib.hh_chemical_steps.restype = ci
-    lib.model_stencil_layout.argtypes = [ci, pi]   # kind, codes
-    lib.model_stencil_layout.restype = ci
-    lib.model_stencil_limits.argtypes = [pi]
-    lib.model_stencil_limits.restype = None
-    lib.model_stencil_steps.argtypes = [
-        ci, pv, ci,                         # kind, fields, n_fields
-        pv, pv,                             # buffer sets 0 and 1
-        vp, vp, vp,                         # lft, lft buffers 0 and 1
-        vp, vp,                             # weights, in_deg
-        pi, pi, ci,                         # dr, dc, n_off
-        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        pi, vp,                             # launched, stream
-    ]
-    lib.model_stencil_persistent.argtypes = [
-        ci, pv, ci,                         # kind, fields, n_fields
-        pv, pv,                             # buffer sets 0 and 1
-        vp, vp, vp,                         # lft, lft buffers 0 and 1
-        vp, vp,                             # v scratch planes 0 and 1
-        vp,                                 # v_pre (nullable; MS_IZH)
-        vp, vp,                             # weights, in_deg
-        pi, pi, ci,                         # dr, dc, n_off
-        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        pi, ci, ci,                         # slots, blocks, cap
-        pi, vp,                             # launched, stream
-    ]
-    lib.model_stencil_persistent.restype = ci
-    lib.model_stencil_steps.restype = ci
+    bind_model_entries(lib)
     lib.net_limits.argtypes = [pi]
     lib.net_limits.restype = None
     lib.net_steps.argtypes = [
@@ -237,4 +228,106 @@ def load():
     ]
     lib.net_persistent_steps.restype = ci
     _lib = lib
+    return lib
+
+
+def bind_model_entries(lib):
+    """Set the ``argtypes`` and ``restype`` of the model kernel's C entries
+    (``model_stencil_layout``, ``model_stencil_limits``,
+    ``model_stencil_steps``, ``model_stencil_persistent``), which the main
+    library and every generated one export."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
+    lib.model_stencil_layout.argtypes = [ci, pi]   # kind, codes
+    lib.model_stencil_layout.restype = ci
+    lib.model_stencil_limits.argtypes = [pi]
+    lib.model_stencil_limits.restype = None
+    lib.model_stencil_steps.argtypes = [
+        ci, pv, ci,                         # kind, fields, n_fields
+        pv, pv,                             # buffer sets 0 and 1
+        vp, vp, vp,                         # lft, lft buffers 0 and 1
+        vp, vp,                             # weights, in_deg
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        pi, vp,                             # launched, stream
+    ]
+    lib.model_stencil_persistent.argtypes = [
+        ci, pv, ci,                         # kind, fields, n_fields
+        pv, pv,                             # buffer sets 0 and 1
+        vp, vp, vp,                         # lft, lft buffers 0 and 1
+        vp, vp,                             # v scratch planes 0 and 1
+        vp,                                 # v_pre (nullable; MS_IZH)
+        vp, vp,                             # weights, in_deg
+        pi, pi, ci,                         # dr, dc, n_off
+        ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
+        pi, ci, ci,                         # slots, blocks, cap
+        pi, vp,                             # launched, stream
+    ]
+    lib.model_stencil_persistent.restype = ci
+    lib.model_stencil_steps.restype = ci
+
+
+def generated_library_path(text):
+    """The library of generated source ``text``: its name holds a hash of
+    the text, the headers it may include and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + b"\0"
+                            + text.encode())
+    for src in HEADERS:
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(GENERATED_DIR,
+                        f"libsnn_dsl-{digest.hexdigest()[:16]}.so")
+
+
+def build_generated(texts):
+    """Build each generated source of ``texts`` whose library is not built
+    yet: its text written under `GENERATED_DIR`, one nvcc a source (compile
+    and link), all started together.  Raises with nvcc's output where a
+    build fails.  Returns the libraries' paths, in order."""
+    global generated_seconds
+    paths = [generated_library_path(t) for t in texts]
+    todo = {p: t for p, t in zip(paths, texts) if not os.path.exists(p)}
+    if not todo:
+        return paths
+    os.makedirs(GENERATED_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=GENERATED_DIR) as tmpdir:
+        jobs = []
+        for path, text in todo.items():
+            base = os.path.basename(path)[:-len(".so")]
+            src = os.path.join(GENERATED_DIR, base + ".cu")
+            tmp_src = os.path.join(tmpdir, base + ".cu")
+            with open(tmp_src, "w") as f:
+                f.write(text)
+            os.replace(tmp_src, src)
+            tmp = os.path.join(tmpdir, base + ".so")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-shared", "-o", tmp, src]
+            jobs.append((path, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for path, tmp, cmd, proc in jobs:
+            out = proc.communicate()[0]
+            generated_logs[os.path.basename(path)] = out
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+            else:
+                os.replace(tmp, path)   # atomic, as the main library
+        if failed:
+            raise RuntimeError("nvcc failed on a generated source:\n"
+                               + "\n".join(failed))
+    generated_seconds = time.perf_counter() - t0
+    return paths
+
+
+def load_generated(text):
+    """The loaded library of generated source ``text``, built first if
+    needed, its model-kernel entries bound."""
+    path = build_generated([text])[0]
+    lib = _generated.get(path)
+    if lib is None:
+        lib = ctypes.CDLL(path)
+        bind_model_entries(lib)
+        _generated[path] = lib
     return lib

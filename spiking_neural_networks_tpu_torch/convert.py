@@ -148,16 +148,26 @@ def spike_train_lattice_from(src, model, device="cuda"):
 
 def _port_model(model):
     """The port's model of the class and configuration of a JAX model: its
-    kinetics and its receptor system (family and kinetics)."""
+    kinetics and its receptor system (family and kinetics).  Raises a
+    `ValueError` for a class the port does not ship, such as a neuron of
+    the DSL: the caller passes the port's model (``model=``), built from
+    the same source."""
     from .models import (dopa, hodgkin_huxley, integrate_and_fire,
                          morris_lecar, spike_train)
     from .ops import receptors
     name = type(model).__name__
-    if hasattr(model, "refractoriness"):
+    modules = (spike_train,) if hasattr(model, "refractoriness") else (
+        hodgkin_huxley, dopa, integrate_and_fire, morris_lecar)
+    module = next((m for m in modules if isinstance(getattr(m, name, None),
+                                                    type)), None)
+    if module is None or ".dsl." in type(model).__module__:
+        raise ValueError(
+            f"the port has no model class {name!r} (a DSL neuron or a user "
+            f"class): pass the port's model with model=, e.g. "
+            f"lattice_from(src, model=dsl.neuron_builder(source)[{name!r}]())")
+    if module is spike_train:
         return getattr(spike_train, name)(model.nt_kinetics,
                                           model.refractoriness)
-    module = next(m for m in (hodgkin_huxley, dopa, integrate_and_fire,
-                              morris_lecar) if hasattr(m, name))
     rec = model.receptors
     kw = dict(nt_kinetics=model.nt_kinetics, rec_kinetics=model.rec_kinetics,
               receptors=getattr(receptors, type(rec).__name__)(rec.kinetics))

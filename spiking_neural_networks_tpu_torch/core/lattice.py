@@ -13,8 +13,9 @@ over one of five routes:
   K = 16 steps (the CUDA design its route takes on a GPU, the plain twin
   on the CPU);
 * the model kernel route (any other model of `ops.model_kernels`' table:
-  the integrate-and-fire family, `DopaIzhikevich`, `MorrisLecar`;
-  electrical, no plasticity, no history): calls of one
+  the integrate-and-fire family, `DopaIzhikevich`, `MorrisLecar`; or a
+  neuron of the DSL, through the kernel generated from its step,
+  `ops.dsl_kernels`; electrical, no plasticity, no history): calls of one
   `ops.model_kernels.ModelRun` per run, K = 16 steps each;
 * the STDP kernel route (Izhikevich, ALIF or LIF with ``do_plasticity``
   and `STDP`): calls of `ops.reward_kernels.lattice_plasticity_steps` of

@@ -12,8 +12,9 @@ reads the rule's ``NODE_KEYS`` at both endpoints and applies
 updates 0-dim f32 tensors (`rule_tensors`), so each operation rounds as
 the JAX package's f32 scalars do, with R-STDP's two decays hoisted out of
 the step.  The float-op transcendental functions of the CUDA kernels
-(`kernel_exp`, `kernel_log`, `kernel_pow`, `kernel_tanh`, `kernel_cosh`)
-live here too.
+(`kernel_exp`, `kernel_log`, `kernel_pow`, `kernel_tanh`, `kernel_cosh`,
+and the DSL's `kernel_ln`, `kernel_log10`, `kernel_sinh`, `kernel_sqrt`,
+`kernel_pow_nan`) live here too.
 """
 
 from __future__ import annotations
@@ -140,10 +141,20 @@ def kernel_pow(x, y):
     return torch.where(y == 1.0, x, p)
 
 
+def kernel_pow_nan(x, y):
+    """`kernel_pow` with a NaN where an operand is NaN (``x + y`` there,
+    torch.pow's rule; `kernel_pow` takes finite operands and turns a NaN x
+    into a number): the DSL's ``^`` on the kernel route (``ms_pow`` in
+    ``csrc/model_stencil.cuh``), whose operands a rate at its 0/0 point
+    can make NaN."""
+    return torch.where(torch.isnan(x) | torch.isnan(y), x + y,
+                       kernel_pow(x, y))
+
+
 def kernel_tanh(x):
     """tanh of a float32 tensor as ``sign(x) (1 - 2 / (kernel_exp(2|x|) +
     1))``, by the float32 operations of ``kernel_tanh`` in
-    ``csrc/model_stencil.cu``: the same bits on every device, within 2e-7
+    ``csrc/model_stencil.cuh``: the same bits on every device, within 2e-7
     of tanh.  ``2 / y`` is ``reciprocal(y) * 2``, which rounds as the
     division does (the scaling by 2 is exact)."""
     e = kernel_exp(2.0 * torch.abs(x))
@@ -154,10 +165,60 @@ def kernel_tanh(x):
 def kernel_cosh(x):
     """cosh of a float32 tensor as ``(e + 1 / e) / 2`` with ``e =
     kernel_exp(|x|)``, by the float32 operations of ``kernel_cosh`` in
-    ``csrc/model_stencil.cu``: the same bits on every device, within 4
+    ``csrc/model_stencil.cuh``: the same bits on every device, within 4
     ulps of cosh where it is finite."""
     e = kernel_exp(torch.abs(x))
     return 0.5 * (e + 1.0 / e)
+
+
+# sinh's Taylor coefficients 1/3!, 1/5!, 1/7!, 1/9! as float32 values
+_SINH_POLY = (2.75573188e-06, 0.000198412701, 0.00833333377, 0.166666672)
+_INV_LN10 = 0.434294492
+
+
+def kernel_ln(x):
+    """log of a float32 tensor by the float32 operations of ``kernel_ln``
+    in ``csrc/model_stencil.cuh``: `kernel_log` where x is positive and
+    finite, inf at inf, -inf at 0 and NaN below 0 or at NaN (the kernel
+    route's ``ln`` / ``log`` of the DSL)."""
+    pos = x > 0.0
+    y = kernel_log(torch.where(pos, x, 1.0))
+    y = torch.where(x == float("inf"), float("inf"), y)
+    return torch.where(pos, y, torch.where(x == 0.0, float("-inf"),
+                                           float("nan")))
+
+
+def kernel_sqrt(x):
+    """sqrt of a float32 tensor, correctly rounded on every device (the
+    CUDA kernels' ``sqrtf``): torch's float32 sqrt on a CPU can be off by
+    an ulp, so it is taken in float64 (correctly rounded there) and
+    rounded once to float32, which for sqrt gives the correctly rounded
+    float32 result."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def kernel_log10(x):
+    """log10 of a float32 tensor as ``kernel_ln(x) * float32(1 / ln 10)``
+    (``kernel_log10`` in ``csrc/model_stencil.cuh``): within 2 ulps of
+    log10, the same bits on every device."""
+    return kernel_ln(x) * _INV_LN10
+
+
+def kernel_sinh(x):
+    """sinh of a float32 tensor by the float32 operations of
+    ``kernel_sinh`` in ``csrc/model_stencil.cuh``: below |x| = 1 the
+    Taylor series to x^9 (no cancellation near 0), else ``sign(x) (e -
+    1 / e) / 2`` with ``e = kernel_exp(|x|)``; within 2 ulps of sinh, the
+    same bits on every device."""
+    x2 = x * x
+    p = x2 * _SINH_POLY[0] + _SINH_POLY[1]
+    for c in _SINH_POLY[2:]:
+        p = p * x2 + c
+    small = x + x * (x2 * p)
+    e = kernel_exp(torch.abs(x))
+    big = 0.5 * (e - 1.0 / e)
+    big = torch.where(x < 0.0, -big, big)
+    return torch.where(torch.abs(x) < 1.0, small, big)
 
 
 def stdp_delta(t_pre, t_post, p, exp=torch.exp):

@@ -29,10 +29,17 @@ NEVER = -1
 
 
 class Fns(NamedTuple):
-    """The transcendental functions a model step takes."""
+    """The transcendental functions a model step takes (``log``, ``pow``,
+    ``sinh``, ``log10`` and ``sqrt``: those of the DSL's generated
+    models)."""
     exp: Callable
     tanh: Callable
     cosh: Callable
+    log: Callable = torch.log
+    pow: Callable = torch.pow
+    sinh: Callable = torch.sinh
+    log10: Callable = torch.log10
+    sqrt: Callable = torch.sqrt
 
 
 TORCH_FNS = Fns(torch.exp, torch.tanh, torch.cosh)

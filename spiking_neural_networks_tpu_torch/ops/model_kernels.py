@@ -6,7 +6,11 @@ PyTorch/CUDA counterpart of the generic-model kernel of
 ``step(s, i, skip_nt=True)`` into a K-step stencil kernel.  Here a static
 table names each model's kernel fields and the fields its step writes,
 and ``csrc/model_stencil.cu`` holds one device functor per model that
-repeats the model's own PyTorch step.
+repeats the model's own PyTorch step.  A neuron of the DSL
+(``dsl/builder.py``) takes the DSL arm: `dsl_kernels` generates its functor
+from its step, with its layout, and builds it into a library of its own
+at first use (`kernel_library`); both run the designs of
+``csrc/model_stencil.cuh``.
 
 Two designs of the CUDA kernel: the persistent one (one cooperative launch
 per 16-step call, a block's weights and as many parameter planes as fit
@@ -31,8 +35,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..core.plasticity import kernel_cosh, kernel_exp, kernel_tanh
+from ..core.plasticity import (kernel_cosh, kernel_exp, kernel_ln,
+                               kernel_log10, kernel_pow_nan, kernel_sinh,
+                               kernel_sqrt, kernel_tanh)
 from ..models.base import Fns
+from . import dsl_kernels
 from ..models.dopa import DopaIzhikevich
 from ..models import integrate_and_fire as iaf
 from ..models.morris_lecar import MorrisLecar
@@ -44,7 +51,10 @@ MAX_CPT = 4               # MS_MAX_CPT: cells a persistent thread
 STEPS_PER_LAUNCH = 16     # K of the lattice runner's kernel calls (MS_CHUNK)
 # shared memory a persistent block may take (an H100's opt-in maximum)
 SMEM_BUDGET = 232448
-KERNEL_FNS = Fns(kernel_exp, kernel_tanh, kernel_cosh)
+# the float-op functions of the kernels (log, pow, sinh, log10 and sqrt:
+# the DSL arm's)
+KERNEL_FNS = Fns(kernel_exp, kernel_tanh, kernel_cosh, kernel_ln,
+                 kernel_pow_nan, kernel_sinh, kernel_log10, kernel_sqrt)
 
 # Calls of the model kernel (`model_steps`, `ModelRun.steps`) that launched
 # CUDA kernels.
@@ -90,45 +100,64 @@ _TABLE = {
 # where it reads it
 _CODES = {torch.float32: 0, torch.bool: 1, torch.int32: 2}
 _CARRIED, _READ = 4, 8
+# the (library, kind) layouts and the libraries whose limits were checked
 _layouts_checked = set()
-_limits_checked = False
+_limits_checked = set()
+
+
+def kernel_fields(cls):
+    """The ((name, dtype), ...) planes of a model class: float fields, bool
+    fields, int fields, then ``is_spiking``."""
+    return tuple((k, torch.float32) for k in cls.FIELDS) \
+        + tuple((k, torch.bool) for k in cls.BOOL_FIELDS) \
+        + tuple((k, torch.int32) for k in cls.INT_FIELDS) \
+        + (("is_spiking", torch.bool),)
 
 
 def model_kernel_fields(model):
     """``(fields, carry)``: ``fields`` the ((name, dtype), ...) planes the
     kernel takes (float fields, bool fields, int fields, then
     ``is_spiking``), ``carry`` the names the step writes, in field order;
-    None for a model outside the table."""
+    None for a model outside the table and for a DSL neuron that the
+    emitter does not take (`dsl_kernels.layout`)."""
+    if dsl_kernels.is_generated(model):
+        lay = dsl_kernels.layout(model)
+        return None if lay is None else (lay.fields, lay.carry)
     entry = _TABLE.get(type(model))
     if entry is None:
         return None
-    fields = tuple((k, torch.float32) for k in model.FIELDS) \
-        + tuple((k, torch.bool) for k in model.BOOL_FIELDS) \
-        + tuple((k, torch.int32) for k in model.INT_FIELDS) \
-        + (("is_spiking", torch.bool),)
-    return fields, entry[1]
+    return kernel_fields(type(model)), entry[1]
 
 
 def model_read_fields(model):
     """The names of the kernel fields the model's step reads, in field
     order (the others it writes only, or ignores)."""
+    if dsl_kernels.is_generated(model):
+        return dsl_kernels.layout(model).reads
     unread = _TABLE[type(model)][2]
     return tuple(k for k, _ in model_kernel_fields(model)[0]
                  if k not in unread)
 
 
 def kind(model):
-    """The model's kind in the CUDA source."""
+    """The model's kind in the CUDA source (`dsl_kernels.DSL_KIND` in a
+    generated one)."""
+    if dsl_kernels.is_generated(model):
+        return dsl_kernels.DSL_KIND
     k = _TABLE[type(model)][0]
     return k + 1 if getattr(model, "chemical_normalization", False) else k
 
 
 def supports_model(model, graph, electrical, chemical, do_plasticity):
     """Whether the kernel computes this lattice configuration's step: a
-    model of the table with an elementwise step, a `StencilGraph` of at
-    most `MAX_OFFSETS` offsets, electrical synapses only, no plasticity."""
+    model of the table, or a DSL neuron that the emitter takes (at most
+    `MAX_FIELDS` fields, no sin / cos / tan), with an elementwise step, a
+    `StencilGraph` of at most `MAX_OFFSETS` offsets, electrical synapses
+    only, no plasticity."""
     from .graph import StencilGraph
-    return (type(model) in _TABLE
+    known = dsl_kernels.layout(model) is not None \
+        if dsl_kernels.is_generated(model) else type(model) in _TABLE
+    return (known
             and getattr(model, "ELEMENTWISE_STEP", False)
             and {"v", "dt", "gap_conductance"} <= set(model.FIELDS)
             and isinstance(graph, StencilGraph)
@@ -169,20 +198,21 @@ def _check(model, planes, lft, weights, in_deg, offsets, clock0, n_steps):
 
 
 def check_layout(lib, k, fields, carry, reads, what):
-    """Raise unless the CUDA source's limits are this module's and its
+    """Raise unless the CUDA library's limits are this module's and its
     layout of kind ``k`` is that of ``fields`` ((name, dtype), ...): the
     field count, their types, those the step writes (``carry``) and those
-    it reads (``reads``); ``what`` names the kind."""
-    global _limits_checked
-    if not _limits_checked:
+    it reads (``reads``); ``what`` names the kind.  A generated library's
+    layout is so held against the emitter's."""
+    name = getattr(lib, "_name", None)
+    if name not in _limits_checked:
         got = (ctypes.c_int * 5)()
         lib.model_stencil_limits(got)
         want = [MAX_OFFSETS, MAX_FIELDS, THREADS, MAX_CPT, STEPS_PER_LAUNCH]
         if list(got) != want:
             raise RuntimeError(f"the CUDA source's limits {list(got)} differ "
                                f"from the wrapper's {want}")
-        _limits_checked = True
-    if k in _layouts_checked:
+        _limits_checked.add(name)
+    if (name, k) in _layouts_checked:
         return
     codes = (ctypes.c_int * MAX_FIELDS)()
     n = lib.model_stencil_layout(k, codes)
@@ -192,7 +222,16 @@ def check_layout(lib, k, fields, carry, reads, what):
         raise RuntimeError(
             f"the CUDA layout of {what} (kind {k}: "
             f"{list(codes[:max(n, 0)])}) differs from the table's {want}")
-    _layouts_checked.add(k)
+    _layouts_checked.add((name, k))
+
+
+def kernel_library(model):
+    """The CUDA library that holds ``model``'s kernel: the package's, or
+    for a DSL neuron its generated one (built by nvcc at first use)."""
+    if dsl_kernels.is_generated(model):
+        return dsl_kernels.load(model)
+    from .. import _build
+    return _build.load()
 
 
 def in_fields(model):
@@ -208,7 +247,8 @@ def max_cpt(model):
     """The most cells a persistent thread takes for ``model``: `MAX_CPT`
     where its step keeps at most 4 fields in registers (those it reads and
     writes), else 2 (``ms_max_cpt`` in the CUDA source: BCMIzhikevich's 7
-    spilled at 4 cells a thread)."""
+    spilled at 4 cells a thread; a DSL neuron's by its generated
+    layout)."""
     _, carry = model_kernel_fields(model)
     reads = model_read_fields(model)
     return MAX_CPT if sum(k in reads for k in carry) <= 4 else 2
@@ -305,12 +345,12 @@ class RunSets:
     are valid until the next call.  The launch arguments of kind ``kind``
     over ``fields`` ((name, dtype), ...; a field missing from ``planes``,
     which the kind never reads, is passed as NULL) are made once, with the
-    persistent design's where ``plan`` (an `MsPlan`) is given.  On CPU
-    tensors it holds the last call's outputs (`keep`), the twin's own
-    tensors."""
+    persistent design's where ``plan`` (an `MsPlan`) is given, for the C
+    entries of ``lib`` (default: the package's library).  On CPU tensors
+    it holds the last call's outputs (`keep`), the twin's own tensors."""
 
     def __init__(self, kind, fields, carry, planes, lft, weights, in_deg,
-                 offsets, plan=None):
+                 offsets, plan=None, lib=None):
         self.kind, self.fields, self.carry, self.plan = (kind, fields, carry,
                                                          plan)
         self.lft, self.weights, self.in_deg = lft, weights, in_deg
@@ -321,8 +361,10 @@ class RunSets:
         dev = lft.device
         if dev.type != "cuda":
             return
-        from .. import _build
-        self.lib = _build.load()
+        if lib is None:
+            from .. import _build
+            lib = _build.load()
+        self.lib = lib
         rows, cols = lft.shape
         new = lambda dtype: torch.empty((2, rows, cols), dtype=dtype,
                                         device=dev)
@@ -421,16 +463,16 @@ class ModelRun:
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"no kernel for device {dev}")
         self.model = model
-        self.plan = None
+        self.plan = lib = None
         if dev.type == "cuda":
-            from .. import _build
-            check_layout(_build.load(), kind(model), fields, carry,
+            lib = kernel_library(model)
+            check_layout(lib, kind(model), fields, carry,
                          model_read_fields(model), type(model).__name__)
             if not per_step:
                 self.plan = persistent_plan(model, lft.shape, len(offsets),
                                             sm_count(dev))
         self.sets = RunSets(kind(model), fields, carry, planes, lft, weights,
-                            in_deg, offsets, self.plan)
+                            in_deg, offsets, self.plan, lib)
 
     def steps(self, clock0, n_steps):
         """Advance ``n_steps`` steps from ``clock0``; returns ``(carried,
