@@ -79,7 +79,20 @@ radius-2, 80%-keep stencil graph:
   generated from each neuron's step by ``ops/dsl_kernels.py`` over
   ``csrc/model_stencil.cuh``, built by nvcc at first use; the persistent
   design), and the DSL Izhikevich at 2048^2 over 256 through its per-step
-  design.
+  design;
+* a DSL neuron that calls sin, cos and tan (`TRIG_SOURCE`: tan of its
+  input current, a sin / cos drive in dv/dt) at 512^2 over 512 steps
+  through kernel 4's DSL arm (``kernel_sin`` / ``kernel_cos`` /
+  ``kernel_tan`` of ``csrc/model_stencil.cuh``), the persistent design;
+* the upstream Bayesian-inference trial through the port's `lixirnet`
+  (``python -m spiking_neural_networks_tpu_torch.experiments.\
+bayesian_inference_rate_based experiments/bayesian_inf_args/smoke.toml``:
+  `run_trial` builds 7 x 7 excitatory + 3 x 3 inhibitory
+  `IzhikevichNeuronLattice`s, two `RateSpikeTrainLattice` cues, the d1
+  dopamine path, and runs 2500 steps, then scores peaks and correlation
+  accuracy), and its memory-biases-memory form (``smoke_mbm_d2.toml``:
+  five lattices, two cue trains, 600 steps), through the flat-mode arm of
+  the persistent network kernel (``csrc/network_persistent.cu``).
 
 Phases, one line each:
 
@@ -289,8 +302,9 @@ Phases, one line each:
    torch.profiler over 10 calls of one `ModelRun`, device / wall, the
    bound and the twin's time; at 512^2 and 700^2 both designs in turns
    (at 2048^2 the persistent design does not apply);
-37. the DSL arm's build: the three generated sources in one round of nvcc
-   runs, each instantiation's registers and spills;
+37. the DSL arm's build: the four generated sources (the three DSL models
+   and phase 42's trig neuron) in one round of nvcc runs, each
+   instantiation's registers and spills;
 38. each generated kernel, each design, against its twin on the card:
    33 x 70, 130 x 100 and 256^2 x radius 1, 2, 3, and 512^2 at radius 2
    (the main path's instantiation), chained calls of K = 1, 2, 16, 17 on
@@ -306,11 +320,33 @@ Phases, one line each:
    1000 steps (another association: spike counts within 2%, mean v within
    1 mV);
 41. times of the DSL arm at 512^2 (both designs in turns) and 2048^2,
-   each timed call from the applied state.
+   each timed call from the applied state;
+42. the trig neuron (sin, cos, tan): its kernel against its twin, chained
+   calls of K = 1, 2, 16, 17 on one `ModelRun` from a random state, at
+   512^2 in both designs and 2048^2 in the per-step one: bit-equal, the
+   launches the C entry counted; its main path at 512^2 over 512 steps
+   (one launch a 16-step call, counted by the C entry and in the
+   profiler's records), the twin run first call by call and the final
+   state bit-equal, v finite, neurons fired; its times at 512^2, both
+   designs in turns;
+43. the Bayesian trial of ``smoke.toml`` (2500 steps) and of
+   ``smoke_mbm_d2.toml`` (600) through `run_trial` on the card: route
+   ("flat-chemical", True), every kernel call through the persistent
+   kernel (its launch counter), every state finite, neurons fired; the
+   same trial on the CPU (the same kernel route, the twin) held against
+   it over its first 1000 steps as phase 23 holds the Bayesian network
+   (each excitatory grid history within 2 mV; each neuron's peaks above
+   20 mV, the trial's own spikes, within 2 steps); both routes' value
+   dicts; the trial's first 16-step call against the twin (bit-equal),
+   its bound and `torch.mv` on its (49, 49) weights;
+44. the trials' times: wall seconds per trial, best of 3 after a warm-up
+   (as ``bench.py:577-586`` times it), split into construction, run and
+   analysis; the profiled device time per step of the run; the plain
+   route's wall for one trial.
 
-The DSL family (phases 37-41) runs first: late in a long run the profiler
-keeps fewer kernel records of every family, and a counted profile of the
-DSL main path once lost all in eight tries (a library loaded late is not
+The DSL family (phases 37-42) and the trial (43-44) run first: late in a
+long run the profiler keeps fewer kernel records of every family, and a
+counted profile of the DSL main path once lost all in eight tries (a library loaded late is not
 the cause: ``tools/profiler_records.py``).
 
 Every time is printed beside the card's name and power limit.  Then a line
@@ -524,8 +560,9 @@ ECMP, ECMP_STEPS, ECMP_CHUNK, W_TIE = (64, 64), 1000, 8, 32.0
 ETIMES = (((10, 10), 1024), ((128, 128), 1024), ((512, 512), 1024))
 EPLAIN_STEPS, EHOST_STEPS, ERNG_STEPS = 256, 256, 320
 ENV_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:338"
-# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s
-PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s,
+# FP64 op/s outside the tensor cores
+PEAK_BYTES, PEAK_OPS, PEAK_OPS_F64 = 3.35e12, 67e12, 34e12
 # its L2 cache: a step that moves more than this reads from HBM, so its
 # device time must not beat PEAK_BYTES
 L2_BYTES = 50e6
@@ -679,12 +716,16 @@ DCMP, DCMP_STEPS = (128, 128), 1000
 # the parameters of each model drawn within 20% of their defaults in the
 # kernel-vs-twin cases (HH keeps its defaults: its rates are stiff)
 DSL_RANDOM_PARAMS = {"DSLIzhikevich": ("a", "b", "c", "d", "v_th", "c_m"),
+                     "TrigNeuron": ("a", "b", "c", "d", "v_th", "c_m"),
                      "KernelBranchy": ("a", "b", "c", "d", "v_th", "c_m",
                                        "boost"),
                      "DSLHodgkinHuxley": ()}
 # float operations of a generated step's kernel functions for the bound (a
-# transcendental as EXP_OPS and its few operations around exp); every
-# other operation of the emitted step counts 1
+# transcendental as EXP_OPS and its few operations around exp; sin / cos /
+# tan as the 29 float64 operations of ms_trig_parts and the selection,
+# each charged at the float64 rate, in float32 operations); every other
+# operation of the emitted step counts 1
+TRIG_OPS = 30 * PEAK_OPS / PEAK_OPS_F64
 # the DSL HH's firing form: dt 0.01 (the DSL's default of 0.1 drives HH to
 # -inf within a few steps; the JAX package's DSL HH test takes 0.01) and
 # the equilibrium gates of its HH kernel tests (with the gates at 0 no
@@ -694,7 +735,36 @@ DSL_HH_FORM = {"dt": 0.01, "na$m$state": 0.05, "na$h$state": 0.6,
 DSL_CALL_OPS = {"kernel_exp": EXP_OPS, "kernel_tanh": EXP_OPS + 4,
                 "kernel_cosh": EXP_OPS + 3, "kernel_sinh": EXP_OPS + 4,
                 "kernel_ln": EXP_OPS + 1, "kernel_log10": EXP_OPS + 2,
-                "ms_pow": 2 * EXP_OPS + 3}
+                "ms_pow": 2 * EXP_OPS + 3, "kernel_sin": TRIG_OPS,
+                "kernel_cos": TRIG_OPS, "kernel_tan": TRIG_OPS + 1}
+# the trig neuron of phase 42 (tests/test_torch_dsl_kernel.py's): tan of
+# the input current (scaled away from tan's poles) and a sin / cos drive
+# in dv/dt; its main path at DMAIN over TRIG_STEPS, its kernel-vs-twin
+# cases at DMAIN in both designs and DBIG in the per-step one
+TRIG_SOURCE = """
+[neuron]
+    type: TrigNeuron
+    vars: w = 30, a = 0.02, b = 0.2, c = -55, d = 8, v_th = 30, tau_m = 1, c_m = 100, drive = 0
+    on_spike:
+        v = c
+        w += d
+    spike_detection: v >= v_th
+    on_iteration:
+        drive = tan(i * 0.001)
+        dw/dt = (a * (b * v - w)) / tau_m
+        dv/dt = (0.04 * v * v + 5 * v + 140 - w + i + 4 * sin(v * 0.2) * cos(w * 0.1) + drive) / c_m
+[end]
+"""
+TRIG_STEPS = 512
+TRIG_CASES = ((DMAIN, False), (DMAIN, True), (DBIG, True))
+# the generated sources phase 37 builds in one nvcc round
+DSL_BUILD = dict(DSL_SOURCES, TrigNeuron=TRIG_SOURCE)
+# the Bayesian trial (phases 43-44): the TOMLs of the upstream pipeline,
+# the steps of its first trial held card against CPU, the timed trials
+TRIAL_TOMLS = ("smoke.toml", "smoke_mbm_d2.toml")
+TRIAL_ARGS = os.path.join("experiments", "bayesian_inf_args")
+TRIAL_CMP_STEPS = 1000
+TRIAL_REPS = 3
 T0 = time.perf_counter()
 
 
@@ -6083,9 +6153,9 @@ def model_times_phase(snt, mk, smi):
 
 
 def dsl_model(snt, name):
-    """A fresh port model of `DSL_SOURCES`' neuron ``name``, through the
+    """A fresh port model of `DSL_BUILD`'s neuron ``name``, through the
     user's entry point."""
-    return snt.dsl.neuron_builder(DSL_SOURCES[name])[name]()
+    return snt.dsl.neuron_builder(DSL_BUILD[name])[name]()
 
 
 def dsl_lattice(snt, name, rows, cols, use_kernel=None, device="cuda",
@@ -6195,11 +6265,12 @@ def dsl_phases(snt, smi):
 
 
 def dsl_build_phase(snt, dk, mk):
-    """37. The three generated sources in one round of nvcc runs started
-    together: the seconds, each library, and every instantiation's
-    registers and spills (none expected)."""
+    """37. The generated sources of `DSL_BUILD` (the three DSL models and
+    phase 42's trig neuron) in one round of nvcc runs started together:
+    the seconds, each library, and every instantiation's registers and
+    spills (none expected)."""
     from spiking_neural_networks_tpu_torch import _build
-    models = {n: dsl_model(snt, n) for n in DSL_SOURCES}
+    models = {n: dsl_model(snt, n) for n in DSL_BUILD}
     t0 = time.perf_counter()
     paths = dk.build(list(models.values()))
     wall = time.perf_counter() - t0
@@ -6545,6 +6616,473 @@ def dsl_times_phase(snt, dk, mk, smi, finite_steps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# sin / cos / tan on kernel 4's DSL arm: phase 42
+# ---------------------------------------------------------------------------
+
+
+def trig_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch.ops import (dsl_kernels as dk,
+                                                       model_kernels as mk)
+    max_err = trig_twin_phase(snt, mk)
+    launches = trig_main_phase(snt, mk)
+    t = trig_times_phase(snt, dk, mk, smi)
+    return {
+        "name": "model_steps, DSL arm, sin / cos / tan: "
+                "model_persistent_kernel<Dsl, CPT>", "route": "cuda",
+        "source": "spiking_neural_networks_tpu_torch/_build/dsl/"
+                  + os.path.basename(t["library"])[:-3] + ".cu (generated "
+                  "by ops/dsl_kernels.py, over csrc/model_stencil.cuh: "
+                  "kernel_sin / kernel_cos / kernel_tan)",
+        "replaces": MODEL_REPLACES, "launches": launches,
+        "max_abs_err": max_err, "ms": t["kernel_ms"],
+        "plain_ms": t["twin_ms"], "device_ms": t["device_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes a lattice step"}
+
+
+def trig_twin_phase(snt, mk):
+    """42. The trig neuron's kernel against its twin on the card: a chain
+    of calls of `DSL_KS` steps on one `ModelRun` from a random state, in
+    each case of `TRIG_CASES` (512^2 in both designs, 2048^2 in the
+    per-step one), call by call: floats bit-equal, the rest equal, the C
+    entry's launches `call_launches`.  Returns the max float error."""
+    name = "TrigNeuron"
+    max_err = 0.0
+    for c, (shape, per_step) in enumerate(TRIG_CASES):
+        inp = dsl_inputs(snt, mk, dsl_model(snt, name), name, shape, 2.0,
+                         700 + c)
+        run = mk.ModelRun(inp["model"], inp["planes"], inp["lft"],
+                          inp["weights"], inp["in_deg"], inp["offsets"],
+                          per_step=per_step)
+        check((run.plan is None) == per_step, f"{name} {shape}: the "
+              f"case is not on the {'per-step' if per_step else 'persistent'}"
+              f" design")
+        tp, tl, clock = dict(inp["planes"]), inp["lft"], 10
+        bad_f = bad_o = fired = 0
+        for k in DSL_KS:
+            want = mk.model_steps_reference(
+                inp["model"], tp, tl, inp["weights"], inp["in_deg"],
+                inp["offsets"], clock, k)
+            before = mk.STEP_LAUNCHES
+            got = run.steps(clock, k)
+            torch.cuda.synchronize()
+            check(mk.STEP_LAUNCHES - before
+                  == mk.call_launches(k, run.plan is not None),
+                  f"{name}: the C entry counted other launches")
+            f, o, e = bit_diff(got, want)
+            bad_f, bad_o, max_err = bad_f + f, bad_o + o, max(max_err, e)
+            fired += int((want[1] >= clock).sum())
+            tp = dict(tp, **want[0])
+            tl, clock = want[1], clock + k
+        finite = bool(torch.isfinite(tp["v"]).all())
+        drive = tp["drive"]
+        design = "per step" if per_step else (
+            f"persistent, {-(-run.plan.cap // mk.THREADS)} cells a thread")
+        say(f"[42 kernel-vs-twin] {name} {shape[0]}x{shape[1]} radius 2 "
+            f"({design}), K {', '.join(map(str, DSL_KS))} chained on one "
+            f"ModelRun: float elements not bit-equal {bad_f}, other "
+            f"mismatches {bad_o}, neurons fired {fired}, v finite {finite}, "
+            f"drive = tan(i / 1000) in [{drive.min().item():.4f}, "
+            f"{drive.max().item():.4f}]")
+        check(bad_f == 0 and bad_o == 0, f"{name}: the kernel differs from "
+              f"its twin")
+        check(fired > 0 and finite, f"{name}: no neuron fired or v not "
+              f"finite")
+        del inp, run, tp, tl
+    return max_err
+
+
+def trig_main_phase(snt, mk):
+    """42. The trig neuron's main path: `Lattice` -> `populate` ->
+    `connect_stencil` -> `apply` -> `run_lattice(TRIG_STEPS)` at `DMAIN`,
+    its counts set to 0 just before: route "model", the persistent
+    design, one launch a 16-step call counted by the C entry (and in the
+    profiler's records of 4 more calls); the twin runs the same steps
+    first, call by call on the card, and the final state is held bit for
+    bit.  Returns the kernel launches of the run."""
+    K = mk.STEPS_PER_LAUNCH
+    name = "TrigNeuron"
+    lat = dsl_lattice(snt, name, *DMAIN)
+    shape = (lat.rows, lat.cols)
+    fields, _ = mk.model_kernel_fields(lat.model)
+    st, g = lat.state, lat.graph
+    planes = {k: st[k].reshape(shape).clone() for k, _ in fields}
+    lft0 = st["last_firing_time"].reshape(shape).clone()
+    want, n1, _ = twin_until_nonfinite(mk, lat.model, planes, lft0, g,
+                                       TRIG_STEPS)
+    persistent = mk.uses_persistent(lat.model, shape, len(g.offsets),
+                                    mk.sm_count(torch.device("cuda")))
+    mk.LAUNCHES = mk.STEP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    lat.run_lattice(TRIG_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls, launches = mk.LAUNCHES, mk.STEP_LAUNCHES
+    got = ({k: lat.state[k].reshape(shape) for k in want[0]},
+           lat.state["last_firing_time"].reshape(shape),
+           lat.state["is_spiking"].reshape(shape))
+    bad_f, bad_o, _ = bit_diff(got, want)
+    v, lft = lat.state["v"], lat.state["last_firing_time"]
+    fired = int((lft >= 0).sum())
+    late = int((lft >= TRIG_STEPS // 2).sum())
+    recs = kernel_records(lambda: lat.run_lattice(4 * K), 4,
+                          mine=("model_",))
+    say(f"[42 main path] {name} {shape[0]}x{shape[1]} run_lattice("
+        f"{TRIG_STEPS}): route {lat._last_run_fused}, "
+        f"{'persistent' if persistent else 'per-step'} design, kernel "
+        f"calls {calls}, kernel launches {launches} (counted by the C "
+        f"entry; {launches / max(calls, 1):.2f} a call), profiler records "
+        f"of 4 more calls {records_line(recs)}; the twin's v finite through "
+        f"step {n1}; the final state against the twin's: float elements "
+        f"not bit-equal {bad_f}, other mismatches {bad_o}; v range "
+        f"[{v.min().item():.3f}, {v.max().item():.3f}], fired {fired} of "
+        f"{lat.n}, from step {TRIG_STEPS // 2} {late}; wall {wall:.3f} s")
+    check(lat._last_run_fused == "model" and persistent,
+          f"{name}: the main path took {lat._last_run_fused}")
+    check(calls == -(-TRIG_STEPS // K) and launches == calls,
+          f"{name}: not one launch a 16-step call")
+    check(sum(recs.values()) == 4, f"{name}: the profiler's records differ "
+          f"from the launches")
+    check(bad_f == 0 and bad_o == 0, f"{name}: the main path differs from "
+          f"the twin")
+    check(n1 == TRIG_STEPS and bool(torch.isfinite(v).all()) and late > 0,
+          f"{name}: v not finite or no neuron fired late in the run")
+    return launches
+
+
+def trig_times_phase(snt, dk, mk, smi):
+    """42. The trig neuron at `DMAIN` from its applied state: the main
+    path's wall per step (best of 3 x 512 steps), calls of one `ModelRun`
+    (CUDA events; device time under torch.profiler over `EPROF` calls,
+    every kernel record counted), device / wall, bytes, the bound and the
+    twin's time; both designs in turns."""
+    K = mk.STEPS_PER_LAUNCH
+    name = "TrigNeuron"
+    lat = dsl_lattice(snt, name, *DMAIN)
+    shape = (lat.rows, lat.cols)
+    fresh = dict(lat.state)
+
+    def from_fresh():
+        lat.reset_timing()
+        lat.apply(lambda s: dict(fresh))
+        return run_synced(lat, TRIG_STEPS)
+    from_fresh()
+    wall = min(from_fresh() for _ in range(3))
+    check(lat._last_run_fused == "model", "timed the wrong route")
+    fields, _ = mk.model_kernel_fields(lat.model)
+    g = lat.graph
+    planes = {k: fresh[k].reshape(shape) for k, _ in fields}
+    lft = fresh["last_firing_time"].reshape(shape)
+    runs = {d: mk.ModelRun(lat.model, planes, lft, g.weights, g.in_deg,
+                           g.offsets, per_step=d == "per_step")
+            for d in ("persistent", "per_step")}
+    check(runs["persistent"].plan is not None, "no persistent plan at 512^2")
+    kernel = from_start(runs["persistent"], K)
+    n_bytes = tensor_bytes([planes[k] for k in mk.model_read_fields(
+        lat.model)], lft, g.weights, g.in_deg, kernel())
+    bnd = bound(n_bytes, dsl_ops(dk, lat.model, g.offsets, *shape, K))
+    kernel_ms = event_ms(kernel, 20)
+    twin_ms = event_ms(lambda: mk.model_steps_reference(
+        lat.model, planes, lft, g.weights, g.in_deg, g.offsets, 0, K), 2)
+    dev_us, top = profiled_us(lambda: [kernel() for _ in range(EPROF)],
+                              EPROF * K, launches=EPROF)
+    wall_us = wall / TRIG_STEPS * 1e6
+    say(f"[42 times] {name} {shape[0]}x{shape[1]}: kernel route (the "
+        f"persistent design) {rate(shape, wall, TRIG_STEPS)}, best of 3 x "
+        f"{TRIG_STEPS} steps from the applied state; kernel calls back to "
+        f"back {kernel_ms * 1e3 / K:.3f} us/step (events); device time "
+        f"{dev_us:.3f} us/step (profiled, {EPROF} calls, {EPROF} kernel "
+        f"records: " + ", ".join(f"{k} {t:.3f}" for k, t in top)
+        + f"); device time / wall {dev_us / wall_us:.3f}; "
+        f"{n_bytes / 1e6:.2f} MB a call; bound {bnd[0] * 1e3 / K:.4f} "
+        f"us/step ({bnd[1]}); plain twin {twin_ms * 1e3 / K:.3f} us/step "
+        f"(events); library call: none; card {smi}")
+    turns = designs_in_turns({d: from_start(runs[d], K) for d in runs},
+                             {d: mk.call_launches(K, d == "persistent")
+                              for d in runs}, K)
+    say(f"[42 times] {name} {shape[0]}x{shape[1]}, the designs in turns on "
+        f"one ModelRun each: {design_line(turns)}; card {smi}")
+    out = dict(kernel_ms=kernel_ms, twin_ms=twin_ms,
+               device_ms=dev_us * K / 1e3, bound=bnd,
+               library=dk.build([lat.model])[0])
+    del lat, runs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The Bayesian-inference trial through lixirnet: phases 43-44
+# ---------------------------------------------------------------------------
+
+
+class TrialProbe:
+    """Around `run_trial` calls: keeps each network that the port's
+    `lixirnet` builds (`IzhikevichNeuronNetwork.generate_network`), sets
+    its ``use_kernel``, and times its `run_lattices` between two
+    synchronisations (so a trial splits into construction, run and
+    analysis); with ``capture``, also keeps the first kernel call's
+    inputs at the run's start.  Restores the class on exit."""
+
+    def __init__(self, ln, nk, use_kernel=None, capture=False):
+        self.cls, self.nk = ln.IzhikevichNeuronNetwork, nk
+        self.use_kernel, self.capture = use_kernel, capture
+        self.nets, self.runs, self.args = [], [], None
+
+    def __enter__(self):
+        cls, probe = self.cls, self
+        self.saved = (cls.__dict__["generate_network"],
+                      cls.__dict__["run_lattices"])
+        generate, run = cls.generate_network.__func__, cls.run_lattices
+
+        def generate_network(c, *a, **k):
+            net = generate(c, *a, **k)
+            net.inner.use_kernel = probe.use_kernel
+            probe.nets.append(net)
+            return net
+
+        def run_lattices(net, n):
+            if probe.capture and probe.args is None:
+                probe.args = (cloned(chem_inputs(probe.nk, net.inner, 1, 0,
+                                                 True)),
+                              net.inner.internal_clock)
+            if net.inner.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(net, n)
+            if net.inner.device.type == "cuda":
+                torch.cuda.synchronize()
+            probe.runs.append((t0, time.perf_counter()))
+
+        cls.generate_network = classmethod(generate_network)
+        cls.run_lattices = run_lattices
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.generate_network, self.cls.run_lattices = self.saved
+
+    def trial(self, bt, inputs, device):
+        """One `run_trial` on ``device``: (its value dict and the two
+        pattern indices as a string, the network, seconds of construction,
+        run and analysis)."""
+        t0 = time.perf_counter()
+        value, pattern1, pattern2 = bt.run_trial(*inputs(), device=device)
+        value = f"{value} (patterns {pattern1}, {pattern2})"
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        t1, t2 = self.runs[-1]
+        return value, self.nets[-1], (t1 - t0, t2 - t1, t3 - t2)
+
+
+def cloned(x):
+    """``x`` with every tensor in it (nested in dicts, lists and tuples)
+    copied."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: cloned(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(cloned(v) for v in x)
+    return x
+
+
+def trial_inputs(bt, toml):
+    """``fn()`` giving `run_trial`'s arguments for the first trial of the
+    pipeline's ``toml`` as its `main` makes them (`bt.trial_inputs`)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def fn():
+        with open(os.path.join(here, TRIAL_ARGS, toml), "rb") as f:
+            parsed = bt.parse_toml(f)
+        bt.fill_defaults(parsed)
+        cs, _, patterns, bayes, rng = next(bt.trial_inputs(parsed))
+        return parsed["simulation_parameters"], cs, patterns, bayes, rng
+    return fn
+
+
+def exc_ids(bt, net):
+    return [i for i in (bt.E1, bt.E2) if i in net.inner.lattices]
+
+
+def trial_phases(snt, smi):
+    from spiking_neural_networks_tpu_torch import lixirnet as ln
+    from spiking_neural_networks_tpu_torch.experiments import (
+        bayesian_inference_rate_based as bt)
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    check(bt.ln is ln, "the trial pipeline does not use the port's lixirnet")
+    launches, args = trial_main_phase(bt, ln, nk)
+    entry = trial_call_entry(nk, args, launches, smi)
+    trial_times_phase(bt, ln, nk, smi)
+    return entry
+
+
+def trial_main_phase(bt, ln, nk):
+    """43. Each TOML's first trial through `run_trial` on the card, the
+    network kernel's counts set to 0 just before it: the route, every
+    call through the persistent kernel, every state finite, neurons
+    fired; then the same trial on the CPU, on the same kernel route (the
+    twin), held against it over its first `TRIAL_CMP_STEPS` steps: each
+    excitatory grid history within 2 mV, each neuron's peaks above 20 mV
+    (the trial's own spikes, `pipeline_setup.find_peaks_above_threshold`)
+    within 2 steps; both routes' value dicts.  Returns the persistent
+    launches of the card's trials and the first trial's first call."""
+    from spiking_neural_networks_tpu_torch.experiments.pipeline_setup \
+        import find_peaks_above_threshold
+    K = nk.STEPS_PER_LAUNCH
+    total, first = 0, None
+    for toml in TRIAL_TOMLS:
+        inputs = trial_inputs(bt, toml)
+        steps = inputs()[0]["iterations1"]
+        with TrialProbe(ln, nk, capture=first is None) as probe:
+            nk.LAUNCHES = nk.CHEM_LAUNCHES = nk.FLAT_LAUNCHES = 0
+            nk.PERSISTENT_LAUNCHES = 0
+            value, net, split = probe.trial(bt, inputs, "cuda")
+            calls = (nk.LAUNCHES, nk.CHEM_LAUNCHES, nk.FLAT_LAUNCHES,
+                     nk.PERSISTENT_LAUNCHES)
+            if first is None:
+                first = probe.args
+        total += calls[3]
+        inner = net.inner
+        members = list(inner.lattices.values()) \
+            + list(inner.spike_train_lattices.values())
+        finite = all(bool(torch.isfinite(x).all()) for m in members
+                     for x in m.state.values() if x.is_floating_point())
+        fired = {i: int((l.state["last_firing_time"] >= 0).sum())
+                 for i, l in sorted(inner.lattices.items())}
+        cues = {i: int((s.state["last_firing_time"] >= 0).sum())
+                for i, s in sorted(inner.spike_train_lattices.items())}
+        with TrialProbe(ln, nk, use_kernel=True) as cpu_probe:
+            cpu_value, cpu_net, _ = cpu_probe.trial(bt, inputs, "cpu")
+        n = min(TRIAL_CMP_STEPS, steps)
+        dv, dpeak, npeaks = 0.0, 0, 0
+        for i in exc_ids(bt, net):
+            hk = np.stack(net.get_lattice(i).history)[:n].reshape(n, -1)
+            hc = np.stack(cpu_net.get_lattice(i).history)[:n].reshape(n, -1)
+            dv = max(dv, float(np.abs(hk - hc).max()))
+            for j in range(hk.shape[1]):
+                pk = find_peaks_above_threshold(hk[:, j], 20)
+                pc = find_peaks_above_threshold(hc[:, j], 20)
+                check(len(pk) == len(pc), f"{toml}: neuron {j} of lattice "
+                      f"{i} spikes {len(pk)} times on the card, {len(pc)} "
+                      f"on the CPU in the first {n} steps")
+                npeaks += len(pk)
+                dpeak = max([dpeak] + [abs(a - b) for a, b in zip(pk, pc)])
+        say(f"[43 main path] {toml}: run_trial on the card, "
+            f"{len(inner.lattices)} lattices {sorted(inner.lattices)}, "
+            f"{len(inner.spike_train_lattices)} trains, "
+            f"{len(inner.connections)} connections, {steps} steps: route "
+            f"{inner._last_run_fused}, kernel calls {calls[0]} (chemical "
+            f"{calls[1]}, flat {calls[2]}, persistent {calls[3]}), state "
+            f"finite {finite}, fired per lattice {fired}, per train {cues}; "
+            f"construction {split[0]:.3f} s, run {split[1]:.3f} s, analysis "
+            f"{split[2]:.3f} s; value (card) {value}")
+        say(f"[43 kernel-vs-cpu] {toml}: the same trial on the CPU (route "
+            f"{cpu_net.inner._last_run_fused}), its first {n} steps: max|dv| "
+            f"{dv:.4g} mV over the excitatory histories, {npeaks} peaks "
+            f"above 20 mV on each side, max |dpeak| {dpeak} steps; value "
+            f"(CPU) {cpu_value}; the value dicts "
+            f"{'equal' if value == cpu_value else 'differ'}")
+        check(inner._last_run_fused == ("flat-chemical", True),
+              f"{toml}: the trial took {inner._last_run_fused}")
+        check(calls[0] >= -(-steps // K) and calls[0] == calls[1] == calls[2]
+              == calls[3], f"{toml}: a kernel call missed the persistent "
+              f"flat kernel")
+        check(finite and sum(fired.values()) > 0, f"{toml}: non-finite "
+              f"state or no neuron fired")
+        check(dv <= 2.0 and dpeak <= 2, f"{toml}: card vs CPU outside 2 mV / "
+              f"2 steps")
+        check(cpu_net.inner._last_run_fused == ("flat-chemical", True),
+              f"{toml}: the CPU trial took another route")
+        del net, cpu_net, probe, cpu_probe
+    return total, first
+
+
+def trial_times_phase(bt, ln, nk, smi):
+    """44. Each TOML's first trial on the card: wall seconds per trial,
+    best of `TRIAL_REPS` after a warm-up (`bench.py:577-586`), with its
+    split into construction, run and analysis; the device time per step
+    of the run under torch.profiler (the last trial's network, run on
+    for `PROFILE_STEPS`); the plain route's (``use_kernel=False``) wall
+    for one trial."""
+    for toml in TRIAL_TOMLS:
+        inputs = trial_inputs(bt, toml)
+        steps = inputs()[0]["iterations1"]
+        with TrialProbe(ln, nk) as probe:
+            probe.trial(bt, inputs, "cuda")
+            timed = [probe.trial(bt, inputs, "cuda")
+                     for _ in range(TRIAL_REPS)]
+        best = min(timed, key=lambda t: sum(t[2]))
+        walls = [sum(t[2]) for t in timed]
+        net = best[1]
+        check(net.inner._last_run_fused == ("flat-chemical", True),
+              "timed the wrong route")
+        dev_us, top = profiled_us(
+            lambda: run_net_synced(net.inner, PROFILE_STEPS), PROFILE_STEPS,
+            n_top=4)
+        with TrialProbe(ln, nk, use_kernel=False) as plain:
+            pv, pnet, psplit = plain.trial(bt, inputs, "cuda")
+        check(pnet.inner._last_run_fused is False, "the plain trial took a "
+              "kernel route")
+        c, r, a = best[2]
+        say(f"[44 times] {toml}: trial wall {sum(best[2]):.4f} s (best of "
+            f"{TRIAL_REPS} after a warm-up: "
+            + ", ".join(f"{w:.4f}" for w in walls)
+            + f"): construction {c:.4f} s, run {r:.4f} s ({r / steps * 1e6:.3f}"
+            f" us/step over {steps} steps), analysis {a:.4f} s; the run's "
+            f"device time {dev_us:.3f} us/step (profiled, {PROFILE_STEPS} "
+            f"steps: " + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device / run wall {dev_us / (r / steps * 1e6):.3f}; plain "
+            f"route (use_kernel=False) one trial {sum(psplit):.3f} s "
+            f"(construction {psplit[0]:.3f}, run {psplit[1]:.3f}, analysis "
+            f"{psplit[2]:.3f}), value {pv}; card {smi}")
+        del net, pnet, timed, best
+
+
+def trial_call_entry(nk, args, launches, smi):
+    """43. The smoke trial's first 16-step call, on the state its run
+    started from: the persistent kernel against the twin (bit-equal), the
+    designs in turns, the twin's time, the bound, and `torch.mv` on the
+    excitatory lattice's (49, 49) weights (one dense gather of one step)
+    as the library call.  Returns the kernel's entry of the JSON line."""
+    (spec, lats, trains, conns, uniforms, rule), clock = args
+    K = nk.STEPS_PER_LAUNCH
+    call = (spec, lats, trains, conns, uniforms, rule)
+    want = nk.network_steps_reference(*call, clock, K)
+    got = nk.network_steps(*call, clock, K)
+    torch.cuda.synchronize()
+    err, bad, _ = compare_chem(got, want)
+    bits = bit_mismatches(got, want)
+    call_bound = bound(chem_bytes(spec, lats, trains, conns, uniforms, got),
+                       flat_ops(spec, lats, conns, K))
+    d = design_times(nk, call, clock, K)
+    twin = event_ms(lambda: nk.network_steps_reference(*call, clock, K), 2)
+    n_exc = max(ls.shape[1] for ls in spec.lattices)
+    wm = torch.randn((n_exc, n_exc), device="cuda")
+    vec = torch.randn(n_exc, device="cuda")
+    lib_ms = event_ms(lambda: torch.mv(wm, vec), 200)
+    say(f"[43 kernel-vs-twin] smoke.toml's first 16-step call: integer and "
+        f"spike mismatches {bad}, max float error {err:.3g}, outputs not "
+        f"bit-equal {bits}; the designs in turns: {design_line(d)}; plain "
+        f"twin {twin * 1e3 / K:.3f} us/step (events); bound "
+        f"{call_bound[0] * 1e3 / K:.4f} us/step ({call_bound[1]}); "
+        f"torch.mv ({n_exc}, {n_exc}) {lib_ms * 1e3:.3f} us; card {smi}")
+    check(bad == 0 and err == 0.0 and bits == [],
+          "the trial's call differs from the twin")
+    return {"name": "network_persistent (flat-mode arm): the lixirnet "
+                    "Bayesian trial", "route": "cuda",
+            "source": "spiking_neural_networks_tpu_torch/csrc/"
+                      "network_persistent.cu",
+            "replaces": FLAT_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": d["persistent"][1] * K / 1e3,
+            "plain_ms": twin, "device_ms": d["persistent"][2] * K / 1e3,
+            "other_design_ms": d["per_step"][1] * K / 1e3,
+            "bound_ms": call_bound[0], "bound_by": call_bound[1],
+            "library_ms": lib_ms,
+            "library_call": f"torch.mv on the ({n_exc}, {n_exc}) excitatory "
+                            f"weights: one dense gather of one step"}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -6606,7 +7144,8 @@ def main():
     # the DSL family first: late in a long run the profiler keeps fewer
     # kernel records of every family (it once kept none of the DSL main
     # path's in eight tries)
-    for phases in (dsl_phases, stencil_phases, plasticity_phases,
+    for phases in (dsl_phases, trig_phases, trial_phases, stencil_phases,
+                   plasticity_phases,
                    network_phases, hh_phases, chem_phases, flat_phases,
                    reward_phases, env_phases, model_phases):
         t0 = time.perf_counter()

@@ -19,13 +19,21 @@ receptors and kinetics into the package's classes), and hand-written CUDA
 kernels for NVIDIA Hopper (``csrc/``) that run those lattices' and
 networks' steps on the GPU.  A DSL neuron on an electrical stencil lattice
 runs on the model kernel, through a CUDA functor generated from its step
-and built by nvcc at first use (``ops/dsl_kernels.py``).  Entry points put
-their tensors
-on the GPU (``device="cuda"``) unless the caller asks for another device.
-It imports PyTorch and NumPy, never JAX.
+and built by nvcc at first use (``ops/dsl_kernels.py``; sin, cos and tan
+included).  ``lixirnet`` is the reference's Python surface (its prototype
+neurons, lattices and networks, the legacy v0.1 families), over these
+lattices and networks on the card; ``experiments`` holds the
+Bayesian-inference pipeline written against it
+(``python -m spiking_neural_networks_tpu_torch.experiments.\
+bayesian_inference_rate_based``).  ``analysis`` (peaks, correlation, EEG
+spectra), ``attractors`` (Hopfield weights, the discrete lattice),
+``coupling`` (gap-junction and coupled-neuron steps) and
+``utils.distribution`` are the support modules.  Entry points put their
+tensors on the GPU (``device="cuda"``) unless the caller asks for another
+device.  It imports PyTorch and NumPy, never JAX.
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from .models.integrate_and_fire import (
     AdaptiveExpLeakyIntegrateAndFire, AdaptiveLeakyIntegrateAndFire,
@@ -48,3 +56,4 @@ from .ops.graph import (DenseGraph, SparseGraph, StencilGraph,
                         radius_offsets)
 from .ops.receptors import DopaGluGABAReceptors, IonotropicReceptors
 from .interactable import Environment, UnsupervisedEnvironment
+from . import analysis, attractors, coupling

@@ -14,7 +14,7 @@ the JAX package's f32 scalars do, with R-STDP's two decays hoisted out of
 the step.  The float-op transcendental functions of the CUDA kernels
 (`kernel_exp`, `kernel_log`, `kernel_pow`, `kernel_tanh`, `kernel_cosh`,
 and the DSL's `kernel_ln`, `kernel_log10`, `kernel_sinh`, `kernel_sqrt`,
-`kernel_pow_nan`) live here too.
+`kernel_pow_nan`, `kernel_sin`, `kernel_cos`, `kernel_tan`) live here too.
 """
 
 from __future__ import annotations
@@ -219,6 +219,82 @@ def kernel_sinh(x):
     big = 0.5 * (e - 1.0 / e)
     big = torch.where(x < 0.0, -big, big)
     return torch.where(torch.abs(x) < 1.0, small, big)
+
+
+# sin, cos and tan in float64: a Cody-Waite reduction by pi/2 in three
+# parts (P1 of 27 and P2 of 25 significant bits, so q * P1 and q * P2 are
+# exact for |q| < 2^25), then fdlibm's minimax polynomials of sin and cos
+# on [-pi/4, pi/4] (__kernel_sin / __kernel_cos), rounded once to float32
+_TWO_OVER_PI = 0.6366197723675814
+_PIO2_1, _PIO2_2, _PIO2_3 = (1.570796325802803, 9.920935739593517e-10,
+                             5.721188726109832e-18)
+_SIN_POLY = (1.58969099521155010221e-10, -2.50507602534068634195e-08,
+             2.75573137070700676789e-06, -1.98412698298579493134e-04,
+             8.33333333332248946124e-03, -1.66666666666666324348e-01)
+_COS_POLY = (-1.13596475577881948265e-11, 2.08757232129817482790e-09,
+             -2.75573143513906633035e-07, 2.48015872894767294178e-05,
+             -1.38888888888741095749e-03, 4.16666666666666019037e-02)
+# |x| below which the reduction is exact to the double's rounding:
+# |q| < 2^25
+TRIG_EXACT_MAX = 5.0e7
+
+
+def _trig_parts(x):
+    """``(n, s, c)`` of a float32 tensor: its quadrant n = q mod 4 and
+    the float64 sin and cos of its remainder r = x - q pi/2 (|r| <= pi/4,
+    clamped to [-1, 1] where the reduction has lost r: |x| past
+    `TRIG_EXACT_MAX`).  The float64 operations of ``ms_trig_parts`` in
+    ``csrc/model_stencil.cuh``, in order."""
+    d = x.to(torch.float64)
+    q = torch.round(d * _TWO_OVER_PI)
+    r = d - q * _PIO2_1
+    r = r - q * _PIO2_2
+    r = r - q * _PIO2_3
+    r = torch.where(q == 0.0, d, torch.clamp(r, -1.0, 1.0))
+    n = q - 4.0 * torch.floor(q * 0.25)
+    z = r * r
+    p = z * _SIN_POLY[0] + _SIN_POLY[1]
+    for k in _SIN_POLY[2:]:
+        p = p * z + k
+    s = r + (r * z) * p
+    p = z * _COS_POLY[0] + _COS_POLY[1]
+    for k in _COS_POLY[2:]:
+        p = p * z + k
+    c = (1.0 - 0.5 * z) + (z * z) * p
+    return n, s, c
+
+
+def kernel_sin(x):
+    """sin of a float32 tensor by the float64 operations of ``kernel_sin``
+    in ``csrc/model_stencil.cuh`` (`_trig_parts`), rounded once: within
+    1 ulp of sin for |x| <= `TRIG_EXACT_MAX` (5e7), the same bits on
+    every device.  Past that the reduction loses r: the error is at most
+    about |x| 2^-52 and the result stays in [-1, 1] (finite).  NaN and
+    +-inf give NaN."""
+    n, s, c = _trig_parts(x)
+    y = torch.where(n == 0.0, s, torch.where(
+        n == 1.0, c, torch.where(n == 2.0, -s, -c)))
+    return y.to(torch.float32)
+
+
+def kernel_cos(x):
+    """cos of a float32 tensor as `kernel_sin` computes sin
+    (``kernel_cos`` in ``csrc/model_stencil.cuh``), with its accuracy."""
+    n, s, c = _trig_parts(x)
+    y = torch.where(n == 0.0, c, torch.where(
+        n == 1.0, -s, torch.where(n == 2.0, -c, s)))
+    return y.to(torch.float32)
+
+
+def kernel_tan(x):
+    """tan of a float32 tensor as ``s / c`` (even quadrant) or ``-c / s``
+    (odd) of `_trig_parts`, divided in float64 and rounded once
+    (``kernel_tan`` in ``csrc/model_stencil.cuh``): within 1 ulp of tan
+    for |x| <= `TRIG_EXACT_MAX`, finite past it, NaN at NaN and +-inf."""
+    n, s, c = _trig_parts(x)
+    odd = (n == 1.0) | (n == 3.0)
+    y = torch.where(odd, -c / s, s / c)
+    return y.to(torch.float32)
 
 
 def stdp_delta(t_pre, t_post, p, exp=torch.exp):

@@ -81,7 +81,8 @@ __device__ __forceinline__ float kernel_cosh(float x)
 // The DSL's functions on the kernel route (the generated functors of
 // ops/dsl_kernels.py), each the same bits as its twin in
 // core/plasticity.py: ln / log (kernel_ln), log10 (kernel_log10), sinh
-// (kernel_sinh), ^ (ms_pow: kernel_pow_nan), and min / max with torch's
+// (kernel_sinh), sin / cos / tan (kernel_sin, kernel_cos, kernel_tan), ^
+// (ms_pow: kernel_pow_nan), and min / max with torch's
 // NaN rule (torch.minimum / torch.maximum propagate a NaN operand; fminf /
 // fmaxf do not).
 __device__ __forceinline__ float kernel_ln(float x)
@@ -111,6 +112,62 @@ __device__ __forceinline__ float kernel_sinh(float x)
     const float e = kernel_exp(fabsf(x));
     const float b = 0.5f * (e - 1.0f / e);
     return x < 0.0f ? -b : b;
+}
+
+// sin, cos and tan in double, rounded once (twins kernel_sin, kernel_cos,
+// kernel_tan in core/plasticity.py, within 1 ulp for |x| <= 5e7): a
+// Cody-Waite reduction by pi/2 in three parts (q * P1 and q * P2 exact for
+// |q| < 2^25), then fdlibm's minimax polynomials on [-pi/4, pi/4].  Past
+// the exact range the remainder is clamped to [-1, 1], so the result stays
+// finite; NaN and +-inf give NaN.
+struct MsTrig {
+    double n, s, c;   // the quadrant q mod 4, sin and cos of the remainder
+};
+
+__device__ __forceinline__ MsTrig ms_trig_parts(float x)
+{
+    const double d = (double)x;
+    const double q = rint(d * 0.6366197723675814);
+    double r = d - q * 1.570796325802803;
+    r = r - q * 9.920935739593517e-10;
+    r = r - q * 5.721188726109832e-18;
+    r = q == 0.0 ? d : (r > 1.0 ? 1.0 : (r < -1.0 ? -1.0 : r));
+    MsTrig t;
+    t.n = q - 4.0 * floor(q * 0.25);
+    const double z = r * r;
+    double p = z * 1.58969099521155010221e-10 + -2.50507602534068634195e-08;
+    p = p * z + 2.75573137070700676789e-06;
+    p = p * z + -1.98412698298579493134e-04;
+    p = p * z + 8.33333333332248946124e-03;
+    p = p * z + -1.66666666666666324348e-01;
+    t.s = r + (r * z) * p;
+    p = z * -1.13596475577881948265e-11 + 2.08757232129817482790e-09;
+    p = p * z + -2.75573143513906633035e-07;
+    p = p * z + 2.48015872894767294178e-05;
+    p = p * z + -1.38888888888741095749e-03;
+    p = p * z + 4.16666666666666019037e-02;
+    t.c = (1.0 - 0.5 * z) + (z * z) * p;
+    return t;
+}
+
+__device__ __forceinline__ float kernel_sin(float x)
+{
+    const MsTrig t = ms_trig_parts(x);
+    return (float)(t.n == 0.0 ? t.s : t.n == 1.0 ? t.c
+                   : t.n == 2.0 ? -t.s : -t.c);
+}
+
+__device__ __forceinline__ float kernel_cos(float x)
+{
+    const MsTrig t = ms_trig_parts(x);
+    return (float)(t.n == 0.0 ? t.c : t.n == 1.0 ? -t.s
+                   : t.n == 2.0 ? -t.c : t.s);
+}
+
+__device__ __forceinline__ float kernel_tan(float x)
+{
+    const MsTrig t = ms_trig_parts(x);
+    return (float)((t.n == 1.0 || t.n == 3.0) ? -t.c / t.s : t.s / t.c);
 }
 
 // x ** y for the DSL's ^ and r^: kernel_pow, whose operands are finite,
@@ -253,15 +310,29 @@ struct MsMasks {
     static constexpr unsigned ints = ms_mask<M>(I32);
 };
 
+// A functor's own cap on the cells a persistent thread takes: M::max_cpt
+// where it has one (a generated functor that calls sin / cos / tan, whose
+// float64 registers spilled at 4 cells), else MS_MAX_CPT.
+template <class M, class = void>
+struct MsCptCap {
+    static constexpr int value = MS_MAX_CPT;
+};
+
+template <class M>
+struct MsCptCap<M, std::void_t<decltype(M::max_cpt)>> {
+    static constexpr int value = M::max_cpt;
+};
+
 // The most cells a persistent thread of M takes: MS_MAX_CPT where it
 // keeps at most 4 fields in registers, else 2 (BCMIzhikevich's 7 spilled
-// at 4 cells in 64 registers).
+// at 4 cells in 64 registers), and at most its own cap.
 template <class M>
 constexpr int ms_max_cpt()
 {
     int n = 0;
     for (unsigned m = MsMasks<M>::reg; m; m &= m - 1) ++n;
-    return n <= 4 ? MS_MAX_CPT : 2;
+    const int cpt = n <= 4 ? MS_MAX_CPT : 2;
+    return cpt < MsCptCap<M>::value ? cpt : MsCptCap<M>::value;
 }
 
 // One persistent launch: up to MS_CHUNK steps from `in` (the call's

@@ -46,9 +46,9 @@ from ..ops.receptors import ReceptorSystem
 # the DSL's builtin functions, by name: the `Fns` field that computes each
 # (a model step's `fns`), else the torch function
 FNS_FIELDS = {"exp": "exp", "ln": "log", "log": "log", "log10": "log10",
-              "tanh": "tanh", "sinh": "sinh", "cosh": "cosh", "sqrt": "sqrt"}
-TORCH_FUNCTIONS = {"abs": torch.abs, "sin": torch.sin,
-                   "cos": torch.cos, "tan": torch.tan, "floor": torch.floor,
+              "tanh": "tanh", "sinh": "sinh", "cosh": "cosh", "sqrt": "sqrt",
+              "sin": "sin", "cos": "cos", "tan": "tan"}
+TORCH_FUNCTIONS = {"abs": torch.abs, "floor": torch.floor,
                    "ceil": torch.ceil, "min": torch.minimum,
                    "max": torch.maximum}
 

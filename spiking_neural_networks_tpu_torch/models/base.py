@@ -30,8 +30,8 @@ NEVER = -1
 
 class Fns(NamedTuple):
     """The transcendental functions a model step takes (``log``, ``pow``,
-    ``sinh``, ``log10`` and ``sqrt``: those of the DSL's generated
-    models)."""
+    ``sinh``, ``log10``, ``sqrt``, ``sin``, ``cos`` and ``tan``: those of
+    the DSL's generated models)."""
     exp: Callable
     tanh: Callable
     cosh: Callable
@@ -40,6 +40,9 @@ class Fns(NamedTuple):
     sinh: Callable = torch.sinh
     log10: Callable = torch.log10
     sqrt: Callable = torch.sqrt
+    sin: Callable = torch.sin
+    cos: Callable = torch.cos
+    tan: Callable = torch.tan
 
 
 TORCH_FNS = Fns(torch.exp, torch.tanh, torch.cosh)
@@ -261,3 +264,29 @@ class NeuronModel:
 def get_neurotransmitter_concentrations(state):
     """(N, K) concentrations and presence mask."""
     return state["nt$t"], state["nt$mask"]
+
+
+def run_static_input(model, state, input_current, iterations, generator=None,
+                     gaussian=None):
+    """`run_static_input_integrate_and_fire` (integrate_and_fire/mod.rs:
+    40-58): ``iterations`` steps of ``model`` under a constant current,
+    each scaled by a `utils.distribution.limited_distr` draw of
+    ``gaussian`` ((mean, std, minimum, maximum)) where given, from
+    ``generator`` (a `torch.Generator` on the state's device; a fresh one
+    seeded 0 where None).  Returns the final state and the
+    (iterations, N) voltage history."""
+    from ..utils.distribution import limited_distr
+
+    if gaussian is not None and generator is None:
+        generator = torch.Generator(device=state["v"].device)
+        generator.manual_seed(0)
+    voltages = []
+    for _ in range(iterations):
+        i = input_current
+        if gaussian is not None:
+            i = input_current * limited_distr(
+                generator, *gaussian, shape=tuple(state["v"].shape))
+        state, _ = model.step(state, i)
+        voltages.append(state["v"])
+    return state, torch.stack(voltages)
+

@@ -20,9 +20,8 @@ The analysis (`analyze`) also finds the layout: a field is carried unless
 its final value is its own input (so ``prev_v = v`` carries ``prev_v``:
 the freeze the JAX package's forwarding analysis once had), and read when
 its input reaches an output.  A model is rejected (`reject_reason`) where
-its step calls sin, cos or tan (no float-op form), makes a value of
-another type than its field, or has more than ``MAX_FIELDS`` fields; it
-then runs on the plain route.  (The kernel itself reads v and
+its step makes a value of another type than its field, or has more than
+``MAX_FIELDS`` fields; it then runs on the plain route.  (The kernel itself reads v and
 gap_conductance, so both are always read.)  A build or launch failure raises.
 """
 
@@ -44,10 +43,14 @@ F32, BOOL, I32, CARRIED, READ = 0, 1, 2, 4, 8
 C_FUNCTIONS = {"exp": "kernel_exp", "ln": "kernel_ln", "log": "kernel_ln",
                "log10": "kernel_log10", "tanh": "kernel_tanh",
                "sinh": "kernel_sinh", "cosh": "kernel_cosh",
-               "sqrt": "sqrtf", "abs": "fabsf", "floor": "floorf",
+               "sqrt": "sqrtf", "sin": "kernel_sin", "cos": "kernel_cos",
+               "tan": "kernel_tan", "abs": "fabsf", "floor": "floorf",
                "ceil": "ceilf", "min": "ms_minimum", "max": "ms_maximum"}
-# builtins without a float-op form: a model that calls one runs plain
-NO_KERNEL_FORM = ("sin", "cos", "tan")
+# the functions that evaluate in float64 (csrc/model_stencil.cuh's
+# ms_trig_parts): a step that calls one keeps at most TRIG_MAX_CPT cells a
+# persistent thread (at 4 its 64 registers spilled on an H100)
+TRIG_FUNCTIONS = ("kernel_sin", "kernel_cos", "kernel_tan")
+TRIG_MAX_CPT = 2
 
 
 class EmitError(ValueError):
@@ -219,9 +222,6 @@ class EmitOps:
     def call(self, name, args):
         if name == "heaviside":
             return self.g.to_f(self.g.to_f(args[0]) > 0.0)
-        if name in NO_KERNEL_FORM:
-            raise EmitError(f"{name} has no float-op form on the kernel "
-                            f"route")
         fn = C_FUNCTIONS.get(name)
         return None if fn is None else self._call(fn, *args)
 
@@ -316,14 +316,25 @@ def analyze(cls):
                   + (CARRIED if name in carry else 0)
                   + (READ if name in reads else 0)
                   for name, dt in fields)
-    functor = _functor(cls, fields, codes, g, need, outs, spike)
     ops = {}
     for n in need:
         op, args, _ = g.nodes[n]
         if op not in ("in", "const", "bconst", "i_syn"):
             key = args[0] if op == "call" else op
             ops[key] = ops.get(key, 0) + 1
+    functor = _functor(cls, fields, codes, g, need, outs, spike,
+                       any(f in ops for f in TRIG_FUNCTIONS))
     return Layout(fields, carry, reads, codes, functor, ops)
+
+
+def max_cpt(model):
+    """The most cells a persistent thread takes for the generated neuron
+    ``model`` by its functions: `TRIG_MAX_CPT` where its step calls sin,
+    cos or tan, else None (no cap of its own)."""
+    lay = layout(model)
+    if lay is not None and any(f in lay.ops for f in TRIG_FUNCTIONS):
+        return TRIG_MAX_CPT
+    return None
 
 
 def _expr(g, op, args, t):
@@ -349,7 +360,7 @@ def _expr(g, op, args, t):
     return f"{x(args[0])} {op} {x(args[1])}"
 
 
-def _functor(cls, fields, codes, g, need, outs, spike):
+def _functor(cls, fields, codes, g, need, outs, spike, trig):
     code_txt = []
     for c in codes:
         base = "BOOL" if c & BOOL else "F32"
@@ -368,6 +379,10 @@ def _functor(cls, fields, codes, g, need, outs, spike):
              f"is_spiking = {idx['is_spiking']}, n_fields = {len(fields)} "
              f"}};",
              "    static constexpr int codes[n_fields] = {"]
+    if trig:
+        lines[-1:-1] = [f"    // float64 sin / cos / tan: at most "
+                        f"{TRIG_MAX_CPT} cells a persistent thread",
+                        f"    static constexpr int max_cpt = {TRIG_MAX_CPT};"]
     for k, (name, _) in enumerate(fields):
         lines.append(f"        {code_txt[k]},{' ' * max(1, 30 - len(code_txt[k]))}"
                      f"// {k}: {name}")

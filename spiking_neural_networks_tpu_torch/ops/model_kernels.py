@@ -35,9 +35,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..core.plasticity import (kernel_cosh, kernel_exp, kernel_ln,
-                               kernel_log10, kernel_pow_nan, kernel_sinh,
-                               kernel_sqrt, kernel_tanh)
+from ..core.plasticity import (kernel_cos, kernel_cosh, kernel_exp,
+                               kernel_ln, kernel_log10, kernel_pow_nan,
+                               kernel_sin, kernel_sinh, kernel_sqrt,
+                               kernel_tan, kernel_tanh)
 from ..models.base import Fns
 from . import dsl_kernels
 from ..models.dopa import DopaIzhikevich
@@ -51,10 +52,11 @@ MAX_CPT = 4               # MS_MAX_CPT: cells a persistent thread
 STEPS_PER_LAUNCH = 16     # K of the lattice runner's kernel calls (MS_CHUNK)
 # shared memory a persistent block may take (an H100's opt-in maximum)
 SMEM_BUDGET = 232448
-# the float-op functions of the kernels (log, pow, sinh, log10 and sqrt:
-# the DSL arm's)
+# the float-op functions of the kernels (log, pow, sinh, log10, sqrt, sin,
+# cos and tan: the DSL arm's)
 KERNEL_FNS = Fns(kernel_exp, kernel_tanh, kernel_cosh, kernel_ln,
-                 kernel_pow_nan, kernel_sinh, kernel_log10, kernel_sqrt)
+                 kernel_pow_nan, kernel_sinh, kernel_log10, kernel_sqrt,
+                 kernel_sin, kernel_cos, kernel_tan)
 
 # Calls of the model kernel (`model_steps`, `ModelRun.steps`) that launched
 # CUDA kernels.
@@ -151,7 +153,7 @@ def kind(model):
 def supports_model(model, graph, electrical, chemical, do_plasticity):
     """Whether the kernel computes this lattice configuration's step: a
     model of the table, or a DSL neuron that the emitter takes (at most
-    `MAX_FIELDS` fields, no sin / cos / tan), with an elementwise step, a
+    `MAX_FIELDS` fields of one type each), with an elementwise step, a
     `StencilGraph` of at most `MAX_OFFSETS` offsets, electrical synapses
     only, no plasticity."""
     from .graph import StencilGraph
@@ -247,11 +249,15 @@ def max_cpt(model):
     """The most cells a persistent thread takes for ``model``: `MAX_CPT`
     where its step keeps at most 4 fields in registers (those it reads and
     writes), else 2 (``ms_max_cpt`` in the CUDA source: BCMIzhikevich's 7
-    spilled at 4 cells a thread; a DSL neuron's by its generated
-    layout)."""
+    spilled at 4 cells a thread; a DSL neuron's by its generated layout,
+    and at most `dsl_kernels.TRIG_MAX_CPT` where it calls sin, cos or
+    tan)."""
     _, carry = model_kernel_fields(model)
     reads = model_read_fields(model)
-    return MAX_CPT if sum(k in reads for k in carry) <= 4 else 2
+    cpt = MAX_CPT if sum(k in reads for k in carry) <= 4 else 2
+    cap = dsl_kernels.max_cpt(model) \
+        if dsl_kernels.is_generated(model) else None
+    return cpt if cap is None else min(cpt, cap)
 
 
 class MsPlan(NamedTuple):

@@ -20,15 +20,16 @@ import torch
 
 import spiking_neural_networks_tpu as snn
 import spiking_neural_networks_tpu_torch as snt
-from spiking_neural_networks_tpu.attractors import (
-    distort_pattern, generate_binary_hopfield_network,
-    generate_hopfield_network, generate_random_patterns)
+from spiking_neural_networks_tpu import attractors as jattractors
 from spiking_neural_networks_tpu.core.history import (
     SpikeHistory as JSpikeHistory)
 from spiking_neural_networks_tpu.dsl import neuron_builder as jnb
 from spiking_neural_networks_tpu.models.spike_train import (
     REFRACTORINESS as JREFRACTORINESS)
 from spiking_neural_networks_tpu.ops.graph import DenseGraph as JDenseGraph
+from spiking_neural_networks_tpu_torch.attractors import (
+    distort_pattern, generate_binary_hopfield_network,
+    generate_hopfield_network, generate_random_patterns)
 from spiking_neural_networks_tpu_torch.convert import lattice_from
 from spiking_neural_networks_tpu_torch.core.history import SpikeHistory
 from spiking_neural_networks_tpu_torch.dsl import neuron_builder as tnb
@@ -1041,6 +1042,27 @@ def _recall(counts, pattern, threshold):
                   ).mean())
 
 
+def test_attractor_builders_match_jax():
+    """The port's attractors, which the two attractor tests below build
+    their patterns and weights from, against the JAX package's on the
+    same patterns."""
+    for seed in (100, 101, 102, 300, 301, 302):
+        patterns = generate_random_patterns(7, 7, 1, 0.5, seed=seed)
+        np.testing.assert_array_equal(
+            patterns, jattractors.generate_random_patterns(7, 7, 1, 0.5,
+                                                           seed=seed))
+        np.testing.assert_array_equal(
+            generate_hopfield_network(patterns),
+            np.asarray(jattractors.generate_hopfield_network(patterns)))
+        np.testing.assert_array_equal(
+            generate_binary_hopfield_network(patterns, 1.0, 1.0, 0.5),
+            np.asarray(jattractors.generate_binary_hopfield_network(
+                patterns, 1.0, 1.0, 0.5)))
+        np.testing.assert_array_equal(
+            distort_pattern(patterns[0], 0.1, seed=seed),
+            jattractors.distort_pattern(patterns[0], 0.1, seed=seed))
+
+
 def test_dsl_izhikevich_attractor_bipolar_matches_jax():
     """A DSL Izhikevich lattice with bipolar Hopfield weights (a
     `DenseGraph`: the plain route), carried from the JAX package's lattice
@@ -1053,7 +1075,8 @@ def test_dsl_izhikevich_attractor_bipolar_matches_jax():
         lat.populate(7, 7, gap_conductance=10.0, v=-65.0, dt=1.0)
         patterns = generate_random_patterns(7, 7, 1, 0.5, seed=100 + trial)
         w = generate_hopfield_network(patterns)
-        lat.set_graph(JDenseGraph(w, jnp.asarray(~np.eye(49, dtype=bool))))
+        lat.set_graph(JDenseGraph(jnp.asarray(w),
+                                  jnp.asarray(~np.eye(49, dtype=bool))))
         flat = jnp.asarray(np.asarray(distort_pattern(
             patterns[0], 0.1, seed=trial), bool).reshape(-1))
         lat.apply(lambda s: {**s, "v": jnp.where(flat, s["v_th"], s["c"])})
@@ -1090,7 +1113,8 @@ def _binary_network(pkg, gen, trial, device=None):
     flat = np.asarray(distort_pattern(patterns[0], 0.1, seed=trial),
                       bool).reshape(-1)
     if device is None:
-        exc.set_graph(JDenseGraph(w, jnp.asarray(~np.eye(25, dtype=bool))))
+        exc.set_graph(JDenseGraph(jnp.asarray(w),
+                                  jnp.asarray(~np.eye(25, dtype=bool))))
         exc.apply(lambda s: {**s, "v": jnp.where(jnp.asarray(flat),
                                                  s["v_th"], s["c"])})
         exc.grid_history = JSpikeHistory()

@@ -75,8 +75,25 @@ HH_NB = """
 [end]
 """
 
+# sin, cos and tan (kernel_sin, kernel_cos, kernel_tan): tan of the input
+# current and a sin / cos drive in dv/dt
+TRIG_NB = """
+[neuron]
+    type: CudaTrig
+    vars: w = 30, a = 0.02, b = 0.2, c = -55, d = 8, v_th = 30, tau_m = 1, c_m = 100, drive = 0
+    on_spike:
+        v = c
+        w += d
+    spike_detection: v >= v_th
+    on_iteration:
+        drive = tan(i * 0.001)
+        dw/dt = (a * (b * v - w)) / tau_m
+        dv/dt = (0.04 * v * v + 5 * v + 140 - w + i + 4 * sin(v * 0.2) * cos(w * 0.1) + drive) / c_m
+[end]
+"""
+
 SOURCES = {"CudaIzhikevich": IZHIKEVICH_NB, "CudaFuncs": FUNCS_NB,
-           "CudaHH": HH_NB}
+           "CudaHH": HH_NB, "CudaTrig": TRIG_NB}
 
 
 @pytest.fixture

@@ -11,8 +11,13 @@ source, the route, and the kernel against its twin on a card.
   integers, bools and firing times equal; the plain route against
   ``use_pallas=False`` over 200 steps within 2 mV and 2 steps (fewer than
   1% of the neurons outside: the tie rule).
-* The gate: sin, a chemical lattice, a history and more than 32 fields
-  take the plain route; a DSL Izhikevich never the stencil kernel.
+* The gate: a chemical lattice, a history and more than 32 fields take
+  the plain route, sin / cos / tan the kernel route; a DSL Izhikevich
+  never the stencil kernel.
+* The trig neuron (sin, cos, tan) on the kernel route against the JAX
+  kernel in interpret mode: one step within rtol 1e-5, and 1000 steps
+  within 2 mV and 2 steps (fewer than 1% of the neurons outside: the tie
+  rule, as the plain routes are held).
 * The generated build raises without nvcc.  The kernel in both designs
   against its twin on a card: ``tests/test_torch_dsl_cuda.py``.
 """
@@ -57,6 +62,24 @@ SIN_NB = """
 [end]
 """
 
+# sin, cos and tan on the kernel route: tan of the input current (as
+# tests/test_dsl.py's TanNeuron, scaled so that the gap current stays
+# away from tan's poles) and a sin / cos drive in dv/dt
+TRIG_NB = """
+[neuron]
+    type: TrigNeuron
+    vars: w = 30, a = 0.02, b = 0.2, c = -55, d = 8, v_th = 30, tau_m = 1, c_m = 100, drive = 0
+    on_spike:
+        v = c
+        w += d
+    spike_detection: v >= v_th
+    on_iteration:
+        drive = tan(i * 0.001)
+        dw/dt = (a * (b * v - w)) / tau_m
+        dv/dt = (0.04 * v * v + 5 * v + 140 - w + i + 4 * sin(v * 0.2) * cos(w * 0.1) + drive) / c_m
+[end]
+"""
+
 FUNCS_NB = """
 [neuron]
     type: FuncsNeuron
@@ -81,11 +104,12 @@ MODELS = {
     "FuncDeclNeuron": FUNC_DECL_NB,
     "BoolVarNeuron": BOOL_VARS_NB,
     "FuncsNeuron": FUNCS_NB,
+    "TrigNeuron": TRIG_NB,
 }
 # the lattice pairs run on the JAX kernel in interpret mode (its Pallas
 # trace of HH's body takes minutes there)
 LATTICE_MODELS = ("KernelIzh", "KernelBranchy", "KernelAlias",
-                  "DSLMorrisLecar", "FuncsNeuron")
+                  "DSLMorrisLecar", "FuncsNeuron", "TrigNeuron")
 
 
 def both(name):
@@ -281,13 +305,14 @@ def lattice(src, name, **kw):
 
 
 def test_gate_routes():
-    # a sin model: no float-op form, the plain route
-    lat = lattice(SIN_NB, "SinNeuron")
-    assert dk.layout(lat.model) is None
-    assert "sin" in dk.reject_reason(lat.model)
-    assert not mk.supports_model(lat.model, lat.graph, True, False, False)
-    lat.run_lattice(20)
-    assert lat._last_run_fused is False
+    # a sin model takes the kernel route (kernel_sin), as the trig one
+    for src, name in ((SIN_NB, "SinNeuron"), (TRIG_NB, "TrigNeuron")):
+        lat = lattice(src, name)
+        assert dk.layout(lat.model) is not None
+        assert dk.reject_reason(lat.model) is None
+        assert mk.supports_model(lat.model, lat.graph, True, False, False)
+        lat.run_lattice(20)
+        assert lat._last_run_fused == "model"
     # a chemical lattice
     lat = lattice(IZHIKEVICH_NB, "DSLIzhikevich")
     assert mk.supports_model(lat.model, lat.graph, True, False, False)
@@ -365,3 +390,55 @@ def test_lattice_from_carries_a_dsl_lattice_key_for_key(name):
                                       np.asarray(j.state[k]), err_msg=k)
         assert t.state[k].dtype == torch.from_numpy(
             np.asarray(j.state[k])).dtype, k
+
+
+def test_trig_neuron_one_step_matches_jax_kernel():
+    """One step of the trig neuron on the kernel route (kernel_sin /
+    kernel_cos / kernel_tan) against the JAX kernel in interpret mode
+    (jnp.sin / cos / tan) within rtol 1e-5."""
+    j, t = pair("TrigNeuron", True)
+    j.run_lattice(1)
+    t.run_lattice(1)
+    assert j._last_run_fused == ("model",) and t._last_run_fused == "model"
+    for k in ("v", "w", "drive"):
+        np.testing.assert_allclose(t.state[k].numpy(), np.asarray(j.state[k]),
+                                   rtol=RTOL, atol=0.0, err_msg=k)
+
+
+def test_trig_neuron_1000_steps_match_jax_kernel():
+    """1000 steps of the trig neuron, kernel route against the JAX kernel
+    in interpret mode, read every 50 steps: voltage within 2 mV and last
+    firing time within 2 steps, for all but 1% of the neurons (the tie
+    rule: the two associations part at a threshold tie)."""
+    j, t = pair("TrigNeuron", True)
+    vj, vt, lj, lt = [], [], [], []
+    for _ in range(20):
+        j.run_lattice(50)
+        t.run_lattice(50)
+        vj.append(np.asarray(j.state["v"]))
+        vt.append(t.state["v"].numpy())
+        lj.append(np.asarray(j.state["last_firing_time"]))
+        lt.append(t.state["last_firing_time"].numpy())
+    assert t._last_run_fused == "model"
+    assert (np.stack(lt) >= 0).any()
+    dv = np.abs(np.stack(vj) - np.stack(vt))
+    dl = np.abs(np.stack(lj).astype(np.int64) - np.stack(lt))
+    outside = ((dv > 2.0) | (dl > 2)).any(axis=0)
+    assert outside.sum() <= t.n // 100, int(outside.sum())
+
+
+def test_trig_neuron_takes_at_most_two_cells_a_thread():
+    """A step that calls sin / cos / tan (float64 in the kernel) caps the
+    persistent design at `TRIG_MAX_CPT` cells a thread (its functor says
+    so to the C side); the others keep their register rule."""
+    trig = both("TrigNeuron")[1]()
+    assert mk.max_cpt(trig) == dk.TRIG_MAX_CPT == 2
+    assert "static constexpr int max_cpt = 2;" in dk.layout(trig).functor
+    assert {"kernel_sin", "kernel_cos", "kernel_tan"} <= set(
+        dk.layout(trig).ops)
+    izh = both("KernelIzh")[1]()
+    assert mk.max_cpt(izh) == mk.MAX_CPT
+    assert "max_cpt" not in dk.layout(izh).functor
+    # 512^2 still fits the persistent plan at 2 cells a thread; 700^2 not
+    assert mk.persistent_plan(trig, (512, 512), 12, 132).cap <= 2 * mk.THREADS
+    assert mk.persistent_plan(trig, (700, 700), 12, 132) is None

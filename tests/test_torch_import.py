@@ -24,6 +24,28 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_modules_import_with_jax_blocked():
+    """The reference's surface, the trial pipeline and the support modules
+    import with ``jax`` blocked (a None entry in ``sys.modules`` makes any
+    ``import jax`` raise)."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['spiking_neural_networks_tpu'] = None\n"
+            "import spiking_neural_networks_tpu_torch.lixirnet as ln\n"
+            "from spiking_neural_networks_tpu_torch import (analysis, "
+            "attractors, coupling)\n"
+            "from spiking_neural_networks_tpu_torch.analysis import (eeg, "
+            "correlation, peaks)\n"
+            "from spiking_neural_networks_tpu_torch.utils import "
+            "distribution\n"
+            "from spiking_neural_networks_tpu_torch.experiments import "
+            "bayesian_inference_rate_based as b\n"
+            "assert b.ln is ln and ln.IzhikevichNeuronLattice\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_no_file_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]"
                          r"|(import|from)\s+spiking_neural_networks_tpu[\s.])",

@@ -473,16 +473,26 @@ def test_cuda_design_matches_twin(design, shape, radius, emit):
 @pytest.mark.cuda
 @pytest.mark.parametrize("design", ["persistent", "tiled", "per_step"])
 def test_cuda_run_buffers_alternate(design):
-    """A call writes first the set that does not hold its inputs: the
-    outputs of consecutive calls never share storage with each other or
-    with the caller's planes."""
+    """What `model_kernels.next_sets` promises: a call writes first the
+    set that does not hold its inputs, and its outputs lie in the set it
+    ends on, never in the caller's planes.  (Two consecutive calls may
+    end on one set: a call of an even number of launches ends on the set
+    that held its inputs.)"""
     _needs_cuda()
     inp = inputs(9, 10, seed=5, device="cuda")
     run = sk.StencilRun(*args(inp), design=design)
-    outs = [run.steps(k, n)[0].data_ptr() for k, n in
-            ((0, 16), (16, 7), (23, 1), (24, 2))]
-    assert all(a != b for a, b in zip(outs, outs[1:]))
-    assert inp["v"].data_ptr() not in outs
+    caller = {inp["v"].data_ptr(), inp["w"].data_ptr(),
+              inp["lft"].data_ptr()}
+    for k, n in ((0, 16), (16, 7), (23, 1), (24, 2)):
+        cur = run.sets.cur
+        first, out = mk.next_sets(cur, run.launches(n))
+        assert first != cur
+        v, w, lft = run.steps(k, n)[:3]
+        assert run.sets.cur == out
+        assert v.data_ptr() == run.sets.bufs["v"][out].data_ptr()
+        assert w.data_ptr() == run.sets.bufs["w"][out].data_ptr()
+        assert lft.data_ptr() == run.sets.lft_buf[out].data_ptr()
+        assert not caller & {v.data_ptr(), w.data_ptr(), lft.data_ptr()}
 
 
 @pytest.mark.cuda
