@@ -342,12 +342,45 @@ Phases, one line each:
 44. the trials' times: wall seconds per trial, best of 3 after a warm-up
    (as ``bench.py:577-586`` times it), split into construction, run and
    analysis; the profiled device time per step of the run; the plain
-   route's wall for one trial.
+   route's wall for one trial;
+45. the host graph builder (``_native``, built by g++ at its first
+   import): `ops.graph.sparse_radius_graph` at 512^2 and 2048^2 (radius
+   2, keep 0.8) on its native and its NumPy branch, host seconds and
+   edges; the native library must have built;
+46. `why_not_fused` on one lattice of each family (the stencil at 512^2,
+   at 2048^2 with per-neuron parameters, STDP, R-STDP, the HH firing
+   form, Morris-Lecar, the DSL Izhikevich, the DSL HH and the trig
+   neuron, at 64^2) and on four that stay plain (BCM, STDP with a graph
+   history, a chemical Izhikevich lattice, a `DenseGraph`): after 16
+   steps the verdict is ``[]`` exactly when the run took a kernel route;
+47. checkpoints (`utils.checkpoint`): run k steps, save, run k more, load
+   into the same object, run k again: bit-equal to the uninterrupted run
+   (states, weights, traces, dopamine, clocks; the network generator
+   restored) and the kernel route on both halves, for the 512^2 main path
+   (k = 1024), the 512^2 R-STDP lattice (512), config 5 at 64^2 / 32^2
+   with its Poisson train (512), `bench.py`'s reward network at 128^2
+   (512) and the 2048^2 main path (256); save and load seconds and bytes;
+48. BCM on a reward network's plain lattices (JAX
+   ``tests/test_fuzz_runners.py``'s BCM pair, a `BCMIzhikevich` reward
+   lattice and a BCM Poisson train) at 64^2 for 300 steps at reward 0.5,
+   through the structured and the flat COO runner: the plain route,
+   weights moved, the card against the CPU (2 mV, 2 steps, weights within
+   rtol 2e-4, atol 2e-4), us/step;
+49. `fitting`: JAX ``tests/test_analysis.py:133``'s fit on the card
+   (Izhikevich ``a`` from a Rate train's summary, 400 iterations, n_pop
+   32, n_iter 10): the fitted summary within rtol 0.1, atol 2 of the
+   reference and a score below 1; one generation's scores on the card
+   equal to the CPU's for the same population; seconds per generation and
+   us per coupled step;
+50. `utils.profiling`: `StepTimer` on the 512^2 main path (2048 steps),
+   and `trace()` around one 64-step call, whose Chrome trace must hold a
+   `model_persistent_kernel` record.
 
-The DSL family (phases 37-42) and the trial (43-44) run first: late in a
-long run the profiler keeps fewer kernel records of every family, and a
-counted profile of the DSL main path once lost all in eight tries (a library loaded late is not
-the cause: ``tools/profiler_records.py``).
+The DSL family (phases 37-42), the support modules (45-50) and the trial
+(43-44) run first: late in a long run the profiler keeps fewer kernel
+records of every family, and a counted profile of the DSL main path once
+lost all in eight tries (a library loaded late is not the cause:
+``tools/profiler_records.py``).
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -765,6 +798,18 @@ TRIAL_TOMLS = ("smoke.toml", "smoke_mbm_d2.toml")
 TRIAL_ARGS = os.path.join("experiments", "bayesian_inf_args")
 TRIAL_CMP_STEPS = 1000
 TRIAL_REPS = 3
+# the support modules (phases 45-50): the graph builder's sizes, the
+# diagnosed lattices' size (and the dense one's), the checkpointed runs'
+# k (512^2 main path, 512^2 R-STDP, config 5, the reward network at
+# CKPT_REWARD, the 2048^2 main path), BCM on a reward network, the fit
+# (JAX tests/test_analysis.py:133), StepTimer's steps, the traced call
+NATIVE_SHAPES = (MAIN, BIG)
+DIAG, DIAG_DENSE = (64, 64), (16, 16)
+CKPT_K = (1024, 512, 512, 512, 256)
+CKPT_REWARD = (128, 128)
+BCM_REWARD, BCM_REWARD_STEPS, BCM_WINDOW = (64, 64), 300, 5.0
+FIT_ITERATIONS, FIT_POP, FIT_GENERATIONS = 400, 32, 10
+TIMER_STEPS, TRACE_STEPS = 2048, 64
 T0 = time.perf_counter()
 
 
@@ -1257,11 +1302,19 @@ def stencil_main_phase(snt, sk):
           f"expected {want_calls} calls of one persistent launch each")
     check(bool(torch.isfinite(v).all()) and fired > 0, "bad main-path state")
     # the profiler's records of the C entry's launches
-    reset_stencil_counts(sk)
-    recs = kernel_records(lambda: lat.run_lattice(RECORD_STEPS),
-                          RECORD_STEPS // sk.STEPS_PER_LAUNCH,
+    per_run = []
+
+    def record_run():
+        """One run of the profile; the launches the C entry counted in it
+        (a profile that lost records is taken again, so the last run's
+        count is the kept one's)."""
+        before = sk.STEP_LAUNCHES
+        lat.run_lattice(RECORD_STEPS)
+        per_run.append(sk.STEP_LAUNCHES - before)
+
+    recs = kernel_records(record_run, RECORD_STEPS // sk.STEPS_PER_LAUNCH,
                           mine=("model_persistent_kernel", "izh_"))
-    counted = sk.STEP_LAUNCHES // 2          # a warm-up and a kept run
+    counted = per_run[-1]
     say(f"[4 main path] {MAIN[0]}x{MAIN[1]} run_lattice({RECORD_STEPS}) "
         f"under the profiler: {records_line(recs)}; counted by the C entry "
         f"{counted} a run")
@@ -7083,6 +7136,438 @@ def trial_call_entry(nk, args, launches, smi):
                             f"weights: one dense gather of one step"}
 
 
+# ---------------------------------------------------------------------------
+# The support modules (phases 45-50): the host graph builder, the kernel
+# route diagnosis, checkpoints, BCM on a reward network, fitting, profiling
+# ---------------------------------------------------------------------------
+
+
+def support_phases(snt, smi):
+    """Phases 45-50; no kernel of their own (an empty list)."""
+    native_phase(snt, smi)
+    diagnostics_phase(snt)
+    checkpoint_phase(snt, smi)
+    bcm_reward_phase(snt, smi)
+    fitting_phase(snt, smi)
+    profiling_phase(snt, smi)
+    return []
+
+
+def native_phase(snt, smi):
+    """45. `sparse_radius_graph` on the native branch (g++ built the
+    library at its first import) and on the NumPy branch, host seconds."""
+    from spiking_neural_networks_tpu_torch import _native
+    from spiking_neural_networks_tpu_torch.ops import graph as tg
+    check(_native.available, "the native graph library did not build: "
+          "sparse_radius_graph would take the NumPy branch")
+    for rows, cols in NATIVE_SHAPES:
+        secs, edges = {}, {}
+        for branch in ("native", "numpy"):
+            _native.available = branch == "native"
+            try:
+                t0 = time.perf_counter()
+                g = tg.sparse_radius_graph(rows, cols, 2.0, keep_prob=0.8,
+                                           seed=5, device="cuda")
+                torch.cuda.synchronize()
+                secs[branch] = time.perf_counter() - t0
+            finally:
+                _native.available = True
+            edges[branch] = g.src.numel()
+            slots = ingrid_slots(snt.radius_offsets(2.0), rows, cols)
+            check(g.weights.is_cuda
+                  and int(g.in_deg.double().sum()) == edges[branch]
+                  and 0.78 < edges[branch] / slots < 0.82,
+                  f"sparse_radius_graph's {branch} branch at {rows}x{cols}")
+        say(f"[45 native] {rows}x{cols} radius 2 keep 0.8: native "
+            f"{secs['native']:.3f} s host, {edges['native']} edges; NumPy "
+            f"{secs['numpy']:.3f} s, {edges['numpy']} edges | {smi}")
+
+
+def diag_cases(snt):
+    """(label, builder) of one lattice of each family the smoke runs, and
+    four that must stay on the plain route."""
+    from spiking_neural_networks_tpu_torch.ops.graph import DenseGraph
+
+    def bcm():
+        lat = model_lattice(snt, "BCMIzhikevich", *DIAG)
+        lat.plasticity, lat.do_plasticity = snt.BCM(), True
+        return lat
+
+    def stdp_graph_history():
+        lat = stdp_lattice(snt, *DIAG)
+        lat.update_graph_history = True
+        return lat
+
+    def chemical():
+        lat = main_lattice(snt, *DIAG)
+        s = lat.model.insert_receptor(lat.state, "AMPA")
+        lat.state = lat.model.insert_neurotransmitter(s, "AMPA")
+        lat.chemical_synapse = True
+        return lat
+
+    def dense():
+        lat = snt.Lattice(snt.Izhikevich(), device="cuda")
+        lat.populate(*DIAG_DENSE, gap_conductance=10.0)
+        rng = np.random.default_rng(0)
+        lat.connect(lambda x, y: x != y and rng.random() < 0.3)
+        check(isinstance(lat.graph, DenseGraph), "connect() kept no "
+              "DenseGraph")
+        return lat
+
+    return [("stencil", lambda: main_lattice(snt, *MAIN)),
+            ("stencil per-neuron", lambda: hetero_lattice(snt, *BIG)),
+            ("STDP", lambda: stdp_lattice(snt, *DIAG)),
+            ("R-STDP", lambda: bench_rstdp(snt, *DIAG, v0=True)),
+            ("HH firing form", lambda: hh_lattice(snt, *DIAG)),
+            ("Morris-Lecar", lambda: model_lattice(snt, "MorrisLecar",
+                                                   *DIAG)),
+            ("DSL Izhikevich", lambda: dsl_lattice(snt, "DSLIzhikevich",
+                                                   *DIAG)),
+            ("DSL HH", lambda: dsl_lattice(snt, "DSLHodgkinHuxley", *DIAG)),
+            ("trig neuron", lambda: dsl_lattice(snt, "TrigNeuron", *DIAG)),
+            ("BCM (plain)", bcm),
+            ("STDP + graph history (plain)", stdp_graph_history),
+            ("chemical Izhikevich (plain)", chemical),
+            ("DenseGraph (plain)", dense)]
+
+
+def diagnostics_phase(snt):
+    """46. `why_not_fused` against the route a 16-step run takes."""
+    for label, build in diag_cases(snt):
+        lat = build()
+        verdict = snt.why_not_fused(lat)
+        if hasattr(lat, "run_lattice_with_reward"):
+            lat.run_lattice_with_reward(0.5, 16)
+        else:
+            lat.run_lattice(16)
+        torch.cuda.synchronize()
+        fused = lat._last_run_fused
+        check((verdict == []) == bool(fused),
+              f"why_not_fused({label}) = {verdict}, but the run's route "
+              f"was {fused!r}")
+        check(label.endswith("(plain)") == (verdict != []),
+              f"{label}: verdict {verdict}")
+        say(f"[46 diagnostics] {label} {lat.rows}x{lat.cols}: route "
+            f"{fused!r}, why_not_fused {verdict}")
+
+
+def net_snapshot(net):
+    """Every state tensor, weight, trace, host connection, dopamine and
+    clock of a network, copied."""
+    out = {"clock": net.internal_clock,
+           "dopamine": float(getattr(net, "dopamine", 0.0))}
+    for i, lat in net._neuron_lattices().items():
+        out[f"lat{i}"] = {k: v.clone() for k, v in lat.state.items()}
+        out[f"w{i}"] = lat.graph.weights.clone()
+        out[f"clock{i}"] = lat.internal_clock
+        if getattr(lat, "trace", None) is not None:
+            out[f"trace{i}"] = {k: v.clone() for k, v in lat.trace.items()}
+            out[f"dopamine{i}"] = float(lat.dopamine)
+    for i, st in net.spike_train_lattices.items():
+        out[f"st{i}"] = {k: v.clone() for k, v in st.state.items()}
+    for key, c in net.connections.items():
+        out[f"conn{key}"] = tuple(np.array(x) for x in c)
+    for key, c in getattr(net, "reward_connections", {}).items():
+        out[f"rconn{key}"] = tuple(np.array(x) for x in c)
+    return out
+
+
+def lat_snapshot(lat):
+    out = {"clock": lat.internal_clock, "w": lat.graph.weights.clone(),
+           "state": {k: v.clone() for k, v in lat.state.items()}}
+    if getattr(lat, "trace", None) is not None:
+        out["trace"] = {k: v.clone() for k, v in lat.trace.items()}
+        out["dopamine"] = float(lat.dopamine)
+    return out
+
+
+def snapshots_differ(got, want, path=""):
+    """The paths at which two snapshots differ (bit for bit; NaN = NaN)."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [path + " keys"]
+        return sum((snapshots_differ(got[k], want[k], f"{path}/{k}")
+                    for k in want), [])
+    if isinstance(want, tuple):
+        return sum((snapshots_differ(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))), [])
+    if isinstance(want, torch.Tensor):
+        same = want.dtype == got.dtype and want.shape == got.shape and bool(
+            (bits_differ(got, want) == 0) if want.dtype == torch.float32
+            else torch.equal(got, want))
+        return [] if same else [path]
+    if isinstance(want, np.ndarray):
+        return [] if np.array_equal(got, want, equal_nan=True) \
+            and got.dtype == want.dtype else [path]
+    return [] if got == want else [path]
+
+
+def resume_case(label, obj, run, snap, k, route_ok, load, save, folder):
+    """Run ``k`` steps, save, run ``k`` more (``want``), load into the
+    same object and run ``k`` again (``got``): bit-equal, and the kernel
+    route on both halves."""
+    run(k)
+    path = os.path.join(folder, "".join(c if c.isalnum() else "_"
+                                        for c in label) + ".npz")
+    t0 = time.perf_counter()
+    save(obj, path)
+    save_s = time.perf_counter() - t0
+    run(k)
+    torch.cuda.synchronize()
+    routes = [obj._last_run_fused]
+    want = snap(obj)
+    t0 = time.perf_counter()
+    load(obj, path)
+    load_s = time.perf_counter() - t0
+    run(k)
+    torch.cuda.synchronize()
+    routes.append(obj._last_run_fused)
+    differ = snapshots_differ(snap(obj), want)
+    check(not differ, f"[47 checkpoint] {label}: the resumed run differs "
+          f"at {differ[:5]}")
+    check(all(route_ok(r) for r in routes),
+          f"[47 checkpoint] {label}: routes {routes}")
+    say(f"[47 checkpoint] {label}: {k} + save + {k} = load + {k}, bit-equal "
+        f"(states, weights, traces, dopamine, clocks); routes {routes}; save "
+        f"{save_s:.3f} s, load {load_s:.3f} s, {os.path.getsize(path)} "
+        f"bytes")
+
+
+def checkpoint_phase(snt, smi):
+    """47. A run resumed from a checkpoint into the same object is
+    bit-equal to the uninterrupted run: the 512^2 main path (row 2), the
+    512^2 R-STDP lattice (6a), config 5 (6b, the network generator
+    restored) and `bench.py`'s reward network at 128^2 (6c); save and load
+    times and bytes at 512^2 and 2048^2."""
+    import tempfile
+    from spiking_neural_networks_tpu_torch.utils import checkpoint as ck
+    with tempfile.TemporaryDirectory() as folder:
+        lat = main_lattice(snt, *MAIN)
+        resume_case(f"main path {MAIN[0]}^2", lat, lat.run_lattice,
+                    lat_snapshot, CKPT_K[0], lambda r: r == ("kernel", False),
+                    ck.load_lattice, ck.save_lattice, folder)
+        rl = bench_rstdp(snt, *MAIN, v0=True)
+        resume_case(f"R-STDP {MAIN[0]}^2", rl,
+                    lambda k: rl.run_lattice_with_reward(0.5, k),
+                    lat_snapshot, CKPT_K[1], lambda r: r is True,
+                    ck.load_lattice, ck.save_lattice, folder)
+        net = cfg5_net(snt, *NSMALL)
+        resume_case(f"config 5 {NSMALL[0]}^2/{NSMALL[0] // 2}^2", net,
+                    net.run_lattices, net_snapshot, CKPT_K[2],
+                    lambda r: bool(r) and r[0] == "network",
+                    ck.load_network, ck.save_network, folder)
+        check(net._generator is not None, "config 5 has no generator")
+        rnet = reward_main_net(snt, *CKPT_REWARD)
+        resume_case(f"reward network {CKPT_REWARD[0]}^2", rnet,
+                    lambda k: rnet.run_lattices_with_reward(0.5, k),
+                    net_snapshot, CKPT_K[3], lambda r: r == ("reward", False),
+                    ck.load_network, ck.save_network, folder)
+        big = main_lattice(snt, *BIG)
+        resume_case(f"main path {BIG[0]}^2", big, big.run_lattice,
+                    lat_snapshot, CKPT_K[4], lambda r: r == ("kernel", False),
+                    ck.load_lattice, ck.save_lattice, folder)
+    say(f"[47 checkpoint] host seconds beside {smi}")
+
+
+def bcm_reward_net(snt, rows, cols, structured, device="cuda"):
+    """JAX ``tests/test_fuzz_runners.py:149-165``'s BCM pair (two plastic
+    `BCMIzhikevich` lattices with BCM, radius 1.5, keep 0.9, 1 -> 2 one to
+    one at 2.0) with a `BCMIzhikevich` `RewardModulatedLattice` (0) fed by
+    lattice 2 through a reward connection and a `BCMPoissonSpikeTrain` (3)
+    into lattice 1 (3.0), as ``tests/test_torch_bcm.py`` builds it, with
+    activity windows of `BCM_WINDOW` (50 steps: they close six times in
+    the run; at 5 steps, the test's, the rule sends weights to -1e8 and v
+    to -1e13 by step 300); the train's chances are 1 and 0 in turn, so
+    that the card's and the CPU's draws agree."""
+    rng = np.random.default_rng(77)
+    n = rows * cols
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    net = snt.RewardModulatedLatticeNetwork(device)
+    rlat = snt.RewardModulatedLattice(snt.BCMIzhikevich(), id=0,
+                                      device=device)
+    rlat.populate(rows, cols, gap_conductance=10.0,
+                  firing_rate_window=BCM_WINDOW)
+    rlat.connect_stencil(radius=1.5, keep_prob=0.9, seed=69)
+    v0 = rng.uniform(-65.0, 30.0, n)
+    rlat.apply(lambda s: {**s, "v": f32(v0)})
+    net.add_lattice(rlat)
+    for k in (1, 2):
+        lat = snt.Lattice(snt.BCMIzhikevich(), id=k, device=device)
+        lat.populate(rows, cols, gap_conductance=10.0,
+                     firing_rate_window=BCM_WINDOW)
+        lat.connect_stencil(radius=1.5, keep_prob=0.9, seed=70 + k)
+        v0 = rng.uniform(-65.0, 30.0, n)
+        v0[rng.permutation(n)[:4]] = 40.0
+        lat.apply(lambda s, v0=v0: {**s, "v": f32(v0)})
+        lat.do_plasticity, lat.plasticity = True, snt.BCM()
+        net.add_lattice(lat)
+    st = snt.SpikeTrainLattice(snt.BCMPoissonSpikeTrain(), id=3,
+                               device=device)
+    st.populate(rows, cols)
+    chance = np.tile([1.0, 0.0], n)[:n]
+    st.apply(lambda s: {**s, "chance_of_firing": f32(chance),
+                        "firing_rate_window": f32(np.full(n, BCM_WINDOW))})
+    net.add_spike_train_lattice(st)
+    one = one_to_one_coo(n, 1.0)
+    net.connections[(1, 2)] = one_to_one_coo(n, 2.0)
+    net.connections[(3, 1)] = one_to_one_coo(n, 3.0)
+    net.reward_connections[(2, 0)] = one + (
+        np.zeros(n, np.float32), np.zeros(n, np.float32),
+        np.zeros(n, np.int32))
+    net._conn_version += 1
+    net.structured = structured
+    return net
+
+
+def bcm_reward_phase(snt, smi):
+    """48. BCM on a reward network's plain lattices at 64^2, reward 0.5,
+    through the structured and the flat COO runner (the plain route: the
+    reward arm takes STDP only): weights moved; the card against the CPU
+    (v within 2 mV, last firing times within 2 steps, weights within rtol
+    2e-4, atol 2e-4); us/step."""
+    for structured in (True, False):
+        nets = {dev: bcm_reward_net(snt, *BCM_REWARD, structured, dev)
+                for dev in ("cuda", "cpu")}
+        w0 = {k: nets["cuda"].lattices[k].graph.weights.clone()
+              for k in (1, 2)}
+        for dev, net in nets.items():
+            t0 = time.perf_counter()
+            net.run_lattices_with_reward(0.5, BCM_REWARD_STEPS)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+        card, cpu = nets["cuda"], nets["cpu"]
+        check(card._last_run_fused is False and cpu._last_run_fused is False,
+              "a BCM reward network left the plain route")
+        check(all(not torch.equal(card.lattices[k].graph.weights, w0[k])
+                  for k in (1, 2)), "BCM moved no intra-lattice weight")
+        dv = dl = dw = 0.0
+        for i, lat in card._neuron_lattices().items():
+            ref = cpu._neuron_lattices()[i]
+            dv = max(dv, float((lat.state["v"].cpu() - ref.state["v"])
+                               .abs().max()))
+            dl = max(dl, float((lat.state["last_firing_time"].cpu()
+                                - ref.state["last_firing_time"]).abs()
+                               .max()))
+            w, wr = lat.graph.weights.cpu(), ref.graph.weights
+            check(torch.allclose(w, wr, rtol=2e-4, atol=2e-4),
+                  f"BCM reward network: weights of lattice {i} card vs CPU")
+            dw = max(dw, float((w - wr).abs().max()))
+        check(dv <= 2.0 and dl <= 2, f"BCM reward network card vs CPU: "
+              f"max|dv| {dv}, max|dlft| {dl}")
+        say(f"[48 bcm reward network] {'structured' if structured else 'flat'}"
+            f" {BCM_REWARD[0]}x{BCM_REWARD[1]} x 3 lattices + train, "
+            f"{BCM_REWARD_STEPS} steps at reward 0.5: route False, weights "
+            f"moved; card vs CPU max|dv| {dv:.3g} mV, max|dlft| {dl:.0f}, "
+            f"max|dw| {dw:.3g}; {secs / BCM_REWARD_STEPS * 1e6:.1f} us/step "
+            f"| {smi}")
+
+
+def fitting_phase(snt, smi):
+    """49. JAX ``tests/test_analysis.py:133``'s fit on the card: recover
+    Izhikevich ``a`` = 0.05 from a Rate train's summary (400 iterations,
+    n_pop 32, n_iter 10); one generation's population scores equal to the
+    CPU's for the same decoded population; seconds per generation and us
+    per coupled step."""
+    from spiking_neural_networks_tpu_torch import fitting as fit
+    from spiking_neural_networks_tpu_torch.fitting import fitting as ff
+    model, st_model = snt.Izhikevich(), snt.RateSpikeTrain()
+    st_state = st_model.init_state(1, device="cuda", rate=2.0, v_th=30.0)
+    ref_state = model.init_state(1, device="cuda", a=0.05,
+                                 gap_conductance=10.0)
+    ref = fit.get_reference_summary(model, ref_state, st_model, st_state,
+                                    FIT_ITERATIONS, device="cuda")
+    settings = fit.FittingSettings(
+        neuron_model=model, st_model=st_model, spike_train_states=[st_state],
+        reference_summaries=[ref[0]], scaling_factors=[(800.0, 10.0)],
+        iterations=FIT_ITERATIONS,
+        converter=lambda p: {"a": p[0], "gap_conductance": 10.0})
+    ga = fit.GeneticAlgorithmParameters(bounds=[(0.01, 0.12)], n_bits=8,
+                                        n_iter=FIT_GENERATIONS,
+                                        n_pop=FIT_POP, r_mut=0.08)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, score, scores = fit.fit_neuron_to_neuron(settings, ga, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fitted = fit.get_reference_summary(
+        model, model.init_state(1, device="cuda", a=float(best[0]),
+                                gap_conductance=10.0),
+        st_model, st_state, FIT_ITERATIONS, device="cuda")
+    check(len(scores) == FIT_GENERATIONS and score < 1.0
+          and torch.allclose(fitted.cpu(), ref.cpu(), rtol=0.1, atol=2.0),
+          f"the fit on the card: a {best}, score {score}, summary "
+          f"{fitted.tolist()} against {ref.tolist()}")
+    # one generation on the card and on the CPU, the same population
+    decoded = fit.decode_population(torch.randint(
+        0, 2, (FIT_POP, 8), generator=gen, device="cuda",
+        dtype=torch.int32), ga.bounds, 8)
+    per_dev = {}
+    template_cuda = {k: v[0] for k, v in model.init_state(
+        1, device="cuda", gap_conductance=10.0).items()}
+    for dev in ("cuda", "cpu"):
+        trains = [{k: v.to(dev) for k, v in st_state.items()}]
+        template = {k: v[0] for k, v in model.init_state(
+            1, device=dev, gap_conductance=10.0).items()}
+        t0 = time.perf_counter()
+        per_dev[dev] = ff.population_scores(
+            settings, trains, template, [ref[0].to(dev)], [(800.0, 10.0)],
+            decoded.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+    check(torch.equal(per_dev["cuda"].cpu(), per_dev["cpu"]),
+          "a generation's scores differ between the card and the CPU")
+    dev_us, top = profiled_us(lambda: ff.population_scores(
+        settings, [st_state], template_cuda, [ref[0]], [(800.0, 10.0)],
+        decoded), FIT_ITERATIONS)
+    say(f"[49 fitting] a = {float(best[0]):.4f} (true 0.05), score "
+        f"{score:.3g}, summary {fitted[0].tolist()} vs {ref[0].tolist()}; "
+        f"{FIT_GENERATIONS} generations of {FIT_POP} x {FIT_ITERATIONS} "
+        f"steps in {secs:.2f} s ({secs / FIT_GENERATIONS:.3f} s a "
+        f"generation); one generation {gen_s:.3f} s = "
+        f"{gen_s / FIT_ITERATIONS * 1e6:.1f} us per coupled step of the "
+        f"({FIT_POP}, 2) batch, device {dev_us:.1f} us (device / wall "
+        f"{dev_us / (gen_s / FIT_ITERATIONS * 1e6):.3f}; top {top}); card = "
+        f"CPU scores for one generation | {smi}")
+
+
+def profiling_phase(snt, smi):
+    """50. `StepTimer` on the 512^2 main path, and `trace` around one
+    64-step call: the Chrome trace holds the persistent kernel's
+    records."""
+    from spiking_neural_networks_tpu_torch.utils.profiling import (StepTimer,
+                                                                   trace)
+    import tempfile
+    lat = main_lattice(snt, *MAIN)
+    r = StepTimer(lat).measure(TIMER_STEPS)
+    check(lat._last_run_fused == ("kernel", False), "StepTimer's route")
+    say(f"[50 profiling] StepTimer {MAIN[0]}^2 x {TIMER_STEPS}: "
+        f"{r['neuron_updates_per_sec']:.4e} neuron-updates/s, "
+        f"{r['step_time_us']:.3f} us/step | {smi}")
+    with tempfile.TemporaryDirectory() as folder:
+        for attempt in range(PROF_TRIES):
+            with trace(folder) as tr:
+                lat.run_lattice(TRACE_STEPS)
+            with open(tr.path) as f:
+                events = json.load(f)["traceEvents"]
+            recs = sum(1 for e in events if e.get("cat") == "kernel"
+                       and "model_persistent_kernel" in e.get("name", ""))
+            if recs:
+                break
+            say(f"[profiler] the trace kept no kernel record; tracing again")
+        size = os.path.getsize(tr.path)
+    check(recs >= 1, "the trace holds no model_persistent_kernel record")
+    say(f"[50 profiling] trace() around run_lattice({TRACE_STEPS}): "
+        f"{recs} model_persistent_kernel records, {len(events)} events, "
+        f"{size} bytes")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -7144,8 +7629,8 @@ def main():
     # the DSL family first: late in a long run the profiler keeps fewer
     # kernel records of every family (it once kept none of the DSL main
     # path's in eight tries)
-    for phases in (dsl_phases, trig_phases, trial_phases, stencil_phases,
-                   plasticity_phases,
+    for phases in (dsl_phases, trig_phases, support_phases, trial_phases,
+                   stencil_phases, plasticity_phases,
                    network_phases, hh_phases, chem_phases, flat_phases,
                    reward_phases, env_phases, model_phases):
         t0 = time.perf_counter()

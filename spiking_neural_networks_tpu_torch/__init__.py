@@ -28,12 +28,19 @@ Bayesian-inference pipeline written against it
 bayesian_inference_rate_based``).  ``analysis`` (peaks, correlation, EEG
 spectra), ``attractors`` (Hopfield weights, the discrete lattice),
 ``coupling`` (gap-junction and coupled-neuron steps) and
-``utils.distribution`` are the support modules.  Entry points put their
-tensors on the GPU (``device="cuda"``) unless the caller asks for another
-device.  It imports PyTorch and NumPy, never JAX.
+``utils.distribution`` are the support modules; ``fitting`` fits a neuron
+model's parameters to another's spiking by a genetic algorithm,
+``utils.checkpoint`` saves and resumes lattices and networks in the JAX
+package's file format, ``utils.profiling`` times steps and writes profiler
+traces, ``why_not_fused`` says why a lattice misses its kernel route, and
+``_native`` builds graphs in host C++ (g++ at its first import).  Every
+module of the JAX package but ``parallel/`` (sharding and pipelines across
+devices) is ported.  Entry points put their tensors on the GPU
+(``device="cuda"``) unless the caller asks for another device.  It
+imports PyTorch and NumPy, never JAX.
 """
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 from .models.integrate_and_fire import (
     AdaptiveExpLeakyIntegrateAndFire, AdaptiveLeakyIntegrateAndFire,
@@ -57,3 +64,5 @@ from .ops.graph import (DenseGraph, SparseGraph, StencilGraph,
 from .ops.receptors import DopaGluGABAReceptors, IonotropicReceptors
 from .interactable import Environment, UnsupervisedEnvironment
 from . import analysis, attractors, coupling
+from . import fitting
+from .diagnostics import why_not_fused

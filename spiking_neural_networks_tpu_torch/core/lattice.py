@@ -207,10 +207,13 @@ class Lattice:
             self._run_chunk(chunk)
             remaining -= chunk
 
-    def _kernel_route(self, skip_nt):
+    def _kernel_route(self, skip_nt, on_card=None):
         """The kernel route of this chunk: "hh" (the HH chemical kernel),
         "kernel" (the stencil kernel), "model" (the model kernel), an STDP
-        `reward_kernels.LatSpec`, or None for the plain route."""
+        `reward_kernels.LatSpec`, or None for the plain route.
+        ``on_card`` (by default, whether the state is on a CUDA device)
+        decides ``use_kernel=None``; `diagnostics.why_not_fused` asks
+        with True."""
         if self.use_kernel is False:
             return None
         if hh_kernels.supports(self.model, self.graph, self.chemical_synapse,
@@ -235,7 +238,9 @@ class Lattice:
             route = "model"
         else:
             route = None
-        if self.use_kernel is None and not self.state["v"].is_cuda:
+        if on_card is None:
+            on_card = self.state["v"].is_cuda
+        if self.use_kernel is None and not on_card:
             return None
         return route
 

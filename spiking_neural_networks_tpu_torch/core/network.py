@@ -47,8 +47,8 @@ from ..ops.graph import (DenseGraph, SparseGraph, StencilGraph,
                          exact_matmul, positions)
 from .history import (GridVoltageHistory, history_step_bytes,
                       resolve_history_chunk)
-from .plasticity import (PLASTICITY_NOT_PORTED, STDP, RewardModulatedSTDP,
-                         rstdp_visit, rule_tensors, stdp_delta)
+from .plasticity import (STDP, RewardModulatedSTDP, rstdp_visit, rule_tensors,
+                         stdp_delta)
 from .structured import (nt_flags, resolve_structured_plan, run_structured,
                          write_back_connections)
 
@@ -759,10 +759,10 @@ def flat_steps(net, plan, length, hist=(), w_history=False, rewards=None,
     3. the chemical gathers (per type, the weighted concentrations of the
        present sources over their count), then the model step, and the
        firing times;
-    4. the rule (STDP, or BCM without a reward plan) on the plastic
-       edges, one visit per spiking endpoint in a plastic lattice (a
-       reward plan: on its plain edges, plus a visit every step where one
-       end is a modulated lattice and the other a plain one);
+    4. the rule (STDP or BCM, its ``NODE_KEYS`` read at both ends) on
+       the plastic edges, one visit per spiking endpoint in a plastic
+       lattice (a reward plan: on its plain edges, plus a visit every step
+       where one end is a modulated lattice and the other a plain one);
     5. a reward plan's R-STDP: per modulated edge one visit per modulated
        endpoint and per spiking plastic endpoint, at most two, gated;
     6. the clock increments and the trains step last.
@@ -779,8 +779,6 @@ def flat_steps(net, plan, length, hist=(), w_history=False, rewards=None,
     do_plasticity = any(l.do_plasticity for l in net.lattices.values()) \
         or plan.get("stdp_cross_any", False)
     rule = type(plasticity)
-    if reward and do_plasticity and rule is not STDP:
-        raise NotImplementedError(PLASTICITY_NOT_PORTED)
     dev = plan["w"].device
     p = rule_tensors(plasticity.params, dev)
     rp = rule_tensors(net.reward_modulator.params, dev) if reward else None

@@ -25,11 +25,6 @@ import torch
 
 from ..models.base import NEVER
 
-PLASTICITY_NOT_PORTED = (
-    "the reward-network runners of the PyTorch package take STDP only; "
-    "BCM on a reward network's plain lattices is not ported yet")
-
-
 @functools.lru_cache(maxsize=64)
 def _rule_floats(items):
     r = {k: torch.tensor(v, dtype=torch.float32) for k, v in items}

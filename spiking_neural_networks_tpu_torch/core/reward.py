@@ -222,11 +222,16 @@ class RewardModulatedLattice:
             self._run_plain(rewards, with_reward)
         self.internal_clock += iterations
 
-    def _kernel_route(self, any_hist):
+    def _kernel_route(self, any_hist, on_card=None):
+        """Whether this run takes the kernel route; ``on_card`` (by
+        default, whether the state is on a CUDA device) decides
+        ``use_kernel=None``."""
         if any_hist or self.use_kernel is False \
                 or not reward_kernels.supports_lattice(self):
             return False
-        return self.use_kernel is True or self.state["v"].is_cuda
+        if on_card is None:
+            on_card = self.state["v"].is_cuda
+        return self.use_kernel is True or on_card
 
     def _dopamine_tensor(self):
         return torch.tensor(self.dopamine, dtype=torch.float32,

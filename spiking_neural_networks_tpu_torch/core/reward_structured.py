@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from ..models.spike_train import refractoriness_effect
-from .plasticity import (PLASTICITY_NOT_PORTED, STDP, RewardModulatedSTDP,
-                         rstdp_visit, rule_tensors, stdp_delta)
+from .plasticity import (RewardModulatedSTDP, rstdp_visit, rule_tensors,
+                         stdp_delta)
 from .structured import (_conn_edge_update, _edge_layout, _phase_a,
                          _phase_b, classify_connection)
 
@@ -225,10 +225,7 @@ def _plain_reward_steps(net, plan, rewards, with_reward, lat_kind, skip_nt,
     model = lattices[0].model
     st_model = sts[0].model if sts else None
     plasticity = net._plasticity()
-    if (any(k == "plastic" for k in lat_kind)
-            or any(c["updates"] for c in conns)) \
-            and type(plasticity) is not STDP:
-        raise NotImplementedError(PLASTICITY_NOT_PORTED)
+    rule = type(plasticity)
     dev = lattices[0].device
     p = rule_tensors(plasticity.params, dev)
     rp = rule_tensors(net.reward_modulator.params, dev)
@@ -249,20 +246,23 @@ def _plain_reward_steps(net, plan, rewards, with_reward, lat_kind, skip_nt,
     parts = {("lat", i): [] for i, _ in hist}
     parts.update({("st", i): [] for i, _ in st_hist})
     parts.update({("gw", i): [] for i in ghist})
-    keys = STDP.NODE_KEYS + ("trig",)
+    # the rule's fields and those R-STDP reads, at both ends of an edge
+    keys = tuple(dict.fromkeys(("last_firing_time", "is_spiking")
+                               + rule.NODE_KEYS + ("trig",)))
     clock = net.internal_clock
 
     def vals_of(node_id, spikes):
         """An endpoint's per-node fields: a train's (previous) ones, with
-        no trigger; a lattice's post-step ones."""
+        no trigger and zeros for a field it lacks (a Poisson train's BCM
+        activities); a lattice's post-step ones."""
         if node_id in st_index:
             s = st_states[st_index[node_id]]
-            return {k: torch.zeros_like(s["v"]) if k == "trig" else s[k]
-                    for k in keys}
+            return {k: s[k] if k in s and k != "trig"
+                    else torch.zeros_like(s["v"]) for k in keys}
         k = lat_index[node_id]
-        return {"last_firing_time": states[k]["last_firing_time"],
-                "is_spiking": spikes[k],
-                "trig": spikes[k].to(torch.float32)}
+        return {key: spikes[k] if key == "is_spiking"
+                else spikes[k].to(torch.float32) if key == "trig"
+                else states[k][key] for key in keys}
 
     for reward in rewards:
         effects = [refractoriness_effect(st_model.refractoriness, s, clock)
@@ -280,9 +280,9 @@ def _plain_reward_steps(net, plan, rewards, with_reward, lat_kind, skip_nt,
         for k, kind in enumerate(lat_kind):
             if kind != "plastic":
                 continue
-            vals = {key: states[k][key] for key in STDP.NODE_KEYS}
+            vals = {key: states[k][key] for key in rule.NODE_KEYS}
             graphs[k] = graphs[k].apply_edge_update(
-                lambda w, pre, post: STDP.apply_visits(
+                lambda w, pre, post: rule.apply_visits(
                     w, pre, post, p, pre["is_spiking"].to(torch.float32)
                     + post["is_spiking"].to(torch.float32)) - w,
                 vals, vals)
@@ -296,7 +296,7 @@ def _plain_reward_steps(net, plan, rewards, with_reward, lat_kind, skip_nt,
                     count = count + pre["trig"]
                 if c["post_plastic"]:
                     count = count + post["trig"]
-                return STDP.apply_visits(w, pre, post, p, count) - w
+                return rule.apply_visits(w, pre, post, p, count) - w
 
             conn_ws[ci] = _conn_edge_update(
                 c["op"].kind, c["op"].aux, conn_ws[ci], gated_delta,

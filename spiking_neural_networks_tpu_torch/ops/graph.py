@@ -641,11 +641,22 @@ def dense_to_stencil(graph, rows, cols, max_offsets=128):
 def sparse_radius_graph(rows, cols, radius, keep_prob=1.0, seed=0,
                         weight_mode="constant", wparam0=1.0, wparam1=0.0,
                         device="cpu"):
-    """Radius-limited lattice connectivity as a `SparseGraph`, built in
-    NumPy: a `StencilGraph.build` of the radius's offsets converted to
-    COO.  ``weight_mode`` is constant (``wparam0``), distance, inv_distance,
-    gaussian (sigma ``wparam0``, amplitude ``wparam1``) or uniform_random
-    (between the two parameters, drawn from ``seed + 1``)."""
+    """Radius-limited lattice connectivity as a `SparseGraph` on
+    ``device``, built by the host C++ library (`_native`) where g++ built
+    it, else in NumPy: a `StencilGraph.build` of the radius's offsets
+    converted to COO.  The two branches draw different edges.
+    ``weight_mode`` is constant (``wparam0``), distance, inv_distance or
+    gaussian (sigma ``wparam0``, amplitude ``wparam1``) on both; the
+    native branch also takes "uniform" (drawn between the two parameters)
+    and raises KeyError on "uniform_random", which the NumPy branch draws
+    from ``seed + 1`` (treating "uniform" as constant), as the JAX package
+    does."""
+    from .. import _native
+    if _native.available:
+        src, dst, w = _native.radius_edges(rows, cols, radius, keep_prob,
+                                           seed, weight_mode, wparam0, wparam1)
+        return SparseGraph.from_arrays(src, dst, w, rows * cols,
+                                       device=device)
     rng = np.random.default_rng(seed + 1)
 
     def weight_fn(dr, dc, rr, cc):

@@ -1,3 +1,5 @@
-"""Utilities of the port: `distribution` (clamped-normal sampling)."""
+"""Utilities of the port: `distribution` (clamped-normal sampling),
+`checkpoint` (save and resume lattices and networks) and `profiling` (step
+timers, profiler traces)."""
 
-from . import distribution
+from . import checkpoint, distribution, profiling

@@ -2,8 +2,11 @@
 ``apply_visits`` on random inputs, and BCM on the plain route of a single
 `Lattice`, of the structured network runner and of the flat COO runner
 (the upstream BCM example, ``examples/bcm.py``: two BCM Poisson trains
-into one `BCMIzhikevich` neuron, with a connecting-graph history).  The
-trains' chances are 0 or 1, so that their draws do not matter.
+into one `BCMIzhikevich` neuron, with a connecting-graph history), and on
+a reward network's plain lattices through both reward runners (over 150
+steps: v within rtol 2e-5, atol 2e-4, weights within rtol 2e-4, atol
+2e-4).  The trains' chances are 0 or 1, so that their draws do not
+matter.
 
 Tolerance: ``apply_visits`` within rtol 1e-5, atol 1e-5; after a run,
 weights, v and activities within rtol 1e-5, atol 1e-4; firing times,
@@ -185,19 +188,100 @@ def test_bcm_on_a_poisson_train_reads_zero_activity():
     assert_networks_match(t, net, 1e-5, 1e-4)
 
 
-def test_reward_network_runner_takes_stdp_only():
-    """The reward runners keep STDP only: BCM on a reward network's plain
-    lattice raises."""
-    net = snt.RewardModulatedLatticeNetwork("cpu")
-    rl = snt.RewardModulatedLattice(snt.BCMIzhikevich(), id=0, device="cpu")
-    rl.populate(3, 3)
-    rl.connect_stencil(radius=1.0)
-    pl = snt.Lattice(snt.BCMIzhikevich(), id=1, device="cpu")
-    pl.populate(3, 3)
-    pl.connect_stencil(radius=1.0)
-    pl.plasticity = snt.BCM()
-    pl.do_plasticity = True
-    net.add_reward_modulated_lattice(rl)
-    net.add_lattice(pl)
-    with pytest.raises(NotImplementedError, match="STDP only"):
-        net.run_lattices_with_reward(0.1, 2)
+def bcm_reward_net(structured, train="bcm", n=5):
+    """JAX ``tests/test_fuzz_runners.py``'s BCM pair (two plastic
+    `BCMIzhikevich` lattices with BCM, 1 -> 2 one to one) in a
+    `RewardModulatedLatticeNetwork`, with a `BCMIzhikevich` reward lattice
+    (0) fed by lattice 2 through a reward connection, and a train (3) into
+    lattice 1: a BCM Poisson train (``train="bcm"``) or a plain Poisson
+    train, whose missing activities read as zeros.  The trains' chances
+    are 0 or 1, so that their draws do not matter; windows of 5 steps."""
+    rng = np.random.default_rng(77)
+    net = snn.RewardModulatedLatticeNetwork()
+    rlat = snn.RewardModulatedLattice(snn.BCMIzhikevich(), id=0)
+    rlat.populate(n, n, gap_conductance=10.0, firing_rate_window=0.5)
+    rlat.connect_stencil(radius=1.5, keep_prob=0.9, seed=69)
+    v0 = rng.uniform(-65.0, 30.0, n * n)
+    rlat.apply(lambda s: {**s, "v": jnp.asarray(v0, jnp.float32)})
+    net.add_lattice(rlat)
+    for k in (1, 2):
+        lat = snn.Lattice(snn.BCMIzhikevich(), id=k)
+        lat.populate(n, n, gap_conductance=10.0, firing_rate_window=0.5)
+        lat.connect_stencil(radius=1.5, keep_prob=0.9, seed=70 + k)
+        v0 = rng.uniform(-65.0, 30.0, n * n)
+        v0[rng.permutation(n * n)[:4]] = 40.0
+        lat.apply(lambda s, v0=v0: {**s, "v": jnp.asarray(v0, jnp.float32)})
+        lat.do_plasticity = True
+        lat.plasticity = snn.BCM()
+        net.add_lattice(lat)
+    model = snn.BCMPoissonSpikeTrain() if train == "bcm" \
+        else snn.PoissonSpikeTrain()
+    st = snn.SpikeTrainLattice(model, id=3)
+    st.populate(n, n)
+    chance = np.tile([1.0, 0.0], n * n)[:n * n].astype(np.float32)
+    over = {"chance_of_firing": jnp.asarray(chance)}
+    if train == "bcm":
+        over["firing_rate_window"] = jnp.full((n * n,), 0.5, jnp.float32)
+    st.apply(lambda s: {**s, **over})
+    net.add_spike_train_lattice(st)
+    net.connect(1, 2, lambda a, b: a == b, lambda a, b: 2.0)
+    net.connect(3, 1, lambda a, b: a == b, lambda a, b: 3.0)
+    net.connect_with_reward_modulation(2, 0, lambda a, b: a == b,
+                                       lambda a, b: 1.0)
+    net.structured = structured
+    return net
+
+
+@pytest.mark.parametrize("train", ["bcm", "poisson"])
+@pytest.mark.parametrize("structured", [True, False])
+def test_bcm_reward_network_matches_jax(structured, train):
+    """BCM on a reward network's plain lattices through the structured
+    runner and the flat COO runner, against the JAX package's over 150
+    steps at reward 0.5: v within rtol 2e-5, atol 2e-4, weights, traces,
+    reward connections and dopamine within rtol 2e-4, atol 2e-4, firing
+    times equal, and the BCM weights moved."""
+    from spiking_neural_networks_tpu_torch.convert import reward_network_from
+    from torch_networks import assert_reward_networks_match
+    j = bcm_reward_net(structured, train)
+    t = reward_network_from(j, "cpu")
+    w0 = {k: t.lattices[k].graph.weights.clone() for k in (1, 2)}
+    c0 = t.connections[(1, 2)][2].copy()
+    j.run_lattices_with_reward(0.5, 150)
+    t.run_lattices_with_reward(0.5, 150)
+    assert t._last_run_fused is False
+    for k in (0, 1, 2):
+        tl, jl = t._neuron_lattices()[k], j._neuron_lattices()[k]
+        np.testing.assert_allclose(tl.state["v"].numpy(),
+                                   np.asarray(jl.state["v"]), rtol=2e-5,
+                                   atol=2e-4, err_msg=f"v of lattice {k}")
+    assert_reward_networks_match(t, j, 2e-4, 2e-4)
+    for k in (1, 2):
+        for f in ("current_activity", "average_activity"):
+            np.testing.assert_allclose(
+                t.lattices[k].state[f].numpy(),
+                np.asarray(j.lattices[k].state[f]), rtol=2e-4, atol=2e-4)
+    moved = [not torch.equal(t.lattices[k].graph.weights, w0[k])
+             for k in (1, 2)]
+    assert all(moved), "vacuous: BCM left an intra-lattice weight plane"
+    assert not np.array_equal(t.connections[(1, 2)][2], c0)
+
+
+def test_bcm_reward_network_gates_stay_plain():
+    """The reward arm takes STDP only: with BCM on the plastic lattice of
+    a kernel-eligible reward network its gate declines, and the BCM
+    network run with ``use_kernel = True`` takes the plain route."""
+    from spiking_neural_networks_tpu_torch.convert import reward_network_from
+    from spiking_neural_networks_tpu_torch.core.reward_structured import (
+        resolve_reward_plan)
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    from torch_networks import reward_net
+    t = reward_network_from(reward_net(), "cpu")
+    kinds = ("mod", "plastic")
+    plan = resolve_reward_plan(t)
+    assert nk.reward_network_spec(t, plan, kinds, True, True) is not None
+    t.lattices[1].plasticity = snt.BCM()
+    assert nk.reward_network_spec(t, plan, kinds, True, True) is None
+    b = reward_network_from(bcm_reward_net(True), "cpu")
+    b.use_kernel = True
+    b.run_lattices_with_reward(0.5, 3)
+    assert b._last_run_fused is False

@@ -254,10 +254,13 @@ def test_dense_to_stencil_edge_for_edge():
     ("inv_distance", 2.0, 0.0), ("gaussian", 1.5, 3.0),
     ("uniform_random", 0.2, 0.9)])
 def test_sparse_radius_graph_numpy_branch(mode, p0, p1, monkeypatch):
-    """The NumPy branch of the JAX function (its native library switched
-    off) against the port's: the same edges and weights."""
+    """The NumPy branch of the JAX function against the port's (both
+    packages' native libraries switched off): the same edges and
+    weights."""
     from spiking_neural_networks_tpu import _native
+    from spiking_neural_networks_tpu_torch import _native as tnative
     monkeypatch.setattr(_native, "available", False)
+    monkeypatch.setattr(tnative, "available", False)
     j = jg.sparse_radius_graph(7, 8, 2.0, keep_prob=0.8, seed=5,
                                weight_mode=mode, wparam0=p0, wparam1=p1)
     t = tg.sparse_radius_graph(7, 8, 2.0, keep_prob=0.8, seed=5,

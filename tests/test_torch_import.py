@@ -25,8 +25,9 @@ def test_import_leaves_jax_out():
 
 
 def test_modules_import_with_jax_blocked():
-    """The reference's surface, the trial pipeline and the support modules
-    import with ``jax`` blocked (a None entry in ``sys.modules`` makes any
+    """The reference's surface, the trial pipeline, the support modules,
+    fitting, the diagnostics, the native graph builder, checkpoints and
+    profiling import with ``jax`` blocked (a None entry in ``sys.modules`` makes any
     ``import jax`` raise)."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -40,6 +41,14 @@ def test_modules_import_with_jax_blocked():
             "distribution\n"
             "from spiking_neural_networks_tpu_torch.experiments import "
             "bayesian_inference_rate_based as b\n"
+            "from spiking_neural_networks_tpu_torch import (_native, "
+            "diagnostics, fitting)\n"
+            "from spiking_neural_networks_tpu_torch.utils import (checkpoint,"
+            " profiling)\n"
+            "from spiking_neural_networks_tpu_torch import why_not_fused\n"
+            "assert fitting.fit_neuron_to_neuron and checkpoint.save_network "
+            "and profiling.StepTimer and diagnostics.why_not_fused is "
+            "why_not_fused and _native.WEIGHT_MODES\n"
             "assert b.ln is ln and ln.IzhikevichNeuronLattice\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
