@@ -93,6 +93,16 @@ bayesian_inference_rate_based experiments/bayesian_inf_args/smoke.toml``:
   accuracy), and its memory-biases-memory form (``smoke_mbm_d2.toml``:
   five lattices, two cue trains, 600 steps), through the flat-mode arm of
   the persistent network kernel (``csrc/network_persistent.cu``).
+* `parallel` on the card through virtual shards (one mesh that names
+  cuda:0 four times; the blocks run one after another): the main
+  lattice sharded in row blocks (`make_lattice_mesh` -> `Lattice.shard`
+  -> `run_lattice`) at 512^2, 4096^2 and 2048^2 with per-neuron
+  parameters through the sharded composition (the stencil kernel per
+  block on its rows and 32 ghost rows, refreshed every 16 steps: the
+  persistent, tiled and per-step designs), the 512^2 STDP lattice
+  through the plain step per block, a 4-stage chain of 512^2 lattices
+  and its R-STDP form through `run_lattices_pipelined` /
+  `run_lattices_with_reward_pipelined`, and the batched (dp, tp) step.
 
 Phases, one line each:
 
@@ -374,13 +384,41 @@ Phases, one line each:
    us per coupled step;
 50. `utils.profiling`: `StepTimer` on the 512^2 main path (2048 steps),
    and `trace()` around one 64-step call, whose Chrome trace must hold a
-   `model_persistent_kernel` record.
+   `model_persistent_kernel` record;
+51. the sharded composition: `main_lattice` at 512^2 (2048 steps), 4096^2
+   (64) and `hetero_lattice` at 2048^2 (64), each built once and copied,
+   run unsharded (the kernel route) and sharded over 4 virtual shards of
+   cuda:0 with the counts set to 0 just before the sharded run and read
+   just after: route ("sharded", designs, K 16, g 32) with the
+   persistent, tiled and per-step design in every block, calls and C-entry
+   launches 512 / 64 / 256, the state bit-equal to the unsharded run, the
+   blocks and their overlap (extended / owned rows); then a further run
+   of each in turns, wall and CUDA-event us/step, and 16 steps of the
+   sharded lattice on the plain route per block (``use_kernel=False``);
+52. the sharded plain route: the 512^2 STDP lattice over 4 virtual shards
+   for 256 steps (`lattice_step` per block, ghost rows of the state and
+   weights refreshed each step) bit-equal to the unsharded plain route,
+   weights moved;
+53. pipelines: a 4-stage chain of 512^2 lattices (one-to-one links) for
+   512 steps and its R-STDP form for 256 on [cuda:0] x 4 against
+   `run_lattices` / `run_lattices_with_reward` with `use_kernel=False`
+   (rtol 2e-5, atol 2e-4, firing agreement above 99%; in fact bit-equal);
+54. the batched (dp, tp) step: B = 8, N = 1024 over dp = 2, tp = 2
+   virtual shards for 16 steps against the unsharded step (rtol 1e-5,
+   atol 1e-4), then both timed in turns;
+55. one host: `parallel.initialize_multihost()` is a no-op and
+   `make_hybrid_mesh()` is (1, n_local).
+
+The kernels line marks rows 1-3 (the stencil kernel's three designs)
+with the launches the sharded composition made of each in phase 51
+(``composition_launches``).
 
 The DSL family (phases 37-42), the support modules (45-50) and the trial
 (43-44) run first: late in a long run the profiler keeps fewer kernel
 records of every family, and a counted profile of the DSL main path once
 lost all in eight tries (a library loaded late is not the cause:
-``tools/profiler_records.py``).
+``tools/profiler_records.py``).  The `parallel` phases (51-55) run last:
+they count C-entry launches and time with CUDA events, no profile.
 
 Every time is printed beside the card's name and power limit.  Then a line
 with the card's name and power limit as nvidia-smi gives them, a JSON line
@@ -7568,6 +7606,325 @@ def profiling_phase(snt, smi):
         f"{size} bytes")
 
 
+# ---------------------------------------------------------------------------
+# The parallel package: phases 51-55
+# ---------------------------------------------------------------------------
+
+# (shape, steps, per-neuron parameters, the design each block takes): the
+# sharded composition's three forms over SHARDS virtual shards
+SHARDS = 4
+SHARD_MAINS = ((MAIN, MAIN_STEPS, False, "persistent"),
+               ((4096, 4096), 64, False, "tiled"),
+               (BIG, HETERO_STEPS, True, "per_step"))
+SHARD_PLAIN_STEPS = 256
+# steps of phase 51's plain-route timing (the per-block twin's
+# counterpart: `lattice_step` per block), after one step that rebuilds
+# the blocks with the plain route's ghost rows
+SHARD_TWIN_STEPS = 16
+PIPE_STAGES, PIPE_STEPS, PIPE_REWARD_STEPS = 4, 512, 256
+BATCH, BATCH_N, BATCH_STEPS = 8, 1024, 16
+
+
+def timed_run(run, n):
+    """``run()`` (``n`` steps) timed on the host clock and by CUDA events:
+    (wall us/step, event us/step)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / n * 1e6,
+            start.elapsed_time(end) / n * 1e3)
+
+
+def state_bits(a, b, keys=None):
+    """Elements differing bit for bit over the state leaves ``keys`` (all
+    by default) of two lattices."""
+    return sum(bits_differ(a.state[k], b.state[k])
+               for k in (keys or a.state))
+
+
+def parallel_phases(snt, smi):
+    """51-55: `parallel` on one card through virtual shards.  Returns the
+    stencil kernel launches the C entry counted on the sharded main paths
+    (phase 51), by design."""
+    from spiking_neural_networks_tpu_torch.ops import stencil_kernels as sk
+    launches = sharded_main_phase(snt, sk, smi)
+    sharded_plain_phase(snt, smi)
+    pipeline_phase(snt, smi)
+    batched_phase(snt, smi)
+    multihost_phase(snt)
+    return launches
+
+
+def sharded_main_phase(snt, sk, smi):
+    """51. The sharded composition: each of `SHARD_MAINS` built once and
+    copied, run unsharded through the stencil kernel route and sharded
+    over `SHARDS` virtual shards of cuda:0 (one `StencilRun` call per
+    block per K steps, ghost rows refreshed between calls), the sharded
+    run with the counts set to 0 just before it and read just after, held
+    bit for bit against the unsharded one."""
+    import copy
+    from spiking_neural_networks_tpu_torch.parallel import make_lattice_mesh
+    mesh = make_lattice_mesh(SHARDS, devices=[torch.device("cuda", 0)]
+                             * SHARDS)
+    launches = {"persistent": 0, "tiled": 0, "per_step": 0}
+    for shape, steps, hetero, design in SHARD_MAINS:
+        ref = (hetero_lattice if hetero else main_lattice)(snt, *shape)
+        lat = copy.deepcopy(ref)
+        ref.run_lattice(steps)
+        check(ref._last_run_fused == ("kernel", False),
+              f"{shape}: the unsharded run missed the kernel route")
+        lat.shard(mesh)
+        reset_stencil_counts(sk)
+        lat.run_lattice(steps)
+        torch.cuda.synchronize()
+        calls, counted = sk.LAUNCHES, sk.STEP_LAUNCHES
+        designs = dict(sk.DESIGN_CALLS)
+        launches[design] += counted
+        tag, block_designs, k_steps, ghost = lat._last_run_fused
+        blocks = lat.blocks
+        overlap = [(b.ext[1] - b.ext[0]) / (b.rows[1] - b.rows[0])
+                   for b in blocks]
+        nbits = state_bits(ref, lat)
+        fired = int((lat.state["last_firing_time"] >= 0).sum())
+        # timed runs from the checked state, in turns: unsharded, sharded,
+        # sharded, unsharded
+        turns = [timed_run(lambda x=x: x.run_lattice(steps), steps)
+                 for x in (ref, lat, lat, ref)]
+        wall_u, ev_u = ((a + b) / 2 for a, b in zip(turns[0], turns[3]))
+        wall_s, ev_s = ((a + b) / 2 for a, b in zip(turns[1], turns[2]))
+        lat.use_kernel = False
+        lat.run_lattice(1)
+        wall_p, ev_p = timed_run(lambda: lat.run_lattice(SHARD_TWIN_STEPS),
+                                 SHARD_TWIN_STEPS)
+        check(lat._last_run_fused is False, "use_kernel=False took a kernel")
+        say(f"[51 sharded] {shape[0]}x{shape[1]}"
+            f"{' per-neuron a, d, v_th' if hetero else ''} run_lattice"
+            f"({steps}) over {SHARDS} virtual shards of cuda:0: route "
+            f"{(tag, block_designs, k_steps, ghost)}, blocks "
+            f"{[(b.rows, b.ext) for b in blocks]}, overlap "
+            f"{[round(x, 4) for x in overlap]}, calls by design {designs}, "
+            f"kernel calls {calls}, kernel launches counted by the C entry "
+            f"{counted}; bits differing from the unsharded kernel route "
+            f"{nbits}, fired {fired} of {lat.n}; us/step wall / CUDA events "
+            f"(a further run of each, in turns): sharded {wall_s:.2f} / "
+            f"{ev_s:.2f}, unsharded {wall_u:.2f} / {ev_u:.2f}; the plain "
+            f"route per block (use_kernel=False, {SHARD_TWIN_STEPS} steps) "
+            f"{wall_p:.2f} / {ev_p:.2f} ({smi})")
+        n_calls = SHARDS * math.ceil(steps / k_steps)
+        plan = sk.tile_plan(lat.graph.offsets) if design == "tiled" else None
+        per_call = sk.call_launches(k_steps, design, plan)
+        check(tag == "sharded" and set(block_designs) == {design}
+              and (k_steps, ghost) == (16, 32),
+              f"{shape}: the sharded run took {lat._last_run_fused}")
+        check(calls == designs[design] == n_calls
+              and counted == n_calls * per_call,
+              f"{shape}: {calls} calls / {counted} launches, expected "
+              f"{n_calls} / {n_calls * per_call}")
+        check(nbits == 0 and fired > 0
+              and bool(torch.isfinite(lat.state["v"]).all()),
+              f"{shape}: the sharded run differs from the unsharded one")
+        del ref, lat
+        torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_plain_phase(snt, smi):
+    """52. The sharded plain route: the 512^2 STDP lattice over
+    `SHARDS` virtual shards (`lattice_step` per block, a ghost refresh of
+    the state and weights each step) against the unsharded plain route."""
+    import copy
+    from spiking_neural_networks_tpu_torch.parallel import make_lattice_mesh
+    ref = stdp_lattice(snt, *MAIN, use_kernel=False)
+    lat = copy.deepcopy(ref)
+    lat.use_kernel = None
+    w0 = ref.graph.weights.clone()
+    wall_u, ev_u = timed_run(lambda: ref.run_lattice(SHARD_PLAIN_STEPS),
+                             SHARD_PLAIN_STEPS)
+    lat.shard(make_lattice_mesh(SHARDS, devices=[torch.device("cuda", 0)]
+                                * SHARDS))
+    wall_s, ev_s = timed_run(lambda: lat.run_lattice(SHARD_PLAIN_STEPS),
+                             SHARD_PLAIN_STEPS)
+    nbits = state_bits(ref, lat)
+    wbits = bits_differ(ref.graph.weights, lat.graph.weights)
+    moved = int((lat.graph.weights != w0).sum())
+    say(f"[52 sharded plain] {MAIN[0]}x{MAIN[1]} STDP run_lattice"
+        f"({SHARD_PLAIN_STEPS}) over {SHARDS} virtual shards: route "
+        f"{lat._last_run_fused}, ghost rows "
+        f"{[b.ext for b in lat.blocks]}, bits differing from the unsharded "
+        f"plain route: state {nbits}, weights {wbits}; weights moved "
+        f"{moved}; us/step wall / CUDA events: sharded {wall_s:.1f} / "
+        f"{ev_s:.1f}, unsharded {wall_u:.1f} / {ev_u:.1f} ({smi})")
+    check(lat._last_run_fused is False and nbits == 0 and wbits == 0
+          and moved > 0, "the sharded plain route differs from the "
+                         "unsharded one")
+
+
+def pipe_chain(snt, reward, seed=3):
+    """A chain of `PIPE_STAGES` 512^2 lattices (radius 2, keep 0.9, gap
+    10, v0 uniform in [-65, 30) with 1% at 40 mV from ``default_rng(seed)``)
+    linked one to one (weight 3; the host COO lists of ``a == b``), plain,
+    or with ``reward`` reward lattices, half the neurons with a past firing
+    time of 2, and reward-modulated links."""
+    rows, cols = MAIN
+    n = rows * cols
+    rng = np.random.default_rng(seed)
+    net = snt.RewardModulatedLatticeNetwork() if reward \
+        else snt.LatticeNetwork()
+    for k in range(PIPE_STAGES):
+        lat = (snt.RewardModulatedLattice if reward else snt.Lattice)(
+            snt.Izhikevich(), id=k, device="cuda")
+        lat.populate(rows, cols, gap_conductance=10.0)
+        lat.connect_stencil(radius=2.0, keep_prob=0.9, seed=seed + k)
+        v0 = rng.uniform(-65.0, 30.0, n)
+        v0[rng.permutation(n)[:n // 100]] = 40.0
+        upd = {"v": torch.as_tensor(v0, dtype=torch.float32, device="cuda")}
+        if reward:
+            lft = np.full(n, -1, np.int32)
+            lft[::2] = 2
+            upd["last_firing_time"] = torch.as_tensor(lft, device="cuda")
+        lat.apply(lambda s: {**s, **upd})
+        lat.use_kernel = False
+        (net.add_reward_modulated_lattice if reward else net.add_lattice)(lat)
+    for k in range(PIPE_STAGES - 1):
+        src, dst, w = one_to_one_coo(n, 3.0 if not reward else 2.0)
+        if reward:
+            z = np.zeros(n, np.float32)
+            net.reward_connections[(k, k + 1)] = (src, dst, w, z, z.copy(),
+                                                  np.zeros(n, np.int32))
+        else:
+            net.connections[(k, k + 1)] = (src, dst, w)
+    net.use_kernel = False
+    return net
+
+
+def pipeline_phase(snt, smi):
+    """53. A `PIPE_STAGES`-stage chain of 512^2 lattices through the
+    pipeline on [cuda:0] * 4 (512 steps), and its R-STDP form (256 steps),
+    each against `run_lattices` / `run_lattices_with_reward` with
+    ``use_kernel=False`` on the card (rtol 2e-5, atol 2e-4, firing
+    agreement above 99%)."""
+    import copy
+    from spiking_neural_networks_tpu_torch.parallel import make_pipeline_mesh
+    mesh = make_pipeline_mesh(PIPE_STAGES,
+                              devices=[torch.device("cuda", 0)] * PIPE_STAGES)
+    for reward, steps in ((False, PIPE_STEPS), (True, PIPE_REWARD_STEPS)):
+        ref = pipe_chain(snt, reward)
+        net = copy.deepcopy(ref)
+        if reward:
+            wall_u, ev_u = timed_run(
+                lambda: ref.run_lattices_with_reward(0.005, steps), steps)
+            wall_p, ev_p = timed_run(
+                lambda: net.run_lattices_with_reward_pipelined(
+                    0.005, steps, mesh=mesh), steps)
+            lats = lambda x: [x.reward_modulated_lattices[k]
+                              for k in range(PIPE_STAGES)]
+        else:
+            wall_u, ev_u = timed_run(lambda: ref.run_lattices(steps), steps)
+            wall_p, ev_p = timed_run(
+                lambda: net.run_lattices_pipelined(steps, mesh=mesh), steps)
+            lats = lambda x: [x.lattices[k] for k in range(PIPE_STAGES)]
+        dv, agree, fired, nbits = 0.0, 1.0, 0, 0
+        for a, b in zip(lats(ref), lats(net)):
+            torch.testing.assert_close(b.state["v"], a.state["v"], rtol=2e-5,
+                                       atol=2e-4)
+            dv = max(dv, (a.state["v"] - b.state["v"]).abs().max().item())
+            fa = a.state["last_firing_time"] >= 0
+            fb = b.state["last_firing_time"] >= 0
+            agree = min(agree, (fa == fb).float().mean().item())
+            fired += int(fa.sum())
+            nbits += state_bits(a, b) + bits_differ(a.graph.weights,
+                                                    b.graph.weights)
+        say(f"[53 pipeline] {PIPE_STAGES} stages of {MAIN[0]}x{MAIN[1]}"
+            f"{' R-STDP (reward 0.005)' if reward else ''}, {steps} steps on "
+            f"[cuda:0] x {PIPE_STAGES}: max|dv| {dv:.3g} mV against the "
+            f"structured plain route, firing agreement {agree:.6f}, fired "
+            f"{fired}, bits differing {nbits}"
+            f"{f', dopamine {net.dopamine:.6g} vs {ref.dopamine:.6g}' if reward else ''}"
+            f"; us/step wall / CUDA events: pipeline {wall_p:.1f} / "
+            f"{ev_p:.1f}, structured {wall_u:.1f} / {ev_u:.1f} ({smi})")
+        check(agree > 0.99 and fired > 0 and net.internal_clock == steps,
+              "the pipeline differs from the structured runner")
+        if reward:
+            check(abs(net.dopamine - ref.dopamine)
+                  <= 1e-5 * abs(ref.dopamine), "the dopamine differs")
+        del ref, net
+
+
+def batched_phase(snt, smi):
+    """54. The batched (dp, tp) step: B = 8, N = 1024 over dp = 2, tp = 2
+    virtual shards for 16 steps against the unsharded step (a (1, 1) mesh;
+    the column products sum in another order: rtol 1e-5, atol 1e-4); then
+    a further run of each, in turns, timed."""
+    from spiking_neural_networks_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(0)
+    v0 = rng.uniform(-65, 30, (BATCH, BATCH_N)).astype(np.float32)
+    v0[:, ::5] = 40.0
+    lft = np.full((BATCH, BATCH_N), -1, np.int32)
+    lft[:, 1::3] = 5
+    mask = rng.random((BATCH, BATCH_N, BATCH_N)) < 0.05
+    w = (rng.uniform(0.5, 1.5, mask.shape) * mask).astype(np.float32)
+    cuda = torch.device("cuda", 0)
+    runs = {}
+    for name, mesh in (
+            ("sharded", sharding.make_mesh(4, dp=2, devices=[cuda] * 4)),
+            ("whole", sharding.make_mesh(1, devices=[cuda]))):
+        st = sharding.batched_state(snt.Izhikevich(), BATCH, BATCH_N,
+                                    device="cuda", gap_conductance=10.0)
+        st["v"] = torch.as_tensor(v0, device="cuda")
+        st["last_firing_time"] = torch.as_tensor(lft, device="cuda")
+        st, tw, tmask = sharding.shard_batched_inputs(
+            mesh, st, torch.as_tensor(w, device="cuda"),
+            torch.as_tensor(mask, device="cuda"))
+        step, rule = sharding.make_sharded_training_step(mesh,
+                                                         snt.Izhikevich())
+
+        def run(st=st, tw=tw, tmask=tmask, step=step, rule=rule):
+            s, ww = st, tw
+            for clock in range(BATCH_STEPS):
+                s, ww, spk = step(s, ww, tmask, clock, rule.params)
+            return s, ww, spk
+        runs[name] = run
+    out = {name: run() for name, run in runs.items()}
+    (ss, ws, spk), (su, wu, _) = out["sharded"], out["whole"]
+    vs, vu, ws, wu = ss["v"].whole(), su["v"].whole(), ws.whole(), wu.whole()
+    turns = [timed_run(runs[n], BATCH_STEPS)
+             for n in ("sharded", "whole", "whole", "sharded")]
+    wall_s, ev_s = ((a + b) / 2 for a, b in zip(turns[0], turns[3]))
+    wall_u, ev_u = ((a + b) / 2 for a, b in zip(turns[1], turns[2]))
+    dv, dw = (vs - vu).abs().max().item(), (ws - wu).abs().max().item()
+    moved = int((ws != torch.as_tensor(w, device="cuda")).sum())
+    say(f"[54 batched] B={BATCH} N={BATCH_N} dp=2 tp=2 virtual shards, "
+        f"{BATCH_STEPS} steps: max|dv| {dv:.3g}, max|dw| {dw:.3g} against "
+        f"the unsharded step, weights moved {moved}, last step's spikes "
+        f"{int(spk.whole().sum())}; us/step wall / CUDA events (a further "
+        f"run of each, in turns): sharded {wall_s:.1f} / {ev_s:.1f}, "
+        f"unsharded {wall_u:.1f} / {ev_u:.1f} ({smi})")
+    torch.testing.assert_close(vs, vu, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ws, wu, rtol=1e-5, atol=1e-4)
+    check(moved > 0, "the batched step moved no weight")
+
+
+def multihost_phase(snt):
+    """55. One host: `initialize` is a no-op without a coordinator, and the
+    hybrid mesh is (1, n_local)."""
+    import torch.distributed as dist
+    from spiking_neural_networks_tpu_torch.parallel import (
+        initialize_multihost, make_hybrid_mesh)
+    initialize_multihost()
+    mesh = make_hybrid_mesh()
+    n_local = torch.cuda.device_count()
+    say(f"[55 multihost] initialize(): process group "
+        f"{dist.is_initialized()}; make_hybrid_mesh(): {mesh.shape}")
+    check(not dist.is_initialized()
+          and mesh.shape == {"dp": 1, "tp": n_local},
+          "one host: initialize must be a no-op and the mesh (1, n_local)")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -7637,6 +7994,17 @@ def main():
         out = phases(snt, smi)
         kernels += out if isinstance(out, list) else [out]
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")
+    # rows 1-3 also launch through the sharded composition (phase 51)
+    t0 = time.perf_counter()
+    sharded = parallel_phases(snt, smi)
+    say(f"[parallel_phases] {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        for design in sharded:
+            if k["name"].startswith("izhikevich_stencil_steps") \
+                    and k["replaces"] == REPLACES[design]:
+                k["composition_launches"] = sharded[design]
+                k["composition"] = ("spiking_neural_networks_tpu/core/"
+                                    "lattice.py:536-624 (sharded)")
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

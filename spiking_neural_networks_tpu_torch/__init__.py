@@ -33,9 +33,12 @@ model's parameters to another's spiking by a genetic algorithm,
 ``utils.checkpoint`` saves and resumes lattices and networks in the JAX
 package's file format, ``utils.profiling`` times steps and writes profiler
 traces, ``why_not_fused`` says why a lattice misses its kernel route, and
-``_native`` builds graphs in host C++ (g++ at its first import).  Every
-module of the JAX package but ``parallel/`` (sharding and pipelines across
-devices) is ported.  Entry points put their tensors on the GPU
+``_native`` builds graphs in host C++ (g++ at its first import), and
+``parallel`` shards one lattice over a mesh of devices in row blocks (the
+stencil kernel per block), runs chains of lattices as pipelines, one
+stage per device, batched lattices over a (dp, tp) mesh, and meshes
+across processes.  Every module of the JAX package is ported.  Entry
+points put their tensors on the GPU
 (``device="cuda"``) unless the caller asks for another device.  It
 imports PyTorch and NumPy, never JAX.
 """
@@ -66,3 +69,4 @@ from .interactable import Environment, UnsupervisedEnvironment
 from . import analysis, attractors, coupling
 from . import fitting
 from .diagnostics import why_not_fused
+from . import parallel

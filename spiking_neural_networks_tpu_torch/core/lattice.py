@@ -35,6 +35,7 @@ import torch
 from ..ops import hh_kernels, model_kernels, reward_kernels, stencil_kernels
 from ..ops.graph import (SparseGraph, StencilGraph, connect_auto,
                          radius_offsets)
+from .sharded import block_info, shard_of, sharded_field
 from ..models.base import NEVER, get_neurotransmitter_concentrations
 from .history import (GridVoltageHistory, history_step_bytes,
                       rebuilt_readouts, resolve_history_chunk)
@@ -55,8 +56,14 @@ class Lattice:
     wrapper runs the kernel's plain twin); False always runs
     `lattice_step`.  ``_last_run_fused`` says which route the last chunk
     ran: ``"hh"``, ``("kernel", emit)``, ``"model"``, ``("stdp", emit)``
-    or False.
+    or False; after a chunk of a sharded lattice (`shard`) on the
+    stencil kernel, ``("sharded", designs, K, g)``.
     """
+
+    # whole tensors; while sharded, views assembled from the blocks
+    state = sharded_field("state")
+    graph = sharded_field("graph")
+    blocks = property(block_info)
 
     def __init__(self, model, id=0, device="cuda"):
         self.model = model
@@ -78,6 +85,7 @@ class Lattice:
         self.history_chunk = None
         self.use_kernel = None
         self._last_run_fused = False
+        self.mesh = None
 
     # -- construction ---------------------------------------------------------
     @property
@@ -123,6 +131,15 @@ class Lattice:
         if graph.n_post != self.n:
             raise GraphError("graph does not match lattice dimensions")
         self.graph = graph
+
+    def shard(self, mesh, axis="tp"):
+        """Split the state and graph over ``mesh`` in row blocks
+        (`parallel.lattice_sharding`); call after `populate` / `connect`.
+        Runs then step every block: the stencil kernel per block where
+        the unsharded lattice would take it without a history (the
+        sharded composition), else the plain step per block."""
+        from ..parallel.lattice_sharding import shard_lattice
+        return shard_lattice(self, mesh, axis)
 
     # -- per-edge graph access ---------------------------------------------------
     def _flat(self, pos):
@@ -245,9 +262,27 @@ class Lattice:
         return route
 
     def _run_chunk(self, length):
+        readouts = self._history_items()
+        if shard_of(self) is not None:
+            ys = self._shard.run_lattice_chunk(self, length)
+        else:
+            ys = self._run_route(length, readouts)
+        self.internal_clock += length
+        for name, hist in readouts:
+            hist.extend(ys[name].cpu())
+        if self.update_graph_history:
+            if "__weights__" in ys:
+                self.graph_history.extend(ys["__weights__"].cpu().numpy())
+            else:
+                # no plasticity: every step's weights are the current ones
+                w = self.graph.weights.cpu().numpy()
+                self.graph_history.extend(np.repeat(w[None], length, axis=0))
+
+    def _run_route(self, length, readouts):
+        """One chunk of an unsharded lattice over its route; returns the
+        history readouts by name."""
         # no neurotransmitter inserted: the NT update is a masked no-op
         skip_nt = not bool(self.state["nt$mask"].any())
-        readouts = self._history_items()
         route = self._kernel_route(skip_nt)
         if route == "hh":
             self._run_hh(length)
@@ -266,16 +301,7 @@ class Lattice:
         else:
             ys = self._run_plain(length, readouts, skip_nt)
             self._last_run_fused = False
-        self.internal_clock += length
-        for name, hist in readouts:
-            hist.extend(ys[name].cpu())
-        if self.update_graph_history:
-            if "__weights__" in ys:
-                self.graph_history.extend(ys["__weights__"].cpu().numpy())
-            else:
-                # no plasticity: every step's weights are the current ones
-                w = self.graph.weights.cpu().numpy()
-                self.graph_history.extend(np.repeat(w[None], length, axis=0))
+        return ys
 
     def _run_hh(self, length):
         """K steps per call of the HH chemical kernel, from the flat

@@ -31,8 +31,11 @@ space (lattices in id order, then trains) and every intra and connecting
 edge into one COO list, and steps that in plain PyTorch: ``index_add_``
 gathers, or dense matrix products while the (n_total, n_neurons) matrix
 holds at most 8 M entries (``dense_gather``).  It has no kernel.
-`run_lattices_pipelined` and `shard` are not ported: they raise
-`NotImplementedError` naming their ROADMAP item.
+`shard` splits every member in row blocks over a mesh (the structured
+runner then takes its plain route over the blocks,
+`parallel.network_sharding`; the flat runner does not shard, so a sharded
+network that would take it raises); `run_lattices_pipelined` runs a chain of
+lattices one stage per mesh position (`parallel.pipeline`).
 """
 
 from __future__ import annotations
@@ -51,10 +54,7 @@ from .plasticity import (STDP, RewardModulatedSTDP, rstdp_visit, rule_tensors,
                          stdp_delta)
 from .structured import (nt_flags, resolve_structured_plan, run_structured,
                          write_back_connections)
-
-MULTI_GPU_NOT_PORTED = (
-    "{} is not ported to the PyTorch package yet (ROADMAP queue 1, "
-    "item 11: multi-GPU)")
+from .sharded import block_info, first_shard, shard_of, sharded_field
 # the flat runner's dense gathers: (n_total, n_neurons) entries at most
 DENSE_GATHER_MAX = 8_000_000
 
@@ -136,7 +136,12 @@ def _device_tensor(x, device):
 class SpikeTrainLattice:
     """A grid of spike-train generators on ``device``; no incoming
     connections allowed.  Poisson trains draw from a `torch.Generator`
-    seeded by ``seed`` when they run standalone."""
+    seeded by ``seed`` when they run standalone.  A sharded train
+    (`shard`) steps its row blocks from one draw of the whole plane."""
+
+    # whole tensors; while sharded, a view assembled from the blocks
+    state = sharded_field("state")
+    blocks = property(block_info)
 
     def __init__(self, model, id=0, device="cuda"):
         self.model = model
@@ -151,6 +156,7 @@ class SpikeTrainLattice:
         self.in_network = False
         self.seed = 0
         self._generator = None
+        self.mesh = None
 
     @property
     def n(self):
@@ -174,7 +180,10 @@ class SpikeTrainLattice:
         self.state = dict(fn(rr.reshape(-1), cc.reshape(-1), dict(self.state)))
 
     def shard(self, mesh, axis="tp"):
-        raise NotImplementedError(MULTI_GPU_NOT_PORTED.format("shard"))
+        """Split the state over ``mesh`` in row blocks
+        (`parallel.lattice_sharding`)."""
+        from ..parallel.lattice_sharding import shard_lattice
+        return shard_lattice(self, mesh, axis)
 
     def set_dt(self, dt):
         """Poisson trains rescale their chance of firing by the ratio of
@@ -213,6 +222,12 @@ class SpikeTrainLattice:
             remaining -= chunk
 
     def _run_chunk(self, length):
+        if shard_of(self) is not None:
+            ys = self._shard.run_train_chunk(self, length)
+            self.internal_clock += length
+            if ys:
+                self.grid_history.extend(torch.stack(ys).cpu())
+            return
         state, clock, ys = self.state, self.internal_clock, []
         generator = self.generator()
         for _ in range(length):
@@ -336,7 +351,9 @@ class LatticeNetwork:
         return self._generator
 
     def shard(self, mesh, axis="tp"):
-        raise NotImplementedError(MULTI_GPU_NOT_PORTED.format("shard"))
+        """Row-block sharding of every member (`parallel.shard_network`)."""
+        from ..parallel.lattice_sharding import shard_network
+        return shard_network(self, mesh, axis)
 
     def set_dt(self, dt):
         for lat in self.lattices.values():
@@ -597,6 +614,14 @@ class LatticeNetwork:
         if not lattices:
             raise LatticeNetworkError("a network needs at least one "
                                       "lattice to run")
+        if first_shard(list(lattices.values())
+                       + list(self.spike_train_lattices.values())) \
+                is not None:
+            # this runner would step every member whole on one device
+            raise LatticeNetworkError(
+                "a sharded network runs only on the structured runner; a "
+                "connecting-graph history, a subclass or structured = "
+                "False needs the flat runner, which does not shard")
         dev = self.device
         lat_ids = sorted(lattices)
         st_ids = sorted(self.spike_train_lattices)
@@ -742,8 +767,12 @@ class LatticeNetwork:
             offset += count
 
     def run_lattices_pipelined(self, iterations, mesh=None, order=None):
-        raise NotImplementedError(
-            MULTI_GPU_NOT_PORTED.format("run_lattices_pipelined"))
+        """`run_lattices` for a chain of lattices, one stage per mesh
+        position (`parallel.pipeline.run_pipelined`)."""
+        if iterations == 0:
+            return
+        from ..parallel.pipeline import run_pipelined
+        run_pipelined(self, iterations, mesh=mesh, order=order)
 
 
 def flat_steps(net, plan, length, hist=(), w_history=False, rewards=None,

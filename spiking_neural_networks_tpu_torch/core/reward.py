@@ -32,6 +32,7 @@ from ..ops import reward_kernels
 from ..ops.graph import SparseGraph, StencilGraph, connect_auto, radius_offsets
 from .history import (GridVoltageHistory, history_step_bytes,
                       resolve_history_chunk)
+from .sharded import block_info, shard_of, sharded_field
 from .plasticity import RewardModulatedSTDP, rstdp_visit, rule_tensors
 from .plasticity import stdp_delta as stdp_delta_arrays
 
@@ -46,7 +47,14 @@ class RewardModulatedLattice:
     history is on and the gate holds (on the CPU the wrapper runs the
     kernel's plain twin); False always runs `reward_lattice_step`.
     ``_last_run_fused`` is True when the last run took the kernel route.
+    A sharded lattice (`shard`) runs `reward_lattice_step` per block.
     """
+
+    # whole tensors; while sharded, views assembled from the blocks
+    state = sharded_field("state")
+    graph = sharded_field("graph")
+    trace = sharded_field("trace")
+    blocks = property(block_info)
 
     def __init__(self, model, id=0, device="cuda"):
         self.model = model
@@ -70,6 +78,7 @@ class RewardModulatedLattice:
         self.history_chunk = None  # None = auto (core/history)
         self.use_kernel = None
         self._last_run_fused = False
+        self.mesh = None
 
     @property
     def n(self):
@@ -112,6 +121,13 @@ class RewardModulatedLattice:
 
     def apply(self, fn):
         self.state = dict(fn(dict(self.state)))
+
+    def shard(self, mesh, axis="tp"):
+        """Split the state, graph and trace planes over ``mesh`` in row
+        blocks (`parallel.lattice_sharding`); the dopamine stays one
+        scalar that every block computes alike."""
+        from ..parallel.lattice_sharding import shard_lattice
+        return shard_lattice(self, mesh, axis)
 
     # -- per-edge graph access ---------------------------------------------------
     def _flat(self, pos):
@@ -215,7 +231,9 @@ class RewardModulatedLattice:
                 self._run(rewards[off:off + hchunk], with_reward)
             return
         self._last_run_fused = False
-        if self._kernel_route(any_hist):
+        if shard_of(self) is not None:
+            self._shard.run_reward(self, rewards, with_reward)
+        elif self._kernel_route(any_hist):
             self._run_kernel(rewards, with_reward)
             self._last_run_fused = True
         else:
@@ -223,10 +241,12 @@ class RewardModulatedLattice:
         self.internal_clock += iterations
 
     def _kernel_route(self, any_hist, on_card=None):
-        """Whether this run takes the kernel route; ``on_card`` (by
-        default, whether the state is on a CUDA device) decides
+        """Whether this run takes the kernel route (never while sharded:
+        the blocks take `reward_lattice_step`); ``on_card`` (by default,
+        whether the state is on a CUDA device) decides
         ``use_kernel=None``."""
         if any_hist or self.use_kernel is False \
+                or shard_of(self) is not None \
                 or not reward_kernels.supports_lattice(self):
             return False
         if on_card is None:
@@ -309,18 +329,27 @@ def reward_lattice_step(model, electrical, chemical, do_modulation,
 
     if do_modulation:
         vals = {"last_firing_time": state["last_firing_time"]}
-        pre, post = graph.edge_pre_post(vals, vals)
-        delta = stdp_delta_arrays(pre["last_firing_time"],
-                                  post["last_firing_time"], pparams)
-        w0 = graph.weights
-        w, c, dw, ct = rstdp_visit(
-            w0, trace["c"], trace["dw"], trace["counter"], delta,
-            dopamine, pparams)
-        w, c, dw, ct = rstdp_visit(w, c, dw, ct, delta, dopamine, pparams)
-        m = graph.edge_mask
-        graph = graph.replace_weights(torch.where(m, w, w0))
-        trace = dict(c=torch.where(m, c, trace["c"]),
-                     dw=torch.where(m, dw, trace["dw"]),
-                     counter=torch.where(m, ct, trace["counter"]))
+        graph, trace = modulate(graph, trace, vals, vals, dopamine, pparams)
 
     return state, graph, trace, dopamine, clock + 1
+
+
+def modulate(graph, trace, pre_vals, post_vals, dopamine, pparams):
+    """The R-STDP double visit of every edge of ``graph`` from the
+    endpoints' post-step firing times (``pre_vals`` / ``post_vals``: the
+    sources' and destinations' ``last_firing_time``, which differ for a
+    sharded column block).  Returns ``(graph, trace)``."""
+    pre, post = graph.edge_pre_post(pre_vals, post_vals)
+    delta = stdp_delta_arrays(pre["last_firing_time"],
+                              post["last_firing_time"], pparams)
+    w0 = graph.weights
+    w, c, dw, ct = rstdp_visit(
+        w0, trace["c"], trace["dw"], trace["counter"], delta,
+        dopamine, pparams)
+    w, c, dw, ct = rstdp_visit(w, c, dw, ct, delta, dopamine, pparams)
+    m = graph.edge_mask
+    graph = graph.replace_weights(torch.where(m, w, w0))
+    trace = dict(c=torch.where(m, c, trace["c"]),
+                 dw=torch.where(m, dw, trace["dw"]),
+                 counter=torch.where(m, ct, trace["counter"]))
+    return graph, trace

@@ -19,7 +19,8 @@ The shared dopamine decays with the reward before the visits.  The
 structure-preserving runner (`core/reward_structured.py`) is the default;
 the flat COO path here (`LatticeNetwork._compile` plus per-edge traces,
 stepped by `core.network.flat_steps`) is the fallback (a connecting-graph
-history, a subclass, ``structured = False``) and the equivalence oracle.
+history, a subclass, ``structured = False``; not for a sharded network,
+which then raises) and the equivalence oracle.
 """
 
 from __future__ import annotations
@@ -165,6 +166,17 @@ class RewardModulatedLatticeNetwork(LatticeNetwork):
             self._run_chunk(plan, len(rewards[off:off + chunk]),
                             rewards[off:off + chunk], with_reward)
         self._write_back_reward(plan)
+
+    def run_lattices_with_reward_pipelined(self, reward, iterations=1,
+                                           mesh=None, order=None,
+                                           with_reward=True):
+        """`run_lattices_with_reward` for a chain of lattices, one stage
+        per mesh position (`parallel.pipeline.run_pipelined_with_reward`)."""
+        if iterations == 0:
+            return
+        from ..parallel.pipeline import run_pipelined_with_reward
+        run_pipelined_with_reward(self, reward, iterations, mesh=mesh,
+                                  order=order, with_reward=with_reward)
 
     # -- the flat COO path --------------------------------------------------------
     def _compile(self):

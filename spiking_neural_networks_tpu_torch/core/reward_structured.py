@@ -34,6 +34,7 @@ import torch
 from ..models.spike_train import refractoriness_effect
 from .plasticity import (RewardModulatedSTDP, rstdp_visit, rule_tensors,
                          stdp_delta)
+from .sharded import first_shard
 from .structured import (_conn_edge_update, _edge_layout, _phase_a,
                          _phase_b, classify_connection)
 
@@ -132,14 +133,24 @@ def run_structured_reward(net, rewards, with_reward):
     st_hist = [(i, s) for i, s in zip(st_ids, sts) if s.update_grid_history]
     ghist = [i for i, l in zip(lat_ids, lattices) if l.update_graph_history]
     length = len(rewards)
+    shards = first_shard(lattices + sts)
+    sharded = shards is not None
     spec = None
-    if net.use_kernel is not False and not (hist or st_hist or ghist):
+    if net.use_kernel is not False and not (hist or st_hist or ghist) \
+            and not sharded:
         spec = nk.reward_network_spec(net, plan, lat_kind,
                                       skip_nt and not any(nt), with_reward)
         if spec is not None and net.use_kernel is None \
                 and not lattices[0].state["v"].is_cuda:
             spec = None
-    if spec is not None:
+    if sharded:
+        # the blocks keep the states, graphs and traces
+        conn_ws, rconns, dopamine, ys = shards.reward_network_steps(
+            net, plan, rewards, with_reward, lat_kind, skip_nt, hist,
+            st_hist, ghist)
+        states = st_states = graphs = traces = ()
+        net._last_run_fused = False
+    elif spec is not None:
         states, st_states, graphs, conn_ws, ys, out = nk.advance(
             spec, net, plan, length, rewards)
         traces, rconns, dopamine = (out["traces"], out["rconns"],
@@ -159,13 +170,14 @@ def run_structured_reward(net, rewards, with_reward):
                                            traces):
         lat.state = dict(state)
         lat.graph = graph
-        lat.internal_clock = net.internal_clock
         if i in reward_ids:
             lat.trace = dict(trace)
-            lat.dopamine = dopamine
     for st, state in zip(sts, st_states):
         st.state = dict(state)
-        st.internal_clock = net.internal_clock
+    for i, x in zip(lat_ids + st_ids, lattices + sts):
+        x.internal_clock = net.internal_clock
+        if i in reward_ids:
+            x.dopamine = dopamine
     for c, w in zip(plan["conns"], conn_ws):
         c["op"].w0 = w
         if c["updates"]:

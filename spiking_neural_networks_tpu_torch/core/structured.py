@@ -29,6 +29,7 @@ from ..models.base import get_neurotransmitter_concentrations
 from ..models.spike_train import refractoriness_effect
 from ..ops.graph import DenseGraph, SparseGraph, exact_matmul
 from .plasticity import rule_tensors
+from .sharded import first_shard
 
 
 # ---------------------------------------------------------------------------
@@ -455,14 +456,22 @@ def run_structured(net, iterations, flags):
                if s.update_grid_history]
     ghist = [i for i, l in zip(plan["lat_ids"], lattices)
              if l.update_graph_history]
+    shards = first_shard(lattices + sts)
+    sharded = shards is not None
     spec = None
-    if net.use_kernel is not False:
+    if net.use_kernel is not False and not sharded:
         spec = nk.plain_network_spec(net, plan, skip_nt and not any(st_nt),
                                      st_nt)
         if spec is not None and net.use_kernel is None \
                 and not lattices[0].state["v"].is_cuda:
             spec = None
-    if spec is not None:
+    if sharded:
+        # the blocks keep the states and graphs
+        conn_ws, ys = shards.network_steps(net, plan, int(iterations),
+                                           skip_nt, hist, st_hist, ghist)
+        states = st_states = graphs = ()
+        net._last_run_fused = False
+    elif spec is not None:
         states, st_states, graphs, conn_ws, ys, _ = nk.advance(
             spec, net, plan, int(iterations))
         tag = ("flat-chemical" if spec.chem else "flat") if nk.is_flat(spec) \
@@ -476,10 +485,10 @@ def run_structured(net, iterations, flags):
     for lat, state, graph in zip(lattices, states, graphs):
         lat.state = dict(state)
         lat.graph = graph
-        lat.internal_clock = net.internal_clock
     for st, state in zip(sts, st_states):
         st.state = dict(state)
-        st.internal_clock = net.internal_clock
+    for x in lattices + sts:
+        x.internal_clock = net.internal_clock
     for c, w in zip(plan["conns"], conn_ws):
         c["op"].w0 = w
     for i, lat in hist:

@@ -55,6 +55,10 @@ def _reward_reasons(lat):
     from .core.plasticity import RewardModulatedSTDP
     from .ops import reward_kernels
     reasons = []
+    if lat.__dict__.get("_shard") is not None:
+        reasons.append("sharded: a reward lattice's blocks take the plain "
+                       "step (`reward_lattice_step`), as the JAX package "
+                       "keeps sharded reward lattices on XLA")
     if lat.update_grid_history or lat.update_graph_history:
         reasons.append(f"{_history_names(lat)} history recording: the "
                        "reward lattice's kernel route keeps no history")
@@ -175,6 +179,27 @@ def _model_reasons(lat, reasons):
                        "not on this checklist")
 
 
+def _sharded_reasons(lat, sharded):
+    """Why a sharded `Lattice` misses the sharded stencil kernel route
+    (`parallel.lattice_sharding.LatticeShards.kernel_config`)."""
+    from .ops import stencil_kernels
+    if sharded.kernel_config(_as_auto(lat), sharded.skip_nt(lat),
+                             on_card=True) is not None:
+        return []
+    if not stencil_kernels.supports(lat.model, lat.graph,
+                                    lat.electrical_synapse,
+                                    lat.chemical_synapse, lat.do_plasticity) \
+            or not sharded.skip_nt(lat):
+        return ["sharded: only the electrical Izhikevich stencil lattice "
+                "(no plasticity, no neurotransmitter) runs the stencil "
+                "kernel per row block; the others take the plain step per "
+                "block"]
+    if lat._history_items() or lat.update_graph_history:
+        return ["sharded: the per-block kernel route keeps no history"]
+    return ["sharded: the stencil reaches past one block's rows (K = 1 "
+            "needs halo <= rows per block)"]
+
+
 def _as_auto(lat):
     """``lat`` with ``use_kernel=None`` (a shallow copy when it is
     False): the route its gates give on the card."""
@@ -211,6 +236,9 @@ def why_not_fused(lat):
                         "networks, check net._last_run_fused after a run)")
     if not lat.electrical_synapse and not lat.chemical_synapse:
         return ["no electrical and no chemical synapse: a run does nothing"]
+    sharded = lat.__dict__.get("_shard")
+    if sharded is not None:
+        return off + _sharded_reasons(lat, sharded)
     skip_nt = not bool(lat.state["nt$mask"].any())
     if _as_auto(lat)._kernel_route(skip_nt, on_card=True) is not None:
         return off

@@ -27,6 +27,7 @@ import torch
 
 from .core.history import (HISTORY_KINDS, history_step_bytes,
                            resolve_history_chunk)
+from .core.sharded import shard_of
 from .ops import reward_kernels as rk
 
 # the state fields that live in the kernel's (rows, cols) planes
@@ -462,6 +463,11 @@ class JitEnvironment:
         self._run(iterations, False)
 
     def _run(self, iterations, with_reward):
+        if shard_of(self.agent) is not None:
+            # every tier steps the agent's whole state on one device
+            raise ValueError(
+                "JitEnvironment does not run a sharded agent; use the "
+                "host-loop Environment, whose steps run its blocks")
         hist_sig = self._hist_sig()
         chunk = _agent_history_chunk(self.agent) if hist_sig is not None \
             else int(iterations)

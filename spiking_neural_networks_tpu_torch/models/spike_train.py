@@ -170,10 +170,13 @@ class PoissonSpikeTrain(SpikeTrainModel):
             n, device=device, chance_of_firing=self.rate_to_chance(hertz, dt),
             dt=dt, **overrides)
 
-    def step(self, s, generator, clock):
+    def step(self, s, generator, clock, u=None):
+        """``u``: the step's uniform draws where the caller drew them (a
+        sharded train's rows of its whole-plane draw)."""
         s = dict(s)
-        u = torch.rand(s["v"].shape, generator=generator,
-                       device=s["v"].device)
+        if u is None:
+            u = torch.rand(s["v"].shape, generator=generator,
+                           device=s["v"].device)
         spikes = u <= s["chance_of_firing"]
         return self._finish(s, spikes), spikes
 
@@ -239,10 +242,13 @@ class BCMPoissonSpikeTrain(PoissonSpikeTrain):
     INT_FIELDS = dict(num_spikes=0)
     needs_rng = True
 
-    def step(self, s, generator, clock):
+    def step(self, s, generator, clock, u=None):
+        """``u``: the step's uniform draws where the caller drew them (a
+        sharded train's rows of its whole-plane draw)."""
         s = dict(s)
-        u = torch.rand(s["v"].shape, generator=generator,
-                       device=s["v"].device)
+        if u is None:
+            u = torch.rand(s["v"].shape, generator=generator,
+                           device=s["v"].device)
         spikes = u <= s["chance_of_firing"]
         # instantaneous activity: the voltage delta
         target = torch.where(spikes, s["v_th"], s["v_resting"])

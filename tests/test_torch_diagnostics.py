@@ -160,11 +160,27 @@ def test_reward_lattice_fuses_and_wide_fuses_in_the_port():
 
 
 def test_no_shard_yet():
-    """Difference: the port has no sharded lattice (``parallel/`` is not
-    ported); the 32 x 32 lattices of the JAX scenario fuse unsharded."""
-    assert not hasattr(snt.Lattice, "shard")
+    """JAX ``test_sharded_plain_fuses_sharded_stdp_declines`` (the name
+    is from before ``parallel/`` was ported): a sharded plain 32 x 32
+    lattice takes the sharded stencil kernel route, a sharded STDP one
+    declines for being sharded, as do a sharded reward lattice and one
+    with a history; unsharded, both fuse."""
+    from spiking_neural_networks_tpu_torch.parallel import make_lattice_mesh
+    mesh = make_lattice_mesh(8, devices=[torch.device("cpu")] * 8)
     assert snt.why_not_fused(lattice(snt, 32, 32)) == []
     assert snt.why_not_fused(stdp(snt, 32, 32)) == []
+    lat = lattice(snt, 32, 32)
+    lat.shard(mesh)
+    assert snt.why_not_fused(lat) == []
+    lat.use_kernel = True
+    lat.run_lattice(16)
+    assert lat._last_run_fused[0] == "sharded"
+    lat.update_grid_history = True
+    assert any("history" in r for r in snt.why_not_fused(lat))
+    for x in (stdp(snt, 32, 32), reward(snt, 32, 32)):
+        x.shard(mesh)
+        reasons = snt.why_not_fused(x)
+        assert any("sharded" in r.lower() for r in reasons), reasons
 
 
 def test_hh_chemical_fuses_model_history_declines():

@@ -55,6 +55,47 @@ def test_modules_import_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_parallel_imports_without_jax():
+    """`parallel` (sharding, pipelines, meshes across processes) and the
+    multi-process test's worker import with ``jax`` blocked, and the
+    package exports `parallel` as the JAX package's does."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['spiking_neural_networks_tpu'] = None\n"
+            "import spiking_neural_networks_tpu_torch as snt\n"
+            "from spiking_neural_networks_tpu_torch.parallel import (\n"
+            "    lattice_sharding, mesh, multihost, pipeline, sharding)\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import _torch_multihost_worker\n"
+            "assert snt.parallel.shard_lattice and snt.parallel."
+            "make_hybrid_mesh and pipeline.run_pipelined_with_reward\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
+            " and sys.modules[m] is not None)\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+
+def test_core_imports_no_parallel_when_it_loads():
+    """The core layer reaches `parallel` only through lazy imports in its
+    ``shard`` / pipeline entry points and the ``_shard`` object, so
+    `parallel` depends on core and not the reverse."""
+    import ast
+    offenders = []
+    core = os.path.join(PKG, "core")
+    for name in sorted(os.listdir(core)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(core, name)) as f:
+            tree = ast.parse(f.read())
+        for node in tree.body:
+            if isinstance(node, ast.ImportFrom) and node.module \
+                    and node.module.split(".")[0] == "parallel":
+                offenders.append(name)
+    assert not offenders, offenders
+
 def test_no_file_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.]"
                          r"|(import|from)\s+spiking_neural_networks_tpu[\s.])",

@@ -326,11 +326,16 @@ def test_paths_left_for_later_raise():
     t.run_lattices(1)
     assert t.internal_clock == 5 and len(t.connecting_graph_history) == 1
     t.update_connecting_graph_history = False
-    for call in (lambda: t.run_lattices_pipelined(3),
-                 lambda: t.shard(None),
-                 lambda: t.spike_train_lattices[2].shard(None)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    # pipelines and sharding are ported (parallel/): a chain takes no
+    # spike-train lattice, and sharding keeps the clock
+    from spiking_neural_networks_tpu_torch.parallel import (
+        make_lattice_mesh, make_pipeline_mesh)
+    cpus = [torch.device("cpu")] * len(t.lattices)
+    with pytest.raises(LatticeNetworkError, match="spike-train"):
+        t.run_lattices_pipelined(3, mesh=make_pipeline_mesh(len(cpus),
+                                                            devices=cpus))
+    t.shard(make_lattice_mesh(2, devices=cpus[:1] * 2))
+    assert t.spike_train_lattices[2].blocks is not None
     t.electrical_synapse = False
     t.run_lattices(5)              # neither synapse: no step, as in JAX
     assert t.internal_clock == 5
