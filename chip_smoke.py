@@ -409,12 +409,32 @@ Phases, one line each:
 55. one host: `parallel.initialize_multihost()` is a no-op and
    `make_hybrid_mesh()` is (1, n_local).
 
+56. the science pipelines of ``spiking_neural_networks_tpu_torch/
+   experiments/`` (the port of ``experiments/``) through lixirnet and the
+   core on the card, each at its users' widths (`EXP_KERNEL`,
+   `EXP_PLAIN`): the route of every run held to the route both gates give
+   on the CPU; the kernel pipelines at a comparison depth with every
+   chance of firing forced to 0 or 1, the plain ones at their cut depth;
+57. each kernel pipeline at its users' depth (a committed reference
+   TOML's first grid point, or `main`'s defaults): the network kernel's
+   counts set to 0 just before it, every call through the persistent
+   kernel (counted by the C entry), the first 2 calls bit-equal to the
+   twin, every state finite, neurons fired, the JAX script's output keys;
+   its comparison run on the CPU's twin route bit for bit (histories,
+   firing times, output) and on the card's plain route (another
+   association: max |dv| and the first step past 1e-3 mV printed);
+58. each plain pipeline (the head-direction rings, the Tolman-Eichenbaum
+   walk) against the same run on the CPU within 2 mV and 2 steps;
+59. each pipeline's seconds of construction, run and analysis, wall and
+   profiled device us/step, device / wall.
+
 The kernels line marks rows 1-3 (the stencil kernel's three designs)
 with the launches the sharded composition made of each in phase 51
-(``composition_launches``).
+(``composition_launches``), and rows 6b and 6b-flat with the persistent
+launches of each science pipeline in phase 57 (``pipeline_launches``).
 
-The DSL family (phases 37-42), the support modules (45-50) and the trial
-(43-44) run first: late in a long run the profiler keeps fewer kernel
+The DSL family (phases 37-42), the support modules (45-50), the trial
+(43-44) and the science pipelines (56-59) run first: late in a long run the profiler keeps fewer kernel
 records of every family, and a counted profile of the DSL main path once
 lost all in eight tries (a library loaded late is not the cause:
 ``tools/profiler_records.py``).  The `parallel` phases (51-55) run last:
@@ -7925,6 +7945,512 @@ def multihost_phase(snt):
           "one host: initialize must be a no-op and the mesh (1, n_local)")
 
 
+# ---------------------------------------------------------------------------
+# The science pipelines of `experiments/` through lixirnet and the core:
+# phases 56-59
+# ---------------------------------------------------------------------------
+
+EXP_TWIN_CALLS = 2      # of each kernel pipeline's main run, held to the twin
+# steps profiled on a kernel / the plain route: a plain step of a ring
+# network launches ~700 kernels, and a profile of many thousands of records
+# leaves the profiler losing records in the phases after this family
+EXP_PROFILE = (256, 4)
+
+
+class NetProbe:
+    """Around a pipeline's entry point: patches the port's core
+    `LatticeNetwork.run_lattices` to keep each network the pipeline runs,
+    set its ``use_kernel``, record each run's route and time each run
+    between two synchronisations; and `network_kernels.network_steps` to
+    hold the first ``twin_calls`` kernel calls on the card against the
+    twin (`network_steps_reference` on copies of the same inputs, uniforms
+    included).  Restores both on exit."""
+
+    def __init__(self, use_kernel=None, twin_calls=0):
+        self.use_kernel, self.twin_left = use_kernel, twin_calls
+        self.nets, self.runs, self.routes = [], [], []
+        self.twin_calls, self.twin_bits = 0, []
+
+    def __enter__(self):
+        from spiking_neural_networks_tpu_torch.core import network as cn
+        from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+        self.cn, self.nk = cn, nk
+        self.saved = (cn.LatticeNetwork.run_lattices, nk.network_steps)
+        run, steps = self.saved
+        probe = self
+
+        def run_lattices(net, n):
+            if not any(net is x for x in probe.nets):
+                probe.nets.append(net)
+            net.use_kernel = probe.use_kernel
+            cuda = on_card(net)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(net, n)
+            if cuda:
+                torch.cuda.synchronize()
+            probe.runs.append((t0, time.perf_counter(), int(n)))
+            probe.routes.append(net._last_run_fused)
+
+        def network_steps(spec, lats, trains, conns, uniforms, rule, clock0,
+                          n_steps, reward=None, **kw):
+            args = (spec, lats, trains, conns, uniforms, rule)
+            if probe.twin_left <= 0 or not lats[0]["v"].is_cuda:
+                return steps(*args, clock0, n_steps, reward, **kw)
+            want = nk.network_steps_reference(*cloned(args), clock0, n_steps,
+                                              cloned(reward))
+            got = steps(*args, clock0, n_steps, reward, **kw)
+            probe.twin_bits += bit_mismatches(got, want)
+            probe.twin_calls += 1
+            probe.twin_left -= 1
+            return got
+
+        cn.LatticeNetwork.run_lattices = run_lattices
+        nk.network_steps = network_steps
+        return self
+
+    def __exit__(self, *exc):
+        self.cn.LatticeNetwork.run_lattices, self.nk.network_steps = \
+            self.saved
+
+    def call(self, fn):
+        """``fn()`` with its seconds of construction (up to the first run),
+        run (the runs between their synchronisations) and analysis (the
+        rest); returns (output, split, steps run)."""
+        self.runs.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        run = sum(b - a for a, b, _ in self.runs)
+        built = self.runs[0][0] - t0
+        return out, (built, run, t3 - t0 - built - run), \
+            sum(n for _, _, n in self.runs)
+
+
+def on_card(net):
+    return next(iter(net.lattices.values())).state["v"].is_cuda
+
+
+def exp_toml(folder, name):
+    from spiking_neural_networks_tpu_torch.experiments.pipeline_setup \
+        import parse_toml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "experiments", folder, name), "rb") as f:
+        return parse_toml(f)
+
+
+def exp_schizophrenia(mod, device, cmp, forced):
+    """`gmax_with_recall_cue.toml`'s first grid point and first trial as
+    `main` makes them: 2000 + 3000 steps (cmp: 100 + 50)."""
+    parsed = exp_toml("schizophrenia_pipeline_args",
+                      "gmax_with_recall_cue.toml")
+    mod.fill_defaults(parsed)
+    sp = parsed["simulation_parameters"]
+    if cmp:
+        sp.update(iterations1=100, iterations2=50, first_window=50,
+                  second_window=40)
+    if forced:
+        sp["cue_firing_rate"] = 1.0
+    rng = np.random.default_rng(sp["seed"])
+    patterns = mod.generate_patterns(sp["exc_n"] ** 2, 0.5,
+                                     sp["num_patterns"],
+                                     sp["correlation_threshold"], rng=rng)
+    cs = {k: parsed["variables"][k][0] for k in mod.KEYS}
+    with np.errstate(divide="ignore", invalid="ignore"):
+        value, p1, p2 = mod.run_trial(sp, cs, patterns, rng, device=device)
+    return dict(value, patterns=[p1, p2])
+
+
+def exp_dopamine(mod, device, cmp, forced):
+    """`d1_exc_glu_clearance.toml`'s first grid point as `run_grid` runs
+    it: off 5000, on 1000, off 5000 steps (cmp: 80, 40, 80)."""
+    parsed = exp_toml("dopamine_liquid_args", "d1_exc_glu_clearance.toml")
+    mod.fill_defaults(parsed)
+    sp = parsed["simulation_parameters"]
+    cs = {k: v[0] for k, v in parsed["variables"].items()}
+    if cmp:
+        sp.update(off_phase=80, on_phase=40, settling_period=30)
+    if forced:
+        cs.update(cue_firing_rate=1.0, dopamine_firing_rate=1.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return mod._run_grid_point(sp, cs, np.random.default_rng(0), device)
+
+
+def exp_bayes(mod, device, cmp, forced):
+    """The defaults' first trial as `main` makes it: 1500 steps (cmp:
+    120)."""
+    p = dict(mod.DEFAULTS["simulation_parameters"])
+    if cmp:
+        p["iterations"] = 120
+    if forced:
+        p.update(main_firing_rate=1.0, bayesian_firing_rate=1.0)
+    rng = np.random.default_rng(p["seed"])
+    patterns = mod.generate_patterns(p["exc_n"] ** 2, p["p_on"],
+                                     p["num_patterns"],
+                                     p["correlation_threshold"], rng=rng)
+    index = int(rng.integers(0, p["num_patterns"]))
+    accuracy, counts = mod.run_trial(p, patterns, index, rng, p["d2"],
+                                     device=device)
+    return dict(pattern_index=index, accuracy=bool(accuracy),
+                total_spikes=int(counts.sum()), firing_counts=counts.tolist())
+
+
+def exp_attractor(mod, device, cmp, forced):
+    """`main` at its defaults (3 patterns x 3 trials x 800 steps); cmp:
+    one trial of 120 steps."""
+    if not cmp:
+        mod.main(device=device)
+        with open(mod.output_path("attractor_manifold_output.json")) as f:
+            return json.load(f)
+    rng = np.random.default_rng(0)
+    patterns = mod.generate_patterns(49, 0.5, 3, 10.0, rng=rng)
+    w = mod.get_weights(49, patterns, a=0.5, b=0.5, scalar=2.0 / 3)
+    w_ie = mod.weights_ie(3, 0.5, patterns, 3)
+    traj = mod.run_trial(w, w_ie, patterns, 0, 7, 3, rng, iterations=120,
+                         cue_firing_rate=1.0 if forced else 0.01,
+                         device=device)
+    return dict(trajectory=traj.tolist())
+
+
+def exp_grid_ec(mod, device, cmp, forced):
+    return mod.main(iterations=120 if cmp else 3000, device=device)
+
+
+def exp_grid(mod, device, cmp, forced):
+    center, d = mod.main(iterations=120 if cmp else 2000, device=device)
+    return dict(center=list(center), distance=float(d))
+
+
+def exp_heuristic(mod, device, cmp, forced):
+    """`main` with 4 search iterations (8 evaluations of the objective, a
+    6 x 6 lattice and its Poisson drive over 400 steps); cmp: one
+    evaluation of 120 steps."""
+    if not cmp:
+        return mod.main(search_iterations=4, device=device)
+    return dict(score=mod.firing_rate_objective(
+        dict(drive_rate=1.0 if forced else 0.1, drive_weight=1.5),
+        iterations=120, device=device))
+
+
+def exp_liquid(mod, device, cmp, forced):
+    """`glu_clearance.toml`'s first grid point: off 5000, on 1000, off
+    5000 steps (cmp: 60, 30, 60)."""
+    parsed = exp_toml("isolated_liquid_args", "glu_clearance.toml")
+    mod.fill_defaults(parsed)
+    sp = parsed["simulation_parameters"]
+    cs = {k: v[0] for k, v in parsed["variables"].items()}
+    if cmp:
+        sp.update(off_phase=60, on_phase=30, settling_period=20)
+    if forced:
+        cs["cue_firing_rate"] = 1.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return mod.run_trial(sp, cs, np.random.default_rng(sp["seed"]),
+                             device)
+
+
+def exp_no_turning(mod, device, cmp, forced):
+    return mod.main(iterations=60 if cmp else 3000,
+                    cue_iterations=60 if cmp else 2000, device=device)
+
+
+def exp_tem(mod, device, cmp, forced):
+    """`main` at its widths (12 positions, 4 objects, 40 steps a visit),
+    its walk cut from 60 visits to 1 an environment."""
+    return mod.main(n_pos=12, n_obj=4, walk_steps=1, steps_per_visit=40,
+                    device=device)
+
+
+def exp_hd_dopa(mod, device, cmp, forced):
+    return mod.main(iterations=100, device=device)
+
+
+def exp_hd(mod, device, cmp, forced):
+    return mod.main(iterations=200, device=device)
+
+
+def exp_basin(mod, device, cmp, forced):
+    return mod.main(iterations=100, cue_iterations=100, device=device)
+
+
+def exp_hd_attractor(mod, device, cmp, forced):
+    return dict(positions=mod.main(iterations=200, device=device))
+
+
+# (module, runner, the route both gates give every run at these widths
+# (tests/test_torch_experiments_*.py), the kernels-line row, the output's
+# keys)
+EXP_KERNEL = (
+    ("schizophrenia_simulation", exp_schizophrenia, "flat-chemical",
+     "6b-flat", {"first_acc", "second_acc", "first_snr", "second_snr",
+                 "peaks", "patterns"}),
+    ("dopamine_liquid_interaction", exp_dopamine, "flat-chemical", "6b-flat",
+     {"return_to_baseline", "voltages", "first_snr", "second_snr",
+      "during_disturbance", "peaks"}),
+    ("bayesian_inference_pipeline", exp_bayes, "flat-chemical", "6b-flat",
+     {"pattern_index", "accuracy", "total_spikes", "firing_counts"}),
+    ("attractor_manifold", exp_attractor, "flat-chemical", "6b-flat",
+     {"embedding", "labels", "within", "between", "explained_variance",
+      "patterns"}),
+    ("grid_cell_electrochemical", exp_grid_ec, "flat-chemical", "6b-flat",
+     {"center", "target", "toroidal_distance", "total_spikes"}),
+    ("grid_cell_model", exp_grid, "flat", "6b-flat", {"center", "distance"}),
+    ("heuristic_parameter_search", exp_heuristic, "network", "6b",
+     {"target", "best_params", "best_score", "n_evaluations", "trace"}),
+    ("isolated_liquid_pipeline", exp_liquid, "flat-chemical", "6b-flat",
+     {"return_to_baseline", "voltages", "first_snr", "second_snr",
+      "during_disturbance"}),
+    ("hd_electrochemical_model_no_turning", exp_no_turning, "flat-chemical",
+     "6b-flat", {"angle", "cued_theta", "held_theta", "drift", "peaks"}),
+)
+EXP_PLAIN = (
+    ("tolman_eichenbaum", exp_tem, False, None,
+     {"env0_accuracy", "env1_accuracy", "chance", "n_positions",
+      "n_objects", "walk_steps", "seed"}),
+    ("hd_electrochemical_model_dopaminergic", exp_hd_dopa, False, None,
+     {"peaks", "thetas", "parameters"}),
+    ("hd_electrochemical_model", exp_hd, False, None,
+     {"peaks", "thetas", "parameters"}),
+    ("hd_with_basin", exp_basin, False, None,
+     {"basin", "cue_angle", "cued_theta", "final_theta",
+      "dist_to_basin_start", "dist_to_basin_end", "peaks"}),
+    ("hd_attractor", exp_hd_attractor, False, None, {"positions"}),
+)
+
+
+def exp_histories(probe):
+    """Every grid history of the probe's networks, in order: a list of
+    (T, N) float64 arrays."""
+    out = []
+    for net in probe.nets:
+        for i in sorted(net.lattices):
+            lat = net.lattices[i]
+            if lat.update_grid_history and lat.grid_history.history:
+                h = np.stack([np.asarray(x) for x in
+                              lat.grid_history.history])
+                out.append(h.reshape(len(h), -1).astype(np.float64))
+    return out
+
+
+def exp_lfts(probe):
+    return [l.state["last_firing_time"].cpu().numpy().astype(np.int64)
+            for net in probe.nets for _, l in sorted(net.lattices.items())]
+
+
+def exp_finite(probe):
+    return all(bool(torch.isfinite(x).all()) for net in probe.nets
+               for m in list(net.lattices.values())
+               + list(net.spike_train_lattices.values())
+               for x in m.state.values() if x.is_floating_point())
+
+
+def exp_route_names(probe):
+    return [r[0] if r else False for r in probe.routes]
+
+
+def experiment_phases(snt, smi):
+    """Phases 56-59.  Returns the launches of the persistent network
+    kernel per kernel pipeline, by kernels-line row ("6b", "6b-flat")."""
+    import importlib
+    import tempfile
+    from spiking_neural_networks_tpu_torch import lixirnet as ln
+    from spiking_neural_networks_tpu_torch.ops import network_kernels as nk
+    mods = {name: importlib.import_module(
+        f"spiking_neural_networks_tpu_torch.experiments.{name}")
+        for name, *_ in EXP_KERNEL + EXP_PLAIN}
+    for name, mod in mods.items():
+        check(getattr(mod, "ln", ln) is ln,
+              f"{name} does not use the port's lixirnet")
+    with tempfile.TemporaryDirectory() as out_dir:
+        saved = {name: mod.output_path for name, mod in mods.items()
+                 if hasattr(mod, "output_path")}
+        for name in saved:
+            mods[name].output_path = (
+                lambda n: os.path.join(out_dir, os.path.basename(n)))
+        try:
+            cases = exp_routes_phase(mods)
+            launches = exp_kernel_phase(nk, mods, cases)
+            exp_plain_phase(mods, cases)
+            exp_times_phase(mods, cases, smi)
+        finally:
+            for name, path in saved.items():
+                mods[name].output_path = path
+    return launches
+
+
+def exp_routes_phase(mods):
+    """56. Each pipeline's networks built on the card and run: the kernel
+    pipelines at their comparison depth with every chance of firing forced
+    to 0 or 1 (`exp_*`, ``cmp``), the plain ones at their cut depth; each
+    run's route printed and held to the route both gates give on the CPU
+    (`EXP_KERNEL`, `EXP_PLAIN`).  Returns each pipeline's probe and
+    output."""
+    cases = {}
+    for name, fn, route, row, _ in EXP_KERNEL + EXP_PLAIN:
+        kernel = row is not None
+        with NetProbe() as probe:
+            out, split, steps = probe.call(
+                lambda: fn(mods[name], "cuda", kernel, kernel))
+        routes = exp_route_names(probe)
+        say(f"[56 routes] {name}: {len(probe.nets)} networks, "
+            f"{len(routes)} runs, {steps} steps on the card: routes "
+            f"{sorted(set(map(str, routes)))} (both gates on the CPU: "
+            f"{route}); construction {split[0]:.3f} s, run {split[1]:.3f} s,"
+            f" analysis {split[2]:.3f} s")
+        check(routes and all(r == route for r in routes),
+              f"{name}: the runs took {routes}, not {route}")
+        cases[name] = dict(probe=probe, out=out, split=split, steps=steps)
+    return cases
+
+
+def exp_kernel_phase(nk, mods, cases):
+    """57. Each kernel pipeline at its users' depth on the card, the
+    network kernel's counts set to 0 just before it and read just after:
+    every run on its route, every call through the persistent kernel (the
+    C entry's count), the first `EXP_TWIN_CALLS` calls bit-equal to the
+    twin, every state finite, neurons fired, the output's keys the JAX
+    script's.  Then its comparison run (chances 0 or 1) on the CPU's twin
+    route (``use_kernel=True``): every grid history, firing time and the
+    output equal to the card's (phase 56) bit for bit; and on the card's
+    plain route (``use_kernel=False``), which sums in another order:
+    max |dv|, the first step past `DRIFT`, the outputs.  Returns the
+    persistent launches by row and pipeline."""
+    K = nk.STEPS_PER_LAUNCH
+    launches = {"6b": {}, "6b-flat": {}}
+    for name, fn, route, row, keys in EXP_KERNEL:
+        mod = mods[name]
+        with NetProbe(twin_calls=EXP_TWIN_CALLS) as probe:
+            nk.LAUNCHES = nk.CHEM_LAUNCHES = nk.FLAT_LAUNCHES = 0
+            nk.PERSISTENT_LAUNCHES = 0
+            out, split, steps = probe.call(
+                lambda: fn(mod, "cuda", False, False))
+            calls = (nk.LAUNCHES, nk.FLAT_LAUNCHES, nk.PERSISTENT_LAUNCHES)
+        routes = exp_route_names(probe)
+        min_calls = sum(-(-n // K) for _, _, n in probe.runs)
+        fired = sum(int((l.state["last_firing_time"] >= 0).sum())
+                    for net in probe.nets for l in net.lattices.values())
+        finite = exp_finite(probe)
+        say(f"[57 main path] {name}: {len(probe.nets)} networks, "
+            f"{len(routes)} runs, {steps} steps: routes "
+            f"{sorted(set(map(str, routes)))}, kernel calls {calls[0]} "
+            f"(flat {calls[1]}, persistent launches counted by the C entry "
+            f"{calls[2]}), the first {probe.twin_calls} against the twin: "
+            f"outputs not bit-equal {probe.twin_bits}; state finite "
+            f"{finite}, neurons fired {fired}; output keys "
+            f"{sorted(out)}; construction {split[0]:.3f} s, run "
+            f"{split[1]:.3f} s, analysis {split[2]:.3f} s")
+        check(all(r == route for r in routes), f"{name}: took {routes}")
+        check(calls[0] >= min_calls and calls[2] == calls[0]
+              and calls[1] == (calls[0] if row == "6b-flat" else 0),
+              f"{name}: a kernel call missed the persistent kernel")
+        check(probe.twin_calls == EXP_TWIN_CALLS and probe.twin_bits == [],
+              f"{name}: the kernel differs from its twin")
+        check(finite and fired > 0, f"{name}: non-finite state or no spike")
+        check(set(out) == keys, f"{name}: output keys {sorted(out)}")
+        launches[row][name] = calls[2]
+
+        card = cases[name]
+        with NetProbe(use_kernel=True) as cpu:
+            cpu_out, _, _ = cpu.call(lambda: fn(mod, "cpu", True, True))
+        hk, hc = exp_histories(card["probe"]), exp_histories(cpu)
+        dv = max(float(np.abs(a - b).max()) for a, b in zip(hk, hc))
+        lft = all(np.array_equal(a, b) for a, b in
+                  zip(exp_lfts(card["probe"]), exp_lfts(cpu)))
+        with NetProbe(use_kernel=False) as plain:
+            plain_out, _, _ = plain.call(lambda: fn(mod, "cuda", True, True))
+        hp = exp_histories(plain)
+        d = [np.abs(a - b).max(axis=1) for a, b in zip(hk, hp)]
+        parted = [int(np.argmax(x > DRIFT)) if (x > DRIFT).any() else None
+                  for x in d]
+        outside = sum(int((np.abs(a - b) > 2.0).any(axis=0).sum())
+                      for a, b in zip(hk, hp))
+        say(f"[57 kernel-vs-cpu] {name}: {card['steps']} steps, chances 0 "
+            f"or 1, against the CPU's twin route "
+            f"{sorted(set(map(str, exp_route_names(cpu))))}: max|dv| {dv:.4g}"
+            f" mV over {len(hk)} grid histories, firing times equal {lft}, "
+            f"outputs equal {cpu_out == card['out']}")
+        say(f"[57 kernel-vs-plain] {name}: the same run on the card's plain "
+            f"route (use_kernel=False, routes "
+            f"{sorted(set(map(str, exp_route_names(plain))))}): max|dv| "
+            f"{max(float(x.max()) for x in d):.4g} mV, first step past "
+            f"{DRIFT} mV per history {parted}, neurons ever outside 2 mV "
+            f"{outside}, state finite {exp_finite(plain)}, outputs equal "
+            f"{plain_out == card['out']}")
+        check(len(hk) == len(hc) == len(hp) > 0 and dv == 0.0 and lft
+              and cpu_out == card["out"],
+              f"{name}: the card's kernel route differs from the CPU's")
+        check(exp_route_names(plain) == [False] * len(plain.routes)
+              and exp_finite(plain), f"{name}: the plain route failed")
+        del cpu, plain
+    return launches
+
+
+def exp_plain_phase(mods, cases):
+    """58. Each plain pipeline's run (phase 56, its cut depth) against the
+    same run on the CPU: the output's keys the JAX script's, every state
+    finite, neurons fired, every grid history within 2 mV and every firing
+    time within 2 steps (the reference's criterion, `BASELINE.md`,
+    `gpu_accuracy.rs:35-37`; the Rate trains draw nothing)."""
+    for name, fn, _, _, keys in EXP_PLAIN:
+        card = cases[name]
+        with NetProbe() as cpu:
+            cpu_out, _, _ = cpu.call(lambda: fn(mods[name], "cpu", False,
+                                                False))
+        hk, hc = exp_histories(card["probe"]), exp_histories(cpu)
+        dv = max(float(np.abs(a - b).max()) for a, b in zip(hk, hc))
+        dl = max(int(np.abs(a - b).max(initial=0)) for a, b in
+                 zip(exp_lfts(card["probe"]), exp_lfts(cpu)))
+        fired = sum(int((a >= 0).sum()) for a in exp_lfts(card["probe"]))
+        finite = exp_finite(card["probe"])
+        say(f"[58 plain path] {name}: {len(card['probe'].nets)} networks, "
+            f"{card['steps']} steps on the card (route plain), state finite "
+            f"{finite}, neurons fired {fired}, output keys {sorted(card['out'])}"
+            f"; against the CPU: max|dv| {dv:.4g} mV over {len(hk)} grid "
+            f"histories, max |dlft| {dl} steps, outputs equal "
+            f"{cpu_out == card['out']}")
+        check(set(card["out"]) == keys, f"{name}: output keys")
+        check(finite and fired > 0, f"{name}: non-finite state or no spike")
+        check(len(hk) == len(hc) > 0 and dv <= 2.0 and dl <= 2,
+              f"{name}: card vs CPU outside 2 mV / 2 steps")
+
+
+def exp_times_phase(mods, cases, smi):
+    """59. Each pipeline's main run (for a kernel pipeline, phase 57's
+    again without the twin's calls; for a plain one, phase 56's): seconds
+    of construction, run and analysis, wall us/step of its runs; then its
+    last network run on for `EXP_PROFILE` steps: device us/step under
+    torch.profiler (on a kernel route with a warm-up cycle and retries
+    until every persistent launch has its record), the wall of the same
+    steps unprofiled, device / wall."""
+    K = 16
+    for name, fn, _, row, _ in EXP_KERNEL + EXP_PLAIN:
+        case = cases[name]
+        if row:
+            with NetProbe() as probe:
+                _, split, n_run = probe.call(
+                    lambda: fn(mods[name], "cuda", False, False))
+            case = dict(probe=probe, split=split, steps=n_run)
+        net = case["probe"].nets[-1]
+        net.use_kernel = None
+        c, r, a = case["split"]
+        steps = EXP_PROFILE[0] if row else EXP_PROFILE[1]
+        launches = -(-steps // K) if row else None
+        wall = run_net_synced(net, steps)
+        dev_us, top = profiled_us(lambda: run_net_synced(net, steps), steps,
+                                  n_top=3, launches=launches,
+                                  mine=("net_persistent",) if row else None)
+        wall_us = wall / steps * 1e6
+        say(f"[59 times] {name}: {c + r + a:.4f} s (construction {c:.4f} s, "
+            f"run {r:.4f} s = {r / case['steps'] * 1e6:.3f} us/step over "
+            f"{case['steps']} steps, analysis {a:.4f} s); {steps} more "
+            f"steps ({'route ' + str(net._last_run_fused)}): wall "
+            f"{wall_us:.3f} us/step, device {dev_us:.3f} us/step (profiled: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device / wall {dev_us / wall_us:.3f}; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -7982,17 +8508,20 @@ def main():
         f"{load_s:.2f} s, {os.path.basename(_build.library_path())}; "
         f"ptxas: {' / '.join(ptxas)}")
 
-    kernels = []
+    kernels, pipelines = [], None
     # the DSL family first: late in a long run the profiler keeps fewer
     # kernel records of every family (it once kept none of the DSL main
     # path's in eight tries)
     for phases in (dsl_phases, trig_phases, support_phases, trial_phases,
-                   stencil_phases, plasticity_phases,
+                   experiment_phases, stencil_phases, plasticity_phases,
                    network_phases, hh_phases, chem_phases, flat_phases,
                    reward_phases, env_phases, model_phases):
         t0 = time.perf_counter()
         out = phases(snt, smi)
-        kernels += out if isinstance(out, list) else [out]
+        if phases is experiment_phases:
+            pipelines = out
+        else:
+            kernels += out if isinstance(out, list) else [out]
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")
     # rows 1-3 also launch through the sharded composition (phase 51)
     t0 = time.perf_counter()
@@ -8005,6 +8534,13 @@ def main():
                 k["composition_launches"] = sharded[design]
                 k["composition"] = ("spiking_neural_networks_tpu/core/"
                                     "lattice.py:536-624 (sharded)")
+    # rows 6b and 6b-flat also launch through the science pipelines (57)
+    for row, entry_name in (("6b", "network_persistent"),
+                            ("6b-flat", "network_persistent (flat-mode arm)")):
+        entry = next(k for k in kernels if k["name"] == entry_name)
+        entry["pipeline_launches"] = pipelines[row]
+        entry["pipelines"] = ("spiking_neural_networks_tpu_torch/"
+                              "experiments/ (phase 57)")
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -119,3 +119,48 @@ def test_chip_smoke_fails_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+EXPERIMENTS = (
+    "lsm_setup", "schizophrenia_simulation", "dopamine_liquid_interaction",
+    "bayesian_inference_pipeline", "attractor_manifold",
+    "grid_cell_electrochemical", "grid_cell_model", "tolman_eichenbaum",
+    "heuristic_parameter_search", "isolated_liquid_pipeline",
+    "hd_electrochemical_model_dopaminergic", "hd_electrochemical_model",
+    "hd_electrochemical_model_no_turning", "hd_with_basin", "hd_attractor")
+
+
+def test_experiments_import_without_jax_or_the_scripts():
+    """The science pipelines import with ``jax``, the JAX package and every
+    script of ``experiments/`` blocked, and those that use lixirnet use the
+    port's."""
+    blocked = ["jax", "spiking_neural_networks_tpu", "pipeline_setup"] \
+        + list(EXPERIMENTS)
+    code = ("import sys, importlib\n"
+            f"for m in {blocked!r}:\n"
+            "    sys.modules[m] = None\n"
+            "import spiking_neural_networks_tpu_torch.lixirnet as ln\n"
+            f"for name in {EXPERIMENTS!r}:\n"
+            "    mod = importlib.import_module("
+            "'spiking_neural_networks_tpu_torch.experiments.' + name)\n"
+            "    assert getattr(mod, 'ln', ln) is ln, name\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
+            " and sys.modules[m] is not None)\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_experiments_import_their_siblings_relatively():
+    """No pipeline reaches a script of ``experiments/`` by its bare name
+    (``from pipeline_setup import``), and each runs on ``"cuda"`` unless
+    asked for another device."""
+    folder = os.path.join(PKG, "experiments")
+    bare = re.compile(r"^\s*(from|import)\s+(" + "|".join(
+        ("pipeline_setup",) + EXPERIMENTS) + r")\b", re.M)
+    for name in EXPERIMENTS:
+        with open(os.path.join(folder, name + ".py")) as f:
+            src = f.read()
+        assert not bare.search(src), name
+        assert 'device="cuda"' in src, name
