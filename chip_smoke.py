@@ -152,7 +152,7 @@ Phases, one line each:
    steps with reward 0.5 and 256 without (17 launches a call, counted by
    the C entry and in the profiler's records); STDP on ALIF at 512^2 (the
    per-step design, 32 a call); both `bench.py` configurations at 64^2;
-9. 64^2 for 1000 steps, STDP and R-STDP: the kernel route on the card
+9. 64^2 for 500 steps, STDP and R-STDP: the kernel route on the card
    against the same route on the CPU (2 mV, 2 steps) and against the plain
    route on the card (parting only at a threshold tie);
 10. steps/s and neuron-updates/s of the kernel and plain routes, STDP and
@@ -174,7 +174,7 @@ Phases, one line each:
    history, the 512^2 / 256^2 network for 2048 steps (launch counters,
    every call through the persistent kernel, finite v, neurons fired,
    weights moved, the kernel route);
-13. the config-5 topology with a Rate train at 64^2 / 32^2 for 1000 steps:
+13. the config-5 topology with a Rate train at 64^2 / 32^2 for 500 steps:
    the kernel route on the card against the same route on the CPU (2 mV,
    2 steps) and against the plain route on the card (parting only at a
    threshold tie);
@@ -194,7 +194,7 @@ Phases, one line each:
    fires once, all in one step, so no weight moves), 512^2 for 512 steps
    in the firing form (route "hh", kernel calls, finite state, neurons
    fired and weights moved);
-17. 64^2 for 1000 steps in the firing form: the HH kernel route on the card
+17. 64^2 for 500 steps in the firing form: the HH kernel route on the card
    against the same route on the CPU (2 mV, 2 steps) and against the
    plain route on the card;
 18. steps/s and neuron-updates/s of the HH kernel and plain routes at 128^2
@@ -211,7 +211,7 @@ Phases, one line each:
    atol 1e-5 (route ("chemical", False), kernel calls, finite state,
    neurons fired, transmitter received); per-step times and the bound at
    512^2;
-20. the dopamine form with a Rate train at 64^2 for 1000 steps: the kernel
+20. the dopamine form with a Rate train at 64^2 for 500 steps: the kernel
    route on the card against the same route on the CPU (2 mV, 2 steps);
 21. steps/s, neuron-updates/s, device time per kernel and device / wall of
    the chemical kernel and plain routes at 64^2 and 512^2;
@@ -250,7 +250,7 @@ Phases, one line each:
    (its mod lattice streamed, the other members resident) both designs
    timed in turns, the bound and the twin;
 27. 32^2 with a Rate train and the reward lattice firing from the start,
-   1000 steps at reward 0.005: the kernel route on the card against the
+   250 steps at reward 0.005: the kernel route on the card against the
    same route on the CPU (bit-equal), then against the plain route on the
    card (the tie rule); the flat COO runner (a `LatticeNetwork` subclass
    with a connecting-graph history) on the card against the CPU (the tie
@@ -280,7 +280,7 @@ Phases, one line each:
    history
    (tier (b)) and a callback that reads a value on the host (tier (b))
    against tier (a): bit-equal;
-31. the loop at 64^2 over 1000 steps: tier (a) on the card against the
+31. the loop at 64^2 over 512 steps: tier (a) on the card against the
    kernel tier on the CPU (bit-equal), and the kernel tier against the
    plain route on the card, at a tenth of the reward and at the bench's,
    under the tie rule while the weights stay within W_TIE, then max |dv|
@@ -303,7 +303,7 @@ Phases, one line each:
    kernel calls, the launches the C entry counted, finite state, neurons
    fired); ``examples/bcm.py``'s network over 2000 steps on its plain
    route (the flat COO runner with BCM), card vs CPU;
-35. Morris-Lecar, DopaIzhikevich and AdEx at 128^2 for 1000 steps: the
+35. Morris-Lecar, DopaIzhikevich and AdEx at 128^2 for 500 steps: the
    kernel route on the card against the same route on the CPU (2 mV, 2
    steps) and against the plain route on the card (a threshold tie, or
    for Morris-Lecar a peak on another step);
@@ -426,15 +426,40 @@ Phases, one line each:
 58. each plain pipeline (the head-direction rings, the Tolman-Eichenbaum
    walk) against the same run on the CPU within 2 mV and 2 steps;
 59. each pipeline's seconds of construction, run and analysis, wall and
-   profiled device us/step, device / wall.
+   profiled device us/step, device / wall;
+60. the liquid pipelines of ``spiking_neural_networks_tpu_torch/
+   experiments/`` (``liquid_state_machine``, ``liquid_manifold_generation``,
+   ``training_liquid_pipeline``, ``liquid_manifold_digits``) and the 16
+   examples of ``spiking_neural_networks_tpu_torch/examples/``, each
+   built on the card and run at its comparison depth (chances forced to 0
+   or 1 where it draws): every run's route held to the one both gates
+   give on the CPU;
+61. each kernel path (the liquids; ``lattice``, ``eeg_psd``,
+   ``lattice_network``, ``synaptic_pruning``, ``interacting_pools``,
+   ``agent_environment``, ``sharded_lattice``) at its own size: launches
+   of rows 2, 6a, 6b, 6b-flat and 6d counted by the C entries, the first
+   two kernel calls (the closed loop: two graph replays) bit-equal to
+   the twin, finite, firing; its comparison run on the CPU's twin route
+   bit for bit (an average or EEG history, a sum over the lattice, within
+   1e-6 of its scale), and on the card's plain route under the tie rule;
+62. each plain path (``rstdp_lattice``, ``lsm_architecture``,
+   ``pipelined_network``, ``stdp``, ``bcm``, ``raster``,
+   ``hodgkin_huxley``, ``morris_lecar``, ``hopfield``): plain, finite,
+   and its comparison run on the card against the CPU within 2 mV / 2
+   steps;
+63. each entry point's seconds of construction, run and analysis, wall
+   and profiled device us/step, device / wall.
 
 The kernels line marks rows 1-3 (the stencil kernel's three designs)
 with the launches the sharded composition made of each in phase 51
-(``composition_launches``), and rows 6b and 6b-flat with the persistent
-launches of each science pipeline in phase 57 (``pipeline_launches``).
+(``composition_launches``), rows 6b and 6b-flat with the persistent
+launches of each science pipeline in phase 57 (``pipeline_launches``),
+and rows 2, 6a, 6b, 6b-flat and 6d with the launches of the liquids and
+the examples in phase 61 (``entry_launches``).
 
 The DSL family (phases 37-42), the support modules (45-50), the trial
-(43-44) and the science pipelines (56-59) run first: late in a long run the profiler keeps fewer kernel
+(43-44), the science pipelines (56-59) and the entry points (60-63) run
+first: late in a long run the profiler keeps fewer kernel
 records of every family, and a counted profile of the DSL main path once
 lost all in eight tries (a library loaded late is not the cause:
 ``tools/profiler_records.py``).  The `parallel` phases (51-55) run last:
@@ -450,6 +475,7 @@ device the script exits with an error before it prints any result.
 """
 
 import ctypes
+import functools
 import json
 import math
 import os
@@ -474,6 +500,7 @@ BIG, BIG_STEPS = (2048, 2048), 256
 TILED_MAINS = ((1024, 1024), BIG, (4096, 4096))
 HETERO_STEPS = 64
 CMP, CMP_STEPS = (128, 128), 1000
+PLAIN_TIME_STEPS = 512      # of the plain route's timed runs at 512^2
 CASES = [((64, 64), 1, False, True), ((64, 64), 16, True, True),
          ((130, 100), 16, True, False), ((256, 256), 16, True, False),
          (MAIN, 1, False, True), (MAIN, 16, False, True),
@@ -505,7 +532,7 @@ REPLACES = {"persistent": "spiking_neural_networks_tpu/ops/"
                         "pallas_stencil.py:94"}
 # Plasticity phases.  PCASES are ((rows, cols), K, kind, model,
 # with_reward, uniform params, emit).
-SMALL, PCMP_STEPS = (64, 64), 1000
+SMALL, PCMP_STEPS = (64, 64), 500
 PCASES = ([((64, 64), k, kind, model, rew and kind != "plastic", True, False)
            for k, rew in ((16, True), (7, False))
            for kind in ("plastic", "mod", "plain")
@@ -550,7 +577,7 @@ PROFILE_STEPS = 256
 # Network phases.  The network builders take (snt, rows, cols, use_kernel,
 # device, seed) and set up the network before its first step.
 NSMALL, NBIG = (64, 64), (512, 512)
-CFG2_STEPS, CFG5_STEPS, NBIG_STEPS, NCMP_STEPS = 5000, 15000, 2048, 1000
+CFG2_STEPS, CFG5_STEPS, NBIG_STEPS, NCMP_STEPS = 5000, 15000, 2048, 500
 # the persistent kernel's streamed form: config 5's topology at 1024^2 /
 # 512^2 (its excitatory stencil, 63 MB, does not fit the blocks' shared
 # memory), a few calls along a run
@@ -564,10 +591,12 @@ NET_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1177"
 HH_KINDS = [(nt, rec) for nt in ("destexhe", "approximate")
             for rec in ("destexhe", "approximate")]
 HMAIN, HBIG = (128, 128), (512, 512)
-HMAIN_STEPS, HBIG_STEPS, HCMP_STEPS, HCMP_EVERY = 2000, 512, 1000, 8
+HMAIN_STEPS, HBIG_STEPS, HCMP_STEPS, HCMP_EVERY = 2000, 512, 500, 8
 # the steps of a 128^2 main path held call by call against the twin: both
 # forms fire within them (near steps 50-100 and 580)
-HTWIN_STEPS = 768
+# the main path's calls held against the twin: the bench.py form (it fires
+# once, every neuron in one step, before step 768) and the firing form
+HTWIN_STEPS = {False: 768, True: 256}
 HCASES = ([((64, 64), k, nt, rec, el, pl, False) for k in (16, 7)
            for nt, rec in HH_KINDS for el in (True, False)
            for pl in (True, False)]
@@ -594,7 +623,7 @@ HH_DRIFT = 5e-2
 # (its lattice 0 first fires near step 1100, lattice 1 not within 2048
 # steps), its dopamine form at 64^2, and the card-vs-CPU run at 64^2.
 CMAIN, CBIG = (64, 64), (512, 512)
-CMAIN_STEPS, CBIG_STEPS, CDOPA_STEPS, CCMP_STEPS = 2048, 1536, 1024, 1000
+CMAIN_STEPS, CBIG_STEPS, CDOPA_STEPS, CCMP_STEPS = 2048, 1536, 1024, 500
 # of each chemical main path, held call by call to the twin: the 64^2
 # bench.py form past lattice 0's first firing; the dopamine form (which
 # fires from the start) and the 512^2 form over their first 256 steps
@@ -624,7 +653,7 @@ RTWIN_STEPS, RTWIN_MAX = 256, 128 * 128
 # at most this many steps past a main path for its reward lattice to fire
 RFIRE_MAX = 4096
 RSHAPES = ((8, 9), (64, 64), (33, 70), (130, 100))
-RCMP, RCMP_STEPS, RFLAT_STEPS = (32, 32), 1000, 500
+RCMP, RCMP_STEPS, RFLAT_STEPS = (32, 32), 250, 500
 RTIMES = (((32, 32), 1024), ((128, 128), 1024), ((512, 512), 512))
 REWARD_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:1183"
 # Closed-loop phases: bench.py's closed loop (`bench.py:387-444`) at its own
@@ -641,15 +670,15 @@ ENV_KINDS = (("mod", True), ("plain", True), ("plain", False),
              ("plastic", False))
 # EPROF calls under torch.profiler: a single profiled call can lose its
 # first kernels' records
-ESHAPES, EBIG, ETIME_REPS, EPROF = ((64, 64), (130, 100)), (512, 512), 8, 10
+ESHAPES, EBIG, ETIME_REPS, EPROF = ((64, 64), (130, 100)), (512, 512), 4, 10
 # phase 31 runs in calls of ECMP_CHUNK steps and holds the kernel and plain
 # routes to the tie rule over the steps before either route's weights pass
 # W_TIE: R-STDP at the bench's reward grows them by ~0.12 a step, and the
 # gap input, scaled by the weights, carries the two associations' rounding
 # apart by more than DRIFT without a tie once they pass ~50
-ECMP, ECMP_STEPS, ECMP_CHUNK, W_TIE = (64, 64), 1000, 8, 32.0
-ETIMES = (((10, 10), 1024), ((128, 128), 1024), ((512, 512), 1024))
-EPLAIN_STEPS, EHOST_STEPS, ERNG_STEPS = 256, 256, 320
+ECMP, ECMP_STEPS, ECMP_CHUNK, W_TIE = (64, 64), 512, 8, 32.0
+ETIMES = (((10, 10), 512), ((128, 128), 512), ((512, 512), 512))
+EPLAIN_STEPS, EHOST_STEPS, ERNG_STEPS = 128, 256, 320
 ENV_REPLACES = "spiking_neural_networks_tpu/ops/pallas_reward.py:338"
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 op/s,
 # FP64 op/s outside the tensor cores
@@ -697,7 +726,7 @@ MODEL_OVERRIDES = {"LeakyIntegrateAndFire": {"e_l": -40.0},
 # models at (shape, kernel-route steps, plain-route steps)
 MSHAPES, MBIG = ((64, 64), (130, 100), (512, 512)), (2048, 2048)
 MMAIN, MMAIN_STEPS, MIF_STEPS, MHELD = (512, 512), 2048, 512, 4
-MCMP, MCMP_STEPS = (128, 128), 1000
+MCMP, MCMP_STEPS = (128, 128), 500
 MCMP_MODELS = ("MorrisLecar", "DopaIzhikevich",
                "AdaptiveExpLeakyIntegrateAndFire")
 MTIME_MODELS = ("MorrisLecar", "LeakyIntegrateAndFire")
@@ -1521,7 +1550,7 @@ def stencil_bytes(sk, design, plan, shape, n_off, k):
 
 def stencil_times_phase(snt, sk, smi):
     """6. Wall time per step of the main paths (median of 5 after a
-    warm-up; the plain route at 512^2); the designs in turns on one
+    warm-up; the plain route at 512^2 over `PLAIN_TIME_STEPS`); the designs in turns on one
     `StencilRun` each at `TURN_SHAPES_STENCIL` (uniform parameters, radius
     2: wall, events, device time under torch.profiler with every kernel
     record counted, the launches the C entry counted, modelled bytes);
@@ -1533,19 +1562,20 @@ def stencil_times_phase(snt, sk, smi):
         return lat
 
     K = sk.STEPS_PER_LAUNCH
-    kern, plain = warm(MAIN, None, MAIN_STEPS), warm(MAIN, False, MAIN_STEPS)
+    kern = warm(MAIN, None, MAIN_STEPS)
+    plain = warm(MAIN, False, PLAIN_TIME_STEPS)
     tk, tp = [], []
     for rep in range(5):                             # in turns
-        order = [(kern, tk), (plain, tp)] if rep % 2 == 0 \
-            else [(plain, tp), (kern, tk)]
-        for lat, out in order:
-            out.append(run_synced(lat, MAIN_STEPS))
+        order = [(kern, tk, MAIN_STEPS), (plain, tp, PLAIN_TIME_STEPS)]
+        for lat, out, n in order if rep % 2 == 0 else order[::-1]:
+            out.append(run_synced(lat, n))
     check(kern._last_run_fused == ("kernel", False)
           and plain._last_run_fused is False, "timed the wrong routes")
     walls = {MAIN: float(np.median(tk)) / MAIN_STEPS * 1e6}
     say(f"[6 times] {MAIN[0]}x{MAIN[1]} {MAIN_STEPS} steps, median of 5: "
         f"kernel route {rate(MAIN, float(np.median(tk)), MAIN_STEPS)}; "
-        f"plain route {rate(MAIN, float(np.median(tp)), MAIN_STEPS)}; card "
+        f"plain route {rate(MAIN, float(np.median(tp)), PLAIN_TIME_STEPS)} "
+        f"over {PLAIN_TIME_STEPS} steps; card "
         f"{smi}")
     del kern, plain
     for shape in TILED_MAINS:
@@ -2049,7 +2079,7 @@ def plasticity_phases(snt, smi):
         check(lat._last_run_fused in (("stdp", False), True)
               and bool(torch.isfinite(v).all()), f"bad bench {label} run")
 
-    # 9. 64^2 for 1000 steps: the kernel route on the card against the
+    # 9. 64^2 for 500 steps: the kernel route on the card against the
     # same route on the CPU, and against the plain route on the card.  The
     # reward lattice keeps no history on the kernel route, so its runs are
     # 1000 one-step calls with v read after each.
@@ -2796,7 +2826,7 @@ def network_main_phase(snt, nk):
 
 
 def network_cmp_phase(snt):
-    """13. 64^2 / 32^2, Rate train, 1000 steps: the kernel route on the
+    """13. 64^2 / 32^2, Rate train, 500 steps: the kernel route on the
     card against the same route on the CPU and against the plain route."""
     runs = {}
     for key, device, uk in (("kernel", "cuda", None), ("cpu", "cpu", True),
@@ -3127,7 +3157,7 @@ def hh_twin_phase(snt, hk, smi):
     for firing in (True, False):
         lat = hh_lattice(snt, *HMAIN, firing=firing)
         bad, err, fired, calls_fired = 0, 0.0, 0, 0
-        for _ in range(HTWIN_STEPS // hk.STEPS_PER_LAUNCH):
+        for _ in range(HTWIN_STEPS[firing] // hk.STEPS_PER_LAUNCH):
             g, clock = lat.graph, lat.internal_clock
             want = hk.hh_steps_reference(
                 lat.state, g.weights, g.mask, g.in_deg, g.offsets, clock,
@@ -3143,7 +3173,8 @@ def hh_twin_phase(snt, hk, smi):
             fired, calls_fired = fired + n, calls_fired + (n > 0)
         say(f"[15 kernel-vs-twin] main path {HMAIN[0]}x{HMAIN[1]} "
             f"{'firing' if firing else 'bench.py'} form, every call of the "
-            f"first {HTWIN_STEPS} steps: integer and flag mismatches {bad}, "
+            f"first {HTWIN_STEPS[firing]} steps: integer and flag mismatches "
+            f"{bad}, "
             f"max float error {err:.3g}, calls with spikes {calls_fired}, "
             f"neurons fired {fired}")
         check(bad == 0, "firing times, spikes or was_increasing differ on "
@@ -3206,7 +3237,7 @@ def hh_main_phase(snt, hk):
 
 
 def hh_cmp_phase(snt):
-    """17. 64^2, 1000 steps, firing form, v and firing times read every
+    """17. 64^2, 500 steps, firing form, v and firing times read every
     `HCMP_EVERY` steps: the HH kernel route on the card against the same
     route on the CPU, and against the plain route on the card."""
     runs = {}
@@ -3764,7 +3795,7 @@ def chem_twin_phase(snt, nk, smi):
 
 
 def chem_cmp_phase(snt):
-    """20. The dopamine form with a Rate train at 64^2, 1000 steps with a
+    """20. The dopamine form with a Rate train at 64^2, 500 steps with a
     grid history on every lattice: the kernel route on the card against
     the same route on the CPU."""
     runs = {}
@@ -4845,7 +4876,7 @@ def reward_main_phase(snt, nk, smi):
 
 def reward_cmp_phase(snt):
     """27. 32^2, a Rate train, the reward lattice firing from the start
-    (v0 uniform), 1000 steps at `CMP_REWARD`: the kernel route on the card
+    (v0 uniform), 250 steps at `CMP_REWARD`: the kernel route on the card
     against the same route on the CPU (bit-equal expected), then against
     the plain route on the card, step by step (the tie rule); then the
     flat COO runner (a `LatticeNetwork` subclass with a connecting-graph
@@ -5601,7 +5632,7 @@ def env_main_phase(snt, rk, smi):
 
 
 def env_cmp_phase(snt):
-    """31. The bench loop at 64^2 over 1000 steps: tier (a) on the card
+    """31. The bench loop at 64^2 over 512 steps: tier (a) on the card
     against the kernel tier on the CPU (the twin; bit-equal expected),
     then the kernel route (tier (b), a grid history for per-step v)
     against the plain route on the card, in calls of ECMP_CHUNK steps, at
@@ -7595,10 +7626,34 @@ def fitting_phase(snt, smi):
         f"CPU scores for one generation | {smi}")
 
 
+def fresh_trace(folder):
+    """`utils.profiling.trace` around `run_lattice(TRACE_STEPS)` of the
+    main lattice (after one untraced run) in a new Python process on the
+    card; returns the Chrome trace's path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys\n"
+            f"sys.path.insert(0, {here!r})\n"
+            "import chip_smoke as cs\n"
+            "import spiking_neural_networks_tpu_torch as snt\n"
+            "from spiking_neural_networks_tpu_torch.utils.profiling import "
+            "trace\n"
+            "lat = cs.main_lattice(snt, *cs.MAIN)\n"
+            "lat.run_lattice(cs.TRACE_STEPS)\n"
+            f"with trace({folder!r}) as tr:\n"
+            "    lat.run_lattice(cs.TRACE_STEPS)\n"
+            "print(tr.path)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"the traced process failed: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout.strip().splitlines()[-1]
+
+
 def profiling_phase(snt, smi):
     """50. `StepTimer` on the 512^2 main path, and `trace` around one
-    64-step call: the Chrome trace holds the persistent kernel's
-    records."""
+    64-step call: the Chrome trace holds the persistent kernel's records
+    (late in a long process the profiler can keep no kernel record at all,
+    so after two such traces the next are taken in a fresh process)."""
     from spiking_neural_networks_tpu_torch.utils.profiling import (StepTimer,
                                                                    trace)
     import tempfile
@@ -7609,21 +7664,26 @@ def profiling_phase(snt, smi):
         f"{r['neuron_updates_per_sec']:.4e} neuron-updates/s, "
         f"{r['step_time_us']:.3f} us/step | {smi}")
     with tempfile.TemporaryDirectory() as folder:
+        where = "this process"
         for attempt in range(PROF_TRIES):
-            with trace(folder) as tr:
-                lat.run_lattice(TRACE_STEPS)
-            with open(tr.path) as f:
+            if attempt < 2:
+                with trace(folder) as tr:
+                    lat.run_lattice(TRACE_STEPS)
+                path = tr.path
+            else:
+                path, where = fresh_trace(folder), "a fresh process"
+            with open(path) as f:
                 events = json.load(f)["traceEvents"]
             recs = sum(1 for e in events if e.get("cat") == "kernel"
                        and "model_persistent_kernel" in e.get("name", ""))
             if recs:
                 break
             say(f"[profiler] the trace kept no kernel record; tracing again")
-        size = os.path.getsize(tr.path)
+        size = os.path.getsize(path)
     check(recs >= 1, "the trace holds no model_persistent_kernel record")
-    say(f"[50 profiling] trace() around run_lattice({TRACE_STEPS}): "
-        f"{recs} model_persistent_kernel records, {len(events)} events, "
-        f"{size} bytes")
+    say(f"[50 profiling] trace() around run_lattice({TRACE_STEPS}) in "
+        f"{where}: {recs} model_persistent_kernel records, {len(events)} "
+        f"events, {size} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -8017,13 +8077,17 @@ class NetProbe:
     def call(self, fn):
         """``fn()`` with its seconds of construction (up to the first run),
         run (the runs between their synchronisations) and analysis (the
-        rest); returns (output, split, steps run)."""
+        rest); returns (output, split, steps run).  An entry point with no
+        run (a model's step loop, the discrete attractor) counts whole as
+        run."""
         self.runs.clear()
         t0 = time.perf_counter()
         out = fn()
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         t3 = time.perf_counter()
+        if not self.runs:
+            return out, (0.0, t3 - t0, 0.0), 0
         run = sum(b - a for a, b, _ in self.runs)
         built = self.runs[0][0] - t0
         return out, (built, run, t3 - t0 - built - run), \
@@ -8451,6 +8515,746 @@ def exp_times_phase(mods, cases, smi):
             + f"), device / wall {dev_us / wall_us:.3f}; card {smi}")
 
 
+# ---------------------------------------------------------------------------
+# The last entry points: the liquid pipelines of `experiments/` and the
+# examples, through lixirnet and the core: phases 60-63
+# ---------------------------------------------------------------------------
+
+ENTRY_TWIN_CALLS = 2    # of each kernel path's main run, held to the twin
+# the steps of a comparison run (the CPU's twin route, the card's plain
+# route) where an entry point takes no depth of its own: every
+# `run_lattice` / `run_lattices` call is cut to it
+ENTRY_CAP = 500
+# further steps profiled, kernel / plain route: few records, since the
+# profiler loses more records in the phases after a family that profiles
+# much (the stencil main path's count check follows this family)
+ENTRY_PROFILE = (64, 2)
+# rows whose output is a mean over a lattice taken in the device's order
+# (torch's CUDA mean multiplies by 1/N where the CPU's divides): the
+# average-voltage traces, the closed loop's rate trajectory
+REDUCED_OUTPUTS = {10, 12}
+
+
+def reduced_gap(card, cpu):
+    """The largest difference of two outputs of `REDUCED_OUTPUTS` (dicts
+    of arrays or lists of floats), over the CPU's scale."""
+    pairs = [(card[k], cpu[k]) for k in cpu] if isinstance(cpu, dict) \
+        else [(card, cpu)]
+    return max(float(np.abs(np.asarray(a, np.float64) - np.asarray(b)).max()
+                     / max(1.0, float(np.abs(np.asarray(b)).max())))
+               for a, b in pairs)
+
+
+def entry_tag(route):
+    """A route of the port by kernel family: ``"stencil"``, ``"stdp"``,
+    ``"model"``, ``"hh"``, ``"reward"`` (an R-STDP lattice or network on
+    its kernel), a network's mode (``"network"``, ``"flat"``, ...), the
+    closed loop's tiers ``"6d-a"`` / ``"6d-b"``, or False (plain)."""
+    if route is True:
+        return "reward"
+    if not route:
+        return False
+    head = route[0] if isinstance(route, tuple) else route
+    if head == "env":
+        return "6d-a" if route[2] else "6d-b" if route[1] else False
+    return {"kernel": "stencil"}.get(head, head)
+
+
+def force_chances(net):
+    """Every spike train's chance of firing of ``net`` raised to 1 where it
+    is above 0, so that the draws fire alike on every device."""
+    for st in net.spike_train_lattices.values():
+        c = st.state.get("chance_of_firing")
+        if c is not None:
+            st.state = {**st.state,
+                        "chance_of_firing": (c > 0).to(c.dtype)}
+
+
+def tree_bits(got, want):
+    """Elements of two nested outputs (tuples, lists, dicts, tensors,
+    None) whose bits differ; a shape or structure mismatch counts -1."""
+    if isinstance(want, torch.Tensor):
+        if not isinstance(got, torch.Tensor) or got.shape != want.shape:
+            return -1
+        return bits_differ(got, want.to(got.device))
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return -1
+        return sum(tree_bits(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return -1
+        return sum(tree_bits(g, w) for g, w in zip(got, want))
+    return 0 if (got is None) == (want is None) else -1
+
+
+def stencil_inputs(run):
+    """The (v, w, lft) a `StencilRun`'s next call reads."""
+    s = run.sets
+    if s.cur is None:
+        planes, lft = s.state
+        return planes["v"], planes["w"], lft
+    return s.bufs["v"][s.cur], s.bufs["w"][s.cur], s.lft_buf[s.cur]
+
+
+class EntryProbe(NetProbe):
+    """`NetProbe`, and around the entries a script reaches without a
+    network too: `Lattice.run_lattice`, `RewardModulatedLattice.
+    run_lattice_with_reward`, `RewardModulatedLatticeNetwork.
+    run_lattices_with_reward` (a host-loop `Environment` step) and
+    `JitEnvironment.run_with_reward`: each keeps its object, sets
+    ``use_kernel``, is timed between two synchronisations and records its
+    route (`entry_tag`); ``cap`` cuts every lattice or network run to that
+    many steps; ``force`` raises every train's chance to 0 or 1 before a
+    run (`force_chances`).  The first ``twin_calls`` calls of the stencil
+    kernel (`StencilRun.steps`) and of the plasticity kernel
+    (`lattice_plasticity_steps`) on the card are held against their twins
+    on copies of the same inputs.  ``more(n)`` runs ``n`` further steps of
+    the last object run."""
+
+    def __init__(self, use_kernel=None, twin_calls=0, cap=None, force=False):
+        super().__init__(use_kernel, twin_calls)
+        self.cap, self.force = cap, force
+        self.objs, self.more = [], None
+        self.lat_twin_left = twin_calls
+        self.lat_twin_calls, self.lat_twin_bits = 0, 0
+
+    def __enter__(self):
+        super().__enter__()
+        from spiking_neural_networks_tpu_torch.core import (
+            lattice as cl, reward as cr, reward_network as crn)
+        from spiking_neural_networks_tpu_torch import interactable as ci
+        from spiking_neural_networks_tpu_torch.ops import (
+            reward_kernels as rk, stencil_kernels as sk)
+        self.targets = [
+            (cl.Lattice, "run_lattice"),
+            (cr.RewardModulatedLattice, "run_lattice_with_reward"),
+            (crn.RewardModulatedLatticeNetwork, "run_lattices_with_reward"),
+            (ci.JitEnvironment, "run_with_reward"),
+            (sk.StencilRun, "steps"), (rk, "lattice_plasticity_steps"),
+            (self.cn.LatticeNetwork, "run_lattices"),
+            (self.cn.LatticeNetwork, "run_lattices_pipelined")]
+        self.saved_entries = [getattr(o, n) for o, n in self.targets]
+        (lat_run, rew_run, rnet_run, env_run, st_steps, lp_steps,
+         net_run, pipe_run) = self.saved_entries
+        probe = self
+
+        def timed(obj, fn, n, route):
+            if not any(obj is x for x in probe.objs):
+                probe.objs.append(obj)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            probe.runs.append((t0, time.perf_counter(), int(n)))
+            probe.routes.append(route())
+            return out
+
+        def cut(n):
+            return n if probe.cap is None else min(int(n), probe.cap)
+
+        def run_lattice(lat, n):
+            lat.use_kernel = probe.use_kernel
+            n = cut(n)
+            probe.more = lambda k: lat_run(lat, k)
+            return timed(lat, lambda: lat_run(lat, n), n,
+                         lambda: lat._last_run_fused)
+
+        def run_reward(lat, reward, n=1):
+            lat.use_kernel = probe.use_kernel
+            probe.more = lambda k: rew_run(
+                lat, np.resize(np.asarray(reward, np.float32), k), k)
+            return timed(lat, lambda: rew_run(lat, reward, n), n,
+                         lambda: "reward" if lat._last_run_fused else False)
+
+        def run_reward_net(net, reward, n=1):
+            net.use_kernel = probe.use_kernel
+            if probe.force:
+                force_chances(net)
+            probe.more = lambda k: rnet_run(net, reward, k)
+            return timed(net, lambda: rnet_run(net, reward, n), n,
+                         lambda: net._last_run_fused)
+
+        def run_env(env, n):
+            env.agent.use_kernel = probe.use_kernel
+            probe.more = lambda k: env_run(env, k)
+            return timed(env, lambda: env_run(env, n), n,
+                         lambda: ("env", env.last_build_fused,
+                                  env.last_build_env_fused))
+
+        def run_net(net, n):
+            if probe.force:
+                force_chances(net)
+            probe.more = lambda k: net_run(net, k)
+            return net_run(net, cut(n))
+
+        def run_pipelined(net, n, *a, **k):
+            probe.more = lambda j: pipe_run(net, j, *a, **k)
+            n = cut(n)
+            return timed(net, lambda: pipe_run(net, n, *a, **k), n,
+                         lambda: False)
+
+        def stencil_steps(run, clock0, n, emit=False):
+            if probe.lat_twin_left <= 0 or run.sets.lib is None:
+                return st_steps(run, clock0, n, emit)
+            v, w, lft = (x.clone() for x in stencil_inputs(run))
+            want = sk.izhikevich_stencil_steps_reference(
+                v, w, lft, run.sets.weights, run.sets.in_deg, run.params,
+                run.sets.offsets, clock0, n, emit)
+            got = st_steps(run, clock0, n, emit)
+            probe.lat_twin_bits += abs(tree_bits(got, want))
+            probe.lat_twin_calls += 1
+            probe.lat_twin_left -= 1
+            return got
+
+        def plasticity_steps(spec, *a, **k):
+            if probe.lat_twin_left <= 0 or not a[0].is_cuda:
+                return lp_steps(spec, *a, **k)
+            ref = dict(k)
+            ref.pop("_per_step", None), ref.pop("_own", None)
+            want = rk.lattice_plasticity_steps_reference(
+                spec, *cloned(a[:-2]), a[-2], a[-1], **ref)
+            got = lp_steps(spec, *a, **k)
+            probe.lat_twin_bits += abs(tree_bits(got, want))
+            probe.lat_twin_calls += 1
+            probe.lat_twin_left -= 1
+            return got
+
+        for (o, n), fn in zip(self.targets, (
+                run_lattice, run_reward, run_reward_net, run_env,
+                stencil_steps, plasticity_steps, run_net, run_pipelined)):
+            setattr(o, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n), fn in zip(self.targets, self.saved_entries):
+            setattr(o, n, fn)
+        super().__exit__(*exc)
+
+    def tags(self):
+        return [entry_tag(r) for r in self.routes]
+
+    def histories(self, reduced=False):
+        """Every voltage history of the lattices and networks run, in
+        order: (T, N) float64 arrays; with ``reduced``, only the average
+        and EEG histories (sums over a lattice, (T, 1)), else only the
+        others."""
+        out = []
+        for obj in self.objs + self.nets:
+            lats = getattr(obj, "lattices", None)
+            lats = [lats[i] for i in sorted(lats)] if lats is not None \
+                else [getattr(obj, "agent", obj)]
+            for lat in lats:
+                h = getattr(lat, "grid_history", None)
+                if getattr(lat, "update_grid_history", False) and h.history \
+                        and (h.kind in ("average", "eeg")) == reduced:
+                    a = np.asarray(np.stack([np.asarray(x) for x in
+                                             h.history]), np.float64)
+                    out.append(a.reshape(len(a), -1))
+        return out
+
+    def states(self):
+        """Every lattice's last firing times and v, in order."""
+        out = []
+        for obj in self.objs + self.nets:
+            lats = getattr(obj, "lattices", None)
+            lats = [lats[i] for i in sorted(lats)] if lats is not None \
+                else [getattr(obj, "agent", obj)]
+            for lat in lats:
+                out.append((lat.state["last_firing_time"].cpu().numpy()
+                            .astype(np.int64),
+                            lat.state["v"].cpu().numpy().astype(np.float64)))
+        return out
+
+    def finite(self):
+        tensors = []
+        for obj in self.objs + self.nets:
+            lats = getattr(obj, "lattices", None)
+            lats = list(lats.values()) + list(
+                obj.spike_train_lattices.values()) if lats is not None \
+                else [getattr(obj, "agent", obj)]
+            tensors += [x for lat in lats for x in lat.state.values()
+                        if x.is_floating_point()]
+        return all(bool(torch.isfinite(x).all()) for x in tensors)
+
+    def fired(self):
+        return sum(int((lft >= 0).sum()) for lft, _ in self.states())
+
+
+def entry_toml(folder, name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "experiments", folder, name)
+
+
+def ent_lsm(m, device, cmp):
+    """`main`: 4 conditions x 800 steps (cmp: 100)."""
+    return list(m.main(iterations=100 if cmp else 800, device=device))
+
+
+def ent_lmg(m, device, cmp):
+    """`main` (300 on + 500 off; cmp 60 + 40) and `run_grid`'s first grid
+    point of ``input_table_test.toml`` (off 5000, on 1000, off 5000; cmp
+    60, 40, 60)."""
+    snr, var = m.main(on_phase=60 if cmp else 300,
+                      off_phase=40 if cmp else 500, device=device)
+    from spiking_neural_networks_tpu_torch.experiments.pipeline_setup \
+        import parse_toml
+    with open(entry_toml("liquid_custom_manifold_args",
+                         "input_table_test.toml"), "rb") as f:
+        parsed = m.fill_defaults(parse_toml(f))
+    sp = parsed["simulation_parameters"]
+    if cmp:
+        sp.update(off_phase=60, on_phase=40, settling_period=20)
+    cs = {k: v[0] for k, v in parsed["variables"].items()}
+    with np.errstate(divide="ignore", invalid="ignore"):
+        point = m._run_custom_point(sp, cs, np.random.default_rng(0), device)
+    return dict(snr=snr, var=[float(x) for x in var], point=point)
+
+
+def ent_tl(m, device, cmp):
+    """``smoke.toml`` through `main` (cmp: `run` with 2 train, 1 test and
+    1 exposure sample a class, 40 steps a sample)."""
+    if not cmp:
+        return m.main(["prog", entry_toml("liquid_mnist_args", "smoke.toml"),
+                       "--device", device])
+    p = dict(m.DEFAULTS, digits=[0, 1], train_per_class=2, test_per_class=1,
+             stdp_exposure_per_class=1, steps_per_sample=40)
+    return m.run(p, device)
+
+
+def ent_lmd(m, device, cmp):
+    """``reference_test.toml`` through `main`, its stratified sample cut to
+    2 digits (off 2000, on 1000, off 2000 each); cmp: `run_digit` on the
+    first digit at 60, 40, 60."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if not cmp:
+            return m.main(["prog", entry_toml("liquid_mnist_args",
+                                              "reference_test.toml"),
+                           "--device", device], max_digits=2)
+        from spiking_neural_networks_tpu_torch.experiments import digits
+        from spiking_neural_networks_tpu_torch.experiments.pipeline_setup \
+            import parse_toml
+        with open(entry_toml("liquid_mnist_args", "reference_test.toml"),
+                  "rb") as f:
+            parsed = m.fill_defaults(parse_toml(f))
+        sp = dict(parsed["simulation_parameters"], off_phase=60, on_phase=40)
+        return m.run_digit(sp, dict(parsed["variables"]),
+                           digits.load_digits().data[0],
+                           np.random.default_rng(0), device=device)
+
+
+def ent_main(**kw):
+    """An example's `main` with ``kw`` (cmp: ``kw`` too)."""
+    return lambda m, device, cmp: m.main(device=device, **kw)
+
+
+def ent_two(full, cut):
+    """An example's `main` with ``full`` (cmp: ``cut``)."""
+    return lambda m, device, cmp: m.main(device=device,
+                                         **(cut if cmp else full))
+
+
+def ent_pruning(m, device, cmp):
+    """`main`: 3 trials x 5 connectivities x 1500 steps (cmp: one trial
+    each at 100 steps)."""
+    if not cmp:
+        return m.main(device=device)
+    steps, m.ITERATIONS = m.ITERATIONS, 100
+    try:
+        return m.main(trials=1, device=device)
+    finally:
+        m.ITERATIONS = steps
+
+
+def ent_sharded(m, device, cmp):
+    """`main` at 256^2 x 500 steps (cmp: 32^2, 200 steps): the single
+    run, then the sharded run over the devices there are."""
+    build = m.build
+    if cmp:
+        m.build = functools.partial(build, rows=32, cols=32)
+    try:
+        return m.main(device=device)
+    finally:
+        m.build = build
+
+
+# (row, module, runner, the routes both gates give on the CPU (and the
+# port on the card: "6d-a" for the closed loop's CUDA graphs), the
+# kernels-line row whose launches it adds, the comparison's ``cap`` and
+# ``force``)
+ENTRY_KERNEL = (
+    (2, "experiments.liquid_state_machine", ent_lsm, {"flat"}, "6b-flat",
+     None, True),
+    (3, "experiments.liquid_manifold_generation", ent_lmg,
+     {"flat", "flat-chemical"}, "6b-flat", None, True),
+    (4, "experiments.training_liquid_pipeline", ent_tl, {"flat", False},
+     "6b-flat", None, True),
+    (5, "experiments.liquid_manifold_digits", ent_lmd, {"flat-chemical"},
+     "6b-flat", None, True),
+    (6, "examples.lattice", ent_main(), {"stencil"}, "2", ENTRY_CAP, False),
+    (7, "examples.eeg_psd", ent_main(), {"stencil"}, "2", ENTRY_CAP, False),
+    (8, "examples.lattice_network", ent_main(), {"network"}, "6b", 250,
+     True),
+    (9, "examples.synaptic_pruning", ent_pruning, {"flat"}, "6b-flat", None,
+     True),
+    (10, "examples.interacting_pools", ent_two({}, dict(iterations=300)),
+     {"flat"}, "6b-flat", None, False),
+    (12, "examples.agent_environment", ent_two({}, dict(iterations=160)),
+     {"6d-a"}, "6d", None, False),
+    (14, "examples.sharded_lattice", ent_sharded, {"stdp", False}, "6a",
+     200, False),
+)
+# the same for the plain paths: every run plain in both gates (rows 11
+# and 13 too: a dense all-to-all graph; the readout's histories); the
+# main run's cut (``cap`` of its runs), after the comparison run's
+ENTRY_PLAIN = (
+    (11, "examples.rstdp_lattice", ent_main(), {False}, None, None, False,
+     None),
+    (13, "examples.lsm_architecture",
+     ent_main(iterations=200, period=100), {False}, None, None, True,
+     None),
+    (15, "examples.pipelined_network", ent_main(), {False}, None, 250, False,
+     250),
+    (16, "examples.stdp", ent_main(), {False}, None, ENTRY_CAP, True,
+     1000),
+    (17, "examples.bcm", ent_two(dict(iterations=1000),
+                                 dict(iterations=500)), {False}, None, None,
+     True, None),
+    (18, "examples.raster", ent_main(), {False}, None, None, False, None),
+    (19, "examples.hodgkin_huxley", ent_main(), set(), None, None, False,
+     None),
+    (20, "examples.morris_lecar", ent_main(iterations=2000), set(), None,
+     None, False, None),
+    (21, "examples.hopfield", ent_main(), set(), None, None, False, None),
+)
+# the steps of the entry points that run no lattice: their comparison
+# run (phase 60) is their main run
+LOOP_STEPS = {19: 5000, 20: 2000, 21: 30}
+
+
+def entry_phases(snt, smi):
+    """Phases 60-63.  Returns the kernel launches of this family's main
+    runs by kernels-line row ("2", "6a", "6b", "6b-flat", "6d")."""
+    import importlib
+    import tempfile
+    mods = {name: importlib.import_module(
+        f"spiking_neural_networks_tpu_torch.{name}")
+        for _, name, *_ in ENTRY_KERNEL + ENTRY_PLAIN}
+    with tempfile.TemporaryDirectory() as out_dir:
+        saved = {name: mod.output_path for name, mod in mods.items()
+                 if hasattr(mod, "output_path")}
+        for name in saved:
+            mods[name].output_path = (
+                lambda n: os.path.join(out_dir, os.path.basename(n)))
+        try:
+            cases = entry_routes_phase(mods)
+            launches = entry_kernel_phase(mods, cases)
+            entry_plain_phase(mods, cases)
+            entry_times_phase(mods, cases, smi)
+        finally:
+            for name, path in saved.items():
+                mods[name].output_path = path
+    return launches
+
+
+def entry_routes_phase(mods):
+    """60. Each row's lattices and networks built on the card and run at
+    its comparison depth (`ENTRY_KERNEL`, `ENTRY_PLAIN`: chances forced to
+    0 or 1 where the row says so, runs cut to its ``cap``): each run's
+    route printed and held to the route both gates give on the CPU
+    (`tests/test_torch_liquids.py`, `tests/test_torch_examples.py`; a
+    model's step loop and the discrete attractor run no lattice).
+    Returns each row's probe and output."""
+    cases = {}
+    for row, name, fn, want, _, cap, force, *_ in ENTRY_KERNEL + ENTRY_PLAIN:
+        with EntryProbe(cap=cap, force=force) as probe:
+            out, split, steps = probe.call(
+                lambda: fn(mods[name], "cuda", True))
+        tags = probe.tags()
+        say(f"[60 routes] row {row} {name}: {len(probe.objs + probe.nets)} "
+            f"lattices / networks / loops, {len(tags)} runs, {steps} steps "
+            f"on the card: routes {sorted(set(map(str, tags)))} (the "
+            f"gates': {sorted(map(str, want))}); construction "
+            f"{split[0]:.3f} s, run {split[1]:.3f} s, analysis "
+            f"{split[2]:.3f} s")
+        check(set(tags) == want and (tags or row in LOOP_STEPS),
+              f"row {row}: the runs took {sorted(set(map(str, tags)))}")
+        cases[name] = dict(probe=probe, out=out, split=split)
+    return cases
+
+
+def entry_counts():
+    from spiking_neural_networks_tpu_torch.ops import (
+        network_kernels as nk, reward_kernels as rk, stencil_kernels as sk)
+    return dict(stencil=sk.STEP_LAUNCHES, designs=dict(sk.DESIGN_CALLS),
+                persistent=nk.PERSISTENT_LAUNCHES, flat=nk.FLAT_LAUNCHES,
+                calls=nk.LAUNCHES, plastic=rk.STEP_LAUNCHES,
+                env=rk.ENV_LAUNCHES)
+
+
+def reset_entry_counts():
+    from spiking_neural_networks_tpu_torch.ops import (
+        network_kernels as nk, reward_kernels as rk, stencil_kernels as sk)
+    reset_stencil_counts(sk)
+    nk.LAUNCHES = nk.CHEM_LAUNCHES = nk.FLAT_LAUNCHES = 0
+    nk.PERSISTENT_LAUNCHES = 0
+    rk.LAUNCHES = rk.STEP_LAUNCHES = rk.ENV_LAUNCHES = 0
+
+
+def entry_hold_env(m):
+    """Two graph replays of the agent's closed loop (`hold_replays`), each
+    against the twin from the state it received: (max float error,
+    integer and spike mismatches)."""
+    import spiking_neural_networks_tpu_torch as snt
+    from spiking_neural_networks_tpu_torch.ops import reward_kernels as rk
+    agent = snt.RewardModulatedLattice(snt.Izhikevich(), device="cuda")
+    agent.populate(10, 10, gap_conductance=10.0)
+    agent.connect(lambda x, y: np.hypot(x[0] - y[0], x[1] - y[1]) <= 2
+                  and x != y, lambda x, y: 2.0)
+    v0 = np.random.default_rng(0).uniform(-65, 30, 100)
+    agent.apply(lambda s: {**s, "v": torch.as_tensor(
+        v0, dtype=torch.float32, device="cuda")})
+    env = m.JitEnvironment(
+        agent, m.env_from({"rate": 0.0, "target": m.TARGET_RATE,
+                           "key": 3.0}, "cuda"),
+        m.encoder_fn, m.reward_fn,
+        lambda e, s: m.encoder_key_fn(m.update_fn(e, s), s))
+    return hold_replays(rk, env, ENTRY_TWIN_CALLS * rk.STEPS_PER_LAUNCH,
+                        True)
+
+
+def entry_kernel_phase(mods, cases):
+    """61. Each kernel path at its own size on the card, the kernels'
+    counts set to 0 just before it and read just after: every run on its
+    route, launches counted by the C entries, the first
+    `ENTRY_TWIN_CALLS` calls of each kernel bit-equal to the twin (the
+    closed loop: two graph replays, each against the twin), every state
+    finite, neurons fired.  Then its comparison run (phase 60) on the
+    CPU's twin route (``use_kernel=True``): every history, firing time, v
+    and the output equal to the card's bit for bit; and on the card's
+    plain route (``use_kernel=False``), another summation order: max
+    |dv|, the first step past `DRIFT`, neurons outside 2 mV.  Returns the
+    launches by kernels-line row."""
+    launches = {"2": 0, "6a": 0, "6b": 0, "6b-flat": 0, "6d": 0}
+    for row, name, fn, want, key, cap, force in ENTRY_KERNEL:
+        m = mods[name]
+        with EntryProbe(twin_calls=ENTRY_TWIN_CALLS) as probe:
+            reset_entry_counts()
+            out, split, steps = probe.call(lambda: fn(m, "cuda", False))
+            n = entry_counts()
+        tags = probe.tags()
+        K = 16
+        runs = [(t, s) for t, (_, _, s) in zip(tags, probe.runs)]
+        kern_calls = sum(-(-s // K) for t, s in runs if t)
+        finite, fired = probe.finite(), probe.fired()
+        twin = (probe.twin_calls + probe.lat_twin_calls,
+                probe.twin_bits, probe.lat_twin_bits)
+        if key == "6d":
+            err, bad = entry_hold_env(m)
+            twin = (ENTRY_TWIN_CALLS, [] if err == 0.0 and bad == 0
+                    else ["replay"], 0)
+        say(f"[61 main path] row {row} {name}: {steps} steps, routes "
+            f"{sorted(set(map(str, tags)))}, launches counted by the C "
+            f"entries {n}, the first {twin[0]} kernel calls against the "
+            f"twin: outputs not bit-equal {twin[1]}, elements {twin[2]}; "
+            f"state finite {finite}, neurons fired {fired}; construction "
+            f"{split[0]:.3f} s, run {split[1]:.3f} s, analysis "
+            f"{split[2]:.3f} s")
+        check(set(tags) == want,
+              f"row {row}: took {sorted(set(map(str, tags)))}")
+        got = {"2": n["stencil"], "6a": n["plastic"], "6d": n["env"],
+               "6b": n["persistent"], "6b-flat": n["persistent"]}[key]
+        if key in ("6b", "6b-flat"):
+            check(n["persistent"] == n["calls"] >= kern_calls
+                  and n["flat"] == (n["calls"] if key == "6b-flat" else 0),
+                  f"row {row}: a network call missed the persistent kernel")
+        if key == "2":
+            check(n["designs"]["persistent"] == sum(n["designs"].values())
+                  == kern_calls and got == kern_calls,
+                  f"row {row}: stencil calls {n['designs']}, launches {got}")
+        if key == "6a":
+            # the single run's calls, k + 1 launches a call of k steps;
+            # the sharded run is plain per block
+            check(got == sum(s // K * (K + 1) + (s % K + 1 if s % K else 0)
+                             for t, s in runs if t == "stdp"),
+                  f"row {row}: 6a launches {got}")
+        check(got > 0, f"row {row}: no launch of row {key}")
+        check(twin[0] == ENTRY_TWIN_CALLS and twin[1] == [] and twin[2] == 0,
+              f"row {row}: the kernel differs from its twin")
+        check(finite and fired > 0, f"row {row}: non-finite state or no "
+              f"spike")
+        launches[key] += got
+        cases[name].update(main=probe, split=split, steps=steps, main_out=out)
+
+        card = cases[name]["probe"]
+        with EntryProbe(use_kernel=True, cap=cap, force=force) as cpu:
+            cpu_out, _, _ = cpu.call(lambda: fn(m, "cpu", True))
+        hk, hc = card.histories(), cpu.histories()
+        sk_, sc = card.states(), cpu.states()
+        dv = max([float(np.abs(a - b).max()) for a, b in zip(hk, hc)]
+                 + [float(np.abs(a[1] - b[1]).max()) for a, b in
+                    zip(sk_, sc)])
+        # an average or EEG history is a sum over the lattice: its order
+        # is the device's reduction, not the kernel's
+        rk_, rc = card.histories(True), cpu.histories(True)
+        red = max([float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                   for a, b in zip(rk_, rc)], default=0.0)
+        lft = all(np.array_equal(a[0], b[0]) for a, b in zip(sk_, sc))
+        card_out = cases[name]["out"]
+        if row in REDUCED_OUTPUTS:
+            gap = reduced_gap(card_out, cpu_out)
+            same_out = gap <= 1e-6
+        else:
+            same_out = repr(cpu_out) == repr(card_out)
+        with EntryProbe(use_kernel=False, cap=cap, force=force) as plain:
+            plain.call(lambda: fn(m, "cuda", True))
+        hp = plain.histories()
+        d = [np.abs(a - b).max(axis=1) for a, b in zip(hk, hp)]
+        parted = [int(np.argmax(x > DRIFT)) if (x > DRIFT).any() else None
+                  for x in d]
+        outside = sum(int((np.abs(a - b) > 2.0).any(axis=0).sum())
+                      for a, b in zip(hk, hp))
+        vd = max([float(x.max()) for x in d]
+                 + [float(np.abs(a[1] - b[1]).max())
+                    for a, b in zip(sk_, plain.states())])
+        say(f"[61 kernel-vs-cpu] row {row} {name}: the comparison run "
+            f"against the CPU's twin route "
+            f"{sorted(set(map(str, cpu.tags())))}: max|dv| {dv:.4g} mV over "
+            f"{len(hk)} histories and {len(sk_)} final states, firing times "
+            f"equal {lft}, outputs equal {same_out}"
+            + (f" (means in the device's order: within {gap:.3g} of their "
+               f"scale)" if row in REDUCED_OUTPUTS else "")
+            + (f"; {len(rk_)} average / EEG histories (sums in the device's "
+               f"order) within {red:.3g} of their scale" if rk_ else ""))
+        say(f"[61 kernel-vs-plain] row {row} {name}: the card's plain route "
+            f"{sorted(set(map(str, plain.tags())))}: max|dv| {vd:.4g} mV, "
+            f"first step past {DRIFT} mV per history {parted}, neurons ever "
+            f"outside 2 mV {outside}, state finite {plain.finite()}")
+        check(len(sk_) == len(sc) > 0 and len(hk) == len(hc) and dv == 0.0
+              and len(rk_) == len(rc) and red <= 1e-6 and lft and same_out,
+              f"row {row}: the card's kernel route differs from the CPU's")
+        check(set(plain.tags()) == {False} and plain.finite(),
+              f"row {row}: the plain route failed")
+        del cpu, plain
+    return launches
+
+
+def entry_plain_phase(mods, cases):
+    """62. Each plain path (`ENTRY_PLAIN`) on the card at its own size, or
+    its cut: every run plain, every state finite, neurons fired, the
+    output of the JAX script's kind; then its comparison run (phase 60)
+    on the CPU (trains forced to 0 or 1 where it has any): every history
+    and v, and a model's voltage trace, within 2 mV, every firing time
+    within 2 steps (`BASELINE.md`, `gpu_accuracy.rs:35-37`)."""
+    for row, name, fn, want, _, cap, force, main_cap in ENTRY_PLAIN:
+        m = mods[name]
+        card, card_out = cases[name]["probe"], cases[name]["out"]
+        if row in LOOP_STEPS:
+            probe, out = card, card_out
+            split, steps = cases[name]["split"], LOOP_STEPS[row]
+        else:
+            with EntryProbe(cap=main_cap) as probe:
+                out, split, steps = probe.call(lambda: fn(m, "cuda", False))
+        tags, finite, fired = probe.tags(), probe.finite(), probe.fired()
+        cases[name].update(main=probe, split=split, main_out=out,
+                           steps=steps)
+        with EntryProbe(cap=cap, force=force) as cpu:
+            cpu_out, _, _ = cpu.call(lambda: fn(m, "cpu", True))
+        hk, hc = card.histories(), cpu.histories()
+        sk_, sc = card.states(), cpu.states()
+        dv = max([float(np.abs(a - b).max()) for a, b in zip(hk, hc)]
+                 + [float(np.abs(a[1] - b[1]).max()) for a, b in
+                    zip(sk_, sc)], default=0.0)
+        dl = max([int(np.abs(a[0] - b[0]).max(initial=0))
+                  for a, b in zip(sk_, sc)], default=0)
+        if row in (19, 20):
+            dv = max(dv, float(np.abs(card_out - cpu_out).max()))
+        say(f"[62 plain path] row {row} {name}: {steps} steps on the card, "
+            f"routes {sorted(set(map(str, tags)))}, state finite {finite}, "
+            f"neurons fired {fired}, output {type(out).__name__}; the "
+            f"comparison run card vs CPU: max|dv| {dv:.4g} mV over "
+            f"{len(hk)} histories, {len(sk_)} final states"
+            + (" and the voltage trace" if row in (19, 20) else "")
+            + f", max |dlft| {dl} steps")
+        check(set(tags) == want, f"row {row}: a plain path took {tags}")
+        check(finite and (fired > 0 or row in LOOP_STEPS),
+              f"row {row}: non-finite state or no spike")
+        check(len(hk) == len(hc) and len(sk_) == len(sc) and dv <= 2.0
+              and dl <= 2, f"row {row}: card vs CPU outside 2 mV / 2 steps")
+
+
+def loop_more(row):
+    """``more(n)``: ``n`` steps of the model a step loop runs (rows 19,
+    20) or sweeps of the discrete attractor (row 21), on the card."""
+    import spiking_neural_networks_tpu_torch as snt
+    if row == 21:
+        from spiking_neural_networks_tpu_torch import attractors as at
+        p = at.generate_random_patterns(10, 10, 3, 0.5, seed=4)
+        lat = at.DiscreteNeuronLattice(
+            10, 10, at.generate_hopfield_network(p), device="cuda")
+        lat.input_pattern_into_discrete_grid(at.distort_pattern(p[0], 0.2,
+                                                                seed=5))
+        return lat.iterate
+    model, i = (snt.HodgkinHuxley(), [0.0, 10.0, 25.0, 50.0]) if row == 19 \
+        else (snt.MorrisLecar(), [100.0])
+    inputs = torch.tensor(i, device="cuda")
+    state = [model.init_state(len(i), device="cuda")]
+
+    def more(n):
+        for _ in range(n):
+            state[0], _ = model.step(state[0], inputs)
+    return more
+
+
+# the profiler's kernel records that the C entry's count of a further run
+# must equal (a profile late in a long process can lose records), by
+# kernels-line row
+ENTRY_RECORDS = {"2": ("stencil", ("model_persistent_kernel",)),
+                 "6b": ("persistent", ("net_persistent",)),
+                 "6b-flat": ("persistent", ("net_persistent",))}
+
+
+def entry_times_phase(mods, cases, smi):
+    """63. Each row's main run (phases 61, 62): seconds of construction,
+    run and analysis, wall us/step of its runs; then the last object run
+    on for `ENTRY_PROFILE` steps: device us/step under torch.profiler (on
+    the stencil or persistent network kernel with a warm-up cycle and
+    retries until every launch the C entry counts has its record), the
+    wall of the same steps unprofiled, device / wall."""
+    for row, name, _, _, key, *_ in sorted(ENTRY_KERNEL + ENTRY_PLAIN):
+        case = cases[name]
+        probe = case["main"]
+        c, r, a = case["split"]
+        kernel = bool(probe.tags() and probe.tags()[-1])
+        line = (f"[63 times] row {row} {name}: {c + r + a:.4f} s "
+                f"(construction {c:.4f} s, run {r:.4f} s"
+                + (f" = {r / case['steps'] * 1e6:.3f} us/step over "
+                   f"{case['steps']} steps" if case["steps"] else "")
+                + f", analysis {a:.4f} s)")
+        more_n = probe.more or loop_more(row)
+        steps = ENTRY_PROFILE[0] if kernel else ENTRY_PROFILE[1]
+        probe.use_kernel = None
+
+        def more():
+            more_n(steps)
+            torch.cuda.synchronize()
+
+        counted, mine = ENTRY_RECORDS.get(key, (None, None)) if kernel \
+            else (None, None)
+        before = entry_counts()
+        t0 = time.perf_counter()
+        more()
+        wall = (time.perf_counter() - t0) / steps * 1e6
+        launches = entry_counts()[counted] - before[counted] if counted \
+            else None
+        dev_us, top = profiled_us(more, steps, n_top=3, launches=launches,
+                                  mine=mine)
+        say(line + f"; {steps} more steps: wall {wall:.3f} us/step, device "
+            f"{dev_us:.3f} us/step (profiled: "
+            + ", ".join(f"{k} {t:.3f}" for k, t in top)
+            + f"), device / wall {dev_us / wall:.3f}; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -8508,18 +9312,21 @@ def main():
         f"{load_s:.2f} s, {os.path.basename(_build.library_path())}; "
         f"ptxas: {' / '.join(ptxas)}")
 
-    kernels, pipelines = [], None
+    kernels, pipelines, entries = [], None, None
     # the DSL family first: late in a long run the profiler keeps fewer
     # kernel records of every family (it once kept none of the DSL main
     # path's in eight tries)
     for phases in (dsl_phases, trig_phases, support_phases, trial_phases,
-                   experiment_phases, stencil_phases, plasticity_phases,
+                   experiment_phases, entry_phases, stencil_phases,
+                   plasticity_phases,
                    network_phases, hh_phases, chem_phases, flat_phases,
                    reward_phases, env_phases, model_phases):
         t0 = time.perf_counter()
         out = phases(snt, smi)
         if phases is experiment_phases:
             pipelines = out
+        elif phases is entry_phases:
+            entries = out
         else:
             kernels += out if isinstance(out, list) else [out]
         say(f"[{phases.__name__}] {time.perf_counter() - t0:.1f} s")
@@ -8541,6 +9348,21 @@ def main():
         entry["pipeline_launches"] = pipelines[row]
         entry["pipelines"] = ("spiking_neural_networks_tpu_torch/"
                               "experiments/ (phase 57)")
+    # rows 2, 6a, 6b, 6b-flat and 6d also launch through the liquid
+    # pipelines and the examples (phase 61)
+    for row, pick in (
+            ("2", lambda k: k["name"].startswith("izhikevich_stencil_steps")
+             and k["replaces"] == REPLACES["persistent"]),
+            ("6a", lambda k: k["name"] == "lattice_plasticity_steps"),
+            ("6b", lambda k: k["name"] == "network_persistent"),
+            ("6b-flat", lambda k: k["name"]
+             == "network_persistent (flat-mode arm)"),
+            ("6d", lambda k: k["name"]
+             == "lattice_plasticity_env_step (closed loop)")):
+        entry = next(k for k in kernels if pick(k))
+        entry["entry_launches"] = entries[row]
+        entry["entries"] = ("spiking_neural_networks_tpu_torch/experiments/ "
+                            "liquids and examples/ (phase 61)")
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -22,10 +22,13 @@ runs on the model kernel, through a CUDA functor generated from its step
 and built by nvcc at first use (``ops/dsl_kernels.py``; sin, cos and tan
 included).  ``lixirnet`` is the reference's Python surface (its prototype
 neurons, lattices and networks, the legacy v0.1 families), over these
-lattices and networks on the card; ``experiments`` holds the
-Bayesian-inference pipeline written against it
-(``python -m spiking_neural_networks_tpu_torch.experiments.\
-bayesian_inference_rate_based``).  ``analysis`` (peaks, correlation, EEG
+lattices and networks on the card; ``experiments`` holds the science
+pipelines written against it and the core (the Bayesian-inference trial:
+``python -m spiking_neural_networks_tpu_torch.experiments.\
+bayesian_inference_rate_based``; the liquids, the digit pipelines over
+the repository's copy of the 8x8 digits, the attractors, grid cells and
+head-direction rings), and ``examples`` the 16 examples (``python -m
+spiking_neural_networks_tpu_torch.examples.<name> [--device cpu]``).  ``analysis`` (peaks, correlation, EEG
 spectra), ``attractors`` (Hopfield weights, the discrete lattice),
 ``coupling`` (gap-junction and coupled-neuron steps) and
 ``utils.distribution`` are the support modules; ``fitting`` fits a neuron
@@ -37,8 +40,8 @@ traces, ``why_not_fused`` says why a lattice misses its kernel route, and
 ``parallel`` shards one lattice over a mesh of devices in row blocks (the
 stencil kernel per block), runs chains of lattices as pipelines, one
 stage per device, batched lattices over a (dp, tp) mesh, and meshes
-across processes.  Every module of the JAX package is ported.  Entry
-points put their tensors on the GPU
+across processes.  Every module and entry point of the JAX package is
+ported.  Entry points put their tensors on the GPU
 (``device="cuda"``) unless the caller asks for another device.  It
 imports PyTorch and NumPy, never JAX.
 """

@@ -164,3 +164,57 @@ def test_experiments_import_their_siblings_relatively():
             src = f.read()
         assert not bare.search(src), name
         assert 'device="cuda"' in src, name
+
+
+LIQUIDS = ("digits", "liquid_state_machine", "liquid_manifold_generation",
+           "training_liquid_pipeline", "liquid_manifold_digits",
+           "attractor_manifold_plot")
+EXAMPLES = ("lattice", "eeg_psd", "lattice_network", "synaptic_pruning",
+            "interacting_pools", "rstdp_lattice", "agent_environment",
+            "lsm_architecture", "sharded_lattice", "pipelined_network",
+            "stdp", "bcm", "raster", "hodgkin_huxley", "morris_lecar",
+            "hopfield")
+
+
+def test_entry_points_import_without_jax_sklearn_or_the_scripts():
+    """The liquid pipelines, the plot and the examples import with
+    ``jax``, the JAX package, scikit-learn and every script of
+    ``experiments/`` and ``examples/`` blocked."""
+    blocked = (["jax", "spiking_neural_networks_tpu", "sklearn",
+                "pipeline_setup", "lsm_setup"] + list(EXPERIMENTS)
+               + list(LIQUIDS) + list(EXAMPLES))
+    names = ([f"experiments.{n}" for n in LIQUIDS]
+             + [f"examples.{n}" for n in EXAMPLES])
+    code = ("import sys, importlib\n"
+            f"for m in {blocked!r}:\n"
+            "    sys.modules[m] = None\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module("
+            "'spiking_neural_networks_tpu_torch.' + name)\n"
+            "from spiking_neural_networks_tpu_torch.experiments import "
+            "digits\n"
+            "assert digits.load_digits().data.shape == (1797, 64)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'sklearn') and sys.modules[m] is not None)\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_run_on_the_card_by_default():
+    """No new entry point reaches scikit-learn or a script by its bare
+    name, and each that builds lattices runs on ``"cuda"`` unless asked
+    for another device (the plot and the digits build none)."""
+    bare = re.compile(r"^\s*(from|import)\s+(sklearn|" + "|".join(
+        ("pipeline_setup", "lsm_setup") + EXPERIMENTS + LIQUIDS)
+        + r")\b", re.M)
+    paths = [os.path.join(PKG, "experiments", n + ".py") for n in LIQUIDS] \
+        + [os.path.join(PKG, "examples", n + ".py") for n in EXAMPLES]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert not bare.search(src), path
+        if not path.endswith(("digits.py", "attractor_manifold_plot.py")) \
+                or path.endswith("liquid_manifold_digits.py"):
+            assert 'device="cuda"' in src or 'default="cuda"' in src, path

@@ -11,7 +11,17 @@
   and records, run by run, the route the port took
   (``_last_run_fused``) and the verdict of the JAX package's gate
   (`ops.pallas_reward.plain_network_runner`, asked with `resolve_pallas`
-  forced on; its spec is read and the XLA runner then runs as on the CPU).
+  forced on; its spec is read and the XLA runner then runs as on the CPU);
+  with ``force``, every train's chance of firing is raised to 1 where it
+  is above 0 before each run (`force_chances`).
+* `LatticeRecorder` does the same for single lattices (``run_lattice``
+  of a `Lattice` or a `RewardModulatedLattice`, ``run_lattice_with_reward``)
+  and reward networks (a step of the host-loop `Environment`): the JAX
+  lattice gate is asked through its runner factory (`core.lattice.
+  _build_lattice_runner`, the verdict recorded, the XLA runner built), the
+  R-STDP lattice's through `pallas_reward.lattice_run` and the reward
+  network's through `pallas_reward.network_runner` (both asked, then
+  declined, so the XLA runner runs as on the CPU).
 * `assert_built_equal`, `assert_histories_close`: the network edge for
   edge, the trajectories within a tolerance.
 """
@@ -21,6 +31,7 @@ import math
 import os
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -28,12 +39,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if os.path.join(ROOT, "experiments") not in sys.path:
     sys.path.insert(0, os.path.join(ROOT, "experiments"))
 
+from spiking_neural_networks_tpu.core import lattice as jlattice  # noqa: E402
 from spiking_neural_networks_tpu.core import network as jnetwork  # noqa: E402
+from spiking_neural_networks_tpu.core import reward as jreward  # noqa: E402
+from spiking_neural_networks_tpu.core import \
+    reward_structured as jrs  # noqa: E402
 from spiking_neural_networks_tpu.core import structured as jst  # noqa: E402
 from spiking_neural_networks_tpu.ops import pallas_reward as jpr  # noqa: E402
 
 from spiking_neural_networks_tpu_torch.core import \
+    lattice as tlattice  # noqa: E402
+from spiking_neural_networks_tpu_torch.core import \
     network as tnetwork  # noqa: E402
+from spiking_neural_networks_tpu_torch.core import \
+    reward as treward  # noqa: E402
+from spiking_neural_networks_tpu_torch.core import \
+    reward_network as treward_network  # noqa: E402
 from spiking_neural_networks_tpu_torch.experiments import \
     pipeline_setup  # noqa: E402
 
@@ -72,13 +93,24 @@ def snapshot(net, graph_to_coo):
     return dict(lattices=lats, trains=trains, connections=conns)
 
 
+def force_chances(net, to_array):
+    """Every spike train's chance of firing of ``net`` (either package's
+    core network) raised to 1 where it is above 0: the draws then fire
+    alike in both packages."""
+    for st in net.spike_train_lattices.values():
+        if "chance_of_firing" in st.state:
+            c = _host(st.state["chance_of_firing"])
+            st.state = {**st.state, "chance_of_firing": to_array(
+                np.where(c > 0, 1.0, 0.0).astype(np.float32))}
+
+
 class Recorder:
     """Records the networks and routes of both packages' runs (see the
     module docstring).  ``use_kernel`` is set on every port network
     before it runs (None: the CPU's plain route; True: the kernel route's
     twin; False: plain)."""
 
-    def __init__(self, monkeypatch, use_kernel=None):
+    def __init__(self, monkeypatch, use_kernel=None, force=False):
         self.use_kernel = use_kernel
         self.jax, self.torch = [], []          # (net, snapshot)
         self.jax_routes, self.torch_routes = [], []
@@ -92,12 +124,17 @@ class Recorder:
             if not any(net is x for x, _ in rec.jax):
                 rec.jax.append((net, snapshot(net, jnetwork._graph_to_coo)))
             rec.jax_steps.append(int(n))
+            if force:
+                force_chances(net, lambda c: jnp.asarray(c))
             return jrun(net, n)
 
         def torch_run(net, n):
             if not any(net is x for x, _ in rec.torch):
                 rec.torch.append((net, snapshot(net,
                                                 tnetwork._graph_to_coo)))
+            if force:
+                force_chances(net, lambda c: torch.as_tensor(
+                    c, device=next(iter(net.lattices.values())).device))
             net.use_kernel = rec.use_kernel
             out = trun(net, n)
             rec.torch_routes.append(net._last_run_fused)
@@ -124,6 +161,131 @@ class Recorder:
     def routes(self):
         """The port's route names, run by run (False: plain)."""
         return [r[0] if r else False for r in self.torch_routes]
+
+
+def lattice_tag(route):
+    """A lattice route of either package by kernel family: ``"stencil"``
+    (JAX True / ("multi", ...) / ("tiled", ...); port ("kernel", emit)),
+    ``"stdp"``, ``"model"``, ``"hh"``, ``"reward"`` (an R-STDP lattice or
+    network on its kernel) or False (plain)."""
+    if route is True:
+        return "stencil"
+    if not route:
+        return False
+    head = route[0] if isinstance(route, tuple) else route
+    return {"multi": "stencil", "tiled": "stencil",
+            "kernel": "stencil"}.get(head, head)
+
+
+def lattice_snapshot(lat, graph_to_coo):
+    """A lattice's state and dense weights before its first run."""
+    src, dst, w, _ = graph_to_coo(lat.graph)
+    dense = np.zeros((lat.n, lat.n), np.float32)
+    dense[_host(src), _host(dst)] = _host(w)
+    return ({k: _host(v).copy() for k, v in lat.state.items()
+             if not k.startswith("_")}, dense)
+
+
+class LatticeRecorder:
+    """Records the single lattices and reward networks of both packages'
+    runs and each run's route (module docstring); ``use_kernel`` is set on
+    every port lattice and network before it runs."""
+
+    def __init__(self, monkeypatch, use_kernel=None):
+        self.use_kernel = use_kernel
+        self.jax, self.torch = [], []          # (lattice, snapshot)
+        self.jax_routes, self.torch_routes = [], []
+        rec = self
+
+        def keep(where, lat, graph_to_coo):
+            if not any(lat is x for x, _ in where):
+                where.append((lat, lattice_snapshot(lat, graph_to_coo)))
+
+        def jax_chunk(orig):
+            def run(lat, *a, **k):
+                keep(rec.jax, lat, jnetwork._graph_to_coo)
+                return orig(lat, *a, **k)
+            return run
+
+        def torch_run(orig, reward=False):
+            def run(lat, *a, **k):
+                keep(rec.torch, lat, tnetwork._graph_to_coo)
+                lat.use_kernel = rec.use_kernel
+                out = orig(lat, *a, **k)
+                route = lat._last_run_fused
+                rec.torch_routes.append(
+                    ("reward" if route else False) if reward
+                    else lattice_tag(route))
+                return out
+            return run
+
+        build = jlattice._build_lattice_runner
+
+        def jax_build(*a, **k):
+            # ``use_pallas`` is the factory's 12th parameter
+            args = list(a)
+            if len(args) > 11:
+                rec.jax_routes.append(lattice_tag(args[11]))
+                args[11] = False
+            else:
+                rec.jax_routes.append(lattice_tag(k.get("use_pallas")))
+                k["use_pallas"] = False
+            return build(*args, **k)
+
+        def jax_lattice_run(lat, rewards, with_reward):
+            rec.jax_routes.append("reward")
+            return False                # the XLA runner, as on the CPU
+
+        rrun = jreward.RewardModulatedLattice._run
+
+        def jax_reward_run(lat, rewards, with_reward):
+            keep(rec.jax, lat, jnetwork._graph_to_coo)
+            n = len(rec.jax_routes)
+            out = rrun(lat, rewards, with_reward)
+            if len(rec.jax_routes) == n:
+                rec.jax_routes.append(False)
+            return out
+
+        net_runner = jpr.network_runner
+
+        def jax_network_runner(net, *a, **k):
+            with monkeypatch.context() as m:
+                m.setattr(jpr, "_build_fused_network_runner",
+                          lambda *b, **c: "reward")
+                out = net_runner(net, *a, **k)
+            rec.jax_routes.append("reward" if out is not None else False)
+            return None
+
+        monkeypatch.setattr(tlattice.Lattice, "_run_chunk",
+                            torch_run(tlattice.Lattice._run_chunk))
+        monkeypatch.setattr(treward.RewardModulatedLattice, "_run",
+                            torch_run(treward.RewardModulatedLattice._run,
+                                      reward=True))
+        monkeypatch.setattr(jlattice.Lattice, "_run_chunk",
+                            jax_chunk(jlattice.Lattice._run_chunk))
+        monkeypatch.setattr(jlattice, "resolve_pallas", lambda s: True)
+        monkeypatch.setattr(jlattice, "_build_lattice_runner", jax_build)
+        monkeypatch.setattr(jreward, "resolve_pallas", lambda s: True)
+        monkeypatch.setattr(jreward.RewardModulatedLattice, "_run",
+                            jax_reward_run)
+        monkeypatch.setattr(jpr, "lattice_run", jax_lattice_run)
+        monkeypatch.setattr(jrs, "resolve_pallas", lambda s: True)
+        monkeypatch.setattr(jpr, "network_runner", jax_network_runner)
+
+        trun = treward_network.RewardModulatedLatticeNetwork \
+            .run_lattices_with_reward
+
+        def torch_reward_net(net, *a, **k):
+            net.use_kernel = rec.use_kernel
+            out = trun(net, *a, **k)
+            rec.torch_routes.append(lattice_tag(net._last_run_fused))
+            return out
+
+        monkeypatch.setattr(treward_network.RewardModulatedLatticeNetwork,
+                            "run_lattices_with_reward", torch_reward_net)
+
+    def routes(self):
+        return list(self.torch_routes)
 
 
 @contextlib.contextmanager
