@@ -36,6 +36,8 @@ import subprocess
 import tempfile
 import time
 
+from .utils import profiling
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu"))))
 HEADERS = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cuh"))))
@@ -119,7 +121,8 @@ def load():
         return _lib
     path = library_path()
     if not os.path.exists(path):
-        _compile(path)
+        with profiling.span("build.compile"):
+            _compile(path)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pv, pi, pf = (ctypes.POINTER(vp), ctypes.POINTER(ci),
@@ -284,11 +287,17 @@ def build_generated(texts):
     yet: its text written under `GENERATED_DIR`, one nvcc a source (compile
     and link), all started together.  Raises with nvcc's output where a
     build fails.  Returns the libraries' paths, in order."""
-    global generated_seconds
     paths = [generated_library_path(t) for t in texts]
     todo = {p: t for p, t in zip(paths, texts) if not os.path.exists(p)}
-    if not todo:
-        return paths
+    if todo:
+        with profiling.span("build.compile"):
+            _compile_generated(todo)
+    return paths
+
+
+def _compile_generated(todo):
+    """nvcc on each generated source of ``todo`` ({library path: text})."""
+    global generated_seconds
     os.makedirs(GENERATED_DIR, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -318,7 +327,6 @@ def build_generated(texts):
             raise RuntimeError("nvcc failed on a generated source:\n"
                                + "\n".join(failed))
     generated_seconds = time.perf_counter() - t0
-    return paths
 
 
 def load_generated(text):

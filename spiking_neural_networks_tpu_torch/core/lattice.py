@@ -41,6 +41,7 @@ from .history import (GridVoltageHistory, history_step_bytes,
                       rebuilt_readouts, resolve_history_chunk)
 from .plasticity import STDP, rule_tensors
 from ..errors import GraphError
+from ..utils import profiling
 
 class Lattice:
     """A 2-D grid of one neuron model plus a weighted synapse graph, on
@@ -210,19 +211,20 @@ class Lattice:
         if iterations == 0 or (not self.electrical_synapse
                                and not self.chemical_synapse):
             return
-        bps = 0
-        if self.update_grid_history:
-            bps += history_step_bytes(self.grid_history.kind, self.n)
-        if self.update_graph_history:
-            bps += 4 * self.graph.weights.numel()
-        hchunk = resolve_history_chunk(self.history_chunk, bps)
-        remaining = iterations
-        while remaining > 0:
-            chunk = min(remaining, hchunk) \
-                if (self.update_grid_history or self.update_graph_history) \
-                else remaining
-            self._run_chunk(chunk)
-            remaining -= chunk
+        with profiling.span("lattice.run"):
+            bps = 0
+            if self.update_grid_history:
+                bps += history_step_bytes(self.grid_history.kind, self.n)
+            if self.update_graph_history:
+                bps += 4 * self.graph.weights.numel()
+            hchunk = resolve_history_chunk(self.history_chunk, bps)
+            remaining = iterations
+            while remaining > 0:
+                chunk = min(remaining, hchunk) \
+                    if (self.update_grid_history
+                        or self.update_graph_history) else remaining
+                self._run_chunk(chunk)
+                remaining -= chunk
 
     def _kernel_route(self, skip_nt, on_card=None):
         """The kernel route of this chunk: "hh" (the HH chemical kernel),
@@ -281,9 +283,11 @@ class Lattice:
     def _run_route(self, length, readouts):
         """One chunk of an unsharded lattice over its route; returns the
         history readouts by name."""
-        # no neurotransmitter inserted: the NT update is a masked no-op
-        skip_nt = not bool(self.state["nt$mask"].any())
-        route = self._kernel_route(skip_nt)
+        with profiling.span("lattice.route"):
+            # no neurotransmitter inserted: the NT update is a masked no-op
+            with profiling.span("wait.nt_mask"):
+                skip_nt = not bool(self.state["nt$mask"].any())
+            route = self._kernel_route(skip_nt)
         if route == "hh":
             self._run_hh(length)
             ys = {}

@@ -35,6 +35,7 @@ from .history import (GridVoltageHistory, history_step_bytes,
 from .sharded import block_info, shard_of, sharded_field
 from .plasticity import RewardModulatedSTDP, rstdp_visit, rule_tensors
 from .plasticity import stdp_delta as stdp_delta_arrays
+from ..utils import profiling
 
 
 class RewardModulatedLattice:
@@ -216,9 +217,13 @@ class RewardModulatedLattice:
     def _run(self, rewards, with_reward):
         if not self.electrical_synapse and not self.chemical_synapse:
             return
-        iterations = int(rewards.shape[0])
-        if iterations == 0:
+        if int(rewards.shape[0]) == 0:
             return
+        with profiling.span("reward.run"):
+            self._run_steps(rewards, with_reward)
+
+    def _run_steps(self, rewards, with_reward):
+        iterations = int(rewards.shape[0])
         any_hist = self.update_grid_history or self.update_graph_history
         hchunk = resolve_history_chunk(
             self.history_chunk,
@@ -228,7 +233,7 @@ class RewardModulatedLattice:
                if self.update_graph_history else 0))
         if any_hist and iterations > hchunk:
             for off in range(0, iterations, hchunk):
-                self._run(rewards[off:off + hchunk], with_reward)
+                self._run_steps(rewards[off:off + hchunk], with_reward)
             return
         self._last_run_fused = False
         if shard_of(self) is not None:
@@ -258,20 +263,24 @@ class RewardModulatedLattice:
                             device=self.device)
 
     def _run_kernel(self, rewards, with_reward):
-        spec = reward_kernels.LatSpec(
-            "mod" if self.do_modulation else "plain",
-            reward_kernels.model_kind(self.model), self.graph.offsets,
-            with_reward=with_reward)
+        with profiling.span("reward.setup"):
+            spec = reward_kernels.LatSpec(
+                "mod" if self.do_modulation else "plain",
+                reward_kernels.model_kind(self.model), self.graph.offsets,
+                with_reward=with_reward)
+            dopamine = self._dopamine_tensor()
         st, weights, trace, dop, _ = reward_kernels.advance(
-            spec, self.state, self.graph, self.trace, self._dopamine_tensor(),
+            spec, self.state, self.graph, self.trace, dopamine,
             self.reward_modulator.params, rewards, self.internal_clock,
             len(rewards), (self.rows, self.cols))
         self.state, self.trace = st, trace
         self.graph = self.graph.replace_weights(weights)
-        self.dopamine = float(dop)
+        with profiling.span("wait.dopamine"):
+            self.dopamine = float(dop)
 
     def _run_plain(self, rewards, with_reward):
-        skip_nt = not bool(self.state["nt$mask"].any())
+        with profiling.span("wait.nt_mask"):
+            skip_nt = not bool(self.state["nt$mask"].any())
         shape = (self.rows, self.cols)
         pparams = rule_tensors(self.reward_modulator.params, self.device)
         state, graph, trace = self.state, self.graph, self.trace

@@ -29,6 +29,7 @@ from .core.history import (HISTORY_KINDS, history_step_bytes,
                            resolve_history_chunk)
 from .core.sharded import shard_of
 from .ops import reward_kernels as rk
+from .utils import profiling
 
 # the state fields that live in the kernel's (rows, cols) planes
 PLANE_KEYS = ("v", "w", "last_firing_time", "refractory_count",
@@ -253,6 +254,10 @@ class _KernelLoop:
 
     def step(self, slot):
         """One closed-loop step; the reward goes into the 0-dim ``slot``."""
+        with profiling.span("loop.step"):
+            self._step(slot)
+
+    def _step(self, slot):
         (reward_fn, update_fn, encoder), p = self.callbacks, self.parity
         tree = _unflatten(self.treedef, self.leaves)
         if self.spec.with_reward:
@@ -282,7 +287,8 @@ class _KernelLoop:
 
     def flush(self):
         """Settle the last step's edge pass and the scalars."""
-        self.chain.flush()
+        with profiling.span("loop.flush"):
+            self.chain.flush()
 
     def probe(self):
         """Run one step and a flush on a snapshot of the buffers and of the
@@ -468,16 +474,17 @@ class JitEnvironment:
             raise ValueError(
                 "JitEnvironment does not run a sharded agent; use the "
                 "host-loop Environment, whose steps run its blocks")
-        hist_sig = self._hist_sig()
-        chunk = _agent_history_chunk(self.agent) if hist_sig is not None \
-            else int(iterations)
-        out, remaining = [], int(iterations)
-        while remaining > 0:
-            length = min(remaining, chunk)
-            plan = self._begin(length, with_reward, hist_sig)
-            self._advance(plan)
-            out.append(self._finish(plan))
-            remaining -= length
+        with profiling.span("loop.run"):
+            hist_sig = self._hist_sig()
+            chunk = _agent_history_chunk(self.agent) \
+                if hist_sig is not None else int(iterations)
+            out, remaining = [], int(iterations)
+            while remaining > 0:
+                length = min(remaining, chunk)
+                plan = self._begin(length, with_reward, hist_sig)
+                self._advance(plan)
+                out.append(self._finish(plan))
+                remaining -= length
         if with_reward:
             return np.concatenate(out) if out \
                 else np.zeros((0,), np.float32)
@@ -487,49 +494,54 @@ class JitEnvironment:
         """Choose the tier, build or fetch its loop and load the state: the
         part of a call that may wait for the device (the gate reads the
         neurotransmitter mask; a capture synchronizes)."""
-        self.last_build_fused = self.last_build_env_fused = False
-        agent = self.agent
-        readout = self._readout(hist_sig)
-        spec = self._kernel_spec(with_reward)
-        if spec is None:
-            return _Plan(length, with_reward, readout, None, False)
-        rule = agent.reward_modulator.params if with_reward \
-            else agent.plasticity.params if spec.kind == "plastic" else {}
-        leaves, treedef = _flatten(self.state)
-        key = (spec, (agent.rows, agent.cols), str(agent.state["v"].device),
-               tuple(sorted((k, float(v)) for k, v in rule.items())),
-               tuple(sorted((k, tuple(x.shape), x.dtype)
-                            for k, x in agent.state.items())),
-               self.reward_function if with_reward else None,
-               self.update_state, self.state_encoder, treedef,
-               tuple((tuple(np.shape(x)), getattr(x, "dtype", type(x)))
-                     for x in leaves))
-        loop = self._runners.get(key)
-        if loop is None:
-            loop = self._cache(key, _KernelLoop(self, spec, rule, treedef,
-                                                leaves))
-        loop.load(agent, leaves)
-        graph = False
-        if hist_sig is None:
-            K = rk.STEPS_PER_LAUNCH
-            want = loop.cuda and loop.graph is None and length >= K
-            if loop.capture_ok is None or (loop.capture_ok and want):
-                loop.capture_ok = loop.probe()
-            if loop.capture_ok and want:
-                try:
-                    loop.capture()
-                except rk.KernelError:
-                    raise
-                except Exception as e:
-                    # e.g. a callback drawing from a generator that is not
-                    # registered with the graph: tier (b), and it says so
-                    self.last_capture_error = repr(e)
-                    loop.capture_ok = False
-            # tier (a) only where a graph replays in this call
-            graph = bool(loop.capture_ok and loop.graph is not None
-                         and length >= K)
-        self.last_build_fused, self.last_build_env_fused = True, graph
-        return _Plan(length, with_reward, readout, loop, graph)
+        with profiling.span("loop.begin"):
+            self.last_build_fused = self.last_build_env_fused = False
+            agent = self.agent
+            readout = self._readout(hist_sig)
+            spec = self._kernel_spec(with_reward)
+            if spec is None:
+                return _Plan(length, with_reward, readout, None, False)
+            rule = agent.reward_modulator.params if with_reward \
+                else agent.plasticity.params if spec.kind == "plastic" else {}
+            leaves, treedef = _flatten(self.state)
+            key = (spec, (agent.rows, agent.cols),
+                   str(agent.state["v"].device),
+                   tuple(sorted((k, float(v)) for k, v in rule.items())),
+                   tuple(sorted((k, tuple(x.shape), x.dtype)
+                                for k, x in agent.state.items())),
+                   self.reward_function if with_reward else None,
+                   self.update_state, self.state_encoder, treedef,
+                   tuple((tuple(np.shape(x)), getattr(x, "dtype", type(x)))
+                         for x in leaves))
+            loop = self._runners.get(key)
+            if loop is None:
+                loop = self._cache(key, _KernelLoop(self, spec, rule, treedef,
+                                                    leaves))
+            with profiling.span("loop.load"):
+                loop.load(agent, leaves)
+            graph = False
+            if hist_sig is None:
+                K = rk.STEPS_PER_LAUNCH
+                want = loop.cuda and loop.graph is None and length >= K
+                if loop.capture_ok is None or (loop.capture_ok and want):
+                    with profiling.span("loop.probe"):
+                        loop.capture_ok = loop.probe()
+                if loop.capture_ok and want:
+                    try:
+                        with profiling.span("loop.capture"):
+                            loop.capture()
+                    except rk.KernelError:
+                        raise
+                    except Exception as e:
+                        # e.g. a callback drawing from a generator that is not
+                        # registered with the graph: tier (b), and it says so
+                        self.last_capture_error = repr(e)
+                        loop.capture_ok = False
+                # tier (a) only where a graph replays in this call
+                graph = bool(loop.capture_ok and loop.graph is not None
+                             and length >= K)
+            self.last_build_fused, self.last_build_env_fused = True, graph
+            return _Plan(length, with_reward, readout, loop, graph)
 
     def _advance(self, plan):
         """The steps of a call, on the device; nothing returns to the host
@@ -543,7 +555,8 @@ class JitEnvironment:
         if plan.graph:
             K = rk.STEPS_PER_LAUNCH
             while n - done >= K:
-                loop.graph.replay()
+                with profiling.span("loop.replay"):
+                    loop.graph.replay()
                 rk.ENV_LAUNCHES += loop.graph_launches
                 if plan.with_reward:
                     rewards[done:done + K].copy_(loop.rew)
@@ -563,7 +576,8 @@ class JitEnvironment:
         agent = self.agent
         st, graph, env = agent.state, agent.graph, self.state
         dev = st["v"].device
-        skip_nt = not bool(st["nt$mask"].any())
+        with profiling.span("wait.nt_mask"):
+            skip_nt = not bool(st["nt$mask"].any())
         clock = agent.internal_clock
         shape = (agent.rows, agent.cols)
         rewards = []
@@ -604,25 +618,29 @@ class JitEnvironment:
     def _finish(self, plan):
         """Hand the results to the agent and the env, with one pull of the
         rewards, dopamine and clock, and of the history, to the host."""
-        agent = self.agent
-        if plan.readout is not None:
-            agent.grid_history.extend(torch.stack(plan.ys).cpu())
-        if plan.loop is None:
-            if not plan.with_reward:
-                return None
-            got = torch.cat([plan.rewards, plan.dopamine.reshape(1)]).cpu()
-            agent.dopamine = float(got[-1])
-            return got[:-1].numpy()
-        loop = plan.loop
-        loop.store(agent)
-        self.state = _unflatten(loop.treedef,
-                                [x.clone() for x in loop.leaves])
-        # float64 holds the float32 rewards and dopamine and the int32
-        # clock exactly: one transfer
-        got = torch.cat([plan.rewards, loop.dopamine.reshape(1)]).double()
-        got = torch.cat([got, loop.clock.double()]).cpu()
-        agent.internal_clock = int(got[-1])
-        if plan.with_reward:
-            agent.dopamine = float(got[-2])
-            return got[:-2].numpy().astype(np.float32)
-        return None
+        with profiling.span("loop.finish"):
+            agent = self.agent
+            if plan.readout is not None:
+                agent.grid_history.extend(torch.stack(plan.ys).cpu())
+            if plan.loop is None:
+                if not plan.with_reward:
+                    return None
+                with profiling.span("wait.loop_pull"):
+                    got = torch.cat([plan.rewards,
+                                     plan.dopamine.reshape(1)]).cpu()
+                agent.dopamine = float(got[-1])
+                return got[:-1].numpy()
+            loop = plan.loop
+            loop.store(agent)
+            self.state = _unflatten(loop.treedef,
+                                    [x.clone() for x in loop.leaves])
+            # float64 holds the float32 rewards and dopamine and the int32
+            # clock exactly: one transfer
+            got = torch.cat([plan.rewards, loop.dopamine.reshape(1)]).double()
+            with profiling.span("wait.loop_pull"):
+                got = torch.cat([got, loop.clock.double()]).cpu()
+            agent.internal_clock = int(got[-1])
+            if plan.with_reward:
+                agent.dopamine = float(got[-2])
+                return got[:-2].numpy().astype(np.float32)
+            return None

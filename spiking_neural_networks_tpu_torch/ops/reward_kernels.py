@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from ..core.plasticity import (kernel_exp, rstdp_visit, rule_floats,
                                rule_tensors, stdp_delta)
 from ..models.base import NEVER
+from ..utils import profiling
 
 # Per-model parameter planes, in the kernel's order (the JAX kernel's).
 MODEL_PARAM_KEYS = {
@@ -118,9 +119,11 @@ def _stencil_ok(lat):
 
 
 def _single_lattice_ok(lat):
-    return (model_kind(lat.model) is not None and lat.electrical_synapse
-            and not lat.chemical_synapse and _stencil_ok(lat)
-            and not bool(lat.state["nt$mask"].any()))
+    if not (model_kind(lat.model) is not None and lat.electrical_synapse
+            and not lat.chemical_synapse and _stencil_ok(lat)):
+        return False
+    with profiling.span("wait.nt_mask"):
+        return not bool(lat.state["nt$mask"].any())
 
 
 def supports_lattice(lat):
@@ -260,6 +263,15 @@ def lattice_plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg,
     design on CUDA (the same bits): the runner's route where
     `per_step_route` says so, and the smoke's comparison.
     """
+    with profiling.span("plasticity.call"):
+        return _plasticity_steps(
+            spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
+            dopamine, rule, rewards, clock0, n_steps, _per_step, _own)
+
+
+def _plasticity_steps(spec, v, w, lft, refr, weights, mask, in_deg, params,
+                      traces, dopamine, rule, rewards, clock0, n_steps,
+                      _per_step, _own):
     global LAUNCHES, STEP_LAUNCHES
     _check(spec, v, w, lft, refr, weights, mask, in_deg, params, traces,
            dopamine, rewards, clock0, n_steps)
@@ -748,16 +760,18 @@ def advance(spec, state, graph, trace, dopamine, rule, rewards, clock,
     """
     st = state
     refractory = spec.model in REFRACTORY_MODELS
-    params = {k: st[k].reshape(shape) for k in MODEL_PARAM_KEYS[spec.model]}
-    v = st["v"].reshape(shape)
-    w = st["w"].reshape(shape) if "w" in st else \
-        torch.zeros(shape, dtype=torch.float32, device=v.device)
-    lft = st["last_firing_time"].reshape(shape)
-    refr = st["refractory_count"].reshape(shape) if refractory else None
-    traces = tuple(trace[k].clone() for k in ("c", "dw", "counter")) \
-        if spec.kind == "mod" else None
-    weights = graph.weights.clone() if spec.kind != "plain" \
-        else graph.weights
+    with profiling.span("reward.setup"):
+        params = {k: st[k].reshape(shape)
+                  for k in MODEL_PARAM_KEYS[spec.model]}
+        v = st["v"].reshape(shape)
+        w = st["w"].reshape(shape) if "w" in st else \
+            torch.zeros(shape, dtype=torch.float32, device=v.device)
+        lft = st["last_firing_time"].reshape(shape)
+        refr = st["refractory_count"].reshape(shape) if refractory else None
+        traces = tuple(trace[k].clone() for k in ("c", "dw", "counter")) \
+            if spec.kind == "mod" else None
+        weights = graph.weights.clone() if spec.kind != "plain" \
+            else graph.weights
     emits, spikes = [], None
     done, per_step = 0, per_step_route(spec, *shape)
     while done < length:

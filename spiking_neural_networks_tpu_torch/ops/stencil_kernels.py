@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from . import model_kernels
 from .model_kernels import SMEM_BUDGET
+from ..utils import profiling
 
 PARAM_ORDER = ("a", "b", "c", "d", "v_th", "gap_conductance", "tau_m",
                "c_m", "dt")
@@ -191,7 +192,8 @@ def uniform_scalars(params):
         bits = flat.view(torch.int32)
         rows.append(torch.stack([(bits == bits[0]).all().to(flat.dtype),
                                  flat[0]]))
-    got = torch.stack(rows).cpu().tolist()
+    with profiling.span("wait.uniform_scalars"):
+        got = torch.stack(rows).cpu().tolist()
     if not all(flag == 1.0 for flag, _ in got):
         return None
     return tuple(x for _, x in got)
@@ -269,6 +271,12 @@ class StencilRun:
 
     def __init__(self, v, w, lft, weights, in_deg, params, offsets,
                  design=None, tiles=TILES):
+        with profiling.span("stencil.setup"):
+            self._setup(v, w, lft, weights, in_deg, params, offsets, design,
+                        tiles)
+
+    def _setup(self, v, w, lft, weights, in_deg, params, offsets, design,
+               tiles):
         _check(v, w, lft, weights, in_deg, params, offsets, 0, 1)
         dev = v.device
         if dev.type not in ("cpu", "cuda"):
@@ -309,6 +317,10 @@ class StencilRun:
         spikes, v_pre)`` as `izhikevich_stencil_steps` does (on CUDA
         tensors, views into the run's buffer sets; ``v_pre`` a fresh
         (n_steps, rows, cols) plane)."""
+        with profiling.span("stencil.call"):
+            return self._steps(clock0, n_steps, emit)
+
+    def _steps(self, clock0, n_steps, emit):
         global LAUNCHES, STEP_LAUNCHES
         model_kernels.check_clock(clock0, n_steps)
         n_steps = int(n_steps)
