@@ -116,14 +116,18 @@ Phases, one line each:
    per-step times and bounds at 512^2 (K = 1 and 16) and 2048^2 (K = 8
    and 16); then each design (persistent, tiled, per step) on 33 x 70,
    130 x 100 and 256^2 x radius 1, 2 and 3 x emit off and on, a chain of
-   calls of K = 1, 2, 7, 16 and 17 on one `StencilRun`, and the tiled
-   design in every tile of `TILE_TRIALS` and one of K_b = 3: bit-equal, the
-   launches the C entry counted equal to `call_launches`; the registers
-   and spills of every new instantiation;
+   calls of K = 1, 2, 7, 16 and 17 on one `StencilRun` (the tiled design
+   on its streamed plan at radius 2 and 3, on the 2-D tiles at radius 1),
+   and the 2-D tiles in every tile of `TILE_TRIALS` and one of K_b = 3:
+   bit-equal, the launches the C entry counted equal to `call_launches`;
+   the registers and spills of every new instantiation, and the streamed
+   plan, its blocks and its shared memory at each shape the tiled route
+   takes (`STREAM_SHAPES`);
 4. the stencil main paths: 512^2 for 2048 steps (128 calls of one launch
    of the persistent design, counted by the C entry and in the profiler's
    records), 64 steps with a grid history, 1024^2, 2048^2 and 4096^2 for
-   256 steps (the tiled design, ceil(16 / K_b) launches a call), 2048^2
+   256 steps (the tiled design, ceil(16 / K_b) launches a call, every call
+   on the streamed plan by `STREAMED_CALLS`), 2048^2
    with per-neuron parameters for 64 steps (the per-step design, held bit
    for bit against the twin from the same state): routes, finite v,
    neurons fired;
@@ -134,10 +138,12 @@ Phases, one line each:
    threshold tie;
 6. neuron-updates/s of both routes at 512^2 and of the kernel route at
    1024^2, 2048^2 and 4096^2; the designs in turns at 512^2, 700^2,
-   1024^2, 2048^2 and 4096^2 (wall, events, device time, kernel records
-   against the launches the C entry counted, modelled bytes), the
-   persistent design with and without emission at 512^2, and each tile
-   of `TILE_TRIALS` at 2048^2;
+   736^2, 1024^2, 2048^2 and 4096^2, the tiled route's shapes with the 2-D
+   tiles beside the streamed plan (wall, events, device time, kernel
+   records against the launches the C entry counted, modelled bytes), the
+   persistent design with and without emission at 512^2, the streamed
+   plan against the 2-D tiles at 2048^2 for radius 1, 3 and 4, and each
+   tile of `TILE_TRIALS` at 2048^2;
 7. the plasticity kernels vs their plain twin on the card, the fused
    schedule and the per-step design each: every kind x model at 64^2
    (K = 16 and 7) and on 33 x 70 (K = 1, 2 and 17), 130 x 100 with
@@ -517,7 +523,13 @@ MAIN_DESIGNS = ({("persistent", MAIN), ("per_step", BIG)}
 DESIGN_SHAPES = ((33, 70), (130, 100), (256, 256))
 DESIGN_RADII = (1.0, 2.0, 3.0)
 DESIGN_KS = (1, 2, 7, 16, 17)
-TURN_SHAPES_STENCIL = (MAIN, (700, 700), (1024, 1024), BIG, (4096, 4096))
+TURN_SHAPES_STENCIL = (MAIN, (700, 700), (736, 736), (1024, 1024), BIG,
+                       (4096, 4096))
+# the shapes the tiled design's route takes, whose streamed plans phase 3
+# prints: the main paths and phase 51's sharded 4096^2 blocks (1024 rows
+# and 32 ghost rows on one side or both)
+STREAM_SHAPES = ((736, 736), (1024, 1024), BIG, (4096, 4096), (1056, 4096),
+                 (1088, 4096))
 # the tiled design's tiles (interior rows, interior columns, K_b) timed
 # against each other at 2048^2; `sk.TILES` routes the fastest
 TILE_TRIALS = ((48, 48, 4), (28, 28, 4), (56, 56, 2), (32, 32, 4),
@@ -1176,7 +1188,8 @@ def stencil_phases(snt, smi):
     for design, shape, kernel, source in (
             ("persistent", MAIN, "model_persistent_kernel<Izh, CPT>",
              "model_stencil.cu"),
-            ("tiled", BIG, "izh_tiled_kernel<CPT>", "izhikevich_stencil.cu"),
+            ("tiled", BIG, "izh_tiled_kernel_rows<KB, R2>",
+             "izhikevich_stencil.cu"),
             ("per_step", BIG, "izh_stencil_step_kernel (per step)",
              "izhikevich_stencil.cu")):
         t = turns[shape][design]
@@ -1203,14 +1216,14 @@ def bits_differ(a, b):
     return int((a != b).sum())
 
 
-def stencil_design_chain(sk, inp, design, emit, ks=DESIGN_KS, tiles=None):
+def stencil_design_chain(sk, inp, design, emit, ks=DESIGN_KS, plan=None):
     """A chain of calls of ``ks`` steps on one `StencilRun` of ``design``
     against the twin on the state each call received.  Returns (max float
     error, bits that differ, calls whose counted launches differ from
     `call_launches`, neurons fired, the run)."""
     run = sk.StencilRun(inp["v"], inp["w"], inp["lft"], inp["weights"],
                         inp["in_deg"], inp["params"], inp["offsets"],
-                        design=design, tiles=tiles or sk.TILES)
+                        design=design, plan=plan)
     check(run.design == design, f"forced {design}, got {run.design}")
     v, w, lft = inp["v"], inp["w"], inp["lft"]
     err, bad, miscount, fired, clock = 0.0, 0, 0, 0, 100
@@ -1325,8 +1338,8 @@ def stencil_twin_phase(snt, sk, smi):
     tiles = TILE_TRIALS + ((24, 40, 3),)
     inp = kernel_inputs(snt, 130, 100, 50, True)
     for tile in tiles:
-        e, b, m, f, run = stencil_design_chain(sk, inp, "tiled", True,
-                                               tiles=(tile,))
+        e, b, m, f, run = stencil_design_chain(
+            sk, inp, "tiled", True, plan=sk.tile_config(*tile, inp["offsets"]))
         say(f"[3 tiles] tiled 130x100 radius 2, emit, tile {tile}: "
             f"{run.plan}; bits differing {b}, max float error {e:.3g}, "
             f"launch miscounts {m}")
@@ -1334,11 +1347,18 @@ def stencil_twin_phase(snt, sk, smi):
         check(run.plan.th == tile[0] and run.plan.kb == tile[2],
               f"tile {tile} was not taken")
         max_err = max(max_err, e)
+    r2 = snt.radius_offsets(2.0)
     say(f"[3 plan] {sms} SMs, radius 2: 512^2 "
         f"{sk.persistent_plan(MAIN, 12, sms)}; 700^2 "
         f"{sk.persistent_plan((700, 700), 12, sms)}; 1024^2 "
-        f"{sk.persistent_plan((1024, 1024), 12, sms)}; tile "
-        f"{sk.tile_plan(snt.radius_offsets(2.0))}")
+        f"{sk.persistent_plan((1024, 1024), 12, sms)}; 2-D tile "
+        f"{sk.tile_plan(r2)}")
+    for shape in STREAM_SHAPES:
+        p = sk.stream_plan(shape, r2, sms)
+        say(f"[3 streamed] {shape[0]}x{shape[1]} radius 2: {p}; "
+            f"{p.strips * p.segments} blocks on {sms} SMs, dynamic shared "
+            f"memory {p.smem} B a block, rings (rows) "
+            f"{sk.stream_rings(p.kb, p.r, p.pad)}")
     return max_err, times
 
 
@@ -1359,6 +1379,7 @@ def hetero_lattice(snt, rows, cols):
 def reset_stencil_counts(sk):
     sk.LAUNCHES = 0
     sk.STEP_LAUNCHES = 0
+    sk.STREAMED_CALLS = 0
     for k in sk.DESIGN_CALLS:
         sk.DESIGN_CALLS[k] = 0
 
@@ -1430,14 +1451,17 @@ def stencil_main_phase(snt, sk):
         torch.cuda.synchronize()
         calls, steps = sk.LAUNCHES, sk.STEP_LAUNCHES
         designs = dict(sk.DESIGN_CALLS)
+        streamed = sk.STREAMED_CALLS
         launches["tiled"] += steps
-        plan = sk.tile_plan(big.graph.offsets)
+        plan = sk.tiled_plan(shape, big.graph.offsets,
+                             sk.model_kernels.sm_count(torch.device("cuda")))
         bv = big.state["v"]
         bfired = int((big.state["last_firing_time"] >= 0).sum())
         say(f"[4 main path] {shape[0]}x{shape[1]} run_lattice({BIG_STEPS}): "
             f"route {big._last_run_fused}, calls by design {designs}, "
+            f"of them on the streamed plan {streamed}, "
             f"kernel launches counted by the C entry {steps} "
-            f"({steps / max(calls, 1):.2f} a call; tile {plan}), v finite "
+            f"({steps / max(calls, 1):.2f} a call; plan {plan}), v finite "
             f"{bool(torch.isfinite(bv).all())}, v range "
             f"[{bv.min().item():.3f}, {bv.max().item():.3f}], fired "
             f"{bfired} of {big.n}")
@@ -1447,6 +1471,9 @@ def stencil_main_phase(snt, sk):
               and steps == n_calls * sk.call_launches(16, "tiled", plan)
               and bool(torch.isfinite(bv).all()) and bfired > 0,
               f"bad {shape} run of the tiled design")
+        check(streamed == calls and isinstance(plan, sk.StreamPlan),
+              f"the {shape} main path missed the streamed plan: {streamed} "
+              f"of {calls} calls")
         del big
     het = hetero_lattice(snt, *BIG)
     st0, clock = dict(het.state), het.internal_clock
@@ -1540,6 +1567,17 @@ def stencil_bytes(sk, design, plan, shape, n_off, k):
                    for t in range(0, length, tile))
 
     pad = plan.halo // plan.kb if plan.kb else 0
+    if isinstance(plan, sk.StreamPlan):
+        # each launch reads its strips' loaded v, and once the weights, w
+        # and in_deg of the cells level 1 computes, lft in the interiors,
+        # and writes the interiors
+        loaded = span(rows, plan.seg, plan.halo) * span(cols, plan.tw,
+                                                         plan.halo)
+        computed = (span(rows, plan.seg, plan.halo - pad)
+                    * span(cols, plan.tw, plan.halo - pad))
+        launches = -(-k // plan.kb)
+        return launches * (loaded * 4 + computed * 4 * (n_off + 2)
+                           + n * 4 * (1 + 3)) + n
     loaded = span(rows, plan.th, plan.halo) * span(cols, plan.tw, plan.halo)
     computed = (span(rows, plan.th, plan.halo - pad)
                 * span(cols, plan.tw, plan.halo - pad))
@@ -1598,6 +1636,13 @@ def stencil_times_phase(snt, sk, smi):
                     design=design)
             except ValueError:
                 pass        # the persistent plan cannot hold the weights
+        if "persistent" not in runs:
+            # the tiled route's shapes: the 2-D tiles beside the streamed
+            # plan
+            runs["tiles2d"] = sk.StencilRun(
+                inp["v"], inp["w"], inp["lft"], inp["weights"],
+                inp["in_deg"], inp["params"], inp["offsets"],
+                plan=sk.tile_plan(inp["offsets"]))
         routed = sk.route(shape, inp["offsets"], sms,
                           lambda: sk.uniform_scalars(inp["params"]))[0]
         counted = {}
@@ -1613,7 +1658,7 @@ def stencil_times_phase(snt, sk, smi):
                                K)
         out[shape] = {}
         for d, (wall, ev, dev, n, top) in res.items():
-            nb = stencil_bytes(sk, d, runs[d].plan, shape,
+            nb = stencil_bytes(sk, runs[d].design, runs[d].plan, shape,
                                len(inp["offsets"]), K)
             out[shape][d] = dict(events_us=ev, device_us=dev, wall_us=wall,
                                  bytes=nb)
@@ -1647,12 +1692,32 @@ def stencil_times_phase(snt, sk, smi):
     inp = kernel_inputs(snt, *BIG, 62, True)
     runs = {t: sk.StencilRun(inp["v"], inp["w"], inp["lft"], inp["weights"],
                              inp["in_deg"], inp["params"], inp["offsets"],
-                             design="tiled", tiles=(t,))
+                             plan=sk.tile_config(*t, inp["offsets"]))
             for t in TILE_TRIALS}
     res = designs_in_turns({str(t): (lambda r=r: r.steps(0, K))
                             for t, r in runs.items()},
                            {str(t): r.launches(K) for t, r in runs.items()},
                            K, reps=5)
+    # the other stencils the tiled design takes, streamed plan against the
+    # 2-D tiles
+    for radius in (1.0, 3.0, 4.0):
+        rin = kernel_inputs(snt, *BIG, 63, True, radius)
+        rr = {"streamed": sk.StencilRun(
+                  rin["v"], rin["w"], rin["lft"], rin["weights"],
+                  rin["in_deg"], rin["params"], rin["offsets"],
+                  design="tiled"),
+              "tiles2d": sk.StencilRun(
+                  rin["v"], rin["w"], rin["lft"], rin["weights"],
+                  rin["in_deg"], rin["params"], rin["offsets"],
+                  plan=sk.tile_plan(rin["offsets"]))}
+        rres = designs_in_turns({k: (lambda r=r: r.steps(0, K))
+                                 for k, r in rr.items()},
+                                {k: r.launches(K) for k, r in rr.items()}, K,
+                                reps=5)
+        say(f"[6 radii] {BIG[0]}x{BIG[1]} radius {radius}, in turns: "
+            f"{design_line(rres)}; plans {rr['streamed'].plan}, "
+            f"{rr['tiles2d'].plan}; card {smi}")
+        del rin, rr
     say(f"[6 tiles] {BIG[0]}x{BIG[1]} tiled design, each tile of TILE_TRIALS "
         f"(rows, cols, K_b) in turns: {design_line(res)}; modelled "
         + ", ".join(f"{t} {mb(r.plan):.1f} MB/step"
@@ -7755,6 +7820,8 @@ def sharded_main_phase(snt, sk, smi):
     for shape, steps, hetero, design in SHARD_MAINS:
         ref = (hetero_lattice if hetero else main_lattice)(snt, *shape)
         lat = copy.deepcopy(ref)
+        # the tiled blocks on the 2-D tiles too, timed in turns below
+        tiles2d = copy.deepcopy(ref) if design == "tiled" else None
         ref.run_lattice(steps)
         check(ref._last_run_fused == ("kernel", False),
               f"{shape}: the unsharded run missed the kernel route")
@@ -7763,13 +7830,14 @@ def sharded_main_phase(snt, sk, smi):
         lat.run_lattice(steps)
         torch.cuda.synchronize()
         calls, counted = sk.LAUNCHES, sk.STEP_LAUNCHES
-        designs = dict(sk.DESIGN_CALLS)
+        designs, streamed = dict(sk.DESIGN_CALLS), sk.STREAMED_CALLS
         launches[design] += counted
         tag, block_designs, k_steps, ghost = lat._last_run_fused
         blocks = lat.blocks
         overlap = [(b.ext[1] - b.ext[0]) / (b.rows[1] - b.rows[0])
                    for b in blocks]
         nbits = state_bits(ref, lat)
+        first = {k: x.clone() for k, x in lat.state.items()}
         fired = int((lat.state["last_firing_time"] >= 0).sum())
         # timed runs from the checked state, in turns: unsharded, sharded,
         # sharded, unsharded
@@ -7796,8 +7864,43 @@ def sharded_main_phase(snt, sk, smi):
             f"route per block (use_kernel=False, {SHARD_TWIN_STEPS} steps) "
             f"{wall_p:.2f} / {ev_p:.2f} ({smi})")
         n_calls = SHARDS * math.ceil(steps / k_steps)
-        plan = sk.tile_plan(lat.graph.offsets) if design == "tiled" else None
+        plan = sk.tiled_plan((blocks[0].ext[1] - blocks[0].ext[0], shape[1]),
+                             lat.graph.offsets,
+                             sk.model_kernels.sm_count(torch.device("cuda"))) \
+            if design == "tiled" else None
         per_call = sk.call_launches(k_steps, design, plan)
+        if design == "tiled":
+            check(streamed == calls,
+                  f"{shape}: {streamed} of {calls} sharded calls took the "
+                  f"streamed plan")
+            # the same sharded run on the 2-D tiles (the streamed plan
+            # withheld while its blocks build their runs), in turns
+            real = sk.stream_plan
+            sk.stream_plan = lambda *a, **k: None
+            try:
+                tiles2d.shard(mesh)
+                tiles2d.run_lattice(steps)
+            finally:
+                sk.stream_plan = real
+            check(sum(bits_differ(first[k], tiles2d.state[k])
+                      for k in first) == 0,
+                  f"{shape}: the sharded 2-D tiles differ")
+            # the blocks keep their runs (and plans) while their state is
+            # the one the run left; lat, back from the plain route's timing,
+            # builds streamed ones on a first untimed run
+            lat.use_kernel = None
+            lat.run_lattice(steps)
+            runs = [lambda: lat.run_lattice(steps),
+                    lambda: tiles2d.run_lattice(steps)]
+            t = [timed_run(runs[j], steps) for j in (0, 1, 1, 0)]
+            say(f"[51 sharded] {shape[0]}x{shape[1]} over {SHARDS} shards, "
+                f"the tiled blocks in turns, us/step wall / CUDA events: "
+                f"streamed plan ({plan}) {(t[0][0] + t[3][0]) / 2:.2f} / "
+                f"{(t[0][1] + t[3][1]) / 2:.2f}, 2-D tiles "
+                f"({sk.tile_plan(lat.graph.offsets)}) "
+                f"{(t[1][0] + t[2][0]) / 2:.2f} / "
+                f"{(t[1][1] + t[2][1]) / 2:.2f} ({smi})")
+            del tiles2d
         check(tag == "sharded" and set(block_designs) == {design}
               and (k_steps, ghost) == (16, 32),
               f"{shape}: the sharded run took {lat._last_run_fused}")
@@ -9281,9 +9384,10 @@ def main():
     t0 = time.perf_counter()
     lib = _build.load()
     load_s = time.perf_counter() - t0
-    izh = (ctypes.c_int * 3)()
+    izh = (ctypes.c_int * 4)()
     lib.izh_stencil_limits(izh)
-    check(list(izh) == [sk.MAX_OFFSETS, sk.TILE_THREADS, sk.TILE_MAX_CPT]
+    check(list(izh) == [sk.MAX_OFFSETS, sk.TILE_THREADS, sk.TILE_MAX_CPT,
+                        sk.STREAM_THREADS]
           and lib.lp_max_offsets() == rk.MAX_OFFSETS
           and lib.hh_max_offsets() == hk.MAX_OFFSETS
           and lib.model_stencil_max_offsets() == mk.MAX_OFFSETS,

@@ -144,7 +144,7 @@ def load():
     lib.izh_stencil_steps.restype = ci
     lib.izh_stencil_limits.argtypes = [pi]
     lib.izh_stencil_limits.restype = None
-    lib.izh_stencil_tiled.argtypes = [
+    tiled = [
         vp, vp, vp,                         # v, w, lft
         vp, vp, pf,                         # weights, in_deg, scalars[9]
         vp, vp, vp,                         # buffer set 0
@@ -152,10 +152,14 @@ def load():
         vp, vp,                             # spikes, v_pre (nullable)
         pi, pi, ci,                         # dr, dc, n_off
         ci, ci, ci, ci,                     # rows, cols, clock0, n_steps
-        ci, ci, ci, ci, ci,                 # th, tw, kb, threads, cpt
+        ci, ci, ci, ci, ci,                 # tw, seg, kb, r, threads
         pi, vp,                             # launched, stream
     ]
+    lib.izh_stencil_tiled.argtypes = tiled
     lib.izh_stencil_tiled.restype = ci
+    # th, tw, kb, threads, cpt in place of tw, seg, kb, r, threads
+    lib.izh_stencil_tiled2d.argtypes = tiled
+    lib.izh_stencil_tiled2d.restype = ci
     lib.lattice_plasticity_steps.argtypes = [
         ci, ci, ci,                         # model, kind, with_reward
         pv, pv,                             # state_in[4], state_buf[8]

@@ -12,10 +12,15 @@ function has three hand-written CUDA designs, routed by `route`:
   launch per 16 steps, a block's weights and parameter planes in shared
   memory, the state in registers, where `persistent_plan` holds the
   weights (512^2 at radius 2);
-* tiled (``csrc/izhikevich_stencil.cu``, `izh_tiled_kernel`): temporal
-  blocking, K_b steps a launch on a 2-D tile plus a K_b * pad halo in
-  shared memory, the parameters as 9 scalars, where every parameter plane
-  is uniform and `tile_plan` fits the halo (1024^2 and up);
+* tiled (``csrc/izhikevich_stencil.cu``): temporal blocking, K_b steps a
+  launch, the parameters as 9 scalars, where every parameter plane is
+  uniform and the stencil reaches at most `TILE_MAX_PAD` cells (1024^2
+  and up), on the plan of `tiled_plan`: streamed rows
+  (`izh_tiled_kernel_rows`, `stream_plan`: strips of columns marched down
+  r rows an iteration through shared-memory rings, each weight loaded
+  once a launch and the loads under the arithmetic) at a reach of 2 to 4,
+  else 2-D tiles (`izh_tiled_kernel`, `tile_plan`: a tile plus a K_b * pad
+  halo loaded, then computed);
 * per step (``csrc/izhikevich_stencil.cu``, `izh_stencil_step_kernel`):
   one launch a step with per-neuron planes, for the rest and for the
   comparison (``design="per_step"``).
@@ -51,12 +56,24 @@ TILE_THREADS = 1024       # IZH_TILE_THREADS: a tiled block's threads, at most
 TILE_MAX_CPT = 4          # IZH_TILE_MAX_CPT: loaded cells a tiled thread
 TILE_MAX_PAD = 4          # the widest stencil the tiled design takes (as the
                           # JAX package's multistep_tiled_config)
-# The tiled design's tiles, (interior rows, interior columns, steps a
-# launch), in the order `tile_plan` tries them: (48, 48, 4) at a stencil
-# reach of 1-2 (the fastest of the tiles timed at 2048^2, radius 2, on an
-# H100: chip_smoke.py phase 6, PERF.md section 6 row 3), (32, 32, 2) at 3,
-# (16, 16, 2) at 4.
+# The tiled design's 2-D tiles, (interior rows, interior columns, steps a
+# launch), in the order `tile_plan` tries them: the plan at a stencil reach
+# of 1 and where no streamed plan fits (`tiled_plan`); (48, 48, 4) at a
+# reach of 1-2 (the fastest tile at 2048^2, radius 2, PERF.md section 6 row
+# 3), (32, 32, 2) at 3, (16, 16, 2) at 4.
 TILES = ((48, 48, 4), (32, 32, 2), (16, 16, 2))
+# The streamed plan's steps a launch (the kernel's instantiations, the most
+# first), the threads of a block at most (IZH_STREAM_THREADS), and its cost
+# model's rates, which only rank a kb's strip widths: an SM's cycles a
+# level's phase takes, fixed and a warp
+# (a barrier, then each warp's cell: loads, 12 dependent adds, a division;
+# fitted to the H100 times of PERF.md section 6 row 3) and a loaded byte
+# (3.35 TB/s shared by 132 SMs at 1.755 GHz).
+STREAM_KBS = (8, 4, 2)
+STREAM_THREADS = 384
+STREAM_PHASE_CYCLES = 540.0
+STREAM_WARP_CYCLES = 20.0
+STREAM_BYTE_CYCLES = 0.07
 # The persistent design's kind in csrc/model_stencil.cu (MS_IZH), its
 # fields in order (v, w, the parameter planes, is_spiking), those its step
 # writes and those it reads.
@@ -74,8 +91,9 @@ LAUNCHES = 0
 # The CUDA kernel launches those calls made, as the C entries count them at
 # each launch (`call_launches` per call).
 STEP_LAUNCHES = 0
-# Those calls by design.
+# Those calls by design, and the tiled ones that took the streamed plan.
 DESIGN_CALLS = {"persistent": 0, "tiled": 0, "per_step": 0}
+STREAMED_CALLS = 0
 _checked = set()
 
 
@@ -119,7 +137,7 @@ def _check(v, w, lft, weights, in_deg, params, offsets, clock0, n_steps):
 
 
 class TilePlan(NamedTuple):
-    """The tiled design's tile: interior ``th`` x ``tw`` cells, ``kb``
+    """The tiled design's 2-D tile: interior ``th`` x ``tw`` cells, ``kb``
     steps a launch, a halo of ``halo`` = kb * pad cells on each side, so a
     loaded tile of ``lh`` x ``lw`` cells, held by ``threads`` threads of
     ``cpt`` cells each, in ``smem`` bytes (the weights and two v
@@ -159,7 +177,7 @@ def tile_config(th, tw, kb, offsets, budget=SMEM_BUDGET):
 
 
 def tile_plan(offsets, budget=SMEM_BUDGET, tiles=TILES):
-    """The tiled design's plan for ``offsets``: the first of ``tiles``
+    """The tiled design's 2-D tile for ``offsets``: the first of ``tiles``
     that fits, or None where the stencil reaches farther than
     `TILE_MAX_PAD` or no tile fits."""
     if stencil_pad(offsets) > TILE_MAX_PAD:
@@ -169,6 +187,133 @@ def tile_plan(offsets, budget=SMEM_BUDGET, tiles=TILES):
         if plan is not None:
             return plan
     return None
+
+
+class StreamPlan(NamedTuple):
+    """The tiled design's streamed plan.  Block (x, y) of ``strips`` x
+    ``segments`` owns the interior columns [x tw, x tw + tw) and rows
+    [y seg, y seg + seg), clipped to the grid.  It loads the columns of its
+    strip with ``halo`` = kb * pad more on each side (``lw`` = tw + 2 halo)
+    and marches down its segment's rows from ``halo`` above it to ``halo``
+    below it, ``r`` rows (>= pad) an iteration: the newest rows' v, one
+    iteration later their weights, w and in_deg.  Time level l (1..kb, a
+    step each) computes the rows l * r behind the newest, on columns and
+    rows within (kb - l) * pad of the interior, so the interior is exact
+    after kb levels; it reads level l - 1's rows, this iteration's too,
+    behind a barrier between levels.  Shared memory (``smem`` bytes) holds
+    the rings of `stream_rings` (the weights ``stride`` floats a cell);
+    ``threads`` = r * lw (to a warp), thread (i, c) the cell of each
+    level's row i, column c."""
+    kb: int
+    r: int
+    pad: int
+    tw: int
+    seg: int
+    halo: int
+    lw: int
+    stride: int
+    strips: int
+    segments: int
+    threads: int
+    smem: int
+
+
+def weight_stride(n_off):
+    """Floats a cell's weights take in the streamed ring: ``n_off`` to a
+    multiple of 4 whose quarter is odd, so that a warp's 16-byte reads of
+    neighbouring cells hit every bank once."""
+    s = -(-int(n_off) // 4) * 4
+    return s + 4 if s and s // 4 % 2 == 0 else s
+
+
+def stream_rings(kb, r, pad):
+    """Rows of the streamed design's rings: the weights' ((kb + 1) r =
+    kb * pad + r at r = pad: the rows levels 1..kb compute, and the r rows
+    in flight), the loaded v's (3 r + pad: level 1's windows, the rows
+    landed and the rows in flight) and each of levels 1..kb-1's v (2 r +
+    pad: the next level's windows and this level's newest rows).  The v
+    rings hold each row twice (at its slot and depth rows on), so that a
+    window of 2 pad + 1 rows never wraps."""
+    return (kb + 1) * r, 3 * r + pad, 2 * r + pad
+
+
+def stream_smem(kb, r, pad, stride, lw):
+    """Shared-memory bytes of a streamed block ``lw`` cells wide."""
+    wring, v0, lv = stream_rings(kb, r, pad)
+    return 4 * lw * (wring * stride + 2 * v0 + (kb - 1) * 2 * lv)
+
+
+def _stream_cost(kb, r, pad, n_off, tw, seg, lw, blocks, n_sm):
+    """The cost model's SM cycles a step of a plan's slowest block: the
+    larger of its phases (each level's rows, r a phase, and each
+    iteration's own) and its loads, over kb steps, times the waves."""
+    warps = -(-r * lw // 32)
+    phases = sum(-(-(seg + 2 * (kb - l) * pad) // r)
+                 for l in range(1, kb + 1))
+    phases += -(-(seg + 2 * kb * pad) // r) + kb + 1
+    loaded = (seg + 2 * kb * pad) * lw * 4 * (n_off + 3) + seg * tw * 17
+    compute = phases * (STREAM_PHASE_CYCLES + STREAM_WARP_CYCLES * warps)
+    return (-(-blocks // n_sm) * max(compute, STREAM_BYTE_CYCLES * loaded)
+            / kb)
+
+
+def stream_plan(shape, offsets, n_sm, budget=SMEM_BUDGET):
+    """The streamed plan (`StreamPlan`) of a ``shape`` lattice on a card of
+    ``n_sm`` SMs, or None where the stencil reaches farther than
+    `TILE_MAX_PAD` or no strip fits ``budget``.  The most steps a launch
+    of `STREAM_KBS` whose widest strip (by the budget and
+    `STREAM_THREADS`) is at least 4 (kb - 1) pad columns wide, so that the
+    halo's work stays within a quarter (else the fewest that fits), r =
+    pad rows an iteration; then, from that widest strip to strips half
+    as wide, the width that divides the columns evenly with as many
+    segments as keep one block an SM that the cost model rates fastest."""
+    pad = stencil_pad(offsets)
+    if pad > TILE_MAX_PAD:
+        return None
+    rows, cols = (int(x) for x in shape)
+    n_off = len(offsets)
+    r = max(pad, 1)
+    stride = weight_stride(n_off)
+    fits = []
+    for kb in STREAM_KBS:
+        tw_max = min(budget // stream_smem(kb, r, pad, stride, 1),
+                     STREAM_THREADS // r) - 2 * kb * pad
+        if tw_max >= 1:
+            fits.append((kb, tw_max))
+    if not fits:
+        return None
+    kb, tw_max = next((f for f in fits if f[1] >= 4 * (f[0] - 1) * pad),
+                      fits[-1])
+    halo = kb * pad
+    best = None
+    first = -(-cols // tw_max)
+    for strips in range(first, 2 * first + 1):
+        tw = -(-cols // strips)
+        if -(-cols // tw) != strips:
+            continue
+        lw = tw + 2 * halo
+        segments = max(1, min(n_sm // strips, -(-rows // r)))
+        seg = -(-rows // segments)
+        segments = -(-rows // seg)
+        cost = _stream_cost(kb, r, pad, n_off, tw, seg, lw,
+                            strips * segments, n_sm)
+        if best is None or cost < best[0]:
+            best = (cost, StreamPlan(
+                kb, r, pad, tw, seg, halo, lw, stride, strips, segments,
+                32 * -(-r * lw // 32), stream_smem(kb, r, pad, stride, lw)))
+    return best[1]
+
+
+def tiled_plan(shape, offsets, n_sm):
+    """The tiled design's plan: the streamed one (`stream_plan`) where the
+    stencil reaches 2 to `TILE_MAX_PAD` cells and it fits, else the 2-D
+    tiles' (`tile_plan`), else None.  A reach of 1 (4 or 8 offsets) takes
+    the 2-D tiles: there a level's cells are too few for the streamed
+    plan's barriers (58.7 against 62.9 us/step at 2048^2 on an H100,
+    PERF.md section 6 row 3)."""
+    plan = stream_plan(shape, offsets, n_sm) \
+        if stencil_pad(offsets) >= 2 else None
+    return plan or tile_plan(offsets)
 
 
 def persistent_plan(shape, n_off, n_blocks, budget=SMEM_BUDGET):
@@ -199,13 +344,20 @@ def uniform_scalars(params):
     return tuple(x for _, x in got)
 
 
-def route(shape, offsets, n_blocks, scalars, design=None, tiles=TILES):
+def route(shape, offsets, n_blocks, scalars, design=None, plan=None):
     """``(design, plan)`` of a run: "persistent" and its `MsPlan` where
-    `persistent_plan` holds the weights; else "tiled" and its `TilePlan`
-    (`tile_plan` over ``tiles``) where the parameters are uniform
-    (``scalars``: a callable giving `uniform_scalars`' result, called only
-    here) and a tile fits; else "per_step" and None.  ``design`` forces
-    one (ValueError where it does not apply)."""
+    `persistent_plan` holds the weights; else "tiled" and its plan
+    (`tiled_plan`: a `StreamPlan`, else a `TilePlan`) where the
+    parameters are uniform (``scalars``: a callable giving
+    `uniform_scalars`' result, called only here) and the stencil reaches
+    at most `TILE_MAX_PAD`; else "per_step" and None.  ``design`` forces
+    one (ValueError where it does not apply); ``plan`` forces the tiled
+    design with that plan."""
+    if plan is not None:
+        if stencil_pad(offsets) > TILE_MAX_PAD or scalars() is None:
+            raise ValueError("a tiled plan needs uniform parameter planes "
+                             f"and a stencil of reach <= {TILE_MAX_PAD}")
+        return "tiled", plan
     if design not in (None, "persistent", "tiled", "per_step"):
         raise ValueError(f"no design {design!r}")
     if design == "per_step":
@@ -217,7 +369,7 @@ def route(shape, offsets, n_blocks, scalars, design=None, tiles=TILES):
         if design == "persistent":
             raise ValueError(f"the persistent design cannot hold a "
                              f"{tuple(shape)} lattice's weights")
-    plan = tile_plan(offsets, tiles=tiles)
+    plan = tiled_plan(shape, offsets, n_blocks)
     if plan is not None and scalars() is not None:
         return "tiled", plan
     if design == "tiled":
@@ -243,9 +395,9 @@ def _check_library(lib):
     layout are this module's."""
     if "izh" in _checked:
         return
-    got = (ctypes.c_int * 3)()
+    got = (ctypes.c_int * 4)()
     lib.izh_stencil_limits(got)
-    want = [MAX_OFFSETS, TILE_THREADS, TILE_MAX_CPT]
+    want = [MAX_OFFSETS, TILE_THREADS, TILE_MAX_CPT, STREAM_THREADS]
     if list(got) != want:
         raise RuntimeError(f"the stencil kernel's limits {list(got)} differ "
                            f"from the wrapper's {want}")
@@ -263,20 +415,21 @@ class StencilRun:
 
     The arguments are as for `izhikevich_stencil_steps`; the planes are
     only read, and a call's outputs are valid until the next call.
-    ``design`` forces a design (`route`); ``tiles`` replaces `TILES`.  On
+    ``design`` forces a design and ``plan`` the tiled one's plan
+    (`route`).  On
     CUDA tensors the route's kernel runs.  On CPU tensors each call runs
     `izhikevich_stencil_steps_reference`; the route, which they do not
     take, is the one an H100 (`CPU_SM_COUNT`) would, so that the route
     rule can be checked through the runner without a card."""
 
     def __init__(self, v, w, lft, weights, in_deg, params, offsets,
-                 design=None, tiles=TILES):
+                 design=None, plan=None):
         with profiling.span("stencil.setup"):
             self._setup(v, w, lft, weights, in_deg, params, offsets, design,
-                        tiles)
+                        plan)
 
     def _setup(self, v, w, lft, weights, in_deg, params, offsets, design,
-               tiles):
+               plan):
         _check(v, w, lft, weights, in_deg, params, offsets, 0, 1)
         dev = v.device
         if dev.type not in ("cpu", "cuda"):
@@ -291,7 +444,8 @@ class StencilRun:
 
         n_blocks = model_kernels.sm_count(dev) if cuda else CPU_SM_COUNT
         self.design, self.plan = route(v.shape, offsets, n_blocks, scalars,
-                                       design, tiles)
+                                       design, plan)
+        self.streamed = isinstance(self.plan, StreamPlan)
         if cuda:
             from .. import _build
             _check_library(_build.load())
@@ -321,7 +475,7 @@ class StencilRun:
             return self._steps(clock0, n_steps, emit)
 
     def _steps(self, clock0, n_steps, emit):
-        global LAUNCHES, STEP_LAUNCHES
+        global LAUNCHES, STEP_LAUNCHES, STREAMED_CALLS
         model_kernels.check_clock(clock0, n_steps)
         n_steps = int(n_steps)
         s = self.sets
@@ -349,14 +503,19 @@ class StencilRun:
                     None if v_pre is None else v_pre.data_ptr(),
                     *s.tail(clock0, n_steps))
             entry = "izh_stencil_steps"
-            if self.design == "tiled":
+            if self.design == "tiled" and self.streamed:
                 p = self.plan
                 entry = "izh_stencil_tiled"
+                args += (p.tw, p.seg, p.kb, p.r, p.threads)
+            elif self.design == "tiled":
+                p = self.plan
+                entry = "izh_stencil_tiled2d"
                 args += (p.th, p.tw, p.kb, p.threads, p.cpt)
         STEP_LAUNCHES += s.launch(entry, args, out,
                                   f"the stencil kernel ({self.design})")
         LAUNCHES += 1
         DESIGN_CALLS[self.design] += 1
+        STREAMED_CALLS += self.streamed
         carried, lft = s.outputs(out)
         return carried["v"], carried["w"], lft, carried["is_spiking"], v_pre
 

@@ -1,11 +1,14 @@
 """The stencil kernel's three designs (``ops.stencil_kernels``: the
 persistent design of ``csrc/model_stencil.cu`` kind Izh, the tiled design
 and the per-step design of ``csrc/izhikevich_stencil.cu``) on the CPU: the
-route rule per shape, stencil and uniformity, the tiled design's tile
-invariants, `StencilRun` against per-call `izhikevich_stencil_steps`, one
-run per `Lattice.run_lattice` chunk with one uniform check, and the twin
-against the JAX package's row-tiled kernel in interpret mode at the tile
-the port's plan picks; on a CUDA card only, each design against the twin.
+route rule per shape, stencil and uniformity, the tiled design's streamed
+plan (budget, rings, coverage, the card's SMs, fallbacks) and its schedule
+replayed on the CPU against the twin (``tests/stream_replay.py``), the 2-D
+tiles' invariants, `StencilRun` against per-call `izhikevich_stencil_steps`,
+one run per `Lattice.run_lattice` chunk with one uniform check, and the
+twin against the JAX package's row-tiled kernel in interpret mode at the
+port's plan; on a CUDA card only, each design against the twin
+(``tests/test_torch_stencil_cuda.py`` holds the streamed design's).
 
 Tolerance: bit for bit (floats compared as their int32 bits) between the
 port's own routes, which share every association; rtol 1e-6, atol 1e-5
@@ -25,6 +28,7 @@ from spiking_neural_networks_tpu.ops import pallas_stencil as jps
 from spiking_neural_networks_tpu_torch.ops import model_kernels as mk
 from spiking_neural_networks_tpu_torch.ops import stencil_kernels as sk
 from torch_lattices import bits_equal
+from stream_replay import replay
 
 torch.set_num_threads(1)
 
@@ -97,7 +101,7 @@ def test_route_per_shape_and_uniformity(shape, uniform, want):
     if design == "persistent":
         assert plan == sk.persistent_plan(shape, 12, H100_SMS)
     elif design == "tiled":
-        assert plan == sk.tile_plan(RADIUS2)
+        assert plan == sk.stream_plan(shape, RADIUS2, H100_SMS)
     else:
         assert plan is None
 
@@ -195,6 +199,192 @@ def test_a_lattice_edited_with_apply_leaves_the_tiled_design():
     assert sk.uniform_scalars(planes()) is None
     assert sk.route((2048, 2048), lat.graph.offsets, H100_SMS,
                     lambda: sk.uniform_scalars(planes()))[0] == "per_step"
+
+
+# -- the tiled design's streamed plan -----------------------------------------
+
+# the main paths' shapes and the sharded composition's blocks (4096^2 over 4
+# row shards: interior blocks carry 32 ghost rows on each side, edge blocks
+# on one)
+STREAM_SHAPES = ((736, 736), (1024, 1024), (2048, 2048), (4096, 4096),
+                 (1088, 4096), (1056, 4096), (33, 70), (130, 100), (1, 1))
+# every stencil the tiled design takes: the radius discs to 4 and the
+# widest the kernel holds (64 offsets of reach 4)
+WIDEST_4 = tuple((dr, dc) for dr in range(-4, 5) for dc in range(-4, 5)
+                 if (dr, dc) != (0, 0))[:64]
+STREAM_STENCILS = {1.0: snt.radius_offsets(1.0), 1.5: snt.radius_offsets(1.5),
+                   2.0: RADIUS2, 3.0: snt.radius_offsets(3.0),
+                   4.0: snt.radius_offsets(4.0), "widest": WIDEST_4}
+
+
+@pytest.mark.parametrize("stencil", list(STREAM_STENCILS))
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_stream_plan_fits_budget_and_threads(shape, stencil):
+    offsets = STREAM_STENCILS[stencil]
+    plan = sk.stream_plan(shape, offsets, H100_SMS)
+    pad = sk.stencil_pad(offsets)
+    assert plan is not None and plan.kb in sk.STREAM_KBS
+    assert plan.pad == pad and plan.r == max(pad, 1) and plan.r >= pad
+    assert plan.halo == plan.kb * pad and plan.lw == plan.tw + 2 * plan.halo
+    assert plan.stride == sk.weight_stride(len(offsets))
+    assert plan.smem == sk.stream_smem(plan.kb, plan.r, pad, plan.stride,
+                                       plan.lw) <= sk.SMEM_BUDGET
+    assert plan.r * plan.lw <= plan.threads <= sk.STREAM_THREADS
+    assert plan.threads % 32 == 0 and plan.threads - 32 < plan.r * plan.lw
+
+
+@pytest.mark.parametrize("kb", sk.STREAM_KBS)
+@pytest.mark.parametrize("pad", [0, 1, 2, 3, 4])
+def test_stream_rings_hold_kb_pad_plus_r_rows(kb, pad):
+    """The weights' ring holds the rows of levels 1..kb and the r rows in
+    flight: kb * pad + r at r = pad; the v rings each level's windows and
+    newest rows; the smem formula counts them, each v ring twice."""
+    r = max(pad, 1)
+    wring, v0, lv = sk.stream_rings(kb, r, pad)
+    assert wring == (kb + 1) * r and v0 == 3 * r + pad and lv == 2 * r + pad
+    if pad:
+        assert wring == kb * pad + r
+    stride = sk.weight_stride(12)
+    assert sk.stream_smem(kb, r, pad, stride, 10) == 4 * 10 * (
+        wring * stride + 2 * v0 + (kb - 1) * 2 * lv)
+
+
+@pytest.mark.parametrize("n_off,want", [(0, 0), (1, 4), (4, 4), (8, 12),
+                                        (12, 12), (16, 20), (20, 20),
+                                        (28, 28), (48, 52), (64, 68)])
+def test_weight_stride_is_an_odd_count_of_16_byte_words(n_off, want):
+    assert sk.weight_stride(n_off) == want
+
+
+@pytest.mark.parametrize("stencil", [1.0, 2.0, 4.0])
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_stream_interiors_cover_each_cell_once(shape, stencil):
+    """The launch grid's interiors (the C entry's: ceil(cols / tw) x
+    ceil(rows / seg) blocks, interiors clipped) partition the lattice."""
+    plan = sk.stream_plan(shape, STREAM_STENCILS[stencil], H100_SMS)
+    rows, cols = shape
+    assert plan.strips == -(-cols // plan.tw)
+    assert plan.segments == -(-rows // plan.seg)
+    cover = np.zeros(shape, np.int32)
+    for by in range(plan.segments):
+        for bx in range(plan.strips):
+            cover[by * plan.seg:(by + 1) * plan.seg,
+                  bx * plan.tw:(bx + 1) * plan.tw] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (2048, 2048), (4096, 4096),
+                                   (1088, 4096), (1056, 4096)])
+def test_stream_grid_fills_the_card(shape):
+    """One block an SM, in one wave, on at least 9 SMs of 10."""
+    plan = sk.stream_plan(shape, RADIUS2, H100_SMS)
+    blocks = plan.strips * plan.segments
+    assert 0.9 * H100_SMS <= blocks <= H100_SMS
+    assert 2 * plan.smem > sk.SMEM_BUDGET      # so one block an SM
+
+
+def test_stream_plan_falls_back(monkeypatch):
+    # past TILE_MAX_PAD nothing tiles; where no strip fits the budget the
+    # 2-D tiles take it
+    assert sk.stream_plan((2048, 2048), WIDE_OFFSETS, H100_SMS) is None
+    assert sk.tiled_plan((2048, 2048), WIDE_OFFSETS, H100_SMS) is None
+    assert sk.stream_plan((2048, 2048), RADIUS2, H100_SMS,
+                          budget=2000) is None
+    monkeypatch.setattr(sk, "stream_plan", lambda *a, **k: None)
+    assert sk.tiled_plan((2048, 2048), RADIUS2, H100_SMS) \
+        == sk.tile_plan(RADIUS2)
+    design, plan = sk.route((2048, 2048), RADIUS2, H100_SMS, lambda: SCALARS)
+    assert (design, plan) == ("tiled", sk.tile_plan(RADIUS2))
+    run = sk.StencilRun(*args(inputs(40, 40, seed=2)),
+                        plan=sk.tile_plan(RADIUS2))
+    assert run.design == "tiled" and not run.streamed
+
+
+@pytest.mark.parametrize("stencil,want", [
+    (1.0, "TilePlan"), (1.5, "TilePlan"), (2.0, "StreamPlan"),
+    (3.0, "StreamPlan"), (4.0, "StreamPlan"), ("widest", "StreamPlan")])
+def test_reach_1_takes_the_2d_tiles(stencil, want):
+    """A reach of 1 gives a level too few cells for the streamed plan's
+    barriers: its tiled plan is the 2-D tiles'."""
+    offsets = STREAM_STENCILS[stencil]
+    plan = sk.tiled_plan((2048, 2048), offsets, H100_SMS)
+    assert type(plan).__name__ == want
+    if want == "TilePlan":
+        assert plan == sk.tile_plan(offsets)
+    else:
+        assert plan == sk.stream_plan((2048, 2048), offsets, H100_SMS)
+
+
+def test_the_kernels_radius_2_table_is_the_disc():
+    """The C entry gives the radius-2 disc, in radius_offsets' order, its
+    own instantiation (compile-time column offsets): its table must be
+    that disc."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(sk.__file__), os.pardir, "csrc",
+                            "izhikevich_stencil.cu")).read()
+    table = {}
+    for name in ("R2_DR", "R2_DC"):
+        got = re.findall(name + r"\[12\] = \{([^}]*)\}", src)
+        assert len(got) == 1, name
+        table[name] = [int(x) for x in got[0].split(",")]
+    assert tuple(zip(table["R2_DR"], table["R2_DC"])) == RADIUS2
+    got = re.findall(r"r2_(dr|dc)\[12\] = \{([^}]*)\}", src)
+    assert [[int(x) for x in v.split(",")] for _, v in got] \
+        == [table["R2_DR"], table["R2_DC"]]
+
+
+@pytest.mark.parametrize("shape,stencil,n_sm,k,emit", [
+    ((33, 70), 2.0, 6, 17, True), ((20, 23), 1.0, 4, 9, False),
+    ((30, 26), 3.0, 5, 7, True), ((26, 31), 4.0, 3, 5, False),
+    ((45, 70), 2.0, 7, 16, True), ((37, 29), 1.5, 3, 17, False),
+    ((50, 41), "widest", 4, 3, True), ((70, 33), 2.0, 132, 2, False)])
+def test_stream_schedule_replay_matches_twin(shape, stencil, n_sm, k, emit):
+    """The kernel's schedule (rings, levels, carried state), replayed on
+    the CPU with each slot checked for the row it holds, gives the twin's
+    bits at the plan the card would take."""
+    offsets = STREAM_STENCILS[stencil]
+    inp = inputs(*shape, seed=3, offsets=offsets)
+    plan = sk.stream_plan(shape, offsets, n_sm)
+    got = replay(plan, *args(inp), 40, k, emit)
+    want = sk.izhikevich_stencil_steps_reference(*args(inp), 40, k, emit)
+    assert all(bits_equal(g, x) for g, x in zip(got[:4], want[:4]))
+    if emit:
+        assert bits_equal(got[4], want[4])
+
+
+@pytest.mark.parametrize("kb", sk.STREAM_KBS)
+def test_stream_replay_partial_strips_and_segments(kb):
+    """Strips and segments that do not divide the lattice: the last of
+    each is clipped."""
+    inp = inputs(37, 50, seed=6)
+    halo = kb * 2
+    tw, seg = 16, 10
+    lw = tw + 2 * halo
+    plan = sk.StreamPlan(kb, 2, 2, tw, seg, halo, lw, 12, 4, 4,
+                         32 * -(-2 * lw // 32),
+                         sk.stream_smem(kb, 2, 2, 12, lw))
+    got = replay(plan, *args(inp), 3, 17, True)
+    want = sk.izhikevich_stencil_steps_reference(*args(inp), 3, 17, True)
+    assert all(bits_equal(g, x) for g, x in zip(got, want))
+
+
+@pytest.mark.parametrize("ring", [0, 1, 2])
+def test_stream_replay_catches_a_shallow_ring(monkeypatch, ring):
+    """Each ring one row shallower than `stream_rings` gives: the replay
+    finds a slot overwritten before its last read."""
+    real = sk.stream_rings
+
+    def shallow(kb, r, pad):
+        depth = list(real(kb, r, pad))
+        depth[ring] -= 1
+        return tuple(depth)
+
+    inp = inputs(45, 70, seed=3)
+    plan = sk.stream_plan((45, 70), RADIUS2, 7)
+    monkeypatch.setattr(sk, "stream_rings", shallow)
+    with pytest.raises(AssertionError):
+        replay(plan, *args(inp), 40, 16)
 
 
 # -- the tiled design's tiles -------------------------------------------------
@@ -408,23 +598,25 @@ def test_runner_matches_chained_twin():
 
 @pytest.mark.parametrize("n_steps", [None, 3])
 def test_twin_matches_jax_tiled_kernel_at_the_ports_tile(n_steps):
-    """The JAX kernel tiles rows only; at the port's plan (48-row interior,
-    halo 8 = K_b x pad, K_b = 4 steps a launch) it runs where 48 divides
-    the rows.  Fewer steps than K_b (3) keep the same halo."""
-    plan = sk.tile_plan(RADIUS2)
+    """The JAX kernel tiles rows only; at the port's streamed plan on a
+    2-SM card (one strip, two segments of ``seg`` rows, halo kb x pad,
+    kb steps a launch) it runs with ``seg``-row tiles.  Fewer steps than
+    kb (3) keep the same halo."""
+    rows, cols = 96, 128
+    plan = sk.stream_plan((rows, cols), RADIUS2, 2)
+    assert (plan.strips, plan.segments, plan.seg) == (1, 2, rows // 2)
     k = plan.kb if n_steps is None else n_steps
-    rows, cols = 2 * plan.th, 128
     inp = inputs(rows, cols, seed=8)
     wst_ov, ind_ov = jps.tiled_overlap_weights(
         jnp.asarray(inp["weights"].numpy()),
-        jnp.asarray(inp["in_deg"].numpy()), plan.th, plan.halo)
+        jnp.asarray(inp["in_deg"].numpy()), plan.seg, plan.halo)
     pvec = jnp.asarray(SCALARS, jnp.float32)
     v, w, lft, spk = jps.fused_izhikevich_multistep_tiled(
         jnp.asarray(inp["v"].numpy()), jnp.asarray(inp["w"].numpy()),
         jnp.asarray(inp["lft"].numpy()), wst_ov, ind_ov, pvec, 40,
-        offsets=inp["offsets"], n_steps=k, tile_r=plan.th, halo=plan.halo)
-    run = sk.StencilRun(*args(inp), design="tiled")
-    assert run.plan == plan
+        offsets=inp["offsets"], n_steps=k, tile_r=plan.seg, halo=plan.halo)
+    run = sk.StencilRun(*args(inp), plan=plan)
+    assert (run.design, run.plan, run.streamed) == ("tiled", plan, True)
     tv, tw, tlft, tspk, _ = run.steps(40, k)
     np.testing.assert_allclose(tv.numpy(), np.asarray(v), rtol=1e-6,
                                atol=1e-5)
@@ -432,6 +624,10 @@ def test_twin_matches_jax_tiled_kernel_at_the_ports_tile(n_steps):
                                atol=1e-5)
     np.testing.assert_array_equal(tlft.numpy(), np.asarray(lft))
     np.testing.assert_array_equal(tspk.numpy(), np.asarray(spk) > 0)
+    # the streamed schedule itself gives the twin's bits here
+    got = replay(plan, *args(inp), 40, k)
+    assert all(bits_equal(g, x) for g, x in zip(got[:4], (tv, tw, tlft,
+                                                         tspk)))
 
 
 # -- on a CUDA card only ------------------------------------------------------
@@ -500,7 +696,7 @@ def test_cuda_run_buffers_alternate(design):
 def test_cuda_tiles_match_twin(tile):
     _needs_cuda()
     inp = inputs(130, 100, seed=10, device="cuda")
-    run = sk.StencilRun(*args(inp), design="tiled", tiles=(tile,))
+    run = sk.StencilRun(*args(inp), plan=sk.tile_config(*tile, inp["offsets"]))
     got = run.steps(5, 17, True)
     want = sk.izhikevich_stencil_steps_reference(*args(inp), 5, 17, True)
     assert all(bits_equal(g, x) for g, x in zip(got, want))
