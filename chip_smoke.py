@@ -111,8 +111,8 @@ Phases, one line each:
 3. the stencil kernel vs its plain twin on the card, at 64^2, 130 x 100,
    256^2, 512^2 (with emission too), 700^2, 1024^2, 2048^2 (uniform and
    per-neuron parameters) and 4096^2 in the routed design, so at every
-   main path's shape in its design: lft and spikes equal, v, w and v_pre
-   within rtol 1e-6, atol 1e-5 (in fact bit-equal);
+   main path's shape in its design: lft, spikes and the bits of v and w
+   equal, v_pre within rtol 1e-6, atol 1e-5;
    per-step times and bounds at 512^2 (K = 1 and 16) and 2048^2 (K = 8
    and 16); then each design (persistent, tiled, per step) on 33 x 70,
    130 x 100 and 256^2 x radius 1, 2 and 3 x emit off and on, a chain of
@@ -127,10 +127,10 @@ Phases, one line each:
    of the persistent design, counted by the C entry and in the profiler's
    records), 64 steps with a grid history, 1024^2, 2048^2 and 4096^2 for
    256 steps (the tiled design, ceil(16 / K_b) launches a call, every call
-   on the streamed plan by `STREAMED_CALLS`), 2048^2
-   with per-neuron parameters for 64 steps (the per-step design, held bit
-   for bit against the twin from the same state): routes, finite v,
-   neurons fired;
+   on the streamed plan by `STREAMED_CALLS`) and 2048^2 with per-neuron
+   parameters for 64 steps (the per-step design), the tiled and the
+   per-step runs held bit for bit against the twin from the same state:
+   routes, finite v, neurons fired;
 5. 128^2 for 1000 steps: the stencil kernel route on the card against the
    same fused route on the CPU, within the reference's CPU-vs-GPU
    criterion (2 mV, 2 steps), and against the plain route on the card,
@@ -142,8 +142,8 @@ Phases, one line each:
    tiles beside the streamed plan (wall, events, device time, kernel
    records against the launches the C entry counted, modelled bytes), the
    persistent design with and without emission at 512^2, the streamed
-   plan against the 2-D tiles at 2048^2 for radius 1, 3 and 4, and each
-   tile of `TILE_TRIALS` at 2048^2;
+   plan against the 2-D tiles (`TILES2D`) at 2048^2 for radius 1, 1.5, 3
+   and 4, and each tile of `TILE_TRIALS` at 2048^2;
 7. the plasticity kernels vs their plain twin on the card, the fused
    schedule and the per-step design each: every kind x model at 64^2
    (K = 16 and 7) and on 33 x 70 (K = 1, 2 and 17), 130 x 100 with
@@ -530,11 +530,16 @@ TURN_SHAPES_STENCIL = (MAIN, (700, 700), (736, 736), (1024, 1024), BIG,
 # and 32 ghost rows on one side or both)
 STREAM_SHAPES = ((736, 736), (1024, 1024), BIG, (4096, 4096), (1056, 4096),
                  (1088, 4096))
-# the tiled design's tiles (interior rows, interior columns, K_b) timed
-# against each other at 2048^2; `sk.TILES` routes the fastest
+# the tiled design's 2-D tiles (interior rows, interior columns, K_b) timed
+# against each other at 2048^2, radius 2 (the fastest, (48, 48, 4), is
+# `sk.TILE`, which a reach of 1 takes)
 TILE_TRIALS = ((48, 48, 4), (28, 28, 4), (56, 56, 2), (32, 32, 4),
                (40, 40, 3), (24, 24, 4), (32, 32, 2), (16, 16, 2),
                (16, 16, 1))
+# the 2-D tile timed beside the streamed plan at each stencil reach: the
+# tiled design's plan there before the streamed one (at 2 the fastest of
+# TILE_TRIALS, at 3 and 4 the widest that fits the shared memory)
+TILES2D = {1: (48, 48, 4), 2: (48, 48, 4), 3: (32, 32, 2), 4: (16, 16, 2)}
 # the TPU kernel each design replaces: the whole-lattice multistep kernel
 # (persistent), the row-tiled one (tiled), the per-step one (per step)
 REPLACES = {"persistent": "spiking_neural_networks_tpu/ops/"
@@ -1286,7 +1291,8 @@ def stencil_twin_phase(snt, sk, smi):
             f"max|dw| {dw:.3g} max|dv_pre| {dpre:.3g} lft mismatches "
             f"{lft_bad} spike mismatches {spk_bad} float bits differing "
             f"{nbits} fired {int(got[3].sum())}")
-        check(lft_bad == 0 and spk_bad == 0, "lft or spikes differ")
+        check(lft_bad == 0 and spk_bad == 0 and nbits == 0,
+              "lft, spikes or float bits differ")
         for g, w_ in zip(got[:2] + ((got[4],) if emit else ()),
                          want[:2] + ((want[4],) if emit else ())):
             torch.testing.assert_close(g, w_, rtol=RTOL, atol=ATOL)
@@ -1351,8 +1357,8 @@ def stencil_twin_phase(snt, sk, smi):
     say(f"[3 plan] {sms} SMs, radius 2: 512^2 "
         f"{sk.persistent_plan(MAIN, 12, sms)}; 700^2 "
         f"{sk.persistent_plan((700, 700), 12, sms)}; 1024^2 "
-        f"{sk.persistent_plan((1024, 1024), 12, sms)}; 2-D tile "
-        f"{sk.tile_plan(r2)}")
+        f"{sk.persistent_plan((1024, 1024), 12, sms)}; 2-D tile at a reach "
+        f"of 1 {sk.tile_plan(snt.radius_offsets(1.0))}")
     for shape in STREAM_SHAPES:
         p = sk.stream_plan(shape, r2, sms)
         say(f"[3 streamed] {shape[0]}x{shape[1]} radius 2: {p}; "
@@ -1374,6 +1380,32 @@ def hetero_lattice(snt, rows, cols):
     lat.apply(lambda s: {**s, **{k: torch.as_tensor(
         x, dtype=torch.float32, device=lat.device) for k, x in draw.items()}})
     return lat
+
+
+def tiles2d(sk, offsets):
+    """The 2-D tiles' plan (`TILES2D`) timed beside the streamed plan for
+    ``offsets``."""
+    return sk.tile_config(*TILES2D[sk.stencil_pad(offsets)], offsets)
+
+
+def twin_bits(sk, lat, st0, clock, n_steps):
+    """Bits of v, w, lft and spikes in which ``lat``'s state after a run
+    of ``n_steps`` steps from the state ``st0`` at ``clock`` differs from
+    the twin's, run on the card from ``st0`` in the runner's calls of
+    `STEPS_PER_LAUNCH` steps."""
+    shape = (lat.rows, lat.cols)
+    plane = lambda k: st0[k].reshape(shape)
+    params = {k: plane(k) for k in sk.PARAM_ORDER}
+    v, w, lft = plane("v"), plane("w"), plane("last_firing_time")
+    g = lat.graph
+    for _ in range(n_steps // sk.STEPS_PER_LAUNCH):
+        v, w, lft, spk, _ = sk.izhikevich_stencil_steps_reference(
+            v, w, lft, g.weights, g.in_deg, params, g.offsets, clock,
+            sk.STEPS_PER_LAUNCH)
+        clock += sk.STEPS_PER_LAUNCH
+    got = [lat.state[k].reshape(shape)
+           for k in ("v", "w", "last_firing_time", "is_spiking")]
+    return sum(bits_differ(a, b) for a, b in zip(got, (v, w, lft, spk)))
 
 
 def reset_stencil_counts(sk):
@@ -1446,6 +1478,8 @@ def stencil_main_phase(snt, sk):
     del lat
     for shape in TILED_MAINS:
         big = main_lattice(snt, *shape)
+        st0 = {k: x.clone() for k, x in big.state.items()}
+        clock = big.internal_clock
         reset_stencil_counts(sk)
         big.run_lattice(BIG_STEPS)
         torch.cuda.synchronize()
@@ -1457,6 +1491,7 @@ def stencil_main_phase(snt, sk):
                              sk.model_kernels.sm_count(torch.device("cuda")))
         bv = big.state["v"]
         bfired = int((big.state["last_firing_time"] >= 0).sum())
+        nbits = twin_bits(sk, big, st0, clock, BIG_STEPS)
         say(f"[4 main path] {shape[0]}x{shape[1]} run_lattice({BIG_STEPS}): "
             f"route {big._last_run_fused}, calls by design {designs}, "
             f"of them on the streamed plan {streamed}, "
@@ -1464,7 +1499,8 @@ def stencil_main_phase(snt, sk):
             f"({steps / max(calls, 1):.2f} a call; plan {plan}), v finite "
             f"{bool(torch.isfinite(bv).all())}, v range "
             f"[{bv.min().item():.3f}, {bv.max().item():.3f}], fired "
-            f"{bfired} of {big.n}")
+            f"{bfired} of {big.n}; against the twin from the same state: "
+            f"bits differing in v, w, lft, spikes {nbits}")
         n_calls = math.ceil(BIG_STEPS / sk.STEPS_PER_LAUNCH)
         check(big._last_run_fused == ("kernel", False)
               and designs["tiled"] == calls == n_calls
@@ -1474,7 +1510,8 @@ def stencil_main_phase(snt, sk):
         check(streamed == calls and isinstance(plan, sk.StreamPlan),
               f"the {shape} main path missed the streamed plan: {streamed} "
               f"of {calls} calls")
-        del big
+        check(nbits == 0, f"the {shape} main path differs from the twin")
+        del big, st0
     het = hetero_lattice(snt, *BIG)
     st0, clock = dict(het.state), het.internal_clock
     reset_stencil_counts(sk)
@@ -1483,19 +1520,7 @@ def stencil_main_phase(snt, sk):
     launches["per_step"] += sk.STEP_LAUNCHES
     calls, steps = sk.LAUNCHES, sk.STEP_LAUNCHES
     designs = dict(sk.DESIGN_CALLS)
-    # the twin from the same state, in the runner's calls of 16 steps
-    plane = lambda k: st0[k].reshape(BIG)
-    params = {k: plane(k) for k in sk.PARAM_ORDER}
-    v, w, lft = plane("v"), plane("w"), plane("last_firing_time")
-    g = het.graph
-    for _ in range(HETERO_STEPS // sk.STEPS_PER_LAUNCH):
-        v, w, lft, spk, _ = sk.izhikevich_stencil_steps_reference(
-            v, w, lft, g.weights, g.in_deg, params, g.offsets, clock,
-            sk.STEPS_PER_LAUNCH)
-        clock += sk.STEPS_PER_LAUNCH
-    got = [het.state[k].reshape(BIG)
-           for k in ("v", "w", "last_firing_time", "is_spiking")]
-    nbits = sum(bits_differ(a, b) for a, b in zip(got, (v, w, lft, spk)))
+    nbits = twin_bits(sk, het, st0, clock, HETERO_STEPS)
     hv = het.state["v"]
     hfired = int((het.state["last_firing_time"] >= 0).sum())
     say(f"[4 main path] {BIG[0]}x{BIG[1]} with per-neuron a, d, v_th, "
@@ -1510,7 +1535,7 @@ def stencil_main_phase(snt, sk):
           and bool(torch.isfinite(hv).all()) and hfired > 0,
           "bad run of the per-step design")
     check(nbits == 0, "the per-neuron main path differs from the twin")
-    del het, st0, params, v, w, lft, spk, got
+    del het, st0
     return launches
 
 
@@ -1588,12 +1613,15 @@ def stencil_bytes(sk, design, plan, shape, n_off, k):
 
 def stencil_times_phase(snt, sk, smi):
     """6. Wall time per step of the main paths (median of 5 after a
-    warm-up; the plain route at 512^2 over `PLAIN_TIME_STEPS`); the designs in turns on one
-    `StencilRun` each at `TURN_SHAPES_STENCIL` (uniform parameters, radius
-    2: wall, events, device time under torch.profiler with every kernel
-    record counted, the launches the C entry counted, modelled bytes);
-    the persistent design with and without emission at 512^2; every tile
-    of `TILE_TRIALS` at 2048^2.  Returns {shape: {design: times}}."""
+    warm-up; the plain route at 512^2 over `PLAIN_TIME_STEPS`); the
+    designs in turns on one `StencilRun` each at `TURN_SHAPES_STENCIL`
+    (uniform parameters, radius 2: wall, events, device time under
+    torch.profiler with every kernel record counted, the launches the C
+    entry counted, modelled bytes), the 2-D tiles beside the streamed plan
+    where the tiled design takes the shape; the persistent design with and
+    without emission at 512^2; every tile of `TILE_TRIALS` at 2048^2; the
+    streamed plan against the 2-D tiles at 2048^2 at the other reaches.
+    Returns {shape: {design: times}}."""
     def warm(shape, use_kernel, steps):
         lat = main_lattice(snt, *shape, use_kernel=use_kernel)
         run_synced(lat, steps)
@@ -1642,7 +1670,7 @@ def stencil_times_phase(snt, sk, smi):
             runs["tiles2d"] = sk.StencilRun(
                 inp["v"], inp["w"], inp["lft"], inp["weights"],
                 inp["in_deg"], inp["params"], inp["offsets"],
-                plan=sk.tile_plan(inp["offsets"]))
+                plan=tiles2d(sk, inp["offsets"]))
         routed = sk.route(shape, inp["offsets"], sms,
                           lambda: sk.uniform_scalars(inp["params"]))[0]
         counted = {}
@@ -1699,17 +1727,20 @@ def stencil_times_phase(snt, sk, smi):
                            {str(t): r.launches(K) for t, r in runs.items()},
                            K, reps=5)
     # the other stencils the tiled design takes, streamed plan against the
-    # 2-D tiles
-    for radius in (1.0, 3.0, 4.0):
+    # 2-D tiles (the route takes the 2-D tile at a reach of 1, the
+    # streamed plan at 3 and 4)
+    for radius in (1.0, 1.5, 3.0, 4.0):
         rin = kernel_inputs(snt, *BIG, 63, True, radius)
         rr = {"streamed": sk.StencilRun(
                   rin["v"], rin["w"], rin["lft"], rin["weights"],
                   rin["in_deg"], rin["params"], rin["offsets"],
-                  design="tiled"),
+                  plan=sk.stream_plan(BIG, rin["offsets"], sms)),
               "tiles2d": sk.StencilRun(
                   rin["v"], rin["w"], rin["lft"], rin["weights"],
                   rin["in_deg"], rin["params"], rin["offsets"],
-                  plan=sk.tile_plan(rin["offsets"]))}
+                  plan=tiles2d(sk, rin["offsets"]))}
+        check(rr["streamed"].streamed and not rr["tiles2d"].streamed,
+              f"radius {radius}: the plans were not taken")
         rres = designs_in_turns({k: (lambda r=r: r.steps(0, K))
                                  for k, r in rr.items()},
                                 {k: r.launches(K) for k, r in rr.items()}, K,
@@ -7821,7 +7852,7 @@ def sharded_main_phase(snt, sk, smi):
         ref = (hetero_lattice if hetero else main_lattice)(snt, *shape)
         lat = copy.deepcopy(ref)
         # the tiled blocks on the 2-D tiles too, timed in turns below
-        tiles2d = copy.deepcopy(ref) if design == "tiled" else None
+        tiles_run = copy.deepcopy(ref) if design == "tiled" else None
         ref.run_lattice(steps)
         check(ref._last_run_fused == ("kernel", False),
               f"{shape}: the unsharded run missed the kernel route")
@@ -7873,16 +7904,16 @@ def sharded_main_phase(snt, sk, smi):
             check(streamed == calls,
                   f"{shape}: {streamed} of {calls} sharded calls took the "
                   f"streamed plan")
-            # the same sharded run on the 2-D tiles (the streamed plan
-            # withheld while its blocks build their runs), in turns
-            real = sk.stream_plan
-            sk.stream_plan = lambda *a, **k: None
+            # the same sharded run on the 2-D tiles (the tiled plan
+            # replaced while its blocks build their runs), in turns
+            real = sk.tiled_plan
+            sk.tiled_plan = lambda shape, offsets, n_sm: tiles2d(sk, offsets)
             try:
-                tiles2d.shard(mesh)
-                tiles2d.run_lattice(steps)
+                tiles_run.shard(mesh)
+                tiles_run.run_lattice(steps)
             finally:
-                sk.stream_plan = real
-            check(sum(bits_differ(first[k], tiles2d.state[k])
+                sk.tiled_plan = real
+            check(sum(bits_differ(first[k], tiles_run.state[k])
                       for k in first) == 0,
                   f"{shape}: the sharded 2-D tiles differ")
             # the blocks keep their runs (and plans) while their state is
@@ -7891,16 +7922,16 @@ def sharded_main_phase(snt, sk, smi):
             lat.use_kernel = None
             lat.run_lattice(steps)
             runs = [lambda: lat.run_lattice(steps),
-                    lambda: tiles2d.run_lattice(steps)]
+                    lambda: tiles_run.run_lattice(steps)]
             t = [timed_run(runs[j], steps) for j in (0, 1, 1, 0)]
             say(f"[51 sharded] {shape[0]}x{shape[1]} over {SHARDS} shards, "
                 f"the tiled blocks in turns, us/step wall / CUDA events: "
                 f"streamed plan ({plan}) {(t[0][0] + t[3][0]) / 2:.2f} / "
                 f"{(t[0][1] + t[3][1]) / 2:.2f}, 2-D tiles "
-                f"({sk.tile_plan(lat.graph.offsets)}) "
+                f"({tiles2d(sk, lat.graph.offsets)}) "
                 f"{(t[1][0] + t[2][0]) / 2:.2f} / "
                 f"{(t[1][1] + t[2][1]) / 2:.2f} ({smi})")
-            del tiles2d
+            del tiles_run
         check(tag == "sharded" and set(block_designs) == {design}
               and (k_steps, ghost) == (16, 32),
               f"{shape}: the sharded run took {lat._last_run_fused}")

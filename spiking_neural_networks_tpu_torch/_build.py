@@ -144,6 +144,8 @@ def load():
     lib.izh_stencil_steps.restype = ci
     lib.izh_stencil_limits.argtypes = [pi]
     lib.izh_stencil_limits.restype = None
+    lib.izh_stencil_r2.argtypes = [pi, pi]
+    lib.izh_stencil_r2.restype = None
     tiled = [
         vp, vp, vp,                         # v, w, lft
         vp, vp, pf,                         # weights, in_deg, scalars[9]

@@ -71,16 +71,16 @@
 //
 // 2-D tiles (izh_tiled_kernel<CPT>, ops/stencil_kernels.tile_plan; a
 // reach of 1, where a level's cells are too few for the streamed plan's
-// barriers, and wherever no streamed plan fits): block (bx, by) loads a
-// th x tw interior tile plus a halo of kb * pad cells into shared memory
-// (the weights and two v buffers; w, wsum, max(in_deg, 1), lft and the
-// on-grid mask in registers), runs kb steps behind __syncthreads(),
-// computing on step s only the cells within halo - (s + 1) * pad of the
-// interior (their neighbours were computed on step s - 1, so the interior
-// is exact), and writes the interior's v, w, lft, last-step spikes and,
-// when emitting, each step's pre-reset v.  What bounds it: its loads, not
-// overlapped with its arithmetic (one 1024-thread block an SM), and the
-// tile's weights re-read by neighbouring tiles.
+// barriers): block (bx, by) loads a th x tw interior tile plus a halo of
+// kb * pad cells into shared memory (the weights and two v buffers; w,
+// wsum, max(in_deg, 1), lft and the on-grid mask in registers), runs kb
+// steps behind __syncthreads(), computing on step s only the cells within
+// halo - (s + 1) * pad of the interior (their neighbours were computed on
+// step s - 1, so the interior is exact), and writes the interior's v, w,
+// lft, last-step spikes and, when emitting, each step's pre-reset v.  What
+// bounds it: its loads, not overlapped with its arithmetic (one
+// 1024-thread block an SM), and the tile's weights re-read by
+// neighbouring tiles.
 //
 // In both, halo cells are recomputed with the same ops, so the interior
 // keeps the twin's bits.
@@ -419,11 +419,20 @@ __host__ __device__ constexpr int weight_stride(int n_off)
     return (n_off + 3) / 4 * 4 + ((n_off + 3) / 4 % 2 == 0 && n_off ? 4 : 0);
 }
 
-// The radius-2 disc (ops/graph.radius_offsets(2.0)), in its order: the
+// The radius-2 disc (ops/graph.radius_offsets(2.0)), in its order: offset
+// o is (r2_dr(o), r2_dc(o)), on the host and in the kernel.  The
 // instantiation for it (R2 = true) reads each neighbour at a compile-time
 // column offset from one of 5 row bases.
-__device__ constexpr int R2_DR[12] = {-2, -1, -1, -1, 0, 0, 0, 0, 1, 1, 1, 2};
-__device__ constexpr int R2_DC[12] = {0, -1, 0, 1, -2, -1, 1, 2, -1, 0, 1, 0};
+__host__ __device__ constexpr int r2_dr(int o)
+{
+    const int dr[12] = {-2, -1, -1, -1, 0, 0, 0, 0, 1, 1, 1, 2};
+    return dr[o];
+}
+__host__ __device__ constexpr int r2_dc(int o)
+{
+    const int dc[12] = {0, -1, 0, 1, -2, -1, 1, 2, -1, 0, 1, 0};
+    return dc[o];
+}
 
 // Thread (i, c) = (tid / lw, tid % lw) holds column c of each level's r
 // rows.  Iteration t: wait for the copies of iteration t - 1 (the loaded v
@@ -603,7 +612,7 @@ izh_tiled_kernel_rows(const __grid_constant__ StreamP P)
                         for (int k = 0; k < 4; ++k) {
                             if (o4 + k >= n_off) break;
                             const float nb = R2
-                                ? win[R2_DR[o4 + k] * LW + R2_DC[o4 + k]]
+                                ? win[r2_dr(o4 + k) * LW + r2_dc(o4 + k)]
                                 : win[P.lin[o4 + k]];
                             acc = acc + qv[k] * nb;
                             if (l == 1) ws = ws + qv[k];
@@ -750,6 +759,16 @@ void izh_stencil_limits(int* out)
     out[3] = IZH_STREAM_THREADS;
 }
 
+// The radius-2 disc that izh_stencil_tiled gives its own instantiation:
+// offset o at (dr[o], dc[o]), 12 of them.
+void izh_stencil_r2(int* dr, int* dc)
+{
+    for (int o = 0; o < 12; ++o) {
+        dr[o] = r2_dr(o);
+        dc[o] = r2_dc(o);
+    }
+}
+
 // Runs n_steps steps as izh_stencil_steps does, in the tiled design's
 // streamed plan (ops/stencil_kernels.stream_plan): one launch per kb steps
 // (the last takes what is left), launch j writing buffer set j % 2, so the
@@ -802,11 +821,9 @@ int izh_stencil_tiled(
     P.dv = 2 * r + pad;
     for (int o = 0; o < n_off; ++o) P.lin[o] = dr[o] * P.lw + dc[o];
     // the radius-2 disc in its order takes its own instantiation
-    const int r2_dr[12] = {-2, -1, -1, -1, 0, 0, 0, 0, 1, 1, 1, 2};
-    const int r2_dc[12] = {0, -1, 0, 1, -2, -1, 1, 2, -1, 0, 1, 0};
     bool r2 = n_off == 12;
     for (int o = 0; r2 && o < 12; ++o)
-        r2 = dr[o] == r2_dr[o] && dc[o] == r2_dc[o];
+        r2 = dr[o] == r2_dr(o) && dc[o] == r2_dc(o);
     const size_t smem = (size_t)4 * P.lw * ((size_t)P.dw * P.stride
         + 2 * P.d0 + (size_t)(kb - 1) * 2 * P.dv);
     int dev, optin;
@@ -866,11 +883,11 @@ int izh_stencil_tiled(
 }
 
 // Runs n_steps steps as izh_stencil_tiled does, in the tiled design's 2-D
-// tiles (ops/stencil_kernels.tile_plan: a reach of 1, and where no
-// streamed plan fits): interior tiles of th x tw cells, each loaded with a
-// halo of kb * pad cells by a block of `threads` threads, cpt loaded cells a
-// thread.  *launched (when not null) gains one for each kernel launched.
-// Returns the first CUDA error, 0 if none.
+// tiles (ops/stencil_kernels.tile_plan: a reach of 1): interior tiles of
+// th x tw cells, each loaded with a halo of kb * pad cells by a block of
+// `threads` threads, cpt loaded cells a thread.  *launched (when not null)
+// gains one for each kernel launched.  Returns the first CUDA error, 0 if
+// none.
 int izh_stencil_tiled2d(
     const float* v, const float* w, const int* lft,
     const float* weights, const float* in_deg, const float* scalars,

@@ -15,12 +15,12 @@ function has three hand-written CUDA designs, routed by `route`:
 * tiled (``csrc/izhikevich_stencil.cu``): temporal blocking, K_b steps a
   launch, the parameters as 9 scalars, where every parameter plane is
   uniform and the stencil reaches at most `TILE_MAX_PAD` cells (1024^2
-  and up), on the plan of `tiled_plan`: streamed rows
-  (`izh_tiled_kernel_rows`, `stream_plan`: strips of columns marched down
-  r rows an iteration through shared-memory rings, each weight loaded
-  once a launch and the loads under the arithmetic) at a reach of 2 to 4,
-  else 2-D tiles (`izh_tiled_kernel`, `tile_plan`: a tile plus a K_b * pad
-  halo loaded, then computed);
+  and up), on the plan of `tiled_plan`, by the stencil's reach: streamed
+  rows (`izh_tiled_kernel_rows`, `stream_plan`: strips of columns marched
+  down r rows an iteration through shared-memory rings, each weight
+  loaded once a launch and the loads under the arithmetic) at a reach of 2
+  to 4, 2-D tiles (`izh_tiled_kernel`, `tile_plan`: a tile plus a K_b * pad
+  halo loaded, then computed) at a reach of 1;
 * per step (``csrc/izhikevich_stencil.cu``, `izh_stencil_step_kernel`):
   one launch a step with per-neuron planes, for the rest and for the
   comparison (``design="per_step"``).
@@ -56,12 +56,11 @@ TILE_THREADS = 1024       # IZH_TILE_THREADS: a tiled block's threads, at most
 TILE_MAX_CPT = 4          # IZH_TILE_MAX_CPT: loaded cells a tiled thread
 TILE_MAX_PAD = 4          # the widest stencil the tiled design takes (as the
                           # JAX package's multistep_tiled_config)
-# The tiled design's 2-D tiles, (interior rows, interior columns, steps a
-# launch), in the order `tile_plan` tries them: the plan at a stencil reach
-# of 1 and where no streamed plan fits (`tiled_plan`); (48, 48, 4) at a
-# reach of 1-2 (the fastest tile at 2048^2, radius 2, PERF.md section 6 row
-# 3), (32, 32, 2) at 3, (16, 16, 2) at 4.
-TILES = ((48, 48, 4), (32, 32, 2), (16, 16, 2))
+# The tiled design's 2-D tile at a stencil reach of 1 (`tile_plan`):
+# (interior rows, interior columns, steps a launch).  There it runs faster
+# than every streamed plan tried (PERF.md section 6 row 3); a reach of 2 to
+# 4 streams.
+TILE = (48, 48, 4)
 # The streamed plan's steps a launch (the kernel's instantiations, the most
 # first), the threads of a block at most (IZH_STREAM_THREADS), and its cost
 # model's rates, which only rank a kb's strip widths: an SM's cycles a
@@ -176,17 +175,11 @@ def tile_config(th, tw, kb, offsets, budget=SMEM_BUDGET):
                     smem)
 
 
-def tile_plan(offsets, budget=SMEM_BUDGET, tiles=TILES):
-    """The tiled design's 2-D tile for ``offsets``: the first of ``tiles``
-    that fits, or None where the stencil reaches farther than
-    `TILE_MAX_PAD` or no tile fits."""
-    if stencil_pad(offsets) > TILE_MAX_PAD:
-        return None
-    for th, tw, kb in tiles:
-        plan = tile_config(th, tw, kb, offsets, budget)
-        if plan is not None:
-            return plan
-    return None
+def tile_plan(offsets):
+    """The tiled design's 2-D tile (`TILE`) for ``offsets`` where the
+    stencil reaches at most 1 cell, else None."""
+    return tile_config(*TILE, offsets) if stencil_pad(offsets) <= 1 \
+        else None
 
 
 class StreamPlan(NamedTuple):
@@ -305,15 +298,12 @@ def stream_plan(shape, offsets, n_sm, budget=SMEM_BUDGET):
 
 
 def tiled_plan(shape, offsets, n_sm):
-    """The tiled design's plan: the streamed one (`stream_plan`) where the
-    stencil reaches 2 to `TILE_MAX_PAD` cells and it fits, else the 2-D
-    tiles' (`tile_plan`), else None.  A reach of 1 (4 or 8 offsets) takes
-    the 2-D tiles: there a level's cells are too few for the streamed
-    plan's barriers (58.7 against 62.9 us/step at 2048^2 on an H100,
-    PERF.md section 6 row 3)."""
-    plan = stream_plan(shape, offsets, n_sm) \
-        if stencil_pad(offsets) >= 2 else None
-    return plan or tile_plan(offsets)
+    """The tiled design's plan, by the stencil's reach: the 2-D tile
+    (`tile_plan`) at a reach of at most 1, the streamed plan
+    (`stream_plan`) at 2 to `TILE_MAX_PAD`, else None.  At a reach of 1 a
+    level's cells are too few for the streamed plan's barriers (PERF.md
+    section 6 row 3)."""
+    return tile_plan(offsets) or stream_plan(shape, offsets, n_sm)
 
 
 def persistent_plan(shape, n_off, n_blocks, budget=SMEM_BUDGET):
@@ -347,13 +337,15 @@ def uniform_scalars(params):
 def route(shape, offsets, n_blocks, scalars, design=None, plan=None):
     """``(design, plan)`` of a run: "persistent" and its `MsPlan` where
     `persistent_plan` holds the weights; else "tiled" and its plan
-    (`tiled_plan`: a `StreamPlan`, else a `TilePlan`) where the
+    (`tiled_plan`: a `TilePlan` or a `StreamPlan`) where the
     parameters are uniform (``scalars``: a callable giving
     `uniform_scalars`' result, called only here) and the stencil reaches
     at most `TILE_MAX_PAD`; else "per_step" and None.  ``design`` forces
     one (ValueError where it does not apply); ``plan`` forces the tiled
-    design with that plan."""
+    design with that plan (ValueError with another ``design``)."""
     if plan is not None:
+        if design not in (None, "tiled"):
+            raise ValueError(f"a tiled plan with design {design!r}")
         if stencil_pad(offsets) > TILE_MAX_PAD or scalars() is None:
             raise ValueError("a tiled plan needs uniform parameter planes "
                              f"and a stencil of reach <= {TILE_MAX_PAD}")

@@ -3,8 +3,9 @@ marker; skips without one): `izh_tiled_kernel_rows` against the plain twin,
 bit for bit, on 33 x 70, 130 x 100, 256^2, 736^2 and a block of the sharded
 composition (4096 columns, 1024 rows and 32 ghost rows each side), radius
 1 to 4, chained calls of K = 1, 2, 7, 16 and 17 on one `StencilRun`,
-emitting and not, with the launches the C entry counted; and the 2048^2
-main path through the streamed plan.  No JAX here: the file runs on the
+emitting and not, with the launches the C entry counted; the 2048^2
+main path through the streamed plan; and the radius-2 table of the
+kernel's own instantiation.  No JAX here: the file runs on the
 machine with the card.
 
     python -m pytest --noconftest -m cuda tests/test_torch_stencil_cuda.py
@@ -98,3 +99,16 @@ def test_main_path_takes_the_streamed_plan():
     torch.cuda.synchronize()
     assert sk.DESIGN_CALLS["tiled"] - before[0] == 2
     assert sk.STREAMED_CALLS - before[1] == 2
+
+
+@pytest.mark.cuda
+def test_the_kernels_radius_2_table_is_the_disc():
+    """The C entry gives the radius-2 disc, in radius_offsets' order, its
+    own instantiation (compile-time column offsets): its table, which the
+    kernel and the C entry share, must be that disc."""
+    _needs_cuda()
+    import ctypes
+    from spiking_neural_networks_tpu_torch import _build
+    dr, dc = (ctypes.c_int * 12)(), (ctypes.c_int * 12)()
+    _build.load().izh_stencil_r2(dr, dc)
+    assert tuple(zip(dr, dc)) == snt.radius_offsets(2.0)

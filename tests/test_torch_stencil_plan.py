@@ -2,9 +2,9 @@
 persistent design of ``csrc/model_stencil.cu`` kind Izh, the tiled design
 and the per-step design of ``csrc/izhikevich_stencil.cu``) on the CPU: the
 route rule per shape, stencil and uniformity, the tiled design's streamed
-plan (budget, rings, coverage, the card's SMs, fallbacks) and its schedule
-replayed on the CPU against the twin (``tests/stream_replay.py``), the 2-D
-tiles' invariants, `StencilRun` against per-call `izhikevich_stencil_steps`,
+plan (budget, rings, coverage, the card's SMs, the route by reach) and its
+schedule replayed on the CPU against the twin (``tests/stream_replay.py``),
+the 2-D tiles' invariants, `StencilRun` against per-call `izhikevich_stencil_steps`,
 one run per `Lattice.run_lattice` chunk with one uniform check, and the
 twin against the JAX package's row-tiled kernel in interpret mode at the
 port's plan; on a CUDA card only, each design against the twin
@@ -156,6 +156,16 @@ def test_forced_designs_that_do_not_apply_raise():
                     design="tiled")[0] == "tiled"
 
 
+@pytest.mark.parametrize("design", ["persistent", "per_step", "fast"])
+def test_a_tiled_plan_with_another_design_raises(design):
+    plan = sk.stream_plan((1024, 1024), RADIUS2, H100_SMS)
+    with pytest.raises(ValueError):
+        sk.route((1024, 1024), RADIUS2, H100_SMS, lambda: SCALARS,
+                 design=design, plan=plan)
+    assert sk.route((1024, 1024), RADIUS2, H100_SMS, lambda: SCALARS,
+                    design="tiled", plan=plan) == ("tiled", plan)
+
+
 def test_per_step_forced_on_a_run():
     inp = inputs(12, 20, seed=3)
     run = sk.StencilRun(*args(inp), design="per_step")
@@ -284,19 +294,21 @@ def test_stream_grid_fills_the_card(shape):
 
 
 def test_stream_plan_falls_back(monkeypatch):
-    # past TILE_MAX_PAD nothing tiles; where no strip fits the budget the
-    # 2-D tiles take it
+    # past TILE_MAX_PAD nothing tiles; where no strip fits the budget there
+    # is no streamed plan, and a reach of 2 to 4 has no other tiled plan:
+    # the route falls back to the per-step design
     assert sk.stream_plan((2048, 2048), WIDE_OFFSETS, H100_SMS) is None
     assert sk.tiled_plan((2048, 2048), WIDE_OFFSETS, H100_SMS) is None
     assert sk.stream_plan((2048, 2048), RADIUS2, H100_SMS,
                           budget=2000) is None
+    assert sk.tile_plan(RADIUS2) is None
     monkeypatch.setattr(sk, "stream_plan", lambda *a, **k: None)
-    assert sk.tiled_plan((2048, 2048), RADIUS2, H100_SMS) \
-        == sk.tile_plan(RADIUS2)
-    design, plan = sk.route((2048, 2048), RADIUS2, H100_SMS, lambda: SCALARS)
-    assert (design, plan) == ("tiled", sk.tile_plan(RADIUS2))
-    run = sk.StencilRun(*args(inputs(40, 40, seed=2)),
-                        plan=sk.tile_plan(RADIUS2))
+    assert sk.tiled_plan((2048, 2048), RADIUS2, H100_SMS) is None
+    assert sk.route((2048, 2048), RADIUS2, H100_SMS, lambda: SCALARS) \
+        == ("per_step", None)
+    radius1 = snt.radius_offsets(1.0)
+    run = sk.StencilRun(*args(inputs(40, 40, seed=2, radius=1.0)),
+                        plan=sk.tile_plan(radius1))
     assert run.design == "tiled" and not run.streamed
 
 
@@ -313,25 +325,6 @@ def test_reach_1_takes_the_2d_tiles(stencil, want):
         assert plan == sk.tile_plan(offsets)
     else:
         assert plan == sk.stream_plan((2048, 2048), offsets, H100_SMS)
-
-
-def test_the_kernels_radius_2_table_is_the_disc():
-    """The C entry gives the radius-2 disc, in radius_offsets' order, its
-    own instantiation (compile-time column offsets): its table must be
-    that disc."""
-    import os
-    import re
-    src = open(os.path.join(os.path.dirname(sk.__file__), os.pardir, "csrc",
-                            "izhikevich_stencil.cu")).read()
-    table = {}
-    for name in ("R2_DR", "R2_DC"):
-        got = re.findall(name + r"\[12\] = \{([^}]*)\}", src)
-        assert len(got) == 1, name
-        table[name] = [int(x) for x in got[0].split(",")]
-    assert tuple(zip(table["R2_DR"], table["R2_DC"])) == RADIUS2
-    got = re.findall(r"r2_(dr|dc)\[12\] = \{([^}]*)\}", src)
-    assert [[int(x) for x in v.split(",")] for _, v in got] \
-        == [table["R2_DR"], table["R2_DC"]]
 
 
 @pytest.mark.parametrize("shape,stencil,n_sm,k,emit", [
@@ -413,22 +406,26 @@ def test_tile_config_invariants(radius, tile):
     assert plan.cpt == 1 or (plan.cpt - 1) * sk.TILE_THREADS < cells
 
 
-@pytest.mark.parametrize("radius,tile", [
-    (1.0, (48, 48, 4)), (2.0, (48, 48, 4)), (3.0, (32, 32, 2)),
-    (4.0, (16, 16, 2))])
-def test_tile_plan_fits_the_budget(radius, tile):
+@pytest.mark.parametrize("radius,fits", [
+    (1.0, True), (1.5, True), (2.0, False), (3.0, False), (4.0, False)])
+def test_tile_plan_fits_the_budget(radius, fits):
+    """The 2-D tile `TILE` takes every stencil of a reach of at most 1,
+    within the budget; a farther reach has no 2-D tile."""
     offsets = snt.radius_offsets(radius)
     plan = sk.tile_plan(offsets)
+    if not fits:
+        assert plan is None
+        return
     assert plan is not None and plan.smem <= sk.SMEM_BUDGET
-    assert (plan.th, plan.tw, plan.kb) == tile
+    assert (plan.th, plan.tw, plan.kb) == sk.TILE
     assert plan.halo == plan.kb * sk.stencil_pad(offsets)
-    # no earlier candidate fits
-    for earlier in sk.TILES[:sk.TILES.index(tile)]:
-        assert sk.tile_config(*earlier, offsets) is None
 
 
 def test_tile_plan_radius_2_is_48_by_48_at_4_steps():
-    plan = sk.tile_plan(RADIUS2)
+    # radius 2 streams; the 2-D tile it would take (chip_smoke times it
+    # beside the streamed plan) fills the budget
+    assert sk.tile_plan(RADIUS2) is None
+    plan = sk.tile_config(*sk.TILE, RADIUS2)
     assert (plan.th, plan.tw, plan.kb, plan.halo) == (48, 48, 4, 8)
     assert (plan.lh, plan.lw, plan.cpt, plan.threads) == (64, 64, 4, 1024)
     assert plan.smem == 229376
@@ -436,7 +433,8 @@ def test_tile_plan_radius_2_is_48_by_48_at_4_steps():
 
 @pytest.mark.parametrize("shape", [(2048, 2048), (4096, 4096), (1024, 1024),
                                    (33, 70), (130, 100), (1, 1)])
-@pytest.mark.parametrize("tile", sk.TILES + ((28, 28, 4), (24, 40, 3)))
+@pytest.mark.parametrize("tile", [sk.TILE, (32, 32, 2), (16, 16, 2),
+                                  (28, 28, 4), (24, 40, 3)])
 def test_tiles_cover_every_cell_exactly_once(shape, tile):
     """The launch grid's interiors partition the lattice (the C entry's
     grid: ceil(cols / tw) x ceil(rows / th) blocks, interiors clipped)."""
@@ -454,7 +452,8 @@ def test_tiles_cover_every_cell_exactly_once(shape, tile):
     (16, "tiled", 4), (7, "tiled", 2), (17, "tiled", 5), (1, "tiled", 1),
     (16, "per_step", 16), (7, "per_step", 7)])
 def test_call_launches(n_steps, design, want):
-    assert sk.call_launches(n_steps, design, sk.tile_plan(RADIUS2)) == want
+    assert sk.call_launches(n_steps, design,
+                            sk.tile_plan(snt.radius_offsets(1.0))) == want
 
 
 # -- StencilRun against the per-call wrapper ----------------------------------
