@@ -16,7 +16,9 @@ computes with the control standing for the program's trial, each beside
 its limit, and ``correct`` as a run would give it.  The control must come
 out not correct.  Benchmark runs never run it.
 
-Faults (``--fault``):
+Faults (``--fault``): those that the cell's reference module plants, its
+``FAULTS`` mapping of names to context managers, each of which breaks the
+reference while it computes the control.  ``izhikevich_lattice``'s:
 
 * ``frozen_synapses``: R-STDP leaves the weights, the traces and the visit
   counter as they were while the neurons step.
@@ -34,21 +36,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LOWER = {"float32": "bfloat16", "float64": "float32"}
 
 
-@contextlib.contextmanager
-def frozen_synapses(reference):
-    """The reference's R-STDP visit returning the synapses unchanged."""
-    trial = reference.Trial
-    visit = trial._visit
-    trial._visit = lambda self, w, c, dw, counter, delta: (w, c, dw, counter)
-    try:
-        yield
-    finally:
-        trial._visit = visit
-
-
-FAULTS = {"frozen_synapses": frozen_synapses}
-
-
 def control_numbers(cell, seed, n_requests, device, fault=None):
     """The compared numbers of the control (or of the reference with
     ``fault`` planted) over ``n_requests`` requests of run ``seed`` (the
@@ -59,9 +46,8 @@ def control_numbers(cell, seed, n_requests, device, fault=None):
     dev = torch.device(device)
     graph, draws = cell.kind.inputs(cfg, traffic, seed, dev)
     dtype = torch.float32 if fault else getattr(torch, LOWER[cfg["dtype"]])
-    def planted():
-        return FAULTS[fault](cell.reference) if fault \
-            else contextlib.nullcontext()
+    planted = cell.reference.FAULTS[fault] if fault \
+        else contextlib.nullcontext
 
     rows_cmp = []
     for _ in range(n_requests):
@@ -69,7 +55,7 @@ def control_numbers(cell, seed, n_requests, device, fault=None):
         ref = cell.trial(cfg, traffic, graph, x)
         with planted():
             ctl = cell.trial(cfg, traffic, graph, x, dtype)
-        rows_cmp.append(check.numbers(ctl, ref, graph.mask, cfg))
+        rows_cmp.append(check.compare(cell, ctl, ref, graph.mask))
     return check.merge(rows_cmp)
 
 
@@ -78,12 +64,17 @@ def main(argv=None):
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--requests", type=int, default=None)
-    ap.add_argument("--fault", choices=sorted(FAULTS), default=None)
+    ap.add_argument("--fault", default=None,
+                    help="a name in the FAULTS of the cell's reference")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     from snnbench import catalog, check
     cell = catalog.Catalog().cell(args.workload)
+    faults = sorted(getattr(cell.reference, "FAULTS", {}))
+    if args.fault is not None and args.fault not in faults:
+        ap.error(f"the reference of {args.workload} plants no fault "
+                 f"{args.fault!r}; it plants {faults}")
     n = args.requests or int(cell.traffic["check_requests"])
     for seed in args.seeds:
         t0 = time.perf_counter()

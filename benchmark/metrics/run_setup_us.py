@@ -1,8 +1,8 @@
-"""Microseconds from an entry call's start (``lattice.run``,
-``reward.run``, ``loop.run``) to its first kernel call (``stencil.call``,
-``plasticity.call``; the closed loop's first ``loop.replay`` or
-``loop.step``): each run's set-up on the host, median over the entry calls
-of the port's span record (`snnbench.spans`)."""
+"""Microseconds from an entry call's start (``*.run``: ``lattice.run``,
+``reward.run``, ``loop.run``) to its first kernel call (``*.call``:
+``stencil.call``, ``plasticity.call``; the closed loop's first
+``loop.replay`` or ``loop.step``): each run's set-up on the host, median
+over the entry calls of the port's span record (`snnbench.spans`)."""
 
 from snnbench import spans
 

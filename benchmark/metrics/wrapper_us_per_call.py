@@ -1,8 +1,8 @@
 """Microseconds of the host a kernel call takes: the median duration of
-the port's ``stencil.call`` and ``plasticity.call`` spans (one wrapper call
-of 16 steps: its checks, buffers, launch arguments and C call) and of the
-closed loop's ``loop.step`` outside a replay (the callbacks and the
-one-step entry), as entry calls open them (`snnbench.spans`)."""
+the port's ``*.call`` spans (``stencil.call``, ``plasticity.call``: one
+wrapper call of 16 steps, its checks, buffers, launch arguments and C call)
+and of the closed loop's ``loop.step`` outside a replay (the callbacks and
+the one-step entry), as entry calls open them (`snnbench.spans`)."""
 
 from snnbench import spans
 

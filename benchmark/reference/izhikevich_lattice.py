@@ -28,6 +28,8 @@ One step, from the state before it:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -223,3 +225,22 @@ def closed_loop(cfg, traffic, graph, v0, dtype=torch.float32):
             -1).to(dtype).mean()
         t.v = torch.where(cue, env["cue_mv"], t.v)
     return _ended(t, {"rewards": torch.stack(rewards), "rate": rate})
+
+
+# The faults that ``control.py --fault`` plants in this reference while it
+# computes the control in the program's place: name -> context manager.
+
+@contextlib.contextmanager
+def frozen_synapses():
+    """R-STDP's visit returning the synapses unchanged: the weights, the
+    traces and the visit counter stay as they were while the neurons
+    step."""
+    visit = Trial._visit
+    Trial._visit = lambda self, w, c, dw, counter, delta: (w, c, dw, counter)
+    try:
+        yield
+    finally:
+        Trial._visit = visit
+
+
+FAULTS = {"frozen_synapses": frozen_synapses}

@@ -171,7 +171,7 @@ def run(cell, seed, seconds, trace, device, t0, log=print, root=ROOT):
     rows_cmp = []
     for x, prog in keep.items:
         ref = cell.trial(cfg, traffic, graph, x)
-        rows_cmp.append(check.numbers(prog, ref, graph.mask, cfg))
+        rows_cmp.append(check.compare(cell, prog, ref, graph.mask))
     ok, checks = check.verdict(check.merge(rows_cmp), check.limits_of(cell))
     if not route_ok:
         log("the window's requests did not all take the kernel route "

@@ -170,3 +170,96 @@ def test_a_cell_added_as_files_runs_without_edits(tmp_path):
     assert traced["correct"]
     assert traced["metrics"]["t_metric"]["value"] == traced["attempted"]
     assert traced["metrics"]["step_mfu"]["value"] > 0
+
+
+T_STATE_KIND = '''\
+import torch
+from snnbench import counts, inputs as _inputs, requests
+
+
+class Runner(requests.RewardRun):
+    """R-STDP requests whose snapshot is a (rows, cols, 3) plane of each
+    neuron's v, u and last firing time, the firing times and the weights,
+    and nothing else."""
+
+    def snapshot(self):
+        s = super().snapshot()
+        return {"t$state": torch.stack(
+                    (s["v"], s["w"], s["lft"].to(s["v"].dtype)), -1),
+                "lft": s["lft"], "weights": s["weights"]}
+
+
+inputs = _inputs.lattice_inputs
+
+
+def call_least(cfg, traffic, graph):
+    return counts.lp_call_least(*graph.shape, graph.offsets,
+                                graph.masked_slots)
+'''
+
+T_STATE_REF = '''
+
+_MOVE = [0.0]
+
+
+def t_state(cfg, traffic, graph, v0, dtype=torch.float32):
+    out = reward_run(cfg, traffic, graph, v0, dtype)
+    fired = out["lft"].to(out["v"].dtype) + _MOVE[0]
+    return {"t$state": torch.stack((out["v"], out["w"], fired), -1),
+            "lft": out["lft"], "weights": out["weights"]}
+
+
+@contextlib.contextmanager
+def third_entry():
+    """The last entry of the (rows, cols, 3) plane, alone, 5 off."""
+    _MOVE[0] = 5.0
+    try:
+        yield
+    finally:
+        _MOVE[0] = 0.0
+
+
+FAULTS = {"third_entry": third_entry}
+'''
+
+
+def test_a_cell_comparing_its_own_state_runs_without_edits(tmp_path):
+    """A throwaway configuration whose accuracy compares a (rows, cols, 3)
+    plane a neuron and, of the synapses, only the weights (no traces, no
+    dopamine), with a traffic kind whose snapshot holds just those and a
+    reference that computes just those and carries its own `FAULTS`, added
+    as files: the cell runs through the harness as it is with ``correct``
+    true, and the reference's planted fault, through `control`, reads
+    ``correct`` false on every seed."""
+    import control
+    from snnbench import check
+    cfg = json.load(open(os.path.join(BENCH, "configs", "izh_rstdp.json")))
+    cfg.update(name="t_state_config", reference="t_state_ref",
+               accuracy={"neurons": {"t$state": 2.0}, "firing": {"lft": 2},
+                         "synapses": ["weights"], "synapse_rel": 1e-05},
+               limits={"neurons_off": 0.01, "synapses_off": 0.01})
+    cat = tiny_catalog(tmp_path)
+    (tmp_path / "configs" / "t_state_config.json").write_text(
+        json.dumps(cfg))
+    (tmp_path / "traffic" / "t_state_mix.json").write_text(json.dumps(
+        {"kind": "t_state", "rows": 16, "cols": 16, "steps": 320,
+         "reward": 0.5, "v0": [-65.0, 30.0], "warmup_requests": 1,
+         "check_requests": 2, "trace_requests": 1}))
+    (tmp_path / "traffic" / "kinds" / "t_state.py").write_text(T_STATE_KIND)
+    ref = open(os.path.join(BENCH, "reference", "izhikevich_lattice.py"))
+    (tmp_path / "reference" / "t_state_ref.py").write_text(
+        ref.read() + T_STATE_REF)
+    cat.spec["workloads"].append({"name": "t_state_cell",
+                                  "config": "t_state_config",
+                                  "traffic": "t_state_mix", "chips": 1,
+                                  "why": "t"})
+    cell = cat.cell("t_state_cell")
+    assert sorted(cell.reference.FAULTS) == ["third_entry"]
+    got = run_cell(cat, "t_state_cell")
+    assert got["correct"] and list(got["checks"]) == ["neurons_off",
+                                                      "synapses_off"]
+    for seed in (1, 2, 3):
+        nums = control.control_numbers(cell, seed, 2, "cpu", "third_entry")
+        ok, checks = check.verdict(nums, check.limits_of(cell))
+        assert ok is False and nums["neurons_off"] == 1.0
+        assert nums["synapses_off"] == 0.0

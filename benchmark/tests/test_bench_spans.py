@@ -1,9 +1,11 @@
 """The readers of the port's span record (`snnbench.spans`,
 ``metrics/run_setup_us.py``, ``wrapper_us_per_call.py``,
 ``host_waits_per_run.py``): on synthetic records, where the medians fall in
-the larger device-only slice whatever the host slice's inflated times; None
-on an empty record or a program without one; and on the record of a
-traced run of the tiny cells on the CPU."""
+the larger device-only slice whatever the host slice's inflated times, and
+where the span names matched by their form read as the old list of names
+did and read a new kernel wrapper's calls too; None on an empty record or
+a program without one; and on the record of a traced run of the tiny cells
+on the CPU."""
 
 import sys
 from types import SimpleNamespace
@@ -89,6 +91,33 @@ def read_all(monkeypatch, record):
     return {name: cat.reader(name)(None) for name in READERS}
 
 
+# The readers' span names as they were listed before the names were
+# matched by their form, kept as the oracle of the form.
+OLD_ENTRIES = ("lattice.run", "reward.run", "loop.run")
+OLD_CALLS = ("stencil.call", "plasticity.call", "loop.replay", "loop.step")
+
+
+def old_entry_calls(record):
+    by_call = {}
+    for s in record:
+        by_call.setdefault(s.call, []).append(s)
+    return [(s, sorted(by_call[s.id], key=lambda x: x.id)) for s in record
+            if s.parent is None and s.name in OLD_ENTRIES]
+
+
+def old_direct_calls(entry, record):
+    return [s for s in record if s.parent == entry.id and s.name in OLD_CALLS]
+
+
+def read_old_and_new(monkeypatch, record):
+    new = read_all(monkeypatch, record)
+    with monkeypatch.context() as m:
+        m.setattr(spans, "entry_calls", old_entry_calls)
+        m.setattr(spans, "direct_calls", old_direct_calls)
+        old = read_all(m, record)
+    return old, new
+
+
 def card_bound(rec, name, call, requests, setup_us, call_us, waits):
     for _ in range(requests):
         rec.run(name, setup_us, call_us, 8, waits, call)
@@ -147,6 +176,48 @@ def test_a_call_cut_by_the_bounded_record(monkeypatch):
     assert got["run_setup_us"] == pytest.approx(400.0)
 
 
+def _records():
+    """A record of each kind of entry call: the stencil's and the R-STDP
+    lattice's, the closed loop's with its probe, and a Hodgkin-Huxley
+    lattice's (``lattice.run`` with ``hh.call`` kernel calls)."""
+    out = {}
+    for name, entry, call, waits in (
+            ("stencil", "lattice.run", "stencil.call",
+             ["wait.nt_mask", "wait.uniform_scalars"]),
+            ("plasticity", "reward.run", "plasticity.call",
+             ["wait.nt_mask", "wait.dopamine"]),
+            ("hh", "lattice.run", "hh.call", ["wait.nt_mask"])):
+        rec = Recorder()
+        card_bound(rec, entry, call, 1, 450.0, 22.0, waits)
+        card_bound(rec, entry, call, 20, 400.0, 20.0, waits)
+        card_bound(rec, entry, call, 5, 950.0, 47.0, waits)
+        out[name] = rec.spans
+    rec = Recorder()
+    rec.loop(300.0, 40.0, 9, 6, probe=True)
+    for _ in range(20):
+        rec.loop(120.0, 30.0, 9, 6)
+    out["loop"] = rec.spans
+    return out
+
+
+@pytest.mark.parametrize("kind", ["stencil", "plasticity", "loop"])
+def test_the_readers_read_as_the_listed_names_did(monkeypatch, kind):
+    """On records of today's entries and calls, the names matched by their
+    form give every reader the value that the list of names gave."""
+    old, new = read_old_and_new(monkeypatch, _records()[kind])
+    assert new == old and None not in new.values()
+
+
+def test_a_new_kernel_wrappers_calls_are_read(monkeypatch):
+    """An HH lattice's ``hh.call`` spans, which the list of names left
+    out: its set-up and its calls are read, its waits as before."""
+    old, new = read_old_and_new(monkeypatch, _records()["hh"])
+    assert old["run_setup_us"] is None and old["wrapper_us_per_call"] is None
+    assert 400.0 <= new["run_setup_us"] <= 450.0
+    assert new["wrapper_us_per_call"] == pytest.approx(20.0)
+    assert new["host_waits_per_run"] == old["host_waits_per_run"] == 1
+
+
 @pytest.mark.parametrize("module", [
     None, SimpleNamespace(), SimpleNamespace(record=lambda: [])])
 def test_none_without_a_record(monkeypatch, module):
@@ -168,10 +239,12 @@ def cat(tmp_path_factory):
 
 @pytest.mark.parametrize("cell,waits", [("t_lattice", 1), ("t_reward", 2),
                                         ("t_loop", 2)])
-def test_a_traced_run_reports_the_span_metrics(cat, cell, waits):
+def test_a_traced_run_reports_the_span_metrics(cat, cell, waits,
+                                                monkeypatch):
     """The tiny cells on the CPU (the profiled slices on the CPU's
     profiler): each traced run reports the three metrics from the port's
-    record, which holds the slices' requests alone."""
+    record, which holds the slices' requests alone, and reads them from
+    it as the listed names did."""
     from spiking_neural_networks_tpu_torch.utils import profiling
     profiling.clear()
     traced = run_cell(cat, cell, trace=True)
@@ -184,5 +257,8 @@ def test_a_traced_run_reports_the_span_metrics(cat, cell, waits):
     # the unread profile's request, one in the device slice, two in the
     # host slice
     assert len(entries) == 4
+    record = profiling.record()
     e2e = run_cell(cat, cell)
     assert not set(e2e["metrics"]) & set(READERS)
+    old, new = read_old_and_new(monkeypatch, record)
+    assert new == old

@@ -5,8 +5,11 @@ at ``cue_mv``, the reward ``clip(target_rate - rate, -clip, clip)``, and
 ``rate = keep * rate + take * mean spike``.  Each episode starts from its
 own initial voltages (uniform in the mix's ``v0``), zero traces, zero
 dopamine and rate 0; readout the per-step rewards.  The reference's
-``closed_loop`` recomputes an episode; a call's least time is the R-STDP
-step's count."""
+``closed_loop`` recomputes an episode, and `numbers` compares the
+episode's rewards and rate beside the configuration's state; a call's least
+time is the R-STDP step's count."""
+
+import math
 
 import torch
 
@@ -59,6 +62,17 @@ class Runner(requests.RewardRun):
         out.update(rewards=torch.as_tensor(self.rewards),
                    rate=self.env.state["rate"].clone())
         return out
+
+
+def numbers(prog, ref):
+    """The loop's own compared numbers: ``rewards_gap``, the largest gap of
+    a step's reward, and ``rate_gap``, the gap of the environment's
+    rate."""
+    gap = (prog["rewards"].float().to(ref["rewards"].device)
+           - ref["rewards"].float()).abs()
+    return {"rewards_gap": float(gap.max()) if bool(
+                torch.isfinite(gap).all()) else math.inf,
+            "rate_gap": abs(float(prog["rate"]) - float(ref["rate"]))}
 
 
 inputs = _inputs.lattice_inputs
